@@ -1,0 +1,90 @@
+"""numpy <-> ``Scene`` / ``Camera`` / ``Accel2``.
+
+State crosses between this package and any other array library as
+dictionaries of numpy arrays keyed by field name:
+``{f: np.asarray(getattr(scene, f)) for f in SCENE_FIELDS}``.
+
+``accel2_from_numpy`` takes the sphere accel in the JAX package's table
+layout (``otab`` (Np + Pp, 128), the float32 ``ftab`` (24, Np) with its bf16
+splits summed, ``gaabb`` (G + PG, 128), ``perm``) and re-lays it into this
+package's row-major tables, so the sweep can be held against the same accel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from raytracing_tests_tpu_torch.kernels import sweep2
+from raytracing_tests_tpu_torch.scene.types import Camera, Scene
+
+SCENE_FIELDS = tuple(f.name for f in dataclasses.fields(Scene) if f.name != "textures")
+CAMERA_FIELDS = tuple(f.name for f in dataclasses.fields(Camera))
+
+# Column indices of the JAX package's (Np, 128) object table.
+_SRC_OT = {"c": slice(0, 3), "k1": 16, "ri": 19, "rinv2": 20}
+_SRC_OT_MOTION = (slice(8, 11), 17, 18)  # dp, k2, k3
+
+
+def _from_numpy(cls, names, leaves, device):
+    missing = [n for n in names if n not in leaves]
+    if missing:
+        raise KeyError(f"{cls.__name__}: missing fields {missing}")
+    return cls(**{
+        n: torch.from_numpy(np.array(leaves[n])).to(device) for n in names})
+
+
+def _to_numpy(obj, names):
+    return {n: getattr(obj, n).detach().cpu().numpy() for n in names}
+
+
+def scene_from_numpy(leaves: dict, device="cpu") -> Scene:
+    if leaves.get("textures") is not None:
+        raise NotImplementedError("textures are not ported yet")
+    return _from_numpy(Scene, SCENE_FIELDS, leaves, device)
+
+
+def scene_to_numpy(scene: Scene) -> dict:
+    return _to_numpy(scene, SCENE_FIELDS)
+
+
+def camera_from_numpy(leaves: dict, device="cpu") -> Camera:
+    return _from_numpy(Camera, CAMERA_FIELDS, leaves, device)
+
+
+def camera_to_numpy(camera: Camera) -> dict:
+    return _to_numpy(camera, CAMERA_FIELDS)
+
+
+def accel2_from_numpy(otab, ftab, gaabb, perm, gr: int, device="cpu") -> sweep2.Accel2:
+    """Re-lay a sphere accel given in the JAX package's layout (see module
+    docstring) into an ``Accel2``.  Motion columns must be zero."""
+    otab = np.asarray(otab, np.float32)
+    ftab = np.asarray(ftab, np.float32)
+    gaabb = np.asarray(gaabb, np.float32)
+    n_pad = ftab.shape[1]
+    if n_pad % gr:
+        raise ValueError(f"ftab width {n_pad} is no multiple of gr={gr}")
+    G = n_pad // gr
+    n_probe = otab.shape[0] - n_pad
+    if n_probe % sweep2.PROBE_GR or gaabb.shape[0] != G + n_probe // sweep2.PROBE_GR:
+        raise ValueError("otab / gaabb row counts do not match the probe grouping")
+    dp, k2, k3 = _SRC_OT_MOTION
+    if otab[:, dp].any() or otab[:, k2].any() or otab[:, k3].any():
+        raise NotImplementedError("motion blur is not ported yet")
+    o = np.zeros((otab.shape[0], sweep2.OT_COLS), np.float32)
+    o[:, sweep2.OT_CX:sweep2.OT_CZ + 1] = otab[:, _SRC_OT["c"]]
+    o[:, sweep2.OT_K1] = otab[:, _SRC_OT["k1"]]
+    o[:, sweep2.OT_RI] = otab[:, _SRC_OT["ri"]]
+    o[:, sweep2.OT_RINV2] = otab[:, _SRC_OT["rinv2"]]
+    f = np.zeros((n_pad, sweep2.FT_COLS), np.float32)
+    f[:, :sweep2.FT_R2 + 1] = ftab[:sweep2.FT_R2 + 1].T
+    g = np.zeros((gaabb.shape[0], sweep2.GA_COLS), np.float32)
+    g[:, 0:9] = gaabb[:, 0:9]
+    t = lambda a: torch.from_numpy(np.array(a)).to(device)  # own, writable copy
+    return sweep2.Accel2(
+        otab=t(o), ftab=t(f), gaabb=t(g),
+        perm=t(np.asarray(perm, np.int32)), gr=gr,
+        n_pgroups=n_probe // sweep2.PROBE_GR)

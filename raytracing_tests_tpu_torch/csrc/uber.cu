@@ -1,0 +1,349 @@
+// Persistent whole-frame path tracer for Hopper (sm_90a).
+//
+// Replaces the TPU kernel raytracing_tests_tpu/kernels/uber.py::_uber_kernel
+// (launched by _uber_call) for sphere-mode scenes under In-Next-Week ('bvh')
+// shading without lights, textures or motion: per primary p (pixel p / spp,
+// sample p % spp) generate the camera ray, then walk its ray tree with a LIFO
+// stack of Q records (o3, d3, contribution, bounce count) under a budget of
+// `pops` nodes, the reflection child continuing in place and the refraction
+// child waiting on the stack.  Output: one float4 (r, g, b, primary t) per
+// primary in p-linear order, plus frame counters.
+//
+// What bounds it on this card: operations.  A primary writes 16 bytes and
+// reads nothing but the scene tables, while every tree node tests the spheres
+// of each group its slab test admits.  The cost that can be lost is lane
+// occupancy: trees are 1 to `pops` nodes long, so a thread-per-primary loop
+// would idle most of a warp behind its longest tree.  The design is one
+// thread per ray TREE in a single persistent loop: a thread whose tree ends
+// takes the next primary at the top of the same loop (one warp-aggregated
+// atomic hands consecutive primaries to the lanes that need one), so lanes
+// refill at once and a warp's lanes stay on neighbouring samples of the same
+// pixels, which keeps their group walks together.  The stack lives in
+// thread-local memory.  The TPU version's rounds, lane rotation and staged
+// flush are scheduling for a vector core and have no counterpart.
+#include "rt_common.cuh"
+
+namespace {
+
+constexpr int MAX_Q = 8;  // compile-time stack capacity (records)
+constexpr int REC = 8;    // floats per stacked record
+
+// Camera vector layout (kernels/uber.py::pack_camera).
+enum {
+  CAM_PX = 0, CAM_PY, CAM_PZ, CAM_DX, CAM_DY, CAM_DZ,
+  CAM_RX, CAM_RY, CAM_RZ, CAM_UX, CAM_UY, CAM_UZ,
+  CAM_SD, CAM_AP, CAM_FD, CAM_STRIDE, CAM_ROW0, CAM_PAD, CAM_LEN = 24
+};
+
+// Host-side parameter vectors (kernels/uber.py fills them).
+enum { IP_W = 0, IP_H /* unused: 1/H comes in fp */, IP_SPP, IP_Q, IP_POPS, IP_HAS_DIEL, IP_NGROUPS, IP_GR,
+       IP_NPGROUPS, IP_PROBE_GR, IP_LEN };
+enum { FP_TMAX = 0, FP_GOLDEN, FP_INV_W, FP_INV_H, FP_ASPECT,
+       FP_SUN_N, FP_SUN_NMB, FP_SUN_DENOM, FP_SUN_INV_DENOM, FP_MAX_BOUNCES,
+       FP_BG_BOTTOM, FP_BG_TOP = FP_BG_BOTTOM + 3, FP_LEN = FP_BG_TOP + 3 };
+
+// Frame counters (device, zeroed by the wrapper before each launch).
+enum { ST_NEXT = 0, ST_RAYS, ST_DROPPED, ST_SPHERE_TESTS, ST_LEN };
+
+struct UberParams {
+  int W, spp, Q, pops;
+  unsigned long long B_total;
+  float t_max, golden, inv_W, inv_H, aspect, sun_inv_denom;
+  float bg_bottom[3], bg_top[3];
+  rt::ShadeStatics shade;
+};
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, contrib, bounced;
+};
+
+// Primary ray of global index p: perspective screen direction from the
+// unnormalised right/up basis, then the sunflower thin-lens pivot about the
+// focal point.  Also returns cos/sin(GOLDEN_ANGLE * s), reused by the scatter
+// cones of the whole tree.
+__device__ __forceinline__ Ray raygen(const UberParams& P,
+                                      const float* __restrict__ cam,
+                                      unsigned long long p, float& sidx,
+                                      float& cth, float& sth) {
+  const unsigned long long pix = p / (unsigned)P.spp;
+  const int s_i = (int)(p - pix * (unsigned)P.spp);
+  const float sf = (float)s_i;
+  const int ix = (int)(pix % (unsigned)P.W);
+  const int iyi = (int)(pix / (unsigned)P.W);
+  const float iy = (float)iyi * __ldg(cam + CAM_STRIDE) + __ldg(cam + CAM_ROW0);
+  const float pxs = ((float)ix * P.inv_W - 0.5f) * P.aspect;
+  const float pys = iy * P.inv_H - 0.5f;
+  const float sd = __ldg(cam + CAM_SD);
+  float bdx = __ldg(cam + CAM_DX) * sd + __ldg(cam + CAM_RX) * pxs + __ldg(cam + CAM_UX) * pys;
+  float bdy = __ldg(cam + CAM_DY) * sd + __ldg(cam + CAM_RY) * pxs + __ldg(cam + CAM_UY) * pys;
+  float bdz = __ldg(cam + CAM_DZ) * sd + __ldg(cam + CAM_RZ) * pxs + __ldg(cam + CAM_UZ) * pys;
+  const float binv = rsqrtf(fmaxf(bdx * bdx + bdy * bdy + bdz * bdz, 1e-30f));
+  bdx *= binv;
+  bdy *= binv;
+  bdz *= binv;
+
+  // sunflower_disc(s, spp, aperture)
+  const rt::Sunflower& S = P.shade.sun;
+  const float half_ap = __ldg(cam + CAM_AP) * 0.5f;
+  float r = sf > S.n_minus_b
+                ? half_ap
+                : half_ap * sqrtf(fmaxf(sf - 0.5f, 0.0f) * P.sun_inv_denom);
+  if (sf == 0.0f) r = 0.0f;
+  const float th = P.golden * sf;
+  cth = cosf(th);
+  sth = sinf(th);
+  sidx = sf;
+  const float offx = r * cth, offy = r * sth;
+  // cross(base, up) and cross(that, base)
+  const float rrx = -bdz, rry = 0.0f, rrz = bdx;
+  const float rux = rry * bdz - rrz * bdy;
+  const float ruy = rrz * bdx - rrx * bdz;
+  const float ruz = rrx * bdy - rry * bdx;
+
+  const float fd = __ldg(cam + CAM_FD);
+  const float cpx = __ldg(cam + CAM_PX), cpy = __ldg(cam + CAM_PY), cpz = __ldg(cam + CAM_PZ);
+  const float tipx = cpx + bdx + rrx * offx + rux * offy;
+  const float tipy = cpy + bdy + rry * offx + ruy * offy;
+  const float tipz = cpz + bdz + rrz * offx + ruz * offy;
+  float ddx = cpx + bdx * fd - tipx;
+  float ddy = cpy + bdy * fd - tipy;
+  float ddz = cpz + bdz * fd - tipz;
+  const float dinv = rsqrtf(fmaxf(ddx * ddx + ddy * ddy + ddz * ddz, 1e-30f));
+  ddx *= dinv;
+  ddy *= dinv;
+  ddz *= dinv;
+  Ray ray;
+  ray.ox = tipx - ddx;
+  ray.oy = tipy - ddy;
+  ray.oz = tipz - ddz;
+  ray.dx = ddx;
+  ray.dy = ddy;
+  ray.dz = ddz;
+  ray.contrib = 1.0f;
+  ray.bounced = 0.0f;
+  return ray;
+}
+
+__global__ void __launch_bounds__(128) uber_kernel(
+    rt::Tables T, UberParams P, const float* __restrict__ cam,
+    float4* __restrict__ out, unsigned long long* __restrict__ stats) {
+  const unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+
+  bool act = false, exhausted = false;
+  Ray cur = {};
+  unsigned long long p = 0;
+  float sidx = 0.0f, cth = 1.0f, sth = 0.0f;
+  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_t = P.t_max;
+  int qs = 0, cnt = 0;
+  float stack[MAX_Q * REC];
+  unsigned long long n_rays = 0, n_drop = 0, n_tests = 0;
+
+  for (;;) {
+    // ---- lanes whose tree ended take the next primaries ------------------
+    const bool want = !act && !exhausted;
+    const unsigned need = __ballot_sync(FULL, want);
+    if (need) {
+      const int leader = __ffs(need) - 1;
+      unsigned long long base = 0;
+      if (lane == leader)
+        base = atomicAdd(&stats[ST_NEXT], (unsigned long long)__popc(need));
+      base = __shfl_sync(FULL, base, leader);
+      if (want) {
+        const unsigned long long pp = base + __popc(need & ((1u << lane) - 1u));
+        if (pp >= P.B_total) {
+          exhausted = true;
+        } else {
+          p = pp;
+          cur = raygen(P, cam, p, sidx, cth, sth);
+          acc_r = acc_g = acc_b = 0.0f;
+          acc_t = P.t_max;
+          qs = 0;
+          cnt = 0;
+          act = true;
+        }
+      }
+    }
+    if (__all_sync(FULL, !act)) break;
+    if (!act) continue;  // idle lanes wait at the ballot for the busy ones
+
+    // ---- trace + shade one node -----------------------------------------
+    const bool live =
+        (cur.dx * cur.dx + cur.dy * cur.dy + cur.dz * cur.dz) > 0.5f;
+    float t_best;
+    int obj;
+    unsigned tests = 0;
+    rt::nearest_hit(T, cur.ox, cur.oy, cur.oz, cur.dx, cur.dy, cur.dz, live,
+                    P.t_max, t_best, obj, tests);
+    n_tests += tests;
+
+    float add_r, add_g, add_b, hit_t;
+    bool sp_refr = false, sp_refl = false;
+    rt::Child refr = {}, refl = {};
+    if (obj >= 0) {
+      const rt::Shade sh = rt::shade_hit(
+          T, P.shade, obj, t_best, cur.ox, cur.oy, cur.oz, cur.dx, cur.dy,
+          cur.dz, cur.contrib, cur.bounced, sidx, cth, sth);
+      add_r = sh.add_r;
+      add_g = sh.add_g;
+      add_b = sh.add_b;
+      hit_t = sh.hit_t;
+      sp_refr = sh.spawn_refr;
+      sp_refl = sh.spawn_refl;
+      refr = sh.refr;
+      refl = sh.refl;
+    } else {
+      // Miss: contribution times the sky gradient, depth t_max.
+      const float tt = (cur.dy + 1.0f) * 0.5f;
+      add_r = cur.contrib * ((1.0f - tt) * P.bg_bottom[0] + tt * P.bg_top[0]);
+      add_g = cur.contrib * ((1.0f - tt) * P.bg_bottom[1] + tt * P.bg_top[1]);
+      add_b = cur.contrib * ((1.0f - tt) * P.bg_bottom[2] + tt * P.bg_top[2]);
+      hit_t = P.t_max;
+    }
+    if (cur.bounced == 0.0f) acc_t = hit_t;  // primary hit distance
+    acc_r += add_r;
+    acc_g += add_g;
+    acc_b += add_b;
+    n_rays += 1;  // every processed node counts, misses included
+
+    // ---- children: reflection in place, refraction on the stack ----------
+    const float bounced1 = cur.bounced + 1.0f;
+    const bool push = sp_refl && sp_refr;
+    const bool canq = qs < P.Q;
+    if (push && canq) {
+      float* rec = stack + qs * REC;
+      rec[0] = refr.ox;
+      rec[1] = refr.oy;
+      rec[2] = refr.oz;
+      rec[3] = refr.dx;
+      rec[4] = refr.dy;
+      rec[5] = refr.dz;
+      rec[6] = refr.contrib;
+      rec[7] = bounced1;
+      qs += 1;
+    }
+    // On overflow the stacked-preference child (refraction) survives and the
+    // in-place one is dropped; the drop is counted.
+    const bool overflow = push && !canq;
+    if (overflow) n_drop += 1;
+    // Per-primary node budget: the tree dies and stacked siblings are dropped.
+    cnt += 1;
+    const bool kill = cnt >= P.pops;
+    if (kill) {
+      qs = 0;
+      act = false;
+    } else if (sp_refl && !overflow) {
+      cur.ox = refl.ox;
+      cur.oy = refl.oy;
+      cur.oz = refl.oz;
+      cur.dx = refl.dx;
+      cur.dy = refl.dy;
+      cur.dz = refl.dz;
+      cur.contrib = refl.contrib;
+      cur.bounced = bounced1;
+    } else if (sp_refr) {
+      cur.ox = refr.ox;
+      cur.oy = refr.oy;
+      cur.oz = refr.oz;
+      cur.dx = refr.dx;
+      cur.dy = refr.dy;
+      cur.dz = refr.dz;
+      cur.contrib = refr.contrib;
+      cur.bounced = bounced1;
+    } else if (qs > 0) {
+      qs -= 1;
+      const float* rec = stack + qs * REC;
+      cur.ox = rec[0];
+      cur.oy = rec[1];
+      cur.oz = rec[2];
+      cur.dx = rec[3];
+      cur.dy = rec[4];
+      cur.dz = rec[5];
+      cur.contrib = rec[6];
+      cur.bounced = rec[7];
+    } else {
+      act = false;
+    }
+    if (!act) out[p] = make_float4(acc_r, acc_g, acc_b, acc_t);
+  }
+
+  // ---- frame counters: warp reduce, one atomic per warp and counter ------
+  for (int off = 16; off > 0; off >>= 1) {
+    n_rays += __shfl_down_sync(FULL, n_rays, off);
+    n_drop += __shfl_down_sync(FULL, n_drop, off);
+    n_tests += __shfl_down_sync(FULL, n_tests, off);
+  }
+  if (lane == 0) {
+    atomicAdd(&stats[ST_RAYS], n_rays);
+    atomicAdd(&stats[ST_DROPPED], n_drop);
+    atomicAdd(&stats[ST_SPHERE_TESTS], n_tests);
+  }
+}
+
+}  // namespace
+
+// Compile-time stack capacity, so the wrapper can refuse a deeper stack.
+extern "C" int rt_uber_max_q(void) { return MAX_Q; }
+
+// out: (B_total, 4) float32; stats: uint64[4], zeroed by the caller
+// (next primary, rays, dropped, sphere tests); cam: device (24,) float32;
+// ip / fp: HOST parameter vectors (IP_* / FP_* above).  Launches on `stream`,
+// does not synchronise, returns cudaGetLastError().
+extern "C" int rt_uber_render(const void* otab, const void* ftab,
+                              const void* gaabb, const void* cam,
+                              const int* ip, const float* fp,
+                              long long B_total, void* out, void* stats,
+                              void* stream) {
+  if (B_total <= 0) return 0;
+  if (ip[IP_Q] < 0 || ip[IP_Q] > MAX_Q) return (int)cudaErrorInvalidValue;
+  rt::Tables T;
+  T.otab = static_cast<const float*>(otab);
+  T.ftab = static_cast<const float*>(ftab);
+  T.gaabb = static_cast<const float*>(gaabb);
+  T.n_groups = ip[IP_NGROUPS];
+  T.gr = ip[IP_GR];
+  T.n_pgroups = ip[IP_NPGROUPS];
+  T.probe_gr = ip[IP_PROBE_GR];
+
+  UberParams P;
+  P.W = ip[IP_W];
+  P.spp = ip[IP_SPP];
+  P.Q = ip[IP_Q];
+  P.pops = ip[IP_POPS];
+  P.B_total = (unsigned long long)B_total;
+  P.t_max = fp[FP_TMAX];
+  P.golden = fp[FP_GOLDEN];
+  P.inv_W = fp[FP_INV_W];
+  P.inv_H = fp[FP_INV_H];
+  P.aspect = fp[FP_ASPECT];
+  P.sun_inv_denom = fp[FP_SUN_INV_DENOM];
+  for (int c = 0; c < 3; ++c) {
+    P.bg_bottom[c] = fp[FP_BG_BOTTOM + c];
+    P.bg_top[c] = fp[FP_BG_TOP + c];
+  }
+  P.shade.sun.n = fp[FP_SUN_N];
+  P.shade.sun.n_minus_b = fp[FP_SUN_NMB];
+  P.shade.sun.denom = fp[FP_SUN_DENOM];
+  P.shade.max_bounces = fp[FP_MAX_BOUNCES];
+  P.shade.has_dielectrics = ip[IP_HAS_DIEL];
+
+  // Fill the card once: as many resident blocks as it holds, no more than
+  // the frame has primaries for.
+  const int threads = 128;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, uber_kernel,
+                                                    threads, 0);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) per_sm = 1;
+  long long blocks = (long long)sms * per_sm;
+  const long long needed = (B_total + threads - 1) / threads;
+  if (blocks > needed) blocks = needed;
+  uber_kernel<<<(int)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      T, P, static_cast<const float*>(cam), static_cast<float4*>(out),
+      static_cast<unsigned long long*>(stats));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,485 @@
+"""The queue path tracer: a bounded per-lane ray-queue bounce loop.
+
+Every (pixel, sample) lane owns a fixed-capacity LIFO ray QUEUE held as SoA
+tensors; each step pops the top of every lane, intersects, shades and pushes
+the children, vectorized across the lane axis.  This is the port's readable
+reference renderer; the fast path is ``kernels.uber.render_uber``.
+
+Semantics reproduced:
+  - absorption shading: every processed ray adds ``contribution * albedo``;
+    each hit spawns up to two children (refract, reflect) and damps its own
+    contribution by ``1 - 0.5 * (spawned fractions)``,
+  - surrounding-refractive-index estimation by point-inclusion,
+  - deterministic sunflower/cone sample distributions (no RNG),
+  - per-sample gamma-2 then mean over samples.
+
+Ported so far: ``shading="bvh"`` without lights or textures, through the
+``brute`` intersector (any primitive) or the ``pallas`` intersector in sphere
+mode (the grouped sweep kernel ``kernels.sweep2``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from raytracing_tests_tpu_torch.core import linalg, sampling
+from raytracing_tests_tpu_torch.ops import intersect as isect
+from raytracing_tests_tpu_torch.ops.camera_rays import primary_rays
+from raytracing_tests_tpu_torch.scene.types import Camera, Scene
+from raytracing_tests_tpu_torch.utils.device import resolve_device
+
+MAX_T_DEPTH = 32000.0
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static render parameters."""
+
+    width: int = 128
+    height: int = 72
+    spp: int = 4  # samples per pixel
+    max_bounces: int = 5
+    queue_capacity: int = 5  # 40-float stack / 8 floats per record
+    max_pops: Optional[int] = None  # ray-tree budget; None -> 2*max_bounces + 1
+    t_max: float = MAX_T_DEPTH
+    background: tuple = ((1.0, 1.0, 1.0), (0.3, 0.4, 1.0))  # bottom, top
+    intersector: str = "brute"  # 'brute' | 'pallas' (the grouped sweep kernel)
+    # 'bvh': the In-Next-Week family shading (surrounding-RI estimation,
+    #        deviate-cone scatter, 0.5-forward damping).  The only one ported.
+    shading: str = "bvh"
+    lane_chunk: Optional[int] = None  # bound peak memory: lanes per step
+    aa_grid: bool = False  # sub-pixel supersampling grid (not ported yet)
+    early_exit: bool = True  # stop as soon as every ray queue drains
+    # Static scene features (set via for_scene()).  has_dielectrics gates the
+    # surrounding-refractive-index sweep -- the single most expensive per-pop
+    # op for scenes that never refract.
+    has_dielectrics: bool = True
+    pallas_mode: str = "generic"  # 'spheres' | 'generic' (set via for_scene)
+    has_motion: bool = True
+    # Count of dielectric (ri != 1) rows — sizes the trailing surrounding-RI
+    # probe sub-table (sweep2.make_accel2).  -1 = count at accel-build time.
+    probe_rows: int = -1
+
+    def for_scene(self, scene) -> "RenderConfig":
+        """Specialize static flags from a scene."""
+        from raytracing_tests_tpu_torch.kernels.sweep import scene_has_motion, scene_mode
+
+        npy = lambda x: x.detach().cpu().numpy()
+        refr = npy(scene.refractivity) * npy(scene.valid)
+        dmask = npy(scene.valid) & (npy(scene.refractive_index) != 1.0)
+        has_d = bool((refr > 0.002).any())
+        # The probe sub-table is consumed only on the has_dielectrics
+        # bvh-shading path — don't carry the rows otherwise.
+        use_probe = has_d and self.shading != "materials"
+        return dataclasses.replace(
+            self,
+            has_dielectrics=has_d,
+            pallas_mode=scene_mode(scene),
+            has_motion=scene_has_motion(scene),
+            probe_rows=int(dmask.sum()) if use_probe else 0,
+        )
+
+    @property
+    def pops(self) -> int:
+        return self.max_pops if self.max_pops is not None else 2 * self.max_bounces + 1
+
+
+def _check_supported(cfg: RenderConfig, lights):
+    if cfg.shading != "bvh":
+        raise NotImplementedError(f"shading={cfg.shading!r} is not ported yet")
+    if lights is not None:
+        raise NotImplementedError("emissive lights are not ported yet")
+    if cfg.intersector not in ("brute", "pallas"):
+        raise NotImplementedError(f"intersector={cfg.intersector!r} is not ported yet")
+
+
+# ----------------------------------------------------------------------------
+# Per-lane ray queue (SoA). LIFO, drops pushes when full and counts them.
+# ----------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RayQueue:
+    origin: torch.Tensor  # (B, Q, 3)
+    direction: torch.Tensor  # (B, Q, 3)
+    contribution: torch.Tensor  # (B, Q)
+    bounced: torch.Tensor  # (B, Q) i32
+    size: torch.Tensor  # (B,) i64
+
+    @classmethod
+    def create(cls, batch: int, capacity: int, device):
+        z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=device)
+        return cls(
+            origin=z(batch, capacity, 3),
+            direction=z(batch, capacity, 3),
+            contribution=z(batch, capacity),
+            bounced=z(batch, capacity, dt=torch.int32),
+            size=z(batch, dt=torch.int64),
+        )
+
+    def push(self, mask, origin, direction, contribution, bounced):
+        """Conditional push at position ``size`` for lanes in ``mask``
+        (updates the queue in place).  Returns the number of dropped pushes —
+        pushes beyond capacity are dropped like the reference stack, but the
+        count is surfaced so renderers can report honest ray accounting."""
+        q = self.origin.shape[1]
+        can = mask & (self.size < q)
+        n_dropped = int(torch.sum(mask & ~can))
+        lanes = torch.nonzero(can)[:, 0]
+        slot = self.size[lanes]
+        self.origin[lanes, slot] = origin[lanes]
+        self.direction[lanes, slot] = direction[lanes]
+        self.contribution[lanes, slot] = contribution[lanes]
+        self.bounced[lanes, slot] = bounced[lanes]
+        self.size = self.size + can.to(torch.int64)
+        return n_dropped
+
+    def pop(self):
+        """LIFO pop; lanes with empty queues return zeros and active=False."""
+        active = self.size > 0
+        idx = torch.clamp_min(self.size - 1, 0)
+        pick3 = lambda a: torch.gather(a, 1, idx[:, None, None].expand(-1, 1, 3))[:, 0]
+        pick1 = lambda a: torch.gather(a, 1, idx[:, None])[:, 0]
+        a3 = active[:, None]
+        o = torch.where(a3, pick3(self.origin), torch.zeros_like(self.origin[:, 0]))
+        d = torch.where(a3, pick3(self.direction), torch.zeros_like(self.direction[:, 0]))
+        c = torch.where(active, pick1(self.contribution), torch.zeros_like(self.contribution[:, 0]))
+        b = torch.where(active, pick1(self.bounced), torch.zeros_like(self.bounced[:, 0]))
+        self.size = self.size - active.to(torch.int64)
+        return active, o, d, c, b
+
+
+# ----------------------------------------------------------------------------
+# Shading
+# ----------------------------------------------------------------------------
+
+
+def _background(cfg: RenderConfig, direction):
+    """Sky gradient."""
+    bottom = torch.tensor(cfg.background[0], dtype=torch.float32, device=direction.device)
+    top = torch.tensor(cfg.background[1], dtype=torch.float32, device=direction.device)
+    t = (direction[..., 1:2] + 1.0) * 0.5
+    return (1.0 - t) * bottom + t * top
+
+
+def _is_v2(accel) -> bool:
+    from raytracing_tests_tpu_torch.kernels.sweep2 import Accel2
+
+    return isinstance(accel, Accel2)
+
+
+@dataclasses.dataclass
+class ShadeResult:
+    """Everything one shading step produces for a batch of rays: color to
+    accumulate, spawned child rays, and bookkeeping."""
+
+    add_color: torch.Tensor  # (C, 3) contribution to accumulate
+    hit_t: torch.Tensor  # (C,) hit distance (t_max convention on miss)
+    did_hit: torch.Tensor  # (C,) bool
+    missed: torch.Tensor  # (C,) bool
+    # children, refraction first (push order; LIFO pops reflect 1st)
+    refr_mask: torch.Tensor
+    refr_o: torch.Tensor
+    refr_d: torch.Tensor
+    refr_contrib: torch.Tensor
+    refl_mask: torch.Tensor
+    refl_o: torch.Tensor
+    refl_d: torch.Tensor
+    refl_contrib: torch.Tensor
+    bounced: torch.Tensor  # (C,) child bounce count
+
+
+def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, active, sample_idx, time_ratio):
+    """Intersect + shade one batch of rays (the path-tracer kernel body minus
+    stack plumbing)."""
+    _check_supported(cfg, lights)
+    spp = cfg.spp
+    B = o.shape[0]
+    t_limit = torch.full((B,), cfg.t_max, dtype=torch.float32, device=o.device)
+    sur_ri_fused = None
+    needs_sur_ri = cfg.has_dielectrics
+    if _is_v2(accel):
+        from raytracing_tests_tpu_torch.kernels.sweep2 import (
+            intersect2_full, intersect2_fused,
+        )
+
+        if needs_sur_ri:
+            hit, flds, sur_ri_fused = intersect2_fused(
+                accel, scene, o, d, time_ratio, t_limit
+            )
+        else:
+            hit, flds = intersect2_full(accel, scene, o, d, time_ratio, t_limit)
+    else:
+        hit = isect.intersect_brute(scene, o, d, time_ratio, t_limit)
+        flds = None
+    did_hit = hit.hit & active
+    missed = active & ~hit.hit
+
+    # Miss -> background contribution.
+    bg = _background(cfg, d)
+    add_color = torch.where(missed[:, None], contrib[:, None] * bg, torch.zeros_like(bg))
+
+    # --- hit shading ---------------------------------------------------------
+    hit_point = o + hit.t[:, None] * d
+    normal = hit.normal
+    inner = linalg.dot(normal, d) > 0.0
+
+    if sur_ri_fused is not None:
+        sur_ri = sur_ri_fused
+    elif needs_sur_ri:
+        sur_ri = isect.surrounding_refractive_index(
+            scene, hit_point + 1e-3 * normal, time_ratio)
+    else:
+        sur_ri = torch.ones(B, dtype=torch.float32, device=o.device)
+
+    if flds is None:
+        oi = hit.obj.long()
+        mat_color = scene.color[oi]
+        mat_ri = scene.refractive_index[oi]
+        refractivity = scene.refractivity[oi]
+        reflectivity = scene.reflectivity[oi]
+        scat_rfr = scene.scatter_refract[oi]
+        scat_rfl = scene.scatter_reflect[oi]
+    else:  # grouped sweep: all fields from the winner's row
+        mat_color = flds.color
+        mat_ri = flds.refractive_index
+        refractivity = flds.refractivity
+        reflectivity = flds.reflectivity
+        scat_rfr = flds.scatter_refract
+        scat_rfl = flds.scatter_reflect
+
+    bounced = bounced + 1
+
+    can_spawn = (
+        ((reflectivity > 0.002) | (refractivity > 0.002))
+        & (contrib > 0.01)
+        & (bounced < cfg.max_bounces)
+        & did_hit
+    )
+
+    # Outer hit: scatter-deviated reflect/refract.
+    refl_outer = linalg.normalize(linalg.reflect(d, normal), eps=1e-20)
+    refl_outer = torch.where(
+        (scat_rfl > 0.001)[:, None],
+        sampling.deviate_within_cone(refl_outer, sample_idx, spp, scat_rfl),
+        refl_outer,
+    )
+    refr_outer = linalg.safe_normalize(linalg.refract(d, normal, sur_ri / mat_ri))
+    # TIR lanes carry a zero refr_outer; deviate a safe stand-in instead.
+    refr_live = (linalg.dot(refr_outer, refr_outer) > 0.1)[:, None]
+    unit_z = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=o.device)
+    refr_safe = torch.where(refr_live, refr_outer, unit_z)
+    refr_outer = torch.where(
+        (scat_rfr > 0.001)[:, None] & refr_live,
+        sampling.deviate_within_cone(refr_safe, sample_idx, spp, scat_rfr),
+        refr_outer,
+    )
+    zero3 = torch.zeros_like(refl_outer)
+    refl_outer = torch.where((reflectivity > 0.002)[:, None], refl_outer, zero3)
+    refr_outer = torch.where((refractivity > 0.002)[:, None], refr_outer, zero3)
+
+    # Inner hit: flip normal, 100% refract, reflect on TIR.
+    n_in = -normal
+    refr_inner = linalg.refract(d, n_in, mat_ri / sur_ri)
+    tir = linalg.dot(refr_inner, refr_inner) < 0.1
+    refl_inner = torch.where(tir[:, None], linalg.reflect(d, n_in), zero3)
+
+    normal_out = torch.where(inner[:, None], n_in, normal)
+    refl_dir = torch.where(inner[:, None], refl_inner, refl_outer)
+    refr_dir = torch.where(inner[:, None], refr_inner, refr_outer)
+
+    spawn_refr = can_spawn & (linalg.dot(refr_dir, refr_dir) > 0.1)
+    spawn_refl = can_spawn & (linalg.dot(refl_dir, refl_dir) > 0.1)
+
+    # Children inherit the UNDAMPED contribution (pushed before damping); the
+    # parent's own absorption term is then damped by half of what was forwarded.
+    refr_contrib = contrib * refractivity
+    refl_contrib = contrib * reflectivity
+    zero = torch.zeros_like(contrib)
+    forward = (
+        torch.where(spawn_refr, refractivity, zero) + torch.where(spawn_refl, reflectivity, zero)
+    )
+    contrib = contrib * (1.0 - 0.5 * forward)
+    add_color = add_color + torch.where(
+        did_hit[:, None], contrib[:, None] * mat_color, torch.zeros_like(mat_color))
+
+    return ShadeResult(
+        add_color=add_color,
+        hit_t=torch.where(hit.hit, hit.t, torch.full_like(hit.t, cfg.t_max)),
+        did_hit=did_hit,
+        missed=missed,
+        refr_mask=spawn_refr,
+        refr_o=hit_point - 1e-4 * normal_out,
+        refr_d=refr_dir,
+        refr_contrib=refr_contrib,
+        refl_mask=spawn_refl,
+        refl_o=hit_point + 1e-4 * normal_out,
+        refl_d=refl_dir,
+        refl_contrib=refl_contrib,
+        bounced=bounced,
+    )
+
+
+def _process_pop(scene, lights, cfg: RenderConfig, queue, state, sample_idx, spp, time_ratio, accel=None):
+    """One queue step: pop LIFO top of every lane, shade, push children.
+    Returns ``(state, n_dropped)``; the queue is updated in place."""
+    color, depth, primary_t = state
+    active, o, d, contrib, bounced = queue.pop()
+    is_primary = active & (bounced == 0)
+
+    r = shade_rays(
+        scene, lights, cfg, accel, o, d, contrib, bounced, active, sample_idx,
+        time_ratio,
+    )
+    # Push refraction then reflection (LIFO pops reflect first).
+    d1 = queue.push(r.refr_mask, r.refr_o, r.refr_d, r.refr_contrib, r.bounced)
+    d2 = queue.push(r.refl_mask, r.refl_o, r.refl_d, r.refl_contrib, r.bounced)
+
+    color = color + r.add_color
+    primary_t = torch.where(is_primary, r.hit_t, primary_t)
+    depth = torch.where(r.missed, torch.full_like(depth, cfg.t_max), depth)
+    depth = torch.where(r.did_hit, r.hit_t, depth)
+    return (color, depth, primary_t), d1 + d2
+
+
+# ----------------------------------------------------------------------------
+# Entry points
+# ----------------------------------------------------------------------------
+
+
+def _build_accel(scene, cfg: RenderConfig):
+    if cfg.intersector == "pallas":
+        if cfg.pallas_mode != "spheres":
+            raise NotImplementedError(
+                "the grouped sweep for rotated ellipsoids and cuboids is not "
+                "ported yet; use intersector='brute' for generic scenes")
+        from raytracing_tests_tpu_torch.kernels.sweep2 import make_accel2
+
+        return make_accel2(scene, probe_rows=cfg.probe_rows)
+    if cfg.intersector != "brute":
+        raise NotImplementedError(f"intersector={cfg.intersector!r} is not ported yet")
+    return None
+
+
+def trace_lanes(scene, lights, cfg: RenderConfig, o, d, time_ratio, sample_idx, accel=None):
+    """Trace a flat batch of lanes. ``o, d: (B, 3)``; returns
+    ``(color (B, 3), primary_t (B,), rays (int), dropped (int))``
+    where ``rays`` counts the rays actually processed (active pops) — the
+    honest rays/s numerator — and ``dropped`` counts children lost to the
+    fixed queue capacity."""
+    _check_supported(cfg, lights)
+    B = o.shape[0]
+    dev = o.device
+    if accel is None and cfg.intersector != "brute":
+        accel = _build_accel(scene, cfg)
+    queue = RayQueue.create(B, cfg.queue_capacity, dev)
+    queue.push(
+        torch.ones(B, dtype=torch.bool, device=dev), o, d,
+        torch.ones(B, dtype=torch.float32, device=dev),
+        torch.zeros(B, dtype=torch.int32, device=dev),
+    )
+    state = (
+        torch.zeros((B, 3), dtype=torch.float32, device=dev),  # accumulated color
+        torch.full((B,), cfg.t_max, dtype=torch.float32, device=dev),  # last-written depth
+        torch.full((B,), cfg.t_max, dtype=torch.float32, device=dev),  # primary hit t
+    )
+
+    # Most lanes' queues drain after 2-3 pops (sky lanes after 1), so the loop
+    # exits as soon as every queue is empty instead of running the full budget.
+    rays = dropped = 0
+    for _ in range(cfg.pops):
+        n_active = int(torch.sum(queue.size > 0))
+        if cfg.early_exit and n_active == 0:
+            break
+        state, n_drop = _process_pop(
+            scene, lights, cfg, queue, state, sample_idx, cfg.spp, time_ratio, accel
+        )
+        rays += n_active
+        dropped += n_drop
+    color, _, primary_t = state
+    return color, primary_t, rays, dropped
+
+
+def _lane_inputs(camera, cfg: RenderConfig):
+    """Flattened per-lane primary rays + sample metadata."""
+    H, W, S = cfg.height, cfg.width, cfg.spp
+    o, d, time_ratio = primary_rays(camera, W, H, S, cfg.aa_grid)
+    B = H * W * S
+    sample_idx = torch.arange(S, dtype=torch.float32, device=camera.device).expand(H, W, S)
+    return (
+        o.reshape(B, 3),
+        d.reshape(B, 3),
+        time_ratio.reshape(B),
+        sample_idx.reshape(B),
+    )
+
+
+def _trace_frame(scene, camera, cfg: RenderConfig, lights):
+    """All lanes of a frame, in ``cfg.lane_chunk`` pieces when that is set:
+    (color (B, 3), primary_t (B,), rays, dropped)."""
+    o, d, time_ratio, sample_idx = _lane_inputs(camera, cfg)
+    B = o.shape[0]
+    accel = _build_accel(scene, cfg)
+    chunk = cfg.lane_chunk or B
+    if chunk >= B:
+        return trace_lanes(scene, lights, cfg, o, d, time_ratio, sample_idx, accel)
+    colors, ts, rays, dropped = [], [], 0, 0
+    for b0 in range(0, B, chunk):
+        sl = slice(b0, b0 + chunk)
+        co, pt, r, dr = trace_lanes(scene, lights, cfg, o[sl], d[sl],
+                                    time_ratio[sl], sample_idx[sl], accel)
+        colors.append(co)
+        ts.append(pt)
+        rays += r
+        dropped += dr
+    return torch.cat(colors), torch.cat(ts), rays, dropped
+
+
+def _on_device(scene, camera, device):
+    dev = resolve_device(device)
+    return scene.to(dev), camera.to(dev)
+
+
+def render_samples(scene, camera, cfg: RenderConfig, lights=None, device=None):
+    """Render per-(pixel,sample) colors: returns (H, W, S, 3) plus depth.
+
+    When ``cfg.lane_chunk`` is set, lanes are processed in fixed-size chunks
+    so peak memory is bounded by chunk x objects."""
+    scene, camera = _on_device(scene, camera, device)
+    H, W, S = cfg.height, cfg.width, cfg.spp
+    color, primary_t, _, _ = _trace_frame(scene, camera, cfg, lights)
+    return color.reshape(H, W, S, 3), primary_t.reshape(H, W, S)
+
+
+def render_stats(scene, camera, cfg: RenderConfig, lights=None, device=None):
+    """Render + throughput accounting: dict(image, depth, rays, rays_dropped)
+    where ``rays`` is the number of rays actually traced (active queue pops,
+    i.e. primary + secondary rays; the honest numerator for Mrays/s).
+
+    ``device=None`` means CUDA; pass ``device="cpu"`` to run on the CPU."""
+    scene, camera = _on_device(scene, camera, device)
+    H, W, S = cfg.height, cfg.width, cfg.spp
+    color, primary_t, rays, dropped = _trace_frame(scene, camera, cfg, lights)
+    out = finalize(color.reshape(H, W, S, 3), primary_t.reshape(H, W, S), cfg)
+    out["rays"] = rays
+    out["rays_dropped"] = dropped
+    return out
+
+
+def finalize(colors, depths, cfg: RenderConfig):
+    """Per-sample gamma then mean over the sample axis; mid-sample depth."""
+    image = torch.mean(torch.sqrt(torch.clamp_min(colors, 0.0)), dim=2)
+    depth = depths[:, :, cfg.spp // 2]  # the reference stores the mid sample
+    return {"image": image, "depth": depth}
+
+
+def render(scene: Scene, camera: Camera, cfg: RenderConfig, lights=None, device=None):
+    """Full render: per-sample gamma then mean over the sample axis.
+
+    Returns dict(image=(H, W, 3) in [0,1] (row 0 = bottom), depth=(H, W)).
+    The sqrt is applied per sample before the mean."""
+    colors, depths = render_samples(scene, camera, cfg, lights, device=device)
+    return finalize(colors, depths, cfg)

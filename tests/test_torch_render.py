@@ -1,0 +1,151 @@
+"""The port's queue renderer against the JAX package and the golden images.
+
+Tolerances (the JAX side runs under ``jit``, where XLA:CPU fuses a*b+c into
+one rounding; eager PyTorch rounds twice):
+  - ``sphere_scene`` and ``groups_scene`` hold the oracle bar: >= 99.5 % of
+    pixels within atol 2e-4 / rtol 1e-3, ray counts within 0.5 %, and the
+    goldens at atol 2e-5.
+  - ``iow_final_scene(side=5)`` cannot: its 1000-radius ground sphere is
+    ill-conditioned in float32 (|o/r|^2 - 1 cancels), so a last-ulp difference
+    moves a hit by ~1e-4 of its distance and flips grazing children.  Found:
+    96.4 % of pixels inside the oracle bar, ray counts 0.3 % apart.  Held to
+    >= 95 % inside the bar plus the statistical envelope of the persistent
+    kernel's canary: image means within 5e-3, under 3 % of pixels off by more
+    than 0.05, ray counts within 0.5 %.
+  - goldens: ``bvh`` was rendered by the JAX package's first-generation
+    grouped sweep (not ported; the port runs the dense intersector): 99.3 %
+    of pixels within 2e-5, all within 3e-4, which is the bar.  ``iow-final``:
+    91 % within 2e-5 found; held to >= 88 % plus the statistical envelope.
+"""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from raytracing_tests_tpu.ops.render import RenderConfig as JRenderConfig
+from raytracing_tests_tpu.ops.render import render_stats as j_render_stats
+from raytracing_tests_tpu.scene import examples as jex
+from raytracing_tests_tpu_torch.models import get_workload, list_workloads
+from raytracing_tests_tpu_torch.ops.render import RenderConfig, render, render_stats
+from raytracing_tests_tpu_torch.scene import examples as tex
+
+torch.set_num_threads(2)
+
+GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
+SIZE = dict(width=48, height=32, spp=4, max_bounces=5)
+SCENES = {
+    "sphere": ("sphere_scene", {}, 0.995),
+    "groups": ("groups_scene", {}, 0.995),
+    "iow5": ("iow_final_scene", {"side": 5}, 0.95),
+}
+
+
+def _envelope(a, b):
+    d = np.abs(a - b).max(axis=-1)
+    assert abs(float(a.mean()) - float(b.mean())) < 5e-3
+    assert (d > 0.05).mean() < 0.03, (d > 0.05).mean()
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_queue_renderer_matches_jax_brute(name):
+    fn, kw, bar = SCENES[name]
+    js, jc = getattr(jex, fn)(**kw)
+    ts, tc = getattr(tex, fn)(**kw)
+    jcfg = JRenderConfig(**SIZE).for_scene(js)
+    tcfg = RenderConfig(**SIZE).for_scene(ts)
+    for f in ("has_dielectrics", "pallas_mode", "has_motion", "probe_rows", "pops"):
+        assert getattr(jcfg, f) == getattr(tcfg, f), f
+    oj = jax.jit(lambda s, c: j_render_stats(s, c, jcfg))(js, jc)
+    ot = render_stats(ts, tc, tcfg, device="cpu")
+    ij, it = np.asarray(oj["image"]), ot["image"].numpy()
+    assert it.shape == (32, 48, 3) and ot["depth"].shape == (32, 48)
+    ok = np.isclose(it, ij, atol=2e-4, rtol=1e-3).all(axis=-1)
+    assert ok.mean() >= bar, ok.mean()
+    _envelope(it, ij)
+    rj, rt = int(oj["rays"]), int(ot["rays"])
+    assert abs(rj - rt) / rj < 5e-3, (rj, rt)
+    assert int(ot["rays_dropped"]) == int(oj["rays_dropped"]) == 0
+    dd = np.abs(ot["depth"].numpy() - np.asarray(oj["depth"]))
+    assert (dd > 1e-2).mean() < 0.01
+
+
+GOLDEN_KW = dict(width=32, height=24, spp=2, max_bounces=3)
+
+
+@pytest.mark.parametrize("name,atol", [("sphere", 2e-5), ("groups", 2e-5), ("bvh", 3e-4)])
+def test_golden(name, atol):
+    out = get_workload(name).run(device="cpu", **GOLDEN_KW)
+    golden = np.load(os.path.join(GOLDEN_DIR, f"{name}.npy"))
+    np.testing.assert_allclose(out["image"].numpy(), golden, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("intersector", ["brute", "pallas"])
+def test_golden_iow_final_statistically(intersector):
+    out = get_workload("iow-final").run(device="cpu", intersector=intersector, **GOLDEN_KW)
+    golden = np.load(os.path.join(GOLDEN_DIR, "iow-final.npy"))
+    img = out["image"].numpy()
+    assert np.isfinite(img).all()
+    bar = 0.88 if intersector == "brute" else 0.80  # the golden is a brute render
+    assert (np.abs(img - golden).max(axis=-1) <= 2e-5).mean() >= bar
+    _envelope(img, golden)
+
+
+def test_registry_lists_the_ported_workloads():
+    assert [w.name for w in list_workloads()] == ["bvh", "groups", "iow-final", "sphere"]
+    with pytest.raises(KeyError):
+        get_workload("lights")
+
+
+def test_sweep_intersector_matches_brute_in_the_port():
+    scene, cam = tex.iow_final_scene(side=5)
+    # 8 spp, the persistent kernel's test setting: one flipped sample of 4
+    # would move a pixel past the envelope's 0.05
+    cfg_b = RenderConfig(**dict(SIZE, spp=8)).for_scene(scene)
+    cfg_p = dataclasses.replace(cfg_b, intersector="pallas")
+    ob = render_stats(scene, cam, cfg_b, device="cpu")
+    op = render_stats(scene, cam, cfg_p, device="cpu")
+    _envelope(op["image"].numpy(), ob["image"].numpy())
+    assert abs(ob["rays"] - op["rays"]) / ob["rays"] < 5e-3
+    dd = (ob["depth"] - op["depth"]).abs().numpy()
+    assert (dd > 1e-2).mean() < 0.01
+
+
+def test_lane_chunk_changes_nothing():
+    scene, cam = tex.groups_scene()
+    cfg = RenderConfig(width=20, height=12, spp=3, max_bounces=4).for_scene(scene)
+    whole = render_stats(scene, cam, cfg, device="cpu")
+    parts = render_stats(scene, cam, dataclasses.replace(cfg, lane_chunk=100), device="cpu")
+    assert torch.equal(whole["image"], parts["image"])
+    assert torch.equal(whole["depth"], parts["depth"])
+    assert whole["rays"] == parts["rays"] and whole["rays_dropped"] == parts["rays_dropped"]
+    only = render(scene, cam, cfg, device="cpu")
+    assert torch.equal(only["image"], whole["image"])
+
+
+def test_queue_overflow_is_counted():
+    scene, cam = tex.iow_final_scene(side=5)
+    cfg = RenderConfig(queue_capacity=1, **SIZE).for_scene(scene)
+    out = render_stats(scene, cam, cfg, device="cpu")
+    assert out["rays_dropped"] > 0 and torch.isfinite(out["image"]).all()
+
+
+@pytest.mark.parametrize("what", ["lights", "materials", "bvh_intersector", "generic_sweep"])
+def test_unported_options_raise(what):
+    scene, cam = tex.groups_scene()
+    cfg = RenderConfig(width=8, height=4, spp=1).for_scene(scene)
+    lights = None
+    if what == "lights":
+        lights = object()
+    elif what == "materials":
+        cfg = dataclasses.replace(cfg, shading="materials")
+    elif what == "bvh_intersector":
+        cfg = dataclasses.replace(cfg, intersector="bvh")
+    else:
+        cfg = dataclasses.replace(cfg, intersector="pallas")
+    with pytest.raises(NotImplementedError):
+        render_stats(scene, cam, cfg, lights, device="cpu")
