@@ -61,10 +61,15 @@ __global__ void __launch_bounds__(256) sweep2_kernel(
       rt::winner_refine(row, ox, oy, oz, dx, dy, dz, t_best, hit);
   const float t_fin = hit ? R.t : rt::BIG_T;
   t_out[i] = t_fin;
+  // Only dielectric winners and interior hits consume the surrounding RI
+  // downstream; every other ray reads the neutral 1.
+  const bool need =
+      with_ri && hit &&
+      ((R.nx * dx + R.ny * dy + R.nz * dz) > 0.0f || row[rt::FT_REFR] > 0.002f);
   const float sur_ri =
-      with_ri ? rt::ri_probe(T, R.px + 1e-3f * R.nx, R.py + 1e-3f * R.ny,
-                             R.pz + 1e-3f * R.nz)
-              : 1.0f;
+      need ? rt::ri_probe(T, R.px + 1e-3f * R.nx, R.py + 1e-3f * R.ny,
+                          R.pz + 1e-3f * R.nz)
+           : 1.0f;
   float* o = rows_out + i;
   o[rt::V_T * s] = t_fin;
   o[rt::V_RI * s] = sur_ri;

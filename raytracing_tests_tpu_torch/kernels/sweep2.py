@@ -508,7 +508,8 @@ def sweep2_plain(accel: Accel2, rays, with_ri: bool, with_fields: bool):
     ``rays``: (8, B).  Returns (t (B,), obj (B,) i32, rows (V_ROWS, B) or
     None): nearest hit over the sorted rows (obj = -1, t = BIG_T on a miss);
     with ``with_fields`` t is the refined t and ``rows`` is the hit block
-    (surrounding RI probed when ``with_ri``, else 1)."""
+    (surrounding RI probed when ``with_ri`` for the rays that need it, else
+    1)."""
     o = rays[0:3].T
     d = rays[3:6].T
     tlim = rays[7]
@@ -522,7 +523,11 @@ def sweep2_plain(accel: Accel2, rays, with_ri: bool, with_fields: bool):
     t_best, _, p, n = _winner_refine(rows, o, d, t_best, hit)
     t_out = torch.where(hit, t_best, big)
     if with_ri:
-        sur_ri = _ri_probe(accel, p + 1e-3 * n)
+        # Only dielectric winners and interior hits consume the surrounding
+        # RI downstream (refraction eta); every other ray reads the neutral 1.
+        need = hit & ((_dot3(n, d) > 0.0) | (rows[:, FT_REFR] > 0.002))
+        sur_ri = torch.where(need, _ri_probe(accel, p + 1e-3 * n),
+                             torch.ones_like(t_out))
     else:
         sur_ri = torch.ones_like(t_out)
     block = torch.stack([

@@ -53,6 +53,8 @@ _IP = ("W", "H", "spp", "Q", "pops", "has_dielectrics", "n_groups", "gr",
 # Frame counters of csrc/uber.cu (ST_* there).
 ST_NEXT, ST_RAYS, ST_DROPPED, ST_SPHERE_TESTS, ST_LEN = range(5)
 
+_PLAIN_CHUNK = 1 << 20  # primaries per batch of the plain version
+
 
 @dataclasses.dataclass(frozen=True)
 class UberStatics:
@@ -153,11 +155,26 @@ def uber_render_plain(accel: Accel2, cam, st: UberStatics):
     """Plain PyTorch version of the persistent kernel.
 
     Returns ``(out (B, 4) f32, stats (ST_LEN,) i64)``: per primary r, g, b and
-    the primary hit distance in p-linear order, and the frame counters."""
+    the primary hit distance in p-linear order, and the frame counters.  Trees
+    are independent, so the frame is walked in ranges of ``_PLAIN_CHUNK``
+    primaries that bound memory; this is not scheduling."""
+    parts = [_plain_range(accel, cam, st, p0, min(_PLAIN_CHUNK, st.B - p0))
+             for p0 in range(0, st.B, _PLAIN_CHUNK)]
+    out = torch.cat([o for o, _, _ in parts]) if len(parts) > 1 else parts[0][0]
+    stats = torch.zeros(ST_LEN, dtype=torch.int64, device=accel.device)
+    stats[ST_NEXT] = st.B
+    stats[ST_RAYS] = sum(r for _, r, _ in parts)
+    stats[ST_DROPPED] = sum(d for _, _, d in parts)
+    return out, stats
+
+
+def _plain_range(accel: Accel2, cam, st: UberStatics, p0: int, B: int):
+    """The trees of primaries ``p0 .. p0 + B`` as one batch ->
+    (out (B, 4), rays, dropped)."""
     dev = accel.device
-    B, Q = st.B, st.Q
+    Q = st.Q
     f32 = torch.float32
-    p = torch.arange(B, dtype=torch.int64, device=dev)
+    p = torch.arange(p0, p0 + B, dtype=torch.int64, device=dev)
     o, d, sidx, trig = _raygen(cam, st, p)
     contrib = torch.ones(B, dtype=f32, device=dev)
     bounced = torch.zeros(B, dtype=f32, device=dev)
@@ -221,12 +238,7 @@ def uber_render_plain(accel: Accel2, cam, st: UberStatics):
         o, d, contrib, bounced = cur[:, 0:3], cur[:, 3:6], cur[:, 6], cur[:, 7]
         act = act & (sh.spawn_refl | sh.spawn_refr | do_pop) & ~kill
 
-    out = torch.cat([acc, acc_t[:, None]], dim=1)
-    stats = torch.zeros(ST_LEN, dtype=torch.int64, device=dev)
-    stats[ST_NEXT] = B
-    stats[ST_RAYS] = n_rays
-    stats[ST_DROPPED] = n_drop
-    return out, stats
+    return torch.cat([acc, acc_t[:, None]], dim=1), n_rays, n_drop
 
 
 # ---------------------------------------------------------------------------
@@ -326,7 +338,7 @@ def _camera_statics(camera, cfg):
 def render_uber(scene, camera, cfg, lights=None, gr: int = 32, qcap=None,
                 device=None):
     """Full render via the persistent kernel;
-    dict(image, depth, rays, rays_dropped, sphere_tests).
+    dict(image, depth, rays, rays_dropped).
 
     ``qcap`` overrides ``cfg.queue_capacity`` for the per-tree LIFO stack;
     ``rays_dropped`` reports any overflow honestly.  ``device=None`` means
@@ -361,5 +373,4 @@ def _uber_post(out, stats, cfg):
     res = finalize(colors, primary_t, cfg)
     res["rays"] = stats[ST_RAYS]
     res["rays_dropped"] = stats[ST_DROPPED]
-    res["sphere_tests"] = stats[ST_SPHERE_TESTS]
     return res

@@ -189,6 +189,30 @@ def test_sweep2_full_matches_jax(sweep_case, with_ri):
         (nerr <= 1e-5).mean(), nerr.max())
 
 
+def test_sweep2_probes_ri_only_where_it_is_consumed(sweep_case):
+    """The surrounding RI is probed for dielectric winners and interior hits
+    (the rays whose refraction reads it); every other ray, misses included,
+    carries the neutral 1 — as the JAX kernel's ``need`` mask has it."""
+    c = sweep_case
+    _, to, tr = tsw.sweep2_full(c["ta"], *c["targs"], with_ri=True)
+    d = c["targs"][1]
+    inner = (tr[tsw.V_NX:tsw.V_NZ + 1].T * d).sum(dim=1) > 0.0
+    need = (to >= 0) & (inner | (tr[tsw.V_REFR] > 0.002))
+    assert need.any() and (~need).any()
+    assert (tr[tsw.V_RI][~need] == 1.0).all()
+    # The probe is live: from the centre of one glass sphere towards the one
+    # that overlaps it, the ray enters the second while still inside the first
+    # and reads the first's index; a lambertian hit beside it reads 1.
+    pair = _glass_pair(TSceneBuilder)
+    accel = tsw.make_accel2(pair, gr=8, probe_rows=TRenderConfig().for_scene(pair).probe_rows)
+    o = torch.tensor([[0.0, 0.0, -3.0], [3.0, 0.0, -3.0]])
+    d = torch.tensor([[1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    _, obj, rows = tsw.sweep2_full(accel, o, d, torch.zeros(2), torch.full((2,), 100.0),
+                                   with_ri=True)
+    assert (obj >= 0).all()
+    assert rows[tsw.V_RI, 0] > 1.0 and rows[tsw.V_RI, 1] == 1.0
+
+
 def test_sweep2_matches_intersect_brute(sweep_case):
     c = sweep_case
     o, d, trr, tl = c["targs"]

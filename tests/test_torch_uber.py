@@ -114,6 +114,21 @@ def test_pops_budget_kills_the_tree(frames):
     _assert_envelope(ou, oq)
 
 
+def test_plain_version_in_ranges_equals_one_batch(frames, monkeypatch):
+    """The plain version walks a large frame in ranges of primaries; trees are
+    independent, so the ranges change nothing (48*32*8 = 12 288 primaries in
+    ranges of 5000 leave a ragged last one)."""
+    f = frames
+    accel, cam = tub._scene_accel(f["ts"], f["tc"], f["tcfg"], 32)
+    st = tub.UberStatics.from_cfg(f["tcfg"])
+    whole, stats = tub.uber_render_plain(accel, cam, st)
+    monkeypatch.setattr(tub, "_PLAIN_CHUNK", 5000)
+    parts, stats_p = tub.uber_render_plain(accel, cam, st)
+    assert tuple(parts.shape) == (st.B, 4)
+    assert torch.equal(parts, whole) and torch.equal(stats_p, stats)
+    assert int(stats[tub.ST_RAYS]) == int(f["port"]["rays"])
+
+
 def test_pack_camera_matches_jax(frames):
     f = frames
     np.testing.assert_allclose(tub.pack_camera(f["tc"]).numpy(),
