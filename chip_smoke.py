@@ -5,12 +5,15 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``raytracing_tests_tpu_torch/csrc``, holds
-each kernel against its plain PyTorch version on the card, runs the parity
-canary (persistent kernel vs queue renderer) and then the headline frame
-(``iow_final_scene()`` at 800x450, depth 8) through ``render_uber``, and
-prints one JSON object per phase.  The last line is
+each kernel against its plain PyTorch version on the card, and drives both
+slices of the port: the sphere slice (the parity canary, persistent kernel vs
+queue renderer, and the headline frame, ``iow_final_scene()`` at 800x450x100
+depth 8 through ``render_uber``) and the generic slice (rotated ellipsoids and
+cuboids: two canaries and ``bvh_grid_scene(side=32)`` at 800x450x16 depth 8).
+It prints one JSON object per phase.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the exit code
 is non-zero and no result line is printed; without CUDA it fails at once.
+The whole script takes about a minute on one H100.
 
 Phases and their bars:
   3. sweep kernel vs plain, on three batches: 100 000 seeded rays on the
@@ -48,9 +51,34 @@ Phases and their bars:
      depth disagreement under 1 %, zero dropped.
   6. the headline frame: no NaN, zero dropped, rays within 2 % of 91 994 750,
      image mean within 1e-2 of 1.0021 (both are properties of the scene).
-Launch counts are kept per driven path: set to 0 before the canary and read
-after it, and again around every headline frame (one launch of the persistent
-kernel, none of the sweep).
+  8. the sweeps over generic tables (``sweep2g``, ``sweep_grouped``,
+     ``sweep_nearest``) vs plain on the generic frame's own tables and rays:
+     all 5 760 000 camera lanes of the frame, as many second-generation rays
+     (537 600 of them dead) and four edge cases (an axis-parallel ray whose
+     origin lies on a slab plane of the ground box, one inside that slab, two
+     dead rays).  -fmad=false build: the plain version's winner on >= 99.9 %
+     of rays and t within rtol 1e-4 on >= 99.9 % of the agreeing hits.  Default
+     build: NEAREST_BARS.  The three plain sweeps must name the same object on
+     >= 99.9 % of rays.  ``sweep_ri`` (both modes), ``sweep_nearest_ri`` and
+     the sphere-mode instantiations of ``sweep_nearest`` / ``sweep_grouped``
+     are held the same way on the sphere canary's lanes and on two glass
+     scenes where the refractive-index sums differ from 1.
+  9. persistent kernel, generic instantiation, vs plain at the generic frame's
+     statics (every one of its 5 760 000 primaries), per sample as in 4 and
+     per pixel by the bars above ``compare_pixels_g``; and on a scene of
+     overlapping glass bodies, where the rotated containment probe runs.
+ 10. generic canaries at 200x112x8 depth 6, bars as in 5: persistent kernel
+     vs queue renderer through ``sweep_grouped`` on the grid scene; through
+     the dense ``sweep_nearest`` + ``sweep_ri`` on the glass scene
+     (``pallas_groups=0``); ``sweep2g_nearest`` through its own entry point on
+     the canary's lanes against ``sweep_grouped``'s winners; and the sphere
+     scene through the first-generation sweeps (``pallas_v2=False``, dense and
+     grouped) against the grouped sphere sweep.
+ 11. the generic frame: no NaN, zero dropped, rays and image mean as the scene
+     fixes them, exactly one launch of the generic instantiation per frame.
+ 12. every kernel's time at the frame's shapes beside its bound.
+Launch counts are kept per driven path: set to 0 before a path and read after
+it (each canary, each frame); every kernel must be launched on at least one.
 """
 
 from __future__ import annotations
@@ -66,19 +94,28 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
 
-from raytracing_tests_tpu_torch.kernels import _build, sweep2, uber  # noqa: E402
+import dataclasses  # noqa: E402
+
+from raytracing_tests_tpu_torch.kernels import _build, sweep, sweep2, sweep2g, uber  # noqa: E402
 from raytracing_tests_tpu_torch.ops.render import (  # noqa: E402
     RenderConfig, _build_accel, _lane_inputs, render_stats,
 )
 from raytracing_tests_tpu_torch.scene import examples  # noqa: E402
+from raytracing_tests_tpu_torch.scene.types import ELLIPSOID, Camera, SceneBuilder  # noqa: E402
 
 SEED = 0
 HEADLINE = dict(width=800, height=450, spp=100, max_bounces=8)
 SMALL = dict(width=200, height=112, spp=8, max_bounces=6)
+# The generic frame: bvh_grid_scene(side=32), 1 025 objects (512 spheres, 512
+# y-rotated boxes, the ground box).
+BVH1K = dict(width=800, height=450, spp=16, max_bounces=8)
+GLASS = dict(width=200, height=112, spp=4, max_bounces=6)  # the dense-sweep pass
 GR = 64  # sphere rows per culling group on the headline path
 N_DEAD = 64  # leading rays of the sweep comparison that carry d = 0
 SCENE_RAYS = 91_994_750  # rays of the headline frame: a property of the scene
 SCENE_MEAN = 1.0021  # its image mean, likewise
+BVH1K_RAYS = 17_450_247  # rays of the generic frame: a property of the scene
+BVH1K_MEAN = 0.9755  # its image mean, likewise
 # Per-pixel bars of the default build's finished headline image (phase 4).
 PIXEL_ATOL, PIXEL_FRAC, PIXEL_MAX = 1e-1, 0.999, 0.5
 PIXEL_FRAC_1E2, PIXEL_MEAN = 0.90, 5e-3  # share within 1e-2; mean distance
@@ -92,6 +129,14 @@ FLOPS_PER_SLAB_TEST = 26  # 6 sub-mul pairs, 10 min/max, 3 compares
 FLOPS_PER_NODE_SHADE = 220  # refine, probe point, mirror/refract, children
 FLOPS_PER_REFINE = 60  # the winner's own quadratic, hit point, normal
 FLOPS_PER_PROBE_ROW = 10  # containment test of one dielectric row
+# Generic primitives (rotated ellipsoids and cuboids):
+FLOPS_PER_CENSUS_SPHERE_ROW = 20  # world-frame quadratic with a = 1
+FLOPS_PER_CENSUS_CUBOID_ROW = 48  # 2x2 rotation of o and d, 3 reciprocals, slab
+FLOPS_PER_GENERIC_ROW = 70  # motion shift, two 3x3 rotations, divisions, one test
+FLOPS_PER_REFINE_G = 120  # both rotations, the winner's test, normal, local position
+FLOPS_PER_PROBE_ROW_G = 30  # fused-frame 3x3 product and the containment test
+FLOPS_PER_CONTAINS_SPHERE = 14  # shifted centre, squared distance, compare
+FLOPS_PER_CONTAINS_GENERIC = 45  # shift, rotation, 3 divisions, compare
 
 
 def size_of(frame):
@@ -273,6 +318,638 @@ def compare_pixels(img, ref):
                 within_1e2=frac(err <= 1e-2),
                 within_1e3=frac(err <= 1e-3),
                 mean_abs_err=float(err.mean()), max_abs_err=float(err.max()))
+
+# ---------------------------------------------------------------------------
+# The generic slice: rotated ellipsoids and cuboids
+# ---------------------------------------------------------------------------
+
+
+def overlapping_glass_scene():
+    """A glass ellipsoid and a glass box that poke into each other, beside an
+    opaque box, over a ground sphere.  A ray leaves one glass body inside the
+    other, so the surrounding refractive index is not 1 there: the probe rows
+    survive the relevance cut and the containment sums have work to do."""
+    b = SceneBuilder()
+    b.add((0.0, 0.0, -3.5), (0.7, 0.5, 0.6), ELLIPSOID, rotation_deg=(10.0, 30.0, 0.0),
+          color=(1.0, 1.0, 1.0), refractive_index=1.5, refractivity=0.9, reflectivity=0.1)
+    b.add_box((0.6, 0.1, -3.4), (0.8, 0.7, 0.7), rotation_deg=(0.0, 25.0, 10.0),
+              color=(0.9, 1.0, 0.9), refractive_index=1.3, refractivity=0.85,
+              reflectivity=0.15)
+    b.add_box((-1.4, 0.0, -4.0), (0.6, 0.8, 0.6), rotation_deg=(0.0, 40.0, 0.0),
+              color=(0.3, 0.6, 0.8), reflectivity=0.9, scatter_reflect=0.2)
+    b.add_sphere((0.0, -100.6, -4.0), 100.0, color=(0.6, 0.65, 0.6),
+                 reflectivity=0.7, scatter_reflect=0.9)
+    cam = Camera.make((0.0, 0.4, 0.8), (0.0, -0.1, -1.0), fov_y_deg=55.0, focus_dist=4.2)
+    return b.build(), cam
+
+
+def nested_glass_spheres():
+    """Sphere mode with nested and overlapping glass over a ground sphere: from
+    inside the outer sphere the fused refractive index is not 1."""
+    b = SceneBuilder()
+    b.add_dielectric((0.0, 0.0, -3.0), 0.8)
+    b.add_dielectric((0.0, 0.0, -3.0), 0.4, ior=1.3)
+    b.add_dielectric((0.9, 0.1, -3.2), 0.5)
+    b.add_lambertian((-1.2, 0.0, -3.5), 0.5, (0.7, 0.3, 0.3))
+    b.add_lambertian((0.0, -100.8, -3.0), 100.0, (0.5, 0.6, 0.4))
+    return b.build()
+
+
+def seeded_rays(centre, spread, n, dev, n_dead=N_DEAD):
+    """``n`` rays from a box of half-width ``spread`` around ``centre`` in
+    seeded directions, the first ``n_dead`` of them dead (d = 0)."""
+    rng = np.random.default_rng(SEED + 1)
+    o = (np.asarray(centre)[None] + rng.uniform(-spread, spread, (n, 3))).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d[:n_dead] = 0.0
+    return sweep2.pack_rays(torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
+                            torch.zeros(n, device=dev), torch.full((n,), 32000.0, device=dev))
+
+
+def unpack(rays):
+    """(8, B) ray matrix -> (o, d, time_ratio, t_limit) as the wrappers take them."""
+    return rays[0:3].T.contiguous(), rays[3:6].T.contiguous(), 1.0 - rays[6], rays[7]
+
+
+def timed_ms(fn):
+    """One call of ``fn`` by the host clock around a synchronise -> (ms, result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def compare_nearest(got, want, rays):
+    """A sweep's (t, obj[, ri]) against its plain version's on the same rays."""
+    tk, ok_ = got[0], got[1]
+    tp, op = want[0], want[1]
+    same = ok_ == op
+    dead = (rays[3:6] * rays[3:6]).sum(dim=0) < 0.5
+    m = same & (op >= 0)
+    terr = (tk[m] - tp[m]).abs()
+    miss = same & (op < 0)
+    share = lambda mask: frac(mask) if mask.numel() else 1.0
+    top = lambda x: float(x.max()) if x.numel() else 0.0
+    res = dict(same_obj=frac(same), hit_frac=frac(op >= 0), dead_rays=int(dead.sum()),
+               dead_rays_miss=bool((ok_[dead] == -1).all()),
+               misses_report_the_limit=bool((tk[miss] == tp[miss]).all()),
+               t_within_rtol_1e5=share(terr <= 1e-5 * tp[m]),
+               t_within_rtol_1e4=share(terr <= 1e-4 * tp[m]),
+               t_max_abs_err=top(terr), t_max_rel_err=top(terr / tp[m]))
+    if len(got) > 2:
+        res["ri_equal"] = frac(got[2][same] == want[2][same])
+        res["ri_not_one"] = frac(want[2] != 1.0)
+    return res
+
+
+# Bars of the sweeps over generic tables, default build.  The -fmad=false
+# build must give the plain version's winner on >= 99.9 % of rays and t within
+# rtol 1e-4 on >= 99.9 % of the agreeing hits, on every batch.  The default
+# build fuses a*b+c: ``same``: share of equal winners; ``t_1e4``: share of
+# agreeing hits with t within rtol 1e-4; ``ri``: share of equal refractive
+# indices.
+NEAREST_BARS = dict(same=0.999, t_1e4=0.99, ri=0.999)
+
+
+def check_nearest(what, res, precise):
+    for r in (res, precise):
+        require(r["dead_rays_miss"] and r["misses_report_the_limit"],
+                f"{what}: dead rays or misses are wrong: {r}")
+    require(precise["same_obj"] >= 0.999 and precise["t_within_rtol_1e4"] >= 0.999
+            and precise.get("ri_equal", 1.0) >= 0.999,
+            f"{what}: the -fmad=false build disagrees with the plain version: {precise}")
+    require(res["same_obj"] >= NEAREST_BARS["same"]
+            and res["t_within_rtol_1e4"] >= NEAREST_BARS["t_1e4"]
+            and res.get("ri_equal", 1.0) >= NEAREST_BARS["ri"],
+            f"{what}: the kernel disagrees with the plain version: {res}")
+
+
+def both_builds(what, batch, kernel_fn, want, rays):
+    """Run ``kernel_fn`` in the default and the -fmad=false build against the
+    plain version's ``want``; print and check; -> the default build's numbers."""
+    res = compare_nearest(kernel_fn(), want, rays)
+    with _build.precise():
+        precise = compare_nearest(kernel_fn(), want, rays)
+    torch.cuda.synchronize()
+    say(phase=f"{what}_vs_plain", batch=batch, rays=rays.shape[1],
+        default_build=res, precise_build=precise)
+    check_nearest(f"{what} on {batch}", res, precise)
+    return res
+
+
+def second_generation_g(acc, rays):
+    """The rays a second pop would carry on a generic scene: from each first
+    hit (found by the plain grouped sweep), even lanes mirror off the surface
+    and odd lanes continue through it, so they start inside a primitive; lanes
+    whose first ray missed are dead (d = 0)."""
+    o, d, tr, _ = unpack(rays)
+    t, obj, _ = sweep.sweep_grouped_plain(acc.table, acc.gaabb, rays, acc.group, False, acc.mode)
+    h, _ = sweep._finish_hit(acc, o, d, tr, t, obj)
+    hit = h.hit[:, None]
+    n = h.normal
+    nd = (n * d).sum(dim=1, keepdim=True)
+    n_out = torch.where(nd > 0.0, -n, n)
+    pt = o + h.t[:, None] * d
+    mirror = (torch.arange(o.shape[0], device=o.device) % 2 == 0)[:, None]
+    side = torch.where(mirror, 1e-4, -1e-4).to(torch.float32)
+    d2 = torch.where(mirror, d - 2.0 * nd * n, d)
+    d2 = d2 / d2.norm(dim=1, keepdim=True).clamp_min(1e-20)
+    d2 = torch.where(hit, d2, torch.zeros_like(d2))
+    o2 = torch.where(hit, pt + side * n_out, o)
+    return sweep2.pack_rays(o2, d2, tr, rays[7])
+
+
+def probe_points(acc, rays):
+    """(4, B) query points of the refractive-index sum: 1e-3 outside the first
+    hit of each ray along the normal (the ray's origin where it missed)."""
+    o, d, tr, _ = unpack(rays)
+    t, obj, _ = sweep.sweep_grouped_plain(acc.table, acc.gaabb, rays, acc.group, False, acc.mode) \
+        if acc.group else (*sweep.sweep_nearest_plain(acc.table, acc.mode, rays), None)
+    h, _ = sweep._finish_hit(acc, o, d, tr, t, obj)
+    q = torch.where(h.hit[:, None], o + h.t[:, None] * d + 1e-3 * h.normal, o)
+    return torch.stack([q[:, 0], q[:, 1], q[:, 2], rays[6]]).contiguous()
+
+
+def compare_ri(what, batch, table, mode, pts):
+    """The refractive-index sum of both builds against its plain version."""
+    q, tr = pts[0:3].T.contiguous(), 1.0 - pts[3]
+    want = sweep.sweep_ri_plain(table, mode, pts)
+    got = sweep.sweep_ri(table, mode, q, tr)
+    with _build.precise():
+        got_p = sweep.sweep_ri(table, mode, q, tr)
+    torch.cuda.synchronize()
+    res = dict(equal=frac(got == want), equal_precise_build=frac(got_p == want),
+               not_one=frac(want != 1.0),
+               max_abs_err=float((got - want).abs().max()))
+    say(phase=f"{what}_vs_plain", batch=batch, points=pts.shape[1], **res)
+    require(res["equal"] >= 0.999 and res["equal_precise_build"] >= 0.999,
+            f"{what} on {batch} disagrees with its plain version: {res}")
+    return res
+
+
+# Bars of the persistent kernel's generic instantiation against its plain
+# version at 16 spp, per pixel of the finished image.  The winner is re-solved
+# in the dense intersector's divide-by-scale form (the reference's arithmetic),
+# whose quadratic half_b^2 - a c cancels in float32 once a small primitive is
+# far away: for a 0.45-radius sphere 60 units off, |o/s|^2 is 2e4 with an ulp
+# of 2e-3, and the refined t is good to about 5e-4 -- more than the 1e-4 by
+# which a child ray is lifted off the surface.  There the child starts at
+# random on either side of the surface in ANY build, and the default build
+# (fused a*b+c) and the plain version (rounded twice) draw different lots
+# (the phase prints the share of samples beyond 5e-2 on either side of FAR_T).
+# So the pixels are held in two classes.  NEAR (no sample's primary hit at FAR_T
+# or beyond, the sky aside): as the sphere frame, but a flipped sample moves a
+# 16-spp pixel six times as far as a 100-spp one, hence PIXEL_ATOL_16 (found:
+# 99.995 % within it, 99.88 % within 1e-2, 1.0e-4 on average).  FAR: the
+# class's mean colour (found 5.3e-3 apart), and a loose share within
+# PIXEL_ATOL_16 (found 95.4 %).
+FAR_T = 20.0
+PIXEL_ATOL_16 = 2.5e-1
+NEAR_FRAC_1E2, NEAR_MEAN = 0.99, 1e-3
+FAR_FRAC_16, FAR_MEAN = 0.90, 2e-2
+
+
+def compare_pixels_g(img, ref, far):
+    """Per-pixel distances of two finished generic frames, by class."""
+    err = (img - ref).abs().amax(dim=-1)
+    near = ~far
+    cls = lambda m: dict(
+        pixels=int(m.sum()), within_atol_16=frac(err[m] <= PIXEL_ATOL_16),
+        within_1e2=frac(err[m] <= 1e-2), within_1e3=frac(err[m] <= 1e-3),
+        mean_abs_err=float(err[m].mean()), max_abs_err=float(err[m].max()),
+        class_mean_diff=float((img[m].mean(dim=0) - ref[m].mean(dim=0)).abs().max()))
+    return dict(near=cls(near), far=cls(far), max_abs_err=float(err.max()),
+                within_atol_16=frac(err <= PIXEL_ATOL_16))
+
+
+def check_pixels_g(what, px):
+    near, far = px["near"], px["far"]
+    require(near["within_atol_16"] >= PIXEL_FRAC and near["within_1e2"] >= NEAR_FRAC_1E2
+            and near["mean_abs_err"] < NEAR_MEAN,
+            f"{what}: the near pixels of the default build's frame are off: {near}")
+    require(far["within_atol_16"] >= FAR_FRAC_16 and far["class_mean_diff"] < FAR_MEAN,
+            f"{what}: the far pixels of the default build's frame are off: {far}")
+
+
+def check_uber_g(size, plain_dropped, res, precise):
+    require(plain_dropped == 0, f"plain version dropped rays at {size}")
+    for r in (res, precise):
+        require(r["finite"] and r["dropped"] == 0, f"generic uber output at {size}: {r}")
+    require(precise["colour_within_1e4"] >= 0.999
+            and precise["primary_t_within_rtol_1e4"] >= 0.999
+            and precise["ray_count_rel_diff"] < 5e-4,
+            f"generic uber -fmad=false build disagrees with the plain version at {size}: {precise}")
+    require(res["primary_t_within_rtol_1e4"] >= 0.999
+            and res["colour_within_1e4"] >= 0.85 and res["colour_within_5e2"] >= 0.97
+            and res["mean_abs_diff"] < 5e-3 and res["ray_count_rel_diff"] < 5e-3,
+            f"generic uber kernel disagrees with the plain version at {size}: {res}")
+
+
+def parity(ou, oq):
+    """The canary's numbers: persistent kernel's frame against the queue
+    renderer's."""
+    iu, iq = ou["image"], oq["image"]
+    ru, rq = int(ou["rays"]), int(oq["rays"])
+    ddiff = (ou["depth"].clamp_max(100.0) - oq["depth"].clamp_max(100.0)).abs()
+    return dict(mean_image_diff=float((iu.mean(dim=(0, 1)) - iq.mean(dim=(0, 1))).abs().max()),
+                frac_pixels_off_5e2=frac((iu - iq).abs().amax(dim=-1) > 5e-2),
+                ray_count_ratio=ru / max(rq, 1),
+                depth_disagree_frac=frac(ddiff > 1e-2),
+                rays_dropped=int(ou["rays_dropped"]),
+                queue_rays_dropped=int(oq["rays_dropped"]),
+                finite=bool(torch.isfinite(iu).all() and torch.isfinite(iq).all()))
+
+
+def check_parity(what, c):
+    require(c["finite"] and c["mean_image_diff"] < 5e-3 and c["frac_pixels_off_5e2"] < 0.03
+            and abs(c["ray_count_ratio"] - 1.0) < 0.02 and c["depth_disagree_frac"] < 0.01
+            and c["rays_dropped"] == 0 and c["queue_rays_dropped"] == 0,
+            f"{what} failed: {c}")
+
+
+def generic_phases(dev, iow):
+    """Phases 8 to 12 -> the kernels-line entries of the generic slice.
+    ``iow``: the sphere scene, its camera, its small config, its canary lanes."""
+    scene, camera = examples.bvh_grid_scene(side=32)
+    scene, camera = scene.to(dev), camera.to(dev)
+    cfg = RenderConfig(intersector="pallas", **BVH1K).for_scene(scene)
+    cfg_s = RenderConfig(intersector="pallas", **SMALL).for_scene(scene)
+    require(cfg.pallas_mode == "generic" and not cfg.has_dielectrics and not cfg.has_motion,
+            f"the grid scene's statics: {cfg}")
+
+    # 8. K3, K4, K5 against their plain versions on the frame's own tables and
+    # rays: all 5 760 000 camera lanes and as many second-generation rays.
+    acc3, cam_g = uber._scene_accel(scene, camera, cfg, GR)  # what K1 generic and K3 read
+    acc5 = _build_accel(scene, cfg)  # the queue renderer's: groups of 32
+    acc4 = _build_accel(scene, dataclasses.replace(cfg, pallas_groups=0))  # dense
+    require(acc3.gkinds.count("s") == 8 and acc3.n_groups == 17 and acc3.n_sgroups == 3
+            and acc5.group == 32 and acc4.group == 0,
+            f"accels of the grid scene: {acc3.gkinds} {acc3.n_sgroups} {acc5.group}")
+    lo, ld, ltr, _ = _lane_inputs(camera, cfg)
+    lanes = sweep2.pack_rays(lo, ld, ltr, torch.full_like(ltr, cfg.t_max))
+    del lo, ld, ltr
+    lanes2 = second_generation_g(acc5, lanes)
+    # plus the edge cases every version must agree on: dead rays, an
+    # axis-parallel ray whose origin lies on a slab plane of the ground box
+    # (its top, y = -1), and one that runs inside that plane's slab
+    edge = lanes[:, :4].clone()
+    edge[0:3] = torch.tensor([[-3.0, 5.0], [-1.0, -1.5], [-8.0, 2.0]], device=dev).repeat(1, 2)
+    edge[3:6] = torch.tensor([[1.0, 0.0], [0.0, 0.0], [0.0, -1.0]], device=dev).repeat(1, 2)
+    edge[3:6, 2:] = 0.0  # two dead rays
+    batches = dict(camera_lanes=lanes, second_pop=lanes2, edge_cases=edge)
+    sweeps = {}
+    plain_ms = {}
+    for batch, rr in batches.items():
+        o, d, tr, tl = unpack(rr)
+        plain_ms[batch, "sweep2g"], want3 = timed_ms(lambda: sweep2g.sweep2g_plain(acc3, rr))
+        plain_ms[batch, "sweep_grouped"], want5 = timed_ms(lambda: sweep.sweep_grouped_plain(
+            acc5.table, acc5.gaabb, rr, acc5.group, False, "generic"))
+        plain_ms[batch, "sweep_nearest"], want4 = timed_ms(
+            lambda: sweep.sweep_nearest_plain(acc4.table, "generic", rr))
+        if batch == "edge_cases":
+            # on the plane: a miss; inside the slab: the ground box from within
+            require(want3[1].tolist()[2:] == [-1, -1] and int(want3[1][0]) == -1
+                    and int(want3[1][1]) >= 0, f"edge cases of the plain sweep: {want3}")
+            for w in (want3, want5, want4):
+                say(phase="edge_cases_plain", t=w[0].tolist(), obj=w[1].tolist())
+        sweeps[batch] = dict(
+            sweep2g=both_builds("sweep2g", batch, lambda: sweep2g.sweep2g_nearest(
+                acc3, o, d, tr, tl), want3, rr),
+            sweep_grouped=both_builds("sweep_grouped", batch, lambda: sweep.sweep_grouped(
+                acc5.table, acc5.gaabb, o, d, tr, tl, acc5.group, False, mode="generic"),
+                want5, rr),
+            sweep_nearest=both_builds("sweep_nearest", batch, lambda: sweep.sweep_nearest(
+                acc4.table, "generic", o, d, tr, tl), want4, rr))
+        # the three sweeps name the same object (each in its own row order)
+        w3 = torch.where(want3[1] >= 0, acc3.perm[want3[1].clamp_min(0).long()], -1)
+        w5 = torch.where(want5[1] >= 0, acc5.perm[want5[1].clamp_min(0).long()], -1)
+        agree = dict(k3_k5=frac(w3 == w5), k4_k5=frac(want4[1] == w5))
+        say(phase="sweeps_agree", batch=batch, **agree)
+        require(min(agree.values()) >= 0.999 or batch == "edge_cases",
+                f"the plain sweeps name different objects on {batch}: {agree}")
+        del want3, want4, want5, w3, w5
+    require(sweeps["second_pop"]["sweep2g"]["dead_rays"] > 0, "no dead lanes in the second pop")
+
+    # the refractive-index sum on the grid's table (no glass: all 1) and on
+    # the glass scene's, where the sum has work to do
+    gl_scene, gl_cam = overlapping_glass_scene()
+    gl_scene, gl_cam = gl_scene.to(dev), gl_cam.to(dev)
+    cfg_gl = RenderConfig(intersector="pallas", pallas_groups=0, **GLASS).for_scene(gl_scene)
+    require(cfg_gl.pallas_mode == "generic" and cfg_gl.has_dielectrics, f"glass scene: {cfg_gl}")
+    acc_gl = _build_accel(gl_scene, cfg_gl)
+    glo, gld, gltr, _ = _lane_inputs(gl_cam, cfg_gl)
+    gl_lanes = sweep2.pack_rays(glo, gld, gltr, torch.full_like(gltr, cfg_gl.t_max))
+    gl_lanes2 = second_generation_g(sweep.make_accel(gl_scene, "generic", group=4), gl_lanes)
+    pts_grid = probe_points(acc5, lanes)
+    plain_ms["camera_lanes", "sweep_ri"], _ = timed_ms(
+        lambda: sweep.sweep_ri_plain(acc4.table, "generic", pts_grid))
+    ri_grid = compare_ri("sweep_ri", "grid_hit_points", acc4.table, "generic", pts_grid)
+    ri_glass = {}
+    for batch, rr in dict(glass_lanes=gl_lanes, glass_second_pop=gl_lanes2).items():
+        ri_glass[batch] = compare_ri("sweep_ri", batch, acc_gl.table, "generic",
+                                     probe_points(acc_gl, rr))
+        o, d, tr, tl = unpack(rr)
+        both_builds("sweep_nearest", batch, lambda: sweep.sweep_nearest(
+            acc_gl.table, "generic", o, d, tr, tl),
+            sweep.sweep_nearest_plain(acc_gl.table, "generic", rr), rr)
+    # points spread through the glass bodies' volume: many lie inside one or both
+    vol = seeded_rays((0.2, 0.0, -3.5), 0.9, 100_000, dev, n_dead=0)
+    ri_glass["glass_volume"] = compare_ri("sweep_ri", "glass_volume", acc_gl.table, "generic",
+                                          torch.cat([vol[0:3], vol[6:7]]).contiguous())
+    require(ri_glass["glass_volume"]["not_one"] > 0.05,
+            f"the glass scene's refractive-index sums are all 1: {ri_glass}")
+
+    # ... and the sphere-mode instantiations, on the sphere scene's tables and
+    # its canary's lanes (the path of pallas_v2=False)
+    i_scene, i_cam, i_cfg, i_lanes = iow
+    i_lanes2 = second_generation(_build_accel(i_scene, i_cfg), i_lanes)
+    s_dense = sweep.make_accel(i_scene, "spheres", group=0)
+    s_grp = sweep.make_accel(i_scene, "spheres", group=32)
+    spheres = {}
+    for batch, rr in dict(sphere_lanes=i_lanes, sphere_second_pop=i_lanes2).items():
+        o, d, tr, tl = unpack(rr)
+        plain_ms[batch, "sweep_nearest_ri"], want = timed_ms(
+            lambda: sweep.sweep_nearest_ri_plain(s_dense.table, rr))
+        spheres[batch] = both_builds("sweep_nearest_ri", batch, lambda: sweep.sweep_nearest_ri(
+            s_dense.table, o, d, tr, tl), want, rr)
+        both_builds("sweep_nearest_spheres", batch, lambda: sweep.sweep_nearest(
+            s_dense.table, "spheres", o, d, tr, tl),
+            sweep.sweep_nearest_plain(s_dense.table, "spheres", rr), rr)
+        for with_ri in (False, True):
+            both_builds(f"sweep_grouped_spheres_ri{int(with_ri)}", batch,
+                        lambda: sweep.sweep_grouped(s_grp.table, s_grp.gaabb, o, d, tr, tl, 32,
+                                                    with_ri, mode="spheres"),
+                        sweep.sweep_grouped_plain(s_grp.table, s_grp.gaabb, rr, 32, with_ri,
+                                                  "spheres"), rr)
+        compare_ri("sweep_ri_spheres", batch, s_dense.table, "spheres",
+                   probe_points(s_dense, rr))
+    # the fused refractive index where it is not 1: rays from inside nested glass
+    nest = nested_glass_spheres().to(dev)
+    n_dense = sweep.make_accel(nest, "spheres", group=0)
+    n_grp = sweep.make_accel(nest, "spheres", group=4)
+    rr = seeded_rays((0.0, 0.0, -3.0), 0.45, 100_000, dev)
+    o, d, tr, tl = unpack(rr)
+    spheres["nested_glass"] = both_builds(
+        "sweep_nearest_ri", "nested_glass", lambda: sweep.sweep_nearest_ri(
+            n_dense.table, o, d, tr, tl), sweep.sweep_nearest_ri_plain(n_dense.table, rr), rr)
+    both_builds("sweep_grouped_spheres_ri1", "nested_glass", lambda: sweep.sweep_grouped(
+        n_grp.table, n_grp.gaabb, o, d, tr, tl, 4, True, mode="spheres"),
+        sweep.sweep_grouped_plain(n_grp.table, n_grp.gaabb, rr, 4, True, "spheres"), rr)
+    require(spheres["nested_glass"]["ri_not_one"] > 0.05,
+            f"no fused refractive index differs from 1: {spheres['nested_glass']}")
+
+    # 9. K1 generic against its plain version, at the frame's own statics ------
+    st = uber.UberStatics.from_cfg(cfg)
+    plain_ms_k1, (out_p, stats_p) = timed_ms(lambda: uber.uber_render_plain(acc3, cam_g, st))
+    k1, got = compare_uber(acc3, cam_g, st, out_p, stats_p)
+    img_k = uber._uber_post(*got, cfg)["image"]
+    # where the samples differ: by the distance of the primary hit
+    far_s = (out_p[:, 3] >= FAR_T) & (out_p[:, 3] < 0.99 * cfg.t_max)
+    near_s = (out_p[:, 3] < FAR_T)
+    cerr = (got[0][:, :3] - out_p[:, :3]).abs().amax(dim=1)
+    k1["samples_beyond_5e2_by_primary_hit"] = dict(
+        nearer_than_far_t=frac(cerr[near_s] > 5e-2), far_t_or_beyond=frac(cerr[far_s] > 5e-2),
+        share_of_samples_far=frac(far_s))
+    del cerr, near_s
+    with _build.precise():
+        k1_precise, got = compare_uber(acc3, cam_g, st, out_p, stats_p)
+    img_precise = uber._uber_post(*got, cfg)["image"]
+    img_p = uber._uber_post(out_p, stats_p, cfg)["image"]
+    far = far_s.reshape(cfg.height, cfg.width, cfg.spp).any(dim=-1)
+    px_plain = compare_pixels_g(img_k, img_p, far)
+    px_precise = compare_pixels_g(img_k, img_precise, far)
+    say(phase="uber_generic_vs_plain", size=size_of(BVH1K), samples=st.B,
+        rays_plain=int(stats_p[uber.ST_RAYS]), plain_seconds=plain_ms_k1 / 1e3,
+        default_build=k1, precise_build=k1_precise, pixels_default_vs_plain=px_plain,
+        pixels_default_vs_precise=px_precise, pixel_atol=PIXEL_ATOL_16, far_t=FAR_T)
+    check_uber_g(size_of(BVH1K), int(stats_p[uber.ST_DROPPED]), k1, k1_precise)
+    check_pixels_g("against the plain version", px_plain)
+    check_pixels_g("against the -fmad=false build", px_precise)
+    del out_p, got, img_k, img_precise, img_p
+
+    # ... and with the rotated containment probe, on the glass scene
+    acc_glu, cam_glu = uber._scene_accel(gl_scene, gl_cam, cfg_gl, 8)
+    require(acc_glu.n_pgroups == 1, f"the glass scene's probe rows were cut: {acc_glu.n_pgroups}")
+    st_gl = uber.UberStatics.from_cfg(cfg_gl)
+    out_p, stats_p = uber.uber_render_plain(acc_glu, cam_glu, st_gl)
+    k1_gl, _ = compare_uber(acc_glu, cam_glu, st_gl, out_p, stats_p)
+    with _build.precise():
+        k1_gl_precise, _ = compare_uber(acc_glu, cam_glu, st_gl, out_p, stats_p)
+    say(phase="uber_generic_vs_plain", size=size_of(GLASS) + " glass", samples=st_gl.B,
+        rays_plain=int(stats_p[uber.ST_RAYS]), default_build=k1_gl, precise_build=k1_gl_precise)
+    check_uber_g(size_of(GLASS) + " glass", int(stats_p[uber.ST_DROPPED]), k1_gl, k1_gl_precise)
+    del out_p
+
+    # 10. generic canaries: each path's launches counted from 0 ----------------
+    _build.reset_launches()
+    ou = uber.render_uber(scene, camera, cfg_s, gr=GR)
+    oq = render_stats(scene, camera, cfg_s)
+    launches_canary = dict(_build.LAUNCHES)
+    canary = parity(ou, oq)
+    say(phase="generic_canary", scene="bvh_grid_scene(side=32)", size=size_of(SMALL),
+        launches=launches_canary, **canary)
+    check_parity("generic canary", canary)
+    require(launches_canary.get("uber_g") == 1 and launches_canary.get("sweep_grouped", 0) > 0
+            and set(launches_canary) == {"uber_g", "sweep_grouped"},
+            f"the generic canary's launches: {launches_canary}")
+
+    # K3 through its own entry point on the canary's lanes, against K5's
+    # winners (K3's consumer in the product, the differentiable fast path, is
+    # not ported yet)
+    acc3_s, _ = uber._scene_accel(scene, camera, cfg_s, GR)
+    clo, cld, cltr, _ = _lane_inputs(camera, cfg_s)
+    ctl = torch.full_like(cltr, cfg_s.t_max)
+    _build.reset_launches()
+    t3, obj3 = sweep2g.sweep2g_nearest(acc3_s, clo, cld, cltr, ctl)
+    launches_k3 = dict(_build.LAUNCHES)
+    obj5 = sweep.occluded_nearest_obj_pallas(acc5, scene, clo, cld, cltr, ctl)
+    orig3 = torch.where(obj3 >= 0, acc3_s.perm[obj3.clamp_min(0).long()], -1)
+    k3_entry = dict(same_winner_as_sweep_grouped=frac(orig3 == obj5), hit_frac=frac(obj3 >= 0),
+                    launches=launches_k3)
+    say(phase="sweep2g_entry", rays=clo.shape[0], **k3_entry)
+    require(k3_entry["same_winner_as_sweep_grouped"] >= 0.999 and launches_k3 == {"sweep2g": 1},
+            f"sweep2g_nearest against the grouped sweep: {k3_entry}")
+
+    # the dense sweeps (pallas_groups=0) on the glass scene: K4's two kernels
+    _build.reset_launches()
+    ou = uber.render_uber(gl_scene, gl_cam, cfg_gl, gr=GR)
+    oq = render_stats(gl_scene, gl_cam, cfg_gl)
+    launches_glass = dict(_build.LAUNCHES)
+    glass = parity(ou, oq)
+    say(phase="generic_canary", scene="overlapping glass, dense sweeps", size=size_of(GLASS),
+        launches=launches_glass, **glass)
+    check_parity("glass canary", glass)
+    require(launches_glass.get("uber_g") == 1 and launches_glass.get("sweep_nearest", 0) > 0
+            and launches_glass.get("sweep_ri", 0) > 0
+            and set(launches_glass) == {"uber_g", "sweep_nearest", "sweep_ri"},
+            f"the glass canary's launches: {launches_glass}")
+
+    # the first-generation sweeps on the sphere scene (pallas_v2=False): the
+    # fused nearest + refractive index kernel, dense and grouped
+    cfg_v1 = dataclasses.replace(i_cfg, pallas_v2=False, spp=2)
+    o_v2 = render_stats(i_scene, i_cam, dataclasses.replace(i_cfg, spp=2))
+    launches_v1 = {}
+    for groups in (0, 32):
+        _build.reset_launches()
+        o_v1 = render_stats(i_scene, i_cam, dataclasses.replace(cfg_v1, pallas_groups=groups))
+        launches_v1[groups] = dict(_build.LAUNCHES)
+        v1 = parity(o_v1, o_v2)
+        say(phase="first_generation_spheres", pallas_groups=groups,
+            launches=launches_v1[groups], **v1)
+        check_parity(f"first-generation sphere sweeps, groups={groups}", v1)
+    require(launches_v1[0].get("sweep_nearest_ri", 0) > 0 and set(launches_v1[0]) == {"sweep_nearest_ri"}
+            and launches_v1[32].get("sweep_grouped", 0) > 0 and set(launches_v1[32]) == {"sweep_grouped"},
+            f"the first-generation sphere path's launches: {launches_v1}")
+
+    # 11. the generic frame ------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    times, launches_frames = [], []
+    for frame_no in range(4):  # one warm frame, three timed
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = uber.render_uber(scene, camera, cfg, gr=GR)
+        torch.cuda.synchronize()
+        if frame_no:
+            times.append(time.perf_counter() - t0)
+        launches_frames.append(dict(_build.LAUNCHES))
+    img = out["image"]
+    rays, dropped = int(out["rays"]), int(out["rays_dropped"])
+    frame = dict(scene="bvh_grid_scene(side=32)", size=size_of(BVH1K),
+                 seconds_per_frame_min=min(times), seconds_per_frame_mean=sum(times) / len(times),
+                 rays=rays, mrays_per_s=rays / min(times) / 1e6, rays_dropped=dropped,
+                 image_mean=float(img.mean()), launches_per_frame=launches_frames,
+                 peak_memory_bytes=torch.cuda.max_memory_allocated())
+    say(phase="bvh1k", **frame)
+    require(tuple(img.shape) == (cfg.height, cfg.width, 3), f"image shape {img.shape}")
+    require(bool(torch.isfinite(img).all()) and bool(torch.isfinite(out["depth"]).all()),
+            "the generic frame is not finite")
+    require(dropped == 0, f"the generic frame dropped rays: {frame}")
+    require(abs(rays - BVH1K_RAYS) / BVH1K_RAYS < 0.02, f"generic frame ray count: {frame}")
+    require(abs(frame["image_mean"] - BVH1K_MEAN) < 1e-2, f"generic frame image mean: {frame}")
+    for got in launches_frames:
+        require(got == {"uber_g": 1},
+                f"a generic frame is one launch of the persistent kernel: {launches_frames}")
+
+    # 12. the kernels at the main path's shapes ----------------------------------
+    ms_k1 = cuda_ms(lambda: uber.uber_render(acc3, cam_g, st), 3)
+    with _build.precise():
+        ms_k1_precise = cuda_ms(lambda: uber.uber_render(acc3, cam_g, st), 3)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        uber._scene_accel(scene, camera, cfg, GR)
+    torch.cuda.synchronize()
+    accel_ms = (time.perf_counter() - t0) / 3 * 1e3
+    out_h, stats_h = uber.uber_render(acc3, cam_g, st)
+    post_ms = cuda_ms(lambda: uber._uber_post(out_h, stats_h, cfg), 3)
+    n_nodes, n_hits = int(stats_h[uber.ST_RAYS]), int(stats_h[uber.ST_HITS])
+    s_rows, o_rows = int(stats_h[uber.ST_SPHERE_TESTS]), int(stats_h[uber.ST_OTHER_TESTS])
+    n_slab = int(stats_h[uber.ST_SLAB_TESTS])
+    del out_h
+    say(phase="bvh1k_breakdown", kernel_ms=ms_k1, kernel_ms_precise_build=ms_k1_precise,
+        accel_build_ms=accel_ms, epilogue_ms=post_ms, frame_ms=min(times) * 1e3,
+        nodes=n_nodes, hits=n_hits, sphere_rows_per_node=s_rows / n_nodes,
+        cuboid_rows_per_node=o_rows / n_nodes, slab_tests_per_node=n_slab / n_nodes)
+    k1_bytes = 16 * st.B + accel_bytes(acc3) + 4 * uber.CAM_LEN
+    k1_flops = (s_rows * FLOPS_PER_CENSUS_SPHERE_ROW + o_rows * FLOPS_PER_CENSUS_CUBOID_ROW
+                + n_slab * FLOPS_PER_SLAB_TEST + n_hits * FLOPS_PER_REFINE_G
+                + n_nodes * FLOPS_PER_NODE_SHADE)
+    k1_bound, k1_by = bound(k1_bytes, k1_flops)
+
+    B = lanes.shape[1]
+    o, d, tr, tl = unpack(lanes)
+    table_bytes = lambda *ts: 4 * sum(t.numel() for t in ts)
+    # K3: counted slab tests and rows by kind
+    st3 = torch.zeros(sweep2g.GC_LEN, dtype=torch.int64, device=dev)
+    sweep2g._sweep2g(acc3, lanes, st3)
+    ms_k3 = cuda_ms(lambda: sweep2g._sweep2g(acc3, lanes), 10)
+    k3_bound, k3_by = bound(
+        40 * B + table_bytes(acc3.otab, acc3.gaabb),
+        int(st3[sweep2g.GC_SLAB]) * FLOPS_PER_SLAB_TEST
+        + int(st3[sweep2g.GC_SPHERE_ROWS]) * FLOPS_PER_CENSUS_SPHERE_ROW
+        + int(st3[sweep2g.GC_OTHER_ROWS]) * FLOPS_PER_CENSUS_CUBOID_ROW)
+    # K5: every group's box is tested by every ray; rows counted
+    st5 = torch.zeros(sweep.SC_LEN, dtype=torch.int64, device=dev)
+    sweep.sweep_grouped(acc5.table, acc5.gaabb, o, d, tr, tl, 32, False, mode="generic", stats=st5)
+    ms_k5 = cuda_ms(lambda: sweep.sweep_grouped(acc5.table, acc5.gaabb, o, d, tr, tl, 32, False,
+                                                mode="generic"), 10)
+    n_g5 = acc5.gaabb.shape[0]
+    k5_bound, k5_by = bound(
+        44 * B + table_bytes(acc5.table, acc5.gaabb),
+        B * n_g5 * FLOPS_PER_SLAB_TEST + int(st5[sweep.SC_ROWS]) * FLOPS_PER_GENERIC_ROW)
+    # K4: every ray tests every row
+    n4 = acc4.table.shape[0]
+    ms_k4 = cuda_ms(lambda: sweep.sweep_nearest(acc4.table, "generic", o, d, tr, tl), 5)
+    k4_bound, k4_by = bound(40 * B + table_bytes(acc4.table), B * n4 * FLOPS_PER_GENERIC_ROW)
+    q, qtr = pts_grid[0:3].T.contiguous(), 1.0 - pts_grid[3]
+    ms_ri = cuda_ms(lambda: sweep.sweep_ri(acc4.table, "generic", q, qtr), 5)
+    ri_bound, ri_by = bound(20 * B + table_bytes(acc4.table), B * n4 * FLOPS_PER_CONTAINS_GENERIC)
+    # the fused sphere kernel at the sphere canary's lanes
+    io, id_, itr, itl = unpack(i_lanes)
+    Bi, ni = i_lanes.shape[1], s_dense.table.shape[0]
+    ms_nri = cuda_ms(lambda: sweep.sweep_nearest_ri(s_dense.table, io, id_, itr, itl), 20)
+    nri_bound, nri_by = bound(
+        44 * Bi + table_bytes(s_dense.table),
+        Bi * ni * (FLOPS_PER_SPHERE_TEST + 6 + FLOPS_PER_CONTAINS_SPHERE))
+    say(phase="sweeps_at_the_frames_lanes", rays=B,
+        sweep2g=dict(ms=ms_k3, slab_tests_per_ray=int(st3[sweep2g.GC_SLAB]) / B,
+                     sphere_rows_per_ray=int(st3[sweep2g.GC_SPHERE_ROWS]) / B,
+                     cuboid_rows_per_ray=int(st3[sweep2g.GC_OTHER_ROWS]) / B),
+        sweep_grouped=dict(ms=ms_k5, rows_per_ray=int(st5[sweep.SC_ROWS]) / B, groups=n_g5),
+        sweep_nearest=dict(ms=ms_k4, rows_per_ray=n4), sweep_ri=dict(ms=ms_ri, rows_per_point=n4))
+
+    paths = dict(generic_canary=launches_canary, sweep2g_entry=launches_k3,
+                 glass_canary=launches_glass, first_generation_dense=launches_v1[0],
+                 first_generation_grouped=launches_v1[32], bvh1k_frame=launches_frames[-1])
+    by_path = lambda name: {p: got.get(name, 0) for p, got in paths.items()}
+    main = sweeps["camera_lanes"]
+    tol = ("same winner as the plain version on >= 99.9 % of rays, t within rtol 1e-4 on "
+           ">= 99 % of the agreeing hits; the -fmad=false build on >= 99.9 %")
+    src = "raytracing_tests_tpu_torch/csrc/"
+    jax_src = "raytracing_tests_tpu/kernels/"
+    entry = lambda name, source, replaces, launches, res, **kw: dict(
+        name=name, route="cuda", source=src + source, replaces=jax_src + replaces,
+        launches=launches, launches_by_path=by_path(name), max_abs_err=res["t_max_abs_err"],
+        tolerance=tol, frac_within_tolerance=min(res["same_obj"], res["t_within_rtol_1e4"]),
+        library_ms=None, **kw)
+    return [
+        dict(name="uber_render_generic", route="cuda", source=src + "uber.cu",
+             replaces=jax_src + "uber.py:874", launches=launches_frames[-1].get("uber_g", 0),
+             launches_by_path=by_path("uber_g"), max_abs_err=px_plain["max_abs_err"],
+             tolerance=f"finished 16-spp image within {PIXEL_ATOL_16} of the plain version's "
+                       f"on >= {PIXEL_FRAC} of the pixels whose primary hits lie nearer than "
+                       f"{FAR_T}, {NEAR_MEAN} on average; the farther pixels by their mean "
+                       f"colour within {FAR_MEAN}; per sample as the sphere instantiation",
+             frac_within_tolerance=px_plain["near"]["within_atol_16"],
+             per_sample_max_abs_err=k1["colour_max_abs_err"],
+             per_sample_frac_within_1e4=k1["colour_within_1e4"],
+             per_sample_frac_within_1e4_precise_build=k1_precise["colour_within_1e4"],
+             ms=ms_k1, plain_ms=plain_ms_k1, bound_ms=k1_bound, bound_by=k1_by,
+             library_ms=None, shape=size_of(BVH1K) + ", 1025 objects, gr=64"),
+        entry("sweep2g", "sweep2g.cu", "sweep2g.py:838", launches_k3.get("sweep2g", 0),
+              main["sweep2g"], ms=ms_k3, plain_ms=plain_ms["camera_lanes", "sweep2g"],
+              bound_ms=k3_bound, bound_by=k3_by, shape=f"{B} rays, 17 groups of 64"),
+        entry("sweep_nearest", "sweep.cu", "sweep.py:535", launches_glass.get("sweep_nearest", 0),
+              main["sweep_nearest"], ms=ms_k4, plain_ms=plain_ms["camera_lanes", "sweep_nearest"],
+              bound_ms=k4_bound, bound_by=k4_by, shape=f"{B} rays x {n4} generic rows"),
+        dict(name="sweep_ri", route="cuda", source=src + "sweep.cu",
+             replaces=jax_src + "sweep.py:535", launches=launches_glass.get("sweep_ri", 0),
+             launches_by_path=by_path("sweep_ri"), max_abs_err=max(
+                 ri_grid["max_abs_err"], *(r["max_abs_err"] for r in ri_glass.values())),
+             tolerance="equal to the plain version on >= 99.9 % of the points",
+             frac_within_tolerance=min(ri_grid["equal"], *(r["equal"] for r in ri_glass.values())),
+             ms=ms_ri, plain_ms=plain_ms["camera_lanes", "sweep_ri"], bound_ms=ri_bound,
+             bound_by=ri_by, library_ms=None, shape=f"{B} points x {n4} generic rows"),
+        entry("sweep_nearest_ri", "sweep.cu", "sweep.py:535",
+              launches_v1[0].get("sweep_nearest_ri", 0), spheres["sphere_lanes"], ms=ms_nri,
+              plain_ms=plain_ms["sphere_lanes", "sweep_nearest_ri"], bound_ms=nri_bound,
+              bound_by=nri_by, shape=f"{Bi} rays x {ni} sphere rows"),
+        entry("sweep_grouped", "sweep.cu", "sweep.py:590", launches_canary.get("sweep_grouped", 0),
+              main["sweep_grouped"], ms=ms_k5, plain_ms=plain_ms["camera_lanes", "sweep_grouped"],
+              bound_ms=k5_bound, bound_by=k5_by, shape=f"{B} rays, {n_g5} groups of 32"),
+    ]
 
 
 def main():
@@ -463,7 +1140,7 @@ def main():
     k2_bound, k2_by = bound(k2_bytes, k2_flops)
     k2_main = k2["canary_lanes"]
 
-    say(kernels=[
+    kernels = [
         dict(name="uber_render", route="cuda",
              source="raytracing_tests_tpu_torch/csrc/uber.cu",
              replaces="raytracing_tests_tpu/kernels/uber.py:874",
@@ -495,7 +1172,12 @@ def main():
                                        k2_main["t_within_rtol_1e4"]),
              ms=ms_k2, plain_ms=plain_ms_k2, bound_ms=k2_bound, bound_by=k2_by,
              library_ms=None, shape=f"{Bq} rays, hit block + RI"),
-    ])
+    ]
+    kernels += generic_phases(dev, (scene, camera, cfg_s, lanes))
+    for k in kernels:
+        require(max(k["launches_by_path"].values()) > 0 and k["launches"] > 0,
+                f"kernel {k['name']} was launched on no driven path: {k['launches_by_path']}")
+    say(kernels=kernels)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

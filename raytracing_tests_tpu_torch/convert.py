@@ -1,4 +1,4 @@
-"""numpy <-> ``Scene`` / ``Camera`` / ``Accel2``.
+"""numpy <-> ``Scene`` / ``Camera`` / ``Accel2`` / ``Accel2G`` / ``PallasAccel``.
 
 State crosses between this package and any other array library as
 dictionaries of numpy arrays keyed by field name:
@@ -8,6 +8,8 @@ dictionaries of numpy arrays keyed by field name:
 layout (``otab`` (Np + Pp, 128), the float32 ``ftab`` (24, Np) with its bf16
 splits summed, ``gaabb`` (G + PG, 128), ``perm``) and re-lays it into this
 package's row-major tables, so the sweep can be held against the same accel.
+``accel2g_from_numpy`` and ``pallas_accel_from_numpy`` do the same for the
+generic grouped accel and the first-generation sweep's accel.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from raytracing_tests_tpu_torch.kernels import sweep2
+from raytracing_tests_tpu_torch.kernels import sweep, sweep2, sweep2g
 from raytracing_tests_tpu_torch.scene.types import Camera, Scene
 
 SCENE_FIELDS = tuple(f.name for f in dataclasses.fields(Scene) if f.name != "textures")
@@ -88,3 +90,70 @@ def accel2_from_numpy(otab, ftab, gaabb, perm, gr: int, device="cpu") -> sweep2.
         otab=t(o), ftab=t(f), gaabb=t(g),
         perm=t(np.asarray(perm, np.int32)), gr=gr,
         n_pgroups=n_probe // sweep2.PROBE_GR)
+
+
+# Column indices of the JAX package's generic (Np, 128) object table.
+_SRC_GO = {"p": slice(0, 3), "dp": slice(3, 6), "M": slice(6, 15), "type": 15,
+           "valid": 16, "ri": 17, "R": slice(18, 27), "s": slice(27, 30)}
+
+
+def accel2g_from_numpy(otab, ftab, gaabb, perm, gr: int, has_motion: bool,
+                       n_pgroups: int, n_sgroups: int, gkinds,
+                       device="cpu") -> sweep2g.Accel2G:
+    """Re-lay a generic accel given in the JAX package's layout (``otab``
+    (Np + Pp, 128), the float32 ``ftab`` (32, Np) with its bf16 splits summed,
+    ``gaabb`` (G + PG + SGn, 128), ``perm``, and the static numbers) into an
+    ``Accel2G``."""
+    otab = np.asarray(otab, np.float32)
+    ftab = np.asarray(ftab, np.float32)
+    gaabb = np.asarray(gaabb, np.float32)
+    n_pad = ftab.shape[1]
+    if n_pad % gr or ftab.shape[0] != sweep2g.GFT_COLS:
+        raise ValueError(f"ftab {ftab.shape}: expected ({sweep2g.GFT_COLS}, k * {gr})")
+    G = n_pad // gr
+    if (otab.shape[0] != n_pad + n_pgroups * sweep2.PROBE_GR
+            or gaabb.shape[0] != G + n_pgroups + n_sgroups or len(gkinds) != G):
+        raise ValueError("otab / gaabb / gkinds do not match the group counts")
+    g = sweep2g
+    o = np.zeros((otab.shape[0], g.GO_COLS), np.float32)
+    o[:, g.GO_PX:g.GO_PZ + 1] = otab[:, _SRC_GO["p"]]
+    o[:, g.GO_TYPE] = otab[:, _SRC_GO["type"]]
+    o[:, g.GO_DPX:g.GO_DPZ + 1] = otab[:, _SRC_GO["dp"]]
+    o[:, g.GO_VALID] = otab[:, _SRC_GO["valid"]]
+    o[:, g.GO_SX:g.GO_SZ + 1] = otab[:, _SRC_GO["s"]]
+    o[:, g.GO_RI] = otab[:, _SRC_GO["ri"]]
+    o[:, g.GO_R00:g.GO_R00 + 9] = otab[:, _SRC_GO["R"]]
+    o[:, g.GO_M00:g.GO_M00 + 9] = otab[:, _SRC_GO["M"]]
+    ga = np.zeros((gaabb.shape[0], sweep2.GA_COLS), np.float32)
+    ga[:, 0:9] = gaabb[:, 0:9]  # boxes; the probe rows also carry their anchors
+    ga[:G, g.GA_KIND] = [g.KIND_CODES[k] for k in gkinds]
+    t = lambda a: torch.from_numpy(np.array(a)).to(device)  # own, writable copy
+    return g.Accel2G(
+        otab=t(o), ftab=t(np.ascontiguousarray(ftab.T)), gaabb=t(ga),
+        perm=t(np.asarray(perm, np.int32)), gr=gr, has_motion=bool(has_motion),
+        n_pgroups=n_pgroups, n_sgroups=n_sgroups, gkinds=tuple(gkinds))
+
+
+def pallas_accel_from_numpy(table, mode: str, hit_matrix, gaabb=None, perm=None,
+                            group: int = 0, has_motion: bool = True,
+                            device="cpu") -> sweep.PallasAccel:
+    """Re-lay the first-generation sweep's accel given in the JAX package's
+    layout (``table`` (F, N), ``hit_matrix`` (N, F), ``gaabb`` (6, G) or None,
+    ``perm`` or None) into a ``PallasAccel``."""
+    table = np.asarray(table, np.float32)
+    rows = sweep.SPHERE_ROWS if mode == "spheres" else sweep.GENERIC_ROWS
+    if table.shape[0] != rows:
+        raise ValueError(f"table {table.shape}: expected {rows} rows in mode {mode!r}")
+    tb = np.zeros((table.shape[1], sweep._mode_cols(mode)), np.float32)
+    tb[:, :rows] = table.T
+    t = lambda a: torch.from_numpy(np.array(a)).to(device)
+    ga = None
+    if gaabb is not None:
+        gaabb = np.asarray(gaabb, np.float32)
+        ga = np.zeros((gaabb.shape[1], sweep.GB_COLS), np.float32)
+        ga[:, 0:6] = gaabb.T
+        ga = t(ga)
+    return sweep.PallasAccel(
+        table=t(tb), mode=mode, hit_matrix=t(np.asarray(hit_matrix, np.float32)),
+        gaabb=ga, perm=None if perm is None else t(np.asarray(perm, np.int32)),
+        group=group, has_motion=bool(has_motion))

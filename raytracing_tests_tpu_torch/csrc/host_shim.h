@@ -1,0 +1,87 @@
+// Host stand-ins for the few CUDA names the kernels use, so that the .cu
+// sources compile as plain C++ (g++ -x c++ -include host_shim.h) and run on
+// CPU buffers.  This is a rehearsal of the sources' logic, layouts and
+// argument order where there is no GPU; it says nothing about the GPU build.
+//
+// A launch runs its threads one after another, each as a warp of one lane
+// (threadIdx.x = 0, blockDim.x = 1, blockIdx.x = the flat thread index): the
+// ballots and shuffles see only their own lane, and a persistent kernel's
+// first thread takes all the work.
+#pragma once
+#define RT_HOST_REHEARSAL 1
+
+#include <math.h>
+#include <stddef.h>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+
+struct float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) {
+  return float4{x, y, z, w};
+}
+
+struct RtIdx {
+  unsigned x, y, z;
+};
+static RtIdx blockIdx, blockDim, threadIdx;
+
+template <class V>
+inline V __ldg(const V* p) {
+  return *p;
+}
+inline unsigned __ballot_sync(unsigned, int pred) { return pred ? 1u : 0u; }
+inline int __all_sync(unsigned, int pred) { return pred; }
+template <class V>
+inline V __shfl_sync(unsigned, V v, int) {
+  return v;
+}
+template <class V>
+inline V __shfl_down_sync(unsigned, V, int) {
+  return V(0);  // no lane beyond the first
+}
+inline int __ffs(unsigned v) { return __builtin_ffs((int)v); }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+template <class V>
+inline V atomicAdd(V* p, V v) {
+  const V old = *p;
+  *p += v;
+  return old;
+}
+
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaDevAttrMultiProcessorCount = 16 };
+inline int cudaGetLastError() { return 0; }
+inline int cudaGetDevice(int* d) {
+  *d = 0;
+  return 0;
+}
+inline int cudaDeviceGetAttribute(int* v, int, int) {
+  *v = 1;
+  return 0;
+}
+template <class K>
+inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+  *n = 1;
+  return 0;
+}
+
+#define RT_LAUNCH(kernel, blocks, threads, stream, ...)                      \
+  do {                                                                       \
+    (void)(stream);                                                          \
+    blockDim.x = 1;                                                          \
+    threadIdx.x = 0;                                                         \
+    const long long rt_n = (long long)(blocks) * (long long)(threads);       \
+    for (long long rt_i = 0; rt_i < rt_n; ++rt_i) {                          \
+      blockIdx.x = (unsigned)rt_i;                                           \
+      kernel(__VA_ARGS__);                                                   \
+    }                                                                        \
+  } while (0)

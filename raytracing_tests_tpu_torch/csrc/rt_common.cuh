@@ -17,8 +17,17 @@
 // rsqrtf appears only where the reference arithmetic uses rsqrt.
 #pragma once
 
+#ifndef RT_HOST_REHEARSAL
 #include <cuda_runtime.h>
+#endif
 #include <math.h>
+
+// The one launch form of every kernel here.  host_shim.h defines it as a plain
+// loop, so the same sources compile as host C++ for a rehearsal on the CPU.
+#ifndef RT_LAUNCH
+#define RT_LAUNCH(kernel, blocks, threads, stream, ...) \
+  kernel<<<(blocks), (threads), 0, (stream)>>>(__VA_ARGS__)
+#endif
 
 namespace rt {
 
@@ -46,6 +55,7 @@ struct Tables {
   int gr;         // rows per main group
   int n_pgroups;  // trailing probe groups
   int probe_gr;   // rows per probe group
+  int n_sgroups;  // generic tables: super-group rows after the probe groups
 };
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -167,6 +177,320 @@ __device__ __forceinline__ float ri_probe(const Tables& T, float qx, float qy,
   return acc > 1.0f ? acc / fmaxf(cnt, 1.0f) : 1.0f;
 }
 
+// ---------------------------------------------------------------------------
+// Generic primitives: rotated ellipsoids and cuboids.
+//
+// Table layouts (row-major float32, built by kernels/sweep2g.py::make_accel2g):
+//   otab  (n_pad + n_probe_rows, 32): px py pz type | dpx dpy dpz valid |
+//         sx sy sz ri | R00..R22 (12..20, local -> world, row-major) |
+//         M00..M22 (21..29, the fused frame diag(1/s) R^T) | 0 0
+//         dead rows carry valid = 0 and scale 1
+//   ftab  (n_pad, 32): the sphere ftab's columns 0..18, then R00..R22 (19..27),
+//         sx sy sz (28..30), type (31)
+//   gaabb (n_groups + n_pgroups + n_sgroups, 12): lo xyz, hi xyz, then on the
+//         main rows the group's kind code (GK_*); super-group s is the union
+//         of main groups [s*SG, (s+1)*SG)
+// ---------------------------------------------------------------------------
+
+constexpr int GO_COLS = 32;
+constexpr int GFT_COLS = 32;
+constexpr int SG = 8;  // main groups per super-group
+constexpr float ELLIPSOID = 1.0f;
+constexpr float CUBOID = 2.0f;
+
+enum {
+  GO_PX = 0, GO_PY, GO_PZ, GO_TYPE, GO_DPX, GO_DPY, GO_DPZ, GO_VALID,
+  GO_SX, GO_SY, GO_SZ, GO_RI, GO_R00 = 12, GO_M00 = 21
+};
+enum { GFT_R00 = 19, GFT_SX = 28, GFT_SY, GFT_SZ, GFT_TYPE };
+// Per-group census of the accel build (gaabb column 6).
+enum { GK_MIXED = 0, GK_ELL, GK_CUB, GK_SPHERE, GK_AXIS, GK_YROT };
+// Work counters of the generic sweep (measurement only).
+enum { GC_SLAB = 0, GC_SPHERE_ROWS, GC_OTHER_ROWS, GC_LEN };
+
+// Ellipsoid t in the divide-by-scale form of the dense intersector: local ray
+// over scale, unit-sphere quadratic, near root unless behind the origin.
+__device__ __forceinline__ float ell_t_div(float lox, float loy, float loz,
+                                           float ldx, float ldy, float ldz,
+                                           float sx, float sy, float sz) {
+  const float ex = lox / sx, ey = loy / sy, ez = loz / sz;
+  const float fx = ldx / sx, fy = ldy / sy, fz = ldz / sz;
+  const float a = fx * fx + fy * fy + fz * fz;
+  const float half_b = ex * fx + ey * fy + ez * fz;
+  const float c = ex * ex + ey * ey + ez * ez - 1.0f;
+  const float disc = half_b * half_b - a * c;
+  if (!(disc > 0.0f && a > 1e-30f)) return BIG_T;
+  const float sq = sqrtf(disc);
+  const float t0 = (-half_b - sq) / a;
+  const float t1 = (-half_b + sq) / a;
+  const float t_e = (t0 > t1 || t0 < 0.0f) ? t1 : t0;
+  return t_e > 0.0f ? t_e : BIG_T;
+}
+
+// The slab interval of three axes -> entry t (exit t from inside), or BIG_T.
+__device__ __forceinline__ float slab_t(float u1, float w1, float u2, float w2,
+                                        float u3, float w3) {
+  const float tmin = fmaxf(fmaxf(fminf(u1, w1), fminf(u2, w2)), fminf(u3, w3));
+  const float tmax = fminf(fminf(fmaxf(u1, w1), fmaxf(u2, w2)), fmaxf(u3, w3));
+  if (!(tmax > tmin)) return BIG_T;
+  const float t_c = tmin > 0.0f ? tmin : tmax;
+  return t_c > 0.0f ? t_c : BIG_T;
+}
+
+__device__ __forceinline__ float safe_inv(float d) {
+  const float eps = 1e-12f;
+  return 1.0f / (fabsf(d) < eps ? (d >= 0.0f ? eps : -eps) : d);
+}
+
+// Cuboid t with the safe inverse (a zero direction component becomes +-1e-12).
+__device__ __forceinline__ float cub_t_div(float lox, float loy, float loz,
+                                           float ldx, float ldy, float ldz,
+                                           float sx, float sy, float sz) {
+  const float i1 = safe_inv(ldx), i2 = safe_inv(ldy), i3 = safe_inv(ldz);
+  return slab_t((-0.5f * sx - lox) * i1, (0.5f * sx - lox) * i1,
+                (-0.5f * sy - loy) * i2, (0.5f * sy - loy) * i2,
+                (-0.5f * sz - loz) * i3, (0.5f * sz - loz) * i3);
+}
+
+// Cuboid t with the bare reciprocal: 1/0 = +-inf gives the exact slab of a
+// parallel ray.  An origin exactly on a slab plane of a parallel ray gives
+// 0 * inf = NaN, which the plain version's minimum/maximum carry into a miss;
+// fminf/fmaxf would drop it, so it is tested for here.
+__device__ __forceinline__ float cub_t_inf(float lox, float loy, float loz,
+                                           float ldx, float ldy, float ldz,
+                                           float sx, float sy, float sz) {
+  const float i1 = 1.0f / ldx, i2 = 1.0f / ldy, i3 = 1.0f / ldz;
+  const float u1 = (-0.5f * sx - lox) * i1, w1 = (0.5f * sx - lox) * i1;
+  const float u2 = (-0.5f * sy - loy) * i2, w2 = (0.5f * sy - loy) * i2;
+  const float u3 = (-0.5f * sz - loz) * i3, w3 = (0.5f * sz - loz) * i3;
+  if (u1 != u1 || w1 != w1 || u2 != u2 || w2 != w2 || u3 != u3 || w3 != w3)
+    return BIG_T;
+  return slab_t(u1, w1, u2, w2, u3, w3);
+}
+
+// Group (or super-group) slab test against the current best t.
+__device__ __forceinline__ bool slab_hit(const float* ga, float ox, float oy,
+                                         float oz, float ix, float iy,
+                                         float iz, float t_best) {
+  const float4 a0 = ld4(ga);      // lo.x lo.y lo.z hi.x
+  const float4 a1 = ld4(ga + 4);  // hi.y hi.z kind 0
+  const float u1 = (a0.x - ox) * ix, w1 = (a0.w - ox) * ix;
+  const float u2 = (a0.y - oy) * iy, w2 = (a1.x - oy) * iy;
+  const float u3 = (a0.z - oz) * iz, w3 = (a1.y - oz) * iz;
+  const float tmin = fmaxf(fmaxf(fminf(u1, w1), fminf(u2, w2)), fminf(u3, w3));
+  const float tmax = fminf(fminf(fmaxf(u1, w1), fmaxf(u2, w2)), fmaxf(u3, w3));
+  return (tmax > tmin) && (tmax > 0.0f) && (tmin < t_best);
+}
+
+// One main group of the generic sweep: every live row's candidate t by the
+// group's kind.  Candidates use the cheapest exact form the census allows;
+// the winner is re-solved in the dense intersector's form by winner_refine_g.
+template <bool MOTION>
+__device__ __forceinline__ void sweep_group_g(
+    const Tables& T, int g, int kind, float ox, float oy, float oz, float dx,
+    float dy, float dz, float omt, float& t_best, int& obj) {
+  const int row0 = g * T.gr;
+  const float* rows = T.otab + (size_t)row0 * GO_COLS;
+  for (int r = 0; r < T.gr; ++r) {
+    const float* row = rows + r * GO_COLS;
+    const float4 p = ld4(row);       // px py pz type
+    const float4 m = ld4(row + 4);   // dpx dpy dpz valid
+    if (!(m.w > 0.0f)) continue;     // dead and padding rows
+    const float4 s = ld4(row + 8);   // sx sy sz ri
+    float rx = ox - p.x, ry = oy - p.y, rz = oz - p.z;
+    if (MOTION) {
+      rx = rx + omt * m.x;
+      ry = ry + omt * m.y;
+      rz = rz + omt * m.z;
+    }
+    float tc;
+    if (kind == GK_SPHERE) {
+      // Isotropic sphere, unit direction: the world-frame quadratic, a = 1.
+      const float hb = rx * dx + ry * dy + rz * dz;
+      const float cq = rx * rx + ry * ry + rz * rz - s.x * s.x;
+      const float disc = hb * hb - cq;
+      if (!(disc > 0.0f)) continue;
+      const float sq = sqrtf(disc);
+      const float t0 = -hb - sq, t1 = -hb + sq;
+      const float t_e = t0 < 0.0f ? t1 : t0;
+      tc = t_e > 0.0f ? t_e : BIG_T;
+    } else if (kind == GK_AXIS) {
+      tc = cub_t_inf(rx, ry, rz, dx, dy, dz, s.x, s.y, s.z);
+    } else if (kind == GK_YROT) {
+      // Rotation about y: four live matrix entries.
+      const float r0 = __ldg(row + GO_R00), r2 = __ldg(row + GO_R00 + 2);
+      const float r6 = __ldg(row + GO_R00 + 6), r8 = __ldg(row + GO_R00 + 8);
+      tc = cub_t_inf(r0 * rx + r6 * rz, ry, r2 * rx + r8 * rz,
+                     r0 * dx + r6 * dz, dy, r2 * dx + r8 * dz, s.x, s.y, s.z);
+    } else {
+      const float4 ra = ld4(row + GO_R00);      // R00 R01 R02 R10
+      const float4 rb = ld4(row + GO_R00 + 4);  // R11 R12 R20 R21
+      const float r22 = __ldg(row + GO_R00 + 8);
+      // local = R^T rel: column dot products
+      const float lox = ra.x * rx + ra.w * ry + rb.z * rz;
+      const float loy = ra.y * rx + rb.x * ry + rb.w * rz;
+      const float loz = ra.z * rx + rb.y * ry + r22 * rz;
+      const float ldx = ra.x * dx + ra.w * dy + rb.z * dz;
+      const float ldy = ra.y * dx + rb.x * dy + rb.w * dz;
+      const float ldz = ra.z * dx + rb.y * dy + r22 * dz;
+      if (kind == GK_ELL)
+        tc = ell_t_div(lox, loy, loz, ldx, ldy, ldz, s.x, s.y, s.z);
+      else if (kind == GK_CUB)
+        tc = cub_t_inf(lox, loy, loz, ldx, ldy, ldz, s.x, s.y, s.z);
+      else
+        tc = p.w == ELLIPSOID
+                 ? ell_t_div(lox, loy, loz, ldx, ldy, ldz, s.x, s.y, s.z)
+                 : cub_t_div(lox, loy, loz, ldx, ldy, ldz, s.x, s.y, s.z);
+    }
+    if (tc < t_best) {  // ties keep the lower row
+      t_best = tc;
+      obj = row0 + r;
+    }
+  }
+}
+
+// Grouped nearest-hit sweep over the generic tables: super-group slab, group
+// slab, then the group's rows; every test is the thread's own, against its
+// own current best t.  Returns obj = -1 and t_best = min(BIG_T, tlim) on a
+// miss or a dead ray (d = 0).  `counts` (GC_LEN, or null) gains the slab tests
+// and the rows tested, for the roofline bound.
+template <bool MOTION>
+__device__ __forceinline__ void nearest_hit_g(
+    const Tables& T, float ox, float oy, float oz, float dx, float dy,
+    float dz, float omt, bool live, float tlim, float& t_best, int& obj,
+    unsigned* counts) {
+  t_best = fminf(BIG_T, tlim);
+  obj = -1;
+  if (!live) return;
+  const float eps = 1e-12f;
+  const float ix = 1.0f / (fabsf(dx) < eps ? eps : dx);
+  const float iy = 1.0f / (fabsf(dy) < eps ? eps : dy);
+  const float iz = 1.0f / (fabsf(dz) < eps ? eps : dz);
+  const int n_super = T.n_sgroups > 0 ? T.n_sgroups : 1;
+  const float* sga = T.gaabb + (size_t)(T.n_groups + T.n_pgroups) * GA_COLS;
+  for (int s = 0; s < n_super; ++s) {
+    int g0 = 0, g1 = T.n_groups;
+    if (T.n_sgroups > 0) {
+      if (counts) counts[GC_SLAB] += 1;
+      if (!slab_hit(sga + s * GA_COLS, ox, oy, oz, ix, iy, iz, t_best)) continue;
+      g0 = s * SG;
+      g1 = g0 + SG < T.n_groups ? g0 + SG : T.n_groups;
+    }
+    for (int g = g0; g < g1; ++g) {
+      const float* ga = T.gaabb + g * GA_COLS;
+      if (counts) counts[GC_SLAB] += 1;
+      if (!slab_hit(ga, ox, oy, oz, ix, iy, iz, t_best)) continue;
+      const int kind = (int)__ldg(ga + 6);
+      if (counts) {
+        if (kind == GK_SPHERE)
+          counts[GC_SPHERE_ROWS] += T.gr;
+        else
+          counts[GC_OTHER_ROWS] += T.gr;
+      }
+      sweep_group_g<MOTION>(T, g, kind, ox, oy, oz, dx, dy, dz, omt, t_best, obj);
+    }
+  }
+}
+
+struct RefinedG {
+  float t, px, py, pz, nx, ny, nz, lpx, lpy, lpz;
+};
+
+// Re-solve the winner from its ftab row in the dense intersector's form
+// (rotate by R^T, divide by scale, both primitive tests selected by type) and
+// derive the hit point, the world normal and the unit-space hit position.
+__device__ __forceinline__ RefinedG winner_refine_g(
+    const float* row, float ox, float oy, float oz, float dx, float dy,
+    float dz, float t_best, bool hit) {
+  const float rex = ox - row[FT_CX], rey = oy - row[FT_CY], rez = oz - row[FT_CZ];
+  const float* r = row + GFT_R00;
+  const float lox = r[0] * rex + r[3] * rey + r[6] * rez;
+  const float loy = r[1] * rex + r[4] * rey + r[7] * rez;
+  const float loz = r[2] * rex + r[5] * rey + r[8] * rez;
+  const float ldx = r[0] * dx + r[3] * dy + r[6] * dz;
+  const float ldy = r[1] * dx + r[4] * dy + r[7] * dz;
+  const float ldz = r[2] * dx + r[5] * dy + r[8] * dz;
+  const float sx = row[GFT_SX], sy = row[GFT_SY], sz = row[GFT_SZ];
+  const bool is_ell = row[GFT_TYPE] == ELLIPSOID;
+  RefinedG R;
+  float t_safe = 1.0f;
+  if (hit) {
+    const float t_ref = is_ell
+                            ? ell_t_div(lox, loy, loz, ldx, ldy, ldz, sx, sy, sz)
+                            : cub_t_div(lox, loy, loz, ldx, ldy, ldz, sx, sy, sz);
+    if (t_ref < BIG_T) t_best = t_ref;
+    t_safe = t_best;
+  }
+  R.t = t_best;
+  const float plx = lox + t_safe * ldx;
+  const float ply = loy + t_safe * ldy;
+  const float plz = loz + t_safe * ldz;
+  float nlx, nly, nlz;
+  if (is_ell) {
+    // gradient of |p / s|^2, normalised by division and sqrt
+    const float gx = plx / (sx * sx), gy = ply / (sy * sy), gz = plz / (sz * sz);
+    const float gn = sqrtf(fmaxf(gx * gx + gy * gy + gz * gz, 1e-38f));
+    nlx = gx / gn;
+    nly = gy / gn;
+    nlz = gz / gn;
+  } else {
+    // axis of the nearest face, scanned +x -x +y -y +z -z, first strict minimum
+    float best = fabsf(plx - 0.5f * sx);
+    nlx = 1.0f, nly = 0.0f, nlz = 0.0f;
+    float dist = fabsf(plx + 0.5f * sx);
+    if (dist < best) { best = dist; nlx = -1.0f; nly = 0.0f; nlz = 0.0f; }
+    dist = fabsf(ply - 0.5f * sy);
+    if (dist < best) { best = dist; nlx = 0.0f; nly = 1.0f; nlz = 0.0f; }
+    dist = fabsf(ply + 0.5f * sy);
+    if (dist < best) { best = dist; nlx = 0.0f; nly = -1.0f; nlz = 0.0f; }
+    dist = fabsf(plz - 0.5f * sz);
+    if (dist < best) { best = dist; nlx = 0.0f; nly = 0.0f; nlz = 1.0f; }
+    dist = fabsf(plz + 0.5f * sz);
+    if (dist < best) { best = dist; nlx = 0.0f; nly = 0.0f; nlz = -1.0f; }
+  }
+  // world normal = R n_local
+  R.nx = r[0] * nlx + r[1] * nly + r[2] * nlz;
+  R.ny = r[3] * nlx + r[4] * nly + r[5] * nlz;
+  R.nz = r[6] * nlx + r[7] * nly + r[8] * nlz;
+  R.px = ox + t_safe * dx;
+  R.py = oy + t_safe * dy;
+  R.pz = oz + t_safe * dz;
+  R.lpx = plx / (sx > 0.0f ? sx : 1.0f);
+  R.lpy = ply / (sy > 0.0f ? sy : 1.0f);
+  R.lpz = plz / (sz > 0.0f ? sz : 1.0f);
+  return R;
+}
+
+// Surrounding refractive index at point q over the trailing probe rows of the
+// generic otab: point-in-primitive in the fused unit space e = M (q - c).
+__device__ __forceinline__ float ri_probe_g(const Tables& T, float qx, float qy,
+                                            float qz) {
+  float acc = 0.0f, cnt = 0.0f;
+  const float* rows = T.otab + (size_t)T.n_groups * T.gr * GO_COLS;
+  const int n_rows = T.n_pgroups * T.probe_gr;
+  for (int i = 0; i < n_rows; ++i) {
+    const float* row = rows + (size_t)i * GO_COLS;
+    const float4 p = ld4(row);  // px py pz type
+    if (!(__ldg(row + GO_VALID) > 0.0f)) continue;
+    const float rx = qx - p.x, ry = qy - p.y, rz = qz - p.z;
+    const float* m = row + GO_M00;
+    const float ex = __ldg(m) * rx + __ldg(m + 1) * ry + __ldg(m + 2) * rz;
+    const float ey = __ldg(m + 3) * rx + __ldg(m + 4) * ry + __ldg(m + 5) * rz;
+    const float ez = __ldg(m + 6) * rx + __ldg(m + 7) * ry + __ldg(m + 8) * rz;
+    bool inside;
+    if (p.w == ELLIPSOID)
+      inside = ex * ex + ey * ey + ez * ez <= 1.0f;
+    else
+      inside = p.w == CUBOID && fabsf(ex) <= 0.5f && fabsf(ey) <= 0.5f &&
+               fabsf(ez) <= 0.5f;
+    if (inside) {
+      acc += __ldg(row + GO_RI);
+      cnt += 1.0f;
+    }
+  }
+  return acc > 1.0f ? acc / fmaxf(cnt, 1.0f) : 1.0f;
+}
+
 // Static sunflower constants of a frame (functions of spp, computed on the
 // host so both sides round alike).
 struct Sunflower {
@@ -217,24 +541,40 @@ struct ShadeStatics {
   int has_dielectrics;
 };
 
-// In-Next-Week shading of one HIT node (sphere mode, no lights, no texture):
-// refine the winner, probe the surrounding RI where a refraction consumes it,
-// add contrib_post * albedo, and build the refract / reflect children.
+// In-Next-Week shading of one HIT node (no lights, no texture): refine the
+// winner, probe the surrounding RI where a refraction consumes it, add
+// contrib_post * albedo, and build the refract / reflect children.  GENERIC
+// picks the tables' layout and the refine and probe of rotated ellipsoids and
+// cuboids at compile time; everything after them is shared.
+template <bool GENERIC>
 __device__ __forceinline__ Shade shade_hit(
     const Tables& T, const ShadeStatics& S, int obj, float t_sweep, float ox,
     float oy, float oz, float dx, float dy, float dz, float contrib,
     float bounced, float sidx, float cth, float sth) {
-  const float* row = T.ftab + (size_t)obj * FT_COLS;
-  float rowv[FT_COLS];
+  constexpr int COLS = GENERIC ? GFT_COLS : FT_COLS;
+  const float* row = T.ftab + (size_t)obj * COLS;
+  float rowv[COLS];
 #pragma unroll
-  for (int i = 0; i < FT_COLS / 4; ++i) {
+  for (int i = 0; i < COLS / 4; ++i) {
     const float4 v = ld4(row + 4 * i);
     rowv[4 * i] = v.x;
     rowv[4 * i + 1] = v.y;
     rowv[4 * i + 2] = v.z;
     rowv[4 * i + 3] = v.w;
   }
-  const Refined R = winner_refine(rowv, ox, oy, oz, dx, dy, dz, t_sweep, true);
+  Refined R;
+  if constexpr (GENERIC) {
+    const RefinedG G = winner_refine_g(rowv, ox, oy, oz, dx, dy, dz, t_sweep, true);
+    R.t = G.t;
+    R.px = G.px;
+    R.py = G.py;
+    R.pz = G.pz;
+    R.nx = G.nx;
+    R.ny = G.ny;
+    R.nz = G.nz;
+  } else {
+    R = winner_refine(rowv, ox, oy, oz, dx, dy, dz, t_sweep, true);
+  }
   const float nx = R.nx, ny = R.ny, nz = R.nz;
   const float mat_ri = rowv[FT_MRI], refrv = rowv[FT_REFR];
   const float reflv = rowv[FT_REFL], srfr = rowv[FT_SRFR];
@@ -245,9 +585,14 @@ __device__ __forceinline__ Shade shade_hit(
 
   // Only dielectric winners and interior hits consume the surrounding RI.
   float sur_ri = 1.0f;
-  if (S.has_dielectrics && T.n_pgroups > 0 && (inner || refrv > 0.002f))
-    sur_ri = ri_probe(T, R.px + 1e-3f * nx, R.py + 1e-3f * ny,
-                      R.pz + 1e-3f * nz);
+  if (S.has_dielectrics && T.n_pgroups > 0 && (inner || refrv > 0.002f)) {
+    const float qx = R.px + 1e-3f * nx, qy = R.py + 1e-3f * ny;
+    const float qz = R.pz + 1e-3f * nz;
+    if constexpr (GENERIC)
+      sur_ri = ri_probe_g(T, qx, qy, qz);
+    else
+      sur_ri = ri_probe(T, qx, qy, qz);
+  }
 
   const float bounced1 = bounced + 1.0f;
   const bool can_spawn = ((reflv > 0.002f) || (refrv > 0.002f)) &&

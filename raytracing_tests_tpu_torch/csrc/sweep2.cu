@@ -109,11 +109,12 @@ extern "C" int rt_sweep2(const void* otab, const void* ftab, const void* gaabb,
   T.gr = gr;
   T.n_pgroups = n_pgroups;
   T.probe_gr = probe_gr;
+  T.n_sgroups = 0;
   const int threads = 256;
   const int blocks = (B + threads - 1) / threads;
-  sweep2_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      T, static_cast<const float*>(rays), B, static_cast<float*>(t_out),
-      static_cast<int*>(obj_out), static_cast<float*>(rows_out), with_ri,
-      static_cast<unsigned long long*>(stats));
+  RT_LAUNCH(sweep2_kernel, blocks, threads, static_cast<cudaStream_t>(stream),
+            T, static_cast<const float*>(rays), B, static_cast<float*>(t_out),
+            static_cast<int*>(obj_out), static_cast<float*>(rows_out), with_ri,
+            static_cast<unsigned long long*>(stats));
   return static_cast<int>(cudaGetLastError());
 }

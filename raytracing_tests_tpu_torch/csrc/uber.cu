@@ -1,8 +1,13 @@
 // Persistent whole-frame path tracer for Hopper (sm_90a).
 //
 // Replaces the TPU kernel raytracing_tests_tpu/kernels/uber.py::_uber_kernel
-// (launched by _uber_call) for sphere-mode scenes under In-Next-Week ('bvh')
-// shading without lights, textures or motion: per primary p (pixel p / spp,
+// (launched by _uber_call) under In-Next-Week ('bvh') shading without lights,
+// textures or motion, in two instantiations chosen by the host function:
+// sphere-mode scenes (anchored sphere quadratic over the sweep2 tables) and
+// generic scenes (rotated ellipsoids and cuboids over the sweep2g tables, with
+// super-group culling and per-group kinds).  The mode is a template parameter,
+// so the sphere instantiation carries none of the generic code's registers.
+// Per primary p (pixel p / spp,
 // sample p % spp) generate the camera ray, then walk its ray tree with a LIFO
 // stack of Q records (o3, d3, contribution, bounce count) under a budget of
 // `pops` nodes, the reflection child continuing in place and the refraction
@@ -37,13 +42,16 @@ enum {
 
 // Host-side parameter vectors (kernels/uber.py fills them).
 enum { IP_W = 0, IP_H /* unused: 1/H comes in fp */, IP_SPP, IP_Q, IP_POPS, IP_HAS_DIEL, IP_NGROUPS, IP_GR,
-       IP_NPGROUPS, IP_PROBE_GR, IP_LEN };
+       IP_NPGROUPS, IP_PROBE_GR, IP_GENERIC, IP_NSGROUPS, IP_LEN };
 enum { FP_TMAX = 0, FP_GOLDEN, FP_INV_W, FP_INV_H, FP_ASPECT,
        FP_SUN_N, FP_SUN_NMB, FP_SUN_DENOM, FP_SUN_INV_DENOM, FP_MAX_BOUNCES,
        FP_BG_BOTTOM, FP_BG_TOP = FP_BG_BOTTOM + 3, FP_LEN = FP_BG_TOP + 3 };
 
 // Frame counters (device, zeroed by the wrapper before each launch).
-enum { ST_NEXT = 0, ST_RAYS, ST_DROPPED, ST_SPHERE_TESTS, ST_LEN };
+// ST_SPHERE_TESTS: sphere quadratics solved; the last three only in generic
+// mode: slab tests, rows tested in groups of another kind, nodes that hit.
+enum { ST_NEXT = 0, ST_RAYS, ST_DROPPED, ST_SPHERE_TESTS, ST_SLAB_TESTS,
+       ST_OTHER_TESTS, ST_HITS, ST_LEN };
 
 struct UberParams {
   int W, spp, Q, pops;
@@ -124,6 +132,7 @@ __device__ __forceinline__ Ray raygen(const UberParams& P,
   return ray;
 }
 
+template <bool GENERIC>
 __global__ void __launch_bounds__(128) uber_kernel(
     rt::Tables T, UberParams P, const float* __restrict__ cam,
     float4* __restrict__ out, unsigned long long* __restrict__ stats) {
@@ -138,6 +147,7 @@ __global__ void __launch_bounds__(128) uber_kernel(
   int qs = 0, cnt = 0;
   float stack[MAX_Q * REC];
   unsigned long long n_rays = 0, n_drop = 0, n_tests = 0;
+  unsigned long long n_slab = 0, n_other = 0, n_hits = 0;  // generic mode only
 
   for (;;) {
     // ---- lanes whose tree ended take the next primaries ------------------
@@ -172,16 +182,26 @@ __global__ void __launch_bounds__(128) uber_kernel(
         (cur.dx * cur.dx + cur.dy * cur.dy + cur.dz * cur.dz) > 0.5f;
     float t_best;
     int obj;
-    unsigned tests = 0;
-    rt::nearest_hit(T, cur.ox, cur.oy, cur.oz, cur.dx, cur.dy, cur.dz, live,
-                    P.t_max, t_best, obj, tests);
-    n_tests += tests;
+    if constexpr (GENERIC) {
+      unsigned counts[rt::GC_LEN] = {0, 0, 0};
+      rt::nearest_hit_g<false>(T, cur.ox, cur.oy, cur.oz, cur.dx, cur.dy,
+                               cur.dz, 0.0f, live, P.t_max, t_best, obj, counts);
+      n_slab += counts[rt::GC_SLAB];
+      n_tests += counts[rt::GC_SPHERE_ROWS];
+      n_other += counts[rt::GC_OTHER_ROWS];
+      if (obj >= 0) n_hits += 1;
+    } else {
+      unsigned tests = 0;
+      rt::nearest_hit(T, cur.ox, cur.oy, cur.oz, cur.dx, cur.dy, cur.dz, live,
+                      P.t_max, t_best, obj, tests);
+      n_tests += tests;
+    }
 
     float add_r, add_g, add_b, hit_t;
     bool sp_refr = false, sp_refl = false;
     rt::Child refr = {}, refl = {};
     if (obj >= 0) {
-      const rt::Shade sh = rt::shade_hit(
+      const rt::Shade sh = rt::shade_hit<GENERIC>(
           T, P.shade, obj, t_best, cur.ox, cur.oy, cur.oz, cur.dx, cur.dy,
           cur.dz, cur.contrib, cur.bounced, sidx, cth, sth);
       add_r = sh.add_r;
@@ -278,6 +298,41 @@ __global__ void __launch_bounds__(128) uber_kernel(
     atomicAdd(&stats[ST_DROPPED], n_drop);
     atomicAdd(&stats[ST_SPHERE_TESTS], n_tests);
   }
+  if constexpr (GENERIC) {
+    for (int off = 16; off > 0; off >>= 1) {
+      n_slab += __shfl_down_sync(FULL, n_slab, off);
+      n_other += __shfl_down_sync(FULL, n_other, off);
+      n_hits += __shfl_down_sync(FULL, n_hits, off);
+    }
+    if (lane == 0) {
+      atomicAdd(&stats[ST_SLAB_TESTS], n_slab);
+      atomicAdd(&stats[ST_OTHER_TESTS], n_other);
+      atomicAdd(&stats[ST_HITS], n_hits);
+    }
+  }
+}
+
+// Fill the card once: as many resident blocks as it holds, no more than the
+// frame has primaries for.
+template <bool GENERIC>
+int launch_uber(const rt::Tables& T, const UberParams& P, const float* cam,
+                float4* out, unsigned long long* stats, cudaStream_t stream) {
+  const int threads = 128;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, uber_kernel<GENERIC>, threads, 0);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) per_sm = 1;
+  long long blocks = (long long)sms * per_sm;
+  const long long needed = ((long long)P.B_total + threads - 1) / threads;
+  if (blocks > needed) blocks = needed;
+  RT_LAUNCH(uber_kernel<GENERIC>, (int)blocks, threads, stream, T, P, cam, out,
+            stats);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -285,10 +340,11 @@ __global__ void __launch_bounds__(128) uber_kernel(
 // Compile-time stack capacity, so the wrapper can refuse a deeper stack.
 extern "C" int rt_uber_max_q(void) { return MAX_Q; }
 
-// out: (B_total, 4) float32; stats: uint64[4], zeroed by the caller
-// (next primary, rays, dropped, sphere tests); cam: device (24,) float32;
-// ip / fp: HOST parameter vectors (IP_* / FP_* above).  Launches on `stream`,
-// does not synchronise, returns cudaGetLastError().
+// out: (B_total, 4) float32; stats: uint64[ST_LEN], zeroed by the caller;
+// cam: device (24,) float32; ip / fp: HOST parameter vectors (IP_* / FP_*
+// above); ip[IP_GENERIC] picks the instantiation, and with it the layout the
+// three tables must have.  Launches on `stream`, does not synchronise, returns
+// cudaGetLastError().
 extern "C" int rt_uber_render(const void* otab, const void* ftab,
                               const void* gaabb, const void* cam,
                               const int* ip, const float* fp,
@@ -304,6 +360,7 @@ extern "C" int rt_uber_render(const void* otab, const void* ftab,
   T.gr = ip[IP_GR];
   T.n_pgroups = ip[IP_NPGROUPS];
   T.probe_gr = ip[IP_PROBE_GR];
+  T.n_sgroups = ip[IP_NSGROUPS];
 
   UberParams P;
   P.W = ip[IP_W];
@@ -327,23 +384,10 @@ extern "C" int rt_uber_render(const void* otab, const void* ftab,
   P.shade.max_bounces = fp[FP_MAX_BOUNCES];
   P.shade.has_dielectrics = ip[IP_HAS_DIEL];
 
-  // Fill the card once: as many resident blocks as it holds, no more than
-  // the frame has primaries for.
-  const int threads = 128;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, uber_kernel,
-                                                    threads, 0);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) per_sm = 1;
-  long long blocks = (long long)sms * per_sm;
-  const long long needed = (B_total + threads - 1) / threads;
-  if (blocks > needed) blocks = needed;
-  uber_kernel<<<(int)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      T, P, static_cast<const float*>(cam), static_cast<float4*>(out),
-      static_cast<unsigned long long*>(stats));
-  return static_cast<int>(cudaGetLastError());
+  const float* camp = static_cast<const float*>(cam);
+  float4* outp = static_cast<float4*>(out);
+  unsigned long long* statp = static_cast<unsigned long long*>(stats);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return ip[IP_GENERIC] ? launch_uber<true>(T, P, camp, outp, statp, st)
+                        : launch_uber<false>(T, P, camp, outp, statp, st);
 }

@@ -8,6 +8,11 @@ under ``csrc/`` and the compiler flags, so an edited source rebuilds.
 
 Also here: the launch counters.  Each kernel wrapper adds one to its count
 where it launches its kernel, and nowhere else.
+
+Where there is no GPU, ``host_rehearsal()`` builds the same sources as plain
+C++ with ``g++`` and ``csrc/host_shim.h``, so a test can run a kernel's source
+on CPU buffers through its ``_launch_*`` function.  That rehearses logic,
+layouts and argument order; the GPU build is only proven on a GPU.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 
-SOURCES = ("sweep2.cu", "uber.cu")
+SOURCES = ("sweep.cu", "sweep2.cu", "sweep2g.cu", "uber.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -36,6 +41,12 @@ NVCC_FLAGS = (
 # nvcc fuse a*b+c; this variant rounds like eager PyTorch does, so a kernel can
 # be held against its plain version exactly (see ``precise``).
 PRECISE_FLAG = "-fmad=false"
+
+# Marks the host-C++ variant (see ``host_rehearsal``); never passed to nvcc.
+HOST_FLAG = "host"
+HOST_CXX_FLAGS = (
+    "-std=c++17", "-O2", "-shared", "-fPIC", "-x", "c++", "-include", "host_shim.h",
+)
 
 # kernel name -> launches since the last reset
 LAUNCHES: collections.Counter = collections.Counter()
@@ -74,10 +85,35 @@ def precise():
         _extra_flags = saved
 
 
+@contextlib.contextmanager
+def host_rehearsal():
+    """Inside this context ``load`` gives the host-C++ build of a source (see
+    the module docstring).  Raises ``RuntimeError`` where there is no g++."""
+    global _extra_flags
+    if shutil.which("g++") is None:
+        raise RuntimeError("host rehearsal of the kernels needs g++")
+    saved = _extra_flags
+    _extra_flags = (HOST_FLAG,)
+    try:
+        yield
+    finally:
+        _extra_flags = saved
+
+
+def stream_of(device) -> int | None:
+    """The current CUDA stream's handle for a launch on ``device``; none for
+    the host rehearsal's CPU buffers."""
+    import torch
+
+    if device.type != "cuda":
+        return None
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def source_hash() -> str:
     h = hashlib.sha256()
     for path in sorted(CSRC.iterdir()):
-        if path.suffix in (".cu", ".cuh"):
+        if path.suffix in (".cu", ".cuh", ".h"):
             h.update(path.name.encode())
             h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -85,7 +121,7 @@ def source_hash() -> str:
 
 
 def _lib_path(out_dir, src, extra) -> pathlib.Path:
-    tag = ".precise" if extra else ""
+    tag = {(): "", (PRECISE_FLAG,): ".precise", (HOST_FLAG,): ".host"}[tuple(extra)]
     return out_dir / (pathlib.Path(src).stem + tag + ".so")
 
 
@@ -98,7 +134,10 @@ def build(with_precise: bool = False) -> dict:
     out_dir = BUILD_ROOT / source_hash()
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    variants = {(), _extra_flags} | ({(PRECISE_FLAG,)} if with_precise else set())
+    if _extra_flags == (HOST_FLAG,):
+        variants = {_extra_flags}  # no nvcc needed, none asked for
+    else:
+        variants = {(), _extra_flags} | ({(PRECISE_FLAG,)} if with_precise else set())
     procs = []
     for src in SOURCES:
         for extra in sorted(variants):
@@ -106,8 +145,12 @@ def build(with_precise: bool = False) -> dict:
             if lib.exists():
                 continue
             tmp = out_dir / f".{lib.name}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-I", str(CSRC), "-o", str(tmp),
-                   str(CSRC / src)]
+            if extra == (HOST_FLAG,):
+                cmd = ["g++", *HOST_CXX_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                       str(CSRC / src)]
+            else:
+                cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-I", str(CSRC), "-o", str(tmp),
+                       str(CSRC / src)]
             procs.append((lib.name, lib, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     logs, failed = [], []

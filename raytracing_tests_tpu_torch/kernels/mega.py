@@ -2,7 +2,8 @@
 
 Counterpart of the device functions of the JAX package's ``kernels/mega.py``
 that the persistent kernel inlines: ``_cross_up``, ``_deviate`` and
-``_shade_hits`` for sphere mode without lights or textures.  The CUDA version
+``_shade_hits`` without lights or textures, for sphere-mode accels
+(``sweep2.Accel2``) and generic ones (``sweep2g.Accel2G``).  The CUDA version
 of the same arithmetic is ``csrc/rt_common.cuh::shade_hit``; this module is
 what the plain version of the persistent kernel (``uber.uber_render_plain``)
 runs.  (The chunked megakernel ``mega_step`` itself is not ported yet.)
@@ -17,7 +18,10 @@ import torch
 
 from raytracing_tests_tpu_torch.kernels.sweep2 import (
     FT_CB, FT_CR, FT_MRI, FT_REFL, FT_REFR, FT_SRFL, FT_SRFR,
-    Accel2, _dot3, _gather_rows, _ri_probe, _winner_refine,
+    _dot3, _gather_rows, _ri_probe, _winner_refine,
+)
+from raytracing_tests_tpu_torch.kernels.sweep2g import (
+    _gather_rows_g, _ri_probe_g, _winner_refine_g,
 )
 
 # The angle every sunflower lattice turns by, rounded to float32 once.
@@ -81,13 +85,18 @@ class Shaded:
     bounced: torch.Tensor  # (B,) child bounce count
 
 
-def _shade_hits(accel: Accel2, o, d, contrib, bounced, active, sidx, t_best,
+def _shade_hits(accel, o, d, contrib, bounced, active, sidx, t_best,
                 obj, hit, bg, *, has_dielectrics: bool, spp: int,
                 max_bounces: int, t_max: float, trig) -> Shaded:
     """Winner row + refine + surrounding-RI + INW shading + child-ray
     construction for a batch of nodes (hits and misses alike: ``hit`` masks)."""
-    rows = _gather_rows(accel, obj)
-    t_best, _, p, n = _winner_refine(rows, o, d, t_best, hit)
+    generic = accel.mode == "generic"
+    if generic:
+        rows = _gather_rows_g(accel, obj)
+        t_best, _, p, n, _ = _winner_refine_g(rows, o, d, t_best, hit)
+    else:
+        rows = _gather_rows(accel, obj)
+        t_best, _, p, n = _winner_refine(rows, o, d, t_best, hit)
 
     did_hit = hit
     missed = active & ~hit
@@ -104,7 +113,7 @@ def _shade_hits(accel: Accel2, o, d, contrib, bounced, active, sidx, t_best,
     inner = ndotd > 0.0
 
     if has_dielectrics and accel.n_pgroups > 0:
-        sur_ri = _ri_probe(accel, p + 1e-3 * n)
+        sur_ri = (_ri_probe_g if generic else _ri_probe)(accel, p + 1e-3 * n)
     else:
         sur_ri = torch.ones_like(contrib)
 

@@ -35,11 +35,12 @@ import numpy as np
 import torch
 
 from raytracing_tests_tpu_torch.kernels import _build
-from raytracing_tests_tpu_torch.kernels.sweep import HitFields, scene_has_motion, scene_mode
+from raytracing_tests_tpu_torch.kernels.sweep import (
+    BIG_T, HitFields, _check_tensor, pack_rays, scene_has_motion, scene_mode,
+)
 from raytracing_tests_tpu_torch.ops.intersect import Hit
 from raytracing_tests_tpu_torch.scene.types import Scene
 
-BIG_T = 3.0e38
 DEFAULT_GR = 128  # objects per culling group
 PROBE_GR = 8  # rows per surrounding-RI probe group (see _probe_tables)
 
@@ -134,14 +135,6 @@ def pack_tables(scene: Scene, order, n_pad: int, anchor, valid_mask=None):
     return otab, ftab
 
 
-def pack_rays(o, d, time_ratio, t_limit):
-    """(B, 3) x2 + (B,) x2 -> (8, B) ray matrix: ox oy oz dx dy dz omt tlim."""
-    return torch.stack([
-        o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
-        1.0 - time_ratio, t_limit,
-    ]).contiguous()
-
-
 @dataclasses.dataclass
 class Accel2:
     """Sphere-mode accel: Morton-grouped tables + group AABBs.
@@ -157,6 +150,8 @@ class Accel2:
     perm: torch.Tensor  # (Np,) i32 sorted -> original
     gr: int
     n_pgroups: int = 0
+
+    mode = "spheres"
 
     @property
     def n_pad(self) -> int:
@@ -341,13 +336,24 @@ def probe_relevant_rows(scene: Scene, margin: float = 4e-3):
     return dmask & near_host
 
 
+def _pack_probe_spheres(scene: Scene, porder, np_pad: int, anchor, dmask, dm):
+    """The sphere-mode probe rows: ``pack_tables`` with the dead rows' K1 = BIG."""
+    potab = pack_tables(scene, porder, np_pad, anchor, dmask)[0]
+    potab[:, OT_K1] = torch.where(dm, potab[:, OT_K1],
+                                  torch.full_like(potab[:, OT_K1], BIG_T))
+    return potab
+
+
 def _probe_tables(scene: Scene, key, valid, lo, hi, probe_rows,
-                  probe_mask=None):
+                  probe_mask=None, packer=_pack_probe_spheres,
+                  ot_cols: int = OT_COLS):
     """Dielectric-only (valid & ri != 1) probe sub-table: Morton/huge-first
     ordered rows grouped by PROBE_GR with their own AABBs + median anchors.
     Only ri != 1 rows can move the surrounding-RI result off the neutral 1.0,
     so the probe loops over this subset instead of the whole table.
-    Returns (potab (Pp, OT_COLS), pgaabb (PG, GA_COLS))."""
+    ``packer(scene, order, n_pad, anchor, valid_mask, live)`` builds the
+    mode's object rows, ``ot_cols`` wide.
+    Returns (potab (Pp, ot_cols), pgaabb (PG, GA_COLS))."""
     gr = PROBE_GR
     dev = scene.device
     dmask = valid & (scene.refractive_index != 1.0)
@@ -357,7 +363,7 @@ def _probe_tables(scene: Scene, key, valid, lo, hi, probe_rows,
         probe_rows = int(dmask.sum())
     if probe_rows == 0:
         # No probe consumers: zero groups — the probe folds to the neutral 1.0.
-        return (torch.zeros((0, OT_COLS), device=dev),
+        return (torch.zeros((0, ot_cols), device=dev),
                 torch.zeros((0, GA_COLS), device=dev))
     np_pad = max(gr, -(-probe_rows // gr) * gr)
     pkey = torch.where(dmask, key, torch.full_like(key, 0xFFFFFFFF))
@@ -380,10 +386,7 @@ def _probe_tables(scene: Scene, key, valid, lo, hi, probe_rows,
     # filler, and the POSITIONAL dm mask additionally kills duplicated
     # index-0 padding rows (np_pad > n) even when object 0 is dielectric.
     anchor = torch.repeat_interleave(anchor_g, gr, dim=0)
-    potab = pack_tables(scene, porder, np_pad, anchor, dmask)[0]
-    potab[:, OT_K1] = torch.where(dm, potab[:, OT_K1],
-                                  torch.full_like(potab[:, OT_K1], BIG_T))
-    return potab, pgaabb
+    return packer(scene, porder, np_pad, anchor, dmask, dm), pgaabb
 
 
 # ---------------------------------------------------------------------------
@@ -543,19 +546,6 @@ def sweep2_plain(accel: Accel2, rays, with_ri: bool, with_fields: bool):
 # ---------------------------------------------------------------------------
 # Kernel wrapper
 # ---------------------------------------------------------------------------
-
-
-def _check_tensor(name, x, dtype, shape, device):
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
-    if x.device != device:
-        raise ValueError(f"{name}: on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
 
 
 def check_accel(accel: Accel2, device):

@@ -11,13 +11,17 @@ per primary and the queue renderer's overflow drop order.
 The kernel is hand-written CUDA (``csrc/uber.cu``); ``uber_render_plain`` is
 the same function in plain PyTorch without the scheduling: all ``B``
 primaries as one batch, a loop of at most ``cfg.pops`` iterations, each doing
-the nearest hit (dense over the spheres in the sweep's anchored form, see
-``sweep2._sweep_plain``), refine, probe, shade and the in-place-child / stack
-step.  The wrapper ``uber_render`` uses the plain version only when the tables
-lie on the CPU; on CUDA tensors it launches the kernel or raises.
+the nearest hit (``sweep2._sweep_plain`` over spheres in the sweep's anchored
+form, ``sweep2g._sweep_plain_g`` over rotated ellipsoids and cuboids), refine,
+probe, shade and the in-place-child / stack step.  The wrapper ``uber_render``
+uses the plain version only when the tables lie on the CPU; on CUDA tensors it
+launches the kernel or raises.
 
-Scope so far: sphere-mode scenes, 'bvh' shading, perspective camera with one
-focus distance, no lights, textures, motion or ``aa_grid``.
+The kernel has two instantiations, picked by the accel's class: sphere-mode
+scenes (``sweep2.Accel2``) and generic scenes (``sweep2g.Accel2G``).
+
+Scope so far: 'bvh' shading, perspective camera with one focus distance, no
+lights, textures, motion or ``aa_grid``.
 """
 
 from __future__ import annotations
@@ -31,9 +35,13 @@ from raytracing_tests_tpu_torch.kernels import _build
 from raytracing_tests_tpu_torch.kernels.mega import (
     GOLDEN_ANGLE, _cross_up, _shade_hits, sunflower_statics,
 )
+from raytracing_tests_tpu_torch.kernels.sweep import scene_has_motion
 from raytracing_tests_tpu_torch.kernels.sweep2 import (
-    PROBE_GR, Accel2, _check_tensor, _dot3, _sweep_plain, check_accel,
-    make_accel2, probe_relevant_rows,
+    PROBE_GR, _check_tensor, _dot3, _sweep_plain, check_accel, make_accel2,
+    probe_relevant_rows,
+)
+from raytracing_tests_tpu_torch.kernels.sweep2g import (
+    _sweep_plain_g, check_accel_g, make_accel2g,
 )
 from raytracing_tests_tpu_torch.ops.camera_rays import check_supported
 from raytracing_tests_tpu_torch.utils.device import resolve_device
@@ -49,9 +57,12 @@ CAM_LEN = 24  # padded
 
 # Host parameter vectors of csrc/uber.cu (IP_* / FP_* there).
 _IP = ("W", "H", "spp", "Q", "pops", "has_dielectrics", "n_groups", "gr",
-       "n_pgroups", "probe_gr")
-# Frame counters of csrc/uber.cu (ST_* there).
-ST_NEXT, ST_RAYS, ST_DROPPED, ST_SPHERE_TESTS, ST_LEN = range(5)
+       "n_pgroups", "probe_gr", "generic", "n_sgroups")
+# Frame counters of csrc/uber.cu (ST_* there).  ST_SPHERE_TESTS: sphere
+# quadratics solved; the last three are counted in generic mode only: slab
+# tests, rows tested in groups of another kind than 's', nodes that hit.
+(ST_NEXT, ST_RAYS, ST_DROPPED, ST_SPHERE_TESTS, ST_SLAB_TESTS, ST_OTHER_TESTS,
+ ST_HITS, ST_LEN) = range(8)
 
 _PLAIN_CHUNK = 1 << 20  # primaries per batch of the plain version
 
@@ -151,7 +162,7 @@ def _raygen(cam, st: UberStatics, p):
     return tip - dd, dd, sf, (cth, sth)
 
 
-def uber_render_plain(accel: Accel2, cam, st: UberStatics):
+def uber_render_plain(accel, cam, st: UberStatics):
     """Plain PyTorch version of the persistent kernel.
 
     Returns ``(out (B, 4) f32, stats (ST_LEN,) i64)``: per primary r, g, b and
@@ -168,7 +179,7 @@ def uber_render_plain(accel: Accel2, cam, st: UberStatics):
     return out, stats
 
 
-def _plain_range(accel: Accel2, cam, st: UberStatics, p0: int, B: int):
+def _plain_range(accel, cam, st: UberStatics, p0: int, B: int):
     """The trees of primaries ``p0 .. p0 + B`` as one batch ->
     (out (B, 4), rays, dropped)."""
     dev = accel.device
@@ -188,12 +199,17 @@ def _plain_range(accel: Accel2, cam, st: UberStatics, p0: int, B: int):
     top = torch.tensor(st.bg_top, dtype=f32, device=dev)
     lanes = torch.arange(B, device=dev)
     n_rays = n_drop = 0
+    generic = accel.mode == "generic"
+    omt = torch.zeros(B, dtype=f32, device=dev)  # no motion on this path
 
     for cnt in range(1, st.pops + 1):  # cnt = nodes processed per live tree
         if not bool(act.any()):
             break
         live = (_dot3(d, d) > 0.5) & act
-        t_best, obj = _sweep_plain(accel, o, d, live, tlim)
+        if generic:
+            t_best, obj = _sweep_plain_g(accel, o, d, omt, live, tlim)
+        else:
+            t_best, obj = _sweep_plain(accel, o, d, live, tlim)
         hit = (obj >= 0) & act
         tt = ((d[:, 1] + 1.0) * 0.5)[:, None]
         bg = (1.0 - tt) * bottom + tt * top
@@ -259,12 +275,14 @@ def _uber_fn():
     return fn, lib.rt_uber_max_q()
 
 
-def _host_params(accel: Accel2, st: UberStatics):
+def _host_params(accel, st: UberStatics):
     n, b, denom = sunflower_statics(st.spp)
     ints = dict(W=st.W, H=st.H, spp=st.spp, Q=st.Q, pops=st.pops,
                 has_dielectrics=int(st.has_dielectrics),
                 n_groups=accel.n_groups, gr=accel.gr,
-                n_pgroups=accel.n_pgroups, probe_gr=PROBE_GR)
+                n_pgroups=accel.n_pgroups, probe_gr=PROBE_GR,
+                generic=int(accel.mode == "generic"),
+                n_sgroups=getattr(accel, "n_sgroups", 0))
     ip = (ctypes.c_int * len(_IP))(*[ints[k] for k in _IP])
     floats = [st.t_max, GOLDEN_ANGLE, 1.0 / st.W, 1.0 / st.H, st.W / st.H,
               n, n - b, denom, 1.0 / denom, float(st.max_bounces),
@@ -273,19 +291,11 @@ def _host_params(accel: Accel2, st: UberStatics):
     return ip, fp
 
 
-def uber_render(accel: Accel2, cam, st: UberStatics):
-    """The whole frame: ``(out (B, 4) f32, stats (ST_LEN,) i64)``.
-
-    Tables on the CPU go through ``uber_render_plain``; on CUDA the kernel of
-    ``csrc/uber.cu`` is launched on the current stream (or this raises)."""
+def _launch_uber(accel, cam, st: UberStatics):
+    """Check the arguments and launch ``csrc/uber.cu`` -> (out, stats)."""
     dev = accel.device
-    if cam.device != dev:
-        raise ValueError(f"cam on {cam.device}, accel on {dev}")
-    if min(st.W, st.H, st.spp, st.pops) < 1 or st.Q < 0:
-        raise ValueError(f"bad frame statics: {st}")
-    if dev.type == "cpu":
-        return uber_render_plain(accel, cam, st)
-    check_accel(accel, dev)
+    generic = accel.mode == "generic"
+    (check_accel_g if generic else check_accel)(accel, dev)
     _check_tensor("cam", cam, torch.float32, (CAM_LEN,), dev)
     fn, max_q = _uber_fn()
     if st.Q > max_q:
@@ -293,14 +303,30 @@ def uber_render(accel: Accel2, cam, st: UberStatics):
     ip, fp = _host_params(accel, st)
     out = torch.empty((st.B, 4), dtype=torch.float32, device=dev)
     stats = torch.zeros(ST_LEN, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        code = fn(accel.otab.data_ptr(), accel.ftab.data_ptr(),
-                  accel.gaabb.data_ptr(), cam.data_ptr(), ip, fp, st.B,
-                  out.data_ptr(), stats.data_ptr(),
-                  torch.cuda.current_stream().cuda_stream)
+    code = fn(accel.otab.data_ptr(), accel.ftab.data_ptr(),
+              accel.gaabb.data_ptr(), cam.data_ptr(), ip, fp, st.B,
+              out.data_ptr(), stats.data_ptr(), _build.stream_of(dev))
     _build.check(code, "rt_uber_render")
-    _build.LAUNCHES["uber"] += 1
+    _build.LAUNCHES["uber_g" if generic else "uber"] += 1
     return out, stats
+
+
+def uber_render(accel, cam, st: UberStatics):
+    """The whole frame: ``(out (B, 4) f32, stats (ST_LEN,) i64)``.
+
+    Tables on the CPU go through ``uber_render_plain``; on CUDA the kernel of
+    ``csrc/uber.cu`` is launched on the current stream (or this raises), in
+    its sphere or its generic instantiation by the accel's class (counted as
+    ``uber`` and ``uber_g``)."""
+    dev = accel.device
+    if cam.device != dev:
+        raise ValueError(f"cam on {cam.device}, accel on {dev}")
+    if min(st.W, st.H, st.spp, st.pops) < 1 or st.Q < 0:
+        raise ValueError(f"bad frame statics: {st}")
+    if dev.type == "cpu":
+        return uber_render_plain(accel, cam, st)
+    with torch.cuda.device(dev):
+        return _launch_uber(accel, cam, st)
 
 
 # ---------------------------------------------------------------------------
@@ -318,12 +344,15 @@ def _scene_accel(scene, camera, cfg, gr):
     if probe_rows > 0:
         probe_mask = probe_relevant_rows(scene)
         probe_rows = int(probe_mask.sum())
-    if cfg.pallas_mode != "spheres":
-        raise NotImplementedError(
-            "the persistent kernel for rotated ellipsoids and cuboids is not "
-            "ported yet")
-    accel = make_accel2(scene, gr=gr, sort_origin=camera.position,
-                        probe_rows=probe_rows, probe_mask=probe_mask)
+    if cfg.pallas_mode == "spheres":
+        accel = make_accel2(scene, gr=gr, sort_origin=camera.position,
+                            probe_rows=probe_rows, probe_mask=probe_mask)
+    else:
+        if scene_has_motion(scene):
+            raise NotImplementedError("motion blur is not ported yet")
+        accel = make_accel2g(scene, gr=gr, has_motion=False,
+                             sort_origin=camera.position,
+                             probe_rows=probe_rows, probe_mask=probe_mask)
     return accel, pack_camera(camera)
 
 

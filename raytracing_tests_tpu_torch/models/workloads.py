@@ -67,10 +67,9 @@ register(
 
 register(
     "bvh",
-    "grid of spheres and rotated cuboids (dense intersector: the grouped "
-    "sweep for generic primitives is not ported yet)",
+    "grid of alternating ellipsoids / rotated cuboids through the grouped sweep",
     reference="In-Next-Week/01_BoundingVolumeHierarchy",
-)(_rt_run(examples.bvh_grid_scene, dict(spp=4)))
+)(_rt_run(examples.bvh_grid_scene, dict(spp=4, intersector="pallas")))
 
 register(
     "iow-final",

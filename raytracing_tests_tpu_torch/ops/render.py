@@ -14,8 +14,10 @@ Semantics reproduced:
   - per-sample gamma-2 then mean over samples.
 
 Ported so far: ``shading="bvh"`` without lights or textures, through the
-``brute`` intersector (any primitive) or the ``pallas`` intersector in sphere
-mode (the grouped sweep kernel ``kernels.sweep2``).
+``brute`` intersector or the ``pallas`` intersector: the grouped sphere sweep
+``kernels.sweep2`` in sphere mode, the first-generation sweeps of
+``kernels.sweep`` for generic scenes (grouped by ``pallas_groups``, dense when
+that is 0) and for sphere scenes with ``pallas_v2=False``.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ class RenderConfig:
     max_pops: Optional[int] = None  # ray-tree budget; None -> 2*max_bounces + 1
     t_max: float = MAX_T_DEPTH
     background: tuple = ((1.0, 1.0, 1.0), (0.3, 0.4, 1.0))  # bottom, top
-    intersector: str = "brute"  # 'brute' | 'pallas' (the grouped sweep kernel)
+    intersector: str = "brute"  # 'brute' | 'pallas' (the sweep kernels)
     # 'bvh': the In-Next-Week family shading (surrounding-RI estimation,
     #        deviate-cone scatter, 0.5-forward damping).  The only one ported.
     shading: str = "bvh"
@@ -59,6 +61,12 @@ class RenderConfig:
     has_dielectrics: bool = True
     pallas_mode: str = "generic"  # 'spheres' | 'generic' (set via for_scene)
     has_motion: bool = True
+    # Objects per culling group of the first-generation grouped sweep
+    # (kernels.sweep); 0 = the dense sweep over the whole table.
+    pallas_groups: int = 32
+    # Sphere scenes take the grouped sphere sweep (kernels.sweep2) instead of
+    # the first-generation sweeps.
+    pallas_v2: bool = True
     # Count of dielectric (ri != 1) rows — sizes the trailing surrounding-RI
     # probe sub-table (sweep2.make_accel2).  -1 = count at accel-build time.
     probe_rows: int = -1
@@ -171,6 +179,47 @@ def _is_v2(accel) -> bool:
     return isinstance(accel, Accel2)
 
 
+def _is_pallas(accel) -> bool:
+    from raytracing_tests_tpu_torch.kernels.sweep import PallasAccel
+
+    return isinstance(accel, PallasAccel)
+
+
+def _surrounding_ri(scene, accel, point, time_ratio):
+    if _is_pallas(accel):
+        from raytracing_tests_tpu_torch.kernels.sweep import surrounding_ri_pallas
+
+        return surrounding_ri_pallas(accel, scene, point, time_ratio)
+    return isect.surrounding_refractive_index(scene, point, time_ratio)
+
+
+def _nearest(scene, accel, o, d, time_ratio, t_limit):
+    """Intersector dispatch: dense tensor sweep or a sweep kernel (same Hit
+    contract)."""
+    if _is_v2(accel):
+        from raytracing_tests_tpu_torch.kernels.sweep2 import intersect2
+
+        return intersect2(accel, scene, o, d, time_ratio, t_limit)
+    if _is_pallas(accel):
+        from raytracing_tests_tpu_torch.kernels.sweep import intersect_pallas
+
+        return intersect_pallas(accel, scene, o, d, time_ratio, t_limit)
+    return isect.intersect_brute(scene, o, d, time_ratio, t_limit)
+
+
+def _nearest_obj(scene, accel, o, d, time_ratio, t_limit):
+    """Original id of the nearest object hit before ``t_limit`` (-1 if none)."""
+    if _is_v2(accel):
+        from raytracing_tests_tpu_torch.kernels.sweep2 import occluded_nearest_obj2
+
+        return occluded_nearest_obj2(accel, scene, o, d, time_ratio, t_limit)
+    if _is_pallas(accel):
+        from raytracing_tests_tpu_torch.kernels.sweep import occluded_nearest_obj_pallas
+
+        return occluded_nearest_obj_pallas(accel, scene, o, d, time_ratio, t_limit)
+    return isect.occluded_nearest_obj(scene, o, d, time_ratio, t_limit)
+
+
 @dataclasses.dataclass
 class ShadeResult:
     """Everything one shading step produces for a batch of rays: color to
@@ -212,8 +261,19 @@ def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, 
             )
         else:
             hit, flds = intersect2_full(accel, scene, o, d, time_ratio, t_limit)
+    elif _is_pallas(accel):
+        from raytracing_tests_tpu_torch.kernels.sweep import (
+            intersect_pallas_full, intersect_pallas_fused,
+        )
+
+        if needs_sur_ri:
+            hit, flds, sur_ri_fused = intersect_pallas_fused(
+                accel, scene, o, d, time_ratio, t_limit
+            )
+        else:
+            hit, flds = intersect_pallas_full(accel, scene, o, d, time_ratio, t_limit)
     else:
-        hit = isect.intersect_brute(scene, o, d, time_ratio, t_limit)
+        hit = _nearest(scene, accel, o, d, time_ratio, t_limit)
         flds = None
     did_hit = hit.hit & active
     missed = active & ~hit.hit
@@ -230,8 +290,7 @@ def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, 
     if sur_ri_fused is not None:
         sur_ri = sur_ri_fused
     elif needs_sur_ri:
-        sur_ri = isect.surrounding_refractive_index(
-            scene, hit_point + 1e-3 * normal, time_ratio)
+        sur_ri = _surrounding_ri(scene, accel, hit_point + 1e-3 * normal, time_ratio)
     else:
         sur_ri = torch.ones(B, dtype=torch.float32, device=o.device)
 
@@ -352,13 +411,14 @@ def _process_pop(scene, lights, cfg: RenderConfig, queue, state, sample_idx, spp
 
 def _build_accel(scene, cfg: RenderConfig):
     if cfg.intersector == "pallas":
-        if cfg.pallas_mode != "spheres":
-            raise NotImplementedError(
-                "the grouped sweep for rotated ellipsoids and cuboids is not "
-                "ported yet; use intersector='brute' for generic scenes")
-        from raytracing_tests_tpu_torch.kernels.sweep2 import make_accel2
+        if cfg.pallas_v2 and cfg.pallas_mode == "spheres":
+            from raytracing_tests_tpu_torch.kernels.sweep2 import make_accel2
 
-        return make_accel2(scene, probe_rows=cfg.probe_rows)
+            return make_accel2(scene, probe_rows=cfg.probe_rows)
+        from raytracing_tests_tpu_torch.kernels.sweep import make_accel
+
+        return make_accel(scene, cfg.pallas_mode, group=cfg.pallas_groups,
+                          has_motion=cfg.has_motion)
     if cfg.intersector != "brute":
         raise NotImplementedError(f"intersector={cfg.intersector!r} is not ported yet")
     return None

@@ -22,7 +22,7 @@ def test_the_fifteen_modules_exist():
     for mod in (
         "core.linalg", "core.geometry", "core.sampling", "scene.types",
         "scene.examples", "ops.camera_rays", "ops.intersect", "bvh.build",
-        "kernels.sweep", "kernels.sweep2", "ops.render", "kernels.mega",
+        "kernels.sweep", "kernels.sweep2", "kernels.sweep2g", "ops.render", "kernels.mega",
         "kernels.uber", "utils.io", "models.registry", "models.workloads",
         "app.cli", "__main__", "convert",
     ):
@@ -62,24 +62,64 @@ def test_sources_do_not_mention_jax_imports():
                                      "import raytracing_tests_tpu.")), (path, line)
 
 
-@pytest.mark.parametrize("entry", ["render_uber", "render_stats", "render", "cli"])
+def test_the_smoke_script_imports_nothing_of_jax():
+    import pathlib
+
+    text = (pathlib.Path(raytracing_tests_tpu_torch.__file__).parent.parent
+            / "chip_smoke.py").read_text()
+    for line in text.splitlines():
+        s = line.strip()
+        if s.startswith(("import ", "from ")):
+            assert "jax" not in s and "raytracing_tests_tpu " not in s + " " \
+                and "raytracing_tests_tpu." not in s, line
+
+
+@pytest.mark.parametrize("entry", ["render_uber", "render_stats", "render", "cli",
+                                   "render_uber_generic", "render_stats_generic",
+                                   "render_stats_generic_dense", "cli_bvh"])
 def test_entry_points_raise_without_cuda_and_do_not_fall_back(entry):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
-    scene, cam = examples.iow_final_scene(side=2)
-    cfg = RenderConfig(width=8, height=4, spp=1, intersector="pallas").for_scene(scene)
+    generic = "generic" in entry
+    scene, cam = examples.bvh_grid_scene(side=2) if generic else examples.iow_final_scene(side=2)
+    cfg = RenderConfig(width=8, height=4, spp=1, intersector="pallas",
+                       pallas_groups=0 if entry.endswith("dense") else 32).for_scene(scene)
+    assert cfg.pallas_mode == ("generic" if generic else "spheres")
     with pytest.raises(RuntimeError, match="CUDA"):
-        if entry == "render_uber":
+        if entry.startswith("render_uber"):
             render_uber(scene, cam, cfg)
-        elif entry == "render_stats":
+        elif entry.startswith("render_stats"):
             render_stats(scene, cam, cfg)
         elif entry == "render":
             render(scene, cam, cfg)
+        elif entry == "cli_bvh":
+            from raytracing_tests_tpu_torch.app.cli import main
+
+            main(["render", "bvh", "--uber", "--width", "8", "--height", "4",
+                  "--spp", "1", "--out", "unused.png"])
         else:
             from raytracing_tests_tpu_torch.app.cli import main
 
             main(["render", "iow-final", "--uber", "--width", "8", "--height", "4",
                   "--spp", "1", "--out", "unused.png"])
+
+
+def test_sweep_wrappers_refuse_a_tensor_they_cannot_launch_on():
+    """A wrapper takes the plain version only for CPU tensors: anything else
+    goes to the kernel's launch path, which raises where it cannot run (here a
+    meta tensor stands in for a device this machine does not have)."""
+    from raytracing_tests_tpu_torch.kernels import sweep, sweep2g
+
+    scene, _ = examples.bvh_grid_scene(side=2)
+    z3, z1 = torch.zeros(4, 3, device="meta"), torch.zeros(4, device="meta")
+    acc = sweep.make_accel(scene, "generic", group=4)
+    acc2g = sweep2g.make_accel2g(scene, gr=8, has_motion=False)
+    with pytest.raises((ValueError, RuntimeError, NotImplementedError)):
+        sweep.sweep_grouped(acc.table, acc.gaabb, z3, z3, z1, z1, 4, False, mode="generic")
+    with pytest.raises((ValueError, RuntimeError, NotImplementedError)):
+        sweep.sweep_ri(acc.table, "generic", z3, z1)
+    with pytest.raises((ValueError, RuntimeError, NotImplementedError)):
+        sweep2g.sweep2g_nearest(acc2g, z3, z3, z1, z1)
 
 
 def test_resolve_device_names_the_cpu_only_when_asked():

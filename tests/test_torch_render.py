@@ -13,9 +13,14 @@ one rounding; eager PyTorch rounds twice):
     kernel's canary: image means within 5e-3, under 3 % of pixels off by more
     than 0.05, ray counts within 0.5 %.
   - goldens: ``bvh`` was rendered by the JAX package's first-generation
-    grouped sweep (not ported; the port runs the dense intersector): 99.3 %
-    of pixels within 2e-5, all within 3e-4, which is the bar.  ``iow-final``:
+    grouped sweep, which the port's ``bvh`` workload now runs too (its plain
+    version here): all pixels within 3e-4, which is the bar.  ``iow-final``:
     91 % within 2e-5 found; held to >= 88 % plus the statistical envelope.
+  - generic scenes through ``intersector="pallas"`` (the first-generation
+    sweeps, grouped by 32 and dense) against the JAX package's same path at
+    48x32x4: the oracle bar (>= 99.5 % of pixels within atol 2e-4 / rtol
+    1e-3), ray counts within 0.3 %.  Found on four scenes, grouped and dense:
+    every pixel inside the bar, equal ray counts.
 """
 
 import dataclasses
@@ -33,6 +38,9 @@ from raytracing_tests_tpu.scene import examples as jex
 from raytracing_tests_tpu_torch.models import get_workload, list_workloads
 from raytracing_tests_tpu_torch.ops.render import RenderConfig, render, render_stats
 from raytracing_tests_tpu_torch.scene import examples as tex
+from raytracing_tests_tpu_torch.scene import types as ttypes
+from raytracing_tests_tpu.scene import types as jtypes
+from test_torch_sweep2g import anisotropic_scene, dielectric_scene, overlapping_glass_scene
 
 torch.set_num_threads(2)
 
@@ -146,6 +154,67 @@ def test_unported_options_raise(what):
     elif what == "bvh_intersector":
         cfg = dataclasses.replace(cfg, intersector="bvh")
     else:
-        cfg = dataclasses.replace(cfg, intersector="pallas")
+        # the sweep for generic scenes is ported: it renders what the dense
+        # intersector renders; an intersector nobody knows still raises
+        swept = render_stats(scene, cam, dataclasses.replace(cfg, intersector="pallas"),
+                             device="cpu")
+        dense = render_stats(scene, cam, cfg, device="cpu")
+        assert cfg.pallas_mode == "generic"
+        np.testing.assert_allclose(swept["image"].numpy(), dense["image"].numpy(), atol=2e-4)
+        cfg = dataclasses.replace(cfg, intersector="generic_sweep")
     with pytest.raises(NotImplementedError):
         render_stats(scene, cam, cfg, lights, device="cpu")
+
+
+GENERIC = {
+    "bvh5": (lambda ex, ty: ex.bvh_grid_scene(side=5), 5),
+    "anisotropic": (lambda ex, ty: anisotropic_scene(ty), 6),
+    "dielectric": (lambda ex, ty: dielectric_scene(ty), 6),
+    "overlapping_glass": (lambda ex, ty: overlapping_glass_scene(ty), 6),
+}
+
+
+@pytest.mark.parametrize("groups", [32, 0])
+@pytest.mark.parametrize("name", list(GENERIC))
+def test_generic_sweep_renderer_matches_jax(name, groups):
+    """``intersector="pallas"`` on a generic scene: the grouped (32) and the
+    dense (0) first-generation sweep, against the JAX package's same path."""
+    factory, depth = GENERIC[name]
+    js, jc = factory(jex, jtypes)
+    ts, tc = factory(tex, ttypes)
+    frame = dict(width=48, height=32, spp=4, max_bounces=depth, intersector="pallas",
+                 pallas_groups=groups)
+    jcfg = JRenderConfig(**frame).for_scene(js)
+    tcfg = RenderConfig(**frame).for_scene(ts)
+    assert tcfg.pallas_mode == jcfg.pallas_mode == "generic"
+    oj = jax.jit(lambda s, c: j_render_stats(s, c, jcfg))(js, jc)
+    ot = render_stats(ts, tc, tcfg, device="cpu")
+    ij, it = np.asarray(oj["image"]), ot["image"].numpy()
+    ok = np.isclose(it, ij, atol=2e-4, rtol=1e-3).all(axis=-1)
+    rj, rt = int(oj["rays"]), int(ot["rays"])
+    assert np.isfinite(it).all() and ok.mean() >= 0.995, ok.mean()
+    assert abs(rj - rt) / rj < 3e-3, (rj, rt)
+    assert int(ot["rays_dropped"]) == int(oj["rays_dropped"]) == 0
+    dd = np.abs(ot["depth"].numpy() - np.asarray(oj["depth"]))
+    assert (dd > 1e-2).mean() < 0.01
+    # ... and the port's dense intersector on the same frame
+    ob = render_stats(ts, tc, dataclasses.replace(tcfg, intersector="brute"), device="cpu")
+    okb = np.isclose(it, ob["image"].numpy(), atol=2e-4, rtol=1e-3).all(axis=-1)
+    assert okb.mean() >= 0.995 and abs(ob["rays"] - rt) / rt < 3e-3, okb.mean()
+
+
+@pytest.mark.parametrize("groups", [32, 0])
+def test_first_generation_sweeps_render_a_sphere_scene(groups):
+    """``pallas_v2=False`` sends a sphere scene through the first-generation
+    sweeps with their fused refractive index (grouped and dense) instead of
+    the grouped sphere sweep; the picture is the dense intersector's."""
+    scene, cam = tex.iow_final_scene(side=5)
+    cfg_b = RenderConfig(**dict(SIZE, spp=8)).for_scene(scene)
+    cfg_p = dataclasses.replace(cfg_b, intersector="pallas", pallas_v2=False,
+                                pallas_groups=groups)
+    assert cfg_p.pallas_mode == "spheres" and cfg_p.has_dielectrics
+    ob = render_stats(scene, cam, cfg_b, device="cpu")
+    op = render_stats(scene, cam, cfg_p, device="cpu")
+    _envelope(op["image"].numpy(), ob["image"].numpy())
+    assert abs(ob["rays"] - op["rays"]) / ob["rays"] < 5e-3
+    assert op["rays_dropped"] == 0
