@@ -205,7 +205,8 @@ enum {
 enum { GFT_R00 = 19, GFT_SX = 28, GFT_SY, GFT_SZ, GFT_TYPE };
 // Per-group census of the accel build (gaabb column 6).
 enum { GK_MIXED = 0, GK_ELL, GK_CUB, GK_SPHERE, GK_AXIS, GK_YROT };
-// Work counters of the generic sweep (measurement only).
+// Work counters of the generic sweep (measurement only): slab tests, and the
+// live rows whose primitive test was run, by the kind of their group.
 enum { GC_SLAB = 0, GC_SPHERE_ROWS, GC_OTHER_ROWS, GC_LEN };
 
 // Ellipsoid t in the divide-by-scale form of the dense intersector: local ray
@@ -288,7 +289,7 @@ __device__ __forceinline__ bool slab_hit(const float* ga, float ox, float oy,
 template <bool MOTION>
 __device__ __forceinline__ void sweep_group_g(
     const Tables& T, int g, int kind, float ox, float oy, float oz, float dx,
-    float dy, float dz, float omt, float& t_best, int& obj) {
+    float dy, float dz, float omt, float& t_best, int& obj, unsigned* n_live) {
   const int row0 = g * T.gr;
   const float* rows = T.otab + (size_t)row0 * GO_COLS;
   for (int r = 0; r < T.gr; ++r) {
@@ -296,6 +297,7 @@ __device__ __forceinline__ void sweep_group_g(
     const float4 p = ld4(row);       // px py pz type
     const float4 m = ld4(row + 4);   // dpx dpy dpz valid
     if (!(m.w > 0.0f)) continue;     // dead and padding rows
+    if (n_live) *n_live += 1;
     const float4 s = ld4(row + 8);   // sx sy sz ri
     float rx = ox - p.x, ry = oy - p.y, rz = oz - p.z;
     if (MOTION) {
@@ -353,7 +355,8 @@ __device__ __forceinline__ void sweep_group_g(
 // slab, then the group's rows; every test is the thread's own, against its
 // own current best t.  Returns obj = -1 and t_best = min(BIG_T, tlim) on a
 // miss or a dead ray (d = 0).  `counts` (GC_LEN, or null) gains the slab tests
-// and the rows tested, for the roofline bound.
+// and the live rows tested (dead and padding rows are skipped and not
+// counted), for the roofline bound.
 template <bool MOTION>
 __device__ __forceinline__ void nearest_hit_g(
     const Tables& T, float ox, float oy, float oz, float dx, float dy,
@@ -381,13 +384,9 @@ __device__ __forceinline__ void nearest_hit_g(
       if (counts) counts[GC_SLAB] += 1;
       if (!slab_hit(ga, ox, oy, oz, ix, iy, iz, t_best)) continue;
       const int kind = (int)__ldg(ga + 6);
-      if (counts) {
-        if (kind == GK_SPHERE)
-          counts[GC_SPHERE_ROWS] += T.gr;
-        else
-          counts[GC_OTHER_ROWS] += T.gr;
-      }
-      sweep_group_g<MOTION>(T, g, kind, ox, oy, oz, dx, dy, dz, omt, t_best, obj);
+      unsigned* n_live = nullptr;
+      if (counts) n_live = counts + (kind == GK_SPHERE ? GC_SPHERE_ROWS : GC_OTHER_ROWS);
+      sweep_group_g<MOTION>(T, g, kind, ox, oy, oz, dx, dy, dz, omt, t_best, obj, n_live);
     }
   }
 }

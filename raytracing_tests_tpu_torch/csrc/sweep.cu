@@ -30,7 +30,9 @@ constexpr int G_COLS = 24;  // px py pz r00 | r01 r02 r10 r11 | r12 r20 r21 r22 
                             // sx sy sz dpx | dpy dpz type valid | ri 0 0 0
 constexpr int GA8 = 8;      // group box row: lo xyz, hi xyz, 0 0
 enum { MODE_SPHERES = 0, MODE_GENERIC = 1 };
-enum { SC_ROWS = 0, SC_RI_ROWS, SC_LEN };  // work counters (measurement only)
+// Work counters (measurement only): live rows tested by the hit pass and by
+// the RI pass; dead and padding rows are not counted.
+enum { SC_ROWS = 0, SC_RI_ROWS, SC_LEN };
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, omt, tlim;
@@ -267,6 +269,7 @@ __global__ void __launch_bounds__(256) grouped_kernel(
   const float inv_a = 1.0f / a;
   const float ix = rt::safe_inv(R.dx), iy = rt::safe_inv(R.dy), iz = rt::safe_inv(R.dz);
   constexpr int COLS = MODE == MODE_SPHERES ? S_COLS : G_COLS;
+  constexpr int VALID_COL = MODE == MODE_SPHERES ? 7 : 19;
   float t_best = fminf(BIG_T, R.tlim);
   int obj = -1;
   float bcx = 0.0f, bcy = 0.0f, bcz = 0.0f;
@@ -280,10 +283,10 @@ __global__ void __launch_bounds__(256) grouped_kernel(
     const float tmin = fmaxf(fmaxf(fminf(u1, w1), fminf(u2, w2)), fminf(u3, w3));
     const float tmax = fminf(fminf(fmaxf(u1, w1), fmaxf(u2, w2)), fmaxf(u3, w3));
     if (!((tmax > tmin) && (tmin < t_best))) continue;
-    n_rows += (unsigned)group;
     for (int j = 0; j < group; ++j) {
       const int k = g * group + j;
       const float* row = table + (size_t)k * COLS;
+      if (stats != nullptr && __ldg(row + VALID_COL) > 0.0f) n_rows += 1;
       float t, cx = 0.0f, cy = 0.0f, cz = 0.0f;
       if (MODE == MODE_SPHERES)
         t = sphere_t_centre(row, R, a, inv_a, cx, cy, cz);
@@ -311,11 +314,11 @@ __global__ void __launch_bounds__(256) grouped_kernel(
       const bool in_box = qx >= b0.x && qx <= b0.w && qy >= b0.y && qy <= b1.x &&
                           qz >= b0.z && qz <= b1.y;
       if (!in_box) continue;
-      n_ri_rows += (unsigned)group;
       for (int j = 0; j < group; ++j) {
         float ri;
-        if (contains<MODE_SPHERES>(table + (size_t)(g * group + j) * S_COLS, qx,
-                                   qy, qz, R.omt, ri)) {
+        const float* row = table + (size_t)(g * group + j) * S_COLS;
+        if (stats != nullptr && __ldg(row + VALID_COL) > 0.0f) n_ri_rows += 1;
+        if (contains<MODE_SPHERES>(row, qx, qy, qz, R.omt, ri)) {
           acc += ri;
           cnt += 1.0f;
         }
@@ -390,8 +393,8 @@ extern "C" int rt_sweep_ri(const void* table, int n_obj, int mode,
 
 // gaabb: (n_groups, 8) rows lo xyz, hi xyz; the table holds n_groups * group
 // rows.  with_ri (sphere mode only) fuses the refractive-index pass, else
-// ri_out is 1.  stats: null, or uint64[2] that gains the rows tested by the
-// hit pass and by the RI pass (measurement only).
+// ri_out is 1.  stats: null, or uint64[2] that gains the live rows tested by
+// the hit pass and by the RI pass (measurement only).
 extern "C" int rt_sweep_grouped(const void* table, const void* gaabb,
                                 int n_groups, int group, int mode, int with_ri,
                                 const void* rays, int B, void* t_out,

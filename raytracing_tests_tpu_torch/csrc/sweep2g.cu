@@ -50,8 +50,8 @@ __global__ void __launch_bounds__(256) sweep2g_kernel(
 
 // rays: (8, B) rows ox oy oz dx dy dz omt tlim; t_out, obj_out: (B,), a miss
 // gives obj = -1 and t = min(3e38, tlim); stats: null, or uint64[3] that gains
-// slab tests, sphere-kind rows tested and other rows tested (measurement
-// only).  Launches on `stream`, does not synchronise, returns
+// slab tests and the live rows tested in sphere-kind groups and in groups of
+// another kind (measurement only).  Launches on `stream`, does not synchronise, returns
 // cudaGetLastError().
 extern "C" int rt_sweep2g(const void* otab, const void* gaabb, int n_groups,
                           int gr, int n_pgroups, int probe_gr, int n_sgroups,

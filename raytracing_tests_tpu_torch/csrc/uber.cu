@@ -49,7 +49,7 @@ enum { FP_TMAX = 0, FP_GOLDEN, FP_INV_W, FP_INV_H, FP_ASPECT,
 
 // Frame counters (device, zeroed by the wrapper before each launch).
 // ST_SPHERE_TESTS: sphere quadratics solved; the last three only in generic
-// mode: slab tests, rows tested in groups of another kind, nodes that hit.
+// mode: slab tests, live rows tested in groups of another kind, nodes that hit.
 enum { ST_NEXT = 0, ST_RAYS, ST_DROPPED, ST_SPHERE_TESTS, ST_SLAB_TESTS,
        ST_OTHER_TESTS, ST_HITS, ST_LEN };
 

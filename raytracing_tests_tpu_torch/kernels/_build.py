@@ -100,11 +100,23 @@ def host_rehearsal():
         _extra_flags = saved
 
 
+def check_device(device) -> None:
+    """A ``_launch_*`` function runs on CUDA tensors; on CPU tensors only
+    inside ``host_rehearsal()``.  Anything else raises: a host pointer must
+    never reach a CUDA launch."""
+    host = _extra_flags == (HOST_FLAG,)
+    if device.type != ("cpu" if host else "cuda"):
+        raise RuntimeError(
+            f"cannot launch on {device}: the "
+            + ("host rehearsal takes CPU tensors" if host else "kernels take CUDA tensors"))
+
+
 def stream_of(device) -> int | None:
     """The current CUDA stream's handle for a launch on ``device``; none for
     the host rehearsal's CPU buffers."""
     import torch
 
+    check_device(device)
     if device.type != "cuda":
         return None
     return torch.cuda.current_stream(device).cuda_stream

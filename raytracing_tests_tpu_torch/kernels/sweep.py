@@ -577,7 +577,8 @@ def _check_rays(rays, rows: int):
     return rays.shape[1]
 
 
-def _fn(name: str, argtypes):
+def _fn(name: str, argtypes, device):
+    _build.check_device(device)
     fn = getattr(_build.load("sweep"), name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
@@ -602,7 +603,7 @@ def _launch_nearest(table, mode: str, rays):
     _check_table(table, mode, dev)
     t = torch.empty((B,), dtype=torch.float32, device=dev)
     obj = torch.empty((B,), dtype=torch.int32, device=dev)
-    code = _fn("rt_sweep_nearest", [_P, _I, _I, _P, _I, _P, _P, _P])(
+    code = _fn("rt_sweep_nearest", [_P, _I, _I, _P, _I, _P, _P, _P], dev)(
         table.data_ptr(), table.shape[0], MODES.index(mode), rays.data_ptr(), B,
         t.data_ptr(), obj.data_ptr(), _build.stream_of(dev))
     _build.check(code, "rt_sweep_nearest")
@@ -617,7 +618,7 @@ def _launch_nearest_ri(table, rays):
     t = torch.empty((B,), dtype=torch.float32, device=dev)
     obj = torch.empty((B,), dtype=torch.int32, device=dev)
     ri = torch.empty((B,), dtype=torch.float32, device=dev)
-    code = _fn("rt_sweep_nearest_ri", [_P, _I, _P, _I, _P, _P, _P, _P])(
+    code = _fn("rt_sweep_nearest_ri", [_P, _I, _P, _I, _P, _P, _P, _P], dev)(
         table.data_ptr(), table.shape[0], rays.data_ptr(), B, t.data_ptr(),
         obj.data_ptr(), ri.data_ptr(), _build.stream_of(dev))
     _build.check(code, "rt_sweep_nearest_ri")
@@ -630,7 +631,7 @@ def _launch_ri(table, mode: str, pts):
     B = _check_rays(pts, 4)
     _check_table(table, mode, dev)
     ri = torch.empty((B,), dtype=torch.float32, device=dev)
-    code = _fn("rt_sweep_ri", [_P, _I, _I, _P, _I, _P, _P])(
+    code = _fn("rt_sweep_ri", [_P, _I, _I, _P, _I, _P, _P], dev)(
         table.data_ptr(), table.shape[0], MODES.index(mode), pts.data_ptr(), B,
         ri.data_ptr(), _build.stream_of(dev))
     _build.check(code, "rt_sweep_ri")
@@ -653,7 +654,7 @@ def _launch_grouped(table, gaabb, rays, group: int, with_ri: bool, mode: str, st
     t = torch.empty((B,), dtype=torch.float32, device=dev)
     obj = torch.empty((B,), dtype=torch.int32, device=dev)
     ri = torch.empty((B,), dtype=torch.float32, device=dev)
-    code = _fn("rt_sweep_grouped", [_P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P])(
+    code = _fn("rt_sweep_grouped", [_P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P], dev)(
         table.data_ptr(), gaabb.data_ptr(), G, group, MODES.index(mode), int(with_ri),
         rays.data_ptr(), B, t.data_ptr(), obj.data_ptr(), ri.data_ptr(),
         stats.data_ptr() if stats is not None else None, _build.stream_of(dev))
@@ -689,16 +690,23 @@ def sweep_nearest_ri(table, o, d, time_ratio, t_limit):
         return _launch_nearest_ri(table, rays)
 
 
-def sweep_grouped(table, gaabb, o, d, time_ratio, t_limit, group: int,
-                  with_ri: bool, mode: str = "spheres", stats=None):
-    """Grouped two-level sweep -> (t, obj_sorted, ri).  The motion terms are
-    always computed (three multiply-adds per row, exact zeros on a static
-    scene), so there is no ``has_motion`` switch."""
-    rays = pack_rays(o, d, time_ratio, t_limit)
+def _sweep_grouped(table, gaabb, rays, group: int, with_ri: bool, mode: str, stats=None):
+    """The grouped sweep on a ray matrix (8, B).  ``stats``: optional zeroed
+    int64[SC_LEN] CUDA tensor that gains the live rows tested by the hit pass
+    and by the RI pass (measurement only)."""
     if _on_cpu(rays, table):
         return sweep_grouped_plain(table, gaabb, rays, group, with_ri, mode)
     with torch.cuda.device(rays.device):
         return _launch_grouped(table, gaabb, rays, group, with_ri, mode, stats)
+
+
+def sweep_grouped(table, gaabb, o, d, time_ratio, t_limit, group: int,
+                  with_ri: bool, mode: str = "spheres"):
+    """Grouped two-level sweep -> (t, obj_sorted, ri).  The motion terms are
+    always computed (three multiply-adds per row, exact zeros on a static
+    scene), so there is no ``has_motion`` switch."""
+    return _sweep_grouped(table, gaabb, pack_rays(o, d, time_ratio, t_limit), group,
+                          with_ri, mode)
 
 
 def sweep_ri(table, mode: str, point, time_ratio):

@@ -574,6 +574,7 @@ def _launch_sweep2g(accel: Accel2G, rays, stats=None):
     check_accel_g(accel, dev)
     if stats is not None:
         _check_tensor("stats", stats, torch.int64, (GC_LEN,), dev)
+    _build.check_device(dev)
     fn = _build.load("sweep2g").rt_sweep2g
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -597,7 +598,7 @@ def _sweep2g(accel: Accel2G, rays, stats=None):
     CPU tensors go through ``sweep2g_plain``; CUDA tensors launch the kernel
     of ``csrc/sweep2g.cu`` on the current stream (or raise).  ``stats``:
     optional zeroed int64[GC_LEN] CUDA tensor that gains the slab tests and
-    the rows tested (measurement only)."""
+    the live rows tested (measurement only)."""
     if rays.device.type == "cpu":
         if accel.device.type != "cpu":
             raise ValueError("rays on the CPU but accel on " + str(accel.device))

@@ -60,7 +60,7 @@ _IP = ("W", "H", "spp", "Q", "pops", "has_dielectrics", "n_groups", "gr",
        "n_pgroups", "probe_gr", "generic", "n_sgroups")
 # Frame counters of csrc/uber.cu (ST_* there).  ST_SPHERE_TESTS: sphere
 # quadratics solved; the last three are counted in generic mode only: slab
-# tests, rows tested in groups of another kind than 's', nodes that hit.
+# tests, live rows tested in groups of another kind than 's', nodes that hit.
 (ST_NEXT, ST_RAYS, ST_DROPPED, ST_SPHERE_TESTS, ST_SLAB_TESTS, ST_OTHER_TESTS,
  ST_HITS, ST_LEN) = range(8)
 
@@ -297,6 +297,7 @@ def _launch_uber(accel, cam, st: UberStatics):
     generic = accel.mode == "generic"
     (check_accel_g if generic else check_accel)(accel, dev)
     _check_tensor("cam", cam, torch.float32, (CAM_LEN,), dev)
+    _build.check_device(dev)
     fn, max_q = _uber_fn()
     if st.Q > max_q:
         raise ValueError(f"queue capacity {st.Q} exceeds the kernel's stack of {max_q}")

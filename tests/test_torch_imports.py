@@ -122,6 +122,34 @@ def test_sweep_wrappers_refuse_a_tensor_they_cannot_launch_on():
         sweep2g.sweep2g_nearest(acc2g, z3, z3, z1, z1)
 
 
+@pytest.mark.parametrize("kernel", ["nearest", "nearest_ri", "ri", "grouped", "sweep2g", "uber"])
+def test_launch_functions_refuse_cpu_tensors_outside_the_host_rehearsal(kernel):
+    """Well-formed CPU arguments must not reach a build or a launch: only the
+    host rehearsal's context lets a ``_launch_*`` function take them."""
+    from raytracing_tests_tpu_torch.kernels import sweep, sweep2g, uber
+
+    generic = kernel != "nearest_ri"
+    scene, cam = examples.bvh_grid_scene(side=2) if generic else examples.iow_final_scene(side=2)
+    mode = "generic" if generic else "spheres"
+    rays, pts = torch.zeros(8, 4), torch.zeros(4, 4)
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        if kernel == "nearest":
+            sweep._launch_nearest(sweep.make_accel(scene, mode, group=0).table, mode, rays)
+        elif kernel == "nearest_ri":
+            sweep._launch_nearest_ri(sweep.make_accel(scene, mode, group=0).table, rays)
+        elif kernel == "ri":
+            sweep._launch_ri(sweep.make_accel(scene, mode, group=0).table, mode, pts)
+        elif kernel == "grouped":
+            acc = sweep.make_accel(scene, mode, group=4)
+            sweep._launch_grouped(acc.table, acc.gaabb, rays, 4, False, mode)
+        elif kernel == "sweep2g":
+            sweep2g._launch_sweep2g(sweep2g.make_accel2g(scene, gr=8, has_motion=False), rays)
+        else:
+            cfg = RenderConfig(width=8, height=4, spp=1, intersector="pallas").for_scene(scene)
+            accel, cvec = uber._scene_accel(scene, cam, cfg, 8)
+            uber._launch_uber(accel, cvec, uber.UberStatics.from_cfg(cfg))
+
+
 def test_resolve_device_names_the_cpu_only_when_asked():
     assert resolve_device("cpu").type == "cpu"
     if not torch.cuda.is_available():
