@@ -5,15 +5,20 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``raytracing_tests_tpu_torch/csrc``, holds
-each kernel against its plain PyTorch version on the card, and drives both
-slices of the port: the sphere slice (the parity canary, persistent kernel vs
-queue renderer, and the headline frame, ``iow_final_scene()`` at 800x450x100
-depth 8 through ``render_uber``) and the generic slice (rotated ellipsoids and
-cuboids: two canaries and ``bvh_grid_scene(side=32)`` at 800x450x16 depth 8).
+each kernel against its plain PyTorch version on the card, and drives the
+three slices of the port: the sphere slice (the parity canary, persistent
+kernel vs queue renderer, and the headline frame, ``iow_final_scene()`` at
+800x450x100 depth 8 through ``render_uber``), the generic slice (rotated
+ellipsoids and cuboids: two canaries and ``bvh_grid_scene(side=32)`` at
+800x450x16 depth 8), and the third slice: the headline frame through the
+lane-aligned megakernel drain (``render_megalanes``, both schedules) and once
+through the work queue (``render_workqueue``), and motion blur
+(``motion_blur_scene()`` at 800x450x16 depth 8 through ``render_uber``, the
+sphere sweep and the drain, and a moving generic scene).
 It prints one JSON object per phase.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the exit code
 is non-zero and no result line is printed; without CUDA it fails at once.
-The whole script takes 75 s on one H100.
+The whole script takes about three minutes on one H100.
 
 Phases and their bars:
   3. sweep kernel vs plain, on three batches: 100 000 seeded rays on the
@@ -82,6 +87,28 @@ Phases and their bars:
  12. every kernel's time at the frame's shapes beside its bound; the bounds
      count the live rows a kernel tested, not the dead and padding rows it
      skipped.
+ 13. the chunked megakernel (``mega_step``) vs plain at the shapes the drain
+     gives it: the (16, 2^20) pools of the headline frame's first chunk at
+     iterations 0, 1 and the chunk's last (mostly inactive lanes), taken from
+     the drain itself; the same on the motion frame for the MOTION
+     instantiation.  Bars: ``MEGA_BARS``, with their reasons.
+ 14. the headline frame through ``render_megalanes``, ``schedule="natural"``
+     and ``"sorted"``, ``gr=64``: rays within 2 % of 91 994 750, image mean
+     within 1e-2 of 1.0021, zero dropped, the canary's envelope against the
+     ``render_uber`` frame of the same run, and exactly one launch of the
+     megakernel per iteration; then where a frame's time goes.
+ 15. the work queue: ``render_workqueue`` at 200x112x8 depth 6 against the
+     queue renderer given a full tree's budget (image atol 2e-5 on >= 99.5 %
+     of pixels, equal rays, zero dropped, one sweep launch per iteration), then
+     the headline frame once through it, held to the envelope.
+ 16. the motion frame through ``render_uber``: one launch of the persistent
+     kernel's MOTION instantiation, held against its plain version on every
+     primary (both builds, bars as in 4) and per pixel; the motion canary
+     against the queue renderer through the sweep's MOTION instantiation; that
+     sweep vs plain on the frame's 5 760 000 camera lanes and their children;
+     the frame through the drain (the megakernel's MOTION instantiation).
+ 17. a moving generic scene at the canary's size: the persistent kernel's
+     generic MOTION instantiation vs plain and vs the queue renderer.
 Launch counts are kept per driven path: set to 0 before a path and read after
 it (each canary, each frame); every kernel must be launched on at least one.
 """
@@ -89,6 +116,7 @@ it (each canary, each frame); every kernel must be launched on at least one.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -101,9 +129,10 @@ if not torch.cuda.is_available():
 
 import dataclasses  # noqa: E402
 
-from raytracing_tests_tpu_torch.kernels import _build, sweep, sweep2, sweep2g, uber  # noqa: E402
+from raytracing_tests_tpu_torch.kernels import _build, mega, sweep, sweep2, sweep2g, uber  # noqa: E402
+from raytracing_tests_tpu_torch.ops import megalanes, workqueue  # noqa: E402
 from raytracing_tests_tpu_torch.ops.render import (  # noqa: E402
-    RenderConfig, _build_accel, _lane_inputs, render_stats,
+    RenderConfig, _build_accel, _lane_inputs, finalize, render_stats,
 )
 from raytracing_tests_tpu_torch.scene import examples  # noqa: E402
 from raytracing_tests_tpu_torch.scene.types import ELLIPSOID, Camera, SceneBuilder  # noqa: E402
@@ -147,6 +176,7 @@ FLOPS_PER_SLAB_TEST = 26  # 6 sub-mul pairs, 10 min/max, 3 compares
 FLOPS_PER_NODE_SHADE = 220  # refine, probe point, mirror/refract, children
 FLOPS_PER_REFINE = 60  # the winner's own quadratic, hit point, normal
 FLOPS_PER_PROBE_ROW = 10  # containment test of one dielectric row
+FLOPS_PER_MOTION_TERMS = 20  # two more 3-dots and the omt terms of nb and c_q
 # Generic primitives (rotated ellipsoids and cuboids):
 FLOPS_PER_CENSUS_SPHERE_ROW = 20  # world-frame quadratic with a = 1
 FLOPS_PER_CENSUS_CUBOID_ROW = 48  # 2x2 rotation of o and d, 3 reciprocals, slab
@@ -155,6 +185,49 @@ FLOPS_PER_REFINE_G = 120  # both rotations, the winner's test, normal, local pos
 FLOPS_PER_PROBE_ROW_G = 30  # fused-frame 3x3 product and the containment test
 FLOPS_PER_CONTAINS_SPHERE = 14  # shifted centre, squared distance, compare
 FLOPS_PER_CONTAINS_GENERIC = 45  # shift, rotation, 3 divisions, compare
+
+
+# What ``ptxas -v`` gave the persistent kernel's static instantiations before
+# motion became a template parameter (sphere; generic): they must not change.
+PTXAS_STATIC = {
+    "uber_kernel<0,0>": dict(registers=80, stack=288, spill_stores=0, spill_loads=0),
+    "uber_kernel<1,0>": dict(registers=64, stack=400, spill_stores=148, spill_loads=164),
+}
+
+
+def kernel_of(mangled):
+    """'uber_kernel<0,1>' from a mangled entry name: the length-prefixed name
+    that ends in _kernel, and the values of its template arguments."""
+    for m in re.finditer(r"\d+", mangled):
+        digits = m.group()
+        for k in range(len(digits)):  # the digits of a hash may run into the length
+            n, at = int(digits[k:]), m.end()
+            name = mangled[at:at + n]
+            if n and name.endswith("_kernel") and name.isidentifier():
+                rest = re.match(r"I((?:L[bi]\d+E)+)E", mangled[at + n:])
+                args = ",".join(re.findall(r"L[bi](\d+)E", rest.group(1))) if rest else ""
+                return name + (f"<{args}>" if args else "")
+    return mangled
+
+
+def ptxas_by_kernel(log):
+    """``ptxas -v`` per library and kernel instantiation from the build log:
+    {"uber.so uber_kernel<0,1>": {registers, stack, spill_stores, spill_loads}}."""
+    out, lib, key = {}, "", None
+    for ln in log.splitlines():
+        if ln.startswith("== "):
+            lib = ln.strip("= ")
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            key = f"{lib} {kernel_of(m.group(1))}"
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and key:
+            out[key] = dict(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and key:
+            out.setdefault(key, {})["registers"] = int(m.group(1))
+    return out
 
 
 def size_of(frame):
@@ -632,6 +705,22 @@ def uber_g_vs_plain(camera_name, acc, cam, st, cfg):
     return k1, k1_precise, px_plain, plain_ms, plain_frame
 
 
+def timed_frames(render):
+    """One warm frame, then three timed -> (last frame, seconds, launch counts
+    of every frame, each counted from 0)."""
+    times, launches = [], []
+    for frame_no in range(4):
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = render()
+        torch.cuda.synchronize()
+        if frame_no:
+            times.append(time.perf_counter() - t0)
+        launches.append(dict(_build.LAUNCHES))
+    return out, times, launches
+
+
 def parity(ou, oq):
     """The canary's numbers: persistent kernel's frame against the queue
     renderer's."""
@@ -870,16 +959,8 @@ def generic_phases(dev, iow):
 
     # 11. the generic frame ------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
-    times, launches_frames = [], []
-    for frame_no in range(4):  # one warm frame, three timed
-        _build.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = uber.render_uber(scene, camera, cfg, gr=GR)
-        torch.cuda.synchronize()
-        if frame_no:
-            times.append(time.perf_counter() - t0)
-        launches_frames.append(dict(_build.LAUNCHES))
+    out, times, launches_frames = timed_frames(
+        lambda: uber.render_uber(scene, camera, cfg, gr=GR))
     img = out["image"]
     rays, dropped = int(out["rays"]), int(out["rays_dropped"])
     frame = dict(scene="bvh_grid_scene(side=32)", size=size_of(BVH1K),
@@ -1026,6 +1107,525 @@ def generic_phases(dev, iow):
     ]
 
 
+
+# ---------------------------------------------------------------------------
+# The third slice: the chunked megakernel, the lane-aligned drain, the work
+# queue, and motion blur
+# ---------------------------------------------------------------------------
+
+CHUNK = 1 << 20  # lanes per chunk of the lane-aligned drain on the headline
+MOTION = dict(width=800, height=450, spp=16, max_bounces=8)  # the motion frame
+# Bars of K6's default build against its plain version, on the lanes where both
+# name the same children (``MEGA_SAME`` of all lanes).  The -fmad=false build
+# must give the plain version's outputs on >= 99.9 % of lanes: the same
+# children and every float within 1e-6 (relative above 1).  Not bit for bit:
+# cosf and sinf are inlined from the device library and compiled with the
+# build's own flag, so at 100 spp (angles up to 237 rad) a few per cent of the
+# scatter cones turn by one ulp against PyTorch's own build of the same
+# functions; the phase prints the bitwise share too.  The default build
+# fuses a*b+c: the colour a node adds depends on its winner alone and is held
+# tightly; the hit distance is the refine's (grazing hits on 0.2-radius spheres
+# 13 to 40 units away lose it to cancellation, as in SWEEP_BARS, and a chunk's
+# last iterations hold a hundred rays that left the ground sphere at a grazing
+# angle and meet it again after a short, ill-conditioned t: rtol 1e-4 on
+# >= 95 %, within 2e-2 absolute on >= 99.9 %: a few lanes in a million name
+# another winner with the same children); a child's
+# origin carries the t difference and its direction that
+# over the radius, doubled by the mirror and turned by the scatter cone.
+MEGA_SAME = 0.999
+MEGA_BARS = dict(colour_1e5=0.999, t_1e4=0.95, t_2e2=0.999, origin_1e3=0.99, origin_5e2=0.999,
+                 dir_1e2=0.97, dir_5e2=0.99)
+
+
+def step_kw(cfg):
+    return dict(has_dielectrics=cfg.has_dielectrics, spp=cfg.spp, max_bounces=cfg.max_bounces,
+                t_max=cfg.t_max, bg=cfg.background)
+
+
+def capture_steps(accel, camera, cfg, chunk, wanted):
+    """Drain the first chunk of a frame through the lane-aligned drain and
+    keep the (pool, lane) pairs that ``mega_step`` was given at the iterations
+    in ``wanted`` -> ({iteration: (pool, lane)}, iterations of the chunk)."""
+    o, d, tr, _ = _lane_inputs(camera, cfg)
+    lane = torch.arange(chunk, dtype=torch.int32, device=o.device)
+    cur = megalanes._init_chunk(o[:chunk], d[:chunk], tr[:chunk], lane, cfg)
+    del o, d, tr
+    kept, calls = {}, [0]
+    real = megalanes.mega_step
+
+    def keeping(acc, pool, ln, **kw):
+        if calls[0] in wanted:
+            kept[calls[0]] = (pool.clone(), ln.clone())
+        calls[0] += 1
+        return real(acc, pool, ln, **kw)
+
+    megalanes.mega_step = keeping
+    try:
+        _, _, _, iters, _ = megalanes._drain_chunk(accel, cur, lane, cfg)
+    finally:
+        megalanes.mega_step = real
+    return kept, iters
+
+
+def compare_mega(accel, pool, lane, kw, want):
+    """K6 of the current build variant against the plain version's ``want``."""
+    got = mega.mega_step(accel, pool, lane, **kw)
+    torch.cuda.synchronize()
+    same = (got[3] == want[3]) & (got[4] == want[4])
+    ident, close = same.clone(), same.clone()
+    for g, w in zip(got[:3], want[:3]):
+        ident &= (g == w).all(dim=0)
+        close &= ((g - w).abs() <= 1e-6 * w.abs().clamp_min(1.0)).all(dim=0)
+    hit = same & (want[0][3] < kw["t_max"])
+    terr = (got[0][3] - want[0][3]).abs()[hit]
+    cerr = (got[0][:3] - want[0][:3]).abs().amax(dim=0)[same]
+    res = dict(same_children=frac(same), identical=frac(ident), within_1e6=frac(close),
+               active=frac(lane >= 0),
+               colour_within_1e5=frac(cerr <= 1e-5), colour_max_abs_err=float(cerr.max()),
+               t_within_rtol_1e4=frac(terr <= 1e-4 * want[0][3][hit]) if hit.any() else 1.0,
+               t_within_2e2=frac(terr <= 2e-2) if hit.any() else 1.0,
+               finite=bool(all(torch.isfinite(g).all() for g in got[:3])),
+               inactive_lanes_add_nothing=bool((got[0][:3, lane < 0] == 0).all()
+                                               and (got[3][lane < 0] == -1).all()
+                                               and (got[4][lane < 0] == -1).all()))
+    oerr, derr = [], []
+    for child, wchild, cl in ((got[1], want[1], want[3]), (got[2], want[2], want[4])):
+        sel = same & (cl >= 0)
+        oerr.append((child[0:3, sel] - wchild[0:3, sel]).abs().amax(dim=0))
+        derr.append((child[3:6, sel] - wchild[3:6, sel]).abs().amax(dim=0))
+    oerr, derr = torch.cat(oerr), torch.cat(derr)
+    if oerr.numel():
+        res.update(children=oerr.numel(), origin_within_1e3=frac(oerr <= 1e-3),
+                   origin_within_5e2=frac(oerr <= 5e-2),
+                   origin_max_abs_err=float(oerr.max()), dir_within_1e2=frac(derr <= 1e-2),
+                   dir_within_5e2=frac(derr <= 5e-2), dir_max_abs_err=float(derr.max()))
+    return res
+
+
+def check_mega(what, res, precise):
+    for r in (res, precise):
+        require(r["finite"] and r["inactive_lanes_add_nothing"], f"{what}: K6 output: {r}")
+    require(precise["within_1e6"] >= 0.999,
+            f"{what}: K6's -fmad=false build differs from the plain version: {precise}")
+    b = MEGA_BARS
+    require(res["same_children"] >= MEGA_SAME and res["colour_within_1e5"] >= b["colour_1e5"]
+            and res["t_within_rtol_1e4"] >= b["t_1e4"] and res["t_within_2e2"] >= b["t_2e2"],
+            f"{what}: K6 disagrees with the plain version: {res}")
+    if "children" in res:
+        require(res["origin_within_1e3"] >= b["origin_1e3"]
+                and res["origin_within_5e2"] >= b["origin_5e2"]
+                and res["dir_within_1e2"] >= b["dir_1e2"] and res["dir_within_5e2"] >= b["dir_5e2"],
+                f"{what}: K6's children disagree with the plain version's: {res}")
+
+
+def mega_bound(accel, C, stats):
+    """K6's bound for one step from its own counters: 11 floats read and 42
+    written per lane whatever it does; operations by what the lanes did."""
+    live, tests, hits, probes = (int(stats[i]) for i in range(4))
+    n_bytes = 4 * (11 + 42) * C + accel_bytes(accel)
+    n_flops = (tests * FLOPS_PER_SPHERE_TEST + live * accel.n_groups * FLOPS_PER_SLAB_TEST
+               + hits * FLOPS_PER_NODE_SHADE
+               + probes * accel.n_pgroups * sweep2.PROBE_GR * FLOPS_PER_PROBE_ROW)
+    t_b = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_f = n_flops / PEAK_FP32_FLOPS * 1e3
+    return dict(bound_ms=max(t_b, t_f), bound_by="bytes" if t_b >= t_f else "operations",
+                bytes_ms=t_b, operations_ms=t_f, live_lanes=live,
+                sphere_tests_per_live_lane=tests / max(live, 1), hits=hits, probed=probes)
+
+
+def mega_vs_plain(what, accel, camera, cfg, chunk):
+    """Phase 13 on one frame: K6 against its plain version on the first chunk's
+    pools at iterations 0, 1 and the chunk's last, taken from the drain itself;
+    both builds; each pool's time, bound and the plain version's time.
+    -> {iteration: numbers}."""
+    _, iters = capture_steps(accel, camera, cfg, chunk, set())
+    late = iters - 1
+    require(late > 1, f"{what}: the chunk ended after {iters} iterations")
+    pools, _ = capture_steps(accel, camera, cfg, chunk, {0, 1, late})
+    kw = step_kw(cfg)
+    out = {}
+    for it, (pool, lane) in pools.items():
+        plain_ms, want = timed_ms(lambda: mega.mega_step_plain(accel, pool, lane, **kw))
+        res = compare_mega(accel, pool, lane, kw, want)
+        with _build.precise():
+            precise = compare_mega(accel, pool, lane, kw, want)
+        stats = torch.zeros(mega.MS_LEN, dtype=torch.int64, device=pool.device)
+        mega.mega_step(accel, pool, lane, stats=stats, **kw)
+        ms = cuda_ms(lambda: mega.mega_step(accel, pool, lane, **kw), 10)
+        bnd = mega_bound(accel, pool.shape[1], stats)
+        say(phase="mega_vs_plain", frame=what, iteration=it, lanes=pool.shape[1],
+            default_build=res, precise_build=precise, ms=ms, plain_ms=plain_ms, **bnd)
+        check_mega(f"{what} iteration {it}", res, precise)
+        out[it] = dict(res=res, ms=ms, plain_ms=plain_ms, **bnd)
+    require(out[0]["res"]["active"] == 1.0 and out[late]["res"]["active"] < 0.5,
+            f"{what}: the pools' shares of active lanes: "
+            f"{[(i, o['res']['active']) for i, o in out.items()]}")
+    return out
+
+
+def device_ms_by_kernel(fn):
+    """Milliseconds the card spent in each kernel (and copy) during ``fn()``,
+    from ``torch.profiler``'s device trace; None where the trace is empty."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA}
+    return out if sum(out.values()) > 0 else None
+
+
+def megalanes_breakdown(scene, camera, cfg):
+    """Where a natural-schedule frame of the lane-aligned drain goes: K6 by
+    CUDA events around every step, the set-up and the epilogue by the host
+    clock, and, from a profiled frame, the card's time in K6, in the drain's
+    elementwise kernels and idle (waiting for the host)."""
+    events = []
+    real = megalanes.mega_step
+
+    def clocked(acc, pool, ln, **kw):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(acc, pool, ln, **kw)
+        b.record()
+        events.append((a, b))
+        return out
+
+    megalanes.mega_step = clocked
+    try:
+        frame_ms, out = timed_ms(lambda: megalanes.render_megalanes(
+            scene, camera, cfg, chunk=CHUNK, gr=GR, schedule="natural"))
+    finally:
+        megalanes.mega_step = real
+    k6 = [a.elapsed_time(b) for a, b in events]
+    accel_ms, accel = timed_ms(lambda: sweep2.make_accel2(
+        scene, gr=GR, has_motion=cfg.has_motion, probe_rows=cfg.probe_rows,
+        sort_origin=camera.position))
+    lanes_ms, lanes = timed_ms(lambda: _lane_inputs(camera, cfg))
+    del lanes
+    B = cfg.width * cfg.height * cfg.spp
+    rgb = torch.zeros((3, B), device=scene.device)
+    pt = torch.zeros((B,), device=scene.device)
+    post_ms, _ = timed_ms(lambda: finalize(
+        rgb.T.reshape(cfg.height, cfg.width, cfg.spp, 3),
+        pt.reshape(cfg.height, cfg.width, cfg.spp), cfg))
+    del rgb, pt
+    iters = out["iterations"]
+    chunks = -(-B // CHUNK)
+    by_kernel = device_ms_by_kernel(lambda: megalanes.render_megalanes(
+        scene, camera, cfg, chunk=CHUNK, gr=GR, schedule="natural"))
+    device = dict(device_trace="not measured")
+    if by_kernel is not None:
+        k6_dev = sum(v for k, v in by_kernel.items() if "mega_kernel" in k)
+        busy = sum(by_kernel.values())
+        device = dict(device_k6_ms=k6_dev, device_other_kernels_ms=busy - k6_dev,
+                      device_other_kernels_ms_per_iteration=(busy - k6_dev) / iters,
+                      device_busy_ms=busy, device_idle_share=max(0.0, 1.0 - busy / frame_ms))
+    return dict(frame_ms=frame_ms, iterations=iters, chunks=chunks, **device,
+                k6_ms_sum=sum(k6), k6_ms_per_step_mean=sum(k6) / len(k6),
+                k6_ms_per_step_max=max(k6), k6_ms_per_step_min=min(k6),
+                accel_build_ms=accel_ms, lane_inputs_ms=lanes_ms, epilogue_ms=post_ms,
+                drain_and_host_ms=frame_ms - sum(k6) - accel_ms - lanes_ms - post_ms,
+                drain_and_host_ms_per_iteration=(frame_ms - sum(k6) - accel_ms - lanes_ms
+                                                 - post_ms) / iters,
+                dead_share_of_lane_steps=1.0 - int(out["rays"]) / (iters * CHUNK)), accel
+
+
+def third_slice_phases(dev, ctx):
+    """Phases 13 to 17 -> the kernels-line entries of the third slice.
+    ``ctx``: the headline scene, camera, config, small config and the
+    persistent kernel's frame of this run."""
+    scene, camera, cfg, cfg_s, uber_frame = ctx
+    src = "raytracing_tests_tpu_torch/csrc/"
+    jax_src = "raytracing_tests_tpu/kernels/"
+
+    # 13. K6 against its plain version at the headline's chunk shapes ----------
+    accel_m = sweep2.make_accel2(scene, gr=GR, has_motion=cfg.has_motion,
+                                 probe_rows=cfg.probe_rows, sort_origin=camera.position)
+    require(not accel_m.has_motion and accel_m.otab.shape[1] == sweep2.OT_COLS,
+            "the headline's accel is static")
+    k6 = mega_vs_plain("headline", accel_m, camera, cfg, CHUNK)
+
+    # 14. the headline frame through the lane-aligned drain ---------------------
+    frames_ml = {}
+    for schedule in ("natural", "sorted"):
+        torch.cuda.reset_peak_memory_stats()
+        out, times, launches = timed_frames(lambda: megalanes.render_megalanes(
+            scene, camera, cfg, chunk=CHUNK, gr=GR, schedule=schedule))
+        env = parity(out, uber_frame)
+        rays = int(out["rays"])
+        frames_ml[schedule] = dict(
+            seconds_per_frame_min=min(times), seconds_per_frame_mean=sum(times) / len(times),
+            rays=rays, mrays_per_s=rays / min(times) / 1e6, iterations=out["iterations"],
+            image_mean=float(out["image"].mean()), launches_per_frame=launches,
+            peak_memory_bytes=torch.cuda.max_memory_allocated(), against_render_uber=env)
+        say(phase="megalanes_frame", schedule=schedule, size=size_of(HEADLINE), chunk=CHUNK,
+            **frames_ml[schedule])
+        require(abs(rays - SCENE_RAYS) / SCENE_RAYS < 0.02
+                and abs(frames_ml[schedule]["image_mean"] - SCENE_MEAN) < 1e-2,
+                f"megalanes frame ({schedule}): {frames_ml[schedule]}")
+        check_parity(f"megalanes frame ({schedule}) against render_uber", env)
+        for got in launches:
+            require(got == {"mega_step": out["iterations"]},
+                    f"a megalanes frame launches K6 once per iteration: {launches}")
+        del out
+    breakdown, _ = megalanes_breakdown(scene, camera, cfg)
+    say(phase="megalanes_breakdown", schedule="natural", **breakdown)
+
+    # 15. the work queue: canary against the queue renderer, then the headline --
+    _build.reset_launches()
+    ow = workqueue.render_workqueue(scene, camera, cfg_s)
+    launches_wq = dict(_build.LAUNCHES)
+    # The work queue walks every tree to its end; the queue renderer stops a
+    # lane after cfg.pops nodes (13 at depth 6), fewer than a tree of glass can
+    # hold.  So the reference is the queue renderer with the budget and the
+    # stack of a full tree; its count under the default budget is printed too.
+    oq = render_stats(scene, camera, dataclasses.replace(
+        cfg_s, max_pops=1 << cfg_s.max_bounces, queue_capacity=cfg_s.max_bounces + 2))
+    werr = (ow["image"] - oq["image"]).abs().amax(dim=-1)
+    wq = dict(pixels_within_2e5=frac(werr <= 2e-5), max_abs_err=float(werr.max()),
+              rays=int(ow["rays"]), queue_rays=int(oq["rays"]),
+              queue_rays_default_budget=int(render_stats(scene, camera, cfg_s)["rays"]),
+              queue_rays_dropped=int(oq["rays_dropped"]), iterations=ow["iterations"],
+              rays_dropped=int(ow["rays_dropped"]), launches=launches_wq,
+              depth_max_abs_err=float((ow["depth"] - oq["depth"]).abs().max()))
+    say(phase="workqueue_canary", size=size_of(SMALL), **wq)
+    require(wq["pixels_within_2e5"] >= 0.995 and wq["rays"] == wq["queue_rays"]
+            and wq["rays_dropped"] == 0 and launches_wq == {"sweep2": wq["iterations"]},
+            f"workqueue canary: {wq}")
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    wq_ms, ow = timed_ms(lambda: workqueue.render_workqueue(scene, camera, cfg))
+    launches_wq_frame = dict(_build.LAUNCHES)
+    env = parity(ow, uber_frame)
+    wq_frame = dict(seconds=wq_ms / 1e3, rays=int(ow["rays"]), iterations=ow["iterations"],
+                    mrays_per_s=int(ow["rays"]) / wq_ms / 1e3, launches=launches_wq_frame,
+                    image_mean=float(ow["image"].mean()),
+                    peak_memory_bytes=torch.cuda.max_memory_allocated(), against_render_uber=env)
+    by_kernel = device_ms_by_kernel(lambda: workqueue.render_workqueue(scene, camera, cfg))
+    if by_kernel is None:
+        wq_frame["device_trace"] = "not measured"
+    else:
+        k2_dev = sum(v for k, v in by_kernel.items() if "sweep2_kernel" in k)
+        busy = sum(by_kernel.values())
+        wq_frame.update(device_k2_ms=k2_dev, device_other_kernels_ms=busy - k2_dev,
+                        device_busy_ms=busy, device_idle_share=max(0.0, 1.0 - busy / wq_ms),
+                        kernel_kinds_launched=len(by_kernel))
+    say(phase="workqueue_frame", size=size_of(HEADLINE), **wq_frame)
+    check_parity("workqueue frame against render_uber", env)
+    require(launches_wq_frame == {"sweep2": ow["iterations"]},
+            f"a workqueue frame launches the sweep once per iteration: {launches_wq_frame}")
+    del ow, oq
+
+    # 16. the motion frame: K1 MOTION, K2 MOTION, K6 MOTION ---------------------
+    m_scene, m_camera = examples.motion_blur_scene()
+    m_scene, m_camera = m_scene.to(dev), m_camera.to(dev)
+    m_cfg = RenderConfig(intersector="pallas", **MOTION).for_scene(m_scene)
+    m_cfg_s = RenderConfig(intersector="pallas", **SMALL).for_scene(m_scene)
+    require(m_cfg.has_motion and m_cfg.pallas_mode == "spheres", f"motion scene: {m_cfg}")
+    m_out, m_times, m_launches = timed_frames(
+        lambda: uber.render_uber(m_scene, m_camera, m_cfg, gr=GR))
+    for got in m_launches:
+        require(got == {"uber_m": 1}, f"a motion frame is one launch of K1 MOTION: {m_launches}")
+    m_acc, m_cam = uber._scene_accel(m_scene, m_camera, m_cfg, 8)  # gr as render_uber clamps it
+    require(m_acc.has_motion and m_acc.otab.shape[1] == sweep2.OT_COLS_MOTION,
+            "the motion frame's accel carries the motion columns")
+    m_st = uber.UberStatics.from_cfg(m_cfg)
+    plain_ms_k1m, (out_p, stats_p) = timed_ms(lambda: uber.uber_render_plain(m_acc, m_cam, m_st))
+    k1m, got = compare_uber(m_acc, m_cam, m_st, out_p, stats_p)
+    img_k = uber._uber_post(*got, m_cfg)["image"]
+    with _build.precise():
+        k1m_precise, _ = compare_uber(m_acc, m_cam, m_st, out_p, stats_p)
+    px_m = compare_pixels(img_k, uber._uber_post(out_p, stats_p, m_cfg)["image"])
+    ms_k1m = cuda_ms(lambda: uber.uber_render(m_acc, m_cam, m_st), 5)
+    out_h, stats_h = uber.uber_render(m_acc, m_cam, m_st)
+    n_nodes, tests = int(stats_h[uber.ST_RAYS]), int(stats_h[uber.ST_SPHERE_TESTS])
+    k1m_bound, k1m_by = bound(
+        16 * m_st.B + accel_bytes(m_acc) + 4 * uber.CAM_LEN,
+        tests * (FLOPS_PER_SPHERE_TEST + FLOPS_PER_MOTION_TERMS)
+        + n_nodes * (m_acc.n_groups * FLOPS_PER_SLAB_TEST + FLOPS_PER_NODE_SHADE))
+    del out_p, got, out_h
+    m_frame = dict(seconds_per_frame_min=min(m_times),
+                   seconds_per_frame_mean=sum(m_times) / len(m_times), rays=int(m_out["rays"]),
+                   mrays_per_s=int(m_out["rays"]) / min(m_times) / 1e6,
+                   rays_dropped=int(m_out["rays_dropped"]),
+                   image_mean=float(m_out["image"].mean()), launches_per_frame=m_launches,
+                   kernel_ms=ms_k1m, sphere_tests_per_ray=tests / n_nodes)
+    say(phase="motion_frame", scene="motion_blur_scene()", size=size_of(MOTION), **m_frame,
+        rays_plain=int(stats_p[uber.ST_RAYS]), plain_seconds=plain_ms_k1m / 1e3,
+        default_build=k1m, precise_build=k1m_precise, pixels_default_vs_plain=px_m)
+    check_uber(size_of(MOTION) + " motion", int(stats_p[uber.ST_DROPPED]), k1m, k1m_precise)
+    require(px_m["within_1e2"] >= 0.99 and px_m["mean_abs_err"] < 1e-3,
+            f"motion frame of the default build is off per pixel: {px_m}")
+    require(m_frame["rays_dropped"] == 0 and bool(torch.isfinite(m_out["image"]).all())
+            and abs(m_frame["rays"] - int(stats_p[uber.ST_RAYS])) / m_frame["rays"] < 5e-3,
+            f"motion frame: {m_frame}")
+
+    # the motion canary: K1 MOTION against the queue renderer through K2 MOTION
+    _build.reset_launches()
+    ou = uber.render_uber(m_scene, m_camera, m_cfg_s, gr=GR)
+    oq = render_stats(m_scene, m_camera, m_cfg_s)
+    launches_mc = dict(_build.LAUNCHES)
+    mc = parity(ou, oq)
+    say(phase="motion_canary", size=size_of(SMALL), launches=launches_mc, **mc)
+    check_parity("motion canary", mc)
+    require(launches_mc.get("uber_m") == 1 and launches_mc.get("sweep2_m", 0) > 0
+            and set(launches_mc) == {"uber_m", "sweep2_m"},
+            f"the motion canary's launches: {launches_mc}")
+
+    # K2 MOTION against its plain version on the frame's camera lanes and their
+    # children, on the queue renderer's own accel
+    acc_q = _build_accel(m_scene, m_cfg)
+    lo, ld, ltr, _ = _lane_inputs(m_camera, m_cfg)
+    lanes = sweep2.pack_rays(lo, ld, ltr, torch.full_like(ltr, m_cfg.t_max))
+    del lo, ld, ltr
+    k2m = {}
+    for batch, rr in dict(motion_lanes=lanes,
+                          motion_second_pop=second_generation(acc_q, lanes)).items():
+        res = compare_sweep(acc_q, rr)
+        with _build.precise():
+            precise = compare_sweep(acc_q, rr)
+        say(phase="sweep2_motion_vs_plain", batch=batch, rays=rr.shape[1],
+            default_build=res, precise_build=precise)
+        check_sweep("random", res, precise)  # nothing far or grazing here: the tight bars
+        k2m[batch] = res["hit_block"]
+    plain_ms_k2m = cuda_ms(lambda: sweep2.sweep2_plain(acc_q, lanes, True, True), 1)
+    tests_q = torch.zeros(1, dtype=torch.int64, device=dev)
+    _, obj_q, _ = sweep2._sweep2(acc_q, lanes, True, True, stats=tests_q)
+    ms_k2m = cuda_ms(lambda: sweep2._sweep2(acc_q, lanes, True, True), 10)
+    Bq = lanes.shape[1]
+    k2m_bound, k2m_by = bound(
+        4 * Bq * (8 + 1 + 1 + sweep2.V_ROWS) + accel_bytes(acc_q),
+        int(tests_q) * (FLOPS_PER_SPHERE_TEST + FLOPS_PER_MOTION_TERMS)
+        + Bq * acc_q.n_groups * FLOPS_PER_SLAB_TEST + int((obj_q >= 0).sum()) * FLOPS_PER_REFINE)
+
+    # K6 MOTION against its plain version on a chunk of the motion frame, and
+    # the motion frame through the lane-aligned drain
+    acc_mm = sweep2.make_accel2(m_scene, gr=GR, has_motion=True, probe_rows=m_cfg.probe_rows,
+                                sort_origin=m_camera.position)
+    k6m = mega_vs_plain("motion", acc_mm, m_camera, m_cfg, CHUNK)
+    _build.reset_launches()
+    ml_ms, om = timed_ms(lambda: megalanes.render_megalanes(
+        m_scene, m_camera, m_cfg, chunk=CHUNK, gr=GR, schedule="sorted"))
+    launches_mm = dict(_build.LAUNCHES)
+    env = parity(om, m_out)
+    say(phase="megalanes_motion_frame", size=size_of(MOTION), seconds=ml_ms / 1e3,
+        rays=int(om["rays"]), iterations=om["iterations"], launches=launches_mm,
+        against_render_uber=env)
+    check_parity("megalanes motion frame against render_uber", env)
+    require(launches_mm == {"mega_step_m": om["iterations"]},
+            f"the motion frame through the drain launches K6 MOTION: {launches_mm}")
+    del om, lanes
+
+    # 17. a moving generic scene: uber_kernel<generic, motion> -------------------
+    g_scene, g_camera = examples.groups_scene()
+    dp = torch.zeros_like(g_scene.delta_position)
+    dp[1] = torch.tensor([0.3, 0.0, 0.0])  # the sphere
+    dp[2] = torch.tensor([0.0, 0.25, 0.1])  # the rotated ellipsoid
+    dp[3] = torch.tensor([-0.2, 0.0, 0.0])  # the rotated box
+    g_scene, g_camera = g_scene.replace(delta_position=dp).to(dev), g_camera.to(dev)
+    g_cfg = RenderConfig(intersector="pallas", **SMALL).for_scene(g_scene)
+    require(g_cfg.pallas_mode == "generic" and g_cfg.has_motion, f"moving generic scene: {g_cfg}")
+    _build.reset_launches()
+    ou = uber.render_uber(g_scene, g_camera, g_cfg, gr=GR)
+    oq = render_stats(g_scene, g_camera, g_cfg)
+    launches_gm = dict(_build.LAUNCHES)
+    gm = parity(ou, oq)
+    g_acc, g_cam = uber._scene_accel(g_scene, g_camera, g_cfg, 8)
+    g_st = uber.UberStatics.from_cfg(g_cfg)
+    plain_ms_gm, (out_p, stats_p) = timed_ms(lambda: uber.uber_render_plain(g_acc, g_cam, g_st))
+    k1gm, got = compare_uber(g_acc, g_cam, g_st, out_p, stats_p)
+    with _build.precise():
+        k1gm_precise, _ = compare_uber(g_acc, g_cam, g_st, out_p, stats_p)
+    px_gm = compare_pixels(uber._uber_post(*got, g_cfg)["image"],
+                           uber._uber_post(out_p, stats_p, g_cfg)["image"])
+    ms_gm = cuda_ms(lambda: uber.uber_render(g_acc, g_cam, g_st), 10)
+    _, stats_h = uber.uber_render(g_acc, g_cam, g_st)
+    gm_bound, gm_by = bound(
+        16 * g_st.B + accel_bytes(g_acc) + 4 * uber.CAM_LEN,
+        int(stats_h[uber.ST_SPHERE_TESTS]) * FLOPS_PER_CENSUS_SPHERE_ROW
+        + int(stats_h[uber.ST_OTHER_TESTS]) * FLOPS_PER_GENERIC_ROW
+        + int(stats_h[uber.ST_SLAB_TESTS]) * FLOPS_PER_SLAB_TEST
+        + int(stats_h[uber.ST_HITS]) * FLOPS_PER_REFINE_G
+        + int(stats_h[uber.ST_RAYS]) * FLOPS_PER_NODE_SHADE)
+    say(phase="moving_generic_canary", scene="groups_scene() with three objects in motion",
+        size=size_of(SMALL), launches=launches_gm, **gm, default_build=k1gm,
+        precise_build=k1gm_precise, pixels_default_vs_plain=px_gm)
+    check_parity("moving generic canary", gm)
+    check_uber_g(size_of(SMALL) + " moving generic", int(stats_p[uber.ST_DROPPED]),
+                 k1gm, k1gm_precise)
+    require(launches_gm.get("uber_g_m") == 1 and launches_gm.get("sweep_grouped", 0) > 0
+            and set(launches_gm) == {"uber_g_m", "sweep_grouped"},
+            f"the moving generic canary's launches: {launches_gm}")
+
+    # the kernels line's entries ------------------------------------------------
+    paths = dict(megalanes_frame=frames_ml["natural"]["launches_per_frame"][-1],
+                 megalanes_frame_sorted=frames_ml["sorted"]["launches_per_frame"][-1],
+                 workqueue_canary=launches_wq, workqueue_frame=launches_wq_frame,
+                 motion_frame=m_launches[-1], motion_canary=launches_mc,
+                 megalanes_motion_frame=launches_mm, moving_generic_canary=launches_gm)
+    by_path = lambda name: {p: got.get(name, 0) for p, got in paths.items()}
+    tol_k6 = (f"same children as the plain version on >= {MEGA_SAME} of lanes; there: colour "
+              f"within 1e-5 on >= {MEGA_BARS['colour_1e5']}, hit t rtol 1e-4 on >= "
+              f"{MEGA_BARS['t_1e4']}, child origins within 1e-3 on >= {MEGA_BARS['origin_1e3']}; "
+              "the -fmad=false build within 1e-6 on >= 99.9 % of lanes")
+
+    def k6_entry(name, launches, res, shape):
+        first = res[0]
+        return dict(name=name, route="cuda", source=src + "mega.cu",
+                    replaces=jax_src + "mega.py:666", launches=launches,
+                    launches_by_path=by_path(name), max_abs_err=first["res"]["colour_max_abs_err"],
+                    tolerance=tol_k6, frac_within_tolerance=first["res"]["same_children"],
+                    ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+                    bound_by=first["bound_by"], library_ms=None, shape=shape,
+                    by_iteration={str(i): dict(ms=r["ms"], bound_ms=r["bound_ms"],
+                                               bound_by=r["bound_by"], bytes_ms=r["bytes_ms"],
+                                               operations_ms=r["operations_ms"],
+                                               active=r["res"]["active"])
+                                  for i, r in res.items()})
+
+    tol_k1 = ("per sample as the static instantiations: primary t rtol 1e-4 on >= 99.9 %, colours "
+              "within 1e-4 on >= 85 % and 5e-2 on >= 97 %, channel means within 5e-3, ray count "
+              "within 0.5 %; the -fmad=false build within 1e-4 on >= 99.9 %")
+    return [
+        k6_entry("mega_step", frames_ml["natural"]["launches_per_frame"][-1]["mega_step"], k6,
+                 f"{CHUNK} lanes, the headline's first chunk at iteration 0"),
+        k6_entry("mega_step_m", launches_mm["mega_step_m"], k6m,
+                 f"{CHUNK} lanes, the motion frame's first chunk at iteration 0"),
+        dict(name="uber_render_motion", route="cuda", source=src + "uber.cu",
+             replaces=jax_src + "uber.py:874", launches=m_launches[-1]["uber_m"],
+             launches_by_path=by_path("uber_m"), max_abs_err=px_m["max_abs_err"],
+             tolerance=tol_k1, frac_within_tolerance=k1m["colour_within_5e2"],
+             per_sample_frac_within_1e4=k1m["colour_within_1e4"],
+             per_sample_frac_within_1e4_precise_build=k1m_precise["colour_within_1e4"],
+             ms=ms_k1m, plain_ms=plain_ms_k1m, bound_ms=k1m_bound, bound_by=k1m_by,
+             library_ms=None, shape=size_of(MOTION) + ", 3 spheres, gr=8"),
+        dict(name="uber_render_generic_motion", route="cuda", source=src + "uber.cu",
+             replaces=jax_src + "uber.py:874", launches=launches_gm["uber_g_m"],
+             launches_by_path=by_path("uber_g_m"), max_abs_err=px_gm["max_abs_err"],
+             tolerance=tol_k1, frac_within_tolerance=k1gm["colour_within_5e2"],
+             per_sample_frac_within_1e4=k1gm["colour_within_1e4"],
+             per_sample_frac_within_1e4_precise_build=k1gm_precise["colour_within_1e4"],
+             ms=ms_gm, plain_ms=plain_ms_gm, bound_ms=gm_bound, bound_by=gm_by,
+             library_ms=None, shape=size_of(SMALL) + ", 4 objects, three in motion"),
+        dict(name="sweep2_motion", route="cuda", source=src + "sweep2.cu",
+             replaces=jax_src + "sweep2.py:955", launches=launches_mc["sweep2_m"],
+             launches_by_path=by_path("sweep2_m"),
+             max_abs_err=max(k2m["motion_lanes"]["fields_max_abs_err"],
+                             k2m["motion_lanes"]["normal_max_abs_err"]),
+             tolerance="on the motion frame's camera lanes: same winner on >= 99.9 % of rays, "
+                       "refined t rtol 1e-4 on >= 99 %, material fields within 1e-5 and "
+                       "surrounding RI equal on >= 99.9 %, normals within 1e-3 on >= 99 %",
+             frac_within_tolerance=min(k2m["motion_lanes"]["fields_within_1e5"],
+                                       k2m["motion_lanes"]["ri_equal"],
+                                       k2m["motion_lanes"]["normal_within_1e2"],
+                                       k2m["motion_lanes"]["t_within_rtol_1e4"]),
+             ms=ms_k2m, plain_ms=plain_ms_k2m, bound_ms=k2m_bound, bound_by=k2m_by,
+             library_ms=None, shape=f"{Bq} rays, hit block + RI, 3 spheres"),
+    ], by_path("sweep2")
+
+
 def main():
     dev = torch.device("cuda", 0)
 
@@ -1038,9 +1638,10 @@ def main():
 
     # 2. build ----------------------------------------------------------------
     info = _build.build(with_precise=True)
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    say(phase="build", seconds=info["seconds"], built=info["built"], ptxas=ptxas)
+    ptxas = ptxas_by_kernel(info["log"])
+    say(phase="build", seconds=info["seconds"], built=info["built"], ptxas=ptxas,
+        static_instantiations_as_before={
+            k: ptxas.get(f"uber.so {k}") == v for k, v in PTXAS_STATIC.items()})
 
     scene, camera = examples.iow_final_scene()
     scene, camera = scene.to(dev), camera.to(dev)
@@ -1142,16 +1743,8 @@ def main():
 
     # 6. the headline frame -------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
-    times, launches_frames = [], []
-    for frame_no in range(4):  # one warm frame, three timed
-        _build.reset_launches()  # every frame carries its own counts
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = uber.render_uber(scene, camera, cfg, gr=GR)
-        torch.cuda.synchronize()
-        if frame_no:
-            times.append(time.perf_counter() - t0)
-        launches_frames.append(dict(_build.LAUNCHES))
+    out, times, launches_frames = timed_frames(
+        lambda: uber.render_uber(scene, camera, cfg, gr=GR))
     img = out["image"]
     rays, dropped = int(out["rays"]), int(out["rays_dropped"])
     frame = dict(size=size_of(HEADLINE),
@@ -1248,6 +1841,9 @@ def main():
              library_ms=None, shape=f"{Bq} rays, hit block + RI"),
     ]
     kernels += generic_phases(dev, (scene, camera, cfg_s, lanes))
+    third, sweep2_by_path = third_slice_phases(dev, (scene, camera, cfg, cfg_s, out))
+    kernels += third
+    kernels[1]["launches_by_path"].update(sweep2_by_path)  # K2 static: the work queue's paths
     for k in kernels:
         require(max(k["launches_by_path"].values()) > 0 and k["launches"] > 0,
                 f"kernel {k['name']} was launched on no driven path: {k['launches_by_path']}")

@@ -60,9 +60,11 @@ def camera_to_numpy(camera: Camera) -> dict:
     return _to_numpy(camera, CAMERA_FIELDS)
 
 
-def accel2_from_numpy(otab, ftab, gaabb, perm, gr: int, device="cpu") -> sweep2.Accel2:
+def accel2_from_numpy(otab, ftab, gaabb, perm, gr: int, device="cpu",
+                      has_motion: bool = False) -> sweep2.Accel2:
     """Re-lay a sphere accel given in the JAX package's layout (see module
-    docstring) into an ``Accel2``.  Motion columns must be zero."""
+    docstring) into an ``Accel2``.  Without ``has_motion`` the motion delta
+    must be zero; with it the accel carries the motion columns."""
     otab = np.asarray(otab, np.float32)
     ftab = np.asarray(ftab, np.float32)
     gaabb = np.asarray(gaabb, np.float32)
@@ -74,9 +76,14 @@ def accel2_from_numpy(otab, ftab, gaabb, perm, gr: int, device="cpu") -> sweep2.
     if n_probe % sweep2.PROBE_GR or gaabb.shape[0] != G + n_probe // sweep2.PROBE_GR:
         raise ValueError("otab / gaabb row counts do not match the probe grouping")
     dp, k2, k3 = _SRC_OT_MOTION
-    if otab[:, dp].any() or otab[:, k2].any() or otab[:, k3].any():
-        raise NotImplementedError("motion blur is not ported yet")
-    o = np.zeros((otab.shape[0], sweep2.OT_COLS), np.float32)
+    if not has_motion and otab[:, dp].any():
+        raise ValueError("the tables carry motion: pass has_motion=True")
+    o = np.zeros((otab.shape[0], sweep2.OT_COLS_MOTION if has_motion else sweep2.OT_COLS),
+                 np.float32)
+    o[:, sweep2.OT_K2] = otab[:, k2]
+    o[:, sweep2.OT_K3] = otab[:, k3]
+    if has_motion:
+        o[:, sweep2.OT_DPX:sweep2.OT_DPZ + 1] = otab[:, dp]
     o[:, sweep2.OT_CX:sweep2.OT_CZ + 1] = otab[:, _SRC_OT["c"]]
     o[:, sweep2.OT_K1] = otab[:, _SRC_OT["k1"]]
     o[:, sweep2.OT_RI] = otab[:, _SRC_OT["ri"]]
@@ -89,7 +96,7 @@ def accel2_from_numpy(otab, ftab, gaabb, perm, gr: int, device="cpu") -> sweep2.
     return sweep2.Accel2(
         otab=t(o), ftab=t(f), gaabb=t(g),
         perm=t(np.asarray(perm, np.int32)), gr=gr,
-        n_pgroups=n_probe // sweep2.PROBE_GR)
+        n_pgroups=n_probe // sweep2.PROBE_GR, has_motion=bool(has_motion))
 
 
 # Column indices of the JAX package's generic (Np, 128) object table.

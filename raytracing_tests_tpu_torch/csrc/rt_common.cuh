@@ -5,9 +5,14 @@
 // scalar per-thread code.
 //
 // Table layouts (row-major float32, built by kernels/sweep2.py::make_accel2):
-//   otab  (n_pad + n_probe_rows, 8): cx cy cz k1 | ri rinv2 0 0
+//   otab  (n_pad + n_probe_rows, 8): cx cy cz k1 | ri rinv2 k2 k3
 //         centres are relative to the row's GROUP ANCHOR, k1 = |c|^2 - r^2
 //         (3e38 on dead rows, which kills both the quadratic and containment)
+//         a moving accel's rows are 12 wide: ... | dpx dpy dpz 0, with
+//         k2 = 2 c.dp and k3 = |dp|^2; the centre at a ray's time is
+//         c - omt * dp, omt = 1 - time_ratio.  MOTION picks the row width and
+//         the motion terms at compile time, so the static instantiations carry
+//         neither.
 //   ftab  (n_pad, 20): the winner's material row, columns FT_* below
 //   gaabb (n_groups + n_pgroups, 12): lo xyz, hi xyz, anchor xyz, 0 0 0
 // The main rows come first; the dielectric-only probe rows / probe groups
@@ -33,6 +38,7 @@ namespace rt {
 
 constexpr float BIG_T = 3.0e38f;
 constexpr int OT_COLS = 8;
+constexpr int OT_COLS_MOTION = 12;
 constexpr int FT_COLS = 20;
 constexpr int GA_COLS = 12;
 
@@ -68,10 +74,12 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 // lower row.  Returns obj = -1 (and t_best = min(BIG_T, tlim)) on a miss or a
 // dead ray.  `tests` is increased by the number of sphere quadratics solved
 // (the data-dependent work, for the roofline bound).
+template <bool MOTION>
 __device__ __forceinline__ void nearest_hit(
     const Tables& T, float ox, float oy, float oz, float dx, float dy,
-    float dz, bool live, float tlim, float& t_best, int& obj,
+    float dz, float omt, bool live, float tlim, float& t_best, int& obj,
     unsigned& tests) {
+  constexpr int COLS = MOTION ? OT_COLS_MOTION : OT_COLS;
   t_best = fminf(BIG_T, tlim);
   obj = -1;
   if (!live) return;
@@ -96,13 +104,21 @@ __device__ __forceinline__ void nearest_hit(
     const float oo = sx * sx + sy * sy + sz * sz;
     const int row0 = g * T.gr;
     tests += (unsigned)T.gr;
-    const float* rows = T.otab + (size_t)row0 * OT_COLS;
+    const float* rows = T.otab + (size_t)row0 * COLS;
     for (int r = 0; r < T.gr; ++r) {
-      const float4 c = ld4(rows + r * OT_COLS);  // cx cy cz k1
+      const float4 c = ld4(rows + r * COLS);  // cx cy cz k1
       const float DC = c.x * dx + c.y * dy + c.z * dz;
       const float OC = c.x * sx + c.y * sy + c.z * sz;
-      const float nb = DC - od;  // = -half_b
-      const float c_q = oo + c.w - 2.0f * OC;
+      float nb = DC - od;  // = -half_b
+      float c_q = oo + c.w - 2.0f * OC;
+      if (MOTION) {
+        const float4 k = ld4(rows + r * COLS + 4);  // ri rinv2 k2 k3
+        const float4 m = ld4(rows + r * COLS + 8);  // dpx dpy dpz 0
+        const float DDP = m.x * dx + m.y * dy + m.z * dz;
+        const float ODP = m.x * sx + m.y * sy + m.z * sz;
+        nb = nb - omt * DDP;
+        c_q = c_q + omt * (2.0f * ODP - k.z) + (omt * omt) * k.w;
+      }
       const float disc = nb * nb - c_q;
       if (disc > 0.0f) {
         const float sq = sqrtf(disc);
@@ -125,10 +141,16 @@ struct Refined {
 // derive the hit point and outward normal.  The group-anchored sweep t carries
 // an absolute error larger than the 1e-4 surface offset children spawn from.
 // `row` is the winner's ftab row; on a miss pass a zero row and hit = false.
+template <bool MOTION>
 __device__ __forceinline__ Refined winner_refine(
     const float* row, float ox, float oy, float oz, float dx, float dy,
-    float dz, float t_best, bool hit) {
-  const float cex = row[FT_CX], cey = row[FT_CY], cez = row[FT_CZ];
+    float dz, float omt, float t_best, bool hit) {
+  float cex = row[FT_CX], cey = row[FT_CY], cez = row[FT_CZ];
+  if (MOTION) {
+    cex = cex - omt * row[FT_DPX];
+    cey = cey - omt * row[FT_DPY];
+    cez = cez - omt * row[FT_DPZ];
+  }
   const float rex = ox - cex, rey = oy - cey, rez = oz - cez;
   const float hb = rex * dx + rey * dy + rez * dz;
   const float cq = rex * rex + rey * rey + rez * rez - row[FT_R2];
@@ -153,10 +175,12 @@ __device__ __forceinline__ Refined winner_refine(
 // Surrounding refractive index at point q: mean RI of the containing
 // dielectric spheres (sum > 1), else 1.  Loops the trailing probe sub-table;
 // same anchored expansion as the sweep (r^2 cancels: inside <=> lhs <= 0).
+template <bool MOTION>
 __device__ __forceinline__ float ri_probe(const Tables& T, float qx, float qy,
-                                          float qz) {
+                                          float qz, float omt) {
+  constexpr int COLS = MOTION ? OT_COLS_MOTION : OT_COLS;
   float acc = 0.0f, cnt = 0.0f;
-  const float* rows = T.otab + (size_t)T.n_groups * T.gr * OT_COLS;
+  const float* rows = T.otab + (size_t)T.n_groups * T.gr * COLS;
   for (int g = 0; g < T.n_pgroups; ++g) {
     const float* ga = T.gaabb + (T.n_groups + g) * GA_COLS;
     const float ux = qx - __ldg(ga + 6);
@@ -164,10 +188,16 @@ __device__ __forceinline__ float ri_probe(const Tables& T, float qx, float qy,
     const float uz = qz - __ldg(ga + 8);
     const float qq = ux * ux + uy * uy + uz * uz;
     for (int r = 0; r < T.probe_gr; ++r) {
-      const float* row = rows + (size_t)(g * T.probe_gr + r) * OT_COLS;
+      const float* row = rows + (size_t)(g * T.probe_gr + r) * COLS;
       const float4 c = ld4(row);
       const float QC = c.x * ux + c.y * uy + c.z * uz;
-      const float lhs = qq + c.w - 2.0f * QC;
+      float lhs = qq + c.w - 2.0f * QC;
+      if (MOTION) {
+        const float4 k = ld4(row + 4);  // ri rinv2 k2 k3
+        const float4 m = ld4(row + 8);  // dpx dpy dpz 0
+        const float QDP = m.x * ux + m.y * uy + m.z * uz;
+        lhs = lhs + omt * (2.0f * QDP - k.z) + (omt * omt) * k.w;
+      }
       if (lhs <= 0.0f) {
         acc += __ldg(row + 4);
         cnt += 1.0f;
@@ -398,10 +428,17 @@ struct RefinedG {
 // Re-solve the winner from its ftab row in the dense intersector's form
 // (rotate by R^T, divide by scale, both primitive tests selected by type) and
 // derive the hit point, the world normal and the unit-space hit position.
+template <bool MOTION>
 __device__ __forceinline__ RefinedG winner_refine_g(
     const float* row, float ox, float oy, float oz, float dx, float dy,
-    float dz, float t_best, bool hit) {
-  const float rex = ox - row[FT_CX], rey = oy - row[FT_CY], rez = oz - row[FT_CZ];
+    float dz, float omt, float t_best, bool hit) {
+  float cex = row[FT_CX], cey = row[FT_CY], cez = row[FT_CZ];
+  if (MOTION) {
+    cex = cex - omt * row[FT_DPX];
+    cey = cey - omt * row[FT_DPY];
+    cez = cez - omt * row[FT_DPZ];
+  }
+  const float rex = ox - cex, rey = oy - cey, rez = oz - cez;
   const float* r = row + GFT_R00;
   const float lox = r[0] * rex + r[3] * rey + r[6] * rez;
   const float loy = r[1] * rex + r[4] * rey + r[7] * rez;
@@ -462,8 +499,9 @@ __device__ __forceinline__ RefinedG winner_refine_g(
 
 // Surrounding refractive index at point q over the trailing probe rows of the
 // generic otab: point-in-primitive in the fused unit space e = M (q - c).
+template <bool MOTION>
 __device__ __forceinline__ float ri_probe_g(const Tables& T, float qx, float qy,
-                                            float qz) {
+                                            float qz, float omt) {
   float acc = 0.0f, cnt = 0.0f;
   const float* rows = T.otab + (size_t)T.n_groups * T.gr * GO_COLS;
   const int n_rows = T.n_pgroups * T.probe_gr;
@@ -471,7 +509,12 @@ __device__ __forceinline__ float ri_probe_g(const Tables& T, float qx, float qy,
     const float* row = rows + (size_t)i * GO_COLS;
     const float4 p = ld4(row);  // px py pz type
     if (!(__ldg(row + GO_VALID) > 0.0f)) continue;
-    const float rx = qx - p.x, ry = qy - p.y, rz = qz - p.z;
+    float rx = qx - p.x, ry = qy - p.y, rz = qz - p.z;
+    if (MOTION) {
+      rx = rx + omt * __ldg(row + GO_DPX);
+      ry = ry + omt * __ldg(row + GO_DPY);
+      rz = rz + omt * __ldg(row + GO_DPZ);
+    }
     const float* m = row + GO_M00;
     const float ex = __ldg(m) * rx + __ldg(m + 1) * ry + __ldg(m + 2) * rz;
     const float ey = __ldg(m + 3) * rx + __ldg(m + 4) * ry + __ldg(m + 5) * rz;
@@ -532,6 +575,7 @@ struct Shade {
   float add_r, add_g, add_b, hit_t;
   Child refr, refl;
   bool spawn_refr, spawn_refl;
+  bool probed;  // the surrounding RI was probed (measurement only)
 };
 
 struct ShadeStatics {
@@ -544,11 +588,12 @@ struct ShadeStatics {
 // winner, probe the surrounding RI where a refraction consumes it, add
 // contrib_post * albedo, and build the refract / reflect children.  GENERIC
 // picks the tables' layout and the refine and probe of rotated ellipsoids and
-// cuboids at compile time; everything after them is shared.
-template <bool GENERIC>
+// cuboids at compile time, MOTION the moving centres of both; everything after
+// them is shared.
+template <bool GENERIC, bool MOTION>
 __device__ __forceinline__ Shade shade_hit(
     const Tables& T, const ShadeStatics& S, int obj, float t_sweep, float ox,
-    float oy, float oz, float dx, float dy, float dz, float contrib,
+    float oy, float oz, float dx, float dy, float dz, float omt, float contrib,
     float bounced, float sidx, float cth, float sth) {
   constexpr int COLS = GENERIC ? GFT_COLS : FT_COLS;
   const float* row = T.ftab + (size_t)obj * COLS;
@@ -563,7 +608,8 @@ __device__ __forceinline__ Shade shade_hit(
   }
   Refined R;
   if constexpr (GENERIC) {
-    const RefinedG G = winner_refine_g(rowv, ox, oy, oz, dx, dy, dz, t_sweep, true);
+    const RefinedG G =
+        winner_refine_g<MOTION>(rowv, ox, oy, oz, dx, dy, dz, omt, t_sweep, true);
     R.t = G.t;
     R.px = G.px;
     R.py = G.py;
@@ -572,7 +618,7 @@ __device__ __forceinline__ Shade shade_hit(
     R.ny = G.ny;
     R.nz = G.nz;
   } else {
-    R = winner_refine(rowv, ox, oy, oz, dx, dy, dz, t_sweep, true);
+    R = winner_refine<MOTION>(rowv, ox, oy, oz, dx, dy, dz, omt, t_sweep, true);
   }
   const float nx = R.nx, ny = R.ny, nz = R.nz;
   const float mat_ri = rowv[FT_MRI], refrv = rowv[FT_REFR];
@@ -584,13 +630,15 @@ __device__ __forceinline__ Shade shade_hit(
 
   // Only dielectric winners and interior hits consume the surrounding RI.
   float sur_ri = 1.0f;
-  if (S.has_dielectrics && T.n_pgroups > 0 && (inner || refrv > 0.002f)) {
+  const bool probe =
+      S.has_dielectrics && T.n_pgroups > 0 && (inner || refrv > 0.002f);
+  if (probe) {
     const float qx = R.px + 1e-3f * nx, qy = R.py + 1e-3f * ny;
     const float qz = R.pz + 1e-3f * nz;
     if constexpr (GENERIC)
-      sur_ri = ri_probe_g(T, qx, qy, qz);
+      sur_ri = ri_probe_g<MOTION>(T, qx, qy, qz, omt);
     else
-      sur_ri = ri_probe(T, qx, qy, qz);
+      sur_ri = ri_probe<MOTION>(T, qx, qy, qz, omt);
   }
 
   const float bounced1 = bounced + 1.0f;
@@ -603,6 +651,7 @@ __device__ __forceinline__ Shade shade_hit(
   const float mrz = dz - 2.0f * ndotd * nz;
 
   Shade out;
+  out.probed = probe;
   float cdx, cdy, cdz, clx, cly, clz;
   if (inner) {
     // Flip the normal, eta = mat/sur; total internal reflection mirrors.

@@ -14,10 +14,15 @@
 // broadcast load per row.  The TPU version's one-hot matrix gather, bf16 table
 // splits and packed (t, id) key have no counterpart: the winner's row is an
 // indexed load.
+//
+// Two instantiations: static scenes (8-float object rows) and moving ones
+// (MOTION: 12-float rows, each centre shifted by the ray's omt * dp in the
+// sweep, the refine and the probe); the host function picks by `has_motion`.
 #include "rt_common.cuh"
 
 namespace {
 
+template <bool MOTION>
 __global__ void __launch_bounds__(256) sweep2_kernel(
     rt::Tables T, const float* __restrict__ rays, int B,
     float* __restrict__ t_out, int* __restrict__ obj_out,
@@ -28,13 +33,15 @@ __global__ void __launch_bounds__(256) sweep2_kernel(
   const size_t s = (size_t)B;
   const float ox = rays[i], oy = rays[s + i], oz = rays[2 * s + i];
   const float dx = rays[3 * s + i], dy = rays[4 * s + i], dz = rays[5 * s + i];
+  const float omt = MOTION ? rays[6 * s + i] : 0.0f;
   const float tlim = rays[7 * s + i];
   const bool live = (dx * dx + dy * dy + dz * dz) > 0.5f;  // dead rays carry d = 0
 
   float t_best;
   int obj;
   unsigned tests = 0;
-  rt::nearest_hit(T, ox, oy, oz, dx, dy, dz, live, tlim, t_best, obj, tests);
+  rt::nearest_hit<MOTION>(T, ox, oy, oz, dx, dy, dz, omt, live, tlim, t_best,
+                          obj, tests);
   if (stats != nullptr) atomicAdd(stats, (unsigned long long)tests);
   const bool hit = obj >= 0;
   obj_out[i] = obj;
@@ -58,7 +65,7 @@ __global__ void __launch_bounds__(256) sweep2_kernel(
     }
   }
   const rt::Refined R =
-      rt::winner_refine(row, ox, oy, oz, dx, dy, dz, t_best, hit);
+      rt::winner_refine<MOTION>(row, ox, oy, oz, dx, dy, dz, omt, t_best, hit);
   const float t_fin = hit ? R.t : rt::BIG_T;
   t_out[i] = t_fin;
   // Only dielectric winners and interior hits consume the surrounding RI
@@ -67,8 +74,8 @@ __global__ void __launch_bounds__(256) sweep2_kernel(
       with_ri && hit &&
       ((R.nx * dx + R.ny * dy + R.nz * dz) > 0.0f || row[rt::FT_REFR] > 0.002f);
   const float sur_ri =
-      need ? rt::ri_probe(T, R.px + 1e-3f * R.nx, R.py + 1e-3f * R.ny,
-                          R.pz + 1e-3f * R.nz)
+      need ? rt::ri_probe<MOTION>(T, R.px + 1e-3f * R.nx, R.py + 1e-3f * R.ny,
+                                  R.pz + 1e-3f * R.nz, omt)
            : 1.0f;
   float* o = rows_out + i;
   o[rt::V_T * s] = t_fin;
@@ -93,11 +100,13 @@ __global__ void __launch_bounds__(256) sweep2_kernel(
 
 // rays: (8, B) rows ox oy oz dx dy dz omt tlim; t_out, obj_out: (B,);
 // rows_out: (16, B) or null; stats: null, or uint64[1] that gains the number
-// of sphere quadratics solved (measurement only).  Launches on `stream`, does
-// not synchronise, returns cudaGetLastError().
+// of sphere quadratics solved (measurement only).  `has_motion` says that the
+// otab rows are 12 wide and picks the MOTION instantiation.  Launches on
+// `stream`, does not synchronise, returns cudaGetLastError().
 extern "C" int rt_sweep2(const void* otab, const void* ftab, const void* gaabb,
                          int n_groups, int gr, int n_pgroups, int probe_gr,
-                         const void* rays, int B, void* t_out, void* obj_out,
+                         int has_motion, const void* rays, int B, void* t_out,
+                         void* obj_out,
                          void* rows_out, int with_ri, void* stats,
                          void* stream) {
   if (B <= 0) return 0;
@@ -112,9 +121,15 @@ extern "C" int rt_sweep2(const void* otab, const void* ftab, const void* gaabb,
   T.n_sgroups = 0;
   const int threads = 256;
   const int blocks = (B + threads - 1) / threads;
-  RT_LAUNCH(sweep2_kernel, blocks, threads, static_cast<cudaStream_t>(stream),
-            T, static_cast<const float*>(rays), B, static_cast<float*>(t_out),
-            static_cast<int*>(obj_out), static_cast<float*>(rows_out), with_ri,
-            static_cast<unsigned long long*>(stats));
+  const float* r = static_cast<const float*>(rays);
+  float* t = static_cast<float*>(t_out);
+  int* o = static_cast<int*>(obj_out);
+  float* ro = static_cast<float*>(rows_out);
+  unsigned long long* st = static_cast<unsigned long long*>(stats);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  if (has_motion)
+    RT_LAUNCH(sweep2_kernel<true>, blocks, threads, cs, T, r, B, t, o, ro, with_ri, st);
+  else
+    RT_LAUNCH(sweep2_kernel<false>, blocks, threads, cs, T, r, B, t, o, ro, with_ri, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,12 +1,14 @@
 // Persistent whole-frame path tracer for Hopper (sm_90a).
 //
 // Replaces the TPU kernel raytracing_tests_tpu/kernels/uber.py::_uber_kernel
-// (launched by _uber_call) under In-Next-Week ('bvh') shading without lights,
-// textures or motion, in two instantiations chosen by the host function:
+// (launched by _uber_call) under In-Next-Week ('bvh') shading without lights
+// or textures, in four instantiations chosen by the host function:
 // sphere-mode scenes (anchored sphere quadratic over the sweep2 tables) and
 // generic scenes (rotated ellipsoids and cuboids over the sweep2g tables, with
-// super-group culling and per-group kinds).  The mode is a template parameter,
-// so the sphere instantiation carries none of the generic code's registers.
+// super-group culling and per-group kinds), each static or with motion blur
+// (every centre shifted by omt * dp, omt = 1 - s / spp of the primary's
+// sample).  Mode and motion are template parameters, so the static sphere
+// instantiation carries none of the other code's registers.
 // Per primary p (pixel p / spp,
 // sample p % spp) generate the camera ray, then walk its ray tree with a LIFO
 // stack of Q records (o3, d3, contribution, bounce count) under a budget of
@@ -42,7 +44,7 @@ enum {
 
 // Host-side parameter vectors (kernels/uber.py fills them).
 enum { IP_W = 0, IP_H /* unused: 1/H comes in fp */, IP_SPP, IP_Q, IP_POPS, IP_HAS_DIEL, IP_NGROUPS, IP_GR,
-       IP_NPGROUPS, IP_PROBE_GR, IP_GENERIC, IP_NSGROUPS, IP_LEN };
+       IP_NPGROUPS, IP_PROBE_GR, IP_GENERIC, IP_NSGROUPS, IP_MOTION, IP_LEN };
 enum { FP_TMAX = 0, FP_GOLDEN, FP_INV_W, FP_INV_H, FP_ASPECT,
        FP_SUN_N, FP_SUN_NMB, FP_SUN_DENOM, FP_SUN_INV_DENOM, FP_MAX_BOUNCES,
        FP_BG_BOTTOM, FP_BG_TOP = FP_BG_BOTTOM + 3, FP_LEN = FP_BG_TOP + 3 };
@@ -68,7 +70,8 @@ struct Ray {
 // Primary ray of global index p: perspective screen direction from the
 // unnormalised right/up basis, then the sunflower thin-lens pivot about the
 // focal point.  Also returns cos/sin(GOLDEN_ANGLE * s), reused by the scatter
-// cones of the whole tree.
+// cones of the whole tree, and the sample index s itself (the tree's time is
+// s / spp).
 __device__ __forceinline__ Ray raygen(const UberParams& P,
                                       const float* __restrict__ cam,
                                       unsigned long long p, float& sidx,
@@ -132,7 +135,7 @@ __device__ __forceinline__ Ray raygen(const UberParams& P,
   return ray;
 }
 
-template <bool GENERIC>
+template <bool GENERIC, bool MOTION>
 __global__ void __launch_bounds__(128) uber_kernel(
     rt::Tables T, UberParams P, const float* __restrict__ cam,
     float4* __restrict__ out, unsigned long long* __restrict__ stats) {
@@ -143,6 +146,7 @@ __global__ void __launch_bounds__(128) uber_kernel(
   Ray cur = {};
   unsigned long long p = 0;
   float sidx = 0.0f, cth = 1.0f, sth = 0.0f;
+  float omt = 0.0f;  // 1 - time_ratio of the tree; read by MOTION only
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_t = P.t_max;
   int qs = 0, cnt = 0;
   float stack[MAX_Q * REC];
@@ -166,6 +170,7 @@ __global__ void __launch_bounds__(128) uber_kernel(
         } else {
           p = pp;
           cur = raygen(P, cam, p, sidx, cth, sth);
+          if (MOTION) omt = 1.0f - sidx / (float)P.spp;
           acc_r = acc_g = acc_b = 0.0f;
           acc_t = P.t_max;
           qs = 0;
@@ -184,16 +189,16 @@ __global__ void __launch_bounds__(128) uber_kernel(
     int obj;
     if constexpr (GENERIC) {
       unsigned counts[rt::GC_LEN] = {0, 0, 0};
-      rt::nearest_hit_g<false>(T, cur.ox, cur.oy, cur.oz, cur.dx, cur.dy,
-                               cur.dz, 0.0f, live, P.t_max, t_best, obj, counts);
+      rt::nearest_hit_g<MOTION>(T, cur.ox, cur.oy, cur.oz, cur.dx, cur.dy,
+                                cur.dz, omt, live, P.t_max, t_best, obj, counts);
       n_slab += counts[rt::GC_SLAB];
       n_tests += counts[rt::GC_SPHERE_ROWS];
       n_other += counts[rt::GC_OTHER_ROWS];
       if (obj >= 0) n_hits += 1;
     } else {
       unsigned tests = 0;
-      rt::nearest_hit(T, cur.ox, cur.oy, cur.oz, cur.dx, cur.dy, cur.dz, live,
-                      P.t_max, t_best, obj, tests);
+      rt::nearest_hit<MOTION>(T, cur.ox, cur.oy, cur.oz, cur.dx, cur.dy, cur.dz,
+                              omt, live, P.t_max, t_best, obj, tests);
       n_tests += tests;
     }
 
@@ -201,9 +206,9 @@ __global__ void __launch_bounds__(128) uber_kernel(
     bool sp_refr = false, sp_refl = false;
     rt::Child refr = {}, refl = {};
     if (obj >= 0) {
-      const rt::Shade sh = rt::shade_hit<GENERIC>(
+      const rt::Shade sh = rt::shade_hit<GENERIC, MOTION>(
           T, P.shade, obj, t_best, cur.ox, cur.oy, cur.oz, cur.dx, cur.dy,
-          cur.dz, cur.contrib, cur.bounced, sidx, cth, sth);
+          cur.dz, omt, cur.contrib, cur.bounced, sidx, cth, sth);
       add_r = sh.add_r;
       add_g = sh.add_g;
       add_b = sh.add_b;
@@ -314,7 +319,7 @@ __global__ void __launch_bounds__(128) uber_kernel(
 
 // Fill the card once: as many resident blocks as it holds, no more than the
 // frame has primaries for.
-template <bool GENERIC>
+template <bool GENERIC, bool MOTION>
 int launch_uber(const rt::Tables& T, const UberParams& P, const float* cam,
                 float4* out, unsigned long long* stats, cudaStream_t stream) {
   const int threads = 128;
@@ -323,15 +328,14 @@ int launch_uber(const rt::Tables& T, const UberParams& P, const float* cam,
   if (e != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, uber_kernel<GENERIC>, threads, 0);
+  const auto kernel = uber_kernel<GENERIC, MOTION>;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) per_sm = 1;
   long long blocks = (long long)sms * per_sm;
   const long long needed = ((long long)P.B_total + threads - 1) / threads;
   if (blocks > needed) blocks = needed;
-  RT_LAUNCH(uber_kernel<GENERIC>, (int)blocks, threads, stream, T, P, cam, out,
-            stats);
+  RT_LAUNCH(kernel, (int)blocks, threads, stream, T, P, cam, out, stats);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -342,8 +346,8 @@ extern "C" int rt_uber_max_q(void) { return MAX_Q; }
 
 // out: (B_total, 4) float32; stats: uint64[ST_LEN], zeroed by the caller;
 // cam: device (24,) float32; ip / fp: HOST parameter vectors (IP_* / FP_*
-// above); ip[IP_GENERIC] picks the instantiation, and with it the layout the
-// three tables must have.  Launches on `stream`, does not synchronise, returns
+// above); ip[IP_GENERIC] and ip[IP_MOTION] pick the instantiation, and with
+// it the layout the three tables must have.  Launches on `stream`, does not synchronise, returns
 // cudaGetLastError().
 extern "C" int rt_uber_render(const void* otab, const void* ftab,
                               const void* gaabb, const void* cam,
@@ -388,6 +392,9 @@ extern "C" int rt_uber_render(const void* otab, const void* ftab,
   float4* outp = static_cast<float4*>(out);
   unsigned long long* statp = static_cast<unsigned long long*>(stats);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return ip[IP_GENERIC] ? launch_uber<true>(T, P, camp, outp, statp, st)
-                        : launch_uber<false>(T, P, camp, outp, statp, st);
+  if (ip[IP_GENERIC])
+    return ip[IP_MOTION] ? launch_uber<true, true>(T, P, camp, outp, statp, st)
+                         : launch_uber<true, false>(T, P, camp, outp, statp, st);
+  return ip[IP_MOTION] ? launch_uber<false, true>(T, P, camp, outp, statp, st)
+                       : launch_uber<false, false>(T, P, camp, outp, statp, st);
 }

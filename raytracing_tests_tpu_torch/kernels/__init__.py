@@ -1,7 +1,16 @@
 """The hot paths: hand-written CUDA kernels with their plain PyTorch versions.
 
-  - ``sweep2``: grouped nearest-hit sphere sweep (``csrc/sweep2.cu``).
-  - ``uber``:   whole-frame persistent path tracer (``csrc/uber.cu``).
-  - ``mega``:   the shading device functions as tensor code.
-  - ``sweep``:  host helpers (scene mode / motion detection).
+  - ``uber``:    whole-frame persistent path tracer (``csrc/uber.cu``), sphere
+                 and generic scenes, static or with motion blur.
+  - ``mega``:    the chunked megakernel ``mega_step`` (``csrc/mega.cu``): one
+                 fused trace-and-shade step per lane; and the shading model as
+                 tensor code.
+  - ``sweep2``:  grouped nearest-hit sphere sweep (``csrc/sweep2.cu``), static
+                 or with motion blur.
+  - ``sweep2g``: grouped sweep over rotated ellipsoids and cuboids
+                 (``csrc/sweep2g.cu``).
+  - ``sweep``:   the first-generation dense and grouped sweeps
+                 (``csrc/sweep.cu``) and host helpers (scene mode / motion
+                 detection).
+  - ``_build``:  builds and loads the kernels at first use; launch counters.
 """

@@ -1,24 +1,41 @@
-"""The In-Next-Week shading model on ray batches, as tensor code.
+"""The chunked megakernel: one fused trace-and-shade step over a pool of
+lanes, and the In-Next-Week shading model it shares with the persistent
+kernel.
 
-Counterpart of the device functions of the JAX package's ``kernels/mega.py``
-that the persistent kernel inlines: ``_cross_up``, ``_deviate`` and
-``_shade_hits`` without lights or textures, for sphere-mode accels
-(``sweep2.Accel2``) and generic ones (``sweep2g.Accel2G``).  The CUDA version
-of the same arithmetic is ``csrc/rt_common.cuh::shade_hit``; this module is
-what the plain version of the persistent kernel (``uber.uber_render_plain``)
-runs.  (The chunked megakernel ``mega_step`` itself is not ported yet.)
+Counterpart of the JAX package's ``kernels/mega.py``.  ``mega_step`` takes a
+``(16, C)`` pool of ray records and the lane ids and returns, per lane, the
+colour to add, the hit distance and both children as pool records: nearest
+hit over the grouped sphere tables, winner row, exact re-solve, surrounding
+refractive index, shading.  The lane-aligned drain ``ops.megalanes`` calls it
+once per iteration.  The kernel is hand-written CUDA (``csrc/mega.cu``);
+``mega_step_plain`` is the same function in plain PyTorch.  ``mega_step`` uses
+the plain version only for tensors that lie on the CPU; for CUDA tensors it
+launches the kernel or raises.
+
+Pool record layout (16 rows x lanes, float32): rows 0-2 origin, 3-5 direction,
+6 ``omt`` (1 - time_ratio), 7 ``t_limit``, 8 contribution, 9 bounce count,
+10-15 spare (zero).
+
+The shading functions (``_cross_up``, ``_deviate``, ``_shade_hits``, without
+lights or textures) serve sphere-mode accels (``sweep2.Accel2``) and generic
+ones (``sweep2g.Accel2G``); their CUDA version is
+``csrc/rt_common.cuh::shade_hit``, and the plain version of the persistent
+kernel (``uber.uber_render_plain``) runs them too.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
+from raytracing_tests_tpu_torch.kernels import _build
 from raytracing_tests_tpu_torch.kernels.sweep2 import (
-    FT_CB, FT_CR, FT_MRI, FT_REFL, FT_REFR, FT_SRFL, FT_SRFR,
-    _dot3, _gather_rows, _ri_probe, _winner_refine,
+    FT_CB, FT_CR, FT_MRI, FT_REFL, FT_REFR, FT_SRFL, FT_SRFR, PROBE_GR,
+    Accel2, _check_tensor, _dot3, _gather_rows, _ri_probe, _sweep_plain,
+    _winner_refine, check_accel,
 )
 from raytracing_tests_tpu_torch.kernels.sweep2g import (
     _gather_rows_g, _ri_probe_g, _winner_refine_g,
@@ -26,6 +43,18 @@ from raytracing_tests_tpu_torch.kernels.sweep2g import (
 
 # The angle every sunflower lattice turns by, rounded to float32 once.
 GOLDEN_ANGLE = float(np.float32(np.pi * (3.0 - np.sqrt(5.0))))
+
+# Pool record rows.
+(P_OX, P_OY, P_OZ, P_DX, P_DY, P_DZ, P_OMT, P_TLIM, P_CONTRIB,
+ P_BOUNCED) = range(10)
+POOL_ROWS = 16
+MISC_ROWS = 8  # add_r add_g add_b hit_t, four spare
+# Work counters of csrc/mega.cu (MS_* there): live lanes, sphere quadratics
+# solved, lanes that hit, lanes whose surrounding RI was probed.
+MS_LIVE, MS_TESTS, MS_HITS, MS_PROBES, MS_LEN = range(5)
+# Host parameter vector of csrc/mega.cu (IP_* there).
+_IP = ("spp", "has_dielectrics", "n_groups", "gr", "n_pgroups", "probe_gr",
+       "has_motion")
 
 
 def sunflower_statics(spp: int):
@@ -87,16 +116,21 @@ class Shaded:
 
 def _shade_hits(accel, o, d, contrib, bounced, active, sidx, t_best,
                 obj, hit, bg, *, has_dielectrics: bool, spp: int,
-                max_bounces: int, t_max: float, trig) -> Shaded:
+                max_bounces: int, t_max: float, trig, omt=None) -> Shaded:
     """Winner row + refine + surrounding-RI + INW shading + child-ray
-    construction for a batch of nodes (hits and misses alike: ``hit`` masks)."""
+    construction for a batch of nodes (hits and misses alike: ``hit`` masks).
+    ``omt`` (B,) = 1 - time_ratio, read only by a moving accel."""
     generic = accel.mode == "generic"
+    if not accel.has_motion:
+        omt = None
+    elif omt is None:
+        raise ValueError("a moving accel needs omt = 1 - time_ratio per ray")
     if generic:
         rows = _gather_rows_g(accel, obj)
-        t_best, _, p, n, _ = _winner_refine_g(rows, o, d, t_best, hit)
+        t_best, _, p, n, _ = _winner_refine_g(rows, o, d, t_best, hit, omt)
     else:
         rows = _gather_rows(accel, obj)
-        t_best, _, p, n = _winner_refine(rows, o, d, t_best, hit)
+        t_best, _, p, n = _winner_refine(rows, o, d, t_best, hit, omt)
 
     did_hit = hit
     missed = active & ~hit
@@ -113,7 +147,7 @@ def _shade_hits(accel, o, d, contrib, bounced, active, sidx, t_best,
     inner = ndotd > 0.0
 
     if has_dielectrics and accel.n_pgroups > 0:
-        sur_ri = (_ri_probe_g if generic else _ri_probe)(accel, p + 1e-3 * n)
+        sur_ri = (_ri_probe_g if generic else _ri_probe)(accel, p + 1e-3 * n, omt)
     else:
         sur_ri = torch.ones_like(contrib)
 
@@ -169,3 +203,141 @@ def _shade_hits(accel, o, d, contrib, bounced, active, sidx, t_best,
         refl_o=p + 1e-4 * n_out, refl_d=cl, refl_contrib=contrib * reflv,
         spawn_refr=spawn_refr, spawn_refl=spawn_refl, bounced=bounced1,
     )
+
+
+# ---------------------------------------------------------------------------
+# The chunked megakernel
+# ---------------------------------------------------------------------------
+
+
+def _check_step(accel, pool, lane, spp: int):
+    if not isinstance(accel, Accel2):
+        raise TypeError("mega_step takes a sphere-mode accel (sweep2.Accel2)")
+    if pool.dim() != 2:
+        raise ValueError(f"pool: shape {tuple(pool.shape)}, expected ({POOL_ROWS}, C)")
+    C = pool.shape[1]
+    dev = pool.device
+    _check_tensor("pool", pool, torch.float32, (POOL_ROWS, C), dev)
+    _check_tensor("lane", lane, torch.int32, (C,), dev)
+    check_accel(accel, dev)
+    if spp < 1:
+        raise ValueError(f"spp = {spp}")
+    return C, dev
+
+
+def mega_step_plain(accel: Accel2, pool, lane, *, has_dielectrics: bool,
+                    spp: int, max_bounces: int, t_max: float, bg):
+    """Plain PyTorch version of the kernel: see ``mega_step``."""
+    C, dev = _check_step(accel, pool, lane, spp)
+    f32 = torch.float32
+    o = pool[P_OX:P_OZ + 1].T
+    d = pool[P_DX:P_DZ + 1].T
+    omt, tlim = pool[P_OMT], pool[P_TLIM]
+    contrib, bounced = pool[P_CONTRIB], pool[P_BOUNCED]
+    active = lane >= 0
+    ln = lane.clamp_min(0)
+    sidx = (ln - torch.div(ln, spp, rounding_mode="floor") * spp).to(f32)
+    live = (_dot3(d, d) > 0.5) & active  # dead rays carry d = 0
+    t_best, obj = _sweep_plain(accel, o, d, live, tlim, omt)
+    hit = (obj >= 0) & active
+    bottom = torch.tensor(bg[0], dtype=f32, device=dev)
+    top = torch.tensor(bg[1], dtype=f32, device=dev)
+    tt = ((d[:, 1] + 1.0) * 0.5)[:, None]
+    th = GOLDEN_ANGLE * sidx
+    sh = _shade_hits(
+        accel, o, d, contrib, bounced, active, sidx, t_best, obj, hit,
+        (1.0 - tt) * bottom + tt * top, has_dielectrics=has_dielectrics,
+        spp=spp, max_bounces=max_bounces, t_max=t_max,
+        trig=(torch.cos(th), torch.sin(th)), omt=omt)
+
+    zero = torch.zeros(C, dtype=f32, device=dev)
+    misc = torch.stack([sh.add[:, 0], sh.add[:, 1], sh.add[:, 2], sh.hit_t,
+                        zero, zero, zero, zero])
+    tmax_row = torch.full((C,), t_max, dtype=f32, device=dev)
+
+    def record(co, cd, cc):
+        # A lane that hits nothing spawns nothing: its children carry a dead
+        # ray (selected, never multiplied: the unselected arithmetic ran on a
+        # zero row).
+        co = torch.where(hit[:, None], co, torch.zeros_like(co))
+        cd = torch.where(hit[:, None], cd, torch.zeros_like(cd))
+        cc = torch.where(hit, cc, zero)
+        return torch.stack([co[:, 0], co[:, 1], co[:, 2], cd[:, 0], cd[:, 1], cd[:, 2],
+                            omt, tmax_row, cc, sh.bounced,
+                            zero, zero, zero, zero, zero, zero])
+
+    none = torch.full_like(lane, -1)
+    return (misc, record(sh.refr_o, sh.refr_d, sh.refr_contrib),
+            record(sh.refl_o, sh.refl_d, sh.refl_contrib),
+            torch.where(sh.spawn_refr, lane, none),
+            torch.where(sh.spawn_refl, lane, none))
+
+
+def _launch_mega(accel: Accel2, pool, lane, *, has_dielectrics: bool, spp: int,
+                 max_bounces: int, t_max: float, bg, stats=None):
+    """Check the arguments and launch ``csrc/mega.cu`` ->
+    (misc, refr, refl, rlane, llane)."""
+    C, dev = _check_step(accel, pool, lane, spp)
+    if stats is not None:
+        _check_tensor("stats", stats, torch.int64, (MS_LEN,), dev)
+    _build.check_device(dev)
+    fn = _build.load("mega").rt_mega_step
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_float), p, p, i, p, p, p, p, p, p, p]
+        fn.restype = ctypes.c_int
+    ints = dict(spp=spp, has_dielectrics=int(has_dielectrics),
+                n_groups=accel.n_groups, gr=accel.gr, n_pgroups=accel.n_pgroups,
+                probe_gr=PROBE_GR, has_motion=int(accel.has_motion))
+    ip = (ctypes.c_int * len(_IP))(*[ints[k] for k in _IP])
+    n, b, denom = sunflower_statics(spp)
+    floats = [t_max, GOLDEN_ANGLE, n, n - b, denom, float(max_bounces),
+              *bg[0], *bg[1]]
+    fp = (ctypes.c_float * len(floats))(*floats)
+    f32 = torch.float32
+    misc = torch.empty((MISC_ROWS, C), dtype=f32, device=dev)
+    refr = torch.empty((POOL_ROWS, C), dtype=f32, device=dev)
+    refl = torch.empty((POOL_ROWS, C), dtype=f32, device=dev)
+    rlane = torch.empty((C,), dtype=torch.int32, device=dev)
+    llane = torch.empty((C,), dtype=torch.int32, device=dev)
+    code = fn(accel.otab.data_ptr(), accel.ftab.data_ptr(), accel.gaabb.data_ptr(),
+              ip, fp, pool.data_ptr(), lane.data_ptr(), C, misc.data_ptr(),
+              refr.data_ptr(), refl.data_ptr(), rlane.data_ptr(), llane.data_ptr(),
+              stats.data_ptr() if stats is not None else None,
+              _build.stream_of(dev))
+    _build.check(code, "rt_mega_step")
+    _build.LAUNCHES["mega_step_m" if accel.has_motion else "mega_step"] += 1
+    return misc, refr, refl, rlane, llane
+
+
+def mega_step(accel: Accel2, pool, lane, *, has_dielectrics: bool, spp: int,
+              max_bounces: int, t_max: float, bg, stats=None):
+    """One fused trace-and-shade step over a ``(16, C)`` pool of ray records.
+
+    ``lane`` (C,) int32 holds each record's lane id (pixel * spp + sample),
+    negative where the lane is inactive; ``bg`` = (bottom rgb, top rgb) of the
+    sky gradient.  Group size, probe groups and motion come from the accel.
+    Returns ``(misc (8, C), refr (16, C), refl (16, C), rlane (C,), llane
+    (C,))``: misc rows are ``[add_r, add_g, add_b, hit_t, 0, 0, 0, 0]`` (an
+    inactive lane adds 0 and reports ``t_max``; an active lane that misses,
+    a dead one with d = 0 included, adds contribution x sky); ``refr`` /
+    ``refl`` are the refraction / reflection child as pool records (the
+    parent's ``omt``, ``t_max``, bounce count + 1, rows 10-15 zero; a dead ray
+    where the lane hit nothing); ``rlane`` / ``llane`` are ``lane`` where that
+    child spawns, else -1.
+
+    CPU tensors go through ``mega_step_plain``; CUDA tensors launch the kernel
+    of ``csrc/mega.cu`` on the current stream (or raise), in its static or
+    its motion instantiation by ``accel.has_motion`` (counted as ``mega_step``
+    and ``mega_step_m``).  ``stats``: optional
+    zeroed int64[MS_LEN] CUDA tensor that gains the kernel's work counters
+    (measurement only)."""
+    kw = dict(has_dielectrics=has_dielectrics, spp=spp, max_bounces=max_bounces,
+              t_max=t_max, bg=bg)
+    if pool.device.type == "cpu":
+        if accel.device.type != "cpu":
+            raise ValueError("pool on the CPU but accel on " + str(accel.device))
+        return mega_step_plain(accel, pool, lane, **kw)
+    with torch.cuda.device(pool.device):
+        return _launch_mega(accel, pool, lane, stats=stats, **kw)

@@ -20,8 +20,13 @@ CPU; for a CUDA tensor it launches the kernel or raises.
 
 Table layouts are row-major (a thread reads its winner's row with indexed
 16-byte loads); the logical fields and the row order are the JAX package's, so
-``Accel2.perm`` and the row ids mean the same thing.  Motion blur is not ported
-yet: scenes with motion are refused by ``make_accel2``.
+``Accel2.perm`` and the row ids mean the same thing.
+
+Motion blur: an object's centre at a ray's time is ``c - omt * dp`` with
+``omt = 1 - time_ratio`` (row 6 of the ray matrix), so a moving scene adds the
+cross terms ``K2 = 2 C . dp`` and ``K3 = |dp|^2`` to the anchored quadratic.
+A static accel keeps the 8-float object row (two 16-byte loads); an accel
+built with ``has_motion`` carries ``dp`` in four more columns.
 
 Directions are assumed unit; dead rays carry d = 0 and never hit.
 """
@@ -30,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -45,8 +51,11 @@ DEFAULT_GR = 128  # objects per culling group
 PROBE_GR = 8  # rows per surrounding-RI probe group (see _probe_tables)
 
 # Object table (Np + Pp, OT_COLS) columns ("otab"): per-object sweep constants.
-OT_CX, OT_CY, OT_CZ, OT_K1, OT_RI, OT_RINV2 = range(6)
+OT_CX, OT_CY, OT_CZ, OT_K1, OT_RI, OT_RINV2, OT_K2, OT_K3 = range(8)
 OT_COLS = 8  # two 16-byte loads per row
+# A moving accel's rows carry the motion delta in a third 16-byte load.
+OT_DPX, OT_DPY, OT_DPZ = 8, 9, 10
+OT_COLS_MOTION = 12
 
 # Fields table (Np, FT_COLS) columns ("ftab"): read per winner.
 (
@@ -78,8 +87,10 @@ def _sum3(v):
     return v[:, 0] + v[:, 1] + v[:, 2]
 
 
-def pack_tables(scene: Scene, order, n_pad: int, anchor, valid_mask=None):
-    """Morton-ordered scene -> (otab (n_pad, OT_COLS), ftab (n_pad, FT_COLS)).
+def pack_tables(scene: Scene, order, n_pad: int, anchor, valid_mask=None,
+                has_motion: bool = False):
+    """Morton-ordered scene -> (otab (n_pad, OT_COLS), ftab (n_pad, FT_COLS));
+    with ``has_motion`` the otab is ``OT_COLS_MOTION`` wide.
 
     ``order`` is the sorted->original permutation; invalid and padding rows
     get K1 = BIG (kills the quadratic AND the RI containment test).
@@ -110,11 +121,16 @@ def pack_tables(scene: Scene, order, n_pad: int, anchor, valid_mask=None):
     # gradient path stays huge instead of collapsing to 0).
     rinv2 = torch.where(valid, 1.0 / torch.clamp_min(r * r, 1e-30),
                         torch.full_like(r, 1e-30))
-    otab = torch.zeros((n_pad, OT_COLS), dtype=f32, device=dev)
+    otab = torch.zeros((n_pad, OT_COLS_MOTION if has_motion else OT_COLS),
+                       dtype=f32, device=dev)
     otab[:n, OT_CX:OT_CZ + 1] = c
     otab[:n, OT_K1] = k1
     otab[:n, OT_RI] = s["refractive_index"]
     otab[:n, OT_RINV2] = rinv2
+    otab[:n, OT_K2] = 2.0 * _sum3(c * dp)  # c is anchor-relative here
+    otab[:n, OT_K3] = _sum3(dp * dp)
+    if has_motion:
+        otab[:n, OT_DPX:OT_DPZ + 1] = dp
     otab[n:, OT_K1] = BIG_T  # padding rows are dead
     otab[n:, OT_RINV2] = 1e-30
     c = s["position"]  # ftab keeps ABSOLUTE centres (normal computation)
@@ -144,14 +160,19 @@ class Accel2:
     the surrounding-RI probe loops only over those.  ``ftab`` spans the MAIN
     rows only (its height is the winner-id space)."""
 
-    otab: torch.Tensor  # (Np + Pp, OT_COLS)
+    otab: torch.Tensor  # (Np + Pp, OT_COLS), OT_COLS_MOTION with has_motion
     ftab: torch.Tensor  # (Np, FT_COLS)
     gaabb: torch.Tensor  # (G + PG, GA_COLS) rows: lo3 hi3 anchor3
     perm: torch.Tensor  # (Np,) i32 sorted -> original
     gr: int
     n_pgroups: int = 0
+    has_motion: bool = False
 
     mode = "spheres"
+
+    @property
+    def ot_cols(self) -> int:
+        return OT_COLS_MOTION if self.has_motion else OT_COLS
 
     @property
     def n_pad(self) -> int:
@@ -197,7 +218,7 @@ def _group_tables(lo_s, hi_s, cen, v_s, gr: int):
 
 
 def make_accel2(scene: Scene, gr: int = DEFAULT_GR, sort_origin=None,
-                probe_rows=None, probe_mask=None) -> Accel2:
+                probe_rows=None, probe_mask=None, has_motion=None) -> Accel2:
     """Morton-order objects into groups of ``gr``; huge objects isolated
     into leading always-tested groups.
 
@@ -211,11 +232,15 @@ def make_accel2(scene: Scene, gr: int = DEFAULT_GR, sort_origin=None,
     the scene, 0 builds no probe table.  ``probe_mask`` (bool, original index
     space) restricts the probe rows further (see ``probe_relevant_rows``).
 
+    ``has_motion``: carry the motion columns and solve with the motion terms;
+    ``None`` asks the scene.  The AABBs are motion-swept either way.
+
     Built on the scene's device."""
     from raytracing_tests_tpu_torch.bvh.build import morton3d
 
-    if scene_has_motion(scene):
-        raise NotImplementedError("motion blur is not ported yet")
+    if has_motion is None:
+        has_motion = scene_has_motion(scene)
+    has_motion = bool(has_motion)
     dev = scene.device
     inf = float("inf")
     lo, hi = scene.world_aabbs()
@@ -252,7 +277,8 @@ def make_accel2(scene: Scene, gr: int = DEFAULT_GR, sort_origin=None,
     G = gaabb.shape[0]
 
     anchor = torch.repeat_interleave(anchor_g, gr, dim=0)  # (n_pad, 3) per-object
-    otab, ftab = pack_tables(scene, order, n_pad, anchor)
+    otab, ftab = pack_tables(scene, order, n_pad, anchor, has_motion=has_motion)
+    ot_cols = otab.shape[1]
 
     perm = order.to(torch.int32)
     if n_pad != n:
@@ -263,17 +289,19 @@ def make_accel2(scene: Scene, gr: int = DEFAULT_GR, sort_origin=None,
         near = torch.minimum(torch.maximum(origin, glo), ghi)  # closest AABB point
         d2 = torch.sum((near - origin) ** 2, dim=1)  # empty groups -> inf
         gorder = torch.argsort(d2, stable=True)
-        otab = otab.reshape(G, gr, OT_COLS)[gorder].reshape(n_pad, OT_COLS)
+        otab = otab.reshape(G, gr, ot_cols)[gorder].reshape(n_pad, ot_cols)
         ftab = ftab.reshape(G, gr, FT_COLS)[gorder].reshape(n_pad, FT_COLS)
         gaabb = gaabb[gorder]
         perm = perm.reshape(G, gr)[gorder].reshape(n_pad)
 
+    packer = functools.partial(_pack_probe_spheres, has_motion=has_motion)
     potab, pgaabb = _probe_tables(scene, key, valid, lo, hi, probe_rows,
-                                  probe_mask=probe_mask)
+                                  probe_mask=probe_mask, packer=packer,
+                                  ot_cols=ot_cols)
     return Accel2(
         otab=torch.cat([otab, potab]).contiguous(), ftab=ftab.contiguous(),
         gaabb=torch.cat([gaabb, pgaabb]).contiguous(), perm=perm.contiguous(),
-        gr=gr, n_pgroups=pgaabb.shape[0])
+        gr=gr, n_pgroups=pgaabb.shape[0], has_motion=has_motion)
 
 
 def probe_relevant_rows(scene: Scene, margin: float = 4e-3):
@@ -336,9 +364,10 @@ def probe_relevant_rows(scene: Scene, margin: float = 4e-3):
     return dmask & near_host
 
 
-def _pack_probe_spheres(scene: Scene, porder, np_pad: int, anchor, dmask, dm):
+def _pack_probe_spheres(scene: Scene, porder, np_pad: int, anchor, dmask, dm,
+                        has_motion: bool = False):
     """The sphere-mode probe rows: ``pack_tables`` with the dead rows' K1 = BIG."""
-    potab = pack_tables(scene, porder, np_pad, anchor, dmask)[0]
+    potab = pack_tables(scene, porder, np_pad, anchor, dmask, has_motion)[0]
     potab[:, OT_K1] = torch.where(dm, potab[:, OT_K1],
                                   torch.full_like(potab[:, OT_K1], BIG_T))
     return potab
@@ -398,8 +427,9 @@ def _dot3(a, b):
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
-def _sweep_chunk(accel: Accel2, o, d, live, tlim):
-    """Dense anchored nearest-hit for one chunk of rays -> (t_best, obj)."""
+def _sweep_chunk(accel: Accel2, o, d, live, tlim, omt=None):
+    """Dense anchored nearest-hit for one chunk of rays -> (t_best, obj).
+    ``omt`` (B,) = 1 - time_ratio; read only by a moving accel."""
     G, gr, n_pad = accel.n_groups, accel.gr, accel.n_pad
     ga = accel.gaabb[:G]
     lo, hi, an = ga[:, 0:3], ga[:, 3:6], ga[:, 6:9]
@@ -422,6 +452,15 @@ def _sweep_chunk(accel: Accel2, o, d, live, tlim):
     OC = _dot3(C, s[:, :, None])
     nb = DC - od[:, :, None]  # = -half_b
     c_q = oo[:, :, None] + k1 - 2.0 * OC
+    if accel.has_motion:
+        DP = accel.otab[:n_pad, OT_DPX:OT_DPZ + 1].reshape(1, G, gr, 3)
+        k2 = accel.otab[:n_pad, OT_K2].reshape(1, G, gr)
+        k3 = accel.otab[:n_pad, OT_K3].reshape(1, G, gr)
+        m = omt[:, None, None]
+        DDP = _dot3(DP, d[:, None, None])
+        ODP = _dot3(DP, s[:, :, None])
+        nb = nb - m * DDP
+        c_q = c_q + m * (2.0 * ODP - k2) + (m * m) * k3
     disc = nb * nb - c_q
     sq = torch.sqrt(torch.clamp_min(disc, 0.0))
     tn = nb - sq  # near root (a == 1)
@@ -438,16 +477,19 @@ def _sweep_chunk(accel: Accel2, o, d, live, tlim):
     return t_best, obj.to(torch.int32)
 
 
-def _sweep_plain(accel: Accel2, o, d, live, tlim):
+def _sweep_plain(accel: Accel2, o, d, live, tlim, omt=None):
     """Nearest (t_best, obj) over all rays, in chunks that bound memory.
     Misses return obj = -1 and t_best = min(BIG_T, tlim)."""
     B = o.shape[0]
+    if accel.has_motion and omt is None:
+        raise ValueError("a moving accel needs omt = 1 - time_ratio per ray")
     if B <= _PLAIN_CHUNK:
-        return _sweep_chunk(accel, o, d, live, tlim)
+        return _sweep_chunk(accel, o, d, live, tlim, omt)
     ts, objs = [], []
     for b0 in range(0, B, _PLAIN_CHUNK):
         sl = slice(b0, b0 + _PLAIN_CHUNK)
-        t, ob = _sweep_chunk(accel, o[sl], d[sl], live[sl], tlim[sl])
+        t, ob = _sweep_chunk(accel, o[sl], d[sl], live[sl], tlim[sl],
+                             omt[sl] if accel.has_motion else None)
         ts.append(t)
         objs.append(ob)
     return torch.cat(ts), torch.cat(objs)
@@ -460,13 +502,16 @@ def _gather_rows(accel: Accel2, obj):
     return torch.where(hit[:, None], rows, torch.zeros_like(rows))
 
 
-def _winner_refine(rows, o, d, t_best, hit):
+def _winner_refine(rows, o, d, t_best, hit, omt=None):
     """Re-solve the winner's quadratic DIRECTLY in its own frame
     (rel = o - c, the well-conditioned form) and derive the hit normal.
     The group-anchored sweep t carries up to ~7e-3 absolute error — bigger
-    than the 1e-4 surface offset children spawn from.
+    than the 1e-4 surface offset children spawn from.  ``omt`` (B,), given
+    for a moving accel, shifts the centre to ``c - omt * dp``.
     Returns (t_best, t_safe, p (B, 3), n (B, 3))."""
     ce = rows[:, FT_CX:FT_CZ + 1]
+    if omt is not None:
+        ce = ce - omt[:, None] * rows[:, FT_DPX:FT_DPZ + 1]
     re = o - ce
     hb = _dot3(re, d)
     cq = _dot3(re, re) - rows[:, FT_R2]
@@ -483,11 +528,12 @@ def _winner_refine(rows, o, d, t_best, hit):
     return t_best, t_safe, p, n
 
 
-def _ri_probe(accel: Accel2, q):
+def _ri_probe(accel: Accel2, q, omt=None):
     """Surrounding-RI containment sum at probe points q (B, 3) over the
     trailing dielectric-only probe sub-table; same quadratic expansion as the
-    sweep (r^2 cancels: inside <=> qq + K1 - 2 C.q <= 0).  Mean RI of the
-    containing rows when their sum exceeds 1, else 1."""
+    sweep (r^2 cancels: inside <=> qq + K1 - 2 C.q <= 0, plus the motion
+    terms of a moving accel at ``omt`` (B,)).  Mean RI of the containing rows
+    when their sum exceeds 1, else 1."""
     if accel.n_pgroups == 0:
         return torch.ones(q.shape[0], dtype=q.dtype, device=q.device)
     rows = accel.otab[accel.n_pad:]  # (Pp, OT_COLS)
@@ -498,7 +544,15 @@ def _ri_probe(accel: Accel2, q):
     k1 = rows[:, OT_K1].reshape(1, -1, PROBE_GR)
     ri = rows[:, OT_RI].reshape(1, -1, PROBE_GR)
     QC = _dot3(C, u[:, :, None])
-    inside = (qq[:, :, None] + k1 - 2.0 * QC) <= 0.0
+    lhs = qq[:, :, None] + k1 - 2.0 * QC
+    if accel.has_motion:
+        DP = rows[:, OT_DPX:OT_DPZ + 1].reshape(1, -1, PROBE_GR, 3)
+        k2 = rows[:, OT_K2].reshape(1, -1, PROBE_GR)
+        k3 = rows[:, OT_K3].reshape(1, -1, PROBE_GR)
+        m = omt[:, None, None]
+        QDP = _dot3(DP, u[:, :, None])
+        lhs = lhs + m * (2.0 * QDP - k2) + (m * m) * k3
+    inside = lhs <= 0.0
     acc = torch.sum(torch.where(inside, ri, torch.zeros_like(ri)), dim=(1, 2))
     cnt = torch.sum(inside.to(q.dtype), dim=(1, 2))
     return torch.where(acc > 1.0, acc / torch.clamp_min(cnt, 1.0),
@@ -516,20 +570,21 @@ def sweep2_plain(accel: Accel2, rays, with_ri: bool, with_fields: bool):
     o = rays[0:3].T
     d = rays[3:6].T
     tlim = rays[7]
+    omt = rays[6] if accel.has_motion else None
     live = _dot3(d, d) > 0.5  # dead rays carry d = 0 (unit dirs otherwise)
-    t_best, obj = _sweep_plain(accel, o, d, live, tlim)
+    t_best, obj = _sweep_plain(accel, o, d, live, tlim, omt)
     hit = obj >= 0
     big = torch.full_like(t_best, BIG_T)
     if not with_fields:
         return torch.where(hit, t_best, big), obj, None
     rows = _gather_rows(accel, obj)
-    t_best, _, p, n = _winner_refine(rows, o, d, t_best, hit)
+    t_best, _, p, n = _winner_refine(rows, o, d, t_best, hit, omt)
     t_out = torch.where(hit, t_best, big)
     if with_ri:
         # Only dielectric winners and interior hits consume the surrounding
         # RI downstream (refraction eta); every other ray reads the neutral 1.
         need = hit & ((_dot3(n, d) > 0.0) | (rows[:, FT_REFR] > 0.002))
-        sur_ri = torch.where(need, _ri_probe(accel, p + 1e-3 * n),
+        sur_ri = torch.where(need, _ri_probe(accel, p + 1e-3 * n, omt),
                              torch.ones_like(t_out))
     else:
         sur_ri = torch.ones_like(t_out)
@@ -556,31 +611,13 @@ def check_accel(accel: Accel2, device):
     f32 = torch.float32
     _check_tensor("accel.ftab", accel.ftab, f32, (n_pad, FT_COLS), device)
     _check_tensor("accel.otab", accel.otab, f32,
-                  (n_pad + accel.n_pgroups * PROBE_GR, OT_COLS), device)
+                  (n_pad + accel.n_pgroups * PROBE_GR, accel.ot_cols), device)
     _check_tensor("accel.gaabb", accel.gaabb, f32,
                   (accel.n_groups + accel.n_pgroups, GA_COLS), device)
 
 
-def _sweep2_fn():
-    fn = _build.load("sweep2").rt_sweep2
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, p, i, p, p, p, i, p, p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _sweep2(accel: Accel2, rays, with_ri: bool, with_fields: bool, stats=None):
-    """The sweep on ``rays`` (8, B) f32: (t, obj, rows or None).
-
-    CPU tensors go through ``sweep2_plain``; CUDA tensors launch the kernel of
-    ``csrc/sweep2.cu`` on the current stream (or raise).  ``stats``: optional
-    zeroed int64[1] CUDA tensor that gains the number of sphere quadratics
-    solved (measurement only)."""
-    if rays.device.type == "cpu":
-        if accel.device.type != "cpu":
-            raise ValueError("rays on the CPU but accel on " + str(accel.device))
-        return sweep2_plain(accel, rays, with_ri, with_fields)
+def _launch_sweep2(accel: Accel2, rays, with_ri: bool, with_fields: bool, stats=None):
+    """Check the arguments and launch ``csrc/sweep2.cu`` -> (t, obj, rows or None)."""
     dev = rays.device
     if rays.dim() != 2:
         raise ValueError(f"rays: shape {tuple(rays.shape)}, expected (8, B)")
@@ -589,22 +626,43 @@ def _sweep2(accel: Accel2, rays, with_ri: bool, with_fields: bool, stats=None):
     check_accel(accel, dev)
     if stats is not None:
         _check_tensor("stats", stats, torch.int64, (1,), dev)
-    fn = _sweep2_fn()
+    _build.check_device(dev)
+    fn = _build.load("sweep2").rt_sweep2
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, i, i, i, i, i, p, i, p, p, p, i, p, p]
+        fn.restype = ctypes.c_int
     t = torch.empty((B,), dtype=torch.float32, device=dev)
     obj = torch.empty((B,), dtype=torch.int32, device=dev)
     rows = (torch.empty((V_ROWS, B), dtype=torch.float32, device=dev)
             if with_fields else None)
-    with torch.cuda.device(dev):
-        code = fn(accel.otab.data_ptr(), accel.ftab.data_ptr(),
-                  accel.gaabb.data_ptr(), accel.n_groups, accel.gr,
-                  accel.n_pgroups, PROBE_GR, rays.data_ptr(), B,
-                  t.data_ptr(), obj.data_ptr(),
-                  rows.data_ptr() if with_fields else None, int(with_ri),
-                  stats.data_ptr() if stats is not None else None,
-                  torch.cuda.current_stream().cuda_stream)
+    code = fn(accel.otab.data_ptr(), accel.ftab.data_ptr(),
+              accel.gaabb.data_ptr(), accel.n_groups, accel.gr,
+              accel.n_pgroups, PROBE_GR, int(accel.has_motion),
+              rays.data_ptr(), B, t.data_ptr(), obj.data_ptr(),
+              rows.data_ptr() if with_fields else None, int(with_ri),
+              stats.data_ptr() if stats is not None else None,
+              _build.stream_of(dev))
     _build.check(code, "rt_sweep2")
-    _build.LAUNCHES["sweep2"] += 1
+    _build.LAUNCHES["sweep2_m" if accel.has_motion else "sweep2"] += 1
     return t, obj, rows
+
+
+def _sweep2(accel: Accel2, rays, with_ri: bool, with_fields: bool, stats=None):
+    """The sweep on ``rays`` (8, B) f32: (t, obj, rows or None).
+
+    CPU tensors go through ``sweep2_plain``; CUDA tensors launch the kernel of
+    ``csrc/sweep2.cu`` on the current stream (or raise), in its static or its
+    motion instantiation by ``accel.has_motion`` (counted as ``sweep2`` and
+    ``sweep2_m``).  ``stats``: optional
+    zeroed int64[1] CUDA tensor that gains the number of sphere quadratics
+    solved (measurement only)."""
+    if rays.device.type == "cpu":
+        if accel.device.type != "cpu":
+            raise ValueError("rays on the CPU but accel on " + str(accel.device))
+        return sweep2_plain(accel, rays, with_ri, with_fields)
+    with torch.cuda.device(rays.device):
+        return _launch_sweep2(accel, rays, with_ri, with_fields, stats)
 
 
 def sweep2_nearest(accel: Accel2, o, d, time_ratio, t_limit):

@@ -49,7 +49,7 @@ from raytracing_tests_tpu_torch.core import geometry
 from raytracing_tests_tpu_torch.kernels import _build
 from raytracing_tests_tpu_torch.kernels.sweep import _cub_t_div, _ell_t_div, _slab_t, _where_big
 from raytracing_tests_tpu_torch.kernels.sweep2 import (
-    BIG_T, FT_CX, FT_CZ, GA_COLS, PROBE_GR, _check_tensor, _dot3,
+    BIG_T, FT_CX, FT_CZ, FT_DPX, FT_DPZ, GA_COLS, PROBE_GR, _check_tensor, _dot3,
     _probe_tables, pack_rays,
 )
 from raytracing_tests_tpu_torch.scene.types import Scene
@@ -457,14 +457,18 @@ def _gather_rows_g(accel: Accel2G, obj):
     return torch.where(hit[:, None], rows, torch.zeros_like(rows))
 
 
-def _winner_refine_g(rows, o, d, t_best, hit):
+def _winner_refine_g(rows, o, d, t_best, hit, omt=None):
     """Re-solve the winner from its gathered row in the dense intersector's
     form (rotate by R^T, divide by scale, type-selected primitive test) and
     derive the world normal (ellipsoid gradient; cuboid nearest face scanned
     +x -x +y -y +z -z with a strict first minimum).
     Returns (t_best, t_safe, p (B, 3), n (B, 3), local_pos (B, 3)) where
-    ``local_pos`` is the unit-space hit position p_local / scale."""
-    re = o - rows[:, FT_CX:FT_CZ + 1]
+    ``local_pos`` is the unit-space hit position p_local / scale.  ``omt``
+    (B,), given for a moving accel, shifts the centre to ``c - omt * dp``."""
+    ce = rows[:, FT_CX:FT_CZ + 1]
+    if omt is not None:
+        ce = ce - omt[:, None] * rows[:, FT_DPX:FT_DPZ + 1]
+    re = o - ce
     rex, rey, rez = re[:, 0], re[:, 1], re[:, 2]
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
     r = [rows[:, GFT_R00 + i] for i in range(9)]
@@ -514,7 +518,7 @@ def _winner_refine_g(rows, o, d, t_best, hit):
     return t_best, t_safe, p, n, lp
 
 
-def _ri_probe_g(accel: Accel2G, q):
+def _ri_probe_g(accel: Accel2G, q, omt=None):
     """Surrounding-RI containment sum at probe points q (B, 3) over the
     trailing dielectric-only probe rows: the rotated point-in-primitive test
     in the fused unit space (e = M (q - c); ellipsoid |e|^2 <= 1, cuboid all
@@ -527,6 +531,10 @@ def _ri_probe_g(accel: Accel2G, q):
     rx = q[:, 0:1] - col(GO_PX)
     ry = q[:, 1:2] - col(GO_PY)
     rz = q[:, 2:3] - col(GO_PZ)
+    if accel.has_motion:  # the centre at the ray's time is c - omt * dp
+        rx = rx + omt[:, None] * col(GO_DPX)
+        ry = ry + omt[:, None] * col(GO_DPY)
+        rz = rz + omt[:, None] * col(GO_DPZ)
     m = [col(GO_M00 + i) for i in range(9)]
     ex = m[0] * rx + m[1] * ry + m[2] * rz
     ey = m[3] * rx + m[4] * ry + m[5] * rz

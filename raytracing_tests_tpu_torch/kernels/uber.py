@@ -17,11 +17,13 @@ probe, shade and the in-place-child / stack step.  The wrapper ``uber_render``
 uses the plain version only when the tables lie on the CPU; on CUDA tensors it
 launches the kernel or raises.
 
-The kernel has two instantiations, picked by the accel's class: sphere-mode
-scenes (``sweep2.Accel2``) and generic scenes (``sweep2g.Accel2G``).
+The kernel has four instantiations, picked by the accel: sphere-mode scenes
+(``sweep2.Accel2``) and generic scenes (``sweep2g.Accel2G``), each static or,
+for an accel built with ``has_motion``, with motion blur (a primary's sample
+``s`` fixes its tree's time, ``omt = 1 - s / spp``).
 
 Scope so far: 'bvh' shading, perspective camera with one focus distance, no
-lights, textures, motion or ``aa_grid``.
+lights, textures or ``aa_grid``.
 """
 
 from __future__ import annotations
@@ -35,7 +37,6 @@ from raytracing_tests_tpu_torch.kernels import _build
 from raytracing_tests_tpu_torch.kernels.mega import (
     GOLDEN_ANGLE, _cross_up, _shade_hits, sunflower_statics,
 )
-from raytracing_tests_tpu_torch.kernels.sweep import scene_has_motion
 from raytracing_tests_tpu_torch.kernels.sweep2 import (
     PROBE_GR, _check_tensor, _dot3, _sweep_plain, check_accel, make_accel2,
     probe_relevant_rows,
@@ -57,7 +58,7 @@ CAM_LEN = 24  # padded
 
 # Host parameter vectors of csrc/uber.cu (IP_* / FP_* there).
 _IP = ("W", "H", "spp", "Q", "pops", "has_dielectrics", "n_groups", "gr",
-       "n_pgroups", "probe_gr", "generic", "n_sgroups")
+       "n_pgroups", "probe_gr", "generic", "n_sgroups", "has_motion")
 # Frame counters of csrc/uber.cu (ST_* there).  ST_SPHERE_TESTS: sphere
 # quadratics solved; the last three are counted in generic mode only: slab
 # tests, live rows tested in groups of another kind than 's', nodes that hit.
@@ -200,7 +201,7 @@ def _plain_range(accel, cam, st: UberStatics, p0: int, B: int):
     lanes = torch.arange(B, device=dev)
     n_rays = n_drop = 0
     generic = accel.mode == "generic"
-    omt = torch.zeros(B, dtype=f32, device=dev)  # no motion on this path
+    omt = 1.0 - sidx / st.spp  # the tree's time is its sample's: s / spp
 
     for cnt in range(1, st.pops + 1):  # cnt = nodes processed per live tree
         if not bool(act.any()):
@@ -209,14 +210,14 @@ def _plain_range(accel, cam, st: UberStatics, p0: int, B: int):
         if generic:
             t_best, obj = _sweep_plain_g(accel, o, d, omt, live, tlim)
         else:
-            t_best, obj = _sweep_plain(accel, o, d, live, tlim)
+            t_best, obj = _sweep_plain(accel, o, d, live, tlim, omt)
         hit = (obj >= 0) & act
         tt = ((d[:, 1] + 1.0) * 0.5)[:, None]
         bg = (1.0 - tt) * bottom + tt * top
         sh = _shade_hits(
             accel, o, d, contrib, bounced, act, sidx, t_best, obj, hit, bg,
             has_dielectrics=st.has_dielectrics, spp=st.spp,
-            max_bounces=st.max_bounces, t_max=st.t_max, trig=trig)
+            max_bounces=st.max_bounces, t_max=st.t_max, trig=trig, omt=omt)
         primary = act & (bounced == 0.0)
         acc = acc + sh.add  # zero on finished lanes
         acc_t = torch.where(primary, sh.hit_t, acc_t)
@@ -282,7 +283,8 @@ def _host_params(accel, st: UberStatics):
                 n_groups=accel.n_groups, gr=accel.gr,
                 n_pgroups=accel.n_pgroups, probe_gr=PROBE_GR,
                 generic=int(accel.mode == "generic"),
-                n_sgroups=getattr(accel, "n_sgroups", 0))
+                n_sgroups=getattr(accel, "n_sgroups", 0),
+                has_motion=int(accel.has_motion))
     ip = (ctypes.c_int * len(_IP))(*[ints[k] for k in _IP])
     floats = [st.t_max, GOLDEN_ANGLE, 1.0 / st.W, 1.0 / st.H, st.W / st.H,
               n, n - b, denom, 1.0 / denom, float(st.max_bounces),
@@ -308,8 +310,15 @@ def _launch_uber(accel, cam, st: UberStatics):
               accel.gaabb.data_ptr(), cam.data_ptr(), ip, fp, st.B,
               out.data_ptr(), stats.data_ptr(), _build.stream_of(dev))
     _build.check(code, "rt_uber_render")
-    _build.LAUNCHES["uber_g" if generic else "uber"] += 1
+    _build.LAUNCHES[launch_name(accel)] += 1
     return out, stats
+
+
+def launch_name(accel) -> str:
+    """The launch counter of the instantiation that ``accel`` selects:
+    ``uber`` / ``uber_g`` (sphere / generic), ``_m`` appended with motion."""
+    name = "uber_g" if accel.mode == "generic" else "uber"
+    return name + "_m" if accel.has_motion else name
 
 
 def uber_render(accel, cam, st: UberStatics):
@@ -317,8 +326,7 @@ def uber_render(accel, cam, st: UberStatics):
 
     Tables on the CPU go through ``uber_render_plain``; on CUDA the kernel of
     ``csrc/uber.cu`` is launched on the current stream (or this raises), in
-    its sphere or its generic instantiation by the accel's class (counted as
-    ``uber`` and ``uber_g``)."""
+    the instantiation the accel selects (counted under ``launch_name``)."""
     dev = accel.device
     if cam.device != dev:
         raise ValueError(f"cam on {cam.device}, accel on {dev}")
@@ -347,11 +355,10 @@ def _scene_accel(scene, camera, cfg, gr):
         probe_rows = int(probe_mask.sum())
     if cfg.pallas_mode == "spheres":
         accel = make_accel2(scene, gr=gr, sort_origin=camera.position,
-                            probe_rows=probe_rows, probe_mask=probe_mask)
+                            probe_rows=probe_rows, probe_mask=probe_mask,
+                            has_motion=cfg.has_motion)
     else:
-        if scene_has_motion(scene):
-            raise NotImplementedError("motion blur is not ported yet")
-        accel = make_accel2g(scene, gr=gr, has_motion=False,
+        accel = make_accel2g(scene, gr=gr, has_motion=cfg.has_motion,
                              sort_origin=camera.position,
                              probe_rows=probe_rows, probe_mask=probe_mask)
     return accel, pack_camera(camera)

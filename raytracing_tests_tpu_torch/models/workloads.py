@@ -4,6 +4,7 @@
 |---------------|-----------------------------------------------------|
 | sphere        | IOW-01 Adding Sphere                                |
 | groups        | IOW-02 Groups                                       |
+| motion-blur   | INW-00 Motion Blur                                  |
 | bvh           | INW-01 Bounding Volume Hierarchy                    |
 | iow-final     | the In-One-Weekend cover scene (the headline frame) |
 """
@@ -64,6 +65,12 @@ register(
     "N-object cuboid/ellipsoid scene with per-object rotations and mirror bounces",
     reference="In-One-Weekend/02_Groups",
 )(_rt_run(examples.groups_scene, dict(spp=4)))
+
+register(
+    "motion-blur",
+    "objects swept between two checkpoints, per-sample time lerp",
+    reference="In-Next-Week/00_MotionBlur",
+)(_rt_run(examples.motion_blur_scene, dict(spp=16, max_bounces=5)))
 
 register(
     "bvh",

@@ -414,7 +414,8 @@ def _build_accel(scene, cfg: RenderConfig):
         if cfg.pallas_v2 and cfg.pallas_mode == "spheres":
             from raytracing_tests_tpu_torch.kernels.sweep2 import make_accel2
 
-            return make_accel2(scene, probe_rows=cfg.probe_rows)
+            return make_accel2(scene, probe_rows=cfg.probe_rows,
+                               has_motion=cfg.has_motion)
         from raytracing_tests_tpu_torch.kernels.sweep import make_accel
 
         return make_accel(scene, cfg.pallas_mode, group=cfg.pallas_groups,

@@ -8,11 +8,13 @@ demo scenes:
                           is a thin huge cuboid — same image, no special-case
                           primitive).
   - ``groups_scene``      N-object mirror scene.
+  - ``motion_blur_scene`` two spheres swept between two checkpoints over a
+                          ground sphere.
   - ``bvh_grid_scene``    grid of alternating ellipsoids / rotated cuboids.
   - ``iow_final_scene``   the Ray Tracing in One Weekend cover scene
                           (~480 random spheres) — the headline frame.
 
-The textured, lights, motion and materials scenes are not ported yet.
+The textured, lights and materials scenes are not ported yet.
 """
 
 from __future__ import annotations
@@ -42,6 +44,20 @@ def groups_scene():
     b.add_box((0.0, 0.4, -6.5), (1.5, 1.5, 1.5), rotation_deg=(0.0, 45.0, 0.0),
               color=(0.9, 0.8, 0.2), reflectivity=0.9)
     cam = Camera.make((0.0, 0.6, 0.0), (0.0, -0.05, -1.0), fov_y_deg=70.0, focus_dist=4.0)
+    return b.build(), cam
+
+
+def motion_blur_scene():
+    b = SceneBuilder()
+    b.add_sphere((0.0, -100.5, -3.0), 100.0, color=(0.5, 0.7, 0.4),
+                 reflectivity=1.0, scatter_reflect=1.2)
+    b.add_sphere((-0.6, 0.1, -3.0), 0.4, color=(0.9, 0.3, 0.3),
+                 reflectivity=0.9, scatter_reflect=0.3,
+                 delta_position=(0.0, 0.35, 0.0))
+    b.add_sphere((0.8, 0.0, -3.4), 0.45, color=(0.3, 0.3, 0.9),
+                 reflectivity=0.9, scatter_reflect=0.1,
+                 delta_position=(0.3, 0.0, 0.0))
+    cam = Camera.make((0.0, 0.3, 0.5), (0.0, -0.08, -1.0), fov_y_deg=55.0, focus_dist=3.5)
     return b.build(), cam
 
 

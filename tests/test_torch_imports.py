@@ -24,7 +24,7 @@ def test_the_fifteen_modules_exist():
         "scene.examples", "ops.camera_rays", "ops.intersect", "bvh.build",
         "kernels.sweep", "kernels.sweep2", "kernels.sweep2g", "ops.render", "kernels.mega",
         "kernels.uber", "utils.io", "models.registry", "models.workloads",
-        "app.cli", "__main__", "convert",
+        "app.cli", "__main__", "convert", "ops.megalanes", "ops.workqueue",
     ):
         assert "raytracing_tests_tpu_torch." + mod in MODULES, mod
 
@@ -76,7 +76,9 @@ def test_the_smoke_script_imports_nothing_of_jax():
 
 @pytest.mark.parametrize("entry", ["render_uber", "render_stats", "render", "cli",
                                    "render_uber_generic", "render_stats_generic",
-                                   "render_stats_generic_dense", "cli_bvh"])
+                                   "render_stats_generic_dense", "cli_bvh",
+                                   "render_megalanes", "render_workqueue",
+                                   "render_workqueue_generic"])
 def test_entry_points_raise_without_cuda_and_do_not_fall_back(entry):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -86,7 +88,15 @@ def test_entry_points_raise_without_cuda_and_do_not_fall_back(entry):
                        pallas_groups=0 if entry.endswith("dense") else 32).for_scene(scene)
     assert cfg.pallas_mode == ("generic" if generic else "spheres")
     with pytest.raises(RuntimeError, match="CUDA"):
-        if entry.startswith("render_uber"):
+        if entry == "render_megalanes":
+            from raytracing_tests_tpu_torch.ops.megalanes import render_megalanes
+
+            render_megalanes(scene, cam, cfg)
+        elif entry.startswith("render_workqueue"):
+            from raytracing_tests_tpu_torch.ops.workqueue import render_workqueue
+
+            render_workqueue(scene, cam, cfg)
+        elif entry.startswith("render_uber"):
             render_uber(scene, cam, cfg)
         elif entry.startswith("render_stats"):
             render_stats(scene, cam, cfg)
@@ -122,13 +132,14 @@ def test_sweep_wrappers_refuse_a_tensor_they_cannot_launch_on():
         sweep2g.sweep2g_nearest(acc2g, z3, z3, z1, z1)
 
 
-@pytest.mark.parametrize("kernel", ["nearest", "nearest_ri", "ri", "grouped", "sweep2g", "uber"])
+@pytest.mark.parametrize("kernel", ["nearest", "nearest_ri", "ri", "grouped", "sweep2g", "uber",
+                                    "sweep2", "mega"])
 def test_launch_functions_refuse_cpu_tensors_outside_the_host_rehearsal(kernel):
     """Well-formed CPU arguments must not reach a build or a launch: only the
     host rehearsal's context lets a ``_launch_*`` function take them."""
     from raytracing_tests_tpu_torch.kernels import sweep, sweep2g, uber
 
-    generic = kernel != "nearest_ri"
+    generic = kernel not in ("nearest_ri", "sweep2", "mega")
     scene, cam = examples.bvh_grid_scene(side=2) if generic else examples.iow_final_scene(side=2)
     mode = "generic" if generic else "spheres"
     rays, pts = torch.zeros(8, 4), torch.zeros(4, 4)
@@ -142,6 +153,16 @@ def test_launch_functions_refuse_cpu_tensors_outside_the_host_rehearsal(kernel):
         elif kernel == "grouped":
             acc = sweep.make_accel(scene, mode, group=4)
             sweep._launch_grouped(acc.table, acc.gaabb, rays, 4, False, mode)
+        elif kernel == "sweep2":
+            from raytracing_tests_tpu_torch.kernels import sweep2
+
+            sweep2._launch_sweep2(sweep2.make_accel2(scene, gr=8), rays, True, True)
+        elif kernel == "mega":
+            from raytracing_tests_tpu_torch.kernels import mega, sweep2
+
+            mega._launch_mega(sweep2.make_accel2(scene, gr=8), torch.zeros(16, 4),
+                              torch.zeros(4, dtype=torch.int32), has_dielectrics=True, spp=1,
+                              max_bounces=3, t_max=1e4, bg=((1.0, 1.0, 1.0), (0.3, 0.4, 1.0)))
         elif kernel == "sweep2g":
             sweep2g._launch_sweep2g(sweep2g.make_accel2g(scene, gr=8, has_motion=False), rays)
         else:

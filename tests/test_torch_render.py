@@ -104,7 +104,8 @@ def test_golden_iow_final_statistically(intersector):
 
 
 def test_registry_lists_the_ported_workloads():
-    assert [w.name for w in list_workloads()] == ["bvh", "groups", "iow-final", "sphere"]
+    assert [w.name for w in list_workloads()] == [
+        "bvh", "groups", "iow-final", "motion-blur", "sphere"]
     with pytest.raises(KeyError):
         get_workload("lights")
 

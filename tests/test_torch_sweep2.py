@@ -118,10 +118,24 @@ def test_headline_probe_cut_keeps_40_of_486_rows():
 
 
 def test_make_accel2_refuses_motion():
-    ts, _ = tex.sphere_scene()
+    """It no longer does: a moving scene gets the accel with the motion
+    columns (held against JAX in ``test_torch_motion``), and only tables that
+    carry motion under a static flag are refused."""
+    ts, _ = tex.iow_final_scene(side=5)
+    assert ts.capacity > 1  # a sphere-mode scene
     moving = ts.replace(delta_position=torch.full_like(ts.delta_position, 0.1))
-    with pytest.raises(NotImplementedError):
-        tsw.make_accel2(moving)
+    accel = tsw.make_accel2(moving, gr=32)
+    assert accel.has_motion and accel.otab.shape[1] == tsw.OT_COLS_MOTION
+    assert (accel.otab[:ts.capacity, tsw.OT_DPX:tsw.OT_DPZ + 1] == 0.1).any()
+    tsw.check_accel(accel, torch.device("cpu"))
+    still = tsw.make_accel2(ts, gr=32)
+    assert not still.has_motion and still.otab.shape[1] == tsw.OT_COLS
+    wide = np.zeros((accel.otab.shape[0], 128), np.float32)
+    wide[:, 8:11] = 0.1
+    with pytest.raises(ValueError, match="has_motion"):
+        convert.accel2_from_numpy(wide, np.zeros((24, accel.n_pad), np.float32),
+                                  np.zeros((accel.gaabb.shape[0], 128), np.float32),
+                                  accel.perm.numpy(), 32)
 
 
 def _rays(seed, n):

@@ -175,13 +175,20 @@ def test_unsupported_requests_raise(frames, what):
         cfg = dataclasses.replace(cfg, shading="materials")
     elif what == "textures":
         scene = scene.replace(textures=torch.zeros(1, 2, 12, 3))
-    elif what == "generic":  # a generic scene renders now; a moving one does not yet
+    elif what == "generic":
+        # a generic scene renders, and a moving one too (the motion
+        # instantiation, held in test_torch_motion); what stays refused on a
+        # generic scene is a camera the kernel does not generate rays for
         scene, cam = tex.groups_scene()
         dp = torch.zeros_like(scene.delta_position)
         dp[0, 0] = 0.1
         scene = scene.replace(delta_position=dp)
-        cfg = RenderConfig(**FRAME).for_scene(scene)
+        cfg = dataclasses.replace(RenderConfig(**FRAME).for_scene(scene), width=12, height=8,
+                                  spp=2)
         assert cfg.pallas_mode == "generic" and cfg.has_motion
+        moving = render_uber(scene, cam, cfg, device="cpu")
+        assert torch.isfinite(moving["image"]).all() and int(moving["rays_dropped"]) == 0
+        cfg = dataclasses.replace(cfg, aa_grid=True)
     else:
         kw["qcap"], err = -1, ValueError
     with pytest.raises(err):
