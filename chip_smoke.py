@@ -21,6 +21,16 @@ is non-zero and no result line is printed; without CUDA it fails at once.
 The whole script takes about three minutes on one H100.
 
 Phases and their bars:
+  uber_modes. the persistent kernel's two sweep schedules (per lane and
+     row-parallel, ``coop_min`` = 1 and 33, see ``FORCED``) and its default:
+     bit-identical ``out`` and equal counters in the -fmad=false build on the
+     sphere, generic, moving generic and motion canaries (before any other
+     phase) and on the headline and generic frames; on two scenes of
+     identical twins every schedule of both builds gives each hit the lower
+     row's colour; each forced schedule of the default build meets the
+     frame's bars of 4 and 9 against the plain version; SIMT efficiency
+     (row tests / lane slots) per schedule; the kernel's time over
+     ``COOP_SWEEP`` on both frames.
   3. sweep kernel vs plain, on three batches: 100 000 seeded rays on the
      persistent kernel's accel, and, on the queue renderer's own accel (the
      tables the canary's launches read), the canary's 179 200 camera lanes and
@@ -100,7 +110,8 @@ Phases and their bars:
  15. the work queue: ``render_workqueue`` at 200x112x8 depth 6 against the
      queue renderer given a full tree's budget (image atol 2e-5 on >= 99.5 %
      of pixels, equal rays, zero dropped, one sweep launch per iteration), then
-     the headline frame once through it, held to the envelope.
+     the headline frame once through it, held to the envelope, and once more
+     with K2's bound summed over its launches.
  16. the motion frame through ``render_uber``: one launch of the persistent
      kernel's MOTION instantiation, held against its plain version on every
      primary (both builds, bars as in 4) and per pixel; the motion canary
@@ -115,6 +126,7 @@ it (each canary, each frame); every kernel must be launched on at least one.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -187,11 +199,27 @@ FLOPS_PER_CONTAINS_SPHERE = 14  # shifted centre, squared distance, compare
 FLOPS_PER_CONTAINS_GENERIC = 45  # shift, rotation, 3 divisions, compare
 
 
-# What ``ptxas -v`` gave the persistent kernel's static instantiations before
-# motion became a template parameter (sphere; generic): they must not change.
+# What ``ptxas -v`` gives the persistent kernel's static instantiations with
+# the warp sweeps of csrc/uber_sweep.cuh (sphere; generic), on the toolkit of
+# CUDA 12.8; before them they took 80 registers and no spill, and 64 registers
+# with 148 / 164 B of spill stores / loads.
 PTXAS_STATIC = {
     "uber_kernel<0,0>": dict(registers=80, stack=288, spill_stores=0, spill_loads=0),
-    "uber_kernel<1,0>": dict(registers=64, stack=400, spill_stores=148, spill_loads=164),
+    "uber_kernel<1,0>": dict(registers=94, stack=288, spill_stores=0, spill_loads=0),
+}
+# ... and what it gave the other kernels before the warp sweeps, which they do
+# not include: they must not change.
+PTXAS_UNCHANGED = {
+    "sweep2.so sweep2_kernel<0>": dict(registers=48, stack=8, spill_stores=4, spill_loads=4),
+    "sweep2.so sweep2_kernel<1>": dict(registers=70, stack=0, spill_stores=0, spill_loads=0),
+    "sweep2g.so sweep2g_kernel<0>": dict(registers=48, stack=8, spill_stores=8, spill_loads=8),
+    "sweep2g.so sweep2g_kernel<1>": dict(registers=48, stack=8, spill_stores=16, spill_loads=16),
+    "mega.so mega_kernel<0>": dict(registers=64, stack=32, spill_stores=0, spill_loads=0),
+    "mega.so mega_kernel<1>": dict(registers=64, stack=32, spill_stores=0, spill_loads=0),
+    "sweep.so grouped_kernel<0,1>": dict(registers=40, stack=8, spill_stores=4, spill_loads=8),
+    "sweep.so grouped_kernel<1,0>": dict(registers=47, stack=0, spill_stores=0, spill_loads=0),
+    "sweep.so nearest_kernel<1>": dict(registers=40, stack=0, spill_stores=0, spill_loads=0),
+    "sweep.so ri_kernel<1>": dict(registers=39, stack=0, spill_stores=0, spill_loads=0),
 }
 
 
@@ -387,14 +415,16 @@ def compare_uber(accel, cam, st, out_p, stats_p):
                 dropped=int(stats_k[uber.ST_DROPPED])), (out_k, stats_k)
 
 
-def check_uber(size, plain_dropped, res, precise):
-    """The per-sample bars of phase 4 at one frame size."""
+def check_uber(size, plain_dropped, res, precise=None):
+    """The per-sample bars of phase 4 at one frame size (the -fmad=false
+    build's where it is given)."""
     require(plain_dropped == 0, f"plain version dropped rays at {size}")
-    for r in (res, precise):
+    for r in (res, precise or res):
         require(r["finite"] and r["dropped"] == 0, f"uber output at {size}: {r}")
-    require(precise["colour_within_1e4"] >= 0.999
-            and precise["primary_t_within_rtol_1e4"] >= 0.999
-            and precise["ray_count_rel_diff"] < 5e-4,
+    require(precise is None
+            or (precise["colour_within_1e4"] >= 0.999
+                and precise["primary_t_within_rtol_1e4"] >= 0.999
+                and precise["ray_count_rel_diff"] < 5e-4),
             f"uber precise build disagrees with the plain version at {size}: {precise}")
     require(res["primary_t_within_rtol_1e4"] >= 0.999
             and res["colour_within_1e4"] >= 0.85 and res["colour_within_5e2"] >= 0.97
@@ -409,6 +439,194 @@ def compare_pixels(img, ref):
                 within_1e2=frac(err <= 1e-2),
                 within_1e3=frac(err <= 1e-3),
                 mean_abs_err=float(err.mean()), max_abs_err=float(err.max()))
+
+
+def check_pixels(what, px):
+    require(px["within_atol"] >= PIXEL_FRAC and px["max_abs_err"] <= PIXEL_MAX
+            and px["within_1e2"] >= PIXEL_FRAC_1E2 and px["mean_abs_err"] < PIXEL_MEAN,
+            f"{what}: the image of the default build is off per pixel: {px}")
+
+
+# ---------------------------------------------------------------------------
+# K1's two sweep schedules (csrc/uber_sweep.cuh): a culling group that fewer
+# than coop_min lanes of a warp entered is swept row-parallel.  1 keeps every
+# group per lane (the earlier one-thread-per-tree schedule), 33 sweeps
+# every group row-parallel.  Both give the same result bit for bit in the
+# -fmad=false build; the phase "uber_modes" holds them to that, holds each
+# forced schedule to the default build's bars against the plain version, and
+# times coop_min over COOP_SWEEP.
+# ---------------------------------------------------------------------------
+
+FORCED = (1, 33)
+COOP_SWEEP = (1, 4, 8, 12, 16, 24, 33)
+SWEEP_ROUNDS = 3  # alternating rounds of the coop_min sweep
+
+
+def coop(cm):
+    """The context that runs K1 with coop_min forced to ``cm`` (None: the
+    module's default, ``uber.COOP_MIN`` of the accel's mode)."""
+    return contextlib.nullcontext() if cm is None else uber._forced_coop_min(cm)
+
+
+def sweep_counters(stats, generic):
+    """The counters every schedule must give alike, and its own SIMT numbers."""
+    keys = ["ST_RAYS", "ST_DROPPED", "ST_SPHERE_TESTS", "ST_ROW_TESTS"]
+    if generic:
+        keys += ["ST_SLAB_TESTS", "ST_OTHER_TESTS", "ST_HITS"]
+    return {k: int(stats[getattr(uber, k)]) for k in keys}
+
+
+def simt(stats):
+    """Row tests over lane slots, and the share of group visits served row-parallel."""
+    slots = int(stats[uber.ST_LANE_SLOTS])
+    return dict(simt_efficiency=int(stats[uber.ST_ROW_TESTS]) / max(slots, 1),
+                lane_slots=slots, coop_visits=int(stats[uber.ST_COOP_VISITS]))
+
+
+def modes_identical(what, acc, cam, st):
+    """K1 in the -fmad=false build with coop_min forced to 1 and 33 and at the
+    default: bit-identical ``out`` and equal counters, or raise ->
+    {mode: SIMT numbers}."""
+    generic = acc.mode == "generic"
+    runs = {}
+    with _build.precise():
+        for cm in (*FORCED, None):
+            with coop(cm):
+                runs[cm] = uber.uber_render(acc, cam, st)
+    torch.cuda.synchronize()
+    out1, stats1 = runs[FORCED[0]]
+    res = {}
+    for cm, (out, stats) in runs.items():
+        res[str(cm or "default")] = dict(
+            identical_out=bool(torch.equal(out, out1)),
+            same_counters=sweep_counters(stats, generic) == sweep_counters(stats1, generic),
+            **simt(stats))
+    res["counters"] = sweep_counters(stats1, generic)
+    require(all(r["identical_out"] and r["same_counters"] for k, r in res.items()
+                if k != "counters"),
+            f"{what}: K1's sweep schedules differ in the -fmad=false build: {res}")
+    return res
+
+
+def k1_inputs(scene, camera, cfg):
+    """The accel, camera vector and statics ``render_uber`` gives K1 (gr
+    clamped to the scene's capacity as it does)."""
+    gr = min(GR, max(8, -(-scene.capacity // 8) * 8))
+    acc, cam = uber._scene_accel(scene, camera, cfg, gr)
+    return acc, cam, uber.UberStatics.from_cfg(cfg)
+
+
+def tie_scene(generic):
+    """Two identical spheres (or boxes) in one group, in two colours, seen
+    head on: every hit is a tie, which the lower row must win."""
+    b = SceneBuilder()
+    for colour in ((0.9, 0.1, 0.1), (0.1, 0.1, 0.9)):
+        if generic:
+            b.add_box((0.0, 0.0, -3.0), (1.2, 1.2, 1.2), rotation_deg=(0.0, 30.0, 0.0),
+                      color=colour)
+        else:
+            b.add_sphere((0.0, 0.0, -3.0), 0.8, color=colour)
+    return b.build(), Camera.make((0.0, 0.0, 0.0), (0.0, 0.0, -1.0), fov_y_deg=40.0,
+                                  focus_dist=3.0)
+
+
+def tie_break(dev):
+    """On both tie scenes, every schedule in both builds colours each hit
+    sample with the lower row's object -> numbers."""
+    res = {}
+    for generic in (False, True):
+        scene, camera = tie_scene(generic)
+        scene, camera = scene.to(dev), camera.to(dev)
+        cfg = RenderConfig(intersector="pallas", width=32, height=24, spp=2,
+                           max_bounces=4).for_scene(scene)
+        acc, cam, st = k1_inputs(scene, camera, cfg)
+        rows = [int((acc.perm[:acc.n_pad] == i).nonzero()[0]) for i in range(2)]
+        want = scene.color[rows.index(min(rows))]
+        for variant in ("default", "precise"):
+            for cm in FORCED:
+                build = _build.precise() if variant == "precise" else contextlib.nullcontext()
+                with build, coop(cm):
+                    out, _ = uber.uber_render(acc, cam, st)
+                hit = out[:, 3] < cfg.t_max
+                res[f"{'generic' if generic else 'spheres'} {variant} coop_min={cm}"] = dict(
+                    hit_share=frac(hit),
+                    lower_row_wins=bool((out[hit, :3] == want).all()) and bool(hit.any()))
+    require(all(r["lower_row_wins"] for r in res.values()),
+            f"a tie is not won by the lower row in every schedule: {res}")
+    return res
+
+
+def moving_groups_scene():
+    """``groups_scene()`` with three of its objects in motion."""
+    scene, camera = examples.groups_scene()
+    dp = torch.zeros_like(scene.delta_position)
+    dp[1] = torch.tensor([0.3, 0.0, 0.0])  # the sphere
+    dp[2] = torch.tensor([0.0, 0.25, 0.1])  # the rotated ellipsoid
+    dp[3] = torch.tensor([-0.2, 0.0, 0.0])  # the rotated box
+    return scene.replace(delta_position=dp), camera
+
+
+def uber_modes_canaries(dev):
+    """Phase uber_modes on the canaries: the schedules bit for bit in the
+    -fmad=false build on the sphere, generic, moving generic and motion
+    canaries at 200x112x8 d6, and the tie break."""
+    canaries = dict(spheres=examples.iow_final_scene(), generic=examples.bvh_grid_scene(side=32),
+                    motion=examples.motion_blur_scene(), moving_generic=moving_groups_scene())
+    out = {}
+    for name, (scene, camera) in canaries.items():
+        scene, camera = scene.to(dev), camera.to(dev)
+        cfg = RenderConfig(intersector="pallas", **SMALL).for_scene(scene)
+        acc, cam, st = k1_inputs(scene, camera, cfg)
+        out[name] = modes_identical(f"{name} canary", acc, cam, st)
+        out[name]["instantiation"] = uber.launch_name(acc)
+    out["tie_break"] = tie_break(dev)
+    say(phase="uber_modes", what="canaries", size=size_of(SMALL), **out)
+    return out
+
+
+def uber_modes_frame(what, acc, cam, st, cfg, out_p, stats_p, generic, far=None):
+    """Phase uber_modes on a full frame: each forced schedule in the default
+    build against the plain version's ``out_p`` by the frame's own bars, and
+    all schedules bit for bit in the -fmad=false build -> numbers."""
+    img_p = uber._uber_post(out_p, stats_p, cfg)["image"]
+    res = dict(precise_build=modes_identical(what, acc, cam, st))
+    for cm in FORCED:
+        with coop(cm):
+            k1, got = compare_uber(acc, cam, st, out_p, stats_p)
+        img = uber._uber_post(*got, cfg)["image"]
+        size = f"{what} coop_min={cm}"
+        if generic:
+            check_uber_g(size, int(stats_p[uber.ST_DROPPED]), k1)
+            px = compare_pixels_g(img, img_p, far)
+            check_pixels_g(f"{size} against the plain version", px)
+        else:
+            check_uber(size, int(stats_p[uber.ST_DROPPED]), k1)
+            px = compare_pixels(img, img_p)
+            check_pixels(f"{size} against the plain version", px)
+        res[f"coop_min={cm}"] = dict(default_build=k1, pixels_default_vs_plain=px,
+                                     **simt(got[1]))
+        del got, img
+    say(phase="uber_modes", what=what, **res)
+    return res
+
+
+def coop_sweep(what, acc, cam, st):
+    """K1's milliseconds over COOP_SWEEP, by CUDA events, in SWEEP_ROUNDS
+    rounds that alternate the order; each value's SIMT numbers -> numbers."""
+    ms = {cm: [] for cm in COOP_SWEEP}
+    for rnd in range(SWEEP_ROUNDS):
+        for cm in (COOP_SWEEP if rnd % 2 == 0 else COOP_SWEEP[::-1]):
+            with coop(cm):
+                ms[cm].append(cuda_ms(lambda: uber.uber_render(acc, cam, st), 2))
+    res = {}
+    for cm in COOP_SWEEP:
+        with coop(cm):
+            _, stats = uber.uber_render(acc, cam, st)
+        res[str(cm)] = dict(ms=sum(ms[cm]) / len(ms[cm]), ms_rounds=ms[cm], **simt(stats))
+    best = min(COOP_SWEEP, key=lambda cm: res[str(cm)]["ms"])
+    say(phase="uber_modes", what=f"{what} coop_min sweep", default_coop_min=uber.COOP_MIN[acc.mode],
+        fastest_coop_min=best, by_coop_min=res)
+    return res
 
 # ---------------------------------------------------------------------------
 # The generic slice: rotated ellipsoids and cuboids
@@ -655,13 +873,14 @@ def check_pixels_g(what, px):
             f"{what}: blocks of far pixels of the default build's frame are off: {tiles}")
 
 
-def check_uber_g(size, plain_dropped, res, precise):
+def check_uber_g(size, plain_dropped, res, precise=None):
     require(plain_dropped == 0, f"plain version dropped rays at {size}")
-    for r in (res, precise):
+    for r in (res, precise or res):
         require(r["finite"] and r["dropped"] == 0, f"generic uber output at {size}: {r}")
-    require(precise["colour_within_1e4"] >= 0.999
-            and precise["primary_t_within_rtol_1e4"] >= 0.999
-            and precise["ray_count_rel_diff"] < 5e-4,
+    require(precise is None
+            or (precise["colour_within_1e4"] >= 0.999
+                and precise["primary_t_within_rtol_1e4"] >= 0.999
+                and precise["ray_count_rel_diff"] < 5e-4),
             f"generic uber -fmad=false build disagrees with the plain version at {size}: {precise}")
     require(res["primary_t_within_rtol_1e4"] >= 0.999
             and res["colour_within_1e4"] >= 0.85 and res["colour_within_5e2"] >= 0.97
@@ -669,11 +888,12 @@ def check_uber_g(size, plain_dropped, res, precise):
             f"generic uber kernel disagrees with the plain version at {size}: {res}")
 
 
-def uber_g_vs_plain(camera_name, acc, cam, st, cfg):
+def uber_g_vs_plain(camera_name, acc, cam, st, cfg, modes=False):
     """Phase 9 on one camera: the generic instantiation, both builds, against
-    the plain version per sample and per pixel; prints and checks.  ->
-    (default build's numbers, -fmad=false build's, pixels vs plain, the plain
-    version's milliseconds, its rays and image mean)."""
+    the plain version per sample and per pixel; prints and checks; with
+    ``modes``, also phase uber_modes on this frame.  -> (default build's
+    numbers, -fmad=false build's, pixels vs plain, the plain version's
+    milliseconds, its rays and image mean)."""
     size = f"{size_of(BVH1K)} camera {camera_name}"
     plain_ms, (out_p, stats_p) = timed_ms(lambda: uber.uber_render_plain(acc, cam, st))
     k1, got = compare_uber(acc, cam, st, out_p, stats_p)
@@ -702,6 +922,9 @@ def uber_g_vs_plain(camera_name, acc, cam, st, cfg):
     check_uber_g(size, int(stats_p[uber.ST_DROPPED]), k1, k1_precise)
     check_pixels_g(f"{size} against the plain version", px_plain)
     check_pixels_g(f"{size} against the -fmad=false build", px_precise)
+    if modes:
+        uber_modes_frame(f"bvh1k camera {camera_name}", acc, cam, st, cfg, out_p, stats_p,
+                         generic=True, far=far)
     return k1, k1_precise, px_plain, plain_ms, plain_frame
 
 
@@ -878,7 +1101,7 @@ def generic_phases(dev, iow):
     # the frame's camera and from five more ---------------------------------------
     st = uber.UberStatics.from_cfg(cfg)
     k1, k1_precise, px_plain, plain_ms_k1, plain_frame = uber_g_vs_plain(
-        "frame", acc3, cam_g, st, cfg)
+        "frame", acc3, cam_g, st, cfg, modes=True)
     for name, kw in EXTRA_CAMERAS.items():
         cam_x = Camera.make(kw["origin"], kw["direction"], fov_y_deg=60.0, focus_dist=8.0).to(dev)
         uber_g_vs_plain(name, *uber._scene_accel(scene, cam_x, cfg, GR), st, cfg)
@@ -985,6 +1208,9 @@ def generic_phases(dev, iow):
 
     # 12. the kernels at the main path's shapes ----------------------------------
     ms_k1 = cuda_ms(lambda: uber.uber_render(acc3, cam_g, st), 3)
+    with coop(1):
+        ms_k1_lane = cuda_ms(lambda: uber.uber_render(acc3, cam_g, st), 3)
+    sweep_k1 = coop_sweep("bvh1k", acc3, cam_g, st)
     with _build.precise():
         ms_k1_precise = cuda_ms(lambda: uber.uber_render(acc3, cam_g, st), 3)
     t0 = time.perf_counter()
@@ -998,10 +1224,12 @@ def generic_phases(dev, iow):
     s_rows, o_rows = int(stats_h[uber.ST_SPHERE_TESTS]), int(stats_h[uber.ST_OTHER_TESTS])
     n_slab = int(stats_h[uber.ST_SLAB_TESTS])
     del out_h
-    say(phase="bvh1k_breakdown", kernel_ms=ms_k1, kernel_ms_precise_build=ms_k1_precise,
+    say(phase="bvh1k_breakdown", kernel_ms=ms_k1, kernel_ms_per_lane_mode=ms_k1_lane,
+        kernel_ms_precise_build=ms_k1_precise,
         accel_build_ms=accel_ms, epilogue_ms=post_ms, frame_ms=min(times) * 1e3,
         nodes=n_nodes, hits=n_hits, live_sphere_rows_per_node=s_rows / n_nodes,
-        live_cuboid_rows_per_node=o_rows / n_nodes, slab_tests_per_node=n_slab / n_nodes)
+        live_cuboid_rows_per_node=o_rows / n_nodes, slab_tests_per_node=n_slab / n_nodes,
+        **simt(stats_h))
     k1_bytes = 16 * st.B + accel_bytes(acc3) + 4 * uber.CAM_LEN
     k1_flops = (s_rows * FLOPS_PER_CENSUS_SPHERE_ROW + o_rows * FLOPS_PER_CENSUS_CUBOID_ROW
                 + n_slab * FLOPS_PER_SLAB_TEST + n_hits * FLOPS_PER_REFINE_G
@@ -1081,7 +1309,9 @@ def generic_phases(dev, iow):
              per_sample_max_abs_err=k1["colour_max_abs_err"],
              per_sample_frac_within_1e4=k1["colour_within_1e4"],
              per_sample_frac_within_1e4_precise_build=k1_precise["colour_within_1e4"],
-             ms=ms_k1, plain_ms=plain_ms_k1, bound_ms=k1_bound, bound_by=k1_by,
+             ms=ms_k1, ms_per_lane_mode=ms_k1_lane, plain_ms=plain_ms_k1, bound_ms=k1_bound,
+             bound_by=k1_by, simt_efficiency=simt(stats_h)["simt_efficiency"],
+             simt_efficiency_per_lane_mode=sweep_k1["1"]["simt_efficiency"],
              library_ms=None, shape=size_of(BVH1K) + ", 1025 objects, gr=64"),
         entry("sweep2g", "sweep2g.cu", "sweep2g.py:838", launches_k3.get("sweep2g", 0),
               main["sweep2g"], ms=ms_k3, plain_ms=plain_ms["camera_lanes", "sweep2g"],
@@ -1332,6 +1562,51 @@ def megalanes_breakdown(scene, camera, cfg):
                 dead_share_of_lane_steps=1.0 - int(out["rays"]) / (iters * CHUNK)), accel
 
 
+def k2_sweep_bound(accel, rays, with_ri, with_fields, tests, obj, rows):
+    """K2's bound for one launch -> (bytes, operations): rays in, (t, obj)
+    and the hit block out, the tables once; the quadratics it solved, a slab
+    test per group and ray, a refine per hit, the RI probe where a hit
+    consumes it."""
+    B = rays.shape[1]
+    n_bytes = 4 * B * (8 + 2 + (sweep2.V_ROWS if with_fields else 0)) + accel_bytes(accel)
+    hit = obj >= 0
+    n_flops = (tests * (FLOPS_PER_SPHERE_TEST + (FLOPS_PER_MOTION_TERMS if accel.has_motion else 0))
+               + B * accel.n_groups * FLOPS_PER_SLAB_TEST)
+    if with_fields:
+        n_flops += int(hit.sum()) * FLOPS_PER_REFINE
+    if with_ri:
+        inner = (rows[sweep2.V_NX:sweep2.V_NZ + 1] * rays[3:6]).sum(dim=0) > 0.0
+        n_probe = int((hit & (inner | (rows[sweep2.V_REFR] > 0.002))).sum())
+        n_flops += n_probe * accel.n_pgroups * sweep2.PROBE_GR * FLOPS_PER_PROBE_ROW
+    return n_bytes, n_flops
+
+
+def workqueue_k2_bound(render):
+    """Run ``render()`` with every K2 launch counted: launches, rays and the
+    bound summed over the launches -> numbers."""
+    real = sweep2._sweep2
+    acc = dict(launches=0, rays=0, bytes=0, operations=0)
+
+    def counted(accel, rays, with_ri, with_fields, stats=None):
+        tests = torch.zeros(1, dtype=torch.int64, device=rays.device)
+        t, obj, rows = real(accel, rays, with_ri, with_fields, stats=tests)
+        n_bytes, n_flops = k2_sweep_bound(accel, rays, with_ri, with_fields, int(tests), obj,
+                                          rows)
+        acc.update(launches=acc["launches"] + 1, rays=acc["rays"] + rays.shape[1],
+                   bytes=acc["bytes"] + n_bytes, operations=acc["operations"] + n_flops)
+        return t, obj, rows
+
+    sweep2._sweep2 = counted
+    try:
+        render()
+    finally:
+        sweep2._sweep2 = real
+    t_b = acc["bytes"] / PEAK_BYTES_PER_S * 1e3
+    t_f = acc["operations"] / PEAK_FP32_FLOPS * 1e3
+    return dict(acc, bound_ms=max(t_b, t_f), bound_by="bytes" if t_b >= t_f else "operations",
+                bytes_ms=t_b, operations_ms=t_f)
+
+
 def third_slice_phases(dev, ctx):
     """Phases 13 to 17 -> the kernels-line entries of the third slice.
     ``ctx``: the headline scene, camera, config, small config and the
@@ -1412,6 +1687,7 @@ def third_slice_phases(dev, ctx):
         wq_frame.update(device_k2_ms=k2_dev, device_other_kernels_ms=busy - k2_dev,
                         device_busy_ms=busy, device_idle_share=max(0.0, 1.0 - busy / wq_ms),
                         kernel_kinds_launched=len(by_kernel))
+    wq_frame["k2"] = workqueue_k2_bound(lambda: workqueue.render_workqueue(scene, camera, cfg))
     say(phase="workqueue_frame", size=size_of(HEADLINE), **wq_frame)
     check_parity("workqueue frame against render_uber", env)
     require(launches_wq_frame == {"sweep2": ow["iterations"]},
@@ -1439,6 +1715,9 @@ def third_slice_phases(dev, ctx):
         k1m_precise, _ = compare_uber(m_acc, m_cam, m_st, out_p, stats_p)
     px_m = compare_pixels(img_k, uber._uber_post(out_p, stats_p, m_cfg)["image"])
     ms_k1m = cuda_ms(lambda: uber.uber_render(m_acc, m_cam, m_st), 5)
+    with coop(1):
+        ms_k1m_lane = cuda_ms(lambda: uber.uber_render(m_acc, m_cam, m_st), 5)
+        _, stats_lane = uber.uber_render(m_acc, m_cam, m_st)
     out_h, stats_h = uber.uber_render(m_acc, m_cam, m_st)
     n_nodes, tests = int(stats_h[uber.ST_RAYS]), int(stats_h[uber.ST_SPHERE_TESTS])
     k1m_bound, k1m_by = bound(
@@ -1451,7 +1730,8 @@ def third_slice_phases(dev, ctx):
                    mrays_per_s=int(m_out["rays"]) / min(m_times) / 1e6,
                    rays_dropped=int(m_out["rays_dropped"]),
                    image_mean=float(m_out["image"].mean()), launches_per_frame=m_launches,
-                   kernel_ms=ms_k1m, sphere_tests_per_ray=tests / n_nodes)
+                   kernel_ms=ms_k1m, kernel_ms_per_lane_mode=ms_k1m_lane,
+                   sphere_tests_per_ray=tests / n_nodes, **simt(stats_h))
     say(phase="motion_frame", scene="motion_blur_scene()", size=size_of(MOTION), **m_frame,
         rays_plain=int(stats_p[uber.ST_RAYS]), plain_seconds=plain_ms_k1m / 1e3,
         default_build=k1m, precise_build=k1m_precise, pixels_default_vs_plain=px_m)
@@ -1519,12 +1799,8 @@ def third_slice_phases(dev, ctx):
     del om, lanes
 
     # 17. a moving generic scene: uber_kernel<generic, motion> -------------------
-    g_scene, g_camera = examples.groups_scene()
-    dp = torch.zeros_like(g_scene.delta_position)
-    dp[1] = torch.tensor([0.3, 0.0, 0.0])  # the sphere
-    dp[2] = torch.tensor([0.0, 0.25, 0.1])  # the rotated ellipsoid
-    dp[3] = torch.tensor([-0.2, 0.0, 0.0])  # the rotated box
-    g_scene, g_camera = g_scene.replace(delta_position=dp).to(dev), g_camera.to(dev)
+    g_scene, g_camera = moving_groups_scene()
+    g_scene, g_camera = g_scene.to(dev), g_camera.to(dev)
     g_cfg = RenderConfig(intersector="pallas", **SMALL).for_scene(g_scene)
     require(g_cfg.pallas_mode == "generic" and g_cfg.has_motion, f"moving generic scene: {g_cfg}")
     _build.reset_launches()
@@ -1541,6 +1817,9 @@ def third_slice_phases(dev, ctx):
     px_gm = compare_pixels(uber._uber_post(*got, g_cfg)["image"],
                            uber._uber_post(out_p, stats_p, g_cfg)["image"])
     ms_gm = cuda_ms(lambda: uber.uber_render(g_acc, g_cam, g_st), 10)
+    with coop(1):
+        ms_gm_lane = cuda_ms(lambda: uber.uber_render(g_acc, g_cam, g_st), 10)
+        _, stats_gm_lane = uber.uber_render(g_acc, g_cam, g_st)
     _, stats_h = uber.uber_render(g_acc, g_cam, g_st)
     gm_bound, gm_by = bound(
         16 * g_st.B + accel_bytes(g_acc) + 4 * uber.CAM_LEN,
@@ -1599,7 +1878,9 @@ def third_slice_phases(dev, ctx):
              tolerance=tol_k1, frac_within_tolerance=k1m["colour_within_5e2"],
              per_sample_frac_within_1e4=k1m["colour_within_1e4"],
              per_sample_frac_within_1e4_precise_build=k1m_precise["colour_within_1e4"],
-             ms=ms_k1m, plain_ms=plain_ms_k1m, bound_ms=k1m_bound, bound_by=k1m_by,
+             ms=ms_k1m, ms_per_lane_mode=ms_k1m_lane, plain_ms=plain_ms_k1m,
+             bound_ms=k1m_bound, bound_by=k1m_by, simt_efficiency=m_frame["simt_efficiency"],
+             simt_efficiency_per_lane_mode=simt(stats_lane)["simt_efficiency"],
              library_ms=None, shape=size_of(MOTION) + ", 3 spheres, gr=8"),
         dict(name="uber_render_generic_motion", route="cuda", source=src + "uber.cu",
              replaces=jax_src + "uber.py:874", launches=launches_gm["uber_g_m"],
@@ -1607,7 +1888,9 @@ def third_slice_phases(dev, ctx):
              tolerance=tol_k1, frac_within_tolerance=k1gm["colour_within_5e2"],
              per_sample_frac_within_1e4=k1gm["colour_within_1e4"],
              per_sample_frac_within_1e4_precise_build=k1gm_precise["colour_within_1e4"],
-             ms=ms_gm, plain_ms=plain_ms_gm, bound_ms=gm_bound, bound_by=gm_by,
+             ms=ms_gm, ms_per_lane_mode=ms_gm_lane, plain_ms=plain_ms_gm, bound_ms=gm_bound,
+             bound_by=gm_by, simt_efficiency=simt(stats_h)["simt_efficiency"],
+             simt_efficiency_per_lane_mode=simt(stats_gm_lane)["simt_efficiency"],
              library_ms=None, shape=size_of(SMALL) + ", 4 objects, three in motion"),
         dict(name="sweep2_motion", route="cuda", source=src + "sweep2.cu",
              replaces=jax_src + "sweep2.py:955", launches=launches_mc["sweep2_m"],
@@ -1623,7 +1906,8 @@ def third_slice_phases(dev, ctx):
                                        k2m["motion_lanes"]["t_within_rtol_1e4"]),
              ms=ms_k2m, plain_ms=plain_ms_k2m, bound_ms=k2m_bound, bound_by=k2m_by,
              library_ms=None, shape=f"{Bq} rays, hit block + RI, 3 spheres"),
-    ], by_path("sweep2")
+    ], by_path("sweep2"), dict(device_ms=wq_frame.get("device_k2_ms", "not measured"),
+                                 **wq_frame["k2"])
 
 
 def main():
@@ -1640,8 +1924,12 @@ def main():
     info = _build.build(with_precise=True)
     ptxas = ptxas_by_kernel(info["log"])
     say(phase="build", seconds=info["seconds"], built=info["built"], ptxas=ptxas,
-        static_instantiations_as_before={
-            k: ptxas.get(f"uber.so {k}") == v for k, v in PTXAS_STATIC.items()})
+        static_instantiations_as_expected={
+            k: ptxas.get(f"uber.so {k}") == v for k, v in PTXAS_STATIC.items()},
+        other_kernels_as_before={k: ptxas.get(k) == v for k, v in PTXAS_UNCHANGED.items()})
+
+    # the sweep schedules of K1 bit for bit before anything else runs on them
+    uber_modes_canaries(dev)
 
     scene, camera = examples.iow_final_scene()
     scene, camera = scene.to(dev), camera.to(dev)
@@ -1715,10 +2003,10 @@ def main():
         pixel_atol=PIXEL_ATOL)
     check_uber(size_of(HEADLINE), int(stats_p[uber.ST_DROPPED]), k1, k1_precise)
     for px in (px_plain, px_precise):
-        require(px["within_atol"] >= PIXEL_FRAC and px["max_abs_err"] <= PIXEL_MAX
-                and px["within_1e2"] >= PIXEL_FRAC_1E2 and px["mean_abs_err"] < PIXEL_MEAN,
-                f"headline image of the default build is off per pixel: {px}")
-    del out_p, got, img_k, img_precise, img_p
+        check_pixels("headline", px)
+    del got, img_k, img_precise, img_p
+    uber_modes_frame("headline", accel_h, cam_h, st_h, cfg, out_p, stats_p, generic=False)
+    del out_p
 
     # 5. parity canary: persistent kernel vs queue renderer ---------------------
     _build.reset_launches()  # this path's own counts
@@ -1767,6 +2055,9 @@ def main():
 
     # 7. the kernels at the main path's shapes -----------------------------------
     ms_k1 = cuda_ms(lambda: uber.uber_render(accel_h, cam_h, st_h), 3)
+    with coop(1):  # the one-thread-per-tree schedule, in the same call
+        ms_k1_lane = cuda_ms(lambda: uber.uber_render(accel_h, cam_h, st_h), 3)
+    sweep_k1 = coop_sweep("headline", accel_h, cam_h, st_h)
     with _build.precise():  # what separately rounded multiply-adds would cost
         ms_k1_precise = cuda_ms(lambda: uber.uber_render(accel_h, cam_h, st_h), 3)
     # where the rest of a frame goes: the accel build (host + device) and the
@@ -1780,10 +2071,10 @@ def main():
     post_ms = cuda_ms(lambda: uber._uber_post(out_h, stats_h, cfg), 3)
     n_nodes, sphere_tests = int(stats_h[uber.ST_RAYS]), int(stats_h[uber.ST_SPHERE_TESTS])
     del out_h
-    say(phase="frame_breakdown", kernel_ms=ms_k1, kernel_ms_precise_build=ms_k1_precise,
-        accel_build_ms=accel_ms,
+    say(phase="frame_breakdown", kernel_ms=ms_k1, kernel_ms_per_lane_mode=ms_k1_lane,
+        kernel_ms_precise_build=ms_k1_precise, accel_build_ms=accel_ms,
         epilogue_ms=post_ms, frame_ms=min(times) * 1e3,
-        sphere_tests_per_ray=sphere_tests / n_nodes)
+        sphere_tests_per_ray=sphere_tests / n_nodes, **simt(stats_h))
     k1_bytes = 16 * st_h.B + accel_bytes(accel_h) + 4 * uber.CAM_LEN
     k1_flops = (sphere_tests * FLOPS_PER_SPHERE_TEST
                 + n_nodes * (accel_h.n_groups * FLOPS_PER_SLAB_TEST + FLOPS_PER_NODE_SHADE))
@@ -1822,7 +2113,9 @@ def main():
              per_sample_max_abs_err=k1["colour_max_abs_err"],
              per_sample_frac_within_1e4=k1["colour_within_1e4"],
              per_sample_frac_within_1e4_precise_build=k1_precise["colour_within_1e4"],
-             ms=ms_k1, plain_ms=plain_ms_k1, bound_ms=k1_bound, bound_by=k1_by,
+             ms=ms_k1, ms_per_lane_mode=ms_k1_lane, plain_ms=plain_ms_k1, bound_ms=k1_bound,
+             bound_by=k1_by, simt_efficiency=simt(stats_h)["simt_efficiency"],
+             simt_efficiency_per_lane_mode=sweep_k1["1"]["simt_efficiency"],
              library_ms=None, shape=size_of(HEADLINE)),
         dict(name="sweep2", route="cuda",
              source="raytracing_tests_tpu_torch/csrc/sweep2.cu",
@@ -1841,9 +2134,10 @@ def main():
              library_ms=None, shape=f"{Bq} rays, hit block + RI"),
     ]
     kernels += generic_phases(dev, (scene, camera, cfg_s, lanes))
-    third, sweep2_by_path = third_slice_phases(dev, (scene, camera, cfg, cfg_s, out))
+    third, sweep2_by_path, k2_wq = third_slice_phases(dev, (scene, camera, cfg, cfg_s, out))
     kernels += third
     kernels[1]["launches_by_path"].update(sweep2_by_path)  # K2 static: the work queue's paths
+    kernels[1]["at_workqueue_frame"] = k2_wq  # its launches there, summed
     for k in kernels:
         require(max(k["launches_by_path"].values()) > 0 and k["launches"] > 0,
                 f"kernel {k['name']} was launched on no driven path: {k['launches_by_path']}")

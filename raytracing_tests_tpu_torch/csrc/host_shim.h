@@ -9,9 +9,11 @@
 // first thread takes all the work.
 #pragma once
 #define RT_HOST_REHEARSAL 1
+#define RT_WARP_LANES 1  // a warp of one lane: row stride 1
 
 #include <math.h>
 #include <stddef.h>
+#include <string.h>
 
 #define __global__
 #define __device__
@@ -44,6 +46,17 @@ inline V __shfl_sync(unsigned, V v, int) {
 template <class V>
 inline V __shfl_down_sync(unsigned, V, int) {
   return V(0);  // no lane beyond the first
+}
+inline unsigned __reduce_min_sync(unsigned, unsigned v) { return v; }
+inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  memcpy(&u, &x, sizeof u);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float x;
+  memcpy(&x, &u, sizeof x);
+  return x;
 }
 inline int __ffs(unsigned v) { return __builtin_ffs((int)v); }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }

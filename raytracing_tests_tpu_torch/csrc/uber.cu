@@ -19,16 +19,20 @@
 // What bounds it on this card: operations.  A primary writes 16 bytes and
 // reads nothing but the scene tables, while every tree node tests the spheres
 // of each group its slab test admits.  The cost that can be lost is lane
-// occupancy: trees are 1 to `pops` nodes long, so a thread-per-primary loop
-// would idle most of a warp behind its longest tree.  The design is one
-// thread per ray TREE in a single persistent loop: a thread whose tree ends
-// takes the next primary at the top of the same loop (one warp-aggregated
-// atomic hands consecutive primaries to the lanes that need one), so lanes
-// refill at once and a warp's lanes stay on neighbouring samples of the same
-// pixels, which keeps their group walks together.  The stack lives in
-// thread-local memory.  The TPU version's rounds, lane rotation and staged
-// flush are scheduling for a vector core and have no counterpart.
-#include "rt_common.cuh"
+// occupancy, twice over.  Trees are 1 to `pops` nodes long, so a
+// thread-per-primary loop would idle most of a warp behind its longest tree:
+// the design is one thread per ray TREE in a single persistent loop, where a
+// thread whose tree ends takes the next primary at the top of the same loop
+// (one warp-aggregated atomic hands consecutive primaries to the lanes that
+// need one).  And lanes walk different groups: a warp whose lanes each solve
+// the rows of their own groups issues the rows of the union while the other
+// lanes idle.  So the whole warp takes every node step together, lanes
+// without a tree included, and sweeps each group either per lane (many lanes
+// entered it) or row-parallel for one entered lane after another
+// (uber_sweep.cuh; `coop_min` picks).  The stack lives in thread-local
+// memory.  The TPU version's rounds, lane rotation and staged flush are
+// scheduling for a vector core and have no counterpart.
+#include "uber_sweep.cuh"
 
 namespace {
 
@@ -43,20 +47,25 @@ enum {
 };
 
 // Host-side parameter vectors (kernels/uber.py fills them).
+// IP_COOP_MIN: a group that fewer lanes of a warp entered is swept
+// row-parallel (uber_sweep.cuh); 1 never, 33 always.
 enum { IP_W = 0, IP_H /* unused: 1/H comes in fp */, IP_SPP, IP_Q, IP_POPS, IP_HAS_DIEL, IP_NGROUPS, IP_GR,
-       IP_NPGROUPS, IP_PROBE_GR, IP_GENERIC, IP_NSGROUPS, IP_MOTION, IP_LEN };
+       IP_NPGROUPS, IP_PROBE_GR, IP_GENERIC, IP_NSGROUPS, IP_MOTION, IP_COOP_MIN, IP_LEN };
 enum { FP_TMAX = 0, FP_GOLDEN, FP_INV_W, FP_INV_H, FP_ASPECT,
        FP_SUN_N, FP_SUN_NMB, FP_SUN_DENOM, FP_SUN_INV_DENOM, FP_MAX_BOUNCES,
        FP_BG_BOTTOM, FP_BG_TOP = FP_BG_BOTTOM + 3, FP_LEN = FP_BG_TOP + 3 };
 
 // Frame counters (device, zeroed by the wrapper before each launch).
-// ST_SPHERE_TESTS: sphere quadratics solved; the last three only in generic
+// ST_SPHERE_TESTS: sphere quadratics solved; the next three only in generic
 // mode: slab tests, live rows tested in groups of another kind, nodes that hit.
+// The last three measure the warp sweeps (rt::WarpCounts): rows each lane's
+// own walk needed, 32 x the row iterations the warps issued (SIMT efficiency =
+// ST_ROW_TESTS / ST_LANE_SLOTS), group visits served row-parallel.
 enum { ST_NEXT = 0, ST_RAYS, ST_DROPPED, ST_SPHERE_TESTS, ST_SLAB_TESTS,
-       ST_OTHER_TESTS, ST_HITS, ST_LEN };
+       ST_OTHER_TESTS, ST_HITS, ST_ROW_TESTS, ST_LANE_SLOTS, ST_COOP_VISITS, ST_LEN };
 
 struct UberParams {
-  int W, spp, Q, pops;
+  int W, spp, Q, pops, coop_min;
   unsigned long long B_total;
   float t_max, golden, inv_W, inv_H, aspect, sun_inv_denom;
   float bg_bottom[3], bg_top[3];
@@ -135,10 +144,19 @@ __device__ __forceinline__ Ray raygen(const UberParams& P,
   return ray;
 }
 
+// Resident blocks of 128 threads per SM each instantiation is compiled for,
+// and with them its register budget: 6 (80 registers) for spheres, 5 (96) for
+// generic primitives.  Unbounded, ptxas takes 91 and 94-108 registers, fits
+// one block fewer per SM and runs slower; a tighter bound spills (PERF.md).
+constexpr int MIN_BLOCKS_SPHERE = 6;
+constexpr int MIN_BLOCKS_GENERIC = 5;
+
+// live_rows: (n_groups,) int32, each main group's last live row + 1.
 template <bool GENERIC, bool MOTION>
-__global__ void __launch_bounds__(128) uber_kernel(
-    rt::Tables T, UberParams P, const float* __restrict__ cam,
-    float4* __restrict__ out, unsigned long long* __restrict__ stats) {
+__global__ void __launch_bounds__(128, GENERIC ? MIN_BLOCKS_GENERIC : MIN_BLOCKS_SPHERE)
+uber_kernel(rt::Tables T, UberParams P, const float* __restrict__ cam,
+            const int* __restrict__ live_rows, float4* __restrict__ out,
+            unsigned long long* __restrict__ stats) {
   const unsigned FULL = 0xffffffffu;
   const int lane = threadIdx.x & 31;
 
@@ -150,8 +168,8 @@ __global__ void __launch_bounds__(128) uber_kernel(
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_t = P.t_max;
   int qs = 0, cnt = 0;
   float stack[MAX_Q * REC];
-  unsigned long long n_rays = 0, n_drop = 0, n_tests = 0;
-  unsigned long long n_slab = 0, n_other = 0, n_hits = 0;  // generic mode only
+  unsigned n_rays = 0, n_drop = 0, n_hits = 0;  // this thread's; n_hits: generic only
+  rt::WarpCounts wc = {};
 
   for (;;) {
     // ---- lanes whose tree ended take the next primaries ------------------
@@ -180,27 +198,24 @@ __global__ void __launch_bounds__(128) uber_kernel(
       }
     }
     if (__all_sync(FULL, !act)) break;
-    if (!act) continue;  // idle lanes wait at the ballot for the busy ones
 
-    // ---- trace + shade one node -----------------------------------------
+    // ---- trace one node: every lane of the warp sweeps together ----------
     const bool live =
-        (cur.dx * cur.dx + cur.dy * cur.dy + cur.dz * cur.dz) > 0.5f;
+        act && (cur.dx * cur.dx + cur.dy * cur.dy + cur.dz * cur.dz) > 0.5f;
     float t_best;
     int obj;
-    if constexpr (GENERIC) {
-      unsigned counts[rt::GC_LEN] = {0, 0, 0};
-      rt::nearest_hit_g<MOTION>(T, cur.ox, cur.oy, cur.oz, cur.dx, cur.dy,
-                                cur.dz, omt, live, P.t_max, t_best, obj, counts);
-      n_slab += counts[rt::GC_SLAB];
-      n_tests += counts[rt::GC_SPHERE_ROWS];
-      n_other += counts[rt::GC_OTHER_ROWS];
-      if (obj >= 0) n_hits += 1;
-    } else {
-      unsigned tests = 0;
-      rt::nearest_hit<MOTION>(T, cur.ox, cur.oy, cur.oz, cur.dx, cur.dy, cur.dz,
-                              omt, live, P.t_max, t_best, obj, tests);
-      n_tests += tests;
-    }
+    if constexpr (GENERIC)
+      rt::warp_nearest_hit_g<MOTION>(T, live_rows, P.coop_min, lane, cur.ox, cur.oy,
+                                     cur.oz, cur.dx, cur.dy, cur.dz, omt, live,
+                                     P.t_max, t_best, obj, wc);
+    else
+      rt::warp_nearest_hit<MOTION>(T, live_rows, P.coop_min, lane, cur.ox, cur.oy,
+                                   cur.oz, cur.dx, cur.dy, cur.dz, omt, live,
+                                   P.t_max, t_best, obj, wc);
+    if (!act) continue;  // a lane without a tree only served rows
+
+    // ---- shade it ---------------------------------------------------------
+    if (GENERIC && obj >= 0) n_hits += 1;
 
     float add_r, add_g, add_b, hit_t;
     bool sp_refr = false, sp_refl = false;
@@ -293,26 +308,35 @@ __global__ void __launch_bounds__(128) uber_kernel(
   }
 
   // ---- frame counters: warp reduce, one atomic per warp and counter ------
+  unsigned long long rays = n_rays, drop = n_drop, n_tests = wc.tests, n_rows = wc.rows,
+                     n_slots = wc.slots, n_coop = wc.coop;
   for (int off = 16; off > 0; off >>= 1) {
-    n_rays += __shfl_down_sync(FULL, n_rays, off);
-    n_drop += __shfl_down_sync(FULL, n_drop, off);
+    rays += __shfl_down_sync(FULL, rays, off);
+    drop += __shfl_down_sync(FULL, drop, off);
     n_tests += __shfl_down_sync(FULL, n_tests, off);
+    n_rows += __shfl_down_sync(FULL, n_rows, off);
+    n_slots += __shfl_down_sync(FULL, n_slots, off);
+    n_coop += __shfl_down_sync(FULL, n_coop, off);
   }
   if (lane == 0) {
-    atomicAdd(&stats[ST_RAYS], n_rays);
-    atomicAdd(&stats[ST_DROPPED], n_drop);
+    atomicAdd(&stats[ST_RAYS], rays);
+    atomicAdd(&stats[ST_DROPPED], drop);
     atomicAdd(&stats[ST_SPHERE_TESTS], n_tests);
+    atomicAdd(&stats[ST_ROW_TESTS], n_rows);
+    atomicAdd(&stats[ST_LANE_SLOTS], n_slots);
+    atomicAdd(&stats[ST_COOP_VISITS], n_coop);
   }
   if constexpr (GENERIC) {
+    unsigned long long n_slab = wc.slab, n_other = wc.other, hits = n_hits;
     for (int off = 16; off > 0; off >>= 1) {
       n_slab += __shfl_down_sync(FULL, n_slab, off);
       n_other += __shfl_down_sync(FULL, n_other, off);
-      n_hits += __shfl_down_sync(FULL, n_hits, off);
+      hits += __shfl_down_sync(FULL, hits, off);
     }
     if (lane == 0) {
       atomicAdd(&stats[ST_SLAB_TESTS], n_slab);
       atomicAdd(&stats[ST_OTHER_TESTS], n_other);
-      atomicAdd(&stats[ST_HITS], n_hits);
+      atomicAdd(&stats[ST_HITS], hits);
     }
   }
 }
@@ -321,7 +345,8 @@ __global__ void __launch_bounds__(128) uber_kernel(
 // frame has primaries for.
 template <bool GENERIC, bool MOTION>
 int launch_uber(const rt::Tables& T, const UberParams& P, const float* cam,
-                float4* out, unsigned long long* stats, cudaStream_t stream) {
+                const int* live_rows, float4* out, unsigned long long* stats,
+                cudaStream_t stream) {
   const int threads = 128;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -335,7 +360,7 @@ int launch_uber(const rt::Tables& T, const UberParams& P, const float* cam,
   long long blocks = (long long)sms * per_sm;
   const long long needed = ((long long)P.B_total + threads - 1) / threads;
   if (blocks > needed) blocks = needed;
-  RT_LAUNCH(kernel, (int)blocks, threads, stream, T, P, cam, out, stats);
+  RT_LAUNCH(kernel, (int)blocks, threads, stream, T, P, cam, live_rows, out, stats);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -345,13 +370,14 @@ int launch_uber(const rt::Tables& T, const UberParams& P, const float* cam,
 extern "C" int rt_uber_max_q(void) { return MAX_Q; }
 
 // out: (B_total, 4) float32; stats: uint64[ST_LEN], zeroed by the caller;
-// cam: device (24,) float32; ip / fp: HOST parameter vectors (IP_* / FP_*
+// cam: device (24,) float32; live_rows: device (n_groups,) int32, each main
+// group's last live row + 1; ip / fp: HOST parameter vectors (IP_* / FP_*
 // above); ip[IP_GENERIC] and ip[IP_MOTION] pick the instantiation, and with
 // it the layout the three tables must have.  Launches on `stream`, does not synchronise, returns
 // cudaGetLastError().
 extern "C" int rt_uber_render(const void* otab, const void* ftab,
-                              const void* gaabb, const void* cam,
-                              const int* ip, const float* fp,
+                              const void* gaabb, const void* live_rows,
+                              const void* cam, const int* ip, const float* fp,
                               long long B_total, void* out, void* stats,
                               void* stream) {
   if (B_total <= 0) return 0;
@@ -371,6 +397,7 @@ extern "C" int rt_uber_render(const void* otab, const void* ftab,
   P.spp = ip[IP_SPP];
   P.Q = ip[IP_Q];
   P.pops = ip[IP_POPS];
+  P.coop_min = ip[IP_COOP_MIN];
   P.B_total = (unsigned long long)B_total;
   P.t_max = fp[FP_TMAX];
   P.golden = fp[FP_GOLDEN];
@@ -389,12 +416,13 @@ extern "C" int rt_uber_render(const void* otab, const void* ftab,
   P.shade.has_dielectrics = ip[IP_HAS_DIEL];
 
   const float* camp = static_cast<const float*>(cam);
+  const int* live = static_cast<const int*>(live_rows);
   float4* outp = static_cast<float4*>(out);
   unsigned long long* statp = static_cast<unsigned long long*>(stats);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ip[IP_GENERIC])
-    return ip[IP_MOTION] ? launch_uber<true, true>(T, P, camp, outp, statp, st)
-                         : launch_uber<true, false>(T, P, camp, outp, statp, st);
-  return ip[IP_MOTION] ? launch_uber<false, true>(T, P, camp, outp, statp, st)
-                       : launch_uber<false, false>(T, P, camp, outp, statp, st);
+    return ip[IP_MOTION] ? launch_uber<true, true>(T, P, camp, live, outp, statp, st)
+                         : launch_uber<true, false>(T, P, camp, live, outp, statp, st);
+  return ip[IP_MOTION] ? launch_uber<false, true>(T, P, camp, live, outp, statp, st)
+                       : launch_uber<false, false>(T, P, camp, live, outp, statp, st);
 }

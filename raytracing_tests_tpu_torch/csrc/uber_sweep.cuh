@@ -1,0 +1,360 @@
+// Warp-cooperative nearest-hit sweeps of the persistent path tracer (uber.cu).
+//
+// rt::nearest_hit / rt::nearest_hit_g (rt_common.cuh) are one thread's walk:
+// each lane enters the groups its own slab test admits and solves every row
+// of each, so a warp issues the rows of the UNION of its lanes' groups while
+// the lanes that did not enter idle.  Here the whole warp takes every group
+// step together:
+//
+//   - each live lane does its own slab test against its own t_best, exactly
+//     as the per-thread walk does; m = ballot(entered);
+//   - popc(m) >= coop_min: the lanes in m run the per-lane row loop (the
+//     per-thread schedule);
+//   - otherwise the group is swept ROW-PARALLEL, once for each lane L in m:
+//     L's ray constants are broadcast, every lane of the warp (entered or
+//     not, live or not) evaluates rows lane, lane + W, ... with exactly the
+//     per-lane expression, two warp reductions take the lexicographic
+//     minimum of (t, row), and L keeps it if it is below its t_best.
+//
+// Both modes give the same (t_best, obj) bit for bit under -fmad=false: the
+// per-pair arithmetic is the same expression on the same operands, and the
+// lowest row that reaches the minimum is what the sequential strict-< scan
+// keeps.  Every lane must call these functions together (full-mask ballots
+// and shuffles): a lane with no ray enters with live = false and serves rows.
+//
+// Rows past a group's last live row (live_rows[g], from the wrapper) are
+// never read: dead rows cannot win, so the bound changes no result.  The ray's
+// own reciprocals (1/dx, 1/dy, 1/dz of the generic unrotated and y-rotated
+// cuboid rows) are computed once per node: the same IEEE division of the same
+// operand as per row.
+#pragma once
+
+#include "rt_common.cuh"
+
+// Lanes of a warp.  host_shim.h sets 1: there a warp is one lane and the row
+// stride is 1, so the host rehearsal runs both modes through the same code.
+#ifndef RT_WARP_LANES
+#define RT_WARP_LANES 32
+#endif
+
+namespace rt {
+
+constexpr unsigned WARP_FULL = 0xffffffffu;
+
+// Work counters of the warp sweeps (measurement only), one thread's share of
+// a frame (32 bits hold it; the kernel sums them in 64).  `tests`:
+// ST_SPHERE_TESTS (sphere mode: gr per entered group; generic mode: live
+// sphere-kind rows); `other`: generic live rows of other kinds; `slab`:
+// generic slab tests; `rows`: rows up to the live bound of each group a lane
+// entered (the rows its own walk needs); `slots`: RT_WARP_LANES x the row
+// iterations the warp issued, and `coop`: group visits served row-parallel,
+// both added by lane 0 only (one add per warp and group).
+struct WarpCounts {
+  unsigned tests, other, slab, rows, slots, coop;
+};
+
+// Lexicographic minimum of (t, row) over the warp: the smaller t, and on a
+// tie the lower row.  A lane with no candidate holds (its start t, -1), which
+// as unsigned loses every tie.  Every t here is positive (a start t_best > 0,
+// or a candidate below it), and the bits of a positive float order as the
+// float does: two warp reductions, the least t and then the least row that
+// holds it (a 5-step shuffle butterfly measured slower: PERF.md).
+__device__ __forceinline__ void warp_argmin(float& t, int& row) {
+  const unsigned tbits = __reduce_min_sync(WARP_FULL, __float_as_uint(t));
+  row = (int)__reduce_min_sync(WARP_FULL,
+                               __float_as_uint(t) == tbits ? (unsigned)row : 0xffffffffu);
+  t = __uint_as_float(tbits);
+}
+
+// Row iterations a row-parallel pass over n rows issues.
+__device__ __forceinline__ unsigned coop_iters(int n) {
+  return (unsigned)((n + RT_WARP_LANES - 1) / RT_WARP_LANES);
+}
+
+// One sphere row in the group-anchored frame (s = o - anchor, od = s.d,
+// oo = s.s): its t, or -1 where the quadratic has no root in front.  The
+// expression of rt::nearest_hit's row loop.
+template <bool MOTION>
+__device__ __forceinline__ float sphere_row_t(const float* row, float sx, float sy,
+                                              float sz, float dx, float dy, float dz,
+                                              float od, float oo, float omt) {
+  const float4 c = ld4(row);  // cx cy cz k1
+  const float DC = c.x * dx + c.y * dy + c.z * dz;
+  const float OC = c.x * sx + c.y * sy + c.z * sz;
+  float nb = DC - od;  // = -half_b
+  float c_q = oo + c.w - 2.0f * OC;
+  if (MOTION) {
+    const float4 k = ld4(row + 4);  // ri rinv2 k2 k3
+    const float4 m = ld4(row + 8);  // dpx dpy dpz 0
+    const float DDP = m.x * dx + m.y * dy + m.z * dz;
+    const float ODP = m.x * sx + m.y * sy + m.z * sz;
+    nb = nb - omt * DDP;
+    c_q = c_q + omt * (2.0f * ODP - k.z) + (omt * omt) * k.w;
+  }
+  const float disc = nb * nb - c_q;
+  if (!(disc > 0.0f)) return -1.0f;
+  const float sq = sqrtf(disc);
+  const float tn = nb - sq;  // near root (a == 1)
+  return tn > 0.0f ? tn : nb + sq;
+}
+
+// Warp-cooperative rt::nearest_hit<MOTION> (see the file comment).
+template <bool MOTION>
+__device__ __forceinline__ void warp_nearest_hit(
+    const Tables& T, const int* __restrict__ live_rows, int coop_min, int lane,
+    float ox, float oy, float oz, float dx, float dy, float dz, float omt,
+    bool live, float tlim, float& t_best, int& obj, WarpCounts& wc) {
+  constexpr int COLS = MOTION ? OT_COLS_MOTION : OT_COLS;
+  t_best = fminf(BIG_T, tlim);
+  obj = -1;
+  if (__ballot_sync(WARP_FULL, live) == 0u) return;
+  const float eps = 1e-12f;
+  const float ix = 1.0f / (fabsf(dx) < eps ? eps : dx);
+  const float iy = 1.0f / (fabsf(dy) < eps ? eps : dy);
+  const float iz = 1.0f / (fabsf(dz) < eps ? eps : dz);
+  for (int g = 0; g < T.n_groups; ++g) {
+    const float* ga = T.gaabb + g * GA_COLS;
+    const float4 a0 = ld4(ga);      // lo.x lo.y lo.z hi.x
+    const float4 a1 = ld4(ga + 4);  // hi.y hi.z an.x an.y
+    bool entered = false;
+    if (live) {
+      const float u1 = (a0.x - ox) * ix, w1 = (a0.w - ox) * ix;
+      const float u2 = (a0.y - oy) * iy, w2 = (a1.x - oy) * iy;
+      const float u3 = (a0.z - oz) * iz, w3 = (a1.y - oz) * iz;
+      const float tmin = fmaxf(fmaxf(fminf(u1, w1), fminf(u2, w2)), fminf(u3, w3));
+      const float tmax = fminf(fminf(fmaxf(u1, w1), fmaxf(u2, w2)), fmaxf(u3, w3));
+      entered = (tmax > tmin) && (tmax > 0.0f) && (tmin < t_best);
+    }
+    const unsigned m = __ballot_sync(WARP_FULL, entered);
+    if (m == 0u) continue;
+    const int n = __ldg(live_rows + g);
+    const int row0 = g * T.gr;
+    const float* rows = T.otab + (size_t)row0 * COLS;
+    // Shift the ray into the group-anchored frame.
+    const float sx = ox - a1.z, sy = oy - a1.w, sz = oz - __ldg(ga + 8);
+    const float od = sx * dx + sy * dy + sz * dz;
+    const float oo = sx * sx + sy * sy + sz * sz;
+    if (entered) {
+      wc.tests += (unsigned)T.gr;
+      wc.rows += (unsigned)n;
+    }
+    if (__popc(m) >= coop_min) {
+      if (lane == 0) wc.slots += RT_WARP_LANES * (unsigned)n;
+      if (entered) {
+        for (int r = 0; r < n; ++r) {
+          const float t = sphere_row_t<MOTION>(rows + r * COLS, sx, sy, sz, dx, dy, dz,
+                                               od, oo, omt);
+          if (t > 0.0f && t < t_best) {
+            t_best = t;
+            obj = row0 + r;
+          }
+        }
+      }
+      continue;
+    }
+    if (lane == 0) {
+      wc.coop += 1;
+      wc.slots += RT_WARP_LANES * coop_iters(n) * (unsigned)__popc(m);
+    }
+    for (unsigned mm = m; mm != 0u; mm &= mm - 1u) {
+      const int L = __ffs(mm) - 1;
+      const float lsx = __shfl_sync(WARP_FULL, sx, L);
+      const float lsy = __shfl_sync(WARP_FULL, sy, L);
+      const float lsz = __shfl_sync(WARP_FULL, sz, L);
+      const float ldx = __shfl_sync(WARP_FULL, dx, L);
+      const float ldy = __shfl_sync(WARP_FULL, dy, L);
+      const float ldz = __shfl_sync(WARP_FULL, dz, L);
+      const float lod = __shfl_sync(WARP_FULL, od, L);
+      const float loo = __shfl_sync(WARP_FULL, oo, L);
+      const float lomt = MOTION ? __shfl_sync(WARP_FULL, omt, L) : 0.0f;
+      float bt = __shfl_sync(WARP_FULL, t_best, L);
+      int br = -1;
+      for (int r = lane; r < n; r += RT_WARP_LANES) {
+        const float t = sphere_row_t<MOTION>(rows + r * COLS, lsx, lsy, lsz, ldx, ldy, ldz,
+                                             lod, loo, lomt);
+        if (t > 0.0f && t < bt) {
+          bt = t;
+          br = r;
+        }
+      }
+      warp_argmin(bt, br);
+      if (lane == L && br >= 0) {
+        t_best = bt;
+        obj = row0 + br;
+      }
+    }
+  }
+}
+
+// The ray's own reciprocals, hoisted out of the cuboid rows.
+struct RayRcp {
+  float x, y, z;
+};
+
+// Cuboid t from the local origin and the reciprocals of the local direction:
+// rt::cub_t_inf after its three divisions.
+__device__ __forceinline__ float cub_t_rcp(float lox, float loy, float loz, float i1,
+                                           float i2, float i3, float sx, float sy,
+                                           float sz) {
+  const float u1 = (-0.5f * sx - lox) * i1, w1 = (0.5f * sx - lox) * i1;
+  const float u2 = (-0.5f * sy - loy) * i2, w2 = (0.5f * sy - loy) * i2;
+  const float u3 = (-0.5f * sz - loz) * i3, w3 = (0.5f * sz - loz) * i3;
+  if (u1 != u1 || w1 != w1 || u2 != u2 || w2 != w2 || u3 != u3 || w3 != w3)
+    return BIG_T;
+  return slab_t(u1, w1, u2, w2, u3, w3);
+}
+
+// One generic row's candidate t by its group's kind, or BIG_T for a dead row
+// or a miss; `live_rows_of_kind` gains 1 for a live row.  The expressions of
+// rt::sweep_group_g, with 1/d taken from `rcp`.
+template <bool MOTION>
+__device__ __forceinline__ float generic_row_t(const float* row, int kind, float ox,
+                                               float oy, float oz, float dx, float dy,
+                                               float dz, RayRcp rcp, float omt,
+                                               unsigned& live_rows_of_kind) {
+  const float4 p = ld4(row);      // px py pz type
+  const float4 m = ld4(row + 4);  // dpx dpy dpz valid
+  if (!(m.w > 0.0f)) return BIG_T;  // dead and padding rows
+  live_rows_of_kind += 1;
+  const float4 s = ld4(row + 8);  // sx sy sz ri
+  float rx = ox - p.x, ry = oy - p.y, rz = oz - p.z;
+  if (MOTION) {
+    rx = rx + omt * m.x;
+    ry = ry + omt * m.y;
+    rz = rz + omt * m.z;
+  }
+  if (kind == GK_SPHERE) {
+    // Isotropic sphere, unit direction: the world-frame quadratic, a = 1.
+    const float hb = rx * dx + ry * dy + rz * dz;
+    const float cq = rx * rx + ry * ry + rz * rz - s.x * s.x;
+    const float disc = hb * hb - cq;
+    if (!(disc > 0.0f)) return BIG_T;
+    const float sq = sqrtf(disc);
+    const float t0 = -hb - sq, t1 = -hb + sq;
+    const float t_e = t0 < 0.0f ? t1 : t0;
+    return t_e > 0.0f ? t_e : BIG_T;
+  }
+  if (kind == GK_AXIS) return cub_t_rcp(rx, ry, rz, rcp.x, rcp.y, rcp.z, s.x, s.y, s.z);
+  if (kind == GK_YROT) {
+    // Rotation about y: four live matrix entries; the local dy is the ray's.
+    const float r0 = __ldg(row + GO_R00), r2 = __ldg(row + GO_R00 + 2);
+    const float r6 = __ldg(row + GO_R00 + 6), r8 = __ldg(row + GO_R00 + 8);
+    const float ldx = r0 * dx + r6 * dz, ldz = r2 * dx + r8 * dz;
+    return cub_t_rcp(r0 * rx + r6 * rz, ry, r2 * rx + r8 * rz, 1.0f / ldx, rcp.y,
+                     1.0f / ldz, s.x, s.y, s.z);
+  }
+  const float4 ra = ld4(row + GO_R00);      // R00 R01 R02 R10
+  const float4 rb = ld4(row + GO_R00 + 4);  // R11 R12 R20 R21
+  const float r22 = __ldg(row + GO_R00 + 8);
+  // local = R^T rel: column dot products
+  const float lox = ra.x * rx + ra.w * ry + rb.z * rz;
+  const float loy = ra.y * rx + rb.x * ry + rb.w * rz;
+  const float loz = ra.z * rx + rb.y * ry + r22 * rz;
+  const float ldx = ra.x * dx + ra.w * dy + rb.z * dz;
+  const float ldy = ra.y * dx + rb.x * dy + rb.w * dz;
+  const float ldz = ra.z * dx + rb.y * dy + r22 * dz;
+  if (kind == GK_ELL) return ell_t_div(lox, loy, loz, ldx, ldy, ldz, s.x, s.y, s.z);
+  if (kind == GK_CUB) return cub_t_inf(lox, loy, loz, ldx, ldy, ldz, s.x, s.y, s.z);
+  return p.w == ELLIPSOID ? ell_t_div(lox, loy, loz, ldx, ldy, ldz, s.x, s.y, s.z)
+                          : cub_t_div(lox, loy, loz, ldx, ldy, ldz, s.x, s.y, s.z);
+}
+
+// Warp-cooperative rt::nearest_hit_g<MOTION>: the super-group and group slab
+// tests stay per lane, the cooperative step applies per main group.
+template <bool MOTION>
+__device__ __forceinline__ void warp_nearest_hit_g(
+    const Tables& T, const int* __restrict__ live_rows, int coop_min, int lane,
+    float ox, float oy, float oz, float dx, float dy, float dz, float omt,
+    bool live, float tlim, float& t_best, int& obj, WarpCounts& wc) {
+  t_best = fminf(BIG_T, tlim);
+  obj = -1;
+  if (__ballot_sync(WARP_FULL, live) == 0u) return;
+  const float eps = 1e-12f;
+  const float ix = 1.0f / (fabsf(dx) < eps ? eps : dx);
+  const float iy = 1.0f / (fabsf(dy) < eps ? eps : dy);
+  const float iz = 1.0f / (fabsf(dz) < eps ? eps : dz);
+  const RayRcp rcp = {1.0f / dx, 1.0f / dy, 1.0f / dz};
+  const int n_super = T.n_sgroups > 0 ? T.n_sgroups : 1;
+  const float* sga = T.gaabb + (size_t)(T.n_groups + T.n_pgroups) * GA_COLS;
+  for (int s = 0; s < n_super; ++s) {
+    int g0 = 0, g1 = T.n_groups;
+    bool in_super = live;
+    if (T.n_sgroups > 0) {
+      if (live) {
+        wc.slab += 1;
+        in_super = slab_hit(sga + s * GA_COLS, ox, oy, oz, ix, iy, iz, t_best);
+      }
+      if (__ballot_sync(WARP_FULL, in_super) == 0u) continue;
+      g0 = s * SG;
+      g1 = g0 + SG < T.n_groups ? g0 + SG : T.n_groups;
+    }
+    for (int g = g0; g < g1; ++g) {
+      const float* ga = T.gaabb + g * GA_COLS;
+      bool entered = false;
+      if (in_super) {
+        wc.slab += 1;
+        entered = slab_hit(ga, ox, oy, oz, ix, iy, iz, t_best);
+      }
+      const unsigned m = __ballot_sync(WARP_FULL, entered);
+      if (m == 0u) continue;
+      const int kind = (int)__ldg(ga + 6);
+      const int n = __ldg(live_rows + g);
+      const int row0 = g * T.gr;
+      const float* rows = T.otab + (size_t)row0 * GO_COLS;
+      unsigned n_live = 0;  // live rows this lane tested, by the group's kind
+      if (entered) wc.rows += (unsigned)n;
+      if (__popc(m) >= coop_min) {
+        if (lane == 0) wc.slots += RT_WARP_LANES * (unsigned)n;
+        if (entered) {
+          for (int r = 0; r < n; ++r) {
+            const float tc = generic_row_t<MOTION>(rows + r * GO_COLS, kind, ox, oy, oz,
+                                                   dx, dy, dz, rcp, omt, n_live);
+            if (tc < t_best) {  // ties keep the lower row
+              t_best = tc;
+              obj = row0 + r;
+            }
+          }
+        }
+      } else {
+        if (lane == 0) {
+          wc.coop += 1;
+          wc.slots += RT_WARP_LANES * coop_iters(n) * (unsigned)__popc(m);
+        }
+        for (unsigned mm = m; mm != 0u; mm &= mm - 1u) {
+          const int L = __ffs(mm) - 1;
+          const float lox = __shfl_sync(WARP_FULL, ox, L);
+          const float loy = __shfl_sync(WARP_FULL, oy, L);
+          const float loz = __shfl_sync(WARP_FULL, oz, L);
+          const float ldx = __shfl_sync(WARP_FULL, dx, L);
+          const float ldy = __shfl_sync(WARP_FULL, dy, L);
+          const float ldz = __shfl_sync(WARP_FULL, dz, L);
+          const RayRcp lrcp = {__shfl_sync(WARP_FULL, rcp.x, L),
+                               __shfl_sync(WARP_FULL, rcp.y, L),
+                               __shfl_sync(WARP_FULL, rcp.z, L)};
+          const float lomt = MOTION ? __shfl_sync(WARP_FULL, omt, L) : 0.0f;
+          float bt = __shfl_sync(WARP_FULL, t_best, L);
+          int br = -1;
+          for (int r = lane; r < n; r += RT_WARP_LANES) {
+            const float tc = generic_row_t<MOTION>(rows + r * GO_COLS, kind, lox, loy, loz,
+                                                   ldx, ldy, ldz, lrcp, lomt, n_live);
+            if (tc < bt) {
+              bt = tc;
+              br = r;
+            }
+          }
+          warp_argmin(bt, br);
+          if (lane == L && br >= 0) {
+            t_best = bt;
+            obj = row0 + br;
+          }
+        }
+      }
+      if (kind == GK_SPHERE)
+        wc.tests += n_live;
+      else
+        wc.other += n_live;
+    }
+  }
+}
+
+}  // namespace rt

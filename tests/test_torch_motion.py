@@ -350,3 +350,33 @@ def test_uber_kernel_motion_instantiations_rehearsed_on_the_host(frames, mode):
     np.testing.assert_allclose(got[:, 3].numpy(), want[:, 3].numpy(), rtol=1e-5)
     cerr = (got[:, :3] - want[:, :3]).abs().amax(dim=1)
     assert (cerr <= 1e-4).float().mean() >= 0.999, float((cerr <= 1e-4).float().mean())
+
+
+@pytest.mark.parametrize("coop_min", [1, 33])
+@pytest.mark.parametrize("mode", ["spheres", "generic"])
+def test_uber_kernel_motion_instantiations_rehearsed_on_the_host_in_each_schedule(
+        frames, mode, coop_min):
+    """... in each forced sweep schedule: the bars above, and the default
+    schedule's output and counters bit for bit."""
+    _need_gxx()
+    if mode == "spheres":
+        scene, cam_, cfg, gr = frames["ts"], frames["tc"], frames["tcfg"], 8
+    else:
+        scene, cam_, cfg = _moving_generic()
+        gr = 16
+    accel, cam = tub._scene_accel(scene, cam_, cfg, gr)
+    st = tub.UberStatics.from_cfg(cfg)
+    want, stats_p = tub.uber_render_plain(accel, cam, st)
+    with _build.host_rehearsal():
+        base, stats_base = tub._launch_uber(accel, cam, st)
+        with tub._forced_coop_min(coop_min):
+            got, stats = tub._launch_uber(accel, cam, st)
+    assert int(stats[tub.ST_RAYS]) == int(stats_p[tub.ST_RAYS])
+    assert int(stats[tub.ST_DROPPED]) == int(stats_p[tub.ST_DROPPED]) == 0
+    np.testing.assert_allclose(got[:, 3].numpy(), want[:, 3].numpy(), rtol=1e-5)
+    cerr = (got[:, :3] - want[:, :3]).abs().amax(dim=1)
+    assert (cerr <= 1e-4).float().mean() >= 0.999, float((cerr <= 1e-4).float().mean())
+    assert torch.equal(got, base)
+    same = slice(tub.ST_RAYS, tub.ST_ROW_TESTS + 1)
+    assert torch.equal(stats[same], stats_base[same])
+    assert (int(stats[tub.ST_COOP_VISITS]) > 0) == (coop_min > 1)

@@ -251,9 +251,12 @@ def test_uber_generic_plain_version_counts_its_work(generic_frames):
     assert int(stats[tub.ST_DROPPED]) == 0
 
 
-def _rehearse_on_the_host(scene, cam_, cfg, gr):
+def _rehearse_on_the_host(scene, cam_, cfg, gr, coop_min=None):
     """The CUDA source of the persistent kernel, compiled as host C++, and
-    the plain version on the same frame -> (got, stats, want, stats_plain)."""
+    the plain version on the same frame -> (got, stats, want, stats_plain).
+    ``coop_min`` forces the kernel's sweep schedule (1: per lane, 33:
+    row-parallel); the host's warp is one lane (``RT_WARP_LANES``)."""
+    import contextlib
     import shutil
 
     from raytracing_tests_tpu_torch.kernels import _build
@@ -263,9 +266,25 @@ def _rehearse_on_the_host(scene, cam_, cfg, gr):
     accel, cam = tub._scene_accel(scene, cam_, cfg, gr)
     st = tub.UberStatics.from_cfg(cfg)
     want, stats_p = tub.uber_render_plain(accel, cam, st)
-    with _build.host_rehearsal():
+    forced = contextlib.nullcontext() if coop_min is None else tub._forced_coop_min(coop_min)
+    with _build.host_rehearsal(), forced:
         got, stats = tub._launch_uber(accel, cam, st)
     return got, stats, want, stats_p
+
+
+# The counters every sweep schedule must give alike (the last three measure the
+# schedule itself).
+SAME_IN_EVERY_SCHEDULE = slice(tub.ST_RAYS, tub.ST_ROW_TESTS + 1)
+
+
+def _assert_schedule_is_exact(got, stats, base, stats_base, coop_min):
+    """A forced schedule against the default one on the host: the same
+    output bit for bit and the same counters; on a one-lane warp every lane
+    slot holds a row test; row-parallel visits only where forced."""
+    assert torch.equal(got, base)
+    assert torch.equal(stats[SAME_IN_EVERY_SCHEDULE], stats_base[SAME_IN_EVERY_SCHEDULE])
+    assert int(stats[tub.ST_ROW_TESTS]) == int(stats[tub.ST_LANE_SLOTS]) > 0
+    assert (int(stats[tub.ST_COOP_VISITS]) > 0) == (coop_min > 1)
 
 
 def test_generic_kernel_source_rehearsed_on_the_host(generic_frames):
@@ -297,3 +316,133 @@ def test_sphere_kernel_source_rehearsed_on_the_host(frames):
     cerr = (got[:, :3] - want[:, :3]).abs().amax(dim=1) <= 1e-4
     assert terr.float().mean() >= 0.95 and cerr.float().mean() >= 0.95, (
         float(terr.float().mean()), float(cerr.float().mean()))
+
+
+@pytest.mark.parametrize("coop_min", [1, 33])
+def test_generic_kernel_source_rehearsed_on_the_host_in_each_schedule(generic_frames, coop_min):
+    """Each forced sweep schedule of the generic instantiation, by the bars
+    of ``test_generic_kernel_source_rehearsed_on_the_host``, and equal to the
+    default schedule bit for bit."""
+    f = generic_frames
+    got, stats, want, stats_p = _rehearse_on_the_host(f["ts"], f["tc"], f["tcfg"], f["gr"],
+                                                      coop_min)
+    assert int(stats[tub.ST_RAYS]) == int(stats_p[tub.ST_RAYS])
+    assert int(stats[tub.ST_DROPPED]) == int(stats_p[tub.ST_DROPPED]) == 0
+    assert int(stats[tub.ST_HITS]) > 0 and int(stats[tub.ST_SLAB_TESTS]) > 0
+    np.testing.assert_allclose(got[:, 3].numpy(), want[:, 3].numpy(), rtol=1e-5)
+    cerr = (got[:, :3] - want[:, :3]).abs().amax(dim=1)
+    assert (cerr <= 1e-4).float().mean() >= 0.999, float((cerr <= 1e-4).float().mean())
+    base, stats_base, _, _ = _rehearse_on_the_host(f["ts"], f["tc"], f["tcfg"], f["gr"])
+    _assert_schedule_is_exact(got, stats, base, stats_base, coop_min)
+
+
+@pytest.mark.parametrize("coop_min", [1, 33])
+def test_sphere_kernel_source_rehearsed_on_the_host_in_each_schedule(frames, coop_min):
+    """... and of the sphere instantiation, by the bars of
+    ``test_sphere_kernel_source_rehearsed_on_the_host``."""
+    f = frames
+    got, stats, want, stats_p = _rehearse_on_the_host(f["ts"], f["tc"], f["tcfg"], 32, coop_min)
+    rays, rays_p = int(stats[tub.ST_RAYS]), int(stats_p[tub.ST_RAYS])
+    assert abs(rays - rays_p) / rays_p < 5e-3 and int(stats[tub.ST_DROPPED]) == 0
+    terr = (got[:, 3] - want[:, 3]).abs() <= 1e-4 * want[:, 3]
+    cerr = (got[:, :3] - want[:, :3]).abs().amax(dim=1) <= 1e-4
+    assert terr.float().mean() >= 0.95 and cerr.float().mean() >= 0.95, (
+        float(terr.float().mean()), float(cerr.float().mean()))
+    base, stats_base, _, _ = _rehearse_on_the_host(f["ts"], f["tc"], f["tcfg"], 32)
+    _assert_schedule_is_exact(got, stats, base, stats_base, coop_min)
+
+
+def _tie_scene(generic):
+    """Two identical spheres (or y-rotated boxes) in one group, in two
+    colours, seen head on: every hit is a tie."""
+    b = ttypes.SceneBuilder()
+    for colour in ((0.9, 0.1, 0.1), (0.1, 0.1, 0.9)):
+        if generic:
+            b.add_box((0.0, 0.0, -3.0), (1.2, 1.2, 1.2), rotation_deg=(0.0, 30.0, 0.0),
+                      color=colour)
+        else:
+            b.add_sphere((0.0, 0.0, -3.0), 0.8, color=colour)
+    cam = ttypes.Camera.make((0.0, 0.0, 0.0), (0.0, 0.0, -1.0), fov_y_deg=40.0, focus_dist=3.0)
+    return b.build(), cam
+
+
+@pytest.mark.parametrize("coop_min", [1, 33])
+@pytest.mark.parametrize("mode", ["spheres", "generic"])
+def test_a_tie_goes_to_the_lower_row_in_each_schedule(mode, coop_min):
+    """Every hit sample takes the colour of the object in the lower row, in
+    the plain version and in the kernel's source under each schedule."""
+    scene, cam_ = _tie_scene(mode == "generic")
+    cfg = RenderConfig(width=16, height=12, spp=2, max_bounces=4,
+                       intersector="pallas").for_scene(scene)
+    assert cfg.pallas_mode == mode
+    got, _, want, _ = _rehearse_on_the_host(scene, cam_, cfg, 8, coop_min)
+    accel, _ = tub._scene_accel(scene, cam_, cfg, 8)
+    rows = [int((accel.perm[:accel.n_pad] == i).nonzero()[0]) for i in range(2)]
+    assert rows[0] // 8 == rows[1] // 8  # one group
+    winner = scene.color[rows.index(min(rows))]
+    for out in (got, want):
+        hit = out[:, 3] < cfg.t_max
+        assert 0.1 < float(hit.float().mean()) < 0.9
+        assert (out[hit, :3] == winner).all()
+
+
+# name -> example scene; every example through the accel render_uber builds
+EXAMPLES = {
+    "sphere": lambda: tex.sphere_scene(),
+    "groups": lambda: tex.groups_scene(),
+    "motion_blur": lambda: tex.motion_blur_scene(),
+    "bvh_grid": lambda: tex.bvh_grid_scene(),
+    "bvh_grid32": lambda: tex.bvh_grid_scene(side=32),
+    "iow_final5": lambda: tex.iow_final_scene(side=5),
+    "iow_final": lambda: tex.iow_final_scene(),
+}
+
+
+@pytest.mark.parametrize("name", list(EXAMPLES))
+def test_live_row_bounds_match_the_tables(name):
+    """The bound the kernel takes per group is the last live row + 1 as the
+    tables say (K1 < BIG_T in sphere mode, ``valid`` in generic mode), read
+    row by row: every row at or past it is dead, so skipping them changes no
+    result."""
+    from raytracing_tests_tpu_torch.kernels import sweep2, sweep2g
+
+    scene, cam = EXAMPLES[name]()
+    cfg = RenderConfig(intersector="pallas").for_scene(scene)
+    gr = min(64, max(8, -(-scene.capacity // 8) * 8))  # as render_uber clamps it
+    accel, _ = tub._scene_accel(scene, cam, cfg, gr)
+    got = tub.live_row_bounds(accel)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (accel.n_groups,)
+    otab = accel.otab.numpy()
+    want = []
+    for g in range(accel.n_groups):
+        bound = 0
+        for r in range(accel.gr):
+            row = otab[g * accel.gr + r]
+            if accel.mode == "generic":
+                live = row[sweep2g.GO_VALID] > 0.0
+            else:
+                live = row[sweep2.OT_K1] < np.float32(sweep2.BIG_T)
+            if live:
+                bound = r + 1
+        want.append(bound)
+    assert got.tolist() == want
+    n_live = int(scene.valid.sum())
+    assert 0 < sum(want) and n_live <= sum(want) <= accel.n_groups * accel.gr
+
+
+@pytest.mark.parametrize("coop_min", [None, 1, 33])
+def test_coop_min_reaches_the_kernels_parameters(frames, coop_min):
+    """``_forced_coop_min`` sets the ``coop_min`` entry of the kernel's
+    integer parameters inside its context and nowhere else."""
+    import contextlib
+
+    f = frames
+    accel, _ = tub._scene_accel(f["ts"], f["tc"], f["tcfg"], 32)
+    st = tub.UberStatics.from_cfg(f["tcfg"])
+    at = tub._IP.index("coop_min")
+    assert at == len(tub._IP) - 1
+    forced = contextlib.nullcontext() if coop_min is None else tub._forced_coop_min(coop_min)
+    with forced:
+        ip, _ = tub._host_params(accel, st)
+    assert ip[at] == (tub.COOP_MIN["spheres"] if coop_min is None else coop_min)
+    assert tub._host_params(accel, st)[0][at] == tub.COOP_MIN["spheres"]
