@@ -14,7 +14,8 @@ ellipsoids and cuboids: two canaries and ``bvh_grid_scene(side=32)`` at
 lane-aligned megakernel drain (``render_megalanes``, both schedules) and once
 through the work queue (``render_workqueue``), and motion blur
 (``motion_blur_scene()`` at 800x450x16 depth 8 through ``render_uber``, the
-sphere sweep and the drain, and a moving generic scene).
+sphere sweep and the drain, and a moving generic scene); and the schedules of
+the sphere sweep and the megakernel (phase ``sweep_modes``).
 It prints one JSON object per phase.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the exit code
 is non-zero and no result line is printed; without CUDA it fails at once.
@@ -96,7 +97,8 @@ Phases and their bars:
      instantiation per frame.
  12. every kernel's time at the frame's shapes beside its bound; the bounds
      count the live rows a kernel tested, not the dead and padding rows it
-     skipped.
+     skipped; and K3, K4 and K5 summed over the canaries that launch them,
+     launch by launch (``driven_paths``).
  13. the chunked megakernel (``mega_step``) vs plain at the shapes the drain
      gives it: the (16, 2^20) pools of the headline frame's first chunk at
      iterations 0, 1 and the chunk's last (mostly inactive lanes), taken from
@@ -120,6 +122,21 @@ Phases and their bars:
      the frame through the drain (the megakernel's MOTION instantiation).
  17. a moving generic scene at the canary's size: the persistent kernel's
      generic MOTION instantiation vs plain and vs the queue renderer.
+  sweep_modes. the sphere sweep's (K2) and the megakernel's (K6) two sweep
+     schedules, as uber_modes holds K1's: ``coop_min`` 1, 33 and the default
+     give bit-identical outputs and equal counters in the -fmad=false build on
+     K2's inputs (the canary's lanes and their second generation, the first
+     launches of a work-queue frame of the headline, the motion frame's
+     lanes, and a scene of glass spheres nested three deep,
+     ``deep_glass_spheres()``, where probe points lie inside three or more
+     spheres and the probe's sum has several terms) and on K6's (the
+     headline chunk's pools at iterations 0, 1 and its last, the motion
+     chunk's, and the deep-glass frame's first four iterations); SIMT
+     efficiency per schedule; the share of lane slots K6's dense passes
+     filled; the ``coop_min`` sweep over ``COOP_SWEEP``: K6's summed step time
+     over a natural megalanes frame of the headline and K2's summed time over
+     a work-queue frame, each launch timed twice by CUDA events with the card
+     kept busy while the host enqueues it, the faster timing counted.
 Launch counts are kept per driven path: set to 0 before a path and read after
 it (each canary, each frame); every kernel must be launched on at least one.
 """
@@ -200,22 +217,28 @@ FLOPS_PER_CONTAINS_GENERIC = 45  # shift, rotation, 3 divisions, compare
 
 
 # What ``ptxas -v`` gives the persistent kernel's static instantiations with
-# the warp sweeps of csrc/uber_sweep.cuh (sphere; generic), on the toolkit of
+# the warp sweeps of csrc/warp_sweep.cuh (sphere; generic), on the toolkit of
 # CUDA 12.8; before them they took 80 registers and no spill, and 64 registers
 # with 148 / 164 B of spill stores / loads.
 PTXAS_STATIC = {
     "uber_kernel<0,0>": dict(registers=80, stack=288, spill_stores=0, spill_loads=0),
     "uber_kernel<1,0>": dict(registers=94, stack=288, spill_stores=0, spill_loads=0),
 }
+# What it gives the sphere sweep and the megakernel since they run the warp
+# sweeps too, at their launch bounds of 3 blocks of 256 threads and 6 of 128
+# per SM (before: sweep2_kernel<0> 48 registers, 4/4 B of spill, <1> 70 and
+# none; mega_kernel<0> and <1> 64 and none).
+PTXAS_REDESIGNED = {
+    "sweep2.so sweep2_kernel<0>": dict(registers=61, stack=0, spill_stores=0, spill_loads=0),
+    "sweep2.so sweep2_kernel<1>": dict(registers=77, stack=0, spill_stores=0, spill_loads=0),
+    "mega.so mega_kernel<0>": dict(registers=80, stack=32, spill_stores=0, spill_loads=0),
+    "mega.so mega_kernel<1>": dict(registers=80, stack=32, spill_stores=0, spill_loads=0),
+}
 # ... and what it gave the other kernels before the warp sweeps, which they do
 # not include: they must not change.
 PTXAS_UNCHANGED = {
-    "sweep2.so sweep2_kernel<0>": dict(registers=48, stack=8, spill_stores=4, spill_loads=4),
-    "sweep2.so sweep2_kernel<1>": dict(registers=70, stack=0, spill_stores=0, spill_loads=0),
     "sweep2g.so sweep2g_kernel<0>": dict(registers=48, stack=8, spill_stores=8, spill_loads=8),
     "sweep2g.so sweep2g_kernel<1>": dict(registers=48, stack=8, spill_stores=16, spill_loads=16),
-    "mega.so mega_kernel<0>": dict(registers=64, stack=32, spill_stores=0, spill_loads=0),
-    "mega.so mega_kernel<1>": dict(registers=64, stack=32, spill_stores=0, spill_loads=0),
     "sweep.so grouped_kernel<0,1>": dict(registers=40, stack=8, spill_stores=4, spill_loads=8),
     "sweep.so grouped_kernel<1,0>": dict(registers=47, stack=0, spill_stores=0, spill_loads=0),
     "sweep.so nearest_kernel<1>": dict(registers=40, stack=0, spill_stores=0, spill_loads=0),
@@ -448,7 +471,7 @@ def check_pixels(what, px):
 
 
 # ---------------------------------------------------------------------------
-# K1's two sweep schedules (csrc/uber_sweep.cuh): a culling group that fewer
+# K1's two sweep schedules (csrc/warp_sweep.cuh): a culling group that fewer
 # than coop_min lanes of a warp entered is swept row-parallel.  1 keeps every
 # group per lane (the earlier one-thread-per-tree schedule), 33 sweeps
 # every group row-parallel.  Both give the same result bit for bit in the
@@ -463,9 +486,9 @@ SWEEP_ROUNDS = 3  # alternating rounds of the coop_min sweep
 
 
 def coop(cm):
-    """The context that runs K1 with coop_min forced to ``cm`` (None: the
-    module's default, ``uber.COOP_MIN`` of the accel's mode)."""
-    return contextlib.nullcontext() if cm is None else uber._forced_coop_min(cm)
+    """The context that runs the warp sweeps (K1, K2, K6) with coop_min forced
+    to ``cm`` (None: each module's default ``COOP_MIN``)."""
+    return contextlib.nullcontext() if cm is None else _build.forced_coop_min(cm)
 
 
 def sweep_counters(stats, generic):
@@ -966,6 +989,38 @@ def check_parity(what, c):
             f"{what} failed: {c}")
 
 
+def kernels_on_path(render, hooks):
+    """Run ``render()`` with each launch function of ``hooks`` ({label:
+    (module, name, bound_of)}) timed at every launch by CUDA events, the card
+    kept busy while the host enqueues it, and charged ``bound_of(*args)`` ms
+    -> {label: launches, summed ms and bound, their difference}."""
+    got = {label: [] for label in hooks}
+    reals = {label: getattr(module, name) for label, (module, name, _) in hooks.items()}
+
+    def timed(label, bound_of):
+        def launch(*args, **kw):
+            held = {}
+            events = gapless_events(lambda: held.update(out=reals[label](*args, **kw)))
+            got[label].append((events, bound_of(*args, **kw)))
+            return held["out"]
+        return launch
+
+    for label, (module, name, bound_of) in hooks.items():
+        setattr(module, name, timed(label, bound_of))
+    try:
+        render()
+    finally:
+        for label, (module, name, _) in hooks.items():
+            setattr(module, name, reals[label])
+    torch.cuda.synchronize()
+    res = {}
+    for label, calls in got.items():
+        ms = sum(a.elapsed_time(b) for (a, b), _ in calls)
+        bnd = sum(b for _, b in calls)
+        res[label] = dict(launches=len(calls), ms=ms, bound_ms=bnd, ms_above_bound=ms - bnd)
+    return res
+
+
 def generic_phases(dev, iow):
     """Phases 8 to 12 -> the kernels-line entries of the generic slice.
     ``iow``: the sphere scene, its camera, its small config, its canary lanes."""
@@ -1163,6 +1218,53 @@ def generic_phases(dev, iow):
             and set(launches_glass) == {"uber_g", "sweep_nearest", "sweep_ri"},
             f"the glass canary's launches: {launches_glass}")
 
+    # K4 and K5 at the shapes their driven paths give them: every launch of
+    # the glass canary's dense sweeps and of the grid canary's grouped sweep
+    def live_rows_of(table, mode):
+        return int((table[:, sweep.G_VALID if mode == "generic" else sweep.S_VALID] > 0).sum())
+
+    def nearest_bound(table, mode, rays):
+        B = rays.shape[1]
+        return bound(40 * B + 4 * table.numel(),
+                     B * live_rows_of(table, mode) * FLOPS_PER_GENERIC_ROW)[0]
+
+    def ri_bound_of(table, mode, pts):
+        B = pts.shape[1]
+        return bound(20 * B + 4 * table.numel(),
+                     B * live_rows_of(table, mode) * FLOPS_PER_CONTAINS_GENERIC)[0]
+
+    grouped = sweep._launch_grouped
+
+    def grouped_bound(table, gaabb, rays, group, with_ri, mode, stats=None):
+        counted = torch.zeros(sweep.SC_LEN, dtype=torch.int64, device=rays.device)
+        grouped(table, gaabb, rays, group, with_ri, mode, counted)
+        B = rays.shape[1]
+        return bound(44 * B + 4 * (table.numel() + gaabb.numel()),
+                     B * gaabb.shape[0] * FLOPS_PER_SLAB_TEST
+                     + int(counted[sweep.SC_ROWS]) * FLOPS_PER_GENERIC_ROW)[0]
+
+    driven = kernels_on_path(lambda: render_stats(gl_scene, gl_cam, cfg_gl), dict(
+        sweep_nearest=(sweep, "_launch_nearest", nearest_bound),
+        sweep_ri=(sweep, "_launch_ri", ri_bound_of)))
+    driven.update(kernels_on_path(lambda: render_stats(scene, camera, cfg_s), dict(
+        sweep_grouped=(sweep, "_launch_grouped", grouped_bound))))
+    st3c = torch.zeros(sweep2g.GC_LEN, dtype=torch.int64, device=dev)
+    lanes3 = sweep2g.pack_rays(clo, cld, cltr, ctl)
+    sweep2g._sweep2g(acc3_s, lanes3, st3c)
+    driven["sweep2g"] = dict(
+        launches=launches_k3["sweep2g"], ms=cuda_ms(lambda: sweep2g._sweep2g(acc3_s, lanes3), 10),
+        bound_ms=bound(40 * lanes3.shape[1] + 4 * (acc3_s.otab.numel() + acc3_s.gaabb.numel()),
+                       int(st3c[sweep2g.GC_SLAB]) * FLOPS_PER_SLAB_TEST
+                       + int(st3c[sweep2g.GC_SPHERE_ROWS]) * FLOPS_PER_CENSUS_SPHERE_ROW
+                       + int(st3c[sweep2g.GC_OTHER_ROWS]) * FLOPS_PER_CENSUS_CUBOID_ROW)[0])
+    driven["sweep2g"]["ms_above_bound"] = driven["sweep2g"]["ms"] - driven["sweep2g"]["bound_ms"]
+    say(phase="driven_paths", what="K3, K4 and K5 at the shapes their driven paths give them",
+        paths=dict(sweep_nearest="glass canary", sweep_ri="glass canary",
+                   sweep_grouped="grid canary", sweep2g="its entry point at the canary's lanes"),
+        **driven)
+    require(all(r["ms"] > r["bound_ms"] for r in driven.values()),
+            f"a kernel below its bound on its driven path, a counting error: {driven}")
+
     # the first-generation sweeps on the sphere scene (pallas_v2=False): the
     # fused nearest + refractive index kernel, dense and grouped
     cfg_v1 = dataclasses.replace(i_cfg, pallas_v2=False, spp=2)
@@ -1315,10 +1417,12 @@ def generic_phases(dev, iow):
              library_ms=None, shape=size_of(BVH1K) + ", 1025 objects, gr=64"),
         entry("sweep2g", "sweep2g.cu", "sweep2g.py:838", launches_k3.get("sweep2g", 0),
               main["sweep2g"], ms=ms_k3, plain_ms=plain_ms["camera_lanes", "sweep2g"],
-              bound_ms=k3_bound, bound_by=k3_by, shape=f"{B} rays, 17 groups of 64"),
+              bound_ms=k3_bound, bound_by=k3_by, shape=f"{B} rays, 17 groups of 64",
+              at_driven_path=driven["sweep2g"]),
         entry("sweep_nearest", "sweep.cu", "sweep.py:535", launches_glass.get("sweep_nearest", 0),
               main["sweep_nearest"], ms=ms_k4, plain_ms=plain_ms["camera_lanes", "sweep_nearest"],
-              bound_ms=k4_bound, bound_by=k4_by, shape=f"{B} rays x {n4} generic rows"),
+              bound_ms=k4_bound, bound_by=k4_by, shape=f"{B} rays x {n4} generic rows",
+              at_driven_path=driven["sweep_nearest"]),
         dict(name="sweep_ri", route="cuda", source=src + "sweep.cu",
              replaces=jax_src + "sweep.py:535", launches=launches_glass.get("sweep_ri", 0),
              launches_by_path=by_path("sweep_ri"), max_abs_err=max(
@@ -1326,14 +1430,16 @@ def generic_phases(dev, iow):
              tolerance="equal to the plain version on >= 99.9 % of the points",
              frac_within_tolerance=min(ri_grid["equal"], *(r["equal"] for r in ri_glass.values())),
              ms=ms_ri, plain_ms=plain_ms["camera_lanes", "sweep_ri"], bound_ms=ri_bound,
-             bound_by=ri_by, library_ms=None, shape=f"{B} points x {n4} generic rows"),
+             bound_by=ri_by, library_ms=None, shape=f"{B} points x {n4} generic rows",
+             at_driven_path=driven["sweep_ri"]),
         entry("sweep_nearest_ri", "sweep.cu", "sweep.py:535",
               launches_v1[0].get("sweep_nearest_ri", 0), spheres["sphere_lanes"], ms=ms_nri,
               plain_ms=plain_ms["sphere_lanes", "sweep_nearest_ri"], bound_ms=nri_bound,
               bound_by=nri_by, shape=f"{Bi} rays x {ni} sphere rows"),
         entry("sweep_grouped", "sweep.cu", "sweep.py:590", launches_canary.get("sweep_grouped", 0),
               main["sweep_grouped"], ms=ms_k5, plain_ms=plain_ms["camera_lanes", "sweep_grouped"],
-              bound_ms=k5_bound, bound_by=k5_by, shape=f"{B} rays, {n_g5} groups of 32"),
+              bound_ms=k5_bound, bound_by=k5_by, shape=f"{B} rays, {n_g5} groups of 32",
+              at_driven_path=driven["sweep_grouped"]),
     ]
 
 
@@ -1449,25 +1555,33 @@ def check_mega(what, res, precise):
 
 
 def mega_bound(accel, C, stats):
-    """K6's bound for one step from its own counters: 11 floats read and 42
-    written per lane whatever it does; operations by what the lanes did."""
-    live, tests, hits, probes = (int(stats[i]) for i in range(4))
-    n_bytes = 4 * (11 + 42) * C + accel_bytes(accel)
+    """K6's bound for one step from its own counters.  Bytes by lane class:
+    every lane writes 42 floats; an inactive lane reads its lane id, omt and
+    bounce count (its children carry them), a dead one its direction and
+    contribution too, a live one its whole record (11 values); the tables and
+    the live-row bounds once.  Operations by what the lanes did."""
+    live, tests, hits, probes, active = (int(stats[k]) for k in (
+        mega.MS_LIVE, mega.MS_ROW_TESTS, mega.MS_HITS, mega.MS_PROBES, mega.MS_ACTIVE))
+    inactive, dead = C - active, active - live
+    n_bytes = (4 * (42 * C + 3 * inactive + 7 * dead + 11 * live) + accel_bytes(accel)
+               + 4 * accel.n_groups)
     n_flops = (tests * FLOPS_PER_SPHERE_TEST + live * accel.n_groups * FLOPS_PER_SLAB_TEST
                + hits * FLOPS_PER_NODE_SHADE
                + probes * accel.n_pgroups * sweep2.PROBE_GR * FLOPS_PER_PROBE_ROW)
     t_b = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_f = n_flops / PEAK_FP32_FLOPS * 1e3
     return dict(bound_ms=max(t_b, t_f), bound_by="bytes" if t_b >= t_f else "operations",
-                bytes_ms=t_b, operations_ms=t_f, live_lanes=live,
-                sphere_tests_per_live_lane=tests / max(live, 1), hits=hits, probed=probes)
+                bytes_ms=t_b, operations_ms=t_f, live_lanes=live, dead_lanes=dead,
+                inactive_lanes=inactive, sphere_tests_per_live_lane=tests / max(live, 1),
+                hits=hits, probed=probes, **k6_simt(stats))
 
 
 def mega_vs_plain(what, accel, camera, cfg, chunk):
     """Phase 13 on one frame: K6 against its plain version on the first chunk's
     pools at iterations 0, 1 and the chunk's last, taken from the drain itself;
-    both builds; each pool's time, bound and the plain version's time.
-    -> {iteration: numbers}."""
+    both builds; each pool's time (and with coop_min = 1, the per-lane sweep,
+    in the same call), bound and the plain version's time.
+    -> ({iteration: numbers}, {iteration: (pool, lane)})."""
     _, iters = capture_steps(accel, camera, cfg, chunk, set())
     late = iters - 1
     require(late > 1, f"{what}: the chunk ended after {iters} iterations")
@@ -1482,15 +1596,25 @@ def mega_vs_plain(what, accel, camera, cfg, chunk):
         stats = torch.zeros(mega.MS_LEN, dtype=torch.int64, device=pool.device)
         mega.mega_step(accel, pool, lane, stats=stats, **kw)
         ms = cuda_ms(lambda: mega.mega_step(accel, pool, lane, **kw), 10)
+        with coop(1):
+            ms_lane = cuda_ms(lambda: mega.mega_step(accel, pool, lane, **kw), 10)
+            stats_lane = torch.zeros_like(stats)
+            mega.mega_step(accel, pool, lane, stats=stats_lane, **kw)
         bnd = mega_bound(accel, pool.shape[1], stats)
         say(phase="mega_vs_plain", frame=what, iteration=it, lanes=pool.shape[1],
-            default_build=res, precise_build=precise, ms=ms, plain_ms=plain_ms, **bnd)
+            default_build=res, precise_build=precise, ms=ms, ms_per_lane_mode=ms_lane,
+            simt_efficiency_per_lane_mode=k6_simt(stats_lane)["simt_efficiency"],
+            plain_ms=plain_ms, **bnd)
         check_mega(f"{what} iteration {it}", res, precise)
-        out[it] = dict(res=res, ms=ms, plain_ms=plain_ms, **bnd)
+        require(min(ms, ms_lane) > bnd["bound_ms"],
+                f"{what} iteration {it}: K6 below its bound, a counting error: {ms} {bnd}")
+        out[it] = dict(res=res, ms=ms, ms_per_lane_mode=ms_lane, plain_ms=plain_ms,
+                       simt_efficiency_per_lane_mode=k6_simt(stats_lane)["simt_efficiency"],
+                       **bnd)
     require(out[0]["res"]["active"] == 1.0 and out[late]["res"]["active"] < 0.5,
             f"{what}: the pools' shares of active lanes: "
             f"{[(i, o['res']['active']) for i, o in out.items()]}")
-    return out
+    return out, pools
 
 
 def device_ms_by_kernel(fn):
@@ -1566,9 +1690,11 @@ def k2_sweep_bound(accel, rays, with_ri, with_fields, tests, obj, rows):
     """K2's bound for one launch -> (bytes, operations): rays in, (t, obj)
     and the hit block out, the tables once; the quadratics it solved, a slab
     test per group and ray, a refine per hit, the RI probe where a hit
-    consumes it."""
+    consumes it.  ``tests``: the rows it tested (each group's rows up to its
+    last live one, for every ray that entered the group)."""
     B = rays.shape[1]
-    n_bytes = 4 * B * (8 + 2 + (sweep2.V_ROWS if with_fields else 0)) + accel_bytes(accel)
+    n_bytes = (4 * B * (8 + 2 + (sweep2.V_ROWS if with_fields else 0)) + accel_bytes(accel)
+               + 4 * accel.n_groups)
     hit = obj >= 0
     n_flops = (tests * (FLOPS_PER_SPHERE_TEST + (FLOPS_PER_MOTION_TERMS if accel.has_motion else 0))
                + B * accel.n_groups * FLOPS_PER_SLAB_TEST)
@@ -1588,10 +1714,10 @@ def workqueue_k2_bound(render):
     acc = dict(launches=0, rays=0, bytes=0, operations=0)
 
     def counted(accel, rays, with_ri, with_fields, stats=None):
-        tests = torch.zeros(1, dtype=torch.int64, device=rays.device)
-        t, obj, rows = real(accel, rays, with_ri, with_fields, stats=tests)
-        n_bytes, n_flops = k2_sweep_bound(accel, rays, with_ri, with_fields, int(tests), obj,
-                                          rows)
+        counts = torch.zeros(sweep2.SW_LEN, dtype=torch.int64, device=rays.device)
+        t, obj, rows = real(accel, rays, with_ri, with_fields, stats=counts)
+        n_bytes, n_flops = k2_sweep_bound(accel, rays, with_ri, with_fields,
+                                          int(counts[sweep2.SW_ROW_TESTS]), obj, rows)
         acc.update(launches=acc["launches"] + 1, rays=acc["rays"] + rays.shape[1],
                    bytes=acc["bytes"] + n_bytes, operations=acc["operations"] + n_flops)
         return t, obj, rows
@@ -1607,11 +1733,289 @@ def workqueue_k2_bound(render):
                 bytes_ms=t_b, operations_ms=t_f)
 
 
+# ---------------------------------------------------------------------------
+# K2's and K6's sweep schedules (csrc/warp_sweep.cuh), held as uber_modes holds
+# K1's: coop_min 1, 33 and the default bit for bit in the -fmad=false build,
+# SIMT efficiency per schedule, and the time over COOP_SWEEP on the frames
+# that launch them.
+# ---------------------------------------------------------------------------
+
+# Counters every schedule must give alike (the SIMT slots and the row-parallel
+# visits are the schedule's own; K6's dense passes, and with them its slots,
+# also depend on which warp claimed which tiles, which changes from run to run).
+K2_SAME = (sweep2.SW_TESTS, sweep2.SW_ROW_TESTS)
+K6_SAME = (mega.MS_LIVE, mega.MS_TESTS, mega.MS_HITS, mega.MS_PROBES, mega.MS_ACTIVE,
+           mega.MS_ROW_TESTS)
+# Cycles the card sleeps before a timed launch, so that the launch is enqueued
+# before its start event fires (about 0.3 ms at the H100's clocks, more than
+# the host takes to enqueue one launch).
+SLEEP_CYCLES = 500_000
+
+
+def k2_simt(stats):
+    slots = int(stats[sweep2.SW_LANE_SLOTS])
+    return dict(simt_efficiency=int(stats[sweep2.SW_ROW_TESTS]) / max(slots, 1),
+                lane_slots=slots, coop_visits=int(stats[sweep2.SW_COOP_VISITS]))
+
+
+def k6_simt(stats):
+    """SIMT efficiency of the dense passes' sweeps, and the share of their
+    lane slots that live lanes filled."""
+    slots, passes = int(stats[mega.MS_LANE_SLOTS]), int(stats[mega.MS_PASSES])
+    return dict(simt_efficiency=int(stats[mega.MS_ROW_TESTS]) / max(slots, 1),
+                lane_slots=slots, coop_visits=int(stats[mega.MS_COOP_VISITS]),
+                dense_passes=passes,
+                dense_fill=int(stats[mega.MS_LIVE]) / max(32 * passes, 1))
+
+
+DEEP_CENTRE = (0.0, 0.0, -3.0)
+
+
+def deep_glass_spheres():
+    """Four concentric glass spheres of different refractive indices, a fifth
+    that cuts into them, a diffuse sphere and a ground sphere.  A ray that
+    leaves the innermost sphere from inside probes at a point inside three
+    or four glass spheres, where the surrounding refractive index sums as
+    many terms and their order shows in the last bits."""
+    b = SceneBuilder()
+    for radius, ior in ((0.9, 1.5), (0.65, 1.3), (0.45, 1.7), (0.25, 1.4)):
+        b.add_dielectric(DEEP_CENTRE, radius, ior=ior)
+    b.add_dielectric((0.45, 0.1, -2.8), 0.4, ior=1.6)
+    b.add_lambertian((-1.4, 0.0, -3.5), 0.5, (0.7, 0.3, 0.3))
+    b.add_lambertian((0.0, -100.9, -3.0), 100.0, (0.5, 0.6, 0.4))
+    cam = Camera.make((0.0, 0.3, 0.5), (0.0, -0.08, -1.0), fov_y_deg=55.0, focus_dist=3.5)
+    return b.build(), cam
+
+
+def glass_depth(scene, q):
+    """How many glass spheres of ``scene`` contain each point of ``q`` (3, N)."""
+    glass = scene.valid & (scene.refractive_index != 1.0)
+    c = scene.position[glass]
+    r = scene.scale[glass, 0]
+    d2 = ((q.T[:, None, :] - c[None]) ** 2).sum(dim=-1)
+    return (d2 <= r[None] ** 2).sum(dim=1)
+
+
+def k2_run(accel, rays):
+    stats = torch.zeros(sweep2.SW_LEN, dtype=torch.int64, device=rays.device)
+    out = sweep2._sweep2(accel, rays, True, True, stats=stats)
+    return out, stats
+
+
+def k6_run(accel, pool, lane, kw):
+    stats = torch.zeros(mega.MS_LEN, dtype=torch.int64, device=pool.device)
+    out = mega.mega_step(accel, pool, lane, stats=stats, **kw)
+    return out, stats
+
+
+def schedules_identical(what, run, same, simt_of):
+    """``run()`` -> (outputs, stats) in the -fmad=false build with coop_min
+    forced to 1 and 33 and at the default: bit-identical outputs and equal
+    counters ``same``, or raise -> {mode: SIMT numbers}."""
+    runs = {}
+    with _build.precise():
+        for cm in (*FORCED, None):
+            with coop(cm):
+                runs[cm] = run()
+    torch.cuda.synchronize()
+    out1, stats1 = runs[FORCED[0]]
+    counters = lambda stats: [int(stats[k]) for k in same]
+    res = {}
+    for cm, (out, stats) in runs.items():
+        res[str(cm or "default")] = dict(
+            identical_out=all(torch.equal(a, b) for a, b in zip(out, out1)),
+            same_counters=counters(stats) == counters(stats1), **simt_of(stats))
+    require(all(r["identical_out"] and r["same_counters"] for r in res.values()),
+            f"{what}: the sweep schedules differ in the -fmad=false build: {res}")
+    return res
+
+
+def gapless_events(fn):
+    """CUDA events around one call of ``fn()``, recorded while the card sleeps
+    (``torch.cuda._sleep``), so that the call is enqueued before its start
+    event fires and the pair times the device alone -> (start, end)."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    a.record()
+    fn()
+    b.record()
+    return a, b
+
+
+def timed_by_coop(real, calls, n_stats):
+    """A stand-in for a kernel wrapper ``real`` that, on each call, runs it
+    once untimed (so that the allocator holds the outputs' memory), then for
+    each coop_min of COOP_SWEEP, the order rotating from call to call, twice
+    timed and once with its ``n_stats`` counters, and returns the default
+    schedule's result: ``calls`` gains {coop_min: [(events, stats)]}.  The
+    faster of the two timings counts: a host stalled for longer than the
+    card's sleep would charge the stall to the launch."""
+    n = [0]
+
+    def timed(accel, *args, **kw):
+        kw.pop("stats", None)
+        k = n[0] % len(COOP_SWEEP)
+        n[0] += 1
+        real(accel, *args, **kw)
+        for cm in COOP_SWEEP[k:] + COOP_SWEEP[:k]:
+            with coop(cm):
+                events = [gapless_events(lambda: real(accel, *args, **kw)) for _ in range(2)]
+                stats = torch.zeros(n_stats, dtype=torch.int64, device=accel.device)
+                real(accel, *args, stats=stats, **kw)
+            calls.setdefault(cm, []).append((events, stats))
+        return real(accel, *args, **kw)
+
+    return timed
+
+
+def coop_sweep_table(calls, simt_of):
+    """{coop_min: summed ms (each launch the faster of its two timings),
+    launches, SIMT numbers over the launches, the three slowest launches
+    (their number in the frame and ms)}."""
+    torch.cuda.synchronize()
+    res = {}
+    for cm, got in calls.items():
+        ms = [min(a.elapsed_time(b) for a, b in events) for events, _ in got]
+        slow = sorted(range(len(ms)), key=lambda k: -ms[k])[:3]
+        res[str(cm)] = dict(ms=sum(ms), launches=len(got),
+                            slowest=[(k, ms[k]) for k in slow],
+                            **simt_of(torch.stack([st for _, st in got]).sum(dim=0)))
+    return res
+
+
+def k6_coop_sweep(scene, camera, cfg):
+    """K6's summed step time over a natural megalanes frame of the headline,
+    for each coop_min of COOP_SWEEP, every step timed in every schedule."""
+    calls, accels = {}, []
+    real = megalanes.mega_step
+    timer = timed_by_coop(real, calls, mega.MS_LEN)
+
+    def hook(accel, pool, *args, **kw):
+        accels.append(accel)
+        require(pool.shape[1] == CHUNK, f"a step of {pool.shape[1]} lanes")
+        return timer(accel, pool, *args, **kw)
+
+    megalanes.mega_step = hook
+    try:
+        out = megalanes.render_megalanes(scene, camera, cfg, chunk=CHUNK, gr=GR,
+                                         schedule="natural")
+    finally:
+        megalanes.mega_step = real
+    res = coop_sweep_table(calls, k6_simt)
+    # each step's bound from its counters (the same in every schedule)
+    bounds = [mega_bound(accels[0], CHUNK, s)["bound_ms"] for _, s in calls[COOP_SWEEP[0]]]
+    for cm, got in calls.items():
+        ms = [min(a.elapsed_time(b) for a, b in events) for events, _ in got]
+        below = [(k, ms[k], bounds[k]) for k in range(len(ms)) if ms[k] <= bounds[k]]
+        require(not below, f"K6 steps below their bound at coop_min {cm}, a counting error: "
+                           f"{below[:5]}")
+    best = min(COOP_SWEEP, key=lambda cm: res[str(cm)]["ms"])
+    require(abs(int(out["rays"]) - SCENE_RAYS) / SCENE_RAYS < 0.02,
+            f"the megalanes frame of the coop_min sweep: {int(out['rays'])} rays")
+    say(phase="sweep_modes", what="K6 coop_min sweep, natural megalanes frame",
+        size=size_of(HEADLINE), iterations=out["iterations"], default_coop_min=mega.COOP_MIN,
+        fastest_coop_min=best, bound_ms_sum=sum(bounds), by_coop_min=res)
+    return dict(by_coop_min=res, bound_ms_sum=sum(bounds))
+
+
+def k2_coop_sweep(scene, camera, cfg, keep):
+    """K2's summed time over a work-queue frame of the headline, for each
+    coop_min of COOP_SWEEP, every launch timed in every schedule; keeps the
+    (accel, rays) of the launches numbered in ``keep`` -> (numbers, kept)."""
+    calls, kept, n = {}, {}, [0]
+    real = sweep2._sweep2
+    timer = timed_by_coop(real, calls, sweep2.SW_LEN)
+
+    def keeping(accel, rays, with_ri, with_fields, stats=None):
+        if n[0] in keep:
+            kept[n[0]] = (accel, rays.clone())
+        n[0] += 1
+        require(with_ri and with_fields, "the work queue asks K2 for the hit block and RI")
+        return timer(accel, rays, with_ri, with_fields)
+
+    sweep2._sweep2 = keeping
+    try:
+        out = workqueue.render_workqueue(scene, camera, cfg)
+    finally:
+        sweep2._sweep2 = real
+    res = coop_sweep_table(calls, k2_simt)
+    best = min(COOP_SWEEP, key=lambda cm: res[str(cm)]["ms"])
+    require(abs(int(out["rays"]) - SCENE_RAYS) / SCENE_RAYS < 0.02,
+            f"the work-queue frame of the coop_min sweep: {int(out['rays'])} rays")
+    say(phase="sweep_modes", what="K2 coop_min sweep, work-queue frame", size=size_of(HEADLINE),
+        iterations=out["iterations"], default_coop_min=sweep2.COOP_MIN, fastest_coop_min=best,
+        by_coop_min=res)
+    return res, kept
+
+
+def deep_glass_inputs(dev):
+    """K2's and K6's inputs on ``deep_glass_spheres()``: 65 536 seeded rays
+    that start inside the innermost sphere (K2's rays, and a pool of them
+    for K6), and the drain's pools at iterations 0 to 3 of the canary's size
+    (with their rays for K2: a pool record's first eight rows are a ray
+    matrix) -> (k2 inputs, k6 inputs, numbers)."""
+    scene, camera = deep_glass_spheres()
+    scene, camera = scene.to(dev), camera.to(dev)
+    cfg = RenderConfig(intersector="pallas", **SMALL).for_scene(scene)
+    acc_m = sweep2.make_accel2(scene, gr=GR, has_motion=cfg.has_motion,
+                               probe_rows=cfg.probe_rows, sort_origin=camera.position)
+    acc_q = _build_accel(scene, cfg)
+    inside = seeded_rays(DEEP_CENTRE, 0.14, 1 << 16, dev)  # |offset| < 0.25
+    n = inside.shape[1]
+    pool = torch.cat([inside, torch.ones((1, n), device=dev),
+                      torch.zeros((mega.POOL_ROWS - 9, n), device=dev)]).contiguous()
+    pools = {"inside": (pool, torch.arange(n, dtype=torch.int32, device=dev))}
+    B = cfg.width * cfg.height * cfg.spp
+    drained, _ = capture_steps(acc_m, camera, cfg, B, {0, 1, 2, 3})
+    pools.update({f"iteration {it}": got for it, got in sorted(drained.items())})
+    k2_in, k6_in, depth = {}, {}, []
+    for name, (pool, lane) in pools.items():
+        k6_in[f"deep_glass {name}"] = (acc_m, pool, lane, step_kw(cfg))
+        rays = pool[:8].contiguous()
+        k2_in[f"deep_glass {name}"] = (acc_q, rays)
+        # the probe points of the hits that need the surrounding RI
+        t, obj, rows = sweep2.sweep2_plain(acc_q, rays, True, True)
+        hit = obj >= 0
+        nrm = rows[sweep2.V_NX:sweep2.V_NZ + 1]
+        need = hit & (((nrm * rays[3:6]).sum(dim=0) > 0.0) | (rows[sweep2.V_REFR] > 0.002))
+        q = rays[0:3] + torch.where(hit, t, torch.zeros_like(t)) * rays[3:6] + 1e-3 * nrm
+        depth.append(glass_depth(scene, q[:, need]))
+    depth = torch.cat(depth)
+    info = dict(probed_points=depth.numel(), inside_3_or_more=int((depth >= 3).sum()),
+                inside_4_or_more=int((depth >= 4).sum()),
+                probe_rows=acc_q.n_pgroups * sweep2.PROBE_GR)
+    require(info["inside_3_or_more"] > 0, f"no probe point lies inside three glass spheres: {info}")
+    return k2_in, k6_in, info
+
+
+def sweep_modes(k2_in, k6_in, info):
+    """Phase sweep_modes, the bit-for-bit part: K2 and K6 on each input in
+    coop_min 1, 33 and the default of the -fmad=false build."""
+    res = dict(deep_glass=info)
+    for name, (acc, rays) in k2_in.items():
+        res[f"K2 {name}"] = schedules_identical(
+            f"K2 {name}", lambda: k2_run(acc, rays), K2_SAME, k2_simt)
+    for name, (acc, pool, lane, kw) in k6_in.items():
+        res[f"K6 {name}"] = schedules_identical(
+            f"K6 {name}", lambda: k6_run(acc, pool, lane, kw), K6_SAME, k6_simt)
+    say(phase="sweep_modes", what="schedules bit for bit, -fmad=false build", **res)
+    return res
+
+def frame_sweep(res, default, **extra):
+    """A kernel's summed time over a frame at its default coop_min and per
+    lane (1), its SIMT efficiency at both, and every coop_min's time."""
+    return dict(ms=res[str(default)]["ms"], ms_per_lane_mode=res["1"]["ms"],
+                simt_efficiency=res[str(default)]["simt_efficiency"],
+                simt_efficiency_per_lane_mode=res["1"]["simt_efficiency"],
+                ms_by_coop_min={cm: r["ms"] for cm, r in res.items()}, **extra)
+
+
 def third_slice_phases(dev, ctx):
-    """Phases 13 to 17 -> the kernels-line entries of the third slice.
-    ``ctx``: the headline scene, camera, config, small config and the
-    persistent kernel's frame of this run."""
-    scene, camera, cfg, cfg_s, uber_frame = ctx
+    """Phases 13 to 17 and sweep_modes -> the kernels-line entries of the third
+    slice.  ``ctx``: the headline scene, camera, config, small config, the
+    persistent kernel's frame of this run and K2's canary inputs
+    ({name: (accel, rays)})."""
+    scene, camera, cfg, cfg_s, uber_frame, k2_canary = ctx
     src = "raytracing_tests_tpu_torch/csrc/"
     jax_src = "raytracing_tests_tpu/kernels/"
 
@@ -1620,7 +2024,7 @@ def third_slice_phases(dev, ctx):
                                  probe_rows=cfg.probe_rows, sort_origin=camera.position)
     require(not accel_m.has_motion and accel_m.otab.shape[1] == sweep2.OT_COLS,
             "the headline's accel is static")
-    k6 = mega_vs_plain("headline", accel_m, camera, cfg, CHUNK)
+    k6, pools_h = mega_vs_plain("headline", accel_m, camera, cfg, CHUNK)
 
     # 14. the headline frame through the lane-aligned drain ---------------------
     frames_ml = {}
@@ -1647,6 +2051,7 @@ def third_slice_phases(dev, ctx):
         del out
     breakdown, _ = megalanes_breakdown(scene, camera, cfg)
     say(phase="megalanes_breakdown", schedule="natural", **breakdown)
+    k6_sweep = k6_coop_sweep(scene, camera, cfg)
 
     # 15. the work queue: canary against the queue renderer, then the headline --
     _build.reset_launches()
@@ -1693,6 +2098,9 @@ def third_slice_phases(dev, ctx):
     require(launches_wq_frame == {"sweep2": ow["iterations"]},
             f"a workqueue frame launches the sweep once per iteration: {launches_wq_frame}")
     del ow, oq
+    k2_sweep, wq_first = k2_coop_sweep(scene, camera, cfg, {0, 1, 2})
+    require(all(r["ms"] > wq_frame["k2"]["bound_ms"] for r in k2_sweep.values()),
+            f"K2 over the work-queue frame below its bound, a counting error: {k2_sweep}")
 
     # 16. the motion frame: K1 MOTION, K2 MOTION, K6 MOTION ---------------------
     m_scene, m_camera = examples.motion_blur_scene()
@@ -1771,20 +2179,24 @@ def third_slice_phases(dev, ctx):
         check_sweep("random", res, precise)  # nothing far or grazing here: the tight bars
         k2m[batch] = res["hit_block"]
     plain_ms_k2m = cuda_ms(lambda: sweep2.sweep2_plain(acc_q, lanes, True, True), 1)
-    tests_q = torch.zeros(1, dtype=torch.int64, device=dev)
-    _, obj_q, _ = sweep2._sweep2(acc_q, lanes, True, True, stats=tests_q)
+    stats_k2m = torch.zeros(sweep2.SW_LEN, dtype=torch.int64, device=dev)
+    _, obj_q, _ = sweep2._sweep2(acc_q, lanes, True, True, stats=stats_k2m)
     ms_k2m = cuda_ms(lambda: sweep2._sweep2(acc_q, lanes, True, True), 10)
+    with coop(1):
+        ms_k2m_lane = cuda_ms(lambda: sweep2._sweep2(acc_q, lanes, True, True), 10)
     Bq = lanes.shape[1]
     k2m_bound, k2m_by = bound(
-        4 * Bq * (8 + 1 + 1 + sweep2.V_ROWS) + accel_bytes(acc_q),
-        int(tests_q) * (FLOPS_PER_SPHERE_TEST + FLOPS_PER_MOTION_TERMS)
+        4 * Bq * (8 + 1 + 1 + sweep2.V_ROWS) + accel_bytes(acc_q) + 4 * acc_q.n_groups,
+        int(stats_k2m[sweep2.SW_ROW_TESTS]) * (FLOPS_PER_SPHERE_TEST + FLOPS_PER_MOTION_TERMS)
         + Bq * acc_q.n_groups * FLOPS_PER_SLAB_TEST + int((obj_q >= 0).sum()) * FLOPS_PER_REFINE)
+    require(min(ms_k2m, ms_k2m_lane) > k2m_bound,
+            f"K2 MOTION below its bound, a counting error: {ms_k2m} {k2m_bound}")
 
     # K6 MOTION against its plain version on a chunk of the motion frame, and
     # the motion frame through the lane-aligned drain
     acc_mm = sweep2.make_accel2(m_scene, gr=GR, has_motion=True, probe_rows=m_cfg.probe_rows,
                                 sort_origin=m_camera.position)
-    k6m = mega_vs_plain("motion", acc_mm, m_camera, m_cfg, CHUNK)
+    k6m, pools_m = mega_vs_plain("motion", acc_mm, m_camera, m_cfg, CHUNK)
     _build.reset_launches()
     ml_ms, om = timed_ms(lambda: megalanes.render_megalanes(
         m_scene, m_camera, m_cfg, chunk=CHUNK, gr=GR, schedule="sorted"))
@@ -1796,7 +2208,7 @@ def third_slice_phases(dev, ctx):
     check_parity("megalanes motion frame against render_uber", env)
     require(launches_mm == {"mega_step_m": om["iterations"]},
             f"the motion frame through the drain launches K6 MOTION: {launches_mm}")
-    del om, lanes
+    del om
 
     # 17. a moving generic scene: uber_kernel<generic, motion> -------------------
     g_scene, g_camera = moving_groups_scene()
@@ -1838,6 +2250,20 @@ def third_slice_phases(dev, ctx):
             and set(launches_gm) == {"uber_g_m", "sweep_grouped"},
             f"the moving generic canary's launches: {launches_gm}")
 
+    # sweep_modes: K2's and K6's schedules bit for bit -----------------------------
+    k2_in = dict(k2_canary)
+    k2_in.update({f"workqueue launch {n}": got for n, got in sorted(wq_first.items())})
+    k2_in["motion_lanes"] = (acc_q, lanes)
+    k6_in = {f"headline iteration {it}": (accel_m, pool, lane, step_kw(cfg))
+             for it, (pool, lane) in sorted(pools_h.items())}
+    k6_in.update({f"motion iteration {it}": (acc_mm, pool, lane, step_kw(m_cfg))
+                  for it, (pool, lane) in sorted(pools_m.items())})
+    k2_deep, k6_deep, deep_info = deep_glass_inputs(dev)
+    k2_in.update(k2_deep)
+    k6_in.update(k6_deep)
+    sweep_modes(k2_in, k6_in, deep_info)
+    del k2_in, k6_in, pools_h, pools_m, wq_first, lanes
+
     # the kernels line's entries ------------------------------------------------
     paths = dict(megalanes_frame=frames_ml["natural"]["launches_per_frame"][-1],
                  megalanes_frame_sorted=frames_ml["sorted"]["launches_per_frame"][-1],
@@ -1850,26 +2276,36 @@ def third_slice_phases(dev, ctx):
               f"{MEGA_BARS['t_1e4']}, child origins within 1e-3 on >= {MEGA_BARS['origin_1e3']}; "
               "the -fmad=false build within 1e-6 on >= 99.9 % of lanes")
 
-    def k6_entry(name, launches, res, shape):
+    def k6_entry(name, launches, res, shape, frame=None):
         first = res[0]
         return dict(name=name, route="cuda", source=src + "mega.cu",
                     replaces=jax_src + "mega.py:666", launches=launches,
                     launches_by_path=by_path(name), max_abs_err=first["res"]["colour_max_abs_err"],
                     tolerance=tol_k6, frac_within_tolerance=first["res"]["same_children"],
-                    ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
-                    bound_by=first["bound_by"], library_ms=None, shape=shape,
-                    by_iteration={str(i): dict(ms=r["ms"], bound_ms=r["bound_ms"],
+                    ms=first["ms"], ms_per_lane_mode=first["ms_per_lane_mode"],
+                    plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+                    bound_by=first["bound_by"], simt_efficiency=first["simt_efficiency"],
+                    simt_efficiency_per_lane_mode=first["simt_efficiency_per_lane_mode"],
+                    library_ms=None, shape=shape,
+                    by_iteration={str(i): dict(ms=r["ms"], ms_per_lane_mode=r["ms_per_lane_mode"],
+                                               bound_ms=r["bound_ms"],
                                                bound_by=r["bound_by"], bytes_ms=r["bytes_ms"],
                                                operations_ms=r["operations_ms"],
-                                               active=r["res"]["active"])
-                                  for i, r in res.items()})
+                                               active=r["res"]["active"],
+                                               simt_efficiency=r["simt_efficiency"],
+                                               dense_fill=r["dense_fill"])
+                                  for i, r in res.items()},
+                    **({} if frame is None else dict(at_megalanes_frame=frame)))
 
     tol_k1 = ("per sample as the static instantiations: primary t rtol 1e-4 on >= 99.9 %, colours "
               "within 1e-4 on >= 85 % and 5e-2 on >= 97 %, channel means within 5e-3, ray count "
               "within 0.5 %; the -fmad=false build within 1e-4 on >= 99.9 %")
     return [
         k6_entry("mega_step", frames_ml["natural"]["launches_per_frame"][-1]["mega_step"], k6,
-                 f"{CHUNK} lanes, the headline's first chunk at iteration 0"),
+                 f"{CHUNK} lanes, the headline's first chunk at iteration 0",
+                 frame=frame_sweep(k6_sweep["by_coop_min"], mega.COOP_MIN,
+                                   bound_ms=k6_sweep["bound_ms_sum"], bound_by="summed per step",
+                                   schedules_bit_identical=True)),
         k6_entry("mega_step_m", launches_mm["mega_step_m"], k6m,
                  f"{CHUNK} lanes, the motion frame's first chunk at iteration 0"),
         dict(name="uber_render_motion", route="cuda", source=src + "uber.cu",
@@ -1904,10 +2340,13 @@ def third_slice_phases(dev, ctx):
                                        k2m["motion_lanes"]["ri_equal"],
                                        k2m["motion_lanes"]["normal_within_1e2"],
                                        k2m["motion_lanes"]["t_within_rtol_1e4"]),
-             ms=ms_k2m, plain_ms=plain_ms_k2m, bound_ms=k2m_bound, bound_by=k2m_by,
+             ms=ms_k2m, ms_per_lane_mode=ms_k2m_lane, plain_ms=plain_ms_k2m,
+             bound_ms=k2m_bound, bound_by=k2m_by,
+             simt_efficiency=k2_simt(stats_k2m)["simt_efficiency"],
              library_ms=None, shape=f"{Bq} rays, hit block + RI, 3 spheres"),
     ], by_path("sweep2"), dict(device_ms=wq_frame.get("device_k2_ms", "not measured"),
-                                 **wq_frame["k2"])
+                                 **wq_frame["k2"],
+                                 **frame_sweep(k2_sweep, sweep2.COOP_MIN, schedules_bit_identical=True))
 
 
 def main():
@@ -1926,6 +2365,7 @@ def main():
     say(phase="build", seconds=info["seconds"], built=info["built"], ptxas=ptxas,
         static_instantiations_as_expected={
             k: ptxas.get(f"uber.so {k}") == v for k, v in PTXAS_STATIC.items()},
+        redesigned_as_recorded={k: ptxas.get(k) == v for k, v in PTXAS_REDESIGNED.items()},
         other_kernels_as_before={k: ptxas.get(k) == v for k, v in PTXAS_UNCHANGED.items()})
 
     # the sweep schedules of K1 bit for bit before anything else runs on them
@@ -2083,19 +2523,25 @@ def main():
     # The sweep's shape on the main path: the canary's lanes, hit block + RI.
     # Counted for this run's data: quadratics the kernel solved, refines for
     # the rays that hit, the RI probe for the rays that need it.
-    tests = torch.zeros(1, dtype=torch.int64, device=dev)
-    _, obj_q, rows_q = sweep2._sweep2(accel_q, lanes, True, True, stats=tests)
+    stats_k2 = torch.zeros(sweep2.SW_LEN, dtype=torch.int64, device=dev)
+    _, obj_q, rows_q = sweep2._sweep2(accel_q, lanes, True, True, stats=stats_k2)
     ms_k2 = cuda_ms(lambda: sweep2._sweep2(accel_q, lanes, True, True), 20)
+    with coop(1):  # the per-lane sweep, in the same call
+        ms_k2_lane = cuda_ms(lambda: sweep2._sweep2(accel_q, lanes, True, True), 20)
+        stats_k2_lane = torch.zeros_like(stats_k2)
+        sweep2._sweep2(accel_q, lanes, True, True, stats=stats_k2_lane)
     Bq = lanes.shape[1]
     hit_q = obj_q >= 0
     inner_q = (rows_q[sweep2.V_NX:sweep2.V_NZ + 1] * lanes[3:6]).sum(dim=0) > 0.0
     n_probe = int((hit_q & (inner_q | (rows_q[sweep2.V_REFR] > 0.002))).sum())
-    k2_bytes = 4 * Bq * (8 + 1 + 1 + sweep2.V_ROWS) + accel_bytes(accel_q)
-    k2_flops = (int(tests) * FLOPS_PER_SPHERE_TEST
+    k2_bytes = 4 * Bq * (8 + 1 + 1 + sweep2.V_ROWS) + accel_bytes(accel_q) + 4 * accel_q.n_groups
+    k2_flops = (int(stats_k2[sweep2.SW_ROW_TESTS]) * FLOPS_PER_SPHERE_TEST
                 + Bq * accel_q.n_groups * FLOPS_PER_SLAB_TEST
                 + int(hit_q.sum()) * FLOPS_PER_REFINE
                 + n_probe * accel_q.n_pgroups * sweep2.PROBE_GR * FLOPS_PER_PROBE_ROW)
     k2_bound, k2_by = bound(k2_bytes, k2_flops)
+    require(min(ms_k2, ms_k2_lane) > k2_bound,
+            f"K2 below its bound at the canary's lanes, a counting error: {ms_k2} {k2_bound}")
     k2_main = k2["canary_lanes"]
 
     kernels = [
@@ -2130,11 +2576,15 @@ def main():
              frac_within_tolerance=min(k2_main["fields_within_1e5"], k2_main["ri_equal"],
                                        k2_main["normal_within_1e2"],
                                        k2_main["t_within_rtol_1e4"]),
-             ms=ms_k2, plain_ms=plain_ms_k2, bound_ms=k2_bound, bound_by=k2_by,
+             ms=ms_k2, ms_per_lane_mode=ms_k2_lane, plain_ms=plain_ms_k2, bound_ms=k2_bound,
+             bound_by=k2_by, simt_efficiency=k2_simt(stats_k2)["simt_efficiency"],
+             simt_efficiency_per_lane_mode=k2_simt(stats_k2_lane)["simt_efficiency"],
              library_ms=None, shape=f"{Bq} rays, hit block + RI"),
     ]
     kernels += generic_phases(dev, (scene, camera, cfg_s, lanes))
-    third, sweep2_by_path, k2_wq = third_slice_phases(dev, (scene, camera, cfg, cfg_s, out))
+    k2_canary = dict(canary_lanes=(accel_q, lanes), canary_second_pop=(accel_q, lanes2))
+    third, sweep2_by_path, k2_wq = third_slice_phases(
+        dev, (scene, camera, cfg, cfg_s, out, k2_canary))
     kernels += third
     kernels[1]["launches_by_path"].update(sweep2_by_path)  # K2 static: the work queue's paths
     kernels[1]["at_workqueue_frame"] = k2_wq  # its launches there, summed

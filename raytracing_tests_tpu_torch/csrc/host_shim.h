@@ -20,6 +20,7 @@
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+#define __shared__ static  // one warp of one lane runs at a time
 
 struct float4 {
   float x, y, z, w;
@@ -48,6 +49,7 @@ inline V __shfl_down_sync(unsigned, V, int) {
   return V(0);  // no lane beyond the first
 }
 inline unsigned __reduce_min_sync(unsigned, unsigned v) { return v; }
+inline void __syncwarp(unsigned = 0xffffffffu) {}
 inline unsigned __float_as_uint(float x) {
   unsigned u;
   memcpy(&u, &x, sizeof u);
@@ -73,6 +75,10 @@ typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum { cudaDevAttrMultiProcessorCount = 16 };
 inline int cudaGetLastError() { return 0; }
+inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  memset(p, v, n);
+  return 0;
+}
 inline int cudaGetDevice(int* d) {
   *d = 0;
   return 0;

@@ -1,8 +1,8 @@
-// Device functions shared by the sphere sweep (sweep2.cu) and the persistent
-// path tracer (uber.cu): group slab test, anchored sphere quadratic, winner
-// re-solve, surrounding-refractive-index probe, cone deviation and the
-// In-Next-Week shading model.  One thread owns one ray; everything here is
-// scalar per-thread code.
+// Device functions shared by the kernels: group slab test, winner re-solve,
+// surrounding-refractive-index probe, cone deviation and the In-Next-Week
+// shading model, and the generic primitives' sweep.  One thread owns one ray;
+// everything here is scalar per-thread code (the warp-cooperative sweeps are
+// in warp_sweep.cuh).
 //
 // Table layouts (row-major float32, built by kernels/sweep2.py::make_accel2):
 //   otab  (n_pad + n_probe_rows, 8): cx cy cz k1 | ri rinv2 k2 k3
@@ -66,71 +66,6 @@ struct Tables {
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-// Grouped nearest-hit sweep: groups are visited in table order (near-first
-// from the camera), each behind the thread's own slab test against its current
-// best t; a group's spheres are solved around the group anchor.  Ties keep the
-// lower row.  Returns obj = -1 (and t_best = min(BIG_T, tlim)) on a miss or a
-// dead ray.  `tests` is increased by the number of sphere quadratics solved
-// (the data-dependent work, for the roofline bound).
-template <bool MOTION>
-__device__ __forceinline__ void nearest_hit(
-    const Tables& T, float ox, float oy, float oz, float dx, float dy,
-    float dz, float omt, bool live, float tlim, float& t_best, int& obj,
-    unsigned& tests) {
-  constexpr int COLS = MOTION ? OT_COLS_MOTION : OT_COLS;
-  t_best = fminf(BIG_T, tlim);
-  obj = -1;
-  if (!live) return;
-  const float eps = 1e-12f;
-  const float ix = 1.0f / (fabsf(dx) < eps ? eps : dx);
-  const float iy = 1.0f / (fabsf(dy) < eps ? eps : dy);
-  const float iz = 1.0f / (fabsf(dz) < eps ? eps : dz);
-  for (int g = 0; g < T.n_groups; ++g) {
-    const float* ga = T.gaabb + g * GA_COLS;
-    const float4 a0 = ld4(ga);      // lo.x lo.y lo.z hi.x
-    const float4 a1 = ld4(ga + 4);  // hi.y hi.z an.x an.y
-    const float4 a2 = ld4(ga + 8);  // an.z 0 0 0
-    const float u1 = (a0.x - ox) * ix, w1 = (a0.w - ox) * ix;
-    const float u2 = (a0.y - oy) * iy, w2 = (a1.x - oy) * iy;
-    const float u3 = (a0.z - oz) * iz, w3 = (a1.y - oz) * iz;
-    const float tmin = fmaxf(fmaxf(fminf(u1, w1), fminf(u2, w2)), fminf(u3, w3));
-    const float tmax = fminf(fminf(fmaxf(u1, w1), fmaxf(u2, w2)), fmaxf(u3, w3));
-    if (!((tmax > tmin) && (tmax > 0.0f) && (tmin < t_best))) continue;
-    // Shift the ray into the group-anchored frame.
-    const float sx = ox - a1.z, sy = oy - a1.w, sz = oz - a2.x;
-    const float od = sx * dx + sy * dy + sz * dz;
-    const float oo = sx * sx + sy * sy + sz * sz;
-    const int row0 = g * T.gr;
-    tests += (unsigned)T.gr;
-    const float* rows = T.otab + (size_t)row0 * COLS;
-    for (int r = 0; r < T.gr; ++r) {
-      const float4 c = ld4(rows + r * COLS);  // cx cy cz k1
-      const float DC = c.x * dx + c.y * dy + c.z * dz;
-      const float OC = c.x * sx + c.y * sy + c.z * sz;
-      float nb = DC - od;  // = -half_b
-      float c_q = oo + c.w - 2.0f * OC;
-      if (MOTION) {
-        const float4 k = ld4(rows + r * COLS + 4);  // ri rinv2 k2 k3
-        const float4 m = ld4(rows + r * COLS + 8);  // dpx dpy dpz 0
-        const float DDP = m.x * dx + m.y * dy + m.z * dz;
-        const float ODP = m.x * sx + m.y * sy + m.z * sz;
-        nb = nb - omt * DDP;
-        c_q = c_q + omt * (2.0f * ODP - k.z) + (omt * omt) * k.w;
-      }
-      const float disc = nb * nb - c_q;
-      if (disc > 0.0f) {
-        const float sq = sqrtf(disc);
-        const float tn = nb - sq;  // near root (a == 1)
-        const float t = tn > 0.0f ? tn : nb + sq;
-        if (t > 0.0f && t < t_best) {
-          t_best = t;
-          obj = row0 + r;
-        }
-      }
-    }
-  }
 }
 
 struct Refined {
@@ -589,12 +524,15 @@ struct ShadeStatics {
 // contrib_post * albedo, and build the refract / reflect children.  GENERIC
 // picks the tables' layout and the refine and probe of rotated ellipsoids and
 // cuboids at compile time, MOTION the moving centres of both; everything after
-// them is shared.
-template <bool GENERIC, bool MOTION>
+// them is shared.  With GIVEN_RI the caller has refined the winner (*given)
+// and probed the surrounding RI where this function would (given_ri): a warp
+// probes together, which this per-lane function cannot.
+template <bool GENERIC, bool MOTION, bool GIVEN_RI = false>
 __device__ __forceinline__ Shade shade_hit(
     const Tables& T, const ShadeStatics& S, int obj, float t_sweep, float ox,
     float oy, float oz, float dx, float dy, float dz, float omt, float contrib,
-    float bounced, float sidx, float cth, float sth) {
+    float bounced, float sidx, float cth, float sth, const Refined* given = nullptr,
+    float given_ri = 1.0f) {
   constexpr int COLS = GENERIC ? GFT_COLS : FT_COLS;
   const float* row = T.ftab + (size_t)obj * COLS;
   float rowv[COLS];
@@ -607,7 +545,9 @@ __device__ __forceinline__ Shade shade_hit(
     rowv[4 * i + 3] = v.w;
   }
   Refined R;
-  if constexpr (GENERIC) {
+  if constexpr (GIVEN_RI) {
+    R = *given;
+  } else if constexpr (GENERIC) {
     const RefinedG G =
         winner_refine_g<MOTION>(rowv, ox, oy, oz, dx, dy, dz, omt, t_sweep, true);
     R.t = G.t;
@@ -632,7 +572,9 @@ __device__ __forceinline__ Shade shade_hit(
   float sur_ri = 1.0f;
   const bool probe =
       S.has_dielectrics && T.n_pgroups > 0 && (inner || refrv > 0.002f);
-  if (probe) {
+  if constexpr (GIVEN_RI) {
+    sur_ri = given_ri;
+  } else if (probe) {
     const float qx = R.px + 1e-3f * nx, qy = R.py + 1e-3f * ny;
     const float qz = R.pz + 1e-3f * nz;
     if constexpr (GENERIC)

@@ -29,10 +29,10 @@
 // lanes idle.  So the whole warp takes every node step together, lanes
 // without a tree included, and sweeps each group either per lane (many lanes
 // entered it) or row-parallel for one entered lane after another
-// (uber_sweep.cuh; `coop_min` picks).  The stack lives in thread-local
+// (warp_sweep.cuh; `coop_min` picks).  The stack lives in thread-local
 // memory.  The TPU version's rounds, lane rotation and staged flush are
 // scheduling for a vector core and have no counterpart.
-#include "uber_sweep.cuh"
+#include "warp_sweep.cuh"
 
 namespace {
 
@@ -48,7 +48,7 @@ enum {
 
 // Host-side parameter vectors (kernels/uber.py fills them).
 // IP_COOP_MIN: a group that fewer lanes of a warp entered is swept
-// row-parallel (uber_sweep.cuh); 1 never, 33 always.
+// row-parallel (warp_sweep.cuh); 1 never, 33 always.
 enum { IP_W = 0, IP_H /* unused: 1/H comes in fp */, IP_SPP, IP_Q, IP_POPS, IP_HAS_DIEL, IP_NGROUPS, IP_GR,
        IP_NPGROUPS, IP_PROBE_GR, IP_GENERIC, IP_NSGROUPS, IP_MOTION, IP_COOP_MIN, IP_LEN };
 enum { FP_TMAX = 0, FP_GOLDEN, FP_INV_W, FP_INV_H, FP_ASPECT,

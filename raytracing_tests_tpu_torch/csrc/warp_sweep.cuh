@@ -1,13 +1,13 @@
-// Warp-cooperative nearest-hit sweeps of the persistent path tracer (uber.cu).
+// Warp-cooperative sweeps, shared by the persistent path tracer (uber.cu),
+// the sphere sweep (sweep2.cu) and the chunked megakernel (mega.cu).
 //
-// rt::nearest_hit / rt::nearest_hit_g (rt_common.cuh) are one thread's walk:
-// each lane enters the groups its own slab test admits and solves every row
-// of each, so a warp issues the rows of the UNION of its lanes' groups while
-// the lanes that did not enter idle.  Here the whole warp takes every group
-// step together:
+// rt::nearest_hit_g (rt_common.cuh) is one thread's walk: each lane enters
+// the groups its own slab test admits and solves every row of each, so a warp
+// issues the rows of the UNION of its lanes' groups while the lanes that did
+// not enter idle.  Here the whole warp takes every group step together:
 //
-//   - each live lane does its own slab test against its own t_best, exactly
-//     as the per-thread walk does; m = ballot(entered);
+//   - each live lane does its own slab test against its own t_best;
+//     m = ballot(entered);
 //   - popc(m) >= coop_min: the lanes in m run the per-lane row loop (the
 //     per-thread schedule);
 //   - otherwise the group is swept ROW-PARALLEL, once for each lane L in m:
@@ -19,8 +19,10 @@
 // Both modes give the same (t_best, obj) bit for bit under -fmad=false: the
 // per-pair arithmetic is the same expression on the same operands, and the
 // lowest row that reaches the minimum is what the sequential strict-< scan
-// keeps.  Every lane must call these functions together (full-mask ballots
-// and shuffles): a lane with no ray enters with live = false and serves rows.
+// keeps.  The surrounding-RI probe (warp_ri_probe) is row-parallel in the
+// same way and sums in row order.  Every lane must call these functions
+// together (full-mask ballots and shuffles): a lane with no ray enters with
+// live = false and serves rows.
 //
 // Rows past a group's last live row (live_rows[g], from the wrapper) are
 // never read: dead rows cannot win, so the bound changes no result.  The ray's
@@ -42,8 +44,8 @@ namespace rt {
 constexpr unsigned WARP_FULL = 0xffffffffu;
 
 // Work counters of the warp sweeps (measurement only), one thread's share of
-// a frame (32 bits hold it; the kernel sums them in 64).  `tests`:
-// ST_SPHERE_TESTS (sphere mode: gr per entered group; generic mode: live
+// a launch (32 bits hold it; the kernels sum them in 64).  `tests`: sphere
+// quadratics (sphere mode: gr per entered group; generic mode: live
 // sphere-kind rows); `other`: generic live rows of other kinds; `slab`:
 // generic slab tests; `rows`: rows up to the live bound of each group a lane
 // entered (the rows its own walk needs); `slots`: RT_WARP_LANES x the row
@@ -72,8 +74,9 @@ __device__ __forceinline__ unsigned coop_iters(int n) {
 }
 
 // One sphere row in the group-anchored frame (s = o - anchor, od = s.d,
-// oo = s.s): its t, or -1 where the quadratic has no root in front.  The
-// expression of rt::nearest_hit's row loop.
+// oo = s.s): its t, or -1 where the quadratic has no root in front.  Row
+// centres are relative to the group anchor (rt_common.cuh), so the
+// quadratic is pre-expanded: -b/2 = C.d - s.d, c = s.s + K1 - 2 C.s.
 template <bool MOTION>
 __device__ __forceinline__ float sphere_row_t(const float* row, float sx, float sy,
                                               float sz, float dx, float dy, float dz,
@@ -98,7 +101,12 @@ __device__ __forceinline__ float sphere_row_t(const float* row, float sx, float 
   return tn > 0.0f ? tn : nb + sq;
 }
 
-// Warp-cooperative rt::nearest_hit<MOTION> (see the file comment).
+// Nearest hit over the grouped sphere tables: groups in table order
+// (near-first from the camera), each behind the lane's own slab test against
+// its current best t, a group's spheres solved around its anchor; ties keep
+// the lower row.  obj = -1 and t_best = min(BIG_T, tlim) on a miss or a dead
+// ray.  Warp-cooperative as the file comment says; `wc.tests` gains gr per
+// group the lane entered (the sphere quadratics of the per-lane walk).
 template <bool MOTION>
 __device__ __forceinline__ void warp_nearest_hit(
     const Tables& T, const int* __restrict__ live_rows, int coop_min, int lane,
@@ -355,6 +363,78 @@ __device__ __forceinline__ void warp_nearest_hit_g(
         wc.other += n_live;
     }
   }
+}
+
+// Sum of a per-thread count over the warp, in lane 0 (the others get partial
+// sums); every lane must call it together.
+__device__ __forceinline__ unsigned long long warp_total(unsigned long long v) {
+  for (int off = RT_WARP_LANES / 2; off > 0; off >>= 1) v += __shfl_down_sync(WARP_FULL, v, off);
+  return v;
+}
+
+// Warp-cooperative rt::ri_probe<MOTION>: the surrounding refractive index at
+// the point (qx, qy, qz) of every lane with `need`.  Where at least
+// `coop_min` lanes need it, each runs ri_probe's own loop (the warp issues
+// the table once for all of them).  Where fewer do, they are served one after
+// another ROW-PARALLEL: the lane's point is broadcast, every lane of the warp
+// tests rows lane, lane + W, ... of the probe table with ri_probe's
+// expression (the row's group anchor, qq, lhs), a ballot per W rows names
+// the rows that contain the point, and their RIs are added in ascending row
+// order.  Either way acc, cnt and the mean are the sequential loop's bit for
+// bit.  Probe groups are not culled by their boxes: the reference does not
+// cull them, and a point that rounding puts inside near a box's face would
+// answer differently.  A lane without `need` gets 1.
+template <bool MOTION>
+__device__ __forceinline__ float warp_ri_probe(const Tables& T, int coop_min, int lane,
+                                               bool need, float qx, float qy, float qz,
+                                               float omt) {
+  constexpr int COLS = MOTION ? OT_COLS_MOTION : OT_COLS;
+  float sur_ri = 1.0f;
+  const unsigned m = __ballot_sync(WARP_FULL, need);
+  if (m == 0u) return sur_ri;
+  if (__popc(m) >= coop_min) return need ? ri_probe<MOTION>(T, qx, qy, qz, omt) : sur_ri;
+  const int n_rows = T.n_pgroups * T.probe_gr;
+  const float* rows = T.otab + (size_t)T.n_groups * T.gr * COLS;
+  const float* pga = T.gaabb + (size_t)T.n_groups * GA_COLS;
+  for (unsigned mm = m; mm != 0u; mm &= mm - 1u) {
+    const int L = __ffs(mm) - 1;
+    const float lx = __shfl_sync(WARP_FULL, qx, L);
+    const float ly = __shfl_sync(WARP_FULL, qy, L);
+    const float lz = __shfl_sync(WARP_FULL, qz, L);
+    const float lomt = MOTION ? __shfl_sync(WARP_FULL, omt, L) : 0.0f;
+    float acc = 0.0f, cnt = 0.0f;
+    for (int r0 = 0; r0 < n_rows; r0 += RT_WARP_LANES) {
+      const int r = r0 + lane;
+      bool inside = false;
+      float ri = 0.0f;
+      if (r < n_rows) {
+        const float* ga = pga + (r / T.probe_gr) * GA_COLS;
+        const float ux = lx - __ldg(ga + 6);
+        const float uy = ly - __ldg(ga + 7);
+        const float uz = lz - __ldg(ga + 8);
+        const float qq = ux * ux + uy * uy + uz * uz;
+        const float* row = rows + (size_t)r * COLS;
+        const float4 c = ld4(row);
+        const float QC = c.x * ux + c.y * uy + c.z * uz;
+        float lhs = qq + c.w - 2.0f * QC;
+        if (MOTION) {
+          const float4 k = ld4(row + 4);  // ri rinv2 k2 k3
+          const float4 mv = ld4(row + 8);  // dpx dpy dpz 0
+          const float QDP = mv.x * ux + mv.y * uy + mv.z * uz;
+          lhs = lhs + lomt * (2.0f * QDP - k.z) + (lomt * lomt) * k.w;
+        }
+        inside = lhs <= 0.0f;
+        ri = __ldg(row + 4);
+      }
+      // The same sum on every lane; only L keeps it.
+      for (unsigned in = __ballot_sync(WARP_FULL, inside); in != 0u; in &= in - 1u) {
+        acc += __shfl_sync(WARP_FULL, ri, __ffs(in) - 1);
+        cnt += 1.0f;
+      }
+    }
+    if (lane == L) sur_ri = acc > 1.0f ? acc / fmaxf(cnt, 1.0f) : 1.0f;
+  }
+  return sur_ri;
 }
 
 }  // namespace rt

@@ -7,7 +7,8 @@ at first use (never at import), all sources in parallel, into
 under ``csrc/`` and the compiler flags, so an edited source rebuilds.
 
 Also here: the launch counters.  Each kernel wrapper adds one to its count
-where it launches its kernel, and nowhere else.
+where it launches its kernel, and nowhere else.  And the one switch of the
+warp sweeps' schedule for tests and measurement (``forced_coop_min``).
 
 Where there is no GPU, ``host_rehearsal()`` builds the same sources as plain
 C++ with ``g++`` and ``csrc/host_shim.h``, so a test can run a kernel's source
@@ -53,6 +54,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _LIBS: dict = {}  # (name, extra flags) -> CDLL
 _extra_flags: tuple = ()
+_coop_min_forced = None
 
 
 def reset_launches() -> None:
@@ -83,6 +85,28 @@ def precise():
         yield
     finally:
         _extra_flags = saved
+
+
+@contextlib.contextmanager
+def forced_coop_min(coop_min: int):
+    """Inside this context every kernel with a warp sweep (K1 ``uber``, K2
+    ``sweep2``, K6 ``mega``) sweeps with ``coop_min`` in place of its
+    module's ``COOP_MIN``: 1 keeps every culling group per lane, 33 sweeps
+    every group row-parallel.  Both give the same result.  For tests and
+    measurement only."""
+    global _coop_min_forced
+    saved = _coop_min_forced
+    _coop_min_forced = int(coop_min)
+    try:
+        yield
+    finally:
+        _coop_min_forced = saved
+
+
+def coop_min(default: int) -> int:
+    """The ``coop_min`` a launch passes: ``default`` (the module's
+    ``COOP_MIN``) unless ``forced_coop_min`` pins another."""
+    return default if _coop_min_forced is None else _coop_min_forced
 
 
 @contextlib.contextmanager

@@ -10,7 +10,10 @@ refractive index, shading.  The lane-aligned drain ``ops.megalanes`` calls it
 once per iteration.  The kernel is hand-written CUDA (``csrc/mega.cu``);
 ``mega_step_plain`` is the same function in plain PyTorch.  ``mega_step`` uses
 the plain version only for tensors that lie on the CPU; for CUDA tensors it
-launches the kernel or raises.
+launches the kernel or raises.  The kernel gathers each warp's live lanes into
+dense passes and sweeps them with the warp sweep of ``csrc/warp_sweep.cuh``
+(per lane where at least ``COOP_MIN`` lanes of a pass entered a group,
+row-parallel where fewer did); the result does not depend on the schedule.
 
 Pool record layout (16 rows x lanes, float32): rows 0-2 origin, 3-5 direction,
 6 ``omt`` (1 - time_ratio), 7 ``t_limit``, 8 contribution, 9 bounce count,
@@ -35,7 +38,7 @@ from raytracing_tests_tpu_torch.kernels import _build
 from raytracing_tests_tpu_torch.kernels.sweep2 import (
     FT_CB, FT_CR, FT_MRI, FT_REFL, FT_REFR, FT_SRFL, FT_SRFR, PROBE_GR,
     Accel2, _check_tensor, _dot3, _gather_rows, _ri_probe, _sweep_plain,
-    _winner_refine, check_accel,
+    _winner_refine, check_accel, live_rows,
 )
 from raytracing_tests_tpu_torch.kernels.sweep2g import (
     _gather_rows_g, _ri_probe_g, _winner_refine_g,
@@ -49,12 +52,23 @@ GOLDEN_ANGLE = float(np.float32(np.pi * (3.0 - np.sqrt(5.0))))
  P_BOUNCED) = range(10)
 POOL_ROWS = 16
 MISC_ROWS = 8  # add_r add_g add_b hit_t, four spare
-# Work counters of csrc/mega.cu (MS_* there): live lanes, sphere quadratics
-# solved, lanes that hit, lanes whose surrounding RI was probed.
-MS_LIVE, MS_TESTS, MS_HITS, MS_PROBES, MS_LEN = range(5)
+# Work counters of csrc/mega.cu (MS_* there): live lanes, gr per group a live
+# lane entered, lanes that hit, lanes whose surrounding RI was probed, active
+# lanes; the rows each lane's own walk tested (to its groups' last live rows),
+# 32 x the row iterations the dense passes issued (SIMT efficiency =
+# MS_ROW_TESTS / MS_LANE_SLOTS), row-parallel group visits, dense passes
+# (their fill = MS_LIVE / (32 x MS_PASSES)).
+(MS_LIVE, MS_TESTS, MS_HITS, MS_PROBES, MS_ACTIVE, MS_ROW_TESTS, MS_LANE_SLOTS,
+ MS_COOP_VISITS, MS_PASSES, MS_LEN) = range(10)
+# A culling group that fewer than this many lanes of a dense pass entered is
+# swept row-parallel, and the surrounding RI is probed row-parallel where
+# fewer lanes need it (the fastest of 1..33 on a natural megalanes frame of
+# the headline, PERF.md); ``_build.forced_coop_min`` pins another for tests
+# and measurement.
+COOP_MIN = 8
 # Host parameter vector of csrc/mega.cu (IP_* there).
 _IP = ("spp", "has_dielectrics", "n_groups", "gr", "n_pgroups", "probe_gr",
-       "has_motion")
+       "has_motion", "coop_min")
 
 
 def sunflower_statics(spp: int):
@@ -284,12 +298,13 @@ def _launch_mega(accel: Accel2, pool, lane, *, has_dielectrics: bool, spp: int,
     fn = _build.load("mega").rt_mega_step
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, ctypes.POINTER(ctypes.c_int),
-                       ctypes.POINTER(ctypes.c_float), p, p, i, p, p, p, p, p, p, p]
+        fn.argtypes = [p, p, p, p, ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_float), p, p, i, p, p, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
     ints = dict(spp=spp, has_dielectrics=int(has_dielectrics),
                 n_groups=accel.n_groups, gr=accel.gr, n_pgroups=accel.n_pgroups,
-                probe_gr=PROBE_GR, has_motion=int(accel.has_motion))
+                probe_gr=PROBE_GR, has_motion=int(accel.has_motion),
+                coop_min=_build.coop_min(COOP_MIN))
     ip = (ctypes.c_int * len(_IP))(*[ints[k] for k in _IP])
     n, b, denom = sunflower_statics(spp)
     floats = [t_max, GOLDEN_ANGLE, n, n - b, denom, float(max_bounces),
@@ -301,9 +316,11 @@ def _launch_mega(accel: Accel2, pool, lane, *, has_dielectrics: bool, spp: int,
     refl = torch.empty((POOL_ROWS, C), dtype=f32, device=dev)
     rlane = torch.empty((C,), dtype=torch.int32, device=dev)
     llane = torch.empty((C,), dtype=torch.int32, device=dev)
+    cursor = torch.empty((1,), dtype=torch.int32, device=dev)  # zeroed by the launch
     code = fn(accel.otab.data_ptr(), accel.ftab.data_ptr(), accel.gaabb.data_ptr(),
-              ip, fp, pool.data_ptr(), lane.data_ptr(), C, misc.data_ptr(),
-              refr.data_ptr(), refl.data_ptr(), rlane.data_ptr(), llane.data_ptr(),
+              live_rows(accel).data_ptr(), ip, fp, pool.data_ptr(), lane.data_ptr(), C,
+              misc.data_ptr(), refr.data_ptr(), refl.data_ptr(), rlane.data_ptr(),
+              llane.data_ptr(), cursor.data_ptr(),
               stats.data_ptr() if stats is not None else None,
               _build.stream_of(dev))
     _build.check(code, "rt_mega_step")

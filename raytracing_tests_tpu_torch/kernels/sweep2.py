@@ -16,7 +16,11 @@ The kernel is hand-written CUDA (``csrc/sweep2.cu``); ``sweep2_plain`` is the
 same function in plain PyTorch (dense over all spheres in the same anchored
 form, with the order-independent part of the slab test as a mask).  The
 wrapper ``_sweep2`` uses the plain version only for tensors that lie on the
-CPU; for a CUDA tensor it launches the kernel or raises.
+CPU; for a CUDA tensor it launches the kernel or raises.  A warp of the kernel
+sweeps each culling group per lane where at least ``COOP_MIN`` of its lanes
+entered it and row-parallel where fewer did, and probes the surrounding RI
+row-parallel (``csrc/warp_sweep.cuh``); rows past a group's last live row
+(``live_rows``, computed once per accel) are never read.
 
 Table layouts are row-major (a thread reads its winner's row with indexed
 16-byte loads); the logical fields and the row order are the JAX package's, so
@@ -76,6 +80,18 @@ GA_COLS = 12
 V_ROWS = 16
 
 _PLAIN_CHUNK = 16384  # rays per dense (rays x spheres) block of the plain version
+
+# A culling group that fewer than this many lanes of a warp entered is swept
+# row-parallel, and the surrounding RI is probed row-parallel where fewer
+# lanes need it (the fastest of 1..33 on the work-queue frame, PERF.md); 1
+# keeps every group per lane, 33 sweeps every group row-parallel.
+# ``_build.forced_coop_min`` pins another for tests and measurement.
+COOP_MIN = 8
+# Work counters of csrc/sweep2.cu (SW_* there): gr per group a ray entered;
+# the rows each ray's own walk tested (to its groups' last live rows), 32 x
+# the row iterations the warps issued (SIMT efficiency = SW_ROW_TESTS /
+# SW_LANE_SLOTS), row-parallel group visits.
+SW_TESTS, SW_ROW_TESTS, SW_LANE_SLOTS, SW_COOP_VISITS, SW_LEN = range(5)
 
 
 # ---------------------------------------------------------------------------
@@ -616,6 +632,33 @@ def check_accel(accel: Accel2, device):
                   (accel.n_groups + accel.n_pgroups, GA_COLS), device)
 
 
+def live_row_bounds(accel):
+    """(n_groups,) int32 on the accel's device: each main group's last live
+    row + 1 (0 for a group without one).  A row is live where the generic
+    ``valid`` column is positive (``sweep2g.Accel2G``), or, in sphere mode,
+    where K1 < BIG_T."""
+    rows = accel.otab[:accel.n_groups * accel.gr]
+    if accel.mode == "generic":
+        from raytracing_tests_tpu_torch.kernels.sweep2g import GO_VALID
+
+        live = rows[:, GO_VALID] > 0.0
+    else:
+        live = rows[:, OT_K1] < BIG_T
+    pos = torch.arange(1, accel.gr + 1, dtype=torch.int32, device=rows.device)
+    return (live.reshape(accel.n_groups, accel.gr).to(torch.int32) * pos).amax(dim=1)
+
+
+def live_rows(accel):
+    """``live_row_bounds(accel)``, computed once per accel: every launch of K1,
+    K2 and K6 on it reads the same tensor.  Kept on the accel and renewed when
+    its ``otab`` is replaced or written in place."""
+    key = (accel.otab.data_ptr(), accel.otab._version)
+    memo = accel.__dict__.get("_live_rows")
+    if memo is None or memo[0] != key:
+        memo = accel.__dict__["_live_rows"] = (key, live_row_bounds(accel))
+    return memo[1]
+
+
 def _launch_sweep2(accel: Accel2, rays, with_ri: bool, with_fields: bool, stats=None):
     """Check the arguments and launch ``csrc/sweep2.cu`` -> (t, obj, rows or None)."""
     dev = rays.device
@@ -625,21 +668,21 @@ def _launch_sweep2(accel: Accel2, rays, with_ri: bool, with_fields: bool, stats=
     _check_tensor("rays", rays, torch.float32, (8, B), dev)
     check_accel(accel, dev)
     if stats is not None:
-        _check_tensor("stats", stats, torch.int64, (1,), dev)
+        _check_tensor("stats", stats, torch.int64, (SW_LEN,), dev)
     _build.check_device(dev)
     fn = _build.load("sweep2").rt_sweep2
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, i, p, i, p, p, p, i, p, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p, i, p, p, p, i, p, p]
         fn.restype = ctypes.c_int
     t = torch.empty((B,), dtype=torch.float32, device=dev)
     obj = torch.empty((B,), dtype=torch.int32, device=dev)
     rows = (torch.empty((V_ROWS, B), dtype=torch.float32, device=dev)
             if with_fields else None)
     code = fn(accel.otab.data_ptr(), accel.ftab.data_ptr(),
-              accel.gaabb.data_ptr(), accel.n_groups, accel.gr,
-              accel.n_pgroups, PROBE_GR, int(accel.has_motion),
-              rays.data_ptr(), B, t.data_ptr(), obj.data_ptr(),
+              accel.gaabb.data_ptr(), live_rows(accel).data_ptr(), accel.n_groups,
+              accel.gr, accel.n_pgroups, PROBE_GR, int(accel.has_motion),
+              _build.coop_min(COOP_MIN), rays.data_ptr(), B, t.data_ptr(), obj.data_ptr(),
               rows.data_ptr() if with_fields else None, int(with_ri),
               stats.data_ptr() if stats is not None else None,
               _build.stream_of(dev))
@@ -654,9 +697,8 @@ def _sweep2(accel: Accel2, rays, with_ri: bool, with_fields: bool, stats=None):
     CPU tensors go through ``sweep2_plain``; CUDA tensors launch the kernel of
     ``csrc/sweep2.cu`` on the current stream (or raise), in its static or its
     motion instantiation by ``accel.has_motion`` (counted as ``sweep2`` and
-    ``sweep2_m``).  ``stats``: optional
-    zeroed int64[1] CUDA tensor that gains the number of sphere quadratics
-    solved (measurement only)."""
+    ``sweep2_m``).  ``stats``: optional zeroed int64[SW_LEN] CUDA tensor
+    that gains the kernel's work counters (``SW_*``; measurement only)."""
     if rays.device.type == "cpu":
         if accel.device.type != "cpu":
             raise ValueError("rays on the CPU but accel on " + str(accel.device))

@@ -24,10 +24,10 @@ for an accel built with ``has_motion``, with motion blur (a primary's sample
 
 A warp of the kernel sweeps every culling group together: per lane where at
 least ``COOP_MIN[accel.mode]`` of its lanes entered the group, row-parallel
-for one entered lane after another where fewer did (``csrc/uber_sweep.cuh``).  Both
-schedules give the same result; ``_forced_coop_min`` pins one for tests.  The
-wrapper hands the kernel each group's last live row + 1
-(``live_row_bounds``), so rows past it are never read.
+for one entered lane after another where fewer did (``csrc/warp_sweep.cuh``).  Both
+schedules give the same result; ``_forced_coop_min`` (``_build.forced_coop_min``)
+pins one for tests.  The wrapper hands the kernel each group's last live row + 1
+(``sweep2.live_rows``, computed once per accel), so rows past it are never read.
 
 Scope so far: 'bvh' shading, perspective camera with one focus distance, no
 lights, textures or ``aa_grid``.
@@ -35,7 +35,6 @@ lights, textures or ``aa_grid``.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import dataclasses
 
@@ -46,11 +45,11 @@ from raytracing_tests_tpu_torch.kernels.mega import (
     GOLDEN_ANGLE, _cross_up, _shade_hits, sunflower_statics,
 )
 from raytracing_tests_tpu_torch.kernels.sweep2 import (
-    BIG_T, OT_K1, PROBE_GR, _check_tensor, _dot3, _sweep_plain, check_accel, make_accel2,
+    PROBE_GR, _check_tensor, _dot3, _sweep_plain, check_accel, live_rows, make_accel2,
     probe_relevant_rows,
 )
 from raytracing_tests_tpu_torch.kernels.sweep2g import (
-    GO_VALID, _sweep_plain_g, check_accel_g, make_accel2g,
+    _sweep_plain_g, check_accel_g, make_accel2g,
 )
 from raytracing_tests_tpu_torch.ops.camera_rays import check_supported
 from raytracing_tests_tpu_torch.utils.device import resolve_device
@@ -82,7 +81,7 @@ _IP = ("W", "H", "spp", "Q", "pops", "has_dielectrics", "n_groups", "gr",
 # bvh1k frame, PERF.md).  1 keeps every group per lane (the one-thread-per-tree
 # schedule), 33 sweeps every group row-parallel.
 COOP_MIN = {"spheres": 12, "generic": 8}
-_coop_min_forced = None
+_forced_coop_min = _build.forced_coop_min
 
 _PLAIN_CHUNK = 1 << 20  # primaries per batch of the plain version
 
@@ -282,33 +281,6 @@ def _plain_range(accel, cam, st: UberStatics, p0: int, B: int):
 # ---------------------------------------------------------------------------
 
 
-@contextlib.contextmanager
-def _forced_coop_min(coop_min: int):
-    """Inside this context the kernel sweeps with ``coop_min`` in place of
-    ``COOP_MIN[accel.mode]`` (1: always per lane, 33: always row-parallel).
-    For tests and measurement only."""
-    global _coop_min_forced
-    saved = _coop_min_forced
-    _coop_min_forced = int(coop_min)
-    try:
-        yield
-    finally:
-        _coop_min_forced = saved
-
-
-def live_row_bounds(accel):
-    """(n_groups,) int32 on the accel's device: each main group's last live
-    row + 1 (0 for a group without one).  A row is live where the generic
-    ``valid`` column is positive, or, in sphere mode, where K1 < BIG_T."""
-    rows = accel.otab[:accel.n_groups * accel.gr]
-    if accel.mode == "generic":
-        live = rows[:, GO_VALID] > 0.0
-    else:
-        live = rows[:, OT_K1] < BIG_T
-    pos = torch.arange(1, accel.gr + 1, dtype=torch.int32, device=rows.device)
-    return (live.reshape(accel.n_groups, accel.gr).to(torch.int32) * pos).amax(dim=1)
-
-
 def _uber_fn():
     lib = _build.load("uber")
     fn = lib.rt_uber_render
@@ -331,8 +303,7 @@ def _host_params(accel, st: UberStatics):
                 generic=int(accel.mode == "generic"),
                 n_sgroups=getattr(accel, "n_sgroups", 0),
                 has_motion=int(accel.has_motion),
-                coop_min=(COOP_MIN[accel.mode] if _coop_min_forced is None
-                          else _coop_min_forced))
+                coop_min=_build.coop_min(COOP_MIN[accel.mode]))
     ip = (ctypes.c_int * len(_IP))(*[ints[k] for k in _IP])
     floats = [st.t_max, GOLDEN_ANGLE, 1.0 / st.W, 1.0 / st.H, st.W / st.H,
               n, n - b, denom, 1.0 / denom, float(st.max_bounces),
@@ -352,11 +323,11 @@ def _launch_uber(accel, cam, st: UberStatics):
     if st.Q > max_q:
         raise ValueError(f"queue capacity {st.Q} exceeds the kernel's stack of {max_q}")
     ip, fp = _host_params(accel, st)
-    live_rows = live_row_bounds(accel)
+    live = live_rows(accel)
     out = torch.empty((st.B, 4), dtype=torch.float32, device=dev)
     stats = torch.zeros(ST_LEN, dtype=torch.int64, device=dev)
     code = fn(accel.otab.data_ptr(), accel.ftab.data_ptr(),
-              accel.gaabb.data_ptr(), live_rows.data_ptr(), cam.data_ptr(), ip, fp,
+              accel.gaabb.data_ptr(), live.data_ptr(), cam.data_ptr(), ip, fp,
               st.B, out.data_ptr(), stats.data_ptr(), _build.stream_of(dev))
     _build.check(code, "rt_uber_render")
     _build.LAUNCHES[launch_name(accel)] += 1

@@ -74,6 +74,19 @@ def test_the_smoke_script_imports_nothing_of_jax():
                 and "raytracing_tests_tpu." not in s, line
 
 
+@pytest.mark.parametrize("script", ["chip_ab.py", "chip_frames.py"])
+def test_the_other_chip_scripts_import_nothing_of_jax(script):
+    """The measurement scripts beside the smoke script run on the card too."""
+    import pathlib
+
+    text = (pathlib.Path(raytracing_tests_tpu_torch.__file__).parent.parent / script).read_text()
+    for line in text.splitlines():
+        s = line.strip()
+        if s.startswith(("import ", "from ")):
+            assert "jax" not in s and "raytracing_tests_tpu " not in s + " " \
+                and "raytracing_tests_tpu." not in s, line
+
+
 @pytest.mark.parametrize("entry", ["render_uber", "render_stats", "render", "cli",
                                    "render_uber_generic", "render_stats_generic",
                                    "render_stats_generic_dense", "cli_bvh",

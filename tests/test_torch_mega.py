@@ -39,6 +39,14 @@ Tolerances, per output (``BARS``):
     a grazing angle and meet it again; found 7.6e-3 at radius 1000).
   - inactive lanes add exactly 0, report ``t_max`` and spawn nothing; dead
     active lanes add contribution x sky(dy = 0).
+  - the kernel source compiled as host C++ (where there is a g++) against the
+    plain version: children's lane ids equal, every float within 1e-5 on >=
+    99.9 % of lanes (rsqrt, cos and sin are the C library's there and
+    PyTorch's here, an ulp apart on some arguments), in each sweep schedule
+    and bit for bit the default schedule's; the inactive and dead lanes of a
+    scattered pool (C not a multiple of 32, a tile of dead lanes, a tile of
+    inactive lanes, every seventh lane live) equal to the plain version's bit
+    for bit, and every live lane within the bar above.
 """
 
 import shutil
@@ -280,3 +288,134 @@ def test_kernel_source_rehearsed_on_the_host(case):
         if c.has_dielectrics:
             assert int(stats[tmega.MS_PROBES]) > 0
         pool, lane = next_generation(want, lane)
+
+
+# coop_min of the host rehearsals: None is the module's default (COOP_MIN).
+# A host warp is one lane, so 1 sweeps every group per lane and the others
+# row-parallel with a row stride of 1.
+SCHEDULES = [None, 1, 33]
+
+
+def _forced(coop_min):
+    import contextlib
+
+    return contextlib.nullcontext() if coop_min is None else _build.forced_coop_min(coop_min)
+
+
+def _rehearse(case, pool, lane, coop_min=None):
+    """The host build of csrc/mega.cu on one pool -> (outputs, stats)."""
+    c = case.cfg
+    kw = dict(has_dielectrics=c.has_dielectrics, spp=c.spp, max_bounces=c.max_bounces,
+              t_max=c.t_max, bg=c.background)
+    stats = torch.zeros(tmega.MS_LEN, dtype=torch.int64)
+    with _build.host_rehearsal(), _forced(coop_min):
+        got = tmega._launch_mega(case.ta, pool, lane, stats=stats, **kw)
+    return got, stats, tmega.mega_step_plain(case.ta, pool, lane, **kw)
+
+
+def _need_gxx():
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to rehearse the kernel source with")
+
+
+def _close(got, want):
+    """Per lane: every float within 1e-5 (+ 1e-5 relative)."""
+    ok = torch.ones(got[0].shape[1], dtype=torch.bool)
+    for g, w in zip(got[:3], want[:3]):
+        ok &= ((g - w).abs() <= 1e-5 + 1e-5 * w.abs()).all(dim=0)
+    return ok
+
+
+@pytest.mark.parametrize("coop_min", [1, 33])
+def test_kernel_source_rehearsed_on_the_host_in_each_schedule(case, coop_min):
+    """... in each forced sweep schedule: the bars above against the plain
+    version, and the default schedule's outputs and counters bit for bit."""
+    _need_gxx()
+    got, stats, want = _rehearse(case, case.pool, case.lane, coop_min)
+    base, stats_base, _ = _rehearse(case, case.pool, case.lane)
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+    assert _close(got, want).float().mean() >= 0.999
+    assert all(torch.equal(a, b) for a, b in zip(got, base))
+    same = [tmega.MS_LIVE, tmega.MS_TESTS, tmega.MS_HITS, tmega.MS_PROBES, tmega.MS_ACTIVE,
+            tmega.MS_ROW_TESTS, tmega.MS_PASSES]
+    assert torch.equal(stats[same], stats_base[same])
+    assert (int(stats[tmega.MS_COOP_VISITS]) > 0) == (coop_min > 1)
+    # a host warp is one lane: one dense pass per live lane, all slots filled
+    assert int(stats[tmega.MS_PASSES]) == int(stats[tmega.MS_LIVE])
+    assert int(stats[tmega.MS_ACTIVE]) == int((case.lane >= 0).sum())
+
+
+@pytest.mark.parametrize("coop_min", SCHEDULES)
+def test_scattered_pool_rehearsed_on_the_host(case, coop_min):
+    """A pool whose live lanes are scattered: C = 2043 (not a multiple of 32),
+    lanes 64..95 active with a dead ray, lanes 128..159 inactive, and of the
+    rest every seventh lane live, the others alternately inactive and dead.
+    Every lane's outputs (misc, both children, rlane, llane) are the plain
+    version's: bit for bit on inactive and dead lanes, within the bars above
+    on live ones."""
+    _need_gxx()
+    C = 2043
+    pool, lane = case.pool[:, :C].clone(), case.lane[:C].clone()
+    idx = torch.arange(C)
+    live = (idx % 7 == 0) & (lane >= 0) & ((pool[3:6] ** 2).sum(dim=0) > 0.5)
+    live[64:160] = False
+    inactive = ~live & (idx % 2 == 1)
+    inactive[64:96], inactive[128:160] = False, True
+    dead = ~live & ~inactive
+    lane = torch.where(inactive, torch.full_like(lane, -1), idx.to(torch.int32))
+    pool[3:6, dead] = 0.0
+    pool[8, dead] = 0.7  # a contribution the sky multiplies
+    pool[6, :] = torch.linspace(0.0, 1.0, C)  # omt and bounce count reach every child
+    pool[9, :] = (idx % 3).to(torch.float32)
+    pool = pool.contiguous()
+    got, stats, want = _rehearse(case, pool, lane, coop_min)
+    assert int(stats[tmega.MS_LIVE]) == int(live.sum()) > 250
+    assert int(stats[tmega.MS_ACTIVE]) == int((lane >= 0).sum())
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+    fixed = ~live
+    for g, w in zip(got[:3], want[:3]):
+        assert g.shape == w.shape and torch.equal(g[:, fixed], w[:, fixed])
+    assert (got[0][0:3, inactive] == 0).all() and (got[0][0:3, dead] > 0).all()
+    ok = _close(got, want)[live]
+    assert ok.float().mean() >= 0.999, float(ok.float().mean())
+
+
+def test_probe_inside_nested_glass_rehearsed_on_the_host():
+    """Rays that start inside four nested glass spheres: every lane hits glass
+    and probes the surrounding RI at a point inside three or four glass
+    spheres; the kernel source's outputs within the bars above, children's
+    lane ids equal, in each schedule."""
+    _need_gxx()
+    centre = (0.0, 0.0, -3.0)
+    b = SceneBuilder()
+    for radius, ior in ((0.9, 1.5), (0.65, 1.3), (0.45, 1.7), (0.25, 1.4)):
+        b.add_dielectric(centre, radius, ior=ior)
+    b.add_dielectric((0.45, 0.1, -2.8), 0.4, ior=1.6)
+    b.add_lambertian((0.0, -100.9, -3.0), 100.0, (0.5, 0.6, 0.4))
+    scene = b.build()
+    cfg = RenderConfig(**FRAME).for_scene(scene)
+    case = Case.__new__(Case)
+    case.cfg = cfg
+    case.ta = tsw.make_accel2(scene, gr=8, probe_rows=cfg.probe_rows)
+    rng = np.random.default_rng(11)
+    n = 512
+    o = torch.from_numpy((np.asarray(centre) + rng.uniform(-0.14, 0.14, (n, 3))).astype(np.float32))
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d = torch.from_numpy(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    lane = torch.arange(n, dtype=torch.int32)
+    pool = _init_chunk(o, d, torch.zeros(n), lane, cfg)
+    for coop_min in SCHEDULES:
+        got, stats, want = _rehearse(case, pool, lane, coop_min)
+        assert int(stats[tmega.MS_PROBES]) == n  # every winner is glass
+        assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+        assert _close(got, want).float().mean() >= 0.999
+    # the probe points (1e-3 outside the winner's surface): inside three or
+    # four glass spheres
+    _, obj = tsw._sweep_plain(case.ta, o, d, torch.ones(n, dtype=torch.bool), pool[7])
+    win = case.ta.perm[obj.long()].long()
+    hit_p = o + got[0][3][:, None] * d
+    q = hit_p + 1e-3 * (hit_p - scene.position[win]) / scene.scale[win, 0:1]
+    glass = scene.valid & (scene.refractive_index != 1.0)
+    d2 = ((q[:, None] - scene.position[glass][None]) ** 2).sum(dim=-1)
+    depth = (d2 <= scene.scale[glass, 0][None] ** 2).sum(dim=1)
+    assert (depth >= 3).all() and (depth >= 4).any()

@@ -28,6 +28,7 @@ Tolerances:
     their plain versions.
 """
 
+import contextlib
 import dataclasses
 import shutil
 
@@ -327,6 +328,31 @@ def test_sweep_kernel_motion_instantiation_rehearsed_on_the_host(sweep_case):
     assert ok.float().mean() >= 0.999, float(ok.float().mean())
     with pytest.raises(RuntimeError):
         tsw._launch_sweep2(c["ta"], rays, True, True)  # CPU tensors outside the rehearsal
+
+
+@pytest.mark.parametrize("coop_min", [1, 33])
+def test_sweep_kernel_motion_instantiation_rehearsed_on_the_host_in_each_schedule(
+        sweep_case, coop_min):
+    """... in each forced sweep schedule: the bars above, and the default
+    schedule's output and counters bit for bit."""
+    _need_gxx()
+    c = sweep_case
+    rays = tsw.pack_rays(*c["targs"])
+    want = tsw.sweep2_plain(c["ta"], rays, True, True)
+    runs = {}
+    for cm in (None, coop_min):
+        stats = torch.zeros(tsw.SW_LEN, dtype=torch.int64)
+        forced = _build.forced_coop_min(cm) if cm else contextlib.nullcontext()
+        with _build.host_rehearsal(), forced:
+            runs[cm] = tsw._launch_sweep2(c["ta"], rays, True, True, stats), stats
+    (got, stats), (base, stats_base) = runs[coop_min], runs[None]
+    assert torch.equal(got[1], want[1])
+    ok = ((got[2] - want[2]).abs() <= 1e-5 + 1e-5 * want[2].abs()).all(dim=0)
+    assert ok.float().mean() >= 0.999, float(ok.float().mean())
+    assert all(torch.equal(a, b) for a, b in zip(got, base))
+    same = [tsw.SW_TESTS, tsw.SW_ROW_TESTS]
+    assert torch.equal(stats[same], stats_base[same])
+    assert (int(stats[tsw.SW_COOP_VISITS]) > 0) == (coop_min > 1)
 
 
 @pytest.mark.parametrize("mode", ["spheres", "generic"])

@@ -20,7 +20,18 @@ Tolerances:
     Hit-block material fields and surrounding RI equal; normals, which carry
     the t difference over the radius (x5 on the 0.2-radius spheres), within
     1e-5 on >= 95 % of hits (97.3 % found) and within 1e-3 on all.
+  - the kernel source compiled as host C++ (where there is a g++) against the
+    plain version, in each sweep schedule: winners equal, the hit block
+    within 1e-5 (relative above 1) on >= 99.9 % of rays (the plain version
+    sums the probe's RIs with ``torch.sum``, in another order), the ground
+    sphere's refined t within rtol 2e-3 (as above), and every schedule's
+    output bit for bit the default schedule's.  The surrounding RI inside glass
+    spheres nested four deep equals, bit for bit, a sequential float32 sum
+    over the probe rows in row order (the kernel's order); the plain
+    version's within rtol 1e-6.
 """
+
+import shutil
 
 import numpy as np
 import pytest
@@ -33,6 +44,7 @@ from raytracing_tests_tpu.ops.render import RenderConfig as JRenderConfig
 from raytracing_tests_tpu.scene import examples as jex
 from raytracing_tests_tpu.scene.types import SceneBuilder as JSceneBuilder
 from raytracing_tests_tpu_torch import convert
+from raytracing_tests_tpu_torch.kernels import _build
 from raytracing_tests_tpu_torch.kernels import sweep2 as tsw
 from raytracing_tests_tpu_torch.ops.intersect import intersect_brute
 from raytracing_tests_tpu_torch.ops.render import RenderConfig as TRenderConfig
@@ -260,3 +272,169 @@ def test_check_accel_refuses_wrong_table_shape(sweep_case):
     bad = dataclasses.replace(sweep_case["ta"], ftab=sweep_case["ta"].ftab[:, :-1])
     with pytest.raises(ValueError):
         tsw.check_accel(bad, torch.device("cpu"))
+
+
+# ---------------------------------------------------------------------------
+# The kernel source, compiled as host C++, in each sweep schedule
+# ---------------------------------------------------------------------------
+
+# coop_min of the host rehearsals: None is the module's default (COOP_MIN).
+# A host warp is one lane, so 1 sweeps every group per lane and the others
+# row-parallel with a row stride of 1.
+SCHEDULES = [None, 1, 33]
+
+DEEP_CENTRE = (0.0, 0.0, -3.0)
+
+
+def deep_glass(sb_cls):
+    """Four concentric glass spheres of different refractive indices and a
+    fifth that cuts into them, over a ground sphere: a ray that leaves the
+    innermost sphere from inside probes at a point inside three or four
+    glass spheres."""
+    b = sb_cls()
+    for radius, ior in ((0.9, 1.5), (0.65, 1.3), (0.45, 1.7), (0.25, 1.4)):
+        b.add_dielectric(DEEP_CENTRE, radius, ior=ior)
+    b.add_dielectric((0.45, 0.1, -2.8), 0.4, ior=1.6)
+    b.add_lambertian((0.0, -100.9, -3.0), 100.0, (0.5, 0.6, 0.4))
+    return b.build()
+
+
+def _rays_inside(seed, n):
+    """Rays from points inside the innermost deep-glass sphere."""
+    rng = np.random.default_rng(seed)
+    o = (np.asarray(DEEP_CENTRE) + rng.uniform(-0.14, 0.14, (n, 3))).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return [torch.from_numpy(x) for x in (o, d, np.zeros(n, np.float32),
+                                           np.full(n, 32000.0, np.float32))]
+
+
+def _need_gxx():
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to rehearse the kernel source with")
+
+
+def _forced(coop_min):
+    import contextlib
+
+    return contextlib.nullcontext() if coop_min is None else _build.forced_coop_min(coop_min)
+
+
+def _rehearse(accel, rays, coop_min):
+    """The host build of csrc/sweep2.cu on ``rays`` -> ((t, obj, rows), stats)."""
+    stats = torch.zeros(tsw.SW_LEN, dtype=torch.int64)
+    with _build.host_rehearsal(), _forced(coop_min):
+        got = tsw._launch_sweep2(accel, rays, True, True, stats)
+    return got, stats
+
+
+def _hold_to_plain(accel, got, want):
+    """Winners equal; the hit block within 1e-5 (relative above 1) on >=
+    99.9 % of rays, but the refined t of the 1000-radius ground sphere within
+    rtol 2e-3: there |o - c|^2 - r^2 cancels at 1e6, and the host build and
+    PyTorch round it apart (the kernel before its warp sweep did the same)."""
+    assert torch.equal(got[1], want[1])
+    err = (got[2] - want[2]).abs() / want[2].abs().clamp_min(1.0)
+    ground = (got[1] >= 0) & (accel.perm[got[1].clamp_min(0).long()] == 0)
+    err[tsw.V_T, ground] = err[tsw.V_T, ground] * (1e-5 / 2e-3)
+    ok = (err <= 1e-5).all(dim=0)
+    assert ok.float().mean() >= 0.999, float(ok.float().mean())
+    assert torch.equal(got[0], got[2][tsw.V_T])
+
+
+@pytest.mark.parametrize("coop_min", SCHEDULES)
+def test_kernel_source_rehearsed_on_the_host_in_each_schedule(sweep_case, coop_min):
+    """``csrc/sweep2.cu`` (static instantiation) against the plain version in
+    each schedule, and bit for bit against the default schedule, counters
+    included."""
+    _need_gxx()
+    c = sweep_case
+    rays = tsw.pack_rays(*c["targs"])
+    want = tsw.sweep2_plain(c["ta"], rays, True, True)
+    got, stats = _rehearse(c["ta"], rays, coop_min)
+    _hold_to_plain(c["ta"], got, want)
+    base, stats_base = _rehearse(c["ta"], rays, None)
+    assert all(torch.equal(a, b) for a, b in zip(got, base))
+    same = [tsw.SW_TESTS, tsw.SW_ROW_TESTS]
+    assert torch.equal(stats[same], stats_base[same]) and int(stats[tsw.SW_TESTS]) > 0
+    assert (int(stats[tsw.SW_COOP_VISITS]) > 0) == ((coop_min or tsw.COOP_MIN) > 1)
+    # a host warp is one lane: every row iteration serves one lane's row
+    assert int(stats[tsw.SW_LANE_SLOTS]) == int(stats[tsw.SW_ROW_TESTS])
+
+
+def _sequential_ri(accel, q):
+    """The surrounding RI at points q (N, 3) as csrc's ri_probe computes it:
+    float32 throughout, the rows in order, one sum each."""
+    f = np.float32
+    rows = accel.otab[accel.n_pad:].numpy()
+    anchors = accel.gaabb[accel.n_groups:, 6:9].numpy()
+    out = np.ones(len(q), np.float32)
+    for n, (qx, qy, qz) in enumerate(q.astype(np.float32)):
+        acc, cnt = f(0.0), f(0.0)
+        for r, row in enumerate(rows):
+            ax, ay, az = anchors[r // tsw.PROBE_GR]
+            ux, uy, uz = f(qx - ax), f(qy - ay), f(qz - az)
+            qq = f(f(f(ux * ux) + f(uy * uy)) + f(uz * uz))
+            qc = f(f(f(row[0] * ux) + f(row[1] * uy)) + f(row[2] * uz))
+            lhs = f(f(qq + row[3]) - f(f(2.0) * qc))
+            if lhs <= 0.0:
+                acc = f(acc + row[tsw.OT_RI])
+                cnt = f(cnt + f(1.0))
+        out[n] = f(acc / max(cnt, f(1.0))) if acc > 1.0 else f(1.0)
+    return out
+
+
+@pytest.mark.parametrize("coop_min", SCHEDULES)
+def test_probe_sums_nested_glass_in_row_order(coop_min):
+    """Rays that start inside four nested glass spheres: the kernel source's
+    surrounding RI is the sequential row-order sum bit for bit, at points
+    that lie inside three or four glass spheres."""
+    _need_gxx()
+    scene = deep_glass(TSceneBuilder)
+    cfg = TRenderConfig().for_scene(scene)
+    accel = tsw.make_accel2(scene, gr=8, probe_rows=cfg.probe_rows)
+    o, d, tr, tl = _rays_inside(7, 512)
+    rays = tsw.pack_rays(o, d, tr, tl)
+    want = tsw.sweep2_plain(accel, rays, True, True)
+    got, _ = _rehearse(accel, rays, coop_min)
+    assert torch.equal(got[1], want[1]) and (got[1] >= 0).all()
+    t, rows = got[0], got[2]
+    n = rows[tsw.V_NX:tsw.V_NZ + 1].T
+    need = ((n * d).sum(dim=1) > 0.0) | (rows[tsw.V_REFR] > 0.002)
+    assert need.all()  # every winner is glass
+    q = ((o + t[:, None] * d) + np.float32(1e-3) * n).numpy()
+    glass = scene.valid & (scene.refractive_index != 1.0)
+    d2 = ((torch.from_numpy(q)[:, None] - scene.position[glass][None]) ** 2).sum(dim=-1)
+    depth = (d2 <= scene.scale[glass, 0][None] ** 2).sum(dim=1)
+    assert (depth >= 3).float().mean() > 0.5 and (depth >= 4).any()
+    np.testing.assert_array_equal(rows[tsw.V_RI].numpy(), _sequential_ri(accel, q))
+    np.testing.assert_allclose(rows[tsw.V_RI].numpy(), want[2][tsw.V_RI].numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["spheres", "motion", "generic"])
+def test_live_rows_are_computed_once_per_accel(kind):
+    """``live_rows`` gives ``live_row_bounds`` of the accel, the same tensor
+    at every launch, and the new bounds once the tables change in place."""
+    from raytracing_tests_tpu_torch.kernels import sweep2g
+
+    if kind == "generic":
+        scene, _ = tex.bvh_grid_scene(side=4)
+        accel = sweep2g.make_accel2g(scene, gr=16, has_motion=False)
+        valid = sweep2g.GO_VALID
+    else:
+        scene, _ = tex.iow_final_scene(side=5)
+        if kind == "motion":
+            scene = scene.replace(delta_position=torch.full_like(scene.delta_position, 0.1))
+        accel = tsw.make_accel2(scene, gr=16)
+        assert accel.has_motion == (kind == "motion")
+    want = tsw.live_row_bounds(accel)
+    got = tsw.live_rows(accel)
+    assert torch.equal(got, want) and tsw.live_rows(accel) is got
+    g = int(torch.nonzero(want).flatten()[0])
+    last = g * accel.gr + int(want[g]) - 1  # group g's last live row: now dead
+    if kind == "generic":
+        accel.otab[last, valid] = 0.0
+    else:
+        accel.otab[last, tsw.OT_K1] = tsw.BIG_T
+    renewed = tsw.live_rows(accel)
+    assert torch.equal(renewed, tsw.live_row_bounds(accel)) and int(renewed[g]) < int(want[g])

@@ -410,7 +410,7 @@ def test_live_row_bounds_match_the_tables(name):
     cfg = RenderConfig(intersector="pallas").for_scene(scene)
     gr = min(64, max(8, -(-scene.capacity // 8) * 8))  # as render_uber clamps it
     accel, _ = tub._scene_accel(scene, cam, cfg, gr)
-    got = tub.live_row_bounds(accel)
+    got = sweep2.live_row_bounds(accel)
     assert got.dtype == torch.int32 and tuple(got.shape) == (accel.n_groups,)
     otab = accel.otab.numpy()
     want = []
