@@ -14,8 +14,13 @@ ellipsoids and cuboids: two canaries and ``bvh_grid_scene(side=32)`` at
 lane-aligned megakernel drain (``render_megalanes``, both schedules) and once
 through the work queue (``render_workqueue``), and motion blur
 (``motion_blur_scene()`` at 800x450x16 depth 8 through ``render_uber``, the
-sphere sweep and the drain, and a moving generic scene); and the schedules of
-the sphere sweep and the megakernel (phase ``sweep_modes``).
+sphere sweep and the drain, and a moving generic scene); the schedules of
+the sphere sweep and the megakernel (phase ``sweep_modes``); and the sixth
+slice: materials shading and emissive lights through the persistent kernel
+(the ``materials`` and ``lights`` frames, ``materials_scene()`` and
+``lights_scene()`` at 800x450x16 depth 8, and a canary for each of the eight
+new instantiations), the work queue with lights, and stacks of 16 and 32
+records.
 It prints one JSON object per phase.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the exit code
 is non-zero and no result line is printed; without CUDA it fails at once.
@@ -137,6 +142,30 @@ Phases and their bars:
      over a natural megalanes frame of the headline and K2's summed time over
      a work-queue frame, each launch timed twice by CUDA events with the card
      kept busy while the host enqueues it, the faster timing counted.
+  materials_frame, lights_frame. ``materials_scene()`` (materials shading) and
+     ``lights_scene()`` (with ``extract_lights``) at 800x450x16 depth 8
+     through ``render_uber``: one launch of ``uber_mat`` / ``uber_g_lt`` per
+     frame, min and mean of 3 frames after a warm one, rays, Mrays/s, K1's
+     time and bound, accel build, epilogue; zero dropped; image mean within
+     SHADING_FRAME_MEAN and rays within SHADING_FRAME_RAYS of the plain
+     version of the same frame; K1 against its plain version per sample on
+     every primary (``check_shading``: the -fmad=false build within 1e-4 on
+     >= SHADING_PRECISE, for lights off the samples whose shadow rays aim at
+     a corner of the light's box, CORNER_RATIOS says why); the schedules
+     bit for bit in the -fmad=false build (uber_modes).
+  shading_canary. each of the eight new instantiations (materials and lights,
+     sphere and generic, static and moving; ``SHADING_CANARIES``) at
+     200x112x8 depth 6 against the queue renderer, by the bars of 5, which
+     launches K2 or K5, shadow sweeps included; against its plain version by
+     ``check_shading``; the schedules bit for bit.
+  workqueue_lights. ``render_workqueue`` with lights on the sphere lights
+     canary against the queue renderer given a full tree's budget: image atol
+     2e-5 on >= 99.5 %, zero dropped, K2 alone; rays at or above the queue
+     renderer's and within 2 % (``workqueue_lights`` says why).
+  deep_stack. K1 with stacks of 16 and 32 records on ``deep_glass_spheres()``
+     under materials shading at depths 12 and 16 against the queue renderer
+     with the same stack, by the bars of 5; the same frames at 8 records
+     drop rays.
 Launch counts are kept per driven path: set to 0 before a path and read after
 it (each canary, each frame); every kernel must be launched on at least one.
 """
@@ -216,13 +245,15 @@ FLOPS_PER_CONTAINS_SPHERE = 14  # shifted centre, squared distance, compare
 FLOPS_PER_CONTAINS_GENERIC = 45  # shift, rotation, 3 divisions, compare
 
 
-# What ``ptxas -v`` gives the persistent kernel's static instantiations with
-# the warp sweeps of csrc/warp_sweep.cuh (sphere; generic), on the toolkit of
-# CUDA 12.8; before them they took 80 registers and no spill, and 64 registers
-# with 148 / 164 B of spill stores / loads.
+# What ``ptxas -v`` gives the persistent kernel's static 'bvh' instantiations
+# with the warp sweeps of csrc/warp_sweep.cuh (sphere; generic), on the toolkit
+# of CUDA 12.8, since their stacks moved to a global scratch buffer: the
+# 256-byte local array left the stack frame (288 B before, with 80 and 94
+# registers; before the warp sweeps 80 registers and no spill, and 64 with
+# 148 / 164 B of spill stores / loads).
 PTXAS_STATIC = {
-    "uber_kernel<0,0>": dict(registers=80, stack=288, spill_stores=0, spill_loads=0),
-    "uber_kernel<1,0>": dict(registers=94, stack=288, spill_stores=0, spill_loads=0),
+    "uber_kernel<0,0,0>": dict(registers=80, stack=32, spill_stores=0, spill_loads=0),
+    "uber_kernel<1,0,0>": dict(registers=93, stack=32, spill_stores=0, spill_loads=0),
 }
 # What it gives the sphere sweep and the megakernel since they run the warp
 # sweeps too, at their launch bounds of 3 blocks of 256 threads and 6 of 128
@@ -420,10 +451,11 @@ def second_generation(accel, rays):
     return torch.cat([o2, d2, rays[6:8]]).contiguous()
 
 
-def compare_uber(accel, cam, st, out_p, stats_p):
+def compare_uber(accel, cam, st, out_p, stats_p, lights=None):
     """The persistent kernel of the current build variant against the plain
-    version's output ``out_p`` on the same frame -> (numbers, kernel out)."""
-    out_k, stats_k = uber.uber_render(accel, cam, st)
+    version's output ``out_p`` on the same frame (``lights``: its
+    ``pack_lights`` rows) -> (numbers, kernel out)."""
+    out_k, stats_k = uber.uber_render(accel, cam, st, lights)
     torch.cuda.synchronize()
     cerr = (out_k[:, :3] - out_p[:, :3]).abs().amax(dim=1)
     terr = (out_k[:, 3] - out_p[:, 3]).abs()
@@ -493,7 +525,7 @@ def coop(cm):
 
 def sweep_counters(stats, generic):
     """The counters every schedule must give alike, and its own SIMT numbers."""
-    keys = ["ST_RAYS", "ST_DROPPED", "ST_SPHERE_TESTS", "ST_ROW_TESTS"]
+    keys = ["ST_RAYS", "ST_DROPPED", "ST_SPHERE_TESTS", "ST_ROW_TESTS", "ST_SHADOW_RAYS"]
     if generic:
         keys += ["ST_SLAB_TESTS", "ST_OTHER_TESTS", "ST_HITS"]
     return {k: int(stats[getattr(uber, k)]) for k in keys}
@@ -506,7 +538,7 @@ def simt(stats):
                 lane_slots=slots, coop_visits=int(stats[uber.ST_COOP_VISITS]))
 
 
-def modes_identical(what, acc, cam, st):
+def modes_identical(what, acc, cam, st, lights=None):
     """K1 in the -fmad=false build with coop_min forced to 1 and 33 and at the
     default: bit-identical ``out`` and equal counters, or raise ->
     {mode: SIMT numbers}."""
@@ -515,7 +547,7 @@ def modes_identical(what, acc, cam, st):
     with _build.precise():
         for cm in (*FORCED, None):
             with coop(cm):
-                runs[cm] = uber.uber_render(acc, cam, st)
+                runs[cm] = uber.uber_render(acc, cam, st, lights)
     torch.cuda.synchronize()
     out1, stats1 = runs[FORCED[0]]
     res = {}
@@ -633,18 +665,18 @@ def uber_modes_frame(what, acc, cam, st, cfg, out_p, stats_p, generic, far=None)
     return res
 
 
-def coop_sweep(what, acc, cam, st):
+def coop_sweep(what, acc, cam, st, lights=None):
     """K1's milliseconds over COOP_SWEEP, by CUDA events, in SWEEP_ROUNDS
     rounds that alternate the order; each value's SIMT numbers -> numbers."""
     ms = {cm: [] for cm in COOP_SWEEP}
     for rnd in range(SWEEP_ROUNDS):
         for cm in (COOP_SWEEP if rnd % 2 == 0 else COOP_SWEEP[::-1]):
             with coop(cm):
-                ms[cm].append(cuda_ms(lambda: uber.uber_render(acc, cam, st), 2))
+                ms[cm].append(cuda_ms(lambda: uber.uber_render(acc, cam, st, lights), 2))
     res = {}
     for cm in COOP_SWEEP:
         with coop(cm):
-            _, stats = uber.uber_render(acc, cam, st)
+            _, stats = uber.uber_render(acc, cam, st, lights)
         res[str(cm)] = dict(ms=sum(ms[cm]) / len(ms[cm]), ms_rounds=ms[cm], **simt(stats))
     best = min(COOP_SWEEP, key=lambda cm: res[str(cm)]["ms"])
     say(phase="uber_modes", what=f"{what} coop_min sweep", default_coop_min=uber.COOP_MIN[acc.mode],
@@ -975,6 +1007,7 @@ def parity(ou, oq):
     ddiff = (ou["depth"].clamp_max(100.0) - oq["depth"].clamp_max(100.0)).abs()
     return dict(mean_image_diff=float((iu.mean(dim=(0, 1)) - iq.mean(dim=(0, 1))).abs().max()),
                 frac_pixels_off_5e2=frac((iu - iq).abs().amax(dim=-1) > 5e-2),
+                row_band_max_diff=float((iu.mean(dim=(1, 2)) - iq.mean(dim=(1, 2))).abs().max()),
                 ray_count_ratio=ru / max(rq, 1),
                 depth_disagree_frac=frac(ddiff > 1e-2),
                 rays_dropped=int(ou["rays_dropped"]),
@@ -982,8 +1015,15 @@ def parity(ou, oq):
                 finite=bool(torch.isfinite(iu).all() and torch.isfinite(iq).all()))
 
 
-def check_parity(what, c):
-    require(c["finite"] and c["mean_image_diff"] < 5e-3 and c["frac_pixels_off_5e2"] < 0.03
+def check_parity(what, c, lights=False):
+    """The canary's envelope: the reference's (bench.py:171-172: channel
+    means, ray ratio, depth, drops) and under 3 % of pixels off by more than
+    0.05.  With lights the pixel share is replaced by the JAX package's own
+    lights bar, every row band's mean within 0.05: a sample whose shadow ray
+    grazes the light's box turns on the last ulp (CORNER_RATIOS), and one
+    turned sample moves its pixel by more than 0.05."""
+    pixels = c["row_band_max_diff"] < 0.05 if lights else c["frac_pixels_off_5e2"] < 0.03
+    require(c["finite"] and c["mean_image_diff"] < 5e-3 and pixels
             and abs(c["ray_count_ratio"] - 1.0) < 0.02 and c["depth_disagree_frac"] < 0.01
             and c["rays_dropped"] == 0 and c["queue_rays_dropped"] == 0,
             f"{what} failed: {c}")
@@ -1830,6 +1870,19 @@ def schedules_identical(what, run, same, simt_of):
     return res
 
 
+def device_ms(fn, reps):
+    """The least device time of ``fn()`` over ``reps`` calls, each timed by
+    ``gapless_events`` (for launches shorter than the wrapper's host work,
+    which ``cuda_ms`` would count)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = gapless_events(fn)
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return min(times)
+
+
 def gapless_events(fn):
     """CUDA events around one call of ``fn()``, recorded while the card sleeps
     (``torch.cuda._sleep``), so that the call is enqueued before its start
@@ -2228,9 +2281,9 @@ def third_slice_phases(dev, ctx):
         k1gm_precise, _ = compare_uber(g_acc, g_cam, g_st, out_p, stats_p)
     px_gm = compare_pixels(uber._uber_post(*got, g_cfg)["image"],
                            uber._uber_post(out_p, stats_p, g_cfg)["image"])
-    ms_gm = cuda_ms(lambda: uber.uber_render(g_acc, g_cam, g_st), 10)
+    ms_gm = device_ms(lambda: uber.uber_render(g_acc, g_cam, g_st), 10)
     with coop(1):
-        ms_gm_lane = cuda_ms(lambda: uber.uber_render(g_acc, g_cam, g_st), 10)
+        ms_gm_lane = device_ms(lambda: uber.uber_render(g_acc, g_cam, g_st), 10)
         _, stats_gm_lane = uber.uber_render(g_acc, g_cam, g_st)
     _, stats_h = uber.uber_render(g_acc, g_cam, g_st)
     gm_bound, gm_by = bound(
@@ -2347,6 +2400,379 @@ def third_slice_phases(dev, ctx):
     ], by_path("sweep2"), dict(device_ms=wq_frame.get("device_k2_ms", "not measured"),
                                  **wq_frame["k2"],
                                  **frame_sweep(k2_sweep, sweep2.COOP_MIN, schedules_bit_identical=True))
+
+
+# ---------------------------------------------------------------------------
+# The sixth slice: materials shading and emissive lights through K1, and a
+# stack of any depth
+# ---------------------------------------------------------------------------
+
+SHADING_FRAME = dict(width=800, height=450, spp=16, max_bounces=8)  # bench.py:199-207
+FLOPS_PER_MATERIALS_SHADE = 290  # refine, Schlick, lift, two fibonacci scatters, children
+FLOPS_PER_SHADOW_RAY = 40  # target, normalise by division, centre distance, emissive test
+# The frames' image means and ray counts within these of their plain
+# version's: the headline's bars against its scene's numbers.
+SHADING_FRAME_MEAN, SHADING_FRAME_RAYS = 1e-2, 0.02
+# Per-sample bars of the new instantiations against their plain version.
+# -fmad=false build: colours within 1e-4 on >= SHADING_PRECISE of the samples
+# and rays within 0.05 %, the kernel's logic being the plain version's; where
+# it is not met the phase says on which samples (see ``corner_samples``).
+SHADING_PRECISE = 0.999
+# On lights_scene() the light's world AABB is twice the panel, so a shadow ray
+# of a sample with s / spp = 0.25 or 0.75 aims at one of the panel's corners:
+# its visibility turns on the last ulp of the hit point, which the raygen's
+# rsqrtf (approximate on the card, exact in PyTorch) already moves.  Those
+# samples are held by their share only.
+CORNER_RATIOS = (0.25, 0.75)
+
+
+def lit_spheres_scene():
+    """Spheres (one of glass) under one spherical emissive light: a scene
+    the sphere mode takes, so the sphere-mode lights instantiations render
+    it (tests/test_torch_lights.py holds it against the JAX package)."""
+    b = SceneBuilder()
+    b.add_sphere((0.0, -100.5, -3.0), 100.0, color=(0.6, 0.6, 0.6),
+                 reflectivity=0.9, scatter_reflect=1.0)
+    b.add_sphere((-0.7, 0.0, -3.2), 0.5, color=(0.9, 0.3, 0.3),
+                 reflectivity=0.9, scatter_reflect=0.4)
+    b.add_sphere((0.7, 0.0, -2.8), 0.5, color=(0.8, 0.8, 0.8),
+                 refractive_index=1.5, refractivity=0.85, reflectivity=0.15)
+    b.add_light((0.0, 1.6, -3.0), (0.35, 0.35, 0.35))
+    cam = Camera.make((0.0, 0.4, 0.8), (0.0, -0.1, -1.0), fov_y_deg=60.0, focus_dist=3.8)
+    return b.build(), cam
+
+
+def moved(scene_cam, index, dp):
+    """The scene with object ``index`` in motion by ``dp``."""
+    scene, camera = scene_cam
+    d = torch.zeros_like(scene.delta_position)
+    d[index] = torch.tensor(dp)
+    return scene.replace(delta_position=d), camera
+
+
+# instantiation -> (scene, shading, with its lights) of its canary; the
+# name of its entry on the kernels line after it
+SHADING_CANARIES = {
+    "uber_mat": (examples.materials_scene, "materials", False),
+    "uber_m_mat": (lambda: moved(examples.materials_scene(), 3, (0.2, 0.0, 0.0)), "materials",
+                   False),
+    "uber_g_mat": (examples.groups_scene, "materials", False),
+    "uber_g_m_mat": (moving_groups_scene, "materials", False),
+    "uber_g_lt": (examples.lights_scene, "bvh", True),
+    "uber_g_m_lt": (lambda: moved(examples.lights_scene(), 6, (0.2, 0.0, 0.0)), "bvh", True),
+    "uber_lt": (lit_spheres_scene, "bvh", True),
+    "uber_m_lt": (lambda: moved(lit_spheres_scene(), 1, (0.2, 0.0, 0.0)), "bvh", True),
+}
+KERNEL_ENTRY = {"uber": "uber_render", "uber_g": "uber_render_generic",
+                "uber_m": "uber_render_motion", "uber_g_m": "uber_render_generic_motion"}
+KERNEL_ENTRY.update({name: KERNEL_ENTRY[name.rsplit("_", 1)[0]] + (
+    "_materials" if name.endswith("_mat") else "_lights") for name in SHADING_CANARIES})
+
+
+def instantiation_of(name):
+    """'uber_kernel<1,0,2>' for the launch counter 'uber_g_mat'."""
+    sh = 2 if name.endswith("_mat") else 1 if name.endswith("_lt") else 0
+    return f"uber_kernel<{int('_g' in name)},{int('_m_' in name + '_')},{sh}>"
+
+
+def shading_inputs(dev, name, frame):
+    """(scene, camera, cfg, Lights or None, K1's accel, camera vector, statics,
+    lights rows) of instantiation ``name``'s scene at ``frame``."""
+    from raytracing_tests_tpu_torch.ops.render import extract_lights
+
+    make, shading, lit = SHADING_CANARIES[name]
+    scene, camera = make()
+    scene, camera = scene.to(dev), camera.to(dev)
+    cfg = RenderConfig(intersector="pallas", shading=shading, **frame).for_scene(scene)
+    lights = extract_lights(scene) if lit else None
+    rows, n = uber.pack_lights(lights)
+    acc, cam, _ = k1_inputs(scene, camera, cfg)
+    st = uber.UberStatics.from_cfg(cfg, n)
+    require(uber.launch_name(acc, st.model) == name,
+            f"{name}'s scene selects {uber.launch_name(acc, st.model)}")
+    return scene, camera, cfg, lights, acc, cam, st, rows
+
+
+def corner_samples(st):
+    """Samples whose shadow rays aim at a corner of the light's box (sample s
+    with s / spp in CORNER_RATIOS), as a (B,) mask in p-linear order."""
+    s = torch.arange(st.B, device="cuda") % st.spp
+    return sum(s == r * st.spp for r in CORNER_RATIOS).bool()
+
+
+def shading_vs_plain(name, acc, cam, st, rows, out_p, stats_p):
+    """The new instantiation against its plain version's ``out_p``, both
+    builds, per sample -> (default, -fmad=false, default build's out)."""
+    k1, got = compare_uber(acc, cam, st, out_p, stats_p, rows)
+    with _build.precise():
+        k1_precise, got_p = compare_uber(acc, cam, st, out_p, stats_p, rows)
+    if st.n_lights:
+        # the same numbers off the corner-aimed samples
+        keep = ~corner_samples(st)
+        for res, (out_k, _) in ((k1, got), (k1_precise, got_p)):
+            cerr = (out_k[keep, :3] - out_p[keep, :3]).abs().amax(dim=1)
+            res["off_corner_samples"] = dict(share=frac(keep), colour_within_1e4=frac(cerr <= 1e-4))
+    cerr = (got_p[0][:, :3] - out_p[:, :3]).abs().amax(dim=1)
+    k1_precise["colour_within_1e6"] = frac(cerr <= 1e-6)
+    k1_precise["bitwise"] = frac((got_p[0] == out_p).all(dim=1))
+    return k1, k1_precise, got
+
+
+def check_shading(name, plain_dropped, k1, k1_precise):
+    """The -fmad=false build within 1e-4 on >= SHADING_PRECISE of the samples
+    (for lights: of those off the corner-aimed ones) and rays within 0.05 %;
+    the default build by the frame's statistical bars (check_uber's, with
+    the per-sample colour bars of the lights frames taken off the corner
+    samples)."""
+    require(plain_dropped == 0 and k1["dropped"] == k1_precise["dropped"] == 0
+            and k1["finite"] and k1_precise["finite"], f"{name}: {k1} {k1_precise}")
+    within = k1_precise.get("off_corner_samples", k1_precise)["colour_within_1e4"]
+    require(within >= SHADING_PRECISE and k1_precise["ray_count_rel_diff"] < 5e-4
+            and k1_precise["primary_t_within_rtol_1e4"] >= 0.999,
+            f"{name}: the -fmad=false build disagrees with the plain version: {k1_precise}")
+    near = k1.get("off_corner_samples", k1)["colour_within_1e4"]
+    require(k1["primary_t_within_rtol_1e4"] >= 0.999 and near >= 0.85
+            and k1["colour_within_5e2"] >= 0.9 and k1["mean_abs_diff"] < 5e-3
+            and k1["ray_count_rel_diff"] < 5e-3,
+            f"{name}: the default build disagrees with the plain version: {k1}")
+
+
+def k1_bound(acc, st, stats, rows=None):
+    """K1's least time for this run's work: its output, the tables, the
+    camera and lights once over the memory rate, or the operations its
+    counters say it did over the fp32 peak -> (ms, by)."""
+    n_nodes, n_shadow = int(stats[uber.ST_RAYS]), int(stats[uber.ST_SHADOW_RAYS])
+    shade = FLOPS_PER_MATERIALS_SHADE if st.shading == "materials" else FLOPS_PER_NODE_SHADE
+    n_bytes = (16 * st.B + accel_bytes(acc) + 4 * uber.CAM_LEN
+               + (0 if rows is None else 4 * rows.numel()))
+    if acc.mode == "generic":
+        flops = (int(stats[uber.ST_SPHERE_TESTS]) * FLOPS_PER_CENSUS_SPHERE_ROW
+                 + int(stats[uber.ST_OTHER_TESTS]) * FLOPS_PER_GENERIC_ROW
+                 + int(stats[uber.ST_SLAB_TESTS]) * FLOPS_PER_SLAB_TEST
+                 + int(stats[uber.ST_HITS]) * FLOPS_PER_REFINE_G + n_nodes * shade)
+    else:
+        per_test = FLOPS_PER_SPHERE_TEST + (FLOPS_PER_MOTION_TERMS if acc.has_motion else 0)
+        flops = (int(stats[uber.ST_SPHERE_TESTS]) * per_test
+                 + (n_nodes + n_shadow) * acc.n_groups * FLOPS_PER_SLAB_TEST + n_nodes * shade)
+    return bound(n_bytes, flops + n_shadow * FLOPS_PER_SHADOW_RAY)
+
+
+def shading_frame(dev, what, name):
+    """Phase materials_frame / lights_frame: the frame through render_uber
+    (one warm frame, three timed), K1 against its plain version on every
+    primary, the schedules bit for bit, and where the frame's time goes ->
+    (numbers, the kernels-line fields)."""
+    scene, camera, cfg, lights, acc, cam, st, rows = shading_inputs(dev, name, SHADING_FRAME)
+    out, times, launches = timed_frames(
+        lambda: uber.render_uber(scene, camera, cfg, lights, gr=GR))
+    for got in launches:
+        require(got == {name: 1}, f"a {what} frame is one launch of {name}: {launches}")
+    plain_ms, (out_p, stats_p) = timed_ms(lambda: uber.uber_render_plain(acc, cam, st, rows))
+    img_p = uber._uber_post(out_p, stats_p, cfg)["image"]
+    k1, k1_precise, got = shading_vs_plain(name, acc, cam, st, rows, out_p, stats_p)
+    px = compare_pixels(uber._uber_post(*got, cfg)["image"], img_p)
+    del got
+    ms_k1 = cuda_ms(lambda: uber.uber_render(acc, cam, st, rows), 3)
+    with coop(1):
+        ms_k1_lane = cuda_ms(lambda: uber.uber_render(acc, cam, st, rows), 3)
+        _, stats_lane = uber.uber_render(acc, cam, st, rows)
+    _, stats_k = uber.uber_render(acc, cam, st, rows)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        uber._scene_accel(scene, camera, cfg, min(GR, max(8, -(-scene.capacity // 8) * 8)))
+    torch.cuda.synchronize()
+    accel_ms = (time.perf_counter() - t0) / 3 * 1e3
+    out_k, _ = uber.uber_render(acc, cam, st, rows)
+    post_ms = cuda_ms(lambda: uber._uber_post(out_k, stats_k, cfg), 3)
+    del out_k
+    bnd, by = k1_bound(acc, st, stats_k, rows)
+    rays, img = int(out["rays"]), out["image"]
+    frame = dict(size=size_of(SHADING_FRAME), instantiation=name,
+                 seconds_per_frame_min=min(times), seconds_per_frame_mean=sum(times) / len(times),
+                 rays=rays, mrays_per_s=rays / min(times) / 1e6,
+                 rays_dropped=int(out["rays_dropped"]), image_mean=float(img.mean()),
+                 rays_plain=int(stats_p[uber.ST_RAYS]), image_mean_plain=float(img_p.mean()),
+                 plain_seconds=plain_ms / 1e3, launches_per_frame=launches,
+                 kernel_ms=ms_k1, kernel_ms_per_lane_mode=ms_k1_lane, bound_ms=bnd, bound_by=by,
+                 accel_build_ms=accel_ms, epilogue_ms=post_ms,
+                 shadow_rays=int(stats_k[uber.ST_SHADOW_RAYS]), **simt(stats_k),
+                 default_build=k1, precise_build=k1_precise, pixels_default_vs_plain=px)
+    say(phase=f"{what}_frame", **frame)
+    require(tuple(img.shape) == (cfg.height, cfg.width, 3) and bool(torch.isfinite(img).all())
+            and frame["rays_dropped"] == 0, f"{what} frame: {frame}")
+    require(abs(rays - frame["rays_plain"]) / frame["rays_plain"] < SHADING_FRAME_RAYS
+            and abs(frame["image_mean"] - frame["image_mean_plain"]) < SHADING_FRAME_MEAN,
+            f"{what} frame against its plain version: {frame}")
+    check_shading(f"{what} frame", int(stats_p[uber.ST_DROPPED]), k1, k1_precise)
+    require(min(ms_k1, ms_k1_lane) > bnd, f"{what}: K1 below its bound, a counting error")
+    modes = modes_identical(f"{what} frame", acc, cam, st, rows)
+    say(phase="uber_modes", what=f"{what} frame", precise_build=modes)
+    sweep = coop_sweep(f"{what} frame", acc, cam, st, rows)
+    del out, out_p
+    entry = dict(launches=launches[-1][name], max_abs_err=px["max_abs_err"],
+                 per_sample_max_abs_err=k1["colour_max_abs_err"],
+                 frac_within_tolerance=k1_precise.get(
+                     "off_corner_samples", k1_precise)["colour_within_1e4"],
+                 per_sample_frac_within_1e4=k1["colour_within_1e4"],
+                 per_sample_frac_within_1e4_precise_build=k1_precise["colour_within_1e4"],
+                 ms=ms_k1, ms_per_lane_mode=ms_k1_lane, plain_ms=plain_ms, bound_ms=bnd,
+                 bound_by=by, simt_efficiency=simt(stats_k)["simt_efficiency"],
+                 simt_efficiency_per_lane_mode=simt(stats_lane)["simt_efficiency"],
+                 shape=size_of(SHADING_FRAME) + f", {what}_scene()",
+                 at_frame=frame_sweep(sweep, uber.COOP_MIN[acc.mode],
+                                      schedules_bit_identical=True))
+    return frame, entry
+
+
+def shading_canary(dev, name):
+    """The new instantiation's canary at 200x112x8 d6: K1 against the queue
+    renderer under the reference envelope, and against its plain version
+    (both builds) -> (launches of the path, numbers, kernels-line fields)."""
+    scene, camera, cfg, lights, acc, cam, st, rows = shading_inputs(dev, name, SMALL)
+    _build.reset_launches()
+    ou = uber.render_uber(scene, camera, cfg, lights, gr=GR)
+    oq = render_stats(scene, camera, cfg, lights)
+    launches = dict(_build.LAUNCHES)
+    env = parity(ou, oq)
+    check_parity(f"{name} canary", env, lights=lights is not None)
+    queue_kernel = "sweep_grouped" if acc.mode == "generic" else "sweep2_m" if acc.has_motion \
+        else "sweep2"
+    require(launches.get(name) == 1 and launches.get(queue_kernel, 0) > 0
+            and set(launches) == {name, queue_kernel},
+            f"the {name} canary's launches: {launches}")
+    plain_ms, (out_p, stats_p) = timed_ms(lambda: uber.uber_render_plain(acc, cam, st, rows))
+    k1, k1_precise, got = shading_vs_plain(name, acc, cam, st, rows, out_p, stats_p)
+    px = compare_pixels(uber._uber_post(*got, cfg)["image"],
+                        uber._uber_post(out_p, stats_p, cfg)["image"])
+    check_shading(f"{name} canary", int(stats_p[uber.ST_DROPPED]), k1, k1_precise)
+    ms = device_ms(lambda: uber.uber_render(acc, cam, st, rows), 10)
+    with coop(1):
+        ms_lane = device_ms(lambda: uber.uber_render(acc, cam, st, rows), 10)
+        _, stats_lane = uber.uber_render(acc, cam, st, rows)
+    _, stats_k = uber.uber_render(acc, cam, st, rows)
+    bnd, by = k1_bound(acc, st, stats_k, rows)
+    modes = modes_identical(f"{name} canary", acc, cam, st, rows)
+    say(phase="shading_canary", instantiation=name, size=size_of(SMALL), launches=launches,
+        **env, default_build=k1, precise_build=k1_precise, pixels_default_vs_plain=px,
+        kernel_ms=ms, bound_ms=bnd, schedules_bit_identical=True,
+        simt=modes[str(FORCED[0])]["simt_efficiency"])
+    require(min(ms, ms_lane) > bnd, f"{name}: K1 below its bound, a counting error")
+    entry = dict(launches=launches[name], max_abs_err=px["max_abs_err"],
+                 per_sample_max_abs_err=k1["colour_max_abs_err"],
+                 frac_within_tolerance=k1_precise.get(
+                     "off_corner_samples", k1_precise)["colour_within_1e4"],
+                 per_sample_frac_within_1e4=k1["colour_within_1e4"],
+                 per_sample_frac_within_1e4_precise_build=k1_precise["colour_within_1e4"],
+                 ms=ms, ms_per_lane_mode=ms_lane, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                 simt_efficiency=simt(stats_k)["simt_efficiency"],
+                 simt_efficiency_per_lane_mode=simt(stats_lane)["simt_efficiency"],
+                 shape=size_of(SMALL) + f", {int(scene.valid.sum())} objects")
+    return launches, entry
+
+
+def glass_shells_scene(n):
+    """``n`` concentric glass spheres of alternating refractive index over a
+    ground sphere: a camera ray that enters them under materials shading
+    stacks one reflection at each of the n surfaces it enters."""
+    b = SceneBuilder()
+    for k in range(n):
+        b.add_sphere((0.0, 0.0, -3.0), 1.2 - k * (1.0 / n), color=(0.95, 0.95, 0.95),
+                     refractive_index=(1.5, 1.3)[k % 2], refractivity=0.9, reflectivity=0.1)
+    b.add_sphere((0.0, -101.3, -3.0), 100.0, color=(0.5, 0.6, 0.4), reflectivity=1.0,
+                 scatter_reflect=1.0)
+    return b.build(), Camera.make((0.0, 0.2, 0.5), (0.0, -0.05, -1.0), fov_y_deg=50.0,
+                                  focus_dist=3.5)
+
+
+def deep_stacks(dev):
+    """Phase deep_stack: K1 with a stack of 16 and of 32 records against the
+    queue renderer with the same stack, by the bars of 5 and with zero
+    dropped: on ``deep_glass_spheres()`` at depth 8 under both shadings, and
+    under materials shading (no contribution cutoff) on 12 and 24 concentric
+    glass shells at depths 16 and 28, where half the stack drops rays, so the
+    deeper one is used."""
+    res = {}
+    cases = [(f"deep_glass {shading} Q={q}", deep_glass_spheres, shading, q, 8, None)
+             for q in (16, 32) for shading in ("bvh", "materials")]
+    cases += [(f"shells_{n} materials Q={q}", lambda n=n: glass_shells_scene(n), "materials",
+               q, depth, q // 2) for n, q, depth in ((12, 16, 16), (24, 32, 28))]
+    for what, make, shading, q, depth, half in cases:
+        scene, camera = make()
+        scene, camera = scene.to(dev), camera.to(dev)
+        cfg = RenderConfig(intersector="pallas", shading=shading, queue_capacity=q,
+                           **dict(SMALL, max_bounces=depth)).for_scene(scene)
+        _build.reset_launches()
+        ou = uber.render_uber(scene, camera, cfg, gr=GR)
+        launches = dict(_build.LAUNCHES)
+        oq = render_stats(scene, camera, cfg)
+        env = parity(ou, oq)
+        r = res[what] = dict(depth=depth, pops=cfg.pops, rays=int(ou["rays"]),
+                             rays_queue=oq["rays"], launches=launches, **env)
+        check_parity(f"K1 with a stack of {q} ({what}) against the queue renderer", env)
+        name = "uber_mat" if shading == "materials" else "uber"
+        require(launches.get(name) == 1, f"deep stack {what}: {r}")
+        if half:
+            r[f"rays_dropped_at_q{half}"] = int(
+                uber.render_uber(scene, camera, cfg, gr=GR, qcap=half)["rays_dropped"])
+            require(r[f"rays_dropped_at_q{half}"] > 0, f"{what} does not use the deep stack: {r}")
+    say(phase="deep_stack", **res)
+    return res
+
+
+def workqueue_lights(dev):
+    """Phase workqueue_lights: ``render_workqueue`` with lights on the sphere
+    lights canary against the queue renderer given a full tree's budget, as
+    phase 15; K2 launched once per iteration."""
+    scene, camera, cfg, lights, *_ = shading_inputs(dev, "uber_lt", SMALL)
+    cfg_full = dataclasses.replace(cfg, max_pops=2 ** cfg.max_bounces)
+    _build.reset_launches()
+    ow = workqueue.render_workqueue(scene, camera, cfg, lights, chunk=16384)
+    launches = dict(_build.LAUNCHES)
+    oq = render_stats(scene, camera, cfg_full, lights)
+    close = (ow["image"] - oq["image"]).abs().amax(dim=-1) <= 2e-5
+    res = dict(size=size_of(SMALL), within_2e5=frac(close), rays=int(ow["rays"]),
+               rays_queue=oq["rays"], iterations=ow["iterations"],
+               rays_dropped=int(ow["rays_dropped"]), launches=launches)
+    say(phase="workqueue_lights", **res)
+    # Equal images.  The rays may differ: a queue renderer's lane whose sample
+    # turned white pops its stacked siblings without tracing them, while in
+    # the pool they are already queued and run (both as in the JAX package).
+    require(res["within_2e5"] >= 0.995 and res["rays_queue"] <= res["rays"]
+            and res["rays"] <= 1.02 * res["rays_queue"] and res["rays_dropped"] == 0
+            and set(launches) == {"sweep2"} and launches["sweep2"] >= ow["iterations"],
+            f"the work queue with lights against the queue renderer: {res}")
+    return launches
+
+
+def shading_phases(dev):
+    """The sixth slice's phases -> (kernels-line entries, {path: launches})."""
+    src = "raytracing_tests_tpu_torch/csrc/uber.cu"
+    paths, entries = {}, []
+    frames = {}
+    for what, name in (("materials", "uber_mat"), ("lights", "uber_g_lt")):
+        frames[name], entries_f = shading_frame(dev, what, name)
+        paths[f"{what}_frame"] = frames[name]["launches_per_frame"][-1]
+        entries.append((name, entries_f))
+    for name in SHADING_CANARIES:
+        launches, entry = shading_canary(dev, name)
+        paths[f"{name}_canary"] = launches
+        if name not in frames:
+            entries.append((name, entry))
+    paths["workqueue_lights"] = workqueue_lights(dev)
+    deep = deep_stacks(dev)
+    for q, r in deep.items():
+        paths[f"deep_stack_{q}"] = r["launches"]
+    tol = (f"the -fmad=false build within 1e-4 of the plain version on >= {SHADING_PRECISE} "
+           "of the samples (lights: of those whose shadow rays do not aim at a corner of the "
+           "light's box); the default build: primary t rtol 1e-4 on >= 99.9 %, channel means "
+           "within 5e-3, rays within 0.5 %")
+    out = []
+    for name, fields in entries:
+        by_path = {p: got.get(name, 0) for p, got in paths.items()}
+        out.append(dict(name=KERNEL_ENTRY[name], instantiation=name, route="cuda", source=src,
+                        replaces="raytracing_tests_tpu/kernels/uber.py:874",
+                        launches_by_path=by_path, tolerance=tol, library_ms=None, **fields))
+    return out, paths
 
 
 def main():
@@ -2588,6 +3014,25 @@ def main():
     kernels += third
     kernels[1]["launches_by_path"].update(sweep2_by_path)  # K2 static: the work queue's paths
     kernels[1]["at_workqueue_frame"] = k2_wq  # its launches there, summed
+    sixth, sixth_paths = shading_phases(dev)
+    kernels += sixth
+    # every instantiation of K1 with its ptxas line
+    entry_of = {v: n for n, v in KERNEL_ENTRY.items()}
+    for k in kernels:
+        if k["name"] in entry_of:
+            k.setdefault("instantiation", entry_of[k["name"]])
+            k["ptxas"] = ptxas.get(f"uber.so {instantiation_of(k['instantiation'])}")
+    # the sixth slice's paths that launch earlier kernels: K2 and K5 behind the
+    # queue renderer on the new canaries, shadow sweeps included, K2 behind
+    # the work queue with lights, K1 'bvh' on the deep stacks
+    for k in kernels:
+        counter = dict(sweep2="sweep2", sweep2_motion="sweep2_m",
+                       sweep_grouped="sweep_grouped").get(k["name"], k.get("instantiation"))
+        if counter:
+            k["launches_by_path"].update({p: got[counter] for p, got in sixth_paths.items()
+                                          if got.get(counter)})
+    require(sum(k["name"] in entry_of for k in kernels) == 12,
+            "the kernels line lists the twelve instantiations of K1")
     for k in kernels:
         require(max(k["launches_by_path"].values()) > 0 and k["launches"] > 0,
                 f"kernel {k['name']} was launched on no driven path: {k['launches_by_path']}")

@@ -96,8 +96,7 @@ def main(argv=None):
     pr.add_argument("--pallas", action="store_true",
                     help="use the grouped sweep kernel (sphere scenes)")
     pr.add_argument("--uber", action="store_true",
-                    help="use the persistent path-tracer kernel (fastest; "
-                    "sphere scenes)")
+                    help="use the persistent path-tracer kernel (fastest)")
     pr.add_argument("--out", default="render.png")
     pr.add_argument("--depth-out", help="also write normalized depth PNG")
     pr.add_argument("--device", default=None,

@@ -1,4 +1,5 @@
-"""numpy <-> ``Scene`` / ``Camera`` / ``Accel2`` / ``Accel2G`` / ``PallasAccel``.
+"""numpy <-> ``Scene`` / ``Camera`` / ``Lights`` / ``Accel2`` / ``Accel2G`` /
+``PallasAccel``.
 
 State crosses between this package and any other array library as
 dictionaries of numpy arrays keyed by field name:
@@ -20,10 +21,12 @@ import numpy as np
 import torch
 
 from raytracing_tests_tpu_torch.kernels import sweep, sweep2, sweep2g
+from raytracing_tests_tpu_torch.ops.render import Lights
 from raytracing_tests_tpu_torch.scene.types import Camera, Scene
 
 SCENE_FIELDS = tuple(f.name for f in dataclasses.fields(Scene) if f.name != "textures")
 CAMERA_FIELDS = tuple(f.name for f in dataclasses.fields(Camera))
+LIGHTS_FIELDS = tuple(f.name for f in dataclasses.fields(Lights))
 
 # Column indices of the JAX package's (Np, 128) object table.
 _SRC_OT = {"c": slice(0, 3), "k1": 16, "ri": 19, "rinv2": 20}
@@ -58,6 +61,16 @@ def camera_from_numpy(leaves: dict, device="cpu") -> Camera:
 
 def camera_to_numpy(camera: Camera) -> dict:
     return _to_numpy(camera, CAMERA_FIELDS)
+
+
+def lights_from_numpy(leaves: dict, device="cpu") -> Lights:
+    """The emissive-object list (``bb_min``, ``bb_max``, ``geom_idx``,
+    ``mask``), bit for bit."""
+    return _from_numpy(Lights, LIGHTS_FIELDS, leaves, device)
+
+
+def lights_to_numpy(lights: Lights) -> dict:
+    return _to_numpy(lights, LIGHTS_FIELDS)
 
 
 def accel2_from_numpy(otab, ftab, gaabb, perm, gr: int, device="cpu",

@@ -1,5 +1,6 @@
 // Device functions shared by the kernels: group slab test, winner re-solve,
 // surrounding-refractive-index probe, cone deviation and the In-Next-Week
+// shading model, the fibonacci-hemisphere scatter and the Shirley-materials
 // shading model, and the generic primitives' sweep.  One thread owns one ray;
 // everything here is scalar per-thread code (the warp-cooperative sweeps are
 // in warp_sweep.cuh).
@@ -519,23 +520,12 @@ struct ShadeStatics {
   int has_dielectrics;
 };
 
-// In-Next-Week shading of one HIT node (no lights, no texture): refine the
-// winner, probe the surrounding RI where a refraction consumes it, add
-// contrib_post * albedo, and build the refract / reflect children.  GENERIC
-// picks the tables' layout and the refine and probe of rotated ellipsoids and
-// cuboids at compile time, MOTION the moving centres of both; everything after
-// them is shared.  With GIVEN_RI the caller has refined the winner (*given)
-// and probed the surrounding RI where this function would (given_ri): a warp
-// probes together, which this per-lane function cannot.
-template <bool GENERIC, bool MOTION, bool GIVEN_RI = false>
-__device__ __forceinline__ Shade shade_hit(
-    const Tables& T, const ShadeStatics& S, int obj, float t_sweep, float ox,
-    float oy, float oz, float dx, float dy, float dz, float omt, float contrib,
-    float bounced, float sidx, float cth, float sth, const Refined* given = nullptr,
-    float given_ri = 1.0f) {
+// The winner's ftab row, in registers.
+template <bool GENERIC>
+__device__ __forceinline__ void load_row(const Tables& T, int obj,
+                                         float (&rowv)[GENERIC ? GFT_COLS : FT_COLS]) {
   constexpr int COLS = GENERIC ? GFT_COLS : FT_COLS;
   const float* row = T.ftab + (size_t)obj * COLS;
-  float rowv[COLS];
 #pragma unroll
   for (int i = 0; i < COLS / 4; ++i) {
     const float4 v = ld4(row + 4 * i);
@@ -544,12 +534,18 @@ __device__ __forceinline__ Shade shade_hit(
     rowv[4 * i + 2] = v.z;
     rowv[4 * i + 3] = v.w;
   }
-  Refined R;
-  if constexpr (GIVEN_RI) {
-    R = *given;
-  } else if constexpr (GENERIC) {
+}
+
+// The hit node's refine from its winner's row: sphere (winner_refine) or
+// rotated ellipsoid / cuboid (winner_refine_g).
+template <bool GENERIC, bool MOTION>
+__device__ __forceinline__ Refined refine_row(const float* rowv, float ox, float oy,
+                                              float oz, float dx, float dy, float dz,
+                                              float omt, float t_sweep) {
+  if constexpr (GENERIC) {
     const RefinedG G =
         winner_refine_g<MOTION>(rowv, ox, oy, oz, dx, dy, dz, omt, t_sweep, true);
+    Refined R;
     R.t = G.t;
     R.px = G.px;
     R.py = G.py;
@@ -557,9 +553,48 @@ __device__ __forceinline__ Shade shade_hit(
     R.nx = G.nx;
     R.ny = G.ny;
     R.nz = G.nz;
+    return R;
   } else {
-    R = winner_refine<MOTION>(rowv, ox, oy, oz, dx, dy, dz, omt, t_sweep, true);
+    return winner_refine<MOTION>(rowv, ox, oy, oz, dx, dy, dz, omt, t_sweep, true);
   }
+}
+
+// load_row then refine_row: what a caller needs before shading, e.g. to aim
+// shadow rays from the hit point.
+template <bool GENERIC, bool MOTION>
+__device__ __forceinline__ Refined refine_hit(const Tables& T, int obj, float t_sweep,
+                                              float ox, float oy, float oz, float dx,
+                                              float dy, float dz, float omt) {
+  float rowv[GENERIC ? GFT_COLS : FT_COLS];
+  load_row<GENERIC>(T, obj, rowv);
+  return refine_row<GENERIC, MOTION>(rowv, ox, oy, oz, dx, dy, dz, omt, t_sweep);
+}
+
+// In-Next-Week shading of one HIT node (no texture): refine the winner, probe
+// the surrounding RI where a refraction consumes it, add contrib_post *
+// albedo, and build the refract / reflect children.  GENERIC picks the
+// tables' layout and the refine and probe of rotated ellipsoids and cuboids at
+// compile time, MOTION the moving centres of both; everything after them is
+// shared.  With GIVEN_RI the caller has refined the winner (*given) and probed
+// the surrounding RI where this function would (given_ri): a warp probes
+// together, which this per-lane function cannot.  With GIVEN_REFINE the
+// caller has refined the winner (*given) and this function probes.  Under
+// emissive lights the caller passes the contribution already scaled by the
+// share of lights the hit sees.
+template <bool GENERIC, bool MOTION, bool GIVEN_RI = false, bool GIVEN_REFINE = false>
+__device__ __forceinline__ Shade shade_hit(
+    const Tables& T, const ShadeStatics& S, int obj, float t_sweep, float ox,
+    float oy, float oz, float dx, float dy, float dz, float omt, float contrib,
+    float bounced, float sidx, float cth, float sth, const Refined* given = nullptr,
+    float given_ri = 1.0f) {
+  constexpr int COLS = GENERIC ? GFT_COLS : FT_COLS;
+  float rowv[COLS];
+  load_row<GENERIC>(T, obj, rowv);
+  Refined R;
+  if constexpr (GIVEN_RI || GIVEN_REFINE)
+    R = *given;
+  else
+    R = refine_row<GENERIC, MOTION>(rowv, ox, oy, oz, dx, dy, dz, omt, t_sweep);
   const float nx = R.nx, ny = R.ny, nz = R.nz;
   const float mat_ri = rowv[FT_MRI], refrv = rowv[FT_REFR];
   const float reflv = rowv[FT_REFL], srfr = rowv[FT_SRFR];
@@ -665,6 +700,153 @@ __device__ __forceinline__ Shade shade_hit(
   out.refl.dy = cly;
   out.refl.dz = clz;
   out.refl.contrib = contrib * reflv;
+  return out;
+}
+
+// v / sqrt(max(|v|^2, eps)), the sum in x, y, z order (the reference's
+// normalize: a division, not a reciprocal square root).
+__device__ __forceinline__ void norm3(float& x, float& y, float& z, float eps) {
+  const float n = sqrtf(fmaxf(x * x + y * y + z * z, eps));
+  x = x / n;
+  y = y / n;
+  z = z / n;
+}
+
+// Deterministic scatter of the unit direction f on a fibonacci sphere of
+// radius s centred at its tip (sampling.fibonacci_hemisphere): the sample's
+// point at height y = 1 - sidx / y_den (y_den = max(spp - 1, 1)) and angle
+// GOLDEN_ANGLE * sidx, whose (cth, sth) raygen computed once per primary.
+__device__ __forceinline__ void fibonacci_hemisphere(float& fx, float& fy, float& fz,
+                                                     float sidx, float y_den, float s,
+                                                     float cth, float sth) {
+  float y = 1.0f - sidx / y_den;
+  const float radius = sqrtf(fmaxf(1.0f - y * y, 0.0f));
+  float x = cth * radius, z = sth * radius;
+  x = x * s;
+  y = y * s;
+  z = z * s;
+  // z_cap = normalize(cross(up, f)) with up = (0, 1, 0); x_cap = cross(f, z_cap)
+  float zcx = fz, zcy = 0.0f, zcz = -fx;
+  norm3(zcx, zcy, zcz, 1e-20f);
+  float xcx = fy * zcz - fz * zcy, xcy = fz * zcx - fx * zcz, xcz = fx * zcy - fy * zcx;
+  norm3(xcx, xcy, xcz, 1e-20f);
+  float px = fx + x * xcx + y * fx + z * zcx;
+  float py = fy + x * xcy + y * fy + z * zcy;
+  float pz = fz + x * xcz + y * fz + z * zcz;
+  norm3(px, py, pz, 1e-38f);
+  fx = px;
+  fy = py;
+  fz = pz;
+}
+
+struct MatShade {
+  float add_r, add_g, add_b, hit_t;
+  Child refr, refl;
+  float refr_medium, refr_parent;  // the reflection keeps the node's own media
+  bool spawn_refr, spawn_refl;
+};
+
+// Shirley-materials shading of one HIT node (kernels/mega.py::
+// _shade_materials_k): the node travels in a medium of RI `medium` whose
+// parent's RI is `parent`; an inner hit refracts toward the parent, an outer
+// one toward the material.  Schlick shifts contribution from refraction to
+// reflection on outer hits; total internal reflection turns the refraction
+// into a contribution-1 reflection along the mirror direction.  The
+// reflection is lifted off grazing angles and scattered on the fibonacci
+// hemisphere, the refraction scattered likewise.  Local term contrib^2 *
+// albedo; no surrounding-RI probe, no contribution cutoff (a child spawns
+// wherever its contribution is above 0), no forward damping.
+template <bool GENERIC, bool MOTION>
+__device__ __forceinline__ MatShade shade_materials(
+    const Tables& T, const ShadeStatics& S, int obj, float t_sweep, float ox, float oy,
+    float oz, float dx, float dy, float dz, float omt, float contrib, float bounced,
+    float medium, float parent, float sidx, float cth, float sth) {
+  constexpr int COLS = GENERIC ? GFT_COLS : FT_COLS;
+  float rowv[COLS];
+  load_row<GENERIC>(T, obj, rowv);
+  const Refined R = refine_row<GENERIC, MOTION>(rowv, ox, oy, oz, dx, dy, dz, omt, t_sweep);
+  const float nx = R.nx, ny = R.ny, nz = R.nz;
+  const float refrv = rowv[FT_REFR], reflv = rowv[FT_REFL];
+  const float srfr = rowv[FT_SRFR], srfl = rowv[FT_SRFL];
+
+  const float cos_t = nx * dx + ny * dy + nz * dz;
+  const bool inner = cos_t > 0.0f;
+  const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
+  const float target = inner ? parent : rowv[FT_MRI];
+  const float ratio = medium / fmaxf(target, 1e-6f);
+  const float rs = ratio * sin_t;
+  const bool tir = rs > 1.0f;
+
+  // Schlick shift from refraction to reflection on outer hits.
+  float r0 = (1.0f - ratio) / (1.0f + ratio);
+  r0 = r0 * r0;
+  const float om = 1.0f - fminf(fmaxf(-cos_t, 0.0f), 1.0f);
+  const float schl = r0 + (1.0f - r0) * om * om * om * om * om;
+  const float shift = inner ? 0.0f : refrv * schl;
+  const float refr_c = refrv - shift;
+  const float refl_c = tir ? 1.0f : (inner ? 0.0f : reflv + shift);
+
+  // Reflection: the mirror direction, lifted to a minimum elevation set by the
+  // scatter on outer hits, then scattered (the mirror itself on inner TIR).
+  const float inx = inner ? -nx : nx, iny = inner ? -ny : ny, inz = inner ? -nz : nz;
+  const float mrx = dx - 2.0f * cos_t * nx;
+  const float mry = dy - 2.0f * cos_t * ny;
+  const float mrz = dz - 2.0f * cos_t * nz;
+  float ax = iny * dz - inz * dy, ay = inz * dx - inx * dz, az = inx * dy - iny * dx;
+  norm3(ax, ay, az, 1e-20f);
+  float bx = ay * inz - az * iny, by = az * inx - ax * inz, bz = ax * iny - ay * inx;
+  norm3(bx, by, bz, 1e-20f);
+  const float s = inner ? srfr : srfl;
+  const float inv = 1.0f / sqrtf(1.0f + s * s);
+  const float lx = s * inv * inx + inv * bx;
+  const float ly = s * inv * iny + inv * by;
+  const float lz = s * inv * inz + inv * bz;
+  const bool lift = (mrx * inx + mry * iny + mrz * inz) <= (lx * inx + ly * iny + lz * inz);
+  const bool use_lift = lift && !inner;
+  const float rbx = use_lift ? lx : mrx, rby = use_lift ? ly : mry, rbz = use_lift ? lz : mrz;
+  const float y_den = fmaxf(S.sun.n - 1.0f, 1.0f);
+  float rdx = rbx, rdy = rby, rdz = rbz;
+  fibonacci_hemisphere(rdx, rdy, rdz, sidx, y_den, srfl, cth, sth);
+  if (tir && inner) {
+    rdx = rbx;
+    rdy = rby;
+    rdz = rbz;
+  }
+  const float bounced1 = bounced + 1.0f;
+  const bool depth_ok = bounced1 < S.max_bounces;
+
+  // Refraction (n2 = -n_in, the side the refraction leaves by).
+  const float n2x = -inx, n2y = -iny, n2z = -inz;
+  const float xcx = dx - n2x * cos_t, xcy = dy - n2y * cos_t, xcz = dz - n2z * cos_t;
+  const float sq = sqrtf(fmaxf(1.0f - rs * rs, 0.0f));
+  float fdx = rs * n2x + sq * xcx, fdy = rs * n2y + sq * xcy, fdz = rs * n2z + sq * xcz;
+  norm3(fdx, fdy, fdz, 1e-20f);
+  fibonacci_hemisphere(fdx, fdy, fdz, sidx, y_den, srfr, cth, sth);
+
+  MatShade out;
+  out.spawn_refl = depth_ok && (!inner || tir) && (contrib * refl_c > 0.0f);
+  out.spawn_refr = depth_ok && !tir && (contrib * refr_c > 0.0f);
+  const float hc = contrib * contrib;
+  out.add_r = hc * rowv[FT_CR];
+  out.add_g = hc * rowv[FT_CG];
+  out.add_b = hc * rowv[FT_CB];
+  out.hit_t = R.t;
+  out.refr.ox = R.px + 1e-4f * n2x;
+  out.refr.oy = R.py + 1e-4f * n2y;
+  out.refr.oz = R.pz + 1e-4f * n2z;
+  out.refr.dx = fdx;
+  out.refr.dy = fdy;
+  out.refr.dz = fdz;
+  out.refr.contrib = contrib * refr_c;
+  out.refr_medium = target;
+  out.refr_parent = inner ? 1.0f : medium;  // beyond the tracked depth: air
+  out.refl.ox = R.px - 1e-4f * n2x;
+  out.refl.oy = R.py - 1e-4f * n2y;
+  out.refl.oz = R.pz - 1e-4f * n2z;
+  out.refl.dx = rdx;
+  out.refl.dy = rdy;
+  out.refl.dz = rdz;
+  out.refl.contrib = contrib * refl_c;
   return out;
 }
 

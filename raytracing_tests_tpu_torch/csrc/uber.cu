@@ -1,20 +1,25 @@
 // Persistent whole-frame path tracer for Hopper (sm_90a).
 //
 // Replaces the TPU kernel raytracing_tests_tpu/kernels/uber.py::_uber_kernel
-// (launched by _uber_call) under In-Next-Week ('bvh') shading without lights
-// or textures, in four instantiations chosen by the host function:
-// sphere-mode scenes (anchored sphere quadratic over the sweep2 tables) and
-// generic scenes (rotated ellipsoids and cuboids over the sweep2g tables, with
-// super-group culling and per-group kinds), each static or with motion blur
-// (every centre shifted by omt * dp, omt = 1 - s / spp of the primary's
-// sample).  Mode and motion are template parameters, so the static sphere
-// instantiation carries none of the other code's registers.
+// (launched by _uber_call), without textures, in twelve instantiations chosen
+// by the host function: sphere-mode scenes (anchored sphere quadratic over the
+// sweep2 tables) and generic scenes (rotated ellipsoids and cuboids over the
+// sweep2g tables, with super-group culling and per-group kinds), each static
+// or with motion blur (every centre shifted by omt * dp, omt = 1 - s / spp of
+// the primary's sample), each under one of three shadings (SH_*):
+// In-Next-Week ('bvh'); 'bvh' with emissive lights (a shadow ray per light
+// from every hit, through the same warp sweep, scales its contribution; a hit
+// on an emissive object paints the sample white and ends its tree); and the
+// Shirley materials (per-ray medium RI, Schlick shift, fibonacci scatter).
+// Mode, motion and shading are template parameters, so the static 'bvh'
+// sphere instantiation carries none of the other code's registers.
 // Per primary p (pixel p / spp,
 // sample p % spp) generate the camera ray, then walk its ray tree with a LIFO
-// stack of Q records (o3, d3, contribution, bounce count) under a budget of
-// `pops` nodes, the reflection child continuing in place and the refraction
-// child waiting on the stack.  Output: one float4 (r, g, b, primary t) per
-// primary in p-linear order, plus frame counters.
+// stack of Q records (o3, d3, contribution, bounce count, and under materials
+// shading the medium RI and its parent's) under a budget of `pops` nodes, one
+// child continuing in place and the other waiting on the stack: reflection in
+// place under 'bvh', refraction under materials shading.  Output: one float4
+// (r, g, b, primary t) per primary in p-linear order, plus frame counters.
 //
 // What bounds it on this card: operations.  A primary writes 16 bytes and
 // reads nothing but the scene tables, while every tree node tests the spheres
@@ -29,15 +34,19 @@
 // lanes idle.  So the whole warp takes every node step together, lanes
 // without a tree included, and sweeps each group either per lane (many lanes
 // entered it) or row-parallel for one entered lane after another
-// (warp_sweep.cuh; `coop_min` picks).  The stack lives in thread-local
-// memory.  The TPU version's rounds, lane rotation and staged flush are
-// scheduling for a vector core and have no counterpart.
+// (warp_sweep.cuh; `coop_min` picks); so do the shadow rays.  The stacks live
+// in a global scratch buffer the wrapper sizes for the threads the launch
+// keeps resident (rt_uber_threads), Q records each, laid out slot-major and
+// thread-minor: field k of slot q of thread i at ((q * REC + k) * stride + i),
+// so the stores of a warp that push into the same slot coalesce.  Any Q fits.
+// The TPU version's rounds, lane rotation and staged flush are scheduling for
+// a vector core and have no counterpart.
 #include "warp_sweep.cuh"
 
 namespace {
 
-constexpr int MAX_Q = 8;  // compile-time stack capacity (records)
-constexpr int REC = 8;    // floats per stacked record
+// Shadings (kernels/uber.py::SHADING_CODE).
+enum { SH_BVH = 0, SH_LIGHTS = 1, SH_MATERIALS = 2 };
 
 // Camera vector layout (kernels/uber.py::pack_camera).
 enum {
@@ -49,31 +58,39 @@ enum {
 // Host-side parameter vectors (kernels/uber.py fills them).
 // IP_COOP_MIN: a group that fewer lanes of a warp entered is swept
 // row-parallel (warp_sweep.cuh); 1 never, 33 always.
+// IP_SHADING: SH_*; IP_NLIGHTS: rows of the lights table (SH_LIGHTS).
 enum { IP_W = 0, IP_H /* unused: 1/H comes in fp */, IP_SPP, IP_Q, IP_POPS, IP_HAS_DIEL, IP_NGROUPS, IP_GR,
-       IP_NPGROUPS, IP_PROBE_GR, IP_GENERIC, IP_NSGROUPS, IP_MOTION, IP_COOP_MIN, IP_LEN };
+       IP_NPGROUPS, IP_PROBE_GR, IP_GENERIC, IP_NSGROUPS, IP_MOTION, IP_COOP_MIN,
+       IP_SHADING, IP_NLIGHTS, IP_LEN };
 enum { FP_TMAX = 0, FP_GOLDEN, FP_INV_W, FP_INV_H, FP_ASPECT,
        FP_SUN_N, FP_SUN_NMB, FP_SUN_DENOM, FP_SUN_INV_DENOM, FP_MAX_BOUNCES,
-       FP_BG_BOTTOM, FP_BG_TOP = FP_BG_BOTTOM + 3, FP_LEN = FP_BG_TOP + 3 };
+       FP_BG_BOTTOM, FP_BG_TOP = FP_BG_BOTTOM + 3, FP_INV_SPP = FP_BG_TOP + 3,
+       FP_INV_NLIGHTS, FP_LEN };
 
 // Frame counters (device, zeroed by the wrapper before each launch).
 // ST_SPHERE_TESTS: sphere quadratics solved; the next three only in generic
 // mode: slab tests, live rows tested in groups of another kind, nodes that hit.
 // The last three measure the warp sweeps (rt::WarpCounts): rows each lane's
 // own walk needed, 32 x the row iterations the warps issued (SIMT efficiency =
-// ST_ROW_TESTS / ST_LANE_SLOTS), group visits served row-parallel.
+// ST_ROW_TESTS / ST_LANE_SLOTS), group visits served row-parallel; then the
+// shadow rays swept (SH_LIGHTS; their rows are in the counters before).
 enum { ST_NEXT = 0, ST_RAYS, ST_DROPPED, ST_SPHERE_TESTS, ST_SLAB_TESTS,
-       ST_OTHER_TESTS, ST_HITS, ST_ROW_TESTS, ST_LANE_SLOTS, ST_COOP_VISITS, ST_LEN };
+       ST_OTHER_TESTS, ST_HITS, ST_ROW_TESTS, ST_LANE_SLOTS, ST_COOP_VISITS,
+       ST_SHADOW_RAYS, ST_LEN };
 
 struct UberParams {
-  int W, spp, Q, pops, coop_min;
+  int W, spp, Q, pops, coop_min, n_lights;
   unsigned long long B_total;
-  float t_max, golden, inv_W, inv_H, aspect, sun_inv_denom;
+  unsigned long long stack_stride;  // threads the stack buffer holds
+  float t_max, golden, inv_W, inv_H, aspect, sun_inv_denom, inv_spp, inv_n_lights;
   float bg_bottom[3], bg_top[3];
   rt::ShadeStatics shade;
 };
 
+// A ray of the tree; medium and parent (the RIs of the medium it travels in
+// and of its parent's) are read under materials shading only.
 struct Ray {
-  float ox, oy, oz, dx, dy, dz, contrib, bounced;
+  float ox, oy, oz, dx, dy, dz, contrib, bounced, medium, parent;
 };
 
 // Primary ray of global index p: perspective screen direction from the
@@ -141,6 +158,8 @@ __device__ __forceinline__ Ray raygen(const UberParams& P,
   ray.dz = ddz;
   ray.contrib = 1.0f;
   ray.bounced = 0.0f;
+  ray.medium = 1.0f;
+  ray.parent = 1.0f;
   return ray;
 }
 
@@ -148,17 +167,42 @@ __device__ __forceinline__ Ray raygen(const UberParams& P,
 // and with them its register budget: 6 (80 registers) for spheres, 5 (96) for
 // generic primitives.  Unbounded, ptxas takes 91 and 94-108 registers, fits
 // one block fewer per SM and runs slower; a tighter bound spills (PERF.md).
+// The lights and materials instantiations take MIN_BLOCKS_LIGHTS and
+// MIN_BLOCKS_MATERIALS (sphere, generic), the fastest of 3 to 8 on their
+// frames (chip_k1.py --bounds, PERF.md): generic lights 6 (80 registers and
+// 136 B of spill beat 96 registers at 5), sphere lights 5, sphere materials 6;
+// generic materials, on no frame, takes the generic 'bvh' bound.
 constexpr int MIN_BLOCKS_SPHERE = 6;
 constexpr int MIN_BLOCKS_GENERIC = 5;
+constexpr int MIN_BLOCKS_LIGHTS[2] = {5, 6};
+constexpr int MIN_BLOCKS_MATERIALS[2] = {6, 5};
+
+template <bool GENERIC, int SHADING>
+constexpr int min_blocks() {
+  return SHADING == SH_LIGHTS      ? MIN_BLOCKS_LIGHTS[GENERIC]
+         : SHADING == SH_MATERIALS ? MIN_BLOCKS_MATERIALS[GENERIC]
+         : GENERIC                 ? MIN_BLOCKS_GENERIC
+                                   : MIN_BLOCKS_SPHERE;
+}
+
+constexpr int THREADS = 128;
 
 // live_rows: (n_groups,) int32, each main group's last live row + 1.
-template <bool GENERIC, bool MOTION>
-__global__ void __launch_bounds__(128, GENERIC ? MIN_BLOCKS_GENERIC : MIN_BLOCKS_SPHERE)
+// lights: (n_lights, 8) float32 (SH_LIGHTS only).  stack: the scratch of
+// P.stack_stride threads x Q records of REC floats.
+template <bool GENERIC, bool MOTION, int SHADING>
+__global__ void __launch_bounds__(THREADS, min_blocks<GENERIC, SHADING>())
 uber_kernel(rt::Tables T, UberParams P, const float* __restrict__ cam,
-            const int* __restrict__ live_rows, float4* __restrict__ out,
+            const int* __restrict__ live_rows, const float* __restrict__ lights,
+            float* __restrict__ stack, float4* __restrict__ out,
             unsigned long long* __restrict__ stats) {
+  constexpr bool MAT = SHADING == SH_MATERIALS;
+  constexpr bool LIGHTS = SHADING == SH_LIGHTS;
+  constexpr int REC = MAT ? 10 : 8;  // floats per stacked record
   const unsigned FULL = 0xffffffffu;
   const int lane = threadIdx.x & 31;
+  const size_t stride = P.stack_stride;
+  float* const my_stack = stack + (size_t)blockIdx.x * blockDim.x + threadIdx.x;
 
   bool act = false, exhausted = false;
   Ray cur = {};
@@ -167,8 +211,8 @@ uber_kernel(rt::Tables T, UberParams P, const float* __restrict__ cam,
   float omt = 0.0f;  // 1 - time_ratio of the tree; read by MOTION only
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_t = P.t_max;
   int qs = 0, cnt = 0;
-  float stack[MAX_Q * REC];
   unsigned n_rays = 0, n_drop = 0, n_hits = 0;  // this thread's; n_hits: generic only
+  unsigned n_shadow = 0;                         // SH_LIGHTS only
   rt::WarpCounts wc = {};
 
   for (;;) {
@@ -212,6 +256,24 @@ uber_kernel(rt::Tables T, UberParams P, const float* __restrict__ cam,
       rt::warp_nearest_hit<MOTION>(T, live_rows, P.coop_min, lane, cur.ox, cur.oy,
                                    cur.oz, cur.dx, cur.dy, cur.dz, omt, live,
                                    P.t_max, t_best, obj, wc);
+
+    // ---- lights: refine the hit, then every lane sweeps its shadow rays --
+    bool white = false;  // the node hit an emissive object
+    float lit = 1.0f;    // share of the lights its hit sees
+    rt::Refined R = {};
+    if constexpr (LIGHTS) {
+      constexpr int COLS = GENERIC ? rt::GFT_COLS : rt::FT_COLS;
+      bool did_hit = false;
+      if (act && obj >= 0) {
+        R = rt::refine_hit<GENERIC, MOTION>(T, obj, t_best, cur.ox, cur.oy, cur.oz,
+                                            cur.dx, cur.dy, cur.dz, omt);
+        white = __ldg(T.ftab + (size_t)obj * COLS + rt::FT_EMIS) > 0.5f;
+        did_hit = !white;
+      }
+      lit = rt::warp_shadow_factor<GENERIC, MOTION>(
+          T, live_rows, P.coop_min, lane, lights, P.n_lights, P.inv_n_lights, did_hit, R,
+          omt, sidx * P.inv_spp, wc, n_shadow);
+    }
     if (!act) continue;  // a lane without a tree only served rows
 
     // ---- shade it ---------------------------------------------------------
@@ -220,20 +282,54 @@ uber_kernel(rt::Tables T, UberParams P, const float* __restrict__ cam,
     float add_r, add_g, add_b, hit_t;
     bool sp_refr = false, sp_refl = false;
     rt::Child refr = {}, refl = {};
+    float refr_medium = 1.0f, refr_parent = 1.0f;  // materials only
     if (obj >= 0) {
-      const rt::Shade sh = rt::shade_hit<GENERIC, MOTION>(
-          T, P.shade, obj, t_best, cur.ox, cur.oy, cur.oz, cur.dx, cur.dy,
-          cur.dz, omt, cur.contrib, cur.bounced, sidx, cth, sth);
-      add_r = sh.add_r;
-      add_g = sh.add_g;
-      add_b = sh.add_b;
-      hit_t = sh.hit_t;
-      sp_refr = sh.spawn_refr;
-      sp_refl = sh.spawn_refl;
-      refr = sh.refr;
-      refl = sh.refl;
+      if constexpr (MAT) {
+        const rt::MatShade sh = rt::shade_materials<GENERIC, MOTION>(
+            T, P.shade, obj, t_best, cur.ox, cur.oy, cur.oz, cur.dx, cur.dy, cur.dz, omt,
+            cur.contrib, cur.bounced, cur.medium, cur.parent, sidx, cth, sth);
+        add_r = sh.add_r;
+        add_g = sh.add_g;
+        add_b = sh.add_b;
+        hit_t = sh.hit_t;
+        sp_refr = sh.spawn_refr;
+        sp_refl = sh.spawn_refl;
+        refr = sh.refr;
+        refl = sh.refl;
+        refr_medium = sh.refr_medium;
+        refr_parent = sh.refr_parent;
+      } else if constexpr (LIGHTS) {
+        if (white) {
+          add_r = add_g = add_b = 0.0f;
+          hit_t = R.t;
+        } else {
+          const rt::Shade sh = rt::shade_hit<GENERIC, MOTION, false, true>(
+              T, P.shade, obj, t_best, cur.ox, cur.oy, cur.oz, cur.dx, cur.dy, cur.dz,
+              omt, cur.contrib * lit, cur.bounced, sidx, cth, sth, &R);
+          add_r = sh.add_r;
+          add_g = sh.add_g;
+          add_b = sh.add_b;
+          hit_t = sh.hit_t;
+          sp_refr = sh.spawn_refr;
+          sp_refl = sh.spawn_refl;
+          refr = sh.refr;
+          refl = sh.refl;
+        }
+      } else {
+        const rt::Shade sh = rt::shade_hit<GENERIC, MOTION>(
+            T, P.shade, obj, t_best, cur.ox, cur.oy, cur.oz, cur.dx, cur.dy,
+            cur.dz, omt, cur.contrib, cur.bounced, sidx, cth, sth);
+        add_r = sh.add_r;
+        add_g = sh.add_g;
+        add_b = sh.add_b;
+        hit_t = sh.hit_t;
+        sp_refr = sh.spawn_refr;
+        sp_refl = sh.spawn_refl;
+        refr = sh.refr;
+        refl = sh.refl;
+      }
     } else {
-      // Miss: contribution times the sky gradient, depth t_max.
+      // Miss: contribution times the sky gradient (black with lights), depth t_max.
       const float tt = (cur.dy + 1.0f) * 0.5f;
       add_r = cur.contrib * ((1.0f - tt) * P.bg_bottom[0] + tt * P.bg_top[0]);
       add_g = cur.contrib * ((1.0f - tt) * P.bg_bottom[1] + tt * P.bg_top[1]);
@@ -244,63 +340,83 @@ uber_kernel(rt::Tables T, UberParams P, const float* __restrict__ cam,
     acc_r += add_r;
     acc_g += add_g;
     acc_b += add_b;
+    if (LIGHTS && white) acc_r = acc_g = acc_b = 1.0f;  // the sample is white
     n_rays += 1;  // every processed node counts, misses included
 
-    // ---- children: reflection in place, refraction on the stack ----------
+    // ---- children: one in place, the other on the stack -------------------
+    // 'bvh': reflection in place, refraction stacked; materials: refraction
+    // in place, reflection stacked (it keeps the node's own media).
+    const rt::Child& inplace = MAT ? refr : refl;
+    const rt::Child& queued = MAT ? refl : refr;
+    const bool sp_in = MAT ? sp_refr : sp_refl;
+    const bool sp_q = MAT ? sp_refl : sp_refr;
     const float bounced1 = cur.bounced + 1.0f;
     const bool push = sp_refl && sp_refr;
     const bool canq = qs < P.Q;
     if (push && canq) {
-      float* rec = stack + qs * REC;
-      rec[0] = refr.ox;
-      rec[1] = refr.oy;
-      rec[2] = refr.oz;
-      rec[3] = refr.dx;
-      rec[4] = refr.dy;
-      rec[5] = refr.dz;
-      rec[6] = refr.contrib;
-      rec[7] = bounced1;
+      float* rec = my_stack + (size_t)qs * REC * stride;
+      rec[0] = queued.ox;
+      rec[stride] = queued.oy;
+      rec[2 * stride] = queued.oz;
+      rec[3 * stride] = queued.dx;
+      rec[4 * stride] = queued.dy;
+      rec[5 * stride] = queued.dz;
+      rec[6 * stride] = queued.contrib;
+      rec[7 * stride] = bounced1;
+      if constexpr (MAT) {
+        rec[8 * stride] = cur.medium;
+        rec[9 * stride] = cur.parent;
+      }
       qs += 1;
     }
-    // On overflow the stacked-preference child (refraction) survives and the
-    // in-place one is dropped; the drop is counted.
+    // On overflow the stacked-preference child survives and the in-place one
+    // is dropped; the drop is counted.
     const bool overflow = push && !canq;
     if (overflow) n_drop += 1;
-    // Per-primary node budget: the tree dies and stacked siblings are dropped.
+    // Per-primary node budget, and the emissive abort: the tree dies and
+    // stacked siblings are dropped.
     cnt += 1;
-    const bool kill = cnt >= P.pops;
+    const bool kill = cnt >= P.pops || (LIGHTS && white);
     if (kill) {
       qs = 0;
       act = false;
-    } else if (sp_refl && !overflow) {
-      cur.ox = refl.ox;
-      cur.oy = refl.oy;
-      cur.oz = refl.oz;
-      cur.dx = refl.dx;
-      cur.dy = refl.dy;
-      cur.dz = refl.dz;
-      cur.contrib = refl.contrib;
+    } else if (sp_in && !overflow) {
+      cur.ox = inplace.ox;
+      cur.oy = inplace.oy;
+      cur.oz = inplace.oz;
+      cur.dx = inplace.dx;
+      cur.dy = inplace.dy;
+      cur.dz = inplace.dz;
+      cur.contrib = inplace.contrib;
       cur.bounced = bounced1;
-    } else if (sp_refr) {
-      cur.ox = refr.ox;
-      cur.oy = refr.oy;
-      cur.oz = refr.oz;
-      cur.dx = refr.dx;
-      cur.dy = refr.dy;
-      cur.dz = refr.dz;
-      cur.contrib = refr.contrib;
+      if constexpr (MAT) {
+        cur.medium = refr_medium;
+        cur.parent = refr_parent;
+      }
+    } else if (sp_q) {
+      cur.ox = queued.ox;
+      cur.oy = queued.oy;
+      cur.oz = queued.oz;
+      cur.dx = queued.dx;
+      cur.dy = queued.dy;
+      cur.dz = queued.dz;
+      cur.contrib = queued.contrib;
       cur.bounced = bounced1;
     } else if (qs > 0) {
       qs -= 1;
-      const float* rec = stack + qs * REC;
+      const float* rec = my_stack + (size_t)qs * REC * stride;
       cur.ox = rec[0];
-      cur.oy = rec[1];
-      cur.oz = rec[2];
-      cur.dx = rec[3];
-      cur.dy = rec[4];
-      cur.dz = rec[5];
-      cur.contrib = rec[6];
-      cur.bounced = rec[7];
+      cur.oy = rec[stride];
+      cur.oz = rec[2 * stride];
+      cur.dx = rec[3 * stride];
+      cur.dy = rec[4 * stride];
+      cur.dz = rec[5 * stride];
+      cur.contrib = rec[6 * stride];
+      cur.bounced = rec[7 * stride];
+      if constexpr (MAT) {
+        cur.medium = rec[8 * stride];
+        cur.parent = rec[9 * stride];
+      }
     } else {
       act = false;
     }
@@ -339,72 +455,139 @@ uber_kernel(rt::Tables T, UberParams P, const float* __restrict__ cam,
       atomicAdd(&stats[ST_HITS], hits);
     }
   }
+  if constexpr (LIGHTS) {
+    unsigned long long shadow = n_shadow;
+    for (int off = 16; off > 0; off >>= 1) shadow += __shfl_down_sync(FULL, shadow, off);
+    if (lane == 0) atomicAdd(&stats[ST_SHADOW_RAYS], shadow);
+  }
 }
 
+// Everything one launch needs, as the host function received it.
+struct Launch {
+  rt::Tables T;
+  UberParams P;
+  const float* cam;
+  const int* live_rows;
+  const float* lights;
+  float* stack;
+  float4* out;
+  unsigned long long* stats;
+  cudaStream_t stream;
+};
+
 // Fill the card once: as many resident blocks as it holds, no more than the
-// frame has primaries for.
-template <bool GENERIC, bool MOTION>
-int launch_uber(const rt::Tables& T, const UberParams& P, const float* cam,
-                const int* live_rows, float4* out, unsigned long long* stats,
-                cudaStream_t stream) {
-  const int threads = 128;
+// frame has primaries for -> the blocks, or a negative CUDA error code.
+template <bool GENERIC, bool MOTION, int SHADING>
+long long resident_blocks(unsigned long long B_total) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess) return -(long long)e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  const auto kernel = uber_kernel<GENERIC, MOTION>;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess) return -(long long)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, uber_kernel<GENERIC, MOTION, SHADING>, THREADS, 0);
+  if (e != cudaSuccess) return -(long long)e;
   if (per_sm < 1) per_sm = 1;
   long long blocks = (long long)sms * per_sm;
-  const long long needed = ((long long)P.B_total + threads - 1) / threads;
-  if (blocks > needed) blocks = needed;
-  RT_LAUNCH(kernel, (int)blocks, threads, stream, T, P, cam, live_rows, out, stats);
-  return static_cast<int>(cudaGetLastError());
+  const long long needed = ((long long)B_total + THREADS - 1) / THREADS;
+  return blocks > needed ? needed : blocks;
+}
+
+// With L: launch on as many of those blocks as the stack buffer holds
+// (L->P.stack_stride threads) -> cudaGetLastError().  Without: the threads a
+// launch keeps resident, for the wrapper to size the stack buffer by.
+template <bool GENERIC, bool MOTION, int SHADING>
+long long run(const Launch* L, unsigned long long B_total) {
+  long long blocks = resident_blocks<GENERIC, MOTION, SHADING>(B_total);
+  if (blocks < 0) return blocks;
+  if (L == nullptr) return blocks * THREADS;
+  const long long fit = (long long)L->P.stack_stride / THREADS;
+  if (fit < 1) return (long long)cudaErrorInvalidValue;
+  if (blocks > fit) blocks = fit;
+  const auto kernel = uber_kernel<GENERIC, MOTION, SHADING>;
+  RT_LAUNCH(kernel, (int)blocks, THREADS, L->stream, L->T, L->P, L->cam, L->live_rows,
+            L->lights, L->stack, L->out, L->stats);
+  return static_cast<long long>(cudaGetLastError());
+}
+
+// The instantiation ip selects.
+long long dispatch(const int* ip, const Launch* L, unsigned long long B_total) {
+  const int g = ip[IP_GENERIC] ? 1 : 0, m = ip[IP_MOTION] ? 1 : 0, sh = ip[IP_SHADING];
+  if (sh < SH_BVH || sh > SH_MATERIALS) return -(long long)cudaErrorInvalidValue;
+  switch ((g * 2 + m) * 3 + sh) {
+    case 0: return run<false, false, SH_BVH>(L, B_total);
+    case 1: return run<false, false, SH_LIGHTS>(L, B_total);
+    case 2: return run<false, false, SH_MATERIALS>(L, B_total);
+    case 3: return run<false, true, SH_BVH>(L, B_total);
+    case 4: return run<false, true, SH_LIGHTS>(L, B_total);
+    case 5: return run<false, true, SH_MATERIALS>(L, B_total);
+    case 6: return run<true, false, SH_BVH>(L, B_total);
+    case 7: return run<true, false, SH_LIGHTS>(L, B_total);
+    case 8: return run<true, false, SH_MATERIALS>(L, B_total);
+    case 9: return run<true, true, SH_BVH>(L, B_total);
+    case 10: return run<true, true, SH_LIGHTS>(L, B_total);
+    default: return run<true, true, SH_MATERIALS>(L, B_total);
+  }
 }
 
 }  // namespace
 
-// Compile-time stack capacity, so the wrapper can refuse a deeper stack.
-extern "C" int rt_uber_max_q(void) { return MAX_Q; }
+// The threads a launch of the instantiation ip selects keeps resident for a
+// frame of B_total primaries (the stack buffer holds Q records for each), or
+// a negative CUDA error code.
+extern "C" long long rt_uber_threads(const int* ip, long long B_total) {
+  if (B_total <= 0) return 0;
+  return dispatch(ip, nullptr, (unsigned long long)B_total);
+}
 
 // out: (B_total, 4) float32; stats: uint64[ST_LEN], zeroed by the caller;
 // cam: device (24,) float32; live_rows: device (n_groups,) int32, each main
-// group's last live row + 1; ip / fp: HOST parameter vectors (IP_* / FP_*
-// above); ip[IP_GENERIC] and ip[IP_MOTION] pick the instantiation, and with
-// it the layout the three tables must have.  Launches on `stream`, does not synchronise, returns
+// group's last live row + 1; lights: device (n_lights, 8) float32 under
+// SH_LIGHTS, else unused; stack: device float32 scratch of stack_threads x Q
+// x REC (8, or 10 under SH_MATERIALS) floats, stack_threads at least one
+// block (rt_uber_threads gives what a launch uses); ip / fp: HOST parameter
+// vectors (IP_* / FP_* above); ip[IP_GENERIC], ip[IP_MOTION] and
+// ip[IP_SHADING] pick the instantiation, and with it the layout the three
+// tables must have.  Launches on `stream`, does not synchronise, returns
 // cudaGetLastError().
 extern "C" int rt_uber_render(const void* otab, const void* ftab,
                               const void* gaabb, const void* live_rows,
-                              const void* cam, const int* ip, const float* fp,
-                              long long B_total, void* out, void* stats,
+                              const void* cam, const void* lights, const int* ip,
+                              const float* fp, long long B_total, void* out,
+                              void* stats, void* stack, long long stack_threads,
                               void* stream) {
   if (B_total <= 0) return 0;
-  if (ip[IP_Q] < 0 || ip[IP_Q] > MAX_Q) return (int)cudaErrorInvalidValue;
-  rt::Tables T;
-  T.otab = static_cast<const float*>(otab);
-  T.ftab = static_cast<const float*>(ftab);
-  T.gaabb = static_cast<const float*>(gaabb);
-  T.n_groups = ip[IP_NGROUPS];
-  T.gr = ip[IP_GR];
-  T.n_pgroups = ip[IP_NPGROUPS];
-  T.probe_gr = ip[IP_PROBE_GR];
-  T.n_sgroups = ip[IP_NSGROUPS];
+  if (ip[IP_Q] < 0 || stack == nullptr || stack_threads < 1)
+    return (int)cudaErrorInvalidValue;
+  if (ip[IP_SHADING] == SH_LIGHTS && (ip[IP_NLIGHTS] < 1 || lights == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Launch L;
+  L.T.otab = static_cast<const float*>(otab);
+  L.T.ftab = static_cast<const float*>(ftab);
+  L.T.gaabb = static_cast<const float*>(gaabb);
+  L.T.n_groups = ip[IP_NGROUPS];
+  L.T.gr = ip[IP_GR];
+  L.T.n_pgroups = ip[IP_NPGROUPS];
+  L.T.probe_gr = ip[IP_PROBE_GR];
+  L.T.n_sgroups = ip[IP_NSGROUPS];
 
-  UberParams P;
+  UberParams& P = L.P;
   P.W = ip[IP_W];
   P.spp = ip[IP_SPP];
   P.Q = ip[IP_Q];
   P.pops = ip[IP_POPS];
   P.coop_min = ip[IP_COOP_MIN];
+  P.n_lights = ip[IP_SHADING] == SH_LIGHTS ? ip[IP_NLIGHTS] : 0;
   P.B_total = (unsigned long long)B_total;
+  P.stack_stride = (unsigned long long)stack_threads;
   P.t_max = fp[FP_TMAX];
   P.golden = fp[FP_GOLDEN];
   P.inv_W = fp[FP_INV_W];
   P.inv_H = fp[FP_INV_H];
   P.aspect = fp[FP_ASPECT];
   P.sun_inv_denom = fp[FP_SUN_INV_DENOM];
+  P.inv_spp = fp[FP_INV_SPP];
+  P.inv_n_lights = fp[FP_INV_NLIGHTS];
   for (int c = 0; c < 3; ++c) {
     P.bg_bottom[c] = fp[FP_BG_BOTTOM + c];
     P.bg_top[c] = fp[FP_BG_TOP + c];
@@ -415,14 +598,13 @@ extern "C" int rt_uber_render(const void* otab, const void* ftab,
   P.shade.max_bounces = fp[FP_MAX_BOUNCES];
   P.shade.has_dielectrics = ip[IP_HAS_DIEL];
 
-  const float* camp = static_cast<const float*>(cam);
-  const int* live = static_cast<const int*>(live_rows);
-  float4* outp = static_cast<float4*>(out);
-  unsigned long long* statp = static_cast<unsigned long long*>(stats);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ip[IP_GENERIC])
-    return ip[IP_MOTION] ? launch_uber<true, true>(T, P, camp, live, outp, statp, st)
-                         : launch_uber<true, false>(T, P, camp, live, outp, statp, st);
-  return ip[IP_MOTION] ? launch_uber<false, true>(T, P, camp, live, outp, statp, st)
-                       : launch_uber<false, false>(T, P, camp, live, outp, statp, st);
+  L.cam = static_cast<const float*>(cam);
+  L.live_rows = static_cast<const int*>(live_rows);
+  L.lights = static_cast<const float*>(lights);
+  L.stack = static_cast<float*>(stack);
+  L.out = static_cast<float4*>(out);
+  L.stats = static_cast<unsigned long long*>(stats);
+  L.stream = static_cast<cudaStream_t>(stream);
+  const long long code = dispatch(ip, &L, P.B_total);
+  return (int)(code < 0 ? -code : code);
 }

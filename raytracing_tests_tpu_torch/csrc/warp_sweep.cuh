@@ -365,6 +365,58 @@ __device__ __forceinline__ void warp_nearest_hit_g(
   }
 }
 
+// Emissive lights (kernels/mega.py::_shadow_factor_k): the share of the
+// n_lights lights visible from a hit point R (outward normal) of every lane
+// with `did_hit`.  For each light (rows of kernels/uber.py::pack_lights:
+// bb_min xyz, bb_max xyz, diagonal, 0, read through the read-only path) one
+// shadow ray leaves R + 1e-4 n toward the point bb_min + (bb_max - bb_min) *
+// sratio of the light's box (sratio = the sample's s / spp), limited to the
+// distance to the box's centre plus its diagonal, and swept through the same
+// warp sweep as the node's own ray; the light counts where the nearest
+// occluder is emissive.  The direction is normalised by division: a
+// reciprocal square root moves the last ulp, which flips the visibility of
+// rays that graze the light's box.  Every lane of the warp must call this
+// together; a lane without `did_hit` sweeps a dead ray (live = false, d = 0).
+// `n_shadow` gains the shadow rays this lane swept.
+template <bool GENERIC, bool MOTION>
+__device__ __forceinline__ float warp_shadow_factor(
+    const Tables& T, const int* __restrict__ live_rows, int coop_min, int lane,
+    const float* __restrict__ lights, int n_lights, float inv_n_lights, bool did_hit,
+    const Refined& R, float omt, float sratio, WarpCounts& wc, unsigned& n_shadow) {
+  constexpr int COLS = GENERIC ? GFT_COLS : FT_COLS;
+  const float sox = R.px + 1e-4f * R.nx;
+  const float soy = R.py + 1e-4f * R.ny;
+  const float soz = R.pz + 1e-4f * R.nz;
+  float lit = 0.0f;
+  for (int l = 0; l < n_lights; ++l) {
+    const float* L = lights + l * 8;
+    const float4 a = ld4(L);      // bb_min xyz, bb_max x
+    const float4 b = ld4(L + 4);  // bb_max yz, diagonal, 0
+    float ddx = a.x + (a.w - a.x) * sratio - sox;
+    float ddy = a.y + (b.x - a.y) * sratio - soy;
+    float ddz = a.z + (b.y - a.z) * sratio - soz;
+    const float dn = sqrtf(fmaxf(ddx * ddx + ddy * ddy + ddz * ddz, 1e-38f));
+    ddx = did_hit ? ddx / dn : 0.0f;
+    ddy = did_hit ? ddy / dn : 0.0f;
+    ddz = did_hit ? ddz / dn : 0.0f;
+    const float ex = (a.x + a.w) * 0.5f - sox;
+    const float ey = (a.y + b.x) * 0.5f - soy;
+    const float ez = (a.z + b.y) * 0.5f - soz;
+    const float tlim = sqrtf(fmaxf(ex * ex + ey * ey + ez * ez, 0.0f)) + b.z;
+    float t_s;
+    int obj_s;
+    if constexpr (GENERIC)
+      warp_nearest_hit_g<MOTION>(T, live_rows, coop_min, lane, sox, soy, soz, ddx, ddy, ddz,
+                                 omt, did_hit, tlim, t_s, obj_s, wc);
+    else
+      warp_nearest_hit<MOTION>(T, live_rows, coop_min, lane, sox, soy, soz, ddx, ddy, ddz,
+                               omt, did_hit, tlim, t_s, obj_s, wc);
+    if (obj_s >= 0 && __ldg(T.ftab + (size_t)obj_s * COLS + FT_EMIS) > 0.5f) lit += 1.0f;
+    n_shadow += did_hit ? 1u : 0u;
+  }
+  return lit * inv_n_lights;
+}
+
 // Sum of a per-thread count over the warp, in lane 0 (the others get partial
 // sums); every lane must call it together.
 __device__ __forceinline__ unsigned long long warp_total(unsigned long long v) {

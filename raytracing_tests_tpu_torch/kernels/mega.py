@@ -19,11 +19,14 @@ Pool record layout (16 rows x lanes, float32): rows 0-2 origin, 3-5 direction,
 6 ``omt`` (1 - time_ratio), 7 ``t_limit``, 8 contribution, 9 bounce count,
 10-15 spare (zero).
 
-The shading functions (``_cross_up``, ``_deviate``, ``_shade_hits``, without
-lights or textures) serve sphere-mode accels (``sweep2.Accel2``) and generic
-ones (``sweep2g.Accel2G``); their CUDA version is
-``csrc/rt_common.cuh::shade_hit``, and the plain version of the persistent
-kernel (``uber.uber_render_plain``) runs them too.
+The shading functions serve sphere-mode accels (``sweep2.Accel2``) and
+generic ones (``sweep2g.Accel2G``), and the plain version of the persistent
+kernel (``uber.uber_render_plain``) runs them too: ``_shade_hits`` (the
+In-Next-Week model, with ``_cross_up`` and ``_deviate``; CUDA:
+``csrc/rt_common.cuh::shade_hit``), its emissive lights (``_shadow_factor_k``;
+CUDA: ``csrc/warp_sweep.cuh::warp_shadow_factor``) and the Shirley-materials
+model ``_shade_materials_k`` with ``_fibonacci_hemisphere_k`` (CUDA:
+``rt_common.cuh::shade_materials``).  No textures.
 """
 
 from __future__ import annotations
@@ -36,12 +39,12 @@ import torch
 
 from raytracing_tests_tpu_torch.kernels import _build
 from raytracing_tests_tpu_torch.kernels.sweep2 import (
-    FT_CB, FT_CR, FT_MRI, FT_REFL, FT_REFR, FT_SRFL, FT_SRFR, PROBE_GR,
+    FT_CB, FT_CR, FT_EMIS, FT_MRI, FT_REFL, FT_REFR, FT_SRFL, FT_SRFR, PROBE_GR,
     Accel2, _check_tensor, _dot3, _gather_rows, _ri_probe, _sweep_plain,
     _winner_refine, check_accel, live_rows,
 )
 from raytracing_tests_tpu_torch.kernels.sweep2g import (
-    _gather_rows_g, _ri_probe_g, _winner_refine_g,
+    _gather_rows_g, _ri_probe_g, _sweep_plain_g, _winner_refine_g,
 )
 
 # The angle every sunflower lattice turns by, rounded to float32 once.
@@ -110,10 +113,75 @@ def _deviate(d, sidx, spp: int, tan_theta, trig):
     return v * inv[:, None]
 
 
+def _norm3(v, eps):
+    """v / sqrt(max(|v|^2, eps)) for (B, 3) vectors, the sum in x, y, z order."""
+    return v / torch.sqrt(torch.clamp_min(_dot3(v, v), max(eps, 1e-38)))[:, None]
+
+
+def _cross3(a, b):
+    ax, ay, az = a[:, 0], a[:, 1], a[:, 2]
+    bx, by, bz = b[:, 0], b[:, 1], b[:, 2]
+    return torch.stack([ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx], dim=1)
+
+
+def _fibonacci_hemisphere_k(sidx, spp: int, s, f, trig):
+    """``sampling.fibonacci_hemisphere`` with carried trig: deterministic
+    scatter of the unit direction ``f`` (B, 3) on a fibonacci sphere of
+    radius ``s`` centred at its tip.  ``trig``: (cos th, sin th) of
+    th = GOLDEN_ANGLE * sidx (see ``_deviate``)."""
+    n = float(spp)
+    y = 1.0 - sidx / max(n - 1.0, 1.0)
+    radius = torch.sqrt(torch.clamp_min(1.0 - y * y, 0.0))
+    x = trig[0] * radius
+    z = trig[1] * radius
+    x, y, z = x * s, y * s, z * s
+    # z_cap = normalize(cross(up, f)) with up = (0, 1, 0): (fz, 0, -fx)
+    zc = _norm3(torch.stack([f[:, 2], torch.zeros_like(f[:, 0]), -f[:, 0]], dim=1), 1e-20)
+    xc = _norm3(_cross3(f, zc), 1e-20)
+    pt = f + x[:, None] * xc + y[:, None] * f + z[:, None] * zc
+    return _norm3(pt, 1e-38)
+
+
+def _shadow_factor_k(accel, p, n, omt, sidx, did_hit, lights, spp: int):
+    """Fraction of the lights visible from the hit points ``p`` (B, 3) with
+    outward normals ``n``: one occlusion sweep per light, from p + 1e-4 n
+    toward a per-sample point inside the light's AABB, limited to the
+    distance to the box's centre plus its diagonal; the light counts where the
+    nearest occluder is an emissive object.  ``lights``: (n_lights, 8) rows
+    of ``uber.pack_lights`` (bb_min xyz, bb_max xyz, diagonal, 0).  Lanes
+    without ``did_hit`` sweep a dead ray.  Generic accels sweep with their
+    super-groups, as the primary sweep does."""
+    generic = accel.mode == "generic"
+    if omt is None:  # a static accel reads no time
+        omt = torch.zeros_like(sidx)
+    sratio = sidx * (1.0 / spp)
+    so = p + 1e-4 * n
+    zero = torch.zeros_like(so)
+    lit = torch.zeros_like(sidx)
+    for row in lights:
+        mn, mx, diag = row[0:3], row[3:6], row[6]
+        target = mn + (mx - mn) * sratio[:, None]
+        dd = target - so
+        dd = dd / torch.sqrt(torch.clamp_min(_dot3(dd, dd), 1e-38))[:, None]
+        dd = torch.where(did_hit[:, None], dd, zero)
+        e = (mn + mx) * 0.5 - so
+        tlim = torch.sqrt(torch.clamp_min(_dot3(e, e), 0.0)) + diag
+        if generic:
+            _, obj = _sweep_plain_g(accel, so, dd, omt, did_hit, tlim)
+            rows = _gather_rows_g(accel, obj)
+        else:
+            _, obj = _sweep_plain(accel, so, dd, did_hit, tlim, omt)
+            rows = _gather_rows(accel, obj)
+        lit = lit + ((obj >= 0) & (rows[:, FT_EMIS] > 0.5)).to(lit.dtype)
+    return lit * (1.0 / lights.shape[0])
+
+
 @dataclasses.dataclass
 class Shaded:
     """What shading one batch of nodes produces: colour to accumulate, the
-    hit distance (t_max convention on a miss) and the two children."""
+    hit distance (t_max convention on a miss) and the two children; under
+    emissive lights the nodes that paint their sample white, under materials
+    shading the children's media."""
 
     add: torch.Tensor  # (B, 3)
     hit_t: torch.Tensor  # (B,)
@@ -126,27 +194,49 @@ class Shaded:
     spawn_refr: torch.Tensor  # (B,) bool
     spawn_refl: torch.Tensor
     bounced: torch.Tensor  # (B,) child bounce count
+    white: torch.Tensor = None  # (B,) bool: hit an emissive object
+    refr_medium: torch.Tensor = None  # (B,) materials shading only
+    refr_parent: torch.Tensor = None
+    refl_medium: torch.Tensor = None
+    refl_parent: torch.Tensor = None
 
 
-def _shade_hits(accel, o, d, contrib, bounced, active, sidx, t_best,
-                obj, hit, bg, *, has_dielectrics: bool, spp: int,
-                max_bounces: int, t_max: float, trig, omt=None) -> Shaded:
-    """Winner row + refine + surrounding-RI + INW shading + child-ray
-    construction for a batch of nodes (hits and misses alike: ``hit`` masks).
-    ``omt`` (B,) = 1 - time_ratio, read only by a moving accel."""
-    generic = accel.mode == "generic"
+def _refine(accel, o, d, t_best, obj, hit, omt):
+    """The winners' ftab rows and their refine -> (rows, t_best, p, n); the
+    accel's own ``omt`` rule (None unless it moves, required if it does)."""
     if not accel.has_motion:
         omt = None
     elif omt is None:
         raise ValueError("a moving accel needs omt = 1 - time_ratio per ray")
-    if generic:
+    if accel.mode == "generic":
         rows = _gather_rows_g(accel, obj)
         t_best, _, p, n, _ = _winner_refine_g(rows, o, d, t_best, hit, omt)
     else:
         rows = _gather_rows(accel, obj)
         t_best, _, p, n = _winner_refine(rows, o, d, t_best, hit, omt)
+    return rows, t_best, p, n, omt
+
+
+def _shade_hits(accel, o, d, contrib, bounced, active, sidx, t_best,
+                obj, hit, bg, *, has_dielectrics: bool, spp: int,
+                max_bounces: int, t_max: float, trig, omt=None,
+                lights=None) -> Shaded:
+    """Winner row + refine + surrounding-RI + INW shading + child-ray
+    construction for a batch of nodes (hits and misses alike: ``hit`` masks).
+    ``omt`` (B,) = 1 - time_ratio, read only by a moving accel.  ``lights``
+    ((n_lights, 8), ``uber.pack_lights``): a hit on an emissive object paints
+    its sample white (``Shaded.white``) and spawns nothing; every other hit's
+    contribution is scaled by the fraction of lights it sees."""
+    generic = accel.mode == "generic"
+    rows, t_best, p, n, omt = _refine(accel, o, d, t_best, obj, hit, omt)
 
     did_hit = hit
+    white = None
+    if lights is not None:
+        white = hit & (rows[:, FT_EMIS] > 0.5)
+        did_hit = hit & ~white
+        lit = _shadow_factor_k(accel, p, n, omt, sidx, did_hit, lights, spp)
+        contrib = torch.where(did_hit, contrib * lit, contrib)
     missed = active & ~hit
     miss_c = torch.where(missed, contrib, torch.zeros_like(contrib))
     add = miss_c[:, None] * bg
@@ -215,7 +305,83 @@ def _shade_hits(accel, o, d, contrib, bounced, active, sidx, t_best,
         add=add, hit_t=hit_t,
         refr_o=p - 1e-4 * n_out, refr_d=cd, refr_contrib=contrib * refrv,
         refl_o=p + 1e-4 * n_out, refl_d=cl, refl_contrib=contrib * reflv,
+        spawn_refr=spawn_refr, spawn_refl=spawn_refl, bounced=bounced1, white=white,
+    )
+
+
+def _shade_materials_k(accel, o, d, contrib, bounced, active, sidx, t_best,
+                       obj, hit, bg, medium, parent, *, spp: int,
+                       max_bounces: int, t_max: float, trig, omt=None) -> Shaded:
+    """``ops.render._shade_materials`` for a batch of nodes, in the
+    persistent kernel's arithmetic: the Shirley-materials model with the
+    per-ray medium RI (``medium``, ``parent`` (B,)), Schlick contribution
+    shift, fibonacci-hemisphere scatter, total internal reflection turned
+    into a contribution-1 reflection, the ``contrib^2 * albedo`` local term,
+    no surrounding-RI probe and no contribution cutoff.  The children carry
+    their media in ``Shaded``'s ``refr_*`` / ``refl_*`` fields."""
+    rows, t_best, p, n, _ = _refine(accel, o, d, t_best, obj, hit, omt)
+    zero = torch.zeros_like(contrib)
+    missed = active & ~hit
+    mat_ri = rows[:, FT_MRI]
+    refrv = rows[:, FT_REFR]
+    reflv = rows[:, FT_REFL]
+    srfr = rows[:, FT_SRFR]
+    srfl = rows[:, FT_SRFL]
+
+    cos_theta = _dot3(n, d)
+    inner = cos_theta > 0.0
+    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
+    target = torch.where(inner, parent, mat_ri)
+    ratio = medium / torch.clamp_min(target, 1e-6)
+    ratio_sin = ratio * sin_theta
+    tir = ratio_sin > 1.0
+
+    # Schlick shift from refraction to reflection on outer hits.
+    r0 = (1.0 - ratio) / (1.0 + ratio)
+    r0 = r0 * r0
+    om = 1.0 - torch.clamp(-cos_theta, 0.0, 1.0)
+    schl = r0 + (1.0 - r0) * om * om * om * om * om
+    shift = torch.where(~inner, refrv * schl, zero)
+    refr_c = refrv - shift
+    refl_c = reflv + shift
+    refl_c = torch.where(tir, torch.ones_like(refl_c), torch.where(inner, zero, refl_c))
+
+    # Grazing-reflection lift.
+    inner3 = inner[:, None]
+    n_in = torch.where(inner3, -n, n)  # toward the incident side
+    mirror = d - (2.0 * cos_theta)[:, None] * n
+    n2ir = _norm3(_cross3(n_in, d), 1e-20)
+    n2n = _norm3(_cross3(n2ir, n_in), 1e-20)
+    s = torch.where(inner, srfr, srfl)
+    inv = 1.0 / torch.sqrt(1.0 + s * s)
+    max_refl = (s * inv)[:, None] * n_in + inv[:, None] * n2n
+    lift = _dot3(mirror, n_in) <= _dot3(max_refl, n_in)
+    rbase = torch.where((lift & ~inner)[:, None], max_refl, mirror)
+    rd = _fibonacci_hemisphere_k(sidx, spp, srfl, rbase, trig)
+    rd = torch.where((tir & inner)[:, None], rbase, rd)
+    bounced1 = bounced + 1.0
+    depth_ok = bounced1 < float(max_bounces)
+    spawn_refl = hit & depth_ok & (~inner | tir) & (contrib * refl_c > 0.0)
+
+    # Refraction; n2 is the opposite of n_in.
+    n2 = -n_in
+    xc = d - n2 * cos_theta[:, None]
+    sq = torch.sqrt(torch.clamp_min(1.0 - ratio_sin * ratio_sin, 0.0))
+    fbase = _norm3(ratio_sin[:, None] * n2 + sq[:, None] * xc, 1e-20)
+    fd = _fibonacci_hemisphere_k(sidx, spp, srfr, fbase, trig)
+    spawn_refr = hit & depth_ok & ~tir & (contrib * refr_c > 0.0)
+
+    add = torch.where(missed, contrib, zero)[:, None] * bg
+    hit_c = torch.where(hit, contrib * contrib, zero)
+    add = add + hit_c[:, None] * rows[:, FT_CR:FT_CB + 1]
+    hit_t = torch.where(hit, t_best, torch.full_like(t_best, t_max))
+    return Shaded(
+        add=add, hit_t=hit_t,
+        refr_o=p + 1e-4 * n2, refr_d=fd, refr_contrib=contrib * refr_c,
+        refl_o=p - 1e-4 * n2, refl_d=rd, refl_contrib=contrib * refl_c,
         spawn_refr=spawn_refr, spawn_refl=spawn_refl, bounced=bounced1,
+        refr_medium=target, refr_parent=torch.where(inner, torch.ones_like(medium), medium),
+        refl_medium=medium, refl_parent=parent,
     )
 
 

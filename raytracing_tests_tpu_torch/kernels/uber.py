@@ -3,10 +3,21 @@
 Counterpart of the JAX package's ``kernels/uber.py``.  Per primary ``p``
 (pixel ``p // spp``, sample ``p % spp``) the camera ray is generated in the
 kernel (fov basis + sunflower thin-lens DOF), then its ray tree is walked with
-a LIFO stack of ``Q`` records — nearest hit, winner re-solve, surrounding-RI
-probe, shading, children — the reflection child continuing in place and the
-refraction child waiting on the stack, under a budget of ``cfg.pops`` nodes
-per primary and the queue renderer's overflow drop order.
+a LIFO stack of ``Q`` records — nearest hit, winner re-solve, shading,
+children — one child continuing in place and the other waiting on the stack,
+in each shading model's push/pop order, under a budget of ``cfg.pops`` nodes
+per primary and the queue renderer's overflow drop order:
+
+  - ``shading="bvh"`` (In-Next-Week): surrounding-RI probe, reflection in
+    place, refraction stacked; records of 8 floats (o, d, contribution,
+    bounce count);
+  - with emissive ``lights``: the same, plus one shadow ray per light from
+    every hit (its contribution scaled by the share of lights it sees), a
+    black background, and a hit on an emissive object paints the sample
+    white and drops the rest of its tree;
+  - ``shading="materials"`` (Shirley materials): refraction in place,
+    reflection stacked; records of 10 floats (+ the medium RI and the
+    parent's), no contribution cutoff, so only the pops budget bounds a tree.
 
 The kernel is hand-written CUDA (``csrc/uber.cu``); ``uber_render_plain`` is
 the same function in plain PyTorch without the scheduling: all ``B``
@@ -17,10 +28,13 @@ probe, shade and the in-place-child / stack step.  The wrapper ``uber_render``
 uses the plain version only when the tables lie on the CPU; on CUDA tensors it
 launches the kernel or raises.
 
-The kernel has four instantiations, picked by the accel: sphere-mode scenes
-(``sweep2.Accel2``) and generic scenes (``sweep2g.Accel2G``), each static or,
-for an accel built with ``has_motion``, with motion blur (a primary's sample
-``s`` fixes its tree's time, ``omt = 1 - s / spp``).
+The kernel has twelve instantiations: sphere-mode scenes (``sweep2.Accel2``)
+and generic scenes (``sweep2g.Accel2G``), each static or, for an accel built
+with ``has_motion``, with motion blur (a primary's sample ``s`` fixes its
+tree's time, ``omt = 1 - s / spp``), each under 'bvh' shading, 'bvh' shading
+with lights, or materials shading (``launch_name``).  Each thread's stack
+lives in a scratch buffer the wrapper allocates for the threads the launch
+keeps resident, so any ``Q`` is taken.
 
 A warp of the kernel sweeps every culling group together: per lane where at
 least ``COOP_MIN[accel.mode]`` of its lanes entered the group, row-parallel
@@ -29,8 +43,8 @@ schedules give the same result; ``_forced_coop_min`` (``_build.forced_coop_min``
 pins one for tests.  The wrapper hands the kernel each group's last live row + 1
 (``sweep2.live_rows``, computed once per accel), so rows past it are never read.
 
-Scope so far: 'bvh' shading, perspective camera with one focus distance, no
-lights, textures or ``aa_grid``.
+Scope so far: perspective camera with one focus distance, no textures or
+``aa_grid``.
 """
 
 from __future__ import annotations
@@ -42,7 +56,7 @@ import torch
 
 from raytracing_tests_tpu_torch.kernels import _build
 from raytracing_tests_tpu_torch.kernels.mega import (
-    GOLDEN_ANGLE, _cross_up, _shade_hits, sunflower_statics,
+    GOLDEN_ANGLE, _cross_up, _shade_hits, _shade_materials_k, sunflower_statics,
 )
 from raytracing_tests_tpu_torch.kernels.sweep2 import (
     PROBE_GR, _check_tensor, _dot3, _sweep_plain, check_accel, live_rows, make_accel2,
@@ -65,16 +79,22 @@ CAM_LEN = 24  # padded
 
 # Host parameter vectors of csrc/uber.cu (IP_* / FP_* there).
 _IP = ("W", "H", "spp", "Q", "pops", "has_dielectrics", "n_groups", "gr",
-       "n_pgroups", "probe_gr", "generic", "n_sgroups", "has_motion", "coop_min")
+       "n_pgroups", "probe_gr", "generic", "n_sgroups", "has_motion", "coop_min",
+       "shading", "n_lights")
+# The shading codes of csrc/uber.cu (SH_* there), and the floats per stacked
+# record each takes.
+SHADING_CODE = {"bvh": 0, "lights": 1, "materials": 2}
+REC = {"bvh": 8, "lights": 8, "materials": 10}
 # Frame counters of csrc/uber.cu (ST_* there).  ST_SPHERE_TESTS: sphere
 # quadratics solved; the next three are counted in generic mode only: slab
 # tests, live rows tested in groups of another kind than 's', nodes that hit.
-# The last three measure the warp sweeps: rows each lane's own walk needed,
+# The next three measure the warp sweeps: rows each lane's own walk needed,
 # 32 x the row iterations the warps issued (SIMT efficiency = ST_ROW_TESTS /
-# ST_LANE_SLOTS), group visits served row-parallel.  The plain version fills
-# none of the last six.
+# ST_LANE_SLOTS), group visits served row-parallel.  ST_SHADOW_RAYS: shadow
+# rays swept (lights only; their rows are in the sweep counters too).  The
+# plain version fills none of the last seven.
 (ST_NEXT, ST_RAYS, ST_DROPPED, ST_SPHERE_TESTS, ST_SLAB_TESTS, ST_OTHER_TESTS,
- ST_HITS, ST_ROW_TESTS, ST_LANE_SLOTS, ST_COOP_VISITS, ST_LEN) = range(11)
+ ST_HITS, ST_ROW_TESTS, ST_LANE_SLOTS, ST_COOP_VISITS, ST_SHADOW_RAYS, ST_LEN) = range(12)
 
 # A culling group that fewer than this many lanes of a warp entered is swept
 # row-parallel, by accel mode (the fastest of 1..33 on the headline and the
@@ -84,6 +104,10 @@ COOP_MIN = {"spheres": 12, "generic": 8}
 _forced_coop_min = _build.forced_coop_min
 
 _PLAIN_CHUNK = 1 << 20  # primaries per batch of the plain version
+
+# (library, device, mode, motion, shading, B) -> the threads a launch keeps
+# resident (rt_uber_threads: an occupancy query, asked once per key)
+_THREADS: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,19 +124,49 @@ class UberStatics:
     has_dielectrics: bool
     bg_bottom: tuple
     bg_top: tuple
+    shading: str = "bvh"  # 'bvh' | 'materials'
+    n_lights: int = 0  # rows of the pack_lights table ('bvh' only)
 
     @classmethod
-    def from_cfg(cls, cfg) -> "UberStatics":
+    def from_cfg(cls, cfg, n_lights: int = 0) -> "UberStatics":
+        """The frame's statics; a scene with lights has a black background."""
+        bg = ((0.0, 0.0, 0.0),) * 2 if n_lights else cfg.background
         return cls(W=cfg.width, H=cfg.height, spp=cfg.spp,
                    Q=cfg.queue_capacity, pops=cfg.pops,
                    max_bounces=cfg.max_bounces, t_max=cfg.t_max,
                    has_dielectrics=cfg.has_dielectrics,
-                   bg_bottom=tuple(cfg.background[0]),
-                   bg_top=tuple(cfg.background[1]))
+                   bg_bottom=tuple(bg[0]), bg_top=tuple(bg[1]),
+                   shading=cfg.shading, n_lights=n_lights)
 
     @property
     def B(self) -> int:
         return self.W * self.H * self.spp
+
+    @property
+    def model(self) -> str:
+        """'bvh', 'lights' or 'materials': the instantiation's shading."""
+        return "lights" if self.n_lights else self.shading
+
+
+def pack_lights(lights):
+    """``ops.render.Lights`` -> ((n_lights, 8) f32 rows [bb_min xyz, bb_max
+    xyz, diagonal, 0] on the lights' device, n_lights); the masked-out rows
+    are dropped; ``(None, 0)`` for no lights.  Computed once per Lights and
+    kept on it, renewed when one of its tensors is replaced or written in
+    place."""
+    if lights is None:
+        return None, 0
+    key = tuple((t.data_ptr(), t._version) for t in (lights.mask, lights.bb_min, lights.bb_max))
+    memo = lights.__dict__.get("_packed")
+    if memo is None or memo[0] != key:
+        idx = torch.nonzero(lights.mask)[:, 0]
+        mn, mx = lights.bb_min[idx], lights.bb_max[idx]
+        rows = torch.zeros((idx.shape[0], 8), dtype=torch.float32, device=mn.device)
+        rows[:, 0:3] = mn
+        rows[:, 3:6] = mx
+        rows[:, 6] = torch.sqrt(torch.sum((mx - mn) ** 2, dim=1))
+        memo = lights.__dict__["_packed"] = (key, (rows, int(idx.shape[0])) if len(idx) else (None, 0))
+    return memo[1]
 
 
 def pack_camera(camera, row_stride=1.0, row0=0.0):
@@ -181,14 +235,16 @@ def _raygen(cam, st: UberStatics, p):
     return tip - dd, dd, sf, (cth, sth)
 
 
-def uber_render_plain(accel, cam, st: UberStatics):
+def uber_render_plain(accel, cam, st: UberStatics, lights=None):
     """Plain PyTorch version of the persistent kernel.
 
     Returns ``(out (B, 4) f32, stats (ST_LEN,) i64)``: per primary r, g, b and
     the primary hit distance in p-linear order, and the frame counters.  Trees
     are independent, so the frame is walked in ranges of ``_PLAIN_CHUNK``
-    primaries that bound memory; this is not scheduling."""
-    parts = [_plain_range(accel, cam, st, p0, min(_PLAIN_CHUNK, st.B - p0))
+    primaries that bound memory; this is not scheduling.  ``lights``: the
+    ``pack_lights`` rows of ``st.n_lights`` lights."""
+    _check_lights(lights, st, accel.device)
+    parts = [_plain_range(accel, cam, st, p0, min(_PLAIN_CHUNK, st.B - p0), lights)
              for p0 in range(0, st.B, _PLAIN_CHUNK)]
     out = torch.cat([o for o, _, _ in parts]) if len(parts) > 1 else parts[0][0]
     stats = torch.zeros(ST_LEN, dtype=torch.int64, device=accel.device)
@@ -198,19 +254,22 @@ def uber_render_plain(accel, cam, st: UberStatics):
     return out, stats
 
 
-def _plain_range(accel, cam, st: UberStatics, p0: int, B: int):
+def _plain_range(accel, cam, st: UberStatics, p0: int, B: int, lights=None):
     """The trees of primaries ``p0 .. p0 + B`` as one batch ->
     (out (B, 4), rays, dropped)."""
     dev = accel.device
     Q = st.Q
     f32 = torch.float32
+    materials = st.shading == "materials"
     p = torch.arange(p0, p0 + B, dtype=torch.int64, device=dev)
     o, d, sidx, trig = _raygen(cam, st, p)
     contrib = torch.ones(B, dtype=f32, device=dev)
     bounced = torch.zeros(B, dtype=f32, device=dev)
+    medium = torch.ones(B, dtype=f32, device=dev)  # materials only
+    parent = torch.ones(B, dtype=f32, device=dev)
     act = torch.ones(B, dtype=torch.bool, device=dev)
     qs = torch.zeros(B, dtype=torch.int64, device=dev)
-    stack = torch.zeros((B, max(Q, 1), 8), dtype=f32, device=dev)
+    stack = torch.zeros((B, max(Q, 1), REC[st.model]), dtype=f32, device=dev)
     acc = torch.zeros((B, 3), dtype=f32, device=dev)
     acc_t = torch.full((B,), st.t_max, dtype=f32, device=dev)
     tlim = torch.full((B,), st.t_max, dtype=f32, device=dev)
@@ -232,45 +291,60 @@ def _plain_range(accel, cam, st: UberStatics, p0: int, B: int):
         hit = (obj >= 0) & act
         tt = ((d[:, 1] + 1.0) * 0.5)[:, None]
         bg = (1.0 - tt) * bottom + tt * top
-        sh = _shade_hits(
-            accel, o, d, contrib, bounced, act, sidx, t_best, obj, hit, bg,
-            has_dielectrics=st.has_dielectrics, spp=st.spp,
-            max_bounces=st.max_bounces, t_max=st.t_max, trig=trig, omt=omt)
+        kw = dict(spp=st.spp, max_bounces=st.max_bounces, t_max=st.t_max, trig=trig, omt=omt)
+        if materials:
+            sh = _shade_materials_k(accel, o, d, contrib, bounced, act, sidx, t_best, obj,
+                                    hit, bg, medium, parent, **kw)
+        else:
+            sh = _shade_hits(accel, o, d, contrib, bounced, act, sidx, t_best, obj, hit,
+                             bg, has_dielectrics=st.has_dielectrics, lights=lights, **kw)
         primary = act & (bounced == 0.0)
         acc = acc + sh.add  # zero on finished lanes
+        # Emissive abort: the sample becomes white and its tree ends.
+        white = torch.zeros_like(act) if sh.white is None else sh.white & act
+        acc = torch.where(white[:, None], torch.ones_like(acc), acc)
         acc_t = torch.where(primary, sh.hit_t, acc_t)
         n_rays += int(act.sum())  # every processed node, misses included
 
-        # One child continues in place (reflection), the other waits on the
-        # stack (refraction) — the queue renderer's push/pop order.
+        # One child continues in place, the other waits on the stack — the
+        # queue renderer's push/pop order: reflection in place under 'bvh',
+        # refraction in place under materials shading.
+        refr_rec = [sh.refr_o, sh.refr_d, sh.refr_contrib[:, None], sh.bounced[:, None]]
+        refl_rec = [sh.refl_o, sh.refl_d, sh.refl_contrib[:, None], sh.bounced[:, None]]
+        cur = [o, d, contrib[:, None], bounced[:, None]]
+        if materials:
+            refr_rec += [sh.refr_medium[:, None], sh.refr_parent[:, None]]
+            refl_rec += [sh.refl_medium[:, None], sh.refl_parent[:, None]]
+            cur += [medium[:, None], parent[:, None]]
+        refr_rec, refl_rec = torch.cat(refr_rec, dim=1), torch.cat(refl_rec, dim=1)
+        if materials:
+            in_rec, q_rec, sp_in, sp_q = refr_rec, refl_rec, sh.spawn_refr, sh.spawn_refl
+        else:
+            in_rec, q_rec, sp_in, sp_q = refl_rec, refr_rec, sh.spawn_refl, sh.spawn_refr
         push = sh.spawn_refl & sh.spawn_refr & act
         canq = qs < Q
         do_push = push & canq
         overflow = push & ~canq
         n_drop += int(overflow.sum())
-        refr_rec = torch.cat([sh.refr_o, sh.refr_d, sh.refr_contrib[:, None],
-                              sh.bounced[:, None]], dim=1)
-        refl_rec = torch.cat([sh.refl_o, sh.refl_d, sh.refl_contrib[:, None],
-                              sh.bounced[:, None]], dim=1)
         pl = lanes[do_push]
-        stack[pl, qs[pl]] = refr_rec[pl]
+        stack[pl, qs[pl]] = q_rec[pl]
         qs = qs + do_push.to(torch.int64)
-        # Per-primary node budget: the tree dies, stacked siblings drop.
-        kill = act if cnt >= st.pops else torch.zeros_like(act)
+        # Per-primary node budget, and the emissive abort: the tree dies,
+        # stacked siblings drop.
+        kill = white | (act if cnt >= st.pops else torch.zeros_like(act))
         qs = torch.where(kill, torch.zeros_like(qs), qs)
         need_pop = act & ~sh.spawn_refl & ~sh.spawn_refr & ~kill
         do_pop = need_pop & (qs > 0)
         pop_rec = stack[lanes, torch.clamp_min(qs - 1, 0)]
         qs = qs - do_pop.to(torch.int64)
-        # On overflow the stacked-preference child (refraction) survives.
-        take_refl = (sh.spawn_refl & ~overflow)[:, None]
-        take_refr = (sh.spawn_refr | overflow)[:, None]
-        chosen = torch.where(take_refl, refl_rec,
-                             torch.where(take_refr, refr_rec, pop_rec))
+        # On overflow the stacked-preference child survives.
+        chosen = torch.where((sp_in & ~overflow)[:, None], in_rec,
+                             torch.where((sp_q | overflow)[:, None], q_rec, pop_rec))
         keep = ~act[:, None]  # finished lanes hold their last record
-        cur = torch.cat([o, d, contrib[:, None], bounced[:, None]], dim=1)
-        cur = torch.where(keep, cur, chosen)
+        cur = torch.where(keep, torch.cat(cur, dim=1), chosen)
         o, d, contrib, bounced = cur[:, 0:3], cur[:, 3:6], cur[:, 6], cur[:, 7]
+        if materials:
+            medium, parent = cur[:, 8], cur[:, 9]
         act = act & (sh.spawn_refl | sh.spawn_refr | do_pop) & ~kill
 
     return torch.cat([acc, acc_t[:, None]], dim=1), n_rays, n_drop
@@ -281,17 +355,16 @@ def _plain_range(accel, cam, st: UberStatics, p0: int, B: int):
 # ---------------------------------------------------------------------------
 
 
-def _uber_fn():
+def _uber_lib():
     lib = _build.load("uber")
-    fn = lib.rt_uber_render
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, ctypes.POINTER(ctypes.c_int),
-                       ctypes.POINTER(ctypes.c_float), ctypes.c_longlong, p, p, p]
-        fn.restype = ctypes.c_int
-        lib.rt_uber_max_q.argtypes = []
-        lib.rt_uber_max_q.restype = ctypes.c_int
-    return fn, lib.rt_uber_max_q()
+    if lib.rt_uber_render.argtypes is None:
+        p, ip = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)
+        lib.rt_uber_render.argtypes = [p, p, p, p, p, p, ip, ctypes.POINTER(ctypes.c_float),
+                                       ctypes.c_longlong, p, p, p, ctypes.c_longlong, p]
+        lib.rt_uber_render.restype = ctypes.c_int
+        lib.rt_uber_threads.argtypes = [ip, ctypes.c_longlong]
+        lib.rt_uber_threads.restype = ctypes.c_longlong
+    return lib
 
 
 def _host_params(accel, st: UberStatics):
@@ -303,59 +376,88 @@ def _host_params(accel, st: UberStatics):
                 generic=int(accel.mode == "generic"),
                 n_sgroups=getattr(accel, "n_sgroups", 0),
                 has_motion=int(accel.has_motion),
-                coop_min=_build.coop_min(COOP_MIN[accel.mode]))
+                coop_min=_build.coop_min(COOP_MIN[accel.mode]),
+                shading=SHADING_CODE[st.model], n_lights=st.n_lights)
     ip = (ctypes.c_int * len(_IP))(*[ints[k] for k in _IP])
     floats = [st.t_max, GOLDEN_ANGLE, 1.0 / st.W, 1.0 / st.H, st.W / st.H,
               n, n - b, denom, 1.0 / denom, float(st.max_bounces),
-              *st.bg_bottom, *st.bg_top]
+              *st.bg_bottom, *st.bg_top, 1.0 / st.spp, 1.0 / max(st.n_lights, 1)]
     fp = (ctypes.c_float * len(floats))(*floats)
     return ip, fp
 
 
-def _launch_uber(accel, cam, st: UberStatics):
-    """Check the arguments and launch ``csrc/uber.cu`` -> (out, stats)."""
+def _check_lights(lights, st: UberStatics, dev):
+    if st.n_lights and st.shading != "bvh":
+        raise ValueError("materials shading takes no emissive lights")
+    if st.n_lights:
+        _check_tensor("lights", lights, torch.float32, (st.n_lights, 8), dev)
+    elif lights is not None:
+        raise ValueError("lights given, but the statics count none")
+
+
+def _launch_uber(accel, cam, st: UberStatics, lights=None):
+    """Check the arguments and launch ``csrc/uber.cu`` -> (out, stats).  The
+    per-thread stacks are a scratch buffer of ``Q`` records for each thread
+    the launch keeps resident (``rt_uber_threads``)."""
     dev = accel.device
     generic = accel.mode == "generic"
     (check_accel_g if generic else check_accel)(accel, dev)
     _check_tensor("cam", cam, torch.float32, (CAM_LEN,), dev)
+    _check_lights(lights, st, dev)
     _build.check_device(dev)
-    fn, max_q = _uber_fn()
-    if st.Q > max_q:
-        raise ValueError(f"queue capacity {st.Q} exceeds the kernel's stack of {max_q}")
+    lib = _uber_lib()
     ip, fp = _host_params(accel, st)
     live = live_rows(accel)
     out = torch.empty((st.B, 4), dtype=torch.float32, device=dev)
     stats = torch.zeros(ST_LEN, dtype=torch.int64, device=dev)
-    code = fn(accel.otab.data_ptr(), accel.ftab.data_ptr(),
-              accel.gaabb.data_ptr(), live.data_ptr(), cam.data_ptr(), ip, fp,
-              st.B, out.data_ptr(), stats.data_ptr(), _build.stream_of(dev))
+    key = (id(lib), dev.index, accel.mode, accel.has_motion, st.model, st.B)
+    threads = _THREADS.get(key)
+    if threads is None:
+        threads = lib.rt_uber_threads(ip, st.B)
+        if threads < 0:
+            _build.check(-threads, "rt_uber_threads")
+        threads = _THREADS[key] = threads
+    stack = torch.empty(max(threads * st.Q * REC[st.model], 1), dtype=torch.float32,
+                        device=dev)
+    code = lib.rt_uber_render(
+        accel.otab.data_ptr(), accel.ftab.data_ptr(), accel.gaabb.data_ptr(),
+        live.data_ptr(), cam.data_ptr(), None if lights is None else lights.data_ptr(),
+        ip, fp, st.B, out.data_ptr(), stats.data_ptr(), stack.data_ptr(), threads,
+        _build.stream_of(dev))
     _build.check(code, "rt_uber_render")
-    _build.LAUNCHES[launch_name(accel)] += 1
+    _build.LAUNCHES[launch_name(accel, st.model)] += 1
     return out, stats
 
 
-def launch_name(accel) -> str:
-    """The launch counter of the instantiation that ``accel`` selects:
-    ``uber`` / ``uber_g`` (sphere / generic), ``_m`` appended with motion."""
+def launch_name(accel, model: str = "bvh") -> str:
+    """The launch counter of the instantiation that ``accel`` and the
+    shading ``model`` (``UberStatics.model``) select: ``uber`` / ``uber_g``
+    (sphere / generic), ``_m`` appended with motion, then ``_lt`` with lights
+    or ``_mat`` under materials shading."""
     name = "uber_g" if accel.mode == "generic" else "uber"
-    return name + "_m" if accel.has_motion else name
+    name = name + "_m" if accel.has_motion else name
+    return name + {"bvh": "", "lights": "_lt", "materials": "_mat"}[model]
 
 
-def uber_render(accel, cam, st: UberStatics):
+def uber_render(accel, cam, st: UberStatics, lights=None):
     """The whole frame: ``(out (B, 4) f32, stats (ST_LEN,) i64)``.
 
     Tables on the CPU go through ``uber_render_plain``; on CUDA the kernel of
     ``csrc/uber.cu`` is launched on the current stream (or this raises), in
-    the instantiation the accel selects (counted under ``launch_name``)."""
+    the instantiation the accel and the statics select (counted under
+    ``launch_name``).  ``lights``: ``pack_lights`` rows, ``st.n_lights`` of
+    them."""
     dev = accel.device
     if cam.device != dev:
         raise ValueError(f"cam on {cam.device}, accel on {dev}")
     if min(st.W, st.H, st.spp, st.pops) < 1 or st.Q < 0:
         raise ValueError(f"bad frame statics: {st}")
+    if st.shading not in ("bvh", "materials"):
+        raise ValueError(f"unknown shading {st.shading!r}")
     if dev.type == "cpu":
-        return uber_render_plain(accel, cam, st)
+        return uber_render_plain(accel, cam, st, lights)
     with torch.cuda.device(dev):
-        return _launch_uber(accel, cam, st)
+        return _launch_uber(accel, cam, st, lights)
 
 
 # ---------------------------------------------------------------------------
@@ -398,24 +500,29 @@ def render_uber(scene, camera, cfg, lights=None, gr: int = 32, qcap=None,
     dict(image, depth, rays, rays_dropped).
 
     ``qcap`` overrides ``cfg.queue_capacity`` for the per-tree LIFO stack;
-    ``rays_dropped`` reports any overflow honestly.  ``device=None`` means
-    CUDA (raises when absent); ``device="cpu"`` runs the plain version."""
+    ``rays_dropped`` reports any overflow honestly.  ``lights``
+    (``ops.render.Lights``, from ``extract_lights``) adds the emissive
+    lights; materials shading takes none.  ``device=None`` means CUDA (raises
+    when absent); ``device="cpu"`` runs the plain version."""
     dev = resolve_device(device)
     if qcap is not None and qcap != cfg.queue_capacity:
         cfg = dataclasses.replace(cfg, queue_capacity=qcap)
-    if cfg.shading != "bvh":
-        raise NotImplementedError(f"shading={cfg.shading!r} is not ported yet")
-    if lights is not None:
-        raise NotImplementedError("emissive lights are not ported yet")
+    if cfg.shading not in ("bvh", "materials"):
+        raise ValueError(f"unknown shading {cfg.shading!r}")
+    if cfg.shading == "materials" and lights is not None:
+        raise ValueError("materials shading takes no emissive lights")
     if scene.textures is not None:
         raise NotImplementedError("textures are not ported yet")
     _camera_statics(camera, cfg)
     scene, camera = scene.to(dev), camera.to(dev)
+    if lights is not None and lights.bb_min.device != dev:
+        lights = lights.to(dev)  # a Lights already there keeps its packed rows
+    lts, n_lights = pack_lights(lights)
     # Small scenes: clamp the group size to the capacity — a 3-object scene
     # at gr=64 would sweep 64 rows of which 61 are dead padding.
     gr = min(gr, max(8, -(-scene.capacity // 8) * 8))
     accel, cam = _scene_accel(scene, camera, cfg, gr)
-    out, stats = uber_render(accel, cam, UberStatics.from_cfg(cfg))
+    out, stats = uber_render(accel, cam, UberStatics.from_cfg(cfg, n_lights), lts)
     return _uber_post(out, stats, cfg)
 
 

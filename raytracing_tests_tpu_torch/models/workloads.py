@@ -4,8 +4,10 @@
 |---------------|-----------------------------------------------------|
 | sphere        | IOW-01 Adding Sphere                                |
 | groups        | IOW-02 Groups                                       |
+| materials     | IOW-03 Shadows and Materials                        |
 | motion-blur   | INW-00 Motion Blur                                  |
 | bvh           | INW-01 Bounding Volume Hierarchy                    |
+| lights        | INW-04 Lights, Camera and Action                    |
 | iow-final     | the In-One-Weekend cover scene (the headline frame) |
 """
 
@@ -14,12 +16,13 @@ from __future__ import annotations
 from typing import Optional
 
 from raytracing_tests_tpu_torch.models.registry import register
-from raytracing_tests_tpu_torch.ops.render import RenderConfig, render
+from raytracing_tests_tpu_torch.ops.render import RenderConfig, extract_lights, render
 from raytracing_tests_tpu_torch.scene import examples
 
 
-def _rt_run(scene_fn, defaults: dict):
-    """Shared run function of the raytracing workloads."""
+def _rt_run(scene_fn, defaults: dict, lights: bool = False):
+    """Shared run function of the raytracing workloads; ``lights``: render
+    with the scene's emissive objects as lights."""
 
     def run(
         width: Optional[int] = None,
@@ -43,12 +46,13 @@ def _rt_run(scene_fn, defaults: dict):
             shading=defaults.get("shading", "bvh"),
         )
         cfg = cfg.for_scene(scene)
+        lt = extract_lights(scene) if lights else None
         if uber:
             from raytracing_tests_tpu_torch.kernels.uber import render_uber
 
-            out = render_uber(scene, camera, cfg, device=device)
+            out = render_uber(scene, camera, cfg, lt, device=device)
         else:
-            out = render(scene, camera, cfg, device=device)
+            out = render(scene, camera, cfg, lt, device=device)
         return dict(out, scene=scene, camera=camera, cfg=cfg)
 
     return run
@@ -67,6 +71,13 @@ register(
 )(_rt_run(examples.groups_scene, dict(spp=4)))
 
 register(
+    "materials",
+    "full Shirley materials: dielectric + metal + lambertian with DOF "
+    "(per-ray medium RI, Schlick shift, fibonacci scatter)",
+    reference="In-One-Weekend/03_Shadows_and_Materials",
+)(_rt_run(examples.materials_scene, dict(spp=16, max_bounces=5, shading="materials")))
+
+register(
     "motion-blur",
     "objects swept between two checkpoints, per-sample time lerp",
     reference="In-Next-Week/00_MotionBlur",
@@ -77,6 +88,12 @@ register(
     "grid of alternating ellipsoids / rotated cuboids through the grouped sweep",
     reference="In-Next-Week/01_BoundingVolumeHierarchy",
 )(_rt_run(examples.bvh_grid_scene, dict(spp=4, intersector="pallas")))
+
+register(
+    "lights",
+    "emissive Cornell-style scene with AABB-targeted shadow rays",
+    reference="In-Next-Week/04_Lights_Camera_And_Action",
+)(_rt_run(examples.lights_scene, dict(spp=8, max_bounces=4), lights=True))
 
 register(
     "iow-final",

@@ -11,13 +11,19 @@ Semantics reproduced:
     contribution by ``1 - 0.5 * (spawned fractions)``,
   - surrounding-refractive-index estimation by point-inclusion,
   - deterministic sunflower/cone sample distributions (no RNG),
+  - emissive lights: shadow rays toward a per-sample point of each light's
+    AABB scale a hit's contribution, a hit on an emissive object paints the
+    sample white, and the background is black,
+  - ``shading="materials"``: the Shirley-materials model with a per-ray
+    medium refractive index (``_shade_materials``),
   - per-sample gamma-2 then mean over samples.
 
-Ported so far: ``shading="bvh"`` without lights or textures, through the
-``brute`` intersector or the ``pallas`` intersector: the grouped sphere sweep
-``kernels.sweep2`` in sphere mode, the first-generation sweeps of
-``kernels.sweep`` for generic scenes (grouped by ``pallas_groups``, dense when
-that is 0) and for sphere scenes with ``pallas_v2=False``.
+Ported: ``shading="bvh"`` and ``"materials"``, with or without lights, no
+textures, through the ``brute`` intersector or the ``pallas`` intersector:
+the grouped sphere sweep ``kernels.sweep2`` in sphere mode, the
+first-generation sweeps of ``kernels.sweep`` for generic scenes (grouped by
+``pallas_groups``, dense when that is 0) and for sphere scenes with
+``pallas_v2=False``.
 """
 
 from __future__ import annotations
@@ -25,12 +31,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from raytracing_tests_tpu_torch.core import linalg, sampling
 from raytracing_tests_tpu_torch.ops import intersect as isect
 from raytracing_tests_tpu_torch.ops.camera_rays import primary_rays
-from raytracing_tests_tpu_torch.scene.types import Camera, Scene
+from raytracing_tests_tpu_torch.scene.types import Camera, Scene, _TensorStruct
 from raytracing_tests_tpu_torch.utils.device import resolve_device
 
 MAX_T_DEPTH = 32000.0
@@ -50,7 +57,9 @@ class RenderConfig:
     background: tuple = ((1.0, 1.0, 1.0), (0.3, 0.4, 1.0))  # bottom, top
     intersector: str = "brute"  # 'brute' | 'pallas' (the sweep kernels)
     # 'bvh': the In-Next-Week family shading (surrounding-RI estimation,
-    #        deviate-cone scatter, 0.5-forward damping).  The only one ported.
+    #        deviate-cone scatter, 0.5-forward damping).
+    # 'materials': the In-One-Weekend Shirley materials (per-ray medium RI,
+    #        Schlick shift, fibonacci-hemisphere scatter).
     shading: str = "bvh"
     lane_chunk: Optional[int] = None  # bound peak memory: lanes per step
     aa_grid: bool = False  # sub-pixel supersampling grid (not ported yet)
@@ -95,13 +104,53 @@ class RenderConfig:
         return self.max_pops if self.max_pops is not None else 2 * self.max_bounces + 1
 
 
-def _check_supported(cfg: RenderConfig, lights):
-    if cfg.shading != "bvh":
-        raise NotImplementedError(f"shading={cfg.shading!r} is not ported yet")
-    if lights is not None:
-        raise NotImplementedError("emissive lights are not ported yet")
+def _check_supported(cfg: RenderConfig):
+    if cfg.shading not in ("bvh", "materials"):
+        raise ValueError(f"unknown shading {cfg.shading!r}")
     if cfg.intersector not in ("brute", "pallas"):
         raise NotImplementedError(f"intersector={cfg.intersector!r} is not ported yet")
+
+
+@dataclasses.dataclass
+class Lights(_TensorStruct):
+    """Static-shape emissive-object list: each light's world AABB and object
+    index, padded to a capacity under ``mask``."""
+
+    bb_min: torch.Tensor  # (L, 3)
+    bb_max: torch.Tensor  # (L, 3)
+    geom_idx: torch.Tensor  # (L,) i32
+    mask: torch.Tensor  # (L,) bool
+
+    @property
+    def capacity(self) -> int:
+        return self.geom_idx.shape[0]
+
+    @property
+    def count(self):
+        return torch.sum(self.mask.to(torch.int32))
+
+
+def extract_lights(scene: Scene, capacity: Optional[int] = None) -> Optional[Lights]:
+    """Host-side: collect the emissive objects' AABBs into a padded Lights
+    (on the scene's device).  None when the scene has no emissives, which
+    disables the shadow rays."""
+    npy = lambda x: x.detach().cpu().numpy()
+    emissive = npy(scene.emissive) & npy(scene.valid)
+    idx = np.nonzero(emissive)[0]
+    if idx.size == 0:
+        return None
+    cap = max(capacity or int(idx.size), int(idx.size))
+    lo, hi = (npy(x) for x in scene.world_aabbs())
+    bb_min = np.zeros((cap, 3), np.float32)
+    bb_max = np.zeros((cap, 3), np.float32)
+    geom = np.zeros((cap,), np.int32)
+    mask = np.zeros((cap,), bool)
+    bb_min[: idx.size] = lo[idx]
+    bb_max[: idx.size] = hi[idx]
+    geom[: idx.size] = idx
+    mask[: idx.size] = True
+    t = lambda a: torch.from_numpy(a).to(scene.device)
+    return Lights(bb_min=t(bb_min), bb_max=t(bb_max), geom_idx=t(geom), mask=t(mask))
 
 
 # ----------------------------------------------------------------------------
@@ -115,24 +164,34 @@ class RayQueue:
     direction: torch.Tensor  # (B, Q, 3)
     contribution: torch.Tensor  # (B, Q)
     bounced: torch.Tensor  # (B, Q) i32
+    # Medium tracking of the materials model: the refractive index of the
+    # medium each queued ray travels in, and its parent's (a depth-2 medium
+    # stack).
+    medium: torch.Tensor  # (B, Q)
+    parent_medium: torch.Tensor  # (B, Q)
     size: torch.Tensor  # (B,) i64
 
     @classmethod
     def create(cls, batch: int, capacity: int, device):
         z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=device)
+        one = lambda *s: torch.ones(s, dtype=torch.float32, device=device)
         return cls(
             origin=z(batch, capacity, 3),
             direction=z(batch, capacity, 3),
             contribution=z(batch, capacity),
             bounced=z(batch, capacity, dt=torch.int32),
+            medium=one(batch, capacity),
+            parent_medium=one(batch, capacity),
             size=z(batch, dt=torch.int64),
         )
 
-    def push(self, mask, origin, direction, contribution, bounced):
+    def push(self, mask, origin, direction, contribution, bounced,
+             medium=None, parent_medium=None):
         """Conditional push at position ``size`` for lanes in ``mask``
         (updates the queue in place).  Returns the number of dropped pushes —
         pushes beyond capacity are dropped like the reference stack, but the
-        count is surfaced so renderers can report honest ray accounting."""
+        count is surfaced so renderers can report honest ray accounting.
+        ``medium`` / ``parent_medium`` default to air (1.0)."""
         q = self.origin.shape[1]
         can = mask & (self.size < q)
         n_dropped = int(torch.sum(mask & ~can))
@@ -142,22 +201,29 @@ class RayQueue:
         self.direction[lanes, slot] = direction[lanes]
         self.contribution[lanes, slot] = contribution[lanes]
         self.bounced[lanes, slot] = bounced[lanes]
+        self.medium[lanes, slot] = 1.0 if medium is None else medium[lanes]
+        self.parent_medium[lanes, slot] = 1.0 if parent_medium is None else parent_medium[lanes]
         self.size = self.size + can.to(torch.int64)
         return n_dropped
 
     def pop(self):
-        """LIFO pop; lanes with empty queues return zeros and active=False."""
+        """LIFO pop -> (active, o, d, contribution, bounced, medium,
+        parent_medium); lanes with empty queues return zeros and
+        active=False."""
         active = self.size > 0
         idx = torch.clamp_min(self.size - 1, 0)
         pick3 = lambda a: torch.gather(a, 1, idx[:, None, None].expand(-1, 1, 3))[:, 0]
-        pick1 = lambda a: torch.gather(a, 1, idx[:, None])[:, 0]
+        pick1 = lambda a: torch.where(active, torch.gather(a, 1, idx[:, None])[:, 0],
+                                      torch.zeros_like(a[:, 0]))
         a3 = active[:, None]
         o = torch.where(a3, pick3(self.origin), torch.zeros_like(self.origin[:, 0]))
         d = torch.where(a3, pick3(self.direction), torch.zeros_like(self.direction[:, 0]))
-        c = torch.where(active, pick1(self.contribution), torch.zeros_like(self.contribution[:, 0]))
-        b = torch.where(active, pick1(self.bounced), torch.zeros_like(self.bounced[:, 0]))
+        c = pick1(self.contribution)
+        b = pick1(self.bounced)
+        med = pick1(self.medium)
+        pmed = pick1(self.parent_medium)
         self.size = self.size - active.to(torch.int64)
-        return active, o, d, c, b
+        return active, o, d, c, b, med, pmed
 
 
 # ----------------------------------------------------------------------------
@@ -165,8 +231,11 @@ class RayQueue:
 # ----------------------------------------------------------------------------
 
 
-def _background(cfg: RenderConfig, direction):
-    """Sky gradient."""
+def _background(cfg: RenderConfig, direction, has_lights: bool):
+    """Sky gradient; black when the scene has lights."""
+    if has_lights:
+        return torch.zeros(direction.shape[:-1] + (3,), dtype=torch.float32,
+                           device=direction.device)
     bottom = torch.tensor(cfg.background[0], dtype=torch.float32, device=direction.device)
     top = torch.tensor(cfg.background[1], dtype=torch.float32, device=direction.device)
     t = (direction[..., 1:2] + 1.0) * 0.5
@@ -220,14 +289,42 @@ def _nearest_obj(scene, accel, o, d, time_ratio, t_limit):
     return isect.occluded_nearest_obj(scene, o, d, time_ratio, t_limit)
 
 
+def _shadow_factor(scene, lights: Lights, hit, normal, sample_ratio, time_ratio, accel=None):
+    """Fraction of lights visible from the hit point.
+
+    Each lane aims at a per-sample point inside each light's AABB; a light
+    counts as visible when the nearest occluder IS an emissive object.  The
+    light axis is batched into one flattened (L*B)-lane occlusion sweep;
+    masked lights carry zero directions."""
+    origin = hit + 1e-4 * normal
+    B = origin.shape[0]
+    Lc = lights.capacity
+    bb_min, bb_max = lights.bb_min, lights.bb_max  # (Lc, 3)
+    center = (bb_min + bb_max) * 0.5
+    target = bb_min[:, None, :] + (bb_max - bb_min)[:, None, :] * sample_ratio[None, :, None]
+    t_lim = (
+        torch.sqrt(torch.sum((center[:, None, :] - origin[None]) ** 2, dim=-1))
+        + torch.sqrt(torch.sum((bb_max - bb_min) ** 2, dim=-1))[:, None]
+    )  # (Lc, B)
+    d = linalg.normalize(target - origin[None]) * lights.mask[:, None, None]
+    o_f = origin[None].expand(Lc, B, 3).reshape(-1, 3)
+    tr_f = time_ratio[None].expand(Lc, B).reshape(-1)
+    nearest = _nearest_obj(scene, accel, o_f, d.reshape(-1, 3), tr_f, t_lim.reshape(-1))
+    lit = (scene.emissive[nearest.clamp_min(0).long()] & (nearest >= 0)).reshape(Lc, B)
+    is_lit = torch.sum(torch.where(lights.mask[:, None], lit.to(torch.float32),
+                                   torch.zeros((), device=lit.device)), dim=0)
+    return is_lit / torch.clamp_min(lights.count.to(torch.float32), 1.0)
+
+
 @dataclasses.dataclass
 class ShadeResult:
     """Everything one shading step produces for a batch of rays: color to
     accumulate, spawned child rays, and bookkeeping."""
 
     add_color: torch.Tensor  # (C, 3) contribution to accumulate
+    set_white: torch.Tensor  # (C,) emissive abort: the sample becomes white
     hit_t: torch.Tensor  # (C,) hit distance (t_max convention on miss)
-    did_hit: torch.Tensor  # (C,) bool
+    did_hit: torch.Tensor  # (C,) bool (after the emissive abort)
     missed: torch.Tensor  # (C,) bool
     # children, refraction first (push order; LIFO pops reflect 1st)
     refr_mask: torch.Tensor
@@ -239,17 +336,27 @@ class ShadeResult:
     refl_d: torch.Tensor
     refl_contrib: torch.Tensor
     bounced: torch.Tensor  # (C,) child bounce count
+    # Medium tracking (materials shading; 1.0 under 'bvh').
+    refr_medium: torch.Tensor
+    refr_parent: torch.Tensor
+    refl_medium: torch.Tensor
+    refl_parent: torch.Tensor
 
 
-def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, active, sample_idx, time_ratio):
+def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, active,
+               sample_idx, time_ratio, medium=None, parent_medium=None):
     """Intersect + shade one batch of rays (the path-tracer kernel body minus
-    stack plumbing)."""
-    _check_supported(cfg, lights)
+    stack plumbing).  ``medium`` / ``parent_medium`` (materials shading)
+    default to air."""
+    _check_supported(cfg)
     spp = cfg.spp
     B = o.shape[0]
+    ones = torch.ones(B, dtype=torch.float32, device=o.device)
+    medium = ones if medium is None else medium
+    parent_medium = ones if parent_medium is None else parent_medium
     t_limit = torch.full((B,), cfg.t_max, dtype=torch.float32, device=o.device)
     sur_ri_fused = None
-    needs_sur_ri = cfg.has_dielectrics
+    needs_sur_ri = cfg.has_dielectrics and cfg.shading != "materials"
     if _is_v2(accel):
         from raytracing_tests_tpu_torch.kernels.sweep2 import (
             intersect2_full, intersect2_fused,
@@ -279,7 +386,7 @@ def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, 
     missed = active & ~hit.hit
 
     # Miss -> background contribution.
-    bg = _background(cfg, d)
+    bg = _background(cfg, d, lights is not None)
     add_color = torch.where(missed[:, None], contrib[:, None] * bg, torch.zeros_like(bg))
 
     # --- hit shading ---------------------------------------------------------
@@ -302,6 +409,7 @@ def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, 
         reflectivity = scene.reflectivity[oi]
         scat_rfr = scene.scatter_refract[oi]
         scat_rfl = scene.scatter_reflect[oi]
+        emissive = scene.emissive[oi]
     else:  # grouped sweep: all fields from the winner's row
         mat_color = flds.color
         mat_ri = flds.refractive_index
@@ -309,8 +417,26 @@ def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, 
         reflectivity = flds.reflectivity
         scat_rfr = flds.scatter_refract
         scat_rfl = flds.scatter_reflect
+        emissive = flds.emissive
+
+    # Emissive abort: the sample becomes pure white.
+    set_white = torch.zeros(B, dtype=torch.bool, device=o.device)
+    if lights is not None:
+        set_white = did_hit & emissive
+        did_hit = did_hit & ~set_white
+        lit = _shadow_factor(scene, lights, hit_point, normal, sample_idx / spp,
+                             time_ratio, accel)
+        contrib = torch.where(did_hit, contrib * lit, contrib)
 
     bounced = bounced + 1
+
+    if cfg.shading == "materials":
+        return _shade_materials(
+            cfg, o, d, contrib, bounced, did_hit, missed, set_white, hit,
+            hit_point, normal, mat_color, mat_ri, refractivity, reflectivity,
+            scat_rfr, scat_rfl, medium, parent_medium, sample_idx, spp,
+            add_color,
+        )
 
     can_spawn = (
         ((reflectivity > 0.002) | (refractivity > 0.002))
@@ -367,6 +493,7 @@ def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, 
 
     return ShadeResult(
         add_color=add_color,
+        set_white=set_white,
         hit_t=torch.where(hit.hit, hit.t, torch.full_like(hit.t, cfg.t_max)),
         did_hit=did_hit,
         missed=missed,
@@ -379,29 +506,137 @@ def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, 
         refl_d=refl_dir,
         refl_contrib=refl_contrib,
         bounced=bounced,
+        refr_medium=ones,
+        refr_parent=ones,
+        refl_medium=ones,
+        refl_parent=ones,
+    )
+
+
+def _shade_materials(cfg, o, d, contrib, bounced, did_hit, missed, set_white,
+                     hit, hit_point, normal, mat_color, mat_ri, refractivity,
+                     reflectivity, scat_rfr, scat_rfl, medium, parent_medium,
+                     sample_idx, spp, add_color):
+    """The Shirley-materials spawn model:
+
+      - per-ray MEDIUM refractive index: an inner hit refracts toward the
+        popped ray's parent medium; (medium, parent_medium) per ray is a
+        depth-2 medium stack (grandparent media beyond depth 2 are air),
+      - Schlick reflectance shifts contribution from refraction to
+        reflection on outer hits,
+      - an outer hit always spawns a reflection, scattered on the fibonacci
+        hemisphere; refraction scatters likewise,
+      - total internal reflection turns the refraction into a
+        contribution-1.0 reflection along the mirror direction,
+      - the local absorption term is ``contribution^2 * albedo``,
+      - no 0.5-forward damping and no contribution cutoff (zero-contribution
+        children are skipped: they add exactly nothing).
+    """
+    cos_theta = linalg.dot(normal, d)  # > 0 <=> inner hit
+    inner_m = cos_theta > 0.0
+    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
+    target = torch.where(inner_m, parent_medium, mat_ri)
+    ratio = medium / torch.clamp_min(target, 1e-6)
+    ratio_sin = ratio * sin_theta
+    tir = ratio_sin > 1.0
+
+    zero = torch.zeros_like(contrib)
+    refr_c = refractivity
+    refl_c = reflectivity
+    # Outer: Schlick shift from refraction to reflection.
+    shift = torch.where(
+        ~inner_m, refr_c * linalg.schlick(torch.clamp(-cos_theta, 0.0, 1.0), ratio), zero)
+    refr_c = refr_c - shift
+    refl_c = refl_c + shift
+    # TIR: the refraction becomes a full-strength reflection.
+    refl_c = torch.where(tir, torch.ones_like(refl_c), torch.where(inner_m, zero, refl_c))
+
+    # Grazing-reflection lift: the mirror direction is raised to a minimum
+    # elevation set by the scatter.
+    inner3 = inner_m[:, None]
+    _normal = torch.where(inner3, -normal, normal)  # toward the incident side
+    refl_mirror = linalg.reflect(d, normal)
+    n2ir = linalg.normalize(linalg.cross(_normal, d), eps=1e-20)
+    n2n = linalg.normalize(linalg.cross(n2ir, _normal), eps=1e-20)
+    s = torch.where(inner_m, scat_rfr, scat_rfl)
+    inv = 1.0 / torch.sqrt(1.0 + s * s)
+    max_reflect = (s * inv)[:, None] * _normal + inv[:, None] * n2n
+    lift = linalg.dot(refl_mirror, _normal) <= linalg.dot(max_reflect, _normal)
+    refl_base = torch.where((lift & ~inner_m)[:, None], max_reflect, refl_mirror)
+
+    refl_dir = sampling.fibonacci_hemisphere(sample_idx, spp, scat_rfl, refl_base)
+    refl_dir = torch.where((tir & inner_m)[:, None], refl_base, refl_dir)
+    spawn_refl = did_hit & (bounced < cfg.max_bounces) & (~inner_m | tir)
+    spawn_refl = spawn_refl & (contrib * refl_c > 0.0)
+
+    # Refraction.
+    _n2 = torch.where(inner3, normal, -normal)
+    y_cap = _n2 * cos_theta[:, None]
+    x_cap = d - y_cap
+    refr_raw = (ratio_sin[:, None] * _n2
+                + torch.sqrt(torch.clamp_min(1.0 - ratio_sin * ratio_sin, 0.0))[:, None] * x_cap)
+    refr_base = linalg.normalize(refr_raw, eps=1e-20)
+    refr_dir = sampling.fibonacci_hemisphere(sample_idx, spp, scat_rfr, refr_base)
+    spawn_refr = did_hit & (bounced < cfg.max_bounces) & ~tir
+    spawn_refr = spawn_refr & (contrib * refr_c > 0.0)
+
+    # Local term: contribution^2 * albedo.
+    add_color = add_color + torch.where(
+        did_hit[:, None], (contrib * contrib)[:, None] * mat_color, torch.zeros_like(mat_color))
+
+    return ShadeResult(
+        add_color=add_color,
+        set_white=set_white,
+        hit_t=torch.where(hit.hit, hit.t, torch.full_like(hit.t, cfg.t_max)),
+        did_hit=did_hit,
+        missed=missed,
+        refr_mask=spawn_refr,
+        refr_o=hit_point + 1e-4 * _n2,
+        refr_d=refr_dir,
+        refr_contrib=contrib * refr_c,
+        refl_mask=spawn_refl,
+        refl_o=hit_point - 1e-4 * _n2,
+        refl_d=refl_dir,
+        refl_contrib=contrib * refl_c,
+        bounced=bounced,
+        refr_medium=target,
+        # Exiting beyond the tracked depth approximates grandparent = air.
+        refr_parent=torch.where(inner_m, torch.ones_like(medium), medium),
+        refl_medium=medium,
+        refl_parent=parent_medium,
     )
 
 
 def _process_pop(scene, lights, cfg: RenderConfig, queue, state, sample_idx, spp, time_ratio, accel=None):
     """One queue step: pop LIFO top of every lane, shade, push children.
     Returns ``(state, n_dropped)``; the queue is updated in place."""
-    color, depth, primary_t = state
-    active, o, d, contrib, bounced = queue.pop()
+    color, depth, done, primary_t = state
+    active, o, d, contrib, bounced, medium, parent_medium = queue.pop()
+    active = active & ~done
     is_primary = active & (bounced == 0)
 
     r = shade_rays(
         scene, lights, cfg, accel, o, d, contrib, bounced, active, sample_idx,
-        time_ratio,
+        time_ratio, medium, parent_medium,
     )
-    # Push refraction then reflection (LIFO pops reflect first).
-    d1 = queue.push(r.refr_mask, r.refr_o, r.refr_d, r.refr_contrib, r.bounced)
-    d2 = queue.push(r.refl_mask, r.refl_o, r.refl_d, r.refl_contrib, r.bounced)
+    if cfg.shading == "materials":
+        # Push reflection then refraction: LIFO pops the refraction first.
+        d1 = queue.push(r.refl_mask, r.refl_o, r.refl_d, r.refl_contrib, r.bounced,
+                        r.refl_medium, r.refl_parent)
+        d2 = queue.push(r.refr_mask, r.refr_o, r.refr_d, r.refr_contrib, r.bounced,
+                        r.refr_medium, r.refr_parent)
+    else:
+        # Push refraction then reflection (LIFO pops reflect first).
+        d1 = queue.push(r.refr_mask, r.refr_o, r.refr_d, r.refr_contrib, r.bounced)
+        d2 = queue.push(r.refl_mask, r.refl_o, r.refl_d, r.refl_contrib, r.bounced)
 
     color = color + r.add_color
+    color = torch.where(r.set_white[:, None], torch.ones_like(color), color)
+    done = done | r.set_white
     primary_t = torch.where(is_primary, r.hit_t, primary_t)
     depth = torch.where(r.missed, torch.full_like(depth, cfg.t_max), depth)
     depth = torch.where(r.did_hit, r.hit_t, depth)
-    return (color, depth, primary_t), d1 + d2
+    return (color, depth, done, primary_t), d1 + d2
 
 
 # ----------------------------------------------------------------------------
@@ -430,8 +665,10 @@ def trace_lanes(scene, lights, cfg: RenderConfig, o, d, time_ratio, sample_idx, 
     ``(color (B, 3), primary_t (B,), rays (int), dropped (int))``
     where ``rays`` counts the rays actually processed (active pops) — the
     honest rays/s numerator — and ``dropped`` counts children lost to the
-    fixed queue capacity."""
-    _check_supported(cfg, lights)
+    fixed queue capacity.  A lane whose sample turned white (emissive
+    abort) pops its remaining queue without shading it; those pops count as
+    rays, as the reference's do."""
+    _check_supported(cfg)
     B = o.shape[0]
     dev = o.device
     if accel is None and cfg.intersector != "brute":
@@ -445,6 +682,7 @@ def trace_lanes(scene, lights, cfg: RenderConfig, o, d, time_ratio, sample_idx, 
     state = (
         torch.zeros((B, 3), dtype=torch.float32, device=dev),  # accumulated color
         torch.full((B,), cfg.t_max, dtype=torch.float32, device=dev),  # last-written depth
+        torch.zeros((B,), dtype=torch.bool, device=dev),  # emissive abort
         torch.full((B,), cfg.t_max, dtype=torch.float32, device=dev),  # primary hit t
     )
 
@@ -460,7 +698,7 @@ def trace_lanes(scene, lights, cfg: RenderConfig, o, d, time_ratio, sample_idx, 
         )
         rays += n_active
         dropped += n_drop
-    color, _, primary_t = state
+    color, _, _, primary_t = state
     return color, primary_t, rays, dropped
 
 
@@ -499,9 +737,9 @@ def _trace_frame(scene, camera, cfg: RenderConfig, lights):
     return torch.cat(colors), torch.cat(ts), rays, dropped
 
 
-def _on_device(scene, camera, device):
+def _on_device(scene, camera, lights, device):
     dev = resolve_device(device)
-    return scene.to(dev), camera.to(dev)
+    return scene.to(dev), camera.to(dev), None if lights is None else lights.to(dev)
 
 
 def render_samples(scene, camera, cfg: RenderConfig, lights=None, device=None):
@@ -509,7 +747,7 @@ def render_samples(scene, camera, cfg: RenderConfig, lights=None, device=None):
 
     When ``cfg.lane_chunk`` is set, lanes are processed in fixed-size chunks
     so peak memory is bounded by chunk x objects."""
-    scene, camera = _on_device(scene, camera, device)
+    scene, camera, lights = _on_device(scene, camera, lights, device)
     H, W, S = cfg.height, cfg.width, cfg.spp
     color, primary_t, _, _ = _trace_frame(scene, camera, cfg, lights)
     return color.reshape(H, W, S, 3), primary_t.reshape(H, W, S)
@@ -521,7 +759,7 @@ def render_stats(scene, camera, cfg: RenderConfig, lights=None, device=None):
     i.e. primary + secondary rays; the honest numerator for Mrays/s).
 
     ``device=None`` means CUDA; pass ``device="cpu"`` to run on the CPU."""
-    scene, camera = _on_device(scene, camera, device)
+    scene, camera, lights = _on_device(scene, camera, lights, device)
     H, W, S = cfg.height, cfg.width, cfg.spp
     color, primary_t, rays, dropped = _trace_frame(scene, camera, cfg, lights)
     out = finalize(color.reshape(H, W, S, 3), primary_t.reshape(H, W, S), cfg)

@@ -10,9 +10,11 @@ Counterpart of the JAX package's ``ops/workqueue.py``:
     COALESCE into full chunks, so the sweep kernel sees full batches to the
     end of the frame.
 
-Same ray tree and shading as the queue renderer (``shade_rays``); summed
-radiance identical up to float32 ordering.  Rays are dropped only on pool
-overflow (capacity ~3.2x the primary count), and counted.
+Same ray tree and shading as the queue renderer (``shade_rays``), emissive
+lights included; summed radiance identical up to float32 ordering.  Rays are
+dropped only on pool overflow (capacity ~3.2x the primary count), and counted.
+Materials shading is refused: its records would need the medium stack the
+pool does not carry.
 """
 
 from __future__ import annotations
@@ -58,7 +60,8 @@ def _drain_queue(scene, accel, lights, pool_fields, pool_lane, write0: int,
                  cfg: RenderConfig, chunk: int, n_lanes: int, max_iters: int):
     """Drain the pool (``pool_fields`` (8, P) with the primaries in [:, :B],
     ``pool_lane`` (P,), both updated in place); returns
-    (rgb (3, B), primary_t (B,), rays, iters, dropped)."""
+    (rgb (3, B), primary_t (B,), rays, iters, dropped).  A lane whose sample
+    hit an emissive object ends white, whatever else its tree added."""
     C = chunk
     B = n_lanes
     P = pool_lane.shape[0]
@@ -66,6 +69,7 @@ def _drain_queue(scene, accel, lights, pool_fields, pool_lane, write0: int,
     f32 = torch.float32
 
     color = torch.zeros((3 * B,), dtype=f32, device=dev)  # flat rgb planes
+    white = torch.zeros((B,), dtype=torch.bool, device=dev)  # emissive abort
     primary_t = torch.full((B,), cfg.t_max, dtype=f32, device=dev)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     slot = torch.arange(C, device=dev)
@@ -92,6 +96,8 @@ def _drain_queue(scene, accel, lights, pool_fields, pool_lane, write0: int,
         add = r.add_color[active]
         color.index_add_(0, torch.cat([la, la + B, la + 2 * B]),
                          torch.cat([add[:, 0], add[:, 1], add[:, 2]]))
+        if lights is not None:
+            white[l[r.set_white].long()] = True
         is_primary = active & (bounced == 0)
         primary_t[l[is_primary].long()] = r.hit_t[is_primary]
 
@@ -118,7 +124,8 @@ def _drain_queue(scene, accel, lights, pool_fields, pool_lane, write0: int,
         rays = rays + torch.sum(active)
         read, write, it = read + avail, new_write, it + 1
 
-    return color.reshape(3, B), primary_t, rays, it, dropped
+    rgb = torch.where(white, torch.ones_like(color.reshape(3, B)), color.reshape(3, B))
+    return rgb, primary_t, rays, it, dropped
 
 
 def render_workqueue(scene, camera, cfg: RenderConfig, lights=None,
@@ -134,9 +141,8 @@ def render_workqueue(scene, camera, cfg: RenderConfig, lights=None,
         raise NotImplementedError(
             "workqueue pool records carry no medium stack; materials shading "
             "runs on the queue renderer (render_stats)")
-    if lights is not None:
-        raise NotImplementedError("emissive lights are not ported yet")
     scene, camera = scene.to(dev), camera.to(dev)
+    lights = None if lights is None else lights.to(dev)
     H, W, S = cfg.height, cfg.width, cfg.spp
     B = H * W * S
     accel = _build_accel(scene, cfg)

@@ -8,20 +8,23 @@ demo scenes:
                           is a thin huge cuboid — same image, no special-case
                           primitive).
   - ``groups_scene``      N-object mirror scene.
+  - ``materials_scene``   matte ground, glass, metal and matte spheres (the
+                          Shirley-materials demo).
   - ``motion_blur_scene`` two spheres swept between two checkpoints over a
                           ground sphere.
   - ``bvh_grid_scene``    grid of alternating ellipsoids / rotated cuboids.
+  - ``lights_scene``      Cornell-style box room lit by one emissive panel.
   - ``iow_final_scene``   the Ray Tracing in One Weekend cover scene
                           (~480 random spheres) — the headline frame.
 
-The textured, lights and materials scenes are not ported yet.
+The textured scenes are not ported yet.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from raytracing_tests_tpu_torch.scene.types import Camera, SceneBuilder
+from raytracing_tests_tpu_torch.scene.types import CUBOID, Camera, SceneBuilder
 
 
 def sphere_scene():
@@ -44,6 +47,23 @@ def groups_scene():
     b.add_box((0.0, 0.4, -6.5), (1.5, 1.5, 1.5), rotation_deg=(0.0, 45.0, 0.0),
               color=(0.9, 0.8, 0.2), reflectivity=0.9)
     cam = Camera.make((0.0, 0.6, 0.0), (0.0, -0.05, -1.0), fov_y_deg=70.0, focus_dist=4.0)
+    return b.build(), cam
+
+
+def materials_scene():
+    # The reference demo: a big matte ground sphere, a glass sphere, a metal
+    # sphere and a matte one.
+    b = SceneBuilder()
+    b.add_sphere((0.0, -100.5, -3.0), 100.0, color=(0.5, 0.7, 0.4),
+                 reflectivity=1.0, scatter_reflect=1.2)
+    b.add_sphere((0.0, 0.0, -3.0), 0.5, color=(0.9, 0.9, 0.9),
+                 refractive_index=1.5, refractivity=0.85, reflectivity=0.15)
+    b.add_sphere((1.1, 0.0, -3.2), 0.5, color=(0.8, 0.6, 0.2),
+                 reflectivity=0.95, scatter_reflect=0.15)
+    b.add_sphere((-1.1, 0.0, -3.2), 0.5, color=(0.7, 0.2, 0.2),
+                 reflectivity=1.0, scatter_reflect=1.0)
+    cam = Camera.make((0.0, 0.3, 0.5), (0.0, -0.08, -1.0), fov_y_deg=55.0,
+                      aperture=0.05, focus_dist=3.5)
     return b.build(), cam
 
 
@@ -82,6 +102,29 @@ def bvh_grid_scene(side: int = 8, spacing: float = 1.6):
     b.add_box((0.0, -101.0, -8.0), (400.0, 200.0, 400.0), color=(0.5, 0.5, 0.55),
               reflectivity=0.7, scatter_reflect=1.0)
     cam = Camera.make((0.0, 3.0, 2.0), (0.0, -0.45, -1.0), fov_y_deg=60.0, focus_dist=8.0)
+    return b.build(), cam
+
+
+def lights_scene():
+    """Cornell-style: gray box room, two spheres, one emissive ceiling panel."""
+    b = SceneBuilder()
+    # floor / ceiling / back / sides (thin cuboids)
+    b.add_box((0.0, -1.0, -4.0), (4.0, 0.1, 4.0), color=(0.75, 0.75, 0.75),
+              reflectivity=0.9, scatter_reflect=1.0)
+    b.add_box((0.0, 3.0, -4.0), (4.0, 0.1, 4.0), color=(0.75, 0.75, 0.75),
+              reflectivity=0.9, scatter_reflect=1.0)
+    b.add_box((0.0, 1.0, -6.0), (4.0, 4.0, 0.1), color=(0.75, 0.75, 0.75),
+              reflectivity=0.9, scatter_reflect=1.0)
+    b.add_box((-2.0, 1.0, -4.0), (0.1, 4.0, 4.0), color=(0.7, 0.2, 0.2),
+              reflectivity=0.9, scatter_reflect=1.0)
+    b.add_box((2.0, 1.0, -4.0), (0.1, 4.0, 4.0), color=(0.2, 0.7, 0.2),
+              reflectivity=0.9, scatter_reflect=1.0)
+    b.add_sphere((-0.7, -0.45, -4.3), 0.5, color=(0.9, 0.9, 0.9),
+                 reflectivity=0.95, scatter_reflect=0.4)
+    b.add_sphere((0.7, -0.45, -3.6), 0.5, color=(0.9, 0.8, 0.5),
+                 reflectivity=0.95, scatter_reflect=0.05)
+    b.add_light((0.0, 2.9, -4.0), (1.2, 0.08, 1.2), obj_type=CUBOID)
+    cam = Camera.make((0.0, 0.8, 0.4), (0.0, -0.05, -1.0), fov_y_deg=60.0, focus_dist=4.5)
     return b.build(), cam
 
 

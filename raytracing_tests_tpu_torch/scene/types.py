@@ -219,6 +219,9 @@ class SceneBuilder:
             **kw,
         )
 
+    def add_light(self, center, scale, color=(1.0, 1.0, 1.0), obj_type=ELLIPSOID, **kw):
+        return self.add(center, scale, obj_type, color=color, emissive=True, **kw)
+
     def build(self, capacity: Optional[int] = None) -> Scene:
         n = len(self._objs)
         if n == 0:

@@ -74,7 +74,7 @@ def test_the_smoke_script_imports_nothing_of_jax():
                 and "raytracing_tests_tpu." not in s, line
 
 
-@pytest.mark.parametrize("script", ["chip_ab.py", "chip_frames.py"])
+@pytest.mark.parametrize("script", ["chip_ab.py", "chip_frames.py", "chip_k1.py"])
 def test_the_other_chip_scripts_import_nothing_of_jax(script):
     """The measurement scripts beside the smoke script run on the card too."""
     import pathlib
@@ -91,13 +91,25 @@ def test_the_other_chip_scripts_import_nothing_of_jax(script):
                                    "render_uber_generic", "render_stats_generic",
                                    "render_stats_generic_dense", "cli_bvh",
                                    "render_megalanes", "render_workqueue",
-                                   "render_workqueue_generic"])
+                                   "render_workqueue_generic", "render_uber_materials",
+                                   "render_uber_generic_lights",
+                                   "render_workqueue_generic_lights"])
 def test_entry_points_raise_without_cuda_and_do_not_fall_back(entry):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
+    from raytracing_tests_tpu_torch.ops.render import extract_lights
+
     generic = "generic" in entry
-    scene, cam = examples.bvh_grid_scene(side=2) if generic else examples.iow_final_scene(side=2)
+    lights = None
+    if entry.endswith("lights"):
+        scene, cam = examples.lights_scene()
+        lights = extract_lights(scene)
+    elif entry.endswith("materials"):
+        scene, cam = examples.materials_scene()
+    else:
+        scene, cam = examples.bvh_grid_scene(side=2) if generic else examples.iow_final_scene(side=2)
     cfg = RenderConfig(width=8, height=4, spp=1, intersector="pallas",
+                       shading="materials" if entry.endswith("materials") else "bvh",
                        pallas_groups=0 if entry.endswith("dense") else 32).for_scene(scene)
     assert cfg.pallas_mode == ("generic" if generic else "spheres")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -108,9 +120,9 @@ def test_entry_points_raise_without_cuda_and_do_not_fall_back(entry):
         elif entry.startswith("render_workqueue"):
             from raytracing_tests_tpu_torch.ops.workqueue import render_workqueue
 
-            render_workqueue(scene, cam, cfg)
+            render_workqueue(scene, cam, cfg, lights)
         elif entry.startswith("render_uber"):
-            render_uber(scene, cam, cfg)
+            render_uber(scene, cam, cfg, lights)
         elif entry.startswith("render_stats"):
             render_stats(scene, cam, cfg)
         elif entry == "render":

@@ -36,7 +36,11 @@ from raytracing_tests_tpu.ops.render import RenderConfig as JRenderConfig
 from raytracing_tests_tpu.ops.render import render_stats as j_render_stats
 from raytracing_tests_tpu.scene import examples as jex
 from raytracing_tests_tpu_torch.models import get_workload, list_workloads
-from raytracing_tests_tpu_torch.ops.render import RenderConfig, render, render_stats
+from raytracing_tests_tpu_torch.ops.megalanes import render_megalanes
+from raytracing_tests_tpu_torch.ops.render import (
+    RenderConfig, extract_lights, render, render_stats,
+)
+from raytracing_tests_tpu_torch.ops.workqueue import render_workqueue
 from raytracing_tests_tpu_torch.scene import examples as tex
 from raytracing_tests_tpu_torch.scene import types as ttypes
 from raytracing_tests_tpu.scene import types as jtypes
@@ -105,9 +109,9 @@ def test_golden_iow_final_statistically(intersector):
 
 def test_registry_lists_the_ported_workloads():
     assert [w.name for w in list_workloads()] == [
-        "bvh", "groups", "iow-final", "motion-blur", "sphere"]
+        "bvh", "groups", "iow-final", "lights", "materials", "motion-blur", "sphere"]
     with pytest.raises(KeyError):
-        get_workload("lights")
+        get_workload("texturing")
 
 
 def test_sweep_intersector_matches_brute_in_the_port():
@@ -148,10 +152,23 @@ def test_unported_options_raise(what):
     scene, cam = tex.groups_scene()
     cfg = RenderConfig(width=8, height=4, spp=1).for_scene(scene)
     lights = None
+    render_fn = render_stats
     if what == "lights":
-        lights = object()
+        # lights render (test_torch_lights); the megalanes drain refuses
+        # them, as the JAX package's does
+        scene, cam = tex.lights_scene()
+        lights = extract_lights(scene)
+        cfg = RenderConfig(width=8, height=4, spp=1).for_scene(scene)
+        lit = render_stats(scene, cam, cfg, lights, device="cpu")
+        assert torch.isfinite(lit["image"]).all() and lit["rays_dropped"] == 0
+        render_fn = render_megalanes
     elif what == "materials":
+        # materials shading renders (test_torch_materials); the work queue
+        # refuses it, as the JAX package's does
         cfg = dataclasses.replace(cfg, shading="materials")
+        mat = render_stats(scene, cam, cfg, device="cpu")
+        assert torch.isfinite(mat["image"]).all() and mat["rays_dropped"] == 0
+        render_fn = render_workqueue
     elif what == "bvh_intersector":
         cfg = dataclasses.replace(cfg, intersector="bvh")
     else:
@@ -164,7 +181,7 @@ def test_unported_options_raise(what):
         np.testing.assert_allclose(swept["image"].numpy(), dense["image"].numpy(), atol=2e-4)
         cfg = dataclasses.replace(cfg, intersector="generic_sweep")
     with pytest.raises(NotImplementedError):
-        render_stats(scene, cam, cfg, lights, device="cpu")
+        render_fn(scene, cam, cfg, lights, device="cpu")
 
 
 GENERIC = {

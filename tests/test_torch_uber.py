@@ -36,7 +36,8 @@ from raytracing_tests_tpu.ops.render import RenderConfig as JRenderConfig
 from raytracing_tests_tpu.scene import examples as jex
 from raytracing_tests_tpu_torch.kernels import uber as tub
 from raytracing_tests_tpu_torch.kernels.uber import render_uber
-from raytracing_tests_tpu_torch.ops.render import RenderConfig, render_stats
+from raytracing_tests_tpu_torch.ops.megalanes import render_megalanes
+from raytracing_tests_tpu_torch.ops.render import RenderConfig, extract_lights, render_stats
 from raytracing_tests_tpu_torch.scene import examples as tex
 from raytracing_tests_tpu_torch.scene import types as ttypes
 from raytracing_tests_tpu.scene import types as jtypes
@@ -169,10 +170,24 @@ def test_unsupported_requests_raise(frames, what):
     f = frames
     scene, cam, cfg, kw = f["ts"], f["tc"], f["tcfg"], {}
     err = NotImplementedError
+    render = render_uber
+    small = dict(width=12, height=8, spp=2)
     if what == "lights":
-        kw["lights"] = object()
+        # lights render (test_torch_lights); materials shading takes none, as
+        # in the JAX package
+        scene, cam = tex.lights_scene()
+        kw["lights"] = extract_lights(scene)
+        cfg = dataclasses.replace(RenderConfig(**FRAME).for_scene(scene), **small)
+        lit = render_uber(scene, cam, cfg, device="cpu", **kw)
+        assert torch.isfinite(lit["image"]).all() and int(lit["rays_dropped"]) == 0
+        cfg, err = dataclasses.replace(cfg, shading="materials"), ValueError
     elif what == "materials":
-        cfg = dataclasses.replace(cfg, shading="materials")
+        # materials shading renders (test_torch_materials); the megalanes
+        # drain refuses it, as the JAX package's does
+        cfg = dataclasses.replace(cfg, shading="materials", **small)
+        mat = render_uber(scene, cam, cfg, device="cpu")
+        assert torch.isfinite(mat["image"]).all() and int(mat["rays_dropped"]) == 0
+        render = render_megalanes
     elif what == "textures":
         scene = scene.replace(textures=torch.zeros(1, 2, 12, 3))
     elif what == "generic":
@@ -190,9 +205,13 @@ def test_unsupported_requests_raise(frames, what):
         assert torch.isfinite(moving["image"]).all() and int(moving["rays_dropped"]) == 0
         cfg = dataclasses.replace(cfg, aa_grid=True)
     else:
+        # any stack depth renders (test_queue_capacity_16_matches_the_queue_
+        # renderer); a negative one raises
+        deep = render_uber(scene, cam, dataclasses.replace(cfg, **small), qcap=16, device="cpu")
+        assert torch.isfinite(deep["image"]).all() and int(deep["rays_dropped"]) == 0
         kw["qcap"], err = -1, ValueError
     with pytest.raises(err):
-        render_uber(scene, cam, cfg, device="cpu", **kw)
+        render(scene, cam, cfg, device="cpu", **kw)
 
 
 # name -> (scene factory (examples, types), gr, max_bounces)
@@ -440,7 +459,15 @@ def test_coop_min_reaches_the_kernels_parameters(frames, coop_min):
     accel, _ = tub._scene_accel(f["ts"], f["tc"], f["tcfg"], 32)
     st = tub.UberStatics.from_cfg(f["tcfg"])
     at = tub._IP.index("coop_min")
-    assert at == len(tub._IP) - 1
+    # the wrapper's parameter vector has the kernel's layout (IP_* of uber.cu)
+    import re
+
+    from raytracing_tests_tpu_torch.kernels import _build
+
+    enum = re.search(r"enum \{ (IP_W = 0,.*?) \};", (_build.CSRC / "uber.cu").read_text(), re.S)
+    names = [n.split("=")[0].strip() for n in re.sub(r"/\*.*?\*/", "", enum.group(1)).split(",")]
+    assert names[-1] == "IP_LEN" and len(names) - 1 == len(tub._IP)
+    assert names.index("IP_COOP_MIN") == at and names.index("IP_SHADING") == tub._IP.index("shading")
     forced = contextlib.nullcontext() if coop_min is None else tub._forced_coop_min(coop_min)
     with forced:
         ip, _ = tub._host_params(accel, st)

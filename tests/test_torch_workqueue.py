@@ -29,7 +29,9 @@ from raytracing_tests_tpu.ops.render import RenderConfig as JRenderConfig
 from raytracing_tests_tpu.ops.workqueue import render_workqueue as j_render_workqueue
 from raytracing_tests_tpu.ops.workqueue import tile_order_perm as j_tile_order_perm
 from raytracing_tests_tpu.scene import examples as jex
-from raytracing_tests_tpu_torch.ops.render import RenderConfig, render, render_stats
+from raytracing_tests_tpu_torch.ops.render import (
+    RenderConfig, extract_lights, render, render_stats,
+)
 from raytracing_tests_tpu_torch.ops.workqueue import render_workqueue, tile_order_perm
 from raytracing_tests_tpu_torch.scene import examples as tex
 
@@ -128,6 +130,13 @@ def test_workqueue_refuses_what_it_does_not_render(what):
     if what == "materials":
         cfg = dataclasses.replace(cfg, shading="materials")
     else:
-        lights = object()
+        # lights render (test_torch_lights holds them); materials shading
+        # stays refused with lights too
+        scene, cam = tex.lights_scene()
+        lights = extract_lights(scene)
+        cfg = RenderConfig(**FRAME).for_scene(scene)
+        lit = render_workqueue(scene, cam, cfg, lights, chunk=512, device="cpu")
+        assert torch.isfinite(lit["image"]).all() and int(lit["rays_dropped"]) == 0
+        cfg = dataclasses.replace(cfg, shading="materials")
     with pytest.raises(NotImplementedError):
         render_workqueue(scene, cam, cfg, lights, device="cpu")
