@@ -252,8 +252,20 @@ FLOPS_PER_CONTAINS_GENERIC = 45  # shift, rotation, 3 divisions, compare
 # registers; before the warp sweeps 80 registers and no spill, and 64 with
 # 148 / 164 B of spill stores / loads).
 PTXAS_STATIC = {
-    "uber_kernel<0,0,0>": dict(registers=80, stack=32, spill_stores=0, spill_loads=0),
-    "uber_kernel<1,0,0>": dict(registers=93, stack=32, spill_stores=0, spill_loads=0),
+    "uber_kernel<0,0,0,0>": dict(registers=80, stack=32, spill_stores=0, spill_loads=0),
+    "uber_kernel<1,0,0,0>": dict(registers=93, stack=32, spill_stores=0, spill_loads=0),
+}
+# What it gave all twelve untextured instantiations before the textured ones
+# and the camera variants came (<generic, motion, shading>; PERF.md section 6),
+# the last template argument (TEX) added to the names.
+PTXAS_K1 = {
+    f"uber_kernel<{k},0>": dict(registers=r, stack=st, spill_stores=ss, spill_loads=sl)
+    for k, (r, st, ss, sl) in {
+        "0,0,0": (80, 32, 0, 0), "0,0,1": (96, 40, 4, 4), "0,0,2": (80, 56, 24, 24),
+        "0,1,0": (80, 56, 24, 24), "0,1,1": (96, 48, 12, 12), "0,1,2": (80, 56, 24, 24),
+        "1,0,0": (93, 32, 0, 0), "1,0,1": (80, 112, 136, 96), "1,0,2": (96, 32, 0, 0),
+        "1,1,0": (96, 32, 0, 0), "1,1,1": (80, 120, 152, 116), "1,1,2": (96, 48, 12, 12),
+    }.items()
 }
 # What it gives the sphere sweep and the megakernel since they run the warp
 # sweeps too, at their launch bounds of 3 blocks of 256 threads and 6 of 128
@@ -451,11 +463,12 @@ def second_generation(accel, rays):
     return torch.cat([o2, d2, rays[6:8]]).contiguous()
 
 
-def compare_uber(accel, cam, st, out_p, stats_p, lights=None):
+def compare_uber(accel, cam, st, out_p, stats_p, lights=None, atlas=None, aa=None):
     """The persistent kernel of the current build variant against the plain
     version's output ``out_p`` on the same frame (``lights``: its
-    ``pack_lights`` rows) -> (numbers, kernel out)."""
-    out_k, stats_k = uber.uber_render(accel, cam, st, lights)
+    ``pack_lights`` rows; ``atlas``: the scene's ``pack_atlas``; ``aa``: the
+    ``aa_table``) -> (numbers, kernel out)."""
+    out_k, stats_k = uber.uber_render(accel, cam, st, lights, atlas, aa)
     torch.cuda.synchronize()
     cerr = (out_k[:, :3] - out_p[:, :3]).abs().amax(dim=1)
     terr = (out_k[:, 3] - out_p[:, 3]).abs()
@@ -525,7 +538,8 @@ def coop(cm):
 
 def sweep_counters(stats, generic):
     """The counters every schedule must give alike, and its own SIMT numbers."""
-    keys = ["ST_RAYS", "ST_DROPPED", "ST_SPHERE_TESTS", "ST_ROW_TESTS", "ST_SHADOW_RAYS"]
+    keys = ["ST_RAYS", "ST_DROPPED", "ST_SPHERE_TESTS", "ST_ROW_TESTS", "ST_SHADOW_RAYS",
+            "ST_TEX_SAMPLES"]
     if generic:
         keys += ["ST_SLAB_TESTS", "ST_OTHER_TESTS", "ST_HITS"]
     return {k: int(stats[getattr(uber, k)]) for k in keys}
@@ -538,7 +552,7 @@ def simt(stats):
                 lane_slots=slots, coop_visits=int(stats[uber.ST_COOP_VISITS]))
 
 
-def modes_identical(what, acc, cam, st, lights=None):
+def modes_identical(what, acc, cam, st, lights=None, atlas=None):
     """K1 in the -fmad=false build with coop_min forced to 1 and 33 and at the
     default: bit-identical ``out`` and equal counters, or raise ->
     {mode: SIMT numbers}."""
@@ -547,7 +561,7 @@ def modes_identical(what, acc, cam, st, lights=None):
     with _build.precise():
         for cm in (*FORCED, None):
             with coop(cm):
-                runs[cm] = uber.uber_render(acc, cam, st, lights)
+                runs[cm] = uber.uber_render(acc, cam, st, lights, atlas)
     torch.cuda.synchronize()
     out1, stats1 = runs[FORCED[0]]
     res = {}
@@ -665,18 +679,18 @@ def uber_modes_frame(what, acc, cam, st, cfg, out_p, stats_p, generic, far=None)
     return res
 
 
-def coop_sweep(what, acc, cam, st, lights=None):
+def coop_sweep(what, acc, cam, st, lights=None, atlas=None):
     """K1's milliseconds over COOP_SWEEP, by CUDA events, in SWEEP_ROUNDS
     rounds that alternate the order; each value's SIMT numbers -> numbers."""
     ms = {cm: [] for cm in COOP_SWEEP}
     for rnd in range(SWEEP_ROUNDS):
         for cm in (COOP_SWEEP if rnd % 2 == 0 else COOP_SWEEP[::-1]):
             with coop(cm):
-                ms[cm].append(cuda_ms(lambda: uber.uber_render(acc, cam, st, lights), 2))
+                ms[cm].append(cuda_ms(lambda: uber.uber_render(acc, cam, st, lights, atlas), 2))
     res = {}
     for cm in COOP_SWEEP:
         with coop(cm):
-            _, stats = uber.uber_render(acc, cam, st, lights)
+            _, stats = uber.uber_render(acc, cam, st, lights, atlas)
         res[str(cm)] = dict(ms=sum(ms[cm]) / len(ms[cm]), ms_rounds=ms[cm], **simt(stats))
     best = min(COOP_SWEEP, key=lambda cm: res[str(cm)]["ms"])
     say(phase="uber_modes", what=f"{what} coop_min sweep", default_coop_min=uber.COOP_MIN[acc.mode],
@@ -2470,17 +2484,22 @@ KERNEL_ENTRY.update({name: KERNEL_ENTRY[name.rsplit("_", 1)[0]] + (
 
 
 def instantiation_of(name):
-    """'uber_kernel<1,0,2>' for the launch counter 'uber_g_mat'."""
-    sh = 2 if name.endswith("_mat") else 1 if name.endswith("_lt") else 0
-    return f"uber_kernel<{int('_g' in name)},{int('_m_' in name + '_')},{sh}>"
+    """'uber_kernel<1,0,2,1>' for the launch counter 'uber_g_mat_tex'."""
+    tex = name.endswith("_tex")
+    base = name[:-len("_tex")] if tex else name
+    sh = 2 if base.endswith("_mat") else 1 if base.endswith("_lt") else 0
+    return f"uber_kernel<{int('_g' in base)},{int('_m_' in base + '_')},{sh},{int(tex)}>"
 
 
-def shading_inputs(dev, name, frame):
+def shading_inputs(dev, name, frame, spec=None):
     """(scene, camera, cfg, Lights or None, K1's accel, camera vector, statics,
-    lights rows) of instantiation ``name``'s scene at ``frame``."""
+    lights rows, packed atlas or None) of instantiation ``name``'s scene at
+    ``frame``; ``spec``: (scene maker, shading, lit) in place of the
+    instantiation's canary's."""
+    from raytracing_tests_tpu_torch.kernels.texture import pack_atlas
     from raytracing_tests_tpu_torch.ops.render import extract_lights
 
-    make, shading, lit = SHADING_CANARIES[name]
+    make, shading, lit = spec or CANARY_SCENES[name]
     scene, camera = make()
     scene, camera = scene.to(dev), camera.to(dev)
     cfg = RenderConfig(intersector="pallas", shading=shading, **frame).for_scene(scene)
@@ -2488,9 +2507,10 @@ def shading_inputs(dev, name, frame):
     rows, n = uber.pack_lights(lights)
     acc, cam, _ = k1_inputs(scene, camera, cfg)
     st = uber.UberStatics.from_cfg(cfg, n)
-    require(uber.launch_name(acc, st.model) == name,
-            f"{name}'s scene selects {uber.launch_name(acc, st.model)}")
-    return scene, camera, cfg, lights, acc, cam, st, rows
+    atlas = None if scene.textures is None else pack_atlas(scene.textures)
+    selected = uber.launch_name(acc, st.model, atlas is not None)
+    require(selected == name, f"{name}'s scene selects {selected}")
+    return scene, camera, cfg, lights, acc, cam, st, rows, atlas
 
 
 def corner_samples(st):
@@ -2500,18 +2520,24 @@ def corner_samples(st):
     return sum(s == r * st.spp for r in CORNER_RATIOS).bool()
 
 
-def shading_vs_plain(name, acc, cam, st, rows, out_p, stats_p):
+def shading_vs_plain(name, acc, cam, st, rows, out_p, stats_p, atlas=None):
     """The new instantiation against its plain version's ``out_p``, both
     builds, per sample -> (default, -fmad=false, default build's out)."""
-    k1, got = compare_uber(acc, cam, st, out_p, stats_p, rows)
+    k1, got = compare_uber(acc, cam, st, out_p, stats_p, rows, atlas)
     with _build.precise():
-        k1_precise, got_p = compare_uber(acc, cam, st, out_p, stats_p, rows)
-    if st.n_lights:
-        # the same numbers off the corner-aimed samples
-        keep = ~corner_samples(st)
+        k1_precise, got_p = compare_uber(acc, cam, st, out_p, stats_p, rows, atlas)
+    if st.n_lights or atlas is not None:
+        # the same numbers off the samples whose shadow rays aim at a corner
+        # of a light's box (lights) and whose primary hit lies on a cube
+        # edge of its atlas (textures)
+        corner = corner_samples(st) if st.n_lights else torch.zeros_like(out_p[:, 0], dtype=bool)
+        seam = seam_samples(acc, cam, st, rows) if atlas is not None else torch.zeros_like(corner)
+        keep = ~(corner | seam)
         for res, (out_k, _) in ((k1, got), (k1_precise, got_p)):
             cerr = (out_k[keep, :3] - out_p[keep, :3]).abs().amax(dim=1)
-            res["off_corner_samples"] = dict(share=frac(keep), colour_within_1e4=frac(cerr <= 1e-4))
+            res["off_marked_samples"] = dict(share=frac(keep), corner_share=frac(corner),
+                                             seam_share=frac(seam),
+                                             colour_within_1e4=frac(cerr <= 1e-4))
     cerr = (got_p[0][:, :3] - out_p[:, :3]).abs().amax(dim=1)
     k1_precise["colour_within_1e6"] = frac(cerr <= 1e-6)
     k1_precise["bitwise"] = frac((got_p[0] == out_p).all(dim=1))
@@ -2520,31 +2546,32 @@ def shading_vs_plain(name, acc, cam, st, rows, out_p, stats_p):
 
 def check_shading(name, plain_dropped, k1, k1_precise):
     """The -fmad=false build within 1e-4 on >= SHADING_PRECISE of the samples
-    (for lights: of those off the corner-aimed ones) and rays within 0.05 %;
-    the default build by the frame's statistical bars (check_uber's, with
-    the per-sample colour bars of the lights frames taken off the corner
-    samples)."""
+    (for lights and textures: of those off the marked ones, corner-aimed and
+    face-seam samples) and rays within 0.05 %; the default build by the
+    frame's statistical bars (check_uber's, with the per-sample colour bars
+    taken off the marked samples)."""
     require(plain_dropped == 0 and k1["dropped"] == k1_precise["dropped"] == 0
             and k1["finite"] and k1_precise["finite"], f"{name}: {k1} {k1_precise}")
-    within = k1_precise.get("off_corner_samples", k1_precise)["colour_within_1e4"]
+    within = k1_precise.get("off_marked_samples", k1_precise)["colour_within_1e4"]
     require(within >= SHADING_PRECISE and k1_precise["ray_count_rel_diff"] < 5e-4
             and k1_precise["primary_t_within_rtol_1e4"] >= 0.999,
             f"{name}: the -fmad=false build disagrees with the plain version: {k1_precise}")
-    near = k1.get("off_corner_samples", k1)["colour_within_1e4"]
+    near = k1.get("off_marked_samples", k1)["colour_within_1e4"]
     require(k1["primary_t_within_rtol_1e4"] >= 0.999 and near >= 0.85
             and k1["colour_within_5e2"] >= 0.9 and k1["mean_abs_diff"] < 5e-3
             and k1["ray_count_rel_diff"] < 5e-3,
             f"{name}: the default build disagrees with the plain version: {k1}")
 
 
-def k1_bound(acc, st, stats, rows=None):
+def k1_bound(acc, st, stats, rows=None, atlas=None):
     """K1's least time for this run's work: its output, the tables, the
-    camera and lights once over the memory rate, or the operations its
-    counters say it did over the fp32 peak -> (ms, by)."""
+    camera, lights and atlas texels once over the memory rate, or the
+    operations its counters say it did over the fp32 peak -> (ms, by)."""
     n_nodes, n_shadow = int(stats[uber.ST_RAYS]), int(stats[uber.ST_SHADOW_RAYS])
     shade = FLOPS_PER_MATERIALS_SHADE if st.shading == "materials" else FLOPS_PER_NODE_SHADE
     n_bytes = (16 * st.B + accel_bytes(acc) + 4 * uber.CAM_LEN
-               + (0 if rows is None else 4 * rows.numel()))
+               + (0 if rows is None else 4 * rows.numel())
+               + (0 if atlas is None else 4 * atlas[0].numel()))
     if acc.mode == "generic":
         flops = (int(stats[uber.ST_SPHERE_TESTS]) * FLOPS_PER_CENSUS_SPHERE_ROW
                  + int(stats[uber.ST_OTHER_TESTS]) * FLOPS_PER_GENERIC_ROW
@@ -2554,38 +2581,56 @@ def k1_bound(acc, st, stats, rows=None):
         per_test = FLOPS_PER_SPHERE_TEST + (FLOPS_PER_MOTION_TERMS if acc.has_motion else 0)
         flops = (int(stats[uber.ST_SPHERE_TESTS]) * per_test
                  + (n_nodes + n_shadow) * acc.n_groups * FLOPS_PER_SLAB_TEST + n_nodes * shade)
-    return bound(n_bytes, flops + n_shadow * FLOPS_PER_SHADOW_RAY)
+    return bound(n_bytes, flops + n_shadow * FLOPS_PER_SHADOW_RAY
+                 + int(stats[uber.ST_TEX_SAMPLES]) * FLOPS_PER_TEX_SAMPLE)
 
 
-def shading_frame(dev, what, name):
-    """Phase materials_frame / lights_frame: the frame through render_uber
-    (one warm frame, three timed), K1 against its plain version on every
-    primary, the schedules bit for bit, and where the frame's time goes ->
-    (numbers, the kernels-line fields)."""
-    scene, camera, cfg, lights, acc, cam, st, rows = shading_inputs(dev, name, SHADING_FRAME)
+def shading_frame(dev, what, name, spec=None):
+    """Phase materials_frame / lights_frame / texturing_frame /
+    texturing_image_frame: the frame through render_uber (one warm frame,
+    three timed), K1 against its plain version on every primary, the
+    schedules bit for bit, and where the frame's time goes -> (numbers, the
+    kernels-line fields).  ``spec``: the frame's (scene maker, shading, lit)
+    where it is not the canary's scene of ``name``."""
+    from raytracing_tests_tpu_torch.kernels.texture import pack_atlas
+
+    scene, camera, cfg, lights, acc, cam, st, rows, atlas = shading_inputs(
+        dev, name, SHADING_FRAME, spec)
     out, times, launches = timed_frames(
         lambda: uber.render_uber(scene, camera, cfg, lights, gr=GR))
     for got in launches:
         require(got == {name: 1}, f"a {what} frame is one launch of {name}: {launches}")
-    plain_ms, (out_p, stats_p) = timed_ms(lambda: uber.uber_render_plain(acc, cam, st, rows))
+    plain_ms, (out_p, stats_p) = timed_ms(
+        lambda: uber.uber_render_plain(acc, cam, st, rows, atlas))
     img_p = uber._uber_post(out_p, stats_p, cfg)["image"]
-    k1, k1_precise, got = shading_vs_plain(name, acc, cam, st, rows, out_p, stats_p)
+    k1, k1_precise, got = shading_vs_plain(name, acc, cam, st, rows, out_p, stats_p, atlas)
     px = compare_pixels(uber._uber_post(*got, cfg)["image"], img_p)
     del got
-    ms_k1 = cuda_ms(lambda: uber.uber_render(acc, cam, st, rows), 3)
+    ms_k1 = cuda_ms(lambda: uber.uber_render(acc, cam, st, rows, atlas), 3)
     with coop(1):
-        ms_k1_lane = cuda_ms(lambda: uber.uber_render(acc, cam, st, rows), 3)
-        _, stats_lane = uber.uber_render(acc, cam, st, rows)
-    _, stats_k = uber.uber_render(acc, cam, st, rows)
+        ms_k1_lane = cuda_ms(lambda: uber.uber_render(acc, cam, st, rows, atlas), 3)
+        _, stats_lane = uber.uber_render(acc, cam, st, rows, atlas)
+    _, stats_k = uber.uber_render(acc, cam, st, rows, atlas)
     t0 = time.perf_counter()
     for _ in range(3):
         uber._scene_accel(scene, camera, cfg, min(GR, max(8, -(-scene.capacity // 8) * 8)))
+        if atlas is not None:
+            pack_atlas(scene.textures)
     torch.cuda.synchronize()
     accel_ms = (time.perf_counter() - t0) / 3 * 1e3
-    out_k, _ = uber.uber_render(acc, cam, st, rows)
+    out_k, _ = uber.uber_render(acc, cam, st, rows, atlas)
     post_ms = cuda_ms(lambda: uber._uber_post(out_k, stats_k, cfg), 3)
     del out_k
-    bnd, by = k1_bound(acc, st, stats_k, rows)
+    bnd, by = k1_bound(acc, st, stats_k, rows, atlas)
+    texture = {}
+    if atlas is not None:
+        # the cost of the atlas samples: the same frame through the
+        # untextured instantiation, in the same call
+        ms_plain_albedo = cuda_ms(lambda: uber.uber_render(acc, cam, st, rows), 3)
+        n_tex = int(stats_k[uber.ST_TEX_SAMPLES])
+        texture = dict(tex_samples=n_tex, atlas_bytes=4 * atlas[0].numel(),
+                       kernel_ms_untextured=ms_plain_albedo,
+                       tex_ns_per_sample=(ms_k1 - ms_plain_albedo) * 1e6 / max(n_tex, 1))
     rays, img = int(out["rays"]), out["image"]
     frame = dict(size=size_of(SHADING_FRAME), instantiation=name,
                  seconds_per_frame_min=min(times), seconds_per_frame_mean=sum(times) / len(times),
@@ -2595,7 +2640,7 @@ def shading_frame(dev, what, name):
                  plain_seconds=plain_ms / 1e3, launches_per_frame=launches,
                  kernel_ms=ms_k1, kernel_ms_per_lane_mode=ms_k1_lane, bound_ms=bnd, bound_by=by,
                  accel_build_ms=accel_ms, epilogue_ms=post_ms,
-                 shadow_rays=int(stats_k[uber.ST_SHADOW_RAYS]), **simt(stats_k),
+                 shadow_rays=int(stats_k[uber.ST_SHADOW_RAYS]), **texture, **simt(stats_k),
                  default_build=k1, precise_build=k1_precise, pixels_default_vs_plain=px)
     say(phase=f"{what}_frame", **frame)
     require(tuple(img.shape) == (cfg.height, cfg.width, 3) and bool(torch.isfinite(img).all())
@@ -2605,9 +2650,9 @@ def shading_frame(dev, what, name):
             f"{what} frame against its plain version: {frame}")
     check_shading(f"{what} frame", int(stats_p[uber.ST_DROPPED]), k1, k1_precise)
     require(min(ms_k1, ms_k1_lane) > bnd, f"{what}: K1 below its bound, a counting error")
-    modes = modes_identical(f"{what} frame", acc, cam, st, rows)
+    modes = modes_identical(f"{what} frame", acc, cam, st, rows, atlas)
     say(phase="uber_modes", what=f"{what} frame", precise_build=modes)
-    sweep = coop_sweep(f"{what} frame", acc, cam, st, rows)
+    sweep = coop_sweep(f"{what} frame", acc, cam, st, rows, atlas)
     del out, out_p
     entry = dict(launches=launches[-1][name], max_abs_err=px["max_abs_err"],
                  per_sample_max_abs_err=k1["colour_max_abs_err"],
@@ -2618,7 +2663,7 @@ def shading_frame(dev, what, name):
                  ms=ms_k1, ms_per_lane_mode=ms_k1_lane, plain_ms=plain_ms, bound_ms=bnd,
                  bound_by=by, simt_efficiency=simt(stats_k)["simt_efficiency"],
                  simt_efficiency_per_lane_mode=simt(stats_lane)["simt_efficiency"],
-                 shape=size_of(SHADING_FRAME) + f", {what}_scene()",
+                 shape=size_of(SHADING_FRAME) + f", {what}_scene()", **texture,
                  at_frame=frame_sweep(sweep, uber.COOP_MIN[acc.mode],
                                       schedules_bit_identical=True))
     return frame, entry
@@ -2628,7 +2673,7 @@ def shading_canary(dev, name):
     """The new instantiation's canary at 200x112x8 d6: K1 against the queue
     renderer under the reference envelope, and against its plain version
     (both builds) -> (launches of the path, numbers, kernels-line fields)."""
-    scene, camera, cfg, lights, acc, cam, st, rows = shading_inputs(dev, name, SMALL)
+    scene, camera, cfg, lights, acc, cam, st, rows, atlas = shading_inputs(dev, name, SMALL)
     _build.reset_launches()
     ou = uber.render_uber(scene, camera, cfg, lights, gr=GR)
     oq = render_stats(scene, camera, cfg, lights)
@@ -2640,18 +2685,19 @@ def shading_canary(dev, name):
     require(launches.get(name) == 1 and launches.get(queue_kernel, 0) > 0
             and set(launches) == {name, queue_kernel},
             f"the {name} canary's launches: {launches}")
-    plain_ms, (out_p, stats_p) = timed_ms(lambda: uber.uber_render_plain(acc, cam, st, rows))
-    k1, k1_precise, got = shading_vs_plain(name, acc, cam, st, rows, out_p, stats_p)
+    plain_ms, (out_p, stats_p) = timed_ms(
+        lambda: uber.uber_render_plain(acc, cam, st, rows, atlas))
+    k1, k1_precise, got = shading_vs_plain(name, acc, cam, st, rows, out_p, stats_p, atlas)
     px = compare_pixels(uber._uber_post(*got, cfg)["image"],
                         uber._uber_post(out_p, stats_p, cfg)["image"])
     check_shading(f"{name} canary", int(stats_p[uber.ST_DROPPED]), k1, k1_precise)
-    ms = device_ms(lambda: uber.uber_render(acc, cam, st, rows), 10)
+    ms = device_ms(lambda: uber.uber_render(acc, cam, st, rows, atlas), 10)
     with coop(1):
-        ms_lane = device_ms(lambda: uber.uber_render(acc, cam, st, rows), 10)
-        _, stats_lane = uber.uber_render(acc, cam, st, rows)
-    _, stats_k = uber.uber_render(acc, cam, st, rows)
-    bnd, by = k1_bound(acc, st, stats_k, rows)
-    modes = modes_identical(f"{name} canary", acc, cam, st, rows)
+        ms_lane = device_ms(lambda: uber.uber_render(acc, cam, st, rows, atlas), 10)
+        _, stats_lane = uber.uber_render(acc, cam, st, rows, atlas)
+    _, stats_k = uber.uber_render(acc, cam, st, rows, atlas)
+    bnd, by = k1_bound(acc, st, stats_k, rows, atlas)
+    modes = modes_identical(f"{name} canary", acc, cam, st, rows, atlas)
     say(phase="shading_canary", instantiation=name, size=size_of(SMALL), launches=launches,
         **env, default_build=k1, precise_build=k1_precise, pixels_default_vs_plain=px,
         kernel_ms=ms, bound_ms=bnd, schedules_bit_identical=True,
@@ -2775,6 +2821,218 @@ def shading_phases(dev):
     return out, paths
 
 
+# ---------------------------------------------------------------------------
+# The seventh slice: cube-sphere textures through K1, the queue renderer and
+# the work queue, and K1's camera variants
+# ---------------------------------------------------------------------------
+
+# uv (dominant axis, projection by division), the atlas coordinates, the
+# floors, the clamped weights, three bilinear blends and the albedo product
+FLOPS_PER_TEX_SAMPLE = 60
+# A primary whose hit's unit-space position has its two largest components
+# within this relative band lies on a cube edge of its atlas: the face turns
+# on strict comparisons there, so a last-ulp difference in the refined hit
+# reads another face's texel.  Those samples are held by their share only.
+SEAM_BAND = 1e-5
+
+
+def textured(scene_cam):
+    """The scene with a checker and a gradient atlas on every object but each
+    third (``texture_index`` 1, 2, 0, 1, ...)."""
+    from raytracing_tests_tpu_torch.scene import textures as tx
+
+    scene, camera = scene_cam
+    atlases = [tx.checker_atlas(32), tx.gradient_atlas(32)]
+    stack = np.stack([np.zeros_like(atlases[0])] + atlases)
+    ti = ((torch.arange(scene.capacity) + 1) % 3).to(torch.int32)
+    return scene.replace(textures=torch.from_numpy(stack),
+                         texture_index=torch.where(scene.valid, ti, 0)), camera
+
+
+def textured_box_scene():
+    """A textured rotated box and a textured sphere over a ground sphere (the
+    JAX package's generic texturing test, tests/test_pallas.py:440-460)."""
+    from raytracing_tests_tpu_torch.scene import textures as tx
+
+    b = SceneBuilder()
+    checker = b.add_texture(tx.checker_atlas(32))
+    grad = b.add_texture(tx.gradient_atlas(32))
+    b.add_box((-0.8, 0.0, -4.0), (0.9, 0.9, 0.9), rotation_deg=(0.0, 30.0, 0.0),
+              color=(1.0, 1.0, 1.0), reflectivity=0.85, scatter_reflect=0.2,
+              texture_index=checker)
+    b.add_sphere((0.9, 0.0, -3.6), 0.55, color=(1.0, 0.9, 0.9), reflectivity=0.9,
+                 scatter_reflect=0.2, texture_index=grad)
+    b.add_sphere((0.0, -100.6, -4.0), 100.0, color=(0.6, 0.6, 0.6), reflectivity=0.7,
+                 scatter_reflect=0.9)
+    return b.build(), Camera.make((0.0, 0.4, 0.8), (0.0, -0.1, -1.0), fov_y_deg=55.0,
+                                  focus_dist=4.2)
+
+
+# textured instantiation -> (scene, shading, with its lights) of its canary
+TEXTURED_CANARIES = {
+    "uber_tex": (examples.texturing_scene, "bvh", False),
+    "uber_m_tex": (lambda: moved(examples.texturing_scene(), 1, (0.2, 0.0, 0.0)), "bvh", False),
+    "uber_g_tex": (textured_box_scene, "bvh", False),
+    "uber_g_m_tex": (lambda: moved(textured_box_scene(), 0, (0.2, 0.0, 0.0)), "bvh", False),
+    "uber_mat_tex": (lambda: textured(examples.materials_scene()), "materials", False),
+    "uber_m_mat_tex": (lambda: textured(moved(examples.materials_scene(), 3, (0.2, 0.0, 0.0))),
+                       "materials", False),
+    "uber_g_mat_tex": (lambda: textured(examples.groups_scene()), "materials", False),
+    "uber_g_m_mat_tex": (lambda: textured(moving_groups_scene()), "materials", False),
+    "uber_lt_tex": (lambda: textured(lit_spheres_scene()), "bvh", True),
+    "uber_m_lt_tex": (lambda: textured(moved(lit_spheres_scene(), 1, (0.2, 0.0, 0.0))), "bvh",
+                      True),
+    "uber_g_lt_tex": (lambda: textured(examples.lights_scene()), "bvh", True),
+    "uber_g_m_lt_tex": (lambda: textured(moved(examples.lights_scene(), 6, (0.2, 0.0, 0.0))),
+                        "bvh", True),
+}
+CANARY_SCENES = {**SHADING_CANARIES, **TEXTURED_CANARIES}
+KERNEL_ENTRY.update({name: KERNEL_ENTRY[name[:-len("_tex")]] + "_textured"
+                     for name in TEXTURED_CANARIES})
+
+
+def seam_samples(acc, cam, st, rows=None):
+    """Samples whose primary hit is on a textured winner and lies within
+    SEAM_BAND of a cube edge of its atlas, as a (B,) mask in p-linear order
+    (the plain version's raygen, sweep and refine)."""
+    from raytracing_tests_tpu_torch.kernels.sweep2 import FT_TEX
+
+    out = []
+    for p0 in range(0, st.B, 1 << 20):
+        p = torch.arange(p0, min(st.B, p0 + (1 << 20)), device=acc.device)
+        o, d, sidx, _ = uber._raygen(cam, st, p)
+        omt = 1.0 - sidx / st.spp
+        live = torch.ones_like(sidx, dtype=torch.bool)
+        tlim = torch.full_like(sidx, st.t_max)
+        if acc.mode == "generic":
+            t, obj = sweep2g._sweep_plain_g(acc, o, d, omt, live, tlim)
+        else:
+            t, obj = sweep2._sweep_plain(acc, o, d, live, tlim, omt)
+        hit = obj >= 0
+        rows_w, _, _, _, _, lp = mega._refine(acc, o, d, t, obj, hit, omt)
+        a = lp.abs().sort(dim=1).values
+        out.append(hit & (rows_w[:, FT_TEX] > 0.5) & (a[:, 2] - a[:, 1] <= SEAM_BAND * a[:, 2]))
+    return torch.cat(out)
+
+
+def workqueue_textures(dev):
+    """Phase workqueue_textures: ``render_workqueue`` on the texturing canary
+    against the queue renderer given a full tree's budget, as phase 15;
+    K2 launched once per iteration."""
+    scene, camera, cfg, *_ = shading_inputs(dev, "uber_tex", SMALL)
+    cfg_full = dataclasses.replace(cfg, max_pops=2 ** cfg.max_bounces)
+    _build.reset_launches()
+    ow = workqueue.render_workqueue(scene, camera, cfg, chunk=16384)
+    launches = dict(_build.LAUNCHES)
+    oq = render_stats(scene, camera, cfg_full)
+    close = (ow["image"] - oq["image"]).abs().amax(dim=-1) <= 2e-5
+    res = dict(size=size_of(SMALL), within_2e5=frac(close), rays=int(ow["rays"]),
+               rays_queue=oq["rays"], iterations=ow["iterations"],
+               rays_dropped=int(ow["rays_dropped"]), launches=launches)
+    say(phase="workqueue_textures", **res)
+    require(res["within_2e5"] >= 0.995 and res["rays"] == res["rays_queue"]
+            and res["rays_dropped"] == 0 and set(launches) == {"sweep2"}
+            and launches["sweep2"] >= ow["iterations"],
+            f"the work queue with textures against the queue renderer: {res}")
+    return launches
+
+
+def camera_variant(camera, variant):
+    """(camera, aa_grid) of ``variant``: the camera itself ('plain'); the
+    aa_grid jitter; three focus distances around the camera's; an
+    orthographic view of the height the perspective view has at the focus
+    distance."""
+    fd = camera.focus_dist[:1]
+    if variant == "plain":
+        return camera, False
+    if variant == "aa_grid":
+        return camera, True
+    if variant == "multi_focus":
+        return camera.replace(focus_dist=torch.cat([fd * 0.8, fd, fd * 1.25])), False
+    return camera.replace(ortho_height=2.0 * fd[0] * torch.tan(camera.fov_y * 0.5)), False
+
+
+def camera_canaries(dev):
+    """Phase camera_canaries: each camera variant in sphere mode (the
+    headline's scene) and generic mode (``groups_scene()``) at 200x112x8 d6:
+    K1 against the queue renderer, and against its plain version in the
+    -fmad=false build (colours within 1e-4 on >= SHADING_PRECISE of the
+    samples, rays within 0.05 %) -> {path: launches}.  Against the queue
+    renderer the generic canaries take check_parity's bars; the headline's
+    scene takes phase 5's (the reference's envelope: means, rays, depth,
+    drops), whose share of pixels off by 0.05 its 1000-radius ground sphere
+    drives (printed beside the same share of the unvaried camera)."""
+    paths, res = {}, {}
+    for mode, make in (("spheres", examples.iow_final_scene), ("generic", examples.groups_scene)):
+        for variant in (("plain",) if mode == "spheres" else ()) + (
+                "aa_grid", "multi_focus", "orthographic"):
+            scene, camera = make()
+            camera, aa = camera_variant(camera, variant)
+            scene, camera = scene.to(dev), camera.to(dev)
+            cfg = RenderConfig(intersector="pallas", aa_grid=aa, **SMALL).for_scene(scene)
+            _build.reset_launches()
+            ou = uber.render_uber(scene, camera, cfg, gr=GR)
+            oq = render_stats(scene, camera, cfg)
+            launches = dict(_build.LAUNCHES)
+            env = parity(ou, oq)
+            what = f"{variant} camera, {mode}"
+            if mode == "generic":
+                check_parity(f"the {what} canary", env)
+            require(env["finite"] and env["mean_image_diff"] < 5e-3
+                    and abs(env["ray_count_ratio"] - 1.0) < 0.02
+                    and env["depth_disagree_frac"] < 0.01 and env["rays_dropped"] == 0,
+                    f"the {what} canary failed: {env}")
+            acc, cam, _ = k1_inputs(scene, camera, cfg)
+            st = uber.UberStatics.from_cfg(cfg, 0, camera)
+            aat = uber.aa_table(st.W, st.H, st.spp, dev) if aa else None
+            out_p, stats_p = uber.uber_render_plain(acc, cam, st, aa=aat)
+            with _build.precise():
+                k1_precise, _ = compare_uber(acc, cam, st, out_p, stats_p, aa=aat)
+            require(k1_precise["colour_within_1e4"] >= SHADING_PRECISE
+                    and k1_precise["ray_count_rel_diff"] < 5e-4 and k1_precise["dropped"] == 0,
+                    f"the {what} canary: the -fmad=false build against the plain version: "
+                    f"{k1_precise}")
+            k1 = uber.launch_name(acc)
+            require(launches.get(k1) == 1, f"the {what} canary's launches: {launches}")
+            res[what] = dict(launches=launches, **env, precise_build=k1_precise)
+            paths[f"{variant}_{mode}_camera_canary"] = launches
+    say(phase="camera_canaries", size=size_of(SMALL), **res)
+    return paths
+
+
+def texturing_phases(dev):
+    """The seventh slice's phases -> (kernels-line entries, {path: launches})."""
+    src = "raytracing_tests_tpu_torch/csrc/uber_tex.cu"
+    paths, entries, frames = {}, [], {}
+    for what, make in (("texturing", examples.texturing_scene),
+                       ("texturing_image", examples.texturing_image_scene)):
+        frames[what] = shading_frame(dev, what, "uber_tex", (make, "bvh", False))
+        paths[f"{what}_frame"] = frames[what][0]["launches_per_frame"][-1]
+    entry = dict(frames["texturing"][1], at_texturing_image_frame={
+        k: frames["texturing_image"][1][k] for k in ("ms", "ms_per_lane_mode", "plain_ms",
+                                                    "bound_ms", "bound_by", "max_abs_err")})
+    entries.append(("uber_tex", entry))
+    for name in TEXTURED_CANARIES:
+        launches, entry = shading_canary(dev, name)
+        paths[f"{name}_canary"] = launches
+        if name != "uber_tex":
+            entries.append((name, entry))
+    paths["workqueue_textures"] = workqueue_textures(dev)
+    paths.update(camera_canaries(dev))
+    tol = (f"the -fmad=false build within 1e-4 of the plain version on >= {SHADING_PRECISE} "
+           "of the samples off the marked ones (a primary hit within SEAM_BAND of an atlas "
+           "cube edge; with lights, a shadow ray aimed at a corner of the light's box); the "
+           "default build: primary t rtol 1e-4 on >= 99.9 %, channel means within 5e-3, rays "
+           "within 0.5 %")
+    out = []
+    for name, fields in entries:
+        by_path = {p: got.get(name, 0) for p, got in paths.items()}
+        out.append(dict(name=KERNEL_ENTRY[name], instantiation=name, route="cuda", source=src,
+                        replaces="raytracing_tests_tpu/kernels/uber.py:874",
+                        launches_by_path=by_path, tolerance=tol, library_ms=None, **fields))
+    return out, paths
+
+
 def main():
     dev = torch.device("cuda", 0)
 
@@ -2791,6 +3049,8 @@ def main():
     say(phase="build", seconds=info["seconds"], built=info["built"], ptxas=ptxas,
         static_instantiations_as_expected={
             k: ptxas.get(f"uber.so {k}") == v for k, v in PTXAS_STATIC.items()},
+        untextured_instantiations_as_before={
+            k: ptxas.get(f"uber.so {k}") == v for k, v in PTXAS_K1.items()},
         redesigned_as_recorded={k: ptxas.get(k) == v for k, v in PTXAS_REDESIGNED.items()},
         other_kernels_as_before={k: ptxas.get(k) == v for k, v in PTXAS_UNCHANGED.items()})
 
@@ -3016,23 +3276,28 @@ def main():
     kernels[1]["at_workqueue_frame"] = k2_wq  # its launches there, summed
     sixth, sixth_paths = shading_phases(dev)
     kernels += sixth
+    seventh, seventh_paths = texturing_phases(dev)
+    kernels += seventh
     # every instantiation of K1 with its ptxas line
     entry_of = {v: n for n, v in KERNEL_ENTRY.items()}
     for k in kernels:
         if k["name"] in entry_of:
             k.setdefault("instantiation", entry_of[k["name"]])
-            k["ptxas"] = ptxas.get(f"uber.so {instantiation_of(k['instantiation'])}")
-    # the sixth slice's paths that launch earlier kernels: K2 and K5 behind the
-    # queue renderer on the new canaries, shadow sweeps included, K2 behind
-    # the work queue with lights, K1 'bvh' on the deep stacks
+            lib = "uber_tex.so" if k["instantiation"].endswith("_tex") else "uber.so"
+            k["ptxas"] = ptxas.get(f"{lib} {instantiation_of(k['instantiation'])}")
+    # the sixth and seventh slices' paths that launch earlier kernels: K2 and
+    # K5 behind the queue renderer on the new canaries, shadow sweeps
+    # included, K2 behind the work queue with lights and textures, K1 'bvh' on
+    # the deep stacks, the untextured instantiations on the camera canaries
+    later_paths = {**sixth_paths, **seventh_paths}
     for k in kernels:
         counter = dict(sweep2="sweep2", sweep2_motion="sweep2_m",
                        sweep_grouped="sweep_grouped").get(k["name"], k.get("instantiation"))
         if counter:
-            k["launches_by_path"].update({p: got[counter] for p, got in sixth_paths.items()
+            k["launches_by_path"].update({p: got[counter] for p, got in later_paths.items()
                                           if got.get(counter)})
-    require(sum(k["name"] in entry_of for k in kernels) == 12,
-            "the kernels line lists the twelve instantiations of K1")
+    require(sum(k["name"] in entry_of for k in kernels) == 24,
+            "the kernels line lists the twenty-four instantiations of K1")
     for k in kernels:
         require(max(k["launches_by_path"].values()) > 0 and k["launches"] > 0,
                 f"kernel {k['name']} was launched on no driven path: {k['launches_by_path']}")

@@ -5,7 +5,8 @@ Usage:
   python -m raytracing_tests_tpu_torch info
   python -m raytracing_tests_tpu_torch render <workload> [--width W --height H
         --spp S --bounces B --pallas --uber --out out.png
-        --depth-out depth.png --device cuda|cpu]
+        --depth-out depth.png --device cuda|cpu
+        --texture image.png --texture-mapping mercator|cubic]
 
 Renders run on the GPU unless ``--device cpu`` is given.
 """
@@ -52,6 +53,13 @@ def _cmd_render(args):
     if args.uber:
         kw["uber"] = True
         kw["intersector"] = "pallas"
+    if args.texture:
+        if args.workload != "texturing-image":
+            raise SystemExit(
+                "--texture is only supported by the texturing-image "
+                f"workload (got {args.workload!r})")
+        kw["texture"] = args.texture
+        kw["texture_mapping"] = args.texture_mapping
     t0 = time.perf_counter()
     out = w.run(**kw)
     img = out["image"].detach().cpu().numpy()  # waits for the device
@@ -101,6 +109,12 @@ def main(argv=None):
     pr.add_argument("--depth-out", help="also write normalized depth PNG")
     pr.add_argument("--device", default=None,
                     help="torch device; default: the GPU (cuda)")
+    pr.add_argument("--texture", help="image file for texturing-image "
+                    "(PNG/JPG; remapped onto the cube-sphere atlas)")
+    pr.add_argument("--texture-mapping", default="mercator",
+                    choices=("mercator", "cubic"),
+                    help="how to interpret --texture: equirectangular "
+                    "or packed 6-face atlas")
 
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")

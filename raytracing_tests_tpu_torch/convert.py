@@ -3,7 +3,8 @@
 
 State crosses between this package and any other array library as
 dictionaries of numpy arrays keyed by field name:
-``{f: np.asarray(getattr(scene, f)) for f in SCENE_FIELDS}``.
+``{f: np.asarray(getattr(scene, f)) for f in SCENE_FIELDS}``, plus a textured
+scene's atlas stack under ``"textures"``.
 
 ``accel2_from_numpy`` takes the sphere accel in the JAX package's table
 layout (``otab`` (Np + Pp, 128), the float32 ``ftab`` (24, Np) with its bf16
@@ -46,13 +47,22 @@ def _to_numpy(obj, names):
 
 
 def scene_from_numpy(leaves: dict, device="cpu") -> Scene:
-    if leaves.get("textures") is not None:
-        raise NotImplementedError("textures are not ported yet")
-    return _from_numpy(Scene, SCENE_FIELDS, leaves, device)
+    """Every field of ``SCENE_FIELDS`` (a missing one raises ``KeyError``),
+    and the atlas stack ``"textures"`` if the leaves carry one."""
+    scene = _from_numpy(Scene, SCENE_FIELDS, leaves, device)
+    textures = leaves.get("textures")
+    if textures is not None:
+        scene = scene.replace(
+            textures=torch.from_numpy(np.array(textures, np.float32)).to(device))
+    return scene
 
 
 def scene_to_numpy(scene: Scene) -> dict:
-    return _to_numpy(scene, SCENE_FIELDS)
+    """``SCENE_FIELDS``, and ``"textures"`` where the scene has an atlas."""
+    out = _to_numpy(scene, SCENE_FIELDS)
+    if scene.textures is not None:
+        out["textures"] = scene.textures.detach().cpu().numpy()
+    return out
 
 
 def camera_from_numpy(leaves: dict, device="cpu") -> Camera:

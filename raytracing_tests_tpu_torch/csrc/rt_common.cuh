@@ -1,7 +1,8 @@
 // Device functions shared by the kernels: group slab test, winner re-solve,
 // surrounding-refractive-index probe, cone deviation and the In-Next-Week
 // shading model, the fibonacci-hemisphere scatter and the Shirley-materials
-// shading model, and the generic primitives' sweep.  One thread owns one ray;
+// shading model, cube-sphere atlas texturing, and the generic primitives'
+// sweep.  One thread owns one ray;
 // everything here is scalar per-thread code (the warp-cooperative sweeps are
 // in warp_sweep.cuh).
 //
@@ -27,6 +28,8 @@
 #include <cuda_runtime.h>
 #endif
 #include <math.h>
+
+#include <type_traits>
 
 // The one launch form of every kernel here.  host_shim.h defines it as a plain
 // loop, so the same sources compile as host C++ for a rehearsal on the CPU.
@@ -72,6 +75,14 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 struct Refined {
   float t, px, py, pz, nx, ny, nz;
 };
+// ... and with the unit-space hit position that cube-sphere texturing maps
+// (the normal for spheres): the textured instantiations refine into this one,
+// the untextured ones compile as if it did not exist.
+struct RefinedTex : Refined {
+  float lpx, lpy, lpz;
+};
+template <bool TEX>
+using RefinedT = std::conditional_t<TEX, RefinedTex, Refined>;
 
 // Re-solve the winner's quadratic directly in its own frame (rel = o - c) and
 // derive the hit point and outward normal.  The group-anchored sweep t carries
@@ -537,15 +548,16 @@ __device__ __forceinline__ void load_row(const Tables& T, int obj,
 }
 
 // The hit node's refine from its winner's row: sphere (winner_refine) or
-// rotated ellipsoid / cuboid (winner_refine_g).
-template <bool GENERIC, bool MOTION>
-__device__ __forceinline__ Refined refine_row(const float* rowv, float ox, float oy,
-                                              float oz, float dx, float dy, float dz,
-                                              float omt, float t_sweep) {
+// rotated ellipsoid / cuboid (winner_refine_g); with TEX also the unit-space
+// hit position.
+template <bool GENERIC, bool MOTION, bool TEX = false>
+__device__ __forceinline__ RefinedT<TEX> refine_row(const float* rowv, float ox, float oy,
+                                                    float oz, float dx, float dy, float dz,
+                                                    float omt, float t_sweep) {
   if constexpr (GENERIC) {
     const RefinedG G =
         winner_refine_g<MOTION>(rowv, ox, oy, oz, dx, dy, dz, omt, t_sweep, true);
-    Refined R;
+    RefinedT<TEX> R;
     R.t = G.t;
     R.px = G.px;
     R.py = G.py;
@@ -553,6 +565,19 @@ __device__ __forceinline__ Refined refine_row(const float* rowv, float ox, float
     R.nx = G.nx;
     R.ny = G.ny;
     R.nz = G.nz;
+    if constexpr (TEX) {
+      R.lpx = G.lpx;
+      R.lpy = G.lpy;
+      R.lpz = G.lpz;
+    }
+    return R;
+  } else if constexpr (TEX) {
+    RefinedTex R;
+    static_cast<Refined&>(R) =
+        winner_refine<MOTION>(rowv, ox, oy, oz, dx, dy, dz, omt, t_sweep, true);
+    R.lpx = R.nx;
+    R.lpy = R.ny;
+    R.lpz = R.nz;
     return R;
   } else {
     return winner_refine<MOTION>(rowv, ox, oy, oz, dx, dy, dz, omt, t_sweep, true);
@@ -561,16 +586,82 @@ __device__ __forceinline__ Refined refine_row(const float* rowv, float ox, float
 
 // load_row then refine_row: what a caller needs before shading, e.g. to aim
 // shadow rays from the hit point.
-template <bool GENERIC, bool MOTION>
-__device__ __forceinline__ Refined refine_hit(const Tables& T, int obj, float t_sweep,
-                                              float ox, float oy, float oz, float dx,
-                                              float dy, float dz, float omt) {
+template <bool GENERIC, bool MOTION, bool TEX = false>
+__device__ __forceinline__ RefinedT<TEX> refine_hit(const Tables& T, int obj, float t_sweep,
+                                                    float ox, float oy, float oz, float dx,
+                                                    float dy, float dz, float omt) {
   float rowv[GENERIC ? GFT_COLS : FT_COLS];
   load_row<GENERIC>(T, obj, rowv);
-  return refine_row<GENERIC, MOTION>(rowv, ox, oy, oz, dx, dy, dz, omt, t_sweep);
+  return refine_row<GENERIC, MOTION, TEX>(rowv, ox, oy, oz, dx, dy, dz, omt, t_sweep);
 }
 
-// In-Next-Week shading of one HIT node (no texture): refine the winner, probe
+// The scene's atlas stack as kernels/texture.py::pack_atlas lays it out:
+// T atlases of H x W6 texels, each texel 16 bytes (r, g, b, 0), row-major.
+struct Atlas {
+  const float4* texels;
+  int T, H, W6;
+};
+
+// The albedo (cr, cg, cb) of a winner with texture index ti_f (its FT_TEX)
+// times scene/textures.py::sample_atlas at cube_sphere_uv of the unit-space
+// hit position (lx, ly, lz), where ti_f is above 0; unchanged elsewhere.  The
+// same arithmetic as the plain version, rounding for rounding: the face
+// turns on strict comparisons, so the projection divides by the dominant
+// component (no reciprocal), and the bilinear weights stay f32 (the
+// hardware's linear filter would round them to 8 fractional bits).  The four
+// corners are direct 16-byte loads through the read-only path; the atlas of a
+// scene is a few MB and stays in L2.
+__device__ __forceinline__ void texture_albedo(const Atlas& A, float ti_f, float lx, float ly,
+                                               float lz, float& cr, float& cg, float& cb) {
+  const int ti = (int)(ti_f + 0.5f);
+  if (ti <= 0) return;
+  // Face: start with +-x, then y then z win strict-greater comparisons.  The
+  // face direction's dot with the position is its dominant component, signed.
+  int face = lx > 0.0f ? 1 : 3;
+  float denom = lx > 0.0f ? lx : -lx;
+  const float ay = fabsf(ly);
+  float dom = fabsf(lx);
+  if (ay > dom) {
+    face = ly > 0.0f ? 0 : 5;
+    denom = ly > 0.0f ? ly : -ly;
+  }
+  dom = fmaxf(dom, ay);
+  if (fabsf(lz) > dom) {
+    face = lz > 0.0f ? 2 : 4;
+    denom = lz > 0.0f ? lz : -lz;
+  }
+  const float dsafe = fabsf(denom) > 1e-12f ? denom : 1.0f;
+  const float px = (lx / dsafe) * 0.5f + 0.5f;
+  const float py = (ly / dsafe) * 0.5f + 0.5f;
+  const float pz = (lz / dsafe) * 0.5f + 0.5f;
+  // Per-face texcoord table: u = [px, 1-py, px, pz, 1-py, pz],
+  // v = [1-pz, 1-pz, py, py, 1-px, 1-px].
+  const float u = face == 0 || face == 2 ? px : face == 3 || face == 5 ? pz : 1.0f - py;
+  const float v = face <= 1 ? 1.0f - pz : face <= 3 ? py : 1.0f - px;
+
+  const float au = ((float)face + fminf(fmaxf(u, 0.0f), 1.0f)) / 6.0f;
+  const float av = fminf(fmaxf(v, 0.0f), 1.0f);
+  const float fx = au * (float)A.W6 - 0.5f;
+  const float fy = av * (float)A.H - 0.5f;
+  const int xf = (int)floorf(fx), yf = (int)floorf(fy);
+  const int x0 = xf < 0 ? 0 : xf < A.W6 ? xf : A.W6 - 1;
+  const int y0 = yf < 0 ? 0 : yf < A.H ? yf : A.H - 1;
+  const int x1 = x0 + 1 < A.W6 ? x0 + 1 : A.W6 - 1;
+  const int y1 = y0 + 1 < A.H ? y0 + 1 : A.H - 1;
+  const float wx = fminf(fmaxf(fx - (float)x0, 0.0f), 1.0f);
+  const float wy = fminf(fmaxf(fy - (float)y0, 0.0f), 1.0f);
+  const float4* at = A.texels + (size_t)(ti < A.T ? ti : A.T - 1) * A.H * A.W6;
+  const float4 c00 = __ldg(at + (size_t)y0 * A.W6 + x0);
+  const float4 c01 = __ldg(at + (size_t)y0 * A.W6 + x1);
+  const float4 c10 = __ldg(at + (size_t)y1 * A.W6 + x0);
+  const float4 c11 = __ldg(at + (size_t)y1 * A.W6 + x1);
+  const float owx = 1.0f - wx, owy = 1.0f - wy;
+  cr = cr * ((c00.x * owx + c01.x * wx) * owy + (c10.x * owx + c11.x * wx) * wy);
+  cg = cg * ((c00.y * owx + c01.y * wx) * owy + (c10.y * owx + c11.y * wx) * wy);
+  cb = cb * ((c00.z * owx + c01.z * wx) * owy + (c10.z * owx + c11.z * wx) * wy);
+}
+
+// In-Next-Week shading of one HIT node: refine the winner, probe
 // the surrounding RI where a refraction consumes it, add contrib_post *
 // albedo, and build the refract / reflect children.  GENERIC picks the
 // tables' layout and the refine and probe of rotated ellipsoids and cuboids at
@@ -580,21 +671,23 @@ __device__ __forceinline__ Refined refine_hit(const Tables& T, int obj, float t_
 // together, which this per-lane function cannot.  With GIVEN_REFINE the
 // caller has refined the winner (*given) and this function probes.  Under
 // emissive lights the caller passes the contribution already scaled by the
-// share of lights the hit sees.
-template <bool GENERIC, bool MOTION, bool GIVEN_RI = false, bool GIVEN_REFINE = false>
+// share of lights the hit sees.  With TEX the albedo of a textured winner is
+// textured from `atlas` (texture_albedo).
+template <bool GENERIC, bool MOTION, bool GIVEN_RI = false, bool GIVEN_REFINE = false,
+          bool TEX = false>
 __device__ __forceinline__ Shade shade_hit(
     const Tables& T, const ShadeStatics& S, int obj, float t_sweep, float ox,
     float oy, float oz, float dx, float dy, float dz, float omt, float contrib,
-    float bounced, float sidx, float cth, float sth, const Refined* given = nullptr,
-    float given_ri = 1.0f) {
+    float bounced, float sidx, float cth, float sth, const RefinedT<TEX>* given = nullptr,
+    float given_ri = 1.0f, Atlas atlas = {}) {
   constexpr int COLS = GENERIC ? GFT_COLS : FT_COLS;
   float rowv[COLS];
   load_row<GENERIC>(T, obj, rowv);
-  Refined R;
+  RefinedT<TEX> R;
   if constexpr (GIVEN_RI || GIVEN_REFINE)
     R = *given;
   else
-    R = refine_row<GENERIC, MOTION>(rowv, ox, oy, oz, dx, dy, dz, omt, t_sweep);
+    R = refine_row<GENERIC, MOTION, TEX>(rowv, ox, oy, oz, dx, dy, dz, omt, t_sweep);
   const float nx = R.nx, ny = R.ny, nz = R.nz;
   const float mat_ri = rowv[FT_MRI], refrv = rowv[FT_REFR];
   const float reflv = rowv[FT_REFL], srfr = rowv[FT_SRFR];
@@ -681,9 +774,11 @@ __device__ __forceinline__ Shade shade_hit(
   // term is damped by half of what was forwarded.
   const float fwd = (out.spawn_refr ? refrv : 0.0f) + (out.spawn_refl ? reflv : 0.0f);
   const float contrib_post = contrib * (1.0f - 0.5f * fwd);
-  out.add_r = contrib_post * rowv[FT_CR];
-  out.add_g = contrib_post * rowv[FT_CG];
-  out.add_b = contrib_post * rowv[FT_CB];
+  float cr = rowv[FT_CR], cg = rowv[FT_CG], cb = rowv[FT_CB];
+  if constexpr (TEX) texture_albedo(atlas, rowv[FT_TEX], R.lpx, R.lpy, R.lpz, cr, cg, cb);
+  out.add_r = contrib_post * cr;
+  out.add_g = contrib_post * cg;
+  out.add_b = contrib_post * cb;
   out.hit_t = R.t;
 
   out.refr.ox = R.px - 1e-4f * nox;
@@ -755,16 +850,19 @@ struct MatShade {
 // reflection is lifted off grazing angles and scattered on the fibonacci
 // hemisphere, the refraction scattered likewise.  Local term contrib^2 *
 // albedo; no surrounding-RI probe, no contribution cutoff (a child spawns
-// wherever its contribution is above 0), no forward damping.
-template <bool GENERIC, bool MOTION>
+// wherever its contribution is above 0), no forward damping.  TEX as in
+// shade_hit.
+template <bool GENERIC, bool MOTION, bool TEX = false>
 __device__ __forceinline__ MatShade shade_materials(
     const Tables& T, const ShadeStatics& S, int obj, float t_sweep, float ox, float oy,
     float oz, float dx, float dy, float dz, float omt, float contrib, float bounced,
-    float medium, float parent, float sidx, float cth, float sth) {
+    float medium, float parent, float sidx, float cth, float sth,
+    Atlas atlas = {}) {
   constexpr int COLS = GENERIC ? GFT_COLS : FT_COLS;
   float rowv[COLS];
   load_row<GENERIC>(T, obj, rowv);
-  const Refined R = refine_row<GENERIC, MOTION>(rowv, ox, oy, oz, dx, dy, dz, omt, t_sweep);
+  const RefinedT<TEX> R =
+      refine_row<GENERIC, MOTION, TEX>(rowv, ox, oy, oz, dx, dy, dz, omt, t_sweep);
   const float nx = R.nx, ny = R.ny, nz = R.nz;
   const float refrv = rowv[FT_REFR], reflv = rowv[FT_REFL];
   const float srfr = rowv[FT_SRFR], srfl = rowv[FT_SRFL];
@@ -827,9 +925,11 @@ __device__ __forceinline__ MatShade shade_materials(
   out.spawn_refl = depth_ok && (!inner || tir) && (contrib * refl_c > 0.0f);
   out.spawn_refr = depth_ok && !tir && (contrib * refr_c > 0.0f);
   const float hc = contrib * contrib;
-  out.add_r = hc * rowv[FT_CR];
-  out.add_g = hc * rowv[FT_CG];
-  out.add_b = hc * rowv[FT_CB];
+  float cr = rowv[FT_CR], cg = rowv[FT_CG], cb = rowv[FT_CB];
+  if constexpr (TEX) texture_albedo(atlas, rowv[FT_TEX], R.lpx, R.lpy, R.lpz, cr, cg, cb);
+  out.add_r = hc * cr;
+  out.add_g = hc * cg;
+  out.add_b = hc * cb;
   out.hit_t = R.t;
   out.refr.ox = R.px + 1e-4f * n2x;
   out.refr.oy = R.py + 1e-4f * n2y;

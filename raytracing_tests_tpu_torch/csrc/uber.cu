@@ -1,8 +1,8 @@
 // Persistent whole-frame path tracer for Hopper (sm_90a).
 //
 // Replaces the TPU kernel raytracing_tests_tpu/kernels/uber.py::_uber_kernel
-// (launched by _uber_call), without textures, in twelve instantiations chosen
-// by the host function: sphere-mode scenes (anchored sphere quadratic over the
+// (launched by _uber_call), in twenty-four instantiations chosen by the host
+// function: sphere-mode scenes (anchored sphere quadratic over the
 // sweep2 tables) and generic scenes (rotated ellipsoids and cuboids over the
 // sweep2g tables, with super-group culling and per-group kinds), each static
 // or with motion blur (every centre shifted by omt * dp, omt = 1 - s / spp of
@@ -10,9 +10,19 @@
 // In-Next-Week ('bvh'); 'bvh' with emissive lights (a shadow ray per light
 // from every hit, through the same warp sweep, scales its contribution; a hit
 // on an emissive object paints the sample white and ends its tree); and the
-// Shirley materials (per-ray medium RI, Schlick shift, fibonacci scatter).
-// Mode, motion and shading are template parameters, so the static 'bvh'
-// sphere instantiation carries none of the other code's registers.
+// Shirley materials (per-ray medium RI, Schlick shift, fibonacci scatter);
+// each untextured or with cube-sphere atlas textures (TEX: a textured
+// winner's albedo times a bilinear sample of its atlas at the cube-sphere UV
+// of its unit-space hit position, rt_common.cuh::texture_albedo).  Mode,
+// motion, shading and textures are template parameters, so the static 'bvh'
+// sphere instantiation carries none of the other code's registers.  This
+// source builds the twelve untextured instantiations; uber_tex.cu builds it
+// again with RT_UBER_TEX = 1 for the twelve textured ones, a library of their
+// own, so that both compile in parallel.
+// The camera is a perspective lens with up to 7 focus distances (sample s
+// focuses at the (s % K)-th), optionally jittered per sample on the aa_grid
+// supersampling grid (a table of spp screen offsets), or orthographic:
+// branches on launch-uniform parameters, taken once per primary.
 // Per primary p (pixel p / spp,
 // sample p % spp) generate the camera ray, then walk its ray tree with a LIFO
 // stack of Q records (o3, d3, contribution, bounce count, and under materials
@@ -43,6 +53,10 @@
 // a vector core and have no counterpart.
 #include "warp_sweep.cuh"
 
+#ifndef RT_UBER_TEX
+#define RT_UBER_TEX 0  // this library's instantiations: untextured
+#endif
+
 namespace {
 
 // Shadings (kernels/uber.py::SHADING_CODE).
@@ -52,16 +66,21 @@ enum { SH_BVH = 0, SH_LIGHTS = 1, SH_MATERIALS = 2 };
 enum {
   CAM_PX = 0, CAM_PY, CAM_PZ, CAM_DX, CAM_DY, CAM_DZ,
   CAM_RX, CAM_RY, CAM_RZ, CAM_UX, CAM_UY, CAM_UZ,
-  CAM_SD, CAM_AP, CAM_FD, CAM_STRIDE, CAM_ROW0, CAM_PAD, CAM_LEN = 24
+  CAM_SD, CAM_AP, CAM_FD, CAM_STRIDE, CAM_ROW0, CAM_PAD /* ortho height */,
+  CAM_FD2 /* focus distances 2..7 */, CAM_LEN = 24,
+  // an orthographic camera's tail: right / |right| and up / |up|
+  CAM_RNX = CAM_FD2, CAM_UNX = CAM_FD2 + 3
 };
 
 // Host-side parameter vectors (kernels/uber.py fills them).
 // IP_COOP_MIN: a group that fewer lanes of a warp entered is swept
 // row-parallel (warp_sweep.cuh); 1 never, 33 always.
 // IP_SHADING: SH_*; IP_NLIGHTS: rows of the lights table (SH_LIGHTS).
+// IP_NFOCUS: focus distances (1..7); IP_ORTHO: orthographic camera;
+// IP_TEX_*: the atlas stack's T, H, W6 (textured instantiations).
 enum { IP_W = 0, IP_H /* unused: 1/H comes in fp */, IP_SPP, IP_Q, IP_POPS, IP_HAS_DIEL, IP_NGROUPS, IP_GR,
        IP_NPGROUPS, IP_PROBE_GR, IP_GENERIC, IP_NSGROUPS, IP_MOTION, IP_COOP_MIN,
-       IP_SHADING, IP_NLIGHTS, IP_LEN };
+       IP_SHADING, IP_NLIGHTS, IP_NFOCUS, IP_ORTHO, IP_TEX_T, IP_TEX_H, IP_TEX_W6, IP_LEN };
 enum { FP_TMAX = 0, FP_GOLDEN, FP_INV_W, FP_INV_H, FP_ASPECT,
        FP_SUN_N, FP_SUN_NMB, FP_SUN_DENOM, FP_SUN_INV_DENOM, FP_MAX_BOUNCES,
        FP_BG_BOTTOM, FP_BG_TOP = FP_BG_BOTTOM + 3, FP_INV_SPP = FP_BG_TOP + 3,
@@ -73,10 +92,12 @@ enum { FP_TMAX = 0, FP_GOLDEN, FP_INV_W, FP_INV_H, FP_ASPECT,
 // The last three measure the warp sweeps (rt::WarpCounts): rows each lane's
 // own walk needed, 32 x the row iterations the warps issued (SIMT efficiency =
 // ST_ROW_TESTS / ST_LANE_SLOTS), group visits served row-parallel; then the
-// shadow rays swept (SH_LIGHTS; their rows are in the counters before).
+// shadow rays swept (SH_LIGHTS; their rows are in the counters before), and
+// the atlas samples taken (textured instantiations: shaded hits on a winner
+// with a texture index).
 enum { ST_NEXT = 0, ST_RAYS, ST_DROPPED, ST_SPHERE_TESTS, ST_SLAB_TESTS,
        ST_OTHER_TESTS, ST_HITS, ST_ROW_TESTS, ST_LANE_SLOTS, ST_COOP_VISITS,
-       ST_SHADOW_RAYS, ST_LEN };
+       ST_SHADOW_RAYS, ST_TEX_SAMPLES, ST_LEN };
 
 struct UberParams {
   int W, spp, Q, pops, coop_min, n_lights;
@@ -87,6 +108,15 @@ struct UberParams {
   rt::ShadeStatics shade;
 };
 
+// The camera's variants: aa, the aa_grid screen offset (x, y) of each sample,
+// or null; the focus distances; an orthographic camera.  A kernel parameter
+// of its own, as the atlas is: added to UberParams, they changed the
+// register allocation of three untextured instantiations (PERF.md).
+struct CameraVariants {
+  const float* aa;
+  int n_focus, ortho;
+};
+
 // A ray of the tree; medium and parent (the RIs of the medium it travels in
 // and of its parent's) are read under materials shading only.
 struct Ray {
@@ -95,10 +125,13 @@ struct Ray {
 
 // Primary ray of global index p: perspective screen direction from the
 // unnormalised right/up basis, then the sunflower thin-lens pivot about the
-// focal point.  Also returns cos/sin(GOLDEN_ANGLE * s), reused by the scatter
-// cones of the whole tree, and the sample index s itself (the tree's time is
-// s / spp).
-__device__ __forceinline__ Ray raygen(const UberParams& P,
+// focal point (focus distance the (s % K)-th of K).  With an aa table the
+// screen point moves by the sample's jitter first; an orthographic camera
+// instead starts a ray parallel to the view direction from the view-plane
+// lattice (no lens).  Also returns cos/sin(GOLDEN_ANGLE * s), reused by the
+// scatter cones of the whole tree, and the sample index s itself (the tree's
+// time is s / spp).
+__device__ __forceinline__ Ray raygen(const UberParams& P, const CameraVariants& V,
                                       const float* __restrict__ cam,
                                       unsigned long long p, float& sidx,
                                       float& cth, float& sth) {
@@ -108,8 +141,33 @@ __device__ __forceinline__ Ray raygen(const UberParams& P,
   const int ix = (int)(pix % (unsigned)P.W);
   const int iyi = (int)(pix / (unsigned)P.W);
   const float iy = (float)iyi * __ldg(cam + CAM_STRIDE) + __ldg(cam + CAM_ROW0);
-  const float pxs = ((float)ix * P.inv_W - 0.5f) * P.aspect;
-  const float pys = iy * P.inv_H - 0.5f;
+  float pxs = ((float)ix * P.inv_W - 0.5f) * P.aspect;
+  float pys = iy * P.inv_H - 0.5f;
+  if (V.aa != nullptr) {
+    pxs = pxs + __ldg(V.aa + 2 * s_i);
+    pys = pys + __ldg(V.aa + 2 * s_i + 1);
+  }
+  Ray ray;
+  ray.contrib = 1.0f;
+  ray.bounced = 0.0f;
+  ray.medium = 1.0f;
+  ray.parent = 1.0f;
+  sidx = sf;
+  if (V.ortho) {
+    // origin pos + h (pxs r / |r| + pys u / |u|), the unit vectors packed by
+    // the host (normalised by division)
+    const float sxh = pxs * __ldg(cam + CAM_PAD), syh = pys * __ldg(cam + CAM_PAD);
+    ray.ox = __ldg(cam + CAM_PX) + sxh * __ldg(cam + CAM_RNX) + syh * __ldg(cam + CAM_UNX);
+    ray.oy = __ldg(cam + CAM_PY) + sxh * __ldg(cam + CAM_RNX + 1) + syh * __ldg(cam + CAM_UNX + 1);
+    ray.oz = __ldg(cam + CAM_PZ) + sxh * __ldg(cam + CAM_RNX + 2) + syh * __ldg(cam + CAM_UNX + 2);
+    ray.dx = __ldg(cam + CAM_DX);
+    ray.dy = __ldg(cam + CAM_DY);
+    ray.dz = __ldg(cam + CAM_DZ);
+    const float th = P.golden * sf;
+    cth = cosf(th);
+    sth = sinf(th);
+    return ray;
+  }
   const float sd = __ldg(cam + CAM_SD);
   float bdx = __ldg(cam + CAM_DX) * sd + __ldg(cam + CAM_RX) * pxs + __ldg(cam + CAM_UX) * pys;
   float bdy = __ldg(cam + CAM_DY) * sd + __ldg(cam + CAM_RY) * pxs + __ldg(cam + CAM_UY) * pys;
@@ -129,7 +187,6 @@ __device__ __forceinline__ Ray raygen(const UberParams& P,
   const float th = P.golden * sf;
   cth = cosf(th);
   sth = sinf(th);
-  sidx = sf;
   const float offx = r * cth, offy = r * sth;
   // cross(base, up) and cross(that, base)
   const float rrx = -bdz, rry = 0.0f, rrz = bdx;
@@ -137,7 +194,11 @@ __device__ __forceinline__ Ray raygen(const UberParams& P,
   const float ruy = rrz * bdx - rrx * bdz;
   const float ruz = rrx * bdy - rry * bdx;
 
-  const float fd = __ldg(cam + CAM_FD);
+  float fd = __ldg(cam + CAM_FD);
+  if (V.n_focus > 1) {
+    const int k = s_i % V.n_focus;
+    if (k > 0) fd = __ldg(cam + CAM_FD2 + k - 1);
+  }
   const float cpx = __ldg(cam + CAM_PX), cpy = __ldg(cam + CAM_PY), cpz = __ldg(cam + CAM_PZ);
   const float tipx = cpx + bdx + rrx * offx + rux * offy;
   const float tipy = cpy + bdy + rry * offx + ruy * offy;
@@ -149,17 +210,12 @@ __device__ __forceinline__ Ray raygen(const UberParams& P,
   ddx *= dinv;
   ddy *= dinv;
   ddz *= dinv;
-  Ray ray;
   ray.ox = tipx - ddx;
   ray.oy = tipy - ddy;
   ray.oz = tipz - ddz;
   ray.dx = ddx;
   ray.dy = ddy;
   ray.dz = ddz;
-  ray.contrib = 1.0f;
-  ray.bounced = 0.0f;
-  ray.medium = 1.0f;
-  ray.parent = 1.0f;
   return ray;
 }
 
@@ -171,15 +227,20 @@ __device__ __forceinline__ Ray raygen(const UberParams& P,
 // MIN_BLOCKS_MATERIALS (sphere, generic), the fastest of 3 to 8 on their
 // frames (chip_k1.py --bounds, PERF.md): generic lights 6 (80 registers and
 // 136 B of spill beat 96 registers at 5), sphere lights 5, sphere materials 6;
-// generic materials, on no frame, takes the generic 'bvh' bound.
+// generic materials, on no frame, takes the generic 'bvh' bound.  Of the
+// textured instantiations the static sphere 'bvh' one, which the texturing
+// frames run, takes MIN_BLOCKS_TEX_SPHERE (chip_k1.py --bounds); the others
+// take their untextured twin's bound.
 constexpr int MIN_BLOCKS_SPHERE = 6;
 constexpr int MIN_BLOCKS_GENERIC = 5;
 constexpr int MIN_BLOCKS_LIGHTS[2] = {5, 6};
 constexpr int MIN_BLOCKS_MATERIALS[2] = {6, 5};
+constexpr int MIN_BLOCKS_TEX_SPHERE = 6;
 
-template <bool GENERIC, int SHADING>
+template <bool GENERIC, int SHADING, bool TEX>
 constexpr int min_blocks() {
-  return SHADING == SH_LIGHTS      ? MIN_BLOCKS_LIGHTS[GENERIC]
+  return TEX && !GENERIC && SHADING == SH_BVH ? MIN_BLOCKS_TEX_SPHERE
+         : SHADING == SH_LIGHTS    ? MIN_BLOCKS_LIGHTS[GENERIC]
          : SHADING == SH_MATERIALS ? MIN_BLOCKS_MATERIALS[GENERIC]
          : GENERIC                 ? MIN_BLOCKS_GENERIC
                                    : MIN_BLOCKS_SPHERE;
@@ -190,12 +251,12 @@ constexpr int THREADS = 128;
 // live_rows: (n_groups,) int32, each main group's last live row + 1.
 // lights: (n_lights, 8) float32 (SH_LIGHTS only).  stack: the scratch of
 // P.stack_stride threads x Q records of REC floats.
-template <bool GENERIC, bool MOTION, int SHADING>
-__global__ void __launch_bounds__(THREADS, min_blocks<GENERIC, SHADING>())
-uber_kernel(rt::Tables T, UberParams P, const float* __restrict__ cam,
-            const int* __restrict__ live_rows, const float* __restrict__ lights,
-            float* __restrict__ stack, float4* __restrict__ out,
-            unsigned long long* __restrict__ stats) {
+template <bool GENERIC, bool MOTION, int SHADING, bool TEX>
+__global__ void __launch_bounds__(THREADS, min_blocks<GENERIC, SHADING, TEX>())
+uber_kernel(rt::Tables T, UberParams P, CameraVariants V, rt::Atlas atlas,
+            const float* __restrict__ cam, const int* __restrict__ live_rows,
+            const float* __restrict__ lights, float* __restrict__ stack,
+            float4* __restrict__ out, unsigned long long* __restrict__ stats) {
   constexpr bool MAT = SHADING == SH_MATERIALS;
   constexpr bool LIGHTS = SHADING == SH_LIGHTS;
   constexpr int REC = MAT ? 10 : 8;  // floats per stacked record
@@ -213,6 +274,7 @@ uber_kernel(rt::Tables T, UberParams P, const float* __restrict__ cam,
   int qs = 0, cnt = 0;
   unsigned n_rays = 0, n_drop = 0, n_hits = 0;  // this thread's; n_hits: generic only
   unsigned n_shadow = 0;                         // SH_LIGHTS only
+  unsigned n_tex = 0;                            // TEX only
   rt::WarpCounts wc = {};
 
   for (;;) {
@@ -231,7 +293,7 @@ uber_kernel(rt::Tables T, UberParams P, const float* __restrict__ cam,
           exhausted = true;
         } else {
           p = pp;
-          cur = raygen(P, cam, p, sidx, cth, sth);
+          cur = raygen(P, V, cam, p, sidx, cth, sth);
           if (MOTION) omt = 1.0f - sidx / (float)P.spp;
           acc_r = acc_g = acc_b = 0.0f;
           acc_t = P.t_max;
@@ -260,13 +322,13 @@ uber_kernel(rt::Tables T, UberParams P, const float* __restrict__ cam,
     // ---- lights: refine the hit, then every lane sweeps its shadow rays --
     bool white = false;  // the node hit an emissive object
     float lit = 1.0f;    // share of the lights its hit sees
-    rt::Refined R = {};
+    rt::RefinedT<TEX> R = {};
     if constexpr (LIGHTS) {
       constexpr int COLS = GENERIC ? rt::GFT_COLS : rt::FT_COLS;
       bool did_hit = false;
       if (act && obj >= 0) {
-        R = rt::refine_hit<GENERIC, MOTION>(T, obj, t_best, cur.ox, cur.oy, cur.oz,
-                                            cur.dx, cur.dy, cur.dz, omt);
+        R = rt::refine_hit<GENERIC, MOTION, TEX>(T, obj, t_best, cur.ox, cur.oy, cur.oz,
+                                                 cur.dx, cur.dy, cur.dz, omt);
         white = __ldg(T.ftab + (size_t)obj * COLS + rt::FT_EMIS) > 0.5f;
         did_hit = !white;
       }
@@ -285,9 +347,9 @@ uber_kernel(rt::Tables T, UberParams P, const float* __restrict__ cam,
     float refr_medium = 1.0f, refr_parent = 1.0f;  // materials only
     if (obj >= 0) {
       if constexpr (MAT) {
-        const rt::MatShade sh = rt::shade_materials<GENERIC, MOTION>(
+        const rt::MatShade sh = rt::shade_materials<GENERIC, MOTION, TEX>(
             T, P.shade, obj, t_best, cur.ox, cur.oy, cur.oz, cur.dx, cur.dy, cur.dz, omt,
-            cur.contrib, cur.bounced, cur.medium, cur.parent, sidx, cth, sth);
+            cur.contrib, cur.bounced, cur.medium, cur.parent, sidx, cth, sth, atlas);
         add_r = sh.add_r;
         add_g = sh.add_g;
         add_b = sh.add_b;
@@ -303,9 +365,9 @@ uber_kernel(rt::Tables T, UberParams P, const float* __restrict__ cam,
           add_r = add_g = add_b = 0.0f;
           hit_t = R.t;
         } else {
-          const rt::Shade sh = rt::shade_hit<GENERIC, MOTION, false, true>(
+          const rt::Shade sh = rt::shade_hit<GENERIC, MOTION, false, true, TEX>(
               T, P.shade, obj, t_best, cur.ox, cur.oy, cur.oz, cur.dx, cur.dy, cur.dz,
-              omt, cur.contrib * lit, cur.bounced, sidx, cth, sth, &R);
+              omt, cur.contrib * lit, cur.bounced, sidx, cth, sth, &R, 1.0f, atlas);
           add_r = sh.add_r;
           add_g = sh.add_g;
           add_b = sh.add_b;
@@ -316,9 +378,9 @@ uber_kernel(rt::Tables T, UberParams P, const float* __restrict__ cam,
           refl = sh.refl;
         }
       } else {
-        const rt::Shade sh = rt::shade_hit<GENERIC, MOTION>(
+        const rt::Shade sh = rt::shade_hit<GENERIC, MOTION, false, false, TEX>(
             T, P.shade, obj, t_best, cur.ox, cur.oy, cur.oz, cur.dx, cur.dy,
-            cur.dz, omt, cur.contrib, cur.bounced, sidx, cth, sth);
+            cur.dz, omt, cur.contrib, cur.bounced, sidx, cth, sth, nullptr, 1.0f, atlas);
         add_r = sh.add_r;
         add_g = sh.add_g;
         add_b = sh.add_b;
@@ -335,6 +397,11 @@ uber_kernel(rt::Tables T, UberParams P, const float* __restrict__ cam,
       add_g = cur.contrib * ((1.0f - tt) * P.bg_bottom[1] + tt * P.bg_top[1]);
       add_b = cur.contrib * ((1.0f - tt) * P.bg_bottom[2] + tt * P.bg_top[2]);
       hit_t = P.t_max;
+    }
+    if constexpr (TEX) {
+      constexpr int COLS = GENERIC ? rt::GFT_COLS : rt::FT_COLS;
+      if (obj >= 0 && !white && __ldg(T.ftab + (size_t)obj * COLS + rt::FT_TEX) > 0.5f)
+        n_tex += 1;
     }
     if (cur.bounced == 0.0f) acc_t = hit_t;  // primary hit distance
     acc_r += add_r;
@@ -460,12 +527,19 @@ uber_kernel(rt::Tables T, UberParams P, const float* __restrict__ cam,
     for (int off = 16; off > 0; off >>= 1) shadow += __shfl_down_sync(FULL, shadow, off);
     if (lane == 0) atomicAdd(&stats[ST_SHADOW_RAYS], shadow);
   }
+  if constexpr (TEX) {
+    unsigned long long samples = n_tex;
+    for (int off = 16; off > 0; off >>= 1) samples += __shfl_down_sync(FULL, samples, off);
+    if (lane == 0) atomicAdd(&stats[ST_TEX_SAMPLES], samples);
+  }
 }
 
 // Everything one launch needs, as the host function received it.
 struct Launch {
   rt::Tables T;
   UberParams P;
+  CameraVariants V;
+  rt::Atlas atlas;
   const float* cam;
   const int* live_rows;
   const float* lights;
@@ -477,7 +551,7 @@ struct Launch {
 
 // Fill the card once: as many resident blocks as it holds, no more than the
 // frame has primaries for -> the blocks, or a negative CUDA error code.
-template <bool GENERIC, bool MOTION, int SHADING>
+template <bool GENERIC, bool MOTION, int SHADING, bool TEX>
 long long resident_blocks(unsigned long long B_total) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -485,7 +559,7 @@ long long resident_blocks(unsigned long long B_total) {
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return -(long long)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, uber_kernel<GENERIC, MOTION, SHADING>, THREADS, 0);
+      &per_sm, uber_kernel<GENERIC, MOTION, SHADING, TEX>, THREADS, 0);
   if (e != cudaSuccess) return -(long long)e;
   if (per_sm < 1) per_sm = 1;
   long long blocks = (long long)sms * per_sm;
@@ -496,37 +570,38 @@ long long resident_blocks(unsigned long long B_total) {
 // With L: launch on as many of those blocks as the stack buffer holds
 // (L->P.stack_stride threads) -> cudaGetLastError().  Without: the threads a
 // launch keeps resident, for the wrapper to size the stack buffer by.
-template <bool GENERIC, bool MOTION, int SHADING>
+template <bool GENERIC, bool MOTION, int SHADING, bool TEX>
 long long run(const Launch* L, unsigned long long B_total) {
-  long long blocks = resident_blocks<GENERIC, MOTION, SHADING>(B_total);
+  long long blocks = resident_blocks<GENERIC, MOTION, SHADING, TEX>(B_total);
   if (blocks < 0) return blocks;
   if (L == nullptr) return blocks * THREADS;
   const long long fit = (long long)L->P.stack_stride / THREADS;
   if (fit < 1) return (long long)cudaErrorInvalidValue;
   if (blocks > fit) blocks = fit;
-  const auto kernel = uber_kernel<GENERIC, MOTION, SHADING>;
-  RT_LAUNCH(kernel, (int)blocks, THREADS, L->stream, L->T, L->P, L->cam, L->live_rows,
-            L->lights, L->stack, L->out, L->stats);
+  const auto kernel = uber_kernel<GENERIC, MOTION, SHADING, TEX>;
+  RT_LAUNCH(kernel, (int)blocks, THREADS, L->stream, L->T, L->P, L->V, L->atlas, L->cam,
+            L->live_rows, L->lights, L->stack, L->out, L->stats);
   return static_cast<long long>(cudaGetLastError());
 }
 
-// The instantiation ip selects.
+// The instantiation ip selects, among this library's (TEX = RT_UBER_TEX).
 long long dispatch(const int* ip, const Launch* L, unsigned long long B_total) {
+  constexpr bool TEX = RT_UBER_TEX != 0;
   const int g = ip[IP_GENERIC] ? 1 : 0, m = ip[IP_MOTION] ? 1 : 0, sh = ip[IP_SHADING];
   if (sh < SH_BVH || sh > SH_MATERIALS) return -(long long)cudaErrorInvalidValue;
   switch ((g * 2 + m) * 3 + sh) {
-    case 0: return run<false, false, SH_BVH>(L, B_total);
-    case 1: return run<false, false, SH_LIGHTS>(L, B_total);
-    case 2: return run<false, false, SH_MATERIALS>(L, B_total);
-    case 3: return run<false, true, SH_BVH>(L, B_total);
-    case 4: return run<false, true, SH_LIGHTS>(L, B_total);
-    case 5: return run<false, true, SH_MATERIALS>(L, B_total);
-    case 6: return run<true, false, SH_BVH>(L, B_total);
-    case 7: return run<true, false, SH_LIGHTS>(L, B_total);
-    case 8: return run<true, false, SH_MATERIALS>(L, B_total);
-    case 9: return run<true, true, SH_BVH>(L, B_total);
-    case 10: return run<true, true, SH_LIGHTS>(L, B_total);
-    default: return run<true, true, SH_MATERIALS>(L, B_total);
+    case 0: return run<false, false, SH_BVH, TEX>(L, B_total);
+    case 1: return run<false, false, SH_LIGHTS, TEX>(L, B_total);
+    case 2: return run<false, false, SH_MATERIALS, TEX>(L, B_total);
+    case 3: return run<false, true, SH_BVH, TEX>(L, B_total);
+    case 4: return run<false, true, SH_LIGHTS, TEX>(L, B_total);
+    case 5: return run<false, true, SH_MATERIALS, TEX>(L, B_total);
+    case 6: return run<true, false, SH_BVH, TEX>(L, B_total);
+    case 7: return run<true, false, SH_LIGHTS, TEX>(L, B_total);
+    case 8: return run<true, false, SH_MATERIALS, TEX>(L, B_total);
+    case 9: return run<true, true, SH_BVH, TEX>(L, B_total);
+    case 10: return run<true, true, SH_LIGHTS, TEX>(L, B_total);
+    default: return run<true, true, SH_MATERIALS, TEX>(L, B_total);
   }
 }
 
@@ -543,23 +618,30 @@ extern "C" long long rt_uber_threads(const int* ip, long long B_total) {
 // out: (B_total, 4) float32; stats: uint64[ST_LEN], zeroed by the caller;
 // cam: device (24,) float32; live_rows: device (n_groups,) int32, each main
 // group's last live row + 1; lights: device (n_lights, 8) float32 under
-// SH_LIGHTS, else unused; stack: device float32 scratch of stack_threads x Q
-// x REC (8, or 10 under SH_MATERIALS) floats, stack_threads at least one
-// block (rt_uber_threads gives what a launch uses); ip / fp: HOST parameter
-// vectors (IP_* / FP_* above); ip[IP_GENERIC], ip[IP_MOTION] and
-// ip[IP_SHADING] pick the instantiation, and with it the layout the three
-// tables must have.  Launches on `stream`, does not synchronise, returns
-// cudaGetLastError().
+// SH_LIGHTS, else unused; atlas: device (T, H, W6) float4 texels
+// (kernels/texture.py::pack_atlas) for this library's textured
+// instantiations, null for the untextured ones; aa: device (spp, 2) float32
+// aa_grid screen offsets of each sample (kernels/uber.py::aa_table), or null;
+// stack: device float32 scratch of stack_threads x Q x REC (8, or 10 under
+// SH_MATERIALS) floats, stack_threads at least one block (rt_uber_threads
+// gives what a launch uses); ip / fp: HOST parameter vectors (IP_* / FP_*
+// above); ip[IP_GENERIC], ip[IP_MOTION] and ip[IP_SHADING] pick the
+// instantiation, and with it the layout the three tables must have.
+// Launches on `stream`, does not synchronise, returns cudaGetLastError().
 extern "C" int rt_uber_render(const void* otab, const void* ftab,
                               const void* gaabb, const void* live_rows,
-                              const void* cam, const void* lights, const int* ip,
-                              const float* fp, long long B_total, void* out,
-                              void* stats, void* stack, long long stack_threads,
-                              void* stream) {
+                              const void* cam, const void* lights, const void* atlas,
+                              const void* aa, const int* ip, const float* fp,
+                              long long B_total, void* out, void* stats, void* stack,
+                              long long stack_threads, void* stream) {
   if (B_total <= 0) return 0;
   if (ip[IP_Q] < 0 || stack == nullptr || stack_threads < 1)
     return (int)cudaErrorInvalidValue;
   if (ip[IP_SHADING] == SH_LIGHTS && (ip[IP_NLIGHTS] < 1 || lights == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if ((atlas != nullptr) != (RT_UBER_TEX != 0) || ip[IP_NFOCUS] < 1 || ip[IP_NFOCUS] > 7)
+    return (int)cudaErrorInvalidValue;
+  if (atlas != nullptr && (ip[IP_TEX_T] < 1 || ip[IP_TEX_H] < 1 || ip[IP_TEX_W6] < 1))
     return (int)cudaErrorInvalidValue;
   Launch L;
   L.T.otab = static_cast<const float*>(otab);
@@ -578,6 +660,13 @@ extern "C" int rt_uber_render(const void* otab, const void* ftab,
   P.pops = ip[IP_POPS];
   P.coop_min = ip[IP_COOP_MIN];
   P.n_lights = ip[IP_SHADING] == SH_LIGHTS ? ip[IP_NLIGHTS] : 0;
+  L.V.aa = static_cast<const float*>(aa);
+  L.V.n_focus = ip[IP_NFOCUS];
+  L.V.ortho = ip[IP_ORTHO];
+  L.atlas.texels = static_cast<const float4*>(atlas);
+  L.atlas.T = ip[IP_TEX_T];
+  L.atlas.H = ip[IP_TEX_H];
+  L.atlas.W6 = ip[IP_TEX_W6];
   P.B_total = (unsigned long long)B_total;
   P.stack_stride = (unsigned long long)stack_threads;
   P.t_max = fp[FP_TMAX];

@@ -1,7 +1,10 @@
 """The hot paths: hand-written CUDA kernels with their plain PyTorch versions.
 
-  - ``uber``:    whole-frame persistent path tracer (``csrc/uber.cu``), sphere
-                 and generic scenes, static or with motion blur.
+  - ``uber``:    whole-frame persistent path tracer (``csrc/uber.cu``, and
+                 ``csrc/uber_tex.cu`` for textured scenes), sphere and generic
+                 scenes, static or with motion blur.
+  - ``texture``: the atlas layout the persistent kernel samples
+                 (``pack_atlas``) and the plain sampler.
   - ``mega``:    the chunked megakernel ``mega_step`` (``csrc/mega.cu``): one
                  fused trace-and-shade step per lane; and the shading model as
                  tensor code.

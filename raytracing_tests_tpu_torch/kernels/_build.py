@@ -32,7 +32,7 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 
-SOURCES = ("mega.cu", "sweep.cu", "sweep2.cu", "sweep2g.cu", "uber.cu")
+SOURCES = ("mega.cu", "sweep.cu", "sweep2.cu", "sweep2g.cu", "uber.cu", "uber_tex.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -39,13 +39,14 @@ import torch
 
 from raytracing_tests_tpu_torch.kernels import _build
 from raytracing_tests_tpu_torch.kernels.sweep2 import (
-    FT_CB, FT_CR, FT_EMIS, FT_MRI, FT_REFL, FT_REFR, FT_SRFL, FT_SRFR, PROBE_GR,
+    FT_CB, FT_CR, FT_EMIS, FT_MRI, FT_REFL, FT_REFR, FT_SRFL, FT_SRFR, FT_TEX, PROBE_GR,
     Accel2, _check_tensor, _dot3, _gather_rows, _ri_probe, _sweep_plain,
     _winner_refine, check_accel, live_rows,
 )
 from raytracing_tests_tpu_torch.kernels.sweep2g import (
     _gather_rows_g, _ri_probe_g, _sweep_plain_g, _winner_refine_g,
 )
+from raytracing_tests_tpu_torch.kernels.texture import texture_color
 
 # The angle every sunflower lattice turns by, rounded to float32 once.
 GOLDEN_ANGLE = float(np.float32(np.pi * (3.0 - np.sqrt(5.0))))
@@ -202,7 +203,8 @@ class Shaded:
 
 
 def _refine(accel, o, d, t_best, obj, hit, omt):
-    """The winners' ftab rows and their refine -> (rows, t_best, p, n); the
+    """The winners' ftab rows and their refine -> (rows, t_best, p, n, omt,
+    lp): ``lp`` the unit-space hit position (the normal for spheres); the
     accel's own ``omt`` rule (None unless it moves, required if it does)."""
     if not accel.has_motion:
         omt = None
@@ -210,25 +212,37 @@ def _refine(accel, o, d, t_best, obj, hit, omt):
         raise ValueError("a moving accel needs omt = 1 - time_ratio per ray")
     if accel.mode == "generic":
         rows = _gather_rows_g(accel, obj)
-        t_best, _, p, n, _ = _winner_refine_g(rows, o, d, t_best, hit, omt)
+        t_best, _, p, n, lp = _winner_refine_g(rows, o, d, t_best, hit, omt)
     else:
         rows = _gather_rows(accel, obj)
         t_best, _, p, n = _winner_refine(rows, o, d, t_best, hit, omt)
-    return rows, t_best, p, n, omt
+        lp = n
+    return rows, t_best, p, n, omt, lp
+
+
+def _albedo(rows, lp, texels):
+    """The winners' albedo (B, 3): textured by ``texture.texture_color``
+    where a winner carries a texture index and ``texels`` (``pack_atlas``)
+    are given."""
+    color = rows[:, FT_CR:FT_CB + 1]
+    if texels is None:
+        return color
+    return texture_color(color, torch.round(rows[:, FT_TEX]).to(torch.int64), lp, texels)
 
 
 def _shade_hits(accel, o, d, contrib, bounced, active, sidx, t_best,
                 obj, hit, bg, *, has_dielectrics: bool, spp: int,
                 max_bounces: int, t_max: float, trig, omt=None,
-                lights=None) -> Shaded:
+                lights=None, texels=None) -> Shaded:
     """Winner row + refine + surrounding-RI + INW shading + child-ray
     construction for a batch of nodes (hits and misses alike: ``hit`` masks).
     ``omt`` (B,) = 1 - time_ratio, read only by a moving accel.  ``lights``
     ((n_lights, 8), ``uber.pack_lights``): a hit on an emissive object paints
     its sample white (``Shaded.white``) and spawns nothing; every other hit's
-    contribution is scaled by the fraction of lights it sees."""
+    contribution is scaled by the fraction of lights it sees.  ``texels``
+    (``texture.pack_atlas``): the albedo of a textured winner is textured."""
     generic = accel.mode == "generic"
-    rows, t_best, p, n, omt = _refine(accel, o, d, t_best, obj, hit, omt)
+    rows, t_best, p, n, omt, lp = _refine(accel, o, d, t_best, obj, hit, omt)
 
     did_hit = hit
     white = None
@@ -298,7 +312,7 @@ def _shade_hits(accel, o, d, contrib, bounced, active, sidx, t_best,
     fwd = torch.where(spawn_refr, refrv, zero) + torch.where(spawn_refl, reflv, zero)
     contrib_post = contrib * (1.0 - 0.5 * fwd)
     hit_c = torch.where(did_hit, contrib_post, zero)
-    add = add + hit_c[:, None] * rows[:, FT_CR:FT_CB + 1]
+    add = add + hit_c[:, None] * _albedo(rows, lp, texels)
 
     hit_t = torch.where(hit, t_best, torch.full_like(t_best, t_max))
     return Shaded(
@@ -311,15 +325,17 @@ def _shade_hits(accel, o, d, contrib, bounced, active, sidx, t_best,
 
 def _shade_materials_k(accel, o, d, contrib, bounced, active, sidx, t_best,
                        obj, hit, bg, medium, parent, *, spp: int,
-                       max_bounces: int, t_max: float, trig, omt=None) -> Shaded:
+                       max_bounces: int, t_max: float, trig, omt=None,
+                       texels=None) -> Shaded:
     """``ops.render._shade_materials`` for a batch of nodes, in the
     persistent kernel's arithmetic: the Shirley-materials model with the
     per-ray medium RI (``medium``, ``parent`` (B,)), Schlick contribution
     shift, fibonacci-hemisphere scatter, total internal reflection turned
     into a contribution-1 reflection, the ``contrib^2 * albedo`` local term,
     no surrounding-RI probe and no contribution cutoff.  The children carry
-    their media in ``Shaded``'s ``refr_*`` / ``refl_*`` fields."""
-    rows, t_best, p, n, _ = _refine(accel, o, d, t_best, obj, hit, omt)
+    their media in ``Shaded``'s ``refr_*`` / ``refl_*`` fields; ``texels``
+    as ``_shade_hits`` takes them."""
+    rows, t_best, p, n, _, lp = _refine(accel, o, d, t_best, obj, hit, omt)
     zero = torch.zeros_like(contrib)
     missed = active & ~hit
     mat_ri = rows[:, FT_MRI]
@@ -373,7 +389,7 @@ def _shade_materials_k(accel, o, d, contrib, bounced, active, sidx, t_best,
 
     add = torch.where(missed, contrib, zero)[:, None] * bg
     hit_c = torch.where(hit, contrib * contrib, zero)
-    add = add + hit_c[:, None] * rows[:, FT_CR:FT_CB + 1]
+    add = add + hit_c[:, None] * _albedo(rows, lp, texels)
     hit_t = torch.where(hit, t_best, torch.full_like(t_best, t_max))
     return Shaded(
         add=add, hit_t=hit_t,

@@ -7,6 +7,8 @@
 | materials     | IOW-03 Shadows and Materials                        |
 | motion-blur   | INW-00 Motion Blur                                  |
 | bvh           | INW-01 Bounding Volume Hierarchy                    |
+| texturing     | INW-03 Solid and Noise Textures                     |
+| texturing-image | INW-03 image textures (mercator remap, dice atlas) |
 | lights        | INW-04 Lights, Camera and Action                    |
 | iow-final     | the In-One-Weekend cover scene (the headline frame) |
 """
@@ -88,6 +90,18 @@ register(
     "grid of alternating ellipsoids / rotated cuboids through the grouped sweep",
     reference="In-Next-Week/01_BoundingVolumeHierarchy",
 )(_rt_run(examples.bvh_grid_scene, dict(spp=4, intersector="pallas")))
+
+register(
+    "texturing",
+    "cube-sphere textured objects: checker, simplex-noise and gradient atlases",
+    reference="In-Next-Week/03_Solid_And_Noise_Textures",
+)(_rt_run(examples.texturing_scene, dict(spp=4)))
+
+register(
+    "texturing-image",
+    "image textures: procedural mercator planet (reprojected to cube atlas) + dice atlas",
+    reference="In-Next-Week/03 texturing.cpp:41 + utility.cpp:253-487",
+)(_rt_run(examples.texturing_image_scene, dict(spp=4)))
 
 register(
     "lights",

@@ -4,8 +4,12 @@ Screen-space direction from an UNNORMALIZED right/up camera basis (faithful to
 the reference, which skips the normalize), then a sunflower aperture offset
 that pivots each sample ray about the focal point.
 
-Ported so far: the perspective camera with one focus distance.  The
-``aa_grid`` jitter, multi-focus and orthographic projection are not.
+Three camera variants ride on it:
+  - multi-focus: sample s focuses at ``focus_dist[s % K]``;
+  - ``aa_grid``: per-sample screen jitter on the diagonal-scan supersampling
+    grid (``sampling.supersample_grid_offsets``);
+  - orthographic projection: parallel rays from a view-plane lattice,
+    selected when ``camera.ortho_height > 0``.
 
 Pixel convention: row 0 = bottom of the image (GL image origin); writers
 flip for PNG.
@@ -23,14 +27,15 @@ def _world_up(like):
     return torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=like.device)
 
 
-def check_supported(camera: Camera, aa_grid: bool = False):
-    """Raise for the camera variants that are not ported yet."""
-    if aa_grid:
-        raise NotImplementedError("aa_grid supersampling is not ported yet")
-    if camera.focus_dist.shape[0] != 1:
-        raise NotImplementedError("multi-focus cameras are not ported yet")
-    if float(camera.ortho_height) != 0.0:
-        raise NotImplementedError("orthographic cameras are not ported yet")
+def aa_jitter(spp: int):
+    """The ``aa_grid`` screen jitter of each sample, in pixels: (jx, jy)
+    float32 numpy arrays of length ``spp`` in (-0.5, 0.5)."""
+    import numpy as np
+
+    cells, grid = sampling.supersample_grid_offsets(spp)
+    jx = (cells[:, 0].astype(np.float32) + np.float32(0.5)) / np.float32(grid) - np.float32(0.5)
+    jy = (cells[:, 1].astype(np.float32) + np.float32(0.5)) / np.float32(grid) - np.float32(0.5)
+    return jx, jy
 
 
 def primary_rays(camera: Camera, width: int, height: int, spp: int, aa_grid: bool = False):
@@ -39,7 +44,6 @@ def primary_rays(camera: Camera, width: int, height: int, spp: int, aa_grid: boo
     Returns (origin, direction, time_ratio) each of shape (H, W, S, 3|).
     ``time_ratio = s / S`` is the motion-blur time coordinate.
     """
-    check_supported(camera, aa_grid)
     dev = camera.device
     aspect = width / height
     screen_dist = 1.0 / (2.0 * torch.tan(camera.fov_y * 0.5))
@@ -50,13 +54,38 @@ def primary_rays(camera: Camera, width: int, height: int, spp: int, aa_grid: boo
     cam_right = linalg.cross(camera.direction, _world_up(camera.direction))  # unnormalized
     cam_up = linalg.cross(cam_right, camera.direction)
 
-    base_dir = (
-        camera.direction * screen_dist
-        + cam_right * px[None, :, None]
-        + cam_up * py[:, None, None]
-    )  # (H, W, 3)
-    base_dir = linalg.normalize(base_dir)
-    return _dof_rays(camera, base_dir[..., None, :], spp)
+    if aa_grid:
+        jx, jy = (torch.from_numpy(j).to(dev) for j in aa_jitter(spp))
+        px_s = px[None, :, None] + jx[None, None, :] / width * aspect  # (1, W, S)
+        py_s = py[:, None, None] + jy[None, None, :] / height  # (H, 1, S)
+        base_dir = (
+            camera.direction * screen_dist
+            + cam_right * px_s[..., None]
+            + cam_up * py_s[..., None]
+        )  # (H, W, S, 3)
+        base_dir = linalg.normalize(base_dir)
+        o, d, time_ratio = _dof_rays(camera, base_dir, spp)
+        sx, sy = px_s[..., None], py_s[..., None]
+    else:
+        base_dir = (
+            camera.direction * screen_dist
+            + cam_right * px[None, :, None]
+            + cam_up * py[:, None, None]
+        )  # (H, W, 3)
+        base_dir = linalg.normalize(base_dir)
+        o, d, time_ratio = _dof_rays(camera, base_dir[..., None, :], spp)
+        sx = px[None, :, None, None].expand(height, width, 1, 1)
+        sy = py[:, None, None, None].expand(height, width, 1, 1)
+
+    if float(camera.ortho_height) > 0.0:
+        # Parallel rays from the view-plane lattice: origin pos + h (sx r + sy u)
+        # with the normalized right / up vectors, direction the camera's.
+        right_n = linalg.normalize(cam_right)
+        up_n = linalg.normalize(cam_up)
+        o_ortho = camera.position + camera.ortho_height * (sx * right_n + sy * up_n)
+        o = o_ortho.expand(o.shape).contiguous()
+        d = camera.direction.expand(o.shape).contiguous()
+    return o, d, time_ratio
 
 
 def _dof_rays(camera: Camera, base_dir, spp: int):
@@ -71,7 +100,9 @@ def _dof_rays(camera: Camera, base_dir, spp: int):
         + ray_right * offset[:, 0, None]
         + ray_up * offset[:, 1, None]
     )
-    fd = camera.focus_dist[0].expand(spp)  # single focus
+    # Multi-focus: sample s focuses at focus_dist[s % K] (single focus: K = 1).
+    k = torch.arange(spp, device=base_dir.device) % camera.focus_dist.shape[0]
+    fd = camera.focus_dist[k]  # (S,)
     look_at = camera.position + base_dir * fd[:, None]
     d = linalg.normalize(look_at - new_tip)
     o = new_tip - d

@@ -16,9 +16,12 @@ Semantics reproduced:
     sample white, and the background is black,
   - ``shading="materials"``: the Shirley-materials model with a per-ray
     medium refractive index (``_shade_materials``),
+  - cube-sphere textures: an object with a texture index multiplies its
+    albedo by a bilinear sample of its atlas at the cube-sphere UV of its
+    unit-space hit position (``_material_color``),
   - per-sample gamma-2 then mean over samples.
 
-Ported: ``shading="bvh"`` and ``"materials"``, with or without lights, no
+Ported: ``shading="bvh"`` and ``"materials"``, with or without lights and
 textures, through the ``brute`` intersector or the ``pallas`` intersector:
 the grouped sphere sweep ``kernels.sweep2`` in sphere mode, the
 first-generation sweeps of ``kernels.sweep`` for generic scenes (grouped by
@@ -62,7 +65,7 @@ class RenderConfig:
     #        Schlick shift, fibonacci-hemisphere scatter).
     shading: str = "bvh"
     lane_chunk: Optional[int] = None  # bound peak memory: lanes per step
-    aa_grid: bool = False  # sub-pixel supersampling grid (not ported yet)
+    aa_grid: bool = False  # sub-pixel supersampling grid
     early_exit: bool = True  # stop as soon as every ray queue drains
     # Static scene features (set via for_scene()).  has_dielectrics gates the
     # surrounding-refractive-index sweep -- the single most expensive per-pop
@@ -289,6 +292,15 @@ def _nearest_obj(scene, accel, o, d, time_ratio, t_limit):
     return isect.occluded_nearest_obj(scene, o, d, time_ratio, t_limit)
 
 
+def _material_color(scene: Scene, hit: isect.Hit, color, ti):
+    """Albedo, cube-sphere-textured where the object has a texture index."""
+    if scene.textures is None:
+        return color
+    from raytracing_tests_tpu_torch.kernels.texture import texture_color
+
+    return texture_color(color, ti, hit.local_pos, scene.textures)
+
+
 def _shadow_factor(scene, lights: Lights, hit, normal, sample_ratio, time_ratio, accel=None):
     """Fraction of lights visible from the hit point.
 
@@ -403,7 +415,7 @@ def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, 
 
     if flds is None:
         oi = hit.obj.long()
-        mat_color = scene.color[oi]
+        base_color, tex_idx = scene.color[oi], scene.texture_index[oi]
         mat_ri = scene.refractive_index[oi]
         refractivity = scene.refractivity[oi]
         reflectivity = scene.reflectivity[oi]
@@ -411,13 +423,14 @@ def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, 
         scat_rfl = scene.scatter_reflect[oi]
         emissive = scene.emissive[oi]
     else:  # grouped sweep: all fields from the winner's row
-        mat_color = flds.color
+        base_color, tex_idx = flds.color, flds.texture_index
         mat_ri = flds.refractive_index
         refractivity = flds.refractivity
         reflectivity = flds.reflectivity
         scat_rfr = flds.scatter_refract
         scat_rfl = flds.scatter_reflect
         emissive = flds.emissive
+    mat_color = _material_color(scene, hit, base_color, tex_idx)
 
     # Emissive abort: the sample becomes pure white.
     set_white = torch.zeros(B, dtype=torch.bool, device=o.device)

@@ -58,7 +58,8 @@ class Scene(_TensorStruct):
 
     valid: torch.Tensor  # (N,) bool padding mask
 
-    # Cube-sphere texture atlas; not ported yet, always None.
+    # Cube-sphere atlas stack (T, H, 6W, 3) f32, slot 0 a zero filler so that
+    # texture indices stay 1-based; None for an untextured scene.
     textures: Optional[torch.Tensor] = None
 
     @property
@@ -85,7 +86,8 @@ class Camera(_TensorStruct):
 
     ``focus_dist`` is a vector (multi-focus arrays); single-focus uses
     ``focus_dist[0]``.  ``ortho_height > 0`` marks an orthographic projection.
-    Only the perspective single-focus camera is rendered by the port so far.
+    ``focus_dist`` may hold several distances: sample s focuses at
+    ``focus_dist[s % K]``.
     """
 
     position: torch.Tensor  # (3,)
@@ -151,6 +153,7 @@ class SceneBuilder:
 
     def __init__(self):
         self._objs: list[_Obj] = []
+        self._textures: list[np.ndarray] = []
 
     def __len__(self):
         return len(self._objs)
@@ -222,6 +225,19 @@ class SceneBuilder:
     def add_light(self, center, scale, color=(1.0, 1.0, 1.0), obj_type=ELLIPSOID, **kw):
         return self.add(center, scale, obj_type, color=color, emissive=True, **kw)
 
+    def add_texture(self, image: np.ndarray) -> int:
+        """Register a cube-sphere atlas texture (H, 6W, 3) float in [0, 1];
+        every atlas of a scene has the same shape.  Returns its 1-based
+        texture index (0 means untextured)."""
+        image = np.asarray(image, np.float32)
+        if image.ndim != 3 or image.shape[-1] != 3:
+            raise ValueError(f"an atlas is (H, 6W, 3), not {image.shape}")
+        if self._textures and image.shape != self._textures[0].shape:
+            raise ValueError(f"all atlas textures must share a shape: {image.shape} "
+                             f"against {self._textures[0].shape}")
+        self._textures.append(image)
+        return len(self._textures)
+
     def build(self, capacity: Optional[int] = None) -> Scene:
         n = len(self._objs)
         if n == 0:
@@ -248,6 +264,11 @@ class SceneBuilder:
             rad = torch.deg2rad(torch.from_numpy(degs)).double()
             rot[:n] = linalg.rotation_from_radians(rad).float().numpy()
 
+        textures = None
+        if self._textures:  # behind a zero filler in slot 0
+            textures = torch.from_numpy(
+                np.stack([np.zeros_like(self._textures[0])] + self._textures))
+
         return Scene(
             position=field(lambda o: o.position, (3,)),
             rotation=torch.from_numpy(rot),
@@ -263,5 +284,5 @@ class SceneBuilder:
             texture_index=field(lambda o: o.texture_index, (), np.int32),
             emissive=field(lambda o: o.emissive, (), bool),
             valid=torch.from_numpy(np.arange(cap) < n),
-            textures=None,
+            textures=textures,
         )

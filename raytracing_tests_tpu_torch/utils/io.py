@@ -1,4 +1,4 @@
-"""Image output.
+"""Image output, and image input for textures.
 
 Render images use row 0 = bottom (GL convention); ``save_png`` flips to the
 usual top-down raster order.
@@ -26,6 +26,14 @@ def save_png(path: str, image) -> None:
     from PIL import Image
 
     Image.fromarray(to_uint8(image)[::-1]).save(path)
+
+
+def load_image(path: str) -> np.ndarray:
+    """Load an image file as (H, W, 3) float32 in [0, 1], row 0 = top."""
+    from PIL import Image
+
+    img = Image.open(path).convert("RGB")
+    return np.asarray(img, np.float32) / 255.0
 
 
 def save_npy(path: str, image) -> None:

@@ -44,11 +44,18 @@ def test_pitch_yaw_camera_matches_jax():
 
 @pytest.mark.parametrize("variant", ["aa_grid", "multi_focus", "orthographic"])
 def test_unported_camera_variants_raise(variant):
-    cam = tex.sphere_scene()[1]
+    """The three camera variants, which the port once refused, against the
+    JAX package at the module's tolerance (rtol 1e-6 + atol 1e-6)."""
     aa = variant == "aa_grid"
+    kw = dict(fov_y_deg=50.0, aperture=0.2, focus_dist=3.5)
     if variant == "multi_focus":
-        cam = TCamera.make((0, 0, 0), (0, 0, -1), focus_dist=(3.0, 5.0))
+        kw["focus_dist"] = (3.0, 5.0, 8.0)
     if variant == "orthographic":
-        cam = TCamera.make((0, 0, 0), (0, 0, -1), ortho_height=2.0)
-    with pytest.raises(NotImplementedError):
-        t_primary_rays(cam, 8, 4, 2, aa_grid=aa)
+        kw["ortho_height"] = 2.0
+    jc = JCamera.make((0.0, 0.4, 0.8), (0.0, -0.1, -1.0), **kw)
+    tc = TCamera.make((0.0, 0.4, 0.8), (0.0, -0.1, -1.0), **kw)
+    for size in ((8, 4, 2), (17, 9, 5)):
+        for j, t in zip(j_primary_rays(jc, *size, aa_grid=aa),
+                        t_primary_rays(tc, *size, aa_grid=aa)):
+            assert tuple(t.shape) == np.asarray(j).shape
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6, atol=1e-6)

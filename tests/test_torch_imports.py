@@ -25,6 +25,7 @@ def test_the_fifteen_modules_exist():
         "kernels.sweep", "kernels.sweep2", "kernels.sweep2g", "ops.render", "kernels.mega",
         "kernels.uber", "utils.io", "models.registry", "models.workloads",
         "app.cli", "__main__", "convert", "ops.megalanes", "ops.workqueue",
+        "scene.textures", "scene.noise", "scene.projection", "kernels.texture",
     ):
         assert "raytracing_tests_tpu_torch." + mod in MODULES, mod
 
@@ -93,7 +94,9 @@ def test_the_other_chip_scripts_import_nothing_of_jax(script):
                                    "render_megalanes", "render_workqueue",
                                    "render_workqueue_generic", "render_uber_materials",
                                    "render_uber_generic_lights",
-                                   "render_workqueue_generic_lights"])
+                                   "render_workqueue_generic_lights",
+                                   "render_uber_textures", "render_stats_textures",
+                                   "render_workqueue_textures", "cli_texturing"])
 def test_entry_points_raise_without_cuda_and_do_not_fall_back(entry):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -106,6 +109,8 @@ def test_entry_points_raise_without_cuda_and_do_not_fall_back(entry):
         lights = extract_lights(scene)
     elif entry.endswith("materials"):
         scene, cam = examples.materials_scene()
+    elif entry.endswith("textures"):
+        scene, cam = examples.texturing_scene(tex_size=8)
     else:
         scene, cam = examples.bvh_grid_scene(side=2) if generic else examples.iow_final_scene(side=2)
     cfg = RenderConfig(width=8, height=4, spp=1, intersector="pallas",
@@ -127,6 +132,11 @@ def test_entry_points_raise_without_cuda_and_do_not_fall_back(entry):
             render_stats(scene, cam, cfg)
         elif entry == "render":
             render(scene, cam, cfg)
+        elif entry == "cli_texturing":
+            from raytracing_tests_tpu_torch.app.cli import main
+
+            main(["render", "texturing", "--uber", "--width", "8", "--height", "4",
+                  "--spp", "1", "--out", "unused.png"])
         elif entry == "cli_bvh":
             from raytracing_tests_tpu_torch.app.cli import main
 
@@ -158,13 +168,13 @@ def test_sweep_wrappers_refuse_a_tensor_they_cannot_launch_on():
 
 
 @pytest.mark.parametrize("kernel", ["nearest", "nearest_ri", "ri", "grouped", "sweep2g", "uber",
-                                    "sweep2", "mega"])
+                                    "sweep2", "mega", "uber_tex"])
 def test_launch_functions_refuse_cpu_tensors_outside_the_host_rehearsal(kernel):
     """Well-formed CPU arguments must not reach a build or a launch: only the
     host rehearsal's context lets a ``_launch_*`` function take them."""
     from raytracing_tests_tpu_torch.kernels import sweep, sweep2g, uber
 
-    generic = kernel not in ("nearest_ri", "sweep2", "mega")
+    generic = kernel not in ("nearest_ri", "sweep2", "mega", "uber_tex")
     scene, cam = examples.bvh_grid_scene(side=2) if generic else examples.iow_final_scene(side=2)
     mode = "generic" if generic else "spheres"
     rays, pts = torch.zeros(8, 4), torch.zeros(4, 4)
@@ -190,6 +200,14 @@ def test_launch_functions_refuse_cpu_tensors_outside_the_host_rehearsal(kernel):
                               max_bounces=3, t_max=1e4, bg=((1.0, 1.0, 1.0), (0.3, 0.4, 1.0)))
         elif kernel == "sweep2g":
             sweep2g._launch_sweep2g(sweep2g.make_accel2g(scene, gr=8, has_motion=False), rays)
+        elif kernel == "uber_tex":
+            from raytracing_tests_tpu_torch.kernels.texture import pack_atlas
+
+            scene, cam = examples.texturing_scene(tex_size=8)
+            cfg = RenderConfig(width=8, height=4, spp=1, intersector="pallas").for_scene(scene)
+            accel, cvec = uber._scene_accel(scene, cam, cfg, 8)
+            uber._launch_uber(accel, cvec, uber.UberStatics.from_cfg(cfg), None,
+                              pack_atlas(scene.textures), uber.aa_table(8, 4, 1, "cpu"))
         else:
             cfg = RenderConfig(width=8, height=4, spp=1, intersector="pallas").for_scene(scene)
             accel, cvec = uber._scene_accel(scene, cam, cfg, 8)

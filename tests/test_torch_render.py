@@ -109,9 +109,10 @@ def test_golden_iow_final_statistically(intersector):
 
 def test_registry_lists_the_ported_workloads():
     assert [w.name for w in list_workloads()] == [
-        "bvh", "groups", "iow-final", "lights", "materials", "motion-blur", "sphere"]
+        "bvh", "groups", "iow-final", "lights", "materials", "motion-blur", "sphere",
+        "texturing", "texturing-image"]
     with pytest.raises(KeyError):
-        get_workload("texturing")
+        get_workload("uv-image")
 
 
 def test_sweep_intersector_matches_brute_in_the_port():

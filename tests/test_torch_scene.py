@@ -69,10 +69,16 @@ def test_convert_round_trips(name):
 
 
 def test_convert_refuses_missing_field_and_textures():
-    js, _ = jex.sphere_scene()
-    leaves = _jax_leaves(js, convert.SCENE_FIELDS)
-    with pytest.raises(NotImplementedError):
-        convert.scene_from_numpy(dict(leaves, textures=np.zeros((1, 2, 12, 3), np.float32)))
+    """A missing field raises; textures cross both ways, bit for bit."""
+    js, _ = jex.texturing_scene(tex_size=8)
+    leaves = dict(_jax_leaves(js, convert.SCENE_FIELDS), textures=np.asarray(js.textures))
+    scene = convert.scene_from_numpy(leaves)
+    assert scene.textures.dtype == torch.float32
+    np.testing.assert_array_equal(scene.textures.numpy(), np.asarray(js.textures))
+    back = convert.scene_to_numpy(scene)
+    np.testing.assert_array_equal(back["textures"], np.asarray(js.textures))
+    assert "textures" not in convert.scene_to_numpy(convert.scene_from_numpy(
+        _jax_leaves(jex.sphere_scene()[0], convert.SCENE_FIELDS)))
     del leaves["color"]
     with pytest.raises(KeyError):
         convert.scene_from_numpy(leaves)

@@ -189,7 +189,13 @@ def test_unsupported_requests_raise(frames, what):
         assert torch.isfinite(mat["image"]).all() and int(mat["rays_dropped"]) == 0
         render = render_megalanes
     elif what == "textures":
-        scene = scene.replace(textures=torch.zeros(1, 2, 12, 3))
+        # a textured scene renders (test_torch_texturing); the megalanes drain
+        # refuses textures, as the JAX package's does
+        scene, cam = tex.texturing_scene(tex_size=8)
+        cfg = dataclasses.replace(RenderConfig(**FRAME).for_scene(scene), **small)
+        tx = render_uber(scene, cam, cfg, device="cpu")
+        assert torch.isfinite(tx["image"]).all() and int(tx["rays_dropped"]) == 0
+        render = render_megalanes
     elif what == "generic":
         # a generic scene renders, and a moving one too (the motion
         # instantiation, held in test_torch_motion); what stays refused on a
@@ -203,7 +209,13 @@ def test_unsupported_requests_raise(frames, what):
         assert cfg.pallas_mode == "generic" and cfg.has_motion
         moving = render_uber(scene, cam, cfg, device="cpu")
         assert torch.isfinite(moving["image"]).all() and int(moving["rays_dropped"]) == 0
+        # and with the aa_grid camera (test_torch_texturing holds the camera
+        # variants); the megalanes drain refuses a generic scene, as the JAX
+        # package's does
         cfg = dataclasses.replace(cfg, aa_grid=True)
+        jit = render_uber(scene, cam, cfg, device="cpu")
+        assert torch.isfinite(jit["image"]).all() and int(jit["rays_dropped"]) == 0
+        render, err = render_megalanes, ValueError
     else:
         # any stack depth renders (test_queue_capacity_16_matches_the_queue_
         # renderer); a negative one raises
