@@ -24,7 +24,7 @@ records.
 It prints one JSON object per phase.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the exit code
 is non-zero and no result line is printed; without CUDA it fails at once.
-The whole script takes about three minutes on one H100.
+The whole script takes about six minutes on one H100.
 
 Phases and their bars:
   uber_modes. the persistent kernel's two sweep schedules (per lane and
@@ -166,6 +166,33 @@ Phases and their bars:
      under materials shading at depths 12 and 16 against the queue renderer
      with the same stack, by the bars of 5; the same frames at 8 records
      drop rays.
+  Then the eighth slice, the gradient path (``diff``), all at 800x450x16 d8:
+  grad_frame. ``bench.py``'s ``grad_config``: ``iow_final_scene()``, colours
+     ``* 0.8 + 0.1``, the queue renderer's frame as the target, 25 bands of 18
+     rows (the 300 k-sample rule), band depths probed + 2, one
+     ``banded_value_and_grad`` through the kernels (K2 behind
+     ``fastpath._winner``), once in the -fmad=false build and once with the
+     sweeps routed to their plain versions on the card (``plain_sweeps``):
+     the -fmad=false build's loss within GRAD_PRECISE's rtol 1e-5 and every
+     field's gradient within 1e-3 of its max |g|; the default build by
+     GRAD_DEFAULT (its reason there).  Seconds per step, forward rays and
+     seconds, band depths, peak memory, K2's launches and device time, and
+     the deepest band's device busy share (``torch.profiler``).
+  grad_soft_frame, grad_generic_soft, grad_motion_soft. The same frame with
+     ``soft_edges`` 0.03 (K2's EDGE instantiation); ``bvh_grid_scene(side=32)``
+     with jittered positions, soft (K3's EDGE instantiation) and hard (K3
+     behind ``_winner``); ``motion_blur_scene()`` and a moving
+     ``groups_scene()``, soft (the two moving EDGE instantiations): finite
+     gradients, each step running its one sweep instantiation only.
+  edge_vs_plain. Each EDGE instantiation against its plain version on the
+     rays of its frame's first two pops in the middle band: the -fmad=false
+     build with t, obj and edge identical on >= EDGE_PRECISE (99.9 %), the
+     default build by NEAREST_BARS with the silhouette candidate's share
+     held to the winner's; dead rays have none; time, plain time and bound.
+  train_steps. ``make_train_step`` (Adam, colour trainable, auto_pops) three
+     steps of grad_config: the loss falls; a checkpoint after them restores
+     parameters and Adam's state bit for bit, and the next step's loss from
+     both is equal.
 Launch counts are kept per driven path: set to 0 before a path and read after
 it (each canary, each frame); every kernel must be launched on at least one.
 """
@@ -187,6 +214,7 @@ if not torch.cuda.is_available():
 
 import dataclasses  # noqa: E402
 
+from raytracing_tests_tpu_torch import diff  # noqa: E402
 from raytracing_tests_tpu_torch.kernels import _build, mega, sweep, sweep2, sweep2g, uber  # noqa: E402
 from raytracing_tests_tpu_torch.ops import megalanes, workqueue  # noqa: E402
 from raytracing_tests_tpu_torch.ops.render import (  # noqa: E402
@@ -270,18 +298,20 @@ PTXAS_K1 = {
 # What it gives the sphere sweep and the megakernel since they run the warp
 # sweeps too, at their launch bounds of 3 blocks of 256 threads and 6 of 128
 # per SM (before: sweep2_kernel<0> 48 registers, 4/4 B of spill, <1> 70 and
-# none; mega_kernel<0> and <1> 64 and none).
+# none; mega_kernel<0> and <1> 64 and none).  The sweeps' names carry a second
+# template argument since their silhouette (EDGE) instantiations came: the
+# lines are those of the <MOTION, false> ones.
 PTXAS_REDESIGNED = {
-    "sweep2.so sweep2_kernel<0>": dict(registers=61, stack=0, spill_stores=0, spill_loads=0),
-    "sweep2.so sweep2_kernel<1>": dict(registers=77, stack=0, spill_stores=0, spill_loads=0),
+    "sweep2.so sweep2_kernel<0,0>": dict(registers=61, stack=0, spill_stores=0, spill_loads=0),
+    "sweep2.so sweep2_kernel<1,0>": dict(registers=77, stack=0, spill_stores=0, spill_loads=0),
     "mega.so mega_kernel<0>": dict(registers=80, stack=32, spill_stores=0, spill_loads=0),
     "mega.so mega_kernel<1>": dict(registers=80, stack=32, spill_stores=0, spill_loads=0),
 }
 # ... and what it gave the other kernels before the warp sweeps, which they do
 # not include: they must not change.
 PTXAS_UNCHANGED = {
-    "sweep2g.so sweep2g_kernel<0>": dict(registers=48, stack=8, spill_stores=8, spill_loads=8),
-    "sweep2g.so sweep2g_kernel<1>": dict(registers=48, stack=8, spill_stores=16, spill_loads=16),
+    "sweep2g.so sweep2g_kernel<0,0>": dict(registers=48, stack=8, spill_stores=8, spill_loads=8),
+    "sweep2g.so sweep2g_kernel<1,0>": dict(registers=48, stack=8, spill_stores=16, spill_loads=16),
     "sweep.so grouped_kernel<0,1>": dict(registers=40, stack=8, spill_stores=4, spill_loads=8),
     "sweep.so grouped_kernel<1,0>": dict(registers=47, stack=0, spill_stores=0, spill_loads=0),
     "sweep.so nearest_kernel<1>": dict(registers=40, stack=0, spill_stores=0, spill_loads=0),
@@ -3033,6 +3063,468 @@ def texturing_phases(dev):
     return out, paths
 
 
+# ---------------------------------------------------------------------------
+# The eighth slice: the gradient path, and the silhouette instantiations of
+# K2 and K3 (sweep2_edge, sweep2_m_edge, sweep2g_edge, sweep2g_m_edge)
+# ---------------------------------------------------------------------------
+
+GRAD = dict(width=800, height=450, spp=16, max_bounces=8)  # bench.py:211-257 grad_config
+BAND_SAMPLES = 300_000  # samples per band of the banded backward (grad_config's rule)
+SOFT = 0.03  # soft_edges of the soft-edge frames
+# Operation counts of the silhouette metric, per (live ray, row): K2's
+# (c_q - nb^2) * rinv2 and its compare on the anchored terms of the quadratic
+# (counted in FLOPS_PER_SPHERE_TEST), K3's unit-space |f|^2, e.f, |e|^2, the
+# reciprocal and the metric on the row's local frame (FLOPS_PER_GENERIC_ROW).
+# The metric reads every row, so the bound counts every (live ray, row) pair.
+FLOPS_PER_EDGE_METRIC = 4
+FLOPS_PER_EDGE_METRIC_G = 15
+# The gradient step against the same step with the sweeps routed to their
+# plain versions (``plain_sweeps``): the -fmad=false build must agree to the
+# order of the atomic adds that gather each object's gradient (found: equal
+# loss, every field within 3.1e-6 of its max |g|).  The default build fuses
+# a*b+c, and on the 1000-radius ground sphere of iow_final_scene() a last-ulp
+# difference moves a hit and flips grazing children and their whole subtrees
+# (the forward frames' canary envelope); each flipped lane carries its own
+# d(loss)/d(position, scale, fuzz) into another object's row, so the
+# geometry and scatter fields' largest entries move by a tenth of the field's
+# max |g| (found 0.114 position, 0.117 scale, 0.121 scatter_reflect; 1.3e-3 on
+# the loss) while the appearance fields stay within 1e-3: held to twice that.
+GRAD_PRECISE = dict(loss_rtol=1e-5, field_of_max=1e-3)
+GRAD_DEFAULT = dict(loss_rtol=1e-2, field_of_max=0.25)
+EDGE_PRECISE = 0.999  # share of identical t, obj and edge, -fmad=false build
+# Default-build bars of the silhouette instantiations by pop: the first pop's
+# are NEAREST_BARS.  The gradient path spawns its children from the
+# closed-form recompute's hit point, whose error on the 1000-radius ground
+# sphere exceeds the 1e-4 spawn offset, so second-pop rays start on that
+# surface and its anchored quadratic's near root is zero within its error: the
+# builds pick different roots there (found: the same winner on 0.99817, t
+# within rtol 1e-4 on 0.967 of the agreeing hits; the candidates on 0.99999).
+EDGE_BARS = {1: NEAREST_BARS, 2: dict(same=0.995, t_1e4=0.95, ri=0.999)}
+
+
+def grad_bands(cfg):
+    """The smallest divisor of the height whose bands hold <= BAND_SAMPLES."""
+    want = max(1, -(-cfg.width * cfg.height * cfg.spp // BAND_SAMPLES))
+    return min(b for b in range(want, cfg.height + 1) if cfg.height % b == 0)
+
+
+@contextlib.contextmanager
+def patched(module, name, fn):
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield saved
+    finally:
+        setattr(module, name, saved)
+
+
+@contextlib.contextmanager
+def plain_sweeps():
+    """Inside: the sweep wrappers of K2 and K3 (both instantiations each) run
+    their plain versions on the card: the gradient path with no kernel."""
+    with contextlib.ExitStack() as stack:
+        for module, name, plain in (
+                (sweep2, "_sweep2", lambda a, r, ri, f, stats=None: sweep2.sweep2_plain(a, r, ri, f)),
+                (sweep2, "_sweep2_edge", lambda a, r, stats=None: sweep2.sweep2_edge_plain(a, r)),
+                (sweep2g, "_sweep2g", lambda a, r, stats=None: sweep2g.sweep2g_plain(a, r)),
+                (sweep2g, "_sweep2g_edge",
+                 lambda a, r, stats=None: sweep2g.sweep2g_edge_plain(a, r))):
+            stack.enter_context(patched(module, name, plain))
+        yield
+
+
+@contextlib.contextmanager
+def launch_events(module, name):
+    """Every call of ``module.name`` between two CUDA events -> [(start, end)].
+    Each launch of the gradient path follows a host read, so the card waits
+    for it and the pair times the kernel (and its launch latency)."""
+    pairs = []
+    real = getattr(module, name)
+
+    def timed(*args, **kw):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(*args, **kw)
+        b.record()
+        pairs.append((a, b))
+        return out
+
+    with patched(module, name, timed):
+        yield pairs
+
+
+def events_ms(pairs):
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs)
+
+
+@contextlib.contextmanager
+def captured(module, name, n):
+    """The (accel, rays) of the first ``n`` calls of the sweep wrapper
+    ``module.name``."""
+    got = []
+    real = getattr(module, name)
+
+    def keep(accel, rays, *args, **kw):
+        if len(got) < n:
+            got.append((accel, rays.clone()))
+        return real(accel, rays, *args, **kw)
+
+    with patched(module, name, keep):
+        yield got
+
+
+def grad_inputs(dev, scene_cam, perturb, soft=0.0):
+    """A gradient frame as grad_config builds it: the forward render of the
+    scene (render_stats) is the target, ``perturb`` makes the trained scene,
+    bands by BAND_SAMPLES, band depths probed on the gradient path + 2."""
+    scene, cam = (x.to(dev) for x in scene_cam)
+    cfg = dataclasses.replace(RenderConfig(intersector="pallas", **GRAD).for_scene(scene),
+                              soft_edges=soft)
+    fwd_ms, fwd = timed_ms(lambda: render_stats(scene, cam, cfg))
+    pert = perturb(scene)
+    bands = grad_bands(cfg)
+    probe_ms, pops = timed_ms(lambda: diff.probe_band_pops(pert, cam, cfg, bands))
+    return dict(scene=scene, cam=cam, cfg=cfg, pert=pert, p=diff.extract_params(pert),
+                target=fwd["image"], rays=int(fwd["rays"]), forward_ms=fwd_ms, probe_ms=probe_ms,
+                bands=bands, pops=[q + diff.train.POPS_MARGIN for q in pops])
+
+
+def grad_step(g):
+    """One banded_value_and_grad of the frame -> its numbers and results."""
+    vg = diff.banded_value_and_grad(g["pert"], g["cam"], g["cfg"], grad_bands=g["bands"],
+                                    band_pops=g["pops"])
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    ms, (loss, grads) = timed_ms(lambda: vg(g["p"], g["target"]))
+    return dict(ms=ms, loss=loss, grads=grads, launches=dict(_build.LAUNCHES),
+                peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+def compare_grads(got, want):
+    """Loss and every field's gradient of two steps: relative loss difference
+    and, per field, the largest difference over the field's max |g|."""
+    fields = {}
+    for name, w in want["grads"].items():
+        scale = float(w.abs().max())
+        dg = getattr(got["grads"], name) - w
+        err = float(dg.abs().max())
+        norm = float(w.norm())
+        fields[name] = dict(max_abs_g=scale, err_of_max=err / scale if scale > 0 else err,
+                            rel_l2=float(dg.norm()) / norm if norm > 0 else float(dg.norm()))
+    finite = all(bool(torch.isfinite(v).all()) for _, v in got["grads"].items())
+    return dict(loss=float(got["loss"]), loss_rel_err=abs(float(got["loss"]) / float(want["loss"]) - 1.0),
+                worst_field_err_of_max=max(f["err_of_max"] for f in fields.values()),
+                finite=finite, fields=fields)
+
+
+def check_grads(what, res, bars):
+    require(res["finite"] and res["loss_rel_err"] <= bars["loss_rtol"]
+            and res["worst_field_err_of_max"] <= bars["field_of_max"],
+            f"{what}: the gradient step disagrees with its plain version: {res} (bars {bars})")
+
+
+def band_device_share(g, b):
+    """Band ``b`` of the frame's gradient step: its wall time by the host
+    clock, then once more under torch.profiler (device activity only) for the
+    card's busy time: the idle share of the unprofiled wall time, and the
+    sweep kernels' share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracing_tests_tpu_torch.diff.train import _buckets, _diff_cfg, _grads_of, _leaves
+    from raytracing_tests_tpu_torch.ops.render import _build_accel, finalize, trace_lanes
+
+    cfg = _diff_cfg(g["cfg"])
+    ceil = next(c for c, idxs in _buckets(g["pops"], g["bands"], cfg.pops) if b in idxs)
+    cfg = dataclasses.replace(cfg, max_pops=ceil)
+    H, W, S = cfg.height, cfg.width, cfg.spp
+    h = H // g["bands"]
+    lo, ld, ltr, ls = _lane_inputs(g["cam"], dataclasses.replace(cfg, aa_grid=False))
+    sl = slice(b * h * W * S, (b + 1) * h * W * S)
+    leaves = _leaves(g["p"], lo.device)
+    scene = diff.apply_params(g["scene"], leaves)
+
+    def run():
+        accel = _build_accel(scene, cfg)
+        color, pt, _, _ = trace_lanes(scene, None, cfg, lo[sl], ld[sl], ltr[sl], ls[sl], accel)
+        img = finalize(color.reshape(h, W, S, 3), pt.reshape(h, W, S), cfg)["image"]
+        _grads_of(torch.sum((img - g["target"][b * h:(b + 1) * h]) ** 2), leaves)
+
+    run()
+    wall, _ = timed_ms(run)  # the host clock, unprofiled
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    by = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA}
+    busy = sum(by.values())
+    sweeps = sum(v for k, v in by.items() if "sweep2" in k)
+    return dict(band=b, pops=ceil, wall_ms=wall, device_busy_ms=busy,
+                device_idle_share=1.0 - busy / wall, sweep_kernels_ms=sweeps,
+                kernels_traced=len(by))
+
+
+def compare_edge(got, want, rays):
+    """(t, obj, edge) of a silhouette instantiation against its plain version."""
+    res = compare_nearest(got[:2], want[:2], rays)
+    dead = (rays[3:6] * rays[3:6]).sum(dim=0) < 0.5
+    res.update(same_edge=frac(got[2] == want[2]), edge_frac=frac(want[2] >= 0),
+               t_identical=frac(got[0] == want[0]),
+               dead_rays_no_edge=bool((got[2][dead] == -1).all()))
+    return res
+
+
+def check_edge(what, res, precise, bars):
+    for r in (res, precise):
+        require(r["dead_rays_miss"] and r["misses_report_the_limit"] and r["dead_rays_no_edge"],
+                f"{what}: dead rays or misses are wrong: {r}")
+    require(min(precise["same_obj"], precise["same_edge"], precise["t_identical"]) >= EDGE_PRECISE,
+            f"{what}: the -fmad=false build disagrees with the plain version: {precise}")
+    require(res["same_obj"] >= bars["same"] and res["t_within_rtol_1e4"] >= bars["t_1e4"]
+            and res["same_edge"] >= NEAREST_BARS["same"],
+            f"{what}: the kernel disagrees with the plain version: {res} (bars {bars})")
+
+
+# launch counter -> (module, wrapper, plain version, the TPU kernel's site)
+EDGE_KERNELS = {
+    "sweep2_edge": (sweep2, "_sweep2_edge", sweep2.sweep2_edge_plain, "sweep2.py:955"),
+    "sweep2_m_edge": (sweep2, "_sweep2_edge", sweep2.sweep2_edge_plain, "sweep2.py:955"),
+    "sweep2g_edge": (sweep2g, "_sweep2g_edge", sweep2g.sweep2g_edge_plain, "sweep2g.py:838"),
+    "sweep2g_m_edge": (sweep2g, "_sweep2g_edge", sweep2g.sweep2g_edge_plain, "sweep2g.py:838"),
+}
+
+
+def first_two_pops(g, name, band):
+    """The rays of the first two launches of the silhouette wrapper when band
+    ``band`` of the frame's gradient path is traced (detached)."""
+    from raytracing_tests_tpu_torch.diff.train import _diff_cfg
+    from raytracing_tests_tpu_torch.ops.render import _build_accel, trace_lanes
+
+    module, wrapper, _, _ = EDGE_KERNELS[name]
+    cfg = dataclasses.replace(_diff_cfg(g["cfg"]), max_pops=2)
+    lo, ld, ltr, ls = _lane_inputs(g["cam"], cfg)
+    n = lo.shape[0] // g["bands"]
+    sl = slice(band * n, (band + 1) * n)
+    with torch.no_grad(), captured(module, wrapper, 2) as got:
+        trace_lanes(g["pert"], None, cfg, lo[sl], ld[sl], ltr[sl], ls[sl],
+                    _build_accel(g["pert"], cfg))
+    require(len(got) == 2, f"{name}: band {band} made {len(got)} launches")
+    return got
+
+
+def edge_bound(name, accel, rays, stats):
+    """The least time for the silhouette sweep on ``rays``: every (live ray,
+    row) pair's anchored or local terms and the metric, the nearest-hit
+    sweep's slab tests, rays in and (t, obj, edge) out, the tables once."""
+    B = rays.shape[1]
+    live = (rays[3:6] * rays[3:6]).sum(dim=0) > 0.5
+    n_live = int(live.sum())
+    n_bytes = 4 * B * (8 + 3) + accel_bytes(accel)
+    if name.startswith("sweep2g"):
+        rows = int((accel.otab[:accel.n_pad, sweep2g.GO_VALID] > 0.0).sum())
+        flops = (n_live * rows * (FLOPS_PER_GENERIC_ROW + FLOPS_PER_EDGE_METRIC_G)
+                 + int(stats[sweep2g.GC_SLAB]) * FLOPS_PER_SLAB_TEST)
+    else:
+        rows = accel.n_pad
+        per = FLOPS_PER_SPHERE_TEST + FLOPS_PER_EDGE_METRIC
+        per += FLOPS_PER_MOTION_TERMS if accel.has_motion else 0
+        flops = n_live * (rows * per + accel.n_groups * FLOPS_PER_SLAB_TEST)
+    return bound(n_bytes, flops) + (rows,)
+
+
+def edge_vs_plain(name, g, band):
+    """Phase edge_vs_plain for one instantiation, on the first two pops of a
+    band of its gradient frame -> its kernels-line fields."""
+    module, wrapper, plain, site = EDGE_KERNELS[name]
+    run = getattr(module, wrapper)
+    pops, out = first_two_pops(g, name, band), {}
+    for k, (accel, rays) in enumerate(pops):
+        require(accel.has_motion == ("_m_" in name), f"{name}: the frame's accel")
+        plain_ms, want = timed_ms(lambda: plain(accel, rays))
+        with _build.precise():
+            precise = compare_edge(run(accel, rays), want, rays)
+        res = compare_edge(run(accel, rays), want, rays)
+        torch.cuda.synchronize()
+        stats = torch.zeros(sweep2g.GC_LEN if name.startswith("sweep2g") else sweep2.SW_LEN,
+                            dtype=torch.int64, device=rays.device)
+        run(accel, rays, stats)
+        t_bound, by, rows = edge_bound(name, accel, rays, stats)
+        out[f"pop{k + 1}"] = dict(rays=rays.shape[1], rows=rows, default_build=res,
+                                  precise_build=precise, ms=cuda_ms(lambda: run(accel, rays), 10),
+                                  plain_ms=plain_ms, bound_ms=t_bound, bound_by=by)
+    say(phase="edge_vs_plain", kernel=name, band=band, **out)
+    for k in (1, 2):
+        got = out[f"pop{k}"]
+        check_edge(f"{name} on pop {k}", got["default_build"], got["precise_build"], EDGE_BARS[k])
+        require(got["ms"] > got["bound_ms"], f"{name} below its bound: {got}")
+    first = out["pop1"]
+    worst = min((p["default_build"] for p in out.values()), key=lambda r: r["same_edge"])
+    return dict(name=name, route="cuda", source="raytracing_tests_tpu_torch/csrc/" + (
+                    "sweep2g.cu" if name.startswith("sweep2g") else "sweep2.cu"),
+                replaces="raytracing_tests_tpu/kernels/" + site,
+                max_abs_err=max(p["default_build"]["t_max_abs_err"] for p in out.values()),
+                tolerance="default build: the plain version's winner and silhouette candidate "
+                          "on >= 99.9 % of rays, t rtol 1e-4 on >= 99 % of the agreeing hits; "
+                          "-fmad=false build: t, obj and edge identical on >= 99.9 %",
+                frac_within_tolerance=min(worst["same_edge"], worst["same_obj"],
+                                          worst["t_within_rtol_1e4"]),
+                ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+                bound_by=first["bound_by"], library_ms=None,
+                shape=f"{first['rays']} rays (one band's first pop) x {first['rows']} rows",
+                at_second_pop={k: out["pop2"][k] for k in ("rays", "ms", "plain_ms", "bound_ms")})
+
+
+def grad_phases(dev):
+    """The eighth slice's phases -> (kernels-line entries, {path: launches}).
+
+    grad_frame (the sphere sweep through fastpath._winner), grad_soft_frame
+    (its silhouette instantiation), grad_generic_soft (K3 and its silhouette
+    instantiation on bvh1k), grad_motion_soft (both moving silhouette
+    instantiations), edge_vs_plain (the four against their plain versions on
+    their frames' first two pops) and train_steps."""
+    paths = {}
+    recolour = lambda s: s.replace(color=s.color * 0.8 + 0.1)
+
+    # grad_frame: bench.py's grad_config, through the kernels, the -fmad=false
+    # build and the plain versions
+    g = grad_inputs(dev, examples.iow_final_scene(), recolour)
+    with launch_events(sweep2, "_sweep2") as ev:
+        k = grad_step(g)
+    k2_ms, n_k2 = events_ms(ev), len(ev)
+    with _build.precise():
+        kp = grad_step(g)
+    with plain_sweeps():
+        pl = grad_step(g)
+    default, precise = compare_grads(k, pl), compare_grads(kp, pl)
+    share = band_device_share(g, max(range(g["bands"]), key=lambda b: g["pops"][b]))
+    frame = dict(size=size_of(GRAD), bands=g["bands"], band_pops=g["pops"],
+                 seconds_per_step=k["ms"] / 1e3, plain_seconds_per_step=pl["ms"] / 1e3,
+                 forward_rays=g["rays"], forward_seconds=g["forward_ms"] / 1e3,
+                 step_over_forward=k["ms"] / g["forward_ms"],
+                 mrays_equiv_per_s=g["rays"] / (k["ms"] / 1e3) / 1e6,
+                 probe_seconds=g["probe_ms"] / 1e3, peak_memory_bytes=k["peak_memory_bytes"],
+                 launches=k["launches"], k2_launches=n_k2, k2_device_ms=k2_ms,
+                 deepest_band=share, default_build=default, precise_build=precise)
+    say(phase="grad_frame", **frame)
+    check_grads("grad_frame, -fmad=false build", precise, GRAD_PRECISE)
+    check_grads("grad_frame, default build", default, GRAD_DEFAULT)
+    require(set(k["launches"]) == {"sweep2"} and k["launches"]["sweep2"] == n_k2 > 0,
+            f"grad_frame: the step runs K2 and nothing else: {k['launches']}")
+    paths["grad_frame"] = k["launches"]
+    edge_frames = {}
+
+    # grad_soft_frame: the same frame with soft edges (K2's silhouette
+    # instantiation)
+    gs = dict(g, cfg=dataclasses.replace(g["cfg"], soft_edges=SOFT))
+    _build.reset_launches()
+    pops_ms, pops = timed_ms(lambda: diff.probe_band_pops(gs["pert"], gs["cam"], gs["cfg"],
+                                                          gs["bands"]))
+    gs.update(pops=[q + diff.train.POPS_MARGIN for q in pops], probe_ms=pops_ms)
+    with launch_events(sweep2, "_sweep2_edge") as ev:
+        ks = grad_step(gs)
+    res = dict(size=size_of(GRAD), soft_edges=SOFT, band_pops=gs["pops"],
+               seconds_per_step=ks["ms"] / 1e3, probe_seconds=pops_ms / 1e3,
+               loss=float(ks["loss"]), peak_memory_bytes=ks["peak_memory_bytes"],
+               launches=ks["launches"], edge_device_ms=events_ms(ev), edge_launches=len(ev),
+               finite=all(bool(torch.isfinite(v).all()) for _, v in ks["grads"].items()))
+    say(phase="grad_soft_frame", **res)
+    require(res["finite"] and set(ks["launches"]) == {"sweep2_edge"},
+            f"grad_soft_frame: {res}")
+    paths["grad_soft_frame"] = ks["launches"]
+    edge_frames["sweep2_edge"] = gs
+
+    # grad_generic_soft: bvh1k, position trained, with and without soft edges
+    rng = np.random.default_rng(SEED)
+
+    def jitter(s):
+        dpos = torch.from_numpy(rng.uniform(-0.1, 0.1, tuple(s.position.shape)).astype(np.float32))
+        return s.replace(position=s.position + dpos.to(s.position.device))
+
+    gg = grad_inputs(dev, examples.bvh_grid_scene(side=32), jitter, soft=SOFT)
+    kg = grad_step(gg)
+    hard = dict(gg, cfg=dataclasses.replace(gg["cfg"], soft_edges=0.0))
+    kh = grad_step(hard)
+    res = dict(size=size_of(GRAD), objects=int(gg["scene"].num_valid), soft_edges=SOFT,
+               band_pops=gg["pops"], seconds_per_step=kg["ms"] / 1e3,
+               hard_seconds_per_step=kh["ms"] / 1e3, loss=float(kg["loss"]),
+               hard_loss=float(kh["loss"]), peak_memory_bytes=kg["peak_memory_bytes"],
+               launches=kg["launches"], hard_launches=kh["launches"],
+               position_grad_max=float(kg["grads"].position.abs().max()),
+               finite=all(bool(torch.isfinite(v).all())
+                          for x in (kg, kh) for _, v in x["grads"].items()))
+    say(phase="grad_generic_soft", **res)
+    require(res["finite"] and set(kg["launches"]) == {"sweep2g_edge"}
+            and set(kh["launches"]) == {"sweep2g"} and res["position_grad_max"] > 0.0,
+            f"grad_generic_soft: {res}")
+    paths["grad_generic_soft"] = kg["launches"]
+    paths["grad_generic"] = kh["launches"]
+    edge_frames["sweep2g_edge"] = gg
+
+    # grad_motion_soft: the moving scenes' silhouette instantiations
+    for name, scene_cam in (("sweep2_m_edge", examples.motion_blur_scene()),
+                            ("sweep2g_m_edge", moving_groups_scene())):
+        gm = grad_inputs(dev, scene_cam, jitter, soft=SOFT)
+        km = grad_step(gm)
+        res = dict(kernel=name, size=size_of(GRAD), band_pops=gm["pops"],
+                   seconds_per_step=km["ms"] / 1e3, loss=float(km["loss"]),
+                   launches=km["launches"],
+                   finite=all(bool(torch.isfinite(v).all()) for _, v in km["grads"].items()))
+        say(phase="grad_motion_soft", **res)
+        require(res["finite"] and set(km["launches"]) == {name}, f"grad_motion_soft: {res}")
+        paths[f"grad_motion_soft_{name}"] = km["launches"]
+        edge_frames[name] = gm
+
+    # edge_vs_plain: each silhouette instantiation on its frame's first two
+    # pops (a band through the middle of the frame)
+    entries, failed = [], []
+    for name, ge in edge_frames.items():
+        try:  # every instantiation is measured and printed before any failure is raised
+            e = edge_vs_plain(name, ge, ge["bands"] // 2)
+        except AssertionError as err:
+            failed.append(str(err))
+            continue
+        e["launches"] = max(got.get(name, 0) for got in paths.values())
+        e["launches_by_path"] = {p: got.get(name, 0) for p, got in paths.items() if got.get(name)}
+        entries.append(e)
+    require(not failed, f"edge_vs_plain: {failed}")
+
+    # train_steps: three Adam steps of grad_config lower the loss; a
+    # checkpoint round trip on the card
+    import tempfile
+
+    from raytracing_tests_tpu_torch.app import checkpoint
+
+    opt = diff.adam(2e-2)
+    _build.reset_launches()
+    step = diff.make_train_step(g["pert"], g["cam"], g["cfg"], opt, grad_bands=g["bands"],
+                                auto_pops=True, trainable=diff.params_mask(g["pert"], "color"))
+    st = diff.TrainState.create(g["pert"], opt)
+    losses, times = [], []
+    for _ in range(3):
+        ms, (st, loss) = timed_ms(lambda: step(st, g["target"]))
+        losses.append(float(loss))
+        times.append(ms / 1e3)
+    launches_train = dict(_build.LAUNCHES)
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save_train_state(tmp, st, st.step)
+        back, at = checkpoint.restore_train_state(tmp, diff.TrainState.create(g["pert"], opt))
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(st.params.items(), back.params.items()))
+    same_adam = all(torch.equal(st.opt_state[n][key].cpu(), back.opt_state[n][key].cpu())
+                    for n in st.opt_state for key in ("step", "exp_avg", "exp_avg_sq"))
+    _, l_on = step(st, g["target"])
+    _, l_back = step(back, g["target"])
+    res = dict(size=size_of(GRAD), losses=losses, seconds_per_step=times,
+               band_pops=step.pops_state["band_pops"], launches=launches_train,
+               checkpoint_step=at, restored_params_equal=same, restored_adam_equal=same_adam,
+               next_loss=float(l_on), next_loss_from_restored=float(l_back))
+    say(phase="train_steps", **res)
+    require(losses[2] < losses[0] and losses[1] < losses[0], f"train_steps: {res}")
+    require(at == 3 and same and same_adam and float(l_on) == float(l_back),
+            f"train_steps: the checkpoint did not resume identically: {res}")
+    paths["train_steps"] = launches_train
+    return entries, paths
+
+
 def main():
     dev = torch.device("cuda", 0)
 
@@ -3278,6 +3770,12 @@ def main():
     kernels += sixth
     seventh, seventh_paths = texturing_phases(dev)
     kernels += seventh
+    eighth, eighth_paths = grad_phases(dev)
+    for k in eighth:  # the silhouette instantiations' ptxas lines
+        lib, args = ("sweep2g.so sweep2g_kernel", k["name"][7:]) if k["name"].startswith(
+            "sweep2g") else ("sweep2.so sweep2_kernel", k["name"][6:])
+        k["ptxas"] = ptxas.get(f"{lib}<{int(args.startswith('_m'))},1>")
+    kernels += eighth
     # every instantiation of K1 with its ptxas line
     entry_of = {v: n for n, v in KERNEL_ENTRY.items()}
     for k in kernels:
@@ -3289,9 +3787,9 @@ def main():
     # K5 behind the queue renderer on the new canaries, shadow sweeps
     # included, K2 behind the work queue with lights and textures, K1 'bvh' on
     # the deep stacks, the untextured instantiations on the camera canaries
-    later_paths = {**sixth_paths, **seventh_paths}
+    later_paths = {**sixth_paths, **seventh_paths, **eighth_paths}
     for k in kernels:
-        counter = dict(sweep2="sweep2", sweep2_motion="sweep2_m",
+        counter = dict(sweep2="sweep2", sweep2_motion="sweep2_m", sweep2g="sweep2g",
                        sweep_grouped="sweep_grouped").get(k["name"], k.get("instantiation"))
         if counter:
             k["launches_by_path"].update({p: got[counter] for p, got in later_paths.items()

@@ -7,15 +7,23 @@ Usage:
         --spp S --bounces B --pallas --uber --out out.png
         --depth-out depth.png --device cuda|cpu
         --texture image.png --texture-mapping mercator|cubic]
+  python -m raytracing_tests_tpu_torch train <workload> [--steps N --lr F
+        --train-fields color,position --pallas --grad-bands N --auto-pops
+        --soft-edges F --out-dir dir --ckpt-dir dir --ckpt-every N
+        --device cuda|cpu]
 
-Renders run on the GPU unless ``--device cpu`` is given.
+Renders and training run on the GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import time
+
+import numpy as np
+import torch
 
 
 def _cmd_list(_args):
@@ -74,6 +82,78 @@ def _cmd_render(args):
         log.info("wrote %s", args.depth_out)
 
 
+def _perturbed(scene, fields, seed: int):
+    """The scene the training demo starts from: the trained fields moved by
+    numpy ``default_rng(seed)`` draws (the JAX package's demo draws the same)."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    out = scene
+    if "color" in fields:
+        out = out.replace(color=scene.color * 0.5
+                          + f32(rng.uniform(0, 0.5, tuple(scene.color.shape))))
+    if "position" in fields:
+        out = out.replace(position=scene.position
+                          + f32(rng.uniform(-0.1, 0.1, tuple(scene.position.shape))))
+    if "scale" in fields:
+        out = out.replace(scale=scene.scale * f32(rng.uniform(0.85, 1.15, (scene.capacity, 1))))
+    if out is scene:  # other fields: a mild colour shift keeps the loss above 0
+        out = out.replace(color=scene.color * 0.8 + 0.1)
+    return out
+
+
+def _cmd_train(args):
+    import dataclasses
+
+    from raytracing_tests_tpu_torch.app import checkpoint as ckpt
+    from raytracing_tests_tpu_torch.diff import (
+        TrainState, adam, apply_params, make_train_step, params_mask,
+    )
+    from raytracing_tests_tpu_torch.models import get_workload
+    from raytracing_tests_tpu_torch.ops.render import render
+    from raytracing_tests_tpu_torch.utils import io
+
+    log = logging.getLogger("raytracing_tests_tpu_torch")
+    if args.mesh:
+        raise SystemExit("--mesh: sharded training is not ported yet (ROADMAP L7)")
+    w = get_workload(args.workload)
+    kw = {}
+    if args.pallas or args.soft_edges > 0.0:
+        # the fast gradient path; the soft-edge estimator only exists there
+        kw["intersector"] = "pallas"
+    out = w.run(width=args.width, height=args.height, spp=args.spp, device=args.device, **kw)
+    scene, camera, cfg = out["scene"], out["camera"], out["cfg"]
+    target = out["image"].detach()
+    fields = args.train_fields.split(",")
+    perturbed = _perturbed(scene, fields, args.seed)
+    if args.soft_edges > 0.0:
+        cfg = dataclasses.replace(cfg, soft_edges=args.soft_edges)
+    opt = adam(args.lr)
+    step = make_train_step(perturbed, camera, cfg, opt, grad_bands=args.grad_bands,
+                           auto_pops=args.auto_pops,
+                           trainable=params_mask(perturbed, *fields), device=args.device)
+    st = TrainState.create(perturbed, opt, device=args.device)
+    start = 0
+    if args.ckpt_dir:
+        restored, start = ckpt.restore_train_state(args.ckpt_dir, st)
+        if restored is not None:
+            st = restored
+            log.info("resumed from step %d", start)
+    for k in range(start, args.steps):
+        st, loss = step(st, target)
+        if k % max(1, args.steps // 10) == 0 or k == args.steps - 1:
+            log.info("step %4d  loss %.6g", k, float(loss))
+        if args.ckpt_dir and (k + 1) % args.ckpt_every == 0:
+            ckpt.save_train_state(args.ckpt_dir, st, k + 1)
+    if args.out_dir:
+        os.makedirs(args.out_dir, exist_ok=True)
+        with torch.no_grad():
+            final = render(apply_params(perturbed, st.params), camera, cfg,
+                           device=args.device)
+        io.save_png(f"{args.out_dir}/target.png", target.cpu().numpy())
+        io.save_png(f"{args.out_dir}/final.png", final["image"].cpu().numpy())
+        log.info("wrote %s/{target,final}.png", args.out_dir)
+
+
 def _cmd_info(_args):
     """Device capability readout."""
     import torch
@@ -116,12 +196,42 @@ def main(argv=None):
                     help="how to interpret --texture: equirectangular "
                     "or packed 6-face atlas")
 
+    pt = sub.add_parser("train", help="inverse-rendering demo: recover scene params")
+    pt.add_argument("workload")
+    pt.add_argument("--steps", type=int, default=100)
+    pt.add_argument("--lr", type=float, default=2e-2)
+    pt.add_argument("--width", type=int, default=64)
+    pt.add_argument("--height", type=int, default=36)
+    pt.add_argument("--spp", type=int, default=2)
+    pt.add_argument("--seed", type=int, default=0)
+    pt.add_argument("--mesh", type=int,
+                    help="shard over N devices (not ported yet: refused)")
+    pt.add_argument("--train-fields", default="color")
+    pt.add_argument("--pallas", action="store_true",
+                    help="fast gradient path (kernel winner-finding + "
+                    "closed-form recompute)")
+    pt.add_argument("--grad-bands", type=int, default=1,
+                    help="accumulate gradients over N image row bands (exact; "
+                    "1/N the backward's peak memory, for full-resolution frames)")
+    pt.add_argument("--auto-pops", action="store_true",
+                    help="probe each band's ray-tree depth and trace the bands "
+                    "to it (exact; needs --grad-bands > 1)")
+    pt.add_argument("--soft-edges", type=float, default=0.0,
+                    help="edge-aware gradient band (~0.03 when training "
+                    "position/scale; implies the fast gradient path)")
+    pt.add_argument("--out-dir")
+    pt.add_argument("--ckpt-dir", help="checkpoint/resume directory")
+    pt.add_argument("--ckpt-every", type=int, default=20)
+    pt.add_argument("--device", default=None,
+                    help="torch device; default: the GPU (cuda)")
+
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     {
         "list": _cmd_list,
         "info": _cmd_info,
         "render": _cmd_render,
+        "train": _cmd_train,
     }[args.cmd](args)
 
 

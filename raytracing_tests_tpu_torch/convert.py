@@ -6,6 +6,10 @@ dictionaries of numpy arrays keyed by field name:
 ``{f: np.asarray(getattr(scene, f)) for f in SCENE_FIELDS}``, plus a textured
 scene's atlas stack under ``"textures"``.
 
+``scene_params_from_numpy`` / ``scene_params_to_numpy`` do the same for the
+gradient path's ``diff.SceneParams`` (a ``TrainState``'s parameters, or a
+gradient), so both packages can be fed the same leaves.
+
 ``accel2_from_numpy`` takes the sphere accel in the JAX package's table
 layout (``otab`` (Np + Pp, 128), the float32 ``ftab`` (24, Np) with its bf16
 splits summed, ``gaabb`` (G + PG, 128), ``perm``) and re-lays it into this
@@ -81,6 +85,25 @@ def lights_from_numpy(leaves: dict, device="cpu") -> Lights:
 
 def lights_to_numpy(lights: Lights) -> dict:
     return _to_numpy(lights, LIGHTS_FIELDS)
+
+
+def scene_params_from_numpy(leaves: dict, device="cpu"):
+    """``diff.SceneParams`` from ``{field: array}`` (every name of
+    ``diff.FLOAT_FIELDS``; ``"textures"`` where the scene has an atlas)."""
+    from raytracing_tests_tpu_torch.diff.params import FLOAT_FIELDS, SceneParams
+
+    params = _from_numpy(SceneParams, FLOAT_FIELDS, leaves, device)
+    textures = leaves.get("textures")
+    if textures is not None:
+        params = params.replace(
+            textures=torch.from_numpy(np.array(textures, np.float32)).to(device))
+    return params
+
+
+def scene_params_to_numpy(params) -> dict:
+    """``{field: array}`` of a ``SceneParams`` (a gradient too): its tensor
+    fields, ``"textures"`` only where it holds one."""
+    return {name: v.detach().cpu().numpy() for name, v in params.items()}
 
 
 def accel2_from_numpy(otab, ftab, gaabb, perm, gr: int, device="cpu",

@@ -98,7 +98,12 @@ def refract(d, n, eta):
     cos_i = -dot(d, n, keepdims=True)
     k = 1.0 - eta * eta * (1.0 - cos_i * cos_i)
     tir = k < 0.0
-    sqrt_k = torch.sqrt(torch.clamp_min(k, 0.0))
+    # The root only where k > 0 (0 elsewhere, TIR lanes are zeroed below):
+    # under autograd the root's backward at k <= 0 would be inf or NaN, and
+    # k = 0 exactly is common (a dead lane, d = 0, through eta = 1).
+    pos = k > 0.0
+    sqrt_k = torch.where(pos, torch.sqrt(torch.where(pos, k, torch.ones_like(k))),
+                         torch.zeros_like(k))
     out = eta * d + (eta * cos_i - sqrt_k) * n
     return torch.where(tir, torch.zeros_like(out), out)
 

@@ -20,12 +20,65 @@
 // splits and packed (t, id) key have no counterpart: the winner's row is an
 // indexed load.
 //
-// Two instantiations: static scenes (8-float object rows) and moving ones
+// Four instantiations: static scenes (8-float object rows) and moving ones
 // (MOTION: 12-float rows, each centre shifted by the ray's omt * dp in the
-// sweep, the refine and the probe); the host function picks by `has_motion`.
+// sweep, the refine and the probe), each also as EDGE: the nearest (t, obj)
+// and the silhouette candidate of the gradient path (sphere_edge) instead of
+// the hit block.  The host function picks by `has_motion` and `edge_out`.
 #include "warp_sweep.cuh"
 
 namespace {
+
+// Silhouette candidate of one live ray (replaces the TPU kernel's with_edge
+// branch, kernels/sweep2.py:357-369): the row with the least
+// (c_q - nb^2) * rinv2, i.e. (h/r)^2 - 1 with h the distance from the row's
+// centre to the ray's line, among the rows whose centre lies ahead (nb > 0),
+// in the group-anchored frame of the sweep (the same nb and c_q as
+// sphere_row_t).  EVERY row of the main table takes part, dead and padding
+// rows too (K1 = BIG_T, rinv2 = 1e-30: a metric of about 3e8): the TPU kernel
+// sees only the groups its 2048-ray block entered, a schedule this port does
+// not carry, so the candidate is defined over the whole table.  A strict <
+// in row order keeps the lowest row on a tie; -1 when no row lies ahead.  One
+// thread per ray: the lanes of a warp read the same row at once.
+template <bool MOTION>
+__device__ __forceinline__ int sphere_edge(const rt::Tables& T, float ox, float oy,
+                                           float oz, float dx, float dy, float dz,
+                                           float omt) {
+  constexpr int COLS = MOTION ? rt::OT_COLS_MOTION : rt::OT_COLS;
+  float best = rt::BIG_T;
+  int edge = -1;
+  for (int g = 0; g < T.n_groups; ++g) {
+    const float* ga = T.gaabb + g * rt::GA_COLS;
+    const float sx = ox - __ldg(ga + 6), sy = oy - __ldg(ga + 7), sz = oz - __ldg(ga + 8);
+    const float od = sx * dx + sy * dy + sz * dz;
+    const float oo = sx * sx + sy * sy + sz * sz;
+    const float* rows = T.otab + (size_t)g * T.gr * COLS;
+    for (int r = 0; r < T.gr; ++r) {
+      const float* row = rows + r * COLS;
+      const float4 c = rt::ld4(row);      // cx cy cz k1
+      const float4 k = rt::ld4(row + 4);  // ri rinv2 k2 k3
+      const float DC = c.x * dx + c.y * dy + c.z * dz;
+      const float OC = c.x * sx + c.y * sy + c.z * sz;
+      float nb = DC - od;
+      float c_q = oo + c.w - 2.0f * OC;
+      if (MOTION) {
+        const float4 m = rt::ld4(row + 8);  // dpx dpy dpz 0
+        const float DDP = m.x * dx + m.y * dy + m.z * dz;
+        const float ODP = m.x * sx + m.y * sy + m.z * sz;
+        nb = nb - omt * DDP;
+        c_q = c_q + omt * (2.0f * ODP - k.z) + (omt * omt) * k.w;
+      }
+      if (nb > 0.0f) {
+        const float me = (c_q - nb * nb) * k.y;
+        if (me < best) {
+          best = me;
+          edge = g * T.gr + r;
+        }
+      }
+    }
+  }
+  return edge;
+}
 
 // Work counters (measurement only): gr per group a ray entered; the rows each
 // ray's own walk tested (to its groups' last live rows), 32 x the row
@@ -39,12 +92,12 @@ enum { SW_TESTS = 0, SW_ROW_TESTS, SW_LANE_SLOTS, SW_COOP_VISITS, SW_LEN };
 constexpr int THREADS = 256;
 constexpr int MIN_BLOCKS = 3;
 
-template <bool MOTION>
+template <bool MOTION, bool EDGE>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) sweep2_kernel(
     rt::Tables T, const int* __restrict__ live_rows, int coop_min,
     const float* __restrict__ rays, int B, float* __restrict__ t_out,
     int* __restrict__ obj_out, float* __restrict__ rows_out, int with_ri,
-    unsigned long long* __restrict__ stats) {
+    int* __restrict__ edge_out, unsigned long long* __restrict__ stats) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
   const bool in = i < B;
@@ -78,6 +131,13 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) sweep2_kernel(
   }
   const bool hit = obj >= 0;
   if (in) obj_out[i] = obj;
+  if constexpr (EDGE) {  // no hit block: the host refuses rows_out with edge_out
+    if (in) {
+      t_out[i] = hit ? t_best : rt::BIG_T;
+      edge_out[i] = live ? sphere_edge<MOTION>(T, ox, oy, oz, dx, dy, dz, omt) : -1;
+    }
+    return;
+  }
   if (rows_out == nullptr) {
     if (in) t_out[i] = hit ? t_best : rt::BIG_T;
     return;
@@ -132,7 +192,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) sweep2_kernel(
 }  // namespace
 
 // rays: (8, B) rows ox oy oz dx dy dz omt tlim; t_out, obj_out: (B,);
-// rows_out: (16, B) or null; live_rows: (n_groups,) int32, each main group's
+// rows_out: (16, B) or null; edge_out: (B,) int32 or null, the silhouette
+// candidate (EDGE instantiation; rows_out must then be null);
+// live_rows: (n_groups,) int32, each main group's
 // last live row + 1; coop_min: a group that fewer lanes of a warp entered is
 // swept row-parallel (1 never, 33 always); stats: null, or uint64[SW_LEN]
 // that gains the work counters (measurement only).  `has_motion` says that
@@ -142,8 +204,9 @@ extern "C" int rt_sweep2(const void* otab, const void* ftab, const void* gaabb,
                          const void* live_rows, int n_groups, int gr, int n_pgroups,
                          int probe_gr, int has_motion, int coop_min, const void* rays,
                          int B, void* t_out, void* obj_out, void* rows_out, int with_ri,
-                         void* stats, void* stream) {
+                         void* edge_out, void* stats, void* stream) {
   if (B <= 0) return 0;
+  if (edge_out != nullptr && rows_out != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   rt::Tables T;
   T.otab = static_cast<const float*>(otab);
   T.ftab = static_cast<const float*>(ftab);
@@ -161,11 +224,11 @@ extern "C" int rt_sweep2(const void* otab, const void* ftab, const void* gaabb,
   float* ro = static_cast<float*>(rows_out);
   unsigned long long* st = static_cast<unsigned long long*>(stats);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (has_motion)
-    RT_LAUNCH(sweep2_kernel<true>, blocks, THREADS, cs, T, live, coop_min, r, B, t, o, ro,
-              with_ri, st);
-  else
-    RT_LAUNCH(sweep2_kernel<false>, blocks, THREADS, cs, T, live, coop_min, r, B, t, o, ro,
-              with_ri, st);
+  int* eo = static_cast<int*>(edge_out);
+  const auto kernel = has_motion ? (eo != nullptr ? sweep2_kernel<true, true>
+                                                  : sweep2_kernel<true, false>)
+                                 : (eo != nullptr ? sweep2_kernel<false, true>
+                                                  : sweep2_kernel<false, false>);
+  RT_LAUNCH(kernel, blocks, THREADS, cs, T, live, coop_min, r, B, t, o, ro, with_ri, eo, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,6 +32,10 @@ cross terms ``K2 = 2 C . dp`` and ``K3 = |dp|^2`` to the anchored quadratic.
 A static accel keeps the 8-float object row (two 16-byte loads); an accel
 built with ``has_motion`` carries ``dp`` in four more columns.
 
+The silhouette instantiation (``sweep2_nearest_edge``, the JAX kernel's
+``with_edge``) adds the near-miss candidate of the gradient path's soft edges
+over every row of the main table (``sweep2_edge_plain`` defines it).
+
 Directions are assumed unit; dead rays carry d = 0 and never hit.
 """
 
@@ -443,9 +447,11 @@ def _dot3(a, b):
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
-def _sweep_chunk(accel: Accel2, o, d, live, tlim, omt=None):
-    """Dense anchored nearest-hit for one chunk of rays -> (t_best, obj).
-    ``omt`` (B,) = 1 - time_ratio; read only by a moving accel."""
+def _sweep_chunk(accel: Accel2, o, d, live, tlim, omt=None, with_edge: bool = False):
+    """Dense anchored nearest-hit for one chunk of rays -> (t_best, obj), and
+    with ``with_edge`` the silhouette candidate ``edge`` (see
+    ``sweep2_edge_plain``) as a third output.  ``omt`` (B,) = 1 - time_ratio;
+    read only by a moving accel."""
     G, gr, n_pad = accel.n_groups, accel.gr, accel.n_pad
     ga = accel.gaabb[:G]
     lo, hi, an = ga[:, 0:3], ga[:, 3:6], ga[:, 6:9]
@@ -490,25 +496,36 @@ def _sweep_chunk(accel: Accel2, o, d, live, tlim, omt=None):
     hit = t_min < limit0
     t_best = torch.where(hit, t_min, limit0)
     obj = torch.where(hit, first, torch.full_like(first, -1))
-    return t_best, obj.to(torch.int32)
+    if not with_edge:
+        return t_best, obj.to(torch.int32)
+    # Silhouette candidate: (h/r)^2 - 1 with h the distance from the centre to
+    # the ray's line, over every row whose centre lies ahead of a live ray.
+    rinv2 = accel.otab[:n_pad, OT_RINV2].reshape(1, G, gr)
+    fwd = (nb > 0.0) & live[:, None, None]
+    me = torch.where(fwd, (c_q - nb * nb) * rinv2, torch.full_like(nb, BIG_T))
+    me = me.reshape(-1, n_pad)
+    m_min = torch.amin(me, dim=1)
+    e_first = torch.amin(
+        torch.where(me == m_min[:, None], rid, torch.full_like(rid, n_pad)), dim=1)
+    edge = torch.where(m_min < BIG_T, e_first, torch.full_like(e_first, -1))
+    return t_best, obj.to(torch.int32), edge.to(torch.int32)
 
 
-def _sweep_plain(accel: Accel2, o, d, live, tlim, omt=None):
-    """Nearest (t_best, obj) over all rays, in chunks that bound memory.
-    Misses return obj = -1 and t_best = min(BIG_T, tlim)."""
+def _sweep_plain(accel: Accel2, o, d, live, tlim, omt=None, with_edge: bool = False):
+    """Nearest (t_best, obj) over all rays, in chunks that bound memory, and
+    ``edge`` with ``with_edge``.  Misses return obj = -1 and
+    t_best = min(BIG_T, tlim)."""
     B = o.shape[0]
     if accel.has_motion and omt is None:
         raise ValueError("a moving accel needs omt = 1 - time_ratio per ray")
     if B <= _PLAIN_CHUNK:
-        return _sweep_chunk(accel, o, d, live, tlim, omt)
-    ts, objs = [], []
+        return _sweep_chunk(accel, o, d, live, tlim, omt, with_edge)
+    parts = []
     for b0 in range(0, B, _PLAIN_CHUNK):
         sl = slice(b0, b0 + _PLAIN_CHUNK)
-        t, ob = _sweep_chunk(accel, o[sl], d[sl], live[sl], tlim[sl],
-                             omt[sl] if accel.has_motion else None)
-        ts.append(t)
-        objs.append(ob)
-    return torch.cat(ts), torch.cat(objs)
+        parts.append(_sweep_chunk(accel, o[sl], d[sl], live[sl], tlim[sl],
+                                  omt[sl] if accel.has_motion else None, with_edge))
+    return tuple(torch.cat(x) for x in zip(*parts))
 
 
 def _gather_rows(accel: Accel2, obj):
@@ -614,6 +631,28 @@ def sweep2_plain(accel: Accel2, rays, with_ri: bool, with_fields: bool):
     return t_out, obj, block
 
 
+def sweep2_edge_plain(accel: Accel2, rays):
+    """Plain PyTorch version of the kernel's silhouette instantiation:
+    ``rays`` (8, B) -> (t (B,), obj (B,) i32, edge (B,) i32).
+
+    ``t`` and ``obj`` are ``sweep2_plain``'s without fields.  ``edge`` is the
+    near-miss candidate of the gradient path's soft edges: the row with the
+    least ``(c_q - nb^2) * rinv2`` (= (h/r)^2 - 1, h the distance from its
+    centre to the ray's line, in the group-anchored frame of the sweep) among
+    the rows whose centre lies ahead (``nb > 0``), over EVERY row of the main
+    table: the lowest row wins a tie, and -1 means that no row lies ahead or
+    that the ray is dead.  Dead and padding rows take part with K1 = BIG_T and
+    rinv2 = 1e-30 (a metric of about 3e8).  The JAX kernel evaluates the
+    metric only in groups that some ray of its 2048-ray block entered; on the
+    rows it saw, the two agree."""
+    o = rays[0:3].T
+    d = rays[3:6].T
+    omt = rays[6] if accel.has_motion else None
+    live = _dot3(d, d) > 0.5
+    t_best, obj, edge = _sweep_plain(accel, o, d, live, rays[7], omt, with_edge=True)
+    return torch.where(obj >= 0, t_best, torch.full_like(t_best, BIG_T)), obj, edge
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrapper
 # ---------------------------------------------------------------------------
@@ -659,8 +698,13 @@ def live_rows(accel):
     return memo[1]
 
 
-def _launch_sweep2(accel: Accel2, rays, with_ri: bool, with_fields: bool, stats=None):
-    """Check the arguments and launch ``csrc/sweep2.cu`` -> (t, obj, rows or None)."""
+def _launch_sweep2(accel: Accel2, rays, with_ri: bool, with_fields: bool, stats=None,
+                   with_edge: bool = False):
+    """Check the arguments and launch ``csrc/sweep2.cu`` -> (t, obj, rows or
+    None), or with ``with_edge`` (no fields) its silhouette instantiation ->
+    (t, obj, edge)."""
+    if with_edge and with_fields:
+        raise ValueError("the silhouette instantiation writes no hit block")
     dev = rays.device
     if rays.dim() != 2:
         raise ValueError(f"rays: shape {tuple(rays.shape)}, expected (8, B)")
@@ -673,22 +717,25 @@ def _launch_sweep2(accel: Accel2, rays, with_ri: bool, with_fields: bool, stats=
     fn = _build.load("sweep2").rt_sweep2
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p, i, p, p, p, i, p, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p, i, p, p, p, i, p, p, p]
         fn.restype = ctypes.c_int
     t = torch.empty((B,), dtype=torch.float32, device=dev)
     obj = torch.empty((B,), dtype=torch.int32, device=dev)
     rows = (torch.empty((V_ROWS, B), dtype=torch.float32, device=dev)
             if with_fields else None)
+    edge = torch.empty((B,), dtype=torch.int32, device=dev) if with_edge else None
     code = fn(accel.otab.data_ptr(), accel.ftab.data_ptr(),
               accel.gaabb.data_ptr(), live_rows(accel).data_ptr(), accel.n_groups,
               accel.gr, accel.n_pgroups, PROBE_GR, int(accel.has_motion),
               _build.coop_min(COOP_MIN), rays.data_ptr(), B, t.data_ptr(), obj.data_ptr(),
               rows.data_ptr() if with_fields else None, int(with_ri),
+              edge.data_ptr() if with_edge else None,
               stats.data_ptr() if stats is not None else None,
               _build.stream_of(dev))
     _build.check(code, "rt_sweep2")
-    _build.LAUNCHES["sweep2_m" if accel.has_motion else "sweep2"] += 1
-    return t, obj, rows
+    name = "sweep2_m" if accel.has_motion else "sweep2"
+    _build.LAUNCHES[name + "_edge" if with_edge else name] += 1
+    return (t, obj, edge) if with_edge else (t, obj, rows)
 
 
 def _sweep2(accel: Accel2, rays, with_ri: bool, with_fields: bool, stats=None):
@@ -711,6 +758,27 @@ def sweep2_nearest(accel: Accel2, o, d, time_ratio, t_limit):
     """(t, obj_sorted) nearest-hit sweep (occlusion-grade, no fields)."""
     t, obj, _ = _sweep2(accel, pack_rays(o, d, time_ratio, t_limit), False, False)
     return t, obj
+
+
+def _sweep2_edge(accel: Accel2, rays, stats=None):
+    """The silhouette sweep on ``rays`` (8, B) f32: (t, obj, edge).
+
+    CPU tensors go through ``sweep2_edge_plain``; CUDA tensors launch the
+    ``EDGE`` instantiation of ``csrc/sweep2.cu`` (or raise), static or motion
+    by ``accel.has_motion`` (counted as ``sweep2_edge`` and ``sweep2_m_edge``).
+    ``stats`` as for ``_sweep2``: the nearest-hit sweep's counters."""
+    if rays.device.type == "cpu":
+        if accel.device.type != "cpu":
+            raise ValueError("rays on the CPU but accel on " + str(accel.device))
+        return sweep2_edge_plain(accel, rays)
+    with torch.cuda.device(rays.device):
+        return _launch_sweep2(accel, rays, False, False, stats, with_edge=True)
+
+
+def sweep2_nearest_edge(accel: Accel2, o, d, time_ratio, t_limit):
+    """(t, obj_sorted, edge_sorted): ``sweep2_nearest`` and the near-miss
+    silhouette candidate of the soft-edge gradient (``sweep2_edge_plain``)."""
+    return _sweep2_edge(accel, pack_rays(o, d, time_ratio, t_limit))
 
 
 def sweep2_full(accel: Accel2, o, d, time_ratio, t_limit, with_ri: bool):

@@ -32,7 +32,13 @@ Tables are row-major with 16-byte-aligned rows (layouts below and in
 ``rt_common.cuh``); row order, ``perm`` and ``gkinds`` are the JAX package's.
 Not carried over, being measures for the TPU: the packed 11-bit (t, id) key,
 the bf16 field-table splits, and the ablation switches read from the
-environment.  The silhouette (``with_edge``) output is not ported yet.
+environment.
+
+The silhouette instantiation (``sweep2g_nearest_edge``, the JAX kernel's
+``with_edge``) adds the near-miss candidate of the gradient path's soft
+edges: the valid row with the least unit-space line distance, over every row
+of the main table (``sweep2g_edge_plain`` defines it).  Its nearest (t, obj)
+is the nearest-hit sweep's: this port keeps the full t in both.
 
 Directions are assumed unit; dead rays carry d = 0 and never hit.
 """
@@ -450,6 +456,66 @@ def sweep2g_plain(accel: Accel2G, rays):
     return _sweep_plain_g(accel, o, d, rays[6], live, rays[7])
 
 
+_EDGE_CHUNK = 4096  # rays per dense (rays x rows) block of the silhouette metric
+
+
+def _edge_metric_g(accel: Accel2G, o, d, omt):
+    """Silhouette candidate (B,) i32 of rays (B, 3): see ``sweep2g_edge_plain``."""
+    n_pad = accel.n_pad
+    rows = accel.otab[:n_pad]
+    col = lambda c: rows[None, :, c]
+    out = []
+    for b0 in range(0, o.shape[0], _EDGE_CHUNK):
+        sl = slice(b0, b0 + _EDGE_CHUNK)
+        ob, db = o[sl], d[sl]
+        ox, oy, oz = ob[:, 0:1], ob[:, 1:2], ob[:, 2:3]
+        dx, dy, dz = db[:, 0:1], db[:, 1:2], db[:, 2:3]
+        rx, ry, rz = ox - col(GO_PX), oy - col(GO_PY), oz - col(GO_PZ)
+        if accel.has_motion:
+            m = omt[sl][:, None]
+            rx = rx + m * col(GO_DPX)
+            ry = ry + m * col(GO_DPY)
+            rz = rz + m * col(GO_DPZ)
+        r = [col(GO_R00 + i) for i in range(9)]
+        sx, sy, sz = col(GO_SX), col(GO_SY), col(GO_SZ)
+        ex = (r[0] * rx + r[3] * ry + r[6] * rz) / sx
+        ey = (r[1] * rx + r[4] * ry + r[7] * rz) / sy
+        ez = (r[2] * rx + r[5] * ry + r[8] * rz) / sz
+        fx = (r[0] * dx + r[3] * dy + r[6] * dz) / sx
+        fy = (r[1] * dx + r[4] * dy + r[7] * dz) / sy
+        fz = (r[2] * dx + r[5] * dy + r[8] * dz) / sz
+        a = fx * fx + fy * fy + fz * fz
+        hb = ex * fx + ey * fy + ez * fz
+        cc = ex * ex + ey * ey + ez * ez
+        me = cc - hb * hb * (1.0 / torch.clamp_min(a, 1e-30)) - 1.0
+        cand = (hb < 0.0) & (col(GO_VALID) > 0.0) & (a > 1e-30)
+        me = _where_big(cand, me)
+        m_min = torch.amin(me, dim=1)
+        rid = torch.arange(n_pad, device=o.device).expand_as(me)
+        first = torch.amin(torch.where(me == m_min[:, None], rid, n_pad), dim=1)
+        out.append(torch.where(m_min < BIG_T, first, -1).to(torch.int32))
+    return torch.cat(out) if out else torch.zeros((0,), dtype=torch.int32, device=o.device)
+
+
+def sweep2g_edge_plain(accel: Accel2G, rays):
+    """Plain PyTorch version of the kernel's silhouette instantiation:
+    ``rays`` (8, B) -> (t (B,), obj (B,) i32, edge (B,) i32).
+
+    ``t`` and ``obj`` are ``sweep2g_plain``'s.  ``edge`` is the near-miss
+    candidate of the generic soft edges: the VALID row with the least
+    ``|e|^2 - (e.f)^2 / |f|^2 - 1``, the squared distance from the centre to
+    the ray's line in the row's unit space (e = R^T (o - c) / scale, f = R^T d
+    / scale) less 1, among the rows with ``e.f < 0`` (centre ahead) and
+    ``|f|^2 > 1e-30``, over every row of the main table; the lowest row wins a
+    tie, and -1 means no candidate (a dead ray, d = 0, has none).  The JAX
+    kernel evaluates the metric only in groups that some ray of its 2048-ray
+    block entered; on the rows it saw, the two agree."""
+    t, obj = sweep2g_plain(accel, rays)
+    o = rays[0:3].T.contiguous()
+    d = rays[3:6].T.contiguous()
+    return t, obj, _edge_metric_g(accel, o, d, rays[6])
+
+
 def _gather_rows_g(accel: Accel2G, obj):
     """The winners' ftab rows (B, GFT_COLS); misses read zeros."""
     hit = obj >= 0
@@ -572,8 +638,9 @@ def check_accel_g(accel: Accel2G, device):
                   (G + accel.n_pgroups + accel.n_sgroups, GA_COLS), device)
 
 
-def _launch_sweep2g(accel: Accel2G, rays, stats=None):
-    """Check the arguments and launch ``csrc/sweep2g.cu`` -> (t, obj)."""
+def _launch_sweep2g(accel: Accel2G, rays, stats=None, with_edge: bool = False):
+    """Check the arguments and launch ``csrc/sweep2g.cu`` -> (t, obj), or
+    with ``with_edge`` its silhouette instantiation -> (t, obj, edge)."""
     dev = rays.device
     if rays.dim() != 2:
         raise ValueError(f"rays: shape {tuple(rays.shape)}, expected (8, B)")
@@ -586,18 +653,23 @@ def _launch_sweep2g(accel: Accel2G, rays, stats=None):
     fn = _build.load("sweep2g").rt_sweep2g
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, i, i, i, i, p, i, p, p, p, p]
+        fn.argtypes = [p, p, i, i, i, i, i, i, p, i, p, p, p, p, p]
         fn.restype = ctypes.c_int
     t = torch.empty((B,), dtype=torch.float32, device=dev)
     obj = torch.empty((B,), dtype=torch.int32, device=dev)
+    edge = torch.empty((B,), dtype=torch.int32, device=dev) if with_edge else None
     code = fn(accel.otab.data_ptr(), accel.gaabb.data_ptr(), accel.n_groups,
               accel.gr, accel.n_pgroups, PROBE_GR, accel.n_sgroups,
               int(accel.has_motion), rays.data_ptr(), B, t.data_ptr(),
-              obj.data_ptr(), stats.data_ptr() if stats is not None else None,
+              obj.data_ptr(), edge.data_ptr() if with_edge else None,
+              stats.data_ptr() if stats is not None else None,
               _build.stream_of(dev))
     _build.check(code, "rt_sweep2g")
-    _build.LAUNCHES["sweep2g"] += 1
-    return t, obj
+    if not with_edge:
+        _build.LAUNCHES["sweep2g"] += 1
+        return t, obj
+    _build.LAUNCHES["sweep2g_m_edge" if accel.has_motion else "sweep2g_edge"] += 1
+    return t, obj, edge
 
 
 def _sweep2g(accel: Accel2G, rays, stats=None):
@@ -613,6 +685,28 @@ def _sweep2g(accel: Accel2G, rays, stats=None):
         return sweep2g_plain(accel, rays)
     with torch.cuda.device(rays.device):
         return _launch_sweep2g(accel, rays, stats)
+
+
+def _sweep2g_edge(accel: Accel2G, rays, stats=None):
+    """The silhouette sweep on ``rays`` (8, B) f32: (t, obj, edge).
+
+    CPU tensors go through ``sweep2g_edge_plain``; CUDA tensors launch the
+    ``EDGE`` instantiation of ``csrc/sweep2g.cu`` (or raise), static or motion
+    by ``accel.has_motion`` (counted as ``sweep2g_edge`` and
+    ``sweep2g_m_edge``).  ``stats`` as for ``_sweep2g``."""
+    if rays.device.type == "cpu":
+        if accel.device.type != "cpu":
+            raise ValueError("rays on the CPU but accel on " + str(accel.device))
+        return sweep2g_edge_plain(accel, rays)
+    with torch.cuda.device(rays.device):
+        return _launch_sweep2g(accel, rays, stats, with_edge=True)
+
+
+def sweep2g_nearest_edge(accel: Accel2G, o, d, time_ratio, t_limit):
+    """(t, obj_sorted, edge_sorted): ``sweep2g_nearest`` and the near-miss
+    silhouette candidate of the generic soft-edge gradient
+    (``sweep2g_edge_plain``)."""
+    return _sweep2g_edge(accel, pack_rays(o, d, time_ratio, t_limit))
 
 
 def sweep2g_nearest(accel: Accel2G, o, d, time_ratio, t_limit):

@@ -59,7 +59,10 @@ def intersect_brute(scene: Scene, o, d, time_ratio, t_limit):
     """Nearest hit across all (valid) objects. (B,N) dense sweep."""
     lo, ld = _local_rays(scene, o, d, time_ratio)
     t = _masked_t(scene, lo, ld, t_limit)
-    t_hit, obj = _argmin_first(t)
+    _, obj = _argmin_first(t)
+    # The winner's own t, gathered: under autograd the gradient reaches that
+    # one object's terms (a minimum would split it between exact ties).
+    t_hit = torch.gather(t, 1, obj[:, None])[:, 0]
     hit = t_hit < BIG_T
     # Bounded t for misses: every downstream use is masked by ``hit``, but the
     # values still flow through normalize/shading.
@@ -95,11 +98,16 @@ def surrounding_refractive_index(scene: Scene, point, time_ratio):
     estimate undiluted under geometry overlap while letting the kernels probe
     a dielectric-only sub-table.
     """
-    shift = (1.0 - time_ratio)[:, None, None] * scene.delta_position[None]
-    rel = point[:, None, :] - scene.position[None] + shift
-    local = torch.einsum("nji,bnj->bni", scene.rotation, rel) / scene.scale[None]
-    inside = (geometry.point_in_unit_primitive(local, scene.obj_type[None])
-              & scene.valid[None] & (scene.refractive_index[None] != 1.0))
+    # Containment is a boolean: no gradient passes it, so it is computed
+    # outside autograd (the (B, N, 3) intermediates would otherwise be kept for
+    # a backward pass that never reads them).  The sum below stays
+    # differentiable with respect to refractive_index.
+    with torch.no_grad():
+        shift = (1.0 - time_ratio)[:, None, None] * scene.delta_position[None]
+        rel = point[:, None, :] - scene.position[None] + shift
+        local = torch.einsum("nji,bnj->bni", scene.rotation, rel) / scene.scale[None]
+        inside = (geometry.point_in_unit_primitive(local, scene.obj_type[None])
+                  & scene.valid[None] & (scene.refractive_index[None] != 1.0))
     ri = scene.refractive_index[None].expand_as(inside)
     acc = torch.sum(torch.where(inside, ri, torch.zeros_like(ri)), dim=1)
     cnt = torch.sum(inside.to(torch.float32), dim=1)

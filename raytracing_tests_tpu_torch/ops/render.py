@@ -26,7 +26,10 @@ textures, through the ``brute`` intersector or the ``pallas`` intersector:
 the grouped sphere sweep ``kernels.sweep2`` in sphere mode, the
 first-generation sweeps of ``kernels.sweep`` for generic scenes (grouped by
 ``pallas_groups``, dense when that is 0) and for sphere scenes with
-``pallas_v2=False``.
+``pallas_v2=False``.  With ``diff_mode`` (set by ``diff.train``) the
+``pallas`` intersector is the gradient path: a ``DiffAccel`` whose sweeps name
+the winners and ``diff.fastpath.intersect_diff`` recomputes their hits
+differentiably, with the soft-edge blend when ``soft_edges > 0``.
 """
 
 from __future__ import annotations
@@ -82,6 +85,15 @@ class RenderConfig:
     # Count of dielectric (ri != 1) rows — sizes the trailing surrounding-RI
     # probe sub-table (sweep2.make_accel2).  -1 = count at accel-build time.
     probe_rows: int = -1
+    # Gradient rendering: winner-finding by a detached sweep kernel +
+    # differentiable closed-form recompute of the winner's hit
+    # (diff/fastpath.py).  Set by diff.train.render_loss.
+    diff_mode: bool = False
+    # Edge-aware gradients (diff_mode only): > 0 turns hard visibility into a
+    # smooth coverage blend over a band of ``soft_edges * t`` world units.
+    # Training only: blurs silhouettes by about half a pixel, and unbiases
+    # d(image)/d(geometry).
+    soft_edges: float = 0.0
 
     def for_scene(self, scene) -> "RenderConfig":
         """Specialize static flags from a scene."""
@@ -199,13 +211,25 @@ class RayQueue:
         can = mask & (self.size < q)
         n_dropped = int(torch.sum(mask & ~can))
         lanes = torch.nonzero(can)[:, 0]
-        slot = self.size[lanes]
-        self.origin[lanes, slot] = origin[lanes]
-        self.direction[lanes, slot] = direction[lanes]
-        self.contribution[lanes, slot] = contribution[lanes]
-        self.bounced[lanes, slot] = bounced[lanes]
-        self.medium[lanes, slot] = 1.0 if medium is None else medium[lanes]
-        self.parent_medium[lanes, slot] = 1.0 if parent_medium is None else parent_medium[lanes]
+        at = (lanes, self.size[lanes])
+
+        def put(name, value):
+            dst = getattr(self, name)
+            if not isinstance(value, torch.Tensor):
+                value = torch.full((lanes.shape[0],), value, dtype=dst.dtype, device=dst.device)
+            if dst.requires_grad or value.requires_grad:
+                # Under autograd a pop's gather keeps the stack it read:
+                # write a new one instead of changing that one in place.
+                setattr(self, name, dst.index_put(at, value))
+            else:
+                dst[at] = value
+
+        put("origin", origin[lanes])
+        put("direction", direction[lanes])
+        put("contribution", contribution[lanes])
+        put("bounced", bounced[lanes])
+        put("medium", 1.0 if medium is None else medium[lanes])
+        put("parent_medium", 1.0 if parent_medium is None else parent_medium[lanes])
         self.size = self.size + can.to(torch.int64)
         return n_dropped
 
@@ -257,30 +281,18 @@ def _is_pallas(accel) -> bool:
     return isinstance(accel, PallasAccel)
 
 
-def _surrounding_ri(scene, accel, point, time_ratio):
-    if _is_pallas(accel):
-        from raytracing_tests_tpu_torch.kernels.sweep import surrounding_ri_pallas
+def _is_diff(accel) -> bool:
+    from raytracing_tests_tpu_torch.diff.fastpath import DiffAccel
 
-        return surrounding_ri_pallas(accel, scene, point, time_ratio)
-    return isect.surrounding_refractive_index(scene, point, time_ratio)
-
-
-def _nearest(scene, accel, o, d, time_ratio, t_limit):
-    """Intersector dispatch: dense tensor sweep or a sweep kernel (same Hit
-    contract)."""
-    if _is_v2(accel):
-        from raytracing_tests_tpu_torch.kernels.sweep2 import intersect2
-
-        return intersect2(accel, scene, o, d, time_ratio, t_limit)
-    if _is_pallas(accel):
-        from raytracing_tests_tpu_torch.kernels.sweep import intersect_pallas
-
-        return intersect_pallas(accel, scene, o, d, time_ratio, t_limit)
-    return isect.intersect_brute(scene, o, d, time_ratio, t_limit)
+    return isinstance(accel, DiffAccel)
 
 
 def _nearest_obj(scene, accel, o, d, time_ratio, t_limit):
     """Original id of the nearest object hit before ``t_limit`` (-1 if none)."""
+    if _is_diff(accel):
+        from raytracing_tests_tpu_torch.diff.fastpath import occluded_nearest_obj_diff
+
+        return occluded_nearest_obj_diff(accel, scene, o, d, time_ratio, t_limit)
     if _is_v2(accel):
         from raytracing_tests_tpu_torch.kernels.sweep2 import occluded_nearest_obj2
 
@@ -368,8 +380,14 @@ def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, 
     parent_medium = ones if parent_medium is None else parent_medium
     t_limit = torch.full((B,), cfg.t_max, dtype=torch.float32, device=o.device)
     sur_ri_fused = None
+    soft_alpha = None
     needs_sur_ri = cfg.has_dielectrics and cfg.shading != "materials"
-    if _is_v2(accel):
+    if _is_diff(accel):
+        from raytracing_tests_tpu_torch.diff.fastpath import intersect_diff
+
+        hit, flds, soft_alpha = intersect_diff(
+            accel, scene, o, d, time_ratio, t_limit, soft=cfg.soft_edges)
+    elif _is_v2(accel):
         from raytracing_tests_tpu_torch.kernels.sweep2 import (
             intersect2_full, intersect2_fused,
         )
@@ -391,8 +409,8 @@ def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, 
             )
         else:
             hit, flds = intersect_pallas_full(accel, scene, o, d, time_ratio, t_limit)
-    else:
-        hit = _nearest(scene, accel, o, d, time_ratio, t_limit)
+    else:  # the dense intersector
+        hit = isect.intersect_brute(scene, o, d, time_ratio, t_limit)
         flds = None
     did_hit = hit.hit & active
     missed = active & ~hit.hit
@@ -400,6 +418,14 @@ def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, 
     # Miss -> background contribution.
     bg = _background(cfg, d, lights is not None)
     add_color = torch.where(missed[:, None], contrib[:, None] * bg, torch.zeros_like(bg))
+    if soft_alpha is not None:
+        # Edge-aware blend: the lane covers its candidate with weight alpha
+        # and lets (1 - alpha) of the background through; the whole hit
+        # subtree (local term and children) scales by alpha through contrib.
+        add_color = add_color + torch.where(
+            did_hit[:, None], (contrib * (1.0 - soft_alpha))[:, None] * bg,
+            torch.zeros_like(bg))
+        contrib = torch.where(did_hit, contrib * soft_alpha, contrib)
 
     # --- hit shading ---------------------------------------------------------
     hit_point = o + hit.t[:, None] * d
@@ -409,7 +435,17 @@ def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, 
     if sur_ri_fused is not None:
         sur_ri = sur_ri_fused
     elif needs_sur_ri:
-        sur_ri = _surrounding_ri(scene, accel, hit_point + 1e-3 * normal, time_ratio)
+        # The dense intersector and the gradient path: the dense containment
+        # sum (differentiable with respect to refractive_index), for the lanes
+        # that read it (refraction off a refractive winner, or out of an
+        # interior hit); the others read the neutral 1, as the sweep kernels'
+        # probe gives them.
+        refractive = (scene.refractivity[hit.obj.long()] if flds is None
+                      else flds.refractivity) > 0.002
+        lanes = torch.nonzero(hit.hit & active & (inner | refractive))[:, 0]
+        sur_ri = torch.ones(B, dtype=torch.float32, device=o.device).index_put(
+            (lanes,), isect.surrounding_refractive_index(
+                scene, (hit_point + 1e-3 * normal)[lanes], time_ratio[lanes]))
     else:
         sur_ri = torch.ones(B, dtype=torch.float32, device=o.device)
 
@@ -659,6 +695,14 @@ def _process_pop(scene, lights, cfg: RenderConfig, queue, state, sample_idx, spp
 
 def _build_accel(scene, cfg: RenderConfig):
     if cfg.intersector == "pallas":
+        if cfg.diff_mode:
+            from raytracing_tests_tpu_torch.diff.fastpath import (
+                fastpath_eligible, make_diff_accel)
+
+            # render_loss sets diff_mode only where fastpath_eligible holds.
+            assert fastpath_eligible(cfg), cfg
+            return make_diff_accel(scene, has_motion=cfg.has_motion,
+                                   mode=cfg.pallas_mode, probe_rows=cfg.probe_rows)
         if cfg.pallas_v2 and cfg.pallas_mode == "spheres":
             from raytracing_tests_tpu_torch.kernels.sweep2 import make_accel2
 
@@ -673,14 +717,23 @@ def _build_accel(scene, cfg: RenderConfig):
     return None
 
 
-def trace_lanes(scene, lights, cfg: RenderConfig, o, d, time_ratio, sample_idx, accel=None):
+def trace_lanes(scene, lights, cfg: RenderConfig, o, d, time_ratio, sample_idx, accel=None,
+                return_pops: bool = False):
     """Trace a flat batch of lanes. ``o, d: (B, 3)``; returns
     ``(color (B, 3), primary_t (B,), rays (int), dropped (int))``
     where ``rays`` counts the rays actually processed (active pops) — the
     honest rays/s numerator — and ``dropped`` counts children lost to the
     fixed queue capacity.  A lane whose sample turned white (emissive
     abort) pops its remaining queue without shading it; those pops count as
-    rays, as the reference's do."""
+    rays, as the reference's do.
+
+    ``return_pops``: append the number of pop steps that found a ray in some
+    queue (the early-exit count; at most ``cfg.pops``) — the probe behind
+    ``diff.train.probe_max_pops``.
+
+    Differentiable: with scene tensors that require grad, ``color`` carries
+    the autograd graph of every pop (the early exit included: the steps it
+    skips would pop nothing and add exact zeros)."""
     _check_supported(cfg)
     B = o.shape[0]
     dev = o.device
@@ -701,7 +754,7 @@ def trace_lanes(scene, lights, cfg: RenderConfig, o, d, time_ratio, sample_idx, 
 
     # Most lanes' queues drain after 2-3 pops (sky lanes after 1), so the loop
     # exits as soon as every queue is empty instead of running the full budget.
-    rays = dropped = 0
+    rays = dropped = pops = 0
     for _ in range(cfg.pops):
         n_active = int(torch.sum(queue.size > 0))
         if cfg.early_exit and n_active == 0:
@@ -711,7 +764,10 @@ def trace_lanes(scene, lights, cfg: RenderConfig, o, d, time_ratio, sample_idx, 
         )
         rays += n_active
         dropped += n_drop
+        pops += n_active > 0
     color, _, _, primary_t = state
+    if return_pops:
+        return color, primary_t, rays, dropped, pops
     return color, primary_t, rays, dropped
 
 
@@ -782,8 +838,14 @@ def render_stats(scene, camera, cfg: RenderConfig, lights=None, device=None):
 
 
 def finalize(colors, depths, cfg: RenderConfig):
-    """Per-sample gamma then mean over the sample axis; mid-sample depth."""
-    image = torch.mean(torch.sqrt(torch.clamp_min(colors, 0.0)), dim=2)
+    """Per-sample gamma then mean over the sample axis; mid-sample depth.
+
+    In ``cfg.diff_mode`` the gamma's floor is 1e-12, not 0: the backward of
+    sqrt at a clamped 0 is inf * 0 = NaN wherever a trained colour drives a
+    sample's channel negative, and the floor makes it an exact 0 (an image
+    bias of 1e-6 on black samples, gradient rendering only)."""
+    floor = 1e-12 if cfg.diff_mode else 0.0
+    image = torch.mean(torch.sqrt(torch.clamp_min(colors, floor)), dim=2)
     depth = depths[:, :, cfg.spp // 2]  # the reference stores the mid sample
     return {"image": image, "depth": depth}
 

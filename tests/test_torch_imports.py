@@ -26,6 +26,7 @@ def test_the_fifteen_modules_exist():
         "kernels.uber", "utils.io", "models.registry", "models.workloads",
         "app.cli", "__main__", "convert", "ops.megalanes", "ops.workqueue",
         "scene.textures", "scene.noise", "scene.projection", "kernels.texture",
+        "diff", "diff.fastpath", "diff.params", "diff.train", "app.checkpoint",
     ):
         assert "raytracing_tests_tpu_torch." + mod in MODULES, mod
 
@@ -96,7 +97,9 @@ def test_the_other_chip_scripts_import_nothing_of_jax(script):
                                    "render_uber_generic_lights",
                                    "render_workqueue_generic_lights",
                                    "render_uber_textures", "render_stats_textures",
-                                   "render_workqueue_textures", "cli_texturing"])
+                                   "render_workqueue_textures", "cli_texturing",
+                                   "render_loss", "banded_value_and_grad", "probe_band_pops",
+                                   "train_step", "cli_train"])
 def test_entry_points_raise_without_cuda_and_do_not_fall_back(entry):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -118,7 +121,25 @@ def test_entry_points_raise_without_cuda_and_do_not_fall_back(entry):
                        pallas_groups=0 if entry.endswith("dense") else 32).for_scene(scene)
     assert cfg.pallas_mode == ("generic" if generic else "spheres")
     with pytest.raises(RuntimeError, match="CUDA"):
-        if entry == "render_megalanes":
+        if entry in ("render_loss", "banded_value_and_grad", "probe_band_pops", "train_step"):
+            from raytracing_tests_tpu_torch import diff
+
+            p, target = diff.extract_params(scene), torch.zeros(4, 8, 3)
+            if entry == "render_loss":
+                diff.render_loss(p, scene, cam, cfg, target)
+            elif entry == "banded_value_and_grad":
+                diff.banded_value_and_grad(scene, cam, cfg, grad_bands=2)(p, target)
+            elif entry == "probe_band_pops":
+                diff.probe_band_pops(scene, cam, cfg, 2)
+            else:
+                diff.make_train_step(scene, cam, cfg, diff.adam(1e-2))(
+                    diff.TrainState.create(scene, diff.adam(1e-2), device="cpu"), target)
+        elif entry == "cli_train":
+            from raytracing_tests_tpu_torch.app.cli import main
+
+            main(["train", "iow-final", "--pallas", "--steps", "1", "--width", "8",
+                  "--height", "4", "--spp", "1"])
+        elif entry == "render_megalanes":
             from raytracing_tests_tpu_torch.ops.megalanes import render_megalanes
 
             render_megalanes(scene, cam, cfg)
@@ -165,16 +186,24 @@ def test_sweep_wrappers_refuse_a_tensor_they_cannot_launch_on():
         sweep.sweep_ri(acc.table, "generic", z3, z1)
     with pytest.raises((ValueError, RuntimeError, NotImplementedError)):
         sweep2g.sweep2g_nearest(acc2g, z3, z3, z1, z1)
+    with pytest.raises((ValueError, RuntimeError, NotImplementedError)):
+        sweep2g.sweep2g_nearest_edge(acc2g, z3, z3, z1, z1)
+    from raytracing_tests_tpu_torch.kernels import sweep2
+
+    acc2 = sweep2.make_accel2(examples.iow_final_scene(side=2)[0], gr=8)
+    with pytest.raises((ValueError, RuntimeError, NotImplementedError)):
+        sweep2.sweep2_nearest_edge(acc2, z3, z3, z1, z1)
 
 
 @pytest.mark.parametrize("kernel", ["nearest", "nearest_ri", "ri", "grouped", "sweep2g", "uber",
-                                    "sweep2", "mega", "uber_tex"])
+                                    "sweep2", "mega", "uber_tex", "sweep2_edge",
+                                    "sweep2g_edge"])
 def test_launch_functions_refuse_cpu_tensors_outside_the_host_rehearsal(kernel):
     """Well-formed CPU arguments must not reach a build or a launch: only the
     host rehearsal's context lets a ``_launch_*`` function take them."""
     from raytracing_tests_tpu_torch.kernels import sweep, sweep2g, uber
 
-    generic = kernel not in ("nearest_ri", "sweep2", "mega", "uber_tex")
+    generic = kernel not in ("nearest_ri", "sweep2", "mega", "uber_tex", "sweep2_edge")
     scene, cam = examples.bvh_grid_scene(side=2) if generic else examples.iow_final_scene(side=2)
     mode = "generic" if generic else "spheres"
     rays, pts = torch.zeros(8, 4), torch.zeros(4, 4)
@@ -198,8 +227,16 @@ def test_launch_functions_refuse_cpu_tensors_outside_the_host_rehearsal(kernel):
             mega._launch_mega(sweep2.make_accel2(scene, gr=8), torch.zeros(16, 4),
                               torch.zeros(4, dtype=torch.int32), has_dielectrics=True, spp=1,
                               max_bounces=3, t_max=1e4, bg=((1.0, 1.0, 1.0), (0.3, 0.4, 1.0)))
+        elif kernel == "sweep2_edge":
+            from raytracing_tests_tpu_torch.kernels import sweep2
+
+            sweep2._launch_sweep2(sweep2.make_accel2(scene, gr=8), rays, False, False,
+                                  with_edge=True)
         elif kernel == "sweep2g":
             sweep2g._launch_sweep2g(sweep2g.make_accel2g(scene, gr=8, has_motion=False), rays)
+        elif kernel == "sweep2g_edge":
+            sweep2g._launch_sweep2g(sweep2g.make_accel2g(scene, gr=8, has_motion=False), rays,
+                                    with_edge=True)
         elif kernel == "uber_tex":
             from raytracing_tests_tpu_torch.kernels.texture import pack_atlas
 

@@ -438,3 +438,145 @@ def test_live_rows_are_computed_once_per_accel(kind):
         accel.otab[last, tsw.OT_K1] = tsw.BIG_T
     renewed = tsw.live_rows(accel)
     assert torch.equal(renewed, tsw.live_row_bounds(accel)) and int(renewed[g]) < int(want[g])
+
+
+# ---------------------------------------------------------------------------
+# The silhouette instantiation (the gradient path's soft edges)
+# ---------------------------------------------------------------------------
+#
+# Tolerances: (t, obj) as ``test_sweep2_nearest_matches_jax``.  ``edge`` equal
+# to the JAX kernel's on every ray where the JAX kernel evaluated the port's
+# candidate: a batch of at most 2048 rays is one block of the JAX kernel,
+# which evaluates the metric in every group that some ray of the block
+# entered.  Elsewhere the port's candidate must be at least as good, by the
+# metric recomputed in numpy float32 from the same tables.
+
+
+def _edge_metric_np(accel, o, d, omt, rows):
+    """(c_q - nb^2) * rinv2 of rows ``rows`` (B,) for rays (B, 3), in numpy
+    float32 from the port's tables (the group-anchored frame); BIG_T where
+    the row's centre is not ahead."""
+    f = np.float32
+    ot = accel.otab.numpy()
+    an = accel.gaabb.numpy()[rows // accel.gr, 6:9]
+    r = ot[rows]
+    s = (o - an).astype(f)
+    od = (s * d).sum(axis=1, dtype=f)
+    oo = (s * s).sum(axis=1, dtype=f)
+    C = r[:, 0:3]
+    nb = (C * d).sum(axis=1, dtype=f) - od
+    cq = oo + r[:, tsw.OT_K1] - f(2.0) * (C * s).sum(axis=1, dtype=f)
+    if accel.has_motion:
+        dp = r[:, tsw.OT_DPX:tsw.OT_DPZ + 1]
+        nb = nb - omt * (dp * d).sum(axis=1, dtype=f)
+        cq = cq + omt * (f(2.0) * (dp * s).sum(axis=1, dtype=f) - r[:, tsw.OT_K2]) \
+            + omt * omt * r[:, tsw.OT_K3]
+    return np.where(nb > 0.0, (cq - nb * nb) * r[:, tsw.OT_RINV2], f(tsw.BIG_T))
+
+
+@pytest.fixture(scope="module")
+def edge_case(sweep_case):
+    """The first 2048 rays of ``sweep_case`` (16 dead): one block of the JAX
+    kernel, through both silhouette sweeps on the JAX package's accel."""
+    c = sweep_case
+    jargs = [x[:2048] for x in c["jargs"]]
+    targs = [x[:2048] for x in c["targs"]]
+    jt, jo, je = (np.asarray(x) for x in jsw.sweep2_nearest_edge(c["ja"], *jargs))
+    tt, to, te = tsw.sweep2_nearest_edge(c["ref"], *targs)
+    return dict(c, targs=targs, jax=(jt, jo, je), port=(tt, to, te))
+
+
+def test_sweep2_nearest_edge_matches_jax(edge_case):
+    c = edge_case
+    (jt, jo, je), (tt, to, te) = c["jax"], [x.numpy() for x in c["port"]]
+    assert (to[:16] == -1).all() and (te[:16] == -1).all() and (je[:16] == -1).all()
+    same = jo == to
+    assert same.mean() >= 0.999, same.mean()
+    m = same & (jo >= 0)
+    np.testing.assert_allclose(tt[m], jt[m], rtol=2.5e-4, atol=2e-2)
+    # the nearest (t, obj) are the nearest-hit sweep's
+    t0, o0 = tsw.sweep2_nearest(c["ref"], *c["targs"])
+    assert torch.equal(c["port"][0], t0) and torch.equal(c["port"][1], o0)
+    assert (te >= 0).mean() > 0.5 and (te >= 0).sum() > (to >= 0).sum()
+    differ = te != je
+    assert differ.mean() <= 0.001, differ.mean()
+    if differ.any():
+        o, d = (x.numpy()[differ] for x in c["targs"][:2])
+        mp = _edge_metric_np(c["ref"], o, d, None, te[differ])
+        mj = _edge_metric_np(c["ref"], o, d, None, np.maximum(je[differ], 0))
+        assert (mp <= np.where(je[differ] >= 0, mj, np.float32(tsw.BIG_T))).all()
+
+
+def _padded_pair(sb_cls):
+    """One sphere at z = -3 in a scene of capacity 8: seven dead rows at the
+    origin (K1 = BIG_T, rinv2 = 1e-30)."""
+    b = sb_cls()
+    b.add_lambertian((0.0, 0.0, -3.0), 0.5, (0.5, 0.6, 0.4))
+    return b.build()
+
+
+def test_sweep2_edge_adopts_a_dead_row_ahead():
+    """A ray whose only row ahead is a dead one (the scene's padding rows sit
+    at the origin) adopts it, in the port and in the JAX kernel, whose block
+    enters the group through the second ray; a ray with nothing ahead and the
+    dead rays get -1; the plain version and, where there is a g++, the kernel
+    source agree."""
+    ts = _padded_pair(TSceneBuilder)
+    js = _padded_pair(JSceneBuilder)
+    o = np.array([[0.0, 0.0, -1.0], [0.0, 0.0, 2.0], [0.0, 0.0, 5.0], [0.0, 0.0, -1.0]],
+                 np.float32)
+    d = np.array([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0], [0.0, 0.0, 1.0], [0.0, 0.0, 0.0]],
+                 np.float32)
+    tr, tl = np.zeros(4, np.float32), np.full(4, 100.0, np.float32)
+    ja = jsw.make_accel2(js, gr=8)
+    ta = tsw.make_accel2(ts, gr=8)
+    assert ta.perm.tolist() == list(range(8))
+    jt, jo, je = (np.asarray(x) for x in jsw.sweep2_nearest_edge(
+        ja, *(jnp.asarray(x) for x in (o, d, tr, tl))))
+    targs = [torch.from_numpy(x) for x in (o, d, tr, tl)]
+    tt, to, te = tsw.sweep2_nearest_edge(ta, *targs)
+    assert to.tolist() == [-1, 0, -1, -1] and jo.tolist() == to.tolist()
+    assert te.tolist() == [1, 0, -1, -1] and je.tolist() == te.tolist()
+    m = float(_edge_metric_np(ta, o[:1], d[:1], None, np.array([1]))[0])
+    assert 1e7 < m < 1e9  # (|s|^2 + BIG_T) * 1e-30: finite, below BIG_T
+    if shutil.which("g++") is not None:
+        with _build.host_rehearsal():
+            got = tsw._launch_sweep2(ta, tsw.pack_rays(*targs), False, False,
+                                     with_edge=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, (tt, to, te)))
+
+
+@pytest.mark.parametrize("motion", [False, True])
+def test_edge_kernel_source_rehearsed_on_the_host(sweep_case, motion):
+    """``csrc/sweep2.cu``'s EDGE instantiations (static and motion) compiled as
+    host C++: obj and edge equal to the plain version's, t within rtol 2e-4
+    and atol 1e-4 (PyTorch's vectorised CPU sqrt lands one ulp off the
+    correctly rounded root on some lanes, and the anchored quadratic's root
+    is a difference of numbers near 800, whose ulp is 6.1e-5: found 9e-5
+    relative on 16 of 4096 rays and 6.1e-5 absolute at t = 0.08, the host
+    build matching a float32 numpy recompute), and (t, obj) bit for bit the
+    nearest-hit instantiation's, in each schedule."""
+    _need_gxx()
+    c = sweep_case
+    accel, scene = c["ta"], c["ts"]
+    o, d, tr, tl = c["targs"]
+    if motion:
+        dp = torch.zeros_like(scene.delta_position)
+        dp[1::3, 0] = 0.3
+        scene = scene.replace(delta_position=dp)
+        accel = tsw.make_accel2(scene, gr=32)
+        tr = torch.from_numpy(np.random.default_rng(2).uniform(0, 1, tr.shape[0])
+                              .astype(np.float32))
+    assert accel.has_motion == motion
+    rays = tsw.pack_rays(o, d, tr, tl)
+    want = tsw.sweep2_edge_plain(accel, rays)
+    for coop_min in SCHEDULES:
+        with _build.host_rehearsal(), _forced(coop_min):
+            got = tsw._launch_sweep2(accel, rays, False, False, with_edge=True)
+            t0, o0, _ = tsw._launch_sweep2(accel, rays, False, False)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), rtol=2e-4, atol=1e-4)
+        assert torch.equal(got[0], t0) and torch.equal(got[1], o0)
+    assert (want[2] >= 0).float().mean() > 0.5
+    with pytest.raises(ValueError):
+        tsw._launch_sweep2(accel, rays, False, True, with_edge=True)
