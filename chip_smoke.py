@@ -183,12 +183,17 @@ Phases and their bars:
      with jittered positions, soft (K3's EDGE instantiation) and hard (K3
      behind ``_winner``); ``motion_blur_scene()`` and a moving
      ``groups_scene()``, soft (the two moving EDGE instantiations): finite
-     gradients, each step running its one sweep instantiation only.
+     gradients, each step running its one sweep instantiation only; each
+     step's sweep launches timed by CUDA events (device total and count).
   edge_vs_plain. Each EDGE instantiation against its plain version on the
      rays of its frame's first two pops in the middle band: the -fmad=false
      build with t, obj and edge identical on >= EDGE_PRECISE (99.9 %), the
      default build by NEAREST_BARS with the silhouette candidate's share
-     held to the winner's; dead rays have none; time, plain time and bound.
+     held to the winner's; dead rays have none; time, plain time and bound:
+     the lesser of the dense pass's (every live ray and row) and, for K3,
+     the culled pass's (its counters: entries bounded, rows evaluated), both
+     printed beside it; for K3 the share of (live ray, row) pairs evaluated
+     for rays that hit and missed.
   train_steps. ``make_train_step`` (Adam, colour trainable, auto_pops) three
      steps of grad_config: the loss falls; a checkpoint after them restores
      parameters and Adam's state bit for bit, and the next step's loss from
@@ -215,7 +220,9 @@ if not torch.cuda.is_available():
 import dataclasses  # noqa: E402
 
 from raytracing_tests_tpu_torch import diff  # noqa: E402
-from raytracing_tests_tpu_torch.kernels import _build, mega, sweep, sweep2, sweep2g, uber  # noqa: E402
+from raytracing_tests_tpu_torch.kernels import (  # noqa: E402
+    _build, edge_cull, mega, sweep, sweep2, sweep2g, uber,
+)
 from raytracing_tests_tpu_torch.ops import megalanes, workqueue  # noqa: E402
 from raytracing_tests_tpu_torch.ops.render import (  # noqa: E402
     RenderConfig, _build_accel, _lane_inputs, finalize, render_stats,
@@ -308,10 +315,11 @@ PTXAS_REDESIGNED = {
     "mega.so mega_kernel<1>": dict(registers=80, stack=32, spill_stores=0, spill_loads=0),
 }
 # ... and what it gave the other kernels before the warp sweeps, which they do
-# not include: they must not change.
+# not include: they must not change (the generic sweep's nearest-hit
+# instantiations; its silhouette ones are sweep2g_edge_kernel).
 PTXAS_UNCHANGED = {
-    "sweep2g.so sweep2g_kernel<0,0>": dict(registers=48, stack=8, spill_stores=8, spill_loads=8),
-    "sweep2g.so sweep2g_kernel<1,0>": dict(registers=48, stack=8, spill_stores=16, spill_loads=16),
+    "sweep2g.so sweep2g_kernel<0>": dict(registers=48, stack=8, spill_stores=8, spill_loads=8),
+    "sweep2g.so sweep2g_kernel<1>": dict(registers=48, stack=8, spill_stores=16, spill_loads=16),
     "sweep.so grouped_kernel<0,1>": dict(registers=40, stack=8, spill_stores=4, spill_loads=8),
     "sweep.so grouped_kernel<1,0>": dict(registers=47, stack=0, spill_stores=0, spill_loads=0),
     "sweep.so nearest_kernel<1>": dict(registers=40, stack=0, spill_stores=0, spill_loads=0),
@@ -3071,13 +3079,17 @@ def texturing_phases(dev):
 GRAD = dict(width=800, height=450, spp=16, max_bounces=8)  # bench.py:211-257 grad_config
 BAND_SAMPLES = 300_000  # samples per band of the banded backward (grad_config's rule)
 SOFT = 0.03  # soft_edges of the soft-edge frames
-# Operation counts of the silhouette metric, per (live ray, row): K2's
-# (c_q - nb^2) * rinv2 and its compare on the anchored terms of the quadratic
-# (counted in FLOPS_PER_SPHERE_TEST), K3's unit-space |f|^2, e.f, |e|^2, the
-# reciprocal and the metric on the row's local frame (FLOPS_PER_GENERIC_ROW).
-# The metric reads every row, so the bound counts every (live ray, row) pair.
+# Operation counts of the silhouette metric, per (live ray, row) evaluated:
+# K2's (c_q - nb^2) * rinv2 and its compare on the anchored terms of the
+# quadratic (counted in FLOPS_PER_SPHERE_TEST), K3's unit-space |f|^2, e.f,
+# |e|^2, the reciprocal and the metric on the row's local frame
+# (FLOPS_PER_GENERIC_ROW).  K2's pass is dense (every live ray and row).
+# K3's culled pass evaluates the rows its counters name and bounds each
+# block-table entry it counts (FLOPS_PER_EDGE_BOUND: the ball's distance to
+# the line, the ahead test and the margins, in float32).
 FLOPS_PER_EDGE_METRIC = 4
 FLOPS_PER_EDGE_METRIC_G = 15
+FLOPS_PER_EDGE_BOUND = 30
 # The gradient step against the same step with the sweeps routed to their
 # plain versions (``plain_sweeps``): the -fmad=false build must agree to the
 # order of the atomic adds that gather each object's gradient (found: equal
@@ -3313,23 +3325,57 @@ def first_two_pops(g, name, band):
 
 
 def edge_bound(name, accel, rays, stats):
-    """The least time for the silhouette sweep on ``rays``: every (live ray,
-    row) pair's anchored or local terms and the metric, the nearest-hit
-    sweep's slab tests, rays in and (t, obj, edge) out, the tables once."""
+    """The least time for the silhouette sweep on ``rays`` -> dict(bound_ms,
+    bound_by, culled_bound_ms, dense_bound_ms, rows).  Dense: every (live
+    ray, row) pair's anchored or local terms and the metric, the nearest-hit
+    sweep's slab tests, rays in and (t, obj, edge) out, the tables once.
+    Culled (K3, from its counters): the nearest-hit sweep's slab tests and
+    rows, the block-table entries bounded and the rows whose metric was
+    evaluated, the block table once more.  ``bound_ms`` is the lesser: both
+    passes compute the same candidate, so the least work of the two is what
+    the function needs."""
     B = rays.shape[1]
     live = (rays[3:6] * rays[3:6]).sum(dim=0) > 0.5
     n_live = int(live.sum())
     n_bytes = 4 * B * (8 + 3) + accel_bytes(accel)
     if name.startswith("sweep2g"):
         rows = int((accel.otab[:accel.n_pad, sweep2g.GO_VALID] > 0.0).sum())
-        flops = (n_live * rows * (FLOPS_PER_GENERIC_ROW + FLOPS_PER_EDGE_METRIC_G)
-                 + int(stats[sweep2g.GC_SLAB]) * FLOPS_PER_SLAB_TEST)
+        per = FLOPS_PER_GENERIC_ROW + FLOPS_PER_EDGE_METRIC_G
+        slab = int(stats[sweep2g.GC_SLAB]) * FLOPS_PER_SLAB_TEST
+        dense = bound(n_bytes, n_live * rows * per + slab)
+        culled = bound(
+            n_bytes + 4 * edge_cull.edge_blocks(accel)[0].numel(),
+            slab + int(stats[sweep2g.GC_SPHERE_ROWS]) * FLOPS_PER_CENSUS_SPHERE_ROW
+            + int(stats[sweep2g.GC_OTHER_ROWS]) * FLOPS_PER_CENSUS_CUBOID_ROW
+            + int(stats[sweep2g.EC_BOUNDS]) * FLOPS_PER_EDGE_BOUND
+            + int(stats[sweep2g.EC_ROWS_HIT] + stats[sweep2g.EC_ROWS_MISS]) * per)
     else:
         rows = accel.n_pad
         per = FLOPS_PER_SPHERE_TEST + FLOPS_PER_EDGE_METRIC
         per += FLOPS_PER_MOTION_TERMS if accel.has_motion else 0
-        flops = n_live * (rows * per + accel.n_groups * FLOPS_PER_SLAB_TEST)
-    return bound(n_bytes, flops) + (rows,)
+        dense = bound(n_bytes, n_live * (rows * per + accel.n_groups * FLOPS_PER_SLAB_TEST))
+        culled = None
+    least = dense if culled is None else min(dense, culled)
+    return dict(bound_ms=least[0], bound_by=least[1],
+                culled_bound_ms=None if culled is None else culled[0],
+                dense_bound_ms=dense[0], rows=rows)
+
+
+def edge_pairs(rays, obj, stats, rows):
+    """K3's culled pass: the share of (live ray, row) pairs whose metric it
+    evaluated, for rays that hit and rays that missed; the walk's SIMT
+    efficiency (rows evaluated / lane slots of its row iterations)."""
+    act = (rays[3:6] * rays[3:6]).sum(dim=0) > 0.0  # the rays that look for a candidate
+    hit = obj >= 0
+    n_hit, n_miss = int((act & hit).sum()), int((act & ~hit).sum())
+    r_hit, r_miss = int(stats[sweep2g.EC_ROWS_HIT]), int(stats[sweep2g.EC_ROWS_MISS])
+    return dict(rays_hit=n_hit, rays_missed=n_miss, rows_evaluated_hit=r_hit,
+                rows_evaluated_miss=r_miss,
+                pairs_share_hit=r_hit / max(n_hit * rows, 1),
+                pairs_share_miss=r_miss / max(n_miss * rows, 1),
+                pairs_share=(r_hit + r_miss) / max((n_hit + n_miss) * rows, 1),
+                bounds_per_ray=int(stats[sweep2g.EC_BOUNDS]) / max(n_hit + n_miss, 1),
+                walk_simt_efficiency=(r_hit + r_miss) / max(int(stats[sweep2g.EC_SLOTS]), 1))
 
 
 def edge_vs_plain(name, g, band):
@@ -3345,13 +3391,15 @@ def edge_vs_plain(name, g, band):
             precise = compare_edge(run(accel, rays), want, rays)
         res = compare_edge(run(accel, rays), want, rays)
         torch.cuda.synchronize()
-        stats = torch.zeros(sweep2g.GC_LEN if name.startswith("sweep2g") else sweep2.SW_LEN,
+        generic = name.startswith("sweep2g")
+        stats = torch.zeros(sweep2g.EC_LEN if generic else sweep2.SW_LEN,
                             dtype=torch.int64, device=rays.device)
-        run(accel, rays, stats)
-        t_bound, by, rows = edge_bound(name, accel, rays, stats)
-        out[f"pop{k + 1}"] = dict(rays=rays.shape[1], rows=rows, default_build=res,
-                                  precise_build=precise, ms=cuda_ms(lambda: run(accel, rays), 10),
-                                  plain_ms=plain_ms, bound_ms=t_bound, bound_by=by)
+        _, obj, _ = run(accel, rays, stats)
+        bnd = edge_bound(name, accel, rays, stats)
+        out[f"pop{k + 1}"] = dict(rays=rays.shape[1], default_build=res, precise_build=precise,
+                                  ms=cuda_ms(lambda: run(accel, rays), 10), plain_ms=plain_ms,
+                                  **bnd, **(edge_pairs(rays, obj, stats, bnd["rows"])
+                                            if generic else {}))
     say(phase="edge_vs_plain", kernel=name, band=band, **out)
     for k in (1, 2):
         got = out[f"pop{k}"]
@@ -3369,9 +3417,14 @@ def edge_vs_plain(name, g, band):
                 frac_within_tolerance=min(worst["same_edge"], worst["same_obj"],
                                           worst["t_within_rtol_1e4"]),
                 ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
-                bound_by=first["bound_by"], library_ms=None,
+                bound_by=first["bound_by"], culled_bound_ms=first["culled_bound_ms"],
+                dense_bound_ms=first["dense_bound_ms"], library_ms=None,
                 shape=f"{first['rays']} rays (one band's first pop) x {first['rows']} rows",
-                at_second_pop={k: out["pop2"][k] for k in ("rays", "ms", "plain_ms", "bound_ms")})
+                pairs_share_hit=first.get("pairs_share_hit"),
+                pairs_share_miss=first.get("pairs_share_miss"),
+                at_second_pop={k: out["pop2"].get(k) for k in (
+                    "rays", "ms", "plain_ms", "bound_ms", "culled_bound_ms", "dense_bound_ms",
+                    "pairs_share_hit", "pairs_share_miss")})
 
 
 def grad_phases(dev):
@@ -3441,12 +3494,16 @@ def grad_phases(dev):
         return s.replace(position=s.position + dpos.to(s.position.device))
 
     gg = grad_inputs(dev, examples.bvh_grid_scene(side=32), jitter, soft=SOFT)
-    kg = grad_step(gg)
+    with launch_events(sweep2g, "_sweep2g_edge") as ev:
+        kg = grad_step(gg)
     hard = dict(gg, cfg=dataclasses.replace(gg["cfg"], soft_edges=0.0))
-    kh = grad_step(hard)
+    with launch_events(sweep2g, "_sweep2g") as ev_hard:
+        kh = grad_step(hard)
     res = dict(size=size_of(GRAD), objects=int(gg["scene"].num_valid), soft_edges=SOFT,
                band_pops=gg["pops"], seconds_per_step=kg["ms"] / 1e3,
-               hard_seconds_per_step=kh["ms"] / 1e3, loss=float(kg["loss"]),
+               edge_device_ms=events_ms(ev), edge_launches=len(ev),
+               hard_seconds_per_step=kh["ms"] / 1e3, hard_device_ms=events_ms(ev_hard),
+               hard_k3_launches=len(ev_hard), loss=float(kg["loss"]),
                hard_loss=float(kh["loss"]), peak_memory_bytes=kg["peak_memory_bytes"],
                launches=kg["launches"], hard_launches=kh["launches"],
                position_grad_max=float(kg["grads"].position.abs().max()),
@@ -3464,10 +3521,13 @@ def grad_phases(dev):
     for name, scene_cam in (("sweep2_m_edge", examples.motion_blur_scene()),
                             ("sweep2g_m_edge", moving_groups_scene())):
         gm = grad_inputs(dev, scene_cam, jitter, soft=SOFT)
-        km = grad_step(gm)
+        module, wrapper, _, _ = EDGE_KERNELS[name]
+        with launch_events(module, wrapper) as ev:
+            km = grad_step(gm)
         res = dict(kernel=name, size=size_of(GRAD), band_pops=gm["pops"],
                    seconds_per_step=km["ms"] / 1e3, loss=float(km["loss"]),
-                   launches=km["launches"],
+                   launches=km["launches"], edge_device_ms=events_ms(ev),
+                   edge_launches=len(ev),
                    finite=all(bool(torch.isfinite(v).all()) for _, v in km["grads"].items()))
         say(phase="grad_motion_soft", **res)
         require(res["finite"] and set(km["launches"]) == {name}, f"grad_motion_soft: {res}")
@@ -3772,9 +3832,9 @@ def main():
     kernels += seventh
     eighth, eighth_paths = grad_phases(dev)
     for k in eighth:  # the silhouette instantiations' ptxas lines
-        lib, args = ("sweep2g.so sweep2g_kernel", k["name"][7:]) if k["name"].startswith(
-            "sweep2g") else ("sweep2.so sweep2_kernel", k["name"][6:])
-        k["ptxas"] = ptxas.get(f"{lib}<{int(args.startswith('_m'))},1>")
+        m = int("_m_" in k["name"])
+        k["ptxas"] = ptxas.get(f"sweep2g.so sweep2g_edge_kernel<{m}>" if k["name"].startswith(
+            "sweep2g") else f"sweep2.so sweep2_kernel<{m},1>")
     kernels += eighth
     # every instantiation of K1 with its ptxas line
     entry_of = {v: n for n, v in KERNEL_ENTRY.items()}

@@ -38,7 +38,9 @@ The silhouette instantiation (``sweep2g_nearest_edge``, the JAX kernel's
 ``with_edge``) adds the near-miss candidate of the gradient path's soft
 edges: the valid row with the least unit-space line distance, over every row
 of the main table (``sweep2g_edge_plain`` defines it).  Its nearest (t, obj)
-is the nearest-hit sweep's: this port keeps the full t in both.
+is the nearest-hit sweep's: this port keeps the full t in both.  The kernel
+evaluates the metric only on the rows of blocks whose lower bound does not lie
+above the ray's best (the block table and bound: ``kernels/edge_cull.py``).
 
 Directions are assumed unit; dead rays carry d = 0 and never hit.
 """
@@ -86,8 +88,11 @@ KIND_CODES = {"m": 0, "e": 1, "c": 2, "s": 3, "a": 4, "cy": 5}
 _ELL = float(geometry.ELLIPSOID)
 _CUB = float(geometry.CUBOID)
 
-# Work counters of the kernel (csrc/rt_common.cuh GC_*).
+# Work counters of the kernel (csrc/rt_common.cuh GC_*), and the silhouette
+# instantiation's after them (csrc/sweep2g.cu EC_*: block bounds computed,
+# rows evaluated for rays that hit / missed, 32 x the walk's row iterations).
 GC_SLAB, GC_SPHERE_ROWS, GC_OTHER_ROWS, GC_LEN = range(4)
+EC_BOUNDS, EC_ROWS_HIT, EC_ROWS_MISS, EC_SLOTS, EC_LEN = range(GC_LEN, GC_LEN + 5)
 
 
 # ---------------------------------------------------------------------------
@@ -648,20 +653,26 @@ def _launch_sweep2g(accel: Accel2G, rays, stats=None, with_edge: bool = False):
     _check_tensor("rays", rays, torch.float32, (8, B), dev)
     check_accel_g(accel, dev)
     if stats is not None:
-        _check_tensor("stats", stats, torch.int64, (GC_LEN,), dev)
+        _check_tensor("stats", stats, torch.int64, (EC_LEN if with_edge else GC_LEN,), dev)
     _build.check_device(dev)
     fn = _build.load("sweep2g").rt_sweep2g
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, i, i, i, i, p, i, p, p, p, p, p]
+        fn.argtypes = [p, p, i, i, i, i, i, i, p, i, p, p, p, p, i, p, p]
         fn.restype = ctypes.c_int
     t = torch.empty((B,), dtype=torch.float32, device=dev)
     obj = torch.empty((B,), dtype=torch.int32, device=dev)
     edge = torch.empty((B,), dtype=torch.int32, device=dev) if with_edge else None
+    eblk, n_super = None, 0
+    if with_edge:  # the block table's module reads this one's layout
+        from raytracing_tests_tpu_torch.kernels.edge_cull import edge_blocks
+
+        eblk, n_super = edge_blocks(accel)
     code = fn(accel.otab.data_ptr(), accel.gaabb.data_ptr(), accel.n_groups,
               accel.gr, accel.n_pgroups, PROBE_GR, accel.n_sgroups,
               int(accel.has_motion), rays.data_ptr(), B, t.data_ptr(),
               obj.data_ptr(), edge.data_ptr() if with_edge else None,
+              eblk.data_ptr() if with_edge else None, n_super,
               stats.data_ptr() if stats is not None else None,
               _build.stream_of(dev))
     _build.check(code, "rt_sweep2g")
@@ -693,7 +704,9 @@ def _sweep2g_edge(accel: Accel2G, rays, stats=None):
     CPU tensors go through ``sweep2g_edge_plain``; CUDA tensors launch the
     ``EDGE`` instantiation of ``csrc/sweep2g.cu`` (or raise), static or motion
     by ``accel.has_motion`` (counted as ``sweep2g_edge`` and
-    ``sweep2g_m_edge``).  ``stats`` as for ``_sweep2g``."""
+    ``sweep2g_m_edge``).  ``stats``: optional zeroed int64[EC_LEN] CUDA tensor
+    that gains the nearest-hit counters (``GC_*``) and the silhouette walk's
+    (``EC_*``; measurement only)."""
     if rays.device.type == "cpu":
         if accel.device.type != "cpu":
             raise ValueError("rays on the CPU but accel on " + str(accel.device))

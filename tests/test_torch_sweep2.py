@@ -580,3 +580,127 @@ def test_edge_kernel_source_rehearsed_on_the_host(sweep_case, motion):
     assert (want[2] >= 0).float().mean() > 0.5
     with pytest.raises(ValueError):
         tsw._launch_sweep2(accel, rays, False, True, with_edge=True)
+
+
+# ---------------------------------------------------------------------------
+# The silhouette instantiation on adversarial rays
+# ---------------------------------------------------------------------------
+#
+# K2's silhouette pass is dense (every row; a per-block cull measured no
+# faster on the card, PERF.md), so these are the ray families such a pass
+# must survive.  Tolerances: the host build of the EDGE instantiations is held
+# to the plain version with torch.equal on obj and edge; its t (the
+# nearest-hit sweep's) bit for bit to the nearest-hit instantiation's, and to
+# the plain version's within the tolerance of
+# ``test_edge_kernel_source_rehearsed_on_the_host`` (rtol 2e-4, atol 1e-4):
+# PyTorch's vectorised CPU sqrt is not correctly rounded (found one ulp at
+# t = 82 on 1 of 185 static rays, where the host build equals a float32
+# numpy recompute with a correctly rounded root; 7.2e-6 relative on a moving
+# ray, the ulp through the anchored root's cancellation).
+
+
+def _adversarial_spheres(moving: bool):
+    """Spheres that stress a silhouette pass: the 1000-radius ground, a field
+    of small spheres at z in [-12, -3] (every other one moving in
+    ``moving``), a 0.45-radius sphere 60 units out, 20 copies of one sphere
+    (equal metrics on rows far apart), and 14 dead rows of capacity padding,
+    at the world origin where no live centre lies."""
+    rng = np.random.default_rng(9)
+    b = TSceneBuilder()
+    b.add_lambertian((0.0, -1000.0, 0.0), 1000.0, (0.5, 0.5, 0.5))
+    for k in range(36):
+        dp = (rng.uniform(-0.5, 0.5), 0.0, rng.uniform(-0.5, 0.5)) if moving and k % 2 else None
+        b.add_lambertian((rng.uniform(-6.0, 6.0), rng.uniform(0.2, 1.0), rng.uniform(-12.0, -3.0)),
+                         rng.uniform(0.1, 0.4), (0.4, 0.5, 0.6),
+                         **({"delta_position": dp} if dp else {}))
+    b.add_lambertian((60.0, 0.45, -60.0), 0.45, (0.9, 0.2, 0.2))
+    for _ in range(20):
+        b.add_lambertian((10.0, 0.5, -7.0), 0.3, (0.2, 0.9, 0.2))
+    return b.build(capacity=72)
+
+
+def _unit(v):
+    v = np.asarray(v, np.float64)
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+def _adversarial_rays(balls, seed):
+    """Ray families that a silhouette pass could get wrong -> ({family:
+    slice}, o, d), float32.  ``balls``: (centre, radius) pairs that the
+    grazing family's lines touch."""
+    rng = np.random.default_rng(seed)
+    fam, o, d = {}, [], []
+
+    def add(name, oo, dd):
+        fam[name] = slice(len(o), len(o) + len(oo))
+        o.extend(np.asarray(oo, np.float32))
+        d.extend(np.asarray(dd, np.float32))
+
+    field = np.stack([rng.uniform(-6, 6, 48), rng.uniform(0.0, 1.2, 48),
+                      rng.uniform(-12, -3, 48)], axis=1)
+    far = np.array([0.0, 3.0, 60.0]) + rng.uniform(-2, 2, (48, 3))
+    add("far_origins", far, _unit(field - far))
+    low = np.stack([rng.uniform(-5, 5, 32), rng.uniform(0.001, 0.02, 32),
+                    rng.uniform(-2, 2, 32)], axis=1)  # just above the ground
+    add("over_the_ground", low, _unit(np.stack([rng.normal(size=32), rng.uniform(-0.05, 0.05, 32),
+                                                -np.abs(rng.normal(size=32))], axis=1)))
+    near = rng.uniform(-2, 2, (24, 3)) + np.array([0.0, 1.0, 0.0])
+    add("to_the_far_one", near, _unit(np.array([60.0, 0.45, -60.0]) + rng.uniform(-1, 1, (24, 3))
+                                      - near))
+    oo, dd = [], []
+    for c, r in balls:  # lines at exactly the radius from the centre
+        u = _unit(rng.normal(size=3))
+        n = _unit(np.cross(u, rng.normal(size=3)))
+        oo.append(np.asarray(c) + r * n - 15.0 * u)
+        dd.append(u)
+    add("grazing_balls", oo, dd)
+    dup = np.array([10.0, 0.5, -7.0])
+    src = np.array([20.0, 0.5, -7.0]) + rng.uniform(-1, 1, (24, 3))
+    add("tied_copies", src, _unit(dup + rng.uniform(-0.08, 0.08, (24, 3)) - src))
+    over = np.stack([rng.uniform(-5, 5, 16), np.full(16, 2.0), rng.uniform(-1, 1, 16)], axis=1)
+    add("misses", over, _unit(np.stack([rng.uniform(-0.3, 0.3, 16), np.full(16, 0.05),
+                                        -np.ones(16)], axis=1)))
+    add("nothing_ahead", np.tile([0.0, 50.0, 0.0], (8, 1)) + rng.uniform(-1, 1, (8, 3)),
+        np.tile([0.0, 1.0, 0.0], (8, 1)))
+    add("dead", rng.uniform(-3, 3, (8, 3)), np.zeros((8, 3)))
+    add("padding_ahead_only", np.tile([0.0, -0.5, -1.0], (8, 1)) + rng.uniform(-0.05, 0.05, (8, 3)),
+        np.tile(_unit([0.0, 1.0, 1.0]), (8, 1)))
+    return fam, np.stack(o), np.stack(d)
+
+
+@pytest.mark.parametrize("motion", [False, True])
+def test_edge_cull_rehearsed_on_adversarial_rays(motion):
+    """The host build of the EDGE instantiation (static and moving) against
+    the plain version (obj and edge torch.equal, t as the section's note
+    says), on ray families that a silhouette pass could get wrong; each
+    family shows what it claims."""
+    _need_gxx()
+    scene = _adversarial_spheres(motion)
+    accel = tsw.make_accel2(scene, gr=16)
+    assert accel.has_motion == motion
+    n_obj = int(scene.num_valid)
+    balls = zip(scene.position[:n_obj].numpy().astype(np.float64),
+                scene.scale[:n_obj, 0].numpy().astype(np.float64))
+    fam, o, d = _adversarial_rays(balls, 4)
+    n = o.shape[0]
+    tr = np.random.default_rng(5).uniform(0.0, 1.0, n).astype(np.float32)
+    tr[::7], tr[1::7] = 0.0, 1.0
+    rays = tsw.pack_rays(*(torch.from_numpy(x) for x in (o, d, tr, np.full(n, 1e4, np.float32))))
+    want = tsw.sweep2_edge_plain(accel, rays)
+    with _build.host_rehearsal():
+        got = tsw._launch_sweep2(accel, rays, False, False, with_edge=True)
+        t0, _, _ = tsw._launch_sweep2(accel, rays, False, False)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert torch.equal(got[0], t0)
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), rtol=2e-4, atol=1e-4)
+    obj, edge = want[1].numpy(), want[2].numpy()
+    dead_row = (accel.otab[:accel.n_pad, tsw.OT_K1] >= tsw.BIG_T).numpy()
+    assert (obj[fam["misses"]] == -1).all() and (edge[fam["misses"]] >= 0).all()
+    assert (edge[fam["nothing_ahead"]] == -1).all() and (edge[fam["dead"]] == -1).all()
+    assert dead_row[edge[fam["padding_ahead_only"]]].all()
+    ground = int(np.flatnonzero(accel.perm.numpy() == 0)[0])
+    assert (obj[fam["far_origins"]] >= 0).any() and (obj[fam["over_the_ground"]] == ground).any()
+    # a tie: the lowest of the copies wins, and the copies lie in several groups
+    copies = np.flatnonzero(np.isin(accel.perm.numpy(), np.arange(38, 58)))
+    assert (edge[fam["tied_copies"]] == copies.min()).sum() >= 12
+    assert len(set(copies // accel.gr)) >= 2

@@ -39,7 +39,7 @@ from raytracing_tests_tpu.kernels import sweep2g as jg
 from raytracing_tests_tpu.scene import examples as jex
 from raytracing_tests_tpu.scene import types as jtypes
 from raytracing_tests_tpu_torch import convert
-from raytracing_tests_tpu_torch.kernels import _build, sweep2 as tsw2
+from raytracing_tests_tpu_torch.kernels import _build, edge_cull as ec, sweep2 as tsw2
 from raytracing_tests_tpu_torch.kernels import sweep2g as tg
 from raytracing_tests_tpu_torch.ops import intersect as tisect
 from raytracing_tests_tpu_torch.scene import examples as tex
@@ -488,3 +488,168 @@ def test_edge_kernel_source_rehearsed_on_the_host(sweep_case, motion):
     np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), rtol=2e-5, atol=2e-5)
     assert torch.equal(got[0], t0) and torch.equal(got[1], o0)
     assert (want[2] >= 0).float().mean() > 0.3 and (want[2][:16] == -1).all()
+
+
+# ---------------------------------------------------------------------------
+# The exact per-block cull of the silhouette instantiation
+# ---------------------------------------------------------------------------
+#
+# Tolerances: the culled pass must give the dense definition's candidate
+# exactly: the host build of the EDGE instantiations is held to the plain
+# version with torch.equal on obj and edge; its t (the nearest-hit sweep's,
+# which the cull does not touch) bit for bit to the nearest-hit
+# instantiation's, and to the plain version's within the tolerance of
+# ``test_edge_kernel_source_rehearsed_on_the_host`` (2e-5 relative and
+# absolute; its reason there).  The plain form of the block bound is held
+# below every row's metric in ``test_torch_edge_cull.py``.
+
+
+def _adversarial_generic(moving: bool):
+    """Rotated boxes and ellipsoids that stress the cull: the 1000-radius
+    ground ellipsoid, a field of anisotropic primitives at z in [-12, -3]
+    (every third one moving in ``moving``), a 0.45 box 60 units out, 20
+    copies of one rotated box (equal metrics on rows of different blocks),
+    and 14 invalid rows of capacity padding."""
+    rng = np.random.default_rng(11)
+    b = ttypes.SceneBuilder()
+    b.add_sphere((0.0, -1000.0, 0.0), 1000.0)
+    for k in range(36):
+        kw = {"delta_position": (rng.uniform(-0.5, 0.5), 0.0, rng.uniform(-0.5, 0.5))} \
+            if moving and k % 3 == 0 else {}
+        b.add((rng.uniform(-6.0, 6.0), rng.uniform(0.2, 1.0), rng.uniform(-12.0, -3.0)),
+              tuple(np.exp(rng.uniform(np.log(0.1), np.log(0.6), 3))),
+              ttypes.ELLIPSOID if k % 2 else ttypes.CUBOID,
+              rotation_deg=tuple(rng.uniform(0.0, 360.0, 3)), **kw)
+    b.add_box((60.0, 0.45, -60.0), (0.45, 0.45, 0.45))
+    for _ in range(20):
+        b.add_box((10.0, 0.5, -7.0), (0.3, 0.5, 0.2), rotation_deg=(10.0, 20.0, 30.0))
+    return b.build(capacity=72)
+
+
+def _unit(v):
+    v = np.asarray(v, np.float64)
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+def _adversarial_rays_g(table, seed):
+    """Ray families that a cull could get wrong -> ({family: slice}, o, d)."""
+    rng = np.random.default_rng(seed)
+    fam, o, d = {}, [], []
+
+    def add(name, oo, dd):
+        fam[name] = slice(len(o), len(o) + len(oo))
+        o.extend(np.asarray(oo, np.float32))
+        d.extend(np.asarray(dd, np.float32))
+
+    field = np.stack([rng.uniform(-6, 6, 48), rng.uniform(0.0, 1.2, 48),
+                      rng.uniform(-12, -3, 48)], axis=1)
+    far = np.array([0.0, 3.0, 60.0]) + rng.uniform(-2, 2, (48, 3))
+    add("far_origins", far, _unit(field - far))
+    low = np.stack([rng.uniform(-5, 5, 32), rng.uniform(0.001, 0.02, 32),
+                    rng.uniform(-2, 2, 32)], axis=1)
+    add("over_the_ground", low, _unit(np.stack([rng.normal(size=32), rng.uniform(-0.05, 0.05, 32),
+                                                -np.abs(rng.normal(size=32))], axis=1)))
+    near = rng.uniform(-2, 2, (24, 3)) + np.array([0.0, 1.0, 0.0])
+    add("to_the_far_one", near, _unit(np.array([60.0, 0.45, -60.0]) + rng.uniform(-1, 1, (24, 3))
+                                      - near))
+    oo, dd = [], []
+    for e in range(table.shape[0]):  # lines at exactly the ball's radius from its centre
+        u = _unit(rng.normal(size=3))
+        n = _unit(np.cross(u, rng.normal(size=3)))
+        oo.append(table[e, 0:3] + table[e, ec.EB_BR] * n - 15.0 * u)
+        dd.append(u)
+    add("grazing_balls", oo, dd)
+    src = np.array([20.0, 0.5, -7.0]) + rng.uniform(-1, 1, (24, 3))
+    add("tied_copies", src, _unit(np.array([10.0, 0.5, -7.0]) + rng.uniform(-0.05, 0.05, (24, 3))
+                                  - src))
+    over = np.stack([rng.uniform(-5, 5, 16), np.full(16, 2.5), rng.uniform(-1, 1, 16)], axis=1)
+    add("misses", over, _unit(np.stack([rng.uniform(-0.3, 0.3, 16), np.full(16, 0.05),
+                                        -np.ones(16)], axis=1)))
+    add("nothing_ahead", np.tile([0.0, 50.0, 0.0], (8, 1)) + rng.uniform(-1, 1, (8, 3)),
+        np.tile([0.0, 1.0, 0.0], (8, 1)))
+    add("dead", rng.uniform(-3, 3, (8, 3)), np.zeros((8, 3)))
+    return fam, np.stack(o), np.stack(d)
+
+
+def test_edge_block_table_of_the_generic_accel():
+    """The generic block table: valid rows only, each once in the blocks and
+    once in the super-blocks, runs inside one group; built once per accel."""
+    accel = tg.make_accel2g(_adversarial_generic(True), gr=16, has_motion=True)
+    table, n_super = ec.edge_blocks(accel)
+    assert ec.edge_blocks(accel)[0] is table
+    t = table.numpy()
+    valid = np.flatnonzero((accel.otab[:accel.n_pad, tg.GO_VALID] > 0).numpy())
+    for part in (t[:n_super], t[n_super:]):
+        rows = np.concatenate([np.arange(a, a + n) for a, n in
+                               part[:, [ec.EB_ROW0, ec.EB_NROWS]].astype(int)])
+        np.testing.assert_array_equal(rows, valid)
+        assert (part[:, ec.EB_ROW0] // accel.gr ==
+                (part[:, ec.EB_ROW0] + part[:, ec.EB_NROWS] - 1) // accel.gr).all()
+    assert (t[n_super:, ec.EB_NROWS] <= ec.BLOCK_ROWS).all()
+    assert (t[:n_super, ec.EB_NROWS] <= ec.SUPER_ROWS).all()
+    for sup in t[:n_super]:  # a super-block is the union of the blocks it names
+        sub = t[int(sup[ec.EB_SUB0]):int(sup[ec.EB_SUB0] + sup[ec.EB_NSUB])]
+        assert sub[0, ec.EB_ROW0] == sup[ec.EB_ROW0]
+        assert sub[:, ec.EB_NROWS].sum() == sup[ec.EB_NROWS]
+    assert (t[:, ec.EB_MU] > 0).all() and np.isfinite(t[:, ec.EB_ERRK]).all()
+    assert (t[:, ec.EB_DPMAX] > 0).any()
+
+
+@pytest.mark.parametrize("motion", [False, True])
+def test_edge_cull_rehearsed_on_adversarial_rays(motion):
+    """The host build of the culled EDGE instantiation (static and moving)
+    against the plain version (obj and edge torch.equal, t as the section's
+    note says), on ray families that a cull could get wrong; each family
+    shows what it claims, and the cull evaluated fewer rows than the dense
+    pass."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to rehearse the kernel source with")
+    accel = tg.make_accel2g(_adversarial_generic(motion), gr=16, has_motion=motion)
+    fam, o, d = _adversarial_rays_g(ec.edge_blocks(accel)[0].numpy().astype(np.float64), 6)
+    n = o.shape[0]
+    tr = np.random.default_rng(7).uniform(0.0, 1.0, n).astype(np.float32)
+    tr[::7], tr[1::7] = 0.0, 1.0
+    rays = tsw2.pack_rays(*(torch.from_numpy(x) for x in (o, d, tr, np.full(n, 1e4, np.float32))))
+    want = tg.sweep2g_edge_plain(accel, rays)
+    stats = torch.zeros(tg.EC_LEN, dtype=torch.int64)
+    with _build.host_rehearsal():
+        got = tg._launch_sweep2g(accel, rays, stats, with_edge=True)
+        t0, _ = tg._launch_sweep2g(accel, rays)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert torch.equal(got[0], t0)
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), rtol=2e-5, atol=2e-5)
+    obj, edge = want[1].numpy(), want[2].numpy()
+    assert (obj[fam["misses"]] == -1).all() and (edge[fam["misses"]] >= 0).all()
+    assert (edge[fam["nothing_ahead"]] == -1).all() and (edge[fam["dead"]] == -1).all()
+    ground = int(np.flatnonzero(accel.perm.numpy() == 0)[0])
+    assert (obj[fam["far_origins"]] >= 0).any() and (obj[fam["over_the_ground"]] == ground).any()
+    copies = np.flatnonzero(np.isin(accel.perm.numpy(), np.arange(38, 58))
+                            & (accel.otab[:accel.n_pad, tg.GO_VALID] > 0).numpy())
+    assert ((edge[fam["tied_copies"]] == copies.min()).sum() >= 12)
+    starts = ec.edge_blocks(accel)[0].numpy()[:, ec.EB_ROW0]
+    assert len(set(np.searchsorted(np.unique(starts), copies, side="right"))) >= 3
+    act = (d != 0).any(axis=1)
+    valid = int((accel.otab[:accel.n_pad, tg.GO_VALID] > 0).sum())
+    assert 0 < int(stats[tg.EC_ROWS_HIT] + stats[tg.EC_ROWS_MISS]) < int(act.sum()) * valid
+
+
+@pytest.mark.parametrize("sizes", [(1, 16), (4, 32), (8, 8)])
+def test_edge_cull_gives_the_same_answer_at_other_block_sizes(sizes):
+    """The culled pass on tables of other block sizes (a copy of the accel,
+    ``edge_cull._with_block_sizes``, as the card's measurements build them):
+    obj and edge torch.equal to the plain version's, moving rays included."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to rehearse the kernel source with")
+    accel = tg.make_accel2g(_adversarial_generic(True), gr=16, has_motion=True)
+    other = ec._with_block_sizes(accel, *sizes)
+    table, n_super = ec.edge_blocks(other)
+    assert ec.edge_blocks(accel)[0].shape != table.shape
+    assert (table[n_super:, ec.EB_NROWS] <= sizes[0]).all()
+    fam, o, d = _adversarial_rays_g(table.numpy().astype(np.float64), 8)
+    n = o.shape[0]
+    tr = np.random.default_rng(9).uniform(0.0, 1.0, n).astype(np.float32)
+    rays = tsw2.pack_rays(*(torch.from_numpy(x) for x in (o, d, tr, np.full(n, 1e4, np.float32))))
+    want = tg.sweep2g_edge_plain(accel, rays)
+    with _build.host_rehearsal():
+        got = tg._launch_sweep2g(other, rays, with_edge=True)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
