@@ -1,5 +1,5 @@
-"""Parent against change in one call: the generic silhouette pass (K3) on one
-NVIDIA GPU.
+"""Parent against change in one call: K3, the generic sweep (its nearest-hit
+and silhouette instantiations), on one NVIDIA GPU.
 
 Run from the repository root, with an older checkout of the repository
 unpacked beside it (a directory that .gitignore lists), for example:
@@ -9,41 +9,49 @@ unpacked beside it (a directory that .gitignore lists), for example:
 
 Builds the parent checkout's ``sweep2g.cu`` with ``nvcc`` into
 ``raytracing_tests_tpu_torch/_build/edge_parent/`` and this checkout's
-kernels as usual, and launches the parent's through the C interface its
-silhouette instantiations had before the cull (no block table: a dense pass
-over every row), behind this checkout's wrappers (the same Python path and
-checks).  For both silhouette instantiations of K3 (``sweep2g_edge``,
-``sweep2g_m_edge``) on the gradient frame ``chip_smoke.py`` gives it, and on
-the rays of that frame's first two pops in the middle band:
+kernels as usual, and launches the parent's through the C interface it had
+before the warp sweep (no live-row bounds, no ``coop_min``), behind this
+checkout's wrappers (the same Python path and checks).  Three frames, as
+``chip_smoke.py`` builds them: the hard generic gradient step
+(``bvh_grid_scene(side=32)`` with jittered positions, K3's nearest-hit
+instantiation ``sweep2g`` behind ``fastpath._winner``), the same frame with
+``soft_edges`` (``sweep2g_edge``) and the moving-groups soft step
+(``sweep2g_m_edge``).  On the rays of each frame's first two pops in the
+middle band:
 
-  - (t, obj, edge) of both against the plain version, and against each other
-    (the -fmad=false build of this checkout against the plain version too);
+  - the outputs of both builds against the plain version and against each
+    other (the share of rays on which this checkout's default build gives the
+    parent's bits), and of this checkout's -fmad=false build against the plain
+    version, which must agree on every obj and edge;
   - the time of each launch by CUDA events, in ``ROUNDS`` rounds of parent,
-    change, change, parent; the bound (the culled and the dense count beside
-    it) and the share of (live ray, row) pairs the culled pass evaluated, for
-    rays that hit and rays that missed (``chip_smoke.edge_bound``,
-    ``edge_pairs``);
-  - the nearest-hit instantiation alone on the same rays (the part of the
-    time that is not the silhouette pass), and source variants of the walk
-    (``VARIANTS``, lines of ``csrc/edge_cull.cuh`` replaced; each must give
-    the same outputs);
-  - the culled pass with other block sizes (``BLOCK_SIZES``: rows per block
-    and per super-block, on a copy of the accel,
-    ``edge_cull._with_block_sizes``; the kernel is the same);
-  - then the frame's whole gradient step (``banded_value_and_grad``) with
-    every launch of the instantiation timed by CUDA events, parent, change,
-    change, parent: the device total, the launches and the step's seconds.
+    change, change, parent, with this checkout at coop_min 1 (the walk of one
+    thread per ray) beside them; the SIMT efficiency of the nearest-hit sweep
+    at the default coop_min and at 1; the bound (``chip_smoke.k3_nearest_bound``,
+    ``edge_bound``);
+  - for the silhouette instantiations, the nearest-hit instantiation alone on
+    the same rays, parent and change (the part of the time that is not the
+    silhouette pass);
+  - source variants (``VARIANTS``: lines of ``csrc`` files replaced; each must
+    give the same outputs) and their ``ptxas`` lines;
+then each frame's whole gradient step (``banded_value_and_grad``) with every
+launch of the instantiation timed by CUDA events, parent, change, change,
+parent: the device total (launch latency and the wrapper's host work
+included), the launches and the step's seconds; the step once more with
+every launch timed on the device alone, parent and change on the same
+inputs; and once more with every launch timed in each ``coop_min`` of
+``COOP_SWEEP`` (``chip_smoke.k3_coop_sweep``).
 
 ``--quick`` stops after the first pop of each instantiation and one round
 (a first check of a new build).  Prints one JSON object per phase, the
-``ptxas -v`` lines of both builds' silhouette kernels, and the card as
-``nvidia-smi`` names it; fails without CUDA.
+``ptxas -v`` lines of both builds' K3 kernels, and the card as ``nvidia-smi``
+names it; fails without CUDA.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import json
 import pathlib
 import shutil
@@ -58,51 +66,83 @@ if not torch.cuda.is_available():
     sys.exit("chip_edge.py needs a CUDA device: torch.cuda.is_available() is False")
 
 import chip_smoke as cs  # noqa: E402
-from raytracing_tests_tpu_torch.kernels import _build, edge_cull, sweep2g  # noqa: E402
+from raytracing_tests_tpu_torch.kernels import _build, sweep2g  # noqa: E402
 from raytracing_tests_tpu_torch.scene import examples  # noqa: E402
 
 ROUNDS = 3
-# Source variants of this checkout's silhouette walk, timed beside it on the
-# same pops: name -> [(line as it is in csrc/edge_cull.cuh, the variant's)].
+# Source variants of this checkout's generic sweep, timed beside it on the
+# same pops: name -> [(file under csrc/, line as it is there, the variant's)].
 VARIANTS = {
-    # step 1 (the pick of the least-bound super-block) for every lane, seeded or not
-    "pick_for_every_lane": [("  if (active && best.row < 0) {", "  if (active) {")],
+    "min_blocks_3": [("sweep2g.cu", "constexpr int MIN_BLOCKS = 4;",
+                      "constexpr int MIN_BLOCKS = 3;")],
+    "edge_min_blocks_2": [("sweep2g.cu", "constexpr int EDGE_MIN_BLOCKS = MOTION ? 2 : 4;",
+                           "constexpr int EDGE_MIN_BLOCKS = MOTION ? 2 : 2;")],
+    "edge_min_blocks_4": [("sweep2g.cu", "constexpr int EDGE_MIN_BLOCKS = MOTION ? 2 : 4;",
+                           "constexpr int EDGE_MIN_BLOCKS = MOTION ? 4 : 4;")],
 }
-# rows per block and per super-block of the block table
-BLOCK_SIZES = ((1, 16), (2, 8), (2, 16), (4, 32), (8, 32))
-ORDER = ("sweep2g_edge", "sweep2g_m_edge")
 
 
 def say(**kw):
     print(json.dumps(kw), flush=True)
 
 
-def build_parent(parent):
-    """nvcc the parent's generic sweep source -> (CDLL, ptxas lines)."""
-    src = pathlib.Path(parent) / "raytracing_tests_tpu_torch" / "csrc"
+def nvcc(src_dir, so):
+    """Start nvcc on ``src_dir``'s sweep2g.cu -> the process."""
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src_dir), "-o", str(so),
+           str(pathlib.Path(src_dir) / "sweep2g.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish(what, so, proc, argtypes):
+    """Wait for ``proc`` -> (CDLL with ``argtypes``, ptxas lines); raise on failure."""
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {what}:\n{log}")
+    lib = ctypes.CDLL(str(so))
+    lib.rt_sweep2g.argtypes, lib.rt_sweep2g.restype = argtypes, ctypes.c_int
+    return lib, cs.ptxas_by_kernel(f"== sweep2g.so ==\n{log}\n")
+
+
+def build_others(parent):
+    """nvcc the parent's sweep2g.cu and every variant's, all at once ->
+    (parent CDLL, its ptxas lines, {variant: CDLL}, {variant: ptxas lines})."""
+    p, i = ctypes.c_void_p, ctypes.c_int
     out = _build.BUILD_ROOT / "edge_parent"
     out.mkdir(parents=True, exist_ok=True)
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src), "-o",
-           str(out / "sweep2g.so"), str(src / "sweep2g.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for the parent's sweep2g.cu:\n{proc.stdout}")
-    lib = ctypes.CDLL(str(out / "sweep2g.so"))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rt_sweep2g.argtypes = [p, p, i, i, i, i, i, i, p, i, p, p, p, p, p]
-    lib.rt_sweep2g.restype = ctypes.c_int
-    return lib, cs.ptxas_by_kernel(f"== sweep2g.so ==\n{proc.stdout}\n")
+    procs = {None: (out / "sweep2g.so", nvcc(pathlib.Path(parent) / "raytracing_tests_tpu_torch"
+                                              / "csrc", out / "sweep2g.so"))}
+    root = _build.BUILD_ROOT / "edge_variants"
+    for name, subs in VARIANTS.items():
+        src = root / name / "csrc"
+        shutil.rmtree(src, ignore_errors=True)
+        shutil.copytree(_build.CSRC, src)
+        for fname, old, new in subs:
+            text = (src / fname).read_text()
+            if text.count(old) != 1:
+                raise RuntimeError(f"variant {name}: {old!r} is not one line of {fname}")
+            (src / fname).write_text(text.replace(old, new))
+        procs[name] = (root / name / "sweep2g.so", nvcc(src, root / name / "sweep2g.so"))
+    # the parent's C interface: no live_rows, no coop_min
+    parent_lib, parent_ptxas = finish("the parent's sweep2g.cu", *procs.pop(None),
+                                      [p, p, i, i, i, i, i, i, p, i, p, p, p, p, i, p, p])
+    argtypes = [p, p, p, i, i, i, i, i, i, i, p, i, p, p, p, p, i, p, p]  # this checkout's
+    libs, ptxas = {}, {}
+    for name, (so, proc) in procs.items():
+        libs[name], ptxas[name] = finish(f"variant {name}", so, proc, argtypes)
+    return parent_lib, parent_ptxas, libs, ptxas
 
 
 class _ParentFn:
     """The parent's C function behind this checkout's wrapper: called with
-    this checkout's arguments, it drops the two of the block table."""
+    this checkout's arguments, it drops ``live_rows`` and ``coop_min``."""
 
-    def __init__(self, fn, drop):
-        self.fn, self.drop, self.argtypes = fn, drop, fn.argtypes
+    DROP = (2, 9)
+
+    def __init__(self, fn):
+        self.fn, self.argtypes = fn, fn.argtypes
 
     def __call__(self, *args):
-        return self.fn(*(a for k, a in enumerate(args) if k not in self.drop))
+        return self.fn(*(a for k, a in enumerate(args) if k not in self.DROP))
 
 
 KEY = ("sweep2g", ())  # the generic sweep's entry in _build's loaded libraries
@@ -123,38 +163,7 @@ def kernels_of(lib):
 
 def parent_kernels(parent):
     """Inside: the wrappers launch the parent's kernel."""
-    return kernels_of(types.SimpleNamespace(rt_sweep2g=_ParentFn(parent.rt_sweep2g, (13, 14))))
-
-
-def build_variants():
-    """nvcc every variant's sweep2g.cu -> {variant: CDLL} with this
-    checkout's C interface."""
-    root = _build.BUILD_ROOT / "edge_variants"
-    procs, out = [], {}
-    for name, subs in VARIANTS.items():
-        src = root / name / "csrc"
-        shutil.rmtree(src, ignore_errors=True)
-        shutil.copytree(_build.CSRC, src)
-        text = (src / "edge_cull.cuh").read_text()
-        for old, new in subs:
-            if text.count(old) != 1:
-                raise RuntimeError(f"variant {name}: {old!r} is not one line of edge_cull.cuh")
-            text = text.replace(old, new)
-        (src / "edge_cull.cuh").write_text(text)
-        so = root / name / "sweep2g.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src), "-o", str(so),
-               str(src / "sweep2g.cu")]
-        procs.append((name, so, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    argtypes = _build.load("sweep2g").rt_sweep2g.argtypes
-    for name, so, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
-        lib = ctypes.CDLL(str(so))
-        lib.rt_sweep2g.argtypes, lib.rt_sweep2g.restype = argtypes, ctypes.c_int
-        out[name] = lib
-    return out
+    return kernels_of(types.SimpleNamespace(rt_sweep2g=_ParentFn(parent.rt_sweep2g)))
 
 
 def same(a, b):
@@ -162,37 +171,43 @@ def same(a, b):
     return {k: cs.frac(x == y) for k, x, y in zip(("t", "obj", "edge"), a, b)}
 
 
-def frame(dev, name):
-    """The gradient frame of ``name`` as chip_smoke.grad_phases builds it."""
-    rng = np.random.default_rng(cs.SEED)
+def frames(dev):
+    """The three gradient frames as chip_smoke.grad_phases builds them."""
+    def jitter_of(seed):
+        rng = np.random.default_rng(seed)
 
-    def jitter(s):
-        dpos = torch.from_numpy(rng.uniform(-0.1, 0.1, tuple(s.position.shape)).astype(np.float32))
-        return s.replace(position=s.position + dpos.to(s.position.device))
+        def jitter(s):
+            dpos = rng.uniform(-0.1, 0.1, tuple(s.position.shape)).astype(np.float32)
+            return s.replace(position=s.position + torch.from_numpy(dpos).to(s.position.device))
 
-    scene_cam = {"sweep2g_edge": lambda: examples.bvh_grid_scene(side=32),
-                 "sweep2g_m_edge": cs.moving_groups_scene}[name]()
-    return cs.grad_inputs(dev, scene_cam, jitter, soft=cs.SOFT)
+        return jitter
+
+    soft = cs.grad_inputs(dev, examples.bvh_grid_scene(side=32), jitter_of(cs.SEED), soft=cs.SOFT)
+    hard = dict(soft, cfg=dataclasses.replace(soft["cfg"], soft_edges=0.0))
+    moving = cs.grad_inputs(dev, cs.moving_groups_scene(), jitter_of(cs.SEED), soft=cs.SOFT)
+    return {"sweep2g": hard, "sweep2g_edge": soft, "sweep2g_m_edge": moving}
 
 
-def kernel_ms(fns, reps=10):
-    """{label: [ms per round]} of {label: (context, fn)}: each round times
-    the labels in order and then reversed, ``reps`` launches each inside its
+def kernel_ms(fns, rounds):
+    """{label: [ms per round]} of {label: (context factory, fn)}: each round
+    times the labels in order and then reversed, 10 launches each inside its
     context; rounds alternate the order."""
     out = {k: [] for k in fns}
-    for r in range(ROUNDS):
+    for r in range(rounds):
         order = list(fns) if r % 2 == 0 else list(fns)[::-1]
         for k in order + order[::-1]:
             ctx, fn = fns[k]
             with ctx():
-                out[k].append(cs.cuda_ms(fn, reps))
+                out[k].append(cs.cuda_ms(fn, 10))
     return out
 
 
 def pops_phase(name, g, parent, quick, variants):
-    module, wrapper, plain, _ = cs.EDGE_KERNELS[name]
+    module, wrapper, plain, _ = cs.POP_KERNELS[name]
     run = getattr(module, wrapper)
+    edge = name != "sweep2g"
     pops = cs.first_two_pops(g, name, g["bands"] // 2)
+    none = contextlib.nullcontext
     for k, (accel, rays) in enumerate(pops[:1] if quick else pops):
         want = plain(accel, rays)
         new = run(accel, rays)
@@ -200,49 +215,45 @@ def pops_phase(name, g, parent, quick, variants):
             old = run(accel, rays)
         with _build.precise():
             new_precise = run(accel, rays)
-        stats = torch.zeros(sweep2g.EC_LEN, dtype=torch.int64, device=rays.device)
-        run(accel, rays, stats)
-        bnd = cs.edge_bound(name, accel, rays, stats)
-
-        none = contextlib.nullcontext
+        with cs.coop(1):
+            new_lane = run(accel, rays)
+            _, stats_lane = cs.k3_run(name, accel, rays)
+        _, stats = cs.k3_run(name, accel, rays)
+        B = rays.shape[1]
+        bnd = (cs.edge_bound(name, accel, rays, stats) if edge else
+               dict(zip(("bound_ms", "bound_by"), cs.k3_nearest_bound(accel, B, stats))))
         fns = {"parent": (lambda: parent_kernels(parent), lambda: run(accel, rays)),
                "change": (none, lambda: run(accel, rays)),
-               "nearest_only": (none, lambda: sweep2g._sweep2g(accel, rays))}
+               "change_per_lane": (lambda: cs.coop(1), lambda: run(accel, rays))}
+        if edge:
+            nearest = lambda: sweep2g._sweep2g(accel, rays)  # noqa: E731
+            fns["parent_nearest_only"] = (lambda: parent_kernels(parent), nearest)
+            fns["nearest_only"] = (none, nearest)
         for v, lib in variants.items():
             with kernels_of(lib):
                 if min(same(run(accel, rays), new).values()) < 1.0:
                     raise AssertionError(f"variant {v} changes the outputs of {name}")
             fns[v] = (lambda lib=lib: kernels_of(lib), lambda: run(accel, rays))
-        times = kernel_ms(fns)
-        table, n_super = edge_cull.edge_blocks(accel)
-        res = dict(phase="edge_pop", kernel=name, pop=k + 1, rays=rays.shape[1],
-                   entries=int(table.shape[0]), super_blocks=n_super,
-                   block_sizes_default=(edge_cull.BLOCK_ROWS, edge_cull.SUPER_ROWS),
+        times = kernel_ms(fns, 1 if quick else ROUNDS)
+        res = dict(phase="k3_pop", kernel=name, pop=k + 1, rays=B,
                    change_vs_plain=same(new, want), precise_vs_plain=same(new_precise, want),
                    parent_vs_plain=same(old, want), change_vs_parent=same(new, old),
-                   parent_ms=min(times["parent"]), change_ms=min(times["change"]),
-                   nearest_only_ms=min(times["nearest_only"]),
-                   variants_ms={v: min(times[v]) for v in variants},
-                   rounds_ms=times, **bnd, **cs.edge_pairs(rays, new[1], stats, bnd["rows"]))
-        if not quick:
-            sizes = {}
-            for size in BLOCK_SIZES:
-                other = edge_cull._with_block_sizes(accel, *size)
-                st = torch.zeros_like(stats)
-                got = run(other, rays, st)
-                sizes[f"{size[0]}/{size[1]}"] = dict(
-                    ms=cs.cuda_ms(lambda: run(other, rays), 10),
-                    identical=min(same(got, new).values()),
-                    **cs.edge_pairs(rays, got[1], st, bnd["rows"]))
-            res["block_sizes"] = sizes
+                   per_lane_vs_change=same(new_lane, new),
+                   ms={f: min(t) for f, t in times.items()}, rounds_ms=times,
+                   simt=cs.k3_simt(stats), simt_per_lane_mode=cs.k3_simt(stats_lane), **bnd)
+        if edge:
+            res.update(cs.edge_pairs(rays, new[1], stats, bnd["rows"]))
         say(**res)
+        exact = same(new_precise, want)
+        cs.require(exact["obj"] == 1.0 and exact.get("edge", 1.0) == 1.0,
+                   f"{name} pop {k + 1}: the -fmad=false build differs from the plain version")
 
 
 def step_phase(name, g, parent):
     """The frame's gradient step, parent, change, change, parent, with every
     launch of the instantiation timed (the wrapper's host work included, the
-    same for both)."""
-    module, wrapper, _, _ = cs.EDGE_KERNELS[name]
+    same for both); then its coop_min sweep."""
+    module, wrapper, _, _ = cs.POP_KERNELS[name]
     out = {"parent": [], "change": []}
     for who in ("parent", "change", "change", "parent"):
         with parent_kernels(parent) if who == "parent" else contextlib.nullcontext():
@@ -250,7 +261,36 @@ def step_phase(name, g, parent):
                 k = cs.grad_step(g)
             out[who].append(dict(seconds_per_step=k["ms"] / 1e3, device_ms=cs.events_ms(ev),
                                  launches=len(ev), loss=float(k["loss"])))
-    say(phase="edge_step", kernel=name, bands=g["bands"], band_pops=g["pops"], **out)
+    say(phase="k3_step", kernel=name, bands=g["bands"], band_pops=g["pops"], **out)
+    step_device_phase(name, g, parent)
+    cs.k3_coop_sweep(f"{name} step (chip_edge.py)", g, name)
+
+
+def step_device_phase(name, g, parent):
+    """The frame's gradient step once more, every launch of the instantiation
+    timed on the device alone (``chip_smoke.gapless_events``, the faster of
+    two timings), parent and change on the same inputs in alternating order:
+    their sums over the step and the share of launches the change won."""
+    module, wrapper, _, _ = cs.POP_KERNELS[name]
+    real = getattr(module, wrapper)
+    got = {"parent": [], "change": []}
+
+    def hook(accel, rays, stats=None):
+        real(accel, rays)  # untimed: the live-row bounds, the allocator's memory
+        who = ("parent", "change") if len(got["change"]) % 2 == 0 else ("change", "parent")
+        for w in who:
+            with parent_kernels(parent) if w == "parent" else contextlib.nullcontext():
+                got[w].append([cs.gapless_events(lambda: real(accel, rays)) for _ in range(2)])
+        return real(accel, rays)
+
+    with cs.patched(module, wrapper, hook):
+        cs.grad_step(g)
+    torch.cuda.synchronize()
+    ms = {w: [min(a.elapsed_time(b) for a, b in ev) for ev in evs] for w, evs in got.items()}
+    say(phase="k3_step_device", kernel=name, launches=len(ms["change"]),
+        parent_ms=sum(ms["parent"]), change_ms=sum(ms["change"]),
+        change_won=sum(c < p for c, p in zip(ms["change"], ms["parent"])) / len(ms["change"]),
+        slowest_change=sorted(ms["change"])[-3:], slowest_parent=sorted(ms["parent"])[-3:])
 
 
 def main():
@@ -262,14 +302,12 @@ def main():
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     say(phase="card", card=card, torch=torch.__version__, cuda=torch.version.cuda)
     info = _build.build(with_precise=True)
-    parent_lib, ptxas_parent = build_parent(parent)
-    variants = build_variants()
+    parent_lib, ptxas_parent, variants, ptxas_variants = build_others(parent)
     ptxas = cs.ptxas_by_kernel(info["log"])
     say(phase="build", seconds=info["seconds"],
         change={k: v for k, v in ptxas.items() if k.startswith("sweep2g.so")},
-        parent=ptxas_parent)
-    for name in ORDER:
-        g = frame(dev, name)
+        parent=ptxas_parent, variants=ptxas_variants)
+    for name, g in frames(dev).items():
         pops_phase(name, g, parent_lib, quick, variants)
         if not quick:
             step_phase(name, g, parent_lib)

@@ -141,7 +141,14 @@ Phases and their bars:
      filled; the ``coop_min`` sweep over ``COOP_SWEEP``: K6's summed step time
      over a natural megalanes frame of the headline and K2's summed time over
      a work-queue frame, each launch timed twice by CUDA events with the card
-     kept busy while the host enqueues it, the faster timing counted.
+     kept busy while the host enqueues it, the faster timing counted.  K3's
+     part runs with the gradient phases: its four instantiations' schedules
+     bit for bit in the -fmad=false build, and each equal to the plain
+     version (t, obj, edge) on every ray, on the generic canary's lanes and
+     on the first two pops of the middle band of the hard and soft generic
+     steps and of the moving-groups step (``k3_sweep_modes``); its summed
+     time over the hard and the soft generic step per coop_min, each launch
+     above its bound (``k3_coop_sweep``).
   materials_frame, lights_frame. ``materials_scene()`` (materials shading) and
      ``lights_scene()`` (with ``extract_lights``) at 800x450x16 depth 8
      through ``render_uber``: one launch of ``uber_mat`` / ``uber_g_lt`` per
@@ -184,7 +191,10 @@ Phases and their bars:
      behind ``_winner``); ``motion_blur_scene()`` and a moving
      ``groups_scene()``, soft (the two moving EDGE instantiations): finite
      gradients, each step running its one sweep instantiation only; each
-     step's sweep launches timed by CUDA events (device total and count).
+     step's sweep launches timed by CUDA events (device total and count); on
+     bvh1k K3's bound summed over the hard step's launches from their own
+     counters and its SIMT efficiency (live rows / lane slots) over each step
+     at the default coop_min and at 1.
   edge_vs_plain. Each EDGE instantiation against its plain version on the
      rays of its frame's first two pops in the middle band: the -fmad=false
      build with t, obj and edge identical on >= EDGE_PRECISE (99.9 %), the
@@ -307,19 +317,28 @@ PTXAS_K1 = {
 # per SM (before: sweep2_kernel<0> 48 registers, 4/4 B of spill, <1> 70 and
 # none; mega_kernel<0> and <1> 64 and none).  The sweeps' names carry a second
 # template argument since their silhouette (EDGE) instantiations came: the
-# lines are those of the <MOTION, false> ones.
+# lines are those of the <MOTION, false> ones.  And the generic sweep's four
+# instantiations since they run the warp sweep, at 4 blocks of 256 per SM
+# (moving EDGE: 2; before, one thread's walk: sweep2g_kernel<0> and <1> 48
+# registers with 8/8 and 16/16 B of spill at no bound, the EDGE ones 58 and 60
+# and none, at 2).
 PTXAS_REDESIGNED = {
     "sweep2.so sweep2_kernel<0,0>": dict(registers=61, stack=0, spill_stores=0, spill_loads=0),
     "sweep2.so sweep2_kernel<1,0>": dict(registers=77, stack=0, spill_stores=0, spill_loads=0),
     "mega.so mega_kernel<0>": dict(registers=80, stack=32, spill_stores=0, spill_loads=0),
     "mega.so mega_kernel<1>": dict(registers=80, stack=32, spill_stores=0, spill_loads=0),
+    "sweep2g.so sweep2g_kernel<0>": dict(registers=62, stack=0, spill_stores=0, spill_loads=0),
+    "sweep2g.so sweep2g_kernel<1>": dict(registers=64, stack=0, spill_stores=0, spill_loads=0),
+    "sweep2g.so sweep2g_edge_kernel<0>": dict(registers=64, stack=0, spill_stores=0,
+                                              spill_loads=0),
+    "sweep2g.so sweep2g_edge_kernel<1>": dict(registers=72, stack=0, spill_stores=0,
+                                              spill_loads=0),
 }
+# The generic sweep's instantiations, which must build with no spill.
+K3_INSTANTIATIONS = [k for k in PTXAS_REDESIGNED if k.startswith("sweep2g.so")]
 # ... and what it gave the other kernels before the warp sweeps, which they do
-# not include: they must not change (the generic sweep's nearest-hit
-# instantiations; its silhouette ones are sweep2g_edge_kernel).
+# not include: they must not change.
 PTXAS_UNCHANGED = {
-    "sweep2g.so sweep2g_kernel<0>": dict(registers=48, stack=8, spill_stores=8, spill_loads=8),
-    "sweep2g.so sweep2g_kernel<1>": dict(registers=48, stack=8, spill_stores=16, spill_loads=16),
     "sweep.so grouped_kernel<0,1>": dict(registers=40, stack=8, spill_stores=4, spill_loads=8),
     "sweep.so grouped_kernel<1,0>": dict(registers=47, stack=0, spill_stores=0, spill_loads=0),
     "sweep.so nearest_kernel<1>": dict(registers=40, stack=0, spill_stores=0, spill_loads=0),
@@ -1114,7 +1133,8 @@ def kernels_on_path(render, hooks):
 
 
 def generic_phases(dev, iow):
-    """Phases 8 to 12 -> the kernels-line entries of the generic slice.
+    """Phases 8 to 12 -> (the kernels-line entries of the generic slice, K3's
+    (accel, rays) at the generic canary's lanes).
     ``iow``: the sphere scene, its camera, its small config, its canary lanes."""
     scene, camera = examples.bvh_grid_scene(side=32)
     scene, camera = scene.to(dev), camera.to(dev)
@@ -1345,10 +1365,7 @@ def generic_phases(dev, iow):
     sweep2g._sweep2g(acc3_s, lanes3, st3c)
     driven["sweep2g"] = dict(
         launches=launches_k3["sweep2g"], ms=cuda_ms(lambda: sweep2g._sweep2g(acc3_s, lanes3), 10),
-        bound_ms=bound(40 * lanes3.shape[1] + 4 * (acc3_s.otab.numel() + acc3_s.gaabb.numel()),
-                       int(st3c[sweep2g.GC_SLAB]) * FLOPS_PER_SLAB_TEST
-                       + int(st3c[sweep2g.GC_SPHERE_ROWS]) * FLOPS_PER_CENSUS_SPHERE_ROW
-                       + int(st3c[sweep2g.GC_OTHER_ROWS]) * FLOPS_PER_CENSUS_CUBOID_ROW)[0])
+        bound_ms=k3_nearest_bound(acc3_s, lanes3.shape[1], st3c)[0], **k3_simt(st3c))
     driven["sweep2g"]["ms_above_bound"] = driven["sweep2g"]["ms"] - driven["sweep2g"]["bound_ms"]
     say(phase="driven_paths", what="K3, K4 and K5 at the shapes their driven paths give them",
         paths=dict(sweep_nearest="glass canary", sweep_ri="glass canary",
@@ -1437,11 +1454,11 @@ def generic_phases(dev, iow):
     st3 = torch.zeros(sweep2g.GC_LEN, dtype=torch.int64, device=dev)
     sweep2g._sweep2g(acc3, lanes, st3)
     ms_k3 = cuda_ms(lambda: sweep2g._sweep2g(acc3, lanes), 10)
-    k3_bound, k3_by = bound(
-        40 * B + table_bytes(acc3.otab, acc3.gaabb),
-        int(st3[sweep2g.GC_SLAB]) * FLOPS_PER_SLAB_TEST
-        + int(st3[sweep2g.GC_SPHERE_ROWS]) * FLOPS_PER_CENSUS_SPHERE_ROW
-        + int(st3[sweep2g.GC_OTHER_ROWS]) * FLOPS_PER_CENSUS_CUBOID_ROW)
+    with coop(1):  # the walk of one thread per ray, in the same call
+        ms_k3_lane = cuda_ms(lambda: sweep2g._sweep2g(acc3, lanes), 10)
+        st3_lane = torch.zeros_like(st3)
+        sweep2g._sweep2g(acc3, lanes, st3_lane)
+    k3_bound, k3_by = k3_nearest_bound(acc3, B, st3)
     # K5: every group's box is tested by every ray; live rows counted
     st5 = torch.zeros(sweep.SC_LEN, dtype=torch.int64, device=dev)
     sweep._sweep_grouped(acc5.table, acc5.gaabb, lanes, 32, False, "generic", st5)
@@ -1469,9 +1486,11 @@ def generic_phases(dev, iow):
         44 * Bi + table_bytes(s_dense.table),
         Bi * live_i * (FLOPS_PER_SPHERE_TEST + 6 + FLOPS_PER_CONTAINS_SPHERE))
     say(phase="sweeps_at_the_frames_lanes", rays=B,
-        sweep2g=dict(ms=ms_k3, slab_tests_per_ray=int(st3[sweep2g.GC_SLAB]) / B,
+        sweep2g=dict(ms=ms_k3, ms_per_lane_mode=ms_k3_lane,
+                     slab_tests_per_ray=int(st3[sweep2g.GC_SLAB]) / B,
                      live_sphere_rows_per_ray=int(st3[sweep2g.GC_SPHERE_ROWS]) / B,
-                     live_cuboid_rows_per_ray=int(st3[sweep2g.GC_OTHER_ROWS]) / B),
+                     live_cuboid_rows_per_ray=int(st3[sweep2g.GC_OTHER_ROWS]) / B,
+                     **k3_simt(st3), per_lane_mode=k3_simt(st3_lane)),
         sweep_grouped=dict(ms=ms_k5, live_rows_per_ray=int(st5[sweep.SC_ROWS]) / B, groups=n_g5),
         sweep_nearest=dict(ms=ms_k4, live_rows_per_ray=live4, table_rows=n4),
         sweep_ri=dict(ms=ms_ri, live_rows_per_point=live4, table_rows=n4),
@@ -1508,9 +1527,11 @@ def generic_phases(dev, iow):
              simt_efficiency_per_lane_mode=sweep_k1["1"]["simt_efficiency"],
              library_ms=None, shape=size_of(BVH1K) + ", 1025 objects, gr=64"),
         entry("sweep2g", "sweep2g.cu", "sweep2g.py:838", launches_k3.get("sweep2g", 0),
-              main["sweep2g"], ms=ms_k3, plain_ms=plain_ms["camera_lanes", "sweep2g"],
-              bound_ms=k3_bound, bound_by=k3_by, shape=f"{B} rays, 17 groups of 64",
-              at_driven_path=driven["sweep2g"]),
+              main["sweep2g"], ms=ms_k3, ms_per_lane_mode=ms_k3_lane,
+              plain_ms=plain_ms["camera_lanes", "sweep2g"], bound_ms=k3_bound, bound_by=k3_by,
+              simt_efficiency=k3_simt(st3)["simt_efficiency"],
+              simt_efficiency_per_lane_mode=k3_simt(st3_lane)["simt_efficiency"],
+              shape=f"{B} rays, 17 groups of 64", at_driven_path=driven["sweep2g"]),
         entry("sweep_nearest", "sweep.cu", "sweep.py:535", launches_glass.get("sweep_nearest", 0),
               main["sweep_nearest"], ms=ms_k4, plain_ms=plain_ms["camera_lanes", "sweep_nearest"],
               bound_ms=k4_bound, bound_by=k4_by, shape=f"{B} rays x {n4} generic rows",
@@ -1532,7 +1553,7 @@ def generic_phases(dev, iow):
               main["sweep_grouped"], ms=ms_k5, plain_ms=plain_ms["camera_lanes", "sweep_grouped"],
               bound_ms=k5_bound, bound_by=k5_by, shape=f"{B} rays, {n_g5} groups of 32",
               at_driven_path=driven["sweep_grouped"]),
-    ]
+    ], (acc3_s, lanes3)
 
 
 
@@ -3307,12 +3328,13 @@ EDGE_KERNELS = {
 
 
 def first_two_pops(g, name, band):
-    """The rays of the first two launches of the silhouette wrapper when band
-    ``band`` of the frame's gradient path is traced (detached)."""
+    """The (accel, rays) of the first two launches of the sweep wrapper of
+    ``name`` (a K3 or silhouette launch counter) when band ``band`` of the
+    frame's gradient path is traced (detached)."""
     from raytracing_tests_tpu_torch.diff.train import _diff_cfg
     from raytracing_tests_tpu_torch.ops.render import _build_accel, trace_lanes
 
-    module, wrapper, _, _ = EDGE_KERNELS[name]
+    module, wrapper, _, _ = POP_KERNELS[name]
     cfg = dataclasses.replace(_diff_cfg(g["cfg"]), max_pops=2)
     lo, ld, ltr, ls = _lane_inputs(g["cam"], cfg)
     n = lo.shape[0] // g["bands"]
@@ -3378,6 +3400,101 @@ def edge_pairs(rays, obj, stats, rows):
                 walk_simt_efficiency=(r_hit + r_miss) / max(int(stats[sweep2g.EC_SLOTS]), 1))
 
 
+# K3's wrappers by launch counter: the nearest-hit sweep, then its EDGE twins.
+POP_KERNELS = {"sweep2g": (sweep2g, "_sweep2g", sweep2g.sweep2g_plain, "sweep2g.py:838"),
+               **EDGE_KERNELS}
+# The counters of K3 that a schedule cannot change: slab tests and live rows by
+# kind, and with EDGE the silhouette walk's, which reads the same winners.
+K3_SAME = (sweep2g.GC_SLAB, sweep2g.GC_SPHERE_ROWS, sweep2g.GC_OTHER_ROWS)
+K3_EDGE_SAME = K3_SAME + (sweep2g.EC_BOUNDS, sweep2g.EC_ROWS_HIT, sweep2g.EC_ROWS_MISS,
+                          sweep2g.EC_SLOTS)
+
+
+def k3_simt(stats):
+    """SIMT efficiency of K3's nearest-hit sweep: the live rows the walk of one
+    thread per ray tests over the lane slots the warps issued; and its
+    row-parallel group visits."""
+    slots = int(stats[sweep2g.GC_SLOTS])
+    rows = int(stats[sweep2g.GC_SPHERE_ROWS]) + int(stats[sweep2g.GC_OTHER_ROWS])
+    return dict(simt_efficiency=rows / max(slots, 1), lane_slots=slots,
+                coop_visits=int(stats[sweep2g.GC_COOP]))
+
+
+def k3_nearest_bound(accel, B, stats):
+    """The least time of K3's nearest-hit sweep on B rays, from its counters:
+    rays in and (t, obj) out, the tables once; the slab tests and the live rows
+    by kind -> (ms, "bytes" or "operations")."""
+    return bound(40 * B + 4 * (accel.otab.numel() + accel.gaabb.numel()),
+                 int(stats[sweep2g.GC_SLAB]) * FLOPS_PER_SLAB_TEST
+                 + int(stats[sweep2g.GC_SPHERE_ROWS]) * FLOPS_PER_CENSUS_SPHERE_ROW
+                 + int(stats[sweep2g.GC_OTHER_ROWS]) * FLOPS_PER_CENSUS_CUBOID_ROW)
+
+
+def k3_run(name, accel, rays):
+    """One launch of K3's wrapper for ``name`` with its counters -> (outputs, stats)."""
+    module, wrapper, _, _ = POP_KERNELS[name]
+    stats = torch.zeros(sweep2g.GC_LEN if name == "sweep2g" else sweep2g.EC_LEN,
+                        dtype=torch.int64, device=rays.device)
+    return getattr(module, wrapper)(accel, rays, stats), stats
+
+
+def k3_sweep_modes(k3_in):
+    """Phase sweep_modes, K3's part: each input ({label: (launch counter, accel,
+    rays)}) in coop_min 1, 33 and the default of the -fmad=false build:
+    bit-identical outputs and counters (``schedules_identical``), and the
+    plain version's t, obj and edge on every ray."""
+    res = {}
+    for label, (name, accel, rays) in k3_in.items():
+        same = K3_SAME if name == "sweep2g" else K3_EDGE_SAME
+        modes = schedules_identical(f"K3 {name} {label}", lambda: k3_run(name, accel, rays),
+                                    same, k3_simt)
+        want = POP_KERNELS[name][2](accel, rays)
+        with _build.precise():
+            got, _ = k3_run(name, accel, rays)
+        exact = {k: frac(a == b) for k, a, b in zip(("t", "obj", "edge"), got, want)}
+        res[f"{name} {label}"] = dict(rays=rays.shape[1], identical_to_plain=exact, **modes)
+    say(phase="sweep_modes", what="K3 schedules bit for bit, -fmad=false build", **res)
+    bad = {k: r["identical_to_plain"] for k, r in res.items()
+           if min(r["identical_to_plain"].values()) < 1.0}
+    require(not bad, f"K3's -fmad=false build differs from the plain version: {bad}")
+    return res
+
+
+def k3_coop_sweep(what, g, name):
+    """K3's summed time over a generic gradient step, for each coop_min of
+    COOP_SWEEP, every launch of ``name``'s wrapper timed in every schedule
+    (``timed_by_coop``) -> ``frame_sweep``'s numbers, the launches and their
+    bounds summed (each from its own counters, which no schedule changes)."""
+    module, wrapper, _, _ = POP_KERNELS[name]
+    edge = name != "sweep2g"
+    calls, bounds = {}, []
+    timer = timed_by_coop(getattr(module, wrapper), calls,
+                          sweep2g.EC_LEN if edge else sweep2g.GC_LEN)
+
+    def hook(accel, rays, stats=None):
+        out = timer(accel, rays)
+        st = calls[COOP_SWEEP[0]][-1][1]
+        bounds.append(edge_bound(name, accel, rays, st)["bound_ms"] if edge
+                      else k3_nearest_bound(accel, rays.shape[1], st)[0])
+        return out
+
+    with patched(module, wrapper, hook):
+        grad_step(g)
+    res = coop_sweep_table(calls, k3_simt)
+    for cm, got in calls.items():
+        ms = [min(a.elapsed_time(b) for a, b in events) for events, _ in got]
+        below = [(k, ms[k], bounds[k]) for k in range(len(ms)) if ms[k] <= bounds[k]]
+        require(not below, f"K3 {name} launches below their bound at coop_min {cm}, a "
+                           f"counting error: {below[:5]}")
+    default = sweep2g.COOP_MIN
+    best = min(COOP_SWEEP, key=lambda cm: res[str(cm)]["ms"])
+    say(phase="sweep_modes", what=f"K3 coop_min sweep, {what}", kernel=name, size=size_of(GRAD),
+        launches=len(bounds), default_coop_min=default, fastest_coop_min=best,
+        bound_ms_sum=sum(bounds), by_coop_min=res)
+    return frame_sweep(res, default, launches=len(bounds), bound_ms_sum=sum(bounds),
+                       fastest_coop_min=best)
+
+
 def edge_vs_plain(name, g, band):
     """Phase edge_vs_plain for one instantiation, on the first two pops of a
     band of its gradient frame -> its kernels-line fields."""
@@ -3398,7 +3515,9 @@ def edge_vs_plain(name, g, band):
         bnd = edge_bound(name, accel, rays, stats)
         out[f"pop{k + 1}"] = dict(rays=rays.shape[1], default_build=res, precise_build=precise,
                                   ms=cuda_ms(lambda: run(accel, rays), 10), plain_ms=plain_ms,
-                                  **bnd, **(edge_pairs(rays, obj, stats, bnd["rows"])
+                                  **bnd, **(dict(edge_pairs(rays, obj, stats, bnd["rows"]),
+                                                 nearest_simt_efficiency=k3_simt(
+                                                     stats)["simt_efficiency"])
                                             if generic else {}))
     say(phase="edge_vs_plain", kernel=name, band=band, **out)
     for k in (1, 2):
@@ -3422,19 +3541,24 @@ def edge_vs_plain(name, g, band):
                 shape=f"{first['rays']} rays (one band's first pop) x {first['rows']} rows",
                 pairs_share_hit=first.get("pairs_share_hit"),
                 pairs_share_miss=first.get("pairs_share_miss"),
+                simt_efficiency=first.get("nearest_simt_efficiency"),
                 at_second_pop={k: out["pop2"].get(k) for k in (
                     "rays", "ms", "plain_ms", "bound_ms", "culled_bound_ms", "dense_bound_ms",
-                    "pairs_share_hit", "pairs_share_miss")})
+                    "pairs_share_hit", "pairs_share_miss", "nearest_simt_efficiency")})
 
 
-def grad_phases(dev):
-    """The eighth slice's phases -> (kernels-line entries, {path: launches}).
+def grad_phases(dev, k3_canary):
+    """The eighth slice's phases -> (kernels-line entries, {path: launches},
+    K3's numbers over the hard generic step for its kernels-line entry).
 
     grad_frame (the sphere sweep through fastpath._winner), grad_soft_frame
     (its silhouette instantiation), grad_generic_soft (K3 and its silhouette
-    instantiation on bvh1k), grad_motion_soft (both moving silhouette
-    instantiations), edge_vs_plain (the four against their plain versions on
-    their frames' first two pops) and train_steps."""
+    instantiation on bvh1k, each also timed over COOP_SWEEP), grad_motion_soft
+    (both moving silhouette instantiations), sweep_modes' K3 part (on
+    ``k3_canary``, K3's (accel, rays) at the generic canary's lanes, and on
+    the generic frames' first two pops), edge_vs_plain (the four silhouette
+    instantiations against their plain versions on their frames' first two
+    pops) and train_steps."""
     paths = {}
     recolour = lambda s: s.replace(color=s.color * 0.8 + 0.1)
 
@@ -3499,11 +3623,21 @@ def grad_phases(dev):
     hard = dict(gg, cfg=dataclasses.replace(gg["cfg"], soft_edges=0.0))
     with launch_events(sweep2g, "_sweep2g") as ev_hard:
         kh = grad_step(hard)
+    hard_ms = events_ms(ev_hard)
+    # both steps once more with every K3 launch timed in each coop_min
+    k3_hard = k3_coop_sweep("hard generic step", hard, "sweep2g")
+    k3_soft = k3_coop_sweep("generic soft step", gg, "sweep2g_edge")
     res = dict(size=size_of(GRAD), objects=int(gg["scene"].num_valid), soft_edges=SOFT,
                band_pops=gg["pops"], seconds_per_step=kg["ms"] / 1e3,
                edge_device_ms=events_ms(ev), edge_launches=len(ev),
-               hard_seconds_per_step=kh["ms"] / 1e3, hard_device_ms=events_ms(ev_hard),
-               hard_k3_launches=len(ev_hard), loss=float(kg["loss"]),
+               edge_simt_efficiency=k3_soft["simt_efficiency"],
+               edge_simt_efficiency_per_lane_mode=k3_soft["simt_efficiency_per_lane_mode"],
+               hard_seconds_per_step=kh["ms"] / 1e3, hard_device_ms=hard_ms,
+               hard_k3_launches=len(ev_hard), hard_bound_ms=k3_hard["bound_ms_sum"],
+               hard_ms_above_bound=hard_ms - k3_hard["bound_ms_sum"],
+               hard_simt_efficiency=k3_hard["simt_efficiency"],
+               hard_simt_efficiency_per_lane_mode=k3_hard["simt_efficiency_per_lane_mode"],
+               loss=float(kg["loss"]),
                hard_loss=float(kh["loss"]), peak_memory_bytes=kg["peak_memory_bytes"],
                launches=kg["launches"], hard_launches=kh["launches"],
                position_grad_max=float(kg["grads"].position.abs().max()),
@@ -3516,6 +3650,9 @@ def grad_phases(dev):
     paths["grad_generic_soft"] = kg["launches"]
     paths["grad_generic"] = kh["launches"]
     edge_frames["sweep2g_edge"] = gg
+    at_hard_step = dict(launches=len(ev_hard), device_ms=hard_ms, bound_ms=k3_hard["bound_ms_sum"],
+                        ms_above_bound=hard_ms - k3_hard["bound_ms_sum"],
+                        coop_min_sweep=k3_hard, at_soft_step_edge=k3_soft)
 
     # grad_motion_soft: the moving scenes' silhouette instantiations
     for name, scene_cam in (("sweep2_m_edge", examples.motion_blur_scene()),
@@ -3533,6 +3670,19 @@ def grad_phases(dev):
         require(res["finite"] and set(km["launches"]) == {name}, f"grad_motion_soft: {res}")
         paths[f"grad_motion_soft_{name}"] = km["launches"]
         edge_frames[name] = gm
+
+    # sweep_modes, K3's part: its schedules bit for bit on the canary's lanes
+    # and on the first two pops of each generic frame's middle band (the
+    # moving frame's also through the nearest-hit MOTION instantiation)
+    k3_in = {"canary lanes": ("sweep2g", *k3_canary)}
+    for label, name, ge in (("hard step", "sweep2g", hard), ("soft step", "sweep2g_edge", gg),
+                            ("moving groups", "sweep2g_m_edge", edge_frames["sweep2g_m_edge"])):
+        for k, (accel, rays) in enumerate(first_two_pops(ge, name, ge["bands"] // 2)):
+            k3_in[f"{label} pop {k + 1}"] = (name, accel, rays)
+            if name == "sweep2g_m_edge":
+                k3_in[f"{label} pop {k + 1}, nearest"] = ("sweep2g", accel, rays)
+    k3_sweep_modes(k3_in)
+    del k3_in
 
     # edge_vs_plain: each silhouette instantiation on its frame's first two
     # pops (a band through the middle of the frame)
@@ -3582,7 +3732,7 @@ def grad_phases(dev):
     require(at == 3 and same and same_adam and float(l_on) == float(l_back),
             f"train_steps: the checkpoint did not resume identically: {res}")
     paths["train_steps"] = launches_train
-    return entries, paths
+    return entries, paths, at_hard_step
 
 
 def main():
@@ -3605,6 +3755,10 @@ def main():
             k: ptxas.get(f"uber.so {k}") == v for k, v in PTXAS_K1.items()},
         redesigned_as_recorded={k: ptxas.get(k) == v for k, v in PTXAS_REDESIGNED.items()},
         other_kernels_as_before={k: ptxas.get(k) == v for k, v in PTXAS_UNCHANGED.items()})
+    if "sweep2g.so" in info["built"]:  # not when an earlier run left it built
+        spilled = {k: ptxas.get(k) for k in K3_INSTANTIATIONS
+                   if not ptxas.get(k) or ptxas[k]["spill_stores"] or ptxas[k]["spill_loads"]}
+        require(not spilled, f"K3 instantiations that spill: {spilled}")
 
     # the sweep schedules of K1 bit for bit before anything else runs on them
     uber_modes_canaries(dev)
@@ -3819,7 +3973,8 @@ def main():
              simt_efficiency_per_lane_mode=k2_simt(stats_k2_lane)["simt_efficiency"],
              library_ms=None, shape=f"{Bq} rays, hit block + RI"),
     ]
-    kernels += generic_phases(dev, (scene, camera, cfg_s, lanes))
+    generic, k3_canary = generic_phases(dev, (scene, camera, cfg_s, lanes))
+    kernels += generic
     k2_canary = dict(canary_lanes=(accel_q, lanes), canary_second_pop=(accel_q, lanes2))
     third, sweep2_by_path, k2_wq = third_slice_phases(
         dev, (scene, camera, cfg, cfg_s, out, k2_canary))
@@ -3830,7 +3985,9 @@ def main():
     kernels += sixth
     seventh, seventh_paths = texturing_phases(dev)
     kernels += seventh
-    eighth, eighth_paths = grad_phases(dev)
+    eighth, eighth_paths, k3_hard_step = grad_phases(dev, k3_canary)
+    k3 = next(k for k in kernels if k["name"] == "sweep2g")
+    k3.update(at_hard_step=k3_hard_step, ptxas=ptxas.get("sweep2g.so sweep2g_kernel<0>"))
     for k in eighth:  # the silhouette instantiations' ptxas lines
         m = int("_m_" in k["name"])
         k["ptxas"] = ptxas.get(f"sweep2g.so sweep2g_edge_kernel<{m}>" if k["name"].startswith(

@@ -2,9 +2,8 @@
 // surrounding-refractive-index probe, cone deviation and the In-Next-Week
 // shading model, the fibonacci-hemisphere scatter and the Shirley-materials
 // shading model, cube-sphere atlas texturing, and the generic primitives'
-// sweep.  One thread owns one ray;
-// everything here is scalar per-thread code (the warp-cooperative sweeps are
-// in warp_sweep.cuh).
+// row tests.  One thread owns one ray; everything here is scalar per-thread
+// code (the warp-cooperative sweeps are in warp_sweep.cuh).
 //
 // Table layouts (row-major float32, built by kernels/sweep2.py::make_accel2):
 //   otab  (n_pad + n_probe_rows, 8): cx cy cz k1 | ri rinv2 k2 k3
@@ -182,9 +181,6 @@ enum {
 enum { GFT_R00 = 19, GFT_SX = 28, GFT_SY, GFT_SZ, GFT_TYPE };
 // Per-group census of the accel build (gaabb column 6).
 enum { GK_MIXED = 0, GK_ELL, GK_CUB, GK_SPHERE, GK_AXIS, GK_YROT };
-// Work counters of the generic sweep (measurement only): slab tests, and the
-// live rows whose primitive test was run, by the kind of their group.
-enum { GC_SLAB = 0, GC_SPHERE_ROWS, GC_OTHER_ROWS, GC_LEN };
 
 // Ellipsoid t in the divide-by-scale form of the dense intersector: local ray
 // over scale, unit-sphere quadratic, near root unless behind the origin.
@@ -258,114 +254,6 @@ __device__ __forceinline__ bool slab_hit(const float* ga, float ox, float oy,
   const float tmin = fmaxf(fmaxf(fminf(u1, w1), fminf(u2, w2)), fminf(u3, w3));
   const float tmax = fminf(fminf(fmaxf(u1, w1), fmaxf(u2, w2)), fmaxf(u3, w3));
   return (tmax > tmin) && (tmax > 0.0f) && (tmin < t_best);
-}
-
-// One main group of the generic sweep: every live row's candidate t by the
-// group's kind.  Candidates use the cheapest exact form the census allows;
-// the winner is re-solved in the dense intersector's form by winner_refine_g.
-template <bool MOTION>
-__device__ __forceinline__ void sweep_group_g(
-    const Tables& T, int g, int kind, float ox, float oy, float oz, float dx,
-    float dy, float dz, float omt, float& t_best, int& obj, unsigned* n_live) {
-  const int row0 = g * T.gr;
-  const float* rows = T.otab + (size_t)row0 * GO_COLS;
-  for (int r = 0; r < T.gr; ++r) {
-    const float* row = rows + r * GO_COLS;
-    const float4 p = ld4(row);       // px py pz type
-    const float4 m = ld4(row + 4);   // dpx dpy dpz valid
-    if (!(m.w > 0.0f)) continue;     // dead and padding rows
-    if (n_live) *n_live += 1;
-    const float4 s = ld4(row + 8);   // sx sy sz ri
-    float rx = ox - p.x, ry = oy - p.y, rz = oz - p.z;
-    if (MOTION) {
-      rx = rx + omt * m.x;
-      ry = ry + omt * m.y;
-      rz = rz + omt * m.z;
-    }
-    float tc;
-    if (kind == GK_SPHERE) {
-      // Isotropic sphere, unit direction: the world-frame quadratic, a = 1.
-      const float hb = rx * dx + ry * dy + rz * dz;
-      const float cq = rx * rx + ry * ry + rz * rz - s.x * s.x;
-      const float disc = hb * hb - cq;
-      if (!(disc > 0.0f)) continue;
-      const float sq = sqrtf(disc);
-      const float t0 = -hb - sq, t1 = -hb + sq;
-      const float t_e = t0 < 0.0f ? t1 : t0;
-      tc = t_e > 0.0f ? t_e : BIG_T;
-    } else if (kind == GK_AXIS) {
-      tc = cub_t_inf(rx, ry, rz, dx, dy, dz, s.x, s.y, s.z);
-    } else if (kind == GK_YROT) {
-      // Rotation about y: four live matrix entries.
-      const float r0 = __ldg(row + GO_R00), r2 = __ldg(row + GO_R00 + 2);
-      const float r6 = __ldg(row + GO_R00 + 6), r8 = __ldg(row + GO_R00 + 8);
-      tc = cub_t_inf(r0 * rx + r6 * rz, ry, r2 * rx + r8 * rz,
-                     r0 * dx + r6 * dz, dy, r2 * dx + r8 * dz, s.x, s.y, s.z);
-    } else {
-      const float4 ra = ld4(row + GO_R00);      // R00 R01 R02 R10
-      const float4 rb = ld4(row + GO_R00 + 4);  // R11 R12 R20 R21
-      const float r22 = __ldg(row + GO_R00 + 8);
-      // local = R^T rel: column dot products
-      const float lox = ra.x * rx + ra.w * ry + rb.z * rz;
-      const float loy = ra.y * rx + rb.x * ry + rb.w * rz;
-      const float loz = ra.z * rx + rb.y * ry + r22 * rz;
-      const float ldx = ra.x * dx + ra.w * dy + rb.z * dz;
-      const float ldy = ra.y * dx + rb.x * dy + rb.w * dz;
-      const float ldz = ra.z * dx + rb.y * dy + r22 * dz;
-      if (kind == GK_ELL)
-        tc = ell_t_div(lox, loy, loz, ldx, ldy, ldz, s.x, s.y, s.z);
-      else if (kind == GK_CUB)
-        tc = cub_t_inf(lox, loy, loz, ldx, ldy, ldz, s.x, s.y, s.z);
-      else
-        tc = p.w == ELLIPSOID
-                 ? ell_t_div(lox, loy, loz, ldx, ldy, ldz, s.x, s.y, s.z)
-                 : cub_t_div(lox, loy, loz, ldx, ldy, ldz, s.x, s.y, s.z);
-    }
-    if (tc < t_best) {  // ties keep the lower row
-      t_best = tc;
-      obj = row0 + r;
-    }
-  }
-}
-
-// Grouped nearest-hit sweep over the generic tables: super-group slab, group
-// slab, then the group's rows; every test is the thread's own, against its
-// own current best t.  Returns obj = -1 and t_best = min(BIG_T, tlim) on a
-// miss or a dead ray (d = 0).  `counts` (GC_LEN, or null) gains the slab tests
-// and the live rows tested (dead and padding rows are skipped and not
-// counted), for the roofline bound.
-template <bool MOTION>
-__device__ __forceinline__ void nearest_hit_g(
-    const Tables& T, float ox, float oy, float oz, float dx, float dy,
-    float dz, float omt, bool live, float tlim, float& t_best, int& obj,
-    unsigned* counts) {
-  t_best = fminf(BIG_T, tlim);
-  obj = -1;
-  if (!live) return;
-  const float eps = 1e-12f;
-  const float ix = 1.0f / (fabsf(dx) < eps ? eps : dx);
-  const float iy = 1.0f / (fabsf(dy) < eps ? eps : dy);
-  const float iz = 1.0f / (fabsf(dz) < eps ? eps : dz);
-  const int n_super = T.n_sgroups > 0 ? T.n_sgroups : 1;
-  const float* sga = T.gaabb + (size_t)(T.n_groups + T.n_pgroups) * GA_COLS;
-  for (int s = 0; s < n_super; ++s) {
-    int g0 = 0, g1 = T.n_groups;
-    if (T.n_sgroups > 0) {
-      if (counts) counts[GC_SLAB] += 1;
-      if (!slab_hit(sga + s * GA_COLS, ox, oy, oz, ix, iy, iz, t_best)) continue;
-      g0 = s * SG;
-      g1 = g0 + SG < T.n_groups ? g0 + SG : T.n_groups;
-    }
-    for (int g = g0; g < g1; ++g) {
-      const float* ga = T.gaabb + g * GA_COLS;
-      if (counts) counts[GC_SLAB] += 1;
-      if (!slab_hit(ga, ox, oy, oz, ix, iy, iz, t_best)) continue;
-      const int kind = (int)__ldg(ga + 6);
-      unsigned* n_live = nullptr;
-      if (counts) n_live = counts + (kind == GK_SPHERE ? GC_SPHERE_ROWS : GC_OTHER_ROWS);
-      sweep_group_g<MOTION>(T, g, kind, ox, oy, oz, dx, dy, dz, omt, t_best, obj, n_live);
-    }
-  }
 }
 
 struct RefinedG {

@@ -1,27 +1,37 @@
 // Grouped nearest-hit sweep over rotated ellipsoids and cuboids for a batch of
 // rays, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel raytracing_tests_tpu/kernels/sweep2g.py::
-// _sweep2g_nearest_kernel (launched by _sweep2g): the occlusion-grade nearest
-// (t, obj) per ray over the generic tables, whose body (rt::nearest_hit_g) is
-// the one the persistent path tracer runs per tree node.
+// Replaces the TPU kernel raytracing_tests_tpu/kernels/sweep2g.py:838
+// (_sweep2g, the pallas_call of _sweep2g_nearest_kernel): the occlusion-grade
+// nearest (t, obj) per ray over the generic tables, and with with_edge the
+// silhouette candidate of the gradient path.
 //
-// What bounds it on this card: operations.  A ray moves 32 bytes in and 8
-// bytes out, and tests every row of every group whose slab (behind its
-// super-group's slab) the ray enters: about 20 fp32 operations for a censused
-// sphere row, about 60 for a y-rotated cuboid, over 100 for a fully rotated
-// ellipsoid with its divisions.  So nothing is staged: one thread per ray,
-// rays in SoA rows so a warp's loads coalesce, tables read through the
-// read-only path where a warp walking one group shares each row's load.  The
-// TPU version skips a group only when no lane of a 2048-ray block enters it
-// and packs (t, id) into one integer key to halve its reductions; here each
-// thread skips for itself and keeps the full t.
+// What bounds it on this card: operations, as its counters (GC_*) name them.
+// A ray moves 32 bytes in and 8 out, but slab-tests every super-group and
+// group box its walk reaches (about 26 fp32 operations each) and tests every
+// live row of every group it enters: about 20 for a censused sphere row, 48
+// for an unrotated or y-rotated cuboid, over 100 for a fully rotated ellipsoid
+// with its divisions.  The rays of a warp enter different groups, so a walk of
+// one thread per ray issues the rows of the UNION of its lanes' groups while
+// the lanes that did not enter one idle.  Here the warp takes every group
+// step together (rt::warp_nearest_hit_g, warp_sweep.cuh, the walk of the
+// persistent path tracer's generic instantiations): per lane where at least
+// `coop_min` of its lanes entered the group, row-parallel for one entered lane
+// after another where fewer did; rows past a group's last live row
+// (`live_rows`, from the wrapper) are never read.  Every schedule gives the
+// same (t, obj) bit for bit under -fmad=false, and coop_min = 1 is the walk
+// of one thread per ray.  Rays and outputs are SoA rows so a warp's loads and
+// stores coalesce; the tables are read through the read-only path.  Every
+// lane reaches every warp-wide operation: lanes past B take part as dead rays
+// (d = 0) and store nothing.  The TPU version skips a group only when no lane
+// of a 2048-ray block enters it and packs (t, id) into one integer key; here
+// a warp skips it, and the full t is kept.
 //
 // Four instantiations: static and MOTION, each also as EDGE
 // (sweep2g_edge_kernel), which adds the silhouette candidate of the gradient
 // path (generic_edge).  The TPU kernel's with_edge variant gives up its packed
 // key and census shortcuts to compute it; here the nearest (t, obj) of both is
-// rt::nearest_hit_g's, and the candidate comes from the exact per-block cull
+// the same warp sweep's, and the candidate comes from the exact per-block cull
 // of edge_cull.cuh: a ray evaluates the metric only on the rows of blocks
 // whose bound does not lie above its best, warp by warp.
 #include "edge_cull.cuh"
@@ -121,81 +131,107 @@ __device__ __forceinline__ int generic_edge(const rt::Tables& T,
   return best.row;
 }
 
+// Work counters (measurement only): slab tests, and the live rows the walk of
+// one thread per ray tests, in sphere-kind groups and in groups of another
+// kind (the same in every schedule); 32 x the row iterations the warps issued
+// (SIMT efficiency = (GC_SPHERE_ROWS + GC_OTHER_ROWS) / GC_SLOTS) and their
+// row-parallel group visits.  The EDGE instantiations add EdgeCounts' four.
+enum { GC_SLAB = 0, GC_SPHERE_ROWS, GC_OTHER_ROWS, GC_SLOTS, GC_COOP, GC_LEN };
+enum { EC_BOUNDS = GC_LEN, EC_ROWS_HIT, EC_ROWS_MISS, EC_SLOTS, EC_LEN };
+
+// Threads per block, and the resident blocks per SM each instantiation is
+// compiled for: ptxas gives the nearest-hit ones 62 and 64 registers, static
+// EDGE 64 and moving EDGE 72, none of them a spill (PERF.md: the nearest-hit
+// ones took 72 at 3 blocks and ran slower and spill at 5; static EDGE took 72
+// at 2 and ran slower; moving EDGE spills at 4).
 constexpr int THREADS = 256;
-// Resident blocks per SM the EDGE instantiations are compiled for: ptxas
-// gives them 58 and 60 registers and no spill (PERF.md).
-constexpr int EDGE_MIN_BLOCKS = 2;
-
+constexpr int MIN_BLOCKS = 4;
 template <bool MOTION>
-__global__ void __launch_bounds__(THREADS) sweep2g_kernel(
-    rt::Tables T, const float* __restrict__ rays, int B,
-    float* __restrict__ t_out, int* __restrict__ obj_out,
-    unsigned long long* __restrict__ stats) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  const size_t s = (size_t)B;
-  const float ox = rays[i], oy = rays[s + i], oz = rays[2 * s + i];
-  const float dx = rays[3 * s + i], dy = rays[4 * s + i], dz = rays[5 * s + i];
-  const float omt = rays[6 * s + i], tlim = rays[7 * s + i];
-  const bool live = (dx * dx + dy * dy + dz * dz) > 0.5f;  // dead rays carry d = 0
+constexpr int EDGE_MIN_BLOCKS = MOTION ? 2 : 4;
 
-  float t_best;
-  int obj;
-  unsigned counts[rt::GC_LEN] = {0, 0, 0};
-  rt::nearest_hit_g<MOTION>(T, ox, oy, oz, dx, dy, dz, omt, live, tlim, t_best,
-                            obj, stats != nullptr ? counts : nullptr);
-  t_out[i] = t_best;
-  obj_out[i] = obj;
-  if (stats != nullptr) {
-    for (int k = 0; k < rt::GC_LEN; ++k)
-      if (counts[k]) atomicAdd(stats + k, (unsigned long long)counts[k]);
+// One lane's ray; a lane past B gets a dead one (d = 0, live = false).
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, omt, tlim;
+  bool live;
+};
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ rays, int B, int i) {
+  Ray r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, false};
+  if (i < B) {
+    const size_t s = (size_t)B;
+    r.ox = rays[i];
+    r.oy = rays[s + i];
+    r.oz = rays[2 * s + i];
+    r.dx = rays[3 * s + i];
+    r.dy = rays[4 * s + i];
+    r.dz = rays[5 * s + i];
+    r.omt = rays[6 * s + i];
+    r.tlim = rays[7 * s + i];
+    r.live = (r.dx * r.dx + r.dy * r.dy + r.dz * r.dz) > 0.5f;  // dead rays carry d = 0
+  }
+  return r;
+}
+
+// The warp's sums of the N counters `v`, one atomic per warp and counter.
+template <int N>
+__device__ __forceinline__ void add_stats(unsigned long long* stats,
+                                          const unsigned long long (&v)[N], int lane) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const unsigned long long sum = rt::warp_total(v[k]);
+    if (lane == 0 && sum) atomicAdd(stats + k, sum);
   }
 }
 
-// Work counters of the EDGE instantiations after the GC_* ones (measurement
-// only): EdgeCounts' four.
-enum { EC_BOUNDS = rt::GC_LEN, EC_ROWS_HIT, EC_ROWS_MISS, EC_SLOTS, EC_LEN };
-
-// The EDGE instantiation: every lane reaches every warp-wide operation, lanes
-// past B with a dead ray, storing nothing.
 template <bool MOTION>
-__global__ void __launch_bounds__(THREADS, EDGE_MIN_BLOCKS) sweep2g_edge_kernel(
-    rt::Tables T, const float* __restrict__ eblk, int n_super, const float* __restrict__ rays,
-    int B, float* __restrict__ t_out, int* __restrict__ obj_out, int* __restrict__ edge_out,
-    unsigned long long* __restrict__ stats) {
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) sweep2g_kernel(
+    rt::Tables T, const int* __restrict__ live_rows, int coop_min,
+    const float* __restrict__ rays, int B, float* __restrict__ t_out,
+    int* __restrict__ obj_out, unsigned long long* __restrict__ stats) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in = i < B;
-  const size_t s = (size_t)B;
-  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
-  float omt = 0.0f, tlim = 0.0f;
-  if (in) {
-    ox = rays[i];
-    oy = rays[s + i];
-    oz = rays[2 * s + i];
-    dx = rays[3 * s + i];
-    dy = rays[4 * s + i];
-    dz = rays[5 * s + i];
-    omt = rays[6 * s + i];
-    tlim = rays[7 * s + i];
-  }
-  const bool live = in && (dx * dx + dy * dy + dz * dz) > 0.5f;  // dead rays carry d = 0
-
+  const int lane = threadIdx.x & 31;
+  const Ray r = load_ray(rays, B, i);
   float t_best;
   int obj;
-  unsigned counts[rt::GC_LEN] = {0, 0, 0};
-  rt::nearest_hit_g<MOTION>(T, ox, oy, oz, dx, dy, dz, omt, live, tlim, t_best,
-                            obj, stats != nullptr ? counts : nullptr);
-  rt::EdgeCounts ec = {};
-  const int edge = generic_edge<MOTION>(T, eblk, n_super, in, obj, ox, oy, oz, dx, dy, dz,
-                                        omt, ec);
+  rt::WarpCounts wc = {};
+  rt::warp_nearest_hit_g<MOTION>(T, live_rows, coop_min, lane, r.ox, r.oy, r.oz, r.dx, r.dy,
+                                 r.dz, r.omt, r.live, r.tlim, t_best, obj, wc);
   if (stats != nullptr) {
-    const unsigned long long v[EC_LEN] = {counts[0], counts[1], counts[2], ec.bounds,
-                                          ec.rows_hit, ec.rows_miss, ec.slots};
-    const int lane = threadIdx.x & 31;
-    for (int k = 0; k < EC_LEN; ++k) {
-      const unsigned long long sum = rt::warp_total(v[k]);
-      if (lane == 0 && sum) atomicAdd(stats + k, sum);
-    }
+    const unsigned long long v[GC_LEN] = {wc.slab, wc.tests, wc.other, wc.slots, wc.coop};
+    add_stats(stats, v, lane);
+  }
+  if (i >= B) return;  // after the last warp-wide operation
+  t_out[i] = t_best;
+  obj_out[i] = obj;
+}
+
+// The EDGE instantiation: the same sweep, then the silhouette walk.
+template <bool MOTION>
+__global__ void __launch_bounds__(THREADS, EDGE_MIN_BLOCKS<MOTION>) sweep2g_edge_kernel(
+    rt::Tables T, const int* __restrict__ live_rows, int coop_min,
+    const float* __restrict__ eblk, int n_super, const float* __restrict__ rays, int B,
+    float* __restrict__ t_out, int* __restrict__ obj_out, int* __restrict__ edge_out,
+    unsigned long long* __restrict__ stats) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const bool in = i < B;
+  const Ray r = load_ray(rays, B, i);
+  float t_best;
+  int obj;
+  rt::WarpCounts wc = {};
+  rt::warp_nearest_hit_g<MOTION>(T, live_rows, coop_min, lane, r.ox, r.oy, r.oz, r.dx, r.dy,
+                                 r.dz, r.omt, r.live, r.tlim, t_best, obj, wc);
+  if (stats != nullptr) {  // now, so that no counter of the sweep lives through the walk
+    const unsigned long long v[GC_LEN] = {wc.slab, wc.tests, wc.other, wc.slots, wc.coop};
+    add_stats(stats, v, lane);
+  }
+  rt::EdgeCounts ec = {};
+  const int edge = generic_edge<MOTION>(T, eblk, n_super, in, obj, r.ox, r.oy, r.oz, r.dx,
+                                        r.dy, r.dz, r.omt, ec);
+  if (stats != nullptr) {
+    const unsigned long long v[EC_LEN - GC_LEN] = {ec.bounds, ec.rows_hit, ec.rows_miss,
+                                                   ec.slots};
+    add_stats(stats + GC_LEN, v, lane);
   }
   if (!in) return;  // after the last warp-wide operation
   t_out[i] = t_best;
@@ -206,17 +242,18 @@ __global__ void __launch_bounds__(THREADS, EDGE_MIN_BLOCKS) sweep2g_edge_kernel(
 }  // namespace
 
 // rays: (8, B) rows ox oy oz dx dy dz omt tlim; t_out, obj_out: (B,), a miss
-// gives obj = -1 and t = min(3e38, tlim); edge_out: (B,) int32 or null, the
-// silhouette candidate (EDGE instantiation), which then reads eblk: the
-// accel's block table (EB_COLS wide, n_super super-blocks first),
-// kernels/edge_cull.py::block_table;
-// stats: null, or uint64[3] (uint64[7] with edge_out) that gains slab tests
-// and the live rows tested in sphere-kind groups and in groups of another
-// kind, then the EC_* counters (measurement only).  Launches on `stream`,
-// does not synchronise, returns cudaGetLastError().
-extern "C" int rt_sweep2g(const void* otab, const void* gaabb, int n_groups,
-                          int gr, int n_pgroups, int probe_gr, int n_sgroups,
-                          int has_motion, const void* rays, int B, void* t_out,
+// gives obj = -1 and t = min(3e38, tlim); live_rows: (n_groups,) int32, each
+// main group's last live row + 1; coop_min: a group that fewer lanes of a
+// warp entered is swept row-parallel (1 never, 33 always); edge_out: (B,)
+// int32 or null, the silhouette candidate (EDGE instantiation), which then
+// reads eblk: the accel's block table (EB_COLS wide, n_super super-blocks
+// first), kernels/edge_cull.py::block_table; stats: null, or uint64[GC_LEN]
+// (uint64[EC_LEN] with edge_out) that gains the work counters (measurement
+// only).  Launches on `stream`, does not synchronise, returns
+// cudaGetLastError().
+extern "C" int rt_sweep2g(const void* otab, const void* gaabb, const void* live_rows,
+                          int n_groups, int gr, int n_pgroups, int probe_gr, int n_sgroups,
+                          int has_motion, int coop_min, const void* rays, int B, void* t_out,
                           void* obj_out, void* edge_out, const void* eblk, int n_super,
                           void* stats, void* stream) {
   if (B <= 0) return 0;
@@ -230,6 +267,7 @@ extern "C" int rt_sweep2g(const void* otab, const void* gaabb, int n_groups,
   T.probe_gr = probe_gr;
   T.n_sgroups = n_sgroups;
   const int blocks = (B + THREADS - 1) / THREADS;
+  const int* live = static_cast<const int*>(live_rows);
   const float* r = static_cast<const float*>(rays);
   float* t = static_cast<float*>(t_out);
   int* o = static_cast<int*>(obj_out);
@@ -239,10 +277,11 @@ extern "C" int rt_sweep2g(const void* otab, const void* gaabb, int n_groups,
   if (eo != nullptr) {
     const float* eb = static_cast<const float*>(eblk);
     const auto kernel = has_motion ? sweep2g_edge_kernel<true> : sweep2g_edge_kernel<false>;
-    RT_LAUNCH(kernel, blocks, THREADS, cs, T, eb, n_super, r, B, t, o, eo, st);
+    RT_LAUNCH(kernel, blocks, THREADS, cs, T, live, coop_min, eb, n_super, r, B, t, o, eo,
+              st);
   } else {
     const auto kernel = has_motion ? sweep2g_kernel<true> : sweep2g_kernel<false>;
-    RT_LAUNCH(kernel, blocks, THREADS, cs, T, r, B, t, o, st);
+    RT_LAUNCH(kernel, blocks, THREADS, cs, T, live, coop_min, r, B, t, o, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

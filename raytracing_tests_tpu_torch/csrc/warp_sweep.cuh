@@ -1,10 +1,11 @@
 // Warp-cooperative sweeps, shared by the persistent path tracer (uber.cu),
-// the sphere sweep (sweep2.cu) and the chunked megakernel (mega.cu).
+// the sphere sweep (sweep2.cu), the generic sweep (sweep2g.cu) and the
+// chunked megakernel (mega.cu).
 //
-// rt::nearest_hit_g (rt_common.cuh) is one thread's walk: each lane enters
-// the groups its own slab test admits and solves every row of each, so a warp
-// issues the rows of the UNION of its lanes' groups while the lanes that did
-// not enter idle.  Here the whole warp takes every group step together:
+// A walk of one thread per ray, in which each lane enters the groups its own
+// slab test admits and solves every row of each, makes a warp issue the rows
+// of the UNION of its lanes' groups while the lanes that did not enter idle.
+// Here the whole warp takes every group step together:
 //
 //   - each live lane does its own slab test against its own t_best;
 //     m = ballot(entered);
@@ -213,8 +214,10 @@ __device__ __forceinline__ float cub_t_rcp(float lox, float loy, float loz, floa
 }
 
 // One generic row's candidate t by its group's kind, or BIG_T for a dead row
-// or a miss; `live_rows_of_kind` gains 1 for a live row.  The expressions of
-// rt::sweep_group_g, with 1/d taken from `rcp`.
+// or a miss; `live_rows_of_kind` gains 1 for a live row.  Candidates use the
+// cheapest exact form the group's census allows (the plain version's,
+// kernels/sweep2g.py::_group_candidates), with 1/d taken from `rcp`; the
+// winner is re-solved in the dense intersector's form by winner_refine_g.
 template <bool MOTION>
 __device__ __forceinline__ float generic_row_t(const float* row, int kind, float ox,
                                                float oy, float oz, float dx, float dy,
@@ -267,8 +270,13 @@ __device__ __forceinline__ float generic_row_t(const float* row, int kind, float
                           : cub_t_div(lox, loy, loz, ldx, ldy, ldz, s.x, s.y, s.z);
 }
 
-// Warp-cooperative rt::nearest_hit_g<MOTION>: the super-group and group slab
-// tests stay per lane, the cooperative step applies per main group.
+// Grouped nearest-hit sweep over the generic tables: super-group slab, group
+// slab, then the group's rows, in table order; every slab test is the lane's
+// own, against its own current best t, and the cooperative step applies per
+// main group.  obj = -1 and t_best = min(BIG_T, tlim) on a miss or a dead
+// ray (d = 0).  `wc.slab` gains the lane's slab tests, `wc.tests` /
+// `wc.other` the live rows its own walk tests in sphere-kind groups / groups
+// of another kind (dead and padding rows are not counted).
 template <bool MOTION>
 __device__ __forceinline__ void warp_nearest_hit_g(
     const Tables& T, const int* __restrict__ live_rows, int coop_min, int lane,

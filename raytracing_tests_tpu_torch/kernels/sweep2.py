@@ -689,7 +689,7 @@ def live_row_bounds(accel):
 
 def live_rows(accel):
     """``live_row_bounds(accel)``, computed once per accel: every launch of K1,
-    K2 and K6 on it reads the same tensor.  Kept on the accel and renewed when
+    K2, K3 and K6 on it reads the same tensor.  Kept on the accel and renewed when
     its ``otab`` is replaced or written in place."""
     key = (accel.otab.data_ptr(), accel.otab._version)
     memo = accel.__dict__.get("_live_rows")

@@ -22,10 +22,13 @@ rotated-cuboid scenes (the INW-01 grid family).
     containment sum over a trailing dielectric-only sub-table, in the fused
     frame M = diag(1/scale) R^T.
 
-The kernel is hand-written CUDA (``csrc/sweep2g.cu``, device functions in
-``csrc/rt_common.cuh``); ``sweep2g_plain`` is the same function in plain
-PyTorch, visiting the groups in the same order behind the same per-ray slab
-tests.  The wrapper uses the plain version only for tensors that lie on the
+The kernel is hand-written CUDA (``csrc/sweep2g.cu``, the warp sweep of
+``csrc/warp_sweep.cuh``): each warp sweeps every group together, per lane where
+at least ``COOP_MIN`` of its lanes entered the group, row-parallel where fewer
+did, and rows past a group's last live row (``sweep2.live_rows``, computed once
+per accel) are never read; every schedule gives the same result.
+``sweep2g_plain`` is the same function in plain PyTorch, visiting the groups
+in the same order behind the same per-ray slab tests.  The wrapper uses the plain version only for tensors that lie on the
 CPU; for a CUDA tensor it launches the kernel or raises.
 
 Tables are row-major with 16-byte-aligned rows (layouts below and in
@@ -58,7 +61,7 @@ from raytracing_tests_tpu_torch.kernels import _build
 from raytracing_tests_tpu_torch.kernels.sweep import _cub_t_div, _ell_t_div, _slab_t, _where_big
 from raytracing_tests_tpu_torch.kernels.sweep2 import (
     BIG_T, FT_CX, FT_CZ, FT_DPX, FT_DPZ, GA_COLS, PROBE_GR, _check_tensor, _dot3,
-    _probe_tables, pack_rays,
+    _probe_tables, live_rows, pack_rays,
 )
 from raytracing_tests_tpu_torch.scene.types import Scene
 
@@ -88,10 +91,19 @@ KIND_CODES = {"m": 0, "e": 1, "c": 2, "s": 3, "a": 4, "cy": 5}
 _ELL = float(geometry.ELLIPSOID)
 _CUB = float(geometry.CUBOID)
 
-# Work counters of the kernel (csrc/rt_common.cuh GC_*), and the silhouette
-# instantiation's after them (csrc/sweep2g.cu EC_*: block bounds computed,
+# A culling group that fewer than this many lanes of a warp entered is swept
+# row-parallel, in the nearest-hit sweep and in its silhouette (EDGE) twin
+# (the fastest of 1..33 over the hard generic gradient step, and summed over
+# the two soft ones, PERF.md); 1 keeps every group per lane, 33 sweeps every
+# group row-parallel.  ``_build.forced_coop_min`` pins another for tests and
+# measurement.
+COOP_MIN = 8
+# Work counters of the kernel (csrc/sweep2g.cu GC_*: slab tests, the live rows
+# the walk of one thread per ray tests in sphere-kind groups and in others,
+# 32 x the row iterations the warps issued, their row-parallel group visits),
+# and the silhouette instantiation's after them (EC_*: block bounds computed,
 # rows evaluated for rays that hit / missed, 32 x the walk's row iterations).
-GC_SLAB, GC_SPHERE_ROWS, GC_OTHER_ROWS, GC_LEN = range(4)
+GC_SLAB, GC_SPHERE_ROWS, GC_OTHER_ROWS, GC_SLOTS, GC_COOP, GC_LEN = range(6)
 EC_BOUNDS, EC_ROWS_HIT, EC_ROWS_MISS, EC_SLOTS, EC_LEN = range(GC_LEN, GC_LEN + 5)
 
 
@@ -658,7 +670,7 @@ def _launch_sweep2g(accel: Accel2G, rays, stats=None, with_edge: bool = False):
     fn = _build.load("sweep2g").rt_sweep2g
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, i, i, i, i, p, i, p, p, p, p, i, p, p]
+        fn.argtypes = [p, p, p, i, i, i, i, i, i, i, p, i, p, p, p, p, i, p, p]
         fn.restype = ctypes.c_int
     t = torch.empty((B,), dtype=torch.float32, device=dev)
     obj = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -668,9 +680,10 @@ def _launch_sweep2g(accel: Accel2G, rays, stats=None, with_edge: bool = False):
         from raytracing_tests_tpu_torch.kernels.edge_cull import edge_blocks
 
         eblk, n_super = edge_blocks(accel)
-    code = fn(accel.otab.data_ptr(), accel.gaabb.data_ptr(), accel.n_groups,
-              accel.gr, accel.n_pgroups, PROBE_GR, accel.n_sgroups,
-              int(accel.has_motion), rays.data_ptr(), B, t.data_ptr(),
+    code = fn(accel.otab.data_ptr(), accel.gaabb.data_ptr(), live_rows(accel).data_ptr(),
+              accel.n_groups, accel.gr, accel.n_pgroups, PROBE_GR, accel.n_sgroups,
+              int(accel.has_motion),
+              _build.coop_min(COOP_MIN), rays.data_ptr(), B, t.data_ptr(),
               obj.data_ptr(), edge.data_ptr() if with_edge else None,
               eblk.data_ptr() if with_edge else None, n_super,
               stats.data_ptr() if stats is not None else None,
@@ -688,8 +701,8 @@ def _sweep2g(accel: Accel2G, rays, stats=None):
 
     CPU tensors go through ``sweep2g_plain``; CUDA tensors launch the kernel
     of ``csrc/sweep2g.cu`` on the current stream (or raise).  ``stats``:
-    optional zeroed int64[GC_LEN] CUDA tensor that gains the slab tests and
-    the live rows tested (measurement only)."""
+    optional zeroed int64[GC_LEN] CUDA tensor that gains the work counters
+    (``GC_*``; measurement only)."""
     if rays.device.type == "cpu":
         if accel.device.type != "cpu":
             raise ValueError("rays on the CPU but accel on " + str(accel.device))

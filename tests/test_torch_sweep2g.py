@@ -26,6 +26,8 @@ Tolerances, and what was found:
   - ``_ri_probe_g`` against the dense containment sum: equal.
 """
 
+import contextlib
+import dataclasses
 import shutil
 
 import numpy as np
@@ -653,3 +655,186 @@ def test_edge_cull_gives_the_same_answer_at_other_block_sizes(sizes):
     with _build.host_rehearsal():
         got = tg._launch_sweep2g(other, rays, with_edge=True)
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+# ---------------------------------------------------------------------------
+# The warp sweep's schedules (every K3 instantiation runs rt::warp_nearest_hit_g)
+# ---------------------------------------------------------------------------
+#
+# Tolerances: the host build (a warp of one lane) runs each instantiation with
+# coop_min forced to 1 (the per-lane walk) and 33 (row-parallel) and at the
+# default; the three give torch.equal outputs and equal work counters but
+# for the schedule's own (GC_COOP); obj and edge are torch.equal to the plain
+# versions, t within the rehearsal tolerances above (2e-5 relative; for the
+# moving tables also 2e-5 absolute, the reason at
+# ``test_edge_kernel_source_rehearsed_on_the_host``).
+
+SCHEDULES = (1, 33, None)  # forced coop_min; None: the module's COOP_MIN
+INSTANTIATIONS = [(False, False), (True, False), (False, True), (True, True)]  # (motion, edge)
+
+
+def _needs_gpp():
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to rehearse the kernel source with")
+
+
+def _moving(scene, gr=8):
+    """``scene`` with every other object moving, as a MOTION accel."""
+    dp = torch.zeros_like(scene.delta_position)
+    dp[::2, 2] = -0.4
+    return tg.make_accel2g(scene.replace(delta_position=dp), gr=gr, has_motion=True)
+
+
+def _schedules(accel, rays, edge):
+    """The host build of K3 on ``rays`` in each schedule -> {coop_min: (outputs,
+    stats)}."""
+    out = {}
+    with _build.host_rehearsal():
+        for cm in SCHEDULES:
+            stats = torch.zeros(tg.EC_LEN if edge else tg.GC_LEN, dtype=torch.int64)
+            with contextlib.nullcontext() if cm is None else _build.forced_coop_min(cm):
+                out[cm] = (tg._launch_sweep2g(accel, rays, stats, with_edge=edge), stats)
+    return out
+
+
+def _plain_walk_counts(accel, rays):
+    """The counters the walk of one thread per ray implies, in plain PyTorch:
+    slab tests, live rows tested in sphere-kind groups and in the others, and
+    rows up to the live bound of every group a ray entered (the lane slots of a
+    warp of one lane).  ``_sweep_plain_g``'s walk, counted."""
+    o, d, omt, tlim = rays[0:3].T.contiguous(), rays[3:6].T.contiguous(), rays[6], rays[7]
+    live = tsw2._dot3(d, d) > 0.5
+    G, gr = accel.n_groups, accel.gr
+    inv = 1.0 / torch.where(d.abs() < 1e-12, torch.full_like(d, 1e-12), d)
+    t_best = torch.clamp_max(tlim, tg.BIG_T).clone()
+    valid = accel.otab[:accel.n_pad, tg.GO_VALID].reshape(G, gr) > 0.0
+    bound = tsw2.live_rows(accel)
+    n = dict(slab=0, sphere=0, other=0, slots=0)
+    for s in range(max(accel.n_sgroups, 1)):
+        shit = live
+        if accel.n_sgroups:
+            n["slab"] += int(live.sum())
+            shit = live & tg._slab_hit(accel.gaabb[G + accel.n_pgroups + s], o, inv, t_best)
+        for g in range(s * tg.SG, min((s + 1) * tg.SG, G)) if accel.n_sgroups else range(G):
+            n["slab"] += int(shit.sum())
+            sel = torch.nonzero(shit & tg._slab_hit(accel.gaabb[g], o, inv, t_best))[:, 0]
+            n["sphere" if accel.gkinds[g] == "s" else "other"] += sel.numel() * int(valid[g].sum())
+            n["slots"] += sel.numel() * int(bound[g])
+            if sel.numel():
+                rows = accel.otab[g * gr:(g + 1) * gr]
+                tc = tg._group_candidates(rows, accel.gkinds[g], o[sel], d[sel], omt[sel],
+                                          accel.has_motion)
+                gmin = torch.amin(tg._where_big(valid[g][None], tc), dim=1)
+                t_best[sel] = torch.minimum(t_best[sel], gmin)
+    return n
+
+
+def _check_schedules(accel, rays, edge):
+    """Every schedule of the host build: torch.equal to each other, obj (and
+    edge) torch.equal to the plain version, t within the section's
+    tolerances -> the per-lane schedule's stats."""
+    runs = _schedules(accel, rays, edge)
+    want = (tg.sweep2g_edge_plain if edge else tg.sweep2g_plain)(accel, rays)
+    (first, st1) = runs[1]
+    for cm, (got, st) in runs.items():
+        assert all(torch.equal(a, b) for a, b in zip(got, first)), cm
+        keep = [k for k in range(st.numel()) if k != tg.GC_COOP]
+        assert torch.equal(st[keep], st1[keep]), (cm, st, st1)
+    assert torch.equal(first[1], want[1])
+    if edge:
+        assert torch.equal(first[2], want[2])
+    atol = 2e-5 if accel.has_motion else 0.0
+    np.testing.assert_allclose(first[0].numpy(), want[0].numpy(), rtol=2e-5, atol=atol)
+    assert int(st1[tg.GC_COOP]) == 0 < int(runs[33][1][tg.GC_COOP])
+    return st1
+
+
+@pytest.mark.parametrize("motion,edge", INSTANTIATIONS)
+def test_every_instantiation_in_every_schedule_on_the_host(sweep_case, motion, edge):
+    """The four instantiations of K3 (static, MOTION, each also EDGE) compiled
+    as host C++, with coop_min 1, 33 and the default: identical outputs and
+    counters, and the plain version's obj and edge."""
+    _needs_gpp()
+    c = sweep_case
+    o, d, tr, tl = c["rays"]
+    accel = c["accel"]
+    if motion:
+        accel = _moving(c["ts"])
+        tr = torch.from_numpy(np.random.default_rng(4).uniform(0, 1, tr.shape[0])
+                              .astype(np.float32))
+    st = _check_schedules(accel, tsw2.pack_rays(o, d, tr, tl), edge)
+    assert int(st[tg.GC_SPHERE_ROWS] + st[tg.GC_OTHER_ROWS]) > 0
+
+
+@pytest.mark.parametrize("motion,edge", INSTANTIATIONS)
+def test_ragged_batch_with_dead_lanes_in_the_middle_on_the_host(motion, edge):
+    """B = 1000 (no multiple of the 256-thread block, so the last block's
+    lanes past B take part as dead rays) with runs of dead rays inside the
+    batch: every schedule gives the plain version's answer, and dead rays
+    report no hit and no candidate."""
+    _needs_gpp()
+    scene, cam = tex.bvh_grid_scene(side=12)
+    accel = (_moving(scene) if motion else
+             tg.make_accel2g(scene, gr=8, has_motion=False, sort_origin=cam.position))
+    o, d, _, tl = _rays(8, 1000, np.asarray(cam.position), 1.5)  # the first 16 dead
+    dead = np.zeros(1000, bool)
+    dead[:16] = dead[[255, 256, 511, 700]] = dead[300:340] = True
+    d[dead] = 0.0
+    tr = np.random.default_rng(5).uniform(0, 1, 1000).astype(np.float32)
+    rays = tsw2.pack_rays(*(torch.from_numpy(x) for x in (o, d, tr, tl)))
+    _check_schedules(accel, rays, edge)
+    got = _schedules(accel, rays, edge)[None][0]
+    assert (got[1][torch.from_numpy(dead)] == -1).all()
+    if edge:
+        assert (got[2][torch.from_numpy(dead)] == -1).all()
+    assert (got[1][torch.from_numpy(~dead)] >= 0).float().mean() > 0.3
+
+
+@pytest.mark.parametrize("edge", [False, True])
+def test_live_row_bound_on_groups_that_end_in_dead_rows(edge):
+    """A moving generic scene whose groups end in padding rows, with dead rows
+    (valid = 0) put below the last live row of two groups: the live-row bound
+    is below ``gr``, the rows past it are never read, the dead rows below it
+    are skipped, and every schedule gives the plain version's answer."""
+    _needs_gpp()
+    accel = tg.make_accel2g(_adversarial_generic(True), gr=16, has_motion=True)
+    otab = accel.otab.clone()
+    otab[[5, 2 * accel.gr + 7], tg.GO_VALID] = 0.0
+    accel = dataclasses.replace(accel, otab=otab)
+    bound = tsw2.live_rows(accel)
+    live = (accel.otab[:accel.n_pad, tg.GO_VALID] > 0).reshape(accel.n_groups, accel.gr)
+    assert (bound < accel.gr).any()  # rows past the bound: padding
+    assert (live.sum(dim=1) < bound).any()  # dead rows below it
+    fam, o, d = _adversarial_rays_g(ec.edge_blocks(accel)[0].numpy().astype(np.float64), 12)
+    n = o.shape[0]
+    tr = np.random.default_rng(13).uniform(0.0, 1.0, n).astype(np.float32)
+    rays = tsw2.pack_rays(*(torch.from_numpy(x) for x in (o, d, tr, np.full(n, 1e4, np.float32))))
+    st = _check_schedules(accel, rays, edge)
+    # a warp of one lane issues exactly the rows up to the bound of each group entered
+    assert int(st[tg.GC_SLOTS]) == _plain_walk_counts(accel, rays)["slots"]
+
+
+@pytest.mark.parametrize("motion", [False, True])
+def test_work_counters_are_the_per_lane_walks_in_both_schedules(sweep_case, motion):
+    """GC_SLAB, GC_SPHERE_ROWS and GC_OTHER_ROWS of the host build, per lane
+    (coop_min 1) and row-parallel (33), equal the slab tests and live rows by
+    kind that the plain walk implies; GC_SLOTS the rows up to each entered
+    group's live bound (a warp of one lane), GC_COOP 0 per lane and one a
+    group visit row-parallel."""
+    _needs_gpp()
+    c = sweep_case
+    o, d, tr, tl = c["rays"]
+    accel = _moving(c["ts"]) if motion else c["accel"]
+    if motion:
+        tr = torch.from_numpy(np.random.default_rng(6).uniform(0, 1, tr.shape[0])
+                              .astype(np.float32))
+    rays = tsw2.pack_rays(o, d, tr, tl)
+    want = _plain_walk_counts(accel, rays)
+    runs = _schedules(accel, rays, False)
+    for cm in (1, 33):
+        st = runs[cm][1]
+        assert [int(st[k]) for k in (tg.GC_SLAB, tg.GC_SPHERE_ROWS, tg.GC_OTHER_ROWS,
+                                     tg.GC_SLOTS)] == \
+            [want[k] for k in ("slab", "sphere", "other", "slots")], (cm, st, want)
+    assert int(runs[1][1][tg.GC_COOP]) == 0
+    assert int(runs[33][1][tg.GC_COOP]) > 0 and want["slab"] > 0
