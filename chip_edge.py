@@ -1,11 +1,32 @@
 """Parent against change in one call: K3, the generic sweep (its nearest-hit
-and silhouette instantiations), on one NVIDIA GPU.
+and silhouette instantiations), or with ``--sweep`` K4's fused dense sweep and
+K5, the grouped sweep (``csrc/sweep.cu``), on one NVIDIA GPU.
 
 Run from the repository root, with an older checkout of the repository
 unpacked beside it (a directory that .gitignore lists), for example:
 
     git archive <commit> | tar -x -C _parent
     python3 chip_edge.py _parent            # or: python3 chip_edge.py _parent --quick
+    python3 chip_edge.py _parent --sweep    # K4 and K5; --sweep --quick likewise
+
+``--sweep`` builds the parent checkout's ``sweep.cu`` into
+``raytracing_tests_tpu_torch/_build/sweep_parent/`` and launches it behind
+this checkout's wrappers through the C interface it had before (no live-row
+bounds, no ``coop_min``, no split).  On the inputs ``chip_smoke.py`` gives
+the two kernels: the outputs of parent and change, and of this checkout's
+-fmad=false build against the plain versions; the ``ptxas`` lines of both
+builds (K4's ``nearest_kernel`` and ``ri_kernel`` must not change); each
+kernel's time per launch at fixed shapes in ``ROUNDS`` rounds of parent,
+change, change, parent (K5 also at coop_min 1, K4 also at every split): the
+grid canary's lanes, bvh1k's 5 760 000 camera lanes and their second pop, the
+first pop of the first-generation grouped path; K4 at the sphere canary's
+179 200 lanes, the first pop of the first-generation dense path (44 800) and
+the 5 760 000 camera lanes of the sphere scene at 800x450x16; then every
+launch of each driven path (the grid canary, the first-generation grouped and
+dense paths, the bvh queue frame at bvh1k's size) timed on the device alone,
+parent, change and the variants on the same inputs in rotating order, summed.
+``--quick`` leaves out the 5 760 000-lane shapes and the bvh queue frame and
+runs one round.
 
 Builds the parent checkout's ``sweep2g.cu`` with ``nvcc`` into
 ``raytracing_tests_tpu_torch/_build/edge_parent/`` and this checkout's
@@ -86,10 +107,10 @@ def say(**kw):
     print(json.dumps(kw), flush=True)
 
 
-def nvcc(src_dir, so):
-    """Start nvcc on ``src_dir``'s sweep2g.cu -> the process."""
+def nvcc(src_dir, so, source="sweep2g.cu"):
+    """Start nvcc on ``src_dir``'s ``source`` -> the process."""
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src_dir), "-o", str(so),
-           str(pathlib.Path(src_dir) / "sweep2g.cu")]
+           str(pathlib.Path(src_dir) / source)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -111,17 +132,7 @@ def build_others(parent):
     out.mkdir(parents=True, exist_ok=True)
     procs = {None: (out / "sweep2g.so", nvcc(pathlib.Path(parent) / "raytracing_tests_tpu_torch"
                                               / "csrc", out / "sweep2g.so"))}
-    root = _build.BUILD_ROOT / "edge_variants"
-    for name, subs in VARIANTS.items():
-        src = root / name / "csrc"
-        shutil.rmtree(src, ignore_errors=True)
-        shutil.copytree(_build.CSRC, src)
-        for fname, old, new in subs:
-            text = (src / fname).read_text()
-            if text.count(old) != 1:
-                raise RuntimeError(f"variant {name}: {old!r} is not one line of {fname}")
-            (src / fname).write_text(text.replace(old, new))
-        procs[name] = (root / name / "sweep2g.so", nvcc(src, root / name / "sweep2g.so"))
+    procs.update(start_variants(VARIANTS, "edge_variants", "sweep2g.cu"))
     # the parent's C interface: no live_rows, no coop_min
     parent_lib, parent_ptxas = finish("the parent's sweep2g.cu", *procs.pop(None),
                                       [p, p, i, i, i, i, i, i, p, i, p, p, p, p, i, p, p])
@@ -132,33 +143,51 @@ def build_others(parent):
     return parent_lib, parent_ptxas, libs, ptxas
 
 
+def start_variants(variants, where, source):
+    """Copy csrc/ once per variant of ``variants`` under ``_build/<where>/``,
+    replace its lines and start nvcc on its ``source`` -> {name: (so, process)}."""
+    root = _build.BUILD_ROOT / where
+    procs = {}
+    for name, subs in variants.items():
+        src = root / name / "csrc"
+        shutil.rmtree(src, ignore_errors=True)
+        shutil.copytree(_build.CSRC, src)
+        for fname, old, new in subs:
+            text = (src / fname).read_text()
+            if text.count(old) != 1:
+                raise RuntimeError(f"variant {name}: {old!r} is not one line of {fname}")
+            (src / fname).write_text(text.replace(old, new))
+        so = root / name / (pathlib.Path(source).stem + ".so")
+        procs[name] = (so, nvcc(src, so, source))
+    return procs
+
+
 class _ParentFn:
     """The parent's C function behind this checkout's wrapper: called with
-    this checkout's arguments, it drops ``live_rows`` and ``coop_min``."""
+    this checkout's arguments, it drops those at ``drop`` (for the generic
+    sweep: ``live_rows`` and ``coop_min``)."""
 
-    DROP = (2, 9)
-
-    def __init__(self, fn):
-        self.fn, self.argtypes = fn, fn.argtypes
+    def __init__(self, fn, drop=(2, 9)):
+        self.fn, self.argtypes, self.drop = fn, fn.argtypes, drop
 
     def __call__(self, *args):
-        return self.fn(*(a for k, a in enumerate(args) if k not in self.DROP))
+        return self.fn(*(a for k, a in enumerate(args) if k not in self.drop))
 
 
 KEY = ("sweep2g", ())  # the generic sweep's entry in _build's loaded libraries
 
 
 @contextlib.contextmanager
-def kernels_of(lib):
+def kernels_of(lib, key=KEY):
     """Inside: the wrappers launch ``lib``'s kernels (the same Python path,
     checks and launch counters as this checkout's)."""
-    _build.load("sweep2g")
-    saved = _build._LIBS[KEY]
-    _build._LIBS[KEY] = lib
+    _build.load(key[0])
+    saved = _build._LIBS[key]
+    _build._LIBS[key] = lib
     try:
         yield
     finally:
-        _build._LIBS[KEY] = saved
+        _build._LIBS[key] = saved
 
 
 def parent_kernels(parent):
@@ -293,6 +322,211 @@ def step_device_phase(name, g, parent):
         slowest_change=sorted(ms["change"])[-3:], slowest_parent=sorted(ms["parent"])[-3:])
 
 
+# ---------------------------------------------------------------------------
+# --sweep: K4's fused dense sweep and K5, csrc/sweep.cu
+# ---------------------------------------------------------------------------
+
+SWEEP_KEY = ("sweep", ())
+# Source variants of this checkout's sweep.cu, timed beside it on the kernel
+# their name begins with (each must give the same outputs).
+SWEEP_VARIANTS = {
+    "k5_min_blocks_4": [("sweep.cu", "constexpr int G_MIN_BLOCKS = 5;",
+                         "constexpr int G_MIN_BLOCKS = 4;")],
+    "k4_unroll_1": [("sweep.cu", "#pragma unroll 4\n    for (int j = sub; j < n; j += K) {",
+                     "#pragma unroll 1\n    for (int j = sub; j < n; j += K) {")],
+    "k4_unroll_8": [("sweep.cu", "#pragma unroll 4\n    for (int j = sub; j < n; j += K) {",
+                     "#pragma unroll 8\n    for (int j = sub; j < n; j += K) {")],
+}
+
+
+def build_sweep_others(parent):
+    """nvcc the parent's sweep.cu and every SWEEP_VARIANTS one, all at once ->
+    (the parent's four C functions behind this checkout's wrappers, its ptxas
+    lines, {variant: CDLL}, {variant: ptxas lines}); this checkout's own, as
+    variant "change", for its ptxas lines, whether or not _build had it."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    out = _build.BUILD_ROOT / "sweep_parent"
+    out.mkdir(parents=True, exist_ok=True)
+    proc = nvcc(pathlib.Path(parent) / "raytracing_tests_tpu_torch" / "csrc", out / "sweep.so",
+                "sweep.cu")
+    procs = start_variants({"change": [], **SWEEP_VARIANTS}, "sweep_variants", "sweep.cu")
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the parent's sweep.cu:\n{log}")
+    libs, ptxas = {}, {}
+    for name, (so, vproc) in procs.items():
+        vlog, _ = vproc.communicate()
+        if vproc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {name}:\n{vlog}")
+        libs[name] = ctypes.CDLL(str(so))
+        ptxas[name] = cs.ptxas_by_kernel(f"== sweep.so ==\n{vlog}\n")
+    lib = ctypes.CDLL(str(out / "sweep.so"))
+    for name, argtypes in dict(rt_sweep_nearest=[p, i, i, p, i, p, p, p],
+                               rt_sweep_ri=[p, i, i, p, i, p, p],
+                               rt_sweep_nearest_ri=[p, i, p, i, p, p, p, p],
+                               rt_sweep_grouped=[p, p, i, i, i, i, p, i, p, p, p, p, p]).items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    ns = types.SimpleNamespace(
+        rt_sweep_nearest=lib.rt_sweep_nearest, rt_sweep_ri=lib.rt_sweep_ri,
+        rt_sweep_nearest_ri=_ParentFn(lib.rt_sweep_nearest_ri, drop=(2,)),  # split
+        rt_sweep_grouped=_ParentFn(lib.rt_sweep_grouped, drop=(2, 7)))  # live_rows, coop_min
+    return ns, cs.ptxas_by_kernel(f"== sweep.so ==\n{log}\n"), libs, ptxas
+
+
+def sweep_inputs(dev, quick):
+    """The inputs chip_smoke.py gives K4 and K5 -> (K5 shapes {name: args of
+    _launch_grouped}, K4 shapes {name: (table, rays)}, driven paths {name:
+    (wrapper name, render)})."""
+    scene, camera = examples.bvh_grid_scene(side=32)
+    scene, camera = scene.to(dev), camera.to(dev)
+    cfg = cs.RenderConfig(intersector="pallas", **cs.BVH1K).for_scene(scene)
+    cfg_s = cs.RenderConfig(intersector="pallas", **cs.SMALL).for_scene(scene)
+    acc5 = cs._build_accel(scene, cfg)
+
+    def lanes_of(cam, c):
+        lo, ld, ltr, _ = cs._lane_inputs(cam, c)
+        return cs.sweep2.pack_rays(lo, ld, ltr, torch.full_like(ltr, c.t_max))
+
+    g5 = lambda rr: (acc5.table, acc5.gaabb, rr, acc5.group, False, "generic")  # noqa: E731
+    i_scene, i_cam = examples.iow_final_scene()
+    i_scene, i_cam = i_scene.to(dev), i_cam.to(dev)
+    i_cfg = cs.RenderConfig(intersector="pallas", **cs.SMALL).for_scene(i_scene)
+    s_dense = cs.sweep.make_accel(i_scene, "spheres", group=0)
+    cfg_v1 = dataclasses.replace(i_cfg, pallas_v2=False, spp=2)
+    with cs.launches_of(cs.sweep, "_launch_grouped") as pops:
+        cs.render_stats(i_scene, i_cam, dataclasses.replace(cfg_v1, pallas_groups=32))
+    with cs.launches_of(cs.sweep, "_launch_nearest_ri") as dense_pops:
+        cs.render_stats(i_scene, i_cam, dataclasses.replace(cfg_v1, pallas_groups=0))
+    k5 = {"grid canary lanes": g5(lanes_of(camera, cfg_s)),
+          "first_generation_grouped pop 1": pops[0]}
+    k4 = {"sphere canary lanes": (s_dense.table, lanes_of(i_cam, i_cfg)),
+          "first_generation_dense pop 1": dense_pops[0]}
+    paths = {"grid canary": ("_launch_grouped", lambda: cs.render_stats(scene, camera, cfg_s)),
+             "first_generation_grouped": ("_launch_grouped", lambda: cs.render_stats(
+                 i_scene, i_cam, dataclasses.replace(cfg_v1, pallas_groups=32))),
+             "first_generation_dense": ("_launch_nearest_ri", lambda: cs.render_stats(
+                 i_scene, i_cam, dataclasses.replace(cfg_v1, pallas_groups=0)))}
+    if not quick:
+        lanes = lanes_of(camera, cfg)
+        k5["bvh1k camera lanes"] = g5(lanes)
+        k5["bvh1k second pop"] = g5(cs.second_generation_g(acc5, lanes))
+        cfg_i16 = cs.RenderConfig(intersector="pallas", **cs.BVH1K).for_scene(i_scene)
+        k4["iow camera lanes 800x450x16"] = (s_dense.table, lanes_of(i_cam, cfg_i16))
+        paths["bvh queue frame"] = ("_launch_grouped",
+                                    lambda: cs.render_stats(scene, camera, cfg))
+    return k5, k4, paths
+
+
+def sweep_shapes(parent, variants, k5, k4, rounds):
+    """Per launch at fixed shapes: outputs and times of parent, change and
+    the source variants."""
+    none = contextlib.nullcontext
+    old_of = lambda: kernels_of(parent, SWEEP_KEY)  # noqa: E731
+    for name, args in k5.items():
+        run = lambda: cs.sweep._launch_grouped(*args)  # noqa: E731
+        new, (_, stats) = run(), cs.k5_run(*args)
+        with old_of():
+            old = run()
+        with _build.precise():
+            precise = run()
+        want = cs.sweep.sweep_grouped_plain(*args)
+        fns = {"parent": (old_of, run), "change": (none, run),
+               "change_per_lane": (lambda: cs.coop(1), run),
+               "change_row_parallel": (lambda: cs.coop(33), run)}
+        for v, lib in variants.items():
+            if v.startswith("k5_"):
+                with kernels_of(lib, SWEEP_KEY):
+                    if min(same(run(), new).values()) < 1.0:
+                        raise AssertionError(f"variant {v} changes the outputs of K5 on {name}")
+                fns[v] = (lambda lib=lib: kernels_of(lib, SWEEP_KEY), run)
+        times = kernel_ms(fns, rounds)
+        bnd = cs.k5_bound(args[0], args[1], args[2], args[4], args[5], stats)
+        say(phase="k5_shape", shape=name, rays=args[2].shape[1], with_ri=args[4], mode=args[5],
+            change_vs_parent=same(new, old), precise_vs_plain=cs.exact_vs_plain(precise, want),
+            ms={f: min(t) for f, t in times.items()}, rounds_ms=times, bound_ms=bnd[0],
+            bound_by=bnd[1], **cs.k5_simt(stats))
+    for name, (table, rays) in k4.items():
+        run = lambda k=None: cs.sweep._launch_nearest_ri(table, rays, k)  # noqa: E731
+        new = run()
+        with old_of():
+            old = run()
+        with _build.precise():
+            precise = run()
+        want = cs.sweep.sweep_nearest_ri_plain(table, rays)
+        with _build.precise():
+            splits = {k: same(run(k), precise) for k in cs.sweep.NRI_SPLITS}
+        cs.require(all(min(v.values()) == 1.0 for v in splits.values()),
+                   f"K4 splits differ on {name}: {splits}")
+        fns = {"parent": (old_of, run), "change": (none, run),
+               **{f"change_K{k}": (none, lambda k=k: run(k)) for k in cs.sweep.NRI_SPLITS}}
+        for v, lib in variants.items():
+            if v.startswith("k4_"):
+                with kernels_of(lib, SWEEP_KEY):
+                    if min(same(run(), new).values()) < 1.0:
+                        raise AssertionError(f"variant {v} changes the outputs of K4 on {name}")
+                fns[v] = (lambda lib=lib: kernels_of(lib, SWEEP_KEY), run)
+        times = kernel_ms(fns, rounds)
+        bnd = cs.k4_nri_bound(table, rays)
+        say(phase="k4_nri_shape", shape=name, rays=rays.shape[1],
+            default_split=cs.sweep.nearest_ri_split(rays.shape[1]),
+            change_vs_parent=same(new, old), precise_vs_plain=cs.exact_vs_plain(precise, want),
+            ms={f: min(t) for f, t in times.items()}, rounds_ms=times, bound_ms=bnd[0],
+            bound_by=bnd[1])
+
+
+def sweep_path(name, wrapper, render, parent, variants):
+    """Every launch of ``wrapper`` over ``render()`` timed on the device alone,
+    parent, change and each source variant on the same inputs in rotating
+    order (the faster of two timings each) -> their sums."""
+    real = getattr(cs.sweep, wrapper)
+    prefix = "k5_" if wrapper == "_launch_grouped" else "k4_"
+    libs = {"parent": parent, "change": None,
+            **{v: lib for v, lib in variants.items() if v.startswith(prefix)}}
+    got = {w: [] for w in libs}
+    bounds = []
+
+    def hook(table, *args, **kw):
+        kw.pop("stats", None)
+        real(table, *args, **kw)  # untimed: the live-row bounds, the allocator's memory
+        k = len(got["change"]) % len(libs)
+        for w in list(libs)[k:] + list(libs)[:k]:
+            with kernels_of(libs[w], SWEEP_KEY) if libs[w] else contextlib.nullcontext():
+                got[w].append([cs.gapless_events(lambda: real(table, *args, **kw))
+                               for _ in range(2)])
+        bounds.append(cs.k5_bound_of_launch(table, *args) if wrapper == "_launch_grouped"
+                      else cs.k4_nri_bound_of_launch(table, *args))
+        return real(table, *args, **kw)
+
+    with cs.patched(cs.sweep, wrapper, hook):
+        render()
+    torch.cuda.synchronize()
+    ms = {w: [min(a.elapsed_time(b) for a, b in ev) for ev in evs] for w, evs in got.items()}
+    say(phase="sweep_path", path=name, kernel=wrapper, launches=len(ms["change"]),
+        parent_ms=sum(ms["parent"]), change_ms=sum(ms["change"]), bound_ms=sum(bounds),
+        variants_ms={v: sum(ms[v]) for v in ms if v not in ("parent", "change")},
+        parent_lost_ms=sum(ms["parent"]) - sum(bounds),
+        change_lost_ms=sum(ms["change"]) - sum(bounds),
+        change_won=sum(c < p for c, p in zip(ms["change"], ms["parent"])) / len(ms["change"]),
+        change_by_launch=ms["change"], parent_by_launch=ms["parent"])
+
+
+def sweep_main(parent_dir, quick, dev):
+    info = _build.build(with_precise=True)
+    parent, ptxas_parent, variants, ptxas_variants = build_sweep_others(parent_dir)
+    del variants["change"]
+    ptxas = ptxas_variants.pop("change")
+    kept = {k: ptxas.get(k) == v for k, v in ptxas_parent.items()
+            if "nearest_kernel" in k or "ri_kernel<" in k}
+    say(phase="build", seconds=info["seconds"], change=ptxas, parent=ptxas_parent,
+        variants=ptxas_variants, dense_kernels_unchanged=kept)
+    cs.require(kept and all(kept.values()), f"nearest_kernel / ri_kernel changed: {kept}")
+    k5, k4, paths = sweep_inputs(dev, quick)
+    sweep_shapes(parent, variants, k5, k4, 1 if quick else ROUNDS)
+    for name, (wrapper, render) in paths.items():
+        sweep_path(name, wrapper, render, parent, variants)
+
+
 def main():
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     quick = "--quick" in sys.argv[1:]
@@ -301,6 +535,10 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     say(phase="card", card=card, torch=torch.__version__, cuda=torch.version.cuda)
+    if "--sweep" in sys.argv[1:]:
+        sweep_main(parent, quick, dev)
+        print(card, flush=True)
+        return
     info = _build.build(with_precise=True)
     parent_lib, ptxas_parent, variants, ptxas_variants = build_others(parent)
     ptxas = cs.ptxas_by_kernel(info["log"])

@@ -103,7 +103,25 @@ Phases and their bars:
  12. every kernel's time at the frame's shapes beside its bound; the bounds
      count the live rows a kernel tested, not the dead and padding rows it
      skipped; and K3, K4 and K5 summed over the canaries that launch them,
-     launch by launch (``driven_paths``).
+     launch by launch (``driven_paths``), the first-generation paths
+     (``pallas_v2=False``) every pop, K4's fused sweep dense and K5 with the
+     fused RI, each with the row cost of its mode.
+  k45_modes. K5 on every input it is held on above (the grid canary's lanes,
+     bvh1k's camera lanes and their second pop, the edge cases, the sphere
+     lanes with and without the RI pass, nested and deep glass, every pop of
+     the first-generation grouped path) in coop_min 1, 33 and the default of
+     the -fmad=false build: outputs bit for bit and equal counters, and t,
+     obj and the refractive index bit for bit the plain version's; K4's fused
+     sweep likewise at every split K (1, 2, 4, 8), also at the 5 760 000
+     camera lanes of the sphere scene at 800x450x16.
+  bvh_queue_frame. The bvh workload's own path: the queue renderer
+     (``render_stats``, intersector="pallas", K5's generic instantiation) on
+     ``bvh_grid_scene(side=32)`` at 800x450x16 depth 8, one warm frame and
+     three timed; parity against the render_uber frame of 11 by the bars of
+     5 with under 3 % of pixels off by 0.05; only K5 launched; every K5
+     launch timed on the device alone beside its bound; a profiled frame for
+     the card's busy and idle shares and K5's share; K5's coop_min sweep
+     over the frame and over the grid canary (``k5_coop_sweep``).
  13. the chunked megakernel (``mega_step``) vs plain at the shapes the drain
      gives it: the (16, 2^20) pools of the headline frame's first chunk at
      iterations 0, 1 and the chunk's last (mostly inactive lanes), taken from
@@ -336,13 +354,27 @@ PTXAS_REDESIGNED = {
 }
 # The generic sweep's instantiations, which must build with no spill.
 K3_INSTANTIATIONS = [k for k in PTXAS_REDESIGNED if k.startswith("sweep2g.so")]
-# ... and what it gave the other kernels before the warp sweeps, which they do
-# not include: they must not change.
+# ... and what it gave the dense sweeps of K4 that kept their first source
+# (nearest_kernel, ri_kernel): they must not change.  (K5's grouped_kernel
+# before the warp sweep: <0,1> 40 registers, 8 B of stack, 4/8 B of spill;
+# <1,0> 47 and none.)
 PTXAS_UNCHANGED = {
-    "sweep.so grouped_kernel<0,1>": dict(registers=40, stack=8, spill_stores=4, spill_loads=8),
-    "sweep.so grouped_kernel<1,0>": dict(registers=47, stack=0, spill_stores=0, spill_loads=0),
+    "sweep.so nearest_kernel<0>": dict(registers=32, stack=0, spill_stores=0, spill_loads=0),
     "sweep.so nearest_kernel<1>": dict(registers=40, stack=0, spill_stores=0, spill_loads=0),
+    "sweep.so ri_kernel<0>": dict(registers=32, stack=0, spill_stores=0, spill_loads=0),
     "sweep.so ri_kernel<1>": dict(registers=39, stack=0, spill_stores=0, spill_loads=0),
+}
+# ... and what it gives K5 on the warp sweep (<generic, fused RI>, at 5 blocks
+# of 256 per SM) and K4's fused sweep in shared memory (<lanes per ray>; before:
+# one nearest_ri_kernel, 38 registers, no spill).
+PTXAS_K45 = {
+    "sweep.so grouped_kernel<0,0>": dict(registers=46, stack=0, spill_stores=0, spill_loads=0),
+    "sweep.so grouped_kernel<0,1>": dict(registers=48, stack=0, spill_stores=0, spill_loads=0),
+    "sweep.so grouped_kernel<1,0>": dict(registers=48, stack=0, spill_stores=0, spill_loads=0),
+    "sweep.so nearest_ri_kernel<1>": dict(registers=39, stack=0, spill_stores=0, spill_loads=0),
+    "sweep.so nearest_ri_kernel<2>": dict(registers=36, stack=0, spill_stores=0, spill_loads=0),
+    "sweep.so nearest_ri_kernel<4>": dict(registers=40, stack=0, spill_stores=0, spill_loads=0),
+    "sweep.so nearest_ri_kernel<8>": dict(registers=40, stack=0, spill_stores=0, spill_loads=0),
 }
 
 
@@ -1132,10 +1164,11 @@ def kernels_on_path(render, hooks):
     return res
 
 
-def generic_phases(dev, iow):
+def generic_phases(dev, iow, ptxas):
     """Phases 8 to 12 -> (the kernels-line entries of the generic slice, K3's
     (accel, rays) at the generic canary's lanes).
-    ``iow``: the sphere scene, its camera, its small config, its canary lanes."""
+    ``iow``: the sphere scene, its camera, its small config, its canary lanes;
+    ``ptxas``: the build's lines per kernel."""
     scene, camera = examples.bvh_grid_scene(side=32)
     scene, camera = scene.to(dev), camera.to(dev)
     cfg = RenderConfig(intersector="pallas", **BVH1K).for_scene(scene)
@@ -1253,16 +1286,24 @@ def generic_phases(dev, iow):
     nest = nested_glass_spheres().to(dev)
     n_dense = sweep.make_accel(nest, "spheres", group=0)
     n_grp = sweep.make_accel(nest, "spheres", group=4)
-    rr = seeded_rays((0.0, 0.0, -3.0), 0.45, 100_000, dev)
-    o, d, tr, tl = unpack(rr)
-    spheres["nested_glass"] = both_builds(
-        "sweep_nearest_ri", "nested_glass", lambda: sweep.sweep_nearest_ri(
-            n_dense.table, o, d, tr, tl), sweep.sweep_nearest_ri_plain(n_dense.table, rr), rr)
-    both_builds("sweep_grouped_spheres_ri1", "nested_glass", lambda: sweep.sweep_grouped(
-        n_grp.table, n_grp.gaabb, o, d, tr, tl, 4, True, mode="spheres"),
-        sweep.sweep_grouped_plain(n_grp.table, n_grp.gaabb, rr, 4, True, "spheres"), rr)
-    require(spheres["nested_glass"]["ri_not_one"] > 0.05,
-            f"no fused refractive index differs from 1: {spheres['nested_glass']}")
+    nest_rays = seeded_rays((0.0, 0.0, -3.0), 0.45, 100_000, dev)
+    # ... and inside deep_glass_spheres(), where a point lies in up to four
+    deep, _ = deep_glass_spheres()
+    deep = deep.to(dev)
+    d_dense = sweep.make_accel(deep, "spheres", group=0)
+    d_grp = sweep.make_accel(deep, "spheres", group=4)
+    deep_rays = seeded_rays(DEEP_CENTRE, 0.14, 1 << 16, dev)
+    for batch, (dense, grp, rr) in dict(nested_glass=(n_dense, n_grp, nest_rays),
+                                        deep_glass=(d_dense, d_grp, deep_rays)).items():
+        o, d, tr, tl = unpack(rr)
+        spheres[batch] = both_builds(
+            "sweep_nearest_ri", batch, lambda: sweep.sweep_nearest_ri(
+                dense.table, o, d, tr, tl), sweep.sweep_nearest_ri_plain(dense.table, rr), rr)
+        both_builds("sweep_grouped_spheres_ri1", batch, lambda: sweep.sweep_grouped(
+            grp.table, grp.gaabb, o, d, tr, tl, 4, True, mode="spheres"),
+            sweep.sweep_grouped_plain(grp.table, grp.gaabb, rr, 4, True, "spheres"), rr)
+        require(spheres[batch]["ri_not_one"] > 0.05,
+                f"no fused refractive index differs from 1: {spheres[batch]}")
 
     # 9. K1 generic against its plain version, at the frame's own statics, from
     # the frame's camera and from five more ---------------------------------------
@@ -1300,8 +1341,8 @@ def generic_phases(dev, iow):
             f"the generic canary's launches: {launches_canary}")
 
     # K3 through its own entry point on the canary's lanes, against K5's
-    # winners (K3's consumer in the product, the differentiable fast path, is
-    # not ported yet)
+    # winners (K3's consumer in the product is the differentiable fast path,
+    # diff/fastpath.py::_winner, which the gradient phases drive)
     acc3_s, _ = uber._scene_accel(scene, camera, cfg_s, GR)
     clo, cld, cltr, _ = _lane_inputs(camera, cfg_s)
     ctl = torch.full_like(cltr, cfg_s.t_max)
@@ -1345,21 +1386,11 @@ def generic_phases(dev, iow):
         return bound(20 * B + 4 * table.numel(),
                      B * live_rows_of(table, mode) * FLOPS_PER_CONTAINS_GENERIC)[0]
 
-    grouped = sweep._launch_grouped
-
-    def grouped_bound(table, gaabb, rays, group, with_ri, mode, stats=None):
-        counted = torch.zeros(sweep.SC_LEN, dtype=torch.int64, device=rays.device)
-        grouped(table, gaabb, rays, group, with_ri, mode, counted)
-        B = rays.shape[1]
-        return bound(44 * B + 4 * (table.numel() + gaabb.numel()),
-                     B * gaabb.shape[0] * FLOPS_PER_SLAB_TEST
-                     + int(counted[sweep.SC_ROWS]) * FLOPS_PER_GENERIC_ROW)[0]
-
     driven = kernels_on_path(lambda: render_stats(gl_scene, gl_cam, cfg_gl), dict(
         sweep_nearest=(sweep, "_launch_nearest", nearest_bound),
         sweep_ri=(sweep, "_launch_ri", ri_bound_of)))
     driven.update(kernels_on_path(lambda: render_stats(scene, camera, cfg_s), dict(
-        sweep_grouped=(sweep, "_launch_grouped", grouped_bound))))
+        sweep_grouped=(sweep, "_launch_grouped", k5_bound_of_launch))))
     st3c = torch.zeros(sweep2g.GC_LEN, dtype=torch.int64, device=dev)
     lanes3 = sweep2g.pack_rays(clo, cld, cltr, ctl)
     sweep2g._sweep2g(acc3_s, lanes3, st3c)
@@ -1367,22 +1398,32 @@ def generic_phases(dev, iow):
         launches=launches_k3["sweep2g"], ms=cuda_ms(lambda: sweep2g._sweep2g(acc3_s, lanes3), 10),
         bound_ms=k3_nearest_bound(acc3_s, lanes3.shape[1], st3c)[0], **k3_simt(st3c))
     driven["sweep2g"]["ms_above_bound"] = driven["sweep2g"]["ms"] - driven["sweep2g"]["bound_ms"]
+    # the first-generation sweeps on the sphere scene (pallas_v2=False): the
+    # fused nearest + refractive index kernel, dense and grouped, every pop
+    cfg_v1 = dataclasses.replace(i_cfg, pallas_v2=False, spp=2)
+    driven["first_generation_dense"] = kernels_on_path(
+        lambda: render_stats(i_scene, i_cam, dataclasses.replace(cfg_v1, pallas_groups=0)),
+        dict(sweep_nearest_ri=(sweep, "_launch_nearest_ri", k4_nri_bound_of_launch)))[
+        "sweep_nearest_ri"]
+    driven["first_generation_grouped"] = kernels_on_path(
+        lambda: render_stats(i_scene, i_cam, dataclasses.replace(cfg_v1, pallas_groups=32)),
+        dict(sweep_grouped=(sweep, "_launch_grouped", k5_bound_of_launch)))["sweep_grouped"]
     say(phase="driven_paths", what="K3, K4 and K5 at the shapes their driven paths give them",
         paths=dict(sweep_nearest="glass canary", sweep_ri="glass canary",
-                   sweep_grouped="grid canary", sweep2g="its entry point at the canary's lanes"),
+                   sweep_grouped="grid canary", sweep2g="its entry point at the canary's lanes",
+                   first_generation_dense="sweep_nearest_ri on the sphere scene, every pop",
+                   first_generation_grouped="sweep_grouped (spheres, fused RI), every pop"),
         **driven)
     require(all(r["ms"] > r["bound_ms"] for r in driven.values()),
             f"a kernel below its bound on its driven path, a counting error: {driven}")
-
-    # the first-generation sweeps on the sphere scene (pallas_v2=False): the
-    # fused nearest + refractive index kernel, dense and grouped
-    cfg_v1 = dataclasses.replace(i_cfg, pallas_v2=False, spp=2)
     o_v2 = render_stats(i_scene, i_cam, dataclasses.replace(i_cfg, spp=2))
-    launches_v1 = {}
+    launches_v1, pops_v1 = {}, {}
     for groups in (0, 32):
         _build.reset_launches()
-        o_v1 = render_stats(i_scene, i_cam, dataclasses.replace(cfg_v1, pallas_groups=groups))
+        with launches_of(sweep, "_launch_grouped" if groups else "_launch_nearest_ri") as got:
+            o_v1 = render_stats(i_scene, i_cam, dataclasses.replace(cfg_v1, pallas_groups=groups))
         launches_v1[groups] = dict(_build.LAUNCHES)
+        pops_v1[groups] = got
         v1 = parity(o_v1, o_v2)
         say(phase="first_generation_spheres", pallas_groups=groups,
             launches=launches_v1[groups], **v1)
@@ -1390,6 +1431,29 @@ def generic_phases(dev, iow):
     require(launches_v1[0].get("sweep_nearest_ri", 0) > 0 and set(launches_v1[0]) == {"sweep_nearest_ri"}
             and launches_v1[32].get("sweep_grouped", 0) > 0 and set(launches_v1[32]) == {"sweep_grouped"},
             f"the first-generation sphere path's launches: {launches_v1}")
+
+    # K5's schedules and K4's splits bit for bit on every input above, and K4
+    # at the camera lanes of the sphere scene's 800x450x16 frame
+    cfg_i16 = RenderConfig(intersector="pallas", **BVH1K).for_scene(i_scene)
+    ilo, ild, iltr, _ = _lane_inputs(i_cam, cfg_i16)
+    iow_lanes = sweep2.pack_rays(ilo, ild, iltr, torch.full_like(iltr, cfg_i16.t_max))
+    del ilo, ild, iltr
+    generic5 = lambda rr: (acc5.table, acc5.gaabb, rr, acc5.group, False, "generic")  # noqa: E731
+    k5_in = {"grid canary lanes": generic5(lanes3), "bvh1k camera lanes": generic5(lanes),
+             "bvh1k second pop": generic5(lanes2), "edge cases": generic5(edge),
+             "sphere lanes": (s_grp.table, s_grp.gaabb, i_lanes, 32, False, "spheres"),
+             "sphere lanes, RI": (s_grp.table, s_grp.gaabb, i_lanes, 32, True, "spheres"),
+             "sphere second pop, RI": (s_grp.table, s_grp.gaabb, i_lanes2, 32, True, "spheres"),
+             "nested glass": (n_grp.table, n_grp.gaabb, nest_rays, 4, True, "spheres"),
+             "deep glass": (d_grp.table, d_grp.gaabb, deep_rays, 4, True, "spheres"),
+             **{f"first_generation_grouped pop {k + 1}": args
+                for k, args in enumerate(pops_v1[32])}}
+    k4_in = {"sphere lanes": (s_dense.table, i_lanes), "sphere second pop": (s_dense.table, i_lanes2),
+             "nested glass": (n_dense.table, nest_rays), "deep glass": (d_dense.table, deep_rays),
+             "iow camera lanes 800x450x16": (s_dense.table, iow_lanes),
+             **{f"first_generation_dense pop {k + 1}": args for k, args in enumerate(pops_v1[0])}}
+    k45_modes(k5_in, k4_in)
+    del k5_in, k4_in
 
     # 11. the generic frame ------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -1416,6 +1480,9 @@ def generic_phases(dev, iow):
     for got in launches_frames:
         require(got == {"uber_g": 1},
                 f"a generic frame is one launch of the persistent kernel: {launches_frames}")
+    # ... and the same frame through the bvh workload's own path, against it
+    bvh_queue, launches_q = bvh_queue_frame(scene, camera, cfg, out)
+    k5_grid_sweep = k5_coop_sweep("grid canary", lambda: render_stats(scene, camera, cfg_s))
 
     # 12. the kernels at the main path's shapes ----------------------------------
     ms_k1 = cuda_ms(lambda: uber.uber_render(acc3, cam_g, st), 3)
@@ -1460,14 +1527,16 @@ def generic_phases(dev, iow):
         sweep2g._sweep2g(acc3, lanes, st3_lane)
     k3_bound, k3_by = k3_nearest_bound(acc3, B, st3)
     # K5: every group's box is tested by every ray; live rows counted
-    st5 = torch.zeros(sweep.SC_LEN, dtype=torch.int64, device=dev)
-    sweep._sweep_grouped(acc5.table, acc5.gaabb, lanes, 32, False, "generic", st5)
+    _, st5 = k5_run(*generic5(lanes))
     ms_k5 = cuda_ms(lambda: sweep.sweep_grouped(acc5.table, acc5.gaabb, o, d, tr, tl, 32, False,
                                                 mode="generic"), 10)
+    with coop(1):  # the walk of one thread per ray, in the same call
+        ms_k5_lane = cuda_ms(lambda: sweep._sweep_grouped(*generic5(lanes)), 10)
+        _, st5_lane = k5_run(*generic5(lanes))
+    _, st5_2 = k5_run(*generic5(lanes2))
+    ms_k5_2 = cuda_ms(lambda: sweep._sweep_grouped(*generic5(lanes2)), 10)
     n_g5 = acc5.gaabb.shape[0]
-    k5_bound, k5_by = bound(
-        44 * B + table_bytes(acc5.table, acc5.gaabb),
-        B * n_g5 * FLOPS_PER_SLAB_TEST + int(st5[sweep.SC_ROWS]) * FLOPS_PER_GENERIC_ROW)
+    k5_bnd, k5_by = k5_bound(acc5.table, acc5.gaabb, lanes, False, "generic", st5)
     # K4: every ray tests every live row (padding rows return at their flag)
     n4 = acc4.table.shape[0]
     live4 = int((acc4.table[:, sweep.G_VALID] > 0).sum())
@@ -1482,23 +1551,34 @@ def generic_phases(dev, iow):
     Bi, ni = i_lanes.shape[1], s_dense.table.shape[0]
     live_i = int((s_dense.table[:, sweep.S_VALID] > 0).sum())
     ms_nri = cuda_ms(lambda: sweep.sweep_nearest_ri(s_dense.table, io, id_, itr, itl), 20)
-    nri_bound, nri_by = bound(
-        44 * Bi + table_bytes(s_dense.table),
-        Bi * live_i * (FLOPS_PER_SPHERE_TEST + 6 + FLOPS_PER_CONTAINS_SPHERE))
+    nri_bound, nri_by = k4_nri_bound(s_dense.table, i_lanes)
+    nri_by_split = {k: cuda_ms(lambda: sweep._launch_nearest_ri(s_dense.table, i_lanes, k), 20)
+                    for k in sweep.NRI_SPLITS}
+    nri_wide = dict(rays=iow_lanes.shape[1], split=sweep.nearest_ri_split(iow_lanes.shape[1]),
+                    ms=cuda_ms(lambda: sweep._launch_nearest_ri(s_dense.table, iow_lanes), 5),
+                    bound_ms=k4_nri_bound(s_dense.table, iow_lanes)[0])
     say(phase="sweeps_at_the_frames_lanes", rays=B,
         sweep2g=dict(ms=ms_k3, ms_per_lane_mode=ms_k3_lane,
                      slab_tests_per_ray=int(st3[sweep2g.GC_SLAB]) / B,
                      live_sphere_rows_per_ray=int(st3[sweep2g.GC_SPHERE_ROWS]) / B,
                      live_cuboid_rows_per_ray=int(st3[sweep2g.GC_OTHER_ROWS]) / B,
                      **k3_simt(st3), per_lane_mode=k3_simt(st3_lane)),
-        sweep_grouped=dict(ms=ms_k5, live_rows_per_ray=int(st5[sweep.SC_ROWS]) / B, groups=n_g5),
+        sweep_grouped=dict(ms=ms_k5, ms_per_lane_mode=ms_k5_lane,
+                           live_rows_per_ray=int(st5[sweep.SC_ROWS]) / B, groups=n_g5,
+                           **k5_simt(st5), per_lane_mode=k5_simt(st5_lane),
+                           second_pop=dict(ms=ms_k5_2, bound_ms=k5_bound(
+                               acc5.table, acc5.gaabb, lanes2, False, "generic", st5_2)[0],
+                               **k5_simt(st5_2))),
         sweep_nearest=dict(ms=ms_k4, live_rows_per_ray=live4, table_rows=n4),
         sweep_ri=dict(ms=ms_ri, live_rows_per_point=live4, table_rows=n4),
-        sweep_nearest_ri=dict(ms=ms_nri, live_rows_per_ray=live_i, table_rows=ni))
+        sweep_nearest_ri=dict(ms=ms_nri, live_rows_per_ray=live_i, table_rows=ni,
+                              split=sweep.nearest_ri_split(Bi), ms_by_split=nri_by_split,
+                              at_iow_camera_lanes=nri_wide))
 
     paths = dict(generic_canary=launches_canary, sweep2g_entry=launches_k3,
                  glass_canary=launches_glass, first_generation_dense=launches_v1[0],
-                 first_generation_grouped=launches_v1[32], bvh1k_frame=launches_frames[-1])
+                 first_generation_grouped=launches_v1[32], bvh1k_frame=launches_frames[-1],
+                 bvh_queue_frame=launches_q)
     by_path = lambda name: {p: got.get(name, 0) for p, got in paths.items()}
     main = sweeps["camera_lanes"]
     tol = ("same winner as the plain version on >= 99.9 % of rays, t within rtol 1e-4 on "
@@ -1548,13 +1628,193 @@ def generic_phases(dev, iow):
         entry("sweep_nearest_ri", "sweep.cu", "sweep.py:535",
               launches_v1[0].get("sweep_nearest_ri", 0), spheres["sphere_lanes"], ms=ms_nri,
               plain_ms=plain_ms["sphere_lanes", "sweep_nearest_ri"], bound_ms=nri_bound,
-              bound_by=nri_by, shape=f"{Bi} rays x {ni} sphere rows"),
+              bound_by=nri_by, shape=f"{Bi} rays x {ni} sphere rows",
+              split=sweep.nearest_ri_split(Bi), ms_by_split=nri_by_split,
+              at_iow_camera_lanes=nri_wide, at_driven_path=driven["first_generation_dense"],
+              ptxas={k: ptxas.get(k) for k in K4_NRI_INSTANTIATIONS}),
         entry("sweep_grouped", "sweep.cu", "sweep.py:590", launches_canary.get("sweep_grouped", 0),
-              main["sweep_grouped"], ms=ms_k5, plain_ms=plain_ms["camera_lanes", "sweep_grouped"],
-              bound_ms=k5_bound, bound_by=k5_by, shape=f"{B} rays, {n_g5} groups of 32",
-              at_driven_path=driven["sweep_grouped"]),
+              main["sweep_grouped"], ms=ms_k5, ms_per_lane_mode=ms_k5_lane,
+              plain_ms=plain_ms["camera_lanes", "sweep_grouped"],
+              bound_ms=k5_bnd, bound_by=k5_by, shape=f"{B} rays, {n_g5} groups of 32",
+              simt_efficiency=k5_simt(st5)["simt_efficiency"],
+              simt_efficiency_per_lane_mode=k5_simt(st5_lane)["simt_efficiency"],
+              coop_min=sweep.COOP_MIN, at_driven_path=driven["sweep_grouped"],
+              at_first_generation_grouped=driven["first_generation_grouped"],
+              at_bvh_queue_frame=bvh_queue["k5_by_launch"],
+              coop_sweep=dict(grid_canary={cm: r["ms"] for cm, r in k5_grid_sweep.items()},
+                              bvh_queue_frame={cm: r["ms"] for cm, r in
+                                               bvh_queue["coop_sweep"].items()}),
+              ptxas={k: ptxas.get(k) for k in K5_INSTANTIATIONS}),
     ], (acc3_s, lanes3)
 
+
+
+# ---------------------------------------------------------------------------
+# The eleventh slice: K5 (sweep_grouped) on the warp sweep, and K4's fused
+# dense sweep (sweep_nearest_ri) with the table in shared memory and K lanes
+# a ray
+# ---------------------------------------------------------------------------
+
+K5_SAME = (sweep.SC_ROWS, sweep.SC_RI_ROWS)  # the counters every schedule gives alike
+K5_INSTANTIATIONS = ("sweep.so grouped_kernel<0,0>", "sweep.so grouped_kernel<0,1>",
+                     "sweep.so grouped_kernel<1,0>")
+K4_NRI_INSTANTIATIONS = tuple(f"sweep.so nearest_ri_kernel<{k}>" for k in sweep.NRI_SPLITS)
+
+
+def k5_simt(stats):
+    """SIMT efficiency of K5: the live rows its per-thread walk tests over the
+    lane slots the warps issued, for the hit pass and the fused RI pass; and
+    the row-parallel group visits of each."""
+    slots, ri_slots = int(stats[sweep.SC_SLOTS]), int(stats[sweep.SC_RI_SLOTS])
+    return dict(simt_efficiency=int(stats[sweep.SC_ROWS]) / max(slots, 1), lane_slots=slots,
+                coop_visits=int(stats[sweep.SC_COOP]),
+                ri_simt_efficiency=int(stats[sweep.SC_RI_ROWS]) / ri_slots if ri_slots else None,
+                ri_coop_visits=int(stats[sweep.SC_RI_COOP]))
+
+
+_K5_LAUNCH = sweep._launch_grouped  # the wrapper, also while a hook stands in its name
+
+
+def k5_run(table, gaabb, rays, group, with_ri, mode):
+    """One launch of K5 with its counters -> (outputs, stats)."""
+    stats = torch.zeros(sweep.SC_LEN, dtype=torch.int64, device=rays.device)
+    return _K5_LAUNCH(table, gaabb, rays, group, with_ri, mode, stats=stats), stats
+
+
+def k5_bound(table, gaabb, rays, with_ri, mode, stats):
+    """The least time of K5 on these rays, from its counters: every ray's box
+    test of every group (with the RI pass, also its point-in-box test), and
+    the live rows of the groups its walk enters, at the row cost of the mode
+    -> (ms, what bounds it)."""
+    B, G = rays.shape[1], gaabb.shape[0]
+    row = FLOPS_PER_GENERIC_ROW if mode == "generic" else FLOPS_PER_SPHERE_TEST + 6
+    flops = B * G * FLOPS_PER_SLAB_TEST + int(stats[sweep.SC_ROWS]) * row
+    if with_ri:
+        flops += B * G * 6 + int(stats[sweep.SC_RI_ROWS]) * FLOPS_PER_CONTAINS_SPHERE
+    return bound(44 * B + 4 * (table.numel() + gaabb.numel()), flops)
+
+
+def k5_bound_of_launch(table, gaabb, rays, group, with_ri, mode, stats=None):
+    """``kernels_on_path``'s bound of one K5 launch (counted by one more)."""
+    return k5_bound(table, gaabb, rays, with_ri, mode,
+                    k5_run(table, gaabb, rays, group, with_ri, mode)[1])[0]
+
+
+def k4_nri_bound(table, rays):
+    """The least time of K4's fused sweep: every ray tests every live row,
+    for the hit and for containment -> (ms, what bounds it)."""
+    B = rays.shape[1]
+    live = int((table[:, sweep.S_VALID] > 0).sum())
+    return bound(44 * B + 4 * table.numel(),
+                 B * live * (FLOPS_PER_SPHERE_TEST + 6 + FLOPS_PER_CONTAINS_SPHERE))
+
+
+def k4_nri_bound_of_launch(table, rays, split=None):
+    return k4_nri_bound(table, rays)[0]
+
+
+@contextlib.contextmanager
+def launches_of(module, name):
+    """The arguments of every call of ``module.name`` (rays cloned)."""
+    got = []
+    real = getattr(module, name)
+
+    def keep(table, *args, **kw):
+        got.append((table, *(a.clone() if isinstance(a, torch.Tensor) and a.dim() == 2
+                             and a.shape[0] == 8 else a for a in args)))
+        return real(table, *args, **kw)
+
+    with patched(module, name, keep):
+        yield got
+
+
+def exact_vs_plain(got, want):
+    """t, obj and the refractive index bit for bit (both sum the contained
+    rows' indices in row order), and the share of indices that are not 1."""
+    return dict(t_identical=bool(torch.equal(got[0], want[0])),
+                obj_identical=bool(torch.equal(got[1], want[1])),
+                ri_identical=bool(torch.equal(got[2], want[2])),
+                ri_not_one=frac(want[2] != 1.0))
+
+
+def k45_modes(k5_in, k4_in):
+    """Phase k45_modes: K5 on each input in coop_min 1, 33 and the default of
+    the -fmad=false build, bit for bit and against its plain version; K4's
+    fused sweep at every split K, forced, likewise."""
+    res = {}
+    for name, args in k5_in.items():
+        r = schedules_identical(f"K5 {name}", lambda: k5_run(*args), K5_SAME, k5_simt)
+        with _build.precise():
+            got = sweep._launch_grouped(*args)
+        r["vs_plain"] = exact_vs_plain(got, sweep.sweep_grouped_plain(*args))
+        res[f"K5 {name}"] = r
+    for name, (table, rays) in k4_in.items():
+        with _build.precise():
+            outs = {k: sweep._launch_nearest_ri(table, rays, k) for k in sweep.NRI_SPLITS}
+        r = {f"K={k}": dict(identical_to_K1=all(torch.equal(a, b) for a, b in zip(o, outs[1])))
+             for k, o in outs.items()}
+        r["vs_plain"] = exact_vs_plain(outs[1], sweep.sweep_nearest_ri_plain(table, rays))
+        r["rays"], r["default_K"] = rays.shape[1], sweep.nearest_ri_split(rays.shape[1])
+        res[f"K4 {name}"] = r
+    say(phase="k45_modes", what="K5 schedules and K4 splits bit for bit, -fmad=false build",
+        **res)
+    for name, r in res.items():
+        v = r["vs_plain"]
+        require(v["t_identical"] and v["obj_identical"] and v["ri_identical"]
+                and all(x["identical_to_K1"] for k, x in r.items() if k.startswith("K=")),
+                f"{name}: the -fmad=false build differs: {r}")
+    return res
+
+
+def k5_coop_sweep(what, render):
+    """K5's summed device time over ``render()`` per coop_min of COOP_SWEEP
+    (each launch timed twice, the faster counted), with its SIMT numbers."""
+    calls = {}
+    with patched(sweep, "_launch_grouped",
+                 timed_by_coop(sweep._launch_grouped, calls, sweep.SC_LEN)):
+        render()
+    res = coop_sweep_table(calls, k5_simt)
+    say(phase="k5_coop_sweep", path=what, default=sweep.COOP_MIN, **res)
+    return res
+
+
+def bvh_queue_frame(scene, camera, cfg, ou):
+    """Phase bvh_queue_frame: the bvh workload's own path, the queue renderer
+    with intersector="pallas" (K5's generic instantiation) at bvh1k's size:
+    one warm frame, three timed; parity against ``ou``, the render_uber frame
+    of the same run; every K5 launch timed on the device alone with its bound;
+    a profiled frame for the card's busy and idle shares; the coop_min sweep."""
+    from torch.profiler import ProfilerActivity, profile
+
+    render = lambda: render_stats(scene, camera, cfg)  # noqa: E731
+    oq, times, launches = timed_frames(render)
+    c = parity(ou, oq)
+    k5 = kernels_on_path(render, dict(
+        sweep_grouped=(sweep, "_launch_grouped", k5_bound_of_launch)))["sweep_grouped"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        render()
+        torch.cuda.synchronize()
+    by = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA}
+    frame_ms = min(times) * 1e3
+    busy = sum(by.values())
+    k5_ms = sum(v for k, v in by.items() if "grouped_kernel" in k)
+    res = dict(scene="bvh_grid_scene(side=32)", size=size_of(BVH1K),
+               renderer="render_stats (the queue renderer), intersector='pallas'",
+               seconds_per_frame_min=min(times), seconds_per_frame_mean=sum(times) / len(times),
+               rays=int(oq["rays"]), mrays_per_s=int(oq["rays"]) / min(times) / 1e6,
+               rays_dropped=int(oq["rays_dropped"]), image_mean=float(oq["image"].mean()),
+               launches_per_frame=launches[-1], device_busy_ms=busy,
+               device_idle_share=1.0 - busy / frame_ms, k5_profiled_ms=k5_ms,
+               k5_share_of_frame=k5_ms / frame_ms, kernels_traced=len(by),
+               k5_by_launch=k5, parity_vs_render_uber=c)
+    say(phase="bvh_queue_frame", **res)
+    check_parity("bvh queue frame against render_uber", c)
+    require(all(set(got) == {"sweep_grouped"} and got["sweep_grouped"] > 0 for got in launches),
+            f"a bvh queue frame launches K5 and nothing else: {launches}")
+    require(k5["ms"] > k5["bound_ms"], f"K5 below its bound on the bvh queue frame: {k5}")
+    res["coop_sweep"] = k5_coop_sweep("bvh queue frame", render)
+    return res, launches[-1]
 
 
 # ---------------------------------------------------------------------------
@@ -3753,12 +4013,17 @@ def main():
             k: ptxas.get(f"uber.so {k}") == v for k, v in PTXAS_STATIC.items()},
         untextured_instantiations_as_before={
             k: ptxas.get(f"uber.so {k}") == v for k, v in PTXAS_K1.items()},
-        redesigned_as_recorded={k: ptxas.get(k) == v for k, v in PTXAS_REDESIGNED.items()},
+        redesigned_as_recorded={k: ptxas.get(k) == v
+                                for k, v in {**PTXAS_REDESIGNED, **PTXAS_K45}.items()},
         other_kernels_as_before={k: ptxas.get(k) == v for k, v in PTXAS_UNCHANGED.items()})
     if "sweep2g.so" in info["built"]:  # not when an earlier run left it built
         spilled = {k: ptxas.get(k) for k in K3_INSTANTIATIONS
                    if not ptxas.get(k) or ptxas[k]["spill_stores"] or ptxas[k]["spill_loads"]}
         require(not spilled, f"K3 instantiations that spill: {spilled}")
+    if "sweep.so" in info["built"]:
+        spilled = {k: ptxas.get(k) for k in K5_INSTANTIATIONS + K4_NRI_INSTANTIATIONS
+                   if not ptxas.get(k) or ptxas[k]["spill_stores"] or ptxas[k]["spill_loads"]}
+        require(not spilled, f"K4 / K5 instantiations that spill: {spilled}")
 
     # the sweep schedules of K1 bit for bit before anything else runs on them
     uber_modes_canaries(dev)
@@ -3973,7 +4238,7 @@ def main():
              simt_efficiency_per_lane_mode=k2_simt(stats_k2_lane)["simt_efficiency"],
              library_ms=None, shape=f"{Bq} rays, hit block + RI"),
     ]
-    generic, k3_canary = generic_phases(dev, (scene, camera, cfg_s, lanes))
+    generic, k3_canary = generic_phases(dev, (scene, camera, cfg_s, lanes), ptxas)
     kernels += generic
     k2_canary = dict(canary_lanes=(accel_q, lanes), canary_second_pop=(accel_q, lanes2))
     third, sweep2_by_path, k2_wq = third_slice_phases(

@@ -48,8 +48,13 @@ template <class V>
 inline V __shfl_down_sync(unsigned, V, int) {
   return V(0);  // no lane beyond the first
 }
+template <class V>
+inline V __shfl_xor_sync(unsigned, V v, int) {
+  return v;
+}
 inline unsigned __reduce_min_sync(unsigned, unsigned v) { return v; }
 inline void __syncwarp(unsigned = 0xffffffffu) {}
+inline void __syncthreads() {}
 inline unsigned __float_as_uint(float x) {
   unsigned u;
   memcpy(&u, &x, sizeof u);
@@ -92,6 +97,15 @@ inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t)
   *n = 1;
   return 0;
 }
+
+// A block's dynamic shared memory: one buffer, since one thread runs at a time.
+alignas(16) static unsigned char rt_host_shared[1 << 16];
+#define RT_DYNAMIC_SHARED(type, name) type* name = reinterpret_cast<type*>(rt_host_shared)
+#define RT_LAUNCH_SMEM(kernel, blocks, threads, smem, stream, ...)             \
+  do {                                                                       \
+    if ((size_t)(smem) > sizeof rt_host_shared) return cudaErrorInvalidValue; \
+    RT_LAUNCH(kernel, blocks, threads, stream, __VA_ARGS__);                 \
+  } while (0)
 
 #define RT_LAUNCH(kernel, blocks, threads, stream, ...)                      \
   do {                                                                       \

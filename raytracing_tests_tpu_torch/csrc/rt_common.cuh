@@ -36,6 +36,15 @@
 #define RT_LAUNCH(kernel, blocks, threads, stream, ...) \
   kernel<<<(blocks), (threads), 0, (stream)>>>(__VA_ARGS__)
 #endif
+// ... with `smem` bytes of dynamic shared memory, which a kernel names with
+// RT_DYNAMIC_SHARED.
+#ifndef RT_LAUNCH_SMEM
+#define RT_LAUNCH_SMEM(kernel, blocks, threads, smem, stream, ...) \
+  kernel<<<(blocks), (threads), (smem), (stream)>>>(__VA_ARGS__)
+#endif
+#ifndef RT_DYNAMIC_SHARED
+#define RT_DYNAMIC_SHARED(type, name) extern __shared__ __align__(16) type name[]
+#endif
 
 namespace rt {
 

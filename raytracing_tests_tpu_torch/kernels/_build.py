@@ -90,7 +90,8 @@ def precise():
 @contextlib.contextmanager
 def forced_coop_min(coop_min: int):
     """Inside this context every kernel with a warp sweep (K1 ``uber``, K2
-    ``sweep2``, K3 ``sweep2g``, K6 ``mega``) sweeps with ``coop_min`` in place
+    ``sweep2``, K3 ``sweep2g``, K5 ``sweep_grouped``, K6 ``mega``) sweeps with
+    ``coop_min`` in place
     of its module's ``COOP_MIN``: 1 keeps every culling group per lane, 33
     sweeps every group row-parallel.  Both give the same result.  For tests
     and measurement only."""

@@ -58,8 +58,20 @@ GB_COLS = 8  # group box row: lo xyz, hi xyz, 0 0
 
 MODES = ("spheres", "generic")
 _PLAIN_CHUNK = 16384  # rays per dense (rays x objects) block of the plain versions
-# Work counters of the grouped kernel (csrc/sweep.cu SC_*).
-SC_ROWS, SC_RI_ROWS, SC_LEN = range(3)
+# Work counters of the grouped kernel (csrc/sweep.cu SC_*): the rows up to the
+# live bound of every group each lane entered, for the hit pass and the RI
+# pass (the live rows: ``make_accel`` sorts dead rows last), then each pass's
+# lane slots and row-parallel group visits (SIMT efficiency = rows / slots).
+SC_ROWS, SC_RI_ROWS, SC_SLOTS, SC_COOP, SC_RI_SLOTS, SC_RI_COOP, SC_LEN = range(7)
+# The grouped kernel sweeps a group row-parallel where fewer than this many
+# lanes of a warp entered it (csrc/warp_sweep.cuh; ``_build.forced_coop_min``
+# pins another for tests and measurement).  16 was the fastest over the grid
+# canary and the bvh queue frame of the coop_min sweeps in PERF.md.
+COOP_MIN = 16
+# Threads one H100 SXM holds resident (132 SMs x 2048): the fused dense kernel
+# splits a ray over more lanes until a batch fills them.
+RESIDENT_THREADS = 132 * 2048
+NRI_SPLITS = (1, 2, 4, 8)
 
 
 def _np(x):
@@ -400,10 +412,22 @@ def _mean_ri(acc, cnt):
     return torch.where(acc > 1.0, acc / torch.clamp_min(cnt, 1.0), torch.ones_like(acc))
 
 
-def _sum_ri(inside, ri):
+def _sum_ri(inside, ri, acc=None):
+    """The contained rows' RI added onto ``acc`` (default 0) one row at a
+    time in ascending row order, as the JAX package's loops and the kernels
+    add them (a reduction in another order differs in the last bits where a
+    point lies in three or more rows), and their count -> (acc, cnt)."""
     ri = ri.expand_as(inside)
-    acc = torch.sum(torch.where(inside, ri, torch.zeros_like(ri)), dim=1)
-    return acc, torch.sum(inside.to(torch.float32), dim=1)
+    rank = torch.cumsum(inside.to(torch.int32), dim=1)
+    cnt = rank[:, -1] if inside.shape[1] else torch.zeros(
+        inside.shape[0], dtype=torch.int32, device=inside.device)
+    if acc is None:
+        acc = torch.zeros(inside.shape[0], dtype=torch.float32, device=inside.device)
+    zero = torch.zeros_like(ri)
+    for k in range(1, int(cnt.max()) + 1 if cnt.numel() else 1):
+        # the k-th contained row's RI: the only nonzero term of its sum
+        acc = acc + torch.sum(torch.where(inside & (rank == k), ri, zero), dim=1)
+    return acc, cnt.to(torch.float32)
 
 
 def _ri_query_point(o, d, t, bc):
@@ -539,8 +563,7 @@ def sweep_grouped_plain(table, gaabb, rays, group: int, with_ri: bool, mode: str
             sq = q[sel]
             inside = _contains(rows, mode, sq[:, 0:1], sq[:, 1:2], sq[:, 2:3],
                                omt[sel][:, None])
-            da, dc = _sum_ri(inside, rows[None, :, S_RI])
-            acc[sel] += da
+            acc[sel], dc = _sum_ri(inside, rows[None, :, S_RI], acc[sel])
             cnt[sel] += dc
         ri = _mean_ri(acc, cnt)
     return t_best, obj, ri
@@ -611,15 +634,28 @@ def _launch_nearest(table, mode: str, rays):
     return t, obj
 
 
-def _launch_nearest_ri(table, rays):
+def nearest_ri_split(B: int, resident: int = RESIDENT_THREADS) -> int:
+    """Lanes per ray of the fused dense kernel: the least K of ``NRI_SPLITS``
+    with ``B * K >= resident``, else the largest."""
+    return next((k for k in NRI_SPLITS if B * k >= resident), NRI_SPLITS[-1])
+
+
+def _launch_nearest_ri(table, rays, split: Optional[int] = None):
+    """``split``: lanes per ray (one of ``NRI_SPLITS``), by default
+    ``nearest_ri_split(B)`` (1 in the host rehearsal, whose warp is one lane);
+    every split gives the same outputs."""
     dev = rays.device
     B = _check_rays(rays, 8)
     _check_table(table, "spheres", dev)
+    if split is None:
+        split = nearest_ri_split(B) if dev.type == "cuda" else 1
+    if split not in NRI_SPLITS:
+        raise ValueError(f"split={split}: expected one of {NRI_SPLITS}")
     t = torch.empty((B,), dtype=torch.float32, device=dev)
     obj = torch.empty((B,), dtype=torch.int32, device=dev)
     ri = torch.empty((B,), dtype=torch.float32, device=dev)
-    code = _fn("rt_sweep_nearest_ri", [_P, _I, _P, _I, _P, _P, _P, _P], dev)(
-        table.data_ptr(), table.shape[0], rays.data_ptr(), B, t.data_ptr(),
+    code = _fn("rt_sweep_nearest_ri", [_P, _I, _I, _P, _I, _P, _P, _P, _P], dev)(
+        table.data_ptr(), table.shape[0], split, rays.data_ptr(), B, t.data_ptr(),
         obj.data_ptr(), ri.data_ptr(), _build.stream_of(dev))
     _build.check(code, "rt_sweep_nearest_ri")
     _build.LAUNCHES["sweep_nearest_ri"] += 1
@@ -639,6 +675,25 @@ def _launch_ri(table, mode: str, pts):
     return ri
 
 
+def grouped_live_row_bounds(table, group: int, mode: str):
+    """(G,) int32: each group's last live row + 1 (0 for a group without one)."""
+    live = table[:, S_VALID if mode == "spheres" else G_VALID] > 0.0
+    pos = torch.arange(1, group + 1, dtype=torch.int32, device=table.device)
+    return (live.reshape(-1, group).to(torch.int32) * pos).amax(dim=1)
+
+
+def grouped_live_rows(table, group: int, mode: str):
+    """``grouped_live_row_bounds``, computed once per table: kept on the
+    tensor and renewed when another table takes its memory or it is written in
+    place."""
+    key = (table.data_ptr(), table._version, group, mode)
+    memo = getattr(table, "_rt_live_rows", None)
+    if memo is None or memo[0] != key:
+        memo = (key, grouped_live_row_bounds(table, group, mode))
+        table._rt_live_rows = memo
+    return memo[1]
+
+
 def _launch_grouped(table, gaabb, rays, group: int, with_ri: bool, mode: str, stats=None):
     dev = rays.device
     B = _check_rays(rays, 8)
@@ -654,10 +709,13 @@ def _launch_grouped(table, gaabb, rays, group: int, with_ri: bool, mode: str, st
     t = torch.empty((B,), dtype=torch.float32, device=dev)
     obj = torch.empty((B,), dtype=torch.int32, device=dev)
     ri = torch.empty((B,), dtype=torch.float32, device=dev)
-    code = _fn("rt_sweep_grouped", [_P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P], dev)(
-        table.data_ptr(), gaabb.data_ptr(), G, group, MODES.index(mode), int(with_ri),
-        rays.data_ptr(), B, t.data_ptr(), obj.data_ptr(), ri.data_ptr(),
-        stats.data_ptr() if stats is not None else None, _build.stream_of(dev))
+    live = grouped_live_rows(table, group, mode)
+    code = _fn("rt_sweep_grouped",
+               [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P], dev)(
+        table.data_ptr(), gaabb.data_ptr(), live.data_ptr(), G, group, MODES.index(mode),
+        int(with_ri), _build.coop_min(COOP_MIN), rays.data_ptr(), B, t.data_ptr(),
+        obj.data_ptr(), ri.data_ptr(), stats.data_ptr() if stats is not None else None,
+        _build.stream_of(dev))
     _build.check(code, "rt_sweep_grouped")
     _build.LAUNCHES["sweep_grouped"] += 1
     return t, obj, ri
@@ -692,12 +750,12 @@ def sweep_nearest_ri(table, o, d, time_ratio, t_limit):
 
 def _sweep_grouped(table, gaabb, rays, group: int, with_ri: bool, mode: str, stats=None):
     """The grouped sweep on a ray matrix (8, B).  ``stats``: optional zeroed
-    int64[SC_LEN] CUDA tensor that gains the live rows tested by the hit pass
-    and by the RI pass (measurement only)."""
+    int64[SC_LEN] CUDA tensor that gains the work counters ``SC_*``
+    (measurement only)."""
     if _on_cpu(rays, table):
         return sweep_grouped_plain(table, gaabb, rays, group, with_ri, mode)
     with torch.cuda.device(rays.device):
-        return _launch_grouped(table, gaabb, rays, group, with_ri, mode, stats)
+        return _launch_grouped(table, gaabb, rays, group, with_ri, mode, stats=stats)
 
 
 def sweep_grouped(table, gaabb, o, d, time_ratio, t_limit, group: int,

@@ -76,7 +76,7 @@ def test_the_smoke_script_imports_nothing_of_jax():
                 and "raytracing_tests_tpu." not in s, line
 
 
-@pytest.mark.parametrize("script", ["chip_ab.py", "chip_frames.py", "chip_k1.py"])
+@pytest.mark.parametrize("script", ["chip_ab.py", "chip_edge.py", "chip_frames.py", "chip_k1.py"])
 def test_the_other_chip_scripts_import_nothing_of_jax(script):
     """The measurement scripts beside the smoke script run on the card too."""
     import pathlib

@@ -334,3 +334,306 @@ def test_wrappers_check_their_arguments():
     with pytest.raises(ValueError):
         tsw.sweep_nearest(acc.table.to("meta"), "generic", torch.zeros(4, 3), torch.zeros(4, 3),
                           torch.zeros(4), torch.zeros(4))
+
+
+# ---------------------------------------------------------------------------
+# The grouped sweep (K5) on the warp sweep and the fused dense sweep (K4's
+# nearest_ri) with the table in shared memory, rehearsed on the host.  There a
+# warp is one lane: coop_min 1 runs the per-lane walk and 33 the row-parallel
+# sweep, each through its own code.  Every schedule must give the same bits;
+# against the plain version obj and ri are equal and t is within rtol 2e-5
+# (PyTorch's CPU kernels round a few near-cancelling quadratics otherwise than
+# the sequential IEEE arithmetic of the host build: found equal on 99.9 % of
+# the sphere rays and 99.7 % of the generic ones; on the card the -fmad=false
+# build is held to equality by chip_smoke.py).
+# ---------------------------------------------------------------------------
+
+SCHEDULES = (1, 33, tsw.COOP_MIN)
+
+
+def _need_gxx():
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to rehearse the kernel sources with")
+
+
+def _grouped_rehearsed(acc, rays, with_ri, coop_min):
+    """K5's source on the host at ``coop_min`` -> ((t, obj, ri), stats)."""
+    stats = torch.zeros(tsw.SC_LEN, dtype=torch.int64)
+    with _build.host_rehearsal(), _build.forced_coop_min(coop_min):
+        out = tsw._launch_grouped(acc.table, acc.gaabb, rays, acc.group, with_ri, acc.mode,
+                                  stats)
+    return out, stats
+
+
+def _hold_exact(got, want):
+    """obj and ri equal, t within rtol 2e-5."""
+    assert torch.equal(got[1], want[1])
+    if len(got) > 2:
+        assert torch.equal(got[2], want[2])
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), rtol=2e-5)
+
+
+def _same_bits(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("with_ri", [False, True])
+def test_grouped_schedules_rehearsed(case, with_ri):
+    """K5 in each instantiation (generic; spheres; spheres with the fused RI),
+    at coop_min 1, 33 and the default: the same bits, and the plain version's."""
+    _need_gxx()
+    c = case
+    rays = pack_rays(*c["T"])
+    if with_ri and c["mode"] != "spheres":
+        with pytest.raises(ValueError):  # the fused RI pass exists in sphere mode only
+            _grouped_rehearsed(c["tg"], rays, True, tsw.COOP_MIN)
+        return
+    want = tsw.sweep_grouped_plain(c["tg"].table, c["tg"].gaabb, rays, GROUP, with_ri, c["mode"])
+    outs = [_grouped_rehearsed(c["tg"], rays, with_ri, cm)[0] for cm in SCHEDULES]
+    for got in outs[1:]:
+        assert _same_bits(got, outs[0])
+    _hold_exact(outs[0], want)
+    if with_ri and "glass" in c["name"]:
+        _, T = _rays_from_inside_the_glass(c)
+        inside = pack_rays(*T)
+        want = tsw.sweep_grouped_plain(c["tg"].table, c["tg"].gaabb, inside, GROUP, True,
+                                       "spheres")
+        outs = [_grouped_rehearsed(c["tg"], inside, True, cm)[0] for cm in SCHEDULES]
+        assert all(_same_bits(got, outs[0]) for got in outs[1:])
+        _hold_exact(outs[0], want)
+        assert 0.02 < (outs[0][2] != 1.0).float().mean() < 0.98
+
+
+def _with_dead_objects(scene, every=3):
+    """The scene (either package's) with every ``every``-th object dead."""
+    valid = np.array(scene.valid)
+    valid[::every] = False
+    if isinstance(scene.valid, torch.Tensor):
+        return scene.replace(valid=torch.from_numpy(valid))
+    return scene.replace(valid=jnp.asarray(valid))
+
+
+@pytest.mark.parametrize("mode", ["spheres", "generic"])
+def test_grouped_ragged_batch_rehearsed(mode):
+    """A batch that is no multiple of a block, with dead rays (d = 0) in the
+    middle: every schedule gives the plain version's answer, dead rays miss."""
+    _need_gxx()
+    scene, cam = (_glass_spheres(ttypes) if mode == "spheres" else tex.bvh_grid_scene(side=4))
+    acc = tsw.make_accel(scene, mode, group=GROUP)
+    o, d, tr, tl = _rays(5, 301, np.asarray(cam.position))
+    d[100:140] = 0.0
+    rays = pack_rays(*(torch.from_numpy(x) for x in (o, d, tr, tl)))
+    for with_ri in (False, True) if mode == "spheres" else (False,):
+        want = tsw.sweep_grouped_plain(acc.table, acc.gaabb, rays, GROUP, with_ri, mode)
+        outs = [_grouped_rehearsed(acc, rays, with_ri, cm)[0] for cm in SCHEDULES]
+        assert all(_same_bits(got, outs[0]) for got in outs[1:])
+        _hold_exact(outs[0], want)
+        assert (outs[0][1][100:140] == -1).all() and (outs[0][1] >= 0).any()
+
+
+@pytest.mark.parametrize("mode", ["spheres", "generic"])
+def test_grouped_live_row_bound_rehearsed(mode):
+    """Groups that end in dead rows: the bound is each group's last live row
+    + 1, and the kernel never reads a row past it.  A copy of the table whose
+    rows past the bounds hold a live object in front of every ray, launched
+    with the original bounds, still gives the original table's answer."""
+    _need_gxx()
+    scene, cam = (_glass_spheres(ttypes) if mode == "spheres" else tex.bvh_grid_scene(side=4))
+    acc = tsw.make_accel(_with_dead_objects(scene), mode, group=GROUP)
+    valid = acc.table[:, tsw.S_VALID if mode == "spheres" else tsw.G_VALID] > 0
+    bounds = tsw.grouped_live_rows(acc.table, GROUP, mode)
+    G = acc.gaabb.shape[0]
+    want_bounds = [max([j + 1 for j in range(GROUP) if valid[g * GROUP + j]], default=0)
+                   for g in range(G)]
+    assert bounds.tolist() == want_bounds
+    assert any(b < GROUP for b in want_bounds)  # the bound is visible
+    assert tsw.grouped_live_rows(acc.table, GROUP, mode) is bounds  # computed once
+    rays = pack_rays(*(torch.from_numpy(x) for x in _rays(3, 400, np.asarray(cam.position))))
+    want = tsw.sweep_grouped_plain(acc.table, acc.gaabb, rays, GROUP, False, mode)
+    poisoned = acc.table.clone()
+    past = torch.cat([torch.arange(g * GROUP + b, (g + 1) * GROUP) for g, b in
+                      enumerate(want_bounds)])
+    decoy = tsw.pack_scene_table(_glass_spheres(ttypes)[0] if mode == "spheres" else scene, mode)[0]
+    decoy[0:3] = torch.from_numpy(np.asarray(cam.position, np.float32))  # around every origin
+    poisoned[past] = decoy
+    poisoned._rt_live_rows = ((poisoned.data_ptr(), poisoned._version, GROUP, mode), bounds)
+    poisoned_acc = tsw.PallasAccel(poisoned, mode, gaabb=acc.gaabb, group=GROUP)
+    for cm in SCHEDULES:
+        assert _same_bits(_grouped_rehearsed(poisoned_acc, rays, False, cm)[0],
+                          _grouped_rehearsed(acc, rays, False, cm)[0])
+    _hold_exact(_grouped_rehearsed(acc, rays, False, tsw.COOP_MIN)[0], want)
+    # a write in place renews the bounds
+    g_past = int(past[0]) // GROUP
+    acc.table[past[:1]] = decoy
+    assert int(tsw.grouped_live_rows(acc.table, GROUP, mode)[g_past]) == want_bounds[g_past] + 1
+
+
+def _plain_walk_counts(acc, rays, with_ri):
+    """What the sequential walk of every ray tests, by the plain version's
+    arithmetic, for the hit pass and the RI pass: the live rows of the groups
+    it enters, its (ray, group) visits, and the rows up to the live bound of
+    those groups."""
+    mode, group = acc.mode, acc.group
+    live = (acc.table[:, tsw.S_VALID if mode == "spheres" else tsw.G_VALID] > 0)
+    count = live.reshape(-1, group).sum(dim=1)
+    bounds = tsw.grouped_live_row_bounds(acc.table, group, mode)
+    o, d = rays[0:3].T, rays[3:6].T
+    inv = tsw.geometry._safe_inv(d)
+    t_best, obj, _ = tsw.sweep_grouped_plain(acc.table, acc.gaabb, rays, group, False, mode)
+    # each group's entry test sees the best t of the groups before it
+    t_run = torch.clamp_max(rays[7], tsw.BIG_T).clone()
+    hit = dict(rows=0, visits=0, slots=0)
+    for g in range(acc.gaabb.shape[0]):
+        u = (acc.gaabb[g, 0:3] - o) * inv
+        w = (acc.gaabb[g, 3:6] - o) * inv
+        entered = (torch.amin(torch.maximum(u, w), -1) > torch.amax(torch.minimum(u, w), -1)) \
+            & (torch.amax(torch.minimum(u, w), -1) < t_run)
+        n = int(entered.sum())
+        hit["rows"] += n * int(count[g])
+        hit["visits"] += n
+        hit["slots"] += n * int(bounds[g])
+        t_run = tsw.sweep_grouped_plain(acc.table[: (g + 1) * group], acc.gaabb[: g + 1], rays,
+                                        group, False, mode)[0]
+    ri = dict(rows=0, visits=0, slots=0)
+    if with_ri:
+        bc = torch.zeros(rays.shape[1], 3)
+        hitm = obj >= 0
+        rows = acc.table[obj.clamp_min(0).long()]
+        bc[hitm] = (rows[:, 0:3] - rays[6][:, None] * rows[:, 4:7])[hitm]
+        q = tsw._ri_query_point(o, d, t_best, bc)
+        for g in range(acc.gaabb.shape[0]):
+            n = int(torch.all((q >= acc.gaabb[g, 0:3]) & (q <= acc.gaabb[g, 3:6]), dim=1).sum())
+            ri["rows"] += n * int(count[g])
+            ri["visits"] += n
+            ri["slots"] += n * int(bounds[g])
+    return hit, ri
+
+
+@pytest.mark.parametrize("with_ri", [False, True])
+def test_grouped_counters_rehearsed(case, with_ri):
+    """SC_ROWS / SC_RI_ROWS are the live rows of the plain walk; the lane
+    slots are the rows up to each entered group's bound (a warp of one lane
+    issues just those), and the row-parallel visits are every (ray, group)
+    visit at coop_min 33 and none at 1."""
+    _need_gxx()
+    c = case
+    acc = tsw.make_accel(_with_dead_objects(c["ts"]), c["mode"], group=GROUP)
+    rays = pack_rays(*c["T"])
+    with_ri = with_ri and c["mode"] == "spheres"  # generic: the hit pass once more
+    hit, ri = _plain_walk_counts(acc, rays, with_ri)
+    assert hit["rows"] > 0 and (ri["rows"] > 0) == with_ri
+    for cm in (1, 33):
+        _, st = _grouped_rehearsed(acc, rays, with_ri, cm)
+        assert int(st[tsw.SC_ROWS]) == hit["rows"] and int(st[tsw.SC_RI_ROWS]) == ri["rows"]
+        assert int(st[tsw.SC_SLOTS]) == hit["slots"] and int(st[tsw.SC_RI_SLOTS]) == ri["slots"]
+        assert int(st[tsw.SC_COOP]) == (hit["visits"] if cm == 33 else 0)
+        assert int(st[tsw.SC_RI_COOP]) == (ri["visits"] if cm == 33 else 0)
+
+
+@pytest.mark.parametrize("name", [n for n, s in SCENES.items() if s[1] == "spheres"])
+def test_nearest_ri_rehearsed_at_split_1(name):
+    """K4's fused dense kernel with the table staged in shared memory, K = 1
+    (the host's warp is one lane), whole and streamed through two stages; a
+    split the host cannot run is refused."""
+    _need_gxx()
+    js, jc, ts, tc, mode = _scenes(name)
+    table = tsw.make_accel(ts, mode, group=0).table
+    o, d, tr, tl = _rays(7, 1024, np.asarray(jc.position))
+    rays = pack_rays(*(torch.from_numpy(x) for x in (o, d, tr, tl)))
+    # ... and the same rows behind 600 dead ones: more than one stage holds
+    long = torch.cat([torch.zeros(600, tsw.S_COLS), table]).contiguous()
+    with _build.host_rehearsal():
+        got = tsw._launch_nearest_ri(table, rays, 1)
+        got_long = tsw._launch_nearest_ri(long, rays, 1)
+        with pytest.raises(RuntimeError):
+            tsw._launch_nearest_ri(table, rays, 2)
+    _hold_exact(got, tsw.sweep_nearest_ri_plain(table, rays))
+    assert torch.equal(got_long[1], torch.where(got[1] >= 0, got[1] + 600, got[1]))
+    assert torch.equal(got_long[0], got[0]) and torch.equal(got_long[2], got[2])
+    if "glass" in name:
+        _, T = _rays_from_inside_the_glass(dict(J=[jnp.asarray(x) for x in (o, d, tr, tl)],
+                                                T=[torch.from_numpy(x) for x in (o, d, tr, tl)]))
+        inside = pack_rays(*T)
+        with _build.host_rehearsal():
+            got = tsw._launch_nearest_ri(table, inside, 1)
+        _hold_exact(got, tsw.sweep_nearest_ri_plain(table, inside))
+        assert (got[2] != 1.0).float().mean() > 0.02
+
+
+def test_nearest_ri_split_choice():
+    """K, lanes per ray: the least of 1, 2, 4, 8 with B * K at least the
+    card's resident threads (132 SMs x 2048)."""
+    R = tsw.RESIDENT_THREADS
+    assert R == 270_336
+    assert tsw.nearest_ri_split(5_760_000) == 1  # iow's camera lanes
+    assert tsw.nearest_ri_split(179_200) == 2  # the canary's
+    assert [tsw.nearest_ri_split(b) for b in (R, R - 1, R // 2, R // 4 - 1, 1)] == [1, 2, 2, 8, 8]
+    assert tsw.nearest_ri_split(1000, resident=1000) == 1
+    with pytest.raises(ValueError):
+        tsw._launch_nearest_ri(torch.zeros(4, tsw.S_COLS), torch.zeros(8, 4), 3)
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_grouped_live_rows_match_jax_valid_column(name):
+    """The live-row bounds of the port's grouped table, against the valid
+    column of the JAX package's grouped table built from the same scene (with
+    dead objects, so that groups end early)."""
+    js, jc, ts, tc, mode = _scenes(name)
+    valid_col = jsw.S_VALID if mode == "spheres" else jsw.G_VALID
+    jvalid = np.asarray(jsw.make_accel(_with_dead_objects(js), mode, group=GROUP).table)[valid_col]
+    ta = tsw.make_accel(_with_dead_objects(ts), mode, group=GROUP)
+    live = (jvalid > 0).reshape(-1, GROUP)
+    last = np.where(live.any(axis=1), GROUP - np.argmax(live[:, ::-1], axis=1), 0)
+    np.testing.assert_array_equal(tsw.grouped_live_rows(ta.table, GROUP, mode).numpy(), last)
+    assert (last < GROUP).any()
+    # make_accel sorts dead rows last: the bounds count the live rows
+    assert last.sum() == (jvalid > 0).sum()
+
+
+def _deep_glass(ty):
+    """Four concentric glass spheres and a fifth that cuts into them, with
+    diffuse rows between and after them: a point near the centre lies in four
+    or five rows spread over the table, where a sum of their refractive
+    indices in another order than the rows' differs in the last bits."""
+    b = ty.SceneBuilder()
+    far = lambda k, y: b.add_lambertian((5.0 + k, y, -9.0), 0.3, (0.5, 0.5, 0.5))  # noqa: E731
+    for k in range(5):
+        far(k, 0.0)
+    for j, (radius, ior) in enumerate(((0.9, 1.5), (0.65, 1.3), (0.45, 1.7), (0.25, 1.4))):
+        b.add_dielectric((0.0, 0.0, -3.0), radius, ior=ior)
+        for k in range(3):
+            far(k, 2.0 + j)
+    b.add_dielectric((0.45, 0.1, -2.8), 0.4, ior=1.6)
+    for k in range(100):
+        far(k, 1.0)
+    return b.build()
+
+
+def test_ri_sums_in_row_order_as_jax():
+    """The JAX kernels add the contained rows' refractive indices one row at a
+    time in row order; the plain versions (and so the CPU path) do the same:
+    every point and every ray from inside the nested glass gets JAX's bits
+    (a torch.sum over the rows gave them on 25 % of these points)."""
+    js, ts = _deep_glass(jtypes), _deep_glass(ttypes)
+    rng = np.random.default_rng(21)
+    n = 2048
+    o = (np.array([[0.0, 0.0, -3.0]]) + rng.uniform(-0.2, 0.2, (n, 3))).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tr = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    tl = np.full(n, 32000.0, np.float32)
+    J = [jnp.asarray(x) for x in (o, d, tr, tl)]
+    T = [torch.from_numpy(x) for x in (o, d, tr, tl)]
+    jd, jg = jsw.make_accel(js, "spheres", group=0), jsw.make_accel(js, "spheres", group=GROUP)
+    td, tg = port_of(jd), port_of(jg)
+    ri = tsw.sweep_ri(td.table, "spheres", T[0], T[2])
+    assert (ri != 1.0).float().mean() > 0.9
+    np.testing.assert_array_equal(ri.numpy(), np.asarray(jsw.sweep_ri(jd.table, "spheres",
+                                                                      J[0], J[2])))
+    for got, want in ((tsw.sweep_nearest_ri(td.table, *T), jsw.sweep_nearest_ri(jd.table, *J)),
+                      (tsw.sweep_grouped(tg.table, tg.gaabb, *T, GROUP, True, mode="spheres"),
+                       jsw.sweep_grouped(jg.table, jg.gaabb, *J, GROUP, True, has_motion=True,
+                                         mode="spheres"))):
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+        assert (got[2] != 1.0).float().mean() > 0.5
+        np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
