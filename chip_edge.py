@@ -1,6 +1,7 @@
 """Parent against change in one call: K3, the generic sweep (its nearest-hit
-and silhouette instantiations), or with ``--sweep`` K4's fused dense sweep and
-K5, the grouped sweep (``csrc/sweep.cu``), on one NVIDIA GPU.
+and silhouette instantiations), or with ``--sweep`` K4's three dense kernels
+(the nearest hit, the fused nearest hit + RI, the RI sum) and K5, the grouped
+sweep (``csrc/sweep.cu``), on one NVIDIA GPU.
 
 Run from the repository root, with an older checkout of the repository
 unpacked beside it (a directory that .gitignore lists), for example:
@@ -11,22 +12,27 @@ unpacked beside it (a directory that .gitignore lists), for example:
 
 ``--sweep`` builds the parent checkout's ``sweep.cu`` into
 ``raytracing_tests_tpu_torch/_build/sweep_parent/`` and launches it behind
-this checkout's wrappers through the C interface it had before (no live-row
-bounds, no ``coop_min``, no split).  On the inputs ``chip_smoke.py`` gives
-the two kernels: the outputs of parent and change, and of this checkout's
--fmad=false build against the plain versions; the ``ptxas`` lines of both
-builds (K4's ``nearest_kernel`` and ``ri_kernel`` must not change); each
-kernel's time per launch at fixed shapes in ``ROUNDS`` rounds of parent,
-change, change, parent (K5 also at coop_min 1, K4 also at every split): the
-grid canary's lanes, bvh1k's 5 760 000 camera lanes and their second pop, the
-first pop of the first-generation grouped path; K4 at the sphere canary's
-179 200 lanes, the first pop of the first-generation dense path (44 800) and
-the 5 760 000 camera lanes of the sphere scene at 800x450x16; then every
-launch of each driven path (the grid canary, the first-generation grouped and
-dense paths, the bvh queue frame at bvh1k's size) timed on the device alone,
-parent, change and the variants on the same inputs in rotating order, summed.
-``--quick`` leaves out the 5 760 000-lane shapes and the bvh queue frame and
-runs one round.
+this checkout's wrappers through the C interface it had before (its dense
+nearest hit and RI sum lack the bounds, rows, split and counters, which
+``_ParentFn`` drops: its RI sum walks the whole table; the grouped and fused
+kernels' interfaces are this checkout's).  On the inputs ``chip_smoke.py`` gives the kernels: the outputs of
+parent and change, and of this checkout's -fmad=false build against the plain
+versions; the ``ptxas`` lines of both builds (whether the kernels this
+checkout did not redesign kept theirs is printed); each kernel's time per
+launch at fixed shapes in ``ROUNDS`` rounds of parent, change, change, parent
+(K5 also at coop_min 1, K4 also at every split): the grid canary's lanes,
+bvh1k's 5 760 000 camera lanes and their second pop, the first pop of the
+first-generation grouped path; K4's fused sweep at the sphere canary's 179 200
+lanes, the first pop of the first-generation dense path (44 800) and the
+5 760 000 camera lanes of the sphere scene at 800x450x16; K4's dense nearest
+hit at the glass canary's lanes and bvh1k's camera lanes and second pop (the
+dense table), its RI sum at the glass canary's probe points, the glass volume
+and the glass grid frame's first two pops; then every launch of each driven
+path (the grid canary, the first-generation grouped and dense paths, the
+glass canary, the bvh queue frame, the dense generic frame and the glass grid
+frame at bvh1k's size) timed on the device alone, parent, change and the
+variants on the same inputs in rotating order, summed.  ``--quick`` leaves
+out the 5 760 000-lane shapes and the three frames and runs one round.
 
 Builds the parent checkout's ``sweep2g.cu`` with ``nvcc`` into
 ``raytracing_tests_tpu_torch/_build/edge_parent/`` and this checkout's
@@ -363,21 +369,25 @@ def build_sweep_others(parent):
     lib = ctypes.CDLL(str(out / "sweep.so"))
     for name, argtypes in dict(rt_sweep_nearest=[p, i, i, p, i, p, p, p],
                                rt_sweep_ri=[p, i, i, p, i, p, p],
-                               rt_sweep_nearest_ri=[p, i, p, i, p, p, p, p],
-                               rt_sweep_grouped=[p, p, i, i, i, i, p, i, p, p, p, p, p]).items():
+                               rt_sweep_nearest_ri=[p, i, i, p, i, p, p, p, p],
+                               rt_sweep_grouped=[p, p, p, i, i, i, i, i, p, i, p, p, p, p,
+                                                 p]).items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
     ns = types.SimpleNamespace(
-        rt_sweep_nearest=lib.rt_sweep_nearest, rt_sweep_ri=lib.rt_sweep_ri,
-        rt_sweep_nearest_ri=_ParentFn(lib.rt_sweep_nearest_ri, drop=(2,)),  # split
-        rt_sweep_grouped=_ParentFn(lib.rt_sweep_grouped, drop=(2, 7)))  # live_rows, coop_min
+        # the parent's dense kernels take no bounds, split or stats
+        rt_sweep_nearest=_ParentFn(lib.rt_sweep_nearest, drop=(3, 4, 9)),
+        # ... nor the RI rows: the parent walks the whole table
+        rt_sweep_ri=_ParentFn(lib.rt_sweep_ri, drop=(3, 4, 5, 6, 10)),
+        rt_sweep_nearest_ri=lib.rt_sweep_nearest_ri, rt_sweep_grouped=lib.rt_sweep_grouped)
     return ns, cs.ptxas_by_kernel(f"== sweep.so ==\n{log}\n"), libs, ptxas
 
 
 def sweep_inputs(dev, quick):
     """The inputs chip_smoke.py gives K4 and K5 -> (K5 shapes {name: args of
-    _launch_grouped}, K4 shapes {name: (table, rays)}, driven paths {name:
-    (wrapper name, render)})."""
+    _launch_grouped}, K4 fused shapes {name: (table, rays)}, K4 dense shapes
+    {name: (kind, table, mode, rays or points)}, driven paths {name: (wrapper
+    names, render)})."""
     scene, camera = examples.bvh_grid_scene(side=32)
     scene, camera = scene.to(dev), camera.to(dev)
     cfg = cs.RenderConfig(intersector="pallas", **cs.BVH1K).for_scene(scene)
@@ -402,23 +412,55 @@ def sweep_inputs(dev, quick):
           "first_generation_grouped pop 1": pops[0]}
     k4 = {"sphere canary lanes": (s_dense.table, lanes_of(i_cam, i_cfg)),
           "first_generation_dense pop 1": dense_pops[0]}
-    paths = {"grid canary": ("_launch_grouped", lambda: cs.render_stats(scene, camera, cfg_s)),
-             "first_generation_grouped": ("_launch_grouped", lambda: cs.render_stats(
+    # K4's dense kernels: the glass canary (the overlapping glass scene, dense)
+    gl_scene, gl_cam = cs.overlapping_glass_scene()
+    gl_scene, gl_cam = gl_scene.to(dev), gl_cam.to(dev)
+    cfg_gl = cs.RenderConfig(intersector="pallas", pallas_groups=0,
+                             **cs.GLASS).for_scene(gl_scene)
+    acc_gl = cs._build_accel(gl_scene, cfg_gl)
+    gl_lanes = lanes_of(gl_cam, cfg_gl)
+    vol = cs.seeded_rays((0.2, 0.0, -3.5), 0.9, 100_000, dev, n_dead=0)
+    k4d = {"glass canary lanes": ("nearest", acc_gl.table, "generic", gl_lanes),
+           "glass canary probe points": ("ri", acc_gl.table, "generic",
+                                         cs.probe_points(acc_gl, gl_lanes)),
+           "glass volume": ("ri", acc_gl.table, "generic",
+                            torch.cat([vol[0:3], vol[6:7]]).contiguous())}
+    paths = {"grid canary": (("_launch_grouped",), lambda: cs.render_stats(scene, camera, cfg_s)),
+             "first_generation_grouped": (("_launch_grouped",), lambda: cs.render_stats(
                  i_scene, i_cam, dataclasses.replace(cfg_v1, pallas_groups=32))),
-             "first_generation_dense": ("_launch_nearest_ri", lambda: cs.render_stats(
-                 i_scene, i_cam, dataclasses.replace(cfg_v1, pallas_groups=0)))}
+             "first_generation_dense": (("_launch_nearest_ri",), lambda: cs.render_stats(
+                 i_scene, i_cam, dataclasses.replace(cfg_v1, pallas_groups=0))),
+             "glass canary": (("_launch_nearest", "_launch_ri"),
+                              lambda: cs.render_stats(gl_scene, gl_cam, cfg_gl))}
     if not quick:
         lanes = lanes_of(camera, cfg)
         k5["bvh1k camera lanes"] = g5(lanes)
         k5["bvh1k second pop"] = g5(cs.second_generation_g(acc5, lanes))
         cfg_i16 = cs.RenderConfig(intersector="pallas", **cs.BVH1K).for_scene(i_scene)
         k4["iow camera lanes 800x450x16"] = (s_dense.table, lanes_of(i_cam, cfg_i16))
-        paths["bvh queue frame"] = ("_launch_grouped",
+        acc4 = cs._build_accel(scene, dataclasses.replace(cfg, pallas_groups=0))
+        k4d["bvh1k camera lanes"] = ("nearest", acc4.table, "generic", lanes)
+        k4d["bvh1k second pop"] = ("nearest", acc4.table, "generic",
+                                   cs.second_generation_g(acc5, lanes))
+        gg_scene, gg_cam = cs.glass_grid_scene()
+        gg_scene, gg_cam = gg_scene.to(dev), gg_cam.to(dev)
+        cfg_gg = cs.RenderConfig(intersector="pallas", **cs.BVH1K).for_scene(gg_scene)
+        with cs.launches_of(cs.sweep, "_launch_ri") as ri_pops:
+            cs.render_stats(gg_scene, gg_cam, cfg_gg)
+        for k, (table, mode, pts) in enumerate(ri_pops[:2]):
+            k4d[f"glass_grid_frame pop {k + 1}"] = ("ri", table, mode, pts)
+        del ri_pops
+        cfg_dense = dataclasses.replace(cfg, pallas_groups=0)
+        paths["bvh queue frame"] = (("_launch_grouped",),
                                     lambda: cs.render_stats(scene, camera, cfg))
-    return k5, k4, paths
+        paths["dense_generic_frame"] = (("_launch_nearest",),
+                                        lambda: cs.render_stats(scene, camera, cfg_dense))
+        paths["glass_grid_frame"] = (("_launch_ri",),
+                                     lambda: cs.render_stats(gg_scene, gg_cam, cfg_gg))
+    return k5, k4, k4d, paths
 
 
-def sweep_shapes(parent, variants, k5, k4, rounds):
+def sweep_shapes(parent, variants, k5, k4, k4d, rounds):
     """Per launch at fixed shapes: outputs and times of parent, change and
     the source variants."""
     none = contextlib.nullcontext
@@ -473,6 +515,30 @@ def sweep_shapes(parent, variants, k5, k4, rounds):
             change_vs_parent=same(new, old), precise_vs_plain=cs.exact_vs_plain(precise, want),
             ms={f: min(t) for f, t in times.items()}, rounds_ms=times, bound_ms=bnd[0],
             bound_by=bnd[1])
+    for name, (kind, table, mode, x) in k4d.items():
+        launch = cs._K4_LAUNCH[kind]
+        run = lambda k=None: launch(table, mode, x, k)  # noqa: E731
+        tup = lambda o: o if kind == "nearest" else (o,)  # noqa: E731
+        new = tup(run())
+        with old_of():
+            old = tup(run())
+        with _build.precise():
+            splits = {k: tup(run(k)) for k in cs.sweep.NRI_SPLITS}
+        want = (cs.sweep.sweep_nearest_plain(table, mode, x) if kind == "nearest"
+                else (cs.sweep.sweep_ri_plain(table, mode, x),))
+        exact = all(torch.equal(a, b) for o in splits.values() for a, b in zip(o, want))
+        cs.require(exact, f"K4 {kind} on {name}: a split of the -fmad=false build differs "
+                   "from the plain version")
+        fns = {"parent": (old_of, run), "change": (none, run),
+               **{f"change_K{k}": (none, lambda k=k: run(k)) for k in cs.sweep.NRI_SPLITS}}
+        times = kernel_ms(fns, rounds)
+        _, stats = cs.k4_run(kind, table, mode, x)
+        say(phase=f"k4_{kind}_shape", shape=name, mode=mode, size=x.shape[1],
+            rows=table.shape[0], default_split=cs.sweep.nearest_ri_split(x.shape[1]),
+            change_vs_parent={k: cs.frac(a == b) for k, a, b in zip(("t", "obj", "ri")[
+                2 if kind == "ri" else 0:], new, old)},
+            ms={f: min(t) for f, t in times.items()}, rounds_ms=times,
+            **cs.k4_bound(kind, table, mode, x, stats), **cs.k4_counts(stats))
 
 
 def sweep_path(name, wrapper, render, parent, variants):
@@ -480,9 +546,12 @@ def sweep_path(name, wrapper, render, parent, variants):
     parent, change and each source variant on the same inputs in rotating
     order (the faster of two timings each) -> their sums."""
     real = getattr(cs.sweep, wrapper)
-    prefix = "k5_" if wrapper == "_launch_grouped" else "k4_"
+    prefix = {"_launch_grouped": "k5_", "_launch_nearest_ri": "k4_"}.get(wrapper)
+    bound_of = {"_launch_grouped": cs.k5_bound_of_launch,
+                "_launch_nearest_ri": cs.k4_nri_bound_of_launch,
+                "_launch_nearest": cs.K4Path("nearest"), "_launch_ri": cs.K4Path("ri")}[wrapper]
     libs = {"parent": parent, "change": None,
-            **{v: lib for v, lib in variants.items() if v.startswith(prefix)}}
+            **{v: lib for v, lib in variants.items() if prefix and v.startswith(prefix)}}
     got = {w: [] for w in libs}
     bounds = []
 
@@ -494,8 +563,7 @@ def sweep_path(name, wrapper, render, parent, variants):
             with kernels_of(libs[w], SWEEP_KEY) if libs[w] else contextlib.nullcontext():
                 got[w].append([cs.gapless_events(lambda: real(table, *args, **kw))
                                for _ in range(2)])
-        bounds.append(cs.k5_bound_of_launch(table, *args) if wrapper == "_launch_grouped"
-                      else cs.k4_nri_bound_of_launch(table, *args))
+        bounds.append(bound_of(table, *args))
         return real(table, *args, **kw)
 
     with cs.patched(cs.sweep, wrapper, hook):
@@ -517,14 +585,14 @@ def sweep_main(parent_dir, quick, dev):
     del variants["change"]
     ptxas = ptxas_variants.pop("change")
     kept = {k: ptxas.get(k) == v for k, v in ptxas_parent.items()
-            if "nearest_kernel" in k or "ri_kernel<" in k}
+            if "nearest_ri_kernel" in k or "grouped_kernel" in k}
     say(phase="build", seconds=info["seconds"], change=ptxas, parent=ptxas_parent,
-        variants=ptxas_variants, dense_kernels_unchanged=kept)
-    cs.require(kept and all(kept.values()), f"nearest_kernel / ri_kernel changed: {kept}")
-    k5, k4, paths = sweep_inputs(dev, quick)
-    sweep_shapes(parent, variants, k5, k4, 1 if quick else ROUNDS)
-    for name, (wrapper, render) in paths.items():
-        sweep_path(name, wrapper, render, parent, variants)
+        variants=ptxas_variants, untouched_kernels_as_parent=kept)
+    k5, k4, k4d, paths = sweep_inputs(dev, quick)
+    sweep_shapes(parent, variants, k5, k4, k4d, 1 if quick else ROUNDS)
+    for name, (wrappers, render) in paths.items():
+        for wrapper in wrappers:
+            sweep_path(name, wrapper, render, parent, variants)
 
 
 def main():

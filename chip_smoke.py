@@ -113,7 +113,13 @@ Phases and their bars:
      the -fmad=false build: outputs bit for bit and equal counters, and t,
      obj and the refractive index bit for bit the plain version's; K4's fused
      sweep likewise at every split K (1, 2, 4, 8), also at the 5 760 000
-     camera lanes of the sphere scene at 800x450x16.
+     camera lanes of the sphere scene at 800x450x16; after the frames below,
+     K4's dense sweep_nearest and sweep_ri likewise at every split, in both
+     modes (the glass canary's lanes and second pop, bvh1k's camera lanes,
+     second pop and edge cases, the first two pops of both frames below, the
+     sphere lanes and deep glass; for sweep_ri the glass probe and volume
+     points, the grid's hit points, the glass grid frame's first two pops and
+     ``deep_glass_spheres()``), each with its counters (``k4_dense_modes``).
   bvh_queue_frame. The bvh workload's own path: the queue renderer
      (``render_stats``, intersector="pallas", K5's generic instantiation) on
      ``bvh_grid_scene(side=32)`` at 800x450x16 depth 8, one warm frame and
@@ -122,6 +128,18 @@ Phases and their bars:
      launch timed on the device alone beside its bound; a profiled frame for
      the card's busy and idle shares and K5's share; K5's coop_min sweep
      over the frame and over the grid canary (``k5_coop_sweep``).
+  dense_generic_frame. The same scene and size through the queue renderer
+     with pallas_groups=0: K4's culled dense sweep_nearest alone, once a pop;
+     the canary's envelope against the bvh queue frame of the same run; zero
+     dropped; every launch timed on the device alone beside its bound (the
+     lesser of the dense count and the work K4's counters name, ``k4_bound``),
+     none at or below it; the counters' share of rows fully tested and SIMT
+     efficiency; the card's idle share over a profiled frame.
+  glass_grid_frame. ``glass_grid_scene()`` (every fourth grid object glass)
+     at 800x450x16 d8 through the default grouped queue renderer: K5 and
+     K4's sweep_ri (the generic scene's surrounding-RI probe) once a pop
+     each; the envelope against render_uber of the same scene; zero dropped;
+     both kernels' launches timed and bounded as above, apart.
  13. the chunked megakernel (``mega_step``) vs plain at the shapes the drain
      gives it: the (16, 2^20) pools of the headline frame's first chunk at
      iterations 0, 1 and the chunk's last (mostly inactive lanes), taken from
@@ -354,26 +372,19 @@ PTXAS_REDESIGNED = {
 }
 # The generic sweep's instantiations, which must build with no spill.
 K3_INSTANTIATIONS = [k for k in PTXAS_REDESIGNED if k.startswith("sweep2g.so")]
-# ... and what it gave the dense sweeps of K4 that kept their first source
-# (nearest_kernel, ri_kernel): they must not change.  (K5's grouped_kernel
-# before the warp sweep: <0,1> 40 registers, 8 B of stack, 4/8 B of spill;
-# <1,0> 47 and none.)
-PTXAS_UNCHANGED = {
-    "sweep.so nearest_kernel<0>": dict(registers=32, stack=0, spill_stores=0, spill_loads=0),
-    "sweep.so nearest_kernel<1>": dict(registers=40, stack=0, spill_stores=0, spill_loads=0),
-    "sweep.so ri_kernel<0>": dict(registers=32, stack=0, spill_stores=0, spill_loads=0),
-    "sweep.so ri_kernel<1>": dict(registers=39, stack=0, spill_stores=0, spill_loads=0),
-}
+# (K4's dense nearest_kernel and ri_kernel, one thread a ray before they were
+# staged and split: <0> 32 and 40 registers, <1> 32 and 39, no spill.)
 # ... and what it gives K5 on the warp sweep (<generic, fused RI>, at 5 blocks
 # of 256 per SM) and K4's fused sweep in shared memory (<lanes per ray>; before:
-# one nearest_ri_kernel, 38 registers, no spill).
+# one nearest_ri_kernel, 38 registers, no spill; <2> and <4> had 36 and 40
+# before the dense kernels came to share its staging code).
 PTXAS_K45 = {
     "sweep.so grouped_kernel<0,0>": dict(registers=46, stack=0, spill_stores=0, spill_loads=0),
     "sweep.so grouped_kernel<0,1>": dict(registers=48, stack=0, spill_stores=0, spill_loads=0),
     "sweep.so grouped_kernel<1,0>": dict(registers=48, stack=0, spill_stores=0, spill_loads=0),
     "sweep.so nearest_ri_kernel<1>": dict(registers=39, stack=0, spill_stores=0, spill_loads=0),
-    "sweep.so nearest_ri_kernel<2>": dict(registers=36, stack=0, spill_stores=0, spill_loads=0),
-    "sweep.so nearest_ri_kernel<4>": dict(registers=40, stack=0, spill_stores=0, spill_loads=0),
+    "sweep.so nearest_ri_kernel<2>": dict(registers=35, stack=0, spill_stores=0, spill_loads=0),
+    "sweep.so nearest_ri_kernel<4>": dict(registers=38, stack=0, spill_stores=0, spill_loads=0),
     "sweep.so nearest_ri_kernel<8>": dict(registers=40, stack=0, spill_stores=0, spill_loads=0),
 }
 
@@ -1136,15 +1147,19 @@ def kernels_on_path(render, hooks):
     """Run ``render()`` with each launch function of ``hooks`` ({label:
     (module, name, bound_of)}) timed at every launch by CUDA events, the card
     kept busy while the host enqueues it, and charged ``bound_of(*args)`` ms
-    -> {label: launches, summed ms and bound, their difference}."""
+    (taken first: its counted launch fills the wrapper's per-table memos,
+    which the timed launch then finds) -> {label: launches, summed ms and
+    bound, their difference, the launches that read at or below their
+    bound}."""
     got = {label: [] for label in hooks}
     reals = {label: getattr(module, name) for label, (module, name, _) in hooks.items()}
 
     def timed(label, bound_of):
         def launch(*args, **kw):
             held = {}
+            bnd = bound_of(*args, **kw)
             events = gapless_events(lambda: held.update(out=reals[label](*args, **kw)))
-            got[label].append((events, bound_of(*args, **kw)))
+            got[label].append((events, bnd))
             return held["out"]
         return launch
 
@@ -1158,9 +1173,11 @@ def kernels_on_path(render, hooks):
     torch.cuda.synchronize()
     res = {}
     for label, calls in got.items():
-        ms = sum(a.elapsed_time(b) for (a, b), _ in calls)
-        bnd = sum(b for _, b in calls)
-        res[label] = dict(launches=len(calls), ms=ms, bound_ms=bnd, ms_above_bound=ms - bnd)
+        each = [(a.elapsed_time(b), bnd) for (a, b), bnd in calls]
+        ms = sum(m for m, _ in each)
+        bnd = sum(b for _, b in each)
+        res[label] = dict(launches=len(calls), ms=ms, bound_ms=bnd, ms_above_bound=ms - bnd,
+                          launches_at_or_below_bound=sum(m <= b for m, b in each))
     return res
 
 
@@ -1240,9 +1257,13 @@ def generic_phases(dev, iow, ptxas):
     gl_lanes = sweep2.pack_rays(glo, gld, gltr, torch.full_like(gltr, cfg_gl.t_max))
     gl_lanes2 = second_generation_g(sweep.make_accel(gl_scene, "generic", group=4), gl_lanes)
     pts_grid = probe_points(acc5, lanes)
-    plain_ms["camera_lanes", "sweep_ri"], _ = timed_ms(
-        lambda: sweep.sweep_ri_plain(acc4.table, "generic", pts_grid))
     ri_grid = compare_ri("sweep_ri", "grid_hit_points", acc4.table, "generic", pts_grid)
+    say(phase="sweep_ri_grid_hit_points", points=pts_grid.shape[1],
+        note="the grid has no glass, but its objects carry the builder's default refractive "
+             "index 1.5 (refractivity 0), so none of them is an air row: the sum walks all "
+             "1 025 live rows, each behind its bounding sphere; the glass scenes are its measure",
+        rows_walked=int(sweep.ri_rows(acc4.table, "generic")[0].shape[0]),
+        **k4_counts(k4_run("ri", acc4.table, "generic", pts_grid)[1]))
     ri_glass = {}
     for batch, rr in dict(glass_lanes=gl_lanes, glass_second_pop=gl_lanes2).items():
         ri_glass[batch] = compare_ri("sweep_ri", batch, acc_gl.table, "generic",
@@ -1373,22 +1394,12 @@ def generic_phases(dev, iow, ptxas):
 
     # K4 and K5 at the shapes their driven paths give them: every launch of
     # the glass canary's dense sweeps and of the grid canary's grouped sweep
-    def live_rows_of(table, mode):
-        return int((table[:, sweep.G_VALID if mode == "generic" else sweep.S_VALID] > 0).sum())
-
-    def nearest_bound(table, mode, rays):
-        B = rays.shape[1]
-        return bound(40 * B + 4 * table.numel(),
-                     B * live_rows_of(table, mode) * FLOPS_PER_GENERIC_ROW)[0]
-
-    def ri_bound_of(table, mode, pts):
-        B = pts.shape[1]
-        return bound(20 * B + 4 * table.numel(),
-                     B * live_rows_of(table, mode) * FLOPS_PER_CONTAINS_GENERIC)[0]
-
+    glass_nearest, glass_ri = K4Path("nearest"), K4Path("ri")
     driven = kernels_on_path(lambda: render_stats(gl_scene, gl_cam, cfg_gl), dict(
-        sweep_nearest=(sweep, "_launch_nearest", nearest_bound),
-        sweep_ri=(sweep, "_launch_ri", ri_bound_of)))
+        sweep_nearest=(sweep, "_launch_nearest", glass_nearest),
+        sweep_ri=(sweep, "_launch_ri", glass_ri)))
+    driven["sweep_nearest"] = glass_nearest.summary(driven["sweep_nearest"])
+    driven["sweep_ri"] = glass_ri.summary(driven["sweep_ri"])
     driven.update(kernels_on_path(lambda: render_stats(scene, camera, cfg_s), dict(
         sweep_grouped=(sweep, "_launch_grouped", k5_bound_of_launch))))
     st3c = torch.zeros(sweep2g.GC_LEN, dtype=torch.int64, device=dev)
@@ -1414,7 +1425,9 @@ def generic_phases(dev, iow, ptxas):
                    first_generation_dense="sweep_nearest_ri on the sphere scene, every pop",
                    first_generation_grouped="sweep_grouped (spheres, fused RI), every pop"),
         **driven)
-    require(all(r["ms"] > r["bound_ms"] for r in driven.values()),
+    require(all(r["ms"] > r["bound_ms"] for r in driven.values())
+            and driven["sweep_nearest"]["launches_at_or_below_bound"] == 0
+            and driven["sweep_ri"]["launches_at_or_below_bound"] == 0,
             f"a kernel below its bound on its driven path, a counting error: {driven}")
     o_v2 = render_stats(i_scene, i_cam, dataclasses.replace(i_cfg, spp=2))
     launches_v1, pops_v1 = {}, {}
@@ -1481,8 +1494,48 @@ def generic_phases(dev, iow, ptxas):
         require(got == {"uber_g": 1},
                 f"a generic frame is one launch of the persistent kernel: {launches_frames}")
     # ... and the same frame through the bvh workload's own path, against it
-    bvh_queue, launches_q = bvh_queue_frame(scene, camera, cfg, out)
+    bvh_queue, launches_q, oq_k5 = bvh_queue_frame(scene, camera, cfg, out)
     k5_grid_sweep = k5_coop_sweep("grid canary", lambda: render_stats(scene, camera, cfg_s))
+    # ... and the two frames that drive K4's dense kernels at full width
+    dense_f, launches_dense, dense_pops = dense_generic_frame(scene, camera, cfg, oq_k5)
+    del oq_k5
+    glass_f, launches_gg, glass_pops = glass_grid_frame(dev)
+    frames12 = dict(dense_generic_frame=dense_f["sweep_nearest"],
+                    glass_grid_frame_sweep_ri=glass_f["sweep_ri"],
+                    glass_grid_frame_sweep_grouped=glass_f["sweep_grouped"])
+    say(phase="driven_paths", what="K4's dense kernels and K5 on the twelfth slice's frames",
+        paths=dict(dense_generic_frame="sweep_nearest, every pop",
+                   glass_grid_frame="sweep_grouped and sweep_ri, every pop"), **frames12)
+    require(all(r["ms"] > r["bound_ms"] for r in frames12.values())
+            and all(frames12[k]["launches_at_or_below_bound"] == 0
+                    for k in ("dense_generic_frame", "glass_grid_frame_sweep_ri")),
+            f"a kernel below its bound on the twelfth slice's frames: {frames12}")
+    # K4's dense kernels in every split, bit for bit, on every input above
+    k4_generic = lambda table, rr: (table, "generic", rr)  # noqa: E731
+    k4_nearest_in = {
+        "glass lanes": k4_generic(acc_gl.table, gl_lanes),
+        "glass second pop": k4_generic(acc_gl.table, gl_lanes2),
+        "bvh1k camera lanes": k4_generic(acc4.table, lanes),
+        "bvh1k second pop": k4_generic(acc4.table, lanes2),
+        "edge cases": k4_generic(acc4.table, edge),
+        **{f"dense_generic_frame pop {k + 1}": args for k, args in enumerate(dense_pops)},
+        "sphere lanes": (s_dense.table, "spheres", i_lanes),
+        "sphere second pop": (s_dense.table, "spheres", i_lanes2),
+        "deep glass": (d_dense.table, "spheres", deep_rays)}
+    deep_pts = probe_points(d_dense, deep_rays)
+    k4_ri_in = {
+        "glass lanes": k4_generic(acc_gl.table, probe_points(acc_gl, gl_lanes)),
+        "glass second pop": k4_generic(acc_gl.table, probe_points(acc_gl, gl_lanes2)),
+        "glass volume": k4_generic(acc_gl.table, torch.cat([vol[0:3], vol[6:7]]).contiguous()),
+        "grid hit points": k4_generic(acc4.table, pts_grid),
+        **{f"glass_grid_frame pop {k + 1}": args for k, args in enumerate(glass_pops)},
+        "deep glass points": (d_dense.table, "spheres", deep_pts),
+        "deep glass volume": (d_dense.table, "spheres",
+                              torch.cat([deep_rays[0:3], deep_rays[6:7]]).contiguous())}
+    k4_modes = k4_dense_modes(k4_nearest_in, k4_ri_in)
+    require(k4_modes["K4 ri deep glass volume"]["ri_not_one"] > 0.5,
+            f"the deep glass points lie in no glass: {k4_modes['K4 ri deep glass volume']}")
+    del k4_nearest_in, k4_ri_in, dense_pops
 
     # 12. the kernels at the main path's shapes ----------------------------------
     ms_k1 = cuda_ms(lambda: uber.uber_render(acc3, cam_g, st), 3)
@@ -1516,7 +1569,6 @@ def generic_phases(dev, iow, ptxas):
 
     B = lanes.shape[1]
     o, d, tr, tl = unpack(lanes)
-    table_bytes = lambda *ts: 4 * sum(t.numel() for t in ts)
     # K3: counted slab tests and live rows by kind
     st3 = torch.zeros(sweep2g.GC_LEN, dtype=torch.int64, device=dev)
     sweep2g._sweep2g(acc3, lanes, st3)
@@ -1537,15 +1589,25 @@ def generic_phases(dev, iow, ptxas):
     ms_k5_2 = cuda_ms(lambda: sweep._sweep_grouped(*generic5(lanes2)), 10)
     n_g5 = acc5.gaabb.shape[0]
     k5_bnd, k5_by = k5_bound(acc5.table, acc5.gaabb, lanes, False, "generic", st5)
-    # K4: every ray tests every live row (padding rows return at their flag)
+    # K4: each ray pre-tests every row and fully tests those within its
+    # bounding sphere; the RI sum at the glass grid frame's first probe points
+    # (the grid's own hit points are printed above)
     n4 = acc4.table.shape[0]
     live4 = int((acc4.table[:, sweep.G_VALID] > 0).sum())
     ms_k4 = cuda_ms(lambda: sweep.sweep_nearest(acc4.table, "generic", o, d, tr, tl), 5)
-    k4_bound, k4_by = bound(40 * B + table_bytes(acc4.table), B * live4 * FLOPS_PER_GENERIC_ROW)
-    q, qtr = pts_grid[0:3].T.contiguous(), 1.0 - pts_grid[3]
-    ms_ri = cuda_ms(lambda: sweep.sweep_ri(acc4.table, "generic", q, qtr), 5)
-    ri_bound, ri_by = bound(20 * B + table_bytes(acc4.table),
-                            B * live4 * FLOPS_PER_CONTAINS_GENERIC)
+    _, st4 = k4_run("nearest", acc4.table, "generic", lanes)
+    k4_b = k4_bound("nearest", acc4.table, "generic", lanes, st4)
+    ms_k4_split = {k: cuda_ms(lambda: sweep._launch_nearest(acc4.table, "generic", lanes, k), 3)
+                   for k in sweep.NRI_SPLITS}
+    ri_table, _, ri_pts = glass_pops[0]
+    Bri, nri4 = ri_pts.shape[1], ri_table.shape[0]
+    ms_ri = cuda_ms(lambda: sweep._launch_ri(ri_table, "generic", ri_pts), 5)
+    _, st_ri = k4_run("ri", ri_table, "generic", ri_pts)
+    ri_b = k4_bound("ri", ri_table, "generic", ri_pts, st_ri)
+    ms_ri_split = {k: cuda_ms(lambda: sweep._launch_ri(ri_table, "generic", ri_pts, k), 3)
+                   for k in sweep.NRI_SPLITS}
+    plain_ms["glass_grid_pop_1", "sweep_ri"], _ = timed_ms(
+        lambda: sweep.sweep_ri_plain(ri_table, "generic", ri_pts))
     # the fused sphere kernel at the sphere canary's lanes
     io, id_, itr, itl = unpack(i_lanes)
     Bi, ni = i_lanes.shape[1], s_dense.table.shape[0]
@@ -1569,8 +1631,14 @@ def generic_phases(dev, iow, ptxas):
                            second_pop=dict(ms=ms_k5_2, bound_ms=k5_bound(
                                acc5.table, acc5.gaabb, lanes2, False, "generic", st5_2)[0],
                                **k5_simt(st5_2))),
-        sweep_nearest=dict(ms=ms_k4, live_rows_per_ray=live4, table_rows=n4),
-        sweep_ri=dict(ms=ms_ri, live_rows_per_point=live4, table_rows=n4),
+        sweep_nearest=dict(ms=ms_k4, live_rows_per_ray=live4, table_rows=n4,
+                           split=sweep.nearest_ri_split(B), ms_by_split=ms_k4_split,
+                           **k4_b, **k4_counts(st4)),
+        sweep_ri=dict(ms=ms_ri, at="the glass grid frame's first pop", points=Bri,
+                      table_rows=nri4, rows_walked=int(sweep.ri_rows(ri_table, "generic")[0]
+                                                     .shape[0]),
+                      split=sweep.nearest_ri_split(Bri), ms_by_split=ms_ri_split,
+                      **ri_b, **k4_counts(st_ri)),
         sweep_nearest_ri=dict(ms=ms_nri, live_rows_per_ray=live_i, table_rows=ni,
                               split=sweep.nearest_ri_split(Bi), ms_by_split=nri_by_split,
                               at_iow_camera_lanes=nri_wide))
@@ -1578,7 +1646,8 @@ def generic_phases(dev, iow, ptxas):
     paths = dict(generic_canary=launches_canary, sweep2g_entry=launches_k3,
                  glass_canary=launches_glass, first_generation_dense=launches_v1[0],
                  first_generation_grouped=launches_v1[32], bvh1k_frame=launches_frames[-1],
-                 bvh_queue_frame=launches_q)
+                 bvh_queue_frame=launches_q, dense_generic_frame=launches_dense,
+                 glass_grid_frame=launches_gg)
     by_path = lambda name: {p: got.get(name, 0) for p, got in paths.items()}
     main = sweeps["camera_lanes"]
     tol = ("same winner as the plain version on >= 99.9 % of rays, t within rtol 1e-4 on "
@@ -1612,19 +1681,28 @@ def generic_phases(dev, iow, ptxas):
               simt_efficiency=k3_simt(st3)["simt_efficiency"],
               simt_efficiency_per_lane_mode=k3_simt(st3_lane)["simt_efficiency"],
               shape=f"{B} rays, 17 groups of 64", at_driven_path=driven["sweep2g"]),
-        entry("sweep_nearest", "sweep.cu", "sweep.py:535", launches_glass.get("sweep_nearest", 0),
+        entry("sweep_nearest", "sweep.cu", "sweep.py:535", launches_dense.get("sweep_nearest", 0),
               main["sweep_nearest"], ms=ms_k4, plain_ms=plain_ms["camera_lanes", "sweep_nearest"],
-              bound_ms=k4_bound, bound_by=k4_by, shape=f"{B} rays x {n4} generic rows",
-              at_driven_path=driven["sweep_nearest"]),
+              bound_ms=k4_b["bound_ms"], bound_by=k4_b["bound_by"],
+              dense_bound_ms=k4_b["dense_bound_ms"], culled_bound_ms=k4_b["culled_bound_ms"],
+              split=sweep.nearest_ri_split(B), ms_by_split=ms_k4_split, counters=k4_counts(st4),
+              shape=f"{B} rays x {n4} generic rows", at_driven_path=driven["sweep_nearest"],
+              at_dense_generic_frame=dense_f["sweep_nearest"],
+              ptxas={k: ptxas.get(k) for k in K4_DENSE_INSTANTIATIONS if "nearest_kernel" in k}),
         dict(name="sweep_ri", route="cuda", source=src + "sweep.cu",
-             replaces=jax_src + "sweep.py:535", launches=launches_glass.get("sweep_ri", 0),
+             replaces=jax_src + "sweep.py:535", launches=launches_gg.get("sweep_ri", 0),
              launches_by_path=by_path("sweep_ri"), max_abs_err=max(
                  ri_grid["max_abs_err"], *(r["max_abs_err"] for r in ri_glass.values())),
              tolerance="equal to the plain version on >= 99.9 % of the points",
              frac_within_tolerance=min(ri_grid["equal"], *(r["equal"] for r in ri_glass.values())),
-             ms=ms_ri, plain_ms=plain_ms["camera_lanes", "sweep_ri"], bound_ms=ri_bound,
-             bound_by=ri_by, library_ms=None, shape=f"{B} points x {n4} generic rows",
-             at_driven_path=driven["sweep_ri"]),
+             ms=ms_ri, plain_ms=plain_ms["glass_grid_pop_1", "sweep_ri"],
+             bound_ms=ri_b["bound_ms"], bound_by=ri_b["bound_by"],
+             dense_bound_ms=ri_b["dense_bound_ms"], culled_bound_ms=ri_b["culled_bound_ms"],
+             split=sweep.nearest_ri_split(Bri), ms_by_split=ms_ri_split,
+             counters=k4_counts(st_ri), library_ms=None,
+             shape=f"{Bri} points x {nri4} generic rows (the glass grid frame's first pop)",
+             at_driven_path=driven["sweep_ri"], at_glass_grid_frame=glass_f["sweep_ri"],
+             ptxas={k: ptxas.get(k) for k in K4_DENSE_INSTANTIATIONS if "ri_kernel" in k}),
         entry("sweep_nearest_ri", "sweep.cu", "sweep.py:535",
               launches_v1[0].get("sweep_nearest_ri", 0), spheres["sphere_lanes"], ms=ms_nri,
               plain_ms=plain_ms["sphere_lanes", "sweep_nearest_ri"], bound_ms=nri_bound,
@@ -1778,24 +1856,30 @@ def k5_coop_sweep(what, render):
     return res
 
 
+def device_profile(render):
+    """One ``render()`` under torch.profiler -> {kernel name: device ms}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        render()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def bvh_queue_frame(scene, camera, cfg, ou):
     """Phase bvh_queue_frame: the bvh workload's own path, the queue renderer
     with intersector="pallas" (K5's generic instantiation) at bvh1k's size:
     one warm frame, three timed; parity against ``ou``, the render_uber frame
     of the same run; every K5 launch timed on the device alone with its bound;
-    a profiled frame for the card's busy and idle shares; the coop_min sweep."""
-    from torch.profiler import ProfilerActivity, profile
-
+    a profiled frame for the card's busy and idle shares; the coop_min sweep
+    -> (numbers, the last frame's launches, the frame)."""
     render = lambda: render_stats(scene, camera, cfg)  # noqa: E731
     oq, times, launches = timed_frames(render)
     c = parity(ou, oq)
     k5 = kernels_on_path(render, dict(
         sweep_grouped=(sweep, "_launch_grouped", k5_bound_of_launch)))["sweep_grouped"]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        render()
-        torch.cuda.synchronize()
-    by = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA}
+    by = device_profile(render)
     frame_ms = min(times) * 1e3
     busy = sum(by.values())
     k5_ms = sum(v for k, v in by.items() if "grouped_kernel" in k)
@@ -1814,7 +1898,231 @@ def bvh_queue_frame(scene, camera, cfg, ou):
             f"a bvh queue frame launches K5 and nothing else: {launches}")
     require(k5["ms"] > k5["bound_ms"], f"K5 below its bound on the bvh queue frame: {k5}")
     res["coop_sweep"] = k5_coop_sweep("bvh queue frame", render)
-    return res, launches[-1]
+    return res, launches[-1], oq
+
+
+# ---------------------------------------------------------------------------
+# The twelfth slice: K4's dense nearest hit (sweep_nearest) and RI sum
+# (sweep_ri) on staged tables with their exact culls, and two full-width
+# frames that drive them
+# ---------------------------------------------------------------------------
+
+K4_DENSE_INSTANTIATIONS = tuple(f"sweep.so {k}_kernel<{m},{s}>" for k in ("nearest", "ri")
+                                for m in (0, 1) for s in sweep.NRI_SPLITS)
+FLOPS_PER_CULL_TEST = 24  # shifted relative origin, |r|^2, r.d, rho^2, the two tests
+FLOPS_PER_CONTAINS_PRETEST = 12  # shifted relative point, |r|^2, compare
+_K4_LAUNCH = dict(nearest=sweep._launch_nearest, ri=sweep._launch_ri)  # while hooks stand
+
+
+def k4_run(kind, table, mode, x, split=None):
+    """One launch of K4's dense ``kind`` ("nearest": rays, "ri": points) with
+    its counters -> (outputs, stats)."""
+    stats = torch.zeros(sweep.DC_LEN, dtype=torch.int64, device=x.device)
+    return _K4_LAUNCH[kind](table, mode, x, split, stats), stats
+
+
+def k4_counts(stats):
+    pre, full, slots = (int(stats[k]) for k in (sweep.DC_PRE, sweep.DC_FULL, sweep.DC_SLOTS))
+    return dict(rows_pre_tested=pre, rows_fully_tested=full, lane_slots=slots,
+                share_fully_tested=full / max(pre, 1), simt_efficiency=full / max(slots, 1))
+
+
+def k4_bound(kind, table, mode, x, stats):
+    """The least time of one K4 launch: the lesser of the dense count (every
+    point or ray against every live row, at the generic row's cost, as before
+    the culls) and the work its counters name (each pre-test and each full
+    test at its own cost; the staged rows' bytes) -> dict."""
+    B = x.shape[1]
+    live = int((table[:, sweep.G_VALID if mode == "generic" else sweep.S_VALID] > 0).sum())
+    pre, full = int(stats[sweep.DC_PRE]), int(stats[sweep.DC_FULL])
+    if kind == "nearest":
+        dense = bound(40 * B + 4 * table.numel(), B * live * FLOPS_PER_GENERIC_ROW)
+        if mode == "generic":
+            culled = bound(40 * B + 4 * (sweep.dense_bounds(table).numel() + table.numel()),
+                           pre * FLOPS_PER_CULL_TEST + full * FLOPS_PER_GENERIC_ROW)
+        else:
+            culled = bound(40 * B + 4 * table.numel(), pre * FLOPS_PER_SPHERE_TEST)
+    else:
+        dense = bound(20 * B + 4 * table.numel(), B * live * FLOPS_PER_CONTAINS_GENERIC)
+        index, staged = sweep.ri_rows(table, mode)
+        rows_bytes = 4 * (staged.numel() + index.numel())
+        if mode == "generic":
+            culled = bound(20 * B + rows_bytes + 4 * sweep.G_COLS * index.numel(),
+                           pre * FLOPS_PER_CONTAINS_PRETEST + full * FLOPS_PER_CONTAINS_GENERIC)
+        else:
+            culled = bound(20 * B + rows_bytes, pre * FLOPS_PER_CONTAINS_SPHERE)
+    least = min(dense, culled)
+    return dict(bound_ms=least[0], bound_by=least[1], dense_bound_ms=dense[0],
+                culled_bound_ms=culled[0])
+
+
+class K4Path:
+    """``kernels_on_path``'s bound of each K4 launch (from a counted launch of
+    its own), with the counters and both counts summed over the path."""
+
+    def __init__(self, kind):
+        self.kind, self.stats, self.dense, self.culled = kind, torch.zeros(sweep.DC_LEN,
+                                                                            dtype=torch.int64), 0.0, 0.0
+
+    def __call__(self, table, mode, x, split=None, stats=None):
+        _, st = k4_run(self.kind, table, mode, x)
+        b = k4_bound(self.kind, table, mode, x, st)
+        self.stats += st.cpu()
+        self.dense += b["dense_bound_ms"]
+        self.culled += b["culled_bound_ms"]
+        return b["bound_ms"]
+
+    def summary(self, on_path):
+        return dict(on_path, dense_bound_ms=self.dense, culled_bound_ms=self.culled,
+                    **k4_counts(self.stats))
+
+
+def k4_on_path(render, kind, extra=None):
+    """K4's ``kind`` over ``render()``, launch by launch (``kernels_on_path``)."""
+    label = "sweep_nearest" if kind == "nearest" else "sweep_ri"
+    path = K4Path(kind)
+    got = kernels_on_path(render, {label: (sweep, "_launch_" + kind, path), **(extra or {})})
+    got[label] = path.summary(got[label])
+    return got
+
+
+# The glass grid: every fourth object of bvh_grid_scene(side=32)'s grid (its
+# rows 1, 5, 9, ...: spheres and boxes alike) made glass, with add_dielectric's
+# material (refractive index 1.5, refractivity 0.9, reflectivity 0.1, no
+# scatter).  A glass hit's reflected child carries a tenth of its parent's
+# contribution, so below any path its pending refraction siblings nest at most
+# twice before the children fall under the 0.01 spawn floor: the default stack
+# of 5 records never fills, whatever the share (rays_dropped must be 0).  The
+# other objects keep the builder's default refractive index 1.5 (refractivity
+# 0): the RI sum counts them as the plain version does (index not 1), so the
+# sum's air-row cut removes only the padding rows here.
+GLASS_EVERY = 4
+
+
+def glass_grid_scene():
+    scene, cam = examples.bvh_grid_scene(side=32)
+    glass = torch.zeros(scene.capacity, dtype=torch.bool)
+    glass[1:32 * 32:GLASS_EVERY] = True
+    on = lambda v, field: torch.where(glass, torch.full_like(field, v), field)  # noqa: E731
+    return scene.replace(refractive_index=on(1.5, scene.refractive_index),
+                         refractivity=on(0.9, scene.refractivity),
+                         reflectivity=on(0.1, scene.reflectivity),
+                         scatter_reflect=on(0.0, scene.scatter_reflect)), cam
+
+
+def frame_numbers(what, times, out, launches, by, kernels):
+    """A frame's common figures; ``by``: its device profile; ``kernels``:
+    {name: profiled-kernel name substring}."""
+    frame_ms = min(times) * 1e3
+    busy = sum(by.values())
+    return dict(scene=what, size=size_of(BVH1K), seconds_per_frame_min=min(times),
+                seconds_per_frame_mean=sum(times) / len(times), rays=int(out["rays"]),
+                mrays_per_s=int(out["rays"]) / min(times) / 1e6,
+                rays_dropped=int(out["rays_dropped"]), image_mean=float(out["image"].mean()),
+                launches_per_frame=launches[-1], device_busy_ms=busy,
+                device_idle_share=1.0 - busy / frame_ms,
+                profiled_ms={k: sum(v for n, v in by.items() if sub in n)
+                             for k, sub in kernels.items()})
+
+
+def dense_generic_frame(scene, camera, cfg, oq_k5):
+    """Phase dense_generic_frame: bvh1k's scene and size through the queue
+    renderer with pallas_groups=0, the dense sweep over the whole table: one
+    warm frame, three timed, K4's sweep_nearest alone launched (once a pop);
+    the canary's envelope against ``oq_k5``, the same frame through K5 in
+    this run; every launch timed on the device alone beside its bound (the
+    lesser of the dense and the culled counts), the counters summed; the
+    card's idle share over a profiled frame -> (numbers, launches of a frame,
+    the first two pops' (table, mode, rays))."""
+    cfg0 = dataclasses.replace(cfg, pallas_groups=0)
+    render = lambda: render_stats(scene, camera, cfg0)  # noqa: E731
+    out, times, launches = timed_frames(render)
+    c = parity(out, oq_k5)
+    k4 = k4_on_path(render, "nearest")["sweep_nearest"]
+    res = frame_numbers("bvh_grid_scene(side=32), pallas_groups=0", times, out, launches,
+                        device_profile(render), dict(sweep_nearest="nearest_kernel"))
+    res.update(sweep_nearest=k4, parity_vs_bvh_queue_frame=c)
+    with launches_of(sweep, "_launch_nearest") as pops:
+        render_stats(scene, camera, cfg0)
+    say(phase="dense_generic_frame", **res)
+    check_parity("dense generic frame against the bvh queue frame", c)
+    n = launches[-1].get("sweep_nearest", 0)
+    require(n > 0 and all(got == {"sweep_nearest": n} for got in launches),
+            f"a dense generic frame launches sweep_nearest once a pop, nothing else: {launches}")
+    require(res["rays_dropped"] == 0, f"the dense generic frame dropped rays: {res}")
+    return res, launches[-1], pops[:2]
+
+
+def glass_grid_frame(dev):
+    """Phase glass_grid_frame: ``glass_grid_scene()`` at 800x450x16 d8 through
+    the default grouped queue renderer (K5, then sweep_ri's dense probe over
+    every row, once a pop each); the canary's envelope against render_uber
+    (uber_g with the probe cut) of the same scene; every launch of both
+    kernels timed on the device alone beside its bound; the idle share ->
+    (numbers, launches of a frame, the first two pops' (table, mode, points),
+    the render_uber frame's launches)."""
+    scene, camera = glass_grid_scene()
+    scene, camera = scene.to(dev), camera.to(dev)
+    cfg = RenderConfig(intersector="pallas", **BVH1K).for_scene(scene)
+    require(cfg.pallas_mode == "generic" and cfg.has_dielectrics and cfg.pallas_groups == 32,
+            f"the glass grid's statics: {cfg}")
+    render = lambda: render_stats(scene, camera, cfg)  # noqa: E731
+    out, times, launches = timed_frames(render)
+    _build.reset_launches()
+    ou = uber.render_uber(scene, camera, cfg, gr=GR)
+    launches_u = dict(_build.LAUNCHES)
+    c = parity(ou, out)
+    got = k4_on_path(render, "ri", dict(
+        sweep_grouped=(sweep, "_launch_grouped", k5_bound_of_launch)))
+    res = frame_numbers(f"glass_grid_scene() (every {GLASS_EVERY}th grid object glass)", times,
+                        out, launches, device_profile(render),
+                        dict(sweep_ri="ri_kernel", sweep_grouped="grouped_kernel"))
+    res.update(got, parity_vs_render_uber=c, render_uber_launches=launches_u,
+               glass_rows=int((scene.refractivity > 0.002).sum()))
+    with launches_of(sweep, "_launch_ri") as pops:
+        render_stats(scene, camera, cfg)
+    say(phase="glass_grid_frame", **res)
+    check_parity("glass grid frame against render_uber", c)
+    n = launches[-1].get("sweep_ri", 0)
+    require(n > 0 and all(g == {"sweep_grouped": n, "sweep_ri": n} for g in launches),
+            f"a glass grid frame launches K5 and sweep_ri once a pop each: {launches}")
+    require(res["rays_dropped"] == 0 and c["rays_dropped"] == 0,
+            f"the glass grid frame dropped rays: {res}")
+    require(launches_u == {"uber_g": 1}, f"the glass grid's render_uber frame: {launches_u}")
+    return res, launches[-1], pops[:2]
+
+
+def k4_dense_modes(nearest_in, ri_in):
+    """Phase k45_modes, K4's dense kernels: on each input, every split K of
+    the -fmad=false build bit for bit, and t, obj or the RI bit for bit the
+    plain version's; the counters of the default split."""
+    res = {}
+    for kind, inputs in (("nearest", nearest_in), ("ri", ri_in)):
+        for name, (table, mode, x) in inputs.items():
+            with _build.precise():
+                outs = {k: _K4_LAUNCH[kind](table, mode, x, k) for k in sweep.NRI_SPLITS}
+            outs = {k: o if kind == "nearest" else (o,) for k, o in outs.items()}
+            want = (sweep.sweep_nearest_plain(table, mode, x) if kind == "nearest"
+                    else (sweep.sweep_ri_plain(table, mode, x),))
+            r = {f"K={k}": dict(identical_to_K1=all(torch.equal(a, b) for a, b in zip(o, outs[1])))
+                 for k, o in outs.items()}
+            r["vs_plain"] = {f: bool(torch.equal(a, b))
+                             for f, a, b in zip(("t", "obj") if kind == "nearest" else ("ri",),
+                                                outs[1], want)}
+            r.update(mode=mode, points_or_rays=x.shape[1], rows=table.shape[0],
+                     default_K=sweep.nearest_ri_split(x.shape[1]),
+                     **k4_counts(k4_run(kind, table, mode, x)[1]))
+            if kind == "ri":
+                r["ri_not_one"] = frac(want[0] != 1.0)
+            res[f"K4 {kind} {name}"] = r
+            del outs, want
+    say(phase="k45_modes", what="K4's dense sweep_nearest and sweep_ri: every split bit for "
+        "bit and the plain version's outputs, -fmad=false build", **res)
+    for name, r in res.items():
+        require(all(r["vs_plain"].values())
+                and all(x["identical_to_K1"] for k, x in r.items() if k.startswith("K=")),
+                f"{name}: the -fmad=false build differs: {r}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -4015,13 +4323,14 @@ def main():
             k: ptxas.get(f"uber.so {k}") == v for k, v in PTXAS_K1.items()},
         redesigned_as_recorded={k: ptxas.get(k) == v
                                 for k, v in {**PTXAS_REDESIGNED, **PTXAS_K45}.items()},
-        other_kernels_as_before={k: ptxas.get(k) == v for k, v in PTXAS_UNCHANGED.items()})
+        k4_dense={k: ptxas.get(k) for k in K4_DENSE_INSTANTIATIONS})
     if "sweep2g.so" in info["built"]:  # not when an earlier run left it built
         spilled = {k: ptxas.get(k) for k in K3_INSTANTIATIONS
                    if not ptxas.get(k) or ptxas[k]["spill_stores"] or ptxas[k]["spill_loads"]}
         require(not spilled, f"K3 instantiations that spill: {spilled}")
     if "sweep.so" in info["built"]:
         spilled = {k: ptxas.get(k) for k in K5_INSTANTIATIONS + K4_NRI_INSTANTIATIONS
+                   + K4_DENSE_INSTANTIATIONS
                    if not ptxas.get(k) or ptxas[k]["spill_stores"] or ptxas[k]["spill_loads"]}
         require(not spilled, f"K4 / K5 instantiations that spill: {spilled}")
 

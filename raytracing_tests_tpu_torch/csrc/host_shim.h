@@ -53,6 +53,8 @@ inline V __shfl_xor_sync(unsigned, V v, int) {
   return v;
 }
 inline unsigned __reduce_min_sync(unsigned, unsigned v) { return v; }
+inline unsigned __reduce_add_sync(unsigned, unsigned v) { return v; }
+inline unsigned __reduce_max_sync(unsigned, unsigned v) { return v; }
 inline void __syncwarp(unsigned = 0xffffffffu) {}
 inline void __syncthreads() {}
 inline unsigned __float_as_uint(float x) {

@@ -10,30 +10,43 @@
 // arithmetic throughout).  The motion terms (1 - time_ratio) * delta_position
 // are carried.
 //
-// What bounds them on this card: operations.  A ray moves 32 bytes in and 8 to
-// 12 out and tests every row of the table (dense) or of every group whose box
-// it enters (grouped): about 30 fp32 operations for a sphere row, over 100 for
-// a generic row.  Rays in SoA rows so a warp's loads coalesce; the table is
-// row-major with 16-byte-aligned rows.  The TPU versions keep the table in
-// scalar memory and broadcast a row against a 4096-ray block, skipping a group
-// only when no ray of the block enters it.
+// What bounds them on this card: operations, one instruction at a time a lane.
+// A ray moves 32 bytes in and 8 to 12 out and tests every row of the table
+// (dense) or of every group whose box it enters (grouped): about 30 fp32
+// operations for a sphere row; a generic row's two rotations and six to eight
+// IEEE divisions (no fast-math) are some 130 instructions.  Rays in SoA rows
+// so a warp's loads coalesce; the table is row-major with 16-byte-aligned
+// rows.  The TPU versions keep the table in scalar memory and broadcast a row
+// against a 4096-ray block, skipping a group only when no ray of the block
+// enters it.
 //
-//   - The dense nearest hit and the RI sum (nearest_kernel, ri_kernel): one
-//     thread per ray reads every row through the read-only path.
-//   - The fused dense sweep (nearest_ri_kernel): the block stages the table in
-//     shared memory (cp.async, whole or in two alternating stages) and reads
-//     rows as broadcasts; K lanes share a ray (the wrapper picks K so that a
-//     small batch still fills the card), each taking rows j = sub (mod K).
+//   - The dense sweeps (nearest_kernel, nearest_ri_kernel, ri_kernel): the
+//     block stages what its rows are read from in shared memory (cp.async,
+//     whole or in two alternating stages, over_rows) and reads it as
+//     broadcasts; K lanes share a ray or a point (the wrapper picks K so that
+//     a small batch still fills the card), lane `sub` taking rows
+//     j = sub (mod K), and the (t, row) minimum or the RI masks are exchanged
+//     by shuffles.
+//   - The generic nearest hit culls exactly: each (ray, row) pair first meets
+//     a division-free test against the row's bounding sphere (the host's
+//     bounds table, staged in place of the 96-byte rows, which the pairs that
+//     pass read through the read-only path); the margin (cull_margin_note
+//     below) makes it reject only rows whose full test gives BIG_T or a t at
+//     or beyond the ray's best.  Sphere rows keep their 20-operation test.
+//   - The RI sum walks only the rows that can count (valid, RI not 1: the
+//     host's compacted list, in row order); a generic row's point test is
+//     behind the same bounding sphere.
 //   - The grouped sweep (grouped_kernel) runs on the warp sweep of
 //     warp_sweep.cuh: each lane tests its own box, a group that at least
 //     coop_min lanes entered is walked per lane, one that fewer entered is
 //     swept row-parallel for each of them; rows past the group's last live row
 //     are never read.  Its fused RI pass is row-parallel in the same way and
 //     sums in row order.
-// Every schedule gives the per-thread loop's outputs bit for bit (-fmad=false):
-// the per-row expression is the same, the (t, row) minimum keeps the lowest row
-// of the least t as the strict-< scan does, and every RI sum is taken in
-// ascending row order.
+// Every schedule and split gives the per-thread loop's outputs bit for bit
+// (-fmad=false): the per-row expression is the same, a culled row is one the
+// loop could not have taken, the (t, row) minimum keeps the lowest row of the
+// least t as the strict-< scan does, and every RI sum is taken in ascending
+// row order.
 #include "rt_common.cuh"
 #include "warp_sweep.cuh"
 
@@ -45,7 +58,16 @@ constexpr int S_COLS = 12;  // cx cy cz r2 | dpx dpy dpz valid | ri 0 0 0
 constexpr int G_COLS = 24;  // px py pz r00 | r01 r02 r10 r11 | r12 r20 r21 r22 |
                             // sx sy sz dpx | dpy dpz type valid | ri 0 0 0
 constexpr int GA8 = 8;      // group box row: lo xyz, hi xyz, 0 0
+constexpr int B_COLS = 8;   // bounding sphere of a generic row: px py pz q |
+                            // dpx dpy dpz mu (nearest hit) or ri (RI sum)
 enum { MODE_SPHERES = 0, MODE_GENERIC = 1 };
+// Work counters of the dense sweeps (measurement only): rows pre-tested (the
+// (live ray or point, row) pairs visited), rows fully tested (those that
+// passed the bounding-sphere test; every visited row where the sphere test is
+// the whole test) and the lane slots of the full tests (RT_WARP_LANES for
+// every step in which a lane of the warp tested a row fully).  SIMT
+// efficiency of the full tests = rows fully tested / slots.
+enum { DC_PRE = 0, DC_FULL, DC_SLOTS, DC_LEN };
 // Work counters of the grouped sweep (measurement only): live rows tested by
 // the hit pass and by the RI pass (dead and padding rows are not counted); the
 // hit pass's lane slots and row-parallel group visits; the same for the RI
@@ -87,10 +109,9 @@ __device__ __forceinline__ float sphere_root(float rx, float ry, float rz,
 }
 
 // Dense-sweep form: the shift is added to the relative origin.
-__device__ __forceinline__ float sphere_t(const float* row, const Ray& R,
+// `c`, `m`: the row's first two 16-byte words (cx cy cz r2 | dpx dpy dpz valid).
+__device__ __forceinline__ float sphere_t(float4 c, float4 m, const Ray& R,
                                           float a, float inv_a) {
-  const float4 c = rt::ld4(row);      // cx cy cz r2
-  const float4 m = rt::ld4(row + 4);  // dpx dpy dpz valid
   const float rx = R.ox - c.x + R.omt * m.x;
   const float ry = R.oy - c.y + R.omt * m.y;
   const float rz = R.oz - c.z + R.omt * m.z;
@@ -115,17 +136,16 @@ __device__ __forceinline__ float sphere_t_centre(const float* row, const Ray& R,
   return sphere_t_shifted(rt::ld4(row), rt::ld4(row + 4), R, a, inv_a, cx, cy, cz);
 }
 
-// Generic row: R^T transform, then the primitive test of the row's type.
-__device__ __forceinline__ float generic_t(const float* row, const Ray& R) {
+// Generic row, from the relative origin r = o - p + omt * dp: R^T transform,
+// then the primitive test of the row's type.
+__device__ __forceinline__ float generic_t_rel(const float* row, float rx, float ry,
+                                               float rz, const Ray& R) {
   const float4 e = rt::ld4(row + 16);  // dpy dpz type valid
   if (!(e.w > 0.0f)) return BIG_T;
   const float4 a = rt::ld4(row);       // px py pz r00
   const float4 b = rt::ld4(row + 4);   // r01 r02 r10 r11
   const float4 c = rt::ld4(row + 8);   // r12 r20 r21 r22
   const float4 d = rt::ld4(row + 12);  // sx sy sz dpx
-  const float rx = R.ox - a.x + R.omt * d.w;
-  const float ry = R.oy - a.y + R.omt * e.x;
-  const float rz = R.oz - a.z + R.omt * e.y;
   const float lox = a.w * rx + b.z * ry + c.y * rz;
   const float loy = b.x * rx + b.w * ry + c.z * rz;
   const float loz = b.y * rx + c.x * ry + c.w * rz;
@@ -139,30 +159,25 @@ __device__ __forceinline__ float generic_t(const float* row, const Ray& R) {
   return BIG_T;
 }
 
-// Is the (motion-shifted) point inside the row's primitive?  Also gives the
-// row's refractive index.
-template <int MODE>
-__device__ __forceinline__ bool contains(const float* row, float qx, float qy,
-                                         float qz, float omt, float& ri) {
-  if (MODE == MODE_SPHERES) {
-    const float4 c = rt::ld4(row);
-    const float4 m = rt::ld4(row + 4);
-    ri = __ldg(row + 8);
-    const float rx = qx - c.x + omt * m.x;
-    const float ry = qy - c.y + omt * m.y;
-    const float rz = qz - c.z + omt * m.z;
-    return (rx * rx + ry * ry + rz * rz <= c.w) && (m.w > 0.0f);
-  }
+__device__ __forceinline__ float generic_t(const float* row, const Ray& R) {
+  const float4 e = rt::ld4(row + 16);  // dpy dpz type valid
+  if (!(e.w > 0.0f)) return BIG_T;
+  const float4 a = rt::ld4(row);       // px py pz r00
+  const float4 d = rt::ld4(row + 12);  // sx sy sz dpx
+  return generic_t_rel(row, R.ox - a.x + R.omt * d.w, R.oy - a.y + R.omt * e.x,
+                       R.oz - a.z + R.omt * e.y, R);
+}
+
+// Is the point, at r = q - p + omt * dp from the row's position, inside the
+// row's generic primitive?
+__device__ __forceinline__ bool contains_g_rel(const float* row, float rx, float ry,
+                                               float rz) {
   const float4 e = rt::ld4(row + 16);
-  ri = __ldg(row + 20);
   if (!(e.w > 0.0f)) return false;
   const float4 a = rt::ld4(row);
   const float4 b = rt::ld4(row + 4);
   const float4 c = rt::ld4(row + 8);
   const float4 d = rt::ld4(row + 12);
-  const float rx = qx - a.x + omt * d.w;
-  const float ry = qy - a.y + omt * e.x;
-  const float rz = qz - a.z + omt * e.y;
   const float lox = (a.w * rx + b.z * ry + c.y * rz) / d.x;
   const float loy = (b.x * rx + b.w * ry + c.z * rz) / d.y;
   const float loz = (b.y * rx + c.x * ry + c.w * rz) / d.z;
@@ -188,40 +203,22 @@ __device__ __forceinline__ void ri_query_point(const Ray& R, float t, float bcx,
   qz = pz + 1e-3f * nz * inv_n;
 }
 
-// ---- dense nearest hit ----------------------------------------------------
-template <int MODE>
-__global__ void __launch_bounds__(256) nearest_kernel(
-    const float* __restrict__ table, int n_obj, const float* __restrict__ rays,
-    int B, float* __restrict__ t_out, int* __restrict__ obj_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  const Ray R = load_ray(rays, B, i);
-  const float a = fmaxf(R.dx * R.dx + R.dy * R.dy + R.dz * R.dz, 1e-30f);
-  const float inv_a = 1.0f / a;
-  float t_best = fminf(BIG_T, R.tlim);
-  int obj = -1;
-  for (int k = 0; k < n_obj; ++k) {
-    const float t = MODE == MODE_SPHERES
-                        ? sphere_t(table + (size_t)k * S_COLS, R, a, inv_a)
-                        : generic_t(table + (size_t)k * G_COLS, R);
-    if (t < t_best) {
-      t_best = t;
-      obj = k;
-    }
-  }
-  t_out[i] = t_best;
-  obj_out[i] = obj;
-}
+// ---- staging for the dense sweeps -------------------------------------------
+// The block stages the rows its lanes read in shared memory: a table of at most
+// Staged<W>::WHOLE rows of W floats once, a longer one through two stages of
+// Staged<W>::STAGE rows (the next stage's copy in flight while the current one
+// is read), once per pass.  24 KiB a block either way.
+constexpr int DS_THREADS = 256;
+constexpr int DS_STAGE_BYTES = 12288;
 
-// ---- dense nearest hit + surrounding RI (sphere mode) -----------------------
-// The block stages the table in shared memory and K lanes (K | 32) share a
-// ray, lane `sub` taking rows j = sub (mod K).  A table of at most
-// NRI_WHOLE_ROWS rows is staged once and read by both passes; a longer one
-// streams through two stages of NRI_STAGE_ROWS rows (the next stage's copy in
-// flight while the current one is read), once per pass.
-constexpr int NRI_THREADS = 256;
-constexpr int NRI_WHOLE_ROWS = 512;  // 24 KiB
-constexpr int NRI_STAGE_ROWS = 256;  // two stages: 24 KiB
+template <int W>
+struct Staged {
+  static constexpr int STAGE = DS_STAGE_BYTES / (4 * W);  // 256 sphere rows, 384 bounds
+  static constexpr int WHOLE = 2 * STAGE;
+  static size_t bytes(int n_rows) {
+    return sizeof(float) * W * (n_rows <= WHOLE ? n_rows : 2 * STAGE);
+  }
+};
 
 __device__ __forceinline__ int imin(int x, int y) { return x < y ? x : y; }
 
@@ -245,9 +242,11 @@ __device__ __forceinline__ void copies_wait() {
 #endif
 }
 
-// The block copies n_rows sphere rows from `src` to `dst` as one copy group.
+// The block copies n_rows rows of W floats from `src` to `dst` as one copy
+// group.
+template <int W>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src, int n_rows) {
-  const int n16 = n_rows * (S_COLS / 4);
+  const int n16 = n_rows * (W / 4);
   float4* d = reinterpret_cast<float4*>(dst);
   const float4* s = reinterpret_cast<const float4*>(src);
   for (int q = threadIdx.x; q < n16; q += blockDim.x) copy16(d + q, s + q);
@@ -256,30 +255,42 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, int n_r
 #endif
 }
 
+// Stages a table of at most Staged<W>::WHOLE rows whole, before the passes;
+// -> whether it did.  Every thread of the block calls it together.
+template <int W>
+__device__ __forceinline__ bool stage_whole(float* smem, const float* src, int n_rows) {
+  if (n_rows > Staged<W>::WHOLE) return false;
+  stage_rows<W>(smem, src, n_rows);
+  copies_wait<0>();
+  __syncthreads();
+  return true;
+}
+
 // f(rows in shared memory, index of their first row, count) over the table:
 // at once where it was staged whole, else stage by stage.  Every thread of the
 // block calls it together.
-template <class F>
+template <int W, class F>
 __device__ __forceinline__ void over_rows(float* smem, const float* table, int n_obj,
                                           bool whole, F&& f) {
   if (whole) {
     f(smem, 0, n_obj);
     return;
   }
-  const int n_stages = (n_obj + NRI_STAGE_ROWS - 1) / NRI_STAGE_ROWS;
-  stage_rows(smem, table, NRI_STAGE_ROWS);
+  constexpr int STAGE = Staged<W>::STAGE;
+  const int n_stages = (n_obj + STAGE - 1) / STAGE;
+  stage_rows<W>(smem, table, STAGE);
   for (int k = 0; k < n_stages; ++k) {
-    const int base = k * NRI_STAGE_ROWS;
+    const int base = k * STAGE;
     if (k + 1 < n_stages) {
-      const int next = base + NRI_STAGE_ROWS;
-      stage_rows(smem + ((k + 1) & 1) * NRI_STAGE_ROWS * S_COLS,
-                 table + (size_t)next * S_COLS, imin(n_obj - next, NRI_STAGE_ROWS));
+      const int next = base + STAGE;
+      stage_rows<W>(smem + ((k + 1) & 1) * STAGE * W, table + (size_t)next * W,
+                    imin(n_obj - next, STAGE));
       copies_wait<1>();
     } else {
       copies_wait<0>();
     }
     __syncthreads();
-    f(smem + (k & 1) * NRI_STAGE_ROWS * S_COLS, base, imin(n_obj - base, NRI_STAGE_ROWS));
+    f(smem + (k & 1) * STAGE * W, base, imin(n_obj - base, STAGE));
     __syncthreads();  // before the next copy overwrites this stage
   }
 }
@@ -293,8 +304,193 @@ __device__ __forceinline__ bool sphere_holds(float4 c, float4 m, float qx, float
   return (rx * rx + ry * ry + rz * rz <= c.w) && (m.w > 0.0f);
 }
 
+// The same on a sphere row in global memory, with its refractive index.
+__device__ __forceinline__ bool contains_sphere(const float* row, float qx, float qy,
+                                                float qz, float omt, float& ri) {
+  ri = __ldg(row + 8);
+  return sphere_holds(rt::ld4(row), rt::ld4(row + 4), qx, qy, qz, omt);
+}
+
+// (t, row) minimum over the K lanes of a ray: the lowest row of the least t.
 template <int K>
-__global__ void __launch_bounds__(NRI_THREADS) nearest_ri_kernel(
+__device__ __forceinline__ void split_argmin(float& t_best, int& obj) {
+#pragma unroll
+  for (int off = K / 2; off > 0; off >>= 1) {
+    const float ot = __shfl_xor_sync(rt::WARP_FULL, t_best, off);
+    const int oo = __shfl_xor_sync(rt::WARP_FULL, obj, off);
+    if (ot < t_best || (ot == t_best && (unsigned)oo < (unsigned)obj)) {
+      t_best = ot;
+      obj = oo;
+    }
+  }
+}
+
+// The dense sweeps' counters: each thread's, summed per warp, added by lane 0.
+struct DenseCounts {
+  unsigned pre = 0, full = 0, slots = 0;
+  // One step of the warp: this lane pre-tested `visits` rows and tested
+  // `fully` of them fully, one after another, as the warp's other lanes did
+  // theirs.  Every lane of the warp calls it together.
+  __device__ __forceinline__ void chunk(unsigned visits, unsigned fully) {
+    pre += visits;
+    full += fully;
+    slots += RT_WARP_LANES * __reduce_max_sync(rt::WARP_FULL, fully);
+  }
+  __device__ __forceinline__ void flush(unsigned long long* stats) const {
+    const unsigned p = __reduce_add_sync(rt::WARP_FULL, pre);
+    const unsigned f = __reduce_add_sync(rt::WARP_FULL, full);
+    if ((threadIdx.x & (RT_WARP_LANES - 1)) != 0) return;
+    atomicAdd(stats + DC_PRE, (unsigned long long)p);
+    atomicAdd(stats + DC_FULL, (unsigned long long)f);
+    atomicAdd(stats + DC_SLOTS, (unsigned long long)slots);  // the same on every lane
+  }
+};
+
+// The rows of the chunk at j0 that lane `sub` visits.
+template <int K>
+__device__ __forceinline__ unsigned chunk_rows(int j0, int sub, int n) {
+  const int left = n - j0 - sub;
+  return left <= 0 ? 0u : (unsigned)imin(32, (left + K - 1) / K);
+}
+
+// The culled sweeps take the staged rows 32 K at a time: lane `sub` pre-tests
+// rows j0 + K b + sub, b = 0 .. 31 (bit b of the mask), in a loop unrolled
+// U times with no branch where the chunk is whole (the last one runs to its
+// own end), then tests the rows of its set bits fully, in ascending order.
+// U = 32 for the generic bounds (8 was 9-12 % slower); 8 for sphere rows,
+// whose RI sum spilled at K = 4 fully unrolled.
+template <int K, int U, class P>
+__device__ __forceinline__ unsigned chunk_mask(int j0, int sub, int n, P&& pass) {
+  unsigned m = 0u;
+  if (j0 + 32 * K <= n) {
+#pragma unroll (U)
+    for (int b = 0; b < 32; ++b)
+      if (pass(j0 + K * b + sub)) m |= 1u << b;
+  } else {
+    const int nb = (int)chunk_rows<K>(j0, sub, n);
+    for (int b = 0; b < nb; ++b)
+      if (pass(j0 + K * b + sub)) m |= 1u << b;
+  }
+  return m;
+}
+
+// ---- dense nearest hit ----------------------------------------------------
+// cull_margin_note.  The generic sweep's pre-test rejects row k for a ray only
+// where generic_t of the row gives BIG_T or a t >= t_best, so that the strict-<
+// scan over the rows that pass gives the dense scan's (t, obj) bit for bit.
+// The host's bounds row holds q = (rb (1 + 2^-9))^2 (1 + 2^-16 kappa) and
+// mu = min(2^-15 kappa^3, 1), where rb = max|s| (ellipsoid) or |s| / 2 (cuboid)
+// over sigma_min(R) bounds the primitive around p - omt dp, and
+// kappa = (max|s| / min|s|) (sigma_max(R) / sigma_min(R)) is the condition of
+// the local map diag(1/s) R^T (rows with sigma_min(R) < 1/2 or a zero scale
+// are never culled: q = inf; dead rows always: q = -inf).  With
+// r = o - p + omt dp, the very floats generic_t_rel is given, the pre-test
+// rejects where the ray's half-line t >= 0 stays outside the sphere of radius
+// rho about 0, rho^2 = q + mu |r|^2 + 2^-56 t_best^2, by the float test
+// c2 = |r|^2 - rho^2 > 0 and (r.d >= 0 or (r.d)^2 < |d|^2 c2).  Why no row that
+// generic_t could report below t_best is rejected (eps = 2^-24):
+//  - generic_t's rotations, divisions and sums commit relative errors of a
+//    few eps each.  Carried back to world space through diag(1/s) R^T, the
+//    line its quadratic or slabs saw lies within c eps (1 + kappa) kappa^2 |r|^2
+//    (squared distance, c < 60 counting every rounding) of the exact line
+//    through r along d, and a reported hit with the origin outside the
+//    primitive at a parameter t > 0 needs the exact half-line to come within
+//    rb (1 + c' eps kappa) of the centre: both far inside mu |r|^2 and the
+//    2^-8 and 2^-16 kappa of q (a margin of ten or more).
+//  - The cuboid's safe inverse turns a direction component below 1e-12 into
+//    +-1e-12: its slabs then see a ray that leaves the true one by at most
+//    3.5e-12 t / sigma_min(R), so a hit at t < t_best lies within
+//    rb + 7e-12 t_best of the centre; (a + b)^2 <= a^2 (1 + 2^-10) + 1025 b^2
+//    puts that under q + 2^-56 t_best^2.  A dead ray (d = 0) is such a ray:
+//    its test reduces to |r| against rho.
+//  - The pre-test's own roundings shift c2 by a few eps |r|^2 and rho^2, far
+//    inside the same margins; a t_best of 3e38 makes rho infinite (no cull).
+// A stale t_best (a lane's, above the ray's final best) only widens rho.
+// `w` = 2^-56 t_best^2, taken once a chunk (a t_best from before the chunk
+// only widens rho).
+__device__ __forceinline__ bool may_hit(float4 c, float4 m, const Ray& R, float dd,
+                                        float w) {
+  const float rx = R.ox - c.x + R.omt * m.x;
+  const float ry = R.oy - c.y + R.omt * m.y;
+  const float rz = R.oz - c.z + R.omt * m.z;
+  const float rr = rx * rx + ry * ry + rz * rz;
+  const float b = rx * R.dx + ry * R.dy + rz * R.dz;
+  const float c2 = rr - (c.w + m.w * rr + w);
+  return !(c2 > 0.0f && (b >= 0.0f || b * b < dd * c2));
+}
+
+// K lanes a ray (K | 32), lane `sub` taking rows j = sub (mod K) of the staged
+// rows: the sphere rows themselves, or the generic rows' bounds, whose passing
+// rows are read from `table` in global memory.
+template <int MODE, int K>
+__global__ void __launch_bounds__(DS_THREADS) nearest_kernel(
+    const float* __restrict__ table, const float* __restrict__ bounds, int n_obj,
+    const float* __restrict__ rays, int B, float* __restrict__ t_out,
+    int* __restrict__ obj_out, unsigned long long* __restrict__ stats) {
+  RT_DYNAMIC_SHARED(float4, smem4);
+  float* smem = reinterpret_cast<float*>(smem4);
+  constexpr int W = MODE == MODE_SPHERES ? S_COLS : B_COLS;
+  const float* src = MODE == MODE_SPHERES ? table : bounds;
+  const int sub = threadIdx.x % K;
+  const int i = blockIdx.x * (blockDim.x / K) + threadIdx.x / K;
+  const bool live = i < B;  // the others stage rows and take the warp's steps
+  const Ray R = live ? load_ray(rays, B, i) : Ray{};
+  const float dd = R.dx * R.dx + R.dy * R.dy + R.dz * R.dz;
+  const float a = fmaxf(dd, 1e-30f);
+  const float inv_a = 1.0f / a;
+  const bool whole = stage_whole<W>(smem, src, n_obj);
+  float t_best = fminf(BIG_T, R.tlim);
+  int obj = -1;
+  DenseCounts n;
+  over_rows<W>(smem, src, n_obj, whole, [&](const float* rows, int base, int cnt) {
+    const float4* r4 = reinterpret_cast<const float4*>(rows);
+    if (MODE == MODE_SPHERES) {
+      for (int j0 = 0; j0 < cnt; j0 += K) {  // the warp's steps, the same on every lane
+        const int j = j0 + sub;
+        const bool visit = live && j < cnt;
+        if (visit) {
+          const float t = sphere_t(r4[3 * j], r4[3 * j + 1], R, a, inv_a);
+          if (t < t_best) {
+            t_best = t;
+            obj = base + j;
+          }
+        }
+        if (stats != nullptr) n.chunk(visit, visit);
+      }
+      return;
+    }
+    for (int j0 = 0; j0 < cnt; j0 += 32 * K) {  // the same on every lane
+      const float w = 0x1p-56f * (t_best * t_best);
+      unsigned pass = 0u;
+      if (live)
+        pass = chunk_mask<K, 32>(j0, sub, cnt, [&](int j) {
+          return may_hit(r4[2 * j], r4[2 * j + 1], R, dd, w);
+        });
+      if (stats != nullptr) n.chunk(live ? chunk_rows<K>(j0, sub, cnt) : 0u, __popc(pass));
+      for (; pass != 0u; pass &= pass - 1u) {
+        const int j = j0 + K * (__ffs(pass) - 1) + sub;
+        const float4 c = r4[2 * j], m = r4[2 * j + 1];
+        const float t = generic_t_rel(table + (size_t)(base + j) * G_COLS,
+                                      R.ox - c.x + R.omt * m.x, R.oy - c.y + R.omt * m.y,
+                                      R.oz - c.z + R.omt * m.z, R);
+        if (t < t_best) {
+          t_best = t;
+          obj = base + j;
+        }
+      }
+    }
+  });
+  split_argmin<K>(t_best, obj);
+  if (stats != nullptr) n.flush(stats);
+  if (!live || sub != 0) return;
+  t_out[i] = t_best;
+  obj_out[i] = obj;
+}
+
+// ---- dense nearest hit + surrounding RI (sphere mode) -----------------------
+// The staging and split of the dense sweeps; both passes read the sphere rows.
+template <int K>
+__global__ void __launch_bounds__(DS_THREADS) nearest_ri_kernel(
     const float* __restrict__ table, int n_obj, const float* __restrict__ rays,
     int B, float* __restrict__ t_out, int* __restrict__ obj_out,
     float* __restrict__ ri_out) {
@@ -306,15 +502,10 @@ __global__ void __launch_bounds__(NRI_THREADS) nearest_ri_kernel(
   const Ray R = live ? load_ray(rays, B, i) : Ray{};
   const float a = fmaxf(R.dx * R.dx + R.dy * R.dy + R.dz * R.dz, 1e-30f);
   const float inv_a = 1.0f / a;
-  const bool whole = n_obj <= NRI_WHOLE_ROWS;
-  if (whole) {
-    stage_rows(smem, table, n_obj);
-    copies_wait<0>();
-    __syncthreads();
-  }
+  const bool whole = stage_whole<S_COLS>(smem, table, n_obj);
   float t_best = fminf(BIG_T, R.tlim);
   int obj = -1;
-  over_rows(smem, table, n_obj, whole, [&](const float* rows, int base, int n) {
+  over_rows<S_COLS>(smem, table, n_obj, whole, [&](const float* rows, int base, int n) {
     const float4* r4 = reinterpret_cast<const float4*>(rows);
 #pragma unroll 4
     for (int j = sub; j < n; j += K) {
@@ -326,22 +517,13 @@ __global__ void __launch_bounds__(NRI_THREADS) nearest_ri_kernel(
       }
     }
   });
-  // (t, row) minimum over the ray's K lanes: the lowest row of the least t.
-#pragma unroll
-  for (int off = K / 2; off > 0; off >>= 1) {
-    const float ot = __shfl_xor_sync(rt::WARP_FULL, t_best, off);
-    const int oo = __shfl_xor_sync(rt::WARP_FULL, obj, off);
-    if (ot < t_best || (ot == t_best && (unsigned)oo < (unsigned)obj)) {
-      t_best = ot;
-      obj = oo;
-    }
-  }
+  split_argmin<K>(t_best, obj);
   float bcx = 0.0f, bcy = 0.0f, bcz = 0.0f;
   if (obj >= 0) sphere_t_centre(table + (size_t)obj * S_COLS, R, a, inv_a, bcx, bcy, bcz);
   float qx, qy, qz;
   ri_query_point(R, t_best, bcx, bcy, bcz, qx, qy, qz);
   float acc = 0.0f, cnt = 0.0f;
-  over_rows(smem, table, n_obj, whole, [&](const float* rows, int, int n) {
+  over_rows<S_COLS>(smem, table, n_obj, whole, [&](const float* rows, int, int n) {
     const float4* r4 = reinterpret_cast<const float4*>(rows);
     if (K == 1) {
       for (int j = 0; j < n; ++j) {
@@ -389,25 +571,85 @@ __global__ void __launch_bounds__(NRI_THREADS) nearest_ri_kernel(
 }
 
 // ---- surrounding RI at given points -----------------------------------------
-// Containers of refractive index exactly 1 are air and do not count.
-template <int MODE>
-__global__ void __launch_bounds__(256) ri_kernel(
-    const float* __restrict__ table, int n_obj, const float* __restrict__ pts,
-    int B, float* __restrict__ ri_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
+// Containers of refractive index exactly 1 are air and do not count, nor do
+// dead rows: the kernel walks the host's list of the others, in row order.
+// Sphere mode stages those rows themselves (their test is the whole test);
+// generic mode stages their bounds (px py pz q | dpx dpy dpz ri, q as the
+// nearest hit's) and tests a point inside the bounding sphere against the row,
+// read from `table` at index[k].  A point the full test calls inside lies
+// within rb (1 + c eps kappa) of the centre (cull_margin_note, with no line:
+// c < 10), under q's 2^-8 and 2^-16 kappa, so |r|^2 > q rejects only rows that
+// do not contain it.
+//
+// K lanes a point: lane `sub` tests rows j0 + K i + sub (bit i of its mask) of
+// every 32 K; the point's lanes OR their masks and, for each set bit in turn,
+// read each other's bit by a shuffle among the point's K lanes alone, so that
+// each adds the contained rows' RI in ascending row order (no lane keeps K
+// masks: the K = 8 generic instantiation spilled so).
+template <int MODE, int K>
+__global__ void __launch_bounds__(DS_THREADS) ri_kernel(
+    const float* __restrict__ table, const int* __restrict__ index,
+    const float* __restrict__ staged, int n_rows, const float* __restrict__ pts, int B,
+    float* __restrict__ ri_out, unsigned long long* __restrict__ stats) {
+  RT_DYNAMIC_SHARED(float4, smem4);
+  float* smem = reinterpret_cast<float*>(smem4);
+  constexpr int W = MODE == MODE_SPHERES ? S_COLS : B_COLS;
+  constexpr int RI = MODE == MODE_SPHERES ? 8 : 7;  // the staged row's RI column
+  const int sub = threadIdx.x % K;
+  const int i = blockIdx.x * (blockDim.x / K) + threadIdx.x / K;
+  const bool live = i < B;
   const size_t s = (size_t)B;
-  const float qx = pts[i], qy = pts[s + i], qz = pts[2 * s + i];
-  const float omt = pts[3 * s + i];
-  constexpr int COLS = MODE == MODE_SPHERES ? S_COLS : G_COLS;
+  const float qx = live ? pts[i] : 0.0f, qy = live ? pts[s + i] : 0.0f;
+  const float qz = live ? pts[2 * s + i] : 0.0f, omt = live ? pts[3 * s + i] : 0.0f;
+  const bool whole = stage_whole<W>(smem, staged, n_rows);
   float acc = 0.0f, cnt = 0.0f;
-  for (int k = 0; k < n_obj; ++k) {
-    float ri;
-    if (contains<MODE>(table + (size_t)k * COLS, qx, qy, qz, omt, ri) && ri != 1.0f) {
-      acc += ri;
-      cnt += 1.0f;
+  DenseCounts n;
+  over_rows<W>(smem, staged, n_rows, whole, [&](const float* rows, int base, int cnt_rows) {
+    const float4* r4 = reinterpret_cast<const float4*>(rows);
+    const int seg = (threadIdx.x & (RT_WARP_LANES - 1)) & ~(K - 1);
+    const unsigned seg_mask = K == 32 ? rt::WARP_FULL : ((1u << K) - 1u) << seg;
+    for (int j0 = 0; j0 < cnt_rows; j0 += 32 * K) {  // the same on every lane
+      unsigned mine = 0u, fully = 0u;
+      if (live && MODE == MODE_SPHERES) {
+        mine = chunk_mask<K, 8>(j0, sub, cnt_rows, [&](int j) {
+          return sphere_holds(r4[3 * j], r4[3 * j + 1], qx, qy, qz, omt);
+        });
+        fully = chunk_rows<K>(j0, sub, cnt_rows);
+      } else if (live) {
+        unsigned near = chunk_mask<K, 32>(j0, sub, cnt_rows, [&](int j) {
+          const float4 c = r4[2 * j], m = r4[2 * j + 1];
+          const float rx = qx - c.x + omt * m.x;
+          const float ry = qy - c.y + omt * m.y;
+          const float rz = qz - c.z + omt * m.z;
+          return !(rx * rx + ry * ry + rz * rz > c.w);
+        });
+        fully = __popc(near);
+        for (; near != 0u; near &= near - 1u) {
+          const int b = __ffs(near) - 1, j = j0 + K * b + sub;
+          const float4 c = r4[2 * j], m = r4[2 * j + 1];
+          if (contains_g_rel(table + (size_t)index[base + j] * G_COLS, qx - c.x + omt * m.x,
+                             qy - c.y + omt * m.y, qz - c.z + omt * m.z))
+            mine |= 1u << b;
+        }
+      }
+      if (stats != nullptr) n.chunk(live ? chunk_rows<K>(j0, sub, cnt_rows) : 0u, fully);
+      unsigned any = mine;
+#pragma unroll
+      for (int off = K / 2; off > 0; off >>= 1) any |= __shfl_xor_sync(rt::WARP_FULL, any, off);
+      for (; any != 0u; any &= any - 1u) {  // the same on the point's K lanes
+        const int b = __ffs(any) - 1;
+        for (int p = 0; p < K; ++p) {
+          const unsigned m = K == 1 ? mine : __shfl_sync(seg_mask, mine, seg + p);
+          if ((m >> b) & 1u) {
+            acc += rows[(j0 + K * b + p) * W + RI];
+            cnt += 1.0f;
+          }
+        }
+      }
     }
-  }
+  });
+  if (stats != nullptr) n.flush(stats);
+  if (!live || sub != 0) return;
   ri_out[i] = mean_ri(acc, cnt);
 }
 
@@ -551,7 +793,7 @@ __global__ void __launch_bounds__(G_THREADS, G_MIN_BLOCKS) grouped_kernel(
         if (in_box) {
           for (int r = 0; r < n; ++r) {
             float ri;
-            if (contains<MODE_SPHERES>(rows + (size_t)r * S_COLS, qx, qy, qz, R.omt, ri)) {
+            if (contains_sphere(rows + (size_t)r * S_COLS, qx, qy, qz, R.omt, ri)) {
               acc += ri;
               cnt += 1.0f;
             }
@@ -572,7 +814,7 @@ __global__ void __launch_bounds__(G_THREADS, G_MIN_BLOCKS) grouped_kernel(
           const int r = r0 + lane;
           bool inside = false;
           float ri = 0.0f;
-          if (r < n) inside = contains<MODE_SPHERES>(rows + (size_t)r * S_COLS, lx, ly, lz, lomt, ri);
+          if (r < n) inside = contains_sphere(rows + (size_t)r * S_COLS, lx, ly, lz, lomt, ri);
           for (unsigned in = __ballot_sync(rt::WARP_FULL, inside); in != 0u; in &= in - 1u) {
             lacc += __shfl_sync(rt::WARP_FULL, ri, __ffs(in) - 1);
             lcnt += 1.0f;
@@ -594,72 +836,112 @@ __global__ void __launch_bounds__(G_THREADS, G_MIN_BLOCKS) grouped_kernel(
 
 inline int grid_for(int B, int threads) { return (B + threads - 1) / threads; }
 
+inline bool split_ok(int split) {
+  return split <= RT_WARP_LANES && (split == 1 || split == 2 || split == 4 || split == 8);
+}
+
+template <int MODE>
+int launch_nearest(const float* tb, const float* bd, int n_obj, int split, const float* r,
+                   int B, float* t, int* o, unsigned long long* st, cudaStream_t cs) {
+  auto k = nearest_kernel<MODE, 1>;
+  if (split == 2) k = nearest_kernel<MODE, 2>;
+  if (split == 4) k = nearest_kernel<MODE, 4>;
+  if (split == 8) k = nearest_kernel<MODE, 8>;
+  const size_t smem = Staged<MODE == MODE_SPHERES ? S_COLS : B_COLS>::bytes(n_obj);
+  RT_LAUNCH_SMEM(k, grid_for(B, DS_THREADS / split), DS_THREADS, smem, cs, tb, bd, n_obj, r, B,
+                 t, o, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MODE>
+int launch_ri(const float* tb, const int* idx, const float* sg, int n_rows, int split,
+              const float* p, int B, float* ri, unsigned long long* st, cudaStream_t cs) {
+  auto k = ri_kernel<MODE, 1>;
+  if (split == 2) k = ri_kernel<MODE, 2>;
+  if (split == 4) k = ri_kernel<MODE, 4>;
+  if (split == 8) k = ri_kernel<MODE, 8>;
+  const size_t smem = Staged<MODE == MODE_SPHERES ? S_COLS : B_COLS>::bytes(n_rows);
+  RT_LAUNCH_SMEM(k, grid_for(B, DS_THREADS / split), DS_THREADS, smem, cs, tb, idx, sg, n_rows,
+                 p, B, ri, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Common conventions of the four entry points: `table` is (n_obj, 12) in mode
 // 0 (spheres) or (n_obj, 24) in mode 1 (generic); `rays` is (8, B) rows ox oy
 // oz dx dy dz omt tlim with omt = 1 - time_ratio; outputs are (B,); a miss
-// gives obj = -1 and t = min(3e38, tlim).  Each launches on `stream`, does not
+// gives obj = -1 and t = min(3e38, tlim).  `split`: lanes per ray or point of
+// the dense sweeps, 1, 2, 4 or 8 (at most RT_WARP_LANES).  `stats`: null, or
+// uint64[DC_LEN] (dense sweeps) / uint64[SC_LEN] (grouped) that gains the work
+// counters (measurement only).  Each launches on `stream`, does not
 // synchronise and returns cudaGetLastError().
 
-extern "C" int rt_sweep_nearest(const void* table, int n_obj, int mode,
-                                const void* rays, int B, void* t_out,
-                                void* obj_out, void* stream) {
+// bounds: generic mode, (n_obj, 8) rows px py pz q | dpx dpy dpz mu, the
+// pre-test's bounding spheres (kernels/sweep.py::dense_bounds); unused in
+// sphere mode.
+extern "C" int rt_sweep_nearest(const void* table, int n_obj, int mode, const void* bounds,
+                                int split, const void* rays, int B, void* t_out,
+                                void* obj_out, void* stats, void* stream) {
   if (B <= 0) return 0;
+  if (!split_ok(split) || (mode == MODE_GENERIC && bounds == nullptr))
+    return (int)cudaErrorInvalidValue;
   const float* tb = static_cast<const float*>(table);
+  const float* bd = static_cast<const float*>(bounds);
   const float* r = static_cast<const float*>(rays);
   float* t = static_cast<float*>(t_out);
   int* o = static_cast<int*>(obj_out);
+  unsigned long long* st = static_cast<unsigned long long*>(stats);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  const int threads = 256, blocks = grid_for(B, threads);
   if (mode == MODE_SPHERES)
-    RT_LAUNCH(nearest_kernel<MODE_SPHERES>, blocks, threads, cs, tb, n_obj, r, B, t, o);
-  else
-    RT_LAUNCH(nearest_kernel<MODE_GENERIC>, blocks, threads, cs, tb, n_obj, r, B, t, o);
-  return static_cast<int>(cudaGetLastError());
+    return launch_nearest<MODE_SPHERES>(tb, bd, n_obj, split, r, B, t, o, st, cs);
+  return launch_nearest<MODE_GENERIC>(tb, bd, n_obj, split, r, B, t, o, st, cs);
 }
 
 // Sphere mode only; ri_out gains the surrounding refractive index 1e-3 outside
 // the hit point (all rows count, as in the grouped sweep's fused pass).
-// split: lanes per ray, 1, 2, 4 or 8 (at most RT_WARP_LANES).
 extern "C" int rt_sweep_nearest_ri(const void* table, int n_obj, int split,
                                    const void* rays, int B, void* t_out,
                                    void* obj_out, void* ri_out, void* stream) {
   if (B <= 0) return 0;
-  if (split > RT_WARP_LANES || (split != 1 && split != 2 && split != 4 && split != 8))
-    return (int)cudaErrorInvalidValue;
+  if (!split_ok(split)) return (int)cudaErrorInvalidValue;
   const float* tb = static_cast<const float*>(table);
   const float* r = static_cast<const float*>(rays);
   float* t = static_cast<float*>(t_out);
   int* o = static_cast<int*>(obj_out);
   float* ri = static_cast<float*>(ri_out);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  const int blocks = grid_for(B, NRI_THREADS / split);
-  const size_t smem = sizeof(float) * S_COLS *
-                      (n_obj <= NRI_WHOLE_ROWS ? n_obj : 2 * NRI_STAGE_ROWS);
+  const int blocks = grid_for(B, DS_THREADS / split);
+  const size_t smem = Staged<S_COLS>::bytes(n_obj);
   auto k = nearest_ri_kernel<1>;
   if (split == 2) k = nearest_ri_kernel<2>;
   if (split == 4) k = nearest_ri_kernel<4>;
   if (split == 8) k = nearest_ri_kernel<8>;
-  RT_LAUNCH_SMEM(k, blocks, NRI_THREADS, smem, cs, tb, n_obj, r, B, t, o, ri);
+  RT_LAUNCH_SMEM(k, blocks, DS_THREADS, smem, cs, tb, n_obj, r, B, t, o, ri);
   return static_cast<int>(cudaGetLastError());
 }
 
 // pts: (4, B) rows px py pz omt; ri_out: mean refractive index of the
 // containing rows whose index is not 1, when their sum exceeds 1, else 1.
-extern "C" int rt_sweep_ri(const void* table, int n_obj, int mode,
-                           const void* pts, int B, void* ri_out, void* stream) {
+// The rows that can count (kernels/sweep.py::ri_rows): `index` (n_rows,)
+// int32, their rows of `table` in ascending order, and `staged`, (n_rows, 12)
+// copies of those rows in sphere mode, (n_rows, 8) bounds px py pz q | dpx
+// dpy dpz ri in generic mode.
+extern "C" int rt_sweep_ri(const void* table, int n_obj, int mode, const void* index,
+                           const void* staged, int n_rows, int split, const void* pts,
+                           int B, void* ri_out, void* stats, void* stream) {
   if (B <= 0) return 0;
+  if (!split_ok(split) || n_rows > n_obj) return (int)cudaErrorInvalidValue;
   const float* tb = static_cast<const float*>(table);
+  const int* idx = static_cast<const int*>(index);
+  const float* sg = static_cast<const float*>(staged);
   const float* p = static_cast<const float*>(pts);
   float* ri = static_cast<float*>(ri_out);
+  unsigned long long* st = static_cast<unsigned long long*>(stats);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  const int threads = 256, blocks = grid_for(B, threads);
   if (mode == MODE_SPHERES)
-    RT_LAUNCH(ri_kernel<MODE_SPHERES>, blocks, threads, cs, tb, n_obj, p, B, ri);
-  else
-    RT_LAUNCH(ri_kernel<MODE_GENERIC>, blocks, threads, cs, tb, n_obj, p, B, ri);
-  return static_cast<int>(cudaGetLastError());
+    return launch_ri<MODE_SPHERES>(tb, idx, sg, n_rows, split, p, B, ri, st, cs);
+  return launch_ri<MODE_GENERIC>(tb, idx, sg, n_rows, split, p, B, ri, st, cs);
 }
 
 // gaabb: (n_groups, 8) rows lo xyz, hi xyz; the table holds n_groups * group

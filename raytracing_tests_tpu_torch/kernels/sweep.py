@@ -68,10 +68,20 @@ SC_ROWS, SC_RI_ROWS, SC_SLOTS, SC_COOP, SC_RI_SLOTS, SC_RI_COOP, SC_LEN = range(
 # pins another for tests and measurement).  16 was the fastest over the grid
 # canary and the bvh queue frame of the coop_min sweeps in PERF.md.
 COOP_MIN = 16
-# Threads one H100 SXM holds resident (132 SMs x 2048): the fused dense kernel
-# splits a ray over more lanes until a batch fills them.
+# Threads one H100 SXM holds resident (132 SMs x 2048): the dense kernels
+# split a ray (or a point) over more lanes until a batch fills them.
 RESIDENT_THREADS = 132 * 2048
 NRI_SPLITS = (1, 2, 4, 8)
+# Work counters of the dense kernels (csrc/sweep.cu DC_*): rows pre-tested
+# (every (live ray or point, row) pair visited), rows fully tested (those
+# within the bounding sphere; every visited row where the sphere test is the
+# whole test) and the lane slots of the full tests (SIMT efficiency = full /
+# slots).
+DC_PRE, DC_FULL, DC_SLOTS, DC_LEN = range(4)
+# Columns of the generic rows' bounding spheres, the dense kernels' pre-test
+# (``dense_bounds``: px py pz q | dpx dpy dpz mu; ``ri_rows`` puts each row's
+# refractive index where mu stands).
+B_Q, B_MU = 3, 7
 
 
 def _np(x):
@@ -620,37 +630,124 @@ def _on_cpu(rays, table) -> bool:
     return True
 
 
-def _launch_nearest(table, mode: str, rays):
+def nearest_ri_split(B: int, resident: int = RESIDENT_THREADS) -> int:
+    """Lanes per ray (or point) of the dense kernels: the least K of
+    ``NRI_SPLITS`` with ``B * K >= resident``, else the largest."""
+    return next((k for k in NRI_SPLITS if B * k >= resident), NRI_SPLITS[-1])
+
+
+def _split_of(B: int, device, split: Optional[int]) -> int:
+    """``split`` (one of ``NRI_SPLITS``), by default ``nearest_ri_split(B)``
+    (1 in the host rehearsal, whose warp is one lane); every split gives the
+    same outputs."""
+    if split is None:
+        split = nearest_ri_split(B) if device.type == "cuda" else 1
+    if split not in NRI_SPLITS:
+        raise ValueError(f"split={split}: expected one of {NRI_SPLITS}")
+    return split
+
+
+def _memo(table, attr: str, extra: tuple, fn):
+    """``fn()``, computed once per table: kept on the tensor under ``attr``
+    and renewed when another table takes its memory or it is written in
+    place."""
+    key = (table.data_ptr(), table._version, *extra)
+    memo = getattr(table, attr, None)
+    if memo is None or memo[0] != key:
+        memo = (key, fn())
+        setattr(table, attr, memo)
+    return memo[1]
+
+
+def _dense_bounds(table):
+    """(N, 8) f32 bounding spheres of a generic table's rows for the dense
+    kernels' pre-test (csrc/sweep.cu cull_margin_note): px py pz, q, the dp
+    row, mu.  rb = max|s| (ellipsoid) or |s| / 2 (cuboid) over sigma_min(R)
+    holds the primitive; kappa = (max|s| / min|s|) (sigma_max(R) /
+    sigma_min(R)); q = (rb (1 + 2^-9))^2 (1 + 2^-16 kappa), mu = min(2^-15
+    kappa^3, 1).  Dead rows have q = -inf, mu = 0 (always rejected); rows with
+    sigma_min(R) < 1/2 or a zero or non-finite scale q = inf, mu = 1 (never
+    rejected).  Float64 on the host."""
+    t = table.detach().to("cpu", torch.float64)
+    rot = t[:, G_R00:G_R22 + 1].reshape(-1, 3, 3)
+    s = t[:, G_SX:G_SZ + 1].abs()
+    sv = torch.linalg.svdvals(rot)
+    s_max, s_min, sig_min = s.amax(dim=1), s.amin(dim=1), sv[:, 2]
+    ell = t[:, G_TYPE] == float(geometry.ELLIPSOID)
+    rb = torch.where(ell, s_max, 0.5 * torch.linalg.vector_norm(s, dim=1)) / sig_min
+    kappa = s_max / s_min * sv[:, 0] / sig_min
+    q = (rb * (1.0 + 2.0 ** -9)) ** 2 * (1.0 + 2.0 ** -16 * kappa)
+    mu = torch.clamp_max(2.0 ** -15 * kappa ** 3, 1.0)
+    never = (sig_min < 0.5) | ~torch.isfinite(q) | ~torch.isfinite(mu) | (s_min == 0.0)
+    q = torch.where(never, torch.full_like(q, float("inf")), q)
+    mu = torch.where(never, torch.ones_like(mu), mu)
+    live = t[:, G_VALID] > 0.0
+    q = torch.where(live, q, torch.full_like(q, -float("inf")))
+    mu = torch.where(live, mu, torch.zeros_like(mu))
+    cols = [t[:, G_PX], t[:, G_PY], t[:, G_PZ], q, t[:, G_DPX], t[:, G_DPY], t[:, G_DPZ], mu]
+    return torch.stack(cols, dim=1).to(table.device, torch.float32).contiguous()
+
+
+def dense_bounds(table):
+    """``_dense_bounds``, computed once per table."""
+    return _memo(table, "_rt_dense_bounds", (), lambda: _dense_bounds(table))
+
+
+def _ri_rows(table, mode: str):
+    """The rows the RI sum walks: those that are valid and whose refractive
+    index is not 1, the others being dead or air -> (index (M,) int32 in
+    ascending order, staged rows: their (M, S_COLS) copies in sphere mode,
+    their ``dense_bounds`` with the RI in column B_MU in generic mode)."""
+    ri = table[:, _ri_col(mode)]
+    keep = (table[:, S_VALID if mode == "spheres" else G_VALID] > 0.0) & (ri != 1.0)
+    index = torch.nonzero(keep)[:, 0]
+    if mode == "spheres":
+        staged = table[index]
+    else:
+        staged = dense_bounds(table)[index]
+        staged[:, B_MU] = ri[index]
+    return index.to(torch.int32).contiguous(), staged.contiguous()
+
+
+def ri_rows(table, mode: str):
+    """``_ri_rows``, computed once per table."""
+    return _memo(table, "_rt_ri_rows", (mode,), lambda: _ri_rows(table, mode))
+
+
+def _stats_ptr(stats, n: int, device):
+    if stats is None:
+        return None
+    _check_tensor("stats", stats, torch.int64, (n,), device)
+    return stats.data_ptr()
+
+
+def _launch_nearest(table, mode: str, rays, split: Optional[int] = None, stats=None):
+    """The dense nearest hit: ``split`` lanes a ray (``_split_of``); ``stats``:
+    optional zeroed int64[DC_LEN] that gains the counters ``DC_*``
+    (measurement only).  Generic tables are culled behind ``dense_bounds``."""
     dev = rays.device
     B = _check_rays(rays, 8)
     _check_table(table, mode, dev)
+    split = _split_of(B, dev, split)
+    st = _stats_ptr(stats, DC_LEN, dev)
+    fn = _fn("rt_sweep_nearest", [_P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P], dev)
+    bounds = dense_bounds(table) if mode == "generic" else None
     t = torch.empty((B,), dtype=torch.float32, device=dev)
     obj = torch.empty((B,), dtype=torch.int32, device=dev)
-    code = _fn("rt_sweep_nearest", [_P, _I, _I, _P, _I, _P, _P, _P], dev)(
-        table.data_ptr(), table.shape[0], MODES.index(mode), rays.data_ptr(), B,
-        t.data_ptr(), obj.data_ptr(), _build.stream_of(dev))
+    code = fn(table.data_ptr(), table.shape[0], MODES.index(mode),
+              None if bounds is None else bounds.data_ptr(), split, rays.data_ptr(), B,
+              t.data_ptr(), obj.data_ptr(), st, _build.stream_of(dev))
     _build.check(code, "rt_sweep_nearest")
     _build.LAUNCHES["sweep_nearest"] += 1
     return t, obj
 
 
-def nearest_ri_split(B: int, resident: int = RESIDENT_THREADS) -> int:
-    """Lanes per ray of the fused dense kernel: the least K of ``NRI_SPLITS``
-    with ``B * K >= resident``, else the largest."""
-    return next((k for k in NRI_SPLITS if B * k >= resident), NRI_SPLITS[-1])
-
-
 def _launch_nearest_ri(table, rays, split: Optional[int] = None):
-    """``split``: lanes per ray (one of ``NRI_SPLITS``), by default
-    ``nearest_ri_split(B)`` (1 in the host rehearsal, whose warp is one lane);
-    every split gives the same outputs."""
+    """``split``: lanes per ray (``_split_of``)."""
     dev = rays.device
     B = _check_rays(rays, 8)
     _check_table(table, "spheres", dev)
-    if split is None:
-        split = nearest_ri_split(B) if dev.type == "cuda" else 1
-    if split not in NRI_SPLITS:
-        raise ValueError(f"split={split}: expected one of {NRI_SPLITS}")
+    split = _split_of(B, dev, split)
     t = torch.empty((B,), dtype=torch.float32, device=dev)
     obj = torch.empty((B,), dtype=torch.int32, device=dev)
     ri = torch.empty((B,), dtype=torch.float32, device=dev)
@@ -662,14 +759,20 @@ def _launch_nearest_ri(table, rays, split: Optional[int] = None):
     return t, obj, ri
 
 
-def _launch_ri(table, mode: str, pts):
+def _launch_ri(table, mode: str, pts, split: Optional[int] = None, stats=None):
+    """The RI sum at ``pts`` over ``ri_rows(table, mode)``; ``split`` and
+    ``stats`` as ``_launch_nearest``'s."""
     dev = pts.device
     B = _check_rays(pts, 4)
     _check_table(table, mode, dev)
+    split = _split_of(B, dev, split)
+    st = _stats_ptr(stats, DC_LEN, dev)
+    fn = _fn("rt_sweep_ri", [_P, _I, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P], dev)
+    index, staged = ri_rows(table, mode)
     ri = torch.empty((B,), dtype=torch.float32, device=dev)
-    code = _fn("rt_sweep_ri", [_P, _I, _I, _P, _I, _P, _P], dev)(
-        table.data_ptr(), table.shape[0], MODES.index(mode), pts.data_ptr(), B,
-        ri.data_ptr(), _build.stream_of(dev))
+    code = fn(table.data_ptr(), table.shape[0], MODES.index(mode), index.data_ptr(),
+              staged.data_ptr(), index.shape[0], split, pts.data_ptr(), B, ri.data_ptr(), st,
+              _build.stream_of(dev))
     _build.check(code, "rt_sweep_ri")
     _build.LAUNCHES["sweep_ri"] += 1
     return ri
@@ -683,15 +786,9 @@ def grouped_live_row_bounds(table, group: int, mode: str):
 
 
 def grouped_live_rows(table, group: int, mode: str):
-    """``grouped_live_row_bounds``, computed once per table: kept on the
-    tensor and renewed when another table takes its memory or it is written in
-    place."""
-    key = (table.data_ptr(), table._version, group, mode)
-    memo = getattr(table, "_rt_live_rows", None)
-    if memo is None or memo[0] != key:
-        memo = (key, grouped_live_row_bounds(table, group, mode))
-        table._rt_live_rows = memo
-    return memo[1]
+    """``grouped_live_row_bounds``, computed once per table."""
+    return _memo(table, "_rt_live_rows", (group, mode),
+                 lambda: grouped_live_row_bounds(table, group, mode))
 
 
 def _launch_grouped(table, gaabb, rays, group: int, with_ri: bool, mode: str, stats=None):
@@ -704,8 +801,7 @@ def _launch_grouped(table, gaabb, rays, group: int, with_ri: bool, mode: str, st
     _check_tensor("gaabb", gaabb, torch.float32, (G, GB_COLS), dev)
     if with_ri and mode != "spheres":
         raise ValueError("the fused RI pass exists in sphere mode only")
-    if stats is not None:
-        _check_tensor("stats", stats, torch.int64, (SC_LEN,), dev)
+    st = _stats_ptr(stats, SC_LEN, dev)
     t = torch.empty((B,), dtype=torch.float32, device=dev)
     obj = torch.empty((B,), dtype=torch.int32, device=dev)
     ri = torch.empty((B,), dtype=torch.float32, device=dev)
@@ -714,8 +810,7 @@ def _launch_grouped(table, gaabb, rays, group: int, with_ri: bool, mode: str, st
                [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P], dev)(
         table.data_ptr(), gaabb.data_ptr(), live.data_ptr(), G, group, MODES.index(mode),
         int(with_ri), _build.coop_min(COOP_MIN), rays.data_ptr(), B, t.data_ptr(),
-        obj.data_ptr(), ri.data_ptr(), stats.data_ptr() if stats is not None else None,
-        _build.stream_of(dev))
+        obj.data_ptr(), ri.data_ptr(), st, _build.stream_of(dev))
     _build.check(code, "rt_sweep_grouped")
     _build.LAUNCHES["sweep_grouped"] += 1
     return t, obj, ri

@@ -637,3 +637,300 @@ def test_ri_sums_in_row_order_as_jax():
         np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
         assert (got[2] != 1.0).float().mean() > 0.5
         np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+
+
+# ---------------------------------------------------------------------------
+# K4's dense nearest hit and RI sum on the staged tables with their exact
+# culls (the generic nearest hit behind each row's bounding sphere, the RI sum
+# over the rows that can count, a generic row's point test behind the same
+# sphere), rehearsed on the host at one lane a ray: obj and ri equal to the
+# plain versions, t within the rtol 2e-5 stated above, the counters equal to a
+# plain count of what the kernel tests.
+# ---------------------------------------------------------------------------
+
+def _nearest_rehearsed(table, mode, rays):
+    stats = torch.zeros(tsw.DC_LEN, dtype=torch.int64)
+    with _build.host_rehearsal():
+        out = tsw._launch_nearest(table, mode, rays, 1, stats)
+    return out, stats
+
+
+def _ri_rehearsed(table, mode, pts):
+    stats = torch.zeros(tsw.DC_LEN, dtype=torch.int64)
+    with _build.host_rehearsal():
+        out = tsw._launch_ri(table, mode, pts, 1, stats)
+    return out, stats
+
+
+def _pack_np(o, d, tr, tl):
+    return pack_rays(*(torch.from_numpy(np.ascontiguousarray(x, np.float32)) for x in (o, d, tr, tl)))
+
+
+def _cull_passes_plain(table, rays):
+    """(B, N) bool: the generic pre-test of every (ray, row) pair, by the
+    kernel's float32 expression, each pair seeing the ray's best t over the
+    rows before its chunk of 32 (the kernel takes it once a chunk; the rows
+    the test rejects cannot change the strict-< scan's best)."""
+    b = tsw.dense_bounds(table)
+    ox, oy, oz, dx, dy, dz, omt, tlim = tsw._ray_cols(rays)
+    col = lambda c: b[None, :, c]  # noqa: E731
+    rx = ox - col(0) + omt * col(4)
+    ry = oy - col(1) + omt * col(5)
+    rz = oz - col(2) + omt * col(6)
+    rr = rx * rx + ry * ry + rz * rz
+    bb = rx * dx + ry * dy + rz * dz
+    dd = dx * dx + dy * dy + dz * dz
+    t_row = tsw._generic_t(table, ox, oy, oz, dx, dy, dz, omt)
+    t0 = torch.clamp_max(tlim, tsw.BIG_T)
+    t_best = torch.cummin(torch.cat([t0, t_row[:, :-1]], dim=1), dim=1).values
+    t_best = t_best[:, (torch.arange(t_best.shape[1]) // 32) * 32]
+    c2 = rr - (col(tsw.B_Q) + col(tsw.B_MU) * rr + 2.0 ** -56 * (t_best * t_best))
+    return ~((c2 > 0.0) & ((bb >= 0.0) | (bb * bb < dd * c2)))
+
+
+def _hold_nearest(table, mode, rays):
+    """Both builds' answers on ``rays``: the rehearsed kernel against the
+    plain version, and its counters against a plain count -> the stats."""
+    (t, obj), st = _nearest_rehearsed(table, mode, rays)
+    want = tsw.sweep_nearest_plain(table, mode, rays)
+    _hold_exact((t, obj), want)
+    B, N = rays.shape[1], table.shape[0]
+    assert int(st[tsw.DC_PRE]) == B * N
+    full = int(_cull_passes_plain(table, rays).sum()) if mode == "generic" else B * N
+    assert int(st[tsw.DC_FULL]) == full
+    assert int(st[tsw.DC_SLOTS]) == full  # a warp of one lane
+    return st
+
+
+@pytest.mark.parametrize("name", list(SCENES))
+def test_dense_nearest_and_ri_rehearsed(name):
+    """Both modes of both kernels, static and moving, on the case's rays and
+    on points spread over the scene, at one lane a ray; a split the host
+    cannot run is refused."""
+    _need_gxx()
+    js, jc, ts, tc, mode = _scenes(name)
+    table = tsw.make_accel(ts, mode, group=0).table
+    rays = _pack_np(*_rays(7, 1024, np.asarray(jc.position)))
+    st = _hold_nearest(table, mode, rays)
+    if mode == "generic":  # the cull leaves a small share of the pairs
+        assert 0 < int(st[tsw.DC_FULL]) < 0.5 * int(st[tsw.DC_PRE])
+    o, d, tr = rays[0:3], rays[3:6], rays[6]
+    rng = np.random.default_rng(17)
+    dist = torch.from_numpy(rng.uniform(0.5, 6.0, rays.shape[1]).astype(np.float32))
+    pts = torch.cat([o + dist * d, tr[None]]).contiguous()
+    ri, st = _ri_rehearsed(table, mode, pts)
+    assert torch.equal(ri, tsw.sweep_ri_plain(table, mode, pts))
+    index, _ = tsw.ri_rows(table, mode)
+    assert int(st[tsw.DC_PRE]) == rays.shape[1] * index.shape[0]
+    with _build.host_rehearsal():
+        with pytest.raises(RuntimeError):
+            tsw._launch_nearest(table, mode, rays, 2)
+        with pytest.raises(RuntimeError):
+            tsw._launch_ri(table, mode, pts, 2)
+
+
+def test_dense_tables_longer_than_a_stage_rehearsed():
+    """Tables streamed through the two stages: 785 generic rows (the bounds
+    stage 384 a stage, 768 whole) and a sphere table behind 600 dead rows (256
+    a stage, 512 whole); the dead rows shift obj and change nothing else."""
+    _need_gxx()
+    scene, cam = tex.bvh_grid_scene(side=28)
+    table = tsw.make_accel(scene, "generic", group=0).table
+    assert table.shape[0] > 768
+    rays = _pack_np(*_rays(4, 600, np.asarray(cam.position), spread=3.0))
+    _hold_nearest(table, "generic", rays)
+    js, jc, ts, tc, _ = _scenes("glass_spheres")
+    sph = tsw.make_accel(ts, "spheres", group=0).table
+    long = torch.cat([torch.zeros(600, tsw.S_COLS), sph]).contiguous()
+    rays = _pack_np(*_rays(5, 512, np.asarray(jc.position)))
+    (t, obj), _ = _nearest_rehearsed(sph, "spheres", rays)
+    (t_l, obj_l), _ = _nearest_rehearsed(long, "spheres", rays)
+    assert torch.equal(obj_l, torch.where(obj >= 0, obj + 600, obj)) and torch.equal(t_l, t)
+    _hold_nearest(long, "spheres", rays)
+    q = (np.array([0.0, 0.0, -3.0]) + np.random.default_rng(13).uniform(-0.45, 0.45, (512, 3)))
+    pts = torch.from_numpy(np.concatenate([q.T, np.ones((1, 512))]).astype(np.float32)).contiguous()
+    for tb in (sph, long):
+        ri, _ = _ri_rehearsed(tb, "spheres", pts)
+        assert torch.equal(ri, tsw.sweep_ri_plain(tb, "spheres", pts))
+        assert (ri != 1.0).float().mean() > 0.2
+
+
+def _adversarial_rays(table, rng):
+    """Rays for the generic cull, around each live row: tangent to its
+    bounding sphere (rb without the margin) and to the primitive (a sphere
+    row's surface, a box's face plane), with the origin on that sphere, from
+    inside the ground box, parallel to the ground box's faces and in its top
+    plane, dead (d = 0) and with a short t_limit."""
+    b = tsw.dense_bounds(table)
+    live = torch.nonzero(torch.isfinite(b[:, tsw.B_Q]) & (b[:, tsw.B_Q] > 0))[:, 0]
+    rows = live[torch.from_numpy(rng.choice(live.numel(), min(48, live.numel()), replace=False))]
+    o, d, tl = [], [], []
+
+    def unit(v):
+        return v / np.linalg.norm(v)
+
+    for k in rows.tolist():
+        c = table[k, 0:3].numpy().astype(np.float64)
+        s = table[k, tsw.G_SX:tsw.G_SZ + 1].numpy().astype(np.float64)
+        rot = table[k, tsw.G_R00:tsw.G_R22 + 1].numpy().astype(np.float64).reshape(3, 3)
+        ell = table[k, tsw.G_TYPE] == 1.0
+        rb = s.max() if ell else 0.5 * np.linalg.norm(s)
+        u = unit(rng.normal(size=3))
+        v = unit(np.cross(u, rng.normal(size=3)))
+        for radius in (rb, rb * (1 + 2e-7), rb * (1 - 2e-7), s.min() if ell else 0.5 * s[0]):
+            o.append(c + radius * v - 4.0 * u)  # tangent at distance `radius`
+            d.append(u)
+            tl.append(32000.0)
+        o.append(c + rb * u)  # on the sphere, outward and inward
+        d.append(u)
+        o.append(c + rb * u)
+        d.append(-u)
+        tl += [32000.0, 32000.0]
+        if not ell:  # along a face of the box, in its plane
+            axis = rot[:, 0]  # the local x axis in world space
+            o.append(c + 0.5 * s[0] * axis - 3.0 * rot[:, 2])
+            d.append(rot[:, 2])
+            tl.append(32000.0)
+    for x in (-150.0, 0.0, 120.0):  # inside the ground box, and in its top plane
+        for dd in ((1.0, 0.0, 0.0), (0.0, 0.0, -1.0), (0.0, 1.0, 0.0), (0.3, -0.2, 0.9)):
+            o.append((x, -50.0, -8.0))
+            d.append(unit(np.array(dd)))
+            tl.append(32000.0)
+            o.append((x, -1.0, -8.0))
+            d.append(unit(np.array(dd)))
+            tl.append(32000.0)
+    n = len(o)
+    o, d, tl = np.array(o), np.array(d), np.array(tl)
+    d[: n // 8] = 0.0  # dead
+    tl[n // 8: n // 4] = rng.uniform(0.01, 3.0, n // 4 - n // 8)  # short limits
+    return o, d, rng.uniform(0.0, 1.0, n), tl
+
+
+@pytest.mark.parametrize("moving", [False, True])
+def test_generic_cull_on_adversarial_rays_rehearsed(moving):
+    """The pre-test rejects no row the full test would take, on the rays
+    that graze it most."""
+    _need_gxx()
+    scene, _ = tex.bvh_grid_scene(side=6)
+    if moving:
+        scene = _moving(scene, ttypes)
+    table = tsw.make_accel(scene, "generic", group=0).table
+    rays = _pack_np(*_adversarial_rays(table, np.random.default_rng(23)))
+    st = _hold_nearest(table, "generic", rays)
+    want = tsw.sweep_nearest_plain(table, "generic", rays)
+    assert (want[1] >= 0).float().mean() > 0.3  # many of them hit something
+    assert int(st[tsw.DC_FULL]) < int(st[tsw.DC_PRE])
+
+
+def _glass_stack(ty):
+    """Generic glass: rotated ellipsoids and boxes nested three and four
+    deep, with air rows (refractive index exactly 1) and opaque rows between
+    them in the table, and a moving one."""
+    b = ty.SceneBuilder()
+    air = dict(refractive_index=1.0, refractivity=0.9)
+    glass = lambda ior: dict(refractive_index=ior, refractivity=0.9, reflectivity=0.1)  # noqa: E731
+    b.add((0.0, 0.0, -3.0), (1.0, 0.8, 0.9), ty.ELLIPSOID, rotation_deg=(10.0, 30.0, 0.0),
+          **glass(1.5))
+    b.add_sphere((0.1, 0.0, -3.0), 0.6, **air)
+    b.add_box((0.0, 0.05, -3.0), (0.9, 0.8, 0.9), rotation_deg=(0.0, 25.0, 10.0), **glass(1.3))
+    b.add_box((2.0, 0.0, -3.0), (0.5, 0.5, 0.5), color=(0.5, 0.5, 0.5))
+    b.add((0.05, 0.0, -2.95), (0.45, 0.35, 0.4), ty.ELLIPSOID, rotation_deg=(0.0, 60.0, 20.0),
+          **glass(1.7))
+    b.add_box((-0.1, 0.0, -3.0), (0.5, 0.5, 0.5), rotation_deg=(30.0, 0.0, 0.0), **air)
+    b.add((0.0, -0.05, -3.05), (0.3, 0.25, 0.3), ty.ELLIPSOID, rotation_deg=(45.0, 0.0, 0.0),
+          delta_position=(0.05, 0.0, 0.0), **glass(1.4))
+    b.add_sphere((0.0, -100.6, -4.0), 100.0, color=(0.6, 0.65, 0.6))
+    return b.build()
+
+
+def test_ri_sum_culls_rehearsed():
+    """The RI sum over the rows that can count: on points around the nested
+    generic glass (inside three or four rows, summed in row order), points
+    just inside and just outside every row's bounding sphere and surface,
+    and the sphere mode's deep glass; air rows between the glass rows never
+    count and are not walked."""
+    _need_gxx()
+    ts, js = _glass_stack(ttypes), _glass_stack(jtypes)
+    table = tsw.make_accel(ts, "generic", group=0).table
+    index, staged = tsw.ri_rows(table, "generic")
+    ri_col = table[:, tsw.G_RI]
+    assert (ri_col == 1.0).sum() >= 2 and not (ri_col[index.long()] == 1.0).any()
+    rng = np.random.default_rng(31)
+    pts = [np.array([0.0, 0.0, -3.0]) + rng.uniform(-0.4, 0.4, (2000, 3))]
+    b = tsw.dense_bounds(table)
+    for k in index.tolist():
+        c = table[k, 0:3].numpy().astype(np.float64)
+        s = table[k, tsw.G_SX:tsw.G_SZ + 1].numpy().astype(np.float64)
+        rb = s.max() if table[k, tsw.G_TYPE] == 1.0 else 0.5 * np.linalg.norm(s)
+        u = rng.normal(size=(64, 3))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        for f in (1 - 1e-3, 1 + 1e-3, 1 - 1e-6, 1 + 1e-6):
+            pts.append(c + f * rb * u)  # the bounding sphere
+        rot = table[k, tsw.G_R00:tsw.G_R22 + 1].numpy().astype(np.float64).reshape(3, 3)
+        surf = u * s[None] if table[k, tsw.G_TYPE] == 1.0 else 0.5 * np.sign(u) * s[None]
+        for f in (1 - 1e-6, 1 + 1e-6):
+            pts.append(c + f * surf @ rot.T)  # the surface (box corners)
+        assert float(b[k, tsw.B_Q]) >= rb * rb
+    p = np.concatenate(pts).astype(np.float32)
+    tr = rng.uniform(0.0, 1.0, p.shape[0]).astype(np.float32)
+    P = torch.from_numpy(np.concatenate([p.T, (1.0 - tr)[None]]).astype(np.float32)).contiguous()
+    ri, st = _ri_rehearsed(table, "generic", P)
+    want = tsw.sweep_ri_plain(table, "generic", P)
+    assert torch.equal(ri, want)
+    assert int(st[tsw.DC_PRE]) == P.shape[1] * index.shape[0]
+    assert 0 < int(st[tsw.DC_FULL]) < int(st[tsw.DC_PRE]) and int(st[tsw.DC_SLOTS]) == int(
+        st[tsw.DC_FULL])
+    # three or more glass rows around the centre, summed in row order as JAX does
+    inside = tsw._contains(table, "generic", P[0][:, None], P[1][:, None], P[2][:, None],
+                           P[3][:, None]) & (ri_col != 1.0)[None]
+    assert (inside.sum(dim=1) >= 3).sum() > 100
+    jt = jsw.make_accel(js, "generic", group=0).table
+    np.testing.assert_array_equal(ri.numpy(), np.asarray(jsw.sweep_ri(
+        jt, "generic", jnp.asarray(p), jnp.asarray(tr))))
+    # sphere mode: the deep glass, whose points lie in four or five rows
+    sph = tsw.make_accel(_deep_glass(ttypes), "spheres", group=0).table
+    q = (np.array([0.0, 0.0, -3.0]) + rng.uniform(-0.3, 0.3, (1500, 3))).astype(np.float32)
+    Q = torch.from_numpy(np.concatenate([q.T, np.ones((1, 1500), np.float32)])).contiguous()
+    ri, st = _ri_rehearsed(sph, "spheres", Q)
+    assert torch.equal(ri, tsw.sweep_ri_plain(sph, "spheres", Q)) and (ri != 1.0).all()
+    assert int(st[tsw.DC_FULL]) == 1500 * tsw.ri_rows(sph, "spheres")[0].shape[0]
+
+
+@pytest.mark.parametrize("name", list(SCENES) + ["glass_stack"])
+def test_dense_bounds_and_ri_rows_match_numpy_of_jax_table(name):
+    """The bounds and the rows the RI sum walks, against a numpy
+    recomputation from the JAX package's table of the same scene."""
+    if name == "glass_stack":
+        js, ts, mode = _glass_stack(jtypes), _glass_stack(ttypes), "generic"
+    else:
+        js, _, ts, _, mode = _scenes(name)
+    jt = np.asarray(jsw.make_accel(js, mode, group=0).table).T.astype(np.float64)  # (N, F)
+    table = tsw.make_accel(ts, mode, group=0).table
+    valid_col, ri_col = (jsw.S_VALID, jsw.S_RI) if mode == "spheres" else (jsw.G_VALID, jsw.G_RI)
+    keep = (jt[:, valid_col] > 0) & (jt[:, ri_col] != 1.0)
+    index, staged = tsw.ri_rows(table, mode)
+    np.testing.assert_array_equal(index.numpy(), np.nonzero(keep)[0])
+    if mode == "spheres":
+        np.testing.assert_array_equal(staged.numpy(), table[index.long()].numpy())
+        return
+    rot = jt[:, jsw.G_R00:jsw.G_R22 + 1].reshape(-1, 3, 3)
+    s = np.abs(jt[:, jsw.G_SX:jsw.G_SZ + 1])
+    sv = np.linalg.svd(rot, compute_uv=False)
+    ell = jt[:, jsw.G_TYPE] == 1.0
+    rb = np.where(ell, s.max(1), 0.5 * np.linalg.norm(s, axis=1)) / sv[:, 2]
+    kappa = s.max(1) / s.min(1) * sv[:, 0] / sv[:, 2]
+    q = (rb * (1 + 2.0 ** -9)) ** 2 * (1 + 2.0 ** -16 * kappa)
+    mu = np.minimum(2.0 ** -15 * kappa ** 3, 1.0)
+    live = jt[:, jsw.G_VALID] > 0
+    q, mu = np.where(live, q, -np.inf), np.where(live, mu, 0.0)
+    want = np.stack([jt[:, jsw.G_PX], jt[:, jsw.G_PY], jt[:, jsw.G_PZ], q,
+                     jt[:, jsw.G_DPX], jt[:, jsw.G_DPY], jt[:, jsw.G_DPZ], mu], axis=1)
+    got = tsw.dense_bounds(table).numpy()
+    np.testing.assert_allclose(got, want.astype(np.float32), rtol=1e-6, atol=0)
+    assert tsw.dense_bounds(table) is tsw.dense_bounds(table)  # computed once
+    want_ri = want[keep]
+    want_ri[:, tsw.B_MU] = jt[keep, jsw.G_RI]
+    np.testing.assert_allclose(staged.numpy(), want_ri.astype(np.float32), rtol=1e-6, atol=0)
+    # a write in place renews both
+    table[int(index[0]), tsw.G_RI] = 1.0
+    assert tsw.ri_rows(table, mode)[0].shape[0] == index.shape[0] - 1
