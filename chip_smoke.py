@@ -244,6 +244,45 @@ Phases and their bars:
      steps of grad_config: the loss falls; a checkpoint after them restores
      parameters and Adam's state bit for bit, and the next step's loss from
      both is equal.
+  Then the thirteenth slice, the row-sharded mesh (``parallel/``) on virtual
+  shards of this card (``make_mesh(devices=[card] * n)``: each shard its own
+  launches with its own row map):
+  sharded_headline. The headline frame through ``render_uber_sharded`` on 3
+     shards (150 rows each) and 4 (113, two of them off the frame): exactly
+     ``{"uber": n}`` a frame; in the -fmad=false build image and depth bit
+     for bit the single ``render_uber`` frame's, rays equal at 3 (at 4 the
+     off-frame rows add rays, as in the JAX package); the default build by
+     the canary's envelope against the headline frame of this run, with the
+     share of bit-identical pixels; min and mean of 3 frames after a warm
+     one beside the single frame's, timed again in the phase; K1 alone on
+     the same tables by CUDA events, the n shard launches against the one
+     launch, in turns (single, sharded, sharded, single).
+  load_imbalance. ``multihost.load_imbalance_report`` on the headline at 1,
+     2, 4 and 8 shards (15 launches): per-shard rays, imbalance, efficiency
+     bound in (0, 1]; one shard's rays within 0.5 % of the headline's.
+  sharded_bvh_queue. bvh1k through ``render_sharded`` on 3 shards (the
+     ``bvh`` workload's queue renderer): K5 alone; -fmad=false build image,
+     depth and rays identical to ``render_stats``; the default build by the
+     envelope; min and mean of 3 frames beside the single frame's.
+  sharded_train_step. ``grad_config``'s scene and target at 800x450, depth
+     8, spp cut from 16 to TRAIN_SPP (2): a mesh takes no bands, as in the
+     JAX package, and 16 spp unbanded would need some 100 GB (1 spp if the
+     unsharded step's peak passes 60 GB); ``value_and_grad_loss`` on 3
+     shards against one device: -fmad=false build by GRAD_SHARDED_PRECISE
+     (its reason there), the default build by GRAD_DEFAULT; K2 alone; peak
+     memory and seconds per step of both; three Adam steps of
+     ``make_train_step(mesh=)``: the last two below the first.
+  dryrun. ``dryrun.dryrun_multichip(4, devices=[card] * 4)`` in the
+     -fmad=false build: one sharded Adam step with a finite loss, and
+     ``render_uber_sharded`` against ``render_uber`` at atol 2e-6 with equal
+     rays under 'bvh', materials and lights (each one single and four shard
+     launches).
+  world_one (last). ``multihost.initialize_multihost`` with NCCL, world size
+     1, through a FileStore in a temporary directory; ``make_mesh()`` is the
+     group's; ``render_uber_sharded`` at 200x112x8 d6 bit for bit
+     ``render_uber`` (one launch); one ``value_and_grad_loss(mesh=)``
+     through the all-reduce against the unsharded one by
+     GRAD_SHARDED_PRECISE; the group destroyed in a ``finally``.
 Launch counts are kept per driven path: set to 0 before a path and read after
 it (each canary, each frame); every kernel must be launched on at least one.
 """
@@ -4303,6 +4342,283 @@ def grad_phases(dev, k3_canary):
     return entries, paths, at_hard_step
 
 
+# ---------------------------------------------------------------------------
+# The thirteenth slice: the row-sharded mesh (parallel/), the sharded gradient
+# step, a process group of one through NCCL, and the port's dry run.  A mesh
+# here repeats the one card (make_mesh(devices=[dev] * n)): n virtual shards,
+# each its own launches with its own row map, which must reassemble the
+# single-device frame.
+# ---------------------------------------------------------------------------
+
+SHARDS = (3, 4)  # 150 rows each; 113 rows each, two of them off the frame
+IMBALANCE_SHARDS = (1, 2, 4, 8)
+TRAIN_SPP = 2  # grad_config's 16 spp cut: a mesh takes no bands (JAX diff/train.py:312)
+TRAIN_PEAK_LIMIT = 60e9  # above it the sharded step drops to 1 spp
+# The sharded gradient against the unsharded one: the -fmad=false build
+# gives every lane the same bits, and only the order of the sums differs:
+# each field's gradient gathers its objects' terms from every lane by atomic
+# adds (the backward of the winner gathers), in the order the lanes happen to
+# run, and the lanes lie in another order on a mesh.  A colour's gradient sums
+# terms of both signs from some 10^5 lanes, so a different order moves it by
+# some 1e-5 of the field's largest entry (found 2.2e-5 on the colours, under
+# 1e-6 on the geometry; the same unsharded step twice: printed as
+# ``repeat_precise``).  The loss is a mean over the same image: equal.
+GRAD_SHARDED_PRECISE = dict(loss_rtol=1e-6, field_of_max=1e-4)
+
+
+def same_frame(a, b):
+    """Two finished frames bit for bit: image, depth and rays."""
+    return dict(image=bool(torch.equal(a["image"], b["image"])),
+                depth=bool(torch.equal(a["depth"], b["depth"])),
+                rays=int(a["rays"]) == int(b["rays"]))
+
+
+def identical_pixels(a, b):
+    return frac((a["image"] == b["image"]).all(dim=-1))
+
+
+def sharded_headline(dev, headline, single_frame):
+    """Phase sharded_headline: the headline frame through render_uber_sharded
+    on SHARDS virtual shards -> {path: launches}."""
+    from raytracing_tests_tpu_torch.parallel import make_mesh, render_uber_sharded
+
+    scene, camera = (x.to(dev) for x in examples.iow_final_scene())
+    cfg = RenderConfig(intersector="pallas", **HEADLINE).for_scene(scene)
+    with _build.precise():
+        single_p = uber.render_uber(scene, camera, cfg, gr=GR)
+    # the single frame again, beside the sharded ones (the host's accel build
+    # drifts over a run), and K1 alone on the same tables, by CUDA events
+    _, single_times, _ = timed_frames(lambda: uber.render_uber(scene, camera, cfg, gr=GR))
+    accel, cam1 = uber._scene_accel(scene, camera, cfg, GR)
+    st = uber.UberStatics.from_cfg(cfg, 0, camera)
+    one = lambda: uber.uber_render(accel, cam1, st)  # noqa: E731
+    paths = {}
+    for n in SHARDS:
+        mesh = make_mesh(devices=[dev] * n)
+        render = lambda: render_uber_sharded(scene, camera, cfg, mesh, gr=GR)  # noqa: E731
+        out, times, launches = timed_frames(render)
+        with _build.precise():
+            out_p = render()
+        exact = same_frame(out_p, single_p)
+        c = parity(out, headline)
+        st_n = dataclasses.replace(st, rows=-(-cfg.height // n))
+        cams = [uber.pack_camera(camera, row_stride=float(n), row0=float(d)) for d in range(n)]
+        shards = lambda: [uber.uber_render(accel, cv, st_n) for cv in cams]  # noqa: E731
+        k1_single, k1_sharded = [cuda_ms(one, 3)], [cuda_ms(shards, 3), cuda_ms(shards, 3)]
+        k1_single.append(cuda_ms(one, 3))  # in turns: single, sharded, sharded, single
+        res = dict(shards=n, rows_per_shard=-(-cfg.height // n), size=size_of(HEADLINE),
+                   seconds_per_frame_min=min(times),
+                   seconds_per_frame_mean=sum(times) / len(times),
+                   single_seconds_per_frame_min=min(single_times),
+                   single_seconds_per_frame_mean=sum(single_times) / len(single_times),
+                   headline_phase_seconds_per_frame_min=single_frame["seconds_per_frame_min"],
+                   k1_ms_single=k1_single, k1_ms_all_shards=k1_sharded,
+                   rays=int(out["rays"]), single_rays=int(headline["rays"]),
+                   rays_dropped=int(out["rays_dropped"]), launches_per_frame=launches,
+                   precise_build_equal_to_single=exact,
+                   precise_rays=int(out_p["rays"]), single_precise_rays=int(single_p["rays"]),
+                   default_build_identical_pixels=identical_pixels(out, headline),
+                   parity_vs_single=c)
+        say(phase="sharded_headline", **res)
+        for got in launches:
+            require(got == {"uber": n}, f"a frame on {n} shards is {n} launches: {launches}")
+        require(exact["image"] and exact["depth"] and (exact["rays"] or n != 3),
+                f"sharded headline, -fmad=false build, not the single frame: {res}")
+        require(n == 3 or int(out_p["rays"]) > int(single_p["rays"]),
+                f"the off-frame rows of {n} shards count no rays: {res}")
+        check_parity(f"sharded headline on {n} shards", c)
+        paths[f"sharded_headline_{n}"] = launches[-1]
+    return paths
+
+
+def load_imbalance(dev, single_rays):
+    """Phase load_imbalance: the headline's per-shard rays at IMBALANCE_SHARDS;
+    ``single_rays``: the headline frame's rays in this run."""
+    from raytracing_tests_tpu_torch.parallel import multihost
+
+    scene, camera = (x.to(dev) for x in examples.iow_final_scene())
+    cfg = RenderConfig(intersector="pallas", **HEADLINE).for_scene(scene)
+    _build.reset_launches()
+    ms, report = timed_ms(lambda: multihost.load_imbalance_report(
+        scene, camera, cfg, IMBALANCE_SHARDS, gr=GR))
+    launches = dict(_build.LAUNCHES)
+    say(phase="load_imbalance", size=size_of(HEADLINE), seconds=ms / 1e3, report=report,
+        launches=launches)
+    require(launches == {"uber": sum(IMBALANCE_SHARDS)},
+            f"load_imbalance: one launch a shard: {launches}")
+    require(all(0.0 < r["efficiency_bound"] <= 1.0 for r in report)
+            and abs(report[0]["rays"][0] - single_rays) < 5e-3 * single_rays,
+            f"load_imbalance: {report} (the headline's rays: {single_rays})")
+    return {"load_imbalance": launches}
+
+
+def sharded_bvh_queue(dev):
+    """Phase sharded_bvh_queue: the bvh workload's path on 3 virtual shards."""
+    from raytracing_tests_tpu_torch.parallel import make_mesh, render_sharded
+
+    scene, camera = (x.to(dev) for x in examples.bvh_grid_scene(side=32))
+    cfg = RenderConfig(intersector="pallas", **BVH1K).for_scene(scene)
+    mesh = make_mesh(devices=[dev] * 3)
+    render = lambda: render_sharded(scene, camera, cfg, mesh)  # noqa: E731
+    single, single_times, _ = timed_frames(lambda: render_stats(scene, camera, cfg))
+    out, times, launches = timed_frames(render)
+    with _build.precise():
+        exact = same_frame(render(), render_stats(scene, camera, cfg))
+    c = parity(out, single)
+    res = dict(scene="bvh_grid_scene(side=32)", size=size_of(BVH1K), shards=3,
+               seconds_per_frame_min=min(times), seconds_per_frame_mean=sum(times) / len(times),
+               single_seconds_per_frame_min=min(single_times),
+               single_seconds_per_frame_mean=sum(single_times) / len(single_times),
+               rays=int(out["rays"]),
+               single_rays=int(single["rays"]), rays_dropped=int(out["rays_dropped"]),
+               launches_per_frame=launches, precise_build_equal_to_single=exact,
+               default_build_identical_pixels=identical_pixels(out, single),
+               parity_vs_single=c)
+    say(phase="sharded_bvh_queue", **res)
+    require(all(set(got) == {"sweep_grouped"} and got["sweep_grouped"] > 0 for got in launches),
+            f"a sharded bvh queue frame launches K5 and nothing else: {launches}")
+    require(all(exact.values()), f"sharded bvh queue, -fmad=false build: {res}")
+    check_parity("sharded bvh queue frame", c)
+    return {"sharded_bvh_queue": launches[-1]}
+
+
+def train_inputs(dev, spp):
+    scene, cam = (x.to(dev) for x in examples.iow_final_scene())
+    cfg = RenderConfig(intersector="pallas", **dict(GRAD, spp=spp)).for_scene(scene)
+    pert = scene.replace(color=scene.color * 0.8 + 0.1)  # grad_config's perturbation
+    return dict(cfg=cfg, cam=cam, pert=pert, p=diff.extract_params(pert),
+                target=render_stats(scene, cam, cfg)["image"])
+
+
+def sharded_vg(t, mesh):
+    """One value_and_grad_loss of ``t`` on ``mesh`` (None: one device)."""
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    ms, (loss, grads) = timed_ms(lambda: diff.value_and_grad_loss(
+        t["p"], t["pert"], t["cam"], t["cfg"], t["target"], mesh=mesh))
+    return dict(ms=ms, loss=loss, grads=grads, launches=dict(_build.LAUNCHES),
+                peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+def sharded_train_step(dev):
+    """Phase sharded_train_step: grad_config's scene and target at TRAIN_SPP,
+    unbanded, through the sharded gradient step on 3 virtual shards."""
+    from raytracing_tests_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=[dev] * 3)
+    spp = TRAIN_SPP
+    t = train_inputs(dev, spp)
+    one = sharded_vg(t, None)
+    if one["peak_memory_bytes"] > TRAIN_PEAK_LIMIT:
+        spp = 1
+        t = train_inputs(dev, spp)
+        one = sharded_vg(t, None)
+    sh = sharded_vg(t, mesh)
+    with _build.precise():
+        one_p, sh_p, one_p2 = sharded_vg(t, None), sharded_vg(t, mesh), sharded_vg(t, None)
+    default, precise = compare_grads(sh, one), compare_grads(sh_p, one_p)
+    repeat = compare_grads(one_p2, one_p)
+    opt = diff.adam(2e-2)
+    step = diff.make_train_step(t["pert"], t["cam"], t["cfg"], opt, mesh=mesh,
+                                trainable=diff.params_mask(t["pert"], "color"))
+    st = diff.TrainState.create(t["pert"], opt)
+    losses, times = [], []
+    for _ in range(3):
+        ms, (st, loss) = timed_ms(lambda: step(st, t["target"]))
+        losses.append(float(loss))
+        times.append(ms / 1e3)
+    res = dict(size=size_of(dict(GRAD, spp=spp)), spp=spp, spp_cut_from=GRAD["spp"],
+               shards=3, seconds_per_step=sh["ms"] / 1e3, single_seconds_per_step=one["ms"] / 1e3,
+               peak_memory_bytes=sh["peak_memory_bytes"],
+               single_peak_memory_bytes=one["peak_memory_bytes"], launches=sh["launches"],
+               single_launches=one["launches"], precise_build=precise, default_build=default,
+               repeat_precise=dict(loss_rel_err=repeat["loss_rel_err"],
+                                   worst_field_err_of_max=repeat["worst_field_err_of_max"]),
+               train_losses=losses, train_seconds_per_step=times)
+    say(phase="sharded_train_step", **res)
+    check_grads("sharded_train_step, -fmad=false build", precise, GRAD_SHARDED_PRECISE)
+    check_grads("sharded_train_step, default build", default, GRAD_DEFAULT)
+    require(set(sh["launches"]) == {"sweep2"} and sh["launches"]["sweep2"] > 0,
+            f"sharded_train_step: the step runs K2 and nothing else: {sh['launches']}")
+    require(losses[1] < losses[0] and losses[2] < losses[0],
+            f"sharded_train_step: two more Adam steps did not lower the loss: {losses}")
+    return {"sharded_train_step": sh["launches"]}
+
+
+def dryrun_phase(dev):
+    """Phase dryrun: the port's dry run on 4 virtual shards, -fmad=false."""
+    from raytracing_tests_tpu_torch.dryrun import dryrun_multichip
+
+    _build.reset_launches()
+    with _build.precise():
+        ms, found = timed_ms(lambda: dryrun_multichip(4, devices=[dev] * 4))
+    launches = dict(_build.LAUNCHES)
+    say(phase="dryrun", shards=4, seconds=ms / 1e3, found=found, launches=launches)
+    require(len(launches) == 3 and set(launches.values()) == {5},
+            f"dryrun: three cases of K1, each one single and four shard launches: {launches}")
+    return {"dryrun": launches}
+
+
+def world_one(dev):
+    """Phase world_one: a process group of one through NCCL (a FileStore in a
+    temporary directory): the group's mesh against one device."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from raytracing_tests_tpu_torch.parallel import make_mesh, render_uber_sharded
+    from raytracing_tests_tpu_torch.parallel.multihost import initialize_multihost
+
+    scene, camera = (x.to(dev) for x in examples.iow_final_scene())
+    cfg_s = RenderConfig(intersector="pallas", **SMALL).for_scene(scene)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rank = initialize_multihost("file://" + tmp + "/store", 1, 0)
+        try:
+            init_s = time.perf_counter() - t0
+            mesh = make_mesh()
+            backend = dist.get_backend()
+            single = uber.render_uber(scene, camera, cfg_s, gr=GR)
+            _build.reset_launches()
+            out = render_uber_sharded(scene, camera, cfg_s, mesh, gr=GR)
+            launches = dict(_build.LAUNCHES)
+            target = render_stats(scene, camera, cfg_s)["image"]
+            pert = scene.replace(color=scene.color * 0.8 + 0.1)
+            args = (diff.extract_params(pert), pert, camera, cfg_s, target)
+            one = dict(zip(("loss", "grads"), diff.value_and_grad_loss(*args)))
+            _build.reset_launches()
+            grp = dict(zip(("loss", "grads"), diff.value_and_grad_loss(*args, mesh=mesh)))
+            launches_vg = dict(_build.LAUNCHES)
+            grads = compare_grads(grp, one)
+            res = dict(backend=backend, rank=rank, world_size=dist.get_world_size(),
+                       init_seconds=init_s, mesh=str(mesh.shape), distributed=mesh.distributed,
+                       size=size_of(SMALL), frame_equal_to_single=same_frame(out, single),
+                       launches=launches, value_and_grad=grads, launches_value_and_grad=launches_vg)
+            say(phase="world_one", **res)
+            require(backend == "nccl" and mesh.distributed and mesh.shape == {"rows": 1},
+                    f"world_one: not a process group of one through NCCL: {res}")
+            require(all(res["frame_equal_to_single"].values()) and launches == {"uber": 1},
+                    f"world_one: the group's frame is not the single launch's: {res}")
+            check_grads("world_one value_and_grad_loss", grads, GRAD_SHARDED_PRECISE)
+        finally:
+            dist.destroy_process_group()
+    return {"world_one": {k: launches.get(k, 0) + launches_vg.get(k, 0)
+                          for k in set(launches) | set(launches_vg)}}
+
+
+def parallel_phases(dev, headline, single_frame):
+    """The thirteenth slice's phases, each path's launches counted from 0 ->
+    {path: launches}.  ``headline``: the render_uber headline frame of this
+    run; ``single_frame``: its numbers (phase headline)."""
+    paths = sharded_headline(dev, headline, single_frame)
+    paths.update(load_imbalance(dev, int(headline["rays"])))
+    paths.update(sharded_bvh_queue(dev))
+    paths.update(sharded_train_step(dev))
+    paths.update(dryrun_phase(dev))
+    paths.update(world_one(dev))
+    return paths
+
+
 def main():
     dev = torch.device("cuda", 0)
 
@@ -4560,6 +4876,8 @@ def main():
     seventh, seventh_paths = texturing_phases(dev)
     kernels += seventh
     eighth, eighth_paths, k3_hard_step = grad_phases(dev, k3_canary)
+    # the thirteenth slice: the row-sharded mesh, on virtual shards of this card
+    thirteenth_paths = parallel_phases(dev, out, frame)
     k3 = next(k for k in kernels if k["name"] == "sweep2g")
     k3.update(at_hard_step=k3_hard_step, ptxas=ptxas.get("sweep2g.so sweep2g_kernel<0>"))
     for k in eighth:  # the silhouette instantiations' ptxas lines
@@ -4577,8 +4895,10 @@ def main():
     # the sixth and seventh slices' paths that launch earlier kernels: K2 and
     # K5 behind the queue renderer on the new canaries, shadow sweeps
     # included, K2 behind the work queue with lights and textures, K1 'bvh' on
-    # the deep stacks, the untextured instantiations on the camera canaries
-    later_paths = {**sixth_paths, **seventh_paths, **eighth_paths}
+    # the deep stacks, the untextured instantiations on the camera canaries; the
+    # thirteenth slice's: K1 once a shard, K5 behind the sharded queue
+    # renderer, K2 behind the sharded gradient step
+    later_paths = {**sixth_paths, **seventh_paths, **eighth_paths, **thirteenth_paths}
     for k in kernels:
         counter = dict(sweep2="sweep2", sweep2_motion="sweep2_m", sweep2g="sweep2g",
                        sweep_grouped="sweep_grouped").get(k["name"], k.get("instantiation"))

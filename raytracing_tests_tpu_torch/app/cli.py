@@ -4,15 +4,17 @@ Usage:
   python -m raytracing_tests_tpu_torch list
   python -m raytracing_tests_tpu_torch info
   python -m raytracing_tests_tpu_torch render <workload> [--width W --height H
-        --spp S --bounces B --pallas --uber --out out.png
+        --spp S --bounces B --pallas --uber --mesh N --out out.png
         --depth-out depth.png --device cuda|cpu
         --texture image.png --texture-mapping mercator|cubic]
   python -m raytracing_tests_tpu_torch train <workload> [--steps N --lr F
         --train-fields color,position --pallas --grad-bands N --auto-pops
-        --soft-edges F --out-dir dir --ckpt-dir dir --ckpt-every N
+        --soft-edges F --mesh N --out-dir dir --ckpt-dir dir --ckpt-every N
         --device cuda|cpu]
 
 Renders and training run on the GPU unless ``--device cpu`` is given.
+``--mesh N`` shards the image rows over the first N GPUs (it raises when
+there are fewer), or with ``--device cpu`` over N virtual shards of the CPU.
 """
 
 from __future__ import annotations
@@ -39,6 +41,16 @@ def _cmd_list(_args):
         print(f"  {name:<{width}}  {desc}")
 
 
+def _mesh_of(n, device):
+    """``--mesh N``: N virtual shards of the CPU with ``--device cpu``, else
+    the first N CUDA devices."""
+    from raytracing_tests_tpu_torch.parallel import make_mesh
+
+    if device is not None and torch.device(device).type == "cpu":
+        return make_mesh(devices=["cpu"] * n)
+    return make_mesh(n)
+
+
 def _cmd_render(args):
     import numpy as np
 
@@ -61,6 +73,8 @@ def _cmd_render(args):
     if args.uber:
         kw["uber"] = True
         kw["intersector"] = "pallas"
+    if args.mesh:
+        kw["mesh"] = _mesh_of(args.mesh, args.device)
     if args.texture:
         if args.workload != "texturing-image":
             raise SystemExit(
@@ -113,8 +127,7 @@ def _cmd_train(args):
     from raytracing_tests_tpu_torch.utils import io
 
     log = logging.getLogger("raytracing_tests_tpu_torch")
-    if args.mesh:
-        raise SystemExit("--mesh: sharded training is not ported yet (ROADMAP L7)")
+    mesh = _mesh_of(args.mesh, args.device) if args.mesh else None
     w = get_workload(args.workload)
     kw = {}
     if args.pallas or args.soft_edges > 0.0:
@@ -128,7 +141,7 @@ def _cmd_train(args):
     if args.soft_edges > 0.0:
         cfg = dataclasses.replace(cfg, soft_edges=args.soft_edges)
     opt = adam(args.lr)
-    step = make_train_step(perturbed, camera, cfg, opt, grad_bands=args.grad_bands,
+    step = make_train_step(perturbed, camera, cfg, opt, mesh=mesh, grad_bands=args.grad_bands,
                            auto_pops=args.auto_pops,
                            trainable=params_mask(perturbed, *fields), device=args.device)
     st = TrainState.create(perturbed, opt, device=args.device)
@@ -185,6 +198,9 @@ def main(argv=None):
                     help="use the grouped sweep kernel (sphere scenes)")
     pr.add_argument("--uber", action="store_true",
                     help="use the persistent path-tracer kernel (fastest)")
+    pr.add_argument("--mesh", type=int,
+                    help="shard the image rows over N devices (with --device cpu: "
+                    "N virtual CPU shards)")
     pr.add_argument("--out", default="render.png")
     pr.add_argument("--depth-out", help="also write normalized depth PNG")
     pr.add_argument("--device", default=None,
@@ -205,7 +221,8 @@ def main(argv=None):
     pt.add_argument("--spp", type=int, default=2)
     pt.add_argument("--seed", type=int, default=0)
     pt.add_argument("--mesh", type=int,
-                    help="shard over N devices (not ported yet: refused)")
+                    help="shard the image rows over N devices and sum the "
+                    "gradients (with --device cpu: N virtual CPU shards)")
     pt.add_argument("--train-fields", default="color")
     pt.add_argument("--pallas", action="store_true",
                     help="fast gradient path (kernel winner-finding + "

@@ -2,7 +2,9 @@
 
 Rendered pixels differentiable with respect to sphere centres / radii
 (position / scale), material albedo / fuzz / IOR and the texture atlas, with
-the sweeps run as kernels on detached inputs (``diff/fastpath.py``).
+the sweeps run as kernels on detached inputs (``diff/fastpath.py``), on one
+device or row-sharded over a mesh (``render_loss(mesh=)``,
+``make_train_step(mesh=)``; ``parallel.make_mesh``).
 """
 
 from raytracing_tests_tpu_torch.diff.params import (  # noqa: F401

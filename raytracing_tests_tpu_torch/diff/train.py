@@ -3,8 +3,12 @@
 Render -> L2 loss against a target image -> gradients with respect to
 ``SceneParams`` -> an Adam update.  The sweeps run as kernels on detached
 inputs (``diff/fastpath.py``); autograd differentiates the closed-form
-recompute and the shading in plain PyTorch.  Single device: a sharded step
-waits for the multi-GPU slice (ROADMAP L7).
+recompute and the shading in plain PyTorch.  On a mesh
+(``parallel.make_mesh``) the forward is row-sharded
+(``parallel.render_sharded``): with every shard in this process one autograd
+graph spans the shards, and under a process group each rank differentiates
+its own rows and the gradients are summed over the ranks (``all_reduce``),
+the psum the JAX package's ``shard_map`` transpose gives.
 """
 
 from __future__ import annotations
@@ -28,13 +32,6 @@ REPROBE_EVERY = 25  # auto_pops: steps between re-probes of the band depths
 POPS_MARGIN = 2  # auto_pops: pops added to each probed band depth
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded training (mesh=) is not ported yet: it waits for the "
-            "multi-GPU slice, ROADMAP L7")
-
-
 def _diff_cfg(cfg: RenderConfig) -> RenderConfig:
     """Gradient-rendering config: validate, and route the ``pallas``
     intersector to the fast gradient path (``diff_mode``).  The ``brute``
@@ -53,16 +50,49 @@ def _diff_cfg(cfg: RenderConfig) -> RenderConfig:
     return cfg
 
 
+def _home(mesh, device) -> torch.device:
+    """Where the loss and the parameters live: ``device``, or with a mesh and
+    no device, the mesh's first device of this process; ``None`` without a
+    mesh means the GPU."""
+    if device is None and mesh is not None:
+        return mesh.home
+    return resolve_device(device)
+
+
 def render_loss(params: SceneParams, template: Scene, camera: Camera, cfg: RenderConfig,
                 target, mesh=None, lights=None, device=None):
     """Mean squared pixel error of the render against ``target`` (H, W, 3).
-    ``device=None`` means the GPU."""
-    _no_mesh(mesh)
+    ``device=None`` means the GPU (with a mesh: the mesh's first device).
+
+    ``mesh``: the forward is ``parallel.render_sharded``.  With every shard in
+    this process the loss's graph spans them all.  Under a process group the
+    value is the global loss on every rank (the ranks' squared-error sums,
+    all-reduced), but its graph holds this rank's rows only: its gradient is
+    this rank's share, which ``value_and_grad_loss`` sums over the ranks.
+    (A differentiable gather of the image would count every pixel world-size
+    times, each rank holding the same loss.)"""
     cfg = _diff_cfg(cfg)
-    dev = resolve_device(device)
-    out = render(apply_params(template, params), camera, cfg, lights, device=dev)
+    dev = _home(mesh, device)
+    scene = apply_params(template, params)
     target = torch.as_tensor(target, dtype=torch.float32, device=dev)
-    return torch.mean((out["image"] - target) ** 2)
+    if mesh is None:
+        out = render(scene, camera, cfg, lights, device=dev)
+        return torch.mean((out["image"] - target) ** 2)
+    from raytracing_tests_tpu_torch.parallel.render_sharded import (
+        render_sharded, trace_shards)
+
+    if not mesh.distributed:
+        out = render_sharded(scene, camera, cfg, mesh, lights)
+        return torch.mean((out["image"].to(dev) - target) ** 2)
+    from raytracing_tests_tpu_torch.parallel.mesh import ROWS_AXIS, shard_rows
+
+    (shard, colors, primary_t, _, _), = trace_shards(scene, camera, cfg, mesh, lights)
+    rows = torch.from_numpy(shard_rows(cfg.height, mesh.shape[ROWS_AXIS], shard)).to(dev)
+    img = finalize(colors, primary_t, cfg)["image"].to(dev)
+    mine = torch.sum((img - target[rows]) ** 2) / target.numel()
+    total = mine.detach().clone()
+    torch.distributed.all_reduce(total, group=mesh.group)
+    return total + (mine - mine.detach())  # the value is total's, bit for bit
 
 
 def _leaves(params: SceneParams, device):
@@ -84,11 +114,19 @@ def _grads_of(value, leaves: SceneParams, accumulate: Optional[SceneParams] = No
 
 def value_and_grad_loss(params: SceneParams, template: Scene, camera: Camera,
                         cfg: RenderConfig, target, mesh=None, lights=None, device=None):
-    """(loss, grads) of ``render_loss`` by autograd over the whole frame."""
-    dev = resolve_device(device)
+    """(loss, grads) of ``render_loss`` by autograd over the whole frame.
+
+    Under a process group (``mesh.distributed``) each rank's gradient is its
+    own rows' share; they are summed over the ranks (``all_reduce``), so every
+    rank returns the global loss and gradient."""
+    dev = _home(mesh, device)
     leaves = _leaves(params, dev)
     loss = render_loss(leaves, template, camera, cfg, target, mesh, lights, dev)
-    return loss.detach(), _grads_of(loss, leaves)
+    grads = _grads_of(loss, leaves)
+    if mesh is not None and mesh.distributed:
+        for _, g in grads.items():
+            torch.distributed.all_reduce(g, group=mesh.group)
+    return loss.detach(), grads
 
 
 def _probe_lanes(camera, cfg, dev):
@@ -307,7 +345,10 @@ def make_train_step(template: Scene, camera: Camera, cfg: RenderConfig, optimize
 
     ``grad_bands > 1`` accumulates the gradient over image row bands
     (``banded_value_and_grad``): the same loss and gradients at 1/bands of the
-    backward's peak memory — what a full-resolution frame needs.
+    backward's peak memory — what a full-resolution frame needs.  Single
+    device only, as in the JAX package: with a ``mesh`` (the sharded step,
+    ``value_and_grad_loss(mesh=)``) it is refused, and so is ``auto_pops``,
+    which needs bands.
 
     ``auto_pops`` (banded only): probe each band's depth with the early-exit
     forward and trace the bands at those depths + 2.  Training can DEEPEN ray
@@ -315,7 +356,8 @@ def make_train_step(template: Scene, camera: Camera, cfg: RenderConfig, optimize
     closed), which would truncate the cut traces, so the step re-probes the
     current params every ``REPROBE_EVERY`` (25) steps and rebuilds the buckets
     when a band outgrew its margin (``step.pops_state``)."""
-    _no_mesh(mesh)
+    if mesh is not None and grad_bands > 1:
+        raise ValueError("grad_bands composes with single-device only (mesh=None)")
     if auto_pops and grad_bands <= 1:
         raise ValueError(
             "auto_pops requires grad_bands > 1 (the probed depths are per row "
@@ -346,7 +388,7 @@ def make_train_step(template: Scene, camera: Camera, cfg: RenderConfig, optimize
             loss, grads = vg_box[0](state.params, target)
         else:
             loss, grads = value_and_grad_loss(state.params, template, camera, cfg, target,
-                                              None, lights, device)
+                                              mesh, lights, device)
         if trainable is not None:
             grads = grads.replace(**{
                 n: g * torch.as_tensor(getattr(trainable, n), dtype=g.dtype, device=g.device)

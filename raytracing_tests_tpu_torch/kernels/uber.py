@@ -125,7 +125,13 @@ _THREADS: dict = {}
 
 @dataclasses.dataclass(frozen=True)
 class UberStatics:
-    """The static (per-frame) numbers both versions of the kernel take."""
+    """The static (per-frame) numbers both versions of the kernel take.
+
+    ``H`` is the frame's height: raygen's ``1/H``, the aspect and the
+    ``aa_grid`` table take it.  ``rows`` is how many rows the launch renders,
+    when that is not the frame (a shard of a row-interleaved mesh, whose
+    camera vector maps local row r to ``r * CAM_STRIDE + CAM_ROW0``); 0 means
+    all ``H``.  ``B`` counts the launch's primaries."""
 
     W: int
     H: int
@@ -141,6 +147,7 @@ class UberStatics:
     n_lights: int = 0  # rows of the pack_lights table ('bvh' only)
     n_focus: int = 1  # focus distances of the camera (1 .. MAX_FOCUS)
     ortho: bool = False  # orthographic camera
+    rows: int = 0  # rows this launch renders (0: the frame's H)
 
     @classmethod
     def from_cfg(cls, cfg, n_lights: int = 0, camera=None) -> "UberStatics":
@@ -157,7 +164,7 @@ class UberStatics:
 
     @property
     def B(self) -> int:
-        return self.W * self.H * self.spp
+        return self.W * (self.rows or self.H) * self.spp
 
     @property
     def model(self) -> str:
@@ -529,7 +536,7 @@ def uber_render(accel, cam, st: UberStatics, lights=None, atlas=None, aa=None):
     dev = accel.device
     if cam.device != dev:
         raise ValueError(f"cam on {cam.device}, accel on {dev}")
-    if min(st.W, st.H, st.spp, st.pops) < 1 or st.Q < 0:
+    if min(st.W, st.H, st.spp, st.pops) < 1 or st.Q < 0 or st.rows < 0:
         raise ValueError(f"bad frame statics: {st}")
     if st.shading not in ("bvh", "materials"):
         raise ValueError(f"unknown shading {st.shading!r}")

@@ -33,10 +33,15 @@ def _rt_run(scene_fn, defaults: dict, lights: bool = False):
         max_bounces: Optional[int] = None,
         intersector: Optional[str] = None,
         lane_chunk: Optional[int] = None,
+        mesh=None,
         uber: bool = False,
         device=None,
         **scene_kw,
     ):
+        """Render the workload's frame.  ``mesh`` (``parallel.make_mesh``)
+        shards its rows: ``render_uber_sharded`` with ``uber``, else
+        ``render_sharded``; the mesh names the devices, so ``device`` is
+        not read then."""
         scene, camera = scene_fn(**scene_kw)
         cfg = RenderConfig(
             width=width or defaults.get("width", 128),
@@ -49,10 +54,18 @@ def _rt_run(scene_fn, defaults: dict, lights: bool = False):
         )
         cfg = cfg.for_scene(scene)
         lt = extract_lights(scene) if lights else None
-        if uber:
+        if uber and mesh is not None:
+            from raytracing_tests_tpu_torch.parallel import render_uber_sharded
+
+            out = render_uber_sharded(scene, camera, cfg, mesh, lt)
+        elif uber:
             from raytracing_tests_tpu_torch.kernels.uber import render_uber
 
             out = render_uber(scene, camera, cfg, lt, device=device)
+        elif mesh is not None:
+            from raytracing_tests_tpu_torch.parallel import render_sharded
+
+            out = render_sharded(scene, camera, cfg, mesh, lt)
         else:
             out = render(scene, camera, cfg, lt, device=device)
         return dict(out, scene=scene, camera=camera, cfg=cfg)

@@ -118,5 +118,10 @@ def test_cli_train_two_steps_then_resume(tmp_path, caplog):
     steps = [m.split() for m in msgs if m.startswith("step")]
     assert len(steps) == 1 and steps[0][1] == "2"  # only the step after the checkpoint
     assert ckpt.latest_checkpoint(str(tmp_path / "ck")).endswith("ckpt_3.npz")
-    with pytest.raises(SystemExit, match="L7"):
-        cli.main(args[:2] + ["--mesh", "4"])
+    # --mesh is taken now: two virtual CPU shards resume the same checkpoint
+    caplog.clear()
+    with caplog.at_level(logging.INFO, logger="raytracing_tests_tpu_torch"):
+        cli.main(args[:2] + ["--steps", "4"] + args[4:] + ["--mesh", "2"])
+    msgs = [r.getMessage() for r in caplog.records]
+    assert "resumed from step 3" in msgs
+    assert [m.split()[1] for m in msgs if m.startswith("step")] == ["3"]

@@ -402,10 +402,17 @@ def test_grad_finite_with_negative_trained_color():
 def test_entry_points_refuse_what_is_not_ported(setup):
     scene, cam, cfg, target = setup
     p = diff.extract_params(scene)
-    with pytest.raises(NotImplementedError, match="L7"):
-        diff.render_loss(p, scene, cam, cfg, target, mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="L7"):
-        diff.make_train_step(scene, cam, cfg, diff.adam(1e-2), mesh=object(), device=CPU)
+    from raytracing_tests_tpu_torch.parallel import make_mesh
+
+    # A mesh is taken now (the sharded loss is the single-device one); what
+    # stays refused with it is what the JAX package refuses: row bands.
+    mesh = make_mesh(devices=[CPU] * 2)
+    np.testing.assert_allclose(
+        float(diff.render_loss(p, scene, cam, cfg, target, mesh=mesh, device=CPU)),
+        float(diff.render_loss(p, scene, cam, cfg, target, device=CPU)), rtol=1e-6)
+    with pytest.raises(ValueError, match="single-device"):
+        diff.make_train_step(scene, cam, cfg, diff.adam(1e-2), mesh=mesh, grad_bands=2,
+                             device=CPU)
     with pytest.raises(ValueError, match="soft_edges"):
         diff.render_loss(p, scene, cam, dataclasses.replace(cfg, soft_edges=0.03), target,
                          device=CPU)

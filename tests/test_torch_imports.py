@@ -27,6 +27,8 @@ def test_the_fifteen_modules_exist():
         "app.cli", "__main__", "convert", "ops.megalanes", "ops.workqueue",
         "scene.textures", "scene.noise", "scene.projection", "kernels.texture",
         "diff", "diff.fastpath", "diff.params", "diff.train", "app.checkpoint",
+        "parallel", "parallel.mesh", "parallel.render_sharded", "parallel.multihost",
+        "dryrun",
     ):
         assert "raytracing_tests_tpu_torch." + mod in MODULES, mod
 
@@ -99,7 +101,9 @@ def test_the_other_chip_scripts_import_nothing_of_jax(script):
                                    "render_uber_textures", "render_stats_textures",
                                    "render_workqueue_textures", "cli_texturing",
                                    "render_loss", "banded_value_and_grad", "probe_band_pops",
-                                   "train_step", "cli_train"])
+                                   "train_step", "cli_train", "make_mesh", "cli_render_mesh",
+                                   "cli_train_mesh", "initialize_multihost",
+                                   "shard_iteration_counts", "dryrun"])
 def test_entry_points_raise_without_cuda_and_do_not_fall_back(entry):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -139,6 +143,28 @@ def test_entry_points_raise_without_cuda_and_do_not_fall_back(entry):
 
             main(["train", "iow-final", "--pallas", "--steps", "1", "--width", "8",
                   "--height", "4", "--spp", "1"])
+        elif entry == "make_mesh":
+            from raytracing_tests_tpu_torch.parallel import make_mesh
+
+            make_mesh(2)
+        elif entry in ("cli_render_mesh", "cli_train_mesh"):
+            from raytracing_tests_tpu_torch.app.cli import main
+
+            cmd = ["render", "iow-final", "--out", "unused.png"] if entry == "cli_render_mesh" \
+                else ["train", "iow-final", "--steps", "1"]
+            main(cmd + ["--mesh", "2", "--width", "8", "--height", "4", "--spp", "1"])
+        elif entry == "initialize_multihost":
+            from raytracing_tests_tpu_torch.parallel.multihost import initialize_multihost
+
+            initialize_multihost("localhost:1", 2, 0)
+        elif entry == "shard_iteration_counts":
+            from raytracing_tests_tpu_torch.parallel.multihost import shard_iteration_counts
+
+            shard_iteration_counts(scene, cam, cfg, 2)
+        elif entry == "dryrun":
+            from raytracing_tests_tpu_torch.dryrun import dryrun_multichip
+
+            dryrun_multichip(2)
         elif entry == "render_megalanes":
             from raytracing_tests_tpu_torch.ops.megalanes import render_megalanes
 
@@ -249,6 +275,41 @@ def test_launch_functions_refuse_cpu_tensors_outside_the_host_rehearsal(kernel):
             cfg = RenderConfig(width=8, height=4, spp=1, intersector="pallas").for_scene(scene)
             accel, cvec = uber._scene_accel(scene, cam, cfg, 8)
             uber._launch_uber(accel, cvec, uber.UberStatics.from_cfg(cfg))
+
+
+def test_make_mesh_takes_cuda_unless_given_devices():
+    """``make_mesh()`` spans the CUDA devices (raising without them, and when
+    asked for more than there are); only an explicit device list, which may
+    repeat a device, makes virtual shards."""
+    from raytracing_tests_tpu_torch.parallel import make_mesh
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_mesh()
+    mesh = make_mesh(devices=["cpu"] * 3)
+    assert mesh.shape == {"rows": 3} and not mesh.distributed
+    assert [s for s, _ in mesh.local_shards()] == [0, 1, 2]
+    assert make_mesh(2, devices=["cpu"] * 3).shape == {"rows": 2}
+    with pytest.raises(ValueError):
+        make_mesh(4, devices=["cpu"] * 3)
+
+
+def test_cli_mesh_is_no_longer_refused(tmp_path, caplog):
+    """``render --mesh`` and ``train --mesh`` run (over virtual CPU shards
+    with ``--device cpu``); neither says "not ported"."""
+    import logging
+
+    from raytracing_tests_tpu_torch.app.cli import main
+
+    main(["render", "sphere", "--width", "8", "--height", "5", "--spp", "1", "--mesh", "2",
+          "--device", "cpu", "--out", str(tmp_path / "x.png")])
+    assert (tmp_path / "x.png").stat().st_size > 0
+    with caplog.at_level(logging.INFO, logger="raytracing_tests_tpu_torch"):
+        main(["train", "sphere", "--steps", "1", "--width", "8", "--height", "4", "--spp", "1",
+              "--mesh", "2", "--device", "cpu"])
+    msgs = [r.getMessage() for r in caplog.records]
+    assert any(m.startswith("step") for m in msgs)
+    assert not any("not ported" in m for m in msgs)
 
 
 def test_resolve_device_names_the_cpu_only_when_asked():
