@@ -20,7 +20,9 @@ slice: materials shading and emissive lights through the persistent kernel
 (the ``materials`` and ``lights`` frames, ``materials_scene()`` and
 ``lights_scene()`` at 800x450x16 depth 8, and a canary for each of the eight
 new instantiations), the work queue with lights, and stacks of 16 and 32
-records.
+records; and the later slices' paths, down to the fourteenth's: the numpy
+oracle against the sweeps on the card, the normals view, progressive tiles
+and the LBVH walk with its native host build.
 It prints one JSON object per phase.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the exit code
 is non-zero and no result line is printed; without CUDA it fails at once.
@@ -277,12 +279,52 @@ Phases and their bars:
      ``render_uber_sharded`` against ``render_uber`` at atol 2e-6 with equal
      rays under 'bvh', materials and lights (each one single and four shard
      launches).
-  world_one (last). ``multihost.initialize_multihost`` with NCCL, world size
+  world_one. ``multihost.initialize_multihost`` with NCCL, world size
      1, through a FileStore in a temporary directory; ``make_mesh()`` is the
      group's; ``render_uber_sharded`` at 200x112x8 d6 bit for bit
      ``render_uber`` (one launch); one ``value_and_grad_loss(mesh=)``
      through the all-reduce against the unsharded one by
      GRAD_SHARDED_PRECISE; the group destroyed in a ``finally``.
+  Then the fourteenth slice, last: the numpy oracle, the normals view,
+  progressive tiles and the LBVH with its native host build.
+  oracle_parity. ``render`` with intersector="pallas" on the card (K2 on the
+     sphere scenes, K5 on the generic ones) against the port's float64 numpy
+     oracle ``reference.render_cpu`` (which shares no renderer code) on
+     ``tests/test_render_parity.py``'s cases at its sizes (``ORACLE_CASES``),
+     both builds: >= 99.5 % of pixels within atol 2e-4 (lights 5e-4) and
+     rtol 1e-3, K2 or K5 launched in each case; the phase's seconds.
+  normals_frame. The normals view (``show_normals``) through the queue
+     renderer on ``iow_final_scene()`` at 800x450x100 (one K2 launch a
+     frame) and on bvh1k at 800x450x16 (one K5 launch), each against the
+     same frame with the sweeps routed to their plain versions
+     (``plain_sweeps``, ``plain_grouped``): the -fmad=false build's image and
+     depth bit for bit, the default build by the canary's envelope; min and
+     mean of 3 frames after a warm one.
+  progressive_frame. ``ops.tiles.render_progressive`` on the bvh workload's
+     path (bvh1k, 800x450x16 d8, intersector="pallas"), 104 tiles of 64x64
+     four a step (26 yields): done_fraction rising to 1.0, the final canvas
+     within atol 1e-5 of ``render_stats``'s frame and its share of
+     bit-identical pixels, both builds; K5 alone, its launches summed over
+     the tiles' pops; the seconds beside the full frame's.
+  lbvh_build, lbvh_frame, lbvh_ri_canary, native_noise. ``build_lbvh`` on the
+     card against ``build_lbvh_native`` (the C++ of ``native/``, built with
+     g++, which the card's machine must have) on bvh1k and the headline
+     scene: node arrays equal, boxes within 1e-5, both builds' milliseconds;
+     bvh1k at 800x450 d8 with spp cut from 16 to 1 (``LBVH_FRAME``: the
+     walk is the JAX package's lockstep oracle, some forty launches a step
+     over every lane) with intersector="bvh": no kernel launched, >= 99.5 %
+     of pixels within atol 2e-4 / rtol 1e-3 of the -fmad=false build's
+     grouped-sweep frame (K5), the canary's envelope against the default
+     build's, each walk's steps against its cap 3 * nodes + 2; the headline
+     scene at the canary's size with intersector="bvh", where the RI walk
+     (``traverse_point_ri``) runs: no kernel, the oracle bar against the
+     queue renderer through the first-generation sweeps over the scene's
+     generic table (K5 and K4's ``sweep_ri``) in the -fmad=false build,
+     whose arithmetic the walk's is (the walk sums its terms in a fixed
+     order, so its bits do not depend on the device), the RI walk equal to
+     the dense containment sum at 131 072 points around the glass on
+     >= 99.9 %, and the envelope against the sphere sweep printed; the native
+     noise in [0, 1], its three kinds different.
 Launch counts are kept per driven path: set to 0 before a path and read after
 it (each canary, each frame); every kernel must be launched on at least one.
 """
@@ -4619,6 +4661,344 @@ def parallel_phases(dev, headline, single_frame):
     return paths
 
 
+
+# ---------------------------------------------------------------------------
+# The fourteenth slice: the numpy oracle on the card, the normals view,
+# progressive tiles, and the LBVH with its native host build
+# ---------------------------------------------------------------------------
+
+# tests/test_render_parity.py's cases at its own sizes: (scene, config)
+ORACLE_CASES = {
+    "sphere_normals": (examples.sphere_scene, dict(width=24, height=16, spp=1,
+                                                   show_normals=True)),
+    "sphere": (examples.sphere_scene, dict(width=24, height=16, spp=2, max_bounces=3)),
+    "groups": (examples.groups_scene, dict(width=20, height=14, spp=2, max_bounces=4)),
+    "materials": (examples.materials_scene, dict(width=20, height=14, spp=3, max_bounces=4)),
+    "materials_shading": (examples.materials_scene, dict(width=24, height=16, spp=4,
+                                                         max_bounces=5, shading="materials")),
+    "motion_blur": (examples.motion_blur_scene, dict(width=20, height=14, spp=4,
+                                                     max_bounces=3)),
+    "texturing": (lambda: examples.texturing_scene(tex_size=16),
+                  dict(width=20, height=14, spp=2, max_bounces=3)),
+    "lights": (examples.lights_scene, dict(width=16, height=12, spp=2, max_bounces=3)),
+}
+ORACLE_ATOL = dict(lights=5e-4)  # that file's own; 2e-4 elsewhere
+ORACLE_FRAC = 0.995  # share of pixels within atol and rtol 1e-3
+K2_K5 = ("sweep2", "sweep2_m", "sweep_grouped")
+# The normals view at full width: (scene, size, its one kernel launch)
+NORMALS_FRAMES = dict(
+    iow_final=(examples.iow_final_scene, HEADLINE, "sweep2"),
+    bvh1k=(lambda: examples.bvh_grid_scene(side=32), BVH1K, "sweep_grouped"),
+)
+PROGRESSIVE_TILE, TILES_PER_STEP = (64, 64), 4  # the CLI's progressive defaults
+# bvh1k through the LBVH walk: the headline's width and height at depth 8 with
+# spp cut from 16 to 1, since the walk is the JAX package's lockstep oracle,
+# some forty elementwise launches a step over every lane
+LBVH_FRAME = dict(BVH1K, spp=1)
+
+
+def oracle_parity(dev):
+    """Phase oracle_parity: the port's render on the card (intersector
+    "pallas": K2 in sphere mode, K5 in generic mode) against the port's numpy
+    oracle ``render_cpu`` on the same scene, both builds -> {path: launches}."""
+    from raytracing_tests_tpu_torch.ops.render import extract_lights, render
+    from raytracing_tests_tpu_torch.reference import render_cpu
+
+    t0 = time.perf_counter()
+    paths = {}
+    for name, (scene_fn, kw) in ORACLE_CASES.items():
+        scene, camera = scene_fn()
+        cfg = RenderConfig(intersector="pallas", **kw).for_scene(scene)
+        want = render_cpu(scene, camera, cfg)["image"]
+        lights = extract_lights(scene) if cfg.enable_lights else None
+        row = {}
+        for build in ("default", "precise"):
+            with _build.precise() if build == "precise" else contextlib.nullcontext():
+                _build.reset_launches()
+                got = render(scene, camera, cfg, lights, device=dev)["image"]
+                launched = dict(_build.LAUNCHES)
+            got = got.double().cpu().numpy()
+            close = np.isclose(got, want, atol=ORACLE_ATOL.get(name, 2e-4), rtol=1e-3)
+            row[build] = dict(frac_within=float(close.mean()),
+                              max_abs_err=float(np.abs(got - want).max()), launches=launched)
+        paths[f"oracle_{name}"] = row["default"]["launches"]
+        say(phase="oracle_parity", case=name, config=kw, mode=cfg.pallas_mode,
+            atol=ORACLE_ATOL.get(name, 2e-4), **row)
+        for build, r in row.items():
+            require(r["frac_within"] >= ORACLE_FRAC,
+                    f"oracle_parity {name}, {build} build: {r}")
+            require(any(r["launches"].get(k) for k in K2_K5),
+                    f"oracle_parity {name}: neither K2 nor K5 launched: {r['launches']}")
+    say(phase="oracle_parity", cases=len(ORACLE_CASES), seconds=time.perf_counter() - t0)
+    return paths
+
+
+@contextlib.contextmanager
+def plain_grouped():
+    """Inside: K5's wrapper runs its plain version on the card."""
+    with patched(sweep, "_sweep_grouped",
+                 lambda table, gaabb, rays, group, with_ri, mode, stats=None:
+                 sweep.sweep_grouped_plain(table, gaabb, rays, group, with_ri, mode)):
+        yield
+
+
+def normals_frame(dev):
+    """Phase normals_frame: the normals view at full width through the queue
+    renderer: one nearest-hit launch a frame (K2 on the headline scene, K5 on
+    bvh1k), against the same frame with the sweeps routed to their plain
+    versions -> {path: launches}."""
+    paths = {}
+    for name, (scene_fn, size, kernel) in NORMALS_FRAMES.items():
+        scene, camera = (x.to(dev) for x in scene_fn())
+        cfg = RenderConfig(intersector="pallas", show_normals=True, **size).for_scene(scene)
+        frame = lambda: render_stats(scene, camera, cfg)  # noqa: E731
+        out, times, launches = timed_frames(frame)
+        with plain_sweeps(), plain_grouped():
+            plain = frame()
+        with _build.precise():
+            exact = same_frame(frame(), plain)
+        c = parity(out, plain)
+        res = dict(scene=name, size=size_of(size), seconds_per_frame_min=min(times),
+                   seconds_per_frame_mean=sum(times) / len(times), lanes=int(out["rays"]),
+                   launches_per_frame=launches[-1], precise_build_equal_to_plain=exact,
+                   default_build_vs_plain=c,
+                   frac_pixels_bit_identical=frac((out["image"] == plain["image"]).all(-1)))
+        say(phase="normals_frame", **res)
+        require(all(exact.values()), f"normals frame {name}, -fmad=false build: {res}")
+        check_parity(f"normals frame {name} against the plain sweeps", c)
+        require(all(got == {kernel: 1} for got in launches),
+                f"normals frame {name}: one {kernel} launch a frame: {launches}")
+        paths[f"normals_{name}"] = launches[-1]
+    return paths
+
+
+def progressive_frame(dev):
+    """Phase progressive_frame: the bvh workload's path (intersector
+    "pallas", K5) at bvh1k's size through ``render_progressive``, 104 tiles
+    of 64x64 four a step, against ``render_stats``'s frame, both builds ->
+    {path: launches}."""
+    from raytracing_tests_tpu_torch.ops.tiles import render_progressive
+
+    scene, camera = (x.to(dev) for x in examples.bvh_grid_scene(side=32))
+    cfg = RenderConfig(intersector="pallas", **BVH1K).for_scene(scene)
+    res = {}
+    for build in ("default", "precise"):
+        with _build.precise() if build == "precise" else contextlib.nullcontext():
+            full, times, _ = timed_frames(lambda: render_stats(scene, camera, cfg))
+            _build.reset_launches()
+            ms, steps = timed_ms(lambda: [
+                (step["done_fraction"], step["image"]) for step in render_progressive(
+                    scene, camera, cfg, tile=PROGRESSIVE_TILE, tiles_per_step=TILES_PER_STEP,
+                    device=dev)])
+            launched = dict(_build.LAUNCHES)
+        fractions, image = [f for f, _ in steps], steps[-1][1]
+        diff_px = (image - full["image"]).abs().amax(dim=-1)
+        res[build] = dict(seconds=ms / 1e3, full_frame_seconds_min=min(times), yields=len(fractions),
+                          done_fractions_rise=fractions == sorted(fractions),
+                          last_done_fraction=fractions[-1], launches=launched,
+                          max_abs_diff=float(diff_px.max()),
+                          frac_pixels_bit_identical=frac(diff_px == 0),
+                          frac_pixels_within_1e5=frac(diff_px <= 1e-5))
+    tw, th = PROGRESSIVE_TILE
+    n_tiles = -(-BVH1K["width"] // tw) * -(-BVH1K["height"] // th)
+    say(phase="progressive_frame", scene="bvh_grid_scene(side=32)", size=size_of(BVH1K),
+        tile=PROGRESSIVE_TILE, tiles_per_step=TILES_PER_STEP, tiles=n_tiles, **res)
+    for build, r in res.items():
+        require(r["done_fractions_rise"] and r["last_done_fraction"] == 1.0
+                and r["yields"] == -(-n_tiles // TILES_PER_STEP),
+                f"progressive_frame, {build} build: the spiral did not fill the frame: {r}")
+        require(r["max_abs_diff"] <= 1e-5, f"progressive_frame, {build} build: {r}")
+        require(set(r["launches"]) == {"sweep_grouped"},
+                f"progressive_frame: the tiles launch K5 and nothing else: {r['launches']}")
+    return {"progressive_bvh1k": res["default"]["launches"]}
+
+
+@contextlib.contextmanager
+def walk_log():
+    """Inside: every LBVH walk's steps and cap are recorded -> [(steps, cap,
+    kind)], kind "nearest" or "ri"."""
+    from raytracing_tests_tpu_torch.bvh import traverse
+
+    log, kind = [], ["nearest"]
+    real_walk, real_ri = traverse._walk, traverse.traverse_point_ri
+
+    def walk(bvh, step, carry):
+        out, steps = real_walk(bvh, step, carry)
+        log.append((steps, 3 * bvh.left.shape[0] + 2, kind[0]))
+        return out, steps
+
+    def point_ri(*args):
+        kind[0] = "ri"
+        try:
+            return real_ri(*args)
+        finally:
+            kind[0] = "nearest"
+
+    with patched(traverse, "_walk", walk), patched(traverse, "traverse_point_ri", point_ri):
+        yield log
+
+
+def walk_summary(log):
+    by = {}
+    for steps, cap, kind in log:
+        by.setdefault(kind, []).append(steps)
+    return dict(cap=log[0][1] if log else None, **{
+        kind: dict(walks=len(v), steps_max=max(v), steps_mean=sum(v) / len(v),
+                   steps_per_walk=v) for kind, v in by.items()})
+
+
+def host_ms(fn, reps=3):
+    """Mean milliseconds of ``fn()`` by the host clock, the card synchronised."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def compare_frames(got, want, atol=2e-4):
+    a, b = got["image"], want["image"]
+    d = (a - b).abs()
+    close = d <= atol + 1e-3 * b.abs()
+    return dict(frac_within=frac(close), frac_within_1e5=frac(d <= 1e-5),
+                max_abs_err=float(d.max()))
+
+
+def ri_walk_points(scene, n=1 << 17):
+    """``traverse_point_ri`` against the dense containment sum at ``n``
+    points in and around the scene's glass (seeded) -> shares."""
+    from raytracing_tests_tpu_torch.bvh import build_lbvh
+    from raytracing_tests_tpu_torch.bvh.traverse import traverse_point_ri
+    from raytracing_tests_tpu_torch.ops.intersect import surrounding_refractive_index
+
+    glass = torch.nonzero(scene.valid & (scene.refractivity > 0.002))[:, 0]
+    rng = np.random.default_rng(SEED)
+    pick = glass[torch.from_numpy(rng.integers(0, glass.numel(), n)).to(scene.device)]
+    off = torch.from_numpy(rng.uniform(-1.3, 1.3, (n, 3)).astype(np.float32)).to(scene.device)
+    pts = scene.position[pick] + off * scene.scale[pick]
+    tr = torch.zeros(n, device=scene.device)
+    got = traverse_point_ri(build_lbvh(scene), scene, pts, tr)
+    want = torch.cat([surrounding_refractive_index(scene, pts[k:k + 8192], tr[k:k + 8192])
+                      for k in range(0, n, 8192)])
+    return dict(points=n, frac_equal=frac(got == want), frac_not_air=frac(want != 1.0),
+                max_abs_diff=float((got - want).abs().max()))
+
+
+def lbvh_phase(dev):
+    """Phase lbvh: (a) the LBVH built on the card against the native host
+    build; (b) lbvh_frame, bvh1k through the LBVH walk; (c) the RI walk on
+    the headline scene at the canary's size; (d) the native noise ->
+    {path: launches}."""
+    import dataclasses as dc
+
+    from raytracing_tests_tpu_torch import native
+    from raytracing_tests_tpu_torch.bvh import build_lbvh
+    from raytracing_tests_tpu_torch.bvh.host_build import build_lbvh_native
+
+    require(native.available(), "the native library did not build: g++ is needed")
+    paths = {}
+    # (a) the build
+    for name, scene_fn in (("bvh1k", lambda: examples.bvh_grid_scene(side=32)),
+                           ("iow_final", examples.iow_final_scene)):
+        scene = scene_fn()[0].to(dev)
+        on_card, on_host = build_lbvh(scene), build_lbvh_native(scene)
+        equal = {f: bool(torch.equal(getattr(on_card, f), getattr(on_host, f)))
+                 for f in ("left", "right", "parent", "obj_id")}
+        box = max(float((getattr(on_card, f) - getattr(on_host, f)).abs().max())
+                  for f in ("bb_min", "bb_max"))
+        res = dict(scene=name, objects=scene.capacity, nodes=int(on_card.left.shape[0]),
+                   arrays_equal=equal, boxes_max_abs_diff=box,
+                   build_ms_card=host_ms(lambda: build_lbvh(scene)),
+                   build_ms_host=host_ms(lambda: build_lbvh_native(scene)))
+        say(phase="lbvh_build", **res)
+        require(all(equal.values()) and box <= 1e-5, f"lbvh_build {name}: {res}")
+
+    # (b) lbvh_frame: the walk against the grouped sweep, which the exact
+    # build runs as its plain version does
+    scene, camera = (x.to(dev) for x in examples.bvh_grid_scene(side=32))
+    cfg_p = RenderConfig(intersector="pallas", **LBVH_FRAME).for_scene(scene)
+    cfg_b = dc.replace(cfg_p, intersector="bvh")
+    with walk_log() as log:
+        _build.reset_launches()
+        ms, ob = timed_ms(lambda: render_stats(scene, camera, cfg_b))
+        launched = dict(_build.LAUNCHES)
+    op = render_stats(scene, camera, cfg_p)
+    with _build.precise():
+        op_exact = render_stats(scene, camera, cfg_p)
+    vs_exact, vs_default = compare_frames(ob, op_exact), compare_frames(ob, op)
+    c = parity(ob, op)
+    res = dict(scene="bvh_grid_scene(side=32)", size=size_of(LBVH_FRAME),
+               spp_cut_from=BVH1K["spp"], seconds=ms / 1e3, rays=int(ob["rays"]),
+               rays_pallas=int(op["rays"]), launches=launched,
+               vs_pallas_precise_build=vs_exact, vs_pallas_default_build=vs_default,
+               envelope_vs_default_build=c, walks=walk_summary(log))
+    say(phase="lbvh_frame", **res)
+    require(not launched, f"lbvh_frame: the bvh path launched a kernel: {launched}")
+    require(log and all(s <= cap for s, cap, _ in log), f"lbvh_frame: walks: {res['walks']}")
+    require(vs_exact["frac_within"] >= ORACLE_FRAC, f"lbvh_frame: {res}")
+    check_parity("lbvh_frame against the default build's grouped sweep", c)
+    paths["lbvh_frame"] = launched
+
+    # (c) the RI walk: the headline scene's glass at the canary's size,
+    # against the first-generation sweeps over its generic table (K5 and K4's
+    # sweep_ri), whose exact build rounds as the walk does
+    scene, camera = (x.to(dev) for x in examples.iow_final_scene())
+    cfg_p = RenderConfig(intersector="pallas", **SMALL).for_scene(scene)
+    cfg_g = dc.replace(cfg_p, pallas_mode="generic")
+    with walk_log() as log:
+        _build.reset_launches()
+        ms, ob = timed_ms(lambda: render_stats(scene, camera, dc.replace(cfg_p, intersector="bvh")))
+        launched = dict(_build.LAUNCHES)
+    with _build.precise():
+        _build.reset_launches()
+        og_exact = render_stats(scene, camera, cfg_g)
+        launched_g = dict(_build.LAUNCHES)
+    op = render_stats(scene, camera, cfg_p)
+    ri = ri_walk_points(scene)
+    c = parity(ob, op)
+    res = dict(scene="iow_final_scene()", size=size_of(SMALL), seconds=ms / 1e3,
+               rays=int(ob["rays"]), launches=launched,
+               vs_generic_sweeps_precise_build=compare_frames(ob, og_exact),
+               rays_generic_sweeps=int(og_exact["rays"]), generic_sweeps_launches=launched_g,
+               envelope_vs_sphere_sweep=c, ri_walk_vs_dense_sum=ri, walks=walk_summary(log))
+    say(phase="lbvh_ri_canary", **res)
+    require(not launched, f"lbvh_ri_canary: the bvh path launched a kernel: {launched}")
+    require("ri" in res["walks"], f"lbvh_ri_canary: no RI walk ran: {res['walks']}")
+    require(res["vs_generic_sweeps_precise_build"]["frac_within"] >= ORACLE_FRAC,
+            f"lbvh_ri_canary against the generic sweeps: {res}")
+    require(ri["frac_equal"] >= 0.999, f"lbvh_ri_canary, the RI walk: {ri}")
+    # The envelope against the sphere sweep (K2) is printed, not required: the
+    # sphere and the generic arithmetic round the 1000-radius ground sphere
+    # apart, and their plain versions differ by as much on the CPU (7.6 % of
+    # pixels beyond 0.05 at this size).
+    paths["lbvh_ri_canary_generic_sweeps"] = launched_g
+
+    # (d) the native noise
+    t0 = time.perf_counter()
+    tex = {k: native.noise_texture_host(256, 256, kind=k) for k in native.NOISE_KINDS}
+    ms = (time.perf_counter() - t0) / len(tex) * 1e3
+    kinds_differ = all(not np.allclose(tex[a], tex[b]) for a in tex for b in tex if a < b)
+    res = dict(size=[256, 256], ms_per_texture=ms, kinds_differ=kinds_differ,
+               ranges={k: [float(v.min()), float(v.max())] for k, v in tex.items()},
+               stds={k: float(v.std()) for k, v in tex.items()})
+    say(phase="native_noise", **res)
+    require(kinds_differ and all(0.0 <= v.min() and v.max() <= 1.0 and v.std() > 0.05
+                                 for v in tex.values()), f"native_noise: {res}")
+    return paths
+
+
+def fourteenth_phases(dev):
+    """The fourteenth slice's phases, each path's launches counted from 0 ->
+    {path: launches}."""
+    paths = oracle_parity(dev)
+    paths.update(normals_frame(dev))
+    paths.update(progressive_frame(dev))
+    paths.update(lbvh_phase(dev))
+    return paths
+
+
 def main():
     dev = torch.device("cuda", 0)
 
@@ -4878,6 +5258,9 @@ def main():
     eighth, eighth_paths, k3_hard_step = grad_phases(dev, k3_canary)
     # the thirteenth slice: the row-sharded mesh, on virtual shards of this card
     thirteenth_paths = parallel_phases(dev, out, frame)
+    # the fourteenth slice: the oracle on the card, the normals view,
+    # progressive tiles and the LBVH
+    fourteenth_paths = fourteenth_phases(dev)
     k3 = next(k for k in kernels if k["name"] == "sweep2g")
     k3.update(at_hard_step=k3_hard_step, ptxas=ptxas.get("sweep2g.so sweep2g_kernel<0>"))
     for k in eighth:  # the silhouette instantiations' ptxas lines
@@ -4897,11 +5280,14 @@ def main():
     # included, K2 behind the work queue with lights and textures, K1 'bvh' on
     # the deep stacks, the untextured instantiations on the camera canaries; the
     # thirteenth slice's: K1 once a shard, K5 behind the sharded queue
-    # renderer, K2 behind the sharded gradient step
-    later_paths = {**sixth_paths, **seventh_paths, **eighth_paths, **thirteenth_paths}
+    # renderer, K2 behind the sharded gradient step; the fourteenth's: K2 and
+    # K5 behind the oracle's cases, the normals view and the progressive tiles
+    later_paths = {**sixth_paths, **seventh_paths, **eighth_paths, **thirteenth_paths,
+                   **fourteenth_paths}
     for k in kernels:
         counter = dict(sweep2="sweep2", sweep2_motion="sweep2_m", sweep2g="sweep2g",
-                       sweep_grouped="sweep_grouped").get(k["name"], k.get("instantiation"))
+                       sweep_grouped="sweep_grouped", sweep_ri="sweep_ri").get(
+            k["name"], k.get("instantiation"))
         if counter:
             k["launches_by_path"].update({p: got[counter] for p, got in later_paths.items()
                                           if got.get(counter)})

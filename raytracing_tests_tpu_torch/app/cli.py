@@ -4,15 +4,17 @@ Usage:
   python -m raytracing_tests_tpu_torch list
   python -m raytracing_tests_tpu_torch info
   python -m raytracing_tests_tpu_torch render <workload> [--width W --height H
-        --spp S --bounces B --pallas --uber --mesh N --out out.png
-        --depth-out depth.png --device cuda|cpu
-        --texture image.png --texture-mapping mercator|cubic]
+        --spp S --bounces B --normals --bvh --pallas --uber --mesh N
+        --out out.png --depth-out depth.png --progressive --tiles-per-step K
+        --device cuda|cpu --texture image.png --texture-mapping mercator|cubic]
   python -m raytracing_tests_tpu_torch train <workload> [--steps N --lr F
         --train-fields color,position --pallas --grad-bands N --auto-pops
         --soft-edges F --mesh N --out-dir dir --ckpt-dir dir --ckpt-every N
         --device cuda|cpu]
 
 Renders and training run on the GPU unless ``--device cpu`` is given.
+``--progressive`` writes the canvas after every batch of tiles as
+``<stem>_pNNN.png`` beside ``--out``.
 ``--mesh N`` shards the image rows over the first N GPUs (it raises when
 there are fewer), or with ``--device cpu`` over N virtual shards of the CPU.
 """
@@ -68,6 +70,10 @@ def _cmd_render(args):
         kw["spp"] = args.spp
     if args.bounces:
         kw["max_bounces"] = args.bounces
+    if args.normals:
+        kw["show_normals"] = True
+    if args.bvh:
+        kw["intersector"] = "bvh"
     if args.pallas:
         kw["intersector"] = "pallas"
     if args.uber:
@@ -82,6 +88,19 @@ def _cmd_render(args):
                 f"workload (got {args.workload!r})")
         kw["texture"] = args.texture
         kw["texture_mapping"] = args.texture_mapping
+    if args.progressive:
+        # the spiral fill-in from the centre, on disk as it happens
+        kw["progressive"] = True
+        kw["tiles_per_step"] = args.tiles_per_step
+        stem = args.out[:-4] if args.out.endswith(".png") else args.out
+        written = []
+
+        def on_frame(step):
+            written.append(f"{stem}_p{len(written) + 1:03d}.png")
+            io.save_png(written[-1], step["image"].detach().cpu().numpy())
+            log.info("progressive: %.0f%% -> %s", 100 * step["done_fraction"], written[-1])
+
+        kw["on_frame"] = on_frame
     t0 = time.perf_counter()
     out = w.run(**kw)
     img = out["image"].detach().cpu().numpy()  # waits for the device
@@ -194,6 +213,9 @@ def main(argv=None):
     pr.add_argument("--height", type=int)
     pr.add_argument("--spp", type=int)
     pr.add_argument("--bounces", type=int)
+    pr.add_argument("--normals", action="store_true", help="debug normals view")
+    pr.add_argument("--bvh", action="store_true",
+                    help="use the LBVH intersector (the traversal oracle; slow)")
     pr.add_argument("--pallas", action="store_true",
                     help="use the grouped sweep kernel (sphere scenes)")
     pr.add_argument("--uber", action="store_true",
@@ -203,6 +225,11 @@ def main(argv=None):
                     "N virtual CPU shards)")
     pr.add_argument("--out", default="render.png")
     pr.add_argument("--depth-out", help="also write normalized depth PNG")
+    pr.add_argument("--progressive", action="store_true",
+                    help="spiral refine-from-center tile rendering; writes "
+                    "an intermediate PNG per tile batch")
+    pr.add_argument("--tiles-per-step", type=int, default=4,
+                    help="tiles traced per progressive step")
     pr.add_argument("--device", default=None,
                     help="torch device; default: the GPU (cuda)")
     pr.add_argument("--texture", help="image file for texturing-image "

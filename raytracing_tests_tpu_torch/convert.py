@@ -1,5 +1,5 @@
-"""numpy <-> ``Scene`` / ``Camera`` / ``Lights`` / ``Accel2`` / ``Accel2G`` /
-``PallasAccel``.
+"""numpy <-> ``Scene`` / ``Camera`` / ``Lights`` / ``LBVH`` / ``Accel2`` /
+``Accel2G`` / ``PallasAccel``.
 
 State crosses between this package and any other array library as
 dictionaries of numpy arrays keyed by field name:
@@ -25,6 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from raytracing_tests_tpu_torch.bvh.build import LBVH
 from raytracing_tests_tpu_torch.kernels import sweep, sweep2, sweep2g
 from raytracing_tests_tpu_torch.ops.render import Lights
 from raytracing_tests_tpu_torch.scene.types import Camera, Scene
@@ -32,6 +33,7 @@ from raytracing_tests_tpu_torch.scene.types import Camera, Scene
 SCENE_FIELDS = tuple(f.name for f in dataclasses.fields(Scene) if f.name != "textures")
 CAMERA_FIELDS = tuple(f.name for f in dataclasses.fields(Camera))
 LIGHTS_FIELDS = tuple(f.name for f in dataclasses.fields(Lights))
+LBVH_FIELDS = tuple(f.name for f in dataclasses.fields(LBVH))
 
 # Column indices of the JAX package's (Np, 128) object table.
 _SRC_OT = {"c": slice(0, 3), "k1": 16, "ri": 19, "rinv2": 20}
@@ -85,6 +87,16 @@ def lights_from_numpy(leaves: dict, device="cpu") -> Lights:
 
 def lights_to_numpy(lights: Lights) -> dict:
     return _to_numpy(lights, LIGHTS_FIELDS)
+
+
+def lbvh_from_numpy(leaves: dict, device="cpu") -> LBVH:
+    """An LBVH from its node arrays (``bb_min``, ``bb_max``, ``left``,
+    ``right``, ``parent``, ``obj_id``), bit for bit."""
+    return _from_numpy(LBVH, LBVH_FIELDS, leaves, device)
+
+
+def lbvh_to_numpy(bvh: LBVH) -> dict:
+    return _to_numpy(bvh, LBVH_FIELDS)
 
 
 def scene_params_from_numpy(leaves: dict, device="cpu"):

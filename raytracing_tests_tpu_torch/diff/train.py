@@ -36,7 +36,10 @@ def _diff_cfg(cfg: RenderConfig) -> RenderConfig:
     """Gradient-rendering config: validate, and route the ``pallas``
     intersector to the fast gradient path (``diff_mode``).  The ``brute``
     intersector differentiates as it is; PyTorch's tape takes the early exit,
-    so the config keeps it."""
+    so the config keeps it.  The ``bvh`` intersector is routed to ``brute``,
+    as the JAX package routes it: the lockstep LBVH walk would put its
+    thousands of steps on the autograd tape, and the dense sweep gives the
+    same outputs."""
     from raytracing_tests_tpu_torch.diff.fastpath import fastpath_eligible
 
     if cfg.soft_edges > 0.0 and cfg.intersector != "pallas":
@@ -47,6 +50,8 @@ def _diff_cfg(cfg: RenderConfig) -> RenderConfig:
             "both scene modes are supported")
     if fastpath_eligible(cfg):
         return dataclasses.replace(cfg, diff_mode=True)
+    if cfg.intersector == "bvh":
+        return dataclasses.replace(cfg, intersector="brute")
     return cfg
 
 

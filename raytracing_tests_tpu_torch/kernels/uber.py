@@ -599,6 +599,8 @@ def render_uber(scene, camera, cfg, lights=None, gr: int = 32, qcap=None,
         raise ValueError(f"unknown shading {cfg.shading!r}")
     if cfg.shading == "materials" and lights is not None:
         raise ValueError("materials shading takes no emissive lights")
+    if cfg.show_normals:
+        raise ValueError("render_uber has no normals view (show_normals)")
     _camera_statics(camera)
     scene, camera = scene.to(dev), camera.to(dev)
     if lights is not None and lights.bb_min.device != dev:

@@ -31,14 +31,21 @@ def _rt_run(scene_fn, defaults: dict, lights: bool = False):
         height: Optional[int] = None,
         spp: Optional[int] = None,
         max_bounces: Optional[int] = None,
+        show_normals: bool = False,
         intersector: Optional[str] = None,
         lane_chunk: Optional[int] = None,
         mesh=None,
         uber: bool = False,
+        progressive: bool = False,
+        tiles_per_step: int = 4,
+        on_frame=None,
         device=None,
         **scene_kw,
     ):
-        """Render the workload's frame.  ``mesh`` (``parallel.make_mesh``)
+        """Render the workload's frame.  ``progressive``: the spiral tiles of
+        ``ops.tiles.render_progressive``, ``tiles_per_step`` a step, each
+        step's dict(image, done_fraction) handed to ``on_frame``; the last
+        step is the result.  Otherwise ``mesh`` (``parallel.make_mesh``)
         shards its rows: ``render_uber_sharded`` with ``uber``, else
         ``render_sharded``; the mesh names the devices, so ``device`` is
         not read then."""
@@ -48,12 +55,22 @@ def _rt_run(scene_fn, defaults: dict, lights: bool = False):
             height=height or defaults.get("height", 72),
             spp=spp or defaults.get("spp", 4),
             max_bounces=max_bounces or defaults.get("max_bounces", 5),
+            show_normals=show_normals,
             intersector=intersector or defaults.get("intersector", "brute"),
             lane_chunk=lane_chunk,
             shading=defaults.get("shading", "bvh"),
         )
         cfg = cfg.for_scene(scene)
         lt = extract_lights(scene) if lights else None
+        if progressive:
+            from raytracing_tests_tpu_torch.ops.tiles import render_progressive
+
+            step = None
+            for step in render_progressive(scene, camera, cfg, lt,
+                                           tiles_per_step=tiles_per_step, device=device):
+                if on_frame is not None:
+                    on_frame(step)
+            return dict(step, scene=scene, camera=camera, cfg=cfg)
         if uber and mesh is not None:
             from raytracing_tests_tpu_torch.parallel import render_uber_sharded
 
@@ -100,7 +117,8 @@ register(
 
 register(
     "bvh",
-    "grid of alternating ellipsoids / rotated cuboids through the grouped sweep",
+    "grid of alternating ellipsoids / rotated cuboids through the grouped sweep; "
+    "--bvh for the LBVH traversal (the reference-semantics oracle, not a fast path)",
     reference="In-Next-Week/01_BoundingVolumeHierarchy",
 )(_rt_run(examples.bvh_grid_scene, dict(spp=4, intersector="pallas")))
 

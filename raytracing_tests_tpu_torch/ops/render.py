@@ -22,11 +22,12 @@ Semantics reproduced:
   - per-sample gamma-2 then mean over samples.
 
 Ported: ``shading="bvh"`` and ``"materials"``, with or without lights and
-textures, through the ``brute`` intersector or the ``pallas`` intersector:
-the grouped sphere sweep ``kernels.sweep2`` in sphere mode, the
-first-generation sweeps of ``kernels.sweep`` for generic scenes (grouped by
-``pallas_groups``, dense when that is 0) and for sphere scenes with
-``pallas_v2=False``.  With ``diff_mode`` (set by ``diff.train``) the
+textures, and the normals view (``show_normals``), through the ``brute``
+intersector, the ``bvh`` intersector (the LBVH traversal, ``bvh/``) or the
+``pallas`` intersector: the grouped sphere sweep ``kernels.sweep2`` in sphere
+mode, the first-generation sweeps of ``kernels.sweep`` for generic scenes
+(grouped by ``pallas_groups``, dense when that is 0) and for sphere scenes
+with ``pallas_v2=False``.  With ``diff_mode`` (set by ``diff.train``) the
 ``pallas`` intersector is the gradient path: a ``DiffAccel`` whose sweeps name
 the winners and ``diff.fastpath.intersect_diff`` recomputes their hits
 differentiably, with the soft-edge blend when ``soft_edges > 0``.
@@ -60,13 +61,23 @@ class RenderConfig:
     queue_capacity: int = 5  # 40-float stack / 8 floats per record
     max_pops: Optional[int] = None  # ray-tree budget; None -> 2*max_bounces + 1
     t_max: float = MAX_T_DEPTH
+    # Carried for the JAX package's config, read nowhere: ``finalize`` takes
+    # the square root (gamma 2) as that package's does.
+    gamma: float = 2.0
     background: tuple = ((1.0, 1.0, 1.0), (0.3, 0.4, 1.0))  # bottom, top
-    intersector: str = "brute"  # 'brute' | 'pallas' (the sweep kernels)
+    # Read by the oracle (``reference.cpu_renderer``) and by callers deciding
+    # whether to pass ``extract_lights``; the renderers read the lights given.
+    enable_lights: bool = True
+    # 'brute' | 'pallas' (the sweep kernels) | 'bvh' (the LBVH traversal)
+    intersector: str = "brute"
     # 'bvh': the In-Next-Week family shading (surrounding-RI estimation,
     #        deviate-cone scatter, 0.5-forward damping).
     # 'materials': the In-One-Weekend Shirley materials (per-ray medium RI,
     #        Schlick shift, fibonacci-hemisphere scatter).
     shading: str = "bvh"
+    # Debug view: the world normal of each primary's nearest hit, averaged
+    # over the samples without gamma (black where the primary misses).
+    show_normals: bool = False
     lane_chunk: Optional[int] = None  # bound peak memory: lanes per step
     aa_grid: bool = False  # sub-pixel supersampling grid
     early_exit: bool = True  # stop as soon as every ray queue drains
@@ -122,8 +133,8 @@ class RenderConfig:
 def _check_supported(cfg: RenderConfig):
     if cfg.shading not in ("bvh", "materials"):
         raise ValueError(f"unknown shading {cfg.shading!r}")
-    if cfg.intersector not in ("brute", "pallas"):
-        raise NotImplementedError(f"intersector={cfg.intersector!r} is not ported yet")
+    if cfg.intersector not in ("brute", "pallas", "bvh"):
+        raise NotImplementedError(f"unknown intersector {cfg.intersector!r}")
 
 
 @dataclasses.dataclass
@@ -287,8 +298,33 @@ def _is_diff(accel) -> bool:
     return isinstance(accel, DiffAccel)
 
 
+def _nearest(scene, accel, o, d, time_ratio, t_limit):
+    """Intersector dispatch, the same ``Hit`` contract from each: the dense
+    sweep (no accel), the gradient path's winner and recompute, the grouped
+    sphere sweep, the first-generation sweeps, or the LBVH traversal."""
+    if accel is None:
+        return isect.intersect_brute(scene, o, d, time_ratio, t_limit)
+    if _is_diff(accel):
+        from raytracing_tests_tpu_torch.diff.fastpath import intersect_diff
+
+        return intersect_diff(accel, scene, o, d, time_ratio, t_limit)[0]  # hard
+    if _is_v2(accel):
+        from raytracing_tests_tpu_torch.kernels.sweep2 import intersect2
+
+        return intersect2(accel, scene, o, d, time_ratio, t_limit)
+    if _is_pallas(accel):
+        from raytracing_tests_tpu_torch.kernels.sweep import intersect_pallas
+
+        return intersect_pallas(accel, scene, o, d, time_ratio, t_limit)
+    from raytracing_tests_tpu_torch.bvh.traverse import traverse_nearest
+
+    return traverse_nearest(accel, scene, o, d, time_ratio, t_limit)
+
+
 def _nearest_obj(scene, accel, o, d, time_ratio, t_limit):
     """Original id of the nearest object hit before ``t_limit`` (-1 if none)."""
+    if accel is None:
+        return isect.occluded_nearest_obj(scene, o, d, time_ratio, t_limit)
     if _is_diff(accel):
         from raytracing_tests_tpu_torch.diff.fastpath import occluded_nearest_obj_diff
 
@@ -301,7 +337,22 @@ def _nearest_obj(scene, accel, o, d, time_ratio, t_limit):
         from raytracing_tests_tpu_torch.kernels.sweep import occluded_nearest_obj_pallas
 
         return occluded_nearest_obj_pallas(accel, scene, o, d, time_ratio, t_limit)
-    return isect.occluded_nearest_obj(scene, o, d, time_ratio, t_limit)
+    from raytracing_tests_tpu_torch.bvh.traverse import traverse_nearest_obj
+
+    return traverse_nearest_obj(accel, scene, o, d, time_ratio, t_limit)
+
+
+def _surrounding_ri(scene, accel, point, time_ratio):
+    """Surrounding refractive index at ``point`` where no sweep fused it:
+    the LBVH walk for the ``bvh`` intersector, else the dense containment
+    sum (differentiable with respect to ``refractive_index``)."""
+    from raytracing_tests_tpu_torch.bvh.build import LBVH
+
+    if isinstance(accel, LBVH):
+        from raytracing_tests_tpu_torch.bvh.traverse import traverse_point_ri
+
+        return traverse_point_ri(accel, scene, point, time_ratio)
+    return isect.surrounding_refractive_index(scene, point, time_ratio)
 
 
 def _material_color(scene: Scene, hit: isect.Hit, color, ti):
@@ -409,8 +460,8 @@ def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, 
             )
         else:
             hit, flds = intersect_pallas_full(accel, scene, o, d, time_ratio, t_limit)
-    else:  # the dense intersector
-        hit = isect.intersect_brute(scene, o, d, time_ratio, t_limit)
+    else:  # the dense intersector or the LBVH traversal
+        hit = _nearest(scene, accel, o, d, time_ratio, t_limit)
         flds = None
     did_hit = hit.hit & active
     missed = active & ~hit.hit
@@ -435,8 +486,7 @@ def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, 
     if sur_ri_fused is not None:
         sur_ri = sur_ri_fused
     elif needs_sur_ri:
-        # The dense intersector and the gradient path: the dense containment
-        # sum (differentiable with respect to refractive_index), for the lanes
+        # The dense intersector, the LBVH and the gradient path: for the lanes
         # that read it (refraction off a refractive winner, or out of an
         # interior hit); the others read the neutral 1, as the sweep kernels'
         # probe gives them.
@@ -444,8 +494,8 @@ def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, 
                       else flds.refractivity) > 0.002
         lanes = torch.nonzero(hit.hit & active & (inner | refractive))[:, 0]
         sur_ri = torch.ones(B, dtype=torch.float32, device=o.device).index_put(
-            (lanes,), isect.surrounding_refractive_index(
-                scene, (hit_point + 1e-3 * normal)[lanes], time_ratio[lanes]))
+            (lanes,), _surrounding_ri(
+                scene, accel, (hit_point + 1e-3 * normal)[lanes], time_ratio[lanes]))
     else:
         sur_ri = torch.ones(B, dtype=torch.float32, device=o.device)
 
@@ -694,6 +744,10 @@ def _process_pop(scene, lights, cfg: RenderConfig, queue, state, sample_idx, spp
 
 
 def _build_accel(scene, cfg: RenderConfig):
+    if cfg.intersector == "bvh":
+        from raytracing_tests_tpu_torch.bvh.build import build_lbvh
+
+        return build_lbvh(scene)
     if cfg.intersector == "pallas":
         if cfg.diff_mode:
             from raytracing_tests_tpu_torch.diff.fastpath import (
@@ -713,7 +767,7 @@ def _build_accel(scene, cfg: RenderConfig):
         return make_accel(scene, cfg.pallas_mode, group=cfg.pallas_groups,
                           has_motion=cfg.has_motion)
     if cfg.intersector != "brute":
-        raise NotImplementedError(f"intersector={cfg.intersector!r} is not ported yet")
+        raise NotImplementedError(f"unknown intersector {cfg.intersector!r}")
     return None
 
 
@@ -731,6 +785,10 @@ def trace_lanes(scene, lights, cfg: RenderConfig, o, d, time_ratio, sample_idx, 
     queue (the early-exit count; at most ``cfg.pops``) — the probe behind
     ``diff.train.probe_max_pops``.
 
+    ``cfg.show_normals``: one nearest hit per lane, no shading: the colour is
+    the world normal where the lane hits (else 0), ``primary_t`` the hit t
+    (else ``t_max``), ``rays`` is B and ``dropped`` 0 (one pop step).
+
     Differentiable: with scene tensors that require grad, ``color`` carries
     the autograd graph of every pop (the early exit included: the steps it
     skips would pop nothing and add exact zeros)."""
@@ -739,6 +797,12 @@ def trace_lanes(scene, lights, cfg: RenderConfig, o, d, time_ratio, sample_idx, 
     dev = o.device
     if accel is None and cfg.intersector != "brute":
         accel = _build_accel(scene, cfg)
+    if cfg.show_normals:
+        t_limit = torch.full((B,), cfg.t_max, dtype=torch.float32, device=dev)
+        hit = _nearest(scene, accel, o, d, time_ratio, t_limit)
+        color = torch.where(hit.hit[:, None], hit.normal, torch.zeros_like(hit.normal))
+        primary_t = torch.where(hit.hit, hit.t, torch.full_like(hit.t, cfg.t_max))
+        return (color, primary_t, B, 0) + ((1,) if return_pops else ())
     queue = RayQueue.create(B, cfg.queue_capacity, dev)
     queue.push(
         torch.ones(B, dtype=torch.bool, device=dev), o, d,
@@ -839,13 +903,17 @@ def render_stats(scene, camera, cfg: RenderConfig, lights=None, device=None):
 
 def finalize(colors, depths, cfg: RenderConfig):
     """Per-sample gamma then mean over the sample axis; mid-sample depth.
+    The normals view (``cfg.show_normals``) takes the plain mean.
 
     In ``cfg.diff_mode`` the gamma's floor is 1e-12, not 0: the backward of
     sqrt at a clamped 0 is inf * 0 = NaN wherever a trained colour drives a
     sample's channel negative, and the floor makes it an exact 0 (an image
     bias of 1e-6 on black samples, gradient rendering only)."""
-    floor = 1e-12 if cfg.diff_mode else 0.0
-    image = torch.mean(torch.sqrt(torch.clamp_min(colors, floor)), dim=2)
+    if cfg.show_normals:
+        image = torch.mean(colors, dim=2)
+    else:
+        floor = 1e-12 if cfg.diff_mode else 0.0
+        image = torch.mean(torch.sqrt(torch.clamp_min(colors, floor)), dim=2)
     depth = depths[:, :, cfg.spp // 2]  # the reference stores the mid sample
     return {"image": image, "depth": depth}
 

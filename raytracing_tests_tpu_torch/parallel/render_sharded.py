@@ -160,6 +160,8 @@ def _uber_shards(scene, camera, cfg, mesh: Mesh, lights=None, gr: int = 32):
         raise ValueError(f"unknown shading {cfg.shading!r}")
     if cfg.shading == "materials" and lights is not None:
         raise ValueError("materials shading takes no emissive lights")
+    if cfg.show_normals:
+        raise ValueError("render_uber has no normals view (show_normals)")
     uber._camera_statics(camera)
     H, W, S = cfg.height, cfg.width, cfg.spp
     n = mesh.shape[ROWS_AXIS]

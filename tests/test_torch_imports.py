@@ -28,7 +28,8 @@ def test_the_fifteen_modules_exist():
         "scene.textures", "scene.noise", "scene.projection", "kernels.texture",
         "diff", "diff.fastpath", "diff.params", "diff.train", "app.checkpoint",
         "parallel", "parallel.mesh", "parallel.render_sharded", "parallel.multihost",
-        "dryrun",
+        "dryrun", "reference", "reference.cpu_renderer", "ops.tiles", "bvh.traverse",
+        "bvh.debug", "bvh.host_build", "native",
     ):
         assert "raytracing_tests_tpu_torch." + mod in MODULES, mod
 
@@ -103,7 +104,8 @@ def test_the_other_chip_scripts_import_nothing_of_jax(script):
                                    "render_loss", "banded_value_and_grad", "probe_band_pops",
                                    "train_step", "cli_train", "make_mesh", "cli_render_mesh",
                                    "cli_train_mesh", "initialize_multihost",
-                                   "shard_iteration_counts", "dryrun"])
+                                   "shard_iteration_counts", "dryrun", "render_progressive",
+                                   "render_bvh"])
 def test_entry_points_raise_without_cuda_and_do_not_fall_back(entry):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -179,6 +181,14 @@ def test_entry_points_raise_without_cuda_and_do_not_fall_back(entry):
             render_stats(scene, cam, cfg)
         elif entry == "render":
             render(scene, cam, cfg)
+        elif entry == "render_progressive":
+            from raytracing_tests_tpu_torch.ops.tiles import render_progressive
+
+            next(render_progressive(scene, cam, cfg))
+        elif entry == "render_bvh":
+            import dataclasses
+
+            render(scene, cam, dataclasses.replace(cfg, intersector="bvh"))
         elif entry == "cli_texturing":
             from raytracing_tests_tpu_torch.app.cli import main
 
@@ -310,6 +320,38 @@ def test_cli_mesh_is_no_longer_refused(tmp_path, caplog):
     msgs = [r.getMessage() for r in caplog.records]
     assert any(m.startswith("step") for m in msgs)
     assert not any("not ported" in m for m in msgs)
+
+
+@pytest.mark.parametrize("flag", ["normals", "bvh", "progressive"])
+def test_cli_normals_bvh_and_progressive_write_their_pngs(tmp_path, flag):
+    """``render --normals``, ``--bvh`` and ``--progressive --tiles-per-step
+    2`` on the CPU: the progressive render writes ``<stem>_pNNN.png`` a step
+    (130x70 in 64-pixel tiles: 3 x 2 tiles, 3 steps) and the final image."""
+    from raytracing_tests_tpu_torch.app.cli import main
+
+    out = tmp_path / "x.png"
+    args = {"normals": ["sphere", "--normals", "--width", "16", "--height", "10"],
+            "bvh": ["bvh", "--bvh", "--width", "12", "--height", "8", "--bounces", "2"],
+            "progressive": ["sphere", "--progressive", "--tiles-per-step", "2",
+                            "--width", "130", "--height", "70"]}[flag]
+    main(["render", *args, "--spp", "1", "--device", "cpu", "--out", str(out)])
+    assert out.stat().st_size > 0
+    steps = sorted(p.name for p in tmp_path.glob("x_p*.png"))
+    assert steps == (["x_p001.png", "x_p002.png", "x_p003.png"] if flag == "progressive" else [])
+
+
+def test_the_persistent_kernel_refuses_the_normals_view():
+    """``render_uber`` and ``render_uber_sharded`` have no normals view, as
+    the JAX package's ``render_uber`` asserts."""
+    from raytracing_tests_tpu_torch.parallel import make_mesh, render_uber_sharded
+
+    scene, cam = examples.iow_final_scene(side=2)
+    cfg = RenderConfig(width=8, height=4, spp=1, intersector="pallas",
+                       show_normals=True).for_scene(scene)
+    with pytest.raises(ValueError, match="normals"):
+        render_uber(scene, cam, cfg, device="cpu")
+    with pytest.raises(ValueError, match="normals"):
+        render_uber_sharded(scene, cam, cfg, make_mesh(devices=["cpu"] * 2))
 
 
 def test_resolve_device_names_the_cpu_only_when_asked():

@@ -171,7 +171,13 @@ def test_unported_options_raise(what):
         assert torch.isfinite(mat["image"]).all() and mat["rays_dropped"] == 0
         render_fn = render_workqueue
     elif what == "bvh_intersector":
-        cfg = dataclasses.replace(cfg, intersector="bvh")
+        # the LBVH intersector is ported: it renders what the dense
+        # intersector renders; an intersector nobody knows still raises
+        walked = render(scene, cam, dataclasses.replace(cfg, intersector="bvh"), device="cpu")
+        dense = render(scene, cam, cfg, device="cpu")
+        np.testing.assert_allclose(walked["image"].numpy(), dense["image"].numpy(), atol=1e-5)
+        cfg = dataclasses.replace(cfg, intersector="kd_tree")
+        render_fn = render
     else:
         # the sweep for generic scenes is ported: it renders what the dense
         # intersector renders; an intersector nobody knows still raises
