@@ -1214,11 +1214,16 @@ def uber_g_vs_plain(camera_name, acc, cam, st, cfg, modes=False):
     return k1, k1_precise, px_plain, plain_ms, plain_frame
 
 
-def timed_frames(render):
+def timed_frames(render, cold=None):
     """One warm frame, then three timed -> (last frame, seconds, launch counts
-    of every frame, each counted from 0)."""
+    of every frame, each counted from 0).  The timed frames find the render
+    caches filled by the warm one (``uber.clear_caches``); with a list
+    ``cold``, the caches are emptied before the warm frame and its seconds are
+    appended to the list."""
     times, launches = [], []
     for frame_no in range(4):
+        if not frame_no and cold is not None:
+            uber.clear_caches()
         _build.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1226,8 +1231,42 @@ def timed_frames(render):
         torch.cuda.synchronize()
         if frame_no:
             times.append(time.perf_counter() - t0)
+        elif cold is not None:
+            cold.append(time.perf_counter() - t0)
         launches.append(dict(_build.LAUNCHES))
     return out, times, launches
+
+
+BUILD_PAIRS = 10  # cold builds against uncached ones, in turns
+
+
+def table_build_ms(build):
+    """A frame's table build in ms, host and device: ``build(cache)`` with the
+    render caches emptied before each call (``accel_build_ms``, cold), the
+    same build past the caches (``cache=False``: ``accel_uncached_ms``, the
+    build as it was before they existed), ``BUILD_PAIRS`` of each in turns,
+    each the median; ``cold_slower_share``, the share of pairs in which the
+    cold one took longer; and ``accel_cached_ms``, the mean of three hits."""
+    cold, uncached = [], []
+    for i in range(BUILD_PAIRS):
+        for cache in ((True, False) if i % 2 == 0 else (False, True)):
+            if cache:
+                uber.clear_caches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            build(cache)
+            torch.cuda.synchronize()
+            (cold if cache else uncached).append((time.perf_counter() - t0) * 1e3)
+    build(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        build(True)
+    torch.cuda.synchronize()
+    cached = (time.perf_counter() - t0) / 3 * 1e3
+    return dict(accel_build_ms=float(np.median(cold)), accel_uncached_ms=float(np.median(uncached)),
+                cold_slower_share=sum(a > b for a, b in zip(cold, uncached)) / BUILD_PAIRS,
+                accel_cached_ms=cached)
 
 
 def parity(ou, oq):
@@ -1587,12 +1626,14 @@ def generic_phases(dev, iow, ptxas):
 
     # 11. the generic frame ------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
+    cold = []
     out, times, launches_frames = timed_frames(
-        lambda: uber.render_uber(scene, camera, cfg, gr=GR))
+        lambda: uber.render_uber(scene, camera, cfg, gr=GR), cold)
     img = out["image"]
     rays, dropped = int(out["rays"]), int(out["rays_dropped"])
     frame = dict(scene="bvh_grid_scene(side=32)", size=size_of(BVH1K),
                  seconds_per_frame_min=min(times), seconds_per_frame_mean=sum(times) / len(times),
+                 seconds_first_frame_cold=cold[0],
                  rays=rays, mrays_per_s=rays / min(times) / 1e6, rays_dropped=dropped,
                  image_mean=float(img.mean()), launches_per_frame=launches_frames,
                  peak_memory_bytes=torch.cuda.max_memory_allocated())
@@ -1661,11 +1702,7 @@ def generic_phases(dev, iow, ptxas):
     sweep_k1 = coop_sweep("bvh1k", acc3, cam_g, st)
     with _build.precise():
         ms_k1_precise = cuda_ms(lambda: uber.uber_render(acc3, cam_g, st), 3)
-    t0 = time.perf_counter()
-    for _ in range(3):
-        uber._scene_accel(scene, camera, cfg, GR)
-    torch.cuda.synchronize()
-    accel_ms = (time.perf_counter() - t0) / 3 * 1e3
+    builds = table_build_ms(lambda cache: uber._scene_accel(scene, camera, cfg, GR, cache=cache))
     out_h, stats_h = uber.uber_render(acc3, cam_g, st)
     post_ms = cuda_ms(lambda: uber._uber_post(out_h, stats_h, cfg), 3)
     n_nodes, n_hits = int(stats_h[uber.ST_RAYS]), int(stats_h[uber.ST_HITS])
@@ -1674,8 +1711,8 @@ def generic_phases(dev, iow, ptxas):
     del out_h
     say(phase="bvh1k_breakdown", kernel_ms=ms_k1, kernel_ms_per_lane_mode=ms_k1_lane,
         kernel_ms_precise_build=ms_k1_precise,
-        accel_build_ms=accel_ms, epilogue_ms=post_ms, frame_ms=min(times) * 1e3,
-        nodes=n_nodes, hits=n_hits, live_sphere_rows_per_node=s_rows / n_nodes,
+        **builds, epilogue_ms=post_ms, frame_ms=min(times) * 1e3, nodes=n_nodes, hits=n_hits,
+        live_sphere_rows_per_node=s_rows / n_nodes,
         live_cuboid_rows_per_node=o_rows / n_nodes, slab_tests_per_node=n_slab / n_nodes,
         **simt(stats_h))
     k1_bytes = 16 * st.B + accel_bytes(acc3) + 4 * uber.CAM_LEN
@@ -1973,15 +2010,63 @@ def k5_coop_sweep(what, render):
     return res
 
 
-def device_profile(render):
-    """One ``render()`` under torch.profiler -> {kernel name: device ms}."""
+DEVICE_RECORDS = ("kernel", "gpu_memcpy", "gpu_memset")  # a trace's device activity
+PORT_KERNEL = re.compile(r"\b(uber|sweep2|sweep2g|sweep2g_edge|mega|grouped|nearest|ri|nearest_ri)"
+                         r"_kernel\b")
+SESSIONS = []  # what each profiler session saw (``device_session``)
+
+
+def device_session(fn, what=None):
+    """``fn()`` under a torch.profiler session of device activity -> {kernel
+    or copy name: device ms} of what ``fn`` launched.
+
+    The session is padded at both ends as ``utils.profiling.trace`` pads its
+    own (``pad_device_trace``): late in this script an unpadded session lost
+    the device records of its first launches, and a long one those of its
+    last.  Only what was launched between the primer's
+    ``cudaDeviceSynchronize`` and the one before the drain counts, matched
+    launch to record by CUPTI's correlation id.  Each session's count of
+    kernel launches without a device record (where they fell, and the port's
+    launches against the port's kernel records) goes to ``SESSIONS``, which
+    ``main`` prints (phase ``profiler_sessions``)."""
+    import tempfile
+
     from torch.profiler import ProfilerActivity, profile
 
+    from raytracing_tests_tpu_torch.utils.profiling import DRAIN_LAUNCHES, pad_device_trace
+
+    before = sum(_build.LAUNCHES.values())
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        render()
+        pad_device_trace()
+        fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+        pad_device_trace(DRAIN_LAUNCHES, "trace_drain")
+    port_launches = sum(_build.LAUNCHES.values()) - before
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "session.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    host = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    syncs = sorted(e["ts"] for e in host if e["name"] == "cudaDeviceSynchronize")
+    require(len(syncs) >= 3, f"a profiler session without its padding's cudaDeviceSynchronize: "
+            f"{sorted({e['name'] for e in host})}")
+    mine = [e for e in host if syncs[0] < e["ts"] < syncs[-2] and "correlation" in e.get("args", {})]
+    ids = {e["args"]["correlation"] for e in mine}
+    records = [e for e in events if e.get("cat") in DEVICE_RECORDS
+               and e.get("args", {}).get("correlation") in ids]
+    seen = {e["args"]["correlation"] for e in records}
+    launches = sorted((e for e in mine if "LaunchKernel" in e["name"]), key=lambda e: e["ts"])
+    lost = [k for k, e in enumerate(launches) if e["args"]["correlation"] not in seen]
+    SESSIONS.append(dict(
+        what=what or sys._getframe(1).f_code.co_name, kernel_launches=len(launches),
+        records_lost=len(lost), lost_first_index=lost[0] if lost else None,
+        lost_last_index=lost[-1] if lost else None, port_launches=port_launches,
+        port_kernel_records=sum(1 for e in records if PORT_KERNEL.search(e["name"]))))
+    out = collections.defaultdict(float)
+    for e in records:
+        out[e["name"]] += e.get("dur", 0) / 1e3
+    return dict(out)
 
 
 def bvh_queue_frame(scene, camera, cfg, ou):
@@ -1996,7 +2081,7 @@ def bvh_queue_frame(scene, camera, cfg, ou):
     c = parity(ou, oq)
     k5 = kernels_on_path(render, dict(
         sweep_grouped=(sweep, "_launch_grouped", k5_bound_of_launch)))["sweep_grouped"]
-    by = device_profile(render)
+    by = device_session(render)
     frame_ms = min(times) * 1e3
     busy = sum(by.values())
     k5_ms = sum(v for k, v in by.items() if "grouped_kernel" in k)
@@ -2157,7 +2242,7 @@ def dense_generic_frame(scene, camera, cfg, oq_k5):
     c = parity(out, oq_k5)
     k4 = k4_on_path(render, "nearest")["sweep_nearest"]
     res = frame_numbers("bvh_grid_scene(side=32), pallas_groups=0", times, out, launches,
-                        device_profile(render), dict(sweep_nearest="nearest_kernel"))
+                        device_session(render), dict(sweep_nearest="nearest_kernel"))
     res.update(sweep_nearest=k4, parity_vs_bvh_queue_frame=c)
     with launches_of(sweep, "_launch_nearest") as pops:
         render_stats(scene, camera, cfg0)
@@ -2192,7 +2277,7 @@ def glass_grid_frame(dev):
     got = k4_on_path(render, "ri", dict(
         sweep_grouped=(sweep, "_launch_grouped", k5_bound_of_launch)))
     res = frame_numbers(f"glass_grid_scene() (every {GLASS_EVERY}th grid object glass)", times,
-                        out, launches, device_profile(render),
+                        out, launches, device_session(render),
                         dict(sweep_ri="ri_kernel", sweep_grouped="grouped_kernel"))
     res.update(got, parity_vs_render_uber=c, render_uber_launches=launches_u,
                glass_rows=int((scene.refractivity > 0.002).sum()))
@@ -2418,13 +2503,7 @@ def mega_vs_plain(what, accel, camera, cfg, chunk):
 def device_ms_by_kernel(fn):
     """Milliseconds the card spent in each kernel (and copy) during ``fn()``,
     from ``torch.profiler``'s device trace; None where the trace is empty."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA}
+    out = device_session(fn, what=sys._getframe(1).f_code.co_name)
     return out if sum(out.values()) > 0 else None
 
 
@@ -3336,12 +3415,11 @@ def shading_frame(dev, what, name, spec=None):
     schedules bit for bit, and where the frame's time goes -> (numbers, the
     kernels-line fields).  ``spec``: the frame's (scene maker, shading, lit)
     where it is not the canary's scene of ``name``."""
-    from raytracing_tests_tpu_torch.kernels.texture import pack_atlas
-
     scene, camera, cfg, lights, acc, cam, st, rows, atlas = shading_inputs(
         dev, name, SHADING_FRAME, spec)
+    cold = []
     out, times, launches = timed_frames(
-        lambda: uber.render_uber(scene, camera, cfg, lights, gr=GR))
+        lambda: uber.render_uber(scene, camera, cfg, lights, gr=GR), cold)
     for got in launches:
         require(got == {name: 1}, f"a {what} frame is one launch of {name}: {launches}")
     plain_ms, (out_p, stats_p) = timed_ms(
@@ -3355,13 +3433,10 @@ def shading_frame(dev, what, name, spec=None):
         ms_k1_lane = cuda_ms(lambda: uber.uber_render(acc, cam, st, rows, atlas), 3)
         _, stats_lane = uber.uber_render(acc, cam, st, rows, atlas)
     _, stats_k = uber.uber_render(acc, cam, st, rows, atlas)
-    t0 = time.perf_counter()
-    for _ in range(3):
-        uber._scene_accel(scene, camera, cfg, min(GR, max(8, -(-scene.capacity // 8) * 8)))
-        if atlas is not None:
-            pack_atlas(scene.textures)
-    torch.cuda.synchronize()
-    accel_ms = (time.perf_counter() - t0) / 3 * 1e3
+    gr = min(GR, max(8, -(-scene.capacity // 8) * 8))  # as render_uber clamps it
+    builds = table_build_ms(lambda cache: (
+        uber._scene_accel(scene, camera, cfg, gr, cache=cache),
+        None if atlas is None else uber.packed_atlas(scene.textures, cache=cache)))
     out_k, _ = uber.uber_render(acc, cam, st, rows, atlas)
     post_ms = cuda_ms(lambda: uber._uber_post(out_k, stats_k, cfg), 3)
     del out_k
@@ -3383,7 +3458,8 @@ def shading_frame(dev, what, name, spec=None):
                  rays_plain=int(stats_p[uber.ST_RAYS]), image_mean_plain=float(img_p.mean()),
                  plain_seconds=plain_ms / 1e3, launches_per_frame=launches,
                  kernel_ms=ms_k1, kernel_ms_per_lane_mode=ms_k1_lane, bound_ms=bnd, bound_by=by,
-                 accel_build_ms=accel_ms, epilogue_ms=post_ms,
+                 seconds_first_frame_cold=cold[0],
+                 **builds, epilogue_ms=post_ms,
                  shadow_rays=int(stats_k[uber.ST_SHADOW_RAYS]), **texture, **simt(stats_k),
                  default_build=k1, precise_build=k1_precise, pixels_default_vs_plain=px)
     say(phase=f"{what}_frame", **frame)
@@ -3941,8 +4017,6 @@ def band_device_share(g, b):
     clock, then once more under torch.profiler (device activity only) for the
     card's busy time: the idle share of the unprofiled wall time, and the
     sweep kernels' share."""
-    from torch.profiler import ProfilerActivity, profile
-
     from raytracing_tests_tpu_torch.diff.train import _buckets, _diff_cfg, _grads_of, _leaves
     from raytracing_tests_tpu_torch.ops.render import _build_accel, finalize, trace_lanes
 
@@ -3964,11 +4038,7 @@ def band_device_share(g, b):
 
     run()
     wall, _ = timed_ms(run)  # the host clock, unprofiled
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    by = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA}
+    by = device_session(run)
     busy = sum(by.values())
     sweeps = sum(v for k, v in by.items() if "sweep2" in k)
     return dict(band=b, pops=ceil, wall_ms=wall, device_busy_ms=busy,
@@ -5289,7 +5359,8 @@ def utils_on_card(dev):
     import tempfile
 
     from raytracing_tests_tpu_torch.utils.debug import check_finite_render
-    from raytracing_tests_tpu_torch.utils.profiling import ThroughputMeter, annotate, trace
+    from raytracing_tests_tpu_torch.utils.profiling import (
+        PRIMER_LAUNCHES, ThroughputMeter, annotate, trace)
     from raytracing_tests_tpu_torch.utils.resilience import KeepLastGood
     from raytracing_tests_tpu_torch.app.checkpoint import tree_leaves
 
@@ -5297,9 +5368,16 @@ def utils_on_card(dev):
     scene, camera = (x.to(dev) for x in examples.iow_final_scene())
     cfg = RenderConfig(intersector="pallas", **HEADLINE).for_scene(scene)
     frame = lambda: uber.render_uber(scene, camera, cfg, gr=GR)  # noqa: E731
-    # the trace
+    # the trace; beside it the same frame under a bare torch.profiler session,
+    # which late in this script loses the device records of its first
+    # launches (``trace`` primes its session against that)
     frame()
     torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as bare:
+        frame()
+        torch.cuda.synchronize()
+    bare_kernels = [e.name for e in bare.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     with tempfile.TemporaryDirectory() as tmp:
         _build.reset_launches()
         with trace(tmp):
@@ -5359,7 +5437,10 @@ def utils_on_card(dev):
                           k1_kernels=sorted({e["name"] for e in k1_events}),
                           k1_kernel_events=len(k1_events),
                           k1_device_ms=sum(e.get("dur", 0) for e in k1_events) / 1e3,
-                          annotation_ranges=len(annotated)),
+                          annotation_ranges=len(annotated),
+                          primer_launches=PRIMER_LAUNCHES,
+                          bare_session_device_events=len(bare_kernels),
+                          bare_session_k1=sum("uber_kernel" in n for n in bare_kernels)),
                meter=dict(mrays_per_s=meter.mrays_per_s, timed_frames_mrays_per_s=timed_rate,
                           timed_frames_min_mrays_per_s=rays / min(times) / 1e6,
                           frames=3, seconds=meter.seconds),
@@ -5391,6 +5472,197 @@ def fifteenth_phases(dev):
     paths.update(bench_paths)
     paths.update(utils_on_card(dev))
     return paths, bench_head
+
+
+ACCEL_TABLES = ("otab", "ftab", "gaabb", "perm")
+
+
+def cloned(struct):
+    """The same values in tensors of its own: a scene or camera no cache saw."""
+    return dataclasses.replace(struct, **{
+        f.name: getattr(struct, f.name).clone() for f in dataclasses.fields(struct)
+        if isinstance(getattr(struct, f.name), torch.Tensor)})
+
+
+def same_tables(a, b):
+    """Two (accel, camera vector) pairs bit for bit, table by table."""
+    (acc_a, cam_a), (acc_b, cam_b) = a, b
+    out = {n: bool(torch.equal(getattr(acc_a, n), getattr(acc_b, n))) for n in ACCEL_TABLES}
+    out["camera_vector"] = bool(torch.equal(cam_a, cam_b))
+    return out
+
+
+@contextlib.contextmanager
+def counted_builds():
+    """Inside: the calls of ``make_accel2`` / ``make_accel2g``, the probe cut
+    and the atlas pack, counted in the dict it yields."""
+    n = dict(accel=0, probe_cut=0, atlas=0)
+
+    def counting(key, fn):
+        def wrapper(*a, **k):
+            n[key] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    with patched(uber, "make_accel2", counting("accel", uber.make_accel2)), \
+            patched(uber, "make_accel2g", counting("accel", uber.make_accel2g)), \
+            patched(sweep2, "_probe_cut", counting("probe_cut", sweep2._probe_cut)), \
+            patched(uber, "pack_atlas", counting("atlas", uber.pack_atlas)):
+        yield n
+
+
+def accel_cache(dev, scene, camera, cfg):
+    """Phase accel_cache (the sixteenth slice): the render path's caches on the
+    headline scene -> {path: launches}.  (a) three cold builds of
+    ``_scene_accel`` (the caches emptied before each) against three hits;
+    (b) the hit's tables bit for bit a fresh build's; (c) a warm frame bit for
+    bit the cold one, in the -fmad=false build and the default one; (d) after
+    an in-place edit of ``position`` on the card the next frame rebuilds once,
+    and equals a frame of a fresh scene with the same values; (e)
+    ``render_uber_sharded`` after ``render_uber`` builds nothing."""
+    from raytracing_tests_tpu_torch.parallel import make_mesh, render_uber_sharded
+
+    build = lambda: uber._scene_accel(scene, camera, cfg, GR)  # noqa: E731
+    render = lambda sc=scene, cam=camera: uber.render_uber(sc, cam, cfg, gr=GR)  # noqa: E731
+    nothing = dict(accel=0, probe_cut=0, atlas=0)
+    # (a)
+    cold_ms = []
+    for _ in range(3):
+        uber.clear_caches()
+        ms, built = timed_ms(build)
+        cold_ms.append(ms)
+    with counted_builds() as n_hit:
+        hits = [timed_ms(build) for _ in range(3)]
+    hit, warm_ms = hits[-1][1], [ms for ms, _ in hits]
+    require(hit[0] is built[0] and hit[1] is built[1] and n_hit == nothing,
+            f"accel_cache: a repeated _scene_accel built again: {n_hit}")
+    # (b)
+    uber.clear_caches()
+    tables = same_tables(hit, build())
+    require(all(tables.values()), f"accel_cache: the cached tables are not a fresh build's: {tables}")
+    # (c)
+    frames = {}
+    for b, ctx in (("precise_build", _build.precise), ("default_build", contextlib.nullcontext)):
+        with ctx():
+            uber.clear_caches()
+            cold_s, cold_f = timed_ms(render)
+            warm_s, warm_f = timed_ms(render)
+        same = same_frame(cold_f, warm_f)
+        frames[b] = dict(same, cold_frame_ms=cold_s, warm_frame_ms=warm_s)
+        if not all(same.values()):
+            frames[b].update(identical_pixels=identical_pixels(cold_f, warm_f),
+                             max_abs_diff=float((cold_f["image"] - warm_f["image"]).abs().max()),
+                             rays=(int(cold_f["rays"]), int(warm_f["rays"])))
+        del cold_f, warm_f
+    # (d)
+    _build.reset_launches()
+    sc = cloned(scene)
+    before = render(sc)
+    with counted_builds() as n_edit:
+        sc.position.add_(torch.tensor([0.0, 0.0, -0.05], device=dev))
+        edited = render(sc)
+        again = render(sc)
+    fresh = render(cloned(sc))
+    launches = dict(_build.LAUNCHES)
+    edit = dict(builds=n_edit, vs_fresh_scene=same_frame(edited, fresh),
+                repeated=same_frame(again, edited),
+                moved=not bool(torch.equal(edited["image"], before["image"])))
+    del before, edited, again, fresh, sc
+    # (e)
+    single = render()
+    mesh = make_mesh(devices=[dev] * 2)
+    with counted_builds() as n_sharded:
+        sharded = render_uber_sharded(scene, camera, cfg, mesh, gr=GR)
+    sharded_same = identical_pixels(sharded, single)
+    del single, sharded
+    say(phase="accel_cache", size=size_of(HEADLINE), cold_build_ms=cold_ms,
+        cached_ms=warm_ms, tables_equal_fresh_build=tables, frames=frames,
+        in_place_edit=edit, edit_launches=launches, sharded_builds=n_sharded,
+        sharded_identical_pixels=sharded_same)
+    for b, f in frames.items():
+        require(f["image"] and f["depth"] and f["rays"],
+                f"accel_cache: the warm frame is not the cold one in the {b}: {f}")
+    require(n_edit == dict(accel=1, probe_cut=1, atlas=0) and edit["moved"]
+            and all(edit["vs_fresh_scene"].values()) and all(edit["repeated"].values()),
+            f"accel_cache: an in-place edit: {edit}")
+    require(launches == {"uber": 4}, f"accel_cache: the edit's frames: {launches}")
+    require(n_sharded == nothing, f"accel_cache: render_uber_sharded built again: {n_sharded}")
+    return {"accel_cache": launches}
+
+
+CACHES = dict(probe_cut=sweep2._PROBE_CACHE, accel=uber._ACCEL_CACHE, atlas=uber._ATLAS_CACHE)
+
+
+def cache_traffic(dev):
+    """Phase cache_traffic: which callers the render caches serve.  Each
+    caller runs as a user runs it, at the canary's size, from empty caches;
+    the phase prints each cache's hits, misses and bypasses over it
+    (``TensorCache.counts``) and what it left cached -> {path: launches}.
+
+      - ``cli_render``: ``render iow-final --uber`` twice (``cli.main``, a PNG
+        into a temporary directory).  The workload builds its scene on the
+        CPU, so each call copies it to the card and passes the caches by.
+      - ``dryrun``: ``dryrun_multichip(1)``, whose scenes are built on the CPU
+        too.
+      - ``bench_time_config``: the bench's loop, one warm frame and three
+        timed, on a scene it puts on the card once.
+      - ``library_rerender``: a scene put on the card once and rendered at the
+        canary's size, again at four times the samples, then row-sharded over
+        two shards of the card."""
+    import tempfile
+
+    from raytracing_tests_tpu_torch import bench
+    from raytracing_tests_tpu_torch.app import cli
+    from raytracing_tests_tpu_torch.dryrun import dryrun_multichip
+    from raytracing_tests_tpu_torch.parallel import make_mesh, render_uber_sharded
+
+    scene, camera = examples.iow_final_scene()
+    cfg = RenderConfig(intersector="pallas", **SMALL).for_scene(scene)
+    size = ["--width", str(SMALL["width"]), "--height", str(SMALL["height"]),
+            "--spp", str(SMALL["spp"]), "--bounces", str(SMALL["max_bounces"])]
+
+    def cli_render():
+        with tempfile.TemporaryDirectory() as tmp:
+            for _ in range(2):
+                cli.main(["render", "iow-final", "--uber", *size,
+                          "--out", os.path.join(tmp, "render.png")])
+
+    def library_rerender():
+        sc, cam = scene.to(dev), camera.to(dev)
+        uber.render_uber(sc, cam, cfg, gr=GR)
+        uber.render_uber(sc, cam, dataclasses.replace(cfg, spp=4 * cfg.spp), gr=GR)
+        render_uber_sharded(sc, cam, cfg, make_mesh(devices=[dev] * 2), gr=GR)
+
+    callers = dict(
+        cli_render=cli_render,
+        dryrun=lambda: dryrun_multichip(1),
+        bench_time_config=lambda: bench.time_config(scene, camera, cfg, "uber", None, device=dev),
+        library_rerender=library_rerender)
+    res, launches = {}, collections.Counter()
+    for name, run in callers.items():
+        uber.clear_caches()
+        before = {k: collections.Counter(c.counts) for k, c in CACHES.items()}
+        _build.reset_launches()
+        run()
+        torch.cuda.synchronize()
+        launches.update(_build.LAUNCHES)
+        counts = {k: {n: c.counts[n] - before[k][n] for n in ("hit", "miss", "bypass")}
+                  for k, c in CACHES.items()}
+        res[name] = dict(counts=counts, left_cached={k: len(c) for k, c in CACHES.items()},
+                         accel_hit_share=counts["accel"]["hit"] / max(sum(counts["accel"].values()), 1),
+                         launches=dict(_build.LAUNCHES))
+    uber.clear_caches()
+    say(phase="cache_traffic", size=size_of(SMALL), callers=res)
+    for name in ("cli_render", "dryrun"):
+        acc = res[name]["counts"]["accel"]
+        require(acc["bypass"] > 0 and acc["hit"] == acc["miss"] == 0
+                and not any(res[name]["left_cached"].values()),
+                f"cache_traffic: {name} copies its scenes and must pass the caches by: {res[name]}")
+    for name in ("bench_time_config", "library_rerender"):
+        acc = res[name]["counts"]["accel"]
+        require(acc["miss"] == 1 and acc["hit"] >= 2 and acc["bypass"] == 0,
+                f"cache_traffic: {name} renders one scene on the card again: {res[name]}")
+    return {"cache_traffic": dict(launches)}
 
 
 def main():
@@ -5527,13 +5799,15 @@ def main():
 
     # 6. the headline frame -------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
+    cold = []
     out, times, launches_frames = timed_frames(
-        lambda: uber.render_uber(scene, camera, cfg, gr=GR))
+        lambda: uber.render_uber(scene, camera, cfg, gr=GR), cold)
     img = out["image"]
     rays, dropped = int(out["rays"]), int(out["rays_dropped"])
     frame = dict(size=size_of(HEADLINE),
                  seconds_per_frame_min=min(times),
                  seconds_per_frame_mean=sum(times) / len(times),
+                 seconds_first_frame_cold=cold[0],
                  rays=rays, mrays_per_s=rays / min(times) / 1e6,
                  rays_dropped=dropped, image_mean=float(img.mean()),
                  launches_per_frame=launches_frames,
@@ -5556,20 +5830,16 @@ def main():
     sweep_k1 = coop_sweep("headline", accel_h, cam_h, st_h)
     with _build.precise():  # what separately rounded multiply-adds would cost
         ms_k1_precise = cuda_ms(lambda: uber.uber_render(accel_h, cam_h, st_h), 3)
-    # where the rest of a frame goes: the accel build (host + device) and the
-    # epilogue (per-sample sqrt, mean over samples)
-    t0 = time.perf_counter()
-    for _ in range(3):
-        uber._scene_accel(scene, camera, cfg, GR)
-    torch.cuda.synchronize()
-    accel_ms = (time.perf_counter() - t0) / 3 * 1e3
+    # where the rest of a frame goes: the accel build (host + device; cold, and
+    # served by the cache) and the epilogue (per-sample sqrt, mean over samples)
+    builds = table_build_ms(lambda cache: uber._scene_accel(scene, camera, cfg, GR, cache=cache))
     out_h, stats_h = uber.uber_render(accel_h, cam_h, st_h)
     post_ms = cuda_ms(lambda: uber._uber_post(out_h, stats_h, cfg), 3)
     n_nodes, sphere_tests = int(stats_h[uber.ST_RAYS]), int(stats_h[uber.ST_SPHERE_TESTS])
     del out_h
     say(phase="frame_breakdown", kernel_ms=ms_k1, kernel_ms_per_lane_mode=ms_k1_lane,
-        kernel_ms_precise_build=ms_k1_precise, accel_build_ms=accel_ms,
-        epilogue_ms=post_ms, frame_ms=min(times) * 1e3,
+        kernel_ms_precise_build=ms_k1_precise, **builds, epilogue_ms=post_ms,
+        frame_ms=min(times) * 1e3,
         sphere_tests_per_ray=sphere_tests / n_nodes, **simt(stats_h))
     k1_bytes = 16 * st_h.B + accel_bytes(accel_h) + 4 * uber.CAM_LEN
     k1_flops = (sphere_tests * FLOPS_PER_SPHERE_TEST
@@ -5599,6 +5869,9 @@ def main():
     require(min(ms_k2, ms_k2_lane) > k2_bound,
             f"K2 below its bound at the canary's lanes, a counting error: {ms_k2} {k2_bound}")
     k2_main = k2["canary_lanes"]
+    # the sixteenth slice: the render path's caches on the headline scene
+    sixteenth_paths = accel_cache(dev, scene, camera, cfg)
+    sixteenth_paths.update(cache_traffic(dev))
 
     kernels = [
         dict(name="uber_render", route="cuda",
@@ -5685,9 +5958,11 @@ def main():
     # renderer, K2 behind the sharded gradient step; the fourteenth's: K2 and
     # K5 behind the oracle's cases, the normals view and the progressive tiles;
     # the fifteenth's: K1 behind the bench's configurations and the utilities,
-    # K2 behind its parity canary and gradient step, K5 behind watch
+    # K2 behind its parity canary and gradient step, K5 behind watch; the
+    # sixteenth's: K1 on the edited scene of the accel cache's phase and
+    # behind the callers of cache_traffic
     later_paths = {**sixth_paths, **seventh_paths, **eighth_paths, **thirteenth_paths,
-                   **fourteenth_paths, **fifteenth_paths}
+                   **fourteenth_paths, **fifteenth_paths, **sixteenth_paths}
     for k in kernels:
         counter = dict(sweep2="sweep2", sweep2_motion="sweep2_m", sweep2g="sweep2g",
                        sweep_grouped="sweep_grouped", sweep_ri="sweep_ri").get(
@@ -5700,6 +5975,9 @@ def main():
     for k in kernels:
         require(max(k["launches_by_path"].values()) > 0 and k["launches"] > 0,
                 f"kernel {k['name']} was launched on no driven path: {k['launches_by_path']}")
+    lost = sum(x["records_lost"] for x in SESSIONS)
+    say(phase="profiler_sessions", sessions=SESSIONS, records_lost=lost,
+        kernel_launches=sum(x["kernel_launches"] for x in SESSIONS))
     say(kernels=kernels)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

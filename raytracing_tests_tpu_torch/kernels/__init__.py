@@ -16,4 +16,13 @@
                  (``csrc/sweep.cu``) and host helpers (scene mode / motion
                  detection).
   - ``_build``:  builds and loads the kernels at first use; launch counters.
+
+The first-generation sweep entry points are re-exported here, as the JAX
+package's ``kernels`` exports them; importing the package builds nothing.
 """
+
+from raytracing_tests_tpu_torch.kernels.sweep import (  # noqa: F401
+    intersect_pallas,
+    occluded_nearest_obj_pallas,
+    surrounding_ri_pallas,
+)

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from raytracing_tests_tpu_torch.kernels import _build
+from raytracing_tests_tpu_torch.kernels._cache import TensorCache
 from raytracing_tests_tpu_torch.kernels.sweep import (
     BIG_T, HitFields, _check_tensor, pack_rays, scene_has_motion, scene_mode,
 )
@@ -324,7 +325,22 @@ def make_accel2(scene: Scene, gr: int = DEFAULT_GR, sort_origin=None,
         gr=gr, n_pgroups=pgaabb.shape[0], has_motion=has_motion)
 
 
-def probe_relevant_rows(scene: Scene, margin: float = 4e-3):
+# The probe cut's cache: the O(N^2) host matrix (a ~200 MB transient at the
+# N = 4096 threshold) is not rebuilt for a scene rendered again.  Keyed on
+# every tensor the cut reads, so ``scene.replace(...)`` variants, which share
+# ``position``, keep entries of their own and do not evict each other.
+_PROBE_CACHE = TensorCache(8)
+
+
+def _probe_cache_deps(scene: Scene):
+    """Every scene tensor ``probe_relevant_rows`` reads, directly or through
+    ``scene_mode`` / ``world_aabbs``."""
+    return (scene.position, scene.rotation, scene.scale,
+            scene.delta_position, scene.obj_type, scene.valid,
+            scene.refractive_index, scene.refractivity, scene.texture_index)
+
+
+def probe_relevant_rows(scene: Scene, margin: float = 4e-3, cache: bool = True):
     """Boolean numpy mask of scene rows that can move the surrounding-RI probe
     off the neutral 1.0.
 
@@ -347,7 +363,17 @@ def probe_relevant_rows(scene: Scene, margin: float = 4e-3):
     the ``iow_final_scene()`` the cut keeps 40 of 486 dielectric rows.
 
     Sphere scenes use exact pairwise surface gaps (shrunk by both motion
-    amplitudes); generic scenes use the conservative world-AABB gap."""
+    amplitudes); generic scenes use the conservative world-AABB gap.
+
+    Cached on the identity and version of every tensor the cut reads
+    (``_probe_cache_deps``, ``kernels/_cache.py``) in a FIFO of 8 scenes; the
+    caller gets a copy.  ``cache=False`` computes it and stores nothing."""
+    deps = _probe_cache_deps(scene) if cache else None
+    return _PROBE_CACHE.cached(deps, (margin,), lambda: _probe_cut(scene, margin)).copy()
+
+
+def _probe_cut(scene: Scene, margin: float):
+    """``probe_relevant_rows`` computed afresh."""
     npy = lambda x: x.detach().cpu().numpy()
     valid = npy(scene.valid)
     dmask = valid & (npy(scene.refractive_index) != 1.0)

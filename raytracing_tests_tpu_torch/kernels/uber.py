@@ -58,7 +58,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from raytracing_tests_tpu_torch.kernels import _build
+from raytracing_tests_tpu_torch.kernels import _build, sweep2
+from raytracing_tests_tpu_torch.kernels._cache import TensorCache
 from raytracing_tests_tpu_torch.kernels.mega import (
     GOLDEN_ANGLE, _cross_up, _shade_hits, _shade_materials_k, sunflower_statics,
 )
@@ -551,25 +552,73 @@ def uber_render(accel, cam, st: UberStatics, lights=None, atlas=None, aa=None):
 # ---------------------------------------------------------------------------
 
 
-def _scene_accel(scene, camera, cfg, gr):
-    """Probe cut + accel build + camera pack.
+# The render path's caches (``kernels/_cache.py``): the accel with the camera
+# vector it was packed beside, in a FIFO of 8, and the packed atlas, in a FIFO
+# of 4.  A cached table that a caller wrote into is rebuilt, not served.
+_ACCEL_CACHE = TensorCache(
+    8, watch=lambda v: (v[0].otab, v[0].ftab, v[0].gaabb, v[0].perm, v[1]))
+_ATLAS_CACHE = TensorCache(4, watch=lambda v: (v[0],))
+
+
+def clear_caches() -> None:
+    """Empty the probe-cut, accel and atlas caches: the next ``render_uber``
+    builds every table afresh."""
+    sweep2._PROBE_CACHE.clear()
+    _ACCEL_CACHE.clear()
+    _ATLAS_CACHE.clear()
+
+
+def _tensors(*structs):
+    """Every tensor field of the given scenes and cameras, in field order."""
+    return tuple(t for x in structs for t in (getattr(x, f.name) for f in dataclasses.fields(x))
+                 if isinstance(t, torch.Tensor))
+
+
+def _scene_accel(scene, camera, cfg, gr, cache: bool = True):
+    """Probe cut + accel build + camera pack -> (accel, camera vector).
 
     The probe cut (``sweep2.probe_relevant_rows``) trims the surrounding-RI
     sub-table to rows that can actually answer; ``cfg.probe_rows == -1`` keeps
-    the full table, ``0`` disables the probe."""
+    the full table, ``0`` disables the probe.  Cached on the identity and
+    version of every scene and camera tensor, with ``gr``, ``cfg.has_motion``,
+    ``cfg.pallas_mode`` and the probe rows (``_ACCEL_CACHE``): variants of a
+    scene coexist, and an in-place write to any of them, or to the returned
+    tables, rebuilds.  Shared by ``render_uber`` and the row-sharded path.
+    ``cache=False`` builds everything and stores nothing."""
     probe_rows, probe_mask = cfg.probe_rows, None
     if probe_rows > 0:
-        probe_mask = probe_relevant_rows(scene)
+        probe_mask = probe_relevant_rows(scene, cache=cache)
         probe_rows = int(probe_mask.sum())
-    if cfg.pallas_mode == "spheres":
-        accel = make_accel2(scene, gr=gr, sort_origin=camera.position,
-                            probe_rows=probe_rows, probe_mask=probe_mask,
-                            has_motion=cfg.has_motion)
-    else:
-        accel = make_accel2g(scene, gr=gr, has_motion=cfg.has_motion,
-                             sort_origin=camera.position,
-                             probe_rows=probe_rows, probe_mask=probe_mask)
-    return accel, pack_camera(camera)
+
+    def build():
+        if cfg.pallas_mode == "spheres":
+            accel = make_accel2(scene, gr=gr, sort_origin=camera.position,
+                                probe_rows=probe_rows, probe_mask=probe_mask,
+                                has_motion=cfg.has_motion)
+        else:
+            accel = make_accel2g(scene, gr=gr, has_motion=cfg.has_motion,
+                                 sort_origin=camera.position,
+                                 probe_rows=probe_rows, probe_mask=probe_mask)
+        return accel, pack_camera(camera)
+
+    deps = _tensors(scene, camera) if cache else None
+    return _ACCEL_CACHE.cached(deps, (gr, cfg.has_motion, cfg.pallas_mode, probe_rows), build)
+
+
+def packed_atlas(textures, cache: bool = True):
+    """``texture.pack_atlas(textures)``, cached on the stack's identity and
+    version (``_ATLAS_CACHE``) unless ``cache=False``."""
+    return _ATLAS_CACHE.cached((textures,) if cache else None, (), lambda: pack_atlas(textures))
+
+
+def _to_device(scene, camera, dev):
+    """(scene, camera) on ``dev``, and whether they are still the caller's own
+    tensors.  Only those go into the caches: a copy made for one call dies
+    with it, so its entry could never be served and would only pin the copy
+    and its tables on the device."""
+    moved = scene.to(dev), camera.to(dev)
+    own = all(a is b for a, b in zip(_tensors(scene, camera), _tensors(*moved)))
+    return (*moved, own)
 
 
 def _camera_statics(camera):
@@ -591,7 +640,18 @@ def render_uber(scene, camera, cfg, lights=None, gr: int = 32, qcap=None,
     (``ops.render.Lights``, from ``extract_lights``) adds the emissive
     lights; materials shading takes none.  A scene with textures runs the
     textured instantiation.  ``device=None`` means CUDA (raises when
-    absent); ``device="cpu"`` runs the plain version."""
+    absent); ``device="cpu"`` runs the plain version.
+
+    Identity-cached: the probe cut, the accel, the camera vector and the atlas
+    are built once for a scene and camera and served again while none of
+    their tensors is replaced or written in place (``_scene_accel``,
+    ``packed_atlas``, ``kernels/_cache.py``; a hit costs no device sync).
+    The scene and camera are moved to ``device`` first: ones already there
+    keep their tensors and hit; ones on another device (a scene built on the
+    CPU and rendered on CUDA, as ``models.workloads`` and the CLI do) are
+    copied on every call, built afresh every time and never cached.  A write
+    that bypasses PyTorch's version counter (through ``.data`` or a numpy
+    view) is not seen; call ``clear_caches()`` after one."""
     dev = resolve_device(device)
     if qcap is not None and qcap != cfg.queue_capacity:
         cfg = dataclasses.replace(cfg, queue_capacity=qcap)
@@ -602,15 +662,15 @@ def render_uber(scene, camera, cfg, lights=None, gr: int = 32, qcap=None,
     if cfg.show_normals:
         raise ValueError("render_uber has no normals view (show_normals)")
     _camera_statics(camera)
-    scene, camera = scene.to(dev), camera.to(dev)
+    scene, camera, own = _to_device(scene, camera, dev)
     if lights is not None and lights.bb_min.device != dev:
         lights = lights.to(dev)  # a Lights already there keeps its packed rows
     lts, n_lights = pack_lights(lights)
     # Small scenes: clamp the group size to the capacity — a 3-object scene
     # at gr=64 would sweep 64 rows of which 61 are dead padding.
     gr = min(gr, max(8, -(-scene.capacity // 8) * 8))
-    accel, cam = _scene_accel(scene, camera, cfg, gr)
-    atlas = None if scene.textures is None else pack_atlas(scene.textures)
+    accel, cam = _scene_accel(scene, camera, cfg, gr, cache=own)
+    atlas = None if scene.textures is None else packed_atlas(scene.textures, cache=own)
     aa = aa_table(cfg.width, cfg.height, cfg.spp, dev) if cfg.aa_grid else None
     st = UberStatics.from_cfg(cfg, n_lights, camera)
     out, stats = uber_render(accel, cam, st, lts, atlas, aa)

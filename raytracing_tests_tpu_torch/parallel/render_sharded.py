@@ -147,14 +147,16 @@ def _uber_shards(scene, camera, cfg, mesh: Mesh, lights=None, gr: int = 32):
     ([(shard, out (h, W, S, 4), stats (ST_LEN,))], h), ``h = ceil(H / n)``
     rows a shard.
 
-    The probe cut and the accel are built once (``kernels.uber._scene_accel``,
-    on the first shard's device), the lights and the atlas packed once a
+    The probe cut and the accel come from ``kernels.uber._scene_accel`` (on
+    the first shard's device), the atlas from ``uber.packed_atlas`` a device:
+    both cached, so a scene already on that device that ``render_uber`` or an
+    earlier call packed is not packed again (a copy made for another device
+    is packed afresh and not cached, as in ``render_uber``).  The lights are packed once a
     device.  Each shard's statics render ``h`` rows of the frame's height
     (``UberStatics.rows``: ``1/H``, the aspect and the ``aa_grid`` table stay
     the frame's) and its camera vector maps local row r to ``r * n + shard``
     (``pack_camera(row_stride=n, row0=shard)``)."""
     from raytracing_tests_tpu_torch.kernels import uber
-    from raytracing_tests_tpu_torch.kernels.texture import pack_atlas
 
     if cfg.shading not in ("bvh", "materials"):
         raise ValueError(f"unknown shading {cfg.shading!r}")
@@ -172,11 +174,11 @@ def _uber_shards(scene, camera, cfg, mesh: Mesh, lights=None, gr: int = 32):
     out = []
     for shard, dev in mesh.local_shards():
         if dev not in per_dev:
-            sc, cam = scene.to(dev), camera.to(dev)
+            sc, cam, own = uber._to_device(scene, camera, dev)
             lts, n_lights = uber.pack_lights(_lights_to(lights, dev))
             if accel is None:
-                accel, _ = uber._scene_accel(sc, cam, cfg, gr)
-            atlas = None if sc.textures is None else pack_atlas(sc.textures)
+                accel, _ = uber._scene_accel(sc, cam, cfg, gr, cache=own)
+            atlas = None if sc.textures is None else uber.packed_atlas(sc.textures, cache=own)
             aa = uber.aa_table(W, H, S, dev) if cfg.aa_grid else None
             st = dataclasses.replace(uber.UberStatics.from_cfg(cfg, n_lights, cam), rows=h)
             per_dev[dev] = (cam, _accel_to(accel, dev), lts, atlas, aa, st)

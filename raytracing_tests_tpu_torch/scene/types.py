@@ -121,6 +121,11 @@ class Camera(_TensorStruct):
         )
 
     @classmethod
+    def orthographic(cls, position, direction, height=2.0):
+        """An orthographic camera whose view is ``height`` units tall."""
+        return cls.make(position, direction, ortho_height=height)
+
+    @classmethod
     def from_pitch_yaw(cls, position, pitch_deg, yaw_deg, **kw):
         """Pitch/yaw camera."""
         p, y = np.deg2rad(pitch_deg), np.deg2rad(yaw_deg)

@@ -15,22 +15,55 @@ import time
 import torch
 
 
+# Tiny kernels each CUDA trace launches first and last (``pad_device_trace``).
+PRIMER_LAUNCHES = 256
+DRAIN_LAUNCHES = 2048
+
+
+def pad_device_trace(launches: int = PRIMER_LAUNCHES, name: str = "trace_primer") -> None:
+    """Launch ``launches`` one-element adds on the current CUDA device and
+    wait for them, inside a range named ``name``.
+
+    On an H100 a ``torch.profiler`` session lost device records at both ends
+    (the cause of neither is known).  Late in a long process it lost those of
+    its first few kernel launches, however long after its start they came,
+    so a short block such as one cached ``render_uber`` frame showed none of
+    its kernels.  A session of thousands of launches lost those of its last
+    ones: 2 of 18 017, 335 and 864 of some 106 700.  A session that opens
+    with ``PRIMER_LAUNCHES`` of these (``trace_primer``) and closes with
+    ``DRAIN_LAUNCHES`` (``trace_drain``) loses theirs instead.  What a
+    reader wants lies between the first ``cudaDeviceSynchronize`` and the
+    last but one."""
+    with torch.profiler.record_function(name):
+        x = torch.zeros(1, device=torch.cuda.current_device())
+        for _ in range(launches):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+
+
 @contextlib.contextmanager
 def trace(log_dir: str = None):
     """Capture a ``torch.profiler`` trace of the enclosed block into
     ``log_dir`` (default: ``rt_torch_trace`` under the temporary directory)
     as ``trace_<pid>_<ns>.json``.  The trace holds CUDA activity (kernels,
-    copies) when CUDA is initialised at entry, and host activity always.
-    Yields ``log_dir``."""
+    copies) when CUDA is initialised at entry, and host activity always; a
+    CUDA session is padded at both ends (``pad_device_trace``).  Yields
+    ``log_dir``."""
     log_dir = log_dir or os.path.join(tempfile.gettempdir(), "rt_torch_trace")
     os.makedirs(log_dir, exist_ok=True)
     activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
+    cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+    if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=activities)
     prof.start()
     try:
+        if cuda:
+            pad_device_trace()
         yield log_dir
+        if cuda:
+            torch.cuda.synchronize()
+            pad_device_trace(DRAIN_LAUNCHES, "trace_drain")
     finally:
         prof.stop()
         prof.export_chrome_trace(

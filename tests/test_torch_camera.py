@@ -43,7 +43,7 @@ def test_pitch_yaw_camera_matches_jax():
 
 
 @pytest.mark.parametrize("variant", ["aa_grid", "multi_focus", "orthographic"])
-def test_unported_camera_variants_raise(variant):
+def test_camera_variants_match_jax(variant):
     """The three camera variants, which the port once refused, against the
     JAX package at the module's tolerance (rtol 1e-6 + atol 1e-6)."""
     aa = variant == "aa_grid"
@@ -57,5 +57,21 @@ def test_unported_camera_variants_raise(variant):
     for size in ((8, 4, 2), (17, 9, 5)):
         for j, t in zip(j_primary_rays(jc, *size, aa_grid=aa),
                         t_primary_rays(tc, *size, aa_grid=aa)):
+            assert tuple(t.shape) == np.asarray(j).shape
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("height", [2.0, 0.75])
+def test_orthographic_camera_matches_jax(height):
+    """``Camera.orthographic`` is ``make(..., ortho_height=height)`` in both
+    packages; its rays at the module's tolerance."""
+    args = ((0.0, 0.4, 0.8), (0.0, -0.1, -1.0))
+    jc = JCamera.orthographic(*args, height=height)
+    tc = TCamera.orthographic(*args, height=height)
+    assert float(tc.ortho_height) == height
+    for f in ("position", "direction", "fov_y", "aperture", "focus_dist", "ortho_height"):
+        np.testing.assert_array_equal(getattr(tc, f).numpy(), np.asarray(getattr(jc, f)))
+    for size in ((8, 4, 2), (17, 9, 5)):
+        for j, t in zip(j_primary_rays(jc, *size), t_primary_rays(tc, *size)):
             assert tuple(t.shape) == np.asarray(j).shape
             np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6, atol=1e-6)

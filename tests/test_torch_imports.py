@@ -66,6 +66,31 @@ def test_importing_every_module_leaves_jax_out():
     assert f"imported {len(MODULES)}" in out.stdout
 
 
+def test_kernels_package_reexports_the_sweep_entry_points_and_builds_nothing():
+    """``kernels`` exports the first-generation sweeps as the JAX package's
+    does, and importing it neither compiles nor loads a kernel (``_build``
+    stays lazy): after torch is imported, any library load or child process
+    raises."""
+    code = (
+        "import ctypes, subprocess, torch\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('a kernel was built or loaded at import')\n"
+        "ctypes.CDLL = subprocess.run = subprocess.Popen = refuse\n"
+        "from raytracing_tests_tpu_torch.kernels import (\n"
+        "    intersect_pallas, occluded_nearest_obj_pallas, surrounding_ri_pallas)\n"
+        "from raytracing_tests_tpu_torch.kernels import _build, sweep\n"
+        "assert intersect_pallas is sweep.intersect_pallas\n"
+        "assert occluded_nearest_obj_pallas is sweep.occluded_nearest_obj_pallas\n"
+        "assert surrounding_ri_pallas is sweep.surrounding_ri_pallas\n"
+        "assert not _build._LIBS and not _build.LAUNCHES\n"
+        "print('lazy')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "lazy"
+
+
 def test_sources_do_not_mention_jax_imports():
     import pathlib
 

@@ -33,17 +33,19 @@ import torch
 import jax
 
 from raytracing_tests_tpu.ops.render import RenderConfig as JRenderConfig
+from raytracing_tests_tpu.ops.render import render_samples as j_render_samples
 from raytracing_tests_tpu.ops.render import render_stats as j_render_stats
 from raytracing_tests_tpu.scene import examples as jex
 from raytracing_tests_tpu_torch.models import get_workload, list_workloads
 from raytracing_tests_tpu_torch.ops.megalanes import render_megalanes
 from raytracing_tests_tpu_torch.ops.render import (
-    RenderConfig, extract_lights, render, render_stats,
+    RenderConfig, extract_lights, render, render_samples, render_stats,
 )
 from raytracing_tests_tpu_torch.ops.workqueue import render_workqueue
 from raytracing_tests_tpu_torch.scene import examples as tex
 from raytracing_tests_tpu_torch.scene import types as ttypes
 from raytracing_tests_tpu.scene import types as jtypes
+from test_goldens import RT_KW, SPECIAL_KW
 from test_torch_sweep2g import anisotropic_scene, dielectric_scene, overlapping_glass_scene
 
 torch.set_num_threads(2)
@@ -94,6 +96,51 @@ def test_golden(name, atol):
     out = get_workload(name).run(device="cpu", **GOLDEN_KW)
     golden = np.load(os.path.join(GOLDEN_DIR, f"{name}.npy"))
     np.testing.assert_allclose(out["image"].numpy(), golden, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("name,share,ceiling", [
+    ("lights", 1.0, 2e-5), ("materials", 767 / 768, 1e-4), ("motion-blur", 1.0, 2e-5),
+    ("uv-image", 1.0, 2e-5), ("blur", 1.0, 2e-5), ("buffer", 1.0, 2e-5), ("evolve", 1.0, 2e-5),
+])
+def test_golden_of_the_other_workloads(name, share, ceiling):
+    """The seven remaining goldens at their own sizes and the JAX suite's
+    atol 2e-5 (``tests/test_goldens.py``): at least
+    ``share`` of the pixels within it, every one within ``ceiling``.
+
+    All but ``materials`` hold every pixel.  ``materials`` holds 767 of 768:
+    pixel (8, 19) is 2.59e-5 off.  Its second sample hits the 100-radius
+    ground sphere, where the refined root cancels; the golden was rendered
+    under ``jit``, where XLA fuses a*b+c, and eager evaluation rounds twice.
+    The port computes what the JAX package computes eagerly
+    (``test_the_materials_golden_pixel_is_jits_rounding``)."""
+    w = get_workload(name)
+    kw = SPECIAL_KW.get(name, RT_KW if w.category == "raytracing" else {})
+    img = torch.as_tensor(w.run(device="cpu", **kw)["image"]).numpy()
+    golden = np.load(os.path.join(GOLDEN_DIR, f"{name}.npy"))
+    assert img.shape == golden.shape
+    d = np.abs(img.astype(np.float32) - golden).max(axis=-1)
+    assert (d <= 2e-5).mean() >= share and d.max() <= ceiling, ((d <= 2e-5).mean(), d.max())
+
+
+def test_the_materials_golden_pixel_is_jits_rounding():
+    """The JAX package's own render of the ``materials`` golden with
+    ``jax.disable_jit()`` (eager, each a*b+c rounded twice, as the port
+    rounds) gives every sample within 2e-6 of the port's (1.4e-6 found), and
+    its image is off the golden at pixel (8, 19) by what the port's is
+    (within 1e-6): the pixel the port's golden test lets go is jit's."""
+    kw = dict(RT_KW, shading="materials")
+    js, jc = jex.materials_scene()
+    ts, tc = tex.materials_scene()
+    with jax.disable_jit():
+        jcol, jt = j_render_samples(js, jc, JRenderConfig(**kw).for_scene(js))
+    tcol, tt = render_samples(ts, tc, RenderConfig(**kw).for_scene(ts), device="cpu")
+    jcol, tcol = np.asarray(jcol), tcol.numpy()
+    np.testing.assert_allclose(tcol, jcol, atol=2e-6, rtol=0)
+    golden = np.load(os.path.join(GOLDEN_DIR, "materials.npy"))
+    off = [np.abs(np.sqrt(np.maximum(c, 0.0)).mean(axis=2) - golden).max(axis=-1)
+           for c in (jcol, tcol)]
+    assert off[0][8, 19] > 2e-5 and abs(off[0][8, 19] - off[1][8, 19]) <= 1e-6, (
+        off[0][8, 19], off[1][8, 19])
 
 
 @pytest.mark.parametrize("intersector", ["brute", "pallas"])
