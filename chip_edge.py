@@ -284,6 +284,32 @@ def pops_phase(name, g, parent, quick, variants):
                    f"{name} pop {k + 1}: the -fmad=false build differs from the plain version")
 
 
+@contextlib.contextmanager
+def launch_events(module, name):
+    """Every call of ``module.name`` between two CUDA events -> [(start, end)].
+    In the eager gradient step the host is slower than the card, so the card
+    waits at each launch and the pair times the kernel (and its launch
+    latency).  A graph's replay calls no wrapper: time eager steps only."""
+    pairs = []
+    real = getattr(module, name)
+
+    def timed(*args, **kw):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(*args, **kw)
+        b.record()
+        pairs.append((a, b))
+        return out
+
+    with cs.patched(module, name, timed):
+        yield pairs
+
+
+def events_ms(pairs):
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs)
+
+
 def step_phase(name, g, parent):
     """The frame's gradient step, parent, change, change, parent, with every
     launch of the instantiation timed (the wrapper's host work included, the
@@ -292,9 +318,9 @@ def step_phase(name, g, parent):
     out = {"parent": [], "change": []}
     for who in ("parent", "change", "change", "parent"):
         with parent_kernels(parent) if who == "parent" else contextlib.nullcontext():
-            with cs.launch_events(module, wrapper) as ev:
-                k = cs.grad_step(g)
-            out[who].append(dict(seconds_per_step=k["ms"] / 1e3, device_ms=cs.events_ms(ev),
+            with launch_events(module, wrapper) as ev:  # eager: a replay calls no wrapper
+                k = cs.grad_step(g, graphs=False)
+            out[who].append(dict(seconds_per_step=k["ms"] / 1e3, device_ms=events_ms(ev),
                                  launches=len(ev), loss=float(k["loss"])))
     say(phase="k3_step", kernel=name, bands=g["bands"], band_pops=g["pops"], **out)
     step_device_phase(name, g, parent)
@@ -319,7 +345,7 @@ def step_device_phase(name, g, parent):
         return real(accel, rays)
 
     with cs.patched(module, wrapper, hook):
-        cs.grad_step(g)
+        cs.grad_step(g, graphs=False)
     torch.cuda.synchronize()
     ms = {w: [min(a.elapsed_time(b) for a, b in ev) for ev in evs] for w, evs in got.items()}
     say(phase="k3_step_device", kernel=name, launches=len(ms["change"]),

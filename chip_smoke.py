@@ -27,7 +27,7 @@ workloads, the watch loop, the port's bench and the utilities.
 It prints one JSON object per phase.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the exit code
 is non-zero and no result line is printed; without CUDA it fails at once.
-The whole script takes about nine minutes on one H100.
+The whole script takes about ten minutes on one H100.
 
 Phases and their bars:
   uber_modes. the persistent kernel's two sweep schedules (per lane and
@@ -215,25 +215,49 @@ Phases and their bars:
   Then the eighth slice, the gradient path (``diff``), all at 800x450x16 d8:
   grad_frame. ``bench.py``'s ``grad_config``: ``iow_final_scene()``, colours
      ``* 0.8 + 0.1``, the queue renderer's frame as the target, 25 bands of 18
-     rows (the 300 k-sample rule), band depths probed + 2, one
-     ``banded_value_and_grad`` through the kernels (K2 behind
-     ``fastpath._winner``), once in the -fmad=false build and once with the
-     sweeps routed to their plain versions on the card (``plain_sweeps``):
-     the -fmad=false build's loss within GRAD_PRECISE's rtol 1e-5 and every
+     rows (the 300 k-sample rule), band depths probed + 2, through
+     ``banded_value_and_grad`` and the kernels (K2 behind
+     ``fastpath._winner``) on the card's path, the graphed step: each depth
+     bucket's band captured once as a CUDA graph, then replayed band by band;
+     once more in the -fmad=false build and once eagerly with the sweeps
+     routed to their plain versions on the card (``plain_sweeps``): the
+     -fmad=false build's loss within GRAD_PRECISE's rtol 1e-5 and every
      field's gradient within 1e-3 of its max |g|; the default build by
-     GRAD_DEFAULT (its reason there).  Seconds per step, forward rays and
-     seconds, band depths, peak memory, K2's launches and device time, and
-     the deepest band's device busy share (``torch.profiler``).
+     GRAD_DEFAULT (its reason there).  Seconds per step (the least of three
+     replayed steps), forward rays and seconds, band depths, peak memory,
+     K2's launches and its device time over a replayed step (from the
+     trace: a replay calls no wrapper), and the deepest band's device busy
+     share (``torch.profiler`` over a replay of its graph).
+  grad_graph. The same steps: the graphed step against the eager static
+     step (``graphs=False``: the same static bands, no graph) by GRAD_GRAPH
+     in both builds; the capturing step's seconds, three replayed steps'
+     (min and mean), the eager static step's; the deepest band graphed and
+     eager (wall by the host clock; from one profiled run the card's busy
+     time as the union of its kernel intervals over their span, the idle
+     share of that span, the kernels that take the most); peak memory of
+     both; the launch counts of a replayed step equal the eager step's and
+     one sweep a pop of every band (``_build.LaunchRecord``), and the trace
+     of a replayed step holds that many records of the port's kernels (in
+     every graphed phase); one eager static band under
+     ``torch.cuda.set_sync_debug_mode("error")`` raises nothing.
   grad_soft_frame, grad_generic_soft, grad_motion_soft. The same frame with
      ``soft_edges`` 0.03 (K2's EDGE instantiation); ``bvh_grid_scene(side=32)``
      with jittered positions, soft (K3's EDGE instantiation) and hard (K3
      behind ``_winner``); ``motion_blur_scene()`` and a moving
-     ``groups_scene()``, soft (the two moving EDGE instantiations): finite
-     gradients, each step running its one sweep instantiation only; each
-     step's sweep launches timed by CUDA events (device total and count); on
+     ``groups_scene()``, soft (the two moving EDGE instantiations), each
+     graphed (captured, then one replayed step timed): finite gradients,
+     each step running its one sweep instantiation only, once a pop; each
+     step's sweep device time from the trace of one more replayed step; on
      bvh1k K3's bound summed over the hard step's launches from their own
-     counters and its SIMT efficiency (live rows / lane slots) over each step
-     at the default coop_min and at 1.
+     counters and its SIMT efficiency (live rows / lane slots) over each
+     step at the default coop_min and at 1 (those two eagerly: every launch
+     timed in each schedule).
+  grad_graph_moved. Every position moved by up to MOVE after the bvh1k
+     steps captured their graphs (soft and hard), and after two Adam steps
+     of grad_config that train positions: the replay over the new tables
+     against a fresh eager static step at the same parameters by GRAD_GRAPH,
+     no capture made, the objects' table (and with soft edges K3's block
+     table) changed in the graphs' storage.
   edge_vs_plain. Each EDGE instantiation against its plain version on the
      rays of its frame's first two pops in the middle band: the -fmad=false
      build with t, obj and edge identical on >= EDGE_PRECISE (99.9 %), the
@@ -244,9 +268,10 @@ Phases and their bars:
      printed beside it; for K3 the share of (live ray, row) pairs evaluated
      for rays that hit and missed.
   train_steps. ``make_train_step`` (Adam, colour trainable, auto_pops) three
-     steps of grad_config: the loss falls; a checkpoint after them restores
-     parameters and Adam's state bit for bit, and the next step's loss from
-     both is equal.
+     steps of grad_config, the first capturing the step's graphs, the next
+     replaying them: the loss falls; the graphs are captured once; a
+     checkpoint after them restores parameters and Adam's state bit for bit,
+     and the next step's loss from both is equal.
   Then the thirteenth slice, the row-sharded mesh (``parallel/``) on virtual
   shards of this card (``make_mesh(devices=[card] * n)``: each shard its own
   launches with its own row map):
@@ -2018,7 +2043,33 @@ SESSIONS = []  # what each profiler session saw (``device_session``)
 
 def device_session(fn, what=None):
     """``fn()`` under a torch.profiler session of device activity -> {kernel
-    or copy name: device ms} of what ``fn`` launched.
+    or copy name: device ms} of what ``fn`` launched (``session_records``)."""
+    out = collections.defaultdict(float)
+    for e in session_records(fn, what or sys._getframe(1).f_code.co_name):
+        out[e["name"]] += e.get("dur", 0) / 1e3
+    return dict(out)
+
+
+def busy_and_span(records):
+    """The union of the device records' intervals and the span from the
+    first one's start to the last one's end, in ms.  Kernels of a CUDA graph
+    can run at once, so the union, not the sum of their durations, is the
+    time the card was busy."""
+    busy, start, end = 0.0, None, None
+    for e in sorted(records, key=lambda e: e["ts"]):
+        lo, hi = e["ts"], e["ts"] + e.get("dur", 0)
+        start = lo if start is None else start
+        if end is None or lo >= end:
+            busy += hi - lo
+        elif hi > end:
+            busy += hi - end
+        end = hi if end is None else max(end, hi)
+    return busy / 1e3, (end - start) / 1e3 if records else 0.0
+
+
+def session_records(fn, what):
+    """``fn()`` under a torch.profiler session of device activity -> the
+    device records (the trace's events) of what ``fn`` launched.
 
     The session is padded at both ends as ``utils.profiling.trace`` pads its
     own (``pad_device_trace``): late in this script an unpadded session lost
@@ -2059,14 +2110,11 @@ def device_session(fn, what=None):
     launches = sorted((e for e in mine if "LaunchKernel" in e["name"]), key=lambda e: e["ts"])
     lost = [k for k, e in enumerate(launches) if e["args"]["correlation"] not in seen]
     SESSIONS.append(dict(
-        what=what or sys._getframe(1).f_code.co_name, kernel_launches=len(launches),
+        what=what, kernel_launches=len(launches),
         records_lost=len(lost), lost_first_index=lost[0] if lost else None,
         lost_last_index=lost[-1] if lost else None, port_launches=port_launches,
         port_kernel_records=sum(1 for e in records if PORT_KERNEL.search(e["name"]))))
-    out = collections.defaultdict(float)
-    for e in records:
-        out[e["name"]] += e.get("dur", 0) / 1e3
-    return dict(out)
+    return records
 
 
 def bvh_queue_frame(scene, camera, cfg, ou):
@@ -2093,7 +2141,10 @@ def bvh_queue_frame(scene, camera, cfg, ou):
                launches_per_frame=launches[-1], device_busy_ms=busy,
                device_idle_share=1.0 - busy / frame_ms, k5_profiled_ms=k5_ms,
                k5_share_of_frame=k5_ms / frame_ms, kernels_traced=len(by),
-               k5_by_launch=k5, parity_vs_render_uber=c)
+               top_kernels_ms={name[:120]: ms for name, ms in
+                               sorted(by.items(), key=lambda kv: -kv[1])[:12]},
+               k5_by_launch=k5, parity_vs_render_uber=c,
+               earlier_seconds_per_frame_min=EARLIER_FRAME_SECONDS["bvh_queue_frame"])
     say(phase="bvh_queue_frame", **res)
     check_parity("bvh queue frame against render_uber", c)
     require(all(set(got) == {"sweep_grouped"} and got["sweep_grouped"] > 0 for got in launches),
@@ -2227,6 +2278,18 @@ def frame_numbers(what, times, out, launches, by, kernels):
                              for k, sub in kernels.items()})
 
 
+# The forward frames through ``trace_lanes`` when the queue renderer's pops
+# read the host about six times each (dynamic compaction), as PERF.md section
+# 5 records them on this card (NVIDIA H100 80GB HBM3, 700.00 W): each phase
+# prints its time beside them.  The static queue reads one boolean a pop.
+EARLIER_FRAME_SECONDS = {
+    "bvh_queue_frame": (0.17497, 0.18023),
+    "dense_generic_frame": (0.19887,),
+    "glass_grid_frame": (0.44670,),
+    "progressive_frame": (9.300579,),
+}
+
+
 def dense_generic_frame(scene, camera, cfg, oq_k5):
     """Phase dense_generic_frame: bvh1k's scene and size through the queue
     renderer with pallas_groups=0, the dense sweep over the whole table: one
@@ -2243,7 +2306,8 @@ def dense_generic_frame(scene, camera, cfg, oq_k5):
     k4 = k4_on_path(render, "nearest")["sweep_nearest"]
     res = frame_numbers("bvh_grid_scene(side=32), pallas_groups=0", times, out, launches,
                         device_session(render), dict(sweep_nearest="nearest_kernel"))
-    res.update(sweep_nearest=k4, parity_vs_bvh_queue_frame=c)
+    res.update(sweep_nearest=k4, parity_vs_bvh_queue_frame=c,
+               earlier_seconds_per_frame_min=EARLIER_FRAME_SECONDS["dense_generic_frame"])
     with launches_of(sweep, "_launch_nearest") as pops:
         render_stats(scene, camera, cfg0)
     say(phase="dense_generic_frame", **res)
@@ -2280,7 +2344,8 @@ def glass_grid_frame(dev):
                         out, launches, device_session(render),
                         dict(sweep_ri="ri_kernel", sweep_grouped="grouped_kernel"))
     res.update(got, parity_vs_render_uber=c, render_uber_launches=launches_u,
-               glass_rows=int((scene.refractivity > 0.002).sum()))
+               glass_rows=int((scene.refractivity > 0.002).sum()),
+               earlier_seconds_per_frame_min=EARLIER_FRAME_SECONDS["glass_grid_frame"])
     with launches_of(sweep, "_launch_ri") as pops:
         render_stats(scene, camera, cfg)
     say(phase="glass_grid_frame", **res)
@@ -3884,6 +3949,14 @@ FLOPS_PER_EDGE_BOUND = 30
 # the loss) while the appearance fields stay within 1e-3: held to twice that.
 GRAD_PRECISE = dict(loss_rtol=1e-5, field_of_max=1e-3)
 GRAD_DEFAULT = dict(loss_rtol=1e-2, field_of_max=0.25)
+# The graphed step against the eager static step in the same build: the same
+# kernels on the same inputs, so only the order of the atomic adds that
+# gather each object's gradient differs (found: equal loss, every field
+# within 1.5e-5 of its max |g| in either build, over four runs).
+GRAD_GRAPH = dict(loss_rtol=1e-6, field_of_max=1e-4)
+# How far moved_replay moves each object's position after a capture.
+MOVE = 0.05
+POSITION_LR = 2e-3  # Adam's learning rate where train_steps trains positions
 EDGE_PRECISE = 0.999  # share of identical t, obj and edge, -fmad=false build
 # Default-build bars of the silhouette instantiations by pop: the first pop's
 # are NEAREST_BARS.  The gradient path spawns its children from the
@@ -3921,31 +3994,6 @@ def plain_sweeps():
 
 
 @contextlib.contextmanager
-def launch_events(module, name):
-    """Every call of ``module.name`` between two CUDA events -> [(start, end)].
-    Each launch of the gradient path follows a host read, so the card waits
-    for it and the pair times the kernel (and its launch latency)."""
-    pairs = []
-    real = getattr(module, name)
-
-    def timed(*args, **kw):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = real(*args, **kw)
-        b.record()
-        pairs.append((a, b))
-        return out
-
-    with patched(module, name, timed):
-        yield pairs
-
-
-def events_ms(pairs):
-    torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in pairs)
-
-
-@contextlib.contextmanager
 def captured(module, name, n):
     """The (accel, rays) of the first ``n`` calls of the sweep wrapper
     ``module.name``."""
@@ -3978,15 +4026,110 @@ def grad_inputs(dev, scene_cam, perturb, soft=0.0):
                 bands=bands, pops=[q + diff.train.POPS_MARGIN for q in pops])
 
 
-def grad_step(g):
-    """One banded_value_and_grad of the frame -> its numbers and results."""
+def grad_step(g, graphs=True, replays=0):
+    """Steps of a new ``banded_value_and_grad`` of the frame -> its numbers
+    and results.  The first call probes the slots of the lanes that read the
+    surrounding RI and, graphed (the card's path), captures each depth
+    bucket's band as a CUDA graph: ``ms``, ``launches`` and
+    ``peak_memory_bytes`` are that call's.  ``replays`` more calls follow
+    (graphed: replays of those graphs), each with the counts set to 0 before
+    it: ``step_ms``, and ``step_launches`` of the last; ``loss`` and
+    ``grads`` are the last call's.  ``vg`` is the function, kept for
+    ``step_device`` and ``band_device_share``."""
     vg = diff.banded_value_and_grad(g["pert"], g["cam"], g["cfg"], grad_bands=g["bands"],
-                                    band_pops=g["pops"])
+                                    band_pops=g["pops"], graphs=graphs)
     _build.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     ms, (loss, grads) = timed_ms(lambda: vg(g["p"], g["target"]))
-    return dict(ms=ms, loss=loss, grads=grads, launches=dict(_build.LAUNCHES),
-                peak_memory_bytes=torch.cuda.max_memory_allocated())
+    out = dict(ms=ms, loss=loss, grads=grads, launches=dict(_build.LAUNCHES),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(), step_ms=[],
+               step_launches=None, vg=vg)
+    for _ in range(replays):
+        _build.reset_launches()
+        ms_r, (loss, grads) = timed_ms(lambda: vg(g["p"], g["target"]))
+        out.update(loss=loss, grads=grads, step_launches=dict(_build.LAUNCHES))
+        out["step_ms"].append(ms_r)
+    out["seconds_per_step"] = min(out["step_ms"] or [ms]) / 1e3
+    return out
+
+
+def step_sweeps(k):
+    """The sweep launches one step of ``k``'s function makes: every pop of
+    every band launches its one sweep once (the scan runs its bucket's
+    ceiling)."""
+    vg = k["vg"]
+    return sum(c.pops * len(idxs) for c, (_, idxs) in zip(vg.bucket_cfgs, vg.buckets))
+
+
+# launch counter -> the kernel's name in a trace (the instantiation's template
+# arguments: MOTION, EDGE)
+TRACE_NAMES = {"sweep2": "::sweep2_kernel<false, false>", "sweep2_m": "::sweep2_kernel<true, false>",
+               "sweep2_edge": "::sweep2_kernel<false, true>",
+               "sweep2_m_edge": "::sweep2_kernel<true, true>", "sweep2g": "::sweep2g_kernel<",
+               "sweep2g_edge": "::sweep2g_edge_kernel<false>",
+               "sweep2g_m_edge": "::sweep2g_edge_kernel<true>"}
+
+
+def traced_ms(by, counter):
+    """Device ms of the kernel of launch counter ``counter`` in a session."""
+    return sum(v for name, v in by.items() if TRACE_NAMES[counter] in name)
+
+
+def step_device(k, g, what):
+    """One more step of ``k``'s function (graphed: a replay of every band)
+    under ``device_session`` -> {kernel or copy: device ms}.  A replay calls
+    no wrapper, so its kernels are timed from the trace, not by events, and
+    the launch counts it reports are copied from its capture
+    (``_build.LaunchRecord``): the trace must hold one record of the port's
+    kernels for each sweep the step launches (``step_sweeps``)."""
+    by = device_session(lambda: k["vg"](g["p"], g["target"]), what)
+    got, want = SESSIONS[-1]["port_kernel_records"], step_sweeps(k)
+    require(got == want, f"{what}: the trace of the step holds {got} records of the port's "
+            f"kernels, {want} sweeps expected: {SESSIONS[-1]}")
+    return by
+
+
+def accel_tables(vg):
+    """Copies of the tables the graphs of ``vg``'s last step read: the
+    objects' table, K2's live rows and K3's silhouette block table (None
+    where the accel has none)."""
+    inner = vg.last.inner
+    live, blocks = inner.__dict__.get("_live_rows"), inner.__dict__.get("_edge_blocks")
+    return dict(otab=inner.otab.clone(), live_rows=None if live is None else live[1].clone(),
+                edge_blocks=None if blocks is None else blocks[1][0].clone())
+
+
+def moved_replay(k, g, what, seed):
+    """Every position of ``g``'s parameters moved by up to MOVE after ``k``'s
+    function captured its graphs: its next step (a replay over the new
+    accel, copied into the graphs' tables) against a fresh eager static step
+    (``graphs=False``) at the same parameters, by GRAD_GRAPH.  The replay
+    must capture nothing and the graphs' objects' table (and, with soft
+    edges, K3's block table) must have changed: a stale table would give the
+    captured step's answer."""
+    vg = k["vg"]
+    captures, before = vg.counts["captures"], accel_tables(vg)
+    rng = np.random.default_rng(seed)
+    pos = g["p"].position
+    dpos = torch.from_numpy(rng.uniform(-MOVE, MOVE, tuple(pos.shape)).astype(np.float32))
+    p = g["p"].replace(position=pos + dpos.to(pos.device))
+    loss, grads = vg(p, g["target"])
+    after = accel_tables(vg)
+    eager = diff.banded_value_and_grad(g["pert"], g["cam"], g["cfg"], grad_bands=g["bands"],
+                                       band_pops=g["pops"], graphs=False)
+    loss_e, grads_e = eager(p, g["target"])
+    res = compare_grads(dict(loss=loss, grads=grads), dict(loss=loss_e, grads=grads_e))
+    res.update(what=what, move=MOVE, captures=vg.counts["captures"] - captures,
+               recomputes=vg.counts["recomputes"],
+               tables_changed={n: None if before[n] is None else not torch.equal(before[n], after[n])
+                               for n in before})
+    say(phase="grad_graph_moved", **res)
+    check_grads(f"grad_graph_moved, {what}: the replay over moved positions against the eager "
+                f"static step", res, GRAD_GRAPH)
+    require(res["captures"] == 0 and res["tables_changed"]["otab"]
+            and res["tables_changed"]["edge_blocks"] in (None, True),
+            f"grad_graph_moved, {what}: a replay over new tables, no capture: {res}")
+    return res
 
 
 def compare_grads(got, want):
@@ -4012,38 +4155,32 @@ def check_grads(what, res, bars):
             f"{what}: the gradient step disagrees with its plain version: {res} (bars {bars})")
 
 
-def band_device_share(g, b):
-    """Band ``b`` of the frame's gradient step: its wall time by the host
-    clock, then once more under torch.profiler (device activity only) for the
-    card's busy time: the idle share of the unprofiled wall time, and the
-    sweep kernels' share."""
-    from raytracing_tests_tpu_torch.diff.train import _buckets, _diff_cfg, _grads_of, _leaves
-    from raytracing_tests_tpu_torch.ops.render import _build_accel, finalize, trace_lanes
-
-    cfg = _diff_cfg(g["cfg"])
-    ceil = next(c for c, idxs in _buckets(g["pops"], g["bands"], cfg.pops) if b in idxs)
-    cfg = dataclasses.replace(cfg, max_pops=ceil)
-    H, W, S = cfg.height, cfg.width, cfg.spp
-    h = H // g["bands"]
-    lo, ld, ltr, ls = _lane_inputs(g["cam"], dataclasses.replace(cfg, aa_grid=False))
-    sl = slice(b * h * W * S, (b + 1) * h * W * S)
-    leaves = _leaves(g["p"], lo.device)
-    scene = diff.apply_params(g["scene"], leaves)
-
-    def run():
-        accel = _build_accel(scene, cfg)
-        color, pt, _, _ = trace_lanes(scene, None, cfg, lo[sl], ld[sl], ltr[sl], ls[sl], accel)
-        img = finalize(color.reshape(h, W, S, 3), pt.reshape(h, W, S), cfg)["image"]
-        _grads_of(torch.sum((img - g["target"][b * h:(b + 1) * h]) ** 2), leaves)
-
+def band_device_share(k, b):
+    """Band ``b`` of the last step of ``k``'s function once more (graphed:
+    its bucket's graph replayed on the band's lanes; eager: the band's static
+    trace and gradient): its wall time by the host clock around a
+    synchronise, then once more under a profiler session, whose device
+    records give the card's busy time (the union of their intervals) and the
+    span from the first one's start to the last one's end: the idle share is
+    the span's share the card did not work.  ``overlap_ms``: how much the
+    summed durations exceed the union (kernels of a graph that ran at once).
+    Also the sweep kernels' time and the kernels that took the most."""
+    vg = k["vg"]
+    run = lambda: vg.last.band(b)  # noqa: E731
     run()
-    wall, _ = timed_ms(run)  # the host clock, unprofiled
-    by = device_session(run)
-    busy = sum(by.values())
-    sweeps = sum(v for k, v in by.items() if "sweep2" in k)
-    return dict(band=b, pops=ceil, wall_ms=wall, device_busy_ms=busy,
-                device_idle_share=1.0 - busy / wall, sweep_kernels_ms=sweeps,
-                kernels_traced=len(by))
+    wall, _ = timed_ms(run)
+    records = session_records(run, "grad_band")
+    by = collections.defaultdict(float)
+    for e in records:
+        by[e["name"]] += e.get("dur", 0) / 1e3
+    busy, span = busy_and_span(records)
+    sweeps = sum(v for name, v in by.items() if "sweep2" in name)
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:8]
+    return dict(band=b, pops=vg.bucket_cfgs[vg.bucket_of[b]].pops, wall_ms=wall,
+                span_ms=span, device_busy_ms=busy, device_ms_sum=sum(by.values()),
+                overlap_ms=sum(by.values()) - busy, device_idle_share=1.0 - busy / span,
+                sweep_kernels_ms=sweeps, kernels_traced=len(by),
+                top_kernels_ms={name[:120]: ms for name, ms in top})
 
 
 def compare_edge(got, want, rays):
@@ -4227,8 +4364,8 @@ def k3_coop_sweep(what, g, name):
                       else k3_nearest_bound(accel, rays.shape[1], st)[0])
         return out
 
-    with patched(module, wrapper, hook):
-        grad_step(g)
+    with patched(module, wrapper, hook):  # eager: a replay would call no wrapper
+        grad_step(g, graphs=False)
     res = coop_sweep_table(calls, k3_simt)
     for cm, got in calls.items():
         ms = [min(a.elapsed_time(b) for a, b in events) for events, _ in got]
@@ -4311,32 +4448,92 @@ def grad_phases(dev, k3_canary):
     paths = {}
     recolour = lambda s: s.replace(color=s.color * 0.8 + 0.1)
 
-    # grad_frame: bench.py's grad_config, through the kernels, the -fmad=false
-    # build and the plain versions
+    # grad_frame and grad_graph: bench.py's grad_config, the graphed step
+    # (captured, then replayed), the eager static step, both builds, and the
+    # plain versions
     g = grad_inputs(dev, examples.iow_final_scene(), recolour)
-    with launch_events(sweep2, "_sweep2") as ev:
-        k = grad_step(g)
-    k2_ms, n_k2 = events_ms(ev), len(ev)
+    k = grad_step(g, replays=3)
+    ke = grad_step(g, graphs=False, replays=1)
     with _build.precise():
-        kp = grad_step(g)
+        kp = grad_step(g, replays=1)
+        kpe = grad_step(g, graphs=False)
     with plain_sweeps():
-        pl = grad_step(g)
+        pl = grad_step(g, graphs=False)
     default, precise = compare_grads(k, pl), compare_grads(kp, pl)
-    share = band_device_share(g, max(range(g["bands"]), key=lambda b: g["pops"][b]))
+    vs_eager, precise_vs_eager = compare_grads(k, ke), compare_grads(kp, kpe)
+    deepest = max(range(g["bands"]), key=lambda b: g["pops"][b])
+    share = band_device_share(k, deepest)
+    share_eager = band_device_share(ke, deepest)
+    by = step_device(k, g, "grad_graph_step")
+    k2_ms, n_k2 = traced_ms(by, "sweep2"), step_sweeps(k)
+    # a long session can lose the device records of its last launches: the
+    # port's kernels the trace holds, against the step's K2 launches
+    k2_records = SESSIONS[-1]["port_kernel_records"]
+    # the eager static band reads nothing on the host: no synchronising call
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ke["vg"].last.band(deepest)
+    except RuntimeError as err:
+        sync_free = str(err)
+    else:
+        sync_free = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     frame = dict(size=size_of(GRAD), bands=g["bands"], band_pops=g["pops"],
-                 seconds_per_step=k["ms"] / 1e3, plain_seconds_per_step=pl["ms"] / 1e3,
+                 seconds_per_step=k["seconds_per_step"],
+                 eager_seconds_per_step=ke["seconds_per_step"],
+                 plain_seconds_per_step=pl["ms"] / 1e3,
                  forward_rays=g["rays"], forward_seconds=g["forward_ms"] / 1e3,
-                 step_over_forward=k["ms"] / g["forward_ms"],
-                 mrays_equiv_per_s=g["rays"] / (k["ms"] / 1e3) / 1e6,
+                 step_over_forward=k["seconds_per_step"] * 1e3 / g["forward_ms"],
+                 mrays_equiv_per_s=g["rays"] / k["seconds_per_step"] / 1e6,
                  probe_seconds=g["probe_ms"] / 1e3, peak_memory_bytes=k["peak_memory_bytes"],
-                 launches=k["launches"], k2_launches=n_k2, k2_device_ms=k2_ms,
+                 launches=k["step_launches"], k2_launches=n_k2, k2_device_ms=k2_ms,
                  deepest_band=share, default_build=default, precise_build=precise)
     say(phase="grad_frame", **frame)
+    graphed = dict(
+        size=size_of(GRAD), capture_step_seconds=k["ms"] / 1e3,
+        replay_step_seconds=[x / 1e3 for x in k["step_ms"]],
+        replay_step_seconds_min=min(k["step_ms"]) / 1e3,
+        replay_step_seconds_mean=sum(k["step_ms"]) / len(k["step_ms"]) / 1e3,
+        eager_static_step_seconds=ke["seconds_per_step"],
+        eager_static_first_call_seconds=ke["ms"] / 1e3,
+        eager_over_graphed=ke["seconds_per_step"] / k["seconds_per_step"],
+        precise_capture_step_seconds=kp["ms"] / 1e3,
+        precise_replay_step_seconds=kp["seconds_per_step"],
+        peak_memory_bytes_graphed=k["peak_memory_bytes"],
+        peak_memory_bytes_eager=ke["peak_memory_bytes"],
+        counts=dict(k["vg"].counts), ri_slots=k["vg"].ri_slots,
+        buckets=[(c.pops, list(idxs)) for c, (_, idxs) in zip(k["vg"].bucket_cfgs,
+                                                               k["vg"].buckets)],
+        capture_step_launches=k["launches"], replay_step_launches=k["step_launches"],
+        eager_step_launches=ke["step_launches"], sweeps_per_step=n_k2,
+        k2_device_ms=k2_ms, k2_records_in_trace=k2_records,
+        device_ms_of_a_replay_step=sum(by.values()),
+        deepest_band=share, deepest_band_eager=share_eager,
+        eager_band_sync_free=sync_free,
+        graphed_vs_eager=vs_eager, precise_graphed_vs_eager=precise_vs_eager,
+        default_build=default, precise_build=precise)
+    say(phase="grad_graph", **graphed)
     check_grads("grad_frame, -fmad=false build", precise, GRAD_PRECISE)
     check_grads("grad_frame, default build", default, GRAD_DEFAULT)
-    require(set(k["launches"]) == {"sweep2"} and k["launches"]["sweep2"] == n_k2 > 0,
-            f"grad_frame: the step runs K2 and nothing else: {k['launches']}")
-    paths["grad_frame"] = k["launches"]
+    check_grads("grad_graph, -fmad=false build against the eager static step",
+                precise_vs_eager, GRAD_GRAPH)
+    check_grads("grad_graph, default build against the eager static step", vs_eager,
+                GRAD_GRAPH)
+    require(k["step_launches"] == ke["step_launches"] == {"sweep2": n_k2} and n_k2 > 0,
+            f"grad_graph: a replayed step counts the eager step's launches, K2 only: "
+            f"{k['step_launches']} {ke['step_launches']} ({n_k2} expected)")
+    require(set(k["launches"]) == {"sweep2"} and k["vg"].counts["captures"] == 1,
+            f"grad_graph: the capturing step runs K2 alone, one capture: {k['launches']} "
+            f"{dict(k['vg'].counts)}")
+    require(sync_free is True, f"grad_graph: the eager static band synchronised: {sync_free}")
+    require(k2_ms > 0 and k2_records == n_k2 and share["device_busy_ms"] > 0,
+            f"grad_graph: the trace of a replayed step holds its K2 launches: {k2_records} of "
+            f"{n_k2}, {share}")
+    paths["grad_frame"] = k["step_launches"]
+    paths["grad_graph_capture"] = k["launches"]
+    for x in (k, ke, kp, kpe, pl):
+        x.pop("vg").release()
     edge_frames = {}
 
     # grad_soft_frame: the same frame with soft edges (K2's silhouette
@@ -4346,17 +4543,20 @@ def grad_phases(dev, k3_canary):
     pops_ms, pops = timed_ms(lambda: diff.probe_band_pops(gs["pert"], gs["cam"], gs["cfg"],
                                                           gs["bands"]))
     gs.update(pops=[q + diff.train.POPS_MARGIN for q in pops], probe_ms=pops_ms)
-    with launch_events(sweep2, "_sweep2_edge") as ev:
-        ks = grad_step(gs)
+    ks = grad_step(gs, replays=1)
+    by = step_device(ks, gs, "grad_soft_step")
     res = dict(size=size_of(GRAD), soft_edges=SOFT, band_pops=gs["pops"],
-               seconds_per_step=ks["ms"] / 1e3, probe_seconds=pops_ms / 1e3,
+               seconds_per_step=ks["seconds_per_step"], capture_step_seconds=ks["ms"] / 1e3,
+               probe_seconds=pops_ms / 1e3,
                loss=float(ks["loss"]), peak_memory_bytes=ks["peak_memory_bytes"],
-               launches=ks["launches"], edge_device_ms=events_ms(ev), edge_launches=len(ev),
+               launches=ks["step_launches"], edge_device_ms=traced_ms(by, "sweep2_edge"),
+               edge_launches=step_sweeps(ks), device_ms_of_a_replay_step=sum(by.values()),
                finite=all(bool(torch.isfinite(v).all()) for _, v in ks["grads"].items()))
     say(phase="grad_soft_frame", **res)
-    require(res["finite"] and set(ks["launches"]) == {"sweep2_edge"},
+    require(res["finite"] and ks["step_launches"] == {"sweep2_edge": res["edge_launches"]},
             f"grad_soft_frame: {res}")
-    paths["grad_soft_frame"] = ks["launches"]
+    paths["grad_soft_frame"] = ks["step_launches"]
+    ks.pop("vg").release()
     edge_frames["sweep2_edge"] = gs
 
     # grad_generic_soft: bvh1k, position trained, with and without soft edges
@@ -4367,39 +4567,46 @@ def grad_phases(dev, k3_canary):
         return s.replace(position=s.position + dpos.to(s.position.device))
 
     gg = grad_inputs(dev, examples.bvh_grid_scene(side=32), jitter, soft=SOFT)
-    with launch_events(sweep2g, "_sweep2g_edge") as ev:
-        kg = grad_step(gg)
+    kg = grad_step(gg, replays=1)
+    by_soft = step_device(kg, gg, "grad_generic_soft_step")
     hard = dict(gg, cfg=dataclasses.replace(gg["cfg"], soft_edges=0.0))
-    with launch_events(sweep2g, "_sweep2g") as ev_hard:
-        kh = grad_step(hard)
-    hard_ms = events_ms(ev_hard)
-    # both steps once more with every K3 launch timed in each coop_min
+    kh = grad_step(hard, replays=1)
+    by_hard = step_device(kh, hard, "grad_generic_step")
+    hard_ms = traced_ms(by_hard, "sweep2g")
+    # both steps once more, eagerly, with every K3 launch timed in each coop_min
     k3_hard = k3_coop_sweep("hard generic step", hard, "sweep2g")
     k3_soft = k3_coop_sweep("generic soft step", gg, "sweep2g_edge")
     res = dict(size=size_of(GRAD), objects=int(gg["scene"].num_valid), soft_edges=SOFT,
-               band_pops=gg["pops"], seconds_per_step=kg["ms"] / 1e3,
-               edge_device_ms=events_ms(ev), edge_launches=len(ev),
+               band_pops=gg["pops"], seconds_per_step=kg["seconds_per_step"],
+               capture_step_seconds=kg["ms"] / 1e3,
+               edge_device_ms=traced_ms(by_soft, "sweep2g_edge"), edge_launches=step_sweeps(kg),
                edge_simt_efficiency=k3_soft["simt_efficiency"],
                edge_simt_efficiency_per_lane_mode=k3_soft["simt_efficiency_per_lane_mode"],
-               hard_seconds_per_step=kh["ms"] / 1e3, hard_device_ms=hard_ms,
-               hard_k3_launches=len(ev_hard), hard_bound_ms=k3_hard["bound_ms_sum"],
+               hard_seconds_per_step=kh["seconds_per_step"],
+               hard_capture_step_seconds=kh["ms"] / 1e3, hard_device_ms=hard_ms,
+               hard_k3_launches=step_sweeps(kh), hard_bound_ms=k3_hard["bound_ms_sum"],
                hard_ms_above_bound=hard_ms - k3_hard["bound_ms_sum"],
                hard_simt_efficiency=k3_hard["simt_efficiency"],
                hard_simt_efficiency_per_lane_mode=k3_hard["simt_efficiency_per_lane_mode"],
                loss=float(kg["loss"]),
                hard_loss=float(kh["loss"]), peak_memory_bytes=kg["peak_memory_bytes"],
-               launches=kg["launches"], hard_launches=kh["launches"],
+               launches=kg["step_launches"], hard_launches=kh["step_launches"],
                position_grad_max=float(kg["grads"].position.abs().max()),
                finite=all(bool(torch.isfinite(v).all())
                           for x in (kg, kh) for _, v in x["grads"].items()))
     say(phase="grad_generic_soft", **res)
-    require(res["finite"] and set(kg["launches"]) == {"sweep2g_edge"}
-            and set(kh["launches"]) == {"sweep2g"} and res["position_grad_max"] > 0.0,
-            f"grad_generic_soft: {res}")
-    paths["grad_generic_soft"] = kg["launches"]
-    paths["grad_generic"] = kh["launches"]
+    require(res["finite"] and kg["step_launches"] == {"sweep2g_edge": res["edge_launches"]}
+            and kh["step_launches"] == {"sweep2g": res["hard_k3_launches"]}
+            and res["position_grad_max"] > 0.0, f"grad_generic_soft: {res}")
+    paths["grad_generic_soft"] = kg["step_launches"]
+    paths["grad_generic"] = kh["step_launches"]
+    moved_replay(kg, gg, "bvh1k, soft edges (K3's silhouette instantiation)", SEED + 1)
+    moved_replay(kh, hard, "bvh1k, hard edges (K3)", SEED + 2)
+    kg.pop("vg").release()
+    kh.pop("vg").release()
     edge_frames["sweep2g_edge"] = gg
-    at_hard_step = dict(launches=len(ev_hard), device_ms=hard_ms, bound_ms=k3_hard["bound_ms_sum"],
+    at_hard_step = dict(launches=res["hard_k3_launches"], device_ms=hard_ms,
+                        bound_ms=k3_hard["bound_ms_sum"],
                         ms_above_bound=hard_ms - k3_hard["bound_ms_sum"],
                         coop_min_sweep=k3_hard, at_soft_step_edge=k3_soft)
 
@@ -4407,17 +4614,19 @@ def grad_phases(dev, k3_canary):
     for name, scene_cam in (("sweep2_m_edge", examples.motion_blur_scene()),
                             ("sweep2g_m_edge", moving_groups_scene())):
         gm = grad_inputs(dev, scene_cam, jitter, soft=SOFT)
-        module, wrapper, _, _ = EDGE_KERNELS[name]
-        with launch_events(module, wrapper) as ev:
-            km = grad_step(gm)
+        km = grad_step(gm, replays=1)
+        by = step_device(km, gm, "grad_motion_soft_step")
         res = dict(kernel=name, size=size_of(GRAD), band_pops=gm["pops"],
-                   seconds_per_step=km["ms"] / 1e3, loss=float(km["loss"]),
-                   launches=km["launches"], edge_device_ms=events_ms(ev),
-                   edge_launches=len(ev),
+                   seconds_per_step=km["seconds_per_step"],
+                   capture_step_seconds=km["ms"] / 1e3, loss=float(km["loss"]),
+                   launches=km["step_launches"], edge_device_ms=traced_ms(by, name),
+                   edge_launches=step_sweeps(km),
                    finite=all(bool(torch.isfinite(v).all()) for _, v in km["grads"].items()))
         say(phase="grad_motion_soft", **res)
-        require(res["finite"] and set(km["launches"]) == {name}, f"grad_motion_soft: {res}")
-        paths[f"grad_motion_soft_{name}"] = km["launches"]
+        require(res["finite"] and km["step_launches"] == {name: res["edge_launches"]},
+                f"grad_motion_soft: {res}")
+        paths[f"grad_motion_soft_{name}"] = km["step_launches"]
+        km.pop("vg").release()
         edge_frames[name] = gm
 
     # sweep_modes, K3's part: its schedules bit for bit on the canary's lanes
@@ -4464,6 +4673,7 @@ def grad_phases(dev, k3_canary):
         losses.append(float(loss))
         times.append(ms / 1e3)
     launches_train = dict(_build.LAUNCHES)
+    counts_train = dict(step.value_and_grad().counts)
     with tempfile.TemporaryDirectory() as tmp:
         checkpoint.save_train_state(tmp, st, st.step)
         back, at = checkpoint.restore_train_state(tmp, diff.TrainState.create(g["pert"], opt))
@@ -4473,14 +4683,56 @@ def grad_phases(dev, k3_canary):
     _, l_on = step(st, g["target"])
     _, l_back = step(back, g["target"])
     res = dict(size=size_of(GRAD), losses=losses, seconds_per_step=times,
+               capture_step_seconds=times[0], graphs=counts_train,
                band_pops=step.pops_state["band_pops"], launches=launches_train,
                checkpoint_step=at, restored_params_equal=same, restored_adam_equal=same_adam,
                next_loss=float(l_on), next_loss_from_restored=float(l_back))
     say(phase="train_steps", **res)
     require(losses[2] < losses[0] and losses[1] < losses[0], f"train_steps: {res}")
+    require(counts_train.get("captures") == 1 + counts_train.get("recomputes", 0),
+            f"train_steps: the step's graphs are captured once and replayed: {res}")
     require(at == 3 and same and same_adam and float(l_on) == float(l_back),
             f"train_steps: the checkpoint did not resume identically: {res}")
     paths["train_steps"] = launches_train
+    step.value_and_grad().release()
+
+    # train_steps, positions trained: two Adam steps move every sphere (K2's
+    # tables change each step), then the graphed function, captured at the
+    # first step, against a fresh eager static step at the moved parameters.
+    # At colour's learning rate the spheres move by 0.02 a step and the loss
+    # grows tenfold, past the RI slots' margin, so the step after captures
+    # again: moved less, the compared step replays.
+    opt = diff.adam(POSITION_LR)
+    step = diff.make_train_step(g["pert"], g["cam"], g["cfg"], opt, grad_bands=g["bands"],
+                                auto_pops=True, trainable=diff.params_mask(g["pert"], "position"))
+    st = diff.TrainState.create(g["pert"], opt)
+    losses = []
+    for _ in range(2):
+        st, loss = step(st, g["target"])
+        losses.append(float(loss))
+    vg = step.value_and_grad()
+    captures, before = vg.counts["captures"], accel_tables(vg)
+    loss, grads = vg(st.params, g["target"])
+    after = accel_tables(vg)
+    eager = diff.banded_value_and_grad(g["pert"], g["cam"], g["cfg"], grad_bands=g["bands"],
+                                       band_pops=step.pops_state["band_pops"], graphs=False)
+    loss_e, grads_e = eager(st.params, g["target"])
+    res = compare_grads(dict(loss=loss, grads=grads), dict(loss=loss_e, grads=grads_e))
+    moved = float(max((a - b).abs().max() for (_, a), (_, b) in
+                      zip(st.params.items(), diff.extract_params(g["pert"]).items())))
+    res.update(what="grad_config, positions trained by two Adam steps", losses=losses,
+               params_moved_max=moved, counts=dict(vg.counts),
+               captures_at_the_compared_step=vg.counts["captures"] - captures,
+               tables_changed={n: None if before[n] is None else not torch.equal(before[n], after[n])
+                               for n in before})
+    say(phase="grad_graph_moved", **res)
+    check_grads("train_steps, positions trained: the graphed step against the eager static "
+                "step", res, GRAD_GRAPH)
+    require(moved > 0.0 and res["captures_at_the_compared_step"] == 0
+            and vg.counts["captures"] == 1 + vg.counts["recomputes"]
+            and res["tables_changed"]["otab"],
+            f"train_steps, positions trained: the graphs replayed over moved spheres: {res}")
+    vg.release()
     return entries, paths, at_hard_step
 
 
@@ -4902,7 +5154,8 @@ def progressive_frame(dev):
     tw, th = PROGRESSIVE_TILE
     n_tiles = -(-BVH1K["width"] // tw) * -(-BVH1K["height"] // th)
     say(phase="progressive_frame", scene="bvh_grid_scene(side=32)", size=size_of(BVH1K),
-        tile=PROGRESSIVE_TILE, tiles_per_step=TILES_PER_STEP, tiles=n_tiles, **res)
+        tile=PROGRESSIVE_TILE, tiles_per_step=TILES_PER_STEP, tiles=n_tiles,
+        earlier_seconds=EARLIER_FRAME_SECONDS["progressive_frame"], **res)
     for build, r in res.items():
         require(r["done_fractions_rise"] and r["last_done_fraction"] == 1.0
                 and r["yields"] == -(-n_tiles // TILES_PER_STEP),

@@ -191,6 +191,8 @@ def grad_config(chunk, device=None):
     loss, grads = gr(p, target)
     _sync(dev)
     dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES - before)
+    gr.release()
     return {
         "seconds_per_step": dt,
         "mrays_equiv_per_s": rays / dt / 1e6,
@@ -199,7 +201,7 @@ def grad_config(chunk, device=None):
         "grad_band_pops": pops,
         "loss": float(loss),
         "grads_finite": all(bool(torch.isfinite(g).all()) for _, g in grads.items()),
-        "launches": dict(_build.LAUNCHES - before),
+        "launches": launches,
         "size": f"{cfg.width}x{cfg.height}x{cfg.spp}spp d{cfg.max_bounces}",
         "path": "banded fast path (detached winners + closed-form recompute)",
     }

@@ -55,6 +55,16 @@ def rotation_from_radians(r):
     return torch.matmul(torch.matmul(rz, rx), ry)
 
 
+def const(values, like):
+    """The constant vector ``values`` on ``like``'s device in its dtype, written
+    by fills: ``torch.tensor(values, device=...)`` copies from the host, which
+    waits for the stream and cannot be captured in a CUDA graph."""
+    out = torch.empty(len(values), dtype=like.dtype, device=like.device)
+    for i, v in enumerate(values):
+        out[i].fill_(v)
+    return out
+
+
 def dot(a, b, keepdims: bool = False):
     return torch.sum(a * b, dim=-1, keepdim=keepdims)
 

@@ -20,6 +20,10 @@ GOLDEN_ANGLE = float(np.float32(PI) * (np.float32(3.0) - np.sqrt(np.float32(5.0)
 
 
 def _f32(x, like=None):
+    """``x`` as float32, on ``like``'s device when one is given (a Python
+    number by a fill, not a host copy: see ``linalg.const``)."""
+    if isinstance(like, torch.Tensor) and isinstance(x, (int, float)):
+        return torch.full((), x, dtype=torch.float32, device=like.device)
     device = like.device if isinstance(like, torch.Tensor) else None
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
@@ -72,8 +76,7 @@ def deviate_within_cone(direction, sample_index, max_samples, tan_theta):
     ``cross(d, up)`` and ``cross(right, d)``, scaled by a fixed 0.1 factor."""
     off = sunflower_disc(sample_index, max_samples,
                          2.0 * _f32(tan_theta, direction))
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=direction.dtype,
-                      device=direction.device)
+    up = linalg.const((0.0, 1.0, 0.0), direction)
     right = linalg.cross(direction, up)
     up2 = linalg.cross(right, direction)
     factor = 0.1
@@ -96,8 +99,7 @@ def fibonacci_hemisphere(sample_index, max_samples, scatteritivity, focus_dirn):
     x, y, z = x * s, y * s, z * s
 
     y_cap = focus_dirn
-    world_up = torch.tensor([0.0, 1.0, 0.0], dtype=focus_dirn.dtype,
-                            device=focus_dirn.device)
+    world_up = linalg.const((0.0, 1.0, 0.0), focus_dirn)
     z_cap = linalg.normalize(linalg.cross(world_up, y_cap), eps=1e-20)
     x_cap = linalg.normalize(linalg.cross(y_cap, z_cap), eps=1e-20)
     pt = focus_dirn + (

@@ -13,6 +13,7 @@ the psum the JAX package's ``shard_map`` transpose gives.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 from typing import Optional
@@ -21,6 +22,8 @@ import numpy as np
 import torch
 
 from raytracing_tests_tpu_torch.diff.params import SceneParams, apply_params, extract_params
+from raytracing_tests_tpu_torch.kernels import _build
+from raytracing_tests_tpu_torch.kernels.sweep2 import refresh_live_rows
 from raytracing_tests_tpu_torch.ops.camera_rays import primary_rays
 from raytracing_tests_tpu_torch.ops.render import (
     RenderConfig, _build_accel, finalize, render, trace_lanes,
@@ -213,9 +216,351 @@ def _buckets(band_pops, grad_bands: int, pops: int):
     return buckets
 
 
+def _ri_slots(n: int, lanes: int) -> int:
+    """Slots for a pop whose probe counted ``n`` lanes that read the
+    surrounding RI (``ops.render._ri_of_lanes``): a quarter more and 1024,
+    since training moves the scene the probe saw, in multiples of 1024, at
+    most ``lanes``."""
+    return min(lanes, -(-(n + n // 4 + 1024) // 1024) * 1024)
+
+
+def _grown_ri_slots(need, slots, lanes: int) -> tuple:
+    """Each pop's ``slots`` where its ``need`` fitted, else ``_ri_slots`` of
+    the larger of ``need`` and one more than it had."""
+    return tuple(s if n <= s else _ri_slots(max(n, s + 1), lanes) for n, s in zip(need, slots))
+
+
+def _sweep_routing() -> tuple:
+    """The sweep wrappers the gradient path calls, as bound now (a test or a
+    measurement may route them to their plain versions): part of a CUDA
+    graph's key."""
+    from raytracing_tests_tpu_torch.kernels import sweep2, sweep2g
+
+    return sweep2._sweep2, sweep2._sweep2_edge, sweep2g._sweep2g, sweep2g._sweep2g_edge
+
+
+def _band(tmpl, leaves, lights, cfg, slots, accel, lanes, tgt, acc, sse, ri_max):
+    """One row band's forward and backward: its squared error against
+    ``tgt`` (h, W, 3) added to ``sse`` and its gradient with respect to
+    ``leaves`` to ``acc`` (in place, in field order), the most lanes each pop
+    read the surrounding RI for to ``ri_max`` (one entry a pop) with
+    ``slots`` (one count a pop) for them.  Static shapes and no host
+    read, so it runs the same eagerly and inside a CUDA graph."""
+    scene = apply_params(tmpl, leaves)
+    h, W, S = tgt.shape[0], cfg.width, cfg.spp
+    color, primary_t, _, _ = trace_lanes(scene, lights, cfg, *lanes, accel, ri_lanes=slots,
+                                         ri_max=ri_max)
+    img = finalize(color.reshape(h, W, S, 3), primary_t.reshape(h, W, S), cfg)["image"]
+    s_b = torch.sum((img - tgt) ** 2)
+    got = torch.autograd.grad(s_b, [v for _, v in leaves.items()], allow_unused=True)
+    with torch.no_grad():
+        for a, g in zip(acc, got):
+            if g is not None:
+                a.add_(g)
+        sse.add_(s_b)
+
+
+class _Bands:
+    """How ``BandedValueAndGrad`` cuts the frame: the row bands, their depth
+    buckets and each bucket's config (its ceiling of pops, no early exit)."""
+
+    def __init__(self, cfg, grad_bands: int, band_pops):
+        H, W, S = cfg.height, cfg.width, cfg.spp
+        assert H % grad_bands == 0, (H, grad_bands)
+        self.h = H // grad_bands
+        self.lanes_per_band = self.h * W * S
+        if band_pops is None:
+            self.buckets = [(None, tuple(range(grad_bands)))]
+        else:
+            self.buckets = _buckets(band_pops, grad_bands, cfg.pops)
+        # A band runs its bucket's pops without the early exit, as the JAX
+        # package's scan does: no host read (the steps past the deepest tree
+        # pop nothing and add exact zeros).
+        scan = dataclasses.replace(cfg, early_exit=False)
+        self.bucket_cfgs = [scan if ceil is None else dataclasses.replace(scan, max_pops=ceil)
+                            for ceil, _ in self.buckets]
+        self.bucket_of = {b: k for k, (_, idxs) in enumerate(self.buckets) for b in idxs}
+
+    def ri_counter(self, dev):
+        """Zeros (buckets, pops of the deepest bucket) int64: what a step's
+        pops needed, bucket by bucket and pop by pop."""
+        return torch.zeros((len(self.buckets), max(c.pops for c in self.bucket_cfgs)),
+                           dtype=torch.int64, device=dev)
+
+    def band_lanes(self, lanes, b: int):
+        sl = slice(b * self.lanes_per_band, (b + 1) * self.lanes_per_band)
+        return tuple(x[sl] for x in lanes)
+
+    def band_rows(self, tgt, b: int):
+        return tgt[b * self.h:(b + 1) * self.h]
+
+
+class _EagerStep:
+    """One step of ``BandedValueAndGrad`` band after band, eagerly: the CPU's
+    path, and the card's with ``graphs=False``."""
+
+    def __init__(self, bands, slots, params, accel, tmpl, lights, lanes, tgt, dev):
+        self.bands, self.accel, self.tmpl, self.lights = bands, accel, tmpl, lights
+        self.ri_slots, self.lanes, self.tgt = slots, lanes, tgt
+        self.leaves = _leaves(params, dev)
+        self.acc = [torch.zeros_like(v) for _, v in self.leaves.items()]
+        self.sse = torch.zeros((), dtype=torch.float32, device=dev)
+        self.ri_max = bands.ri_counter(dev)
+
+    def band(self, b: int) -> None:
+        """Band ``b`` once more, added to this step's sums."""
+        k = self.bands.bucket_of[b]
+        _band(self.tmpl, self.leaves, self.lights, self.bands.bucket_cfgs[k],
+              self.ri_slots[k], self.accel, self.bands.band_lanes(self.lanes, b),
+              self.bands.band_rows(self.tgt, b), self.acc, self.sse, self.ri_max[k])
+
+    def run(self) -> None:
+        for _, idxs in self.bands.buckets:
+            for b in idxs:
+                self.band(b)
+
+
+class _GraphedStep:
+    """The step as one captured CUDA graph per depth bucket, each replayed
+    once per band of its bucket.
+
+    Everything a graph reads lives in tensors made here: the leaves (each
+    step's parameters are copied in), the accel (each step's tables are
+    copied into its storage, and the tables derived from it renewed in
+    theirs: ``sweep2.refresh_live_rows``, ``edge_cull.edge_blocks_as``), a
+    band's lanes and target rows (copied in before each replay), and the
+    sums.  ``key`` names all that a graph bakes in: the device, the build,
+    the sweep routing, the accel's host statics and table shapes, the
+    silhouette block table's shape, the parameters' shapes and the RI slots.
+    The graphs share one memory pool and replay in capture order."""
+
+    def __init__(self, bands, slots, key, params, accel, tmpl, lights, lanes, tgt, dev):
+        self.bands, self.key, self.tmpl, self.lights = bands, key, tmpl, lights
+        self.src = (lanes, tgt)
+        self.ri_slots = list(slots)
+        with torch.no_grad():
+            self.leaves = params.map(lambda v: v.detach().to(dev).clone().requires_grad_(True))
+            inner = accel.inner
+            self.inner = dataclasses.replace(inner, **{
+                f.name: getattr(inner, f.name).clone() for f in dataclasses.fields(inner)
+                if isinstance(getattr(inner, f.name), torch.Tensor)})
+        self.accel = type(accel)(self.inner)
+        n = bands.lanes_per_band
+        self.lanes = tuple(torch.empty((n,) + x.shape[1:], dtype=x.dtype, device=dev)
+                           for x in lanes)
+        self.tgt = torch.empty((bands.h,) + tuple(tgt.shape[1:]), dtype=tgt.dtype, device=dev)
+        self.acc = [torch.zeros_like(v) for _, v in self.leaves.items()]
+        self.sse = torch.zeros((), dtype=torch.float32, device=dev)
+        self.ri_max = bands.ri_counter(dev)
+        # Warm-up on a side stream (PyTorch's graph documentation): one band
+        # of each bucket, eagerly, which also builds every kernel and the
+        # tables derived from the accel before any capture.
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for k, (_, idxs) in enumerate(bands.buckets):
+                self._load_band(idxs[0])
+                self._body(k)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        pool = torch.cuda.graph_pool_handle()
+        self.graphs = []
+        for k in range(len(bands.buckets)):
+            graph, record = torch.cuda.CUDAGraph(), _build.LaunchRecord()
+            with record.record(), torch.cuda.graph(graph, pool=pool):
+                self._body(k)
+            self.graphs.append((graph, record))
+
+    def release(self) -> None:
+        """Drop the graphs and give their memory back to the card.  A
+        deleted graph's private pool stays cached in PyTorch's allocator
+        until an allocation runs short and frees every cached block at once,
+        which stalls some later, unrelated launch.  ``torch.cuda.empty_cache``
+        frees it now; it also returns the process's other unused cached
+        blocks, which the next allocations then take from the card again."""
+        if self.graphs:
+            self.graphs.clear()
+            torch.cuda.synchronize(self.sse.device)
+            torch.cuda.empty_cache()
+
+    def _body(self, k: int) -> None:
+        _band(self.tmpl, self.leaves, self.lights, self.bands.bucket_cfgs[k], self.ri_slots[k],
+              self.accel, self.lanes, self.tgt, self.acc, self.sse, self.ri_max[k])
+
+    def _load_band(self, b: int) -> None:
+        lanes, tgt = self.src
+        for mine, x in zip(self.lanes, self.bands.band_lanes(lanes, b)):
+            mine.copy_(x)
+        self.tgt.copy_(self.bands.band_rows(tgt, b))
+
+    @torch.no_grad()
+    def load(self, params, accel) -> bool:
+        """This step's parameters and accel into the graphs' tensors; False
+        where the silhouette block table no longer fits (capture again)."""
+        for (_, mine), (_, v) in zip(self.leaves.items(), params.items()):
+            mine.copy_(v)
+        inner = accel.inner
+        for f in dataclasses.fields(inner):
+            v = getattr(inner, f.name)
+            if isinstance(v, torch.Tensor):
+                getattr(self.inner, f.name).copy_(v)
+        refresh_live_rows(self.inner)
+        if "_edge_blocks" in self.inner.__dict__:
+            from raytracing_tests_tpu_torch.kernels.edge_cull import edge_blocks_as
+
+            return edge_blocks_as(self.inner, inner)
+        return True
+
+    def zero(self) -> None:
+        for a in self.acc:
+            a.zero_()
+        self.sse.zero_()
+        self.ri_max.zero_()
+
+    def band(self, b: int) -> None:
+        """Band ``b`` once more (one replay), added to this step's sums."""
+        graph, record = self.graphs[self.bands.bucket_of[b]]
+        self._load_band(b)
+        record.replay(graph)
+
+    def run(self) -> None:
+        for _, idxs in self.bands.buckets:
+            for b in idxs:
+                self.band(b)
+
+
+class BandedValueAndGrad:
+    """``banded_value_and_grad``'s function: ``f(params, target) -> (loss,
+    grads)``.
+
+    Each row band's trace has static shapes and reads nothing on the host
+    (``ops.render.trace_lanes`` without the early exit), so on the card each
+    depth bucket's band -- forward, backward and the sums -- is one captured
+    CUDA graph, replayed once per band of the bucket: what ``jax.jit`` makes of
+    the JAX package's step.  On the CPU, or with ``graphs=False``, the same
+    code runs eagerly.  A capture that fails raises; nothing falls back.
+
+    The accel is built once a step, outside the bands, from the detached
+    scene.  The lanes that read the surrounding RI by the containment sum get
+    ``ri_slots[k][i]`` slots in pop ``i`` of bucket ``k``: the first call
+    probes the most that pop of the bucket's bands needs (the gradient path's
+    own forward, once) and adds a margin (``_ri_slots``).  Each step reads
+    one thing on the host, after its bands: the most lanes each pop needed
+    in each bucket.  Where that exceeds the slots, the excess lanes read 1,
+    so those slots grow (``_grown_ri_slots``), the graphs are captured again
+    and the step is recomputed.  ``counts``
+    tallies the probes, captures and recomputes; ``last`` is the last step
+    (``last.band(b)`` runs band ``b`` again, for measurement).  ``release()``
+    drops the graphs and their memory; a new capture releases the old
+    graphs first."""
+
+    def __init__(self, template, camera, cfg, lights, grad_bands, band_pops, device,
+                 graphs: bool):
+        self.template, self.camera, self.cfg, self.lights = template, camera, cfg, lights
+        self.device, self.graphs, self.grad_bands = device, graphs, grad_bands
+        self.bands = _Bands(cfg, grad_bands, band_pops)
+        self.buckets, self.bucket_cfgs = self.bands.buckets, self.bands.bucket_cfgs
+        self.bucket_of = self.bands.bucket_of
+        self.ri_slots = None  # probed by the first call
+        self.counts = collections.Counter()
+        self.last = None
+        self._on = None  # (device, template, lights, whole-frame lanes) there
+
+
+    def _inputs(self, dev):
+        """The template, lights and every lane of the frame on ``dev``, made
+        once: nothing of them changes between steps."""
+        if self._on is None or self._on[0] != dev:
+            o, d, tr, sidx = _probe_lanes(self.camera, self.cfg, dev)
+            flat = lambda x: x.reshape((-1,) + x.shape[3:])  # noqa: E731
+            self._on = (dev, self.template.to(dev),
+                        None if self.lights is None else self.lights.to(dev),
+                        tuple(flat(x) for x in (o, d, tr, sidx)))
+        return self._on[1:]
+
+    @torch.no_grad()
+    def _probe_ri(self, scene, lights, lanes, accel) -> list:
+        """Slots for each pop of each bucket: the most lanes that pop of its
+        bands needs, by the gradient path's own forward with the early exit."""
+        if not self.cfg.has_dielectrics or self.cfg.shading == "materials":
+            return [(0,) * c.pops for c in self.bucket_cfgs]  # no lane reads it
+        self.counts["ri_probes"] += 1
+        need = self.bands.ri_counter(lanes[0].device)
+        for k, (_, idxs) in enumerate(self.buckets):
+            probe = dataclasses.replace(self.bucket_cfgs[k], early_exit=True)
+            for b in idxs:
+                trace_lanes(scene, lights, probe, *self.bands.band_lanes(lanes, b), accel,
+                            ri_max=need[k])
+        return [tuple(_ri_slots(n, self.bands.lanes_per_band) for n in row[:c.pops])
+                for row, c in zip(need.tolist(), self.bucket_cfgs)]
+
+    def _key(self, params, accel, dev) -> tuple:
+        inner = accel.inner
+        tables = tuple((f.name, (tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor) else v)
+                       for f in dataclasses.fields(inner) for v in (getattr(inner, f.name),))
+        edge = None
+        if self.cfg.soft_edges > 0.0 and inner.mode == "generic":
+            from raytracing_tests_tpu_torch.kernels.edge_cull import edge_blocks
+
+            table, n_super = edge_blocks(inner)
+            edge = (tuple(table.shape), n_super)
+        return (dev, _build.variant(), _sweep_routing(), tables, edge,
+                tuple((n, tuple(v.shape), v.dtype) for n, v in params.items()),
+                tuple(self.ri_slots))
+
+    def _graphed(self, params, accel, tmpl, lights, lanes, tgt, dev) -> _GraphedStep:
+        key = self._key(params, accel, dev)
+        step = self.last if isinstance(self.last, _GraphedStep) else None
+        if step is None or step.key != key or not step.load(params, accel):
+            self.release()  # the old graphs and their pool go first
+            step = self.last = _GraphedStep(self.bands, self.ri_slots, key, params, accel,
+                                            tmpl, lights, lanes, tgt, dev)
+            self.counts["captures"] += 1
+        step.src = (lanes, tgt)
+        step.zero()
+        step.run()
+        return step
+
+    def release(self) -> None:
+        """Drop the last step and, graphed, its graphs and their memory
+        (``_GraphedStep.release``)."""
+        if isinstance(self.last, _GraphedStep):
+            self.last.release()
+        self.last = None
+
+    def __call__(self, params: SceneParams, target):
+        dev = resolve_device(self.device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        tmpl, lights, lanes = self._inputs(dev)
+        tgt = torch.as_tensor(target, dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            scene = apply_params(tmpl, params.map(lambda v: v.detach().to(dev)))
+            accel = _build_accel(scene, self.cfg)
+            if self.ri_slots is None:
+                self.ri_slots = self._probe_ri(scene, lights, lanes, accel)
+        while True:
+            if self.graphs and dev.type == "cuda":
+                step = self._graphed(params, accel, tmpl, lights, lanes, tgt, dev)
+            else:
+                step = self.last = _EagerStep(self.bands, self.ri_slots, params, accel, tmpl,
+                                              lights, lanes, tgt, dev)
+                step.run()
+            need = step.ri_max.tolist()  # the step's one host read
+            grown = [_grown_ri_slots(row, slots, self.bands.lanes_per_band)
+                     for row, slots in zip(need, self.ri_slots)]
+            if grown == self.ri_slots:
+                break
+            self.ri_slots = grown
+            self.counts["recomputes"] += 1
+        n = self.cfg.height * self.cfg.width * 3
+        return step.sse / n, step.leaves.replace(**{
+            name: a / n for (name, _), a in zip(step.leaves.items(), step.acc)})
+
+
 def banded_value_and_grad(template: Scene, camera: Camera, cfg: RenderConfig,
                           lights=None, grad_bands: int = 8, grad_pops: Optional[int] = None,
-                          band_pops=None, device=None):
+                          band_pops=None, device=None,
+                          graphs: bool = True) -> BandedValueAndGrad:
     """Gradient ACCUMULATION over image row bands: ``f(params, target) ->
     (loss, grads)``, equal to ``value_and_grad_loss`` (the MSE is a pixel
     mean, so the bands' squared-error sums add up to it) at 1/``grad_bands``
@@ -226,45 +571,16 @@ def banded_value_and_grad(template: Scene, camera: Camera, cfg: RenderConfig,
     least the scene's true depth; ``cfg.pops`` clamps it.  ``band_pops``: each
     band's probed depth (``probe_band_pops``): the bands are grouped into at
     most 3 buckets, each traced at its own ceiling.  The accel depends only on
-    the detached scene, so one is built per call and shared by the bands."""
+    the detached scene, so one is built per call and shared by the bands.
+
+    On the card each bucket's band is one captured CUDA graph
+    (``BandedValueAndGrad``); ``graphs=False`` runs the same static bands
+    eagerly there (to compare the two)."""
     cfg = _diff_cfg(cfg)
     if grad_pops is not None:
         cfg = dataclasses.replace(cfg, max_pops=min(int(grad_pops), cfg.pops))
-    H, W, S = cfg.height, cfg.width, cfg.spp
-    assert H % grad_bands == 0, (H, grad_bands)
-    h = H // grad_bands
-    if band_pops is None:
-        buckets = [(None, tuple(range(grad_bands)))]
-    else:
-        buckets = _buckets(band_pops, grad_bands, cfg.pops)
-
-    def f(params: SceneParams, target):
-        dev = resolve_device(device)
-        leaves = _leaves(params, dev)
-        scene = apply_params(template.to(dev), leaves)
-        lt = None if lights is None else lights.to(dev)
-        o, d, tr, sidx = _probe_lanes(camera, cfg, dev)
-        tgt = torch.as_tensor(target, dtype=torch.float32, device=dev)
-        accel = _build_accel(scene, cfg)
-        flat = lambda x: x.reshape((h * W * S,) + x.shape[3:])
-        sse = torch.zeros((), dtype=torch.float32, device=dev)
-        grads = None
-        for ceil, idxs in buckets:
-            cfg_c = cfg if ceil is None else dataclasses.replace(cfg, max_pops=ceil)
-            for b in idxs:
-                sl = slice(b * h, (b + 1) * h)
-                color, primary_t, _, _ = trace_lanes(
-                    scene, lt, cfg_c, flat(o[sl]), flat(d[sl]), flat(tr[sl]),
-                    flat(sidx[sl]), accel)
-                img = finalize(color.reshape(h, W, S, 3), primary_t.reshape(h, W, S),
-                               cfg_c)["image"]
-                s_b = torch.sum((img - tgt[sl]) ** 2)
-                grads = _grads_of(s_b, leaves, grads)
-                sse = sse + s_b.detach()
-        n = H * W * 3
-        return sse / n, grads.map(lambda g: g / n)
-
-    return f
+    return BandedValueAndGrad(template, camera, cfg, lights, grad_bands, band_pops, device,
+                              graphs)
 
 
 def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
@@ -350,7 +666,10 @@ def make_train_step(template: Scene, camera: Camera, cfg: RenderConfig, optimize
 
     ``grad_bands > 1`` accumulates the gradient over image row bands
     (``banded_value_and_grad``): the same loss and gradients at 1/bands of the
-    backward's peak memory — what a full-resolution frame needs.  Single
+    backward's peak memory — what a full-resolution frame needs.  The banded
+    function is kept across steps, so on the card its CUDA graphs are
+    captured once and replayed every step after (Adam writes the parameters
+    in place; each step copies them into the graphs' leaves).  Single
     device only, as in the JAX package: with a ``mesh`` (the sharded step,
     ``value_and_grad_loss(mesh=)``) it is refused, and so is ``auto_pops``,
     which needs bands.
@@ -386,6 +705,7 @@ def make_train_step(template: Scene, camera: Camera, cfg: RenderConfig, optimize
                                         grad_bands, lights, device)
                 if any(f > b for f, b in zip(fresh, pops_state["band_pops"])):
                     pops_state["band_pops"] = [p + POPS_MARGIN for p in fresh]
+                    vg_box[0].release()
                     vg_box[0] = banded_value_and_grad(
                         template, camera, cfg, lights, grad_bands=grad_bands,
                         band_pops=pops_state["band_pops"], device=device)
@@ -406,4 +726,5 @@ def make_train_step(template: Scene, camera: Camera, cfg: RenderConfig, optimize
                            step=state.step + 1), loss)
 
     step.pops_state = pops_state  # test / introspection hook
+    step.value_and_grad = lambda: vg_box[0]  # the banded function in use (or None)
     return step

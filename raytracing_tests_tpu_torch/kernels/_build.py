@@ -7,8 +7,10 @@ at first use (never at import), all sources in parallel, into
 under ``csrc/`` and the compiler flags, so an edited source rebuilds.
 
 Also here: the launch counters.  Each kernel wrapper adds one to its count
-where it launches its kernel, and nowhere else.  And the one switch of the
-warp sweeps' schedule for tests and measurement (``forced_coop_min``).
+where it launches its kernel, and nowhere else; a CUDA graph's replay calls
+no wrapper, so ``LaunchRecord`` keeps what a capture launched and adds it on
+every replay.  And the one switch of the warp sweeps' schedule for tests and
+measurement (``forced_coop_min``).
 
 Where there is no GPU, ``host_rehearsal()`` builds the same sources as plain
 C++ with ``g++`` and ``csrc/host_shim.h``, so a test can run a kernel's source
@@ -59,6 +61,40 @@ _coop_min_forced = None
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+class LaunchRecord:
+    """The kernel launches of a captured CUDA graph.
+
+    The wrappers run, and count, while a graph is captured, but no kernel runs
+    then; each replay runs them all, and no wrapper.  ``record()`` around the
+    capture moves the counts made inside it from ``LAUNCHES`` into
+    ``counts``; ``replay(graph)`` replays the graph and adds ``counts`` to
+    ``LAUNCHES``, so the counters stay exact under replay."""
+
+    def __init__(self):
+        self.counts: collections.Counter = collections.Counter()
+
+    @contextlib.contextmanager
+    def record(self):
+        before = LAUNCHES.copy()
+        try:
+            yield self
+        finally:
+            self.counts = LAUNCHES - before
+            LAUNCHES.clear()
+            LAUNCHES.update(before)
+
+    def replay(self, graph) -> None:
+        graph.replay()
+        LAUNCHES.update(self.counts)
+
+
+def variant() -> tuple:
+    """What a launch takes from this module's switches: the build in effect
+    (``precise``, ``host_rehearsal``) and a forced ``coop_min``.  A CUDA graph
+    captured under one variant must not be replayed under another."""
+    return _extra_flags, _coop_min_forced
 
 
 def _nvcc() -> str:

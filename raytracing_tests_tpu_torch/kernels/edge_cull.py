@@ -159,6 +159,27 @@ def edge_blocks(accel):
     return memo[1]
 
 
+def edge_blocks_as(accel, other) -> bool:
+    """Give ``accel`` (written in place with ``other``'s tables) the block
+    table of ``other`` in the storage its memo already holds, as
+    ``sweep2.refresh_live_rows`` does for the live rows: a CUDA graph
+    captured with a silhouette launch on ``accel`` reads that storage.  False,
+    and nothing written, where the tables' shapes or super-block counts
+    differ: the graph must then be captured again."""
+    table, n_super = edge_blocks(other)
+    memo = accel.__dict__.get("_edge_blocks")
+    if memo is None:
+        accel.__dict__["_edge_blocks"] = ((accel.otab.data_ptr(), accel.otab._version),
+                                          (table.clone(), n_super))
+        return True
+    mine, mine_super = memo[1]
+    if mine.shape != table.shape or mine_super != n_super:
+        return False
+    mine.copy_(table)
+    accel.__dict__["_edge_blocks"] = ((accel.otab.data_ptr(), accel.otab._version), memo[1])
+    return True
+
+
 def edge_block_bounds(accel, rays):
     """The kernel's lower bound of the silhouette metric, per ray and entry
     of the block table, in plain PyTorch: ``rays`` (8, B) -> (B, n_super +

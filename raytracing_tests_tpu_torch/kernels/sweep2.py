@@ -724,6 +724,19 @@ def live_rows(accel):
     return memo[1]
 
 
+def refresh_live_rows(accel):
+    """``live_rows(accel)`` after the accel's ``otab`` was written in place,
+    computed into the tensor the memo already holds: a CUDA graph captured
+    with a launch on this accel reads that tensor, and a replay calls no
+    wrapper that would renew it."""
+    memo = accel.__dict__.get("_live_rows")
+    if memo is None:
+        return live_rows(accel)
+    memo[1].copy_(live_row_bounds(accel))
+    accel.__dict__["_live_rows"] = ((accel.otab.data_ptr(), accel.otab._version), memo[1])
+    return memo[1]
+
+
 def _launch_sweep2(accel: Accel2, rays, with_ri: bool, with_fields: bool, stats=None,
                    with_edge: bool = False):
     """Check the arguments and launch ``csrc/sweep2.cu`` -> (t, obj, rows or

@@ -184,84 +184,104 @@ def extract_lights(scene: Scene, capacity: Optional[int] = None) -> Optional[Lig
 # ----------------------------------------------------------------------------
 
 
+_FIELDS = ("origin", "direction", "contribution", "bounced")
+_MEDIA = ("medium", "parent_medium")
+
+
 @dataclasses.dataclass
 class RayQueue:
-    origin: torch.Tensor  # (B, Q, 3)
-    direction: torch.Tensor  # (B, Q, 3)
-    contribution: torch.Tensor  # (B, Q)
-    bounced: torch.Tensor  # (B, Q) i32
-    # Medium tracking of the materials model: the refractive index of the
-    # medium each queued ray travels in, and its parent's (a depth-2 medium
-    # stack).
-    medium: torch.Tensor  # (B, Q)
-    parent_medium: torch.Tensor  # (B, Q)
+    """Each lane's stack of Q records, and one spill slot after them (index
+    Q) that a push which cannot write lands in and no pop reads.
+
+    ``stacks`` holds each field slot-major, ``(Q + 1, B, ...)``: record ``s``
+    of every lane lies together, so the lanes of a push or a pop, whose
+    queues mostly hold as many rays, write and read neighbouring addresses.
+    The fields are origin (3), direction (3), contribution, bounced (int32)
+    and, in a queue made with ``media``, the materials model's medium
+    tracking: the refractive index of the medium each queued ray travels
+    in, and its parent's (a depth-2 medium stack).  Without media both are
+    air (1.0) and nothing stores them."""
+
+    stacks: dict  # name -> (Q + 1, B, ...)
     size: torch.Tensor  # (B,) i64
+    lane: torch.Tensor  # (B,) i64: 0 .. B - 1
 
     @classmethod
-    def create(cls, batch: int, capacity: int, device):
-        z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=device)
-        one = lambda *s: torch.ones(s, dtype=torch.float32, device=device)
-        return cls(
-            origin=z(batch, capacity, 3),
-            direction=z(batch, capacity, 3),
-            contribution=z(batch, capacity),
-            bounced=z(batch, capacity, dt=torch.int32),
-            medium=one(batch, capacity),
-            parent_medium=one(batch, capacity),
-            size=z(batch, dt=torch.int64),
-        )
+    def create(cls, batch: int, capacity: int, device, media: bool = True):
+        q1 = capacity + 1
+        z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=device)  # noqa: E731
+        stacks = dict(origin=z(q1, batch, 3), direction=z(q1, batch, 3),
+                      contribution=z(q1, batch), bounced=z(q1, batch, dt=torch.int32))
+        if media:
+            stacks.update({n: torch.ones((q1, batch), dtype=torch.float32, device=device)
+                           for n in _MEDIA})
+        return cls(stacks=stacks, size=z(batch, dt=torch.int64),
+                   lane=torch.arange(batch, device=device))
+
+    @property
+    def capacity(self) -> int:
+        return self.stacks["origin"].shape[0] - 1
+
+    @property
+    def media(self) -> bool:
+        return _MEDIA[0] in self.stacks
+
+    def _rows(self, slot):
+        """Row of each lane's record ``slot`` (B,) in a field's ((Q + 1) B)-row
+        view."""
+        return torch.add(self.lane, slot, alpha=self.lane.shape[0])
 
     def push(self, mask, origin, direction, contribution, bounced,
              medium=None, parent_medium=None):
         """Conditional push at position ``size`` for lanes in ``mask``
-        (updates the queue in place).  Returns the number of dropped pushes —
-        pushes beyond capacity are dropped like the reference stack, but the
-        count is surfaced so renderers can report honest ray accounting.
-        ``medium`` / ``parent_medium`` default to air (1.0)."""
-        q = self.origin.shape[1]
-        can = mask & (self.size < q)
-        n_dropped = int(torch.sum(mask & ~can))
-        lanes = torch.nonzero(can)[:, 0]
-        at = (lanes, self.size[lanes])
+        (updates the queue in place).  Returns the number of dropped pushes
+        (a 0-dim int64 tensor on the queue's device) -- pushes beyond capacity
+        are dropped like the reference stack, but the count is surfaced so
+        renderers can report honest ray accounting.  ``medium`` /
+        ``parent_medium`` default to air (1.0); a queue without media takes
+        neither.
 
-        def put(name, value):
-            dst = getattr(self, name)
-            if not isinstance(value, torch.Tensor):
-                value = torch.full((lanes.shape[0],), value, dtype=dst.dtype, device=dst.device)
-            if dst.requires_grad or value.requires_grad:
+        Static shapes, no host read: every lane writes its one record, at
+        ``size`` where it pushes and in its spill slot where it cannot, so
+        the Q records are the JAX package's one-hot ``where`` bit for bit at
+        O(B) writes instead of O(B Q)."""
+        q = self.capacity
+        can = mask & (self.size < q)
+        n_dropped = torch.sum(mask & ~can)
+        at = self._rows(torch.where(can, self.size, torch.full_like(self.size, q)))
+        values = dict(origin=origin, direction=direction, contribution=contribution,
+                      bounced=bounced)
+        if self.media:
+            air = torch.ones_like(contribution)
+            values.update({n: air if m is None else m
+                           for n, m in zip(_MEDIA, (medium, parent_medium))})
+        elif medium is not None or parent_medium is not None:
+            raise ValueError("a queue made without media stores none (RayQueue.create)")
+        for name, value in values.items():
+            dst = self.stacks[name]
+            rows = dst.view((-1,) + tuple(dst.shape[2:]))
+            value = value.to(dst.dtype)
+            if rows.requires_grad or value.requires_grad:
                 # Under autograd a pop's gather keeps the stack it read:
                 # write a new one instead of changing that one in place.
-                setattr(self, name, dst.index_put(at, value))
+                self.stacks[name] = rows.index_copy(0, at, value).view(dst.shape)
             else:
-                dst[at] = value
-
-        put("origin", origin[lanes])
-        put("direction", direction[lanes])
-        put("contribution", contribution[lanes])
-        put("bounced", bounced[lanes])
-        put("medium", 1.0 if medium is None else medium[lanes])
-        put("parent_medium", 1.0 if parent_medium is None else parent_medium[lanes])
+                rows.index_copy_(0, at, value)
         self.size = self.size + can.to(torch.int64)
         return n_dropped
 
     def pop(self):
         """LIFO pop -> (active, o, d, contribution, bounced, medium,
-        parent_medium); lanes with empty queues return zeros and
-        active=False."""
+        parent_medium), the media None in a queue without them; lanes with
+        empty queues return zeros and active=False."""
         active = self.size > 0
-        idx = torch.clamp_min(self.size - 1, 0)
-        pick3 = lambda a: torch.gather(a, 1, idx[:, None, None].expand(-1, 1, 3))[:, 0]
-        pick1 = lambda a: torch.where(active, torch.gather(a, 1, idx[:, None])[:, 0],
-                                      torch.zeros_like(a[:, 0]))
-        a3 = active[:, None]
-        o = torch.where(a3, pick3(self.origin), torch.zeros_like(self.origin[:, 0]))
-        d = torch.where(a3, pick3(self.direction), torch.zeros_like(self.direction[:, 0]))
-        c = pick1(self.contribution)
-        b = pick1(self.bounced)
-        med = pick1(self.medium)
-        pmed = pick1(self.parent_medium)
+        at = self._rows(torch.clamp_min(self.size - 1, 0))
+        out = {}
+        for name, src in self.stacks.items():
+            got = src.view((-1,) + tuple(src.shape[2:])).index_select(0, at)
+            out[name] = got.masked_fill_(~active.view((-1,) + (1,) * (got.dim() - 1)), 0)
         self.size = self.size - active.to(torch.int64)
-        return active, o, d, c, b, med, pmed
+        return (active, *(out[n] for n in _FIELDS), *(out.get(n) for n in _MEDIA))
 
 
 # ----------------------------------------------------------------------------
@@ -274,8 +294,8 @@ def _background(cfg: RenderConfig, direction, has_lights: bool):
     if has_lights:
         return torch.zeros(direction.shape[:-1] + (3,), dtype=torch.float32,
                            device=direction.device)
-    bottom = torch.tensor(cfg.background[0], dtype=torch.float32, device=direction.device)
-    top = torch.tensor(cfg.background[1], dtype=torch.float32, device=direction.device)
+    bottom = linalg.const(cfg.background[0], direction)
+    top = linalg.const(cfg.background[1], direction)
     t = (direction[..., 1:2] + 1.0) * 0.5
     return (1.0 - t) * bottom + t * top
 
@@ -355,6 +375,44 @@ def _surrounding_ri(scene, accel, point, time_ratio):
     return isect.surrounding_refractive_index(scene, point, time_ratio)
 
 
+# Lanes of one piece of the dense containment sum (``_ri_of_lanes``).
+RI_CHUNK = 65536
+
+
+def _ri_of_lanes(scene, accel, point, time_ratio, need, capacity: Optional[int]):
+    """The surrounding refractive index at ``point`` (``_surrounding_ri``)
+    for the lanes in ``need``, the neutral 1 elsewhere -> (ri (B,), the count
+    of lanes in ``need`` as a 0-dim int64 tensor).
+
+    Static shapes and no host read: a cumulative sum gives each needing lane
+    its slot, in lane order, and the sum runs over ``capacity`` slots only
+    (every lane when None), which bounds the (slots, N) intermediates that
+    autograd keeps of the dense containment sum.  Slots past the needing lanes
+    compute lane 0's point and are thrown away.  A needing lane past the
+    capacity reads 1: the caller compares the returned count with the
+    capacity and traces again with more slots (``trace_lanes``,
+    ``diff.train``).  The sum runs ``RI_CHUNK`` slots at a time, which bounds
+    its transient (slots, N, 3) tensors."""
+    B = need.shape[0]
+    n_need = torch.sum(need)
+    cap = B if capacity is None else max(0, min(capacity, B))
+    ones = torch.ones(B, dtype=torch.float32, device=need.device)
+    if cap == 0:
+        return ones, n_need
+    slot = torch.cumsum(need, 0) - 1
+    spill = torch.full_like(slot, cap)
+    lanes = torch.zeros(cap + 1, dtype=torch.int64, device=need.device).scatter_(
+        0, torch.where(need & (slot < cap), slot, spill),
+        torch.arange(B, device=need.device))[:cap]
+    ri = torch.cat([
+        _surrounding_ri(scene, accel, point.index_select(0, part),
+                        time_ratio.index_select(0, part))
+        for part in torch.split(lanes, RI_CHUNK)])
+    used = torch.arange(cap, device=need.device) < n_need
+    dest = torch.where(used, lanes, torch.full_like(lanes, B))
+    return torch.cat([ones, ones[:1]]).scatter(0, dest, ri)[:B], n_need
+
+
 def _material_color(scene: Scene, hit: isect.Hit, color, ti):
     """Albedo, cube-sphere-textured where the object has a texture index."""
     if scene.textures is None:
@@ -419,10 +477,14 @@ class ShadeResult:
 
 
 def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, active,
-               sample_idx, time_ratio, medium=None, parent_medium=None):
+               sample_idx, time_ratio, medium=None, parent_medium=None,
+               ri_lanes: Optional[int] = None, ri_max=None):
     """Intersect + shade one batch of rays (the path-tracer kernel body minus
     stack plumbing).  ``medium`` / ``parent_medium`` (materials shading)
-    default to air."""
+    default to air.  ``ri_lanes``: the slots of the lanes that read the
+    surrounding RI by the containment sum or the LBVH walk (``_ri_of_lanes``;
+    None: every lane); ``ri_max``, a 0-dim int64 tensor, takes (in place) the
+    count of the lanes that needed one where it exceeds it."""
     _check_supported(cfg)
     spp = cfg.spp
     B = o.shape[0]
@@ -492,10 +554,11 @@ def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, 
         # probe gives them.
         refractive = (scene.refractivity[hit.obj.long()] if flds is None
                       else flds.refractivity) > 0.002
-        lanes = torch.nonzero(hit.hit & active & (inner | refractive))[:, 0]
-        sur_ri = torch.ones(B, dtype=torch.float32, device=o.device).index_put(
-            (lanes,), _surrounding_ri(
-                scene, accel, (hit_point + 1e-3 * normal)[lanes], time_ratio[lanes]))
+        sur_ri, ri_need = _ri_of_lanes(
+            scene, accel, hit_point + 1e-3 * normal, time_ratio,
+            hit.hit & active & (inner | refractive), ri_lanes)
+        if ri_max is not None:
+            torch.maximum(ri_max, ri_need, out=ri_max)
     else:
         sur_ri = torch.ones(B, dtype=torch.float32, device=o.device)
 
@@ -554,7 +617,7 @@ def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, 
     refr_outer = linalg.safe_normalize(linalg.refract(d, normal, sur_ri / mat_ri))
     # TIR lanes carry a zero refr_outer; deviate a safe stand-in instead.
     refr_live = (linalg.dot(refr_outer, refr_outer) > 0.1)[:, None]
-    unit_z = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=o.device)
+    unit_z = linalg.const((0.0, 0.0, 1.0), d)
     refr_safe = torch.where(refr_live, refr_outer, unit_z)
     refr_outer = torch.where(
         (scat_rfr > 0.001)[:, None] & refr_live,
@@ -706,9 +769,12 @@ def _shade_materials(cfg, o, d, contrib, bounced, did_hit, missed, set_white,
     )
 
 
-def _process_pop(scene, lights, cfg: RenderConfig, queue, state, sample_idx, spp, time_ratio, accel=None):
+def _process_pop(scene, lights, cfg: RenderConfig, queue, state, sample_idx, spp, time_ratio,
+                 accel=None, ri_lanes: Optional[int] = None, ri_max=None):
     """One queue step: pop LIFO top of every lane, shade, push children.
-    Returns ``(state, n_dropped)``; the queue is updated in place."""
+    Returns ``(state, n_dropped)`` (a device count); the queue is updated in
+    place.  Static shapes, no host read.  ``ri_lanes``, ``ri_max``: see
+    ``shade_rays``."""
     color, depth, done, primary_t = state
     active, o, d, contrib, bounced, medium, parent_medium = queue.pop()
     active = active & ~done
@@ -716,7 +782,7 @@ def _process_pop(scene, lights, cfg: RenderConfig, queue, state, sample_idx, spp
 
     r = shade_rays(
         scene, lights, cfg, accel, o, d, contrib, bounced, active, sample_idx,
-        time_ratio, medium, parent_medium,
+        time_ratio, medium, parent_medium, ri_lanes, ri_max,
     )
     if cfg.shading == "materials":
         # Push reflection then refraction: LIFO pops the refraction first.
@@ -772,18 +838,36 @@ def _build_accel(scene, cfg: RenderConfig):
 
 
 def trace_lanes(scene, lights, cfg: RenderConfig, o, d, time_ratio, sample_idx, accel=None,
-                return_pops: bool = False):
+                return_pops: bool = False, ri_lanes=None, ri_max=None):
     """Trace a flat batch of lanes. ``o, d: (B, 3)``; returns
-    ``(color (B, 3), primary_t (B,), rays (int), dropped (int))``
-    where ``rays`` counts the rays actually processed (active pops) — the
-    honest rays/s numerator — and ``dropped`` counts children lost to the
-    fixed queue capacity.  A lane whose sample turned white (emissive
-    abort) pops its remaining queue without shading it; those pops count as
-    rays, as the reference's do.
+    ``(color (B, 3), primary_t (B,), rays, dropped)`` where ``rays`` counts
+    the rays actually processed (active pops) -- the honest rays/s numerator
+    -- and ``dropped`` counts children lost to the fixed queue capacity, both
+    0-dim int64 tensors on the lanes' device, as the JAX scan's carry keeps
+    them (a caller reads them once, after the trace).  A lane whose sample
+    turned white (emissive abort) pops its remaining queue without shading
+    it; those pops count as rays, as the reference's do.
 
-    ``return_pops``: append the number of pop steps that found a ray in some
-    queue (the early-exit count; at most ``cfg.pops``) — the probe behind
-    ``diff.train.probe_max_pops``.
+    ``return_pops``: append the number of pop steps taken (a 0-dim tensor):
+    with the early exit, the steps that found a ray in some queue (the
+    probe behind ``diff.train.probe_max_pops``); without it ``cfg.pops``, as
+    the JAX package's scan counts.
+
+    The pops have static shapes and read nothing on the host.  With
+    ``cfg.early_exit`` the loop reads one count a pop, of the queues that
+    hold a ray: the condition of the JAX package's ``while_loop``.  Without
+    it (every gradient band) the ``cfg.pops`` steps run with no host read,
+    as the JAX package's ``scan``, and can be captured in a CUDA graph.
+
+    ``ri_lanes``: the slots a pop gives the lanes that read the surrounding
+    RI by the containment sum or the LBVH walk (``_ri_of_lanes``), one count
+    for every pop or a sequence of one per pop.  ``ri_max``: an int64 tensor
+    on the lanes' device that takes (in place) the most lanes a pop needed,
+    0-dim over all pops or with one entry per pop; above the slots the
+    excess lanes read 1 and the trace must be made again with more.  With
+    ``ri_lanes=None`` no lane can exceed them: with the early exit a pop
+    takes the live lanes its condition counted (a lane that reads the RI is
+    one of them), without it every lane.
 
     ``cfg.show_normals``: one nearest hit per lane, no shading: the colour is
     the world normal where the lane hits (else 0), ``primary_t`` the hit t
@@ -795,6 +879,7 @@ def trace_lanes(scene, lights, cfg: RenderConfig, o, d, time_ratio, sample_idx, 
     _check_supported(cfg)
     B = o.shape[0]
     dev = o.device
+    count = lambda n: torch.full((), n, dtype=torch.int64, device=dev)  # noqa: E731
     if accel is None and cfg.intersector != "brute":
         accel = _build_accel(scene, cfg)
     if cfg.show_normals:
@@ -802,8 +887,22 @@ def trace_lanes(scene, lights, cfg: RenderConfig, o, d, time_ratio, sample_idx, 
         hit = _nearest(scene, accel, o, d, time_ratio, t_limit)
         color = torch.where(hit.hit[:, None], hit.normal, torch.zeros_like(hit.normal))
         primary_t = torch.where(hit.hit, hit.t, torch.full_like(hit.t, cfg.t_max))
-        return (color, primary_t, B, 0) + ((1,) if return_pops else ())
-    queue = RayQueue.create(B, cfg.queue_capacity, dev)
+        return (color, primary_t, count(B), count(0)) + ((count(1),) if return_pops else ())
+    out = _trace_queue(scene, lights, cfg, o, d, time_ratio, sample_idx, accel, ri_lanes, ri_max)
+    color, primary_t, rays, dropped, pops = out
+    if return_pops:
+        return color, primary_t, rays, dropped, count(pops)
+    return color, primary_t, rays, dropped
+
+
+def _trace_queue(scene, lights, cfg: RenderConfig, o, d, time_ratio, sample_idx, accel,
+                 ri_lanes, ri_max):
+    """``trace_lanes``'s queue loop -> (color, primary_t, rays, dropped,
+    the steps taken as an int)."""
+    B = o.shape[0]
+    dev = o.device
+    count = lambda n: torch.full((), n, dtype=torch.int64, device=dev)  # noqa: E731
+    queue = RayQueue.create(B, cfg.queue_capacity, dev, media=cfg.shading == "materials")
     queue.push(
         torch.ones(B, dtype=torch.bool, device=dev), o, d,
         torch.ones(B, dtype=torch.float32, device=dev),
@@ -818,21 +917,25 @@ def trace_lanes(scene, lights, cfg: RenderConfig, o, d, time_ratio, sample_idx, 
 
     # Most lanes' queues drain after 2-3 pops (sky lanes after 1), so the loop
     # exits as soon as every queue is empty instead of running the full budget.
-    rays = dropped = pops = 0
-    for _ in range(cfg.pops):
-        n_active = int(torch.sum(queue.size > 0))
-        if cfg.early_exit and n_active == 0:
-            break
+    rays, dropped, pops = count(0), count(0), 0
+    per_pop = isinstance(ri_lanes, (tuple, list))
+    for i in range(cfg.pops):
+        live = queue.size > 0
+        slots = ri_lanes[i] if per_pop else ri_lanes
+        if cfg.early_exit:
+            n_live = int(torch.sum(live))  # the loop's condition
+            if n_live == 0:
+                break
+            if slots is None:
+                slots = n_live
         state, n_drop = _process_pop(
-            scene, lights, cfg, queue, state, sample_idx, cfg.spp, time_ratio, accel
-        )
-        rays += n_active
-        dropped += n_drop
-        pops += n_active > 0
+            scene, lights, cfg, queue, state, sample_idx, cfg.spp, time_ratio, accel, slots,
+            ri_max[i] if ri_max is not None and ri_max.dim() == 1 else ri_max)
+        rays = rays + torch.sum(live)
+        dropped = dropped + n_drop
+        pops += 1
     color, _, _, primary_t = state
-    if return_pops:
-        return color, primary_t, rays, dropped, pops
-    return color, primary_t, rays, dropped
+    return color, primary_t, rays, dropped, pops
 
 
 def _lane_inputs(camera, cfg: RenderConfig):
@@ -851,22 +954,23 @@ def _lane_inputs(camera, cfg: RenderConfig):
 
 def _trace_frame(scene, camera, cfg: RenderConfig, lights):
     """All lanes of a frame, in ``cfg.lane_chunk`` pieces when that is set:
-    (color (B, 3), primary_t (B,), rays, dropped)."""
+    (color (B, 3), primary_t (B,), rays, dropped), the counts as ints (read
+    once, after the frame)."""
     o, d, time_ratio, sample_idx = _lane_inputs(camera, cfg)
     B = o.shape[0]
     accel = _build_accel(scene, cfg)
     chunk = cfg.lane_chunk or B
-    if chunk >= B:
-        return trace_lanes(scene, lights, cfg, o, d, time_ratio, sample_idx, accel)
-    colors, ts, rays, dropped = [], [], 0, 0
+    colors, ts, counts = [], [], []
     for b0 in range(0, B, chunk):
         sl = slice(b0, b0 + chunk)
         co, pt, r, dr = trace_lanes(scene, lights, cfg, o[sl], d[sl],
                                     time_ratio[sl], sample_idx[sl], accel)
         colors.append(co)
         ts.append(pt)
-        rays += r
-        dropped += dr
+        counts.append(torch.stack([r, dr]))
+    rays, dropped = torch.stack(counts).sum(dim=0).tolist()
+    if len(colors) == 1:
+        return colors[0], ts[0], rays, dropped
     return torch.cat(colors), torch.cat(ts), rays, dropped
 
 

@@ -74,7 +74,9 @@ def _deinterleave(blocks, mesh: Mesh, H: int):
 def _summed(values, mesh: Mesh, dev):
     """Counters summed over this process's shards and, under a process
     group, over the ranks: one int64 tensor (len(values[0]),) on ``dev``."""
-    total = torch.stack([torch.as_tensor(v, dtype=torch.int64).to(dev) for v in values]).sum(0)
+    as64 = lambda x: (x.to(dev, torch.int64) if isinstance(x, torch.Tensor)  # noqa: E731
+                      else torch.full((), x, dtype=torch.int64, device=dev))
+    total = torch.stack([torch.stack([as64(x) for x in v]) for v in values]).sum(0)
     if mesh.distributed:
         dist.all_reduce(total, op=dist.ReduceOp.SUM, group=mesh.group)
     return total
