@@ -1,10 +1,13 @@
-"""The queue renderer's forward frames and the unbanded gradient steps of
-several checkouts of the port, side by side on one NVIDIA GPU: wall time and
-the device time of every kernel.
+"""The queue renderer's forward frames, the unbanded gradient steps and the
+two chunked renderers' headline frames of several checkouts of the port,
+side by side on one NVIDIA GPU: wall time and the device time of every
+kernel.
 
 Run from the repository root, with each checkout's root as an argument:
 
     python3 chip_queue_ab.py _parent/base . . _parent/base
+    python3 chip_queue_ab.py --only megalanes_natural,megalanes_sorted,workqueue_frame \
+        _parent/base . . _parent/base
 
 Each argument runs in a process of its own, in the order given (alternate
 them: parent, change, change, parent), and imports
@@ -17,7 +20,17 @@ that root's sources.  Workloads, at the sizes ``chip_smoke.py`` drives them:
 - ``unbanded_step``: ``diff.value_and_grad_loss`` of ``iow_final_scene()``
   at 800x450x2 spp, depth 8, colours perturbed (K2);
 - ``sharded_step``: the same on 3 virtual shards of the one card
-  (``make_mesh(devices=[dev] * 3)``).
+  (``make_mesh(devices=[dev] * 3)``);
+- ``megalanes_natural``, ``megalanes_sorted``: ``render_megalanes`` of
+  ``iow_final_scene()`` at 800x450x100 spp, depth 8, ``gr=64``, chunks of
+  2^20 lanes, in each schedule (K6, and the drain kernel where the checkout
+  has one);
+- ``workqueue_frame``: ``render_workqueue`` of the same frame (K2), as the
+  checkout runs it by default;
+- ``megalanes_motion``: ``render_megalanes`` of ``motion_blur_scene()`` at
+  800x450x16 spp, depth 8, sorted (K6's MOTION instantiation).
+
+``--only a,b`` runs the named workloads alone.
 
 Each workload runs once to warm, ``REPS`` times timed by the host clock
 around a synchronise, then once under ``torch.profiler``.  From that trace:
@@ -45,6 +58,9 @@ TOP = 30  # kernels printed per workload, by device time
 DEVICE_RECORDS = ("kernel", "gpu_memcpy", "gpu_memset")
 FRAME = dict(width=800, height=450, spp=16, max_bounces=8)
 STEP = dict(width=800, height=450, spp=2, max_bounces=8)
+HEADLINE = dict(width=800, height=450, spp=100, max_bounces=8)
+WORKLOADS = ("bvh_queue_frame", "dense_generic_frame", "unbanded_step", "sharded_step",
+             "megalanes_natural", "megalanes_sorted", "workqueue_frame", "megalanes_motion")
 
 
 def _pad(n: int) -> None:
@@ -118,14 +134,16 @@ def measured(fn) -> dict:
     return out
 
 
-def child(root: str) -> None:
+def child(root: str, only) -> None:
     sys.path.insert(0, root)
     import dataclasses
 
     import torch
 
     from raytracing_tests_tpu_torch import diff
+    from raytracing_tests_tpu_torch.ops.megalanes import render_megalanes
     from raytracing_tests_tpu_torch.ops.render import RenderConfig, render_stats
+    from raytracing_tests_tpu_torch.ops.workqueue import render_workqueue
     from raytracing_tests_tpu_torch.parallel import make_mesh
     from raytracing_tests_tpu_torch.scene import examples
 
@@ -134,20 +152,45 @@ def child(root: str) -> None:
     dev = torch.device("cuda", 0)
     say = lambda **kw: print(json.dumps(dict(root=root, package=os.path.dirname(pkg.__file__),
                                              **kw)), flush=True)  # noqa: E731
-    scene, cam = (x.to(dev) for x in examples.bvh_grid_scene(side=32))
-    cfg = RenderConfig(intersector="pallas", **FRAME).for_scene(scene)
-    for name, c in (("bvh_queue_frame", cfg),
-                    ("dense_generic_frame", dataclasses.replace(cfg, pallas_groups=0))):
-        say(workload=name, **measured(lambda: render_stats(scene, cam, c)))
+    if {"bvh_queue_frame", "dense_generic_frame"} & only:
+        scene, cam = (x.to(dev) for x in examples.bvh_grid_scene(side=32))
+        cfg = RenderConfig(intersector="pallas", **FRAME).for_scene(scene)
+        for name, c in (("bvh_queue_frame", cfg),
+                        ("dense_generic_frame", dataclasses.replace(cfg, pallas_groups=0))):
+            if name in only:
+                say(workload=name, **measured(lambda: render_stats(scene, cam, c)))
     scene, cam = (x.to(dev) for x in examples.iow_final_scene())
-    cfg = RenderConfig(intersector="pallas", **STEP).for_scene(scene)
-    pert = scene.replace(color=scene.color * 0.8 + 0.1)
-    p = diff.extract_params(pert)
-    target = render_stats(scene, cam, cfg)["image"]
-    mesh = make_mesh(devices=[dev] * 3)
-    for name, m in (("unbanded_step", None), ("sharded_step", mesh)):
-        say(workload=name, **measured(
-            lambda: diff.value_and_grad_loss(p, pert, cam, cfg, target, mesh=m)))
+    if {"unbanded_step", "sharded_step"} & only:
+        cfg = RenderConfig(intersector="pallas", **STEP).for_scene(scene)
+        pert = scene.replace(color=scene.color * 0.8 + 0.1)
+        p = diff.extract_params(pert)
+        target = render_stats(scene, cam, cfg)["image"]
+        mesh = make_mesh(devices=[dev] * 3)
+        for name, m in (("unbanded_step", None), ("sharded_step", mesh)):
+            if name in only:
+                say(workload=name, **measured(
+                    lambda: diff.value_and_grad_loss(p, pert, cam, cfg, target, mesh=m)))
+    cfg = RenderConfig(intersector="pallas", **HEADLINE).for_scene(scene)
+    for name, fn in (
+            ("megalanes_natural", lambda: render_megalanes(scene, cam, cfg, chunk=1 << 20, gr=64,
+                                                           schedule="natural")),
+            ("megalanes_sorted", lambda: render_megalanes(scene, cam, cfg, chunk=1 << 20, gr=64,
+                                                          schedule="sorted")),
+            ("workqueue_frame", lambda: render_workqueue(scene, cam, cfg))):
+        if name in only:
+            drain_frame(say, name, fn)
+    if "megalanes_motion" in only:
+        scene, cam = (x.to(dev) for x in examples.motion_blur_scene())
+        cfg = RenderConfig(intersector="pallas", **FRAME).for_scene(scene)
+        drain_frame(say, "megalanes_motion", lambda: render_megalanes(
+            scene, cam, cfg, chunk=1 << 20, gr=64, schedule="sorted"))
+
+
+def drain_frame(say, name, fn) -> None:
+    out = fn()
+    say(workload=name, rays=int(out["rays"]), iterations=int(out["iterations"]),
+        rays_dropped=int(out["rays_dropped"]), image_mean=float(out["image"].mean()),
+        **measured(fn))
 
 
 def main() -> int:
@@ -157,10 +200,19 @@ def main() -> int:
         print("chip_queue_ab.py needs a CUDA device: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
-    if len(sys.argv) > 2 and sys.argv[1] == "--child":
-        child(sys.argv[2])
+    args = sys.argv[1:]
+    only = list(WORKLOADS)
+    if len(args) > 1 and args[0] == "--only":
+        only = args[1].split(",")
+        args = args[2:]
+        unknown = set(only) - set(WORKLOADS)
+        if unknown:
+            print(f"unknown workloads {sorted(unknown)}; known: {WORKLOADS}", file=sys.stderr)
+            return 2
+    if len(args) > 1 and args[0] == "--child":
+        child(args[1], set(only))
         return 0
-    roots = sys.argv[1:]
+    roots = args
     if not roots:
         print(__doc__, file=sys.stderr)
         return 2
@@ -170,8 +222,9 @@ def main() -> int:
             return 2
     failed = 0
     for root in roots:
-        failed |= subprocess.call([sys.executable, os.path.abspath(__file__), "--child",
-                                   os.path.abspath(root)], cwd=os.path.abspath(root)) != 0
+        failed |= subprocess.call([sys.executable, os.path.abspath(__file__), "--only",
+                                   ",".join(only), "--child", os.path.abspath(root)],
+                                  cwd=os.path.abspath(root)) != 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
     return int(failed)

@@ -148,16 +148,32 @@ Phases and their bars:
      iterations 0, 1 and the chunk's last (mostly inactive lanes), taken from
      the drain itself; the same on the motion frame for the MOTION
      instantiation.  Bars: ``MEGA_BARS``, with their reasons.
+  drain_vs_plain. the drain kernel (``csrc/drain.cu``) against its plain
+     version bit for bit, default and -fmad=false build, at every step of the
+     headline's first chunk (2^20 lanes, cfg.pops steps); each step's device
+     time, bound (bytes, from the step's data) and plain time.
+  dead_step. K6 and the drain kernel on 2^20 dead lanes: what a chunk's steps
+     past its end cost (at most 2 x ``megalanes.POLL_EVERY`` a chunk).
  14. the headline frame through ``render_megalanes``, ``schedule="natural"``
      and ``"sorted"``, ``gr=64``: rays within 2 % of 91 994 750, image mean
      within 1e-2 of 1.0021, zero dropped, the canary's envelope against the
-     ``render_uber`` frame of the same run, and exactly one launch of the
-     megakernel per iteration; then where a frame's time goes.
+     ``render_uber`` frame of the same run, and the megakernel and the drain
+     kernel launched once a step each, no chunk more than 2 x POLL_EVERY
+     steps past its end; the dead steps' share of the frame, the card's idle
+     share of a profiled frame; the poll periods and the full budget in turns
+     (``megalanes_poll_sweep``); then where a frame's time goes.
+  drains_sync_free. a megalanes chunk's steps and one work-queue iteration
+     under ``torch.cuda.set_sync_debug_mode("error")``: nothing raises.
  15. the work queue: ``render_workqueue`` at 200x112x8 depth 6 against the
      queue renderer given a full tree's budget (image atol 2e-5 on >= 99.5 %
      of pixels, equal rays, zero dropped, one sweep launch per iteration), then
-     the headline frame once through it, held to the envelope, and once more
-     with K2's bound summed over its launches.
+     the headline frame through it, graphed (replayed CUDA graphs, two
+     frames) beside the eager static loop (``graphs=False``): equal rays,
+     iterations and drops, every pixel within 1e-5, the envelope against
+     ``render_uber``, one sweep launch an iteration in both, the host reads
+     (one a replay), the capture seconds, peak memory and the memory left
+     allocated after the frame (at most 1 MiB), the idle share of a profiled
+     frame; and once more, eagerly, with K2's bound summed over its launches.
  16. the motion frame through ``render_uber``: one launch of the persistent
      kernel's MOTION instantiation, held against its plain version on every
      primary (both builds, bars as in 4) and per pixel; the motion canary
@@ -409,7 +425,7 @@ import dataclasses  # noqa: E402
 from raytracing_tests_tpu_torch import diff  # noqa: E402
 from raytracing_tests_tpu_torch.bench import grad_bands  # noqa: E402
 from raytracing_tests_tpu_torch.kernels import (  # noqa: E402
-    _build, edge_cull, mega, sweep, sweep2, sweep2g, uber,
+    _build, drain, edge_cull, mega, sweep, sweep2, sweep2g, uber,
 )
 from raytracing_tests_tpu_torch.ops import megalanes, workqueue  # noqa: E402
 from raytracing_tests_tpu_torch.ops.render import (  # noqa: E402
@@ -2036,8 +2052,8 @@ def k5_coop_sweep(what, render):
 
 
 DEVICE_RECORDS = ("kernel", "gpu_memcpy", "gpu_memset")  # a trace's device activity
-PORT_KERNEL = re.compile(r"\b(uber|sweep2|sweep2g|sweep2g_edge|mega|grouped|nearest|ri|nearest_ri)"
-                         r"_kernel\b")
+PORT_KERNEL = re.compile(r"\b(uber|sweep2|sweep2g|sweep2g_edge|mega|grouped|nearest|ri|nearest_ri"
+                         r"|drain)_kernel\b")
 SESSIONS = []  # what each profiler session saw (``device_session``)
 
 
@@ -2430,10 +2446,7 @@ def capture_steps(accel, camera, cfg, chunk, wanted):
     """Drain the first chunk of a frame through the lane-aligned drain and
     keep the (pool, lane) pairs that ``mega_step`` was given at the iterations
     in ``wanted`` -> ({iteration: (pool, lane)}, iterations of the chunk)."""
-    o, d, tr, _ = _lane_inputs(camera, cfg)
-    lane = torch.arange(chunk, dtype=torch.int32, device=o.device)
-    cur = megalanes._init_chunk(o[:chunk], d[:chunk], tr[:chunk], lane, cfg)
-    del o, d, tr
+    st = chunk_state(camera, cfg, chunk)
     kept, calls = {}, [0]
     real = megalanes.mega_step
 
@@ -2445,10 +2458,83 @@ def capture_steps(accel, camera, cfg, chunk, wanted):
 
     megalanes.mega_step = keeping
     try:
-        _, _, _, iters, _ = megalanes._drain_chunk(accel, cur, lane, cfg)
+        megalanes._drain_chunk(accel, st, cfg)
     finally:
         megalanes.mega_step = real
-    return kept, iters
+    return kept, int(st.iters)
+
+
+def megalanes_chunks(cfg, schedule):
+    """Chunks of a megalanes frame at CHUNK lanes (the sorted schedule's 1-spp
+    prepass drains its pixels in chunks too)."""
+    B = cfg.width * cfg.height * cfg.spp
+    P = cfg.width * cfg.height
+    chunks = -(-B // CHUNK)
+    if schedule == "sorted" and cfg.spp > 1:
+        chunks += -(-P // min(CHUNK, P))
+    return chunks
+
+
+def check_drain_launches(what, launches, iterations, cfg, chunks, poll_every, k6="mega_step"):
+    """A megalanes frame's launches: K6 and the drain kernel once a step each,
+    every chunk past its end by at most 2 x poll_every steps (all cfg.pops
+    under the full budget), nothing else -> the steps."""
+    steps = launches.get(k6, 0)
+    most = chunks * cfg.pops if poll_every >= cfg.pops else min(
+        chunks * cfg.pops, iterations + 2 * poll_every * chunks)
+    require(launches == {k6: steps, "drain_step": steps} and iterations <= steps <= most
+            and (steps == most or poll_every < cfg.pops),
+            f"{what}: the launches of K6 and the drain kernel ({launches}) against "
+            f"{iterations} iterations, {chunks} chunks, a poll every {poll_every} steps")
+    return steps
+
+
+POLL_SWEEP = (1, 2, 3, 4)  # poll periods timed beside the full budget
+
+
+def megalanes_poll_sweep(scene, camera, cfg, dead):
+    """Phase megalanes_poll_sweep: the headline frame in both schedules under
+    each poll period of POLL_SWEEP and under the full budget (every chunk
+    cfg.pops steps, nothing read), in turns, three rounds; per period the
+    least frame time, the steps, the dead steps and what they cost at the
+    dead step's time."""
+    res = {}
+    periods = POLL_SWEEP + (cfg.pops,)
+    default = megalanes.POLL_EVERY
+    for schedule in ("natural", "sorted"):
+        for rnd in range(3):
+            for every in (periods if rnd % 2 == 0 else periods[::-1]):
+                _build.reset_launches()
+                megalanes.POLL_EVERY = every
+                try:
+                    ms, out = timed_ms(lambda: megalanes.render_megalanes(
+                        scene, camera, cfg, chunk=CHUNK, gr=GR, schedule=schedule))
+                finally:
+                    megalanes.POLL_EVERY = default
+                r = res.setdefault(schedule, {}).setdefault(
+                    "full" if every == cfg.pops else str(every), dict(ms=[]))
+                r["ms"].append(ms)
+                r.update(steps=_build.LAUNCHES["mega_step"], iterations=out["iterations"],
+                         rays=int(out["rays"]))
+                del out
+        for r in res[schedule].values():
+            r.update(ms_min=min(r["ms"]), dead_steps=r["steps"] - r["iterations"],
+                     dead_steps_ms=(r["steps"] - r["iterations"]) * dead["dead_step_ms"])
+        require(len({r["rays"] for r in res[schedule].values()}) == 1,
+                f"the poll period changed a frame's rays: {res[schedule]}")
+    say(phase="megalanes_poll_sweep", size=size_of(HEADLINE), dead_step_ms=dead["dead_step_ms"],
+        default_poll_every=megalanes.POLL_EVERY, by_schedule=res)
+    return res
+
+
+def chunk_state(camera, cfg, chunk):
+    """The drain state of a frame's first chunk of ``chunk`` lanes, loaded
+    (natural order)."""
+    o, d, tr, _ = _lane_inputs(camera, cfg)
+    lane = torch.arange(chunk, dtype=torch.int32, device=o.device)
+    st = drain.DrainState.create(chunk, cfg.queue_capacity, o.device)
+    st.load(megalanes._init_chunk(o[:chunk], d[:chunk], tr[:chunk], lane, cfg), lane, cfg.t_max)
+    return st
 
 
 def compare_mega(accel, pool, lane, kw, want):
@@ -2614,11 +2700,13 @@ def megalanes_breakdown(scene, camera, cfg):
     device = dict(device_trace="not measured")
     if by_kernel is not None:
         k6_dev = sum(v for k, v in by_kernel.items() if "mega_kernel" in k)
+        drain_dev = sum(v for k, v in by_kernel.items() if "drain_kernel" in k)
         busy = sum(by_kernel.values())
-        device = dict(device_k6_ms=k6_dev, device_other_kernels_ms=busy - k6_dev,
-                      device_other_kernels_ms_per_iteration=(busy - k6_dev) / iters,
+        device = dict(device_k6_ms=k6_dev, device_drain_ms=drain_dev,
+                      device_other_kernels_ms=busy - k6_dev - drain_dev,
+                      device_drain_ms_per_step=drain_dev / len(k6),
                       device_busy_ms=busy, device_idle_share=max(0.0, 1.0 - busy / frame_ms))
-    return dict(frame_ms=frame_ms, iterations=iters, chunks=chunks, **device,
+    return dict(frame_ms=frame_ms, iterations=iters, chunks=chunks, steps=len(k6), **device,
                 k6_ms_sum=sum(k6), k6_ms_per_step_mean=sum(k6) / len(k6),
                 k6_ms_per_step_max=max(k6), k6_ms_per_step_min=min(k6),
                 accel_build_ms=accel_ms, lane_inputs_ms=lanes_ms, epilogue_ms=post_ms,
@@ -2626,6 +2714,224 @@ def megalanes_breakdown(scene, camera, cfg):
                 drain_and_host_ms_per_iteration=(frame_ms - sum(k6) - accel_ms - lanes_ms
                                                  - post_ms) / iters,
                 dead_share_of_lane_steps=1.0 - int(out["rays"]) / (iters * CHUNK)), accel
+
+
+# ---------------------------------------------------------------------------
+# The eighteenth slice: the drains on the device.  The lane-aligned drain's
+# step is K6 and the drain kernel (csrc/drain.cu), a chunk ended by a lagged
+# poll, the counts read once a frame; the work queue's cursors live on the
+# device and its iterations replay as captured graphs.
+# ---------------------------------------------------------------------------
+
+DRAIN_FIELDS = tuple(f.name for f in dataclasses.fields(drain.DrainState))
+
+
+def clone_state(st):
+    return drain.DrainState(**{k: getattr(st, k).clone() for k in DRAIN_FIELDS})
+
+
+def drain_step_bound(st, outs, step):
+    """The drain kernel's bound for one step from this step's data, in bytes
+    (it adds, selects and copies: no operation count binds it): every lane's
+    id; for each lane live when the step began both child ids, its stack
+    size in and out, the colour in and out with K6's three adds, the ray
+    count in and out, the primary t (step 0: K6's t in, the lane's out) and
+    its next record out (16 floats); then what its case reads or writes: the
+    chosen child's 16 rows in, a push's 8 rows in and out, a pop's 8 rows
+    in, the omt in where the record is rebuilt, the id out where the lane
+    dies -> (bound ms, the cases counted)."""
+    rlane, llane = outs[3], outs[4]
+    active = st.lane >= 0
+    child = active & ((rlane >= 0) | (llane >= 0))
+    push = active & (rlane >= 0) & (llane >= 0) & (st.qsize < st.capacity)
+    pop = active & ~child & (st.qsize > 0)
+    die = active & ~child & (st.qsize == 0)
+    n = dict(lanes=st.lanes, live=int(active.sum()), children=int(child.sum()),
+             pushes=int(push.sum()), pops=int(pop.sum()), deaths=int(die.sum()))
+    per_live = 2 + 2 + 6 + 3 + 2 + (2 if step == 0 else 0) + 16
+    n_bytes = 4 * (n["lanes"] + n["live"] * per_live + 16 * n["children"] + 16 * n["pushes"]
+                   + 8 * n["pops"] + (n["pops"] + n["deaths"]) + n["deaths"])
+    return n_bytes / PEAK_BYTES_PER_S * 1e3, n
+
+
+def drain_vs_plain(accel, camera, cfg):
+    """Phase drain_vs_plain: ``drain_step`` against ``drain_step_plain`` bit
+    for bit, in the default and the -fmad=false build, at every step of the
+    headline frame's first chunk (2^20 lanes, the full budget of
+    ``cfg.pops`` steps, K6's outputs of the step as the drain gives them);
+    per step the kernel's device time (least of 3, ``gapless_events``), its
+    bound from the step's data and the plain version's time."""
+    st = chunk_state(camera, cfg, CHUNK)
+    kw = step_kw(cfg)
+    rows = []
+    for step in range(cfg.pops):
+        outs = mega.mega_step(accel, st.cur, st.lane, **kw)
+        want = clone_state(st)
+        plain_ms, _ = timed_ms(lambda: drain.drain_step_plain(want, *outs, step=step,
+                                                              t_max=cfg.t_max))
+        differ = {}
+        for build, ctx in (("default", contextlib.nullcontext), ("precise", _build.precise)):
+            got = clone_state(st)
+            with ctx():
+                drain.drain_step(got, *outs, step=step, t_max=cfg.t_max)
+            torch.cuda.synchronize()
+            differ[build] = [k for k in DRAIN_FIELDS
+                             if not torch.equal(getattr(got, k), getattr(want, k))]
+        times = []
+        for _ in range(3):
+            got = clone_state(st)
+            torch.cuda.synchronize()
+            a, b = gapless_events(lambda: drain.drain_step(got, *outs, step=step,
+                                                           t_max=cfg.t_max))
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        bound_ms, counts = drain_step_bound(st, outs, step)
+        rows.append(dict(step=step, ms=min(times), plain_ms=plain_ms, bound_ms=bound_ms,
+                         differ=differ, **counts))
+        st = want
+    res = dict(lanes=CHUNK, steps=len(rows), live_steps=sum(r["live"] > 0 for r in rows),
+               ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
+               bound_ms=sum(r["bound_ms"] for r in rows), bound_by="bytes",
+               bit_for_bit=all(not any(r["differ"].values()) for r in rows),
+               ms_step0=rows[0]["ms"], bound_ms_step0=rows[0]["bound_ms"],
+               by_step=[{k: r[k] for k in ("step", "ms", "plain_ms", "bound_ms", "live",
+                                           "pushes", "pops", "deaths")} for r in rows])
+    say(phase="drain_vs_plain", size=size_of(HEADLINE), **res)
+    require(res["bit_for_bit"],
+            f"drain_step differs from its plain version: {[(r['step'], r['differ']) for r in rows]}")
+    require(all(r["ms"] > r["bound_ms"] for r in rows),
+            f"drain_step below its bound, a counting error: {res['by_step']}")
+    require(0 < res["live_steps"] < cfg.pops,
+            f"the headline's first chunk: {res['live_steps']} live steps of {cfg.pops}")
+    return res
+
+
+def dead_step(accel, cfg):
+    """One step over 2^20 lanes that are all dead, as a chunk's steps past
+    its end run: K6 alone, the drain kernel alone, both (device ms, least of
+    5, ``device_ms``)."""
+    st = drain.DrainState.create(CHUNK, cfg.queue_capacity, accel.device)
+    st.cur[mega.P_TLIM].fill_(cfg.t_max)
+    kw = step_kw(cfg)
+    outs = mega.mega_step(accel, st.cur, st.lane, **kw)
+
+    def step():
+        drain.drain_step(st, *mega.mega_step(accel, st.cur, st.lane, **kw), step=1,
+                         t_max=cfg.t_max)
+
+    res = dict(lanes=CHUNK, dead_step_ms=device_ms(step, 5),
+               k6_dead_ms=device_ms(lambda: mega.mega_step(accel, st.cur, st.lane, **kw), 5),
+               drain_dead_ms=device_ms(lambda: drain.drain_step(st, *outs, step=1,
+                                                                t_max=cfg.t_max), 5))
+    require(bool((st.lane < 0).all()) and int(st.iters) == 0, "a dead step woke a lane")
+    return res
+
+
+def profiled_idle(render, wall_ms, kernels=()):
+    """A frame under the profiler: the card's busy time (the union of its
+    records) against an unprofiled frame's wall time, and against the
+    profiled span; ``kernels``: (label, name part) pairs whose device time is
+    summed as ``device_<label>_ms``."""
+    records = session_records(render, sys._getframe(1).f_code.co_name)
+    busy, span = busy_and_span(records)
+    res = dict(device_busy_ms=busy, device_idle_share=max(0.0, 1.0 - busy / wall_ms),
+               busy_share_of_span=busy / span if span else None,
+               device_kernels_ms=sum(e.get("dur", 0) for e in records
+                                     if e.get("cat") == "kernel") / 1e3)
+    for label, part in kernels:
+        res[f"device_{label}_ms"] = sum(e.get("dur", 0) for e in records
+                                        if part in e["name"]) / 1e3
+    return res
+
+
+def sync_free(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: True, or
+    the error a synchronising call raised."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as err:
+        return str(err)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return True
+
+
+def drains_sync_free(scene, camera, cfg, accel):
+    """Phase drains_sync_free: a megalanes chunk's steps (K6 and the drain
+    kernel, the full budget: no poll between them) and one work-queue
+    iteration (after one eager iteration built its tables) call nothing that
+    waits for the card."""
+    st = chunk_state(camera, cfg, CHUNK)
+    chunk = sync_free(lambda: megalanes._drain_chunk(accel, st, cfg, cfg.pops))
+    q = workqueue._prepare(scene, camera, cfg, None, workqueue.DEFAULT_CHUNK, 3.2, 0,
+                           scene.device)
+    q.body()
+    iteration = sync_free(q.body)
+    res = dict(megalanes_chunk=chunk, workqueue_iteration=iteration,
+               chunk_iterations=int(st.iters), queue_cursors=q.cursors.tolist())
+    say(phase="drains_sync_free", **res)
+    require(chunk is True and iteration is True, f"a drain synchronises: {res}")
+    del q, st
+    torch.cuda.empty_cache()
+
+
+REPLAY_SWEEP = (4, 8, 16)  # work-queue replay lengths timed in turns
+
+
+def workqueue_frames(scene, camera, cfg):
+    """Phase workqueue_frame: the headline frame through ``render_workqueue``,
+    graphed (the default: two frames, the least timed) beside the eager
+    static loop (``graphs=False``), each with its peak memory, the memory it
+    left allocated, its launches and host reads; the graphed frame's capture
+    seconds and replays; the card's idle share of a profiled graphed frame.
+    The graphed frame equals the eager one: rays, iterations and drops
+    exactly, every pixel within 1e-5 (``index_add_``'s atomics sum in another
+    order)."""
+    res = {}
+    for name, graphs in (("eager", False), ("graphed", True), ("graphed_again", True)):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        ms, out = timed_ms(lambda: workqueue.render_workqueue(scene, camera, cfg, graphs=graphs))
+        out_bytes = sum(x.untyped_storage().nbytes() for x in out.values()
+                        if isinstance(x, torch.Tensor))
+        res[name] = (dict(seconds=ms / 1e3, rays=int(out["rays"]), iterations=out["iterations"],
+                          rays_dropped=int(out["rays_dropped"]), launches=dict(_build.LAUNCHES),
+                          peak_memory_bytes=torch.cuda.max_memory_allocated() - before,
+                          left_allocated_bytes=torch.cuda.memory_allocated() - before - out_bytes,
+                          image_mean=float(out["image"].mean()), **workqueue.LAST), out)
+    eager, oe = res.pop("eager")
+    graphed, og = min(res.values(), key=lambda ro: ro[0]["seconds"])
+    graphed["seconds_other_graphed_frame"] = max(r["seconds"] for r, _ in res.values())
+    err = (og["image"] - oe["image"]).abs().amax(dim=-1)
+    same = dict(rays=graphed["rays"] == eager["rays"],
+                iterations=graphed["iterations"] == eager["iterations"],
+                rays_dropped=graphed["rays_dropped"] == eager["rays_dropped"],
+                pixels_within_1e5=frac(err <= 1e-5), max_abs_err=float(err.max()))
+    graphed.update(profiled_idle(lambda: workqueue.render_workqueue(scene, camera, cfg),
+                                 graphed["seconds"] * 1e3, kernels=(("k2", "sweep2_kernel"),)))
+    # the graphed frame at other replay lengths, in turns with the default
+    default_k, by_k = workqueue.REPLAY_K, {}
+    try:
+        for k in REPLAY_SWEEP + REPLAY_SWEEP[::-1]:
+            workqueue.REPLAY_K = k
+            ms, out = timed_ms(lambda: workqueue.render_workqueue(scene, camera, cfg))
+            r = by_k.setdefault(str(k), dict(seconds=[], iterations=out["iterations"]))
+            r["seconds"].append(ms / 1e3)
+            r.update(capture_seconds=workqueue.LAST["capture_seconds"],
+                     host_reads=workqueue.LAST["host_reads"])
+            del out
+    finally:
+        workqueue.REPLAY_K = default_k
+    graphed["by_replay_k"] = by_k
+    eager.update(profiled_idle(lambda: workqueue.render_workqueue(scene, camera, cfg, graphs=False),
+                               eager["seconds"] * 1e3, kernels=(("k2", "sweep2_kernel"),)))
+    return graphed, eager, same, og
+
 
 
 def k2_sweep_bound(accel, rays, with_ri, with_fields, tests, obj, rows):
@@ -2890,7 +3196,7 @@ def k2_coop_sweep(scene, camera, cfg, keep):
 
     sweep2._sweep2 = keeping
     try:
-        out = workqueue.render_workqueue(scene, camera, cfg)
+        out = workqueue.render_workqueue(scene, camera, cfg, graphs=False)  # calls the wrapper
     finally:
         sweep2._sweep2 = real
     res = coop_sweep_table(calls, k2_simt)
@@ -2980,6 +3286,11 @@ def third_slice_phases(dev, ctx):
     require(not accel_m.has_motion and accel_m.otab.shape[1] == sweep2.OT_COLS,
             "the headline's accel is static")
     k6, pools_h = mega_vs_plain("headline", accel_m, camera, cfg, CHUNK)
+    # the drain kernel against its plain version at every step of a chunk; a
+    # step over dead lanes, which every chunk runs past its end
+    drain_res = drain_vs_plain(accel_m, camera, cfg)
+    dead = dead_step(accel_m, cfg)
+    say(phase="dead_step", size=size_of(HEADLINE), **dead)
 
     # 14. the headline frame through the lane-aligned drain ---------------------
     frames_ml = {}
@@ -2989,11 +3300,22 @@ def third_slice_phases(dev, ctx):
             scene, camera, cfg, chunk=CHUNK, gr=GR, schedule=schedule))
         env = parity(out, uber_frame)
         rays = int(out["rays"])
+        steps = check_drain_launches(f"megalanes frame ({schedule})", launches[-1],
+                                     out["iterations"], cfg, megalanes_chunks(cfg, schedule),
+                                     megalanes.POLL_EVERY)
         frames_ml[schedule] = dict(
             seconds_per_frame_min=min(times), seconds_per_frame_mean=sum(times) / len(times),
             rays=rays, mrays_per_s=rays / min(times) / 1e6, iterations=out["iterations"],
-            image_mean=float(out["image"].mean()), launches_per_frame=launches,
+            image_mean=float(out["image"].mean()), rays_dropped=int(out["rays_dropped"]),
+            launches_per_frame=launches, steps=steps, dead_steps=steps - out["iterations"],
+            dead_step_ms=dead["dead_step_ms"],
+            dead_steps_share_of_frame=(steps - out["iterations"]) * dead["dead_step_ms"]
+            / (min(times) * 1e3),
             peak_memory_bytes=torch.cuda.max_memory_allocated(), against_render_uber=env)
+        frames_ml[schedule].update(profiled_idle(
+            lambda: megalanes.render_megalanes(scene, camera, cfg, chunk=CHUNK, gr=GR,
+                                               schedule=schedule),
+            min(times) * 1e3, kernels=(("k6", "mega_kernel"), ("drain", "drain_kernel"))))
         say(phase="megalanes_frame", schedule=schedule, size=size_of(HEADLINE), chunk=CHUNK,
             **frames_ml[schedule])
         require(abs(rays - SCENE_RAYS) / SCENE_RAYS < 0.02
@@ -3001,11 +3323,13 @@ def third_slice_phases(dev, ctx):
                 f"megalanes frame ({schedule}): {frames_ml[schedule]}")
         check_parity(f"megalanes frame ({schedule}) against render_uber", env)
         for got in launches:
-            require(got == {"mega_step": out["iterations"]},
-                    f"a megalanes frame launches K6 once per iteration: {launches}")
+            check_drain_launches(f"megalanes frame ({schedule})", got, out["iterations"], cfg,
+                                 megalanes_chunks(cfg, schedule), megalanes.POLL_EVERY)
         del out
+    poll_sweep = megalanes_poll_sweep(scene, camera, cfg, dead)
     breakdown, _ = megalanes_breakdown(scene, camera, cfg)
     say(phase="megalanes_breakdown", schedule="natural", **breakdown)
+    drains_sync_free(scene, camera, cfg, accel_m)
     k6_sweep = k6_coop_sweep(scene, camera, cfg)
 
     # 15. the work queue: canary against the queue renderer, then the headline --
@@ -3029,29 +3353,25 @@ def third_slice_phases(dev, ctx):
     require(wq["pixels_within_2e5"] >= 0.995 and wq["rays"] == wq["queue_rays"]
             and wq["rays_dropped"] == 0 and launches_wq == {"sweep2": wq["iterations"]},
             f"workqueue canary: {wq}")
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launches()
-    wq_ms, ow = timed_ms(lambda: workqueue.render_workqueue(scene, camera, cfg))
-    launches_wq_frame = dict(_build.LAUNCHES)
+    wq_frame, wq_eager, wq_same, ow = workqueue_frames(scene, camera, cfg)
+    launches_wq_frame = wq_frame["launches"]
     env = parity(ow, uber_frame)
-    wq_frame = dict(seconds=wq_ms / 1e3, rays=int(ow["rays"]), iterations=ow["iterations"],
-                    mrays_per_s=int(ow["rays"]) / wq_ms / 1e3, launches=launches_wq_frame,
-                    image_mean=float(ow["image"].mean()),
-                    peak_memory_bytes=torch.cuda.max_memory_allocated(), against_render_uber=env)
-    by_kernel = device_ms_by_kernel(lambda: workqueue.render_workqueue(scene, camera, cfg))
-    if by_kernel is None:
-        wq_frame["device_trace"] = "not measured"
-    else:
-        k2_dev = sum(v for k, v in by_kernel.items() if "sweep2_kernel" in k)
-        busy = sum(by_kernel.values())
-        wq_frame.update(device_k2_ms=k2_dev, device_other_kernels_ms=busy - k2_dev,
-                        device_busy_ms=busy, device_idle_share=max(0.0, 1.0 - busy / wq_ms),
-                        kernel_kinds_launched=len(by_kernel))
-    wq_frame["k2"] = workqueue_k2_bound(lambda: workqueue.render_workqueue(scene, camera, cfg))
+    wq_frame.update(mrays_per_s=wq_frame["rays"] / wq_frame["seconds"] / 1e6,
+                    against_render_uber=env, eager_static=wq_eager, graphed_vs_eager=wq_same)
+    # K2's bound summed over its launches: the eager loop calls the wrapper
+    wq_frame["k2"] = workqueue_k2_bound(
+        lambda: workqueue.render_workqueue(scene, camera, cfg, graphs=False))
     say(phase="workqueue_frame", size=size_of(HEADLINE), **wq_frame)
     check_parity("workqueue frame against render_uber", env)
-    require(launches_wq_frame == {"sweep2": ow["iterations"]},
-            f"a workqueue frame launches the sweep once per iteration: {launches_wq_frame}")
+    require(launches_wq_frame == {"sweep2": ow["iterations"]} == wq_eager["launches"],
+            f"a workqueue frame launches the sweep once per iteration: {launches_wq_frame} "
+            f"(eager {wq_eager['launches']})")
+    require(wq_same["rays"] and wq_same["iterations"] and wq_same["rays_dropped"]
+            and wq_same["pixels_within_1e5"] == 1.0,
+            f"the graphed work-queue frame differs from the eager static one: {wq_same}")
+    require(wq_frame["host_reads"] == sum(wq_frame["replays"].values()) <= ow["iterations"]
+            and max(wq_frame["left_allocated_bytes"], wq_eager["left_allocated_bytes"]) <= 1 << 20,
+            f"the work queue's host reads or the memory it left: {wq_frame}")
     del ow, oq
     k2_sweep, wq_first = k2_coop_sweep(scene, camera, cfg, {0, 1, 2})
     require(all(r["ms"] > wq_frame["k2"]["bound_ms"] for r in k2_sweep.values()),
@@ -3159,10 +3479,12 @@ def third_slice_phases(dev, ctx):
     env = parity(om, m_out)
     say(phase="megalanes_motion_frame", size=size_of(MOTION), seconds=ml_ms / 1e3,
         rays=int(om["rays"]), iterations=om["iterations"], launches=launches_mm,
-        against_render_uber=env)
+        against_render_uber=env, dead_step_ms=dead["dead_step_ms"],
+        **profiled_idle(lambda: megalanes.render_megalanes(
+            m_scene, m_camera, m_cfg, chunk=CHUNK, gr=GR, schedule="sorted"), ml_ms))
     check_parity("megalanes motion frame against render_uber", env)
-    require(launches_mm == {"mega_step_m": om["iterations"]},
-            f"the motion frame through the drain launches K6 MOTION: {launches_mm}")
+    check_drain_launches("megalanes motion frame", launches_mm, om["iterations"], m_cfg,
+                         megalanes_chunks(m_cfg, "sorted"), megalanes.POLL_EVERY, k6="mega_step_m")
     del om
 
     # 17. a moving generic scene: uber_kernel<generic, motion> -------------------
@@ -3252,10 +3574,25 @@ def third_slice_phases(dev, ctx):
                                   for i, r in res.items()},
                     **({} if frame is None else dict(at_megalanes_frame=frame)))
 
+    drain_entry = dict(
+        name="drain_step", route="cuda", source=src + "drain.cu",
+        replaces="raytracing_tests_tpu/ops/megalanes.py:74",
+        note="no TPU kernel: the XLA fusion of the drain's loop body (megalanes.py:74-122)",
+        launches=frames_ml["natural"]["launches_per_frame"][-1]["drain_step"],
+        launches_by_path=by_path("drain_step"), max_abs_err=0.0,
+        tolerance="bit for bit, the default and the -fmad=false build, every state field",
+        frac_within_tolerance=1.0, ms=drain_res["ms"], plain_ms=drain_res["plain_ms"],
+        bound_ms=drain_res["bound_ms"], bound_by="bytes", library_ms=None,
+        ms_step0=drain_res["ms_step0"], bound_ms_step0=drain_res["bound_ms_step0"],
+        dead_ms=dead["drain_dead_ms"],
+        poll_sweep_natural_ms={k: r["ms_min"] for k, r in poll_sweep["natural"].items()},
+        shape=f"{CHUNK} lanes, every step of the headline's first chunk ({cfg.pops}), summed")
+
     tol_k1 = ("per sample as the static instantiations: primary t rtol 1e-4 on >= 99.9 %, colours "
               "within 1e-4 on >= 85 % and 5e-2 on >= 97 %, channel means within 5e-3, ray count "
               "within 0.5 %; the -fmad=false build within 1e-4 on >= 99.9 %")
     return [
+        drain_entry,
         k6_entry("mega_step", frames_ml["natural"]["launches_per_frame"][-1]["mega_step"], k6,
                  f"{CHUNK} lanes, the headline's first chunk at iteration 0",
                  frame=frame_sweep(k6_sweep["by_coop_min"], mega.COOP_MIN,

@@ -76,6 +76,12 @@ inline V atomicAdd(V* p, V v) {
   *p += v;
   return old;
 }
+template <class V>
+inline V atomicMax(V* p, V v) {
+  const V old = *p;
+  if (v > old) *p = v;
+  return old;
+}
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;

@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``ops/megalanes.py``.  The frame's lanes
 (pixel x sample) are drained in chunks of ``chunk`` lanes; within a chunk
-every per-ray record stays AT ITS LANE for the whole drain:
+every per-ray record stays AT ITS LANE for the whole drain (the state is
+``kernels.drain.DrainState``, on the device):
 
   - ``cur``   (16, C): the ray each lane is tracing right now (pool layout,
     see ``kernels.mega``).
@@ -13,10 +14,19 @@ every per-ray record stays AT ITS LANE for the whole drain:
     reflection first: the same LIFO order).
   - Colour accumulates with a dense aligned add.
 
-One iteration is one launch of the chunked megakernel (``kernels.mega.
-mega_step``) plus a dozen elementwise passes over the chunk; a chunk ends when
-no lane is alive (one host read per iteration) or after ``cfg.pops``
-iterations.
+One step is two launches: the chunked megakernel (``kernels.mega.mega_step``,
+K6) and the drain's bookkeeping (``kernels.drain.drain_step``), which
+updates the state in place.  No step waits for the one before it on the
+host.  A chunk ends by a lagged poll: every ``POLL_EVERY`` steps the chunk's
+iteration counter is copied to pinned host memory behind an event, and the
+host reads a copy only when it is ``POLL_EVERY`` steps old (``_poll``), so
+the card always holds queued steps.  K6 on a chunk whose lanes are all dead
+adds nothing and spawns nothing, so the at most ``2 * POLL_EVERY`` steps a
+chunk runs past its end change nothing but time.  The counts
+(``iterations``: the steps that began with a live lane, what the JAX
+package's ``cond`` counts; ``rays``; ``rays_dropped``) stay on the device,
+and the frame reads them once, at its end (``_read_counts``), as the
+reference's one ``jit`` does.
 
 Scope (refused otherwise): sphere-mode scene, 'bvh' shading, no lights, no
 textures.  ``ops.render`` remains the fully-featured path and
@@ -29,78 +39,74 @@ import dataclasses
 
 import torch
 
-from raytracing_tests_tpu_torch.kernels import mega
-from raytracing_tests_tpu_torch.kernels.mega import POOL_ROWS, mega_step
+from raytracing_tests_tpu_torch.kernels.drain import DrainState, drain_step
+from raytracing_tests_tpu_torch.kernels.mega import mega_step
 from raytracing_tests_tpu_torch.kernels.sweep2 import make_accel2
 from raytracing_tests_tpu_torch.ops.render import RenderConfig, _lane_inputs, finalize
 from raytracing_tests_tpu_torch.utils.device import resolve_device
 
 DEFAULT_CHUNK = 1 << 20
-QUEUE_ROWS = 8  # o(3) d(3) contrib bounced: what a stacked record keeps
+# Steps between two copies of a chunk's iteration counter, and the age of the
+# copy the host reads: the fastest of 1 to 4 and the full budget on the
+# headline's frames in both schedules (PERF.md; a step past a chunk's end
+# costs 0.09 ms at 2^20 lanes, and the full budget runs 163 of them).
+POLL_EVERY = 2
 
 
-def _drain_chunk(accel, cur, lane, cfg: RenderConfig):
-    """Drain one chunk of lanes to completion; returns
-    (color (3, C), primary_t (C,), rays_per_lane (C,) i32, iters, dropped)."""
-    C = cur.shape[1]
-    Q = cfg.queue_capacity
-    dev = cur.device
-    f32 = torch.float32
+def _read_counts(*counts) -> list:
+    """The frame's one host read: the 0-dim device counters as ints."""
+    return torch.stack([c.to(torch.int64) for c in counts]).tolist()
 
-    # Queued records keep only the 8 live rows (o, d, contrib, bounced): omt is
-    # a per-lane constant and t_limit is cfg.t_max for every child, both put
-    # back on pop.  Slot Q is scratch: lanes that do not push write there.
-    omt_row = cur[mega.P_OMT:mega.P_OMT + 1].clone()
-    tmax_row = torch.full((1, C), cfg.t_max, dtype=f32, device=dev)
-    spare = torch.zeros((POOL_ROWS - 10, C), dtype=f32, device=dev)
-    queue = torch.zeros((Q + 1, QUEUE_ROWS, C), dtype=f32, device=dev)
-    qsize = torch.zeros((C,), dtype=torch.int64, device=dev)
-    color = torch.zeros((3, C), dtype=f32, device=dev)
-    primary_t = torch.full((C,), cfg.t_max, dtype=f32, device=dev)
-    rays = torch.zeros((C,), dtype=torch.int32, device=dev)
-    dropped = torch.zeros((), dtype=torch.int64, device=dev)
-    none = torch.full_like(lane, -1)
 
-    it = 0
-    while it < cfg.pops and bool((lane >= 0).any()):
+def _snapshot(iters):
+    """The counter's value now, copied behind the queued steps: (pinned host
+    copy, event after the copy) on the card, a clone on the CPU."""
+    if iters.device.type != "cuda":
+        return iters.clone(), None
+    host = torch.empty((), dtype=iters.dtype, pin_memory=True)
+    host.copy_(iters, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def _poll(snapshot) -> int:
+    """A chunk's host read: waits for the snapshot's event (steps old by
+    then) and returns the counter's value."""
+    host, event = snapshot
+    if event is not None:
+        event.synchronize()
+    return int(host)
+
+
+def _drain_chunk(accel, st: DrainState, cfg: RenderConfig, poll_every=None) -> int:
+    """Drain the chunk loaded into ``st``: steps of K6 and the drain kernel,
+    at most ``cfg.pops``, until a lagged poll every ``poll_every`` steps
+    (default ``POLL_EVERY``) finds the chunk ended (see the module
+    docstring); a period of ``cfg.pops`` or more runs the full budget and
+    reads nothing.  The results stay in ``st`` (``color``,
+    ``primary_t``, ``rays``, ``iters``, ``dropped``).  Returns the steps run.
+
+    The counter after step s is s + 1 while the chunk lives and stops
+    growing when it ends, so a copy taken after step s that reads less than
+    s + 1 says that step s began with every lane dead."""
+    poll_every = POLL_EVERY if poll_every is None else poll_every
+    if poll_every < 1:
+        raise ValueError(f"poll_every={poll_every}: a period of at least one step")
+    pending = []
+    for step in range(cfg.pops):
         misc, refr, refl, rlane, llane = mega_step(
-            accel, cur, lane, has_dielectrics=cfg.has_dielectrics, spp=cfg.spp,
+            accel, st.cur, st.lane, has_dielectrics=cfg.has_dielectrics, spp=cfg.spp,
             max_bounces=cfg.max_bounces, t_max=cfg.t_max, bg=cfg.background)
-
-        active = lane >= 0
-        color = color + misc[0:3]  # the kernel zeroes inactive lanes
-        if it == 0:
-            primary_t = torch.where(active, misc[3], primary_t)
-        rays = rays + active.to(torch.int32)  # per-lane ray-tree size
-
-        has_refl = llane >= 0
-        has_refr = rlane >= 0
-
-        # Both children: the refraction waits on the per-lane stack while the
-        # reflection continues in place (reference LIFO order).
-        push = has_refl & has_refr
-        can = qsize < Q
-        do_push = push & can
-        dropped = dropped + torch.sum(push & ~can)
-        refr8 = torch.cat([refr[0:6], refr[8:10]])
-        slot = torch.where(do_push, qsize, torch.full_like(qsize, Q))
-        queue.scatter_(0, slot.expand(1, QUEUE_ROWS, C), refr8[None])
-        qsize = qsize + do_push.to(torch.int64)
-
-        # Continue in place, else pop the stack, else the lane dies.
-        need_pop = active & ~has_refl & ~has_refr
-        do_pop = need_pop & (qsize > 0)
-        top = torch.clamp_min(qsize - 1, 0)
-        popped8 = torch.gather(queue, 0, top.expand(1, QUEUE_ROWS, C))[0]
-        popped8 = torch.where(do_pop, popped8, torch.zeros_like(popped8))
-        qsize = qsize - do_pop.to(torch.int64)
-        popped = torch.cat([popped8[0:6], omt_row, tmax_row, popped8[6:8], spare])
-
-        cur = torch.where(has_refl, refl, torch.where(has_refr, refr, popped))
-        lane = torch.where(has_refl | has_refr | do_pop, lane, none)
-        it += 1
-
-    return color, primary_t, rays, it, dropped
+        drain_step(st, misc, refr, refl, rlane, llane, step=step, t_max=cfg.t_max)
+        if (step + 1) % poll_every or step + 1 == cfg.pops:
+            continue
+        pending.append((step, _snapshot(st.iters)))
+        if len(pending) > 1:
+            old_step, snapshot = pending.pop(0)
+            if _poll(snapshot) <= old_step:
+                return step + 1
+    return cfg.pops
 
 
 def _init_chunk(o, d, time_ratio, lane, cfg: RenderConfig):
@@ -119,11 +125,16 @@ def _init_chunk(o, d, time_ratio, lane, cfg: RenderConfig):
 
 def _drain_lanes(accel, o, d, time_ratio, ids, cfg: RenderConfig, C: int):
     """Drain a flat lane population in chunks of C; returns
-    (rgb (3, B), primary_t (B,), rays_per_lane (B,), iters, dropped)."""
+    (rgb (3, B), primary_t (B,), rays_per_lane (B,) i32, iterations, dropped),
+    the last two 0-dim device tensors."""
     B = o.shape[0]
-    colors, pts, rayss = [], [], []
-    iters = 0
-    dropped = torch.zeros((), dtype=torch.int64, device=o.device)
+    dev = o.device
+    n = -(-B // C)
+    st = DrainState.create(C, cfg.queue_capacity, dev)
+    rgb = torch.empty((3, n * C), dtype=torch.float32, device=dev)
+    primary_t = torch.empty((n * C,), dtype=torch.float32, device=dev)
+    rays = torch.empty((n * C,), dtype=torch.int32, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
     for c0 in range(0, B, C):
         sl = slice(c0, c0 + C)
         co, cd, ctr, lane = o[sl], d[sl], time_ratio[sl], ids[sl]
@@ -133,15 +144,13 @@ def _drain_lanes(accel, o, d, time_ratio, ids, cfg: RenderConfig, C: int):
             cd = torch.nn.functional.pad(cd, (0, 0, 0, pad))
             ctr = torch.nn.functional.pad(ctr, (0, pad))
             lane = torch.nn.functional.pad(lane, (0, pad), value=-1)
-        col, pt, r, it, dr = _drain_chunk(
-            accel, _init_chunk(co, cd, ctr, lane, cfg), lane.contiguous(), cfg)
-        colors.append(col)
-        pts.append(pt)
-        rayss.append(r)
-        iters += it
-        dropped = dropped + dr
-    rgb = torch.cat(colors, dim=1)[:, :B]
-    return rgb, torch.cat(pts)[:B], torch.cat(rayss)[:B], iters, dropped
+        st.load(_init_chunk(co, cd, ctr, lane, cfg), lane, cfg.t_max)
+        _drain_chunk(accel, st, cfg)
+        rgb[:, c0:c0 + C].copy_(st.color)
+        primary_t[c0:c0 + C].copy_(st.primary_t)
+        rays[c0:c0 + C].copy_(st.rays)
+        iters.add_(st.iters)
+    return rgb[:, :B], primary_t[:B], rays[:B], iters, st.dropped
 
 
 def render_megalanes(scene, camera, cfg: RenderConfig, lights=None,
@@ -152,7 +161,8 @@ def render_megalanes(scene, camera, cfg: RenderConfig, lights=None,
 
     ``schedule='sorted'`` runs a 1-spp prepass that measures each PIXEL's
     ray-tree size, then drains pixels in sorted-workload order so every chunk
-    carries near-uniform trees and ends early together.  Results are
+    carries near-uniform trees and ends together (the JAX package's chunks
+    then exit early; here they run fewer live steps).  Results are
     un-permuted with one pixel-level gather.  ``device=None`` means CUDA
     (raises when absent); ``device="cpu"`` runs the plain versions."""
     dev = resolve_device(device)
@@ -176,7 +186,7 @@ def render_megalanes(scene, camera, cfg: RenderConfig, lights=None,
     o, d, time_ratio, _ = _lane_inputs(camera, cfg)
     ids = torch.arange(B, dtype=torch.int32, device=dev)
 
-    iters = 0
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
     perm = None
     if schedule == "sorted" and S > 1:
         pre_cfg = dataclasses.replace(cfg, spp=1)
@@ -194,6 +204,7 @@ def render_megalanes(scene, camera, cfg: RenderConfig, lights=None,
         accel, o, d, time_ratio, ids, cfg, C)
     del o, d
     rays = torch.sum(rays_lane.to(torch.int64))
+    iterations, = _read_counts(iters + dit)
 
     if perm is not None:
         inv = torch.argsort(perm)
@@ -202,6 +213,6 @@ def render_megalanes(scene, camera, cfg: RenderConfig, lights=None,
 
     out = finalize(rgb.T.reshape(H, W, S, 3), primary_t.reshape(H, W, S), cfg)
     out["rays"] = rays
-    out["iterations"] = iters + dit
+    out["iterations"] = iterations
     out["rays_dropped"] = dropped
     return out

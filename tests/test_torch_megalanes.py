@@ -162,3 +162,56 @@ def test_megalanes_refuses_what_the_path_does_not_render(scenes, what):
         kw["schedule"], err = "random", ValueError
     with pytest.raises(err):
         render_megalanes(scene, cam, cfg, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("schedule,poll", [("natural", "default"), ("sorted", "default"),
+                                           ("natural", "full"), ("sorted", "full")])
+def test_the_host_reads_and_the_steps_of_a_frame(scenes, port_frames, schedule, poll,
+                                                 monkeypatch):
+    """Each step is one K6 and one drain step.  Under the lagged poll a chunk
+    reads its counter at most once every ``POLL_EVERY`` steps and runs at
+    most 2 x ``POLL_EVERY`` steps past its end; under the full budget every
+    chunk runs ``cfg.pops`` steps and nothing is read but the frame's counts,
+    once, at its end (``_read_counts``).  The image and counts are those of
+    the module's frames."""
+    from raytracing_tests_tpu_torch.ops import megalanes
+
+    s = scenes
+    pops = s["tcfg"].pops
+    every = megalanes.POLL_EVERY if poll == "default" else pops
+    monkeypatch.setattr(megalanes, "POLL_EVERY", every)
+    reads, polls, steps = [], [], {"mega_step": 0, "drain_step": 0}
+    real = {name: getattr(megalanes, name) for name in ("_read_counts", "_poll", *steps)}
+
+    def counting(name):
+        def fn(*a, **k):
+            if name == "_read_counts":
+                reads.append(len(a))
+            elif name == "_poll":
+                polls.append(1)
+            else:
+                steps[name] += 1
+            return real[name](*a, **k)
+        return fn
+
+    for name in real:
+        setattr(megalanes, name, counting(name))
+    try:
+        out = render_megalanes(s["ts"], s["tc"], s["tcfg"], chunk=CHUNK, schedule=schedule,
+                               device="cpu")
+    finally:
+        for name, fn in real.items():
+            setattr(megalanes, name, fn)
+    chunks = N_CHUNKS[schedule]
+    assert reads == [1]
+    assert steps["mega_step"] == steps["drain_step"]
+    it = out["iterations"]
+    assert isinstance(it, int)
+    if poll == "full":
+        assert polls == [] and steps["mega_step"] == chunks * pops
+    else:
+        assert it < steps["mega_step"] <= min(chunks * pops, it + 2 * every * chunks)
+        assert len(polls) <= steps["mega_step"] // every
+    ref = port_frames[schedule]
+    assert torch.equal(out["image"], ref["image"]) and it == ref["iterations"]
+    assert int(out["rays"]) == int(ref["rays"])
