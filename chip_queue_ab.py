@@ -1,7 +1,7 @@
-"""The queue renderer's forward frames, the unbanded gradient steps and the
-two chunked renderers' headline frames of several checkouts of the port,
-side by side on one NVIDIA GPU: wall time and the device time of every
-kernel.
+"""The queue renderer's forward frames, the unbanded and the banded gradient
+steps and the two chunked renderers' headline frames of several checkouts of
+the port, side by side on one NVIDIA GPU: wall time and the device time of
+every kernel.
 
 Run from the repository root, with each checkout's root as an argument:
 
@@ -28,9 +28,35 @@ that root's sources.  Workloads, at the sizes ``chip_smoke.py`` drives them:
 - ``workqueue_frame``: ``render_workqueue`` of the same frame (K2), as the
   checkout runs it by default;
 - ``megalanes_motion``: ``render_megalanes`` of ``motion_blur_scene()`` at
-  800x450x16 spp, depth 8, sorted (K6's MOTION instantiation).
+  800x450x16 spp, depth 8, sorted (K6's MOTION instantiation);
+- ``grad``, ``grad_soft``, ``generic_hard``: one step of
+  ``diff.banded_value_and_grad`` as ``chip_smoke.py``'s ``grad_frame``,
+  ``grad_soft_frame`` and ``grad_generic_soft`` (hard) build it, 800x450x16
+  spp, depth 8, 25 bands, band depths probed + 2: ``iow_final_scene()``
+  with colours x 0.8 + 0.1 (K2), the same with soft edges 0.03 (K2's
+  silhouette instantiation), ``bvh_grid_scene(side=32)`` with positions
+  moved by up to 0.1 (K3); on the card each depth bucket's band is a
+  captured CUDA graph, so the warm call captures and the timed ones replay;
+  the loss and each field's largest |gradient| are printed beside the times;
+- ``grad_eager``: ``grad``'s step with ``graphs=False``, the same static
+  bands run eagerly (host-bound: some 18 000 launches a band);
+- ``recompute_pop``: the gradient path's differentiable recompute alone,
+  ``diff.fastpath.intersect_diff`` and the backward of a sum of its
+  outputs, on ``grad``'s scene with its parameters as leaves: on one band's
+  230 400 primary lanes (timed like the others), and on 4 096 of them
+  ``RECOMPUTE_ITERS`` times in a row with one synchronise at the end, whose
+  seconds per pop are the host's cost of a pop where the card has little to
+  do;
+- ``grad_split``: ``grad``'s deepest band once, eagerly, under a profiler
+  session that records the operators' input shapes: the device time of
+  every ``aten::index_add_`` by its destination's shape, assigned to the
+  winner gathers' backward (destination rows = the scene's capacity), the
+  queue pop's ``index_select`` backward (destination rows = (Q + 1) times
+  the band's lanes) or other.  A replayed graph launches no operator, so
+  the shapes come from the eager band (the same kernels).
 
-``--only a,b`` runs the named workloads alone.
+``--only a,b`` runs the named workloads alone; ``--reps n`` times each n
+times (default ``REPS``).
 
 Each workload runs once to warm, ``REPS`` times timed by the host clock
 around a synchronise, then once under ``torch.profiler``.  From that trace:
@@ -54,13 +80,18 @@ import tempfile
 import time
 
 REPS = 3
+RECOMPUTE_ITERS = 200
 TOP = 30  # kernels printed per workload, by device time
 DEVICE_RECORDS = ("kernel", "gpu_memcpy", "gpu_memset")
 FRAME = dict(width=800, height=450, spp=16, max_bounces=8)
 STEP = dict(width=800, height=450, spp=2, max_bounces=8)
 HEADLINE = dict(width=800, height=450, spp=100, max_bounces=8)
+GRAD = dict(width=800, height=450, spp=16, max_bounces=8)
+SOFT = 0.03
 WORKLOADS = ("bvh_queue_frame", "dense_generic_frame", "unbanded_step", "sharded_step",
-             "megalanes_natural", "megalanes_sorted", "workqueue_frame", "megalanes_motion")
+             "megalanes_natural", "megalanes_sorted", "workqueue_frame", "megalanes_motion",
+             "grad_split", "grad", "grad_soft", "generic_hard", "grad_eager", "recompute_pop")
+GRAD_WORKLOADS = ("grad_split", "grad", "grad_soft", "generic_hard", "grad_eager")
 
 
 def _pad(n: int) -> None:
@@ -184,6 +215,176 @@ def child(root: str, only) -> None:
         cfg = RenderConfig(intersector="pallas", **FRAME).for_scene(scene)
         drain_frame(say, "megalanes_motion", lambda: render_megalanes(
             scene, cam, cfg, chunk=1 << 20, gr=64, schedule="sorted"))
+    if set(GRAD_WORKLOADS) & only:
+        grad_workloads(say, dev, only)
+    if "recompute_pop" in only:
+        recompute_pop(say, dev)
+
+
+def grad_inputs(dev, scene_cam, perturb, soft=0.0) -> dict:
+    """A gradient frame as ``chip_smoke.grad_inputs`` builds it: the forward
+    render is the target, ``perturb`` makes the trained scene, the bands by
+    the port's bench, band depths probed on the gradient path + POPS_MARGIN.
+    A copy, not an import: ``chip_smoke.py`` exits at import without a card
+    and imports the package of its own checkout, where a child here imports
+    the package of the root it was given (a parent's among them)."""
+    import dataclasses
+
+    from raytracing_tests_tpu_torch import diff
+    from raytracing_tests_tpu_torch.bench import grad_bands
+    from raytracing_tests_tpu_torch.ops.render import RenderConfig, render_stats
+
+    scene, cam = (x.to(dev) for x in scene_cam)
+    cfg = dataclasses.replace(RenderConfig(intersector="pallas", **GRAD).for_scene(scene),
+                              soft_edges=soft)
+    pert = perturb(scene)
+    bands = grad_bands(cfg)
+    pops = [q + diff.train.POPS_MARGIN for q in diff.probe_band_pops(pert, cam, cfg, bands)]
+    return dict(cam=cam, cfg=cfg, pert=pert, p=diff.extract_params(pert), bands=bands,
+                pops=pops, target=render_stats(scene, cam, cfg)["image"])
+
+
+def index_add_split(fn, n_rows: int, pop_rows: int) -> dict:
+    """``fn()`` under a profiler session with the operators' input shapes ->
+    the device ms and calls of ``aten::index_add_`` by destination shape,
+    each assigned to the winner gathers (``n_rows`` rows), the queue pop
+    (``pop_rows`` rows) or other, and the ``indexFuncLargeIndex`` kernels'
+    device ms by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    device_ms = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                                  getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        _pad(256)
+        fn()
+        torch.cuda.synchronize()
+        _pad(256)
+    by_shape, by_kind = [], dict(winner_gathers=0.0, queue_pop=0.0, other=0.0)
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key != "aten::index_add_":
+            continue
+        dest = list(e.input_shapes[0]) if e.input_shapes else []
+        kind = ("winner_gathers" if dest[:1] == [n_rows] else
+                "queue_pop" if dest[:1] == [pop_rows] else "other")
+        by_kind[kind] += device_ms(e)
+        by_shape.append(dict(destination=dest, kind=kind, calls=e.count, device_ms=device_ms(e)))
+    kernels = {e.key[:110]: [device_ms(e), e.count] for e in prof.key_averages()
+               if "indexFuncLargeIndex" in e.key}
+    total = sum(by_kind.values())
+    return dict(index_add_device_ms=by_kind, index_add_device_ms_total=total,
+                pop_share=by_kind["queue_pop"] / total if total else None,
+                by_destination=sorted(by_shape, key=lambda r: -r["device_ms"]),
+                index_func_kernels=kernels)
+
+
+def grad_workloads(say, dev, only) -> None:
+    """The gradient workloads (see the docstring)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from raytracing_tests_tpu_torch import diff
+    from raytracing_tests_tpu_torch.scene import examples
+
+    recolour = lambda s: s.replace(color=s.color * 0.8 + 0.1)  # noqa: E731
+    rng = np.random.default_rng(0)
+
+    def jitter(s):
+        dpos = rng.uniform(-0.1, 0.1, tuple(s.position.shape)).astype(np.float32)
+        return s.replace(position=s.position + torch.from_numpy(dpos).to(s.position.device))
+
+    frames = {}
+    if {"grad_split", "grad", "grad_soft", "grad_eager"} & only:
+        frames["grad"] = grad_inputs(dev, examples.iow_final_scene(), recolour)
+        frames["grad_soft"] = dict(frames["grad"], cfg=dataclasses.replace(
+            frames["grad"]["cfg"], soft_edges=SOFT))
+        frames["grad_eager"] = frames["grad"]
+    if "generic_hard" in only:
+        # probed with soft edges, then run hard, as chip_smoke.py's grad_generic_soft does
+        hard = grad_inputs(dev, examples.bvh_grid_scene(side=32), jitter, soft=SOFT)
+        frames["generic_hard"] = dict(hard, cfg=dataclasses.replace(hard["cfg"], soft_edges=0.0))
+    if "grad_split" in only:
+        g = frames["grad"]
+        vg = diff.banded_value_and_grad(g["pert"], g["cam"], g["cfg"], grad_bands=g["bands"],
+                                        band_pops=g["pops"], graphs=False)
+        vg(g["p"], g["target"])
+        deepest = max(range(g["bands"]), key=lambda b: g["pops"][b])
+        lanes = g["cfg"].height // g["bands"] * g["cfg"].width * g["cfg"].spp
+        pop_rows = (g["cfg"].queue_capacity + 1) * lanes
+        say(workload="grad_split", band=deepest, pops=g["pops"][deepest],
+            scene_rows=int(g["pert"].capacity), pop_rows=pop_rows,
+            **index_add_split(lambda: vg.last.band(deepest), int(g["pert"].capacity),
+                              pop_rows))
+        del vg
+    for name in ("grad", "grad_soft", "generic_hard", "grad_eager"):
+        if name not in only:
+            continue
+        g = frames[name]
+        if name == "grad_soft":
+            g["pops"] = [q + diff.train.POPS_MARGIN for q in diff.probe_band_pops(g["pert"], g["cam"], g["cfg"],
+                                                            g["bands"])]
+        vg = diff.banded_value_and_grad(g["pert"], g["cam"], g["cfg"], grad_bands=g["bands"],
+                                        band_pops=g["pops"], graphs=name != "grad_eager")
+        got = {}
+
+        def step():
+            got["out"] = vg(g["p"], g["target"])
+
+        res = measured(step)
+        loss, grads = got["out"]
+        say(workload=name, band_pops=g["pops"], loss=float(loss),
+            max_abs_grad={n: float(v.abs().max()) for n, v in grads.items()}, **res)
+        vg.release()
+
+
+def recompute_pop(say, dev) -> None:
+    """The ``recompute_pop`` workload (see the docstring)."""
+    import torch
+
+    from raytracing_tests_tpu_torch import diff
+    from raytracing_tests_tpu_torch.diff import fastpath
+    from raytracing_tests_tpu_torch.diff.train import _diff_cfg
+    from raytracing_tests_tpu_torch.ops.render import RenderConfig, _build_accel, _lane_inputs
+    from raytracing_tests_tpu_torch.scene import examples
+
+    scene, cam = (x.to(dev) for x in examples.iow_final_scene())
+    cfg = _diff_cfg(RenderConfig(intersector="pallas", **GRAD).for_scene(scene))
+    pert = scene.replace(color=scene.color * 0.8 + 0.1)
+    leaves = diff.extract_params(pert).map(lambda v: v.detach().clone().requires_grad_(True))
+    tensors = [v for _, v in leaves.items()]
+    s = diff.apply_params(pert, leaves)
+    accel = _build_accel(s, cfg)
+    o, d, tr, _ = _lane_inputs(cam, cfg)
+    lanes = cfg.height // 25 * cfg.width * cfg.spp
+    band = slice(12 * lanes, 13 * lanes)  # the middle band's lanes
+    o, d, tr = o[band], d[band], tr[band]
+    t_limit = torch.full((lanes,), float("inf"), device=dev)
+
+    def pop(n):
+        h, f, _ = fastpath.intersect_diff(accel, s, o[:n], d[:n], tr[:n], t_limit[:n])
+        hit = h.hit[:, None]
+        loss = (torch.where(h.hit, h.t, 0.0).sum() + torch.where(hit, h.normal, 0.0).sum()
+                + torch.where(hit, h.local_pos, 0.0).sum()
+                + f.color.sum() + f.refractive_index.sum() + f.refractivity.sum()
+                + f.reflectivity.sum() + f.scatter_refract.sum() + f.scatter_reflect.sum())
+        torch.autograd.grad(loss, tensors, allow_unused=True)
+
+    small = 4096
+    pop(small)
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        for _ in range(RECOMPUTE_ITERS):
+            pop(small)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) / RECOMPUTE_ITERS)
+    say(workload="recompute_pop", lanes=lanes, host_lanes=small,
+        host_seconds_per_pop=host, host_seconds_per_pop_min=min(host),
+        **measured(lambda: pop(lanes)))
 
 
 def drain_frame(say, name, fn) -> None:
@@ -200,7 +401,11 @@ def main() -> int:
         print("chip_queue_ab.py needs a CUDA device: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
+    global REPS
     args = sys.argv[1:]
+    if len(args) > 1 and args[0] == "--reps":
+        REPS = int(args[1])
+        args = args[2:]
     only = list(WORKLOADS)
     if len(args) > 1 and args[0] == "--only":
         only = args[1].split(",")
@@ -222,8 +427,9 @@ def main() -> int:
             return 2
     failed = 0
     for root in roots:
-        failed |= subprocess.call([sys.executable, os.path.abspath(__file__), "--only",
-                                   ",".join(only), "--child", os.path.abspath(root)],
+        failed |= subprocess.call([sys.executable, os.path.abspath(__file__), "--reps",
+                                   str(REPS), "--only", ",".join(only), "--child",
+                                   os.path.abspath(root)],
                                   cwd=os.path.abspath(root)) != 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())

@@ -24,7 +24,9 @@ records; and the later slices' paths, down to the fourteenth's: the numpy
 oracle against the sweeps on the card, the normals view, progressive tiles
 and the LBVH walk with its native host build; and the fifteenth's: the compute
 workloads, the watch loop, the port's bench and the utilities.
-It prints one JSON object per phase.  The last line is
+It prints one JSON object per phase, each with ``elapsed_s``, the seconds
+since the script started (phase ``script``: the whole run, against the 1200 s it may
+take).  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the exit code
 is non-zero and no result line is printed; without CUDA it fails at once.
 The whole script takes about ten minutes on one H100.
@@ -233,17 +235,22 @@ Phases and their bars:
      ``* 0.8 + 0.1``, the queue renderer's frame as the target, 25 bands of 18
      rows (the 300 k-sample rule), band depths probed + 2, through
      ``banded_value_and_grad`` and the kernels (K2 behind
-     ``fastpath._winner``) on the card's path, the graphed step: each depth
+     ``fastpath._winner``, the winner gather's pair behind the recompute)
+     on the card's path, the graphed step: each depth
      bucket's band captured once as a CUDA graph, then replayed band by band;
      once more in the -fmad=false build and once eagerly with the sweeps
-     routed to their plain versions on the card (``plain_sweeps``): the
+     and the winner gather routed to their plain versions on the card
+     (``plain_sweeps``): the
      -fmad=false build's loss within GRAD_PRECISE's rtol 1e-5 and every
      field's gradient within 1e-3 of its max |g|; the default build by
      GRAD_DEFAULT (its reason there).  Seconds per step (the least of three
      replayed steps), forward rays and seconds, band depths, peak memory,
      K2's launches and its device time over a replayed step (from the
-     trace: a replay calls no wrapper), and the deepest band's device busy
-     share (``torch.profiler`` over a replay of its graph).
+     trace: a replay calls no wrapper), the winner gather's two kernels'
+     likewise, and the deepest band's device busy share (``torch.profiler``
+     over a replay of its graph) with its ``index_add_`` time by destination
+     (``index_add_split``, from the eager band: a replay launches no
+     operator), of which the winner gathers' ((N,) and (N, 3)) must be 0.
   grad_graph. The same steps: the graphed step against the eager static
      step (``graphs=False``: the same static bands, no graph) by GRAD_GRAPH
      in both builds; the capturing step's seconds, three replayed steps'
@@ -251,10 +258,11 @@ Phases and their bars:
      eager (wall by the host clock; from one profiled run the card's busy
      time as the union of its kernel intervals over their span, the idle
      share of that span, the kernels that take the most); peak memory of
-     both; the launch counts of a replayed step equal the eager step's and
-     one sweep a pop of every band (``_build.LaunchRecord``), and the trace
-     of a replayed step holds that many records of the port's kernels (in
-     every graphed phase); one eager static band under
+     both; the launch counts of a replayed step equal the eager step's:
+     a pop of every band launches one sweep, one winner gather and one
+     winner scatter (``_build.LaunchRecord``, ``grad_launches``), and the
+     trace of a replayed step holds that many records of the port's kernels
+     (in every graphed phase); one eager static band under
      ``torch.cuda.set_sync_debug_mode("error")`` raises nothing.
   grad_soft_frame, grad_generic_soft, grad_motion_soft. The same frame with
      ``soft_edges`` 0.03 (K2's EDGE instantiation); ``bvh_grid_scene(side=32)``
@@ -262,12 +270,24 @@ Phases and their bars:
      behind ``_winner``); ``motion_blur_scene()`` and a moving
      ``groups_scene()``, soft (the two moving EDGE instantiations), each
      graphed (captured, then one replayed step timed): finite gradients,
-     each step running its one sweep instantiation only, once a pop; each
+     each step running its one sweep instantiation and the winner gather's
+     pair only, each once a pop; each
      step's sweep device time from the trace of one more replayed step; on
      bvh1k K3's bound summed over the hard step's launches from their own
      counters and its SIMT efficiency (live rows / lane slots) over each
      step at the default coop_min and at 1 (those two eagerly: every launch
      timed in each schedule).
+  winner_gather_vs_plain. The winner gather's kernels on the inputs of the
+     deepest band's first pop (``first_pop_gather``: its 230 400 lanes and
+     winners, the packed table and the gradient the backward gets), of the
+     grad frame (488 rows) and of the hard bvh1k frame (1 032 rows: a 70 KB
+     tile), in both builds, the backward in its tile mode and in its global
+     mode (a shared-memory budget of 0): the forward bit for bit
+     ``winner_gather_plain``, every (row, column) of the backward within
+     SCATTER_OF_SUM_ABS (1e-5) of its sum of |g| of a float64 ``index_add_``;
+     device ms (cold L2, least of 3) above the bound by bytes, the plain
+     version's and the library's (one ``index_select`` a field, one
+     ``index_add_`` a trainable field: the route before the kernels).
   grad_graph_moved. Every position moved by up to MOVE after the bvh1k
      steps captured their graphs (soft and hard), and after two Adam steps
      of grad_config that train positions: the replay over the new tables
@@ -313,7 +333,8 @@ Phases and their bars:
      JAX package, and 16 spp unbanded would need some 100 GB (1 spp if the
      unsharded step's peak passes 60 GB); ``value_and_grad_loss`` on 3
      shards against one device: -fmad=false build by GRAD_SHARDED_PRECISE
-     (its reason there), the default build by GRAD_DEFAULT; K2 alone; peak
+     (its reason there), the default build by GRAD_DEFAULT; K2 and the
+     winner gather's pair alone, each once a pop; peak
      memory and seconds per step of both; three Adam steps of
      ``make_train_step(mesh=)``: the last two below the first.
   dryrun. ``dryrun.dryrun_multichip(4, devices=[card] * 4)`` in the
@@ -422,10 +443,13 @@ if not torch.cuda.is_available():
 
 import dataclasses  # noqa: E402
 
+# The A/B tool holds the split of index_add_'s time by destination, since it
+# must run it against a parent's checkout too; the smoke reads the same split.
+from chip_queue_ab import index_add_split  # noqa: E402
 from raytracing_tests_tpu_torch import diff  # noqa: E402
 from raytracing_tests_tpu_torch.bench import grad_bands  # noqa: E402
 from raytracing_tests_tpu_torch.kernels import (  # noqa: E402
-    _build, drain, edge_cull, mega, sweep, sweep2, sweep2g, uber,
+    _build, drain, edge_cull, gather, mega, sweep, sweep2, sweep2g, uber,
 )
 from raytracing_tests_tpu_torch.ops import megalanes, workqueue  # noqa: E402
 from raytracing_tests_tpu_torch.ops.render import (  # noqa: E402
@@ -586,7 +610,12 @@ def size_of(frame):
     return "{width}x{height}x{spp}spp d{max_bounces}".format(**frame)
 
 
+T0 = time.perf_counter()  # the script's start: every phase line carries its seconds since
+
+
 def say(**kw):
+    if "phase" in kw:
+        kw["elapsed_s"] = time.perf_counter() - T0
     print(json.dumps(kw), flush=True)
 
 
@@ -2053,7 +2082,7 @@ def k5_coop_sweep(what, render):
 
 DEVICE_RECORDS = ("kernel", "gpu_memcpy", "gpu_memset")  # a trace's device activity
 PORT_KERNEL = re.compile(r"\b(uber|sweep2|sweep2g|sweep2g_edge|mega|grouped|nearest|ri|nearest_ri"
-                         r"|drain)_kernel\b")
+                         r"|drain|winner_gather|winner_scatter)_kernel\b")
 SESSIONS = []  # what each profiler session saw (``device_session``)
 
 
@@ -4317,10 +4346,13 @@ def patched(module, name, fn):
 
 @contextlib.contextmanager
 def plain_sweeps():
-    """Inside: the sweep wrappers of K2 and K3 (both instantiations each) run
-    their plain versions on the card: the gradient path with no kernel."""
+    """Inside: the sweep wrappers of K2 and K3 (both instantiations each) and
+    the winner gather's forward and backward run their plain versions on the
+    card: the gradient path with no kernel."""
     with contextlib.ExitStack() as stack:
         for module, name, plain in (
+                (gather, "_gather", gather._gather_plain),
+                (gather, "_scatter", gather._scatter_plain),
                 (sweep2, "_sweep2", lambda a, r, ri, f, stats=None: sweep2.sweep2_plain(a, r, ri, f)),
                 (sweep2, "_sweep2_edge", lambda a, r, stats=None: sweep2.sweep2_edge_plain(a, r)),
                 (sweep2g, "_sweep2g", lambda a, r, stats=None: sweep2g.sweep2g_plain(a, r)),
@@ -4398,13 +4430,24 @@ def step_sweeps(k):
     return sum(c.pops * len(idxs) for c, (_, idxs) in zip(vg.bucket_cfgs, vg.buckets))
 
 
+def grad_launches(k, sweep):
+    """The launches of one step of ``k``'s function: every pop of every band
+    launches its sweep ``sweep``, the winner gather of its recompute and,
+    in the backward, that gather's scatter (every pop's recompute reaches
+    the loss)."""
+    n = step_sweeps(k)
+    return {sweep: n, "winner_gather": n, "winner_scatter": n}
+
+
 # launch counter -> the kernel's name in a trace (the instantiation's template
 # arguments: MOTION, EDGE)
 TRACE_NAMES = {"sweep2": "::sweep2_kernel<false, false>", "sweep2_m": "::sweep2_kernel<true, false>",
                "sweep2_edge": "::sweep2_kernel<false, true>",
                "sweep2_m_edge": "::sweep2_kernel<true, true>", "sweep2g": "::sweep2g_kernel<",
                "sweep2g_edge": "::sweep2g_edge_kernel<false>",
-               "sweep2g_m_edge": "::sweep2g_edge_kernel<true>"}
+               "sweep2g_m_edge": "::sweep2g_edge_kernel<true>",
+               "winner_gather": "::winner_gather_kernel(",
+               "winner_scatter": "::winner_scatter_kernel("}
 
 
 def traced_ms(by, counter):
@@ -4418,11 +4461,13 @@ def step_device(k, g, what):
     no wrapper, so its kernels are timed from the trace, not by events, and
     the launch counts it reports are copied from its capture
     (``_build.LaunchRecord``): the trace must hold one record of the port's
-    kernels for each sweep the step launches (``step_sweeps``)."""
+    kernels for each launch the step counts, three a pop of every band (its
+    sweep, the winner gather and its scatter, ``grad_launches``)."""
     by = device_session(lambda: k["vg"](g["p"], g["target"]), what)
-    got, want = SESSIONS[-1]["port_kernel_records"], step_sweeps(k)
-    require(got == want, f"{what}: the trace of the step holds {got} records of the port's "
-            f"kernels, {want} sweeps expected: {SESSIONS[-1]}")
+    got, counted = SESSIONS[-1]["port_kernel_records"], SESSIONS[-1]["port_launches"]
+    want = 3 * step_sweeps(k)
+    require(got == counted == want, f"{what}: the trace of the step holds {got} records of the "
+            f"port's kernels for {counted} launches counted, {want} expected: {SESSIONS[-1]}")
     return by
 
 
@@ -4501,7 +4546,8 @@ def band_device_share(k, b):
     span from the first one's start to the last one's end: the idle share is
     the span's share the card did not work.  ``overlap_ms``: how much the
     summed durations exceed the union (kernels of a graph that ran at once).
-    Also the sweep kernels' time and the kernels that took the most."""
+    Also the sweep kernels' and the winner gather's kernels' time and the
+    kernels that took the most."""
     vg = k["vg"]
     run = lambda: vg.last.band(b)  # noqa: E731
     run()
@@ -4512,11 +4558,13 @@ def band_device_share(k, b):
         by[e["name"]] += e.get("dur", 0) / 1e3
     busy, span = busy_and_span(records)
     sweeps = sum(v for name, v in by.items() if "sweep2" in name)
+    winner = {n: sum(v for name, v in by.items() if TRACE_NAMES[n] in name)
+              for n in ("winner_gather", "winner_scatter")}
     top = sorted(by.items(), key=lambda kv: -kv[1])[:8]
     return dict(band=b, pops=vg.bucket_cfgs[vg.bucket_of[b]].pops, wall_ms=wall,
                 span_ms=span, device_busy_ms=busy, device_ms_sum=sum(by.values()),
                 overlap_ms=sum(by.values()) - busy, device_idle_share=1.0 - busy / span,
-                sweep_kernels_ms=sweeps, kernels_traced=len(by),
+                sweep_kernels_ms=sweeps, winner_kernels_ms=winner, kernels_traced=len(by),
                 top_kernels_ms={name[:120]: ms for name, ms in top})
 
 
@@ -4770,6 +4818,212 @@ def edge_vs_plain(name, g, band):
                     "pairs_share_hit", "pairs_share_miss", "nearest_simt_efficiency")})
 
 
+# Bytes written between two timed calls of the winner gather's kernels:
+# more than the card's 50 MB L2 cache, so that each call reads and writes
+# device memory as its bound counts (a band's pop finds its inputs cold).
+L2_FLUSH_BYTES = 128 << 20
+# The winner scatter against a float64 index_add_ of the same gradients: the
+# kernel sums a group's lanes in a tree, a block's groups in shared memory
+# and the blocks by global atomics, in float32 and in another order than a
+# sequential sum; every (row, column) within this share of its sum of |g|.
+SCATTER_OF_SUM_ABS = 1e-5
+
+
+def cold_ms(fn, reps=3):
+    """Least device ms of one call of ``fn()`` over ``reps``, each timed by
+    ``gapless_events`` after the L2 cache was overwritten."""
+    junk = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    fn()
+    times = []
+    for _ in range(reps):
+        junk.zero_()
+        a, b = gapless_events(fn)
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return min(times)
+
+
+def first_pop_gather(g, band):
+    """The winner gather's inputs at the first pop of band ``band`` of
+    ``g``'s gradient path and the gradient its backward gets there: the band
+    traced eagerly at its probed depth and differentiated (its squared error
+    against the target's rows) -> dict(table, ints, obj, widths, grads: one
+    a field, None where it has none)."""
+    from raytracing_tests_tpu_torch.diff.train import _diff_cfg
+    from raytracing_tests_tpu_torch.ops.render import trace_lanes
+
+    cfg = dataclasses.replace(_diff_cfg(g["cfg"]), early_exit=False, max_pops=g["pops"][band])
+    lo, ld, ltr, ls = _lane_inputs(g["cam"], cfg)
+    h = cfg.height // g["bands"]
+    n = h * cfg.width * cfg.spp
+    sl = slice(band * n, (band + 1) * n)
+    leaves = g["p"].map(lambda v: v.detach().clone().requires_grad_(True))
+    scene = diff.apply_params(g["pert"], leaves)
+    got = {}
+    fwd, bwd = gather._gather, gather._scatter
+
+    def keep_gather(table, obj, ints, widths):
+        got.setdefault("gather", (table.detach().clone(), ints.clone(), obj.clone(), widths))
+        return fwd(table, obj, ints, widths)
+
+    def keep_scatter(grads, obj, rows, widths):  # the last call is the first pop's
+        got["scatter"] = ([None if q is None else q.clone() for q in grads], obj.clone())
+        return bwd(grads, obj, rows, widths)
+
+    with patched(gather, "_gather", keep_gather), patched(gather, "_scatter", keep_scatter):
+        color, primary_t, _, _ = trace_lanes(scene, None, cfg, lo[sl], ld[sl], ltr[sl], ls[sl],
+                                             _build_accel(scene, cfg))
+        img = finalize(color.reshape(h, cfg.width, cfg.spp, 3),
+                       primary_t.reshape(h, cfg.width, cfg.spp), cfg)["image"]
+        sse = torch.sum((img - g["target"][band * h:(band + 1) * h]) ** 2)
+        torch.autograd.grad(sse, [v for _, v in leaves.items()], allow_unused=True)
+    table, ints, obj, widths = got["gather"]
+    grads, obj_back = got["scatter"]
+    require(torch.equal(obj, obj_back), "first_pop_gather: the last scatter is not the first pop's")
+    return dict(table=table, ints=ints, obj=obj, widths=widths, grads=grads)
+
+
+def winner_gather_vs_plain(cases):
+    """Phase winner_gather_vs_plain: the winner gather's kernels on the
+    inputs of a gradient band's first pop (``first_pop_gather``: its lanes,
+    winners, packed table and gradient), in the default and the -fmad=false
+    build, the backward in its tile mode and forced into its global mode (a
+    shared-memory budget of 0): the forward bit for bit ``winner_gather_plain``,
+    every (row, column) of the backward within SCATTER_OF_SUM_ABS of its sum
+    of |g| of a float64 ``index_add_``; each kernel's device time (cold L2,
+    least of 3) beside its bound by bytes, the plain version's time and the
+    library's (what ``intersect_diff`` ran before the kernels: one
+    ``index_select`` a field, then an ``index_add_`` for each of the nine
+    trainable fields, on the gradient of that field alone) -> {case: row}."""
+    rows = {}
+    for label, c in cases.items():
+        table, ints, obj, widths, grads = (c[k] for k in ("table", "ints", "obj", "widths",
+                                                          "grads"))
+        (N, F), FI, B = table.shape, ints.shape[1], obj.shape[0]
+        safe = obj.long().clamp_min(0)
+        want, want_i = gather.winner_gather_plain(table, obj, ints)
+        # the gradient the backward gets, (B, F): zeros where a field has none
+        grad_out = torch.cat([torch.zeros((B, w), device=table.device) if q is None
+                              else q.reshape(B, w) for q, w in zip(grads, widths)], dim=1)
+        G = sum(w for q, w in zip(grads, widths) if q is not None)
+        exact = torch.zeros((N, F), dtype=torch.float64, device=table.device)
+        scale = torch.zeros_like(exact)
+        exact.index_add_(0, safe, grad_out.double())
+        scale.index_add_(0, safe, grad_out.abs().double())
+        modes = {"tile": gather.SMEM_BUDGET, "global": 0}
+        forward, backward = {}, {}
+        for build, ctx in (("default", contextlib.nullcontext), ("precise", _build.precise)):
+            with ctx():
+                outs, iouts = gather._launch_gather(table, obj, ints, widths)
+                tables = {m: gather._launch_scatter(grads, obj, N, widths, budget)
+                          for m, budget in modes.items()}
+            torch.cuda.synchronize()
+            got_f, got_i = torch.cat([v.reshape(B, -1) for v in outs], 1), torch.stack(iouts, 1)
+            forward[build] = dict(
+                max_abs_err=max(float((got_f - want).abs().max()),
+                                float((got_i - want_i).abs().max())),
+                frac_equal=(int((got_f == want).sum()) + int((got_i == want_i).sum()))
+                / (got_f.numel() + got_i.numel()))
+            for m, (grad, ran) in tables.items():
+                err = (grad.double() - exact).abs()
+                bar = SCATTER_OF_SUM_ABS * scale
+                backward[f"{build}_{m}"] = dict(
+                    ran=ran, max_abs_err=float(err.max()),
+                    worst_err_of_bar=float((err / bar.clamp_min(1e-300))[scale > 0].max()),
+                    untouched_exact=bool((err[scale == 0] == 0).all()),
+                    frac_within=frac(torch.where(scale > 0, err <= bar, err == 0)))
+        columns, at = [], 0  # (first column, width) of each packed field
+        for w in widths:
+            columns.append((at, w))
+            at += w
+        cut = lambda t, a, w: (t[:, a:a + w] if w > 1 else t[:, a]).contiguous()  # noqa: E731
+        fields = [cut(table, a, w) for a, w in columns] + [cut(ints, j, 1) for j in range(FI)]
+        grads_by_field = [cut(grad_out, a, w) for a, w in columns[:9]]
+
+        def library_scatter():
+            for gf in grads_by_field:
+                torch.zeros((N,) + tuple(gf.shape[1:]), device=gf.device).index_add_(0, safe, gf)
+
+        g_bytes = 4 * B + 4 * B * (F + FI) + 4 * N * (F + FI)
+        s_bytes = 4 * B + 4 * B * G + 4 * N * F
+        row = dict(
+            lanes=B, rows=N, columns=F, int_columns=FI, grad_columns=G,
+            lanes_on_row0=int((safe == 0).sum()), lanes_without_winner=int((obj < 0).sum()),
+            rows_touched=int(torch.unique(safe).numel()),
+            forward_vs_plain=forward, backward=backward,
+            gather_ms=cold_ms(lambda: gather._launch_gather(table, obj, ints, widths)),
+            gather_plain_ms=cold_ms(lambda: gather._gather_plain(table, obj, ints, widths)),
+            gather_library_ms=cold_ms(lambda: [torch.index_select(f, 0, safe) for f in fields]),
+            gather_bound_ms=g_bytes / PEAK_BYTES_PER_S * 1e3,
+            scatter_ms={m: cold_ms(lambda b=b: gather._launch_scatter(grads, obj, N, widths, b))
+                        for m, b in modes.items()},
+            scatter_plain_ms=cold_ms(lambda: gather._scatter_plain(grads, obj, N, widths)),
+            scatter_library_ms=cold_ms(library_scatter),
+            scatter_bound_ms=s_bytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
+        rows[label] = row
+        say(phase="winner_gather_vs_plain", case=label, **row)
+    for label, r in rows.items():
+        require(all(f["max_abs_err"] == 0.0 and f["frac_equal"] == 1.0
+                    for f in r["forward_vs_plain"].values()),
+                f"winner_gather_vs_plain, {label}: the forward differs from index_select: {r}")
+        require(all(b["ran"] == key.split("_")[1] and b["worst_err_of_bar"] <= 1.0
+                    and b["untouched_exact"] for key, b in r["backward"].items()),
+                f"winner_gather_vs_plain, {label}: the backward against a float64 index_add_: "
+                f"{r['backward']}")
+        require(r["gather_ms"] > r["gather_bound_ms"]
+                and min(r["scatter_ms"].values()) > r["scatter_bound_ms"],
+                f"winner_gather_vs_plain, {label}: a kernel at or below its bound, a counting "
+                f"error: {r}")
+    return rows
+
+
+def winner_entries(rows, paths):
+    """The kernels-line entries of the winner gather's two kernels from
+    ``winner_gather_vs_plain``'s rows (the main path's numbers: the grad
+    frame's first pop, the tile mode) and the launches of the gradient
+    paths."""
+    src = "raytracing_tests_tpu_torch/csrc/gather.cu"
+    main = rows["grad"]
+    shape = (f"{main['lanes']} lanes x {main['rows']} rows (the grad frame's deepest band, its "
+             f"first pop); bvh1k's {rows['bvh1k']['rows']} rows at the same lanes beside")
+    note = ("no TPU kernel: the XLA fusion of the recompute's per-lane gathers and their "
+            "scatter-add transpose (diff/fastpath.py:141-145, :200-208)")
+    by_path = lambda name: {p: got[name] for p, got in paths.items() if got.get(name)}  # noqa: E731
+    return [
+        dict(name="winner_gather", route="cuda", source=src,
+             replaces="raytracing_tests_tpu/diff/fastpath.py:141", note=note,
+             launches=paths["grad_frame"]["winner_gather"],
+             launches_by_path=by_path("winner_gather"),
+             max_abs_err=max(f["max_abs_err"] for r in rows.values()
+                             for f in r["forward_vs_plain"].values()),
+             tolerance="bit for bit index_select, the default and the -fmad=false build",
+             frac_within_tolerance=min(f["frac_equal"] for r in rows.values()
+                                       for f in r["forward_vs_plain"].values()),
+             ms=main["gather_ms"], plain_ms=main["gather_plain_ms"],
+             bound_ms=main["gather_bound_ms"], bound_by="bytes",
+             library_ms=main["gather_library_ms"],
+             library="torch.index_select a field (13), as intersect_diff ran before",
+             shape=shape, cases=rows),
+        dict(name="winner_scatter", route="cuda", source=src,
+             replaces="raytracing_tests_tpu/diff/fastpath.py:141", note=note,
+             launches=paths["grad_frame"]["winner_scatter"],
+             launches_by_path=by_path("winner_scatter"),
+             max_abs_err=max(b["max_abs_err"] for r in rows.values()
+                             for b in r["backward"].values()),
+             tolerance=f"every (row, column) within {SCATTER_OF_SUM_ABS} of its sum of |g| of a "
+                       f"float64 index_add_, both builds, the tile and the global mode",
+             frac_within_tolerance=min(b["frac_within"] for r in rows.values()
+                                       for b in r["backward"].values()),
+             ms=main["scatter_ms"]["tile"],
+             ms_global_mode=main["scatter_ms"]["global"], plain_ms=main["scatter_plain_ms"],
+             bound_ms=main["scatter_bound_ms"], bound_by="bytes",
+             library_ms=main["scatter_library_ms"],
+             library="Tensor.index_add_ a trainable field (9), as intersect_diff's backward ran "
+                     "before",
+             shape=shape),
+    ]
+
+
 def grad_phases(dev, k3_canary):
     """The eighth slice's phases -> (kernels-line entries, {path: launches},
     K3's numbers over the hard generic step for its kernels-line entry).
@@ -4789,6 +5043,8 @@ def grad_phases(dev, k3_canary):
     # (captured, then replayed), the eager static step, both builds, and the
     # plain versions
     g = grad_inputs(dev, examples.iow_final_scene(), recolour)
+    # the winner gather's inputs and gradient at the deepest band's first pop
+    first_pops = dict(grad=first_pop_gather(g, max(range(g["bands"]), key=lambda b: g["pops"][b])))
     k = grad_step(g, replays=3)
     ke = grad_step(g, graphs=False, replays=1)
     with _build.precise():
@@ -4803,9 +5059,16 @@ def grad_phases(dev, k3_canary):
     share_eager = band_device_share(ke, deepest)
     by = step_device(k, g, "grad_graph_step")
     k2_ms, n_k2 = traced_ms(by, "sweep2"), step_sweeps(k)
+    winner_ms = {n: traced_ms(by, n) for n in ("winner_gather", "winner_scatter")}
     # a long session can lose the device records of its last launches: the
-    # port's kernels the trace holds, against the step's K2 launches
+    # port's kernels the trace holds, against the step's launches
     k2_records = SESSIONS[-1]["port_kernel_records"]
+    # where the deepest band's index_add_ time goes, by destination (the
+    # eager band: a replayed graph launches no operator to take shapes from)
+    lanes = g["cfg"].height // g["bands"] * g["cfg"].width * g["cfg"].spp
+    index_adds = index_add_split(lambda: ke["vg"].last.band(deepest), int(g["pert"].capacity),
+                                 (g["cfg"].queue_capacity + 1) * lanes)
+    share["index_add_split_eager"] = index_adds
     # the eager static band reads nothing on the host: no synchronising call
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -4825,7 +5088,8 @@ def grad_phases(dev, k3_canary):
                  mrays_equiv_per_s=g["rays"] / k["seconds_per_step"] / 1e6,
                  probe_seconds=g["probe_ms"] / 1e3, peak_memory_bytes=k["peak_memory_bytes"],
                  launches=k["step_launches"], k2_launches=n_k2, k2_device_ms=k2_ms,
-                 deepest_band=share, default_build=default, precise_build=precise)
+                 winner_device_ms=winner_ms, deepest_band=share, default_build=default,
+                 precise_build=precise)
     say(phase="grad_frame", **frame)
     graphed = dict(
         size=size_of(GRAD), capture_step_seconds=k["ms"] / 1e3,
@@ -4844,7 +5108,7 @@ def grad_phases(dev, k3_canary):
                                                                k["vg"].buckets)],
         capture_step_launches=k["launches"], replay_step_launches=k["step_launches"],
         eager_step_launches=ke["step_launches"], sweeps_per_step=n_k2,
-        k2_device_ms=k2_ms, k2_records_in_trace=k2_records,
+        k2_device_ms=k2_ms, winner_device_ms=winner_ms, port_records_in_trace=k2_records,
         device_ms_of_a_replay_step=sum(by.values()),
         deepest_band=share, deepest_band_eager=share_eager,
         eager_band_sync_free=sync_free,
@@ -4857,16 +5121,20 @@ def grad_phases(dev, k3_canary):
                 precise_vs_eager, GRAD_GRAPH)
     check_grads("grad_graph, default build against the eager static step", vs_eager,
                 GRAD_GRAPH)
-    require(k["step_launches"] == ke["step_launches"] == {"sweep2": n_k2} and n_k2 > 0,
-            f"grad_graph: a replayed step counts the eager step's launches, K2 only: "
-            f"{k['step_launches']} {ke['step_launches']} ({n_k2} expected)")
-    require(set(k["launches"]) == {"sweep2"} and k["vg"].counts["captures"] == 1,
-            f"grad_graph: the capturing step runs K2 alone, one capture: {k['launches']} "
-            f"{dict(k['vg'].counts)}")
+    want = grad_launches(k, "sweep2")
+    require(k["step_launches"] == ke["step_launches"] == want and n_k2 > 0,
+            f"grad_graph: a replayed step counts the eager step's launches, K2 and the winner "
+            f"gather's pair a pop: {k['step_launches']} {ke['step_launches']} ({want} expected)")
+    require(set(k["launches"]) == set(want) and k["vg"].counts["captures"] == 1,
+            f"grad_graph: the capturing step runs K2 and the winner gather's pair alone, one "
+            f"capture: {k['launches']} {dict(k['vg'].counts)}")
     require(sync_free is True, f"grad_graph: the eager static band synchronised: {sync_free}")
-    require(k2_ms > 0 and k2_records == n_k2 and share["device_busy_ms"] > 0,
-            f"grad_graph: the trace of a replayed step holds its K2 launches: {k2_records} of "
-            f"{n_k2}, {share}")
+    require(k2_ms > 0 and k2_records == 3 * n_k2 and share["device_busy_ms"] > 0
+            and min(winner_ms.values()) > 0,
+            f"grad_graph: the trace of a replayed step holds its launches: {k2_records} of "
+            f"{3 * n_k2}, {winner_ms}, {share}")
+    require(index_adds["index_add_device_ms"]["winner_gathers"] == 0.0,
+            f"grad_graph: the winner gathers' backward ran index_add_: {index_adds}")
     paths["grad_frame"] = k["step_launches"]
     paths["grad_graph_capture"] = k["launches"]
     for x in (k, ke, kp, kpe, pl):
@@ -4890,7 +5158,7 @@ def grad_phases(dev, k3_canary):
                edge_launches=step_sweeps(ks), device_ms_of_a_replay_step=sum(by.values()),
                finite=all(bool(torch.isfinite(v).all()) for _, v in ks["grads"].items()))
     say(phase="grad_soft_frame", **res)
-    require(res["finite"] and ks["step_launches"] == {"sweep2_edge": res["edge_launches"]},
+    require(res["finite"] and ks["step_launches"] == grad_launches(ks, "sweep2_edge"),
             f"grad_soft_frame: {res}")
     paths["grad_soft_frame"] = ks["step_launches"]
     ks.pop("vg").release()
@@ -4907,6 +5175,10 @@ def grad_phases(dev, k3_canary):
     kg = grad_step(gg, replays=1)
     by_soft = step_device(kg, gg, "grad_generic_soft_step")
     hard = dict(gg, cfg=dataclasses.replace(gg["cfg"], soft_edges=0.0))
+    first_pops["bvh1k"] = first_pop_gather(hard, max(range(hard["bands"]),
+                                                     key=lambda b: hard["pops"][b]))
+    winner_rows = winner_gather_vs_plain(first_pops)
+    del first_pops
     kh = grad_step(hard, replays=1)
     by_hard = step_device(kh, hard, "grad_generic_step")
     hard_ms = traced_ms(by_hard, "sweep2g")
@@ -4932,8 +5204,8 @@ def grad_phases(dev, k3_canary):
                finite=all(bool(torch.isfinite(v).all())
                           for x in (kg, kh) for _, v in x["grads"].items()))
     say(phase="grad_generic_soft", **res)
-    require(res["finite"] and kg["step_launches"] == {"sweep2g_edge": res["edge_launches"]}
-            and kh["step_launches"] == {"sweep2g": res["hard_k3_launches"]}
+    require(res["finite"] and kg["step_launches"] == grad_launches(kg, "sweep2g_edge")
+            and kh["step_launches"] == grad_launches(kh, "sweep2g")
             and res["position_grad_max"] > 0.0, f"grad_generic_soft: {res}")
     paths["grad_generic_soft"] = kg["step_launches"]
     paths["grad_generic"] = kh["step_launches"]
@@ -4960,7 +5232,7 @@ def grad_phases(dev, k3_canary):
                    edge_launches=step_sweeps(km),
                    finite=all(bool(torch.isfinite(v).all()) for _, v in km["grads"].items()))
         say(phase="grad_motion_soft", **res)
-        require(res["finite"] and km["step_launches"] == {name: res["edge_launches"]},
+        require(res["finite"] and km["step_launches"] == grad_launches(km, name),
                 f"grad_motion_soft: {res}")
         paths[f"grad_motion_soft_{name}"] = km["step_launches"]
         km.pop("vg").release()
@@ -5070,7 +5342,7 @@ def grad_phases(dev, k3_canary):
             and res["tables_changed"]["otab"],
             f"train_steps, positions trained: the graphs replayed over moved spheres: {res}")
     vg.release()
-    return entries, paths, at_hard_step
+    return entries, paths, at_hard_step, winner_entries(winner_rows, paths)
 
 
 # ---------------------------------------------------------------------------
@@ -5269,8 +5541,10 @@ def sharded_train_step(dev):
     say(phase="sharded_train_step", **res)
     check_grads("sharded_train_step, -fmad=false build", precise, GRAD_SHARDED_PRECISE)
     check_grads("sharded_train_step, default build", default, GRAD_DEFAULT)
-    require(set(sh["launches"]) == {"sweep2"} and sh["launches"]["sweep2"] > 0,
-            f"sharded_train_step: the step runs K2 and nothing else: {sh['launches']}")
+    n = sh["launches"].get("sweep2", 0)
+    require(sh["launches"] == {"sweep2": n, "winner_gather": n, "winner_scatter": n} and n > 0,
+            f"sharded_train_step: the step runs K2 and the winner gather's pair a pop, nothing "
+            f"else: {sh['launches']}")
     require(losses[1] < losses[0] and losses[2] < losses[0],
             f"sharded_train_step: two more Adam steps did not lower the loss: {losses}")
     return {"sharded_train_step": sh["launches"]}
@@ -6512,7 +6786,7 @@ def main():
     kernels += sixth
     seventh, seventh_paths = texturing_phases(dev)
     kernels += seventh
-    eighth, eighth_paths, k3_hard_step = grad_phases(dev, k3_canary)
+    eighth, eighth_paths, k3_hard_step, winner = grad_phases(dev, k3_canary)
     # the thirteenth slice: the row-sharded mesh, on virtual shards of this card
     thirteenth_paths = parallel_phases(dev, out, frame)
     # the fourteenth slice: the oracle on the card, the normals view,
@@ -6533,6 +6807,9 @@ def main():
         k["ptxas"] = ptxas.get(f"sweep2g.so sweep2g_edge_kernel<{m}>" if k["name"].startswith(
             "sweep2g") else f"sweep2.so sweep2_kernel<{m},1>")
     kernels += eighth
+    for k in winner:
+        k["ptxas"] = ptxas.get(f"gather.so {k['name']}_kernel")
+    kernels += winner
     # every instantiation of K1 with its ptxas line
     entry_of = {v: n for n, v in KERNEL_ENTRY.items()}
     for k in kernels:
@@ -6555,7 +6832,8 @@ def main():
                    **fourteenth_paths, **fifteenth_paths, **sixteenth_paths}
     for k in kernels:
         counter = dict(sweep2="sweep2", sweep2_motion="sweep2_m", sweep2g="sweep2g",
-                       sweep_grouped="sweep_grouped", sweep_ri="sweep_ri").get(
+                       sweep_grouped="sweep_grouped", sweep_ri="sweep_ri",
+                       winner_gather="winner_gather", winner_scatter="winner_scatter").get(
             k["name"], k.get("instantiation"))
         if counter:
             k["launches_by_path"].update({p: got[counter] for p, got in later_paths.items()
@@ -6568,6 +6846,7 @@ def main():
     lost = sum(x["records_lost"] for x in SESSIONS)
     say(phase="profiler_sessions", sessions=SESSIONS, records_lost=lost,
         kernel_launches=sum(x["kernel_launches"] for x in SESSIONS))
+    say(phase="script", seconds=time.perf_counter() - T0, limit_seconds=1200)
     say(kernels=kernels)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

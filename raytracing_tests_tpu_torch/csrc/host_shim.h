@@ -52,6 +52,10 @@ template <class V>
 inline V __shfl_xor_sync(unsigned, V v, int) {
   return v;
 }
+template <class V>
+inline unsigned __match_any_sync(unsigned, V) {
+  return 1u;  // the lane's own bit: a warp of one lane
+}
 inline unsigned __reduce_min_sync(unsigned, unsigned v) { return v; }
 inline unsigned __reduce_add_sync(unsigned, unsigned v) { return v; }
 inline unsigned __reduce_max_sync(unsigned, unsigned v) { return v; }
@@ -77,6 +81,12 @@ inline V atomicAdd(V* p, V v) {
   return old;
 }
 template <class V>
+inline V atomicOr(V* p, V v) {
+  const V old = *p;
+  *p |= v;
+  return old;
+}
+template <class V>
 inline V atomicMax(V* p, V v) {
   const V old = *p;
   if (v > old) *p = v;
@@ -87,6 +97,11 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum { cudaDevAttrMultiProcessorCount = 16 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class K>
+inline int cudaFuncSetAttribute(K, int, int) {
+  return 0;
+}
 inline int cudaGetLastError() { return 0; }
 inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   memset(p, v, n);
@@ -107,7 +122,7 @@ inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t)
 }
 
 // A block's dynamic shared memory: one buffer, since one thread runs at a time.
-alignas(16) static unsigned char rt_host_shared[1 << 16];
+alignas(16) static unsigned char rt_host_shared[1 << 17];
 #define RT_DYNAMIC_SHARED(type, name) type* name = reinterpret_cast<type*>(rt_host_shared)
 #define RT_LAUNCH_SMEM(kernel, blocks, threads, smem, stream, ...)             \
   do {                                                                       \

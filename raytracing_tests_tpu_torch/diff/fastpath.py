@@ -1,6 +1,6 @@
 """Fast gradient rendering: kernel winner-finding + closed-form recompute.
 
-No backward kernel is written.  Instead:
+No backward of the sweep is written.  Instead:
 
   - The WINNER of the nearest-hit sweep is a discrete argmin — its gradient
     is zero almost everywhere — so the sweep kernel (``kernels.sweep2`` in
@@ -15,7 +15,10 @@ No backward kernel is written.  Instead:
     estimator).
 
 The expensive O(N) search runs once per ray, forward only, at kernel speed;
-the backward touches one object per lane.
+the backward touches one object per lane.  The per-lane gathers of the
+winner's rows are one hand-written kernel with a hand-written backward
+(``kernels.gather.winner_gather``) over the scene's fields packed once a
+scene object (``winner_table``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from raytracing_tests_tpu_torch.core import geometry, linalg
+from raytracing_tests_tpu_torch.kernels.gather import winner_table
 from raytracing_tests_tpu_torch.kernels.sweep import HitFields
 from raytracing_tests_tpu_torch.kernels.sweep2 import (
     make_accel2, sweep2_nearest, sweep2_nearest_edge,
@@ -131,20 +135,15 @@ def intersect_diff(accel: DiffAccel, scene, o, d, time_ratio, t_limit, soft: flo
     else:
         obj = _winner(inner, o, d, time_ratio, t_limit)
     hit = obj >= 0
-    safe = obj.clamp_min(0).long()
-    # Per-lane rows of the winner.  index_select's backward adds the lanes'
-    # gradients into the table with atomics; a plain index's backward sorts
-    # the lanes and walks each object's run of them in one warp, serially,
-    # and a ground sphere owns half the lanes.
-    pick = lambda v: torch.index_select(v, 0, safe)
+    # Per-lane rows of the winner, every field by one gather
+    # (kernels/gather.py); its backward adds the lanes' gradients into the
+    # scene's packed table.
+    f = winner_table(scene).gather(obj)
 
     # The winner's hit with the dense intersector's own math (same rotation
     # and per-axis-scale frame), so its gradients are the dense path's.
-    rot = pick(scene.rotation)
-    scale = pick(scene.scale)
-    otype = pick(scene.obj_type)
-    rel = (o - pick(scene.position)
-           + (1.0 - time_ratio)[:, None] * pick(scene.delta_position))
+    rot, scale, otype = f["rotation"], f["scale"], f["obj_type"]
+    rel = o - f["position"] + (1.0 - time_ratio)[:, None] * f["delta_position"]
     lo = linalg.apply_rotation_t(rot, rel)
     ld = linalg.apply_rotation_t(rot, d)
     t = geometry.ray_primitive_t(lo, ld, scale, otype)
@@ -194,14 +193,14 @@ def intersect_diff(accel: DiffAccel, scene, o, d, time_ratio, t_limit, soft: flo
     local_pos = p_local / scale
 
     flds = HitFields(
-        color=pick(scene.color),
-        refractive_index=pick(scene.refractive_index),
-        refractivity=pick(scene.refractivity),
-        reflectivity=pick(scene.reflectivity),
-        scatter_refract=pick(scene.scatter_refract),
-        scatter_reflect=pick(scene.scatter_reflect),
-        texture_index=pick(scene.texture_index),
-        emissive=pick(scene.emissive) & hit,
+        color=f["color"],
+        refractive_index=f["refractive_index"],
+        refractivity=f["refractivity"],
+        reflectivity=f["reflectivity"],
+        scatter_refract=f["scatter_refract"],
+        scatter_reflect=f["scatter_reflect"],
+        texture_index=f["texture_index"],
+        emissive=f["emissive"] & hit,
     )
     h = Hit(t=t, obj=obj.to(torch.int32), hit=hit, normal=normal, local_pos=local_pos)
     return h, flds, alpha

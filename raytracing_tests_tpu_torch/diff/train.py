@@ -110,11 +110,15 @@ def _leaves(params: SceneParams, device):
 
 def _grads_of(value, leaves: SceneParams, accumulate: Optional[SceneParams] = None):
     """d value / d leaves as a ``SceneParams`` (zeros where unused), added to
-    ``accumulate`` when given."""
+    ``accumulate`` when given.  Each gradient is its own contiguous tensor:
+    autograd hands the fields of the gradient path's packed table
+    (``kernels.gather.winner_table``) back as strided views of one buffer,
+    and an ``all_reduce`` takes contiguous tensors only."""
     names = [n for n, _ in leaves.items()]
     tensors = [v for _, v in leaves.items()]
     got = torch.autograd.grad(value, tensors, allow_unused=True)
-    got = {n: torch.zeros_like(t) if g is None else g for n, t, g in zip(names, tensors, got)}
+    got = {n: torch.zeros_like(t) if g is None else g.contiguous()
+           for n, t, g in zip(names, tensors, got)}
     if accumulate is not None:
         got = {n: getattr(accumulate, n) + g for n, g in got.items()}
     return leaves.replace(**got)
@@ -231,12 +235,13 @@ def _grown_ri_slots(need, slots, lanes: int) -> tuple:
 
 
 def _sweep_routing() -> tuple:
-    """The sweep wrappers the gradient path calls, as bound now (a test or a
-    measurement may route them to their plain versions): part of a CUDA
-    graph's key."""
-    from raytracing_tests_tpu_torch.kernels import sweep2, sweep2g
+    """The sweep and winner-gather wrappers the gradient path calls, as bound
+    now (a test or a measurement may route them to their plain versions):
+    part of a CUDA graph's key."""
+    from raytracing_tests_tpu_torch.kernels import gather, sweep2, sweep2g
 
-    return sweep2._sweep2, sweep2._sweep2_edge, sweep2g._sweep2g, sweep2g._sweep2g_edge
+    return (sweep2._sweep2, sweep2._sweep2_edge, sweep2g._sweep2g, sweep2g._sweep2g_edge,
+            gather._gather, gather._scatter)
 
 
 def _band(tmpl, leaves, lights, cfg, slots, accel, lanes, tgt, acc, sse, ri_max):

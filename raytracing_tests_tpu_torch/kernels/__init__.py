@@ -15,6 +15,11 @@
   - ``sweep``:   the first-generation dense and grouped sweeps
                  (``csrc/sweep.cu``) and host helpers (scene mode / motion
                  detection).
+  - ``drain``:   one step of the lane-aligned drain's bookkeeping
+                 (``csrc/drain.cu``), between two launches of ``mega``.
+  - ``gather``:  the gradient path's winner gather and its backward
+                 (``csrc/gather.cu``): each lane's row of the scene's packed
+                 fields, the lanes' gradients added into the table.
   - ``_build``:  builds and loads the kernels at first use; launch counters.
 
 The first-generation sweep entry points are re-exported here, as the JAX
