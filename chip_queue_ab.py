@@ -53,7 +53,13 @@ that root's sources.  Workloads, at the sizes ``chip_smoke.py`` drives them:
   winner gathers' backward (destination rows = the scene's capacity), the
   queue pop's ``index_select`` backward (destination rows = (Q + 1) times
   the band's lanes) or other.  A replayed graph launches no operator, so
-  the shapes come from the eager band (the same kernels).
+  the shapes come from the eager band (the same kernels);
+- ``ri_split``: ``grad``'s deepest band once, eagerly, under a profiler
+  session of host and device activity: the device time of every kernel by
+  the range that launched it (``op_split``): the surrounding-RI containment
+  sum (``ri_sum``), the recompute (``diff.fastpath.intersect_diff``), the
+  queue's push and pop, the rest of ``ops.render.shade_rays`` and other,
+  each forward and backward.
 
 ``--only a,b`` runs the named workloads alone; ``--reps n`` times each n
 times (default ``REPS``).
@@ -72,6 +78,8 @@ without CUDA.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import os
 import subprocess
@@ -90,8 +98,15 @@ GRAD = dict(width=800, height=450, spp=16, max_bounces=8)
 SOFT = 0.03
 WORKLOADS = ("bvh_queue_frame", "dense_generic_frame", "unbanded_step", "sharded_step",
              "megalanes_natural", "megalanes_sorted", "workqueue_frame", "megalanes_motion",
-             "grad_split", "grad", "grad_soft", "generic_hard", "grad_eager", "recompute_pop")
-GRAD_WORKLOADS = ("grad_split", "grad", "grad_soft", "generic_hard", "grad_eager")
+             "grad_split", "ri_split", "grad", "grad_soft", "generic_hard", "grad_eager",
+             "recompute_pop")
+GRAD_WORKLOADS = ("grad_split", "ri_split", "grad", "grad_soft", "generic_hard", "grad_eager")
+# The ranges ``op_split`` attributes a kernel to, innermost first where they
+# nest: the containment sum, the recompute, the queue, the rest of the shading.
+SPLIT_RANGES = ("ri_sum", "recompute", "queue", "shade_rays")
+# The backward nodes of the port's autograd.Functions, known by name (their
+# forward records no operator of their own to take a sequence number from).
+NODE_RANGES = {"ContainmentRI": "ri_sum", "WinnerGather": "recompute"}
 
 
 def _pad(n: int) -> None:
@@ -279,6 +294,129 @@ def index_add_split(fn, n_rows: int, pop_rows: int) -> dict:
                 index_func_kernels=kernels)
 
 
+@contextlib.contextmanager
+def split_ranges():
+    """Inside: the recompute, the queue's push and pop and
+    ``ops.render.shade_rays`` run inside ``torch.profiler.record_function``
+    ranges named as in ``SPLIT_RANGES``; so does the containment sum
+    (``ops.render._surrounding_ri``) where the checkout's ``_ri_of_lanes``
+    opens no ``ri_sum`` range of its own (an older checkout)."""
+    import importlib
+    import inspect
+
+    import torch
+
+    from raytracing_tests_tpu_torch.diff import fastpath
+
+    # the module, not the package's re-exported ``render`` function
+    render = importlib.import_module("raytracing_tests_tpu_torch.ops.render")
+
+    def ranged(name, fn):
+        def run(*args, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kw)
+        return run
+
+    patches = [(fastpath, "intersect_diff", "recompute"), (render.RayQueue, "push", "queue"),
+               (render.RayQueue, "pop", "queue"), (render, "shade_rays", "shade_rays")]
+    if '"ri_sum"' not in inspect.getsource(render._ri_of_lanes):
+        patches.append((render, "_surrounding_ri", "ri_sum"))
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
+    try:
+        for obj, attr, name in patches:
+            setattr(obj, attr, ranged(name, getattr(obj, attr)))
+        yield
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+
+
+def op_split(fn, top: int = 6) -> dict:
+    """``fn()`` under a profiler session of host and device activity, inside
+    ``split_ranges`` -> the device ms of its kernels by the range that
+    launched them, forward and backward.
+
+    A kernel launched on the forward's thread belongs to the innermost
+    ``SPLIT_RANGES`` range around its launch ("other" outside them all); one
+    launched inside a backward node (``autograd::engine::evaluate_function``)
+    to the range of the last forward operator that recorded the node's
+    sequence number (the one that made the node: the operators before it
+    record the number it will take), or by ``NODE_RANGES`` where the node is
+    one of the port's ``autograd.Function``s.
+    Only launches between the padding's synchronisations count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with split_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+        _pad(256)
+        fn()
+        torch.cuda.synchronize()
+        _pad(256)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return split_of(events, top)
+
+
+def split_of(events, top: int = 6) -> dict:
+    """``op_split``'s numbers from a session's trace events."""
+    host = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    syncs = sorted(e["ts"] for e in host if e["name"] == "cudaDeviceSynchronize")
+    launch = {e["args"]["correlation"]: e for e in host
+              if syncs[0] < e["ts"] < syncs[-2] and "correlation" in e.get("args", {})}
+    records = [e for e in events if e.get("cat") in DEVICE_RECORDS
+               and e.get("args", {}).get("correlation") in launch]
+    ranges = collections.defaultdict(list)  # thread -> [(start, end, range)]
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("name") in SPLIT_RANGES:
+            ranges[e["tid"]].append((e["ts"], e["ts"] + e["dur"], e["name"]))
+
+    def innermost(spans, ts):
+        best = None
+        for lo, hi, name in spans:
+            if lo <= ts <= hi and (best is None or lo >= best[0]):
+                best = (lo, name)
+        return None if best is None else best[1]
+
+    ops = sorted((e for e in events if e.get("cat") == "cpu_op"), key=lambda e: e["ts"])
+    evaluate = "autograd::engine::evaluate_function"
+    nodes = [e for e in ops if e["name"].startswith(evaluate)]
+    in_node = collections.defaultdict(list)  # thread -> [(start, end, None)]
+    for e in nodes:
+        in_node[e["tid"]].append((e["ts"], e["ts"] + e["dur"], None))
+    forward = {}  # sequence number -> range of the forward operator that took it
+    for e in ops:
+        seq = e.get("args", {}).get("Sequence number")
+        if seq is not None and not any(lo <= e["ts"] <= hi for lo, hi, _ in in_node[e["tid"]]):
+            forward[seq] = innermost(ranges[e["tid"]], e["ts"]) or "other"
+    backward = collections.defaultdict(list)  # thread -> [(start, end, range)]
+    for e in nodes:
+        named = [r for n, r in NODE_RANGES.items() if n in e["name"]]
+        name = named[0] if named else forward.get(e.get("args", {}).get("Sequence number"),
+                                                  "other")
+        backward[e["tid"]].append((e["ts"], e["ts"] + e["dur"], name))
+    split = collections.defaultdict(float)
+    kernels = collections.defaultdict(lambda: collections.defaultdict(float))
+    for r in records:
+        at = launch[r["args"]["correlation"]]
+        node = innermost(backward[at["tid"]], at["ts"])
+        key = (f"{node}_backward" if node is not None else
+               f"{innermost(ranges[at['tid']], at['ts']) or 'other'}_forward")
+        split[key] += r["dur"] / 1e3
+        kernels[key][r["name"][:110]] += r["dur"] / 1e3
+    total = sum(split.values())
+    ri = split["ri_sum_forward"] + split["ri_sum_backward"]
+    return dict(device_ms_total=total, ri_sum_device_ms=ri,
+                ri_sum_share=ri / total if total else None,
+                device_ms=dict(sorted(split.items(), key=lambda kv: -kv[1])),
+                share={k: v / total for k, v in split.items()} if total else {},
+                top_kernels_ms={k: dict(sorted(v.items(), key=lambda kv: -kv[1])[:top])
+                                for k, v in kernels.items()})
+
+
 def grad_workloads(say, dev, only) -> None:
     """The gradient workloads (see the docstring)."""
     import dataclasses
@@ -297,7 +435,7 @@ def grad_workloads(say, dev, only) -> None:
         return s.replace(position=s.position + torch.from_numpy(dpos).to(s.position.device))
 
     frames = {}
-    if {"grad_split", "grad", "grad_soft", "grad_eager"} & only:
+    if {"grad_split", "ri_split", "grad", "grad_soft", "grad_eager"} & only:
         frames["grad"] = grad_inputs(dev, examples.iow_final_scene(), recolour)
         frames["grad_soft"] = dict(frames["grad"], cfg=dataclasses.replace(
             frames["grad"]["cfg"], soft_edges=SOFT))
@@ -319,6 +457,18 @@ def grad_workloads(say, dev, only) -> None:
             **index_add_split(lambda: vg.last.band(deepest), int(g["pert"].capacity),
                               pop_rows))
         del vg
+    if "ri_split" in only:
+        g = frames["grad"]
+        vg = diff.banded_value_and_grad(g["pert"], g["cam"], g["cfg"], grad_bands=g["bands"],
+                                        band_pops=g["pops"], graphs=False)
+        vg(g["p"], g["target"])
+        deepest = max(range(g["bands"]), key=lambda b: g["pops"][b])
+        band = lambda: vg.last.band(deepest)  # noqa: E731
+        band()
+        torch.cuda.synchronize()
+        say(workload="ri_split", band=deepest, pops=vg.bucket_cfgs[vg.bucket_of[deepest]].pops,
+            ri_slots=list(vg.ri_slots[vg.bucket_of[deepest]]), **op_split(band))
+        vg.release()
     for name in ("grad", "grad_soft", "generic_hard", "grad_eager"):
         if name not in only:
             continue

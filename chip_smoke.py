@@ -260,10 +260,17 @@ Phases and their bars:
      share of that span, the kernels that take the most); peak memory of
      both; the launch counts of a replayed step equal the eager step's:
      a pop of every band launches one sweep, one winner gather and one
-     winner scatter (``_build.LaunchRecord``, ``grad_launches``), and the
+     winner scatter and, where the scene refracts, one containment sum
+     (``ri_sum``), whose backward (``ri_sum_grad``) runs on every pop but a
+     band's last (``_build.LaunchRecord``, ``grad_launches``), and the
      trace of a replayed step holds that many records of the port's kernels
      (in every graphed phase); one eager static band under
-     ``torch.cuda.set_sync_debug_mode("error")`` raises nothing.
+     ``torch.cuda.set_sync_debug_mode("error")`` raises nothing.  The eager
+     deepest band's device time split by the range that launched each
+     kernel (``chip_queue_ab.op_split``: the containment sum, the
+     recompute, the queue, the rest of ``shade_rays``, forward and
+     backward): ``deepest_band_eager``'s ``ri_sum_device_ms`` and
+     ``ri_sum_share``.
   grad_soft_frame, grad_generic_soft, grad_motion_soft. The same frame with
      ``soft_edges`` 0.03 (K2's EDGE instantiation); ``bvh_grid_scene(side=32)``
      with jittered positions, soft (K3's EDGE instantiation) and hard (K3
@@ -288,6 +295,18 @@ Phases and their bars:
      device ms (cold L2, least of 3) above the bound by bytes, the plain
      version's and the library's (one ``index_select`` a field, one
      ``index_add_`` a trainable field: the route before the kernels).
+  ri_sum_vs_plain. The containment sum's kernels on the RI slots of the
+     grad frame's deepest band's first three pops (``ri_pops``: 488 rows,
+     the gradient the backward gets there) and on 32 768 points along
+     bvh1k's camera lanes (1 032 rows), in both builds, the backward in its
+     tile mode and in its global mode: the forward bit for bit
+     ``ri_sum_plain`` in the -fmad=false build and on >= RI_DEFAULT_EQUAL
+     (99.9 %) of points in the default build, every row of the backward
+     within RI_OF_SUM_ABS (1e-5) of its sum of |g / count| of a float64
+     sum; device ms (cold L2, least of 3) above the bound by operations or
+     bytes, the plain version's and the library's (the route before the
+     kernels: ``ops.intersect.surrounding_refractive_index`` and its
+     autograd backward).
   grad_graph_moved. Every position moved by up to MOVE after the bvh1k
      steps captured their graphs (soft and hard), and after two Adam steps
      of grad_config that train positions: the replay over the new tables
@@ -333,21 +352,25 @@ Phases and their bars:
      JAX package, and 16 spp unbanded would need some 100 GB (1 spp if the
      unsharded step's peak passes 60 GB); ``value_and_grad_loss`` on 3
      shards against one device: -fmad=false build by GRAD_SHARDED_PRECISE
-     (its reason there), the default build by GRAD_DEFAULT; K2 and the
-     winner gather's pair alone, each once a pop; peak
+     (its reason there), the default build by GRAD_DEFAULT; K2, the
+     winner gather's pair and the containment sum alone, each once a pop,
+     the sum's backward once a pop but each shard's last; peak
      memory and seconds per step of both; three Adam steps of
      ``make_train_step(mesh=)``: the last two below the first.
   dryrun. ``dryrun.dryrun_multichip(4, devices=[card] * 4)`` in the
      -fmad=false build: one sharded Adam step with a finite loss, and
      ``render_uber_sharded`` against ``render_uber`` at atol 2e-6 with equal
      rays under 'bvh', materials and lights (each one single and four shard
-     launches).
+     launches); its target render and its step run the dense intersector:
+     one containment sum a call of ``containment_ri``, its backward a call
+     with a gradient but each shard's last.
   world_one. ``multihost.initialize_multihost`` with NCCL, world size
      1, through a FileStore in a temporary directory; ``make_mesh()`` is the
      group's; ``render_uber_sharded`` at 200x112x8 d6 bit for bit
      ``render_uber`` (one launch); one ``value_and_grad_loss(mesh=)``
      through the all-reduce against the unsharded one by
-     GRAD_SHARDED_PRECISE; the group destroyed in a ``finally``.
+     GRAD_SHARDED_PRECISE, its launches as the sharded step's on one
+     shard; the group destroyed in a ``finally``.
   Then the fourteenth slice, last: the numpy oracle, the normals view,
   progressive tiles and the LBVH with its native host build.
   oracle_parity. ``render`` with intersector="pallas" on the card (K2 on the
@@ -409,13 +432,15 @@ Phases and their bars:
      parity ok, the headline 0 dropped and its rays within 2 % of the
      scene's, each timed frame of each configuration one launch of one K1
      instantiation (``{"uber": 1}`` for the headline), the gradient step
-     finite with K2 launched, the details file as returned, no file written
+     finite with K2 and the containment sum's pair launched, the details
+     file as returned, no file written
      by the smoke run, the repo's ``bench_details.json`` byte for byte as it
      was; ``bench_vs_headline`` puts the bench's Mrays/s beside phase 6's.
   utils_on_card. ``utils.profiling.trace`` around one headline frame (the
      exported trace names ``uber_kernel`` and the ``annotate("headline")``
-     range), the ``ThroughputMeter`` over three frames within 10 % of
-     ``timed_frames``' mean rate, ``KeepLastGood`` around the Adam step at
+     range), the ``ThroughputMeter`` over three frames within 10 % of the
+     rate the host clock gives the same frames around a synchronise,
+     ``KeepLastGood`` around the Adam step at
      200x112x8 d6 with a NaN put into the colours (rejected once, every
      tensor of the state bit for bit as it was), ``check_finite_render``
      passing on the canary and raising on a scene of NaN colours.
@@ -445,11 +470,11 @@ import dataclasses  # noqa: E402
 
 # The A/B tool holds the split of index_add_'s time by destination, since it
 # must run it against a parent's checkout too; the smoke reads the same split.
-from chip_queue_ab import index_add_split  # noqa: E402
+from chip_queue_ab import index_add_split, op_split  # noqa: E402
 from raytracing_tests_tpu_torch import diff  # noqa: E402
 from raytracing_tests_tpu_torch.bench import grad_bands  # noqa: E402
 from raytracing_tests_tpu_torch.kernels import (  # noqa: E402
-    _build, drain, edge_cull, gather, mega, sweep, sweep2, sweep2g, uber,
+    _build, drain, edge_cull, gather, mega, ri_sum, sweep, sweep2, sweep2g, uber,
 )
 from raytracing_tests_tpu_torch.ops import megalanes, workqueue  # noqa: E402
 from raytracing_tests_tpu_torch.ops.render import (  # noqa: E402
@@ -617,6 +642,28 @@ def say(**kw):
     if "phase" in kw:
         kw["elapsed_s"] = time.perf_counter() - T0
     print(json.dumps(kw), flush=True)
+
+
+def host_state():
+    """What the host gave the script so far, to tell a slow machine from a
+    slow phase: the load average, the cores it may run on, the CPU seconds
+    of this process and its children, the CPU pressure (where the kernel
+    reports it) and the card's SM clock against its maximum."""
+    out = dict(loadavg=os.getloadavg(), cpus=os.cpu_count(),
+               cpus_allowed=len(os.sched_getaffinity(0)), cpu_seconds=sum(os.times()[:4]))
+    try:
+        with open("/proc/pressure/cpu") as f:
+            out["cpu_pressure"] = f.readline().strip()
+    except OSError:
+        out["cpu_pressure"] = None
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu,power.draw",
+             "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+        out["gpu_clocks"] = smi.stdout.strip() or None
+    except (OSError, subprocess.TimeoutExpired):
+        out["gpu_clocks"] = None
+    return out
 
 
 def require(cond, what):
@@ -2082,7 +2129,7 @@ def k5_coop_sweep(what, render):
 
 DEVICE_RECORDS = ("kernel", "gpu_memcpy", "gpu_memset")  # a trace's device activity
 PORT_KERNEL = re.compile(r"\b(uber|sweep2|sweep2g|sweep2g_edge|mega|grouped|nearest|ri|nearest_ri"
-                         r"|drain|winner_gather|winner_scatter)_kernel\b")
+                         r"|drain|winner_gather|winner_scatter|ri_sum|ri_sum_grad)_kernel\b")
 SESSIONS = []  # what each profiler session saw (``device_session``)
 
 
@@ -4346,13 +4393,15 @@ def patched(module, name, fn):
 
 @contextlib.contextmanager
 def plain_sweeps():
-    """Inside: the sweep wrappers of K2 and K3 (both instantiations each) and
-    the winner gather's forward and backward run their plain versions on the
-    card: the gradient path with no kernel."""
+    """Inside: the sweep wrappers of K2 and K3 (both instantiations each),
+    the winner gather's forward and backward and the containment sum's run
+    their plain versions on the card: the gradient path with no kernel."""
     with contextlib.ExitStack() as stack:
         for module, name, plain in (
                 (gather, "_gather", gather._gather_plain),
                 (gather, "_scatter", gather._scatter_plain),
+                (ri_sum, "_ri_sum", ri_sum.ri_sum_plain),
+                (ri_sum, "_ri_sum_grad", ri_sum.ri_sum_grad_plain),
                 (sweep2, "_sweep2", lambda a, r, ri, f, stats=None: sweep2.sweep2_plain(a, r, ri, f)),
                 (sweep2, "_sweep2_edge", lambda a, r, stats=None: sweep2.sweep2_edge_plain(a, r)),
                 (sweep2g, "_sweep2g", lambda a, r, stats=None: sweep2g.sweep2g_plain(a, r)),
@@ -4434,9 +4483,16 @@ def grad_launches(k, sweep):
     """The launches of one step of ``k``'s function: every pop of every band
     launches its sweep ``sweep``, the winner gather of its recompute and,
     in the backward, that gather's scatter (every pop's recompute reaches
-    the loss)."""
+    the loss); where the scene refracts, every pop also sums the
+    surrounding RI of its slots (``ri_sum``), and the backward of that sum
+    (``ri_sum_grad``) runs on every pop but a band's last, whose RI bends
+    only children that no pop reads."""
     n = step_sweeps(k)
-    return {sweep: n, "winner_gather": n, "winner_scatter": n}
+    out = {sweep: n, "winner_gather": n, "winner_scatter": n}
+    vg = k["vg"]
+    if vg.bucket_cfgs[0].has_dielectrics:
+        out.update(ri_sum=n, ri_sum_grad=n - sum(len(idxs) for _, idxs in vg.buckets))
+    return out
 
 
 # launch counter -> the kernel's name in a trace (the instantiation's template
@@ -4447,7 +4503,8 @@ TRACE_NAMES = {"sweep2": "::sweep2_kernel<false, false>", "sweep2_m": "::sweep2_
                "sweep2g_edge": "::sweep2g_edge_kernel<false>",
                "sweep2g_m_edge": "::sweep2g_edge_kernel<true>",
                "winner_gather": "::winner_gather_kernel(",
-               "winner_scatter": "::winner_scatter_kernel("}
+               "winner_scatter": "::winner_scatter_kernel(",
+               "ri_sum": "::ri_sum_kernel<", "ri_sum_grad": "::ri_sum_grad_kernel<"}
 
 
 def traced_ms(by, counter):
@@ -4461,11 +4518,12 @@ def step_device(k, g, what):
     no wrapper, so its kernels are timed from the trace, not by events, and
     the launch counts it reports are copied from its capture
     (``_build.LaunchRecord``): the trace must hold one record of the port's
-    kernels for each launch the step counts, three a pop of every band (its
-    sweep, the winner gather and its scatter, ``grad_launches``)."""
+    kernels for each launch the step counts (``grad_launches``: three a pop
+    of every band, its sweep, the winner gather and its scatter, and with
+    glass the containment sum and its backward)."""
     by = device_session(lambda: k["vg"](g["p"], g["target"]), what)
     got, counted = SESSIONS[-1]["port_kernel_records"], SESSIONS[-1]["port_launches"]
-    want = 3 * step_sweeps(k)
+    want = sum(grad_launches(k, "sweep").values())
     require(got == counted == want, f"{what}: the trace of the step holds {got} records of the "
             f"port's kernels for {counted} launches counted, {want} expected: {SESSIONS[-1]}")
     return by
@@ -4546,8 +4604,8 @@ def band_device_share(k, b):
     span from the first one's start to the last one's end: the idle share is
     the span's share the card did not work.  ``overlap_ms``: how much the
     summed durations exceed the union (kernels of a graph that ran at once).
-    Also the sweep kernels' and the winner gather's kernels' time and the
-    kernels that took the most."""
+    Also the sweep kernels', the winner gather's and the containment sum's
+    kernels' time and the kernels that took the most."""
     vg = k["vg"]
     run = lambda: vg.last.band(b)  # noqa: E731
     run()
@@ -4558,14 +4616,16 @@ def band_device_share(k, b):
         by[e["name"]] += e.get("dur", 0) / 1e3
     busy, span = busy_and_span(records)
     sweeps = sum(v for name, v in by.items() if "sweep2" in name)
-    winner = {n: sum(v for name, v in by.items() if TRACE_NAMES[n] in name)
-              for n in ("winner_gather", "winner_scatter")}
+    port = {n: sum(v for name, v in by.items() if TRACE_NAMES[n] in name)
+            for n in ("winner_gather", "winner_scatter", "ri_sum", "ri_sum_grad")}
     top = sorted(by.items(), key=lambda kv: -kv[1])[:8]
     return dict(band=b, pops=vg.bucket_cfgs[vg.bucket_of[b]].pops, wall_ms=wall,
                 span_ms=span, device_busy_ms=busy, device_ms_sum=sum(by.values()),
                 overlap_ms=sum(by.values()) - busy, device_idle_share=1.0 - busy / span,
-                sweep_kernels_ms=sweeps, winner_kernels_ms=winner, kernels_traced=len(by),
-                top_kernels_ms={name[:120]: ms for name, ms in top})
+                sweep_kernels_ms=sweeps,
+                winner_kernels_ms={n: port[n] for n in ("winner_gather", "winner_scatter")},
+                ri_kernels_ms={n: port[n] for n in ("ri_sum", "ri_sum_grad")},
+                kernels_traced=len(by), top_kernels_ms={name[:120]: ms for name, ms in top})
 
 
 def compare_edge(got, want, rays):
@@ -4827,6 +4887,10 @@ L2_FLUSH_BYTES = 128 << 20
 # and the blocks by global atomics, in float32 and in another order than a
 # sequential sum; every (row, column) within this share of its sum of |g|.
 SCATTER_OF_SUM_ABS = 1e-5
+# The containment sum's default build against its plain version: a fused
+# a*b+c rounds a point's local coordinates apart, which turns a containment
+# test only at a row's boundary; points equal on at least this share.
+RI_DEFAULT_EQUAL = 0.999
 
 
 def cold_ms(fn, reps=3):
@@ -5024,6 +5088,251 @@ def winner_entries(rows, paths):
     ]
 
 
+# The containment sum's backward against a float64 sum of the same
+# gradients: the kernel sums a warp's lanes of a row in a tree, a block's in
+# shared memory and the blocks by global atomics, in float32 and in another
+# order; every row within this share of its sum of |g / count|.
+RI_OF_SUM_ABS = 1e-5
+
+
+def ri_pops(vg, band, n):
+    """The containment sum's inputs at the first ``n`` pops of band ``band``
+    of ``vg``'s last step (its RI slots), the gradient each one's backward
+    gets and the count of its slots that hold a lane that reads the RI
+    (``needing``; the slots past them compute lane 0's point, and their
+    results are thrown away): the band run once more eagerly -> [dict(inputs,
+    g, needing)]."""
+    render_mod = sys.modules["raytracing_tests_tpu_torch.ops.render"]
+    fwd, bwd, lanes_of = ri_sum._ri_sum, ri_sum._ri_sum_grad, render_mod._ri_of_lanes
+    got, ptrs, grads, needing = [], [], {}, []
+
+    def keep_lanes(scene, accel, point, time_ratio, need, capacity):
+        if len(needing) < n:
+            needing.append(min(int(need.sum()), need.shape[0] if capacity is None else capacity))
+        return lanes_of(scene, accel, point, time_ratio, need, capacity)
+
+    def keep_fwd(inputs):
+        if len(got) < n:
+            got.append([t.detach().clone() for t in inputs])
+            ptrs.append(inputs[0].data_ptr())
+        return fwd(inputs)
+
+    def keep_bwd(inputs, den, g):
+        grads[inputs[0].data_ptr()] = g.clone()
+        return bwd(inputs, den, g)
+
+    with patched(ri_sum, "_ri_sum", keep_fwd), patched(ri_sum, "_ri_sum_grad", keep_bwd), \
+            patched(render_mod, "_ri_of_lanes", keep_lanes):
+        vg.last.band(band)
+    require(len(got) == n and len(needing) == n and all(p in grads for p in ptrs),
+            f"ri_pops: {len(got)} forward calls kept, backward of {len(grads)}, {needing}")
+    return [dict(inputs=x, g=grads[p], needing=k) for x, p, k in zip(got, ptrs, needing)]
+
+
+def camera_lane_points(ge, n=32768):
+    """Points along ``n`` of a gradient frame's camera lanes (``ge``: its
+    scene and camera), each at a seeded distance up to 40: the containment
+    sum's inputs over the frame's whole table (no band's gradient)."""
+    scene, cfg = ge["pert"], ge["cfg"]
+    o, d, tr, _ = _lane_inputs(ge["cam"], cfg)
+    rng = np.random.default_rng(SEED)
+    pick = torch.from_numpy(rng.choice(o.shape[0], n, replace=False)).to(o.device)
+    at = torch.from_numpy(rng.uniform(0.0, 40.0, n).astype(np.float32)).to(o.device)
+    fields = [getattr(scene, f).contiguous() for f in ri_sum.FIELDS]
+    fields[ri_sum.FIELDS.index("obj_type")] = fields[ri_sum.FIELDS.index("obj_type")].int()
+    inputs = [(o[pick] + at[:, None] * d[pick]).contiguous(), tr[pick].contiguous()] + fields
+    return dict(inputs=inputs, g=None, needing=None)
+
+
+def ri_sum_vs_plain(cases):
+    """Phase ri_sum_vs_plain: the containment sum's kernels on the inputs of
+    the grad frame's deepest band's first three pops (``ri_pops``: their RI
+    slots, 488 rows, the gradient the backward gets there) and on points
+    along bvh1k's camera lanes (1 032 rows), in the default and the
+    -fmad=false build, the backward in its tile mode and forced into its
+    global mode (a shared-memory budget of 0).  The forward against
+    ``ri_sum_plain`` (the plain version's arithmetic): bit for
+    bit in the -fmad=false build, on >= 99.9 % of points in the default
+    build (a fused a*b+c can turn a containment test at a boundary).  The
+    backward for two gradients, the band's own (``band``; on the grad
+    frame's glass it reaches no row: a probe point lies 1e-3 outside the
+    surface its ray hit, in air, or is a padding slot, whose gradient is 0)
+    and a seeded one (``seeded``; the band's gradient must be 0 on every
+    padding slot, past the ``needing_slots`` that hold a lane which reads
+    the RI): every row within RI_OF_SUM_ABS of its
+    sum of |g / count| of a float64 sum over the plain version's
+    containment (in the default build over the points whose forward equals
+    the plain version's, the others' gradient set to 0), and the seeded one
+    adds into some row wherever a point lies inside one.  Each kernel's
+    device time (cold L2, least of 3) above its bound (operations: every
+    (point, live row) test, the backward's for the points with a gradient;
+    or bytes), for the band's gradient and the seeded one, the plain
+    version's and the library's: the route the kernels replaced,
+    ``ops.intersect.surrounding_refractive_index`` and its autograd
+    backward -> {case: row}."""
+    from types import SimpleNamespace
+
+    from raytracing_tests_tpu_torch.ops import intersect as isect
+
+    rng = np.random.default_rng(SEED)
+    rows = {}
+    for label, pops in cases.items():
+        for k, c in enumerate(pops):
+            inputs = c["inputs"]
+            point, tr, *fields = inputs
+            S, N = point.shape[0], fields[0].shape[0]
+            grads = dict(seeded=torch.from_numpy(rng.normal(size=S).astype(np.float32)).to(
+                point.device))
+            if c["g"] is not None:
+                grads["band"] = c["g"]
+            table = dict(zip(ri_sum.FIELDS, fields))
+            live = int((table["valid"] & (table["refractive_index"] != 1.0)).sum())
+            want, want_den = ri_sum.ri_sum_plain(inputs)
+            inside = ri_sum._inside(*inputs).double()
+            forward, backward = {}, {}
+            for build, ctx in (("default", contextlib.nullcontext), ("precise", _build.precise)):
+                with ctx():
+                    got, den = ri_sum._launch_ri_sum(inputs)
+                torch.cuda.synchronize()
+                same = (got == want) & (den == want_den)
+                forward[build] = dict(max_abs_err=float((got - want).abs().max()),
+                                      frac_equal=frac(same), den_equal=frac(den == want_den))
+                for gname, g in grads.items():
+                    g_b = torch.where(same, g, torch.zeros_like(g))
+                    v = torch.where(want_den > 0, g_b.double() / want_den.clamp_min(1).double(),
+                                    torch.zeros_like(g_b, dtype=torch.float64))
+                    exact = (inside * v[:, None]).sum(0)
+                    scale = (inside * v.abs()[:, None]).sum(0)
+                    for m, budget in (("tile", ri_sum.SMEM_BUDGET), ("global", 0)):
+                        with ctx():
+                            grad, ran = ri_sum._launch_ri_sum_grad(inputs, den, g_b, budget)
+                        torch.cuda.synchronize()
+                        err = (grad.double() - exact).abs()
+                        bar = RI_OF_SUM_ABS * scale
+                        of_bar = (err / bar.clamp_min(1e-300))[scale > 0]
+                        backward[f"{build} {m} {gname}"] = dict(
+                            build=build, mode=m, ran=ran, gradient=gname,
+                            points_left_out=int((~same).sum()),
+                            rows_touched=int((scale > 0).sum()), max_abs_err=float(err.max()),
+                            worst_err_of_bar=float(of_bar.max()) if of_bar.numel() else 0.0,
+                            untouched_exact=bool((err[scale == 0] == 0).all()),
+                            frac_within=frac(torch.where(scale > 0, err <= bar, err == 0)))
+            del inside
+            den = ri_sum._launch_ri_sum(inputs)[1]
+            scene = SimpleNamespace(**table)
+            leaf = table["refractive_index"].clone().requires_grad_(True)
+            routed = isect.surrounding_refractive_index(
+                SimpleNamespace(**dict(table, refractive_index=leaf)), point, tr)
+            row_bytes = 4 * (3 + 3 + 9 + 3 + 1) + 1 + 4  # the fields a row reads
+            # (ms by bytes, ms by operations) of each kernel: points and times,
+            # rows, the mean and count out; the backward reads every point's
+            # gradient and count, the point and time of only those that give
+            # a gradient (count > 0, gradient not 0), whose rows it tests,
+            # and writes the rows' sums
+            f_ms = ((16 * S + row_bytes * N + 8 * S) / PEAK_BYTES_PER_S * 1e3,
+                    S * live * FLOPS_PER_CONTAINS_GENERIC / PEAK_FP32_FLOPS * 1e3)
+            by = lambda ms: "bytes" if ms[0] > ms[1] else "operations"  # noqa: E731
+            row = dict(
+                points=S, rows=N, live_rows=live, points_inside=int((want_den > 0).sum()),
+                needing_slots=c["needing"],
+                needing_inside=(None if c["needing"] is None
+                                else int((want_den[:c["needing"]] > 0).sum())),
+                padding_gradient_zero=(None if c["g"] is None
+                                       else bool((c["g"][c["needing"]:] == 0).all())),
+                forward_vs_plain=forward, backward=backward,
+                ms=cold_ms(lambda: ri_sum._launch_ri_sum(inputs)),
+                plain_ms=cold_ms(lambda: ri_sum.ri_sum_plain(inputs)),
+                library_ms=cold_ms(lambda: isect.surrounding_refractive_index(scene, point, tr)),
+                bound_ms=max(f_ms), bound_by=by(f_ms), grad={})
+            for gname, g in grads.items():
+                active = int(((want_den > 0) & (g != 0)).sum())
+                b_ms = ((8 * S + 16 * active + row_bytes * N + 4 * N) / PEAK_BYTES_PER_S * 1e3,
+                        active * live * FLOPS_PER_CONTAINS_GENERIC / PEAK_FP32_FLOPS * 1e3)
+                row["grad"][gname] = dict(
+                    points_with_gradient=active,
+                    ms={m: cold_ms(lambda b=b: ri_sum._launch_ri_sum_grad(inputs, den, g, b))
+                        for m, b in (("tile", ri_sum.SMEM_BUDGET), ("global", 0))},
+                    plain_ms=cold_ms(lambda: ri_sum.ri_sum_grad_plain(inputs, den, g)),
+                    library_ms=cold_ms(lambda: torch.autograd.grad(routed, leaf, g,
+                                                                   retain_graph=True)),
+                    bound_ms=max(b_ms), bound_by=by(b_ms))
+            del routed, leaf
+            rows[f"{label} pop {k + 1}" if len(pops) > 1 else label] = row
+            say(phase="ri_sum_vs_plain", case=label, pop=k + 1, **row)
+    for label, r in rows.items():
+        f = r["forward_vs_plain"]
+        require(f["precise"]["frac_equal"] == 1.0 and f["precise"]["max_abs_err"] == 0.0
+                and f["default"]["frac_equal"] >= RI_DEFAULT_EQUAL,
+                f"ri_sum_vs_plain, {label}: the forward against the plain version: {f}")
+        require(all(b["ran"] == b["mode"] and b["worst_err_of_bar"] <= 1.0
+                    and b["untouched_exact"] and (b["build"] == "default" or not b["points_left_out"])
+                    and (b["rows_touched"] > 0 or b["gradient"] == "band" or not r["points_inside"])
+                    for b in r["backward"].values()),
+                f"ri_sum_vs_plain, {label}: the backward against a float64 sum: {r['backward']}")
+        require(r["ms"] > r["bound_ms"]
+                and all(min(x["ms"].values()) > x["bound_ms"] for x in r["grad"].values()),
+                f"ri_sum_vs_plain, {label}: a kernel at or below its bound, a counting error: {r}")
+    require(all(r["padding_gradient_zero"] is not False for r in rows.values()),
+            f"ri_sum_vs_plain: a padding slot got a gradient: {rows}")
+    require(any(r["points_inside"] for r in rows.values()),
+            "ri_sum_vs_plain: no point lies inside a row: the backward held nothing")
+    return rows
+
+
+def ri_entries(rows, paths):
+    """The kernels-line entries of the containment sum's two kernels from
+    ``ri_sum_vs_plain``'s rows (the main path's numbers: the grad frame's
+    deepest band's pop with the most slots, the band's own gradient, the
+    tile mode; the three pops summed beside) and the launches of the
+    gradient paths."""
+    src = "raytracing_tests_tpu_torch/csrc/ri_sum.cu"
+    pops = [r for label, r in rows.items() if label.startswith("grad pop")]
+    main = max(pops, key=lambda r: r["points"])
+    shape = (f"{main['points']} points (the RI slots of a pop of the grad frame's deepest band; "
+             f"its first three pops: {', '.join(str(r['points']) for r in pops)}) x "
+             f"{main['rows']} rows; bvh1k's {rows['bvh1k']['rows']} rows beside")
+    note = ("no TPU kernel: the XLA fusion of the gradient path's dense containment sum "
+            "(ops/intersect.py:86-105, reached from ops/render.py:324-329)")
+    by_path = lambda name: {p: got[name] for p, got in paths.items() if got.get(name)}  # noqa: E731
+    fwd = [f for r in rows.values() for f in r["forward_vs_plain"].values()]
+    bwd = [b for r in rows.values() for b in r["backward"].values()]
+    band = main["grad"]["band"]
+    return [
+        dict(name="ri_sum", route="cuda", source=src,
+             replaces="raytracing_tests_tpu/ops/intersect.py:86", note=note,
+             launches=paths["grad_frame"]["ri_sum"], launches_by_path=by_path("ri_sum"),
+             max_abs_err=max(r["forward_vs_plain"]["precise"]["max_abs_err"]
+                             for r in rows.values()),
+             max_abs_err_default_build=max(r["forward_vs_plain"]["default"]["max_abs_err"]
+                                           for r in rows.values()),
+             tolerance=f"bit for bit the plain version in the -fmad=false build, equal on >= "
+                       f"{RI_DEFAULT_EQUAL} of points in the default build",
+             frac_within_tolerance=min(f["frac_equal"] for f in fwd),
+             ms=main["ms"], ms_three_pops=sum(r["ms"] for r in pops), plain_ms=main["plain_ms"],
+             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+             library_ms=main["library_ms"],
+             library="ops.intersect.surrounding_refractive_index, the route it replaced",
+             shape=shape, cases=rows),
+        dict(name="ri_sum_grad", route="cuda", source=src,
+             replaces="raytracing_tests_tpu/ops/intersect.py:86", note=note,
+             launches=paths["grad_frame"]["ri_sum_grad"],
+             launches_by_path=by_path("ri_sum_grad"),
+             max_abs_err=max(b["max_abs_err"] for b in bwd),
+             tolerance=f"every row within {RI_OF_SUM_ABS} of its sum of |g / count| of a float64 "
+                       f"sum, both builds, the tile and the global mode, the band's gradient and "
+                       f"a seeded one",
+             frac_within_tolerance=min(b["frac_within"] for b in bwd),
+             ms=band["ms"]["tile"], ms_global_mode=band["ms"]["global"],
+             ms_seeded_gradient=main["grad"]["seeded"]["ms"]["tile"],
+             ms_three_pops=sum(r["grad"]["band"]["ms"]["tile"] for r in pops),
+             plain_ms=band["plain_ms"], bound_ms=band["bound_ms"], bound_by=band["bound_by"],
+             library_ms=band["library_ms"],
+             library="the autograd backward of ops.intersect.surrounding_refractive_index, the "
+                     "route it replaced",
+             shape=shape),
+    ]
+
+
 def grad_phases(dev, k3_canary):
     """The eighth slice's phases -> (kernels-line entries, {path: launches},
     K3's numbers over the hard generic step for its kernels-line entry).
@@ -5057,9 +5366,18 @@ def grad_phases(dev, k3_canary):
     deepest = max(range(g["bands"]), key=lambda b: g["pops"][b])
     share = band_device_share(k, deepest)
     share_eager = band_device_share(ke, deepest)
+    # where the eager deepest band's device time goes, by the range that
+    # launched each kernel: the containment sum, the recompute, the queue,
+    # the rest of the shading (forward and backward)
+    split = op_split(lambda: ke["vg"].last.band(deepest))
+    share_eager.update(ri_sum_device_ms=split["ri_sum_device_ms"],
+                       ri_sum_share=split["ri_sum_share"], split=split)
+    # the containment sum's inputs at the deepest band's first three pops
+    ri_cases = dict(grad=ri_pops(ke["vg"], deepest, 3))
     by = step_device(k, g, "grad_graph_step")
     k2_ms, n_k2 = traced_ms(by, "sweep2"), step_sweeps(k)
     winner_ms = {n: traced_ms(by, n) for n in ("winner_gather", "winner_scatter")}
+    ri_ms = {n: traced_ms(by, n) for n in ("ri_sum", "ri_sum_grad")}
     # a long session can lose the device records of its last launches: the
     # port's kernels the trace holds, against the step's launches
     k2_records = SESSIONS[-1]["port_kernel_records"]
@@ -5088,9 +5406,9 @@ def grad_phases(dev, k3_canary):
                  mrays_equiv_per_s=g["rays"] / k["seconds_per_step"] / 1e6,
                  probe_seconds=g["probe_ms"] / 1e3, peak_memory_bytes=k["peak_memory_bytes"],
                  launches=k["step_launches"], k2_launches=n_k2, k2_device_ms=k2_ms,
-                 winner_device_ms=winner_ms, deepest_band=share, default_build=default,
-                 precise_build=precise)
-    say(phase="grad_frame", **frame)
+                 winner_device_ms=winner_ms, ri_device_ms=ri_ms, deepest_band=share,
+                 default_build=default, precise_build=precise)
+    say(phase="grad_frame", host=host_state(), **frame)
     graphed = dict(
         size=size_of(GRAD), capture_step_seconds=k["ms"] / 1e3,
         replay_step_seconds=[x / 1e3 for x in k["step_ms"]],
@@ -5108,7 +5426,8 @@ def grad_phases(dev, k3_canary):
                                                                k["vg"].buckets)],
         capture_step_launches=k["launches"], replay_step_launches=k["step_launches"],
         eager_step_launches=ke["step_launches"], sweeps_per_step=n_k2,
-        k2_device_ms=k2_ms, winner_device_ms=winner_ms, port_records_in_trace=k2_records,
+        k2_device_ms=k2_ms, winner_device_ms=winner_ms, ri_device_ms=ri_ms,
+        port_records_in_trace=k2_records,
         device_ms_of_a_replay_step=sum(by.values()),
         deepest_band=share, deepest_band_eager=share_eager,
         eager_band_sync_free=sync_free,
@@ -5122,17 +5441,20 @@ def grad_phases(dev, k3_canary):
     check_grads("grad_graph, default build against the eager static step", vs_eager,
                 GRAD_GRAPH)
     want = grad_launches(k, "sweep2")
-    require(k["step_launches"] == ke["step_launches"] == want and n_k2 > 0,
+    require(k["step_launches"] == ke["step_launches"] == want and n_k2 > 0 and "ri_sum" in want,
             f"grad_graph: a replayed step counts the eager step's launches, K2 and the winner "
-            f"gather's pair a pop: {k['step_launches']} {ke['step_launches']} ({want} expected)")
+            f"gather's pair a pop, the containment sum a pop and its backward a pop but a "
+            f"band's last: {k['step_launches']} {ke['step_launches']} ({want} expected)")
     require(set(k["launches"]) == set(want) and k["vg"].counts["captures"] == 1,
-            f"grad_graph: the capturing step runs K2 and the winner gather's pair alone, one "
-            f"capture: {k['launches']} {dict(k['vg'].counts)}")
+            f"grad_graph: the capturing step runs K2, the winner gather's pair and the "
+            f"containment sum's alone, one capture: {k['launches']} {dict(k['vg'].counts)}")
     require(sync_free is True, f"grad_graph: the eager static band synchronised: {sync_free}")
-    require(k2_ms > 0 and k2_records == 3 * n_k2 and share["device_busy_ms"] > 0
-            and min(winner_ms.values()) > 0,
+    require(k2_ms > 0 and k2_records == sum(want.values()) and share["device_busy_ms"] > 0
+            and min(winner_ms.values()) > 0 and min(ri_ms.values()) > 0,
             f"grad_graph: the trace of a replayed step holds its launches: {k2_records} of "
-            f"{3 * n_k2}, {winner_ms}, {share}")
+            f"{sum(want.values())}, {winner_ms}, {ri_ms}, {share}")
+    require(min(split["device_ms"].get(f"ri_sum_{d}", 0.0) for d in ("forward", "backward")) > 0,
+            f"grad_graph: the eager band's split finds no containment sum: {split}")
     require(index_adds["index_add_device_ms"]["winner_gathers"] == 0.0,
             f"grad_graph: the winner gathers' backward ran index_add_: {index_adds}")
     paths["grad_frame"] = k["step_launches"]
@@ -5179,6 +5501,9 @@ def grad_phases(dev, k3_canary):
                                                      key=lambda b: hard["pops"][b]))
     winner_rows = winner_gather_vs_plain(first_pops)
     del first_pops
+    ri_cases["bvh1k"] = [camera_lane_points(hard)]
+    ri_rows = ri_sum_vs_plain(ri_cases)
+    del ri_cases
     kh = grad_step(hard, replays=1)
     by_hard = step_device(kh, hard, "grad_generic_step")
     hard_ms = traced_ms(by_hard, "sweep2g")
@@ -5342,7 +5667,8 @@ def grad_phases(dev, k3_canary):
             and res["tables_changed"]["otab"],
             f"train_steps, positions trained: the graphs replayed over moved spheres: {res}")
     vg.release()
-    return entries, paths, at_hard_step, winner_entries(winner_rows, paths)
+    return entries, paths, at_hard_step, (winner_entries(winner_rows, paths)
+                                          + ri_entries(ri_rows, paths))
 
 
 # ---------------------------------------------------------------------------
@@ -5503,6 +5829,16 @@ def sharded_vg(t, mesh):
                 peak_memory_bytes=torch.cuda.max_memory_allocated())
 
 
+def unbanded_launches(n, traces):
+    """The launches of an unbanded gradient step of grad_config's glass scene
+    whose ``traces`` traces (one a shard) pop ``n`` times in all: K2, the
+    winner gather and its scatter and the containment sum on every pop, the
+    sum's backward on every pop but each trace's last (whose RI bends only
+    children that no pop reads)."""
+    return {"sweep2": n, "winner_gather": n, "winner_scatter": n, "ri_sum": n,
+            "ri_sum_grad": n - traces}
+
+
 def sharded_train_step(dev):
     """Phase sharded_train_step: grad_config's scene and target at TRAIN_SPP,
     unbanded, through the sharded gradient step on 3 virtual shards."""
@@ -5542,8 +5878,9 @@ def sharded_train_step(dev):
     check_grads("sharded_train_step, -fmad=false build", precise, GRAD_SHARDED_PRECISE)
     check_grads("sharded_train_step, default build", default, GRAD_DEFAULT)
     n = sh["launches"].get("sweep2", 0)
-    require(sh["launches"] == {"sweep2": n, "winner_gather": n, "winner_scatter": n} and n > 0,
-            f"sharded_train_step: the step runs K2 and the winner gather's pair a pop, nothing "
+    require(sh["launches"] == unbanded_launches(n, 3) and n > 0,
+            f"sharded_train_step: the step runs K2, the winner gather's pair and the "
+            f"containment sum a pop and its backward a pop but each shard's last, nothing "
             f"else: {sh['launches']}")
     require(losses[1] < losses[0] and losses[2] < losses[0],
             f"sharded_train_step: two more Adam steps did not lower the loss: {losses}")
@@ -5551,16 +5888,35 @@ def sharded_train_step(dev):
 
 
 def dryrun_phase(dev):
-    """Phase dryrun: the port's dry run on 4 virtual shards, -fmad=false."""
+    """Phase dryrun: the port's dry run on 4 virtual shards, -fmad=false.
+    Its target render and its sharded Adam step run the dense intersector,
+    whose lanes sum the surrounding RI by ``containment_ri``: one
+    ``ri_sum`` a call, and one ``ri_sum_grad`` a call whose RI needs a
+    gradient but each shard's last pop's (its RI bends only children that
+    no pop reads)."""
     from raytracing_tests_tpu_torch.dryrun import dryrun_multichip
 
+    shards = 4
+    calls = collections.Counter()
+    real = ri_sum.containment_ri
+
+    def counted(scene, point, time_ratio):
+        calls["with_grad" if scene.refractive_index.requires_grad else "without_grad"] += 1
+        return real(scene, point, time_ratio)
+
     _build.reset_launches()
-    with _build.precise():
-        ms, found = timed_ms(lambda: dryrun_multichip(4, devices=[dev] * 4))
+    with _build.precise(), patched(ri_sum, "containment_ri", counted):
+        ms, found = timed_ms(lambda: dryrun_multichip(shards, devices=[dev] * shards))
     launches = dict(_build.LAUNCHES)
-    say(phase="dryrun", shards=4, seconds=ms / 1e3, found=found, launches=launches)
-    require(len(launches) == 3 and set(launches.values()) == {5},
+    say(phase="dryrun", shards=shards, seconds=ms / 1e3, found=found, launches=launches,
+        containment_calls=dict(calls))
+    ri = {"ri_sum": sum(calls.values()), "ri_sum_grad": calls["with_grad"] - shards}
+    k1 = {k: v for k, v in launches.items() if k not in ri}
+    require(len(k1) == 3 and set(k1.values()) == {5},
             f"dryrun: three cases of K1, each one single and four shard launches: {launches}")
+    require({k: launches.get(k, 0) for k in ri} == ri and ri["ri_sum_grad"] > 0,
+            f"dryrun: the containment sum a call, its backward a call with a gradient but "
+            f"each shard's last: {launches}, {dict(calls)}")
     return {"dryrun": launches}
 
 
@@ -5605,6 +5961,9 @@ def world_one(dev):
             require(all(res["frame_equal_to_single"].values()) and launches == {"uber": 1},
                     f"world_one: the group's frame is not the single launch's: {res}")
             check_grads("world_one value_and_grad_loss", grads, GRAD_SHARDED_PRECISE)
+            n = launches_vg.get("sweep2", 0)
+            require(launches_vg == unbanded_launches(n, 1) and n > 0,
+                    f"world_one: the group's gradient step launches: {launches_vg}")
         finally:
             dist.destroy_process_group()
     return {"world_one": {k: launches.get(k, 0) + launches_vg.get(k, 0)
@@ -6203,7 +6562,9 @@ def bench_phase(dev):
             < 0.02, f"bench headline: {head}")
     require(all(f == {"uber": 1} for f in frames["iow-final"]) and all(one_k1.values()),
             f"bench: one launch of the persistent kernel a frame: {frames}")
-    require(res["grad_finite"] and res["grad_k2_launches"] > 0, f"bench grad: {grad}")
+    require(res["grad_finite"] and res["grad_k2_launches"] > 0
+            and grad["launches"].get("ri_sum", 0) > 0 and grad["launches"].get("ri_sum_grad", 0) > 0,
+            f"bench grad: {grad}")
     require(res["details_file_as_returned"] and res["root_bench_details_unchanged"]
             and smoke_files == [] and res["vs_baseline_absent"], f"bench: {res}")
     paths = {f"bench_{n.replace('-', '_')}": dict(sum(
@@ -6255,14 +6616,19 @@ def utils_on_card(dev):
     kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
     k1_events = [e for e in events if e.get("cat") == "kernel" and "uber_kernel" in e["name"]]
     annotated = [e for e in events if e.get("name") == "headline"]
-    # the meter against timed_frames
-    out_t, times, _ = timed_frames(frame)
-    rays = int(out_t["rays"])
-    meter = ThroughputMeter()
+    # the meter against the host clock around a synchronise, on the same three
+    # frames: frames timed apart from the meter's read up to 38 % fewer Mrays/s just
+    # after the trace session (on an H100, once in six runs; 9 % in another)
+    rays = int(frame()["rays"])
+    meter, times = ThroughputMeter(), []
     _build.reset_launches()
     for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         with meter.frame(rays):
             frame()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
     paths["utils_meter"] = dict(_build.LAUNCHES)
     timed_rate = rays * len(times) / sum(times) / 1e6
     # keep-last-good around the Adam step at the canary's size
@@ -6305,8 +6671,8 @@ def utils_on_card(dev):
                           primer_launches=PRIMER_LAUNCHES,
                           bare_session_device_events=len(bare_kernels),
                           bare_session_k1=sum("uber_kernel" in n for n in bare_kernels)),
-               meter=dict(mrays_per_s=meter.mrays_per_s, timed_frames_mrays_per_s=timed_rate,
-                          timed_frames_min_mrays_per_s=rays / min(times) / 1e6,
+               meter=dict(mrays_per_s=meter.mrays_per_s, host_clock_mrays_per_s=timed_rate,
+                          host_clock_min_mrays_per_s=rays / min(times) / 1e6,
                           frames=3, seconds=meter.seconds),
                keep_last_good=dict(size=size_of(SMALL), first_loss=float(loss0),
                                    rejected=guard.rejected, state_tensors=len(after),
@@ -6537,7 +6903,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
-    say(phase="card", card=card, torch=torch.__version__, cuda=torch.version.cuda)
+    say(phase="card", card=card, torch=torch.__version__, cuda=torch.version.cuda,
+        host=host_state())
 
     # 2. build ----------------------------------------------------------------
     info = _build.build(with_precise=True)
@@ -6807,8 +7174,9 @@ def main():
         k["ptxas"] = ptxas.get(f"sweep2g.so sweep2g_edge_kernel<{m}>" if k["name"].startswith(
             "sweep2g") else f"sweep2.so sweep2_kernel<{m},1>")
     kernels += eighth
-    for k in winner:
-        k["ptxas"] = ptxas.get(f"gather.so {k['name']}_kernel")
+    for k in winner:  # the winner gather's pair and the containment sum's (K lanes a point)
+        k["ptxas"] = (ptxas.get(f"gather.so {k['name']}_kernel") if k["name"].startswith("winner")
+                      else {K: ptxas.get(f"ri_sum.so {k['name']}_kernel<{K}>") for K in (1, 2, 4, 8)})
     kernels += winner
     # every instantiation of K1 with its ptxas line
     entry_of = {v: n for n, v in KERNEL_ENTRY.items()}
@@ -6833,7 +7201,8 @@ def main():
     for k in kernels:
         counter = dict(sweep2="sweep2", sweep2_motion="sweep2_m", sweep2g="sweep2g",
                        sweep_grouped="sweep_grouped", sweep_ri="sweep_ri",
-                       winner_gather="winner_gather", winner_scatter="winner_scatter").get(
+                       winner_gather="winner_gather", winner_scatter="winner_scatter",
+                       ri_sum="ri_sum", ri_sum_grad="ri_sum_grad").get(
             k["name"], k.get("instantiation"))
         if counter:
             k["launches_by_path"].update({p: got[counter] for p, got in later_paths.items()
@@ -6846,7 +7215,7 @@ def main():
     lost = sum(x["records_lost"] for x in SESSIONS)
     say(phase="profiler_sessions", sessions=SESSIONS, records_lost=lost,
         kernel_launches=sum(x["kernel_launches"] for x in SESSIONS))
-    say(phase="script", seconds=time.perf_counter() - T0, limit_seconds=1200)
+    say(phase="script", seconds=time.perf_counter() - T0, limit_seconds=1200, host=host_state())
     say(kernels=kernels)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

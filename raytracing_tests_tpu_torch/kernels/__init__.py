@@ -20,6 +20,10 @@
   - ``gather``:  the gradient path's winner gather and its backward
                  (``csrc/gather.cu``): each lane's row of the scene's packed
                  fields, the lanes' gradients added into the table.
+  - ``ri_sum``:  the gradient path's surrounding-refractive-index
+                 containment sum and its backward (``csrc/ri_sum.cu``): each
+                 point's mean RI over the rows that contain it, each point's
+                 gradient added into those rows.
   - ``_build``:  builds and loads the kernels at first use; launch counters.
 
 The first-generation sweep entry points are re-exported here, as the JAX

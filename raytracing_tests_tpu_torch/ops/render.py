@@ -365,17 +365,25 @@ def _nearest_obj(scene, accel, o, d, time_ratio, t_limit):
 def _surrounding_ri(scene, accel, point, time_ratio):
     """Surrounding refractive index at ``point`` where no sweep fused it:
     the LBVH walk for the ``bvh`` intersector, else the dense containment
-    sum (differentiable with respect to ``refractive_index``)."""
-    from raytracing_tests_tpu_torch.bvh.build import LBVH
+    sum (``kernels.ri_sum.containment_ri``: one kernel launch on the card;
+    differentiable with respect to ``refractive_index``)."""
+    from raytracing_tests_tpu_torch.kernels.ri_sum import containment_ri
 
-    if isinstance(accel, LBVH):
+    if _is_lbvh(accel):
         from raytracing_tests_tpu_torch.bvh.traverse import traverse_point_ri
 
         return traverse_point_ri(accel, scene, point, time_ratio)
-    return isect.surrounding_refractive_index(scene, point, time_ratio)
+    return containment_ri(scene, point, time_ratio)
 
 
-# Lanes of one piece of the dense containment sum (``_ri_of_lanes``).
+def _is_lbvh(accel) -> bool:
+    from raytracing_tests_tpu_torch.bvh.build import LBVH
+
+    return isinstance(accel, LBVH)
+
+
+# Lanes of one piece of the plain containment sum and of the LBVH walk
+# (``_ri_of_lanes``).
 RI_CHUNK = 65536
 
 
@@ -391,8 +399,10 @@ def _ri_of_lanes(scene, accel, point, time_ratio, need, capacity: Optional[int])
     compute lane 0's point and are thrown away.  A needing lane past the
     capacity reads 1: the caller compares the returned count with the
     capacity and traces again with more slots (``trace_lanes``,
-    ``diff.train``).  The sum runs ``RI_CHUNK`` slots at a time, which bounds
-    its transient (slots, N, 3) tensors."""
+    ``diff.train``).  On the card the dense sum is one kernel launch over
+    every slot, which keeps no intermediate; on the CPU, and for the LBVH
+    walk, the sum runs ``RI_CHUNK`` slots at a time, which bounds the plain
+    version's transient (slots, N) tensors."""
     B = need.shape[0]
     n_need = torch.sum(need)
     cap = B if capacity is None else max(0, min(capacity, B))
@@ -404,10 +414,14 @@ def _ri_of_lanes(scene, accel, point, time_ratio, need, capacity: Optional[int])
     lanes = torch.zeros(cap + 1, dtype=torch.int64, device=need.device).scatter_(
         0, torch.where(need & (slot < cap), slot, spill),
         torch.arange(B, device=need.device))[:cap]
-    ri = torch.cat([
-        _surrounding_ri(scene, accel, point.index_select(0, part),
-                        time_ratio.index_select(0, part))
-        for part in torch.split(lanes, RI_CHUNK)])
+    whole = point.device.type != "cpu" and not _is_lbvh(accel)
+    # a named range, so that a profile can tell the sum's kernels from the
+    # shading's (its backward by the autograd sequence numbers of its ops)
+    with torch.profiler.record_function("ri_sum"):
+        ri = torch.cat([
+            _surrounding_ri(scene, accel, point.index_select(0, part),
+                            time_ratio.index_select(0, part))
+            for part in ((lanes,) if whole else torch.split(lanes, RI_CHUNK))])
     used = torch.arange(cap, device=need.device) < n_need
     dest = torch.where(used, lanes, torch.full_like(lanes, B))
     return torch.cat([ones, ones[:1]]).scatter(0, dest, ri)[:B], n_need
