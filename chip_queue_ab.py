@@ -106,7 +106,8 @@ GRAD_WORKLOADS = ("grad_split", "ri_split", "grad", "grad_soft", "generic_hard",
 SPLIT_RANGES = ("ri_sum", "recompute", "queue", "shade_rays")
 # The backward nodes of the port's autograd.Functions, known by name (their
 # forward records no operator of their own to take a sequence number from).
-NODE_RANGES = {"ContainmentRI": "ri_sum", "WinnerGather": "recompute"}
+NODE_RANGES = {"ContainmentRI": "ri_sum", "WinnerGather": "recompute",
+               "WinnerRecompute": "recompute"}
 
 
 def _pad(n: int) -> None:

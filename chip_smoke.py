@@ -243,7 +243,11 @@ Phases and their bars:
      (``plain_sweeps``): the
      -fmad=false build's loss within GRAD_PRECISE's rtol 1e-5 and every
      field's gradient within 1e-3 of its max |g|; the default build by
-     GRAD_DEFAULT (its reason there).  Seconds per step (the least of three
+     GRAD_DEFAULT (its reason there).  The eager -fmad=false step with the
+     recompute's backward by the kernel and by its plain version in float32,
+     each against the same step with that backward in float64
+     (``recompute_64``): the kernel's no farther (``check_recompute_64``).
+     Seconds per step (the least of three
      replayed steps), forward rays and seconds, band depths, peak memory,
      K2's launches and its device time over a replayed step (from the
      trace: a replay calls no wrapper), the winner gather's two kernels'
@@ -306,7 +310,34 @@ Phases and their bars:
      sum; device ms (cold L2, least of 3) above the bound by operations or
      bytes, the plain version's and the library's (the route before the
      kernels: ``ops.intersect.surrounding_refractive_index`` and its
-     autograd backward).
+     autograd backward).  The sum's tangent (``ri_sum_jvp``, a seeded
+     tangent of the rows' RI) bit for bit ``ri_sum_jvp_plain`` in the
+     -fmad=false build and on >= RI_DEFAULT_EQUAL of points in the default
+     build; its time beside its bound, the plain version's and
+     ``torch.func.jvp`` of the route it replaced.
+  recompute_vs_plain. The recompute's three kernels (forward, backward,
+     tangent) on the lanes of the deepest band's first pop of the grad frame
+     (230 400, hard) and of the grad_soft frame (soft), and on 32 768 of
+     bvh1k's (hard with the band's gradient, and soft with a seeded one),
+     once (the source is built with -fmad=false in both builds, so the two
+     builds load the same code): the forward bit for bit the plain
+     version's on >= RECOMPUTE_EQUAL (99.9 %) of lanes and within
+     RECOMPUTE_RTOL (1e-6) on every lane but where a cuboid's face turns at
+     a tie; the backward and the tangent against float64 autograd and
+     ``torch.func.jvp`` of the plain version: every field's largest error
+     within RECOMPUTE_OF_SUM_ABS (1e-5) of its sum of |g| beyond the float32
+     plain route's own, its summed error at most twice the route's; device
+     ms (cold L2, least of 3) above the bound by bytes, the plain version's
+     and the route it replaced (the plain forward under autograd, and with
+     its backward).
+  tangent_vs_plain. ``torch.func.jvp`` of ``render_loss`` on the fast path
+     through the kernels against the plain route, on ``materials_scene()``
+     (glass, 200x112x4 d6) and bvh1k (200x112x4 d3), both builds, along a
+     seeded tangent of every trainable field: within TANGENT_PRECISE (1e-6)
+     of the sum of |g v| in the -fmad=false build and TANGENT_DEFAULT
+     (1e-5) in the default build, each bar below |tangent|; the tangent's
+     kernels launched once a forward launch (the winner gather twice), no
+     backward kernel.
   grad_graph_moved. Every position moved by up to MOVE after the bvh1k
      steps captured their graphs (soft and hard), and after two Adam steps
      of grad_config that train positions: the replay over the new tables
@@ -474,14 +505,16 @@ from chip_queue_ab import index_add_split, op_split  # noqa: E402
 from raytracing_tests_tpu_torch import diff  # noqa: E402
 from raytracing_tests_tpu_torch.bench import grad_bands  # noqa: E402
 from raytracing_tests_tpu_torch.kernels import (  # noqa: E402
-    _build, drain, edge_cull, gather, mega, ri_sum, sweep, sweep2, sweep2g, uber,
+    _build, drain, edge_cull, gather, mega, recompute, ri_sum, sweep, sweep2, sweep2g, uber,
 )
 from raytracing_tests_tpu_torch.ops import megalanes, workqueue  # noqa: E402
 from raytracing_tests_tpu_torch.ops.render import (  # noqa: E402
     RenderConfig, _build_accel, _lane_inputs, finalize, render_stats,
 )
 from raytracing_tests_tpu_torch.scene import examples  # noqa: E402
-from raytracing_tests_tpu_torch.scene.types import ELLIPSOID, Camera, SceneBuilder  # noqa: E402
+from raytracing_tests_tpu_torch.scene.types import (  # noqa: E402
+    CUBOID, ELLIPSOID, Camera, SceneBuilder,
+)
 
 SEED = 0
 HEADLINE = dict(width=800, height=450, spp=100, max_bounces=8)
@@ -2129,7 +2162,8 @@ def k5_coop_sweep(what, render):
 
 DEVICE_RECORDS = ("kernel", "gpu_memcpy", "gpu_memset")  # a trace's device activity
 PORT_KERNEL = re.compile(r"\b(uber|sweep2|sweep2g|sweep2g_edge|mega|grouped|nearest|ri|nearest_ri"
-                         r"|drain|winner_gather|winner_scatter|ri_sum|ri_sum_grad)_kernel\b")
+                         r"|drain|winner_gather|winner_scatter|ri_sum|ri_sum_grad|recompute"
+                         r"|recompute_grad|recompute_jvp)_kernel\b")
 SESSIONS = []  # what each profiler session saw (``device_session``)
 
 
@@ -2571,14 +2605,15 @@ POLL_SWEEP = (1, 2, 3, 4)  # poll periods timed beside the full budget
 def megalanes_poll_sweep(scene, camera, cfg, dead):
     """Phase megalanes_poll_sweep: the headline frame in both schedules under
     each poll period of POLL_SWEEP and under the full budget (every chunk
-    cfg.pops steps, nothing read), in turns, three rounds; per period the
+    cfg.pops steps, nothing read), in turns, two rounds (there and back);
+    per period the
     least frame time, the steps, the dead steps and what they cost at the
     dead step's time."""
     res = {}
     periods = POLL_SWEEP + (cfg.pops,)
     default = megalanes.POLL_EVERY
     for schedule in ("natural", "sorted"):
-        for rnd in range(3):
+        for rnd in range(2):
             for every in (periods if rnd % 2 == 0 else periods[::-1]):
                 _build.reset_launches()
                 megalanes.POLL_EVERY = every
@@ -2954,7 +2989,7 @@ def drains_sync_free(scene, camera, cfg, accel):
     torch.cuda.empty_cache()
 
 
-REPLAY_SWEEP = (4, 8, 16)  # work-queue replay lengths timed in turns
+REPLAY_SWEEP = (4, 8, 16)  # work-queue replay lengths, each timed once
 
 
 def workqueue_frames(scene, camera, cfg):
@@ -2990,10 +3025,11 @@ def workqueue_frames(scene, camera, cfg):
                 pixels_within_1e5=frac(err <= 1e-5), max_abs_err=float(err.max()))
     graphed.update(profiled_idle(lambda: workqueue.render_workqueue(scene, camera, cfg),
                                  graphed["seconds"] * 1e3, kernels=(("k2", "sweep2_kernel"),)))
-    # the graphed frame at other replay lengths, in turns with the default
+    # the graphed frame at other replay lengths and the default, once each
+    # (their spread between runs is recorded)
     default_k, by_k = workqueue.REPLAY_K, {}
     try:
-        for k in REPLAY_SWEEP + REPLAY_SWEEP[::-1]:
+        for k in REPLAY_SWEEP:
             workqueue.REPLAY_K = k
             ms, out = timed_ms(lambda: workqueue.render_workqueue(scene, camera, cfg))
             r = by_k.setdefault(str(k), dict(seconds=[], iterations=out["iterations"]))
@@ -3179,14 +3215,14 @@ def gapless_events(fn):
     return a, b
 
 
-def timed_by_coop(real, calls, n_stats):
+def timed_by_coop(real, calls, n_stats, reps=2):
     """A stand-in for a kernel wrapper ``real`` that, on each call, runs it
     once untimed (so that the allocator holds the outputs' memory), then for
-    each coop_min of COOP_SWEEP, the order rotating from call to call, twice
-    timed and once with its ``n_stats`` counters, and returns the default
-    schedule's result: ``calls`` gains {coop_min: [(events, stats)]}.  The
-    faster of the two timings counts: a host stalled for longer than the
-    card's sleep would charge the stall to the launch."""
+    each coop_min of COOP_SWEEP, the order rotating from call to call,
+    ``reps`` times timed and once with its ``n_stats`` counters, and returns
+    the default schedule's result: ``calls`` gains {coop_min: [(events,
+    stats)]}.  The fastest of the timings counts: a host stalled for longer
+    than the card's sleep would charge the stall to the launch."""
     n = [0]
 
     def timed(accel, *args, **kw):
@@ -3196,7 +3232,7 @@ def timed_by_coop(real, calls, n_stats):
         real(accel, *args, **kw)
         for cm in COOP_SWEEP[k:] + COOP_SWEEP[:k]:
             with coop(cm):
-                events = [gapless_events(lambda: real(accel, *args, **kw)) for _ in range(2)]
+                events = [gapless_events(lambda: real(accel, *args, **kw)) for _ in range(reps)]
                 stats = torch.zeros(n_stats, dtype=torch.int64, device=accel.device)
                 real(accel, *args, stats=stats, **kw)
             calls.setdefault(cm, []).append((events, stats))
@@ -4394,14 +4430,22 @@ def patched(module, name, fn):
 @contextlib.contextmanager
 def plain_sweeps():
     """Inside: the sweep wrappers of K2 and K3 (both instantiations each),
-    the winner gather's forward and backward and the containment sum's run
-    their plain versions on the card: the gradient path with no kernel."""
+    the winner gather's forward and backward, the recompute's forward,
+    backward and tangent and the containment sum's forward, backward and
+    tangent run their plain versions on the card: the gradient path with no
+    kernel."""
     with contextlib.ExitStack() as stack:
         for module, name, plain in (
                 (gather, "_gather", gather._gather_plain),
                 (gather, "_scatter", gather._scatter_plain),
+                (recompute, "_recompute", recompute._recompute_plain),
+                (recompute, "_recompute_grad",
+                 lambda x, g, soft, sph, need: [v if n else None for v, n in zip(
+                     recompute._recompute_grad_plain(x, g, soft, sph), need)]),
+                (recompute, "_recompute_jvp", recompute._recompute_jvp_plain),
                 (ri_sum, "_ri_sum", ri_sum.ri_sum_plain),
                 (ri_sum, "_ri_sum_grad", ri_sum.ri_sum_grad_plain),
+                (ri_sum, "_ri_sum_jvp", ri_sum.ri_sum_jvp_plain),
                 (sweep2, "_sweep2", lambda a, r, ri, f, stats=None: sweep2.sweep2_plain(a, r, ri, f)),
                 (sweep2, "_sweep2_edge", lambda a, r, stats=None: sweep2.sweep2_edge_plain(a, r)),
                 (sweep2g, "_sweep2g", lambda a, r, stats=None: sweep2g.sweep2g_plain(a, r)),
@@ -4481,17 +4525,22 @@ def step_sweeps(k):
 
 def grad_launches(k, sweep):
     """The launches of one step of ``k``'s function: every pop of every band
-    launches its sweep ``sweep``, the winner gather of its recompute and,
-    in the backward, that gather's scatter (every pop's recompute reaches
-    the loss); where the scene refracts, every pop also sums the
-    surrounding RI of its slots (``ri_sum``), and the backward of that sum
-    (``ri_sum_grad``) runs on every pop but a band's last, whose RI bends
-    only children that no pop reads."""
+    launches its sweep ``sweep``, the winner gather, the recompute from the
+    gathered rows and, in the backward, that gather's scatter (every pop's
+    gathered material reaches the loss); the recompute's backward runs on
+    every pop but a band's last where the edges are hard (that pop's hit
+    point and normal feed only children that no pop reads; with soft edges
+    its coverage reaches the colour); where the scene refracts, every pop
+    also sums the surrounding RI of its slots (``ri_sum``), and the backward
+    of that sum (``ri_sum_grad``) runs on every pop but a band's last, whose
+    RI bends only children that no pop reads."""
     n = step_sweeps(k)
-    out = {sweep: n, "winner_gather": n, "winner_scatter": n}
     vg = k["vg"]
+    bands = sum(len(idxs) for _, idxs in vg.buckets)
+    out = {sweep: n, "winner_gather": n, "winner_scatter": n, "winner_recompute": n,
+           "winner_recompute_grad": n if vg.bucket_cfgs[0].soft_edges > 0.0 else n - bands}
     if vg.bucket_cfgs[0].has_dielectrics:
-        out.update(ri_sum=n, ri_sum_grad=n - sum(len(idxs) for _, idxs in vg.buckets))
+        out.update(ri_sum=n, ri_sum_grad=n - bands)
     return out
 
 
@@ -4504,6 +4553,8 @@ TRACE_NAMES = {"sweep2": "::sweep2_kernel<false, false>", "sweep2_m": "::sweep2_
                "sweep2g_m_edge": "::sweep2g_edge_kernel<true>",
                "winner_gather": "::winner_gather_kernel(",
                "winner_scatter": "::winner_scatter_kernel(",
+               "winner_recompute": "::recompute_kernel(",
+               "winner_recompute_grad": "::recompute_grad_kernel(",
                "ri_sum": "::ri_sum_kernel<", "ri_sum_grad": "::ri_sum_grad_kernel<"}
 
 
@@ -4518,9 +4569,10 @@ def step_device(k, g, what):
     no wrapper, so its kernels are timed from the trace, not by events, and
     the launch counts it reports are copied from its capture
     (``_build.LaunchRecord``): the trace must hold one record of the port's
-    kernels for each launch the step counts (``grad_launches``: three a pop
-    of every band, its sweep, the winner gather and its scatter, and with
-    glass the containment sum and its backward)."""
+    kernels for each launch the step counts (``grad_launches``: its sweep,
+    the winner gather and its scatter and the recompute a pop of every band,
+    the recompute's backward a pop but a band's last with hard edges, and
+    with glass the containment sum and its backward)."""
     by = device_session(lambda: k["vg"](g["p"], g["target"]), what)
     got, counted = SESSIONS[-1]["port_kernel_records"], SESSIONS[-1]["port_launches"]
     want = sum(grad_launches(k, "sweep").values())
@@ -4595,6 +4647,32 @@ def check_grads(what, res, bars):
             f"{what}: the gradient step disagrees with its plain version: {res} (bars {bars})")
 
 
+def recompute_grad_plain_in(dtype):
+    """A stand-in for ``recompute._recompute_grad``: the plain version's
+    backward computed in ``dtype``, its gradients handed back in float32."""
+    def grad(inputs, grads, soft, spheres, need):
+        cast = lambda x: x if x is None or not x.is_floating_point() else x.to(dtype)  # noqa: E731
+        got = recompute._recompute_grad_plain([cast(x) for x in inputs], [cast(q) for q in grads],
+                                              soft, spheres)
+        return [v.float() if n else None for v, n in zip(got, need)]
+
+    return grad
+
+
+def check_recompute_64(what, res):
+    """The eager -fmad=false step with the recompute's backward by the
+    kernel, and by its plain version in float32, each against the same step
+    with that backward in float64: every field of the kernel's within
+    twice the plain float32 backward's error plus GRAD_GRAPH's field bar
+    (the order of the atomic adds between two steps)."""
+    kern, plain = res["kernel_vs_float64"]["fields"], res["plain_vs_float64"]["fields"]
+    over = {n: (f["err_of_max"], plain[n]["err_of_max"]) for n, f in kern.items()
+            if f["err_of_max"] > 2.0 * plain[n]["err_of_max"] + GRAD_GRAPH["field_of_max"]}
+    require(not over and res["kernel_vs_float64"]["finite"],
+            f"{what}: the recompute's backward by the kernel is farther from float64 than the "
+            f"plain version's in float32 (field: (kernel, plain)): {over}")
+
+
 def band_device_share(k, b):
     """Band ``b`` of the last step of ``k``'s function once more (graphed:
     its bucket's graph replayed on the band's lanes; eager: the band's static
@@ -4604,8 +4682,8 @@ def band_device_share(k, b):
     span from the first one's start to the last one's end: the idle share is
     the span's share the card did not work.  ``overlap_ms``: how much the
     summed durations exceed the union (kernels of a graph that ran at once).
-    Also the sweep kernels', the winner gather's and the containment sum's
-    kernels' time and the kernels that took the most."""
+    Also the sweep kernels', the winner gather's, the recompute's and the
+    containment sum's kernels' time and the kernels that took the most."""
     vg = k["vg"]
     run = lambda: vg.last.band(b)  # noqa: E731
     run()
@@ -4617,13 +4695,16 @@ def band_device_share(k, b):
     busy, span = busy_and_span(records)
     sweeps = sum(v for name, v in by.items() if "sweep2" in name)
     port = {n: sum(v for name, v in by.items() if TRACE_NAMES[n] in name)
-            for n in ("winner_gather", "winner_scatter", "ri_sum", "ri_sum_grad")}
+            for n in ("winner_gather", "winner_scatter", "winner_recompute",
+                      "winner_recompute_grad", "ri_sum", "ri_sum_grad")}
     top = sorted(by.items(), key=lambda kv: -kv[1])[:8]
     return dict(band=b, pops=vg.bucket_cfgs[vg.bucket_of[b]].pops, wall_ms=wall,
                 span_ms=span, device_busy_ms=busy, device_ms_sum=sum(by.values()),
                 overlap_ms=sum(by.values()) - busy, device_idle_share=1.0 - busy / span,
                 sweep_kernels_ms=sweeps,
-                winner_kernels_ms={n: port[n] for n in ("winner_gather", "winner_scatter")},
+                winner_kernels_ms={n: port[n] for n in ("winner_gather", "winner_scatter",
+                                                        "winner_recompute",
+                                                        "winner_recompute_grad")},
                 ri_kernels_ms={n: port[n] for n in ("ri_sum", "ri_sum_grad")},
                 kernels_traced=len(by), top_kernels_ms={name[:120]: ms for name, ms in top})
 
@@ -4799,8 +4880,11 @@ def k3_coop_sweep(what, g, name):
     module, wrapper, _, _ = POP_KERNELS[name]
     edge = name != "sweep2g"
     calls, bounds = {}, []
+    # one timing a schedule: a step's hundreds of launches sum out a stall
+    # (two took 35 s over both steps; their spread is recorded since K3's
+    # redesign)
     timer = timed_by_coop(getattr(module, wrapper), calls,
-                          sweep2g.EC_LEN if edge else sweep2g.GC_LEN)
+                          sweep2g.EC_LEN if edge else sweep2g.GC_LEN, reps=1)
 
     def hook(accel, rays, stats=None):
         out = timer(accel, rays)
@@ -4908,11 +4992,12 @@ def cold_ms(fn, reps=3):
 
 
 def first_pop_gather(g, band):
-    """The winner gather's inputs at the first pop of band ``band`` of
-    ``g``'s gradient path and the gradient its backward gets there: the band
-    traced eagerly at its probed depth and differentiated (its squared error
-    against the target's rows) -> dict(table, ints, obj, widths, grads: one
-    a field, None where it has none)."""
+    """The winner gather's and the recompute's inputs at the first pop of
+    band ``band`` of ``g``'s gradient path and the gradients their backwards
+    get there: the band traced eagerly at its probed depth and
+    differentiated (its squared error against the target's rows) ->
+    dict(table, ints, obj, widths, grads: one a field, None where it has
+    none; recompute: dict(inputs, grads, soft, spheres))."""
     from raytracing_tests_tpu_torch.diff.train import _diff_cfg
     from raytracing_tests_tpu_torch.ops.render import trace_lanes
 
@@ -4925,6 +5010,7 @@ def first_pop_gather(g, band):
     scene = diff.apply_params(g["pert"], leaves)
     got = {}
     fwd, bwd = gather._gather, gather._scatter
+    r_fwd, r_bwd = recompute._recompute, recompute._recompute_grad
 
     def keep_gather(table, obj, ints, widths):
         got.setdefault("gather", (table.detach().clone(), ints.clone(), obj.clone(), widths))
@@ -4934,7 +5020,18 @@ def first_pop_gather(g, band):
         got["scatter"] = ([None if q is None else q.clone() for q in grads], obj.clone())
         return bwd(grads, obj, rows, widths)
 
-    with patched(gather, "_gather", keep_gather), patched(gather, "_scatter", keep_scatter):
+    def keep_recompute(inputs, soft, spheres):
+        got.setdefault("recompute", ([x.detach().clone() for x in inputs], soft, spheres))
+        return r_fwd(inputs, soft, spheres)
+
+    def keep_recompute_grad(inputs, grads, soft, spheres, need):  # the last: the first pop's
+        got["recompute_grad"] = ([None if q is None else q.clone() for q in grads],
+                                 inputs[0].clone())
+        return r_bwd(inputs, grads, soft, spheres, need)
+
+    with patched(gather, "_gather", keep_gather), patched(gather, "_scatter", keep_scatter), \
+            patched(recompute, "_recompute", keep_recompute), \
+            patched(recompute, "_recompute_grad", keep_recompute_grad):
         color, primary_t, _, _ = trace_lanes(scene, None, cfg, lo[sl], ld[sl], ltr[sl], ls[sl],
                                              _build_accel(scene, cfg))
         img = finalize(color.reshape(h, cfg.width, cfg.spp, 3),
@@ -4944,7 +5041,12 @@ def first_pop_gather(g, band):
     table, ints, obj, widths = got["gather"]
     grads, obj_back = got["scatter"]
     require(torch.equal(obj, obj_back), "first_pop_gather: the last scatter is not the first pop's")
-    return dict(table=table, ints=ints, obj=obj, widths=widths, grads=grads)
+    r_inputs, soft, spheres = got["recompute"]
+    r_grads, o_back = got["recompute_grad"]
+    require(torch.equal(r_inputs[0], o_back),
+            "first_pop_gather: the last recompute backward is not the first pop's")
+    return dict(table=table, ints=ints, obj=obj, widths=widths, grads=grads,
+                recompute=dict(inputs=r_inputs, grads=r_grads, soft=soft, spheres=spheres))
 
 
 def winner_gather_vs_plain(cases):
@@ -5088,6 +5190,224 @@ def winner_entries(rows, paths):
     ]
 
 
+# The recompute's kernels against the plain version, run once: the source
+# is built with -fmad=false in both builds (kernels/_build.py SOURCE_FLAGS).
+# Forward: every output of >= RECOMPUTE_EQUAL of the lanes bit for bit the
+# plain version's, and every lane within RECOMPUTE_RTOL (relative to
+# max(|value|, 1)) but where a cuboid's face turns at a tie.  Backward and
+# tangent against float64 autograd (torch.func.vjp) and
+# torch.func.jvp of the plain version on the same inputs: every field's
+# largest difference within RECOMPUTE_OF_SUM_ABS of the field's sum of |g|
+# over the lanes beyond the float32 plain route's own largest difference,
+# and its summed difference at most twice the route's.  Float32 loses
+# digits here in the kernels as in the route they replace (the ground
+# sphere's quadratic, radius 1000, cancels all but a few bits; a grazing
+# lane's root): on the grad frame's first pop the route's own summed
+# difference is 2e-3 of the field's sum of |g| and its largest some 4e-4
+# (one H100), far past 1e-5 by themselves.  Through the step, recompute_64
+# holds the same: the step with the recompute's backward in float64.
+RECOMPUTE_EQUAL = 0.999
+RECOMPUTE_RTOL = 1e-6
+RECOMPUTE_OF_SUM_ABS = 1e-5
+RECOMPUTE_IN_BYTES = 4 * (3 + 3 + 1 + 3 + 3 + 9 + 3 + 1) + 1  # floats, obj_type, hit
+BVH1K_RECOMPUTE_LANES = 32_768  # the bvh1k cases' lanes: the first pop's first ones
+
+
+def _vs_float64(got, ref, plain):
+    """Per field: its largest and summed difference from the float64
+    reference over the field's sum of |ref|, and the float32 plain route's
+    summed difference beside."""
+    out = {}
+    for name, k, r, p in zip([n for n, _ in recompute.FLOAT_INPUTS] if len(got) == 7
+                             else ["t", "normal", "local_pos", "alpha"], got, ref, plain):
+        err = (k.double() - r).abs()
+        sum_abs = float(r.abs().sum())
+        out[name] = dict(sum_abs=sum_abs, max_abs_err=float(err.max()),
+                         plain_max_abs_err=float((p.double() - r).abs().max()),
+                         max_abs_diff_from_plain=float((k - p).abs().max()),
+                         max_of_sum_abs=float(err.max()) / sum_abs if sum_abs else float(err.max()),
+                         l1_of_sum_abs=float(err.sum()) / sum_abs if sum_abs else float(err.sum()),
+                         plain_l1_of_sum_abs=(float((p.double() - r).abs().sum()) / sum_abs
+                                              if sum_abs else float((p.double() - r).abs().sum())))
+    return out
+
+
+def _field_within_float64(f):
+    return (f["max_abs_err"] <= f["plain_max_abs_err"] + RECOMPUTE_OF_SUM_ABS * f["sum_abs"]
+            and f["l1_of_sum_abs"] <= 2.0 * f["plain_l1_of_sum_abs"] + 1e-7)
+
+
+def recompute_vs_plain(cases):
+    """Phase recompute_vs_plain: the recompute's three kernels on the inputs
+    of a gradient band's first pop (``first_pop_gather``: its lanes, their
+    gathered rows and the gradient the backward gets there; the grad frame's
+    230 400 lanes hard and the grad_soft frame's soft, 32 768 of bvh1k's
+    hard, and the same with soft edges on and a seeded gradient), once (both
+    builds load the same code), against the plain version (the bars above);
+    each kernel's device time (cold L2, least of 3) beside its bound
+    by bytes (its own reads and writes), the plain version's time and the
+    route it replaced: the plain forward under autograd, and that forward
+    plus its autograd backward -> {case: row}."""
+    rng = np.random.default_rng(SEED)
+    rows = {}
+    for label, c in cases.items():
+        inputs, soft, sph = c["inputs"], c["soft"], c["spheres"]
+        B, dev = inputs[0].shape[0], inputs[0].device
+        xs = [inputs[k] for k in recompute._AT]
+        want = recompute._recompute_plain(inputs, soft, sph)
+        grads = c.get("grads")
+        seeded = grads is None or all(q is None for q in grads)
+        if seeded:
+            grads = [torch.from_numpy(rng.normal(size=tuple(w.shape)).astype(np.float32)).to(dev)
+                     for w in want]
+        tans = [torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32)).to(dev)
+                for x in xs]
+        inputs64 = [x.double() if x.is_floating_point() else x for x in inputs]
+        ref_g = recompute._recompute_grad_plain(
+            inputs64, [None if q is None else q.double() for q in grads], soft, sph)
+        ref_t = recompute._recompute_jvp_plain(inputs64, [t.double() for t in tans], soft, sph)
+        plain_g = recompute._recompute_grad_plain(inputs, grads, soft, sph)
+        plain_t = recompute._recompute_jvp_plain(inputs, tans, soft, sph)
+        cuboid = inputs[8] == CUBOID
+        got = recompute._launch_recompute(inputs, soft, sph)
+        got_g = recompute._launch_recompute_grad(inputs, grads, soft, sph)
+        got_t = recompute._launch_recompute_jvp(inputs, tans, soft, sph)
+        torch.cuda.synchronize()
+        same = torch.ones(B, dtype=torch.bool, device=dev)
+        rel = torch.zeros(B, device=dev)
+        for k, w in zip(got, want):
+            same &= (k == w).reshape(B, -1).all(1)
+            rel = torch.maximum(rel, ((k - w).abs() / w.abs().clamp_min(1.0)).reshape(B, -1)
+                                .amax(1))
+        face = cuboid & ~(got[1] == want[1]).all(1)
+        beyond = rel > RECOMPUTE_RTOL
+        forward = dict(frac_equal=frac(same), lanes_differ=int((~same).sum()),
+                       max_rel_err=float(rel.max()), lanes_beyond_rtol=int(beyond.sum()),
+                       of_them_a_cuboid_face=int((beyond & face).sum()),
+                       max_rel_err_off_faces=float(torch.where(
+                           face, torch.zeros_like(rel), rel).max()))
+        backward = _vs_float64(got_g, ref_g, plain_g)
+        tangent = _vs_float64(got_t, ref_t, plain_t)
+        del ref_g, ref_t, plain_g, plain_t, inputs64
+        fn, _ = recompute._plain_of(inputs, soft, sph)
+        leaves = [x.clone().requires_grad_(True) for x in xs]
+
+        def routed():  # what intersect_diff ran before: the plain forward under autograd
+            return fn(*leaves)
+
+        def routed_backward():
+            out = routed()
+            return torch.autograd.grad([o for o, q in zip(out, grads) if q is not None], leaves,
+                                       [q for q in grads if q is not None], allow_unused=True)
+
+        out_w = sum(recompute.OUTPUT_WIDTHS[:len(want)])
+        in_w = sum(w for _, w in recompute.FLOAT_INPUTS)
+        g_w = sum(w for w, q in zip(recompute.OUTPUT_WIDTHS, grads) if q is not None)
+        bytes_of = dict(forward=B * (RECOMPUTE_IN_BYTES + 4 * out_w),
+                        grad=B * (RECOMPUTE_IN_BYTES + 4 * g_w + 4 * in_w),
+                        jvp=B * (RECOMPUTE_IN_BYTES + 4 * in_w + 4 * out_w))
+        row = dict(
+            lanes=B, soft=soft, mode="spheres" if sph else "generic",
+            gradient="seeded" if seeded else "the band's",
+            build="one: -fmad=false in both builds (kernels/_build.py SOURCE_FLAGS)",
+            lanes_hit=int(inputs[3].sum()), lanes_cuboid=int(cuboid.sum()),
+            forward_vs_plain=forward, backward_vs_float64=backward, tangent_vs_float64=tangent,
+            ms=cold_ms(lambda: recompute._launch_recompute(inputs, soft, sph)),
+            grad_ms=cold_ms(lambda: recompute._launch_recompute_grad(inputs, grads, soft, sph)),
+            jvp_ms=cold_ms(lambda: recompute._launch_recompute_jvp(inputs, tans, soft, sph)),
+            plain_ms=cold_ms(lambda: recompute._recompute_plain(inputs, soft, sph)),
+            grad_plain_ms=cold_ms(lambda: recompute._recompute_grad_plain(inputs, grads, soft,
+                                                                          sph)),
+            jvp_plain_ms=cold_ms(lambda: recompute._recompute_jvp_plain(inputs, tans, soft, sph)),
+            library_ms=cold_ms(routed), grad_library_ms=cold_ms(routed_backward),
+            bytes=bytes_of, bound_by="bytes",
+            **{f"{k}_bound_ms": v / PEAK_BYTES_PER_S * 1e3 for k, v in bytes_of.items()})
+        rows[label] = row
+        say(phase="recompute_vs_plain", case=label, **row)
+    for label, r in rows.items():
+        f = r["forward_vs_plain"]
+        require(f["frac_equal"] >= RECOMPUTE_EQUAL
+                and f["lanes_beyond_rtol"] == f["of_them_a_cuboid_face"]
+                and f["lanes_beyond_rtol"] <= (1.0 - RECOMPUTE_EQUAL) * r["lanes"],
+                f"recompute_vs_plain, {label}: the forward against the plain version: {f}")
+        for what in ("backward_vs_float64", "tangent_vs_float64"):
+            require(all(_field_within_float64(x) for x in r[what].values()),
+                    f"recompute_vs_plain, {label}: the {what.split('_')[0]} against float64 "
+                    f"autograd of the plain version: {r[what]}")
+        require(r["ms"] > r["forward_bound_ms"] and r["grad_ms"] > r["grad_bound_ms"]
+                and r["jvp_ms"] > r["jvp_bound_ms"],
+                f"recompute_vs_plain, {label}: a kernel at or below its bound, a counting "
+                f"error: {r}")
+    return rows
+
+
+def recompute_entries(rows, paths):
+    """The kernels-line entries of the recompute's three kernels from
+    ``recompute_vs_plain``'s rows (the main path's numbers: the grad frame's
+    first pop; the tangent's: the same lanes) and the launches of the
+    gradient paths and of the tangent's."""
+    src = "raytracing_tests_tpu_torch/csrc/recompute.cu"
+    main = rows["grad"]
+    shape = (f"{main['lanes']} lanes (the grad frame's deepest band, its first pop; "
+             + ", ".join(f"{k}: {r['lanes']} {r['mode']} soft {r['soft']}" for k, r in rows.items())
+             + ")")
+    note = ("no TPU kernel: the XLA fusion of the recompute after the winner's gathers "
+            "(diff/fastpath.py:141-210)")
+    by_path = lambda name: {p: got[name] for p, got in paths.items() if got.get(name)}  # noqa: E731
+    fwd = [r["forward_vs_plain"] for r in rows.values()]
+    # (case, field) records of the backward or the tangent
+    records = lambda what: [f for r in rows.values() for f in r[what].values()]  # noqa: E731
+    worst = lambda what: max(f["max_abs_err"] for f in records(what))  # noqa: E731
+    share_within = lambda what: (  # noqa: E731
+        sum(map(_field_within_float64, records(what))) / len(records(what)))
+    return [
+        dict(name="winner_recompute", route="cuda", source=src,
+             replaces="raytracing_tests_tpu/diff/fastpath.py:141", note=note,
+             launches=paths["grad_frame"]["winner_recompute"],
+             launches_by_path=by_path("winner_recompute"),
+             max_abs_err=max(f["max_rel_err"] for f in fwd),
+             tolerance=f"one build (the source is built with -fmad=false in both): every "
+                       f"output of >= {RECOMPUTE_EQUAL} of lanes bit for bit the plain "
+                       f"version's, every lane within {RECOMPUTE_RTOL} relative but where a "
+                       f"cuboid's face turns at a tie",
+             frac_within_tolerance=min(f["frac_equal"] for f in fwd),
+             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["forward_bound_ms"],
+             bound_by="bytes", library_ms=main["library_ms"],
+             library="the plain forward under autograd, as intersect_diff ran before",
+             shape=shape, cases=rows),
+        dict(name="winner_recompute_grad", route="cuda", source=src,
+             replaces="raytracing_tests_tpu/diff/fastpath.py:141", note=note,
+             launches=paths["grad_frame"]["winner_recompute_grad"],
+             launches_by_path=by_path("winner_recompute_grad"),
+             max_abs_err=worst("backward_vs_float64"),
+             tolerance=f"every field's largest error against float64 autograd of the plain "
+                       f"version within {RECOMPUTE_OF_SUM_ABS} of its sum of |g| beyond the "
+                       f"float32 route's own, its summed error at most twice the route's, one "
+                       f"build; frac_within_tolerance: the share of (case, field) records within",
+             frac_within_tolerance=share_within("backward_vs_float64"),
+             ms=main["grad_ms"], plain_ms=main["grad_plain_ms"],
+             bound_ms=main["grad_bound_ms"], bound_by="bytes",
+             library_ms=main["grad_library_ms"],
+             library="the plain forward under autograd and its autograd backward, the route "
+                     "it replaced", shape=shape),
+        dict(name="winner_recompute_jvp", route="cuda", source=src,
+             replaces="raytracing_tests_tpu/diff/fastpath.py:141", note=note,
+             launches=paths["tangent_glass"]["winner_recompute_jvp"],
+             launches_by_path=by_path("winner_recompute_jvp"),
+             max_abs_err=worst("tangent_vs_float64"),
+             tolerance=f"every output's largest error against torch.func.jvp of the plain "
+                       f"version in float64 within {RECOMPUTE_OF_SUM_ABS} of its sum of |tangent| "
+                       f"beyond the float32 route's own, its summed error at most twice the "
+                       f"route's, one build; frac_within_tolerance: the share of (case, output) "
+                       f"records within",
+             frac_within_tolerance=share_within("tangent_vs_float64"),
+             ms=main["jvp_ms"], plain_ms=main["jvp_plain_ms"], bound_ms=main["jvp_bound_ms"],
+             bound_by="bytes", library_ms=None,
+             library="none: no one PyTorch call; torch.func.jvp of the plain version is "
+                     "plain_ms", shape=shape),
+    ]
+
+
 # The containment sum's backward against a float64 sum of the same
 # gradients: the kernel sums a warp's lanes of a row in a tree, a block's in
 # shared memory and the blocks by global atomics, in float32 and in another
@@ -5189,14 +5509,21 @@ def ri_sum_vs_plain(cases):
             live = int((table["valid"] & (table["refractive_index"] != 1.0)).sum())
             want, want_den = ri_sum.ri_sum_plain(inputs)
             inside = ri_sum._inside(*inputs).double()
+            # forward-mode AD's tangent for a seeded tangent of the rows' RI
+            tangent = torch.from_numpy(rng.normal(size=N).astype(np.float32)).to(point.device)
+            want_t = ri_sum.ri_sum_jvp_plain(inputs, want_den, tangent)
             forward, backward = {}, {}
             for build, ctx in (("default", contextlib.nullcontext), ("precise", _build.precise)):
                 with ctx():
                     got, den = ri_sum._launch_ri_sum(inputs)
+                    got_t = ri_sum._launch_ri_sum_jvp(inputs, den, tangent)
                 torch.cuda.synchronize()
                 same = (got == want) & (den == want_den)
                 forward[build] = dict(max_abs_err=float((got - want).abs().max()),
-                                      frac_equal=frac(same), den_equal=frac(den == want_den))
+                                      frac_equal=frac(same), den_equal=frac(den == want_den),
+                                      tangent=dict(frac_equal=frac(got_t == want_t),
+                                                   max_abs_err=float((got_t - want_t).abs().max()),
+                                                   points_moved=int((want_t != 0).sum())))
                 for gname, g in grads.items():
                     g_b = torch.where(same, g, torch.zeros_like(g))
                     v = torch.where(want_den > 0, g_b.double() / want_den.clamp_min(1).double(),
@@ -5223,6 +5550,11 @@ def ri_sum_vs_plain(cases):
             leaf = table["refractive_index"].clone().requires_grad_(True)
             routed = isect.surrounding_refractive_index(
                 SimpleNamespace(**dict(table, refractive_index=leaf)), point, tr)
+            leaf_t = table["refractive_index"]
+            jvp_routed = lambda: torch.func.jvp(  # noqa: E731
+                lambda ri: isect.surrounding_refractive_index(
+                    SimpleNamespace(**dict(table, refractive_index=ri)), point, tr),
+                (leaf_t,), (tangent,))
             row_bytes = 4 * (3 + 3 + 9 + 3 + 1) + 1 + 4  # the fields a row reads
             # (ms by bytes, ms by operations) of each kernel: points and times,
             # rows, the mean and count out; the backward reads every point's
@@ -5232,6 +5564,9 @@ def ri_sum_vs_plain(cases):
             f_ms = ((16 * S + row_bytes * N + 8 * S) / PEAK_BYTES_PER_S * 1e3,
                     S * live * FLOPS_PER_CONTAINS_GENERIC / PEAK_FP32_FLOPS * 1e3)
             by = lambda ms: "bytes" if ms[0] > ms[1] else "operations"  # noqa: E731
+            # the tangent: the forward's walk, the rows' tangent and the
+            # points' count read, the tangent written
+            j_ms = ((16 * S + (row_bytes + 4) * N + 8 * S) / PEAK_BYTES_PER_S * 1e3, f_ms[1])
             row = dict(
                 points=S, rows=N, live_rows=live, points_inside=int((want_den > 0).sum()),
                 needing_slots=c["needing"],
@@ -5243,7 +5578,11 @@ def ri_sum_vs_plain(cases):
                 ms=cold_ms(lambda: ri_sum._launch_ri_sum(inputs)),
                 plain_ms=cold_ms(lambda: ri_sum.ri_sum_plain(inputs)),
                 library_ms=cold_ms(lambda: isect.surrounding_refractive_index(scene, point, tr)),
-                bound_ms=max(f_ms), bound_by=by(f_ms), grad={})
+                bound_ms=max(f_ms), bound_by=by(f_ms), grad={},
+                jvp_ms=cold_ms(lambda: ri_sum._launch_ri_sum_jvp(inputs, den, tangent)),
+                jvp_plain_ms=cold_ms(lambda: ri_sum.ri_sum_jvp_plain(inputs, den, tangent)),
+                jvp_library_ms=cold_ms(jvp_routed),
+                jvp_bound_ms=max(j_ms), jvp_bound_by=by(j_ms))
             for gname, g in grads.items():
                 active = int(((want_den > 0) & (g != 0)).sum())
                 b_ms = ((8 * S + 16 * active + row_bytes * N + 4 * N) / PEAK_BYTES_PER_S * 1e3,
@@ -5262,14 +5601,17 @@ def ri_sum_vs_plain(cases):
     for label, r in rows.items():
         f = r["forward_vs_plain"]
         require(f["precise"]["frac_equal"] == 1.0 and f["precise"]["max_abs_err"] == 0.0
-                and f["default"]["frac_equal"] >= RI_DEFAULT_EQUAL,
-                f"ri_sum_vs_plain, {label}: the forward against the plain version: {f}")
+                and f["default"]["frac_equal"] >= RI_DEFAULT_EQUAL
+                and f["precise"]["tangent"]["frac_equal"] == 1.0
+                and f["default"]["tangent"]["frac_equal"] >= RI_DEFAULT_EQUAL,
+                f"ri_sum_vs_plain, {label}: the forward and the tangent against the plain "
+                f"version: {f}")
         require(all(b["ran"] == b["mode"] and b["worst_err_of_bar"] <= 1.0
                     and b["untouched_exact"] and (b["build"] == "default" or not b["points_left_out"])
                     and (b["rows_touched"] > 0 or b["gradient"] == "band" or not r["points_inside"])
                     for b in r["backward"].values()),
                 f"ri_sum_vs_plain, {label}: the backward against a float64 sum: {r['backward']}")
-        require(r["ms"] > r["bound_ms"]
+        require(r["ms"] > r["bound_ms"] and r["jvp_ms"] > r["jvp_bound_ms"]
                 and all(min(x["ms"].values()) > x["bound_ms"] for x in r["grad"].values()),
                 f"ri_sum_vs_plain, {label}: a kernel at or below its bound, a counting error: {r}")
     require(all(r["padding_gradient_zero"] is not False for r in rows.values()),
@@ -5330,7 +5672,112 @@ def ri_entries(rows, paths):
              library="the autograd backward of ops.intersect.surrounding_refractive_index, the "
                      "route it replaced",
              shape=shape),
+        dict(name="ri_sum_jvp", route="cuda", source=src,
+             replaces="raytracing_tests_tpu/ops/intersect.py:86", note=note,
+             launches=paths["tangent_glass"]["ri_sum_jvp"], launches_by_path=by_path("ri_sum_jvp"),
+             max_abs_err=max(r["forward_vs_plain"]["precise"]["tangent"]["max_abs_err"]
+                             for r in rows.values()),
+             max_abs_err_default_build=max(r["forward_vs_plain"]["default"]["tangent"]
+                                           ["max_abs_err"] for r in rows.values()),
+             tolerance=f"bit for bit the plain version (the rows' tangents in row order) in the "
+                       f"-fmad=false build, equal on >= {RI_DEFAULT_EQUAL} of points in the "
+                       f"default build; a seeded tangent of the rows' RI",
+             frac_within_tolerance=min(r["forward_vs_plain"][b]["tangent"]["frac_equal"]
+                                       for r in rows.values() for b in ("default", "precise")),
+             ms=main["jvp_ms"], plain_ms=main["jvp_plain_ms"], bound_ms=main["jvp_bound_ms"],
+             bound_by=main["jvp_bound_by"],
+             library_ms=main["jvp_library_ms"],
+             library="torch.func.jvp of ops.intersect.surrounding_refractive_index with respect "
+                     "to the rows' RI, the route it replaced", shape=shape),
     ]
+
+
+# The tangent of render_loss through the kernels against the plain route's
+# (the sweeps, the winner gather, the recompute and the containment sum
+# routed to their plain versions), along a seeded tangent v of every
+# trainable field: the difference over the sum of |g v| over every entry of
+# every field (g the plain route's reverse-mode gradient), the terms whose
+# sum the tangent is.  Found bit for bit in both builds since the recompute
+# is built with -fmad=false in both (one H100, three runs); the fused a*b+c
+# there moved bvh1k's tangent eightfold.  Each bar times the sum of |g v|
+# must lie below |tangent|, so that a zero tangent or one of the wrong sign
+# fails.
+TANGENT_PRECISE = 1e-6
+TANGENT_DEFAULT = 1e-5
+TANGENT_FRAMES = dict(glass=dict(width=200, height=112, spp=4, max_bounces=6),
+                      bvh1k=dict(width=200, height=112, spp=4, max_bounces=3))
+
+
+def tangent_vs_plain(dev):
+    """Phase tangent_vs_plain: ``torch.func.jvp`` of the port's
+    ``render_loss`` on the fast path through the kernels (the winner gather
+    on the tangent table, ``winner_recompute_jvp``, ``ri_sum_jvp``) against
+    the plain route, in both builds, on a small glass scene
+    (``materials_scene()``, colours moved) and on bvh1k at reduced depth
+    (positions moved); its launches: the tangent's kernels once a forward
+    launch, no backward kernel -> {path: launches}."""
+    rng = np.random.default_rng(SEED)
+
+    def jitter(s):
+        dpos = torch.from_numpy(rng.uniform(-0.1, 0.1, tuple(s.position.shape)).astype(np.float32))
+        return s.replace(position=s.position + dpos.to(s.position.device))
+
+    frames = dict(glass=(examples.materials_scene(), lambda s: s.replace(color=s.color * 0.6 + 0.2)),
+                  bvh1k=(examples.bvh_grid_scene(side=32), jitter))
+    paths = {}
+    for label, (scene_cam, perturb) in frames.items():
+        scene, cam = (x.to(dev) for x in scene_cam)
+        cfg = RenderConfig(intersector="pallas", **TANGENT_FRAMES[label]).for_scene(scene)
+        target = render_stats(scene, cam, cfg)["image"]
+        pert = perturb(scene)
+        p = diff.extract_params(pert)
+        primals = tuple(getattr(p, f) for f in diff.FLOAT_FIELDS)
+        tans = tuple(torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32)).to(dev)
+                     for x in primals)
+
+        def loss(*fields):
+            return diff.render_loss(p.replace(**dict(zip(diff.FLOAT_FIELDS, fields))), pert, cam,
+                                    cfg, target)
+
+        jvp = lambda: float(torch.func.jvp(loss, primals, tans)[1])  # noqa: E731
+        jvp()
+        _build.reset_launches()
+        ms, got = timed_ms(jvp)
+        launches = dict(_build.LAUNCHES)
+        with _build.precise():
+            got_precise = jvp()
+        with plain_sweeps():
+            plain_ms, want = timed_ms(jvp)
+            _, grads = diff.value_and_grad_loss(p, pert, cam, cfg, target)
+        # the tangent's terms: sum |g v| over every entry of every field
+        scale = sum(float((getattr(grads, f) * t).abs().sum())
+                    for f, t in zip(diff.FLOAT_FIELDS, tans))
+        res = dict(size=size_of(TANGENT_FRAMES[label]), tangent=got, tangent_precise=got_precise,
+                   tangent_plain=want, sum_abs_g_v=scale, tangent_of_scale=abs(want) / scale,
+                   default_err_of_scale=abs(got - want) / scale,
+                   precise_err_of_scale=abs(got_precise - want) / scale,
+                   bars=dict(precise=TANGENT_PRECISE, default=TANGENT_DEFAULT),
+                   seconds=ms / 1e3, plain_seconds=plain_ms / 1e3, launches=launches)
+        say(phase="tangent_vs_plain", case=label, **res)
+        n = launches.get("winner_recompute", 0)
+        sweep_of = "sweep2" if cfg.pallas_mode == "spheres" else "sweep2g"
+        require(scale > 0.0 and TANGENT_DEFAULT < res["tangent_of_scale"],
+                f"tangent_vs_plain, {label}: the bars cannot fail a zero tangent: {res}")
+        require(res["precise_err_of_scale"] <= TANGENT_PRECISE
+                and res["default_err_of_scale"] <= TANGENT_DEFAULT,
+                f"tangent_vs_plain, {label}: the tangent through the kernels against the plain "
+                f"route: {res}")
+        want_launches = {sweep_of: n, "winner_recompute": n, "winner_recompute_jvp": n,
+                         "winner_gather": 2 * n}
+        if cfg.has_dielectrics:
+            want_launches.update(ri_sum=launches.get("ri_sum", 0),
+                                 ri_sum_jvp=launches.get("ri_sum", 0))
+        require(n > 0 and launches == want_launches
+                and (not cfg.has_dielectrics or launches["ri_sum_jvp"] > 0),
+                f"tangent_vs_plain, {label}: the tangent's kernels once a forward launch and no "
+                f"backward: {launches} ({want_launches} expected)")
+        paths[f"tangent_{label}"] = launches
+    return paths
 
 
 def grad_phases(dev, k3_canary):
@@ -5359,9 +5806,20 @@ def grad_phases(dev, k3_canary):
     with _build.precise():
         kp = grad_step(g, replays=1)
         kpe = grad_step(g, graphs=False)
+        # the eager step with the recompute's backward by its plain version,
+        # in float32 and in float64: how far each float32 backward is from
+        # exact, through the step
+        with patched(recompute, "_recompute_grad", recompute_grad_plain_in(torch.float32)):
+            kpr = grad_step(g, graphs=False)
+        with patched(recompute, "_recompute_grad", recompute_grad_plain_in(torch.float64)):
+            kp64 = grad_step(g, graphs=False)
     with plain_sweeps():
         pl = grad_step(g, graphs=False)
     default, precise = compare_grads(k, pl), compare_grads(kp, pl)
+    recompute_64 = dict(kernel_vs_plain=compare_grads(kpe, kpr),
+                        kernel_vs_float64=compare_grads(kpe, kp64),
+                        plain_vs_float64=compare_grads(kpr, kp64))
+    del kpr, kp64
     vs_eager, precise_vs_eager = compare_grads(k, ke), compare_grads(kp, kpe)
     deepest = max(range(g["bands"]), key=lambda b: g["pops"][b])
     share = band_device_share(k, deepest)
@@ -5407,7 +5865,7 @@ def grad_phases(dev, k3_canary):
                  probe_seconds=g["probe_ms"] / 1e3, peak_memory_bytes=k["peak_memory_bytes"],
                  launches=k["step_launches"], k2_launches=n_k2, k2_device_ms=k2_ms,
                  winner_device_ms=winner_ms, ri_device_ms=ri_ms, deepest_band=share,
-                 default_build=default, precise_build=precise)
+                 default_build=default, precise_build=precise, recompute_64=recompute_64)
     say(phase="grad_frame", host=host_state(), **frame)
     graphed = dict(
         size=size_of(GRAD), capture_step_seconds=k["ms"] / 1e3,
@@ -5436,6 +5894,7 @@ def grad_phases(dev, k3_canary):
     say(phase="grad_graph", **graphed)
     check_grads("grad_frame, -fmad=false build", precise, GRAD_PRECISE)
     check_grads("grad_frame, default build", default, GRAD_DEFAULT)
+    check_recompute_64("grad_frame", recompute_64)
     check_grads("grad_graph, -fmad=false build against the eager static step",
                 precise_vs_eager, GRAD_GRAPH)
     check_grads("grad_graph, default build against the eager static step", vs_eager,
@@ -5470,6 +5929,11 @@ def grad_phases(dev, k3_canary):
     pops_ms, pops = timed_ms(lambda: diff.probe_band_pops(gs["pert"], gs["cam"], gs["cfg"],
                                                           gs["bands"]))
     gs.update(pops=[q + diff.train.POPS_MARGIN for q in pops], probe_ms=pops_ms)
+    # the recompute's inputs and gradient at its deepest band's first pop
+    recompute_cases = dict(
+        grad=first_pops["grad"]["recompute"],
+        grad_soft=first_pop_gather(gs, max(range(gs["bands"]),
+                                           key=lambda b: gs["pops"][b]))["recompute"])
     ks = grad_step(gs, replays=1)
     by = step_device(ks, gs, "grad_soft_step")
     res = dict(size=size_of(GRAD), soft_edges=SOFT, band_pops=gs["pops"],
@@ -5500,7 +5964,17 @@ def grad_phases(dev, k3_canary):
     first_pops["bvh1k"] = first_pop_gather(hard, max(range(hard["bands"]),
                                                      key=lambda b: hard["pops"][b]))
     winner_rows = winner_gather_vs_plain(first_pops)
-    del first_pops
+    # bvh1k's first lanes, hard with the band's gradient and soft (the
+    # silhouette coverage in the local unit frame) with a seeded one
+    cut = lambda xs: [None if x is None else x[:BVH1K_RECOMPUTE_LANES].contiguous()  # noqa: E731
+                      for x in xs]
+    hard_r = first_pops["bvh1k"]["recompute"]
+    recompute_cases.update(
+        bvh1k=dict(inputs=cut(hard_r["inputs"]), grads=cut(hard_r["grads"]), soft=0.0,
+                   spheres=False),
+        bvh1k_soft=dict(inputs=cut(hard_r["inputs"]), grads=None, soft=SOFT, spheres=False))
+    recompute_rows = recompute_vs_plain(recompute_cases)
+    del first_pops, recompute_cases, hard_r
     ri_cases["bvh1k"] = [camera_lane_points(hard)]
     ri_rows = ri_sum_vs_plain(ri_cases)
     del ri_cases
@@ -5625,6 +6099,8 @@ def grad_phases(dev, k3_canary):
     require(losses[2] < losses[0] and losses[1] < losses[0], f"train_steps: {res}")
     require(counts_train.get("captures") == 1 + counts_train.get("recomputes", 0),
             f"train_steps: the step's graphs are captured once and replayed: {res}")
+    require(min(launches_train.get(n, 0) for n in ("winner_recompute", "winner_recompute_grad"))
+            > 0, f"train_steps: the recompute's kernels were not launched: {launches_train}")
     require(at == 3 and same and same_adam and float(l_on) == float(l_back),
             f"train_steps: the checkpoint did not resume identically: {res}")
     paths["train_steps"] = launches_train
@@ -5667,7 +6143,11 @@ def grad_phases(dev, k3_canary):
             and res["tables_changed"]["otab"],
             f"train_steps, positions trained: the graphs replayed over moved spheres: {res}")
     vg.release()
+
+    # tangent_vs_plain: forward-mode AD through the kernels
+    paths.update(tangent_vs_plain(dev))
     return entries, paths, at_hard_step, (winner_entries(winner_rows, paths)
+                                          + recompute_entries(recompute_rows, paths)
                                           + ri_entries(ri_rows, paths))
 
 
@@ -5829,13 +6309,18 @@ def sharded_vg(t, mesh):
                 peak_memory_bytes=torch.cuda.max_memory_allocated())
 
 
-def unbanded_launches(n, traces):
+def unbanded_launches(n, traces, assembled=False):
     """The launches of an unbanded gradient step of grad_config's glass scene
     whose ``traces`` traces (one a shard) pop ``n`` times in all: K2, the
-    winner gather and its scatter and the containment sum on every pop, the
-    sum's backward on every pop but each trace's last (whose RI bends only
-    children that no pop reads)."""
-    return {"sweep2": n, "winner_gather": n, "winner_scatter": n, "ri_sum": n,
+    winner gather and its scatter, the recompute and the containment sum on
+    every pop, the recompute's and the sum's backward on every pop but each
+    trace's last (whose hit and RI feed only children that no pop reads).
+    ``assembled``: the frame is assembled with its depth
+    (``parallel.render_sharded`` concatenates each shard's colour and primary
+    t before it takes the image), so every pop's t reaches the image's graph,
+    with a zero gradient: the recompute's backward runs on every pop."""
+    return {"sweep2": n, "winner_gather": n, "winner_scatter": n, "winner_recompute": n,
+            "winner_recompute_grad": n if assembled else n - traces, "ri_sum": n,
             "ri_sum_grad": n - traces}
 
 
@@ -5878,10 +6363,10 @@ def sharded_train_step(dev):
     check_grads("sharded_train_step, -fmad=false build", precise, GRAD_SHARDED_PRECISE)
     check_grads("sharded_train_step, default build", default, GRAD_DEFAULT)
     n = sh["launches"].get("sweep2", 0)
-    require(sh["launches"] == unbanded_launches(n, 3) and n > 0,
-            f"sharded_train_step: the step runs K2, the winner gather's pair and the "
-            f"containment sum a pop and its backward a pop but each shard's last, nothing "
-            f"else: {sh['launches']}")
+    require(sh["launches"] == unbanded_launches(n, 3, assembled=True) and n > 0,
+            f"sharded_train_step: the step runs K2, the winner gather's pair, the recompute "
+            f"and the containment sum a pop and their backward a pop but each shard's last, "
+            f"nothing else: {sh['launches']}")
     require(losses[1] < losses[0] and losses[2] < losses[0],
             f"sharded_train_step: two more Adam steps did not lower the loss: {losses}")
     return {"sharded_train_step": sh["launches"]}
@@ -7174,9 +7659,17 @@ def main():
         k["ptxas"] = ptxas.get(f"sweep2g.so sweep2g_edge_kernel<{m}>" if k["name"].startswith(
             "sweep2g") else f"sweep2.so sweep2_kernel<{m},1>")
     kernels += eighth
-    for k in winner:  # the winner gather's pair and the containment sum's (K lanes a point)
-        k["ptxas"] = (ptxas.get(f"gather.so {k['name']}_kernel") if k["name"].startswith("winner")
-                      else {K: ptxas.get(f"ri_sum.so {k['name']}_kernel<{K}>") for K in (1, 2, 4, 8)})
+    for k in winner:  # the winner gather's, the recompute's and the containment sum's
+        name = k["name"]
+        if name.startswith("winner_recompute"):
+            k["ptxas"] = ptxas.get(f"recompute.so {name.replace('winner_', '')}_kernel")
+        elif name.startswith("winner"):
+            k["ptxas"] = ptxas.get(f"gather.so {name}_kernel")
+        elif name == "ri_sum_jvp":  # the sum's tangent instantiation, K lanes a point
+            k["ptxas"] = {K: ptxas.get(f"ri_sum.so ri_sum_kernel<{K},1>") for K in (1, 2, 4, 8)}
+        else:
+            tail = ",0" if name == "ri_sum" else ""
+            k["ptxas"] = {K: ptxas.get(f"ri_sum.so {name}_kernel<{K}{tail}>") for K in (1, 2, 4, 8)}
     kernels += winner
     # every instantiation of K1 with its ptxas line
     entry_of = {v: n for n, v in KERNEL_ENTRY.items()}
@@ -7202,7 +7695,10 @@ def main():
         counter = dict(sweep2="sweep2", sweep2_motion="sweep2_m", sweep2g="sweep2g",
                        sweep_grouped="sweep_grouped", sweep_ri="sweep_ri",
                        winner_gather="winner_gather", winner_scatter="winner_scatter",
-                       ri_sum="ri_sum", ri_sum_grad="ri_sum_grad").get(
+                       winner_recompute="winner_recompute",
+                       winner_recompute_grad="winner_recompute_grad",
+                       winner_recompute_jvp="winner_recompute_jvp", ri_sum="ri_sum",
+                       ri_sum_grad="ri_sum_grad", ri_sum_jvp="ri_sum_jvp").get(
             k["name"], k.get("instantiation"))
         if counter:
             k["launches_by_path"].update({p: got[counter] for p, got in later_paths.items()

@@ -45,7 +45,14 @@
 // than the plain version's (float32 atomics, whose order varies from run to
 // run).
 //
-// Neither kernel synchronises with the host or reads on it: both run inside
+// ri_sum_kernel<K, true> is the forward-mode tangent (counted as
+// ri_sum_jvp): the same walk with each row's RI tangent staged in place of
+// its RI (the containment, and so the rows, as the forward's), added in
+// ascending row order and divided by the forward's count where it is above
+// 0, else 0.  The tangent of the mean is the mean of the contained rows'
+// tangents: containment is a boolean and the count a constant.
+//
+// No kernel here synchronises with the host or reads on it: each runs inside
 // a gradient band's captured CUDA graph.
 //
 // What bounds both on this card: operations.  Each (point, row) test is some
@@ -80,6 +87,7 @@ struct RiArgs {
   const int* obj_type;      // (N,)
   const unsigned char* valid;  // (N,) bool
   const float* ri;          // (N,)
+  const float* add;         // (N,) what a contained row adds: its RI, or its RI's tangent
   long long S;
   int N;
 };
@@ -100,7 +108,7 @@ __device__ __forceinline__ void stage_rows(const RiArgs& a, float* rows, int bas
     const int t = a.obj_type[r];
     const bool live = a.valid[r] != 0 && ri != 1.0f && (t == 1 || t == 2);
     out[R_TYPE] = live ? (float)t : 0.0f;
-    out[R_RI] = ri;
+    out[R_RI] = a.add[r];
   }
 }
 
@@ -152,7 +160,9 @@ __device__ __forceinline__ Point point_of(const RiArgs& a) {
   return q;
 }
 
-template <int K>
+// TANGENT: the rows add a.add (the RI's tangent) and den_out is read (the
+// forward's count), not written.
+template <int K, bool TANGENT>
 __global__ void __launch_bounds__(THREADS) ri_sum_kernel(RiArgs a, float* __restrict__ ri_out,
                                                           int* __restrict__ den_out) {
   __shared__ float rows[TILE * ROW];
@@ -184,8 +194,13 @@ __global__ void __launch_bounds__(THREADS) ri_sum_kernel(RiArgs a, float* __rest
     }
   }
   if (!q.live || sub != 0) return;
-  ri_out[q.i] = acc > 1.0f ? acc / fmaxf(cnt, 1.0f) : 1.0f;
-  den_out[q.i] = acc > 1.0f ? (int)cnt : 0;
+  if (TANGENT) {
+    const int dn = den_out[q.i];
+    ri_out[q.i] = dn > 0 ? acc / (float)dn : 0.0f;
+  } else {
+    ri_out[q.i] = acc > 1.0f ? acc / fmaxf(cnt, 1.0f) : 1.0f;
+    den_out[q.i] = acc > 1.0f ? (int)cnt : 0;
+  }
 }
 
 template <int K>
@@ -259,9 +274,21 @@ inline RiArgs args_of(const void* point, const void* time_ratio, const void* pos
   a.obj_type = static_cast<const int*>(obj_type);
   a.valid = static_cast<const unsigned char*>(valid);
   a.ri = static_cast<const float*>(ri);
+  a.add = a.ri;
   a.S = S;
   a.N = N;
   return a;
+}
+
+// ri_sum_kernel<K, TANGENT> for the K of the launch (1, 2, 4 or 8).
+template <bool TANGENT>
+int launch_sum(const RiArgs& a, int K, float* out, int* dn, cudaStream_t st) {
+  void (*k)(RiArgs, float*, int*) = K == 1   ? ri_sum_kernel<1, TANGENT>
+                                    : K == 2 ? ri_sum_kernel<2, TANGENT>
+                                    : K == 4 ? ri_sum_kernel<4, TANGENT>
+                                             : ri_sum_kernel<8, TANGENT>;
+  RT_LAUNCH(k, blocks_of(a.S, K), THREADS, st, a, out, dn);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -284,15 +311,27 @@ extern "C" int rt_ri_sum(const void* point, const void* time_ratio, const void* 
                            ri, S, N);
   float* out = static_cast<float*>(ri_out);
   int* dn = static_cast<int*>(den_out);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = blocks_of(S, K);
-  switch (K) {
-    case 1: RT_LAUNCH(ri_sum_kernel<1>, blocks, THREADS, st, a, out, dn); break;
-    case 2: RT_LAUNCH(ri_sum_kernel<2>, blocks, THREADS, st, a, out, dn); break;
-    case 4: RT_LAUNCH(ri_sum_kernel<4>, blocks, THREADS, st, a, out, dn); break;
-    default: RT_LAUNCH(ri_sum_kernel<8>, blocks, THREADS, st, a, out, dn); break;
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_sum<false>(a, K, out, dn, static_cast<cudaStream_t>(stream));
+}
+
+// The tangent of rt_ri_sum's output for the rows' RI tangent `tangent` (N,)
+// float32, given the forward's den_out `den` (S,): into t_out (S,) float32,
+// the contained rows' tangents added in row order over den where den > 0,
+// else 0.  The other arguments as rt_ri_sum's.  Launches on `stream`, does
+// not synchronise, returns cudaGetLastError().
+extern "C" int rt_ri_sum_jvp(const void* point, const void* time_ratio, const void* position,
+                             const void* delta, const void* rotation, const void* scale,
+                             const void* obj_type, const void* valid, const void* ri, long long S,
+                             int N, int K, const void* tangent, const void* den, void* t_out,
+                             void* stream) {
+  if (S < 0 || N < 0 || (K != 1 && K != 2 && K != 4 && K != 8)) return (int)cudaErrorInvalidValue;
+  if (S == 0) return 0;
+  RiArgs a = args_of(point, time_ratio, position, delta, rotation, scale, obj_type, valid, ri, S,
+                     N);
+  a.add = static_cast<const float*>(tangent);
+  float* out = static_cast<float*>(t_out);
+  int* dn = static_cast<int*>(const_cast<void*>(den));  // read only: TANGENT writes no count
+  return launch_sum<true>(a, K, out, dn, static_cast<cudaStream_t>(stream));
 }
 
 // grad_ri (N,) float32 += the gradient of rt_ri_sum's output with respect

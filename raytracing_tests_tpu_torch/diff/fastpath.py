@@ -18,15 +18,18 @@ The expensive O(N) search runs once per ray, forward only, at kernel speed;
 the backward touches one object per lane.  The per-lane gathers of the
 winner's rows are one hand-written kernel with a hand-written backward
 (``kernels.gather.winner_gather``) over the scene's fields packed once a
-scene object (``winner_table``).
+scene object (``winner_table``); the recompute from those rows is another,
+with its backward and its forward-mode tangent
+(``kernels.recompute.winner_recompute``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from raytracing_tests_tpu_torch.core import geometry, linalg
+from raytracing_tests_tpu_torch.kernels import _build
 from raytracing_tests_tpu_torch.kernels.gather import winner_table
+from raytracing_tests_tpu_torch.kernels.recompute import winner_recompute
 from raytracing_tests_tpu_torch.kernels.sweep import HitFields
 from raytracing_tests_tpu_torch.kernels.sweep2 import (
     make_accel2, sweep2_nearest, sweep2_nearest_edge,
@@ -54,16 +57,14 @@ def fastpath_eligible(cfg) -> bool:
     return cfg.intersector == "pallas"
 
 
-def _detached(scene):
-    return scene.replace(**{
-        f: v.detach() for f, v in vars(scene).items() if isinstance(v, torch.Tensor)})
-
-
 def make_diff_accel(scene, has_motion: bool = True, mode: str = "spheres",
                     probe_rows=None) -> DiffAccel:
-    """The sweep's accel over the scene's detached values."""
-    detached = _detached(scene)
-    with torch.no_grad():
+    """The sweep's accel over the scene's detached values (a constant of
+    autograd and of the ``torch.func`` transforms)."""
+    names = [f for f, v in vars(scene).items() if isinstance(v, torch.Tensor)]
+
+    def build(*tensors):
+        detached = scene.replace(**dict(zip(names, tensors)))
         if mode == "spheres":
             return DiffAccel(make_accel2(detached, has_motion=has_motion,
                                          probe_rows=probe_rows))
@@ -71,6 +72,8 @@ def make_diff_accel(scene, has_motion: bool = True, mode: str = "spheres",
 
         return DiffAccel(make_accel2g(detached, has_motion=has_motion,
                                       probe_rows=probe_rows))
+
+    return _build.constant(build, *(getattr(scene, f) for f in names))
 
 
 def _original(perm, obj_sorted):
@@ -80,9 +83,9 @@ def _original(perm, obj_sorted):
 
 
 def _winner(accel, o, d, time_ratio, t_limit):
-    """Original-scene index of the nearest hit (detached, by the kernel)."""
-    args = (o.detach(), d.detach(), time_ratio.detach(), t_limit.detach())
-    with torch.no_grad():
+    """Original-scene index of the nearest hit (a constant, by the kernel)."""
+
+    def search(*args):
         if accel.mode == "spheres":
             _, obj_sorted = sweep2_nearest(accel, *args)
         else:
@@ -91,11 +94,25 @@ def _winner(accel, o, d, time_ratio, t_limit):
             _, obj_sorted = sweep2g_nearest(accel, *args)
         return _original(accel.perm, obj_sorted)
 
+    return _build.constant(search, o, d, time_ratio, t_limit)
 
-def _clamp(x, lo: float):
-    """max(x, lo) whose gradient splits 1/2 : 1/2 at a tie, as the JAX
-    package's ``jnp.maximum`` does (``clamp_min`` passes all of it)."""
-    return torch.maximum(x, torch.full((), lo, dtype=x.dtype, device=x.device))
+
+def _winner_or_candidate(accel, o, d, time_ratio, t_limit):
+    """Original-scene index of the nearest hit, or where there is none the
+    silhouette candidate's (a near miss adopts it; a constant, by the
+    kernel's silhouette instantiation)."""
+
+    def search(*args):
+        if accel.mode == "spheres":
+            _, obj_sorted, edge_sorted = sweep2_nearest_edge(accel, *args)
+        else:
+            from raytracing_tests_tpu_torch.kernels.sweep2g import sweep2g_nearest_edge
+
+            _, obj_sorted, edge_sorted = sweep2g_nearest_edge(accel, *args)
+        obj = _original(accel.perm, obj_sorted)
+        return torch.where(obj >= 0, obj, _original(accel.perm, edge_sorted))
+
+    return _build.constant(search, o, d, time_ratio, t_limit)
 
 
 def intersect_diff(accel: DiffAccel, scene, o, d, time_ratio, t_limit, soft: float = 0.0):
@@ -121,17 +138,7 @@ def intersect_diff(accel: DiffAccel, scene, o, d, time_ratio, t_limit, soft: flo
     when ``soft == 0``."""
     inner = accel.inner
     if soft > 0.0:
-        args = (o.detach(), d.detach(), time_ratio.detach(), t_limit.detach())
-        with torch.no_grad():
-            if accel.mode == "spheres":
-                _, obj_sorted, edge_sorted = sweep2_nearest_edge(inner, *args)
-            else:
-                from raytracing_tests_tpu_torch.kernels.sweep2g import sweep2g_nearest_edge
-
-                _, obj_sorted, edge_sorted = sweep2g_nearest_edge(inner, *args)
-            obj = _original(inner.perm, obj_sorted)
-            edge = _original(inner.perm, edge_sorted)
-            obj = torch.where(obj >= 0, obj, edge)  # a near miss adopts the candidate
+        obj = _winner_or_candidate(inner, o, d, time_ratio, t_limit)
     else:
         obj = _winner(inner, o, d, time_ratio, t_limit)
     hit = obj >= 0
@@ -141,56 +148,12 @@ def intersect_diff(accel: DiffAccel, scene, o, d, time_ratio, t_limit, soft: flo
     f = winner_table(scene).gather(obj)
 
     # The winner's hit with the dense intersector's own math (same rotation
-    # and per-axis-scale frame), so its gradients are the dense path's.
-    rot, scale, otype = f["rotation"], f["scale"], f["obj_type"]
-    rel = o - f["position"] + (1.0 - time_ratio)[:, None] * f["delta_position"]
-    lo = linalg.apply_rotation_t(rot, rel)
-    ld = linalg.apply_rotation_t(rot, d)
-    t = geometry.ray_primitive_t(lo, ld, scale, otype)
-
-    alpha = None
-    if soft > 0.0:
-        if accel.mode == "spheres":
-            # Isotropic coverage: h = distance from the centre to the ray's
-            # line at the closest-approach point t_cl (ahead of the ray, by
-            # the kernel's forward filter); smooth on both sides.
-            a = _clamp(torch.sum(d * d, dim=1), 1e-20)
-            half_b = torch.sum(rel * d, dim=1)
-            t_cl = -half_b / a
-            h2 = torch.sum(rel * rel, dim=1) - half_b * half_b / a
-            h = torch.sqrt(_clamp(h2, 1e-20))
-            band = soft * _clamp(torch.abs(t_cl), 1e-3)
-            alpha = torch.sigmoid(-(h - scale[:, 0]) / band)
-        else:
-            # Rotated-frame coverage: the closest approach of the ray to the
-            # object in its LOCAL UNIT space (the ellipsoid is the unit
-            # sphere, the cuboid the unit cube); the silhouette distance is
-            # |q| - 1 (ellipsoid) or twice the Chebyshev max|q| - 0.5
-            # (cuboid), in world units by the geometric-mean scale.
-            ssafe = _clamp(scale, 1e-20)
-            lo_s = lo / ssafe
-            ld_s = ld / ssafe
-            a = _clamp(torch.sum(ld_s * ld_s, dim=1), 1e-20)
-            half_b = torch.sum(lo_s * ld_s, dim=1)
-            t_cl = -half_b / a  # the world ray parameter (the same t in either frame)
-            q = lo_s + t_cl[:, None] * ld_s
-            h_ell = torch.sqrt(_clamp(torch.sum(q * q, dim=1), 1e-20))
-            h_cub = torch.amax(torch.abs(q), dim=1)
-            is_ell = otype == geometry.ELLIPSOID
-            over = torch.where(is_ell, h_ell - 1.0, 2.0 * (h_cub - 0.5))
-            r_geo = torch.exp(torch.mean(torch.log(ssafe), dim=1))
-            band = soft * _clamp(torch.abs(t_cl), 1e-3)
-            alpha = torch.sigmoid(-(over * r_geo) / band)
-        alpha = torch.where(hit, alpha, torch.zeros_like(alpha))
-        # Geometric-miss lanes (adopted candidates) hit at the tangent point.
-        real = t < 2.9e38
-        t = torch.where(real, t, t_cl)
-
-    t = torch.where(hit, t, torch.ones_like(t))
-    p_local = lo + t[:, None] * ld
-    n_local = geometry.primitive_normal(p_local, scale, otype)
-    normal = linalg.apply_rotation(rot, n_local)
-    local_pos = p_local / scale
+    # and per-axis-scale frame), so its gradients are the dense path's: one
+    # hand-written kernel with its backward and tangent
+    # (kernels/recompute.py).
+    t, normal, local_pos, alpha = winner_recompute(
+        o, d, time_ratio, hit, f["position"], f["delta_position"], f["rotation"], f["scale"],
+        f["obj_type"], soft=soft, mode=accel.mode)
 
     flds = HitFields(
         color=f["color"],

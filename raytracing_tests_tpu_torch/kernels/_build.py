@@ -6,7 +6,9 @@ at first use (never at import), all sources in parallel, into
 ``raytracing_tests_tpu_torch/_build/<hash>/`` where the hash covers every file
 under ``csrc/`` and the compiler flags, so an edited source rebuilds.
 
-Also here: the launch counters.  Each kernel wrapper adds one to its count
+Also here: ``constant``, which runs a kernel's launch on its arguments' own
+tensors under ``torch.func``'s transforms (a transform wraps each tensor, and a
+wrapped tensor has no storage to hand a kernel).  And the launch counters.  Each kernel wrapper adds one to its count
 where it launches its kernel, and nowhere else; a CUDA graph's replay calls
 no wrapper, so ``LaunchRecord`` keeps what a capture launched and adds it on
 every replay.  And the one switch of the warp sweeps' schedule for tests and
@@ -30,12 +32,14 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 
-SOURCES = ("drain.cu", "gather.cu", "mega.cu", "ri_sum.cu", "sweep.cu", "sweep2.cu", "sweep2g.cu",
-           "uber.cu", "uber_tex.cu")
+SOURCES = ("drain.cu", "gather.cu", "mega.cu", "recompute.cu", "ri_sum.cu", "sweep.cu",
+           "sweep2.cu", "sweep2g.cu", "uber.cu", "uber_tex.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,6 +49,12 @@ NVCC_FLAGS = (
 # nvcc fuse a*b+c; this variant rounds like eager PyTorch does, so a kernel can
 # be held against its plain version exactly (see ``precise``).
 PRECISE_FLAG = "-fmad=false"
+# Sources built with more flags than NVCC_FLAGS in every variant.  The
+# gradient path's recompute rounds as its plain version does in the default
+# build too: the ground sphere's quadratic (radius 1000) and grazing hits turn
+# a fused a*b+c into another branch, which moved the grad frame's loss by
+# 3.7 % and its position gradient by 16 times its largest entry.
+SOURCE_FLAGS = {"recompute.cu": (PRECISE_FLAG,)}
 
 # Marks the host-C++ variant (see ``host_rehearsal``); never passed to nvcc.
 HOST_FLAG = "host"
@@ -62,6 +72,58 @@ _coop_min_forced = None
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+class _Constant(torch.autograd.Function):
+    """``fn(*args)`` as a constant of autograd and of the ``torch.func``
+    transforms: ``fn`` runs under ``no_grad`` on the arguments' own tensors,
+    outside every transform's wrapper (a ``torch.autograd.Function``'s
+    forward runs there), and its tensor outputs carry no gradient and no
+    tangent."""
+
+    @staticmethod
+    def forward(fn, *args):
+        with torch.no_grad():
+            return fn(*(a.detach() for a in args))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        outs = output if isinstance(output, tuple) else (output,)
+        ctx.mark_non_differentiable(*[o for o in outs if isinstance(o, torch.Tensor)])
+        ctx.inputs, ctx.outputs = len(inputs), len(outs) if isinstance(output, tuple) else None
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) * ctx.inputs
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        return None if ctx.outputs is None else (None,) * ctx.outputs
+
+
+def constant(fn, *args):
+    """``fn(*args)`` (``args`` tensors; ``fn`` returns a tensor, a tuple of
+    tensors or any object) as a constant: no gradient or tangent flows
+    through it, and under ``torch.func.jvp``, ``vjp`` or ``grad`` ``fn`` gets
+    the tensors themselves, whose storage a kernel reads, where the
+    transform would hand it wrappers without one.  For a kernel's launch
+    inside a ``torch.autograd.Function``'s ``jvp`` or ``backward`` (whose
+    derivatives the Function defines), and for what is discrete (the winner
+    search and its accel)."""
+    return _Constant.apply(fn, *args)
+
+
+def given(optional):
+    """(the tensors of ``optional``, a function that puts a sequence of that
+    many back in place of them, None elsewhere): how a launch whose
+    arguments may be None goes through ``constant``, which takes tensors."""
+    at = [t is not None for t in optional]
+
+    def back(present):
+        it = iter(present)
+        return [next(it) if k else None for k in at]
+
+    return [t for t in optional if t is not None], back
 
 
 class LaunchRecord:
@@ -191,6 +253,7 @@ def source_hash() -> str:
             h.update(path.name.encode())
             h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     return h.hexdigest()[:16]
 
 
@@ -223,8 +286,8 @@ def build(with_precise: bool = False) -> dict:
                 cmd = ["g++", *HOST_CXX_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                        str(CSRC / src)]
             else:
-                cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-I", str(CSRC), "-o", str(tmp),
-                       str(CSRC / src)]
+                cmd = [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(src, ()), *extra, "-I",
+                       str(CSRC), "-o", str(tmp), str(CSRC / src)]
             procs.append((lib.name, lib, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     logs, failed = [], []

@@ -232,29 +232,51 @@ def _scatter_plain(grads, obj, rows: int, widths):
 
 
 def _gather(table, obj, ints, widths):
-    """The forward: the plain version for CPU tensors, else the kernel."""
+    """The forward (and the tangent's gather): the plain version for CPU
+    tensors, else the kernel."""
     if table.device.type == "cpu":
         return _gather_plain(table, obj, ints, widths)
-    return _launch_gather(table, obj, ints, widths)
+    return _gather_kernel(table, obj, ints, widths)
+
+
+def _gather_kernel(table, obj, ints, widths):
+    """``_launch_gather`` on the tensors themselves under ``torch.func``
+    (``_build.constant``)."""
+    got = _build.constant(lambda *a: tuple(sum(_launch_gather(*a, widths), [])), table, obj, ints)
+    return list(got[:len(widths)]), list(got[len(widths):])
 
 
 def _scatter(grads, obj, rows: int, widths):
     """The backward: the plain version for CPU tensors, else the kernel."""
     if obj.device.type == "cpu":
         return _scatter_plain(grads, obj, rows, widths)
-    return _launch_scatter(grads, obj, rows, widths)[0]
+    return _scatter_kernel(grads, obj, rows, widths)
+
+
+def _scatter_kernel(grads, obj, rows: int, widths):
+    """``_launch_scatter``'s table on the tensors themselves under
+    ``torch.func`` (``_build.constant``)."""
+    present, back = _build.given(grads)
+    return _build.constant(lambda o, *x: _launch_scatter(back(x), o, rows, widths)[0], obj,
+                           *present)
 
 
 class _WinnerGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, obj, ints, widths, grad_cols):
+    def forward(table, obj, ints, widths, grad_cols):
         outs, iouts = _gather(table, obj, ints, widths)
-        ctx.save_for_backward(obj)
-        ctx.rows, ctx.widths = table.shape[0], widths
-        starts = [sum(widths[:k]) for k in range(len(widths))]
-        ctx.mark_non_differentiable(*iouts, *[v for v, a in zip(outs, starts) if a >= grad_cols])
-        ctx.set_materialize_grads(False)
         return (*outs, *iouts)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        table, obj, ints, widths, grad_cols = inputs
+        ctx.save_for_backward(obj)
+        ctx.save_for_forward(obj)
+        ctx.rows, ctx.widths, ctx.ints = table.shape[0], widths, ints.shape[1]
+        starts = [sum(widths[:k]) for k in range(len(widths))]
+        ctx.grad_fields = sum(a < grad_cols for a in starts)
+        ctx.mark_non_differentiable(*output[ctx.grad_fields:])
+        ctx.set_materialize_grads(False)
 
     @staticmethod
     def backward(ctx, *grads):
@@ -263,6 +285,20 @@ class _WinnerGather(torch.autograd.Function):
             return None, None, None, None, None
         (obj,) = ctx.saved_tensors
         return _scatter(grads, obj, ctx.rows, ctx.widths), None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, t_table, *_):
+        """The tangent of a gather is the gather of the tangent table: the
+        same kernel (counted as ``winner_gather``) on ``t_table``, with no
+        int columns; the fields from ``grad_cols`` on and the int columns
+        get none."""
+        (obj,) = ctx.saved_tensors
+        n_out = len(ctx.widths) + ctx.ints
+        if t_table is None:
+            return (None,) * n_out
+        no_ints = obj.new_empty((ctx.rows, 0))  # the tangent's gather reads no int column
+        outs, _ = _gather(t_table.contiguous(), obj, no_ints, ctx.widths)
+        return (*outs[:ctx.grad_fields], *[None] * (n_out - ctx.grad_fields))
 
 
 def winner_gather(table, obj, ints, *, widths, grad_cols=None):

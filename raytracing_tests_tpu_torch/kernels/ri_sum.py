@@ -16,13 +16,17 @@ point's share of its gradient into the rows in one launch
 (``ri_sum_grad``), through a shared (N,) tile where 4 N bytes fit
 ``SMEM_BUDGET``, else by global atomics.
 
-``ri_sum_plain`` and ``ri_sum_grad_plain`` are the forward and the
-backward in plain PyTorch: the local point and the row-order sum written out
-term by term as the kernel computes them, so that the kernel's
-``-fmad=false`` build equals the forward bit for bit.  ``containment_ri``
-uses them only for tensors that lie on the CPU; for CUDA tensors it launches
-the kernels or raises.  Forward-mode AD (``torch.func.jvp``) of the sum runs
-on CPU tensors only (``ri_sum_jvp_plain``); on the card it raises.
+Forward-mode AD (``torch.func.jvp``): the tangent of the mean is the mean
+of the contained rows' RI tangents, one launch (``ri_sum_jvp``) of the
+forward's walk with each row's tangent in place of its RI, divided by the
+forward's count.
+
+``ri_sum_plain``, ``ri_sum_grad_plain`` and ``ri_sum_jvp_plain`` are the
+forward, the backward and the tangent in plain PyTorch: the local point and
+the row-order sum written out term by term as the kernels compute them, so
+that the kernels' ``-fmad=false`` build equals the forward and the tangent
+bit for bit.  ``containment_ri`` uses them only for tensors that lie on the
+CPU; for CUDA tensors it launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -135,7 +139,8 @@ def _split(S: int, device) -> int:
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # each entry point's arguments after the nine inputs' pointers
 _TAIL = {"rt_ri_sum": [_LL, _I, _I, _P, _P, _P],
-         "rt_ri_sum_grad": [_LL, _I, _I, _P, _P, _LL, _P, _P, _P]}
+         "rt_ri_sum_grad": [_LL, _I, _I, _P, _P, _LL, _P, _P, _P],
+         "rt_ri_sum_jvp": [_LL, _I, _I, _P, _P, _P, _P]}
 
 
 def _fn(name: str):
@@ -181,6 +186,23 @@ def _launch_ri_sum_grad(inputs, den, g, smem_budget: int = SMEM_BUDGET):
     return grad, "tile" if mode.value == 1 else "global"
 
 
+def _launch_ri_sum_jvp(inputs, den, tangent):
+    """Check the arguments and launch ``rt_ri_sum_jvp`` on the current
+    stream -> the output's tangent (S,) float32 for the rows' RI tangent
+    ``tangent`` (N,)."""
+    ptrs, S, N = _checked(inputs)
+    dev = inputs[0].device
+    _check("den", den, torch.int32, (S,), dev)
+    _check("tangent", tangent, torch.float32, (N,), dev)
+    out = torch.empty((S,), dtype=torch.float32, device=dev)
+    code = _fn("rt_ri_sum_jvp")(*ptrs, S, N, _split(S, dev), tangent.data_ptr(), den.data_ptr(),
+                                out.data_ptr(), _build.stream_of(dev))
+    _build.check(code, "rt_ri_sum_jvp")
+    if S:
+        _build.LAUNCHES["ri_sum_jvp"] += 1
+    return out
+
+
 def _ri_sum(inputs):
     """The forward: the plain version for CPU tensors, else the kernel."""
     if inputs[0].device.type == "cpu":
@@ -192,18 +214,36 @@ def _ri_sum_grad(inputs, den, g):
     """The backward: the plain version for CPU tensors, else the kernel."""
     if inputs[0].device.type == "cpu":
         return ri_sum_grad_plain(inputs, den, g)
-    return _launch_ri_sum_grad(inputs, den, g)[0]
+    return _ri_sum_grad_kernel(inputs, den, g)
+
+
+def _ri_sum_grad_kernel(inputs, den, g):
+    """``_launch_ri_sum_grad`` on the tensors themselves under ``torch.func``
+    (``_build.constant``), as ``_ri_sum_jvp_kernel`` launches its kernel."""
+    return _build.constant(lambda *x: _launch_ri_sum_grad(x[:-2], x[-2], x[-1])[0],
+                           *inputs, den, g)
 
 
 def ri_sum_jvp_plain(inputs, den, tangent):
-    """Forward-mode AD of the forward (plain PyTorch, CPU tensors only; no
-    kernel computes the tangent, so on the card it raises): (S,) the
-    output's tangent for the rows' RI tangent ``tangent`` (N,)."""
-    if inputs[0].device.type != "cpu":
-        raise NotImplementedError("forward-mode AD of containment_ri runs on CPU tensors only")
-    inside = _inside(*inputs).to(tangent.dtype)
-    return torch.where(den > 0, (inside @ tangent) / torch.clamp_min(den, 1).to(tangent.dtype),
-                       torch.zeros((), dtype=tangent.dtype))
+    """The tangent by the plain version: (S,) the output's tangent for the
+    rows' RI tangent ``tangent`` (N,), given the forward's ``den``: the
+    contained rows' tangents added in row order (as the kernel adds them)
+    over ``den`` where it is above 0, else 0."""
+    acc, _ = _sum_in_row_order(_inside(*inputs), tangent)
+    return torch.where(den > 0, acc / torch.clamp_min(den, 1).to(acc.dtype),
+                       torch.zeros((), dtype=acc.dtype, device=acc.device))
+
+
+def _ri_sum_jvp(inputs, den, tangent):
+    """The tangent: the plain version for CPU tensors, else the kernel."""
+    if inputs[0].device.type == "cpu":
+        return ri_sum_jvp_plain(inputs, den, tangent)
+    return _ri_sum_jvp_kernel(inputs, den, tangent)
+
+
+def _ri_sum_jvp_kernel(inputs, den, tangent):
+    return _build.constant(lambda *x: _launch_ri_sum_jvp(x[:-2], x[-2], x[-1]),
+                           *inputs, den, tangent)
 
 
 class _ContainmentRI(torch.autograd.Function):
@@ -233,7 +273,7 @@ class _ContainmentRI(torch.autograd.Function):
         t = tangents[-1]
         if t is None:
             return torch.zeros(den.shape, dtype=inputs[-1].dtype, device=den.device), None
-        return ri_sum_jvp_plain(inputs, den, t), None
+        return _ri_sum_jvp(inputs, den, t.contiguous()), None
 
 
 def containment_ri(scene, point, time_ratio):
@@ -247,9 +287,9 @@ def containment_ri(scene, point, time_ratio):
 
     CPU tensors go through ``ri_sum_plain`` and ``ri_sum_grad_plain``; CUDA
     tensors launch the kernels of ``csrc/ri_sum.cu`` (counted as ``ri_sum``
-    and ``ri_sum_grad``) or raise.  Neither synchronises or reads on the
-    host, so both can be captured in a CUDA graph.  Forward-mode AD runs on
-    CPU tensors only (``ri_sum_jvp_plain``)."""
+    and ``ri_sum_grad``, and ``ri_sum_jvp`` for forward-mode AD's tangent)
+    or raise.  None synchronises or reads on the host, so each can be
+    captured in a CUDA graph."""
     fields = [getattr(scene, f) for f in FIELDS]
     fields[FIELDS.index("obj_type")] = fields[FIELDS.index("obj_type")].to(torch.int32)
     return _ContainmentRI.apply(point.contiguous(), time_ratio.contiguous(),

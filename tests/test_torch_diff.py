@@ -111,6 +111,80 @@ CASES = {
 }
 
 
+def _jvp_case(case):
+    """(the JAX scene, camera, config, target, perturbed scene, the port's
+    perturbed scene, camera and config, its params, the field bar) of a
+    forward-mode case: a case of CASES, or ``nested_glass`` (the nested-glass
+    frame of ``test_torch_ri_sum.py``, 16x12x2 at depth 6, RI and colours
+    moved), whose probe points lie inside glass."""
+    if case == "nested_glass":
+        from test_torch_ri_sum import nested_glass
+
+        size = dict(width=16, height=12, spp=2, max_bounces=6)
+        js, jc = nested_glass(jtypes)
+        intersector, soft, bar = "pallas", 0.0, 5e-4
+        perturb = lambda s: s.replace(  # noqa: E731
+            refractive_index=s.refractive_index.at[0].add(0.05).at[1].add(-0.05),
+            color=s.color * 0.9 + 0.05)
+    else:
+        factory, intersector, soft, perturb, (_, bar) = CASES[case]
+        size = SIZE
+        js, jc = jex.materials_scene() if factory is None else factory(jtypes)
+    jcfg = JRenderConfig(**size).for_scene(js)
+    target = np.asarray(render_jit(js, jc, jcfg)["image"])
+    jpert = perturb(js)
+    jcfg = dataclasses.replace(jcfg, intersector=intersector, soft_edges=soft)
+    ts, tc = port_of(jpert, jc)
+    tcfg = dataclasses.replace(RenderConfig(**size).for_scene(ts), intersector=intersector,
+                               soft_edges=soft)
+    p = convert.scene_params_from_numpy(
+        {f: np.asarray(getattr(jdiff.extract_params(jpert), f)) for f in diff.FLOAT_FIELDS})
+    return jc, jcfg, target, jpert, ts, tc, tcfg, p, bar
+
+
+@pytest.mark.parametrize("case", ["pallas", "pallas_soft", "generic_pallas", "generic_soft",
+                                  "nested_glass"])
+def test_forward_mode_through_the_fast_path_matches_jax_jvp(case):
+    """``torch.func.jvp`` of the port's ``render_loss`` on the fast path
+    (``intersector="pallas"``: the winner gather, the recompute and the
+    containment sum under forward-mode AD) against ``jax.jvp`` of the JAX
+    package's, along a seeded tangent of every trainable field: within the
+    bars of ``test_loss_and_grads_match_jax`` carried to a tangent v, the
+    field bar times the sum over fields of max |g| times sum |v| (g the port's
+    reverse-mode gradient); and against that gradient, <g, v>, within 1e-4
+    of sum |g v| (forward and reverse mode of the same port)."""
+    jc, jcfg, target, jpert, ts, tc, tcfg, p, bar = _jvp_case(case)
+    rng = np.random.default_rng(7)
+    tan = {f: rng.normal(size=np.shape(getattr(jdiff.extract_params(jpert), f))).astype(
+        np.float32) for f in diff.FLOAT_FIELDS}
+    jp = jdiff.extract_params(jpert)
+
+    def jloss(*fields):
+        return jdiff.render_loss(jp.replace(**dict(zip(diff.FLOAT_FIELDS, fields))), jpert, jc,
+                                 jcfg, jnp.asarray(target))
+
+    _, jt = jax.jvp(jloss, tuple(getattr(jp, f) for f in diff.FLOAT_FIELDS),
+                    tuple(jnp.asarray(tan[f]) for f in diff.FLOAT_FIELDS))
+
+    def tloss(*fields):
+        return diff.render_loss(p.replace(**dict(zip(diff.FLOAT_FIELDS, fields))), ts, tc, tcfg,
+                                torch.from_numpy(target), device=CPU)
+
+    _, tt = torch.func.jvp(tloss, tuple(getattr(p, f) for f in diff.FLOAT_FIELDS),
+                           tuple(torch.from_numpy(tan[f]) for f in diff.FLOAT_FIELDS))
+    _, tg = diff.value_and_grad_loss(p, ts, tc, tcfg, torch.from_numpy(target), device=CPU)
+    grads = dict(tg.items())
+    size = sum(float(grads[f].abs().max()) * float(np.abs(tan[f]).sum())
+               for f in diff.FLOAT_FIELDS)
+    assert size > 0.0
+    assert abs(float(tt) - float(jt)) <= bar * size, (float(tt), float(jt), bar * size)
+    dot = sum(float((grads[f] * torch.from_numpy(tan[f])).sum()) for f in diff.FLOAT_FIELDS)
+    terms = sum(float((grads[f] * torch.from_numpy(tan[f])).abs().sum())
+                for f in diff.FLOAT_FIELDS)
+    assert abs(float(tt) - dot) <= 1e-4 * terms, (float(tt), dot, terms)
+    assert abs(float(tt)) > 1e-3 * terms  # the tangent moves the loss
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_loss_and_grads_match_jax(case):
     factory, intersector, soft, perturb, (rtol, bar) = CASES[case]

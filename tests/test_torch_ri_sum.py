@@ -171,6 +171,31 @@ def test_plain_sum_equals_jax_and_its_vjp(case):
     np.testing.assert_allclose(got_grad2.numpy(), np.asarray(want_grad), rtol=1e-6, atol=1e-7)
 
 
+def test_plain_tangent_equals_jax_jvp(case):
+    """Forward-mode AD: ``ri_sum_jvp_plain`` and ``torch.func.jvp`` through
+    ``containment_ri`` on the CPU against ``jax.jvp`` of the JAX package's
+    ``surrounding_refractive_index`` with respect to the rows' RI (the same
+    row-order caveat as the forward: within 1e-6)."""
+    scene, point, tr = case["scene"], case["point"], case["tr"]
+    tangent = torch.from_numpy(np.random.default_rng(4).normal(
+        size=scene.capacity).astype(np.float32))
+    js = _jax_scene(scene)
+    jp, jt = jnp.asarray(point.numpy()), jnp.asarray(tr.numpy())
+    _, want = jax.jvp(
+        lambda ri: jisect.surrounding_refractive_index(js.replace(refractive_index=ri), jp, jt),
+        (js.refractive_index,), (jnp.asarray(tangent.numpy()),))
+    want = np.asarray(want)
+    assert np.abs(want).max() > 0.1  # the points inside glass move with its RI
+    inputs = _inputs(scene, point, tr)
+    _, den = ri_sum.ri_sum_plain(inputs)
+    np.testing.assert_allclose(ri_sum.ri_sum_jvp_plain(inputs, den, tangent).numpy(), want,
+                               rtol=0, atol=1e-6)
+    _, got = torch.func.jvp(
+        lambda ri: ri_sum.containment_ri(scene.replace(refractive_index=ri), point, tr),
+        (scene.refractive_index,), (tangent,))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
 def test_gradcheck_of_containment_ri_in_float64():
     """In float64 on a table without rows of RI 1 (at 1 a row's liveness
     turns: the sum is not differentiable there)."""
@@ -220,6 +245,25 @@ def test_kernel_source_rehearsed_on_the_host(case, mode):
     assert _within_sum_abs(grad, inputs, den, case["g"]) <= 1.0
     plain = ri_sum.ri_sum_grad_plain(inputs, want_den, case["g"])
     assert _within_sum_abs(plain, inputs, den, case["g"]) <= 1.0
+
+
+def test_kernel_tangent_rehearsed_on_the_host(case):
+    """The tangent instantiation (``rt_ri_sum_jvp``) bit for bit the plain
+    version's, which adds in the same row order."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to rehearse the kernel source with")
+    inputs = _inputs(case["scene"], case["point"], case["tr"])
+    _, den = ri_sum.ri_sum_plain(inputs)
+    tangent = torch.from_numpy(np.random.default_rng(5).normal(
+        size=case["scene"].capacity).astype(np.float32))
+    want = ri_sum.ri_sum_jvp_plain(inputs, den, tangent)
+    _build.reset_launches()
+    with _build.host_rehearsal():
+        got = ri_sum._launch_ri_sum_jvp(inputs, den, tangent)
+    assert dict(_build.LAUNCHES) == {"ri_sum_jvp": 1}
+    _build.reset_launches()
+    assert torch.equal(got, want)
+    assert bool((got[den == 0] == 0).all()) and bool((got[den > 0] != 0).any())
 
 
 def test_the_wrappers_check_their_arguments():

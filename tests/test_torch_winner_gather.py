@@ -338,3 +338,44 @@ def test_the_step_returns_a_contiguous_gradient_a_field():
     for name, g in grads.items():
         assert g.is_contiguous() and g.storage_offset() == 0, name
     assert len({g.untyped_storage().data_ptr() for _, g in grads.items()}) == len(grads.items())
+
+
+def test_the_tangent_is_the_gather_of_the_tangent_table(monkeypatch):
+    """Forward-mode AD: ``torch.func.jvp`` through ``winner_gather`` gives
+    each field's tangent as the gather of the tangent table, by the same
+    kernel (rehearsed on the host where there is a g++; counted as
+    ``winner_gather``, one launch for the primal and one for the tangent),
+    and no tangent (zeros) to the fields past ``grad_cols`` and the int
+    columns."""
+    table, ints, obj, _ = (torch.from_numpy(x) for x in _inputs(37, seed=3))
+    tangent = torch.from_numpy(np.random.default_rng(4).normal(size=tuple(table.shape)).astype(
+        np.float32))
+    if shutil.which("g++") is not None:
+        def launch(*args, widths):
+            with _build.host_rehearsal():
+                outs, iouts = gather._launch_gather(*args, widths)
+            return (*outs, *iouts)
+
+        def rehearsed(t, o, i, widths):  # the kernel's route, on the tensors themselves
+            got = _build.constant(lambda *a: launch(*a, widths=widths), t, o, i)
+            return list(got[:len(widths)]), list(got[len(widths):])
+
+        monkeypatch.setattr(gather, "_gather", rehearsed)
+    _build.reset_launches()
+    out, tan = torch.func.jvp(
+        lambda t: gather.winner_gather(t, obj, ints, widths=gather.WIDTHS,
+                                       grad_cols=gather.GRAD_COLUMNS), (table,), (tangent,))
+    launches = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    if shutil.which("g++") is not None:
+        assert launches == {"winner_gather": 2}
+    want = torch.index_select(tangent, 0, obj.clamp_min(0).long())
+    at = 0
+    for k, w in enumerate(gather.WIDTHS):
+        got = tan[k].reshape(B, w)
+        if at < gather.GRAD_COLUMNS:
+            assert torch.equal(got, want[:, at:at + w])
+        else:
+            assert not bool(got.any())
+        at += w
+    assert all(not bool(t.any()) for t in tan[len(gather.WIDTHS):])
