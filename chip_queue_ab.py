@@ -58,8 +58,9 @@ that root's sources.  Workloads, at the sizes ``chip_smoke.py`` drives them:
   session of host and device activity: the device time of every kernel by
   the range that launched it (``op_split``): the surrounding-RI containment
   sum (``ri_sum``), the recompute (``diff.fastpath.intersect_diff``), the
-  queue's push and pop, the rest of ``ops.render.shade_rays`` and other,
-  each forward and backward.
+  queue's push and pop, the shading's kernel (``kernels.shade.shade_bvh``,
+  in a checkout that has it), the rest of ``ops.render.shade_rays`` and
+  other, each forward and backward.
 
 ``--only a,b`` runs the named workloads alone; ``--reps n`` times each n
 times (default ``REPS``).
@@ -102,12 +103,14 @@ WORKLOADS = ("bvh_queue_frame", "dense_generic_frame", "unbanded_step", "sharded
              "recompute_pop")
 GRAD_WORKLOADS = ("grad_split", "ri_split", "grad", "grad_soft", "generic_hard", "grad_eager")
 # The ranges ``op_split`` attributes a kernel to, innermost first where they
-# nest: the containment sum, the recompute, the queue, the rest of the shading.
-SPLIT_RANGES = ("ri_sum", "recompute", "queue", "shade_rays")
+# nest: the containment sum, the recompute, the queue, the shading's kernel
+# (``kernels.shade.shade_bvh``, where the checkout has it), the rest of the
+# shading.
+SPLIT_RANGES = ("ri_sum", "recompute", "queue", "shade", "shade_rays")
 # The backward nodes of the port's autograd.Functions, known by name (their
 # forward records no operator of their own to take a sequence number from).
 NODE_RANGES = {"ContainmentRI": "ri_sum", "WinnerGather": "recompute",
-               "WinnerRecompute": "recompute"}
+               "WinnerRecompute": "recompute", "ShadeBvh": "shade"}
 
 
 def _pad(n: int) -> None:
@@ -297,12 +300,14 @@ def index_add_split(fn, n_rows: int, pop_rows: int) -> dict:
 
 @contextlib.contextmanager
 def split_ranges():
-    """Inside: the recompute, the queue's push and pop and
+    """Inside: the recompute, the queue's push and pop, the shading's kernel
+    (``kernels.shade.shade_bvh``, where the checkout has one) and
     ``ops.render.shade_rays`` run inside ``torch.profiler.record_function``
     ranges named as in ``SPLIT_RANGES``; so does the containment sum
     (``ops.render._surrounding_ri``) where the checkout's ``_ri_of_lanes``
     opens no ``ri_sum`` range of its own (an older checkout)."""
     import importlib
+    import importlib.util
     import inspect
 
     import torch
@@ -322,6 +327,9 @@ def split_ranges():
                (render.RayQueue, "pop", "queue"), (render, "shade_rays", "shade_rays")]
     if '"ri_sum"' not in inspect.getsource(render._ri_of_lanes):
         patches.append((render, "_surrounding_ri", "ri_sum"))
+    if importlib.util.find_spec("raytracing_tests_tpu_torch.kernels.shade") is not None:
+        shade = importlib.import_module("raytracing_tests_tpu_torch.kernels.shade")
+        patches.append((shade, "shade_bvh", "shade"))
     saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
     try:
         for obj, attr, name in patches:

@@ -129,12 +129,14 @@ Phases and their bars:
      (``render_stats``, intersector="pallas", K5's generic instantiation) on
      ``bvh_grid_scene(side=32)`` at 800x450x16 depth 8, one warm frame and
      three timed; parity against the render_uber frame of 11 by the bars of
-     5 with under 3 % of pixels off by 0.05; only K5 launched; every K5
+     5 with under 3 % of pixels off by 0.05; only K5 and the shading
+     (``shade_bvh``) launched, each once a pop; every K5
      launch timed on the device alone beside its bound; a profiled frame for
      the card's busy and idle shares and K5's share; K5's coop_min sweep
      over the frame and over the grid canary (``k5_coop_sweep``).
   dense_generic_frame. The same scene and size through the queue renderer
-     with pallas_groups=0: K4's culled dense sweep_nearest alone, once a pop;
+     with pallas_groups=0: K4's culled dense sweep_nearest and the shading
+     alone, each once a pop;
      the canary's envelope against the bvh queue frame of the same run; zero
      dropped; every launch timed on the device alone beside its bound (the
      lesser of the dense count and the work K4's counters name, ``k4_bound``),
@@ -142,8 +144,9 @@ Phases and their bars:
      efficiency; the card's idle share over a profiled frame.
   glass_grid_frame. ``glass_grid_scene()`` (every fourth grid object glass)
      at 800x450x16 d8 through the default grouped queue renderer: K5 and
-     K4's sweep_ri (the generic scene's surrounding-RI probe) once a pop
-     each; the envelope against render_uber of the same scene; zero dropped;
+     K4's sweep_ri (the generic scene's surrounding-RI probe) and the
+     shading once a pop each; the envelope against render_uber of the same
+     scene; zero dropped;
      both kernels' launches timed and bounded as above, apart.
  13. the chunked megakernel (``mega_step``) vs plain at the shapes the drain
      gives it: the (16, 2^20) pools of the headline frame's first chunk at
@@ -224,7 +227,8 @@ Phases and their bars:
      ``check_shading``; the schedules bit for bit.
   workqueue_lights. ``render_workqueue`` with lights on the sphere lights
      canary against the queue renderer given a full tree's budget: image atol
-     2e-5 on >= 99.5 %, zero dropped, K2 alone; rays at or above the queue
+     2e-5 on >= 99.5 %, zero dropped, K2 and the shading alone (the
+     shading once an iteration); rays at or above the queue
      renderer's and within 2 % (``workqueue_lights`` says why).
   deep_stack. K1 with stacks of 16 and 32 records on ``deep_glass_spheres()``
      under materials shading at depths 12 and 16 against the queue renderer
@@ -281,8 +285,9 @@ Phases and their bars:
      behind ``_winner``); ``motion_blur_scene()`` and a moving
      ``groups_scene()``, soft (the two moving EDGE instantiations), each
      graphed (captured, then one replayed step timed): finite gradients,
-     each step running its one sweep instantiation and the winner gather's
-     pair only, each once a pop; each
+     each step running its one sweep instantiation, the winner gather's
+     pair, the recompute and the shading (each with its backward) only,
+     each once a pop; each
      step's sweep device time from the trace of one more replayed step; on
      bvh1k K3's bound summed over the hard step's launches from their own
      counters and its SIMT efficiency (live rows / lane slots) over each
@@ -330,14 +335,33 @@ Phases and their bars:
      ms (cold L2, least of 3) above the bound by bytes, the plain version's
      and the route it replaced (the plain forward under autograd, and with
      its backward).
+  shade_vs_plain. The shading's three kernels (``kernels/shade.py``:
+     forward, backward, tangent) on the inputs of the grad frame's deepest
+     band's first pop (230 400 lanes, hard, with the band's gradient), its
+     third (rays inside glass: inner hits reading the surrounding RI), the
+     grad_soft frame's first pop (the soft coverage) and bvh1k's first pop
+     (generic), once (the source is built with -fmad=false in both builds):
+     the forward bit for bit the plain version's on >= SHADE_EQUAL (99.9 %)
+     of lanes; the backward and a seeded tangent against float64 autograd
+     and ``torch.func.jvp`` of the plain version, split by lane: where the
+     float32 plain route is within SHADE_SINGULAR (1e-4) of float64 and
+     |ref| within SHADE_HUGE (1e6) times the field's median, at the
+     recompute's bars without the route's own error added; on the singular
+     lanes (refract's k near 0, a normalise at its clamp) within
+     SHADE_SINGULAR_RTOL (1e-4) of the float32 plain route;
+     device ms (cold L2, least of 3) above the bound, the plain version's
+     and the route it replaced (the plain forward under autograd, and with
+     its backward).  Every queue-renderer path shades the 'bvh' model by
+     the kernel once a pop (materials: plainly); the launches are counted
+     on each driven path.
   tangent_vs_plain. ``torch.func.jvp`` of ``render_loss`` on the fast path
      through the kernels against the plain route, on ``materials_scene()``
      (glass, 200x112x4 d6) and bvh1k (200x112x4 d3), both builds, along a
      seeded tangent of every trainable field: within TANGENT_PRECISE (1e-6)
      of the sum of |g v| in the -fmad=false build and TANGENT_DEFAULT
      (1e-5) in the default build, each bar below |tangent|; the tangent's
-     kernels launched once a forward launch (the winner gather twice), no
-     backward kernel.
+     kernels launched once a forward launch (the winner gather twice; the
+     shading's tangent once a shading launch), no backward kernel.
   grad_graph_moved. Every position moved by up to MOVE after the bvh1k
      steps captured their graphs (soft and hard), and after two Adam steps
      of grad_config that train positions: the replay over the new tables
@@ -375,7 +399,8 @@ Phases and their bars:
      2, 4 and 8 shards (15 launches): per-shard rays, imbalance, efficiency
      bound in (0, 1]; one shard's rays within 0.5 % of the headline's.
   sharded_bvh_queue. bvh1k through ``render_sharded`` on 3 shards (the
-     ``bvh`` workload's queue renderer): K5 alone; -fmad=false build image,
+     ``bvh`` workload's queue renderer): K5 and the shading alone, each once
+     a pop; -fmad=false build image,
      depth and rays identical to ``render_stats``; the default build by the
      envelope; min and mean of 3 frames beside the single frame's.
   sharded_train_step. ``grad_config``'s scene and target at 800x450, depth
@@ -384,8 +409,9 @@ Phases and their bars:
      unsharded step's peak passes 60 GB); ``value_and_grad_loss`` on 3
      shards against one device: -fmad=false build by GRAD_SHARDED_PRECISE
      (its reason there), the default build by GRAD_DEFAULT; K2, the
-     winner gather's pair and the containment sum alone, each once a pop,
-     the sum's backward once a pop but each shard's last; peak
+     winner gather's pair, the recompute, the shading and the containment
+     sum alone, each once a pop, the shading's backward once a pop, the
+     sum's and the recompute's once a pop but each shard's last; peak
      memory and seconds per step of both; three Adam steps of
      ``make_train_step(mesh=)``: the last two below the first.
   dryrun. ``dryrun.dryrun_multichip(4, devices=[card] * 4)`` in the
@@ -421,20 +447,22 @@ Phases and their bars:
      path (bvh1k, 800x450x16 d8, intersector="pallas"), 104 tiles of 64x64
      four a step (26 yields): done_fraction rising to 1.0, the final canvas
      within atol 1e-5 of ``render_stats``'s frame and its share of
-     bit-identical pixels, both builds; K5 alone, its launches summed over
-     the tiles' pops; the seconds beside the full frame's.
+     bit-identical pixels, both builds; K5 and the shading alone, each once
+     a pop, their launches summed over the tiles' pops; the seconds beside
+     the full frame's.
   lbvh_build, lbvh_frame, lbvh_ri_canary, native_noise. ``build_lbvh`` on the
      card against ``build_lbvh_native`` (the C++ of ``native/``, built with
      g++, which the card's machine must have) on bvh1k and the headline
      scene: node arrays equal, boxes within 1e-5, both builds' milliseconds;
      bvh1k at 800x450 d8 with spp cut from 16 to 1 (``LBVH_FRAME``: the
      walk is the JAX package's lockstep oracle, some forty launches a step
-     over every lane) with intersector="bvh": no kernel launched, >= 99.5 %
+     over every lane) with intersector="bvh": no sweep kernel launched (the
+     shading's alone, once a pop), >= 99.5 %
      of pixels within atol 2e-4 / rtol 1e-3 of the -fmad=false build's
      grouped-sweep frame (K5), the canary's envelope against the default
      build's, each walk's steps against its cap 3 * nodes + 2; the headline
      scene at the canary's size with intersector="bvh", where the RI walk
-     (``traverse_point_ri``) runs: no kernel, the oracle bar against the
+     (``traverse_point_ri``) runs: no sweep kernel, the oracle bar against the
      queue renderer through the first-generation sweeps over the scene's
      generic table (K5 and K4's ``sweep_ri``) in the -fmad=false build,
      whose arithmetic the walk's is (the walk sums its terms in a fixed
@@ -505,7 +533,8 @@ from chip_queue_ab import index_add_split, op_split  # noqa: E402
 from raytracing_tests_tpu_torch import diff  # noqa: E402
 from raytracing_tests_tpu_torch.bench import grad_bands  # noqa: E402
 from raytracing_tests_tpu_torch.kernels import (  # noqa: E402
-    _build, drain, edge_cull, gather, mega, recompute, ri_sum, sweep, sweep2, sweep2g, uber,
+    _build, drain, edge_cull, gather, mega, recompute, ri_sum, shade, sweep, sweep2, sweep2g,
+    uber,
 )
 from raytracing_tests_tpu_torch.ops import megalanes, workqueue  # noqa: E402
 from raytracing_tests_tpu_torch.ops.render import (  # noqa: E402
@@ -1664,8 +1693,10 @@ def generic_phases(dev, iow, ptxas):
         launches=launches_canary, **canary)
     check_parity("generic canary", canary)
     require(launches_canary.get("uber_g") == 1 and launches_canary.get("sweep_grouped", 0) > 0
-            and set(launches_canary) == {"uber_g", "sweep_grouped"},
+            and set(launches_canary) == {"uber_g", "sweep_grouped", "shade_bvh"}
+            and launches_canary["shade_bvh"] == launches_canary["sweep_grouped"],
             f"the generic canary's launches: {launches_canary}")
+    SHADE_PATHS["generic_canary"] = launches_canary
 
     # K3 through its own entry point on the canary's lanes, against K5's
     # winners (K3's consumer in the product is the differentiable fast path,
@@ -1695,7 +1726,8 @@ def generic_phases(dev, iow, ptxas):
     check_parity("glass canary", glass)
     require(launches_glass.get("uber_g") == 1 and launches_glass.get("sweep_nearest", 0) > 0
             and launches_glass.get("sweep_ri", 0) > 0
-            and set(launches_glass) == {"uber_g", "sweep_nearest", "sweep_ri"},
+            and set(launches_glass) == {"uber_g", "sweep_nearest", "sweep_ri", "shade_bvh"}
+            and launches_glass["shade_bvh"] == launches_glass["sweep_nearest"],
             f"the glass canary's launches: {launches_glass}")
 
     # K4 and K5 at the shapes their driven paths give them: every launch of
@@ -1747,8 +1779,12 @@ def generic_phases(dev, iow, ptxas):
         say(phase="first_generation_spheres", pallas_groups=groups,
             launches=launches_v1[groups], **v1)
         check_parity(f"first-generation sphere sweeps, groups={groups}", v1)
-    require(launches_v1[0].get("sweep_nearest_ri", 0) > 0 and set(launches_v1[0]) == {"sweep_nearest_ri"}
-            and launches_v1[32].get("sweep_grouped", 0) > 0 and set(launches_v1[32]) == {"sweep_grouped"},
+    require(launches_v1[0].get("sweep_nearest_ri", 0) > 0
+            and launches_v1[0] == {"sweep_nearest_ri": launches_v1[0]["sweep_nearest_ri"],
+                                   "shade_bvh": launches_v1[0]["sweep_nearest_ri"]}
+            and launches_v1[32].get("sweep_grouped", 0) > 0
+            and launches_v1[32] == {"sweep_grouped": launches_v1[32]["sweep_grouped"],
+                                    "shade_bvh": launches_v1[32]["sweep_grouped"]},
             f"the first-generation sphere path's launches: {launches_v1}")
 
     # K5's schedules and K4's splits bit for bit on every input above, and K4
@@ -2163,7 +2199,7 @@ def k5_coop_sweep(what, render):
 DEVICE_RECORDS = ("kernel", "gpu_memcpy", "gpu_memset")  # a trace's device activity
 PORT_KERNEL = re.compile(r"\b(uber|sweep2|sweep2g|sweep2g_edge|mega|grouped|nearest|ri|nearest_ri"
                          r"|drain|winner_gather|winner_scatter|ri_sum|ri_sum_grad|recompute"
-                         r"|recompute_grad|recompute_jvp)_kernel\b")
+                         r"|recompute_grad|recompute_jvp|shade|shade_grad|shade_jvp)_kernel\b")
 SESSIONS = []  # what each profiler session saw (``device_session``)
 
 
@@ -2273,9 +2309,13 @@ def bvh_queue_frame(scene, camera, cfg, ou):
                earlier_seconds_per_frame_min=EARLIER_FRAME_SECONDS["bvh_queue_frame"])
     say(phase="bvh_queue_frame", **res)
     check_parity("bvh queue frame against render_uber", c)
-    require(all(set(got) == {"sweep_grouped"} and got["sweep_grouped"] > 0 for got in launches),
-            f"a bvh queue frame launches K5 and nothing else: {launches}")
+    require(all(got.get("sweep_grouped", 0) > 0
+                and got == {"sweep_grouped": got["sweep_grouped"],
+                            "shade_bvh": got["sweep_grouped"]} for got in launches),
+            f"a bvh queue frame launches K5 and the shading, each once a pop, and nothing "
+            f"else: {launches}")
     require(k5["ms"] > k5["bound_ms"], f"K5 below its bound on the bvh queue frame: {k5}")
+    SHADE_PATHS["bvh_queue_frame"] = launches[-1]
     res["coop_sweep"] = k5_coop_sweep("bvh queue frame", render)
     return res, launches[-1], oq
 
@@ -2439,9 +2479,11 @@ def dense_generic_frame(scene, camera, cfg, oq_k5):
     say(phase="dense_generic_frame", **res)
     check_parity("dense generic frame against the bvh queue frame", c)
     n = launches[-1].get("sweep_nearest", 0)
-    require(n > 0 and all(got == {"sweep_nearest": n} for got in launches),
-            f"a dense generic frame launches sweep_nearest once a pop, nothing else: {launches}")
+    require(n > 0 and all(got == {"sweep_nearest": n, "shade_bvh": n} for got in launches),
+            f"a dense generic frame launches sweep_nearest and the shading once a pop, nothing "
+            f"else: {launches}")
     require(res["rays_dropped"] == 0, f"the dense generic frame dropped rays: {res}")
+    SHADE_PATHS["dense_generic_frame"] = launches[-1]
     return res, launches[-1], pops[:2]
 
 
@@ -2477,11 +2519,14 @@ def glass_grid_frame(dev):
     say(phase="glass_grid_frame", **res)
     check_parity("glass grid frame against render_uber", c)
     n = launches[-1].get("sweep_ri", 0)
-    require(n > 0 and all(g == {"sweep_grouped": n, "sweep_ri": n} for g in launches),
-            f"a glass grid frame launches K5 and sweep_ri once a pop each: {launches}")
+    require(n > 0 and all(g == {"sweep_grouped": n, "sweep_ri": n, "shade_bvh": n}
+                          for g in launches),
+            f"a glass grid frame launches K5, sweep_ri and the shading once a pop each: "
+            f"{launches}")
     require(res["rays_dropped"] == 0 and c["rays_dropped"] == 0,
             f"the glass grid frame dropped rays: {res}")
     require(launches_u == {"uber_g": 1}, f"the glass grid's render_uber frame: {launches_u}")
+    SHADE_PATHS["glass_grid_frame"] = launches[-1]
     return res, launches[-1], pops[:2]
 
 
@@ -3463,7 +3508,8 @@ def third_slice_phases(dev, ctx):
               depth_max_abs_err=float((ow["depth"] - oq["depth"]).abs().max()))
     say(phase="workqueue_canary", size=size_of(SMALL), **wq)
     require(wq["pixels_within_2e5"] >= 0.995 and wq["rays"] == wq["queue_rays"]
-            and wq["rays_dropped"] == 0 and launches_wq == {"sweep2": wq["iterations"]},
+            and wq["rays_dropped"] == 0
+            and launches_wq == {"sweep2": wq["iterations"], "shade_bvh": wq["iterations"]},
             f"workqueue canary: {wq}")
     wq_frame, wq_eager, wq_same, ow = workqueue_frames(scene, camera, cfg)
     launches_wq_frame = wq_frame["launches"]
@@ -3475,9 +3521,12 @@ def third_slice_phases(dev, ctx):
         lambda: workqueue.render_workqueue(scene, camera, cfg, graphs=False))
     say(phase="workqueue_frame", size=size_of(HEADLINE), **wq_frame)
     check_parity("workqueue frame against render_uber", env)
-    require(launches_wq_frame == {"sweep2": ow["iterations"]} == wq_eager["launches"],
-            f"a workqueue frame launches the sweep once per iteration: {launches_wq_frame} "
+    require(launches_wq_frame == {"sweep2": ow["iterations"], "shade_bvh": ow["iterations"]}
+            == wq_eager["launches"],
+            f"a workqueue frame launches the sweep and the shading once per iteration: "
+            f"{launches_wq_frame} "
             f"(eager {wq_eager['launches']})")
+    SHADE_PATHS["workqueue_frame"] = launches_wq_frame
     require(wq_same["rays"] and wq_same["iterations"] and wq_same["rays_dropped"]
             and wq_same["pixels_within_1e5"] == 1.0,
             f"the graphed work-queue frame differs from the eager static one: {wq_same}")
@@ -3546,7 +3595,8 @@ def third_slice_phases(dev, ctx):
     say(phase="motion_canary", size=size_of(SMALL), launches=launches_mc, **mc)
     check_parity("motion canary", mc)
     require(launches_mc.get("uber_m") == 1 and launches_mc.get("sweep2_m", 0) > 0
-            and set(launches_mc) == {"uber_m", "sweep2_m"},
+            and set(launches_mc) == {"uber_m", "sweep2_m", "shade_bvh"}
+            and launches_mc["shade_bvh"] == launches_mc["sweep2_m"],
             f"the motion canary's launches: {launches_mc}")
 
     # K2 MOTION against its plain version on the frame's camera lanes and their
@@ -3636,7 +3686,8 @@ def third_slice_phases(dev, ctx):
     check_uber_g(size_of(SMALL) + " moving generic", int(stats_p[uber.ST_DROPPED]),
                  k1gm, k1gm_precise)
     require(launches_gm.get("uber_g_m") == 1 and launches_gm.get("sweep_grouped", 0) > 0
-            and set(launches_gm) == {"uber_g_m", "sweep_grouped"},
+            and set(launches_gm) == {"uber_g_m", "sweep_grouped", "shade_bvh"}
+            and launches_gm["shade_bvh"] == launches_gm["sweep_grouped"],
             f"the moving generic canary's launches: {launches_gm}")
 
     # sweep_modes: K2's and K6's schedules bit for bit -----------------------------
@@ -4016,8 +4067,12 @@ def shading_canary(dev, name):
     check_parity(f"{name} canary", env, lights=lights is not None)
     queue_kernel = "sweep_grouped" if acc.mode == "generic" else "sweep2_m" if acc.has_motion \
         else "sweep2"
+    # the queue renderer shades the 'bvh' model by the kernel once a pop, the
+    # materials model plainly
+    shaded = {"shade_bvh"} if cfg.shading != "materials" else set()
     require(launches.get(name) == 1 and launches.get(queue_kernel, 0) > 0
-            and set(launches) == {name, queue_kernel},
+            and set(launches) == {name, queue_kernel} | shaded
+            and (not shaded or 0 < launches["shade_bvh"] <= launches[queue_kernel]),
             f"the {name} canary's launches: {launches}")
     plain_ms, (out_p, stats_p) = timed_ms(
         lambda: uber.uber_render_plain(acc, cam, st, rows, atlas))
@@ -4119,7 +4174,8 @@ def workqueue_lights(dev):
     # the pool they are already queued and run (both as in the JAX package).
     require(res["within_2e5"] >= 0.995 and res["rays_queue"] <= res["rays"]
             and res["rays"] <= 1.02 * res["rays_queue"] and res["rays_dropped"] == 0
-            and set(launches) == {"sweep2"} and launches["sweep2"] >= ow["iterations"],
+            and set(launches) == {"sweep2", "shade_bvh"} and launches["sweep2"] >= ow["iterations"]
+            and launches["shade_bvh"] == ow["iterations"],
             f"the work queue with lights against the queue renderer: {res}")
     return launches
 
@@ -4265,8 +4321,9 @@ def workqueue_textures(dev):
                rays_dropped=int(ow["rays_dropped"]), launches=launches)
     say(phase="workqueue_textures", **res)
     require(res["within_2e5"] >= 0.995 and res["rays"] == res["rays_queue"]
-            and res["rays_dropped"] == 0 and set(launches) == {"sweep2"}
-            and launches["sweep2"] >= ow["iterations"],
+            and res["rays_dropped"] == 0 and set(launches) == {"sweep2", "shade_bvh"}
+            and launches["sweep2"] >= ow["iterations"]
+            and launches["shade_bvh"] == ow["iterations"],
             f"the work queue with textures against the queue renderer: {res}")
     return launches
 
@@ -4431,9 +4488,9 @@ def patched(module, name, fn):
 def plain_sweeps():
     """Inside: the sweep wrappers of K2 and K3 (both instantiations each),
     the winner gather's forward and backward, the recompute's forward,
-    backward and tangent and the containment sum's forward, backward and
-    tangent run their plain versions on the card: the gradient path with no
-    kernel."""
+    backward and tangent, the containment sum's forward, backward and
+    tangent and the shading's forward, backward and tangent run their plain
+    versions on the card: the gradient path with no kernel."""
     with contextlib.ExitStack() as stack:
         for module, name, plain in (
                 (gather, "_gather", gather._gather_plain),
@@ -4446,6 +4503,11 @@ def plain_sweeps():
                 (ri_sum, "_ri_sum", ri_sum.ri_sum_plain),
                 (ri_sum, "_ri_sum_grad", ri_sum.ri_sum_grad_plain),
                 (ri_sum, "_ri_sum_jvp", ri_sum.ri_sum_jvp_plain),
+                (shade, "_shade", shade._shade_plain),
+                (shade, "_shade_grad",
+                 lambda x, g, st, need: [v if n else None for v, n in zip(
+                     shade._shade_grad_plain(x, g, st), need)]),
+                (shade, "_shade_jvp", shade._shade_jvp_plain),
                 (sweep2, "_sweep2", lambda a, r, ri, f, stats=None: sweep2.sweep2_plain(a, r, ri, f)),
                 (sweep2, "_sweep2_edge", lambda a, r, stats=None: sweep2.sweep2_edge_plain(a, r)),
                 (sweep2g, "_sweep2g", lambda a, r, stats=None: sweep2g.sweep2g_plain(a, r)),
@@ -4533,12 +4595,15 @@ def grad_launches(k, sweep):
     its coverage reaches the colour); where the scene refracts, every pop
     also sums the surrounding RI of its slots (``ri_sum``), and the backward
     of that sum (``ri_sum_grad``) runs on every pop but a band's last, whose
-    RI bends only children that no pop reads."""
+    RI bends only children that no pop reads; every pop shades
+    (``shade_bvh``) and every pop's colour reaches the loss
+    (``shade_bvh_grad``)."""
     n = step_sweeps(k)
     vg = k["vg"]
     bands = sum(len(idxs) for _, idxs in vg.buckets)
     out = {sweep: n, "winner_gather": n, "winner_scatter": n, "winner_recompute": n,
-           "winner_recompute_grad": n if vg.bucket_cfgs[0].soft_edges > 0.0 else n - bands}
+           "winner_recompute_grad": n if vg.bucket_cfgs[0].soft_edges > 0.0 else n - bands,
+           "shade_bvh": n, "shade_bvh_grad": n}
     if vg.bucket_cfgs[0].has_dielectrics:
         out.update(ri_sum=n, ri_sum_grad=n - bands)
     return out
@@ -4555,7 +4620,9 @@ TRACE_NAMES = {"sweep2": "::sweep2_kernel<false, false>", "sweep2_m": "::sweep2_
                "winner_scatter": "::winner_scatter_kernel(",
                "winner_recompute": "::recompute_kernel(",
                "winner_recompute_grad": "::recompute_grad_kernel(",
-               "ri_sum": "::ri_sum_kernel<", "ri_sum_grad": "::ri_sum_grad_kernel<"}
+               "ri_sum": "::ri_sum_kernel<", "ri_sum_grad": "::ri_sum_grad_kernel<",
+               "shade_bvh": "::shade_kernel(", "shade_bvh_grad": "::shade_grad_kernel(",
+               "shade_bvh_jvp": "::shade_jvp_kernel("}
 
 
 def traced_ms(by, counter):
@@ -4696,7 +4763,8 @@ def band_device_share(k, b):
     sweeps = sum(v for name, v in by.items() if "sweep2" in name)
     port = {n: sum(v for name, v in by.items() if TRACE_NAMES[n] in name)
             for n in ("winner_gather", "winner_scatter", "winner_recompute",
-                      "winner_recompute_grad", "ri_sum", "ri_sum_grad")}
+                      "winner_recompute_grad", "ri_sum", "ri_sum_grad", "shade_bvh",
+                      "shade_bvh_grad")}
     top = sorted(by.items(), key=lambda kv: -kv[1])[:8]
     return dict(band=b, pops=vg.bucket_cfgs[vg.bucket_of[b]].pops, wall_ms=wall,
                 span_ms=span, device_busy_ms=busy, device_ms_sum=sum(by.values()),
@@ -4706,6 +4774,7 @@ def band_device_share(k, b):
                                                         "winner_recompute",
                                                         "winner_recompute_grad")},
                 ri_kernels_ms={n: port[n] for n in ("ri_sum", "ri_sum_grad")},
+                shade_kernels_ms={n: port[n] for n in ("shade_bvh", "shade_bvh_grad")},
                 kernels_traced=len(by), top_kernels_ms={name[:120]: ms for name, ms in top})
 
 
@@ -4997,7 +5066,8 @@ def first_pop_gather(g, band):
     get there: the band traced eagerly at its probed depth and
     differentiated (its squared error against the target's rows) ->
     dict(table, ints, obj, widths, grads: one a field, None where it has
-    none; recompute: dict(inputs, grads, soft, spheres))."""
+    none; recompute: dict(inputs, grads, soft, spheres); shade: the
+    shading's dict(inputs, grads, statics) at the band's first three pops)."""
     from raytracing_tests_tpu_torch.diff.train import _diff_cfg
     from raytracing_tests_tpu_torch.ops.render import trace_lanes
 
@@ -5011,6 +5081,7 @@ def first_pop_gather(g, band):
     got = {}
     fwd, bwd = gather._gather, gather._scatter
     r_fwd, r_bwd = recompute._recompute, recompute._recompute_grad
+    s_fwd, s_bwd = shade._shade, shade._shade_grad
 
     def keep_gather(table, obj, ints, widths):
         got.setdefault("gather", (table.detach().clone(), ints.clone(), obj.clone(), widths))
@@ -5029,9 +5100,22 @@ def first_pop_gather(g, band):
                                  inputs[0].clone())
         return r_bwd(inputs, grads, soft, spheres, need)
 
+    def keep_shade(inputs, statics):
+        if len(got.setdefault("shade", [])) < 3:
+            got["shade"].append(([None if x is None else x.detach().clone() for x in inputs],
+                                 statics))
+        return s_fwd(inputs, statics)
+
+    def keep_shade_grad(inputs, grads, statics, need):  # in reverse: the last three, pops 3-1
+        kept = got.setdefault("shade_grad", [])
+        kept.append(([None if q is None else q.clone() for q in grads], inputs[0].clone()))
+        del kept[:-3]
+        return s_bwd(inputs, grads, statics, need)
+
     with patched(gather, "_gather", keep_gather), patched(gather, "_scatter", keep_scatter), \
             patched(recompute, "_recompute", keep_recompute), \
-            patched(recompute, "_recompute_grad", keep_recompute_grad):
+            patched(recompute, "_recompute_grad", keep_recompute_grad), \
+            patched(shade, "_shade", keep_shade), patched(shade, "_shade_grad", keep_shade_grad):
         color, primary_t, _, _ = trace_lanes(scene, None, cfg, lo[sl], ld[sl], ltr[sl], ls[sl],
                                              _build_accel(scene, cfg))
         img = finalize(color.reshape(h, cfg.width, cfg.spp, 3),
@@ -5045,8 +5129,14 @@ def first_pop_gather(g, band):
     r_grads, o_back = got["recompute_grad"]
     require(torch.equal(r_inputs[0], o_back),
             "first_pop_gather: the last recompute backward is not the first pop's")
+    shade_pops = []
+    for (s_inputs, statics), (s_grads, s_o) in zip(got["shade"], got["shade_grad"][::-1]):
+        require(torch.equal(s_inputs[0], s_o),
+                "first_pop_gather: the shading's backward calls are not the first pops'")
+        shade_pops.append(dict(inputs=s_inputs, grads=s_grads, statics=statics))
     return dict(table=table, ints=ints, obj=obj, widths=widths, grads=grads,
-                recompute=dict(inputs=r_inputs, grads=r_grads, soft=soft, spheres=spheres))
+                recompute=dict(inputs=r_inputs, grads=r_grads, soft=soft, spheres=spheres),
+                shade=shade_pops)
 
 
 def winner_gather_vs_plain(cases):
@@ -5213,13 +5303,18 @@ RECOMPUTE_IN_BYTES = 4 * (3 + 3 + 1 + 3 + 3 + 9 + 3 + 1) + 1  # floats, obj_type
 BVH1K_RECOMPUTE_LANES = 32_768  # the bvh1k cases' lanes: the first pop's first ones
 
 
-def _vs_float64(got, ref, plain):
-    """Per field: its largest and summed difference from the float64
-    reference over the field's sum of |ref|, and the float32 plain route's
-    summed difference beside."""
+def _vs_float64(got, ref, plain, names=None):
+    """Per field (``names``; None: the recompute's inputs or outputs): its
+    largest and summed difference from the float64 reference over the
+    field's sum of |ref|, and the float32 plain route's summed difference
+    beside; a field absent from all three (None) is left out."""
     out = {}
-    for name, k, r, p in zip([n for n, _ in recompute.FLOAT_INPUTS] if len(got) == 7
-                             else ["t", "normal", "local_pos", "alpha"], got, ref, plain):
+    if names is None:
+        names = ([n for n, _ in recompute.FLOAT_INPUTS] if len(got) == 7
+                 else ["t", "normal", "local_pos", "alpha"])
+    for name, k, r, p in zip(names, got, ref, plain):
+        if k is None and r is None and p is None:
+            continue
         err = (k.double() - r).abs()
         sum_abs = float(r.abs().sum())
         out[name] = dict(sum_abs=sum_abs, max_abs_err=float(err.max()),
@@ -5403,6 +5498,292 @@ def recompute_entries(rows, paths):
              frac_within_tolerance=share_within("tangent_vs_float64"),
              ms=main["jvp_ms"], plain_ms=main["jvp_plain_ms"], bound_ms=main["jvp_bound_ms"],
              bound_by="bytes", library_ms=None,
+             library="none: no one PyTorch call; torch.func.jvp of the plain version is "
+                     "plain_ms", shape=shape),
+    ]
+
+
+# The shading's kernels against the plain version, run once: the source is
+# built with -fmad=false in both builds (kernels/_build.py SOURCE_FLAGS).
+# Forward: every output of >= SHADE_EQUAL of the lanes bit for bit the plain
+# version's (found: all of them, one H100): the kernel sums a vector's three
+# components and rounds a cross product's components as PyTorch's CUDA
+# kernels do, and calls the sinf, cosf and sqrtf they call.  Backward and
+# tangent against float64 autograd (torch.func.vjp) and torch.func.jvp of
+# the plain version on the same inputs, split by lane (``_shade_vs_float64``).
+# A lane is singular for a field where the float32 plain route itself is off
+# the float64 one by more than SHADE_SINGULAR of the lane's largest |ref|
+# plus the field's median |ref| (refract's k near 0: float32 cannot follow
+# float64 there), or where its largest |ref| passes SHADE_HUGE times that
+# median (a direction normalised from a near-zero vector: the glass case's
+# refl_d tangent sums 2.5e34 on one H100, so one such lane would set the
+# bar of every other).  The other lanes are held at the recompute's bar
+# without the route's own error: the largest error within
+# RECOMPUTE_OF_SUM_ABS of their sum of |ref|, the summed error at most twice
+# the route's.  On the singular lanes the kernel follows the float32 plain
+# route: within SHADE_SINGULAR_RTOL of the lane's largest |plain|.  A lane
+# 1e-4 off float64 is some thousand ulps off: the forward's float32 values
+# (shared bit for bit by the kernel and the route) feed a derivative that
+# amplifies them, and the kernel follows the route there far closer than
+# either follows float64.
+# Operation counts a lane of this implementation (the forward with both
+# cones deviated; the backward recomputes it and runs the adjoint; the
+# tangent carries a dual part).
+SHADE_EQUAL = 0.999
+SHADE_SINGULAR = 1e-4
+SHADE_SINGULAR_RTOL = 1e-4
+SHADE_HUGE = 1e6
+FLOPS_PER_SHADE = 260
+FLOPS_PER_SHADE_GRAD = 700
+FLOPS_PER_SHADE_JVP = 600
+
+
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _shade_vs_float64(got, ref, plain, names):
+    """Per field (``names``) of the kernel's result ``got``, the float64
+    reference ``ref`` and the float32 plain route ``plain``, split by lane
+    (the bars above): the singular lanes' count and their largest distance
+    from the plain route over the lane's largest |plain|; the regular lanes'
+    sum of |ref|, largest and summed error against ``ref`` and the route's
+    beside; every lane's largest error, for the record.  A field absent from
+    all three (None) is left out."""
+    out = {}
+    for name, k, r, p in zip(names, got, ref, plain):
+        if k is None and r is None and p is None:
+            continue
+        B = r.shape[0]
+        k, r, p = k.double().reshape(B, -1), r.reshape(B, -1), p.double().reshape(B, -1)
+        mag = r.abs()
+        live = mag[(mag > 0) & torch.isfinite(mag)]
+        floor = float(live.median()) if live.numel() else 0.0
+        perr = (p - r).abs().amax(1)
+        top = mag.amax(1)
+        singular = ~(perr <= SHADE_SINGULAR * (top + floor))  # NaN: singular
+        if floor:
+            singular |= top > SHADE_HUGE * floor
+        regular = ~singular
+        err, perr_all = (k - r).abs()[regular], (p - r).abs()[regular]
+        sum_abs = float(mag[regular].sum())
+        same = (k == p) | (torch.isnan(k) & torch.isnan(p))
+        diff = torch.where(same, torch.zeros_like(k), (k - p).abs()).amax(1)[singular]
+        scale = p.abs().amax(1)[singular]
+        rel = torch.where(diff == 0, torch.zeros_like(diff), diff / scale)
+        n_sing = int(singular.sum())
+        of_sum = lambda x: x / sum_abs if sum_abs else x  # noqa: E731
+        out[name] = dict(
+            lanes_singular=n_sing, sum_abs=sum_abs,
+            max_abs_err=float(err.max()) if err.numel() else 0.0,
+            plain_max_abs_err=float(perr_all.max()) if perr_all.numel() else 0.0,
+            l1_of_sum_abs=of_sum(float(err.sum())),
+            plain_l1_of_sum_abs=of_sum(float(perr_all.sum())),
+            singular_max_rel_diff_from_plain=float(rel.max()) if n_sing else 0.0,
+            singular_frac_equal_plain=(float(same.all(1)[singular].double().mean())
+                                       if n_sing else 1.0),
+            all_lanes_max_abs_err=float((k - r).abs().max()),
+            max_abs_diff_from_plain=float(torch.where(same, torch.zeros_like(k),
+                                                      (k - p).abs()).max()))
+    return out
+
+
+def _shade_field_within(f):
+    return (f["max_abs_err"] <= RECOMPUTE_OF_SUM_ABS * f["sum_abs"]
+            and f["l1_of_sum_abs"] <= 2.0 * f["plain_l1_of_sum_abs"] + 1e-7
+            and f["singular_max_rel_diff_from_plain"] <= SHADE_SINGULAR_RTOL)
+
+
+def shade_vs_plain(cases):
+    """Phase shade_vs_plain: the shading's three kernels on the inputs of a
+    gradient band's pops (``first_pop_gather``: the lanes, their hits,
+    surrounding RI and gathered material, and the gradient the backward gets
+    there; the grad frame's deepest band's first pop, hard, and its third,
+    where rays travel inside glass; the grad_soft frame's first pop, soft;
+    bvh1k's first pop, generic), once (both builds load the same code),
+    against the plain version (the bars above) with a seeded tangent; each
+    kernel's device time (cold L2, least of 3) beside its bound (the bytes
+    it must move; operations by ``FLOPS_PER_SHADE*``), the plain version's
+    time and the route it replaced: the plain forward under autograd, and
+    that forward plus its autograd backward -> {case: row}."""
+    rng = np.random.default_rng(SEED)
+    rows = {}
+    names_in = [n for n, _ in shade.FLOAT_INPUTS]
+    names_out = [n for n, _ in shade.FLOAT_OUTPUTS]
+    for label, c in cases.items():
+        inputs, grads, statics = c["inputs"], c["grads"], c["statics"]
+        B, dev = inputs[0].shape[0], inputs[0].device
+        want = shade._shade_plain(inputs, statics)
+        got = shade._launch_shade(inputs, statics)
+        torch.cuda.synchronize()
+        same = torch.ones(B, dtype=torch.bool, device=dev)
+        per = {}
+        rel = torch.zeros(B, device=dev)
+        for name, k, w in zip(shade.OUTPUTS, got, want):
+            eq = (k == w).reshape(B, -1).all(1)
+            per[name] = frac(eq)
+            same &= eq
+            if k.is_floating_point():
+                rel = torch.maximum(rel, ((k - w).abs() / w.abs().clamp_min(1.0)).reshape(B, -1)
+                                    .amax(1))
+        forward = dict(frac_equal=frac(same), lanes_differ=int((~same).sum()),
+                       max_rel_err=float(rel.max()),
+                       frac_equal_by_output={n: v for n, v in per.items() if v < 1.0})
+        seeded = grads is None or all(q is None for q in grads)
+        if seeded:
+            grads = [torch.from_numpy(rng.normal(size=tuple(want[k].shape)).astype(np.float32))
+                     .to(dev) for k in shade._FLOAT_AT]
+        xs = [x for x in inputs[:shade.N_FLOAT] if x is not None]
+        tans = [None if x is None else
+                torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32)).to(dev)
+                for x in inputs[:shade.N_FLOAT]]
+        present = [t for t in tans if t is not None]
+        inputs64 = [x.double() if x is not None and k < shade.N_FLOAT else x
+                    for k, x in enumerate(inputs)]
+        ref_g = shade._shade_grad_plain(inputs64, [None if q is None else q.double()
+                                                   for q in grads], statics)
+        ref_t = shade._shade_jvp_plain(inputs64, [None if t is None else t.double()
+                                                  for t in tans], statics)
+        plain_g = shade._shade_grad_plain(inputs, grads, statics)
+        plain_t = shade._shade_jvp_plain(inputs, tans, statics)
+        got_g = shade._launch_shade_grad(inputs, grads, statics)
+        got_t = shade._launch_shade_jvp(inputs, tans, statics)
+        torch.cuda.synchronize()
+        backward = _shade_vs_float64(got_g, ref_g, plain_g, names_in)
+        tangent = _shade_vs_float64(got_t, ref_t, plain_t, names_out)
+        del ref_g, ref_t, plain_g, plain_t, inputs64
+        fn, _ = shade._plain_of(inputs, statics)
+        leaves = [x.clone().requires_grad_(True) for x in xs]
+
+        def routed():  # what shade_rays ran before: the plain forward under autograd
+            return fn(*leaves)
+
+        def routed_backward():
+            out = routed()
+            return torch.autograd.grad([o for o, q in zip(out, grads) if q is not None], leaves,
+                                       [q for q in grads if q is not None], allow_unused=True)
+
+        did, hit = got[shade.OUTPUTS.index("did_hit")], inputs[shade.N_FLOAT + 4]
+        inner = (inputs[4] * inputs[1]).sum(1) > 0.0
+        grads_in = [x for x in got_g if x is not None]
+        bytes_of = dict(forward=_nbytes(inputs) + _nbytes(got),
+                        grad=_nbytes(inputs) + _nbytes(grads) + _nbytes(grads_in),
+                        jvp=_nbytes(inputs) + _nbytes(present) + _nbytes(got_t))
+        flops = dict(forward=B * FLOPS_PER_SHADE, grad=B * FLOPS_PER_SHADE_GRAD,
+                     jvp=B * FLOPS_PER_SHADE_JVP)
+        bounds = {k: bound(bytes_of[k], flops[k]) for k in bytes_of}
+        row = dict(
+            lanes=B, soft=inputs[shade.N_FLOAT - 1] is not None,
+            lights=inputs[shade.N_FLOAT + 1] is not None, pop=c["pop"],
+            gradient="seeded" if seeded else "the band's",
+            build="one: -fmad=false in both builds (kernels/_build.py SOURCE_FLAGS)",
+            lanes_hit=int(hit.sum()), lanes_shaded=int(did.sum()),
+            lanes_inner=int((inner & did).sum()),
+            lanes_surrounding_ri_not_1=int((inputs[5] != 1.0).sum()),
+            lanes_deviated=int(((inputs[10] > 0.001) | (inputs[11] > 0.001)).sum()),
+            forward_vs_plain=forward, backward_vs_float64=backward, tangent_vs_float64=tangent,
+            ms=cold_ms(lambda: shade._launch_shade(inputs, statics)),
+            grad_ms=cold_ms(lambda: shade._launch_shade_grad(inputs, grads, statics)),
+            jvp_ms=cold_ms(lambda: shade._launch_shade_jvp(inputs, tans, statics)),
+            plain_ms=cold_ms(lambda: shade._shade_plain(inputs, statics)),
+            grad_plain_ms=cold_ms(lambda: shade._shade_grad_plain(inputs, grads, statics)),
+            jvp_plain_ms=cold_ms(lambda: shade._shade_jvp_plain(inputs, tans, statics)),
+            library_ms=cold_ms(routed), grad_library_ms=cold_ms(routed_backward),
+            bytes=bytes_of, flops=flops,
+            **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
+            **{f"{k}_bound_by": v[1] for k, v in bounds.items()})
+        rows[label] = row
+        say(phase="shade_vs_plain", case=label, **row)
+    for label, r in rows.items():
+        f = r["forward_vs_plain"]
+        require(f["frac_equal"] >= SHADE_EQUAL,
+                f"shade_vs_plain, {label}: the forward against the plain version: {f}")
+        for what in ("backward_vs_float64", "tangent_vs_float64"):
+            require(all(_shade_field_within(x) for x in r[what].values()),
+                    f"shade_vs_plain, {label}: the {what.split('_')[0]} against float64 "
+                    f"autograd of the plain version: {r[what]}")
+        require(r["ms"] > r["forward_bound_ms"] and r["grad_ms"] > r["grad_bound_ms"]
+                and r["jvp_ms"] > r["jvp_bound_ms"],
+                f"shade_vs_plain, {label}: a kernel at or below its bound, a counting error: {r}")
+    require(rows["grad_glass"]["lanes_inner"] > 0
+            and rows["grad_glass"]["lanes_surrounding_ri_not_1"] > 0 and rows["grad_soft"]["soft"],
+            f"shade_vs_plain: the glass case shades no inner hit or the soft case no "
+            f"coverage: {rows}")
+    return rows
+
+
+# Paths beside the gradient phases that shade by the kernel: {path: launches}.
+SHADE_PATHS = {}
+
+
+def shade_entries(rows, paths):
+    """The kernels-line entries of the shading's three kernels from
+    ``shade_vs_plain``'s rows (the main path's numbers: the grad frame's
+    deepest band's first pop) and the launches of the gradient paths, of the
+    tangent's and of the forward frames that shade (``SHADE_PATHS``)."""
+    src = "raytracing_tests_tpu_torch/csrc/shade.cu"
+    main = rows["grad"]
+    shape = (f"{main['lanes']} lanes (the grad frame's deepest band, its first pop; "
+             + ", ".join(f"{k}: pop {r['pop']}, {r['lanes']} lanes, soft {r['soft']}"
+                         for k, r in rows.items()) + ")")
+    note = ("no TPU kernel: the XLA fusion of shade_rays' 'bvh' shading "
+            "(ops/render.py:519-591)")
+    every = {**paths, **SHADE_PATHS}
+    by_path = lambda name: {p: got[name] for p, got in every.items() if got.get(name)}  # noqa: E731
+    records = lambda what: [f for r in rows.values() for f in r[what].values()]  # noqa: E731
+    worst = lambda what: max(f["max_abs_err"] for f in records(what))  # noqa: E731
+    share_within = lambda what: (  # noqa: E731
+        sum(map(_shade_field_within, records(what))) / len(records(what)))
+    singular = lambda what: dict(  # noqa: E731
+        lanes_singular=sum(f["lanes_singular"] for f in records(what)),
+        singular_max_rel_diff_from_plain=max(f["singular_max_rel_diff_from_plain"]
+                                             for f in records(what)),
+        all_lanes_max_abs_err=max(f["all_lanes_max_abs_err"] for f in records(what)))
+    bar = lambda what, of: (  # noqa: E731
+        f"every {of}'s largest error against {what} of the plain version in float64 within "
+        f"{RECOMPUTE_OF_SUM_ABS} of its sum of |ref| and its summed error at most twice the "
+        f"float32 route's, over the lanes where the route is within {SHADE_SINGULAR} of the "
+        f"lane's largest |ref| plus the field's median and that largest |ref| within "
+        f"{SHADE_HUGE:g} times the median; on the other (singular) lanes within "
+        f"{SHADE_SINGULAR_RTOL} of the float32 route, relative to the lane's largest |plain|; "
+        f"one build; max_abs_err: the regular lanes'; frac_within_tolerance: the share of "
+        f"(case, {of}) records within")
+    fwd = [r["forward_vs_plain"] for r in rows.values()]
+    return [
+        dict(name="shade_bvh", route="cuda", source=src,
+             replaces="raytracing_tests_tpu/ops/render.py:519", note=note,
+             launches=paths["grad_frame"]["shade_bvh"], launches_by_path=by_path("shade_bvh"),
+             max_abs_err=max(f["max_rel_err"] for f in fwd),
+             tolerance=f"one build (the source is built with -fmad=false in both): every output "
+                       f"of >= {SHADE_EQUAL} of lanes bit for bit the plain version's",
+             frac_within_tolerance=min(f["frac_equal"] for f in fwd),
+             ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["forward_bound_ms"],
+             bound_by=main["forward_bound_by"], library_ms=main["library_ms"],
+             library="the plain forward under autograd, as shade_rays ran before",
+             shape=shape, cases=rows),
+        dict(name="shade_bvh_grad", route="cuda", source=src,
+             replaces="raytracing_tests_tpu/ops/render.py:519", note=note,
+             launches=paths["grad_frame"]["shade_bvh_grad"],
+             launches_by_path=by_path("shade_bvh_grad"),
+             max_abs_err=worst("backward_vs_float64"),
+             tolerance=bar("autograd", "input"),
+             frac_within_tolerance=share_within("backward_vs_float64"),
+             **singular("backward_vs_float64"),
+             ms=main["grad_ms"], plain_ms=main["grad_plain_ms"],
+             bound_ms=main["grad_bound_ms"], bound_by=main["grad_bound_by"],
+             library_ms=main["grad_library_ms"],
+             library="the plain forward under autograd and its autograd backward, the route "
+                     "it replaced", shape=shape),
+        dict(name="shade_bvh_jvp", route="cuda", source=src,
+             replaces="raytracing_tests_tpu/ops/render.py:519", note=note,
+             launches=paths["tangent_glass"]["shade_bvh_jvp"],
+             launches_by_path=by_path("shade_bvh_jvp"),
+             max_abs_err=worst("tangent_vs_float64"),
+             tolerance=bar("torch.func.jvp", "output"),
+             frac_within_tolerance=share_within("tangent_vs_float64"),
+             **singular("tangent_vs_float64"),
+             ms=main["jvp_ms"], plain_ms=main["jvp_plain_ms"], bound_ms=main["jvp_bound_ms"],
+             bound_by=main["jvp_bound_by"], library_ms=None,
              library="none: no one PyTorch call; torch.func.jvp of the plain version is "
                      "plain_ms", shape=shape),
     ]
@@ -5768,7 +6149,7 @@ def tangent_vs_plain(dev):
                 f"tangent_vs_plain, {label}: the tangent through the kernels against the plain "
                 f"route: {res}")
         want_launches = {sweep_of: n, "winner_recompute": n, "winner_recompute_jvp": n,
-                         "winner_gather": 2 * n}
+                         "winner_gather": 2 * n, "shade_bvh": n, "shade_bvh_jvp": n}
         if cfg.has_dielectrics:
             want_launches.update(ri_sum=launches.get("ri_sum", 0),
                                  ri_sum_jvp=launches.get("ri_sum", 0))
@@ -5836,6 +6217,7 @@ def grad_phases(dev, k3_canary):
     k2_ms, n_k2 = traced_ms(by, "sweep2"), step_sweeps(k)
     winner_ms = {n: traced_ms(by, n) for n in ("winner_gather", "winner_scatter")}
     ri_ms = {n: traced_ms(by, n) for n in ("ri_sum", "ri_sum_grad")}
+    shade_ms = {n: traced_ms(by, n) for n in ("shade_bvh", "shade_bvh_grad")}
     # a long session can lose the device records of its last launches: the
     # port's kernels the trace holds, against the step's launches
     k2_records = SESSIONS[-1]["port_kernel_records"]
@@ -5864,7 +6246,8 @@ def grad_phases(dev, k3_canary):
                  mrays_equiv_per_s=g["rays"] / k["seconds_per_step"] / 1e6,
                  probe_seconds=g["probe_ms"] / 1e3, peak_memory_bytes=k["peak_memory_bytes"],
                  launches=k["step_launches"], k2_launches=n_k2, k2_device_ms=k2_ms,
-                 winner_device_ms=winner_ms, ri_device_ms=ri_ms, deepest_band=share,
+                 winner_device_ms=winner_ms, ri_device_ms=ri_ms, shade_device_ms=shade_ms,
+                 deepest_band=share,
                  default_build=default, precise_build=precise, recompute_64=recompute_64)
     say(phase="grad_frame", host=host_state(), **frame)
     graphed = dict(
@@ -5885,7 +6268,7 @@ def grad_phases(dev, k3_canary):
         capture_step_launches=k["launches"], replay_step_launches=k["step_launches"],
         eager_step_launches=ke["step_launches"], sweeps_per_step=n_k2,
         k2_device_ms=k2_ms, winner_device_ms=winner_ms, ri_device_ms=ri_ms,
-        port_records_in_trace=k2_records,
+        shade_device_ms=shade_ms, port_records_in_trace=k2_records,
         device_ms_of_a_replay_step=sum(by.values()),
         deepest_band=share, deepest_band_eager=share_eager,
         eager_band_sync_free=sync_free,
@@ -5909,11 +6292,14 @@ def grad_phases(dev, k3_canary):
             f"containment sum's alone, one capture: {k['launches']} {dict(k['vg'].counts)}")
     require(sync_free is True, f"grad_graph: the eager static band synchronised: {sync_free}")
     require(k2_ms > 0 and k2_records == sum(want.values()) and share["device_busy_ms"] > 0
-            and min(winner_ms.values()) > 0 and min(ri_ms.values()) > 0,
+            and min(winner_ms.values()) > 0 and min(ri_ms.values()) > 0
+            and min(shade_ms.values()) > 0,
             f"grad_graph: the trace of a replayed step holds its launches: {k2_records} of "
-            f"{sum(want.values())}, {winner_ms}, {ri_ms}, {share}")
-    require(min(split["device_ms"].get(f"ri_sum_{d}", 0.0) for d in ("forward", "backward")) > 0,
-            f"grad_graph: the eager band's split finds no containment sum: {split}")
+            f"{sum(want.values())}, {winner_ms}, {ri_ms}, {shade_ms}, {share}")
+    require(min(split["device_ms"].get(f"{r}_{d}", 0.0) for d in ("forward", "backward")
+                for r in ("ri_sum", "shade")) > 0,
+            f"grad_graph: the eager band's split finds no containment sum or shading kernel: "
+            f"{split}")
     require(index_adds["index_add_device_ms"]["winner_gathers"] == 0.0,
             f"grad_graph: the winner gathers' backward ran index_add_: {index_adds}")
     paths["grad_frame"] = k["step_launches"]
@@ -5930,10 +6316,14 @@ def grad_phases(dev, k3_canary):
                                                           gs["bands"]))
     gs.update(pops=[q + diff.train.POPS_MARGIN for q in pops], probe_ms=pops_ms)
     # the recompute's inputs and gradient at its deepest band's first pop
-    recompute_cases = dict(
-        grad=first_pops["grad"]["recompute"],
-        grad_soft=first_pop_gather(gs, max(range(gs["bands"]),
-                                           key=lambda b: gs["pops"][b]))["recompute"])
+    soft_pop = first_pop_gather(gs, max(range(gs["bands"]), key=lambda b: gs["pops"][b]))
+    recompute_cases = dict(grad=first_pops["grad"]["recompute"], grad_soft=soft_pop["recompute"])
+    # the shading's inputs and gradient at the grad frame's deepest band's
+    # first pop, its third (rays inside glass) and the grad_soft frame's first
+    shade_cases = dict(grad=dict(first_pops["grad"]["shade"][0], pop=1),
+                       grad_glass=dict(first_pops["grad"]["shade"][2], pop=3),
+                       grad_soft=dict(soft_pop["shade"][0], pop=1))
+    del soft_pop
     ks = grad_step(gs, replays=1)
     by = step_device(ks, gs, "grad_soft_step")
     res = dict(size=size_of(GRAD), soft_edges=SOFT, band_pops=gs["pops"],
@@ -5974,7 +6364,9 @@ def grad_phases(dev, k3_canary):
                    spheres=False),
         bvh1k_soft=dict(inputs=cut(hard_r["inputs"]), grads=None, soft=SOFT, spheres=False))
     recompute_rows = recompute_vs_plain(recompute_cases)
-    del first_pops, recompute_cases, hard_r
+    shade_cases["bvh1k"] = dict(first_pops["bvh1k"]["shade"][0], pop=1)
+    shade_rows = shade_vs_plain(shade_cases)
+    del first_pops, recompute_cases, hard_r, shade_cases
     ri_cases["bvh1k"] = [camera_lane_points(hard)]
     ri_rows = ri_sum_vs_plain(ri_cases)
     del ri_cases
@@ -6148,7 +6540,8 @@ def grad_phases(dev, k3_canary):
     paths.update(tangent_vs_plain(dev))
     return entries, paths, at_hard_step, (winner_entries(winner_rows, paths)
                                           + recompute_entries(recompute_rows, paths)
-                                          + ri_entries(ri_rows, paths))
+                                          + ri_entries(ri_rows, paths)
+                                          + shade_entries(shade_rows, paths))
 
 
 # ---------------------------------------------------------------------------
@@ -6284,8 +6677,11 @@ def sharded_bvh_queue(dev):
                default_build_identical_pixels=identical_pixels(out, single),
                parity_vs_single=c)
     say(phase="sharded_bvh_queue", **res)
-    require(all(set(got) == {"sweep_grouped"} and got["sweep_grouped"] > 0 for got in launches),
-            f"a sharded bvh queue frame launches K5 and nothing else: {launches}")
+    require(all(got.get("sweep_grouped", 0) > 0
+                and got == {"sweep_grouped": got["sweep_grouped"],
+                            "shade_bvh": got["sweep_grouped"]} for got in launches),
+            f"a sharded bvh queue frame launches K5 and the shading, each once a pop, and "
+            f"nothing else: {launches}")
     require(all(exact.values()), f"sharded bvh queue, -fmad=false build: {res}")
     check_parity("sharded bvh queue frame", c)
     return {"sharded_bvh_queue": launches[-1]}
@@ -6318,10 +6714,12 @@ def unbanded_launches(n, traces, assembled=False):
     ``assembled``: the frame is assembled with its depth
     (``parallel.render_sharded`` concatenates each shard's colour and primary
     t before it takes the image), so every pop's t reaches the image's graph,
-    with a zero gradient: the recompute's backward runs on every pop."""
+    with a zero gradient: the recompute's backward runs on every pop.  Every
+    pop shades, and its colour reaches the loss: ``shade_bvh`` and
+    ``shade_bvh_grad`` on every pop."""
     return {"sweep2": n, "winner_gather": n, "winner_scatter": n, "winner_recompute": n,
             "winner_recompute_grad": n if assembled else n - traces, "ri_sum": n,
-            "ri_sum_grad": n - traces}
+            "ri_sum_grad": n - traces, "shade_bvh": n, "shade_bvh_grad": n}
 
 
 def sharded_train_step(dev):
@@ -6396,7 +6794,7 @@ def dryrun_phase(dev):
     say(phase="dryrun", shards=shards, seconds=ms / 1e3, found=found, launches=launches,
         containment_calls=dict(calls))
     ri = {"ri_sum": sum(calls.values()), "ri_sum_grad": calls["with_grad"] - shards}
-    k1 = {k: v for k, v in launches.items() if k not in ri}
+    k1 = {k: v for k, v in launches.items() if k not in ri and not k.startswith("shade_bvh")}
     require(len(k1) == 3 and set(k1.values()) == {5},
             f"dryrun: three cases of K1, each one single and four shard launches: {launches}")
     require({k: launches.get(k, 0) for k in ri} == ri and ri["ri_sum_grad"] > 0,
@@ -6616,8 +7014,10 @@ def progressive_frame(dev):
                 and r["yields"] == -(-n_tiles // TILES_PER_STEP),
                 f"progressive_frame, {build} build: the spiral did not fill the frame: {r}")
         require(r["max_abs_diff"] <= 1e-5, f"progressive_frame, {build} build: {r}")
-        require(set(r["launches"]) == {"sweep_grouped"},
-                f"progressive_frame: the tiles launch K5 and nothing else: {r['launches']}")
+        require(set(r["launches"]) == {"sweep_grouped", "shade_bvh"}
+                and r["launches"]["shade_bvh"] == r["launches"]["sweep_grouped"],
+                f"progressive_frame: the tiles launch K5 and the shading, each once a pop, and "
+                f"nothing else: {r['launches']}")
     return {"progressive_bvh1k": res["default"]["launches"]}
 
 
@@ -6743,7 +7143,8 @@ def lbvh_phase(dev):
                vs_pallas_precise_build=vs_exact, vs_pallas_default_build=vs_default,
                envelope_vs_default_build=c, walks=walk_summary(log))
     say(phase="lbvh_frame", **res)
-    require(not launched, f"lbvh_frame: the bvh path launched a kernel: {launched}")
+    require(set(launched) == {"shade_bvh"},
+            f"lbvh_frame: the bvh path launched a sweep kernel (the shading's alone): {launched}")
     require(log and all(s <= cap for s, cap, _ in log), f"lbvh_frame: walks: {res['walks']}")
     require(vs_exact["frac_within"] >= ORACLE_FRAC, f"lbvh_frame: {res}")
     check_parity("lbvh_frame against the default build's grouped sweep", c)
@@ -6772,7 +7173,9 @@ def lbvh_phase(dev):
                rays_generic_sweeps=int(og_exact["rays"]), generic_sweeps_launches=launched_g,
                envelope_vs_sphere_sweep=c, ri_walk_vs_dense_sum=ri, walks=walk_summary(log))
     say(phase="lbvh_ri_canary", **res)
-    require(not launched, f"lbvh_ri_canary: the bvh path launched a kernel: {launched}")
+    require(set(launched) == {"shade_bvh"},
+            f"lbvh_ri_canary: the bvh path launched a sweep kernel (the shading's alone): "
+            f"{launched}")
     require("ri" in res["walks"], f"lbvh_ri_canary: no RI walk ran: {res['walks']}")
     require(res["vs_generic_sweeps_precise_build"]["frac_within"] >= ORACLE_FRAC,
             f"lbvh_ri_canary against the generic sweeps: {res}")
@@ -7663,6 +8066,8 @@ def main():
         name = k["name"]
         if name.startswith("winner_recompute"):
             k["ptxas"] = ptxas.get(f"recompute.so {name.replace('winner_', '')}_kernel")
+        elif name.startswith("shade_bvh"):
+            k["ptxas"] = ptxas.get(f"shade.so {name.replace('_bvh', '')}_kernel")
         elif name.startswith("winner"):
             k["ptxas"] = ptxas.get(f"gather.so {name}_kernel")
         elif name == "ri_sum_jvp":  # the sum's tangent instantiation, K lanes a point
@@ -7698,7 +8103,8 @@ def main():
                        winner_recompute="winner_recompute",
                        winner_recompute_grad="winner_recompute_grad",
                        winner_recompute_jvp="winner_recompute_jvp", ri_sum="ri_sum",
-                       ri_sum_grad="ri_sum_grad", ri_sum_jvp="ri_sum_jvp").get(
+                       ri_sum_grad="ri_sum_grad", ri_sum_jvp="ri_sum_jvp", shade_bvh="shade_bvh",
+                       shade_bvh_grad="shade_bvh_grad", shade_bvh_jvp="shade_bvh_jvp").get(
             k["name"], k.get("instantiation"))
         if counter:
             k["launches_by_path"].update({p: got[counter] for p, got in later_paths.items()

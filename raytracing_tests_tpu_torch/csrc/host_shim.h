@@ -74,6 +74,7 @@ inline float __uint_as_float(unsigned u) {
 inline int __ffs(unsigned v) { return __builtin_ffs((int)v); }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
 template <class V>
 inline V atomicAdd(V* p, V v) {
   const V old = *p;

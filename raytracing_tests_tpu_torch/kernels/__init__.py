@@ -24,6 +24,11 @@
                  containment sum and its backward (``csrc/ri_sum.cu``): each
                  point's mean RI over the rows that contain it, each point's
                  gradient added into those rows.
+  - ``recompute``: the gradient path's closed-form recompute of each lane's
+                 hit on its winner, with its backward and tangent
+                 (``csrc/recompute.cu``).
+  - ``shade``:   the queue renderers' "bvh" shading of a pop, with its
+                 backward and tangent (``csrc/shade.cu``).
   - ``_build``:  builds and loads the kernels at first use; launch counters.
 
 The first-generation sweep entry points are re-exported here, as the JAX

@@ -38,8 +38,8 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 
-SOURCES = ("drain.cu", "gather.cu", "mega.cu", "recompute.cu", "ri_sum.cu", "sweep.cu",
-           "sweep2.cu", "sweep2g.cu", "uber.cu", "uber_tex.cu")
+SOURCES = ("drain.cu", "gather.cu", "mega.cu", "recompute.cu", "ri_sum.cu", "shade.cu",
+           "sweep.cu", "sweep2.cu", "sweep2g.cu", "uber.cu", "uber_tex.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -53,8 +53,10 @@ PRECISE_FLAG = "-fmad=false"
 # gradient path's recompute rounds as its plain version does in the default
 # build too: the ground sphere's quadratic (radius 1000) and grazing hits turn
 # a fused a*b+c into another branch, which moved the grad frame's loss by
-# 3.7 % and its position gradient by 16 times its largest entry.
-SOURCE_FLAGS = {"recompute.cu": (PRECISE_FLAG,)}
+# 3.7 % and its position gradient by 16 times its largest entry.  So does the
+# shading, whose children's directions feed the next pop's sweep, where a
+# last ulp turns a grazing lane.
+SOURCE_FLAGS = {"recompute.cu": (PRECISE_FLAG,), "shade.cu": (PRECISE_FLAG,)}
 
 # Marks the host-C++ variant (see ``host_rehearsal``); never passed to nvcc.
 HOST_FLAG = "host"

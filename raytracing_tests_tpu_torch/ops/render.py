@@ -30,7 +30,9 @@ mode, the first-generation sweeps of ``kernels.sweep`` for generic scenes
 with ``pallas_v2=False``.  With ``diff_mode`` (set by ``diff.train``) the
 ``pallas`` intersector is the gradient path: a ``DiffAccel`` whose sweeps name
 the winners and ``diff.fastpath.intersect_diff`` recomputes their hits
-differentiably, with the soft-edge blend when ``soft_edges > 0``.
+differentiably, with the soft-edge blend when ``soft_edges > 0``.  The
+"bvh" shading of a pop is ``kernels.shade.shade_bvh``: one kernel launch on
+the card, its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import numpy as np
 import torch
 
 from raytracing_tests_tpu_torch.core import linalg, sampling
+from raytracing_tests_tpu_torch.kernels import shade
 from raytracing_tests_tpu_torch.ops import intersect as isect
 from raytracing_tests_tpu_torch.ops.camera_rays import primary_rays
 from raytracing_tests_tpu_torch.scene.types import Camera, Scene, _TensorStruct
@@ -289,17 +292,6 @@ class RayQueue:
 # ----------------------------------------------------------------------------
 
 
-def _background(cfg: RenderConfig, direction, has_lights: bool):
-    """Sky gradient; black when the scene has lights."""
-    if has_lights:
-        return torch.zeros(direction.shape[:-1] + (3,), dtype=torch.float32,
-                           device=direction.device)
-    bottom = linalg.const(cfg.background[0], direction)
-    top = linalg.const(cfg.background[1], direction)
-    t = (direction[..., 1:2] + 1.0) * 0.5
-    return (1.0 - t) * bottom + t * top
-
-
 def _is_v2(accel) -> bool:
     from raytracing_tests_tpu_torch.kernels.sweep2 import Accel2
 
@@ -539,25 +531,13 @@ def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, 
     else:  # the dense intersector or the LBVH traversal
         hit = _nearest(scene, accel, o, d, time_ratio, t_limit)
         flds = None
-    did_hit = hit.hit & active
-    missed = active & ~hit.hit
-
-    # Miss -> background contribution.
-    bg = _background(cfg, d, lights is not None)
-    add_color = torch.where(missed[:, None], contrib[:, None] * bg, torch.zeros_like(bg))
-    if soft_alpha is not None:
-        # Edge-aware blend: the lane covers its candidate with weight alpha
-        # and lets (1 - alpha) of the background through; the whole hit
-        # subtree (local term and children) scales by alpha through contrib.
-        add_color = add_color + torch.where(
-            did_hit[:, None], (contrib * (1.0 - soft_alpha))[:, None] * bg,
-            torch.zeros_like(bg))
-        contrib = torch.where(did_hit, contrib * soft_alpha, contrib)
-
-    # --- hit shading ---------------------------------------------------------
-    hit_point = o + hit.t[:, None] * d
     normal = hit.normal
-    inner = linalg.dot(normal, d) > 0.0
+    # The hit point where the surrounding RI's probe, the shadow rays or the
+    # materials model read it (the "bvh" shading computes its own).
+    hit_point = None
+    if ((needs_sur_ri and sur_ri_fused is None) or lights is not None
+            or cfg.shading == "materials"):
+        hit_point = o + hit.t[:, None] * d
 
     if sur_ri_fused is not None:
         sur_ri = sur_ri_fused
@@ -566,6 +546,7 @@ def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, 
         # that read it (refraction off a refractive winner, or out of an
         # interior hit); the others read the neutral 1, as the sweep kernels'
         # probe gives them.
+        inner = linalg.dot(normal, d) > 0.0
         refractive = (scene.refractivity[hit.obj.long()] if flds is None
                       else flds.refractivity) > 0.002
         sur_ri, ri_need = _ri_of_lanes(
@@ -595,98 +576,31 @@ def shade_rays(scene, lights, cfg: RenderConfig, accel, o, d, contrib, bounced, 
         emissive = flds.emissive
     mat_color = _material_color(scene, hit, base_color, tex_idx)
 
-    # Emissive abort: the sample becomes pure white.
-    set_white = torch.zeros(B, dtype=torch.bool, device=o.device)
+    # With lights: the share of them each hit sees (the shadow sweep).
+    lit = None
     if lights is not None:
-        set_white = did_hit & emissive
-        did_hit = did_hit & ~set_white
         lit = _shadow_factor(scene, lights, hit_point, normal, sample_idx / spp,
                              time_ratio, accel)
-        contrib = torch.where(did_hit, contrib * lit, contrib)
-
-    bounced = bounced + 1
+    else:
+        emissive = None
 
     if cfg.shading == "materials":
+        did_hit, missed, add_color, contrib, set_white = shade.prelude_plain(
+            d, contrib, active, hit.hit, soft_alpha, emissive, lit, cfg.background)
         return _shade_materials(
-            cfg, o, d, contrib, bounced, did_hit, missed, set_white, hit,
+            cfg, o, d, contrib, bounced + 1, did_hit, missed, set_white, hit,
             hit_point, normal, mat_color, mat_ri, refractivity, reflectivity,
             scat_rfr, scat_rfl, medium, parent_medium, sample_idx, spp,
             add_color,
         )
 
-    can_spawn = (
-        ((reflectivity > 0.002) | (refractivity > 0.002))
-        & (contrib > 0.01)
-        & (bounced < cfg.max_bounces)
-        & did_hit
-    )
-
-    # Outer hit: scatter-deviated reflect/refract.
-    refl_outer = linalg.normalize(linalg.reflect(d, normal), eps=1e-20)
-    refl_outer = torch.where(
-        (scat_rfl > 0.001)[:, None],
-        sampling.deviate_within_cone(refl_outer, sample_idx, spp, scat_rfl),
-        refl_outer,
-    )
-    refr_outer = linalg.safe_normalize(linalg.refract(d, normal, sur_ri / mat_ri))
-    # TIR lanes carry a zero refr_outer; deviate a safe stand-in instead.
-    refr_live = (linalg.dot(refr_outer, refr_outer) > 0.1)[:, None]
-    unit_z = linalg.const((0.0, 0.0, 1.0), d)
-    refr_safe = torch.where(refr_live, refr_outer, unit_z)
-    refr_outer = torch.where(
-        (scat_rfr > 0.001)[:, None] & refr_live,
-        sampling.deviate_within_cone(refr_safe, sample_idx, spp, scat_rfr),
-        refr_outer,
-    )
-    zero3 = torch.zeros_like(refl_outer)
-    refl_outer = torch.where((reflectivity > 0.002)[:, None], refl_outer, zero3)
-    refr_outer = torch.where((refractivity > 0.002)[:, None], refr_outer, zero3)
-
-    # Inner hit: flip normal, 100% refract, reflect on TIR.
-    n_in = -normal
-    refr_inner = linalg.refract(d, n_in, mat_ri / sur_ri)
-    tir = linalg.dot(refr_inner, refr_inner) < 0.1
-    refl_inner = torch.where(tir[:, None], linalg.reflect(d, n_in), zero3)
-
-    normal_out = torch.where(inner[:, None], n_in, normal)
-    refl_dir = torch.where(inner[:, None], refl_inner, refl_outer)
-    refr_dir = torch.where(inner[:, None], refr_inner, refr_outer)
-
-    spawn_refr = can_spawn & (linalg.dot(refr_dir, refr_dir) > 0.1)
-    spawn_refl = can_spawn & (linalg.dot(refl_dir, refl_dir) > 0.1)
-
-    # Children inherit the UNDAMPED contribution (pushed before damping); the
-    # parent's own absorption term is then damped by half of what was forwarded.
-    refr_contrib = contrib * refractivity
-    refl_contrib = contrib * reflectivity
-    zero = torch.zeros_like(contrib)
-    forward = (
-        torch.where(spawn_refr, refractivity, zero) + torch.where(spawn_refl, reflectivity, zero)
-    )
-    contrib = contrib * (1.0 - 0.5 * forward)
-    add_color = add_color + torch.where(
-        did_hit[:, None], contrib[:, None] * mat_color, torch.zeros_like(mat_color))
-
-    return ShadeResult(
-        add_color=add_color,
-        set_white=set_white,
-        hit_t=torch.where(hit.hit, hit.t, torch.full_like(hit.t, cfg.t_max)),
-        did_hit=did_hit,
-        missed=missed,
-        refr_mask=spawn_refr,
-        refr_o=hit_point - 1e-4 * normal_out,
-        refr_d=refr_dir,
-        refr_contrib=refr_contrib,
-        refl_mask=spawn_refl,
-        refl_o=hit_point + 1e-4 * normal_out,
-        refl_d=refl_dir,
-        refl_contrib=refl_contrib,
-        bounced=bounced,
-        refr_medium=ones,
-        refr_parent=ones,
-        refl_medium=ones,
-        refl_parent=ones,
-    )
+    # The "bvh" model: one kernel launch on the card (kernels/shade.py).
+    out = shade.shade_bvh(
+        o, d, contrib, hit.t, normal, sur_ri, mat_color, mat_ri, refractivity, reflectivity,
+        scat_rfr, scat_rfl, soft_alpha, sample_idx, lit, bounced, active, hit.hit, emissive,
+        spp=spp, max_bounces=cfg.max_bounces, t_max=cfg.t_max, background=cfg.background)
+    return ShadeResult(**dict(zip(shade.OUTPUTS, out)), refr_medium=ones, refr_parent=ones,
+                       refl_medium=ones, refl_parent=ones)
 
 
 def _shade_materials(cfg, o, d, contrib, bounced, did_hit, missed, set_white,

@@ -360,10 +360,25 @@ def _function_cases():
     def through_constant(x):  # the winner search's kind: an index from the values
         return (x * 2.0, _build.constant(lambda v: (v * 2.0, torch.argmax(v)), x)[0])
 
+    # the shading with soft edges and lights, its scatter cones shut (their
+    # sunflower offset is computed in float32, as the reference's is)
+    from test_torch_shade import lanes as shade_lanes
+
+    from raytracing_tests_tpu_torch.kernels import shade
+
+    sx, (spp, max_bounces, t_max, bg) = shade_lanes(14, True, True, dtype=torch.float64, n=64)
+    sx[10], sx[11] = torch.zeros_like(sx[10]), torch.zeros_like(sx[11])
+
+    def through_shade(*xs):
+        out = shade.shade_bvh(*xs, *sx[shade.N_FLOAT:], spp=spp, max_bounces=max_bounces,
+                              t_max=t_max, background=bg)
+        return tuple(out[k] for k in shade._FLOAT_AT)
+
     return {_build._Constant: (through_constant, (table[:, 0].clone(),)),
             gather._WinnerGather: (through_gather, (table,)),
             ri_sum._ContainmentRI: (through_sum, (scene.refractive_index.double(),)),
-            rc._WinnerRecompute: (through_recompute, tuple(inputs[k] for k in rc._AT))}
+            rc._WinnerRecompute: (through_recompute, tuple(inputs[k] for k in rc._AT)),
+            shade._ShadeBvh: (through_shade, tuple(sx[:shade.N_FLOAT]))}
 
 
 def test_every_autograd_function_of_the_port_supports_torch_func():
