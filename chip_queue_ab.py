@@ -58,7 +58,8 @@ that root's sources.  Workloads, at the sizes ``chip_smoke.py`` drives them:
   session of host and device activity: the device time of every kernel by
   the range that launched it (``op_split``): the surrounding-RI containment
   sum (``ri_sum``), the recompute (``diff.fastpath.intersect_diff``), the
-  queue's push and pop, the shading's kernel (``kernels.shade.shade_bvh``,
+  queue's push and pop (``RayQueue.push``, ``push2`` and ``pop``; their
+  kernels' backward by their autograd nodes), the shading's kernel (``kernels.shade.shade_bvh``,
   in a checkout that has it), the rest of ``ops.render.shade_rays`` and
   other, each forward and backward.
 
@@ -110,7 +111,8 @@ SPLIT_RANGES = ("ri_sum", "recompute", "queue", "shade", "shade_rays")
 # The backward nodes of the port's autograd.Functions, known by name (their
 # forward records no operator of their own to take a sequence number from).
 NODE_RANGES = {"ContainmentRI": "ri_sum", "WinnerGather": "recompute",
-               "WinnerRecompute": "recompute", "ShadeBvh": "shade"}
+               "WinnerRecompute": "recompute", "ShadeBvh": "shade", "QueuePop": "queue",
+               "QueuePush2": "queue"}
 
 
 def _pad(n: int) -> None:
@@ -120,6 +122,19 @@ def _pad(n: int) -> None:
     for _ in range(n):
         one.add_(1.0)
     torch.cuda.synchronize()
+
+
+def body_window(host, trailing: int) -> tuple:
+    """(start, end) host timestamps of what a padded session's body
+    launched: after the leading pad's synchronise, and before the last
+    synchronise ahead of the trailing pad's ``trailing`` launches.  (The last
+    but one synchronise is not that bound: a session's trace can hold one
+    more after the pad's, and then the pad's own launches counted as the
+    body's, 2 048 one-element adds or 2.4 ms of device time.)"""
+    syncs = sorted(e["ts"] for e in host if e["name"] == "cudaDeviceSynchronize")
+    launches = sorted(e["ts"] for e in host if "LaunchKernel" in e["name"])
+    pad_at = launches[-trailing]
+    return syncs[0], max(t for t in syncs if t < pad_at)
 
 
 def profiled(fn) -> dict:
@@ -138,9 +153,9 @@ def profiled(fn) -> dict:
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     host = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")]
-    syncs = sorted(e["ts"] for e in host if e["name"] == "cudaDeviceSynchronize")
+    lo, hi = body_window(host, 2048)
     mine = {e["args"]["correlation"] for e in host
-            if syncs[0] < e["ts"] < syncs[-2] and "correlation" in e.get("args", {})}
+            if lo < e["ts"] < hi and "correlation" in e.get("args", {})}
     records = sorted((e for e in events if e.get("cat") in DEVICE_RECORDS
                       and e.get("args", {}).get("correlation") in mine), key=lambda e: e["ts"])
     by, count = {}, {}
@@ -300,7 +315,8 @@ def index_add_split(fn, n_rows: int, pop_rows: int) -> dict:
 
 @contextlib.contextmanager
 def split_ranges():
-    """Inside: the recompute, the queue's push and pop, the shading's kernel
+    """Inside: the recompute, the queue's pop, push and push pair (where the
+    checkout's ``RayQueue`` has ``push2``), the shading's kernel
     (``kernels.shade.shade_bvh``, where the checkout has one) and
     ``ops.render.shade_rays`` run inside ``torch.profiler.record_function``
     ranges named as in ``SPLIT_RANGES``; so does the containment sum
@@ -325,6 +341,8 @@ def split_ranges():
 
     patches = [(fastpath, "intersect_diff", "recompute"), (render.RayQueue, "push", "queue"),
                (render.RayQueue, "pop", "queue"), (render, "shade_rays", "shade_rays")]
+    if hasattr(render.RayQueue, "push2"):  # the loop's push pair, one launch on the card
+        patches.append((render.RayQueue, "push2", "queue"))
     if '"ri_sum"' not in inspect.getsource(render._ri_of_lanes):
         patches.append((render, "_surrounding_ri", "ri_sum"))
     if importlib.util.find_spec("raytracing_tests_tpu_torch.kernels.shade") is not None:
@@ -373,9 +391,9 @@ def op_split(fn, top: int = 6) -> dict:
 def split_of(events, top: int = 6) -> dict:
     """``op_split``'s numbers from a session's trace events."""
     host = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")]
-    syncs = sorted(e["ts"] for e in host if e["name"] == "cudaDeviceSynchronize")
+    lo, hi = body_window(host, 256)
     launch = {e["args"]["correlation"]: e for e in host
-              if syncs[0] < e["ts"] < syncs[-2] and "correlation" in e.get("args", {})}
+              if lo < e["ts"] < hi and "correlation" in e.get("args", {})}
     records = [e for e in events if e.get("cat") in DEVICE_RECORDS
                and e.get("args", {}).get("correlation") in launch]
     ranges = collections.defaultdict(list)  # thread -> [(start, end, range)]

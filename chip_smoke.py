@@ -529,16 +529,17 @@ import dataclasses  # noqa: E402
 
 # The A/B tool holds the split of index_add_'s time by destination, since it
 # must run it against a parent's checkout too; the smoke reads the same split.
-from chip_queue_ab import index_add_split, op_split  # noqa: E402
+from chip_queue_ab import body_window, index_add_split, op_split  # noqa: E402
 from raytracing_tests_tpu_torch import diff  # noqa: E402
 from raytracing_tests_tpu_torch.bench import grad_bands  # noqa: E402
 from raytracing_tests_tpu_torch.kernels import (  # noqa: E402
     _build, drain, edge_cull, gather, mega, recompute, ri_sum, shade, sweep, sweep2, sweep2g,
     uber,
 )
+from raytracing_tests_tpu_torch.kernels import queue as ray_queue  # noqa: E402
 from raytracing_tests_tpu_torch.ops import megalanes, workqueue  # noqa: E402
 from raytracing_tests_tpu_torch.ops.render import (  # noqa: E402
-    RenderConfig, _build_accel, _lane_inputs, finalize, render_stats,
+    RayQueue, RenderConfig, _build_accel, _lane_inputs, finalize, render_stats,
 )
 from raytracing_tests_tpu_torch.scene import examples  # noqa: E402
 from raytracing_tests_tpu_torch.scene.types import (  # noqa: E402
@@ -731,6 +732,27 @@ def host_state():
 def require(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+QUEUE_PATHS = {}  # {path: launches} of the forward paths that run the queue renderer
+
+
+def queue_part(launches, pops, traces, path=None):
+    """``launches`` without the queue's kernels, after requiring that they
+    ran as the queue renderer runs them forward: ``queue_pop`` once a pop
+    step (``pops`` of them, where known) and ``queue_push2`` once a pop step
+    and once a trace, for the primaries (``traces`` of them, where known),
+    no backward.  ``path``: the name the launches are kept under
+    (``QUEUE_PATHS``) for the kernels line."""
+    n, m = launches.get("queue_pop", 0), launches.get("queue_push2", 0)
+    other = {k for k in launches if k.startswith("queue_")} - {"queue_pop", "queue_push2"}
+    require(0 < n < m and (pops is None or n == pops) and (traces is None or m - n == traces)
+            and not other,
+            f"{path or 'a queue path'}: the queue's kernels, a pop and a push pair a pop step "
+            f"and a push a trace: {launches} ({pops} pops, {traces} traces expected)")
+    if path:
+        QUEUE_PATHS[path] = launches
+    return {k: v for k, v in launches.items() if not k.startswith("queue_")}
 
 
 def cuda_ms(fn, reps):
@@ -1693,7 +1715,8 @@ def generic_phases(dev, iow, ptxas):
         launches=launches_canary, **canary)
     check_parity("generic canary", canary)
     require(launches_canary.get("uber_g") == 1 and launches_canary.get("sweep_grouped", 0) > 0
-            and set(launches_canary) == {"uber_g", "sweep_grouped", "shade_bvh"}
+            and set(queue_part(launches_canary, launches_canary.get("shade_bvh"), 1,
+                               "generic_canary")) == {"uber_g", "sweep_grouped", "shade_bvh"}
             and launches_canary["shade_bvh"] == launches_canary["sweep_grouped"],
             f"the generic canary's launches: {launches_canary}")
     SHADE_PATHS["generic_canary"] = launches_canary
@@ -1726,7 +1749,9 @@ def generic_phases(dev, iow, ptxas):
     check_parity("glass canary", glass)
     require(launches_glass.get("uber_g") == 1 and launches_glass.get("sweep_nearest", 0) > 0
             and launches_glass.get("sweep_ri", 0) > 0
-            and set(launches_glass) == {"uber_g", "sweep_nearest", "sweep_ri", "shade_bvh"}
+            and set(queue_part(launches_glass, launches_glass.get("shade_bvh"), 1,
+                               "glass_canary")) == {"uber_g", "sweep_nearest", "sweep_ri",
+                                                    "shade_bvh"}
             and launches_glass["shade_bvh"] == launches_glass["sweep_nearest"],
             f"the glass canary's launches: {launches_glass}")
 
@@ -1780,11 +1805,13 @@ def generic_phases(dev, iow, ptxas):
             launches=launches_v1[groups], **v1)
         check_parity(f"first-generation sphere sweeps, groups={groups}", v1)
     require(launches_v1[0].get("sweep_nearest_ri", 0) > 0
-            and launches_v1[0] == {"sweep_nearest_ri": launches_v1[0]["sweep_nearest_ri"],
-                                   "shade_bvh": launches_v1[0]["sweep_nearest_ri"]}
+            and queue_part(launches_v1[0], launches_v1[0]["sweep_nearest_ri"], 1)
+            == {"sweep_nearest_ri": launches_v1[0]["sweep_nearest_ri"],
+                "shade_bvh": launches_v1[0]["sweep_nearest_ri"]}
             and launches_v1[32].get("sweep_grouped", 0) > 0
-            and launches_v1[32] == {"sweep_grouped": launches_v1[32]["sweep_grouped"],
-                                    "shade_bvh": launches_v1[32]["sweep_grouped"]},
+            and queue_part(launches_v1[32], launches_v1[32]["sweep_grouped"], 1)
+            == {"sweep_grouped": launches_v1[32]["sweep_grouped"],
+                "shade_bvh": launches_v1[32]["sweep_grouped"]},
             f"the first-generation sphere path's launches: {launches_v1}")
 
     # K5's schedules and K4's splits bit for bit on every input above, and K4
@@ -2199,7 +2226,8 @@ def k5_coop_sweep(what, render):
 DEVICE_RECORDS = ("kernel", "gpu_memcpy", "gpu_memset")  # a trace's device activity
 PORT_KERNEL = re.compile(r"\b(uber|sweep2|sweep2g|sweep2g_edge|mega|grouped|nearest|ri|nearest_ri"
                          r"|drain|winner_gather|winner_scatter|ri_sum|ri_sum_grad|recompute"
-                         r"|recompute_grad|recompute_jvp|shade|shade_grad|shade_jvp)_kernel\b")
+                         r"|recompute_grad|recompute_jvp|shade|shade_grad|shade_jvp|queue_pop"
+                         r"|queue_push2|queue_pop_grad|queue_push2_grad)_kernel\b")
 SESSIONS = []  # what each profiler session saw (``device_session``)
 
 
@@ -2264,7 +2292,8 @@ def session_records(fn, what):
     syncs = sorted(e["ts"] for e in host if e["name"] == "cudaDeviceSynchronize")
     require(len(syncs) >= 3, f"a profiler session without its padding's cudaDeviceSynchronize: "
             f"{sorted({e['name'] for e in host})}")
-    mine = [e for e in host if syncs[0] < e["ts"] < syncs[-2] and "correlation" in e.get("args", {})]
+    lo, hi = body_window(host, DRAIN_LAUNCHES)
+    mine = [e for e in host if lo < e["ts"] < hi and "correlation" in e.get("args", {})]
     ids = {e["args"]["correlation"] for e in mine}
     records = [e for e in events if e.get("cat") in DEVICE_RECORDS
                and e.get("args", {}).get("correlation") in ids]
@@ -2310,10 +2339,11 @@ def bvh_queue_frame(scene, camera, cfg, ou):
     say(phase="bvh_queue_frame", **res)
     check_parity("bvh queue frame against render_uber", c)
     require(all(got.get("sweep_grouped", 0) > 0
-                and got == {"sweep_grouped": got["sweep_grouped"],
-                            "shade_bvh": got["sweep_grouped"]} for got in launches),
-            f"a bvh queue frame launches K5 and the shading, each once a pop, and nothing "
-            f"else: {launches}")
+                and queue_part(got, got["sweep_grouped"], 1, "bvh_queue_frame")
+                == {"sweep_grouped": got["sweep_grouped"], "shade_bvh": got["sweep_grouped"]}
+                for got in launches),
+            f"a bvh queue frame launches K5, the shading and the queue's pop and push pair, "
+            f"each once a pop, and nothing else: {launches}")
     require(k5["ms"] > k5["bound_ms"], f"K5 below its bound on the bvh queue frame: {k5}")
     SHADE_PATHS["bvh_queue_frame"] = launches[-1]
     res["coop_sweep"] = k5_coop_sweep("bvh queue frame", render)
@@ -2479,9 +2509,10 @@ def dense_generic_frame(scene, camera, cfg, oq_k5):
     say(phase="dense_generic_frame", **res)
     check_parity("dense generic frame against the bvh queue frame", c)
     n = launches[-1].get("sweep_nearest", 0)
-    require(n > 0 and all(got == {"sweep_nearest": n, "shade_bvh": n} for got in launches),
-            f"a dense generic frame launches sweep_nearest and the shading once a pop, nothing "
-            f"else: {launches}")
+    require(n > 0 and all(queue_part(got, n, 1, "dense_generic_frame")
+                          == {"sweep_nearest": n, "shade_bvh": n} for got in launches),
+            f"a dense generic frame launches sweep_nearest, the shading and the queue's pop "
+            f"and push pair once a pop, nothing else: {launches}")
     require(res["rays_dropped"] == 0, f"the dense generic frame dropped rays: {res}")
     SHADE_PATHS["dense_generic_frame"] = launches[-1]
     return res, launches[-1], pops[:2]
@@ -2519,7 +2550,8 @@ def glass_grid_frame(dev):
     say(phase="glass_grid_frame", **res)
     check_parity("glass grid frame against render_uber", c)
     n = launches[-1].get("sweep_ri", 0)
-    require(n > 0 and all(g == {"sweep_grouped": n, "sweep_ri": n, "shade_bvh": n}
+    require(n > 0 and all(queue_part(g, n, 1, "glass_grid_frame")
+                          == {"sweep_grouped": n, "sweep_ri": n, "shade_bvh": n}
                           for g in launches),
             f"a glass grid frame launches K5, sweep_ri and the shading once a pop each: "
             f"{launches}")
@@ -3595,7 +3627,8 @@ def third_slice_phases(dev, ctx):
     say(phase="motion_canary", size=size_of(SMALL), launches=launches_mc, **mc)
     check_parity("motion canary", mc)
     require(launches_mc.get("uber_m") == 1 and launches_mc.get("sweep2_m", 0) > 0
-            and set(launches_mc) == {"uber_m", "sweep2_m", "shade_bvh"}
+            and set(queue_part(launches_mc, launches_mc.get("shade_bvh"), 1,
+                               "motion_canary")) == {"uber_m", "sweep2_m", "shade_bvh"}
             and launches_mc["shade_bvh"] == launches_mc["sweep2_m"],
             f"the motion canary's launches: {launches_mc}")
 
@@ -3686,7 +3719,9 @@ def third_slice_phases(dev, ctx):
     check_uber_g(size_of(SMALL) + " moving generic", int(stats_p[uber.ST_DROPPED]),
                  k1gm, k1gm_precise)
     require(launches_gm.get("uber_g_m") == 1 and launches_gm.get("sweep_grouped", 0) > 0
-            and set(launches_gm) == {"uber_g_m", "sweep_grouped", "shade_bvh"}
+            and set(queue_part(launches_gm, launches_gm.get("shade_bvh"), 1,
+                               "moving_generic_canary")) == {"uber_g_m", "sweep_grouped",
+                                                             "shade_bvh"}
             and launches_gm["shade_bvh"] == launches_gm["sweep_grouped"],
             f"the moving generic canary's launches: {launches_gm}")
 
@@ -4071,7 +4106,8 @@ def shading_canary(dev, name):
     # materials model plainly
     shaded = {"shade_bvh"} if cfg.shading != "materials" else set()
     require(launches.get(name) == 1 and launches.get(queue_kernel, 0) > 0
-            and set(launches) == {name, queue_kernel} | shaded
+            and set(queue_part(launches, launches.get("shade_bvh") if shaded else None, 1,
+                               f"{name}_canary")) == {name, queue_kernel} | shaded
             and (not shaded or 0 < launches["shade_bvh"] <= launches[queue_kernel]),
             f"the {name} canary's launches: {launches}")
     plain_ms, (out_p, stats_p) = timed_ms(
@@ -4490,9 +4526,13 @@ def plain_sweeps():
     the winner gather's forward and backward, the recompute's forward,
     backward and tangent, the containment sum's forward, backward and
     tangent and the shading's forward, backward and tangent run their plain
-    versions on the card: the gradient path with no kernel."""
+    versions on the card, and ``RayQueue`` its pop and push as they were
+    (``queue_pop_plain``, ``queue_push2_plain``: out of place under
+    autograd): the gradient path with no kernel."""
     with contextlib.ExitStack() as stack:
         for module, name, plain in (
+                (ray_queue, "pop", ray_queue.queue_pop_plain),
+                (ray_queue, "push2", ray_queue.queue_push2_plain),
                 (gather, "_gather", gather._gather_plain),
                 (gather, "_scatter", gather._scatter_plain),
                 (recompute, "_recompute", recompute._recompute_plain),
@@ -4597,13 +4637,18 @@ def grad_launches(k, sweep):
     of that sum (``ri_sum_grad``) runs on every pop but a band's last, whose
     RI bends only children that no pop reads; every pop shades
     (``shade_bvh``) and every pop's colour reaches the loss
-    (``shade_bvh_grad``)."""
+    (``shade_bvh_grad``); every pop pops the queue (``queue_pop``) and
+    pushes its children (``queue_push2``), and each band pushes its
+    primaries; the queue's backward runs on every pop but a band's first
+    (whose stacks hold the primaries, which carry no gradient) and every
+    push pair but a band's last (whose children no pop reads)."""
     n = step_sweeps(k)
     vg = k["vg"]
     bands = sum(len(idxs) for _, idxs in vg.buckets)
     out = {sweep: n, "winner_gather": n, "winner_scatter": n, "winner_recompute": n,
            "winner_recompute_grad": n if vg.bucket_cfgs[0].soft_edges > 0.0 else n - bands,
-           "shade_bvh": n, "shade_bvh_grad": n}
+           "shade_bvh": n, "shade_bvh_grad": n, "queue_pop": n, "queue_push2": n + bands,
+           "queue_pop_grad": n - bands, "queue_push2_grad": n - bands}
     if vg.bucket_cfgs[0].has_dielectrics:
         out.update(ri_sum=n, ri_sum_grad=n - bands)
     return out
@@ -4622,7 +4667,11 @@ TRACE_NAMES = {"sweep2": "::sweep2_kernel<false, false>", "sweep2_m": "::sweep2_
                "winner_recompute_grad": "::recompute_grad_kernel(",
                "ri_sum": "::ri_sum_kernel<", "ri_sum_grad": "::ri_sum_grad_kernel<",
                "shade_bvh": "::shade_kernel(", "shade_bvh_grad": "::shade_grad_kernel(",
-               "shade_bvh_jvp": "::shade_jvp_kernel("}
+               "shade_bvh_jvp": "::shade_jvp_kernel(", "queue_pop": "::queue_pop_kernel(",
+               "queue_push2": "::queue_push2_kernel(",
+               "queue_pop_grad": "::queue_pop_grad_kernel(",
+               "queue_push2_grad": "::queue_push2_grad_kernel("}
+QUEUE_KERNELS = ("queue_pop", "queue_push2", "queue_pop_grad", "queue_push2_grad")
 
 
 def traced_ms(by, counter):
@@ -5067,7 +5116,10 @@ def first_pop_gather(g, band):
     differentiated (its squared error against the target's rows) ->
     dict(table, ints, obj, widths, grads: one a field, None where it has
     none; recompute: dict(inputs, grads, soft, spheres); shade: the
-    shading's dict(inputs, grads, statics) at the band's first three pops)."""
+    shading's dict(inputs, grads, statics) at the band's first three pops;
+    queue: the queue's ``queue_step`` at the band's first three pops, each
+    with the gradient its push pair's backward got and, but the first, its
+    pop's)."""
     from raytracing_tests_tpu_torch.diff.train import _diff_cfg
     from raytracing_tests_tpu_torch.ops.render import trace_lanes
 
@@ -5082,6 +5134,8 @@ def first_pop_gather(g, band):
     fwd, bwd = gather._gather, gather._scatter
     r_fwd, r_bwd = recompute._recompute, recompute._recompute_grad
     s_fwd, s_bwd = shade._shade, shade._shade_grad
+    q_pop, q_push, q_pop_grad, q_push_grad = (ray_queue._pop, ray_queue._push2,
+                                              ray_queue._pop_grad, ray_queue._push2_grad)
 
     def keep_gather(table, obj, ints, widths):
         got.setdefault("gather", (table.detach().clone(), ints.clone(), obj.clone(), widths))
@@ -5112,10 +5166,38 @@ def first_pop_gather(g, band):
         del kept[:-3]
         return s_bwd(inputs, grads, statics, need)
 
+    def keep_pop(stacks, size):
+        if len(got.setdefault("queue_pop", [])) < 3:
+            got["queue_pop"].append(({n: v.detach().clone() for n, v in stacks.items()},
+                                     size.clone()))
+        return q_pop(stacks, size)
+
+    def keep_push(stacks, size, children):  # the primaries' push, then the pairs of pops 1-3
+        if len(got.setdefault("queue_push", [])) < 4:
+            got["queue_push"].append([(m.clone(), {n: None if v is None else v.detach().clone()
+                                                   for n, v in values.items()})
+                                      for m, values in children])
+        return q_push(stacks, size, children)
+
+    def keep_pop_grad(G, size, grads):  # in reverse: the last two, pops 3 and 2
+        kept = got.setdefault("queue_pop_grad", [])
+        kept.append(({n: v.clone() for n, v in grads.items()}, size.clone()))
+        del kept[:-2]
+        return q_pop_grad(G, size, grads)
+
+    def keep_push_grad(G, size, masks, want):  # in reverse: the last three, pairs 3-1
+        kept = got.setdefault("queue_push_grad", [])
+        kept.append({n: v.clone() for n, v in G.items()})
+        del kept[:-3]
+        return q_push_grad(G, size, masks, want)
+
     with patched(gather, "_gather", keep_gather), patched(gather, "_scatter", keep_scatter), \
             patched(recompute, "_recompute", keep_recompute), \
             patched(recompute, "_recompute_grad", keep_recompute_grad), \
-            patched(shade, "_shade", keep_shade), patched(shade, "_shade_grad", keep_shade_grad):
+            patched(shade, "_shade", keep_shade), patched(shade, "_shade_grad", keep_shade_grad), \
+            patched(ray_queue, "_pop", keep_pop), patched(ray_queue, "_push2", keep_push), \
+            patched(ray_queue, "_pop_grad", keep_pop_grad), \
+            patched(ray_queue, "_push2_grad", keep_push_grad):
         color, primary_t, _, _ = trace_lanes(scene, None, cfg, lo[sl], ld[sl], ltr[sl], ls[sl],
                                              _build_accel(scene, cfg))
         img = finalize(color.reshape(h, cfg.width, cfg.spp, 3),
@@ -5134,9 +5216,19 @@ def first_pop_gather(g, band):
         require(torch.equal(s_inputs[0], s_o),
                 "first_pop_gather: the shading's backward calls are not the first pops'")
         shade_pops.append(dict(inputs=s_inputs, grads=s_grads, statics=statics))
+    pop_grads = got["queue_pop_grad"][::-1]  # pops 2 and 3
+    queue_pops = []
+    for k, ((stacks, size), kids, G) in enumerate(zip(got["queue_pop"], got["queue_push"][1:],
+                                                      got["queue_push_grad"][::-1])):
+        g = None
+        if k:
+            g, size_back = pop_grads[k - 1]
+            require(torch.equal(size, size_back),
+                    "first_pop_gather: the queue's backward calls are not the first pops'")
+        queue_pops.append(queue_step(stacks, size, kids, G, g, pop=k + 1))
     return dict(table=table, ints=ints, obj=obj, widths=widths, grads=grads,
                 recompute=dict(inputs=r_inputs, grads=r_grads, soft=soft, spheres=spheres),
-                shade=shade_pops)
+                shade=shade_pops, queue=queue_pops)
 
 
 def winner_gather_vs_plain(cases):
@@ -5789,6 +5881,276 @@ def shade_entries(rows, paths):
     ]
 
 
+def queue_step(stacks, size, kids, G=None, g=None, **info):
+    """One step of the queue as a trace runs it: the stacks (``{name: (Q + 1,
+    B, ...)}``, bounced included) and sizes before a pop, the children its
+    push pair then pushes (``[(mask, {name: values})]``), and the gradient
+    of the stacks after the pair (``G``) and of the popped values (``g``)
+    that the step's backward gets (None: seeded by ``queue_vs_plain``)."""
+    return dict(stacks=stacks, size=size, kids=kids, G=G, g=g, **info)
+
+
+def queue_forward_step(dev, shading, capacity, pick):
+    """A ``queue_step`` of a forward frame: ``deep_glass_spheres()`` at
+    ``SMALL``'s size through ``render_stats`` with ``shading`` and a queue of
+    ``capacity``, at the first pop whose push pair ``pick(pop number, sizes
+    before the pop, children, sizes after it)`` takes."""
+    scene, camera = (x.to(dev) for x in deep_glass_spheres())
+    cfg = RenderConfig(intersector="pallas", shading=shading, queue_capacity=capacity,
+                       **SMALL).for_scene(scene)
+    q_pop, q_push = ray_queue._pop, ray_queue._push2
+    before, found = [], []  # the stacks and sizes before each pop
+
+    def keep_pop(stacks, size):
+        before.append(({n: v.clone() for n, v in stacks.items()}, size.clone()))
+        del before[:-1]
+        return q_pop(stacks, size)
+
+    def keep_push(stacks, size, children):  # the primaries' push comes before any pop
+        pops[0] += 1 if before else 0
+        if before and not found and pick(pops[0], before[0][1], children, size):
+            found.append(queue_step(*before[0], [(m.clone(), {
+                n: None if v is None else v.clone() for n, v in values.items()})
+                for m, values in children], pop=pops[0]))
+        before.clear()
+        return q_push(stacks, size, children)
+
+    pops = [0]
+
+    with patched(ray_queue, "_pop", keep_pop), patched(ray_queue, "_push2", keep_push):
+        render_stats(scene, camera, cfg)
+    require(found, f"queue_forward_step: no pop of the {shading} frame at capacity {capacity} "
+                   f"was picked")
+    return dict(found[0], shading=shading, capacity=capacity)
+
+
+def _queue_children(kids):
+    """``kids`` as ``RayQueue.push2``'s tuples."""
+    return [(m, v["origin"], v["direction"], v["contribution"], v["bounced"], v.get("medium"),
+             v.get("parent_medium")) for m, v in kids]
+
+
+def _queue_bytes(c, n_active, fields, grads):
+    """The bytes each of the four kernels must move on step ``c`` (the
+    kernels as written): ``fields`` the float fields, ``grads`` those with a
+    gradient, ``n_active`` the lanes that pop a ray."""
+    B = c["size"].shape[0]
+    F = sum(ray_queue.WIDTHS[n] for n in fields)
+    Fg = sum(ray_queue.WIDTHS[n] for n in grads)
+    given = sum(sum(ray_queue.WIDTHS[n] for n, v in values.items() if n in ray_queue.WIDTHS
+                    and v is not None) for _, values in c["kids"])
+    kids = len(c["kids"])
+    return dict(
+        pop=B * (8 + 4 * F + 4 + 1 + 8) + n_active * (4 * F + 4),
+        push2=B * (8 + 8 + kids * (1 + 4 + 4 * F + 4)) + 4 * B * given + 8,
+        pop_grad=B * 8 + n_active * 12 * Fg,
+        push2_grad=B * (8 + kids * (1 + 12 * Fg)))
+
+
+def queue_vs_plain(cases):
+    """Phase queue_vs_plain: the queue's four kernels (``kernels/queue.py``)
+    on the steps of ``cases`` (``queue_step``s: the grad frame's deepest band's
+    pops 1 and 3, bvh1k's pop 1, a materials frame's pop with media and a
+    frame's pop whose pushes overflow), once (the kernels copy, select and add
+    once: both builds are the same code): a pop and its push pair by the
+    kernels against ``RayQueue``'s plain pop and pushes (stacks, sizes,
+    active flags, popped values, drop count) bit for bit; their backward
+    (``queue_push2_grad`` then ``queue_pop_grad``) against autograd of the
+    plain versions, and their tangent (the forward kernels on seeded tangent
+    stacks) against ``torch.func.jvp`` of them, bit for bit; each kernel's
+    device time (cold L2, least of 3) beside its bound (the bytes it must
+    move), its plain version's time and the route it replaced (the plain
+    pop or push pair under autograd, forward; and forward and backward) ->
+    {case: row}."""
+    rng = np.random.default_rng(SEED)
+    rows = {}
+    seeded = lambda t: torch.from_numpy(  # noqa: E731
+        rng.normal(size=tuple(t.shape)).astype(np.float32)).to(t.device)
+    for label, c in cases.items():
+        st0, size, kids = c["stacks"], c["size"], c["kids"]
+        B, dev = size.shape[0], size.device
+        lane = torch.arange(B, device=dev)
+        fields = [n for n in ray_queue.FLOATS if n in st0]
+        shell = lambda st, sz: RayQueue(stacks=st, size=sz, lane=lane)  # noqa: E731
+        clone = lambda st: {n: v.clone() for n, v in st.items()}  # noqa: E731
+        masks = [m for m, _ in kids]
+        # the forward: the kernels on one copy, RayQueue's plain route on another
+        ks = clone(st0)
+        active, popped, size_k = ray_queue._launch_pop(ks, size)
+        size2_k, dropped_k = ray_queue._launch_push2(ks, size_k, kids)
+        pq = shell(clone(st0), size.clone())
+        want = ray_queue.queue_pop_plain(pq)
+        size_p = pq.size
+        dropped_p = ray_queue.queue_push2_plain(pq, *_queue_children(kids))
+        names = ray_queue.FIELDS + ray_queue.MEDIA
+        forward = dict(active=torch.equal(active, want[0]), size_after_pop=torch.equal(size_k, size_p),
+                       size=torch.equal(size2_k, pq.size), dropped=int(dropped_k) == int(dropped_p),
+                       **{f"popped_{n}": torch.equal(popped[n], w)
+                          for n, w in zip(names, want[1:]) if w is not None},
+                       **{f"stack_{n}": torch.equal(ks[n], pq.stacks[n]) for n in pq.stacks})
+        # the backward: push pair then pop, against autograd of the plain route
+        G = {n: c["G"][n] if c["G"] is not None and n in c["G"] else
+             seeded(st0[n]) if c["G"] is None else torch.zeros_like(st0[n]) for n in fields}
+        g = {n: c["g"][n] if c["g"] is not None and n in c["g"] else
+             seeded(popped[n]) if c["g"] is None else torch.zeros_like(popped[n])
+             for n in fields}
+        want_sets = [set(fields)] * len(kids)
+        G_k = clone(G)
+        kid_g = ray_queue._launch_push2_grad(G_k, size_k, masks, want_sets)
+        ray_queue._launch_pop_grad(G_k, size, g)
+        leaves = {n: st0[n].clone().requires_grad_(n in fields) for n in st0}
+        kid_leaves = [(m, {n: v if v is None or n not in ray_queue.WIDTHS
+                           else v.clone().requires_grad_(True) for n, v in values.items()})
+                      for m, values in kids]
+
+        def plain_step(st, kl):
+            q = shell(dict(st), size.clone())
+            out = ray_queue.queue_pop_plain(q)
+            ray_queue.queue_push2_plain(q, *_queue_children(kl))
+            return dict(zip(names, out[1:])), q.stacks
+
+        out_p, new_p = plain_step(leaves, kid_leaves)
+        loss = (sum((out_p[n] * g[n]).sum() for n in fields)
+                + sum((new_p[n] * G[n]).sum() for n in fields))
+        xs = [leaves[n] for n in fields] + [v[n] for _, v in kid_leaves for n in fields
+                                            if v.get(n) is not None]
+        got_back = torch.autograd.grad(loss, xs, allow_unused=True)
+        mine = [G_k[n] for n in fields] + [kid_g[j][n] for j, (_, v) in enumerate(kid_leaves)
+                                           for n in fields if v.get(n) is not None]
+        backward = dict(frac_equal=sum(torch.equal(a, b if b is not None else torch.zeros_like(a))
+                                       for a, b in zip(mine, got_back)) / len(mine),
+                        max_abs_err=max(float((a - (b if b is not None else 0)).abs().max())
+                                        for a, b in zip(mine, got_back)))
+        # the tangent: the forward kernels on seeded tangents, against
+        # torch.func.jvp of the plain route
+        T = {n: seeded(st0[n]) for n in fields}
+        kid_t = [(m, {n: seeded(v[n]) for n in fields if v.get(n) is not None})
+                 for m, v in kids]
+        T_k = clone(T)
+        pop_t = ray_queue._launch_pop(T_k, size, full=False)[1]
+        ray_queue._launch_push2(T_k, size_k, kid_t, {}, full=False)
+        prim = [st0[n] for n in fields] + [v[n] for _, v in kids for n in fields
+                                           if v.get(n) is not None]
+        tans = [T[n] for n in fields] + [t[n] for _, t in kid_t for n in fields if n in t]
+
+        def tangent_of(*xs):  # the plain pushes write their stacks in place here
+            it = iter(xs)
+            st = dict(st0, bounced=st0["bounced"].clone(), **{n: next(it).clone() for n in fields})
+            kl = [(m, dict(v, **{n: next(it) for n in fields if v.get(n) is not None}))
+                  for m, v in kids]
+            out, new = plain_step(st, kl)
+            return tuple(out[n] for n in fields) + tuple(new[n] for n in fields)
+
+        _, jv = torch.func.jvp(tangent_of, tuple(prim), tuple(tans))
+        tangent = dict(frac_equal=sum(torch.equal(a, b) for a, b in zip(
+            [pop_t[n] for n in fields] + [T_k[n] for n in fields], jv)) / len(jv))
+        # times: cold L2, least of 3; the in-place kernels rewrite the same rows
+        n_active = int(active.sum())
+        by = _queue_bytes(c, n_active, fields, fields)
+        bounds = {k: bound(v, 0) for k, v in by.items()}
+        pst = clone(st0)
+
+        def routed(what, backward_too):  # RayQueue's route before: the plain versions under autograd
+            def run():
+                lv = {n: st0[n].clone().requires_grad_(n in fields) for n in st0}
+                kl = [(m, {n: v if v is None or n not in ray_queue.WIDTHS
+                           else v.clone().requires_grad_(True) for n, v in values.items()})
+                      for m, values in kids]
+                q = shell(lv, size if what == "pop" else size_p)
+                if what == "pop":
+                    out = ray_queue.queue_pop_plain(q)
+                    terms = [(out[1 + names.index(n)] * g[n]).sum() for n in fields]
+                else:
+                    ray_queue.queue_push2_plain(q, *_queue_children(kl))
+                    terms = [(q.stacks[n] * G[n]).sum() for n in fields]
+                if backward_too:
+                    torch.autograd.grad(sum(terms), [lv[n] for n in fields], allow_unused=True)
+            return run
+
+        row = dict(
+            lanes=B, capacity=st0["origin"].shape[0] - 1, media="medium" in st0,
+            children=len(kids), lanes_active=n_active,
+            lanes_full_before_push=int((size_k == st0["origin"].shape[0] - 1).sum()),
+            pushes=sum(int(m.sum()) for m in masks), dropped=int(dropped_k),
+            gradient="the band's" if c["G"] is not None and c["g"] is not None else
+            "the band's push pair, a seeded pop" if c["G"] is not None else "seeded",
+            forward_vs_plain=forward, backward_vs_autograd=backward, tangent_vs_jvp=tangent,
+            ms=dict(pop=cold_ms(lambda: ray_queue._launch_pop(ks, size)),
+                    push2=cold_ms(lambda: ray_queue._launch_push2(ks, size_k, kids)),
+                    pop_grad=cold_ms(lambda: ray_queue._launch_pop_grad(G_k, size, g)),
+                    push2_grad=cold_ms(lambda: ray_queue._launch_push2_grad(
+                        G_k, size_k, masks, want_sets))),
+            plain_ms=dict(
+                pop=cold_ms(lambda: ray_queue.queue_pop_plain(shell(pst, size))),
+                push2=cold_ms(lambda: ray_queue.queue_push2_plain(shell(pst, size_p),
+                                                                 *_queue_children(kids))),
+                pop_grad=cold_ms(lambda: ray_queue.queue_pop_grad_plain(G_k, size, g)),
+                push2_grad=cold_ms(lambda: ray_queue.queue_push2_grad_plain(
+                    G_k, size_k, masks, want_sets))),
+            library_ms=dict(pop=cold_ms(routed("pop", False)),
+                            push2=cold_ms(routed("push2", False)),
+                            pop_grad=cold_ms(routed("pop", True)),
+                            push2_grad=cold_ms(routed("push2", True))),
+            bytes=by, bound_ms={k: v[0] for k, v in bounds.items()},
+            bound_by={k: v[1] for k, v in bounds.items()}, **{
+                k: v for k, v in c.items() if k in ("pop", "shading")})
+        rows[label] = row
+        say(phase="queue_vs_plain", case=label, **row)
+        del ks, pq, G_k, leaves, kid_leaves, T_k, pst
+    for label, r in rows.items():
+        require(all(r["forward_vs_plain"].values()) and r["backward_vs_autograd"]["frac_equal"] == 1.0
+                and r["tangent_vs_jvp"]["frac_equal"] == 1.0,
+                f"queue_vs_plain, {label}: the kernels against the plain route: {r}")
+        require(all(r["ms"][k] > r["bound_ms"][k] for k in r["ms"]),
+                f"queue_vs_plain, {label}: a kernel at or below its bound, a counting error: {r}")
+    require(any(r["media"] for r in rows.values()) and any(r["dropped"] > 0 for r in rows.values()),
+            f"queue_vs_plain: no case with media or none whose pushes overflow: {rows}")
+    return rows
+
+
+def queue_entries(rows, paths):
+    """The kernels-line entries of the queue's four kernels from
+    ``queue_vs_plain``'s rows (the main path's numbers: the grad frame's
+    deepest band's pop 3, whose backward gets the band's gradients) and the
+    launches of the gradient paths, of the tangent's and of the forward paths
+    that run the queue (``QUEUE_PATHS``)."""
+    src = "raytracing_tests_tpu_torch/csrc/queue.cu"
+    main = rows["grad_pop3"]
+    shape = (f"{main['lanes']} lanes (the grad frame's deepest band, its pop 3; "
+             + ", ".join(f"{k}: {r['lanes']} lanes, {r['lanes_active']} active, media "
+                         f"{r['media']}, {r['dropped']} dropped" for k, r in rows.items()) + ")")
+    note = ("no TPU kernel: the XLA fusion of RayQueue.push and RayQueue.pop "
+            "(ops/render.py:179-251)")
+    every = {**paths, **QUEUE_PATHS}
+    by_path = lambda name: {p: got[name] for p, got in every.items() if got.get(name)}  # noqa: E731
+    worst = lambda what: max(r[what].get("max_abs_err", 0.0) for r in rows.values())  # noqa: E731
+    share = lambda what: min(r[what]["frac_equal"] for r in rows.values())  # noqa: E731
+    fwd = min(float(all(r["forward_vs_plain"].values())) for r in rows.values())
+    out = []
+    for name, key, err, within, lib in (
+            ("queue_pop", "pop", 0.0, fwd, "RayQueue's plain pop under autograd, forward"),
+            ("queue_push2", "push2", 0.0, fwd,
+             "RayQueue's two plain pushes under autograd, forward"),
+            ("queue_pop_grad", "pop_grad", worst("backward_vs_autograd"),
+             share("backward_vs_autograd"),
+             "RayQueue's plain pop under autograd, forward and backward"),
+            ("queue_push2_grad", "push2_grad", worst("backward_vs_autograd"),
+             share("backward_vs_autograd"),
+             "RayQueue's two plain pushes under autograd, forward and backward")):
+        out.append(dict(
+            name=name, route="cuda", source=src,
+            replaces="raytracing_tests_tpu/ops/render.py:179", note=note,
+            launches=paths["grad_frame"][name], launches_by_path=by_path(name),
+            max_abs_err=err,
+            tolerance="bit for bit the plain route's (forward: RayQueue's pop and pushes; "
+                      "backward: their autograd; tangent: torch.func.jvp of them)",
+            frac_within_tolerance=within, tangent_frac_equal=share("tangent_vs_jvp"),
+            ms=main["ms"][key], plain_ms=main["plain_ms"][key], bound_ms=main["bound_ms"][key],
+            bound_by=main["bound_by"][key], library_ms=main["library_ms"][key], library=lib,
+            shape=shape, **({"cases": rows} if name == "queue_pop" else {})))
+    return out
+
+
 # The containment sum's backward against a float64 sum of the same
 # gradients: the kernel sums a warp's lanes of a row in a tree, a block's in
 # shared memory and the blocks by global atomics, in float32 and in another
@@ -6148,8 +6510,13 @@ def tangent_vs_plain(dev):
                 and res["default_err_of_scale"] <= TANGENT_DEFAULT,
                 f"tangent_vs_plain, {label}: the tangent through the kernels against the plain "
                 f"route: {res}")
+        # the queue: a pop and a push pair a pop and the primaries' push, and
+        # the tangents: the pop of the tangent stacks on every pop but the
+        # first (the primaries carry none) and the push of the children's on
+        # every pop (one trace)
         want_launches = {sweep_of: n, "winner_recompute": n, "winner_recompute_jvp": n,
-                         "winner_gather": 2 * n, "shade_bvh": n, "shade_bvh_jvp": n}
+                         "winner_gather": 2 * n, "shade_bvh": n, "shade_bvh_jvp": n,
+                         "queue_pop": 2 * n - 1, "queue_push2": 2 * n + 1}
         if cfg.has_dielectrics:
             want_launches.update(ri_sum=launches.get("ri_sum", 0),
                                  ri_sum_jvp=launches.get("ri_sum", 0))
@@ -6218,6 +6585,7 @@ def grad_phases(dev, k3_canary):
     winner_ms = {n: traced_ms(by, n) for n in ("winner_gather", "winner_scatter")}
     ri_ms = {n: traced_ms(by, n) for n in ("ri_sum", "ri_sum_grad")}
     shade_ms = {n: traced_ms(by, n) for n in ("shade_bvh", "shade_bvh_grad")}
+    queue_ms = {n: traced_ms(by, n) for n in QUEUE_KERNELS}
     # a long session can lose the device records of its last launches: the
     # port's kernels the trace holds, against the step's launches
     k2_records = SESSIONS[-1]["port_kernel_records"]
@@ -6247,7 +6615,7 @@ def grad_phases(dev, k3_canary):
                  probe_seconds=g["probe_ms"] / 1e3, peak_memory_bytes=k["peak_memory_bytes"],
                  launches=k["step_launches"], k2_launches=n_k2, k2_device_ms=k2_ms,
                  winner_device_ms=winner_ms, ri_device_ms=ri_ms, shade_device_ms=shade_ms,
-                 deepest_band=share,
+                 queue_device_ms=queue_ms, deepest_band=share,
                  default_build=default, precise_build=precise, recompute_64=recompute_64)
     say(phase="grad_frame", host=host_state(), **frame)
     graphed = dict(
@@ -6268,7 +6636,7 @@ def grad_phases(dev, k3_canary):
         capture_step_launches=k["launches"], replay_step_launches=k["step_launches"],
         eager_step_launches=ke["step_launches"], sweeps_per_step=n_k2,
         k2_device_ms=k2_ms, winner_device_ms=winner_ms, ri_device_ms=ri_ms,
-        shade_device_ms=shade_ms, port_records_in_trace=k2_records,
+        shade_device_ms=shade_ms, queue_device_ms=queue_ms, port_records_in_trace=k2_records,
         device_ms_of_a_replay_step=sum(by.values()),
         deepest_band=share, deepest_band_eager=share_eager,
         eager_band_sync_free=sync_free,
@@ -6293,9 +6661,9 @@ def grad_phases(dev, k3_canary):
     require(sync_free is True, f"grad_graph: the eager static band synchronised: {sync_free}")
     require(k2_ms > 0 and k2_records == sum(want.values()) and share["device_busy_ms"] > 0
             and min(winner_ms.values()) > 0 and min(ri_ms.values()) > 0
-            and min(shade_ms.values()) > 0,
+            and min(shade_ms.values()) > 0 and min(queue_ms.values()) > 0,
             f"grad_graph: the trace of a replayed step holds its launches: {k2_records} of "
-            f"{sum(want.values())}, {winner_ms}, {ri_ms}, {shade_ms}, {share}")
+            f"{sum(want.values())}, {winner_ms}, {ri_ms}, {shade_ms}, {queue_ms}, {share}")
     require(min(split["device_ms"].get(f"{r}_{d}", 0.0) for d in ("forward", "backward")
                 for r in ("ri_sum", "shade")) > 0,
             f"grad_graph: the eager band's split finds no containment sum or shading kernel: "
@@ -6366,6 +6734,19 @@ def grad_phases(dev, k3_canary):
     recompute_rows = recompute_vs_plain(recompute_cases)
     shade_cases["bvh1k"] = dict(first_pops["bvh1k"]["shade"][0], pop=1)
     shade_rows = shade_vs_plain(shade_cases)
+    # the queue's steps: the grad frame's deepest band's pops 1 and 3, bvh1k's
+    # pop 1, a materials frame's second pop (media) and a pop whose pushes
+    # overflow a queue of 2
+    queue_cases = dict(grad_pop1=first_pops["grad"]["queue"][0],
+                       grad_pop3=first_pops["grad"]["queue"][2],
+                       bvh1k_pop1=first_pops["bvh1k"]["queue"][0])
+    queue_cases["materials_pop2"] = queue_forward_step(
+        dev, "materials", 5, lambda k, size, kids, after: k == 2)
+    queue_cases["overflow"] = queue_forward_step(
+        dev, "bvh", 2, lambda k, size, kids, after: bool(
+            ((after >= 1) & kids[0][0] & kids[-1][0]).any()))
+    queue_rows = queue_vs_plain(queue_cases)
+    del queue_cases
     del first_pops, recompute_cases, hard_r, shade_cases
     ri_cases["bvh1k"] = [camera_lane_points(hard)]
     ri_rows = ri_sum_vs_plain(ri_cases)
@@ -6541,7 +6922,8 @@ def grad_phases(dev, k3_canary):
     return entries, paths, at_hard_step, (winner_entries(winner_rows, paths)
                                           + recompute_entries(recompute_rows, paths)
                                           + ri_entries(ri_rows, paths)
-                                          + shade_entries(shade_rows, paths))
+                                          + shade_entries(shade_rows, paths)
+                                          + queue_entries(queue_rows, paths))
 
 
 # ---------------------------------------------------------------------------
@@ -6678,10 +7060,11 @@ def sharded_bvh_queue(dev):
                parity_vs_single=c)
     say(phase="sharded_bvh_queue", **res)
     require(all(got.get("sweep_grouped", 0) > 0
-                and got == {"sweep_grouped": got["sweep_grouped"],
-                            "shade_bvh": got["sweep_grouped"]} for got in launches),
-            f"a sharded bvh queue frame launches K5 and the shading, each once a pop, and "
-            f"nothing else: {launches}")
+                and queue_part(got, got["sweep_grouped"], 3)
+                == {"sweep_grouped": got["sweep_grouped"], "shade_bvh": got["sweep_grouped"]}
+                for got in launches),
+            f"a sharded bvh queue frame launches K5, the shading and the queue's pop and push "
+            f"pair, each once a pop, a push a shard, and nothing else: {launches}")
     require(all(exact.values()), f"sharded bvh queue, -fmad=false build: {res}")
     check_parity("sharded bvh queue frame", c)
     return {"sharded_bvh_queue": launches[-1]}
@@ -6716,10 +7099,16 @@ def unbanded_launches(n, traces, assembled=False):
     t before it takes the image), so every pop's t reaches the image's graph,
     with a zero gradient: the recompute's backward runs on every pop.  Every
     pop shades, and its colour reaches the loss: ``shade_bvh`` and
-    ``shade_bvh_grad`` on every pop."""
+    ``shade_bvh_grad`` on every pop.  The queue pops once a pop and pushes a
+    pair once a pop and the primaries once a trace; its backward runs on
+    every pop but each trace's first (its stacks hold the primaries, which
+    carry no gradient) and every push pair but each trace's last (whose
+    children no pop reads)."""
     return {"sweep2": n, "winner_gather": n, "winner_scatter": n, "winner_recompute": n,
             "winner_recompute_grad": n if assembled else n - traces, "ri_sum": n,
-            "ri_sum_grad": n - traces, "shade_bvh": n, "shade_bvh_grad": n}
+            "ri_sum_grad": n - traces, "shade_bvh": n, "shade_bvh_grad": n,
+            "queue_pop": n, "queue_push2": n + traces, "queue_pop_grad": n - traces,
+            "queue_push2_grad": n - traces}
 
 
 def sharded_train_step(dev):
@@ -6794,7 +7183,8 @@ def dryrun_phase(dev):
     say(phase="dryrun", shards=shards, seconds=ms / 1e3, found=found, launches=launches,
         containment_calls=dict(calls))
     ri = {"ri_sum": sum(calls.values()), "ri_sum_grad": calls["with_grad"] - shards}
-    k1 = {k: v for k, v in launches.items() if k not in ri and not k.startswith("shade_bvh")}
+    k1 = {k: v for k, v in launches.items()
+          if k not in ri and not k.startswith(("shade_bvh", "queue_"))}
     require(len(k1) == 3 and set(k1.values()) == {5},
             f"dryrun: three cases of K1, each one single and four shard launches: {launches}")
     require({k: launches.get(k, 0) for k in ri} == ri and ri["ri_sum_grad"] > 0,
@@ -7014,10 +7404,11 @@ def progressive_frame(dev):
                 and r["yields"] == -(-n_tiles // TILES_PER_STEP),
                 f"progressive_frame, {build} build: the spiral did not fill the frame: {r}")
         require(r["max_abs_diff"] <= 1e-5, f"progressive_frame, {build} build: {r}")
-        require(set(r["launches"]) == {"sweep_grouped", "shade_bvh"}
+        require(set(queue_part(r["launches"], r["launches"].get("sweep_grouped"), None))
+                == {"sweep_grouped", "shade_bvh"}
                 and r["launches"]["shade_bvh"] == r["launches"]["sweep_grouped"],
-                f"progressive_frame: the tiles launch K5 and the shading, each once a pop, and "
-                f"nothing else: {r['launches']}")
+                f"progressive_frame: the tiles launch K5, the shading and the queue's pop and "
+                f"push pair, each once a pop, and nothing else: {r['launches']}")
     return {"progressive_bvh1k": res["default"]["launches"]}
 
 
@@ -7143,8 +7534,9 @@ def lbvh_phase(dev):
                vs_pallas_precise_build=vs_exact, vs_pallas_default_build=vs_default,
                envelope_vs_default_build=c, walks=walk_summary(log))
     say(phase="lbvh_frame", **res)
-    require(set(launched) == {"shade_bvh"},
-            f"lbvh_frame: the bvh path launched a sweep kernel (the shading's alone): {launched}")
+    require(set(queue_part(launched, launched.get("shade_bvh"), 1)) == {"shade_bvh"},
+            f"lbvh_frame: the bvh path launched a sweep kernel (the shading's and the queue's "
+            f"alone): {launched}")
     require(log and all(s <= cap for s, cap, _ in log), f"lbvh_frame: walks: {res['walks']}")
     require(vs_exact["frac_within"] >= ORACLE_FRAC, f"lbvh_frame: {res}")
     check_parity("lbvh_frame against the default build's grouped sweep", c)
@@ -7173,9 +7565,9 @@ def lbvh_phase(dev):
                rays_generic_sweeps=int(og_exact["rays"]), generic_sweeps_launches=launched_g,
                envelope_vs_sphere_sweep=c, ri_walk_vs_dense_sum=ri, walks=walk_summary(log))
     say(phase="lbvh_ri_canary", **res)
-    require(set(launched) == {"shade_bvh"},
-            f"lbvh_ri_canary: the bvh path launched a sweep kernel (the shading's alone): "
-            f"{launched}")
+    require(set(queue_part(launched, launched.get("shade_bvh"), 1)) == {"shade_bvh"},
+            f"lbvh_ri_canary: the bvh path launched a sweep kernel (the shading's and the "
+            f"queue's alone): {launched}")
     require("ri" in res["walks"], f"lbvh_ri_canary: no RI walk ran: {res['walks']}")
     require(res["vs_generic_sweeps_precise_build"]["frac_within"] >= ORACLE_FRAC,
             f"lbvh_ri_canary against the generic sweeps: {res}")
@@ -7913,7 +8305,9 @@ def main():
     require(mean_diff < 5e-3 and abs(canary["ray_count_ratio"] - 1.0) < 0.02
             and canary["depth_disagree_frac"] < 0.01 and canary["rays_dropped"] == 0,
             f"parity canary failed: {canary}")
-    require(launches_canary.get("uber") == 1 and launches_canary.get("sweep2", 0) > 0,
+    require(launches_canary.get("uber") == 1 and launches_canary.get("sweep2", 0) > 0
+            and set(queue_part(launches_canary, launches_canary.get("shade_bvh"), 1, "canary"))
+            == {"uber", "sweep2", "shade_bvh"},
             f"the canary did not go through both kernels: {launches_canary}")
 
     # 6. the headline frame -------------------------------------------------------
@@ -8068,6 +8462,8 @@ def main():
             k["ptxas"] = ptxas.get(f"recompute.so {name.replace('winner_', '')}_kernel")
         elif name.startswith("shade_bvh"):
             k["ptxas"] = ptxas.get(f"shade.so {name.replace('_bvh', '')}_kernel")
+        elif name.startswith("queue_"):
+            k["ptxas"] = ptxas.get(f"queue.so {name}_kernel")
         elif name.startswith("winner"):
             k["ptxas"] = ptxas.get(f"gather.so {name}_kernel")
         elif name == "ri_sum_jvp":  # the sum's tangent instantiation, K lanes a point
@@ -8104,7 +8500,8 @@ def main():
                        winner_recompute_grad="winner_recompute_grad",
                        winner_recompute_jvp="winner_recompute_jvp", ri_sum="ri_sum",
                        ri_sum_grad="ri_sum_grad", ri_sum_jvp="ri_sum_jvp", shade_bvh="shade_bvh",
-                       shade_bvh_grad="shade_bvh_grad", shade_bvh_jvp="shade_bvh_jvp").get(
+                       shade_bvh_grad="shade_bvh_grad", shade_bvh_jvp="shade_bvh_jvp",
+                       **{n: n for n in QUEUE_KERNELS}).get(
             k["name"], k.get("instantiation"))
         if counter:
             k["launches_by_path"].update({p: got[counter] for p, got in later_paths.items()

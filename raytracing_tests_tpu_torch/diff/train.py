@@ -235,16 +235,19 @@ def _grown_ri_slots(need, slots, lanes: int) -> tuple:
 
 
 def _sweep_routing() -> tuple:
-    """The sweep, winner-gather, recompute, containment-sum and shading
-    wrappers the gradient path calls, as bound now (a test or a measurement
-    may route them to their plain versions): part of a CUDA graph's key."""
+    """The sweep, winner-gather, recompute, containment-sum, shading and
+    queue wrappers the gradient path calls, as bound now (a test or a
+    measurement may route them to their plain versions): part of a CUDA
+    graph's key."""
     from raytracing_tests_tpu_torch.kernels import (
-        gather, recompute, ri_sum, shade, sweep2, sweep2g,
+        gather, queue, recompute, ri_sum, shade, sweep2, sweep2g,
     )
 
     return (sweep2._sweep2, sweep2._sweep2_edge, sweep2g._sweep2g, sweep2g._sweep2g_edge,
             gather._gather, gather._scatter, recompute._recompute, recompute._recompute_grad,
-            ri_sum._ri_sum, ri_sum._ri_sum_grad, shade._shade, shade._shade_grad)
+            ri_sum._ri_sum, ri_sum._ri_sum_grad, shade._shade, shade._shade_grad,
+            queue.pop, queue.push2, queue._pop, queue._push2, queue._pop_grad,
+            queue._push2_grad)
 
 
 def _band(tmpl, leaves, lights, cfg, slots, accel, lanes, tgt, acc, sse, ri_max):

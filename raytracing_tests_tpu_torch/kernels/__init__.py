@@ -29,6 +29,9 @@
                  (``csrc/recompute.cu``).
   - ``shade``:   the queue renderers' "bvh" shading of a pop, with its
                  backward and tangent (``csrc/shade.cu``).
+  - ``queue``:   the queue renderer's per-lane ray queue: a pop and a pop's
+                 push pair, with a backward that touches only the rows a
+                 step read or wrote (``csrc/queue.cu``).
   - ``_build``:  builds and loads the kernels at first use; launch counters.
 
 The first-generation sweep entry points are re-exported here, as the JAX

@@ -38,8 +38,8 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 
-SOURCES = ("drain.cu", "gather.cu", "mega.cu", "recompute.cu", "ri_sum.cu", "shade.cu",
-           "sweep.cu", "sweep2.cu", "sweep2g.cu", "uber.cu", "uber_tex.cu")
+SOURCES = ("drain.cu", "gather.cu", "mega.cu", "queue.cu", "recompute.cu", "ri_sum.cu",
+           "shade.cu", "sweep.cu", "sweep2.cu", "sweep2g.cu", "uber.cu", "uber_tex.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

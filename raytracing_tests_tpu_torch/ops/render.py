@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from raytracing_tests_tpu_torch.core import linalg, sampling
+from raytracing_tests_tpu_torch.kernels import queue as ray_queue
 from raytracing_tests_tpu_torch.kernels import shade
 from raytracing_tests_tpu_torch.ops import intersect as isect
 from raytracing_tests_tpu_torch.ops.camera_rays import primary_rays
@@ -187,10 +188,6 @@ def extract_lights(scene: Scene, capacity: Optional[int] = None) -> Optional[Lig
 # ----------------------------------------------------------------------------
 
 
-_FIELDS = ("origin", "direction", "contribution", "bounced")
-_MEDIA = ("medium", "parent_medium")
-
-
 @dataclasses.dataclass
 class RayQueue:
     """Each lane's stack of Q records, and one spill slot after them (index
@@ -203,11 +200,18 @@ class RayQueue:
     and, in a queue made with ``media``, the materials model's medium
     tracking: the refractive index of the medium each queued ray travels
     in, and its parent's (a depth-2 medium stack).  Without media both are
-    air (1.0) and nothing stores them."""
+    air (1.0) and nothing stores them.
+
+    Each method routes by device (``kernels.queue``): on the CPU the plain
+    versions (``index_select``, ``index_copy``), on CUDA tensors the
+    kernels of ``csrc/queue.cu``, which change the stacks in place and
+    whose backward touches only the rows a step read or wrote (``grads``
+    passes the stacks' gradient down the steps)."""
 
     stacks: dict  # name -> (Q + 1, B, ...)
     size: torch.Tensor  # (B,) i64
     lane: torch.Tensor  # (B,) i64: 0 .. B - 1
+    grads: ray_queue.GradBuffers = dataclasses.field(default_factory=ray_queue.GradBuffers)
 
     @classmethod
     def create(cls, batch: int, capacity: int, device, media: bool = True):
@@ -217,7 +221,7 @@ class RayQueue:
                       contribution=z(q1, batch), bounced=z(q1, batch, dt=torch.int32))
         if media:
             stacks.update({n: torch.ones((q1, batch), dtype=torch.float32, device=device)
-                           for n in _MEDIA})
+                           for n in ray_queue.MEDIA})
         return cls(stacks=stacks, size=z(batch, dt=torch.int64),
                    lane=torch.arange(batch, device=device))
 
@@ -227,7 +231,7 @@ class RayQueue:
 
     @property
     def media(self) -> bool:
-        return _MEDIA[0] in self.stacks
+        return ray_queue.MEDIA[0] in self.stacks
 
     def _rows(self, slot):
         """Row of each lane's record ``slot`` (B,) in a field's ((Q + 1) B)-row
@@ -237,54 +241,25 @@ class RayQueue:
     def push(self, mask, origin, direction, contribution, bounced,
              medium=None, parent_medium=None):
         """Conditional push at position ``size`` for lanes in ``mask``
-        (updates the queue in place).  Returns the number of dropped pushes
-        (a 0-dim int64 tensor on the queue's device) -- pushes beyond capacity
-        are dropped like the reference stack, but the count is surfaced so
-        renderers can report honest ray accounting.  ``medium`` /
-        ``parent_medium`` default to air (1.0); a queue without media takes
-        neither.
+        (updates the queue in place) -> the dropped pushes, a 0-dim int64
+        tensor on the queue's device (``kernels.queue.queue_push_plain``).
+        ``medium`` / ``parent_medium`` default to air (1.0); a queue without
+        media takes neither."""
+        return self.push2((mask, origin, direction, contribution, bounced, medium,
+                           parent_medium))
 
-        Static shapes, no host read: every lane writes its one record, at
-        ``size`` where it pushes and in its spill slot where it cannot, so
-        the Q records are the JAX package's one-hot ``where`` bit for bit at
-        O(B) writes instead of O(B Q)."""
-        q = self.capacity
-        can = mask & (self.size < q)
-        n_dropped = torch.sum(mask & ~can)
-        at = self._rows(torch.where(can, self.size, torch.full_like(self.size, q)))
-        values = dict(origin=origin, direction=direction, contribution=contribution,
-                      bounced=bounced)
-        if self.media:
-            air = torch.ones_like(contribution)
-            values.update({n: air if m is None else m
-                           for n, m in zip(_MEDIA, (medium, parent_medium))})
-        elif medium is not None or parent_medium is not None:
-            raise ValueError("a queue made without media stores none (RayQueue.create)")
-        for name, value in values.items():
-            dst = self.stacks[name]
-            rows = dst.view((-1,) + tuple(dst.shape[2:]))
-            value = value.to(dst.dtype)
-            if rows.requires_grad or value.requires_grad:
-                # Under autograd a pop's gather keeps the stack it read:
-                # write a new one instead of changing that one in place.
-                self.stacks[name] = rows.index_copy(0, at, value).view(dst.shape)
-            else:
-                rows.index_copy_(0, at, value)
-        self.size = self.size + can.to(torch.int64)
-        return n_dropped
+    def push2(self, first, second=None):
+        """Push ``first`` and then ``second`` (each ``(mask, origin,
+        direction, contribution, bounced, medium, parent_medium)``, the media
+        optional; ``second`` None: ``first`` alone) -> the dropped pushes of
+        both: one ``queue_push2`` launch on the card."""
+        return ray_queue.push2(self, first, second)
 
     def pop(self):
         """LIFO pop -> (active, o, d, contribution, bounced, medium,
         parent_medium), the media None in a queue without them; lanes with
         empty queues return zeros and active=False."""
-        active = self.size > 0
-        at = self._rows(torch.clamp_min(self.size - 1, 0))
-        out = {}
-        for name, src in self.stacks.items():
-            got = src.view((-1,) + tuple(src.shape[2:])).index_select(0, at)
-            out[name] = got.masked_fill_(~active.view((-1,) + (1,) * (got.dim() - 1)), 0)
-        self.size = self.size - active.to(torch.int64)
-        return (active, *(out[n] for n in _FIELDS), *(out.get(n) for n in _MEDIA))
+        return ray_queue.pop(self)
 
 
 # ----------------------------------------------------------------------------
@@ -714,14 +689,15 @@ def _process_pop(scene, lights, cfg: RenderConfig, queue, state, sample_idx, spp
     )
     if cfg.shading == "materials":
         # Push reflection then refraction: LIFO pops the refraction first.
-        d1 = queue.push(r.refl_mask, r.refl_o, r.refl_d, r.refl_contrib, r.bounced,
-                        r.refl_medium, r.refl_parent)
-        d2 = queue.push(r.refr_mask, r.refr_o, r.refr_d, r.refr_contrib, r.bounced,
-                        r.refr_medium, r.refr_parent)
+        dropped = queue.push2(
+            (r.refl_mask, r.refl_o, r.refl_d, r.refl_contrib, r.bounced, r.refl_medium,
+             r.refl_parent),
+            (r.refr_mask, r.refr_o, r.refr_d, r.refr_contrib, r.bounced, r.refr_medium,
+             r.refr_parent))
     else:
         # Push refraction then reflection (LIFO pops reflect first).
-        d1 = queue.push(r.refr_mask, r.refr_o, r.refr_d, r.refr_contrib, r.bounced)
-        d2 = queue.push(r.refl_mask, r.refl_o, r.refl_d, r.refl_contrib, r.bounced)
+        dropped = queue.push2((r.refr_mask, r.refr_o, r.refr_d, r.refr_contrib, r.bounced),
+                              (r.refl_mask, r.refl_o, r.refl_d, r.refl_contrib, r.bounced))
 
     color = color + r.add_color
     color = torch.where(r.set_white[:, None], torch.ones_like(color), color)
@@ -729,7 +705,7 @@ def _process_pop(scene, lights, cfg: RenderConfig, queue, state, sample_idx, spp
     primary_t = torch.where(is_primary, r.hit_t, primary_t)
     depth = torch.where(r.missed, torch.full_like(depth, cfg.t_max), depth)
     depth = torch.where(r.did_hit, r.hit_t, depth)
-    return (color, depth, done, primary_t), d1 + d2
+    return (color, depth, done, primary_t), dropped
 
 
 # ----------------------------------------------------------------------------
@@ -831,11 +807,11 @@ def _trace_queue(scene, lights, cfg: RenderConfig, o, d, time_ratio, sample_idx,
     dev = o.device
     count = lambda n: torch.full((), n, dtype=torch.int64, device=dev)  # noqa: E731
     queue = RayQueue.create(B, cfg.queue_capacity, dev, media=cfg.shading == "materials")
-    queue.push(
+    queue.push2((
         torch.ones(B, dtype=torch.bool, device=dev), o, d,
         torch.ones(B, dtype=torch.float32, device=dev),
         torch.zeros(B, dtype=torch.int32, device=dev),
-    )
+    ))
     state = (
         torch.zeros((B, 3), dtype=torch.float32, device=dev),  # accumulated color
         torch.full((B,), cfg.t_max, dtype=torch.float32, device=dev),  # last-written depth

@@ -374,7 +374,41 @@ def _function_cases():
                               t_max=t_max, background=bg)
         return tuple(out[k] for k in shade._FLOAT_AT)
 
+    # the queue's pop and push pair (``kernels.queue``), on stacks with media
+    from raytracing_tests_tpu_torch.kernels import queue as rq
+    from raytracing_tests_tpu_torch.ops.render import RayQueue
+
+    qb, qcap = 24, 3
+    size0 = torch.from_numpy(rng.integers(0, qcap + 1, qb))
+    kids = [(torch.from_numpy(rng.uniform(size=qb) < p), torch.from_numpy(
+        rng.integers(0, 5, qb).astype(np.int32))) for p in (0.7, 0.5)]
+    stacks0 = [torch.from_numpy(rng.normal(size=(qcap + 1, qb) + ((3,) if w == 3 else ())))
+               for w in (rq.WIDTHS[n] for n in rq.FLOATS)]
+
+    def queue_of(stacks):
+        q = RayQueue.create(qb, qcap, "cpu", media=True)
+        q.stacks.update({n: s * 1.0 for n, s in zip(rq.FLOATS, stacks)})  # not leaves
+        q.size = size0.clone()
+        return q
+
+    def through_pop(*stacks):
+        q = queue_of(stacks)
+        got = rq.queue_pop(q)
+        return (*[x for x in got[1:] if x.is_floating_point()],
+                *[q.stacks[n] for n in rq.FLOATS])
+
+    def through_push2(*xs):  # the second child without media: air
+        q = queue_of(xs[8:])
+        (m1, b1), (m2, b2) = kids
+        rq.queue_push2(q, (m1, *xs[:3], b1, xs[3], xs[4]), (m2, *xs[5:8], b2))
+        return tuple(q.stacks[n] for n in rq.FLOATS)
+
+    values = [torch.from_numpy(rng.normal(size=(qb,) + ((3,) if rq.WIDTHS[n] == 3 else ())))
+              for _ in range(2) for n in rq.FLOATS]
+
     return {_build._Constant: (through_constant, (table[:, 0].clone(),)),
+            rq._QueuePop: (through_pop, tuple(stacks0)),
+            rq._QueuePush2: (through_push2, tuple(values[:8]) + tuple(stacks0)),
             gather._WinnerGather: (through_gather, (table,)),
             ri_sum._ContainmentRI: (through_sum, (scene.refractive_index.double(),)),
             rc._WinnerRecompute: (through_recompute, tuple(inputs[k] for k in rc._AT)),
