@@ -29,13 +29,18 @@ that root's sources.  Workloads, at the sizes ``chip_smoke.py`` drives them:
   checkout runs it by default;
 - ``megalanes_motion``: ``render_megalanes`` of ``motion_blur_scene()`` at
   800x450x16 spp, depth 8, sorted (K6's MOTION instantiation);
-- ``grad``, ``grad_soft``, ``generic_hard``: one step of
+- ``grad``, ``grad_soft``, ``generic_hard``, ``generic_soft``,
+  ``motion_soft``, ``moving_groups_soft``: one step of
   ``diff.banded_value_and_grad`` as ``chip_smoke.py``'s ``grad_frame``,
-  ``grad_soft_frame`` and ``grad_generic_soft`` (hard) build it, 800x450x16
-  spp, depth 8, 25 bands, band depths probed + 2: ``iow_final_scene()``
-  with colours x 0.8 + 0.1 (K2), the same with soft edges 0.03 (K2's
-  silhouette instantiation), ``bvh_grid_scene(side=32)`` with positions
-  moved by up to 0.1 (K3); on the card each depth bucket's band is a
+  ``grad_soft_frame``, ``grad_generic_soft`` (hard, then soft) and
+  ``grad_motion_soft`` build it, 800x450x16 spp, depth 8, 25 bands, band
+  depths probed + 2: ``iow_final_scene()`` with colours x 0.8 + 0.1 (K2),
+  the same with soft edges 0.03 (K2's silhouette instantiation),
+  ``bvh_grid_scene(side=32)`` with positions moved by up to 0.1 (K3, and
+  with soft edges K3's silhouette instantiation), ``motion_blur_scene()``
+  and ``chip_smoke.moving_groups_scene()`` with positions moved likewise and
+  soft edges (the silhouette instantiations' ``MOTION`` forms); each moved
+  scene from a generator of its own seeded 0; on the card each depth bucket's band is a
   captured CUDA graph, so the warm call captures and the timed ones replay;
   the loss and each field's largest |gradient| are printed beside the times;
 - ``grad_eager``: ``grad``'s step with ``graphs=False``, the same static
@@ -100,9 +105,10 @@ GRAD = dict(width=800, height=450, spp=16, max_bounces=8)
 SOFT = 0.03
 WORKLOADS = ("bvh_queue_frame", "dense_generic_frame", "unbanded_step", "sharded_step",
              "megalanes_natural", "megalanes_sorted", "workqueue_frame", "megalanes_motion",
-             "grad_split", "ri_split", "grad", "grad_soft", "generic_hard", "grad_eager",
-             "recompute_pop")
-GRAD_WORKLOADS = ("grad_split", "ri_split", "grad", "grad_soft", "generic_hard", "grad_eager")
+             "grad_split", "ri_split", "grad", "grad_soft", "generic_hard", "generic_soft",
+             "motion_soft", "moving_groups_soft", "grad_eager", "recompute_pop")
+GRAD_WORKLOADS = ("grad_split", "ri_split", "grad", "grad_soft", "generic_hard", "generic_soft",
+                  "motion_soft", "moving_groups_soft", "grad_eager")
 # The ranges ``op_split`` attributes a kernel to, innermost first where they
 # nest: the containment sum, the recompute, the queue, the shading's kernel
 # (``kernels.shade.shade_bvh``, where the checkout has it), the rest of the
@@ -253,6 +259,22 @@ def child(root: str, only) -> None:
         grad_workloads(say, dev, only)
     if "recompute_pop" in only:
         recompute_pop(say, dev)
+
+
+def moving_groups_scene():
+    """``groups_scene()`` with three of its objects in motion: a copy of
+    ``chip_smoke.moving_groups_scene``, for the reason ``grad_inputs``
+    gives."""
+    import torch
+
+    from raytracing_tests_tpu_torch.scene import examples
+
+    scene, camera = examples.groups_scene()
+    dp = torch.zeros_like(scene.delta_position)
+    dp[1] = torch.tensor([0.3, 0.0, 0.0])  # the sphere
+    dp[2] = torch.tensor([0.0, 0.25, 0.1])  # the rotated ellipsoid
+    dp[3] = torch.tensor([-0.2, 0.0, 0.0])  # the rotated box
+    return scene.replace(delta_position=dp), camera
 
 
 def grad_inputs(dev, scene_cam, perturb, soft=0.0) -> dict:
@@ -455,11 +477,11 @@ def grad_workloads(say, dev, only) -> None:
     from raytracing_tests_tpu_torch.scene import examples
 
     recolour = lambda s: s.replace(color=s.color * 0.8 + 0.1)  # noqa: E731
-    rng = np.random.default_rng(0)
 
     def jitter(s):
-        dpos = rng.uniform(-0.1, 0.1, tuple(s.position.shape)).astype(np.float32)
-        return s.replace(position=s.position + torch.from_numpy(dpos).to(s.position.device))
+        dpos = np.random.default_rng(0).uniform(-0.1, 0.1, tuple(s.position.shape))
+        dpos = torch.from_numpy(dpos.astype(np.float32))
+        return s.replace(position=s.position + dpos.to(s.position.device))
 
     frames = {}
     if {"grad_split", "ri_split", "grad", "grad_soft", "grad_eager"} & only:
@@ -467,10 +489,16 @@ def grad_workloads(say, dev, only) -> None:
         frames["grad_soft"] = dict(frames["grad"], cfg=dataclasses.replace(
             frames["grad"]["cfg"], soft_edges=SOFT))
         frames["grad_eager"] = frames["grad"]
-    if "generic_hard" in only:
+    if {"generic_hard", "generic_soft"} & only:
         # probed with soft edges, then run hard, as chip_smoke.py's grad_generic_soft does
-        hard = grad_inputs(dev, examples.bvh_grid_scene(side=32), jitter, soft=SOFT)
-        frames["generic_hard"] = dict(hard, cfg=dataclasses.replace(hard["cfg"], soft_edges=0.0))
+        frames["generic_soft"] = grad_inputs(dev, examples.bvh_grid_scene(side=32), jitter,
+                                             soft=SOFT)
+        frames["generic_hard"] = dict(frames["generic_soft"], cfg=dataclasses.replace(
+            frames["generic_soft"]["cfg"], soft_edges=0.0))
+    if "motion_soft" in only:
+        frames["motion_soft"] = grad_inputs(dev, examples.motion_blur_scene(), jitter, soft=SOFT)
+    if "moving_groups_soft" in only:
+        frames["moving_groups_soft"] = grad_inputs(dev, moving_groups_scene(), jitter, soft=SOFT)
     if "grad_split" in only:
         g = frames["grad"]
         vg = diff.banded_value_and_grad(g["pert"], g["cam"], g["cfg"], grad_bands=g["bands"],
@@ -496,7 +524,8 @@ def grad_workloads(say, dev, only) -> None:
         say(workload="ri_split", band=deepest, pops=vg.bucket_cfgs[vg.bucket_of[deepest]].pops,
             ri_slots=list(vg.ri_slots[vg.bucket_of[deepest]]), **op_split(band))
         vg.release()
-    for name in ("grad", "grad_soft", "generic_hard", "grad_eager"):
+    for name in ("grad", "grad_soft", "generic_hard", "generic_soft", "motion_soft",
+                 "moving_groups_soft", "grad_eager"):
         if name not in only:
             continue
         g = frames[name]

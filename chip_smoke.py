@@ -296,11 +296,15 @@ Phases and their bars:
   winner_gather_vs_plain. The winner gather's kernels on the inputs of the
      deepest band's first pop (``first_pop_gather``: its 230 400 lanes and
      winners, the packed table and the gradient the backward gets), of the
-     grad frame (488 rows) and of the hard bvh1k frame (1 032 rows: a 70 KB
-     tile), in both builds, the backward in its tile mode and in its global
-     mode (a shared-memory budget of 0): the forward bit for bit
-     ``winner_gather_plain``, every (row, column) of the backward within
-     SCATTER_OF_SUM_ABS (1e-5) of its sum of |g| of a float64 ``index_add_``;
+     grad frame (488 rows) and of the hard bvh1k frame (1 032 rows), in both
+     builds, the gather from its tables staged in shared memory and through
+     ``__ldg`` (a budget of 0), the backward in its tile mode and in its
+     global mode (a budget of 0): the forward bit for bit
+     ``winner_gather_plain``, the backward bit for bit
+     ``winner_scatter_ordered`` at the kernel's geometry (``scatter_plan``)
+     and every (row, column) within SCATTER_OF_SUM_ABS (1e-5) of its sum of
+     |g| of a float64 ``index_add_``, five launches of each kernel on the same
+     inputs bit-identical;
      device ms (cold L2, least of 3) above the bound by bytes, the plain
      version's and the library's (one ``index_select`` a field, one
      ``index_add_`` a trainable field: the route before the kernels).
@@ -4661,8 +4665,8 @@ TRACE_NAMES = {"sweep2": "::sweep2_kernel<false, false>", "sweep2_m": "::sweep2_
                "sweep2_m_edge": "::sweep2_kernel<true, true>", "sweep2g": "::sweep2g_kernel<",
                "sweep2g_edge": "::sweep2g_edge_kernel<false>",
                "sweep2g_m_edge": "::sweep2g_edge_kernel<true>",
-               "winner_gather": "::winner_gather_kernel(",
-               "winner_scatter": "::winner_scatter_kernel(",
+               "winner_gather": "::winner_gather_kernel<",
+               "winner_scatter": "::winner_scatter_kernel<",
                "winner_recompute": "::recompute_kernel(",
                "winner_recompute_grad": "::recompute_grad_kernel(",
                "ri_sum": "::ri_sum_kernel<", "ri_sum_grad": "::ri_sum_grad_kernel<",
@@ -4672,6 +4676,9 @@ TRACE_NAMES = {"sweep2": "::sweep2_kernel<false, false>", "sweep2_m": "::sweep2_
                "queue_pop_grad": "::queue_pop_grad_kernel(",
                "queue_push2_grad": "::queue_push2_grad_kernel("}
 QUEUE_KERNELS = ("queue_pop", "queue_push2", "queue_pop_grad", "queue_push2_grad")
+# the gradient path's kernels of the port that still add floats by atomics
+# (their sums' order varies from run to run)
+FLOAT_ATOMIC_KERNELS = ("ri_sum_grad",)
 
 
 def traced_ms(by, counter):
@@ -5085,9 +5092,10 @@ def edge_vs_plain(name, g, band):
 # device memory as its bound counts (a band's pop finds its inputs cold).
 L2_FLUSH_BYTES = 128 << 20
 # The winner scatter against a float64 index_add_ of the same gradients: the
-# kernel sums a group's lanes in a tree, a block's groups in shared memory
-# and the blocks by global atomics, in float32 and in another order than a
-# sequential sum; every (row, column) within this share of its sum of |g|.
+# kernel sums a warp's lanes of a row in a tree, a block's chunks in order
+# into its tile and the blocks' tiles in runs (``gather.winner_scatter_ordered``),
+# in float32 and in another order than a sequential sum; every (row, column)
+# within this share of its sum of |g|.
 SCATTER_OF_SUM_ABS = 1e-5
 # The containment sum's default build against its plain version: a fused
 # a*b+c rounds a point's local coordinates apart, which turns a containment
@@ -5235,14 +5243,18 @@ def winner_gather_vs_plain(cases):
     """Phase winner_gather_vs_plain: the winner gather's kernels on the
     inputs of a gradient band's first pop (``first_pop_gather``: its lanes,
     winners, packed table and gradient), in the default and the -fmad=false
-    build, the backward in its tile mode and forced into its global mode (a
-    shared-memory budget of 0): the forward bit for bit ``winner_gather_plain``,
-    every (row, column) of the backward within SCATTER_OF_SUM_ABS of its sum
-    of |g| of a float64 ``index_add_``; each kernel's device time (cold L2,
-    least of 3) beside its bound by bytes, the plain version's time and the
-    library's (what ``intersect_diff`` ran before the kernels: one
-    ``index_select`` a field, then an ``index_add_`` for each of the nine
-    trainable fields, on the gradient of that field alone) -> {case: row}."""
+    build, the gather from its tables staged in shared memory and forced
+    through ``__ldg`` (a budget of 0), the backward in its tile mode and
+    forced into its global mode (a budget of 0): the forward bit for bit
+    ``winner_gather_plain``; the backward bit for bit
+    ``winner_scatter_ordered`` at the kernel's geometry (``scatter_plan``)
+    and every (row, column) within SCATTER_OF_SUM_ABS of its sum of |g| of a
+    float64 ``index_add_``; five launches of each kernel on the same inputs
+    bit-identical; each kernel's device time (cold L2, least of 3) beside
+    its bound by bytes, the plain version's time and the library's (what
+    ``intersect_diff`` ran before the kernels: one ``index_select`` a field,
+    then an ``index_add_`` for each of the nine trainable fields, on the
+    gradient of that field alone) -> {case: row}."""
     rows = {}
     for label, c in cases.items():
         table, ints, obj, widths, grads = (c[k] for k in ("table", "ints", "obj", "widths",
@@ -5254,32 +5266,47 @@ def winner_gather_vs_plain(cases):
         grad_out = torch.cat([torch.zeros((B, w), device=table.device) if q is None
                               else q.reshape(B, w) for q, w in zip(grads, widths)], dim=1)
         G = sum(w for q, w in zip(grads, widths) if q is not None)
+        plan = gather.scatter_plan(B, N, G, table.device)
+        ordered = gather.winner_scatter_ordered(grads, obj, N, widths, plan["warp"],
+                                                plan["block_lanes"], plan["segments"])
         exact = torch.zeros((N, F), dtype=torch.float64, device=table.device)
         scale = torch.zeros_like(exact)
         exact.index_add_(0, safe, grad_out.double())
         scale.index_add_(0, safe, grad_out.abs().double())
         modes = {"tile": gather.SMEM_BUDGET, "global": 0}
+        routes = {"shared": gather.GATHER_SMEM_BUDGET, "ldg": 0}
         forward, backward = {}, {}
         for build, ctx in (("default", contextlib.nullcontext), ("precise", _build.precise)):
             with ctx():
-                outs, iouts = gather._launch_gather(table, obj, ints, widths)
-                tables = {m: gather._launch_scatter(grads, obj, N, widths, budget)
-                          for m, budget in modes.items()}
+                gathered = {r: [gather._launch_gather_routed(table, obj, ints, widths, budget)
+                                for _ in range(5)] for r, budget in routes.items()}
+                tables = {m: [gather._launch_scatter(grads, obj, N, widths, budget)
+                              for _ in range(5)] for m, budget in modes.items()}
             torch.cuda.synchronize()
-            got_f, got_i = torch.cat([v.reshape(B, -1) for v in outs], 1), torch.stack(iouts, 1)
-            forward[build] = dict(
-                max_abs_err=max(float((got_f - want).abs().max()),
-                                float((got_i - want_i).abs().max())),
-                frac_equal=(int((got_f == want).sum()) + int((got_i == want_i).sum()))
-                / (got_f.numel() + got_i.numel()))
-            for m, (grad, ran) in tables.items():
+            for r, runs in gathered.items():
+                outs, iouts, ran = runs[0]
+                got_f, got_i = (torch.cat([v.reshape(B, -1) for v in outs], 1),
+                                torch.stack(iouts, 1))
+                forward[f"{build}_{r}"] = dict(
+                    ran=ran, max_abs_err=max(float((got_f - want).abs().max()),
+                                             float((got_i - want_i).abs().max())),
+                    frac_equal=(int((got_f == want).sum()) + int((got_i == want_i).sum()))
+                    / (got_f.numel() + got_i.numel()),
+                    five_identical=all(all(torch.equal(x, y) for x, y in zip(o + i, outs + iouts))
+                                       for o, i, _ in runs[1:]))
+            for m, runs in tables.items():
+                grad, ran = runs[0]
                 err = (grad.double() - exact).abs()
                 bar = SCATTER_OF_SUM_ABS * scale
                 backward[f"{build}_{m}"] = dict(
-                    ran=ran, max_abs_err=float(err.max()),
+                    ran=ran, equal_ordered=torch.equal(grad, ordered),
+                    max_abs_err_vs_ordered=float((grad - ordered).abs().max()),
+                    five_identical=all(torch.equal(r[0], grad) for r in runs[1:]),
+                    max_abs_err=float(err.max()),
                     worst_err_of_bar=float((err / bar.clamp_min(1e-300))[scale > 0].max()),
                     untouched_exact=bool((err[scale == 0] == 0).all()),
                     frac_within=frac(torch.where(scale > 0, err <= bar, err == 0)))
+            del gathered, tables
         columns, at = [], 0  # (first column, width) of each packed field
         for w in widths:
             columns.append((at, w))
@@ -5295,11 +5322,14 @@ def winner_gather_vs_plain(cases):
         g_bytes = 4 * B + 4 * B * (F + FI) + 4 * N * (F + FI)
         s_bytes = 4 * B + 4 * B * G + 4 * N * F
         row = dict(
-            lanes=B, rows=N, columns=F, int_columns=FI, grad_columns=G,
+            lanes=B, rows=N, columns=F, int_columns=FI, grad_columns=G, scatter_plan=plan,
             lanes_on_row0=int((safe == 0).sum()), lanes_without_winner=int((obj < 0).sum()),
             rows_touched=int(torch.unique(safe).numel()),
             forward_vs_plain=forward, backward=backward,
             gather_ms=cold_ms(lambda: gather._launch_gather(table, obj, ints, widths)),
+            gather_ms_by_route={r: cold_ms(lambda b=b: gather._launch_gather(table, obj, ints,
+                                                                             widths, b))
+                                for r, b in routes.items()},
             gather_plain_ms=cold_ms(lambda: gather._gather_plain(table, obj, ints, widths)),
             gather_library_ms=cold_ms(lambda: [torch.index_select(f, 0, safe) for f in fields]),
             gather_bound_ms=g_bytes / PEAK_BYTES_PER_S * 1e3,
@@ -5311,13 +5341,16 @@ def winner_gather_vs_plain(cases):
         rows[label] = row
         say(phase="winner_gather_vs_plain", case=label, **row)
     for label, r in rows.items():
-        require(all(f["max_abs_err"] == 0.0 and f["frac_equal"] == 1.0
-                    for f in r["forward_vs_plain"].values()),
-                f"winner_gather_vs_plain, {label}: the forward differs from index_select: {r}")
-        require(all(b["ran"] == key.split("_")[1] and b["worst_err_of_bar"] <= 1.0
-                    and b["untouched_exact"] for key, b in r["backward"].items()),
-                f"winner_gather_vs_plain, {label}: the backward against a float64 index_add_: "
-                f"{r['backward']}")
+        require(all(f["ran"] == key.split("_")[1] and f["max_abs_err"] == 0.0
+                    and f["frac_equal"] == 1.0 and f["five_identical"]
+                    for key, f in r["forward_vs_plain"].items()),
+                f"winner_gather_vs_plain, {label}: the forward differs from index_select or "
+                f"from launch to launch: {r['forward_vs_plain']}")
+        require(all(b["ran"] == key.split("_")[1] and b["equal_ordered"] and b["five_identical"]
+                    and b["worst_err_of_bar"] <= 1.0 and b["untouched_exact"]
+                    for key, b in r["backward"].items()),
+                f"winner_gather_vs_plain, {label}: the backward against winner_scatter_ordered, "
+                f"itself, or a float64 index_add_: {r['backward']}")
         require(r["gather_ms"] > r["gather_bound_ms"]
                 and min(r["scatter_ms"].values()) > r["scatter_bound_ms"],
                 f"winner_gather_vs_plain, {label}: a kernel at or below its bound, a counting "
@@ -5344,10 +5377,13 @@ def winner_entries(rows, paths):
              launches_by_path=by_path("winner_gather"),
              max_abs_err=max(f["max_abs_err"] for r in rows.values()
                              for f in r["forward_vs_plain"].values()),
-             tolerance="bit for bit index_select, the default and the -fmad=false build",
+             tolerance="bit for bit index_select, the default and the -fmad=false build, the "
+                       "tables staged in shared memory and read through __ldg, five launches "
+                       "bit-identical",
              frac_within_tolerance=min(f["frac_equal"] for r in rows.values()
                                        for f in r["forward_vs_plain"].values()),
-             ms=main["gather_ms"], plain_ms=main["gather_plain_ms"],
+             ms=main["gather_ms"], ms_by_route=main["gather_ms_by_route"],
+             ms_bvh1k=rows["bvh1k"]["gather_ms"], plain_ms=main["gather_plain_ms"],
              bound_ms=main["gather_bound_ms"], bound_by="bytes",
              library_ms=main["gather_library_ms"],
              library="torch.index_select a field (13), as intersect_diff ran before",
@@ -5358,11 +5394,13 @@ def winner_entries(rows, paths):
              launches_by_path=by_path("winner_scatter"),
              max_abs_err=max(b["max_abs_err"] for r in rows.values()
                              for b in r["backward"].values()),
-             tolerance=f"every (row, column) within {SCATTER_OF_SUM_ABS} of its sum of |g| of a "
-                       f"float64 index_add_, both builds, the tile and the global mode",
+             tolerance=f"bit for bit winner_scatter_ordered at the kernel's geometry and every "
+                       f"(row, column) within {SCATTER_OF_SUM_ABS} of its sum of |g| of a "
+                       f"float64 index_add_, five launches bit-identical, both builds, the tile "
+                       f"and the global mode",
              frac_within_tolerance=min(b["frac_within"] for r in rows.values()
                                        for b in r["backward"].values()),
-             ms=main["scatter_ms"]["tile"],
+             ms=main["scatter_ms"]["tile"], ms_bvh1k=rows["bvh1k"]["scatter_ms"]["tile"],
              ms_global_mode=main["scatter_ms"]["global"], plain_ms=main["scatter_plain_ms"],
              bound_ms=main["scatter_bound_ms"], bound_by="bytes",
              library_ms=main["scatter_library_ms"],
@@ -6754,6 +6792,19 @@ def grad_phases(dev, k3_canary):
     kh = grad_step(hard, replays=1)
     by_hard = step_device(kh, hard, "grad_generic_step")
     hard_ms = traced_ms(by_hard, "sweep2g")
+    # two more replayed hard steps: the same field gradients bit for bit? (no
+    # containment sum on this path; the winner scatter adds by no atomic)
+    replays = []
+    for _ in range(2):
+        loss_r, grads_r = kh["vg"](hard["p"], hard["target"])
+        replays.append((float(loss_r), {n: v.clone() for n, v in grads_r.items()}))
+    hard_repeat = dict(
+        loss_identical=replays[0][0] == replays[1][0],
+        fields_identical={n: bool(torch.equal(v, replays[1][1][n]))
+                          for n, v in replays[0][1].items()},
+        kernels_adding_by_float_atomics=[n for n in FLOAT_ATOMIC_KERNELS
+                                         if kh["step_launches"].get(n)])
+    del replays
     # both steps once more, eagerly, with every K3 launch timed in each coop_min
     k3_hard = k3_coop_sweep("hard generic step", hard, "sweep2g")
     k3_soft = k3_coop_sweep("generic soft step", gg, "sweep2g_edge")
@@ -6770,7 +6821,8 @@ def grad_phases(dev, k3_canary):
                hard_simt_efficiency=k3_hard["simt_efficiency"],
                hard_simt_efficiency_per_lane_mode=k3_hard["simt_efficiency_per_lane_mode"],
                loss=float(kg["loss"]),
-               hard_loss=float(kh["loss"]), peak_memory_bytes=kg["peak_memory_bytes"],
+               hard_loss=float(kh["loss"]), hard_replays_repeat=hard_repeat,
+               peak_memory_bytes=kg["peak_memory_bytes"],
                launches=kg["step_launches"], hard_launches=kh["step_launches"],
                position_grad_max=float(kg["grads"].position.abs().max()),
                finite=all(bool(torch.isfinite(v).all())

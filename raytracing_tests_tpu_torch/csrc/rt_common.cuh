@@ -42,6 +42,17 @@
 #define RT_LAUNCH_SMEM(kernel, blocks, threads, smem, stream, ...) \
   kernel<<<(blocks), (threads), (smem), (stream)>>>(__VA_ARGS__)
 #endif
+// A cooperative launch of a kernel that takes one argument struct `arg`:
+// every block resident at once, so the kernel may wait for the whole grid
+// (cooperative_groups' grid sync) -> the launch's error code.
+#ifndef RT_LAUNCH_COOPERATIVE
+#define RT_LAUNCH_COOPERATIVE(kernel, blocks, threads, smem, stream, arg)                  \
+  ([&]() -> int {                                                                      \
+    void* rt_args[] = {(void*)&(arg)};                                                 \
+    return (int)cudaLaunchCooperativeKernel((const void*)(kernel), dim3(blocks),        \
+                                            dim3(threads), rt_args, (smem), (stream)); \
+  }())
+#endif
 #ifndef RT_DYNAMIC_SHARED
 #define RT_DYNAMIC_SHARED(type, name) extern __shared__ __align__(16) type name[]
 #endif

@@ -7,13 +7,17 @@ recompute gathers the winner's row of each scene field per lane
 others), and XLA fuses those gathers and their scatter-add transpose.  Their
 counterpart here is one pair of hand-written CUDA kernels
 (``csrc/gather.cu``): ``winner_gather``'s forward reads every field in one
-launch (counted as ``winner_gather``), each field into its own contiguous
-tensor, so that the recompute's elementwise kernels read dense rows; its
-backward adds every field's gradient into the table in one launch
-(``winner_scatter``), grouping a warp's lanes by row and summing in shared
-memory first, so that the many lanes of one object (the ground sphere owns
-half of them) do not serialise on the same global atomics as
-``index_add_``'s do.
+launch (counted as ``winner_gather``), one thread a lane over the tables
+staged in shared memory, each field into its own contiguous tensor, so that
+the recompute's elementwise kernels read dense rows; its backward sums every
+field's gradient into the table in one cooperative launch
+(``winner_scatter``): a warp's lanes of one row by a tree of shuffles, a
+block's chunks into its own tile, the blocks' tiles in block order after a
+grid barrier.  It adds by no atomic, so the many lanes of one object (the
+ground sphere owns half of them) neither serialise as ``index_add_``'s do
+nor add in an order that changes from run to run: the same inputs give the
+same bits on every launch, in the order ``winner_scatter_ordered`` spells
+out.
 
 The fields are packed once a scene object (``winner_table``): one float32
 table (N, F) of the nine trainable fields (``GRAD_COLUMNS`` = 17 columns, in
@@ -24,8 +28,10 @@ The pack's backward is the split of the table's gradient into the fields.
 
 ``winner_gather_plain`` is the same gather in plain PyTorch (``index_select``,
 whose backward is ``index_add_``), and ``winner_scatter_plain`` the backward
-(``index_add_``).  ``winner_gather`` uses them only for tensors that lie on
-the CPU; for CUDA tensors it launches the kernels or raises.
+(``index_add_``); ``winner_scatter_ordered`` is the backward summed in the
+kernel's order (for tests, at the geometry ``scatter_plan`` gives).
+``winner_gather`` uses the first two only for tensors that lie on the CPU;
+for CUDA tensors it launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -44,11 +50,18 @@ FLOAT_FIELDS = (("position", 3), ("scale", 3), ("delta_position", 3), ("color", 
                 ("scatter_refract", 1), ("scatter_reflect", 1), ("rotation", 9))
 GRAD_COLUMNS = 17  # the nine trainable fields' columns (diff.params.FLOAT_FIELDS)
 INT_FIELDS = ("obj_type", "texture_index", "emissive")
-# Shared memory the backward's tile may take: its (N, G) floats and a bit a
-# row (``csrc/gather.cu``).  488 rows x 17 columns need 33 KB, bvh1k's 1 032
-# rows 70 KB; above it the backward adds straight into global memory.
-SMEM_BUDGET = 96 * 1024
+# Shared memory the backward's tile mode may take: its (N, G) floats and two
+# buffers of a batch's rows and gradients (``csrc/gather.cu``).  488 rows x
+# 17 columns take 109 KB (batches of 512 lanes), bvh1k's 1 032 rows x 26
+# columns 163 KB (256 lanes); above it each block adds into its tile in the
+# scratch (the global mode).
+SMEM_BUDGET = 200 * 1024
+# Shared memory the gather's staged tables may take (with a warp's stage of
+# the widest field): 488 rows 93 KB, 1 032 rows 160 KB; above it the gather
+# reads the tables through the L1 and L2 caches.
+GATHER_SMEM_BUDGET = 192 * 1024
 MAX_FIELDS = 16  # fields of the float table, and int columns (csrc/gather.cu)
+WARP = 32  # a warp's lanes on the card; the host rehearsal's warps have one
 
 
 WIDTHS = tuple(w for _, w in FLOAT_FIELDS)
@@ -130,6 +143,105 @@ def winner_scatter_plain(grad_out, obj, rows: int):
     return out.index_add_(0, obj.clamp_min(0).long(), grad_out)
 
 
+def winner_scatter_ordered(grads, obj, rows: int, widths, warp: int, block_lanes: int,
+                           segments: int = 1):
+    """The backward in ``csrc/gather.cu``'s order of sums, in plain PyTorch:
+    ``grads`` one gradient a field (None where it has none), ``widths`` the
+    fields' -> (rows, F) float32, 0 in the columns of the fields without a
+    gradient.  Lanes fall into blocks of ``block_lanes`` (a multiple of
+    ``warp``) and chunks of ``warp``; a chunk's lanes of one row are summed
+    by a tree over their ranks in lane order (at step 1, 2, 4, ... the rank
+    r = 0 mod 2 step takes r + step's partial sum); each block's tile sums
+    its chunks' sums from 0 in chunk order; the output sums the tiles in
+    ``segments`` runs of consecutive blocks, each from 0, and the runs' sums
+    from 0 in order.  Equal bit for bit to the kernel at the same geometry
+    (``scatter_plan``): float32 adds, one at a time, as the kernel does them."""
+    B, F = obj.shape[0], sum(widths)
+    cols, vals, at = [], [], 0
+    for g, w in zip(grads, widths):
+        if g is not None:
+            cols.extend(range(at, at + w))
+            vals.append(g.reshape(B, w))
+        at += w
+    like = next(g for g in grads if g is not None)
+    out = torch.zeros((rows, F), dtype=torch.float32, device=like.device)
+    if B == 0 or rows == 0:
+        return out
+    v = torch.cat(vals, dim=1).to(torch.float32)
+    G, dev = v.shape[1], v.device
+
+    def runs(key):
+        """(sorted key, stable order, rank of each in its run of equal
+        keys, each run's start)."""
+        key, order = torch.sort(key, stable=True)
+        first = torch.ones_like(key, dtype=torch.bool)
+        first[1:] = key[1:] != key[:-1]
+        starts = torch.nonzero(first).flatten()
+        rank = torch.arange(key.numel(), device=dev) - starts[torch.cumsum(first, 0) - 1]
+        return key, order, rank, starts
+
+    lanes = torch.arange(B, device=dev)
+    key, order, rank, starts = runs((lanes // warp) * rows + obj.long().clamp_min(0))
+    v = v[order]
+    size = torch.diff(torch.cat([starts, starts.new_tensor([B])]))
+    size = torch.repeat_interleave(size, size)
+    step = 1
+    while step < warp:  # the tree, one step for all chunks at once
+        at = torch.nonzero((rank % (2 * step) == 0) & (rank + step < size)).flatten()
+        v[at] = v[at] + v[at + step]
+        step *= 2
+    sums, gkey = v[starts], key[starts]  # each chunk's sum of a row, by chunk then row
+    block = gkey // rows // (block_lanes // warp)
+    tkey, order, pos, _ = runs(block * rows + gkey % rows)  # chunk order kept in each run
+    sums = sums[order]
+    blocks = -(-B // block_lanes)
+    tiles = torch.zeros((blocks * rows, G), dtype=torch.float32, device=dev)
+    for p in range(int(pos.max()) + 1):  # each tile entry's p-th chunk sum
+        at = torch.nonzero(pos == p).flatten()
+        tiles[tkey[at]] = tiles[tkey[at]] + sums[at]
+    tiles = tiles.view(blocks, rows, G)
+    per = -(-blocks // segments)
+    total = torch.zeros((rows, G), dtype=torch.float32, device=dev)
+    for s in range(segments):
+        run = torch.zeros_like(total)
+        for q in range(s * per, min((s + 1) * per, blocks)):
+            run = run + tiles[q]
+        total = total + run
+    out[:, cols] = total
+    return out
+
+
+def _sm_count(dev) -> int:
+    """The card's streaming multiprocessors (1 for the host rehearsal)."""
+    if dev.type != "cuda":
+        return 1
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    got = _SMS.get(key)
+    if got is None:
+        got = _SMS[key] = torch.cuda.get_device_properties(key).multi_processor_count
+    return got
+
+
+_SMS: dict = {}
+
+
+def scatter_plan(B: int, rows: int, G: int, device, blocks: int = 0) -> dict:
+    """The backward's geometry for B lanes, ``rows`` rows and G columns with
+    a gradient on ``device``: ``blocks`` (one a streaming multiprocessor, or
+    as many as asked for, at most one a warp's chunk of lanes),
+    ``block_lanes`` (each block's run of lanes, a multiple of the warp),
+    ``warp`` (32 on the card, 1 in the host rehearsal) and ``segments`` (the
+    final sum's runs of blocks: a warp a column, at most 32) ->
+    ``winner_scatter_ordered``'s arguments."""
+    device = torch.device(device)
+    warp = 1 if device.type == "cpu" else WARP
+    chunks = -(-B // warp)
+    n = max(1, min(int(blocks) or _sm_count(device), chunks))
+    per = -(-chunks // n) * warp
+    return dict(blocks=-(-B // per) if B else 0, block_lanes=per, warp=warp,
+                segments=max(1, min(G, 32)))
+
+
 def _field_shapes(B: int, widths):
     return [(B, w) if w > 1 else (B,) for w in widths]
 
@@ -152,10 +264,17 @@ def _pointers(tensors):
                                               for t in tensors])
 
 
-def _launch_gather(table, obj, ints, widths):
+def _launch_gather(table, obj, ints, widths, smem_budget: int = GATHER_SMEM_BUDGET):
     """Check the arguments and launch ``rt_winner_gather`` on the current
     stream -> (the fields' outputs (B, width) float32, (B,) where the width
     is 1; the int columns' outputs (B,) int32)."""
+    return _launch_gather_routed(table, obj, ints, widths, smem_budget)[:2]
+
+
+def _launch_gather_routed(table, obj, ints, widths, smem_budget: int = GATHER_SMEM_BUDGET):
+    """``_launch_gather`` -> (its outputs, the route the kernel read the
+    tables by: "shared" where they fit ``smem_budget`` bytes of shared
+    memory, else "ldg")."""
     dev = table.device
     _check("table", table, torch.float32, 2, dev)
     _check("obj", obj, torch.int32, 1, dev)
@@ -170,22 +289,25 @@ def _launch_gather(table, obj, ints, widths):
     fn = _build.load("gather").rt_winner_gather
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, p, ctypes.c_longlong, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, i, p, ctypes.c_longlong, i, i, i, p, ctypes.c_longlong, p]
         fn.restype = ctypes.c_int
+    staged = ctypes.c_int(-1)
     code = fn(table.data_ptr(), ints.data_ptr(), obj.data_ptr(), _pointers(outs),
               (ctypes.c_int * len(widths))(*widths), len(widths), _pointers(iouts), B, N, F, FI,
-              _build.stream_of(dev))
+              _build.stream_of(dev), smem_budget, ctypes.byref(staged))
     _build.check(code, "rt_winner_gather")
     if B and N:
         _build.LAUNCHES["winner_gather"] += 1
-    return outs, iouts
+    return outs, iouts, "shared" if staged.value == 1 else "ldg"
 
 
-def _launch_scatter(grads, obj, rows: int, widths, smem_budget: int = SMEM_BUDGET):
+def _launch_scatter(grads, obj, rows: int, widths, smem_budget: int = SMEM_BUDGET,
+                    blocks: int = 0):
     """Check the arguments and launch ``rt_winner_scatter`` on the current
     stream: ``grads`` one gradient a field (its output's shape), None where
-    it has none -> (grad_table (rows, F) float32, the mode: "tile" or
-    "global")."""
+    it has none, at ``scatter_plan``'s geometry (``blocks``: 0 for one a
+    streaming multiprocessor) -> (grad_table (rows, F) float32, the mode:
+    "tile" or "global")."""
     dev = obj.device
     _check("obj", obj, torch.int32, 1, dev)
     B = obj.shape[0]
@@ -198,18 +320,26 @@ def _launch_scatter(grads, obj, rows: int, widths, smem_budget: int = SMEM_BUDGE
             if tuple(g.shape) != sh:
                 raise ValueError(f"grad {tuple(g.shape)}, expected {sh} for obj's {B} lanes")
     _build.check_device(dev)
-    out = torch.zeros((rows, sum(widths)), dtype=torch.float32, device=dev)
+    G = sum(w for g, w in zip(grads, widths) if g is not None)
+    launch = bool(B and rows and G)
+    # the kernel writes every entry; the scratch holds each block's tile
+    plan = scatter_plan(B, rows, G, dev, blocks) if launch else dict(blocks=0, block_lanes=0,
+                                                                       segments=1)
+    out = (torch.empty if launch else torch.zeros)((rows, sum(widths)), dtype=torch.float32,
+                                                   device=dev)
+    partial = torch.empty((plan["blocks"] * rows * G,), dtype=torch.float32, device=dev)
     fn = _build.load("gather").rt_winner_scatter
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, p, p, ctypes.c_longlong, i, i, ctypes.c_longlong, p, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, i, p, p, ll, i, i, ll, p, p, i, ll, i, p]
         fn.restype = ctypes.c_int
     tile = ctypes.c_int(-1)
     code = fn(_pointers(grads), (ctypes.c_int * len(widths))(*widths), len(widths),
               obj.data_ptr(), out.data_ptr(), B, rows, out.shape[1], smem_budget,
-              ctypes.byref(tile), _build.stream_of(dev))
+              ctypes.byref(tile), partial.data_ptr(), plan["blocks"], plan["block_lanes"],
+              plan["segments"], _build.stream_of(dev))
     _build.check(code, "rt_winner_scatter")
-    if B and rows and any(g is not None for g in grads):
+    if launch:
         _build.LAUNCHES["winner_scatter"] += 1
     return out, "tile" if tile.value == 1 else "global"
 
@@ -314,9 +444,12 @@ def winner_gather(table, obj, ints, *, widths, grad_cols=None):
     gradients into their rows.  The fields that start at or after column
     ``grad_cols`` (None: none) come out non-differentiable, so their columns'
     gradient is zero: pass it only where those columns' sources need none
-    (``WinnerTable`` does).  The backward's tile mode runs where the tile of
-    the columns with a gradient fits ``SMEM_BUDGET`` bytes of shared memory,
-    else its global mode.
+    (``WinnerTable`` does).  The gather reads the tables from shared memory
+    where they fit ``GATHER_SMEM_BUDGET`` bytes, else through the caches.
+    The backward's tile mode runs where the tile of the columns with a
+    gradient fits ``SMEM_BUDGET`` bytes of shared memory, else its global
+    mode; both sum in ``winner_scatter_ordered``'s order, so the same inputs
+    give the same gradient bit for bit on every launch.
 
     CPU tensors go through ``winner_gather_plain`` and
     ``winner_scatter_plain``; CUDA tensors launch the kernels of

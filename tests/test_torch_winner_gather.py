@@ -1,8 +1,9 @@
 """The gradient path's winner gather (``kernels.gather``).
 
-Inputs come from a numpy seed: N = 37 and 488 rows, B = 4096 lanes, half of
-them on row 0 (the ground sphere's share on the gradient path), some on -1
-(no winner: row 0 is read and takes the gradient) and the rest uniform.
+Inputs come from a numpy seed: N = 37, 488 and 1 032 rows, B = 4096 lanes,
+half of them on row 0 (the ground sphere's share on the gradient path), some
+on -1 (no winner: row 0 is read and takes the gradient) and the rest
+uniform.
 
 ``winner_gather_plain`` is held against the JAX package's
 ``table[jnp.maximum(obj, 0)]`` and its ``jax.vjp``; ``winner_gather`` (the
@@ -10,11 +11,16 @@ them on row 0 (the ground sphere's share on the gradient path), some on -1
 float64.  Where there is a g++, the kernel source ``csrc/gather.cu``
 compiled as host C++ (``_build.host_rehearsal``) is held against the plain
 versions in both modes of the backward, the shared tile and the global
-atomics (forced by a small shared-memory budget): the forward bit for bit
-(a copy), the backward within 1e-6 of each (row, column)'s sum of |g| (its
-sums run in another order).  The whole gradient step through the rehearsed
-kernels equals the plain route and launches one gather and one scatter for
-each call of ``intersect_diff``.  ``test_torch_diff.py`` and
+mode (forced by a small shared-memory budget): the forward bit for bit (a
+copy), from shared memory and through ``__ldg``; the backward bit for bit
+``winner_scatter_ordered`` at the rehearsal's geometry (warps of one lane,
+one block or three) and within 1e-6 of each (row, column)'s sum of |g| of a
+float64 sum.  ``winner_scatter_ordered`` itself is held against a float64
+``index_add_`` and, at the card's warp of 32 lanes, against a model of the
+kernel's warp (its ``__match_any_sync`` groups and shuffle tree in numpy),
+which the host rehearsal cannot run.  The whole gradient step through the
+rehearsed kernels equals the plain route and launches one gather and one
+scatter for each call of ``intersect_diff``.  ``test_torch_diff.py`` and
 ``test_torch_diff_train.py`` hold ``intersect_diff`` and the step, which
 gather through ``winner_gather``, against the JAX package.
 """
@@ -142,6 +148,153 @@ def test_kernel_source_rehearsed_on_the_host(n_rows, mode):
         assert ran == mode
         assert _within_sum_abs(grad, g, obj, n_rows, cols) <= 1.0
         assert not grad[:, cols:].any()
+
+
+def _pieces(g, widths, cols):
+    """``g`` (B, F) cut into the fields' gradients, None from column ``cols``
+    on (the fields without a gradient)."""
+    pieces = [q.reshape(sh).contiguous() for q, sh in zip(
+        torch.split(g, list(widths), dim=1), gather._field_shapes(g.shape[0], widths))]
+    return [q if sum(widths[:k]) < cols else None for k, q in enumerate(pieces)]
+
+
+@pytest.mark.parametrize("n_rows", [37, 488, 1032])
+@pytest.mark.parametrize("cols", [gather.GRAD_COLUMNS, F])
+@pytest.mark.parametrize("mode", ["tile", "global"])
+def test_rehearsed_kernels_bit_for_bit(n_rows, cols, mode):
+    """The sources rehearsed on the host: the gather from its tables staged
+    in shared memory equals ``index_select`` bit for bit; the backward, in
+    one block and in three, equals ``winner_scatter_ordered`` at the
+    rehearsal's geometry bit for bit, and a float64 sum within 1e-6 of each
+    (row, column)'s sum of |g|."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to rehearse the kernel source with")
+    table, ints, obj, g = _inputs(n_rows, seed=n_rows + cols)
+    t, i, o, gg = map(torch.from_numpy, (table, ints, obj, g))
+    widths = gather.WIDTHS
+    grads = _pieces(gg, widths, cols)
+    budget = gather.SMEM_BUDGET if mode == "tile" else 1024
+    with _build.host_rehearsal():
+        outs, iouts, route = gather._launch_gather_routed(t, o, i, widths)
+        got = {n: gather._launch_scatter(grads, o, n_rows, widths, budget, blocks=n)
+               for n in (0, 3)}
+    want, want_i = gather.winner_gather_plain(t, o, i)
+    assert route == "shared"
+    assert torch.equal(torch.cat([v.reshape(B, -1) for v in outs], 1), want)
+    assert torch.equal(torch.stack(iouts, 1), want_i)
+    for blocks, (grad, ran) in got.items():
+        plan = gather.scatter_plan(B, n_rows, cols, "cpu", blocks)
+        assert ran == mode and plan["blocks"] == (blocks or 1) and plan["warp"] == 1
+        ordered = gather.winner_scatter_ordered(grads, o, n_rows, widths, plan["warp"],
+                                                plan["block_lanes"], plan["segments"])
+        assert torch.equal(grad, ordered)
+        assert _within_sum_abs(grad, g, obj, n_rows, cols) <= 1.0
+        assert not grad[:, cols:].any()
+
+
+@pytest.mark.parametrize("n_rows, budget", [(37, 0), (2100, gather.GATHER_SMEM_BUDGET)])
+def test_a_table_over_the_budget_is_read_through_ldg(n_rows, budget):
+    """A table whose staging would take more than the budget (2 100 rows of
+    26 float and 3 int columns: 244 KB against 192 KB; or any table against
+    a budget of 0) is read through ``__ldg`` by the same kernel, bit for bit
+    ``index_select``."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to rehearse the kernel source with")
+    t, i, o, _ = map(torch.from_numpy, _inputs(n_rows, seed=7))
+    with _build.host_rehearsal():
+        outs, iouts, route = gather._launch_gather_routed(t, o, i, gather.WIDTHS, budget)
+    want, want_i = gather.winner_gather_plain(t, o, i)
+    assert route == "ldg"
+    assert torch.equal(torch.cat([v.reshape(B, -1) for v in outs], 1), want)
+    assert torch.equal(torch.stack(iouts, 1), want_i)
+
+
+@pytest.mark.parametrize("warp, block_lanes, segments", [(1, B, 1), (32, 32 * 9, 17),
+                                                         (32, 32 * 128, 26)])
+def test_the_ordered_sum_against_a_float64_index_add(warp, block_lanes, segments):
+    """``winner_scatter_ordered`` on random rows with half the lanes on row 0
+    against a float64 ``index_add_``: every (row, column) within 1e-6 of its
+    sum of |g|, the columns without a gradient 0; with one block and warps
+    of one lane it is a sum in lane order."""
+    table, ints, obj, g = _inputs(488, seed=11)
+    gg, o = torch.from_numpy(g), torch.from_numpy(obj)
+    grads = _pieces(gg, gather.WIDTHS, gather.GRAD_COLUMNS)
+    got = gather.winner_scatter_ordered(grads, o, 488, gather.WIDTHS, warp, block_lanes, segments)
+    assert got.dtype == torch.float32 and got.shape == (488, F)
+    assert _within_sum_abs(got, g, obj, 488, gather.GRAD_COLUMNS) <= 1.0
+    assert not got[:, gather.GRAD_COLUMNS:].any()
+    if warp == 1 and block_lanes == B:
+        want = torch.zeros((488, F))
+        for b in range(B):  # one lane after another
+            want[max(int(obj[b]), 0)] += torch.cat([gg[b, :gather.GRAD_COLUMNS],
+                                                     torch.zeros(F - gather.GRAD_COLUMNS)])
+        assert torch.equal(got, want)
+
+
+def _warp_model(g, obj, rows, block_lanes, segments):
+    """``csrc/gather.cu``'s backward at warps of 32 lanes, lane by lane in
+    numpy: each chunk's ``__match_any_sync`` groups, each lane's shuffle
+    sources as ``tree_word`` works them out, the five shuffle steps, the
+    group leaders' adds into the block's tile in chunk order, and the tiles
+    summed in runs of blocks."""
+    B = obj.shape[0]
+    cols = g.shape[1]
+    blocks = -(-B // block_lanes)
+    tiles = np.zeros((blocks, rows, cols), np.float32)
+    for j in range(blocks):
+        end = min((j + 1) * block_lanes, B)
+        for base in range(j * block_lanes, end, 32):
+            idx = np.arange(base, base + 32)
+            valid = idx < end
+            row = np.where(valid, np.maximum(obj[np.minimum(idx, B - 1)], 0), -1)
+            words = []
+            for lane in range(32):
+                peers = sum(1 << m for m in range(32) if row[m] == row[lane])
+                rank = bin(peers & ((1 << lane) - 1)).count("1")
+                above = peers & ~((2 << lane) - 1) & 0xFFFFFFFF
+                skipped, steps = 0, []
+                for k in range(5):
+                    while above and skipped < (1 << k) - 1:
+                        above &= above - 1
+                        skipped += 1
+                    adds = above != 0 and (rank & ((2 << k) - 1)) == 0
+                    steps.append(((above & -above).bit_length() - 1 if adds else lane, adds))
+                words.append((rank == 0 and row[lane] >= 0, steps))
+            for c in range(cols):
+                x = np.where(valid, g[np.minimum(idx, B - 1), c], 0).astype(np.float32)
+                for k in range(5):
+                    y = x[[words[m][1][k][0] for m in range(32)]]
+                    x = np.where([words[m][1][k][1] for m in range(32)], x + y, x)
+                for m in range(32):
+                    if words[m][0]:
+                        tiles[j, row[m], c] += x[m]
+    per = -(-blocks // segments)
+    out = np.zeros((rows, cols), np.float32)
+    for s in range(segments):
+        run = np.zeros((rows, cols), np.float32)
+        for q in range(s * per, min((s + 1) * per, blocks)):
+            run += tiles[q]
+        out += run
+    return out
+
+
+def test_the_ordered_sum_is_the_kernels_order_at_a_warp_of_32():
+    """At the card's warps of 32 lanes (which the host rehearsal, one lane a
+    warp, cannot run), ``winner_scatter_ordered`` equals the model of the
+    kernel's warp bit for bit: a ragged last chunk and block, values of
+    mixed magnitudes, so that another order of adds would round apart."""
+    rng = np.random.default_rng(5)
+    lanes, rows = 32 * 40 + 7, 23
+    obj = rng.integers(-1, rows, lanes).astype(np.int32)
+    obj[rng.random(lanes) < 0.5] = 0
+    g = (rng.normal(size=(lanes, 3)) * 10.0 ** rng.integers(-3, 3, (lanes, 1))).astype(np.float32)
+    want = _warp_model(g, obj, rows, 32 * 9, 5)
+    got = gather.winner_scatter_ordered([torch.from_numpy(g)], torch.from_numpy(obj), rows, (3,),
+                                        32, 32 * 9, 5)
+    assert np.array_equal(got.numpy(), want)
+    # the order matters at these magnitudes: a sum in lane order rounds apart
+    plain = gather.winner_scatter_plain(torch.from_numpy(g), torch.from_numpy(obj), rows)
+    assert not torch.equal(plain, got)
 
 
 def test_the_wrappers_check_their_arguments():
