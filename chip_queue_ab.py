@@ -59,6 +59,27 @@ that root's sources.  Workloads, at the sizes ``chip_smoke.py`` drives them:
   queue pop's ``index_select`` backward (destination rows = (Q + 1) times
   the band's lanes) or other.  A replayed graph launches no operator, so
   the shapes come from the eager band (the same kernels);
+- ``backward_pops``: the shading's and the recompute's backward kernels
+  alone (``kernels.shade._launch_shade_grad``,
+  ``kernels.recompute._launch_recompute_grad``) on the inputs and the
+  gradients they get at the pops that ``chip_smoke.py``'s ``shade_vs_plain``
+  and ``recompute_vs_plain`` use: the deepest band's pops 1 and 3 of
+  ``grad``, pop 1 of ``grad_soft`` and of ``generic_hard`` (bvh1k), and for
+  the recompute bvh1k's pop 1 with soft edges and a seeded gradient; each
+  band traced eagerly at its probed depth and differentiated (its squared
+  error against the target's rows).  Every checkout builds these inputs and
+  says whether they equal the first checkout's bit for bit; each runs its
+  kernels on the first checkout's (a step that refracts adds some float
+  gradients by atomics, so two traces may differ in a last ulp), every
+  input's gradient and then the band's own ``need``, in both builds, and
+  times each kernel on them (every input's gradient; cold L2, least of
+  ``REPS``: after a flush that leaves the L2 full of dirty lines, as every
+  other cold time here, and after one that reads through it), each beside a
+  plain device copy of as many bytes under the same flush (``copy_ms``,
+  what streaming those bytes costs).  The parent process then holds every
+  checkout's outputs against the first checkout's bit for bit (the floats'
+  bits, so NaNs in the same places) and prints the verdict
+  (``backward_pops_bits``);
 - ``ri_split``: ``grad``'s deepest band once, eagerly, under a profiler
   session of host and device activity: the device time of every kernel by
   the range that launched it (``op_split``): the surrounding-RI containment
@@ -96,6 +117,13 @@ import time
 
 REPS = 3
 RECOMPUTE_ITERS = 200
+L2_FLUSH_BYTES = 128 << 20  # written or read before each cold-L2 launch (the card's L2: 50 MB)
+SLEEP_CYCLES = 500_000
+POP_LANES_SEED = 0  # the seeded gradient of the soft bvh1k recompute case
+# where ``backward_pops`` keeps what it hands from one checkout's process to
+# the next and to the parent (a directory the parent makes)
+AB_DIR_ENV = "CHIP_QUEUE_AB_DIR"
+AB_RUN_ENV = "CHIP_QUEUE_AB_RUN"
 TOP = 30  # kernels printed per workload, by device time
 DEVICE_RECORDS = ("kernel", "gpu_memcpy", "gpu_memset")
 FRAME = dict(width=800, height=450, spp=16, max_bounces=8)
@@ -106,7 +134,8 @@ SOFT = 0.03
 WORKLOADS = ("bvh_queue_frame", "dense_generic_frame", "unbanded_step", "sharded_step",
              "megalanes_natural", "megalanes_sorted", "workqueue_frame", "megalanes_motion",
              "grad_split", "ri_split", "grad", "grad_soft", "generic_hard", "generic_soft",
-             "motion_soft", "moving_groups_soft", "grad_eager", "recompute_pop")
+             "motion_soft", "moving_groups_soft", "grad_eager", "recompute_pop",
+             "backward_pops")
 GRAD_WORKLOADS = ("grad_split", "ri_split", "grad", "grad_soft", "generic_hard", "generic_soft",
                   "motion_soft", "moving_groups_soft", "grad_eager")
 # The ranges ``op_split`` attributes a kernel to, innermost first where they
@@ -259,6 +288,8 @@ def child(root: str, only) -> None:
         grad_workloads(say, dev, only)
     if "recompute_pop" in only:
         recompute_pop(say, dev)
+    if "backward_pops" in only:
+        backward_pops(say, dev)
 
 
 def moving_groups_scene():
@@ -593,6 +624,223 @@ def recompute_pop(say, dev) -> None:
         **measured(lambda: pop(lanes)))
 
 
+def cold_ms(fn, clean=False) -> float:
+    """Least device ms of one call of ``fn()`` over ``REPS``, each timed by
+    CUDA events recorded while the card sleeps (so that the call is enqueued
+    before its start event fires) after the L2 cache was overwritten
+    (``clean``: read through instead, so that the call evicts no dirty line
+    and writes none back)."""
+    import torch
+
+    junk = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    fn()
+    times = []
+    for _ in range(REPS):
+        if clean:
+            junk.sum()
+        else:
+            junk.zero_()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return min(times)
+
+
+def band_backward_inputs(g, band) -> dict:
+    """The shading's and the recompute's backward calls of band ``band`` of
+    the gradient frame ``g``, traced eagerly at its probed depth and
+    differentiated (its squared error against the target's rows), in pop
+    order -> dict(shade=[dict(inputs, grads, statics, need)], recompute=[dict(
+    inputs, grads, soft, spheres, need)]) (the recompute has no backward at
+    a band's last pop with hard edges)."""
+    import dataclasses
+
+    import torch
+
+    from raytracing_tests_tpu_torch import diff
+    from raytracing_tests_tpu_torch.diff.train import _diff_cfg
+    from raytracing_tests_tpu_torch.kernels import recompute, shade
+    from raytracing_tests_tpu_torch.ops.render import (_build_accel, _lane_inputs, finalize,
+                                                       trace_lanes)
+
+    cfg = dataclasses.replace(_diff_cfg(g["cfg"]), early_exit=False, max_pops=g["pops"][band])
+    lo, ld, ltr, ls = _lane_inputs(g["cam"], cfg)
+    h = cfg.height // g["bands"]
+    n = h * cfg.width * cfg.spp
+    sl = slice(band * n, (band + 1) * n)
+    leaves = g["p"].map(lambda v: v.detach().clone().requires_grad_(True))
+    scene = diff.apply_params(g["pert"], leaves)
+    got = dict(shade=[], recompute=[])
+    s_bwd, r_bwd = shade._shade_grad, recompute._recompute_grad
+    keep = lambda xs: [None if x is None else x.detach().clone() for x in xs]  # noqa: E731
+
+    def keep_shade(inputs, grads, statics, need):
+        got["shade"].append(dict(inputs=keep(inputs), grads=keep(grads), statics=statics,
+                                 need=list(need)))
+        return s_bwd(inputs, grads, statics, need)
+
+    def keep_recompute(inputs, grads, soft, spheres, need):
+        got["recompute"].append(dict(inputs=keep(inputs), grads=keep(grads), soft=soft,
+                                     spheres=spheres, need=list(need)))
+        return r_bwd(inputs, grads, soft, spheres, need)
+
+    shade._shade_grad, recompute._recompute_grad = keep_shade, keep_recompute
+    try:
+        color, primary_t, _, _ = trace_lanes(scene, None, cfg, lo[sl], ld[sl], ltr[sl], ls[sl],
+                                             _build_accel(scene, cfg))
+        img = finalize(color.reshape(h, cfg.width, cfg.spp, 3),
+                       primary_t.reshape(h, cfg.width, cfg.spp), cfg)["image"]
+        sse = torch.sum((img - g["target"][band * h:(band + 1) * h]) ** 2)
+        torch.autograd.grad(sse, [v for _, v in leaves.items()], allow_unused=True)
+    finally:
+        shade._shade_grad, recompute._recompute_grad = s_bwd, r_bwd
+    return {k: v[::-1] for k, v in got.items()}  # the backward runs the pops in reverse
+
+
+def backward_pop_cases(dev) -> dict:
+    """The ``backward_pops`` cases: {name: (kernel, dict of its launch's
+    arguments)} (see the docstring)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from raytracing_tests_tpu_torch import diff
+    from raytracing_tests_tpu_torch.scene import examples
+
+    def jitter(s):
+        dpos = np.random.default_rng(0).uniform(-0.1, 0.1, tuple(s.position.shape))
+        dpos = torch.from_numpy(dpos.astype(np.float32))
+        return s.replace(position=s.position + dpos.to(s.position.device))
+
+    deepest = lambda g: max(range(g["bands"]), key=lambda b: g["pops"][b])  # noqa: E731
+    g = grad_inputs(dev, examples.iow_final_scene(), lambda s: s.replace(color=s.color * 0.8 + 0.1))
+    gs = dict(g, cfg=dataclasses.replace(g["cfg"], soft_edges=SOFT))
+    gs["pops"] = [q + diff.train.POPS_MARGIN
+                  for q in diff.probe_band_pops(gs["pert"], gs["cam"], gs["cfg"], gs["bands"])]
+    gg = grad_inputs(dev, examples.bvh_grid_scene(side=32), jitter, soft=SOFT)
+    hard = dict(gg, cfg=dataclasses.replace(gg["cfg"], soft_edges=0.0))
+    cases = {}
+    for label, frame, pops in (("grad", g, (1, 3)), ("grad_soft", gs, (1,)),
+                               ("bvh1k", hard, (1,))):
+        calls = band_backward_inputs(frame, deepest(frame))
+        for pop in pops:
+            cases[f"shade_{label}_pop{pop}"] = ("shade", calls["shade"][pop - 1])
+            cases[f"recompute_{label}_pop{pop}"] = ("recompute", calls["recompute"][pop - 1])
+    soft = dict(cases["recompute_bvh1k_pop1"][1], soft=SOFT, need=[True] * 7)
+    rng = np.random.default_rng(POP_LANES_SEED)
+    B = soft["inputs"][0].shape[0]
+    soft["grads"] = [torch.from_numpy(rng.normal(size=(B, w) if w > 1 else (B,))
+                                      .astype(np.float32)).to(dev) for w in (1, 3, 3, 1)]
+    cases["recompute_bvh1k_soft_pop1"] = ("recompute", soft)
+    return cases
+
+
+def _same_bits(a, b) -> bool:
+    """Two tensors (or Nones) equal bit for bit: floats by their bits, so
+    NaNs in the same places with the same payload."""
+    import torch
+
+    if a is None or b is None:
+        return a is None and b is None
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+    return bool(torch.equal(a, b))
+
+
+def _to(x, dev):
+    """``x`` (nested lists, tuples and dicts of tensors) with every tensor on
+    ``dev``."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, dict):
+        return {k: _to(v, dev) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to(v, dev) for v in x)
+    return x
+
+
+def backward_pops(say, dev) -> None:
+    """The ``backward_pops`` workload of one checkout (see the docstring):
+    its outputs go to ``$CHIP_QUEUE_AB_DIR/backward_pops_<run>.pt``, for the
+    parent to compare."""
+    import torch
+
+    from raytracing_tests_tpu_torch.kernels import _build, recompute, shade
+
+    out_dir, run = os.environ[AB_DIR_ENV], int(os.environ[AB_RUN_ENV])
+    own = backward_pop_cases(dev)
+    shared = os.path.join(out_dir, "backward_pops_inputs.pt")
+    if os.path.exists(shared):
+        cases = _to(torch.load(shared), dev)
+        same = {name: all(_same_bits(a, b) for a, b in zip(c["inputs"] + c["grads"],
+                                                             own[name][1]["inputs"]
+                                                             + own[name][1]["grads"]))
+                for name, (_, c) in cases.items()}
+    else:
+        torch.save(_to(own, "cpu"), shared)
+        cases, same = own, {name: True for name in own}
+    del own
+
+    def launch(kernel, c, need=None):
+        if kernel == "shade":
+            return shade._launch_shade_grad(c["inputs"], c["grads"], c["statics"], need)
+        return recompute._launch_recompute_grad(c["inputs"], c["grads"], c["soft"], c["spheres"],
+                                                need)
+
+    outs, rows = {}, {}
+    for name, (kernel, c) in cases.items():
+        got = {}
+        for build, ctx in (("default", contextlib.nullcontext), ("precise", _build.precise)):
+            with ctx():
+                got[f"{build}_every"] = launch(kernel, c)
+                got[f"{build}_band_need"] = launch(kernel, c, c["need"])
+        torch.cuda.synchronize()
+        outs[name] = _to(got, "cpu")
+        lanes = int(c["inputs"][0].shape[0])
+        # a plain device copy of as many bytes as the kernel reads and writes:
+        # what streaming those bytes costs under the same flushes
+        moved = sum(x.numel() * x.element_size() for x in c["inputs"] + c["grads"]
+                    + list(got["default_every"]) if x is not None)
+        src = torch.empty(moved // 8, device=dev)
+        dst = torch.empty_like(src)
+        rows[name] = dict(kernel=kernel, lanes=lanes, inputs_equal_first_checkout=same[name],
+                          band_need=c["need"], ms=cold_ms(lambda: launch(kernel, c)),
+                          ms_clean_l2=cold_ms(lambda: launch(kernel, c), clean=True),
+                          bytes=moved, copy_ms=cold_ms(lambda: dst.copy_(src)),
+                          copy_ms_clean_l2=cold_ms(lambda: dst.copy_(src), clean=True))
+        del src, dst
+    torch.save(outs, os.path.join(out_dir, f"backward_pops_{run}.pt"))
+    say(workload="backward_pops", run=run, cases=rows)
+
+
+def compare_backward_pops(out_dir, roots) -> bool:
+    """Every checkout's ``backward_pops`` outputs against the first's, bit
+    for bit -> whether all are equal (and prints the verdict)."""
+    import torch
+
+    got = [torch.load(os.path.join(out_dir, f"backward_pops_{k}.pt")) for k in range(len(roots))]
+    differ = {}
+    for k, outs in enumerate(got[1:], 1):
+        for name, by in outs.items():
+            for key, xs in by.items():
+                bad = [j for j, (a, b) in enumerate(zip(xs, got[0][name][key]))
+                       if not _same_bits(a, b)]
+                if bad or len(xs) != len(got[0][name][key]):
+                    differ.setdefault(roots[k], []).append(dict(case=name, run=key, fields=bad))
+    print(json.dumps(dict(workload="backward_pops_bits", roots=roots, first=roots[0],
+                          all_equal=not differ, differ=differ)), flush=True)
+    return not differ
+
+
 def drain_frame(say, name, fn) -> None:
     out = fn()
     say(workload=name, rays=int(out["rays"]), iterations=int(out["iterations"]),
@@ -632,11 +880,15 @@ def main() -> int:
             print(f"{root}: no raytracing_tests_tpu_torch here", file=sys.stderr)
             return 2
     failed = 0
-    for root in roots:
-        failed |= subprocess.call([sys.executable, os.path.abspath(__file__), "--reps",
-                                   str(REPS), "--only", ",".join(only), "--child",
-                                   os.path.abspath(root)],
-                                  cwd=os.path.abspath(root)) != 0
+    with tempfile.TemporaryDirectory() as ab_dir:
+        for run, root in enumerate(roots):
+            env = dict(os.environ, **{AB_DIR_ENV: ab_dir, AB_RUN_ENV: str(run)})
+            failed |= subprocess.call([sys.executable, os.path.abspath(__file__), "--reps",
+                                       str(REPS), "--only", ",".join(only), "--child",
+                                       os.path.abspath(root)],
+                                      cwd=os.path.abspath(root), env=env) != 0
+        if "backward_pops" in only and not failed:
+            failed |= not compare_backward_pops(ab_dir, roots)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
     return int(failed)

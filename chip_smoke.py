@@ -4676,6 +4676,7 @@ TRACE_NAMES = {"sweep2": "::sweep2_kernel<false, false>", "sweep2_m": "::sweep2_
                "queue_pop_grad": "::queue_pop_grad_kernel(",
                "queue_push2_grad": "::queue_push2_grad_kernel("}
 QUEUE_KERNELS = ("queue_pop", "queue_push2", "queue_pop_grad", "queue_push2_grad")
+NAMED_KERNEL_MS = 1.0  # a replayed step's kernels named in its phase line: those above this
 # the gradient path's kernels of the port that still add floats by atomics
 # (their sums' order varies from run to run)
 FLOAT_ATOMIC_KERNELS = ("ri_sum_grad",)
@@ -5117,6 +5118,15 @@ def cold_ms(fn, reps=3):
     return min(times)
 
 
+def copy_ms(nbytes):
+    """``cold_ms`` of a plain device copy that reads and writes ``nbytes``
+    in all: what streaming a kernel's bytes costs under the same cold L2
+    (whose flush leaves it dirty), beside the bound at the card's peak rate."""
+    src = torch.empty(max(nbytes // 8, 1), device="cuda")
+    dst = torch.empty_like(src)
+    return cold_ms(lambda: dst.copy_(src))
+
+
 def first_pop_gather(g, band):
     """The winner gather's and the recompute's inputs at the first pop of
     band ``band`` of ``g``'s gradient path and the gradients their backwards
@@ -5472,7 +5482,8 @@ def recompute_vs_plain(cases):
     each kernel's device time (cold L2, least of 3) beside its bound
     by bytes (its own reads and writes), the plain version's time and the
     route it replaced: the plain forward under autograd, and that forward
-    plus its autograd backward -> {case: row}."""
+    plus its autograd backward; the backward's also beside a device copy of
+    its bytes (``copy_ms``) -> {case: row}."""
     rng = np.random.default_rng(SEED)
     rows = {}
     for label, c in cases.items():
@@ -5545,7 +5556,7 @@ def recompute_vs_plain(cases):
                                                                           sph)),
             jvp_plain_ms=cold_ms(lambda: recompute._recompute_jvp_plain(inputs, tans, soft, sph)),
             library_ms=cold_ms(routed), grad_library_ms=cold_ms(routed_backward),
-            bytes=bytes_of, bound_by="bytes",
+            bytes=bytes_of, bound_by="bytes", grad_copy_ms=copy_ms(bytes_of["grad"]),
             **{f"{k}_bound_ms": v / PEAK_BYTES_PER_S * 1e3 for k, v in bytes_of.items()})
         rows[label] = row
         say(phase="recompute_vs_plain", case=label, **row)
@@ -5735,7 +5746,8 @@ def shade_vs_plain(cases):
     kernel's device time (cold L2, least of 3) beside its bound (the bytes
     it must move; operations by ``FLOPS_PER_SHADE*``), the plain version's
     time and the route it replaced: the plain forward under autograd, and
-    that forward plus its autograd backward -> {case: row}."""
+    that forward plus its autograd backward; the backward's also beside a
+    device copy of its bytes (``copy_ms``) -> {case: row}."""
     rng = np.random.default_rng(SEED)
     rows = {}
     names_in = [n for n, _ in shade.FLOAT_INPUTS]
@@ -5819,7 +5831,7 @@ def shade_vs_plain(cases):
             grad_plain_ms=cold_ms(lambda: shade._shade_grad_plain(inputs, grads, statics)),
             jvp_plain_ms=cold_ms(lambda: shade._shade_jvp_plain(inputs, tans, statics)),
             library_ms=cold_ms(routed), grad_library_ms=cold_ms(routed_backward),
-            bytes=bytes_of, flops=flops,
+            bytes=bytes_of, flops=flops, grad_copy_ms=copy_ms(bytes_of["grad"]),
             **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
             **{f"{k}_bound_by": v[1] for k, v in bounds.items()})
         rows[label] = row
@@ -6623,7 +6635,12 @@ def grad_phases(dev, k3_canary):
     winner_ms = {n: traced_ms(by, n) for n in ("winner_gather", "winner_scatter")}
     ri_ms = {n: traced_ms(by, n) for n in ("ri_sum", "ri_sum_grad")}
     shade_ms = {n: traced_ms(by, n) for n in ("shade_bvh", "shade_bvh_grad")}
+    recompute_ms = {n: traced_ms(by, n) for n in ("winner_recompute", "winner_recompute_grad")}
     queue_ms = {n: traced_ms(by, n) for n in QUEUE_KERNELS}
+    # every kernel or copy of the replayed step with 1 ms or more over it,
+    # PyTorch's own too: the ranking of what the step spends its device time on
+    named = {name[:160]: ms for name, ms in sorted(by.items(), key=lambda kv: -kv[1])
+             if ms >= NAMED_KERNEL_MS}
     # a long session can lose the device records of its last launches: the
     # port's kernels the trace holds, against the step's launches
     k2_records = SESSIONS[-1]["port_kernel_records"]
@@ -6653,7 +6670,8 @@ def grad_phases(dev, k3_canary):
                  probe_seconds=g["probe_ms"] / 1e3, peak_memory_bytes=k["peak_memory_bytes"],
                  launches=k["step_launches"], k2_launches=n_k2, k2_device_ms=k2_ms,
                  winner_device_ms=winner_ms, ri_device_ms=ri_ms, shade_device_ms=shade_ms,
-                 queue_device_ms=queue_ms, deepest_band=share,
+                 recompute_device_ms=recompute_ms, queue_device_ms=queue_ms,
+                 step_kernels_device_ms=named, deepest_band=share,
                  default_build=default, precise_build=precise, recompute_64=recompute_64)
     say(phase="grad_frame", host=host_state(), **frame)
     graphed = dict(
@@ -6674,7 +6692,8 @@ def grad_phases(dev, k3_canary):
         capture_step_launches=k["launches"], replay_step_launches=k["step_launches"],
         eager_step_launches=ke["step_launches"], sweeps_per_step=n_k2,
         k2_device_ms=k2_ms, winner_device_ms=winner_ms, ri_device_ms=ri_ms,
-        shade_device_ms=shade_ms, queue_device_ms=queue_ms, port_records_in_trace=k2_records,
+        shade_device_ms=shade_ms, recompute_device_ms=recompute_ms, queue_device_ms=queue_ms,
+        port_records_in_trace=k2_records,
         device_ms_of_a_replay_step=sum(by.values()),
         deepest_band=share, deepest_band_eager=share_eager,
         eager_band_sync_free=sync_free,

@@ -54,6 +54,7 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int GRAD_THREADS = 128;  // the backward's blocks
 constexpr int ELLIPSOID = 1;
 constexpr int CUBOID = 2;
 
@@ -669,7 +670,12 @@ __global__ void __launch_bounds__(THREADS) recompute_jvp_kernel(Args a) {
 // d reach the core directly only for soft spheres).
 constexpr int CORE_IN = 15;
 
-__global__ void __launch_bounds__(THREADS) recompute_grad_kernel(Args a) {
+// Blocks of GRAD_THREADS, four resident an SM (16 warps, at most 128
+// registers).  A build of the same code at 130 registers kept one
+// block of 256 an SM and took 0.0543 ms against 0.0378 at the grad frame's
+// first pop on an H100; blocks of 128 took less time than blocks of 256 at
+// the same warps (chip_queue_ab.py --only backward_pops).
+__global__ void __launch_bounds__(GRAD_THREADS, 4) recompute_grad_kernel(Args a) {
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.B) return;
   float o[3], d[3], tr, pos[3], dpos[3], R[9], s[3];
@@ -797,6 +803,7 @@ extern "C" int rt_winner_recompute_grad(const void* const* in, const void* hit,
   Args a = args_of(in, hit, obj_type, B, soft, spheres);
   for (int k = 0; k < N_OUT; ++k) a.grad_out[k] = static_cast<const float*>(grads[k]);
   for (int k = 0; k < N_IN; ++k) a.grad_in[k] = static_cast<float*>(grad_in[k]);
-  RT_LAUNCH(recompute_grad_kernel, blocks_of(B), THREADS, static_cast<cudaStream_t>(stream), a);
+  RT_LAUNCH(recompute_grad_kernel, (int)((B + GRAD_THREADS - 1) / GRAD_THREADS), GRAD_THREADS,
+            static_cast<cudaStream_t>(stream), a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -54,6 +54,7 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int GRAD_THREADS = 128;  // the backward's blocks
 // sampling.GOLDEN_ANGLE: float32(PI) * (3 - sqrt(float32(5))), in float32
 constexpr float GOLDEN = 2.39996314f;
 
@@ -537,8 +538,11 @@ __global__ void __launch_bounds__(THREADS) shade_jvp_kernel(Args a) {
 }
 
 // The reverse mode: the forward recomputed in registers, then every step's
-// adjoint in reverse order.
-__global__ void __launch_bounds__(THREADS) shade_grad_kernel(Args a) {
+// adjoint in reverse order.  Blocks of GRAD_THREADS, five resident an SM
+// (20 warps, at most 102 registers) where blocks of 256 at 104 registers
+// kept 16: more warps hide more of each lane's chain of dependent arithmetic
+// (chip_queue_ab.py --only backward_pops).
+__global__ void __launch_bounds__(GRAD_THREADS, 5) shade_grad_kernel(Args a) {
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.B) return;
   const Statics& s = a.s;
@@ -791,6 +795,7 @@ extern "C" int rt_shade_bvh_grad(const void* const* in, const void* const* other
   Args a = args_of(in, other, B, ints, floats);
   for (int k = 0; k < N_OUT; ++k) a.grad_out[k] = static_cast<const float*>(grads[k]);
   for (int k = 0; k < N_IN; ++k) a.grad_in[k] = static_cast<float*>(grad_in[k]);
-  RT_LAUNCH(shade_grad_kernel, blocks_of(B), THREADS, static_cast<cudaStream_t>(stream), a);
+  RT_LAUNCH(shade_grad_kernel, (int)((B + GRAD_THREADS - 1) / GRAD_THREADS), GRAD_THREADS,
+            static_cast<cudaStream_t>(stream), a);
   return static_cast<int>(cudaGetLastError());
 }

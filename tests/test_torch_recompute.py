@@ -275,6 +275,107 @@ def test_the_rehearsed_backward_skips_what_is_not_needed():
             assert torch.equal(g, f)
 
 
+def _bits(a, b):
+    """Equal bit for bit (a float's bits, so NaNs in the same places), or
+    both None."""
+    if a is None or b is None:
+        return a is None and b is None
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _lanes_at(inputs, grads, at):
+    """The inputs and gradients of lanes ``at``: views where ``at`` is a
+    slice, copies where it is an index tensor."""
+    return [x[at] for x in inputs], [None if q is None else q[at] for q in grads]
+
+
+def _within_plain(kernel, ref, plain):
+    """The kernel's float32 gradient against float64 autograd ``ref`` of the
+    plain version: its largest error within the float32 plain version's own
+    plus 1e-5 of the sum of |ref|, its summed error at most twice the plain
+    version's plus 1e-6 of that sum."""
+    err = (kernel.double() - ref).abs()
+    perr = (plain.double() - ref).abs()
+    s = float(ref.abs().sum())
+    return (bool(torch.isfinite(kernel).all())
+            and float(err.max()) <= float(perr.max()) + 1e-5 * s
+            and float(err.sum()) <= 2.0 * float(perr.sum()) + 1e-6 * s)
+
+
+BLOCK = 128  # lanes a block of the backward kernel (csrc/recompute.cu GRAD_THREADS)
+
+
+def _three_times(mode, seed):
+    """The port's inputs of ``lanes(mode, seed)`` three times over (3 B
+    lanes, more than three blocks), in float32 and in float64."""
+    x = lanes(mode, seed=seed)
+    return ([torch.cat([v] * 3) for v in port_inputs(x)],
+            [torch.cat([v] * 3) for v in port_inputs(x, torch.float64)])
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="the host rehearsal needs g++")
+@pytest.mark.parametrize("mode,soft", [("spheres", 0.0), ("generic", 0.03)])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [0, 1, BLOCK - 1, BLOCK + 1, 3 * BLOCK + 5])
+def test_the_rehearsed_backward_in_blocks_equals_its_lanes_one_at_a_time(n, offset, mode, soft):
+    """The backward over n lanes (a ragged last block; below one block;
+    every field a view one lane in, so no base is 16-byte aligned) equals
+    bit for bit the same lanes run one a launch, and is within the plain
+    version's own float32 error of float64 autograd of it."""
+    spheres = mode == "spheres"
+    full, full64 = _three_times(mode, 10)
+    want = rc._recompute_plain(full, soft, spheres)
+    rng = np.random.default_rng(11)
+    grads = [torch.from_numpy(rng.normal(size=tuple(w.shape)).astype(np.float32)) for w in want]
+    at = slice(offset, offset + n)
+    inputs, grads = _lanes_at(full, grads, at)
+    with _build.host_rehearsal():
+        got = rc._launch_recompute_grad(inputs, grads, soft, spheres)
+        one = [rc._launch_recompute_grad(*_lanes_at(inputs, grads, slice(j, j + 1)), soft,
+                                         spheres) for j in range(n)]
+    assert len(got) == len(FIELDS)
+    for k, name in enumerate(FIELDS):
+        assert got[k].shape[0] == n, name
+        if n:
+            assert _bits(got[k], torch.cat([o[k] for o in one])), name
+    if n > 1:
+        ref = rc._recompute_grad_plain([v[at] for v in full64], [q.double() for q in grads],
+                                       soft, spheres)
+        plain = rc._recompute_grad_plain(inputs, grads, soft, spheres)
+        for name, k, r, p in zip(FIELDS, got, ref, plain):
+            assert _within_plain(k, r, p), name
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="the host rehearsal needs g++")
+@pytest.mark.parametrize("soft", [0.0, 0.03])
+def test_a_block_of_mixed_branches_permutes_with_its_lanes(soft):
+    """Lanes that take every branch of the backward (spheres, that is
+    isotropic unrotated ellipsoids, rotated ellipsoids and cuboids, each hit
+    and missed) over more than one block: permuting the input lanes permutes
+    every input's gradient bit for bit."""
+    x = lanes("generic", seed=12)
+    sph = slice(0, 48)
+    x["obj_type"][sph], x["rotation"][sph] = 1, np.eye(3, dtype=np.float32)
+    x["scale"][sph] = x["scale"][sph][:, :1]
+    # misses of every type: a missed lane keeps its own row here (the
+    # renderer's read row 0, whatever its type)
+    missed = slice(40, 100)
+    x["hit"][missed] = False
+    x["obj"][missed] = np.arange(B)[missed]
+    inputs = port_inputs(x)
+    kinds = {(int(t), bool(h)) for t, h in zip(inputs[8].tolist(), inputs[3].tolist())}
+    assert {(1, True), (1, False), (2, True), (2, False)} <= kinds
+    want = rc._recompute_plain(inputs, soft, False)
+    rng = np.random.default_rng(13)
+    grads = [torch.from_numpy(rng.normal(size=tuple(w.shape)).astype(np.float32)) for w in want]
+    perm = torch.from_numpy(rng.permutation(B))
+    with _build.host_rehearsal():
+        got = rc._launch_recompute_grad(inputs, grads, soft, False)
+        moved = rc._launch_recompute_grad(*_lanes_at(inputs, grads, perm), soft, False)
+    for name, g, m in zip(FIELDS, got, moved):
+        assert _bits(g[perm], m), name
+
+
 def test_the_wrappers_check_their_arguments():
     inputs = port_inputs(lanes("spheres", seed=8))
     with pytest.raises(RuntimeError, match="take CUDA tensors"):

@@ -328,6 +328,100 @@ def test_the_rehearsed_backward_skips_what_is_not_needed():
             assert torch.equal(g, f)
 
 
+BLOCK = 128  # lanes a block of the backward kernel (csrc/shade.cu GRAD_THREADS)
+
+
+def _bits(a, b):
+    """Equal bit for bit (a float's bits, so NaNs in the same places), or
+    both None."""
+    if a is None or b is None:
+        return a is None and b is None
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _lanes_at(inputs, grads, at):
+    """The inputs and gradients of lanes ``at``: views where ``at`` is a
+    slice, copies where it is an index tensor."""
+    return ([None if x is None else x[at] for x in inputs],
+            [None if q is None else q[at] for q in grads])
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="the host rehearsal needs g++")
+@pytest.mark.parametrize("soft,lights", [(False, False), (True, True)])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [0, 1, BLOCK - 1, BLOCK + 1, 3 * BLOCK + 5])
+def test_the_rehearsed_backward_in_blocks_equals_its_lanes_one_at_a_time(n, offset, soft, lights):
+    """The backward over n lanes (a ragged last block; below one block;
+    every field a view one lane in, so no base is 16-byte aligned) equals
+    bit for bit the same lanes run one a launch, and is within the bars of
+    ``test_kernel_source_rehearsed_on_the_host`` against float64 autograd of
+    the plain version."""
+    inputs, statics = lanes(12, soft, lights, n=n + offset)
+    want = shade._shade_plain(inputs, statics)
+    rng = np.random.default_rng(13)
+    grads = [torch.from_numpy(rng.normal(size=tuple(want[k].shape)).astype(np.float32))
+             for k in shade._FLOAT_AT]
+    inputs, grads = _lanes_at(inputs, grads, slice(offset, None))
+    with _build.host_rehearsal():
+        got = shade._launch_shade_grad(inputs, grads, statics)
+        one = [shade._launch_shade_grad(*_lanes_at(inputs, grads, slice(j, j + 1)), statics)
+               for j in range(n)]
+    for k, (name, _) in enumerate(shade.FLOAT_INPUTS):
+        if got[k] is None:
+            assert name == "soft_alpha" and not soft and all(o[k] is None for o in one)
+            continue
+        assert got[k].shape[0] == n, name
+        if n:
+            assert _bits(got[k], torch.cat([o[k] for o in one])), name
+    if n > 1:
+        x64 = [x.double() if x is not None and k < shade.N_FLOAT else x
+               for k, x in enumerate(inputs)]
+        ref = shade._shade_grad_plain(x64, [q.double() for q in grads], statics)
+        plain = shade._shade_grad_plain(inputs, grads, statics)
+        for (name, _), k, r, p in zip(shade.FLOAT_INPUTS, got, ref, plain):
+            if r is not None:
+                assert _within_float64(k, r, p), name
+
+
+def _branch_keys(inputs):
+    """Each lane's branches in the backward: inner or outer hit, total
+    internal reflection, each cone deviated and kept."""
+    d, nrm, sri, mri = inputs[1], inputs[4], inputs[5], inputs[7]
+    dn = (nrm * d).sum(1)
+    inner = dn > 0.0
+    eta = torch.where(inner, mri / sri, sri / mri)
+    tir = 1.0 - eta * eta * (1.0 - dn * dn) < 0.0
+    dev_l, dev_r = inputs[11] > 0.001, inputs[10] > 0.001
+    keep_l, keep_r = inputs[9] > 0.002, inputs[8] > 0.002
+    return torch.stack([inner, tir, dev_l & keep_l, dev_r & keep_r], 1)
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="the host rehearsal needs g++")
+@pytest.mark.parametrize("soft,lights", KERNEL_CASES)
+def test_a_block_of_mixed_branches_permutes_with_its_lanes(soft, lights):
+    """Blocks whose lanes take every branch of the backward (inner and outer
+    hits, total internal reflection, each cone deviated or not, missed and
+    inactive lanes): permuting the input lanes permutes every input's
+    gradient bit for bit."""
+    n = 2 * BLOCK
+    inputs, statics = lanes(14, soft, lights, n=n)
+    keys = _branch_keys(inputs)
+    kinds = {tuple(k) for k in keys.tolist()}
+    assert {(True, True), (True, False), (False, False)} <= {k[:2] for k in kinds}
+    assert {(False, False, True, True), (False, False, False, False)} <= kinds
+    assert not bool(inputs[shade.N_FLOAT + 3].all()) and not bool(inputs[shade.N_FLOAT + 4].all())
+    want = shade._shade_plain(inputs, statics)
+    rng = np.random.default_rng(15)
+    grads = [torch.from_numpy(rng.normal(size=tuple(want[k].shape)).astype(np.float32))
+             for k in shade._FLOAT_AT]
+    perm = torch.from_numpy(rng.permutation(n))
+    with _build.host_rehearsal():
+        got = shade._launch_shade_grad(inputs, grads, statics)
+        moved = shade._launch_shade_grad(*_lanes_at(inputs, grads, perm), statics)
+    for (name, _), g, m in zip(shade.FLOAT_INPUTS, got, moved):
+        assert _bits(None if g is None else g[perm], m), name
+
+
 def _rehearsed(kernel):
     def run(*args, **kw):
         with _build.host_rehearsal():
